@@ -1,0 +1,522 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path on one NVIDIA H100 and check its kernels.
+
+Run from the root of a checkout on a machine with a CUDA card:
+
+    python3 chip_smoke.py
+
+In order it prints the card's name and power limit, builds the CUDA kernels
+of ``src/lightglue_tpu_torch/csrc`` (nvcc, sm_90a), holds each of the five
+kernels to its plain PyTorch version at the main path's shapes in bf16 and
+fp32, holds the whole layer stack to its plain version at 9 layers, drives
+``MatcherSession(device="cuda").match_pair`` at the default config (BF16,
+9 layers, seed-0 random weights) on a 480x640 pair and checks that every
+kernel launched, then checks a small FP32 pair against the port on the CPU.
+It ends with a ``{"kernels": [...]}`` line and the ``{"ok": true, ...}``
+line. Any failure raises and exits non-zero; so does a missing card or a
+directory without the package.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+HBM_BYTES_PER_MS = 3.35e9      # 3.35 TB/s
+BF16_FLOP_PER_MS = 989e9       # dense bf16 tensor-core peak
+FP32_OP_PER_MS = 67e9          # fp32 outside the tensor cores
+N_LAYERS = 9
+BUCKET = 1024
+
+# stated tolerances, |kernel - plain| <= atol + rtol * |plain|
+TOL = {
+    # fp32: the two differ only in the order of fp32 sums
+    "fp32": dict(atol=1e-4, rtol=1e-4),
+    # bf16: the same rounding points, so a difference is a rounding flip
+    # caused by a different fp32 sum order: one or two bf16 ulps (2^-8..2^-7)
+    "bf16": dict(atol=2e-2, rtol=2e-2),
+}
+# whole stack, 9 layers: fp32 order effects compound a little per layer; in
+# bf16 the bound is twice the per-layer envelope measured between two
+# summation orders of the JAX bf16 stack at 9 layers
+# (golden/bf16_layer_err_r05.txt: 0.2501 -> 0.5), plus one bf16 ulp
+STACK_TOL = {"fp32": dict(atol=1e-3, rtol=1e-3), "bf16": dict(atol=0.5, rtol=2 ** -7)}
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def cuda_ms(fn, reps=10, inner=10):
+    """Median device time of one fn() call: ``inner`` calls are captured in
+    a CUDA graph, and each of ``reps`` replays is timed with CUDA events.
+    Replaying a graph keeps Python's launch overhead out of the number, so
+    a short kernel is timed, not the host enqueueing it."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the default stream
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        graph.replay()
+        e.record()
+        events.append((s, e))
+    torch.cuda.synchronize()
+    ms = statistics.median(s.elapsed_time(e) for s, e in events) / inner
+    del graph
+    return ms
+
+
+def eager_ms(fn, reps=10):
+    """Median time of one eager fn() call between CUDA events, host launch
+    overhead included (what the Python layer loop costs as it runs)."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        events.append((s, e))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def compare(label, got, want, atol, rtol, exact=False):
+    import torch
+
+    if got.shape != want.shape:
+        raise AssertionError(f"{label}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    if exact:
+        if not torch.equal(got, want):
+            n = int((got != want).sum())
+            raise AssertionError(f"{label}: {n} elements differ (exact check)")
+        log(f"  {label}: exact match")
+        return 0.0
+    g, w = got.float(), want.float()
+    if not torch.isfinite(g).all():
+        raise AssertionError(f"{label}: non-finite kernel output")
+    err = (g - w).abs()
+    bad = err > atol + rtol * w.abs()
+    max_err = float(err.max())
+    if bool(bad.any()):
+        raise AssertionError(
+            f"{label}: {int(bad.sum())} elements beyond atol {atol} rtol {rtol}, "
+            f"max abs err {max_err:.3e}"
+        )
+    log(f"  {label}: max_abs_err {max_err:.3e} (atol {atol}, rtol {rtol})")
+    return max_err
+
+
+class Entry:
+    """Per-kernel accumulator for the ``kernels`` JSON line: times and bounds
+    summed over the kernel's launches in one main-path match_pair."""
+
+    def __init__(self, name, source, replaces):
+        self.d = dict(name=name, route="cuda", source=source, replaces=replaces,
+                      launches=0, max_abs_err=0.0, ms=0.0, plain_ms=0.0,
+                      bound_ms=0.0, library_ms=None)
+        self._bytes_ms = self._ops_ms = 0.0
+
+    def add(self, label, weight, ms, plain, lib, nbytes, ops, op_rate):
+        """Record one timed case that the main path runs ``weight`` times per
+        match_pair, and print its per-call line."""
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_MS, ops / op_rate
+        self.d["ms"] += weight * ms
+        self.d["plain_ms"] += weight * plain
+        if lib is not None:
+            self.d["library_ms"] = (self.d["library_ms"] or 0.0) + weight * lib
+        self._bytes_ms += weight * t_bytes
+        self._ops_ms += weight * t_ops
+        lib_txt = "null" if lib is None else f"{lib:.4f}"
+        log(f"  {label}: kernel_ms {ms:.4f} plain_ms {plain:.4f} library_ms {lib_txt} "
+            f"bound_ms {max(t_bytes, t_ops):.4f} ({'bytes' if t_bytes >= t_ops else 'operations'})"
+            f" x{weight} per match_pair")
+
+    def err(self, e):
+        self.d["max_abs_err"] = max(self.d["max_abs_err"], e)
+
+    def out(self):
+        self.d["bound_ms"] = max(self._bytes_ms, self._ops_ms)
+        self.d["bound_by"] = "bytes" if self._bytes_ms >= self._ops_ms else "operations"
+        return self.d
+
+
+def smooth_pair(seed, h=480, w=640, dy=20, dx=30):
+    """A smoothed noise field and a shifted crop of it, (h, w, 1) in [0, 1]."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    field = rng.random((h + dy + 8, w + dx + 8))
+    box = np.ones(5) / 5.0
+    for _ in range(2):  # two 5-tap box passes along each axis
+        for axis in (0, 1):
+            field = np.apply_along_axis(np.convolve, axis, field, box, mode="same")
+    field = (field - field.min()) / (field.max() - field.min())
+    img0 = field[:h, :w, None].astype(np.float32)
+    img1 = field[dy:dy + h, dx:dx + w, None].astype(np.float32)
+    return np.ascontiguousarray(img0), np.ascontiguousarray(img1)
+
+
+def profile_breakdown(session, img0, img1, pair_ms, top=12):
+    """Device time by kernel over one profiled match_pair. The busy share is
+    that device time (kernels and copies, overlap ignored) over ``pair_ms``,
+    the unprofiled ms per pair: the profiler's own overhead stretches the
+    profiled call's wall time by a varying amount."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        session.match_pair(img0, img1)
+    rows = sorted(
+        ((e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+        reverse=True,
+    )
+    if not rows:
+        log("  profile: no device time recorded (device breakdown not measured)")
+        return
+    busy = sum(r[0] for r in rows)
+    log(f"  profile of one match_pair: device_busy_ms {busy:.3f}, busy_share "
+        f"{busy / pair_ms:.3f} of the unprofiled {pair_ms:.3f} ms")
+    for ms, count, key in rows[:top]:
+        log(f"    {ms:8.3f} ms x{count:<4d} {key[:100]}")
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from lightglue_tpu_torch.config import LightGlueConfig, PipelineConfig, SuperPointConfig
+    from lightglue_tpu_torch.kernels import _build
+    from lightglue_tpu_torch.kernels import conv as conv_k
+    from lightglue_tpu_torch.kernels import layer_stack as ls
+    from lightglue_tpu_torch.kernels import nms as nms_k
+    from lightglue_tpu_torch.precision import Precision, policy_for, precision_scope
+    from lightglue_tpu_torch.runtime import weights
+    from lightglue_tpu_torch.runtime.session import MatcherSession
+
+    import torch.nn.functional as F
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True,
+    ).stdout.strip().splitlines()[0]
+    log(smi)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+
+    t0 = time.perf_counter()
+    _build.lib()
+    log(f"build (nvcc, sm_90a, all sources in parallel): {time.perf_counter() - t0:.1f} s")
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def fp32_scope():  # TF32 off, so plain fp32 products are true fp32
+        return precision_scope(policy_for(Precision.FP32))
+
+    dtypes = {"bf16": torch.bfloat16, "fp32": torch.float32}
+
+    conv_e = Entry("conv3x3", "src/lightglue_tpu_torch/csrc/conv3x3.cu",
+                   "src/lightglue_tpu/kernels/conv.py:356")
+    nms_e = Entry("nms_candidates", "src/lightglue_tpu_torch/csrc/nms.cu",
+                  "src/lightglue_tpu/kernels/nms.py:199")
+    lin_e = Entry("linear", "src/lightglue_tpu_torch/csrc/linear.cu",
+                  "src/lightglue_tpu/kernels/layer_stack.py:801")
+    att_e = Entry("attention", "src/lightglue_tpu_torch/csrc/attention.cu",
+                  "src/lightglue_tpu/kernels/layer_stack.py:801")
+    ln_e = Entry("ln_gelu", "src/lightglue_tpu_torch/csrc/ln_gelu.cu",
+                 "src/lightglue_tpu/kernels/layer_stack.py:801")
+
+    def rand(*shape, dtype=torch.float32, scale=1.0, uniform=False):
+        f = torch.rand if uniform else torch.randn
+        return (f(*shape, generator=gen, device=dev) * scale).to(dtype)
+
+    # ---- conv3x3: conv1b+pool, conv2a, conv2b+pool at 2x480x640 ----------
+    log("conv3x3 (per match_pair: conv1b+pool, conv2a, conv2b+pool)")
+    conv_cases = [("conv1b+pool", 480, 640, True), ("conv2a", 240, 320, False),
+                  ("conv2b+pool", 240, 320, True)]
+    for label, h, w, pool in conv_cases:
+        for tag, dt in dtypes.items():
+            x = rand(2, h, w, 64, uniform=True, dtype=dt)
+            wt = ((torch.rand(3, 3, 64, 64, generator=gen, device=dev) * 2 - 1) / 24).to(dt)
+            b = (torch.rand(64, generator=gen, device=dev) * 2 - 1) / 24
+            with fp32_scope():
+                got = conv_k.conv3x3(x, wt, b, pool=pool)
+                want = conv_k.conv3x3_plain(x, wt, b, pool)
+                err = compare(f"{label} {tag}", got, want, **TOL[tag])
+            if tag != "bf16":
+                continue
+            conv_e.err(err)
+            xc = x.permute(0, 3, 1, 2)
+            wc = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            bc = b.to(dt)
+
+            def lib():
+                y = F.relu(F.conv2d(xc, wc, bc, padding=1))
+                return F.max_pool2d(y, 2) if pool else y
+
+            ms = cuda_ms(lambda: conv_k.conv3x3(x, wt, b, pool=pool))
+            with fp32_scope():
+                plain = cuda_ms(lambda: conv_k.conv3x3_plain(x, wt, b, pool))
+            lib_ms = cuda_ms(lib)
+            oh, ow = (h // 2, w // 2) if pool else (h, w)
+            nbytes = 2 * (2 * h * w * 64 + 9 * 64 * 64 + 2 * oh * ow * 64) + 4 * 64
+            flops = 2 * 2 * h * w * 64 * 64 * 9
+            conv_e.add(f"{label} bf16", 1, ms, plain, lib_ms, nbytes, flops, BF16_FLOP_PER_MS)
+
+    # ---- nms_candidates: 2x480x640 raw score map with planted ties -------
+    log("nms_candidates (per match_pair: one launch over 2x480x640)")
+    raw = torch.floor(torch.rand(2, 480, 640, generator=gen, device=dev) * 64) / 4096
+    raw[:, 100:108, 200:208] = 0.02  # a plateau: every pixel of a tile tied
+    got_v, got_i = nms_k.nms_candidates(raw)
+    want_v, want_i = nms_k.nms_candidates_plain(raw)
+    compare("nms values", got_v, want_v, 0, 0, exact=True)
+    compare("nms indices", got_i, want_i, 0, 0, exact=True)
+    ms = cuda_ms(lambda: nms_k.nms_candidates(raw))
+    plain = cuda_ms(lambda: nms_k.nms_candidates_plain(raw))
+    ncand = got_v.numel()
+    # ops: 5 separable radius-4 max-pools (2 x 8 compares each) + 4 rounds
+    nms_e.add("2x480x640", 1, ms, plain, None, 4 * raw.numel() + 8 * ncand,
+              raw.numel() * (20 * 4 + 4), FP32_OP_PER_MS)
+
+    # ---- linear: every projection of one layer of a 1024x1024 pair -------
+    log(f"linear (per match_pair: 16 launches per layer x {N_LAYERS} layers, N={BUCKET})")
+    e = 256
+    m = BUCKET
+    # (label, K1, K2 (second operand), N, residual, launches per layer)
+    lin_cases = [("self qkv", e, 0, 3 * e, False, 2), ("out", e, 0, e, False, 4),
+                 ("ffn1 cat", e, e, 2 * e, False, 4), ("ffn2 +res", 2 * e, 0, e, True, 4),
+                 ("cross qk_v", e, 0, 2 * e, False, 2)]
+    for label, k1, k2, n, res, per_layer in lin_cases:
+        for tag, dt in dtypes.items():
+            a = rand(1, m, k1, dtype=dt)
+            a2 = rand(1, m, k2, dtype=dt) if k2 else None
+            w = ((torch.rand(k1 + k2, n, generator=gen, device=dev) * 2 - 1)
+                 / math.sqrt(k1 + k2)).to(dt)
+            b = ((torch.rand(n, generator=gen, device=dev) * 2 - 1) / math.sqrt(k1 + k2)).to(dt)
+            r = rand(1, m, n, dtype=dt) if res else None
+            with fp32_scope():
+                got = ls.linear(a, w, b, a2=a2, residual=r)
+                want = ls.linear_plain(a, w, b, a2, r)
+                err = compare(f"{label} {tag}", got, want, **TOL[tag])
+            if tag != "bf16":
+                continue
+            lin_e.err(err)
+            a_cat = a if a2 is None else torch.cat([a, a2], -1)
+            ms = cuda_ms(lambda: ls.linear(a, w, b, a2=a2, residual=r))
+            plain = cuda_ms(lambda: ls.linear_plain(a, w, b, a2, r))
+            lib_ms = cuda_ms(lambda: torch.addmm(b, a_cat[0], w))
+            nbytes = 2 * (m * (k1 + k2) + (k1 + k2) * n + n + m * n * (2 if res else 1))
+            flops = 2 * m * (k1 + k2) * n
+            lin_e.add(f"{label} bf16", per_layer * N_LAYERS, ms, plain, lib_ms, nbytes, flops,
+                      BF16_FLOP_PER_MS)
+
+    # ---- attention: self (RoPE) and cross at 1024, masked, length 0 -------
+    log(f"attention (per match_pair: 4 launches per layer x {N_LAYERS} layers, N={BUCKET})")
+    heads, hd = 4, 64
+
+    def freqs_for(bsz, n):
+        ang = rand(bsz, n, hd // 2, scale=2.0)
+        emb = torch.stack([torch.cos(ang), torch.sin(ang)], dim=1)
+        return torch.cat([emb, emb], dim=-1).contiguous()
+
+    att_cases = [
+        # label, Nq, Nk, rope, lengths (q, kv) or None, per-layer launches
+        ("self rope", BUCKET, BUCKET, True, None, 2),
+        ("cross", BUCKET, BUCKET, False, None, 2),
+        ("self masked", 768, 768, True, ([700], [700]), 0),
+        ("cross masked 768x1024", 768, BUCKET, False, ([700], [900]), 0),
+        ("cross length 0", 256, 512, False, ([0], [0]), 0),
+    ]
+    for label, nq, nk, rope, lens, per_layer in att_cases:
+        for tag, dt in dtypes.items():
+            if rope:  # q, k, v as column slices of one qkv projection
+                qkv = rand(1, nq, 3 * e, dtype=dt)
+                q, k, v = qkv[..., :e], qkv[..., e:2 * e], qkv[..., 2 * e:]
+                f = freqs_for(1, nq)
+            else:
+                q = rand(1, nq, e, dtype=dt)
+                kv = rand(1, nk, 2 * e, dtype=dt)
+                k, v = kv[..., :e], kv[..., e:]
+                f = None
+            lq = lk = None
+            if lens:
+                lq = torch.tensor(lens[0], dtype=torch.int32, device=dev)
+                lk = torch.tensor(lens[1], dtype=torch.int32, device=dev)
+            with fp32_scope():
+                got = ls.attention(q, k, v, f, lq, lk, heads, dt)
+                want = ls.attention_plain(q, k, v, f, lq, lk, heads, dt)
+                err = compare(f"{label} {tag}", got, want, **TOL[tag])
+            if lens and lens[0][0] == 0 and float(got.float().abs().max()) != 0.0:
+                raise AssertionError(f"{label} {tag}: length-0 rows are not exactly 0")
+            if tag != "bf16":
+                continue
+            att_e.err(err)
+            if not per_layer:
+                continue
+            qh = q.reshape(1, nq, heads, hd).transpose(1, 2)
+            kh = k.reshape(1, nk, heads, hd).transpose(1, 2)
+            vh = v.reshape(1, nk, heads, hd).transpose(1, 2)
+            ms = cuda_ms(lambda: ls.attention(q, k, v, f, lq, lk, heads, dt))
+            plain = cuda_ms(lambda: ls.attention_plain(q, k, v, f, lq, lk, heads, dt))
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
+            nbytes = 2 * (nq * e + 2 * nk * e + nq * e) + (4 * 2 * nq * hd if rope else 0)
+            flops = 4 * heads * nq * nk * hd
+            # library: scaled_dot_product_attention, which does no RoPE
+            att_e.add(f"{label} bf16", per_layer * N_LAYERS, ms, plain, lib_ms, nbytes, flops,
+                      BF16_FLOP_PER_MS)
+
+    # ---- ln_gelu: 1024 rows of 512 ----------------------------------------
+    log(f"ln_gelu (per match_pair: 4 launches per layer x {N_LAYERS} layers, N={BUCKET})")
+    for tag, dt in dtypes.items():
+        h = rand(1, BUCKET, 2 * e, dtype=dt)
+        g = (1 + 0.1 * rand(2 * e)).to(dt)
+        bb = (0.1 * rand(2 * e)).to(dt)
+        with fp32_scope():
+            err = compare(f"ln_gelu {tag}", ls.ln_gelu(h, g, bb), ls.ln_gelu_plain(h, g, bb),
+                          **TOL[tag])
+        if tag != "bf16":
+            continue
+        ln_e.err(err)
+        ms = cuda_ms(lambda: ls.ln_gelu(h, g, bb))
+        plain = cuda_ms(lambda: ls.ln_gelu_plain(h, g, bb))
+        lib_ms = cuda_ms(lambda: F.gelu(F.layer_norm(h, (2 * e,), g, bb)))
+        nbytes = 2 * (2 * h.numel() + 4 * e)
+        ln_e.add("1024x512 bf16", 4 * N_LAYERS, ms, plain, lib_ms, nbytes, 20 * h.numel(),
+                 FP32_OP_PER_MS)
+
+    # ---- the whole stack against its plain version, 9 layers -------------
+    log(f"transformer_stack vs plain, L={N_LAYERS}")
+    lg_np = weights.init_lightglue(0, LightGlueConfig(n_layers=N_LAYERS))
+    for tag, dt in dtypes.items():
+        layers = weights.params_from_numpy(lg_np, dev, dt)["layers"]
+        for label, n0, n1, lens in (("1x1024x1024 unmasked", 1024, 1024, None),
+                                    ("768x1024 lengths 700/900", 768, 1024, (700, 900))):
+            d0, d1 = rand(1, n0, e, dtype=dt), rand(1, n1, e, dtype=dt)
+            f0, f1 = freqs_for(1, n0), freqs_for(1, n1)
+            l0 = l1 = None
+            if lens:
+                l0 = torch.tensor([lens[0]], dtype=torch.int32, device=dev)
+                l1 = torch.tensor([lens[1]], dtype=torch.int32, device=dev)
+            kw = dict(num_heads=heads, head_dim=hd, stat_dtype=dt, attn_dtype=dt)
+            with fp32_scope():
+                got = ls.transformer_stack(layers, d0, d1, f0, f1, l0, l1, **kw)
+                want = ls.transformer_stack_plain(layers, d0, d1, f0, f1, l0, l1, **kw)
+                for i in (0, 1):
+                    compare(f"stack {label} {tag} d{i}", got[i], want[i], **STACK_TOL[tag])
+            if tag == "bf16" and lens is None:
+                def stack():
+                    return ls.transformer_stack(layers, d0, d1, f0, f1, l0, l1, **kw)
+
+                def stack_plain():
+                    return ls.transformer_stack_plain(layers, d0, d1, f0, f1, l0, l1, **kw)
+
+                log(f"  stack {label} bf16: kernel_ms {cuda_ms(stack, inner=2):.4f} "
+                    f"(eager, launch overhead included: {eager_ms(stack):.4f}) "
+                    f"plain_ms {cuda_ms(stack_plain, inner=2):.4f}")
+
+    # ---- end to end: the main path ------------------------------------------
+    log("MatcherSession(device='cuda').match_pair, default config, 480x640")
+    img0, img1 = smooth_pair(0)
+    session = MatcherSession(device="cuda")
+    session.match_pair(img0, img1)  # warm: first launches, allocator
+    counters = [conv_k.conv3x3, nms_k.nms_candidates, ls.linear, ls.attention, ls.ln_gelu]
+    for fn in counters:
+        fn.launches = 0
+    result = session.match_pair(img0, img1)
+    launches = {fn.__name__: fn.launches for fn in counters}
+    log(f"  launches in one match_pair: {launches}")
+    for name, n in launches.items():
+        if n < 1:
+            raise AssertionError(f"kernel {name} did not launch on the main path")
+    for entry in (conv_e, nms_e, lin_e, att_e, ln_e):
+        entry.d["launches"] = launches[entry.d["name"]]
+    n0, n1 = result["num_keypoints0"], result["num_keypoints1"]
+    bucket = (session.config.bucket_for(max(n0, 1)), session.config.bucket_for(max(n1, 1)))
+    for key in ("scores", "match_scores", "keypoints0", "keypoints1"):
+        if not np.isfinite(result[key]).all():
+            raise AssertionError(f"match_pair output {key} is not finite")
+    if result["scores"].shape != bucket or n0 < 1 or n1 < 1:
+        raise AssertionError(f"match_pair: scores {result['scores'].shape}, bucket {bucket}")
+    times = []
+    for _ in range(10):
+        t = time.perf_counter()
+        session.match_pair(img0, img1)  # returns host arrays: synchronised
+        times.append((time.perf_counter() - t) * 1e3)
+    pair_ms = statistics.median(times)
+    log(f"  keypoints {n0}/{n1} bucket {bucket[0]}x{bucket[1]} matches {len(result['matches'])} "
+        f"ms_per_pair median {pair_ms:.3f} (10 repeats, min {min(times):.3f})")
+    profile_breakdown(session, img0, img1, pair_ms)
+
+    # ---- end to end against the port on the CPU, small FP32 pair ----------
+    log("match_pair cuda vs cpu, FP32, 96x128, 2 layers, buckets (128, 256), threshold 0")
+    cfg = PipelineConfig(superpoint=SuperPointConfig(max_num_keypoints=256),
+                         lightglue=LightGlueConfig(n_layers=2), precision=Precision.FP32,
+                         buckets=(128, 256), match_threshold=0.0, max_matches=256)
+    s0, s1 = smooth_pair(1, 96, 128, 8, 12)
+    rg = MatcherSession(config=cfg, seed=3, device="cuda").match_pair(s0, s1)
+    rc = MatcherSession(config=cfg, seed=3, device="cpu").match_pair(s0, s1)
+
+    def match_set(r):
+        return {(tuple(a), tuple(b)) for a, b in zip(r["matched_kpts0"], r["matched_kpts1"])}
+
+    mg, mc = match_set(rg), match_set(rc)
+    iou = len(mg & mc) / max(1, len(mg | mc))
+    perm = []  # cuda keypoint index of each cpu keypoint (order may differ at ties)
+    for i in (0, 1):
+        n = rc[f"num_keypoints{i}"]
+        where = {tuple(p): j for j, p in enumerate(rg[f"keypoints{i}"][:n])}
+        cpu_kp = [tuple(p) for p in rc[f"keypoints{i}"][:n]]
+        if rg[f"num_keypoints{i}"] != n or set(cpu_kp) != where.keys():
+            raise AssertionError(f"cuda vs cpu: keypoints of image {i} differ")
+        perm.append([where[p] for p in cpu_kp])
+    # log-assignment scores over the valid block: true fp32 on both sides,
+    # sums in another order
+    score_err = float(np.abs(rg["scores"][np.ix_(perm[0], perm[1])]
+                             - rc["scores"][:len(perm[0]), :len(perm[1])]).max())
+    log(f"  keypoints {rg['num_keypoints0']}/{rg['num_keypoints1']} (equal) matches cuda "
+        f"{len(mg)} cpu {len(mc)} IoU {iou:.4f} scores max_abs_err {score_err:.3e} (atol 1e-3)")
+    if not mc or iou <= 0.95 or score_err > 1e-3:
+        raise AssertionError(f"cuda vs cpu: IoU {iou:.4f} (needs > 0.95), scores {score_err}")
+
+    log(json.dumps({"kernels": [x.out() for x in (conv_e, nms_e, lin_e, att_e, ln_e)]}))
+    log(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                           "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

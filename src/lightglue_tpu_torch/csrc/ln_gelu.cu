@@ -1,0 +1,73 @@
+// LayerNorm (fp32 statistics, eps 1e-5) + exact-erf GELU over rows, cast to
+// the activation type: the middle of the LightGlue FFN.
+//
+// Replaces the normalisation inside the TPU kernel
+// lightglue_tpu/kernels/layer_stack.py:transformer_stack (wrapper :801,
+// pallas_call :894; _ffn :386-398): mean and var = E[x^2] - mean^2 in fp32,
+// (x - mean) * rsqrt(var + eps) * gamma + beta, GELU with erf. The TPU kernel
+// approximates erf by a polynomial (Mosaic has none); this kernel calls erff.
+//
+// Bound on the H100: it reads and writes each element once and does ~20
+// operations on it, so HBM bounds it (~0.6 us for 1024 x 512 bf16 rows in
+// and out). Design: one warp per row, 16 elements per lane kept in registers
+// between the statistics and the output pass.
+
+#include <math.h>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int MAX_PER_LANE = 16;  // rows up to 512 wide
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+ln_gelu_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
+               const T* __restrict__ beta, T* __restrict__ y, int M, int C) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row = blockIdx.x * (THREADS / 32) + warp;
+  if (row >= M) return;
+  const T* xr = x + (size_t)row * C;
+  float v[MAX_PER_LANE];
+  float s = 0.f, ss = 0.f;
+#pragma unroll
+  for (int q = 0; q < MAX_PER_LANE; ++q) {
+    const int c = lane + 32 * q;
+    v[q] = c < C ? lg::to_f(xr[c]) : 0.f;
+    s += v[q];
+    ss += v[q] * v[q];
+  }
+  const float mean = lg::warp_sum(s) / C;
+  const float var = lg::warp_sum(ss) / C - mean * mean;
+  const float inv = rsqrtf(var + 1e-5f);
+  T* yr = y + (size_t)row * C;
+#pragma unroll
+  for (int q = 0; q < MAX_PER_LANE; ++q) {
+    const int c = lane + 32 * q;
+    if (c >= C) continue;
+    const float n = (v[q] - mean) * inv * lg::to_f(gamma[c]) + lg::to_f(beta[c]);
+    yr[c] = lg::from_f<T>(0.5f * n * (1.f + erff(n * 0.70710678118654752f)));
+  }
+}
+
+template <typename T>
+int launch(const void* x, const void* gamma, const void* beta, void* y, int M,
+           int C, cudaStream_t stream) {
+  const int rows_per_block = THREADS / 32;
+  ln_gelu_kernel<T><<<(M + rows_per_block - 1) / rows_per_block, THREADS, 0,
+                      stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(gamma),
+      static_cast<const T*>(beta), static_cast<T*>(y), M, C);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// x, y: (M, C) T with C <= 512; gamma, beta: (C,) T.
+extern "C" int lg_ln_gelu(const void* x, const void* gamma, const void* beta,
+                          void* y, int M, int C, int bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16) return launch<__nv_bfloat16>(x, gamma, beta, y, M, C, s);
+  return launch<float>(x, gamma, beta, y, M, C, s);
+}

@@ -1,0 +1,216 @@
+"""Single-host inference session: bucketed end-to-end match on one card.
+
+Counterpart of ``lightglue_tpu/runtime/session.py:MatcherSession``. It runs
+the same two steps — extract (SuperPoint + keypoint selection) and match
+(LightGlue + mutual-NN filtering) — eagerly in PyTorch, with each pair
+padded to the smallest keypoint bucket that holds it. The only host round
+trip is reading the two keypoint counts that pick the bucket. There is no
+jit cache and no compile cache: the kernels are built once per checkout
+(kernels/_build.py).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from lightglue_tpu_torch.config import PipelineConfig
+from lightglue_tpu_torch.models import lightglue, superpoint
+from lightglue_tpu_torch.pipeline.extract import Extraction, extract_keypoints
+from lightglue_tpu_torch.pipeline.match import Matches, filter_matches
+from lightglue_tpu_torch.precision import Precision, policy_for
+from lightglue_tpu_torch.runtime import weights as weights_lib
+from lightglue_tpu_torch.utils.logging import ErrorRecorder
+
+
+def resolve_device(device: Optional[str]) -> torch.device:
+    """``None`` means the card; the CPU only when asked for by name."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "MatcherSession runs on a CUDA device and none is available; "
+            "pass device='cpu' to run the plain PyTorch versions on the CPU"
+        )
+    return dev
+
+
+class MatcherSession:
+    """Holds device-resident weights and runs the bucketed pipeline."""
+
+    def __init__(
+        self,
+        sp_params=None,
+        lg_params=None,
+        config: PipelineConfig = PipelineConfig(),
+        seed: int = 0,
+        device: Optional[str] = None,
+    ):
+        if config.precision == Precision.INT8:
+            raise NotImplementedError("the INT8 rung is queued for a later slice")
+        lgc = config.lightglue
+        if lgc.depth_confidence > 0 or lgc.width_confidence > 0:
+            raise NotImplementedError("adaptive depth/width is queued for a later slice")
+        self.device = resolve_device(device)
+        if config.precision == Precision.MIXED and self.device.type == "cuda":
+            # the kernels take one dtype for operands and activations
+            raise NotImplementedError("the MIXED rung on the card is queued for a later slice")
+        self.config = config
+        self.policy = policy_for(config.precision)
+        sp_params = (
+            weights_lib.init_superpoint(seed, config.superpoint)
+            if sp_params is None else sp_params
+        )
+        lg_params = (
+            weights_lib.init_lightglue(seed, config.lightglue)
+            if lg_params is None else lg_params
+        )
+        # SuperPoint keeps fp32 master weights (cast per call, like the JAX
+        # session's trace-time cast); LightGlue weights are cast once
+        self.sp_params = weights_lib.params_from_numpy(sp_params, self.device)
+        self.lg_params = weights_lib.params_from_numpy(
+            lg_params, self.device, self.policy.param_dtype
+        )
+        # aggregates input-validation failures so a caller sees every problem
+        # with a bad batch at once
+        self.errors = ErrorRecorder()
+
+    # -- extraction ---------------------------------------------------------
+
+    def extract(self, images: np.ndarray) -> Extraction:
+        """images: (B, H, W, 1) float32 in [0, 1], H/W multiples of 8."""
+        self.errors.clear()
+        if images.ndim != 4 or images.shape[-1] != 1:
+            self.errors.record(
+                f"expected (B, H, W, 1) grayscale batch, got {images.shape}"
+            )
+        else:
+            h, w = images.shape[1:3]
+            if h % 8 or w % 8:
+                self.errors.record(
+                    f"H/W must be multiples of the stride-8 encoder, got {h}x{w}"
+                )
+            if images.dtype != np.float32:
+                self.errors.record(f"expected float32 in [0, 1], got {images.dtype}")
+        self.errors.raise_if_any("invalid extraction input", exc=ValueError)
+        x = torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
+        with torch.inference_mode():
+            scores, desc = superpoint.forward(
+                self.sp_params, x, config=self.config.superpoint,
+                policy=self.policy, nms=False,
+            )
+            return extract_keypoints(
+                scores, desc, config=self.config.superpoint, raw_scores=True
+            )
+
+    # -- matching -----------------------------------------------------------
+
+    def match_from_extractions(
+        self, ext0: Extraction, ext1: Extraction
+    ) -> Tuple[lightglue.LightGlueOutput, Matches]:
+        """Bucket, pad-slice and run LightGlue on already-extracted features.
+
+        Extractions are score-descending, so truncating to the bucket keeps
+        the strongest keypoints."""
+        # exactly two device -> host fetches; every host value derives from them
+        c0 = ext0.count.cpu().numpy()
+        c1 = ext1.count.cpu().numpy()
+        b0 = self.config.bucket_for(max(int(c0.max()), 1))
+        b1 = self.config.bucket_for(max(int(c1.max()), 1))
+        # every pair fills its bucket -> the unmasked variant
+        full = bool((c0 >= b0).all() and (c1 >= b1).all())
+        lengths0 = None if full else torch.clamp(ext0.count, max=b0)
+        lengths1 = None if full else torch.clamp(ext1.count, max=b1)
+        with torch.inference_mode():
+            out = lightglue.forward(
+                self.lg_params,
+                ext0.keypoints_norm[:, :b0],
+                ext1.keypoints_norm[:, :b1],
+                ext0.descriptors[:, :b0],
+                ext1.descriptors[:, :b1],
+                lengths0,
+                lengths1,
+                config=self.config.lightglue,
+                policy=self.policy,
+            )
+            matches = filter_matches(
+                out.scores,
+                threshold=self.config.match_threshold,
+                max_matches=min(self.config.max_matches, b0),
+            )
+        return out, matches
+
+    # -- end-to-end ---------------------------------------------------------
+
+    def match_pair(
+        self,
+        image0: np.ndarray,
+        image1: np.ndarray,
+        scales0: Optional[Tuple[float, float]] = None,
+        scales1: Optional[Tuple[float, float]] = None,
+    ) -> Dict:
+        """Full pipeline on one image pair; returns host-side numpy results.
+
+        image0/image1: (H, W, 1) float32 grayscale in [0, 1]. Same-shape
+        images share one SuperPoint call. scales0/scales1: optional (sx, sy)
+        resize scales; matched keypoints map back as (k + 0.5) / scale - 0.5.
+        """
+        if image0.shape == image1.shape:
+            ext = self.extract(np.stack([image0, image1]))
+            ext0, ext1 = ext.slice(0, 1), ext.slice(1, 2)
+        else:
+            ext0 = self.extract(image0[None])
+            ext1 = self.extract(image1[None])
+        out, matches = self.match_from_extractions(ext0, ext1)
+        count = int(matches.count[0])
+        idx = matches.indices[0, :count].cpu().numpy()
+        kpts0 = ext0.keypoints[0].cpu().numpy()
+        kpts1 = ext1.keypoints[0].cpu().numpy()
+        if scales0 is not None:
+            kpts0 = (kpts0 + 0.5) / np.asarray(scales0, np.float32) - 0.5
+        if scales1 is not None:
+            kpts1 = (kpts1 + 0.5) / np.asarray(scales1, np.float32) - 0.5
+        return {
+            "keypoints0": kpts0,
+            "keypoints1": kpts1,
+            "num_keypoints0": int(ext0.count[0]),
+            "num_keypoints1": int(ext1.count[0]),
+            "matches": idx,
+            "match_scores": matches.scores[0, :count].cpu().numpy(),
+            "matched_kpts0": kpts0[idx[:, 0]] if count else np.zeros((0, 2)),
+            "matched_kpts1": kpts1[idx[:, 1]] if count else np.zeros((0, 2)),
+            "scores": out.scores[0].float().cpu().numpy(),
+        }
+
+    def match_batch(self, images0: np.ndarray, images1: np.ndarray) -> List[Dict]:
+        """Batched full pipeline over B pairs of same-shape images: one
+        SuperPoint call over the 2B images and one bucketed LightGlue call."""
+        b = images0.shape[0]
+        ext = self.extract(np.concatenate([images0, images1], axis=0))
+        ext0, ext1 = ext.slice(0, b), ext.slice(b, 2 * b)
+        _, matches = self.match_from_extractions(ext0, ext1)
+        counts = matches.count.cpu().numpy()
+        indices = matches.indices.cpu().numpy()
+        scores = matches.scores.cpu().numpy()
+        k0 = ext0.keypoints.cpu().numpy()
+        k1 = ext1.keypoints.cpu().numpy()
+        n0 = ext0.count.cpu().numpy()
+        n1 = ext1.count.cpu().numpy()
+        results = []
+        for i in range(b):
+            c = int(counts[i])
+            idx = indices[i, :c]
+            results.append(
+                {
+                    "keypoints0": k0[i],
+                    "keypoints1": k1[i],
+                    "num_keypoints0": int(n0[i]),
+                    "num_keypoints1": int(n1[i]),
+                    "matches": idx,
+                    "match_scores": scores[i, :c],
+                    "matched_kpts0": k0[i][idx[:, 0]] if c else np.zeros((0, 2)),
+                    "matched_kpts1": k1[i][idx[:, 1]] if c else np.zeros((0, 2)),
+                }
+            )
+        return results

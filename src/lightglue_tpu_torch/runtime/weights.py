@@ -1,0 +1,206 @@
+"""Parameter trees: random initialization, npz IO and conversion to tensors.
+
+``init_superpoint`` / ``init_lightglue`` draw the same
+``np.random.default_rng(seed)`` stream as ``lightglue_tpu/runtime/weights.py``
+(:71-127, :321-336), so one seed gives equal numpy trees in both packages;
+``save_npz`` / ``load_npz`` read and write the JAX package's archives.
+``params_from_numpy`` turns such a numpy tree into the port's tensors and is
+the one place where the port's layouts differ from the JAX package's.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from lightglue_tpu_torch.config import LightGlueConfig, SuperPointConfig
+
+
+def _linear_init(rng: np.random.Generator, fan_in: int, fan_out: int):
+    bound = 1.0 / np.sqrt(fan_in)
+    return {
+        "w": rng.uniform(-bound, bound, (fan_in, fan_out)).astype(np.float32),
+        "b": rng.uniform(-bound, bound, (fan_out,)).astype(np.float32),
+    }
+
+
+def _stack(trees):
+    """Stack a list of equally-shaped dict trees leaf by leaf on a new axis 0."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    return np.stack(trees, axis=0)
+
+
+def init_lightglue(
+    seed: int = 0, config: LightGlueConfig = LightGlueConfig()
+) -> Dict:
+    """Random LightGlue parameter tree (numpy, fp32), JAX layout."""
+    rng = np.random.default_rng(seed)
+    e = config.descriptor_dim
+    hd = config.head_dim
+
+    def qkv_init():
+        parts = [_linear_init(rng, e, e) for _ in range(3)]
+        return {
+            "w": np.stack([p["w"] for p in parts]),  # (3, E, E)
+            "b": np.stack([p["b"] for p in parts]),  # (3, E)
+        }
+
+    def layer_params():
+        return {
+            "self_attn": {
+                "qkv": qkv_init(),
+                "out": _linear_init(rng, e, e),
+                "ffn1": _linear_init(rng, 2 * e, 2 * e),
+                "ln_g": np.ones(2 * e, np.float32),
+                "ln_b": np.zeros(2 * e, np.float32),
+                "ffn2": _linear_init(rng, 2 * e, e),
+            },
+            "cross_attn": {
+                "qk": _linear_init(rng, e, e),
+                "v": _linear_init(rng, e, e),
+                "out": _linear_init(rng, e, e),
+                "ffn1": _linear_init(rng, 2 * e, 2 * e),
+                "ln_g": np.ones(2 * e, np.float32),
+                "ln_b": np.zeros(2 * e, np.float32),
+                "ffn2": _linear_init(rng, 2 * e, e),
+            },
+        }
+
+    params = {
+        "posenc": {"wr": rng.standard_normal((2, hd // 2)).astype(np.float32)},
+        "layers": _stack([layer_params() for _ in range(config.n_layers)]),
+        "assign": _stack(
+            [
+                {
+                    "proj": _linear_init(rng, e, e),
+                    "match": _linear_init(rng, e, 1),
+                }
+                for _ in range(config.n_layers)
+            ]
+        ),
+    }
+    if config.n_layers > 1:
+        params["token"] = _stack(
+            [_linear_init(rng, e, 1) for _ in range(config.n_layers - 1)]
+        )
+    if config.input_dim != config.descriptor_dim:
+        params["input_proj"] = _linear_init(rng, config.input_dim, e)
+    return params
+
+
+_SP_CONVS = (
+    # name, in, out, kernel
+    ("conv1a", 1, 64, 3),
+    ("conv1b", 64, 64, 3),
+    ("conv2a", 64, 64, 3),
+    ("conv2b", 64, 64, 3),
+    ("conv3a", 64, 128, 3),
+    ("conv3b", 128, 128, 3),
+    ("conv4a", 128, 128, 3),
+    ("conv4b", 128, 128, 3),
+    ("convPa", 128, 256, 3),
+    ("convPb", 256, 65, 1),
+    ("convDa", 128, 256, 3),
+    ("convDb", 256, 256, 1),
+)
+# convs that run through F.conv2d and so take OIHW; conv1a (the tap stem)
+# and the 64-channel kernel convs keep HWIO
+_OIHW_CONVS = ("conv3a", "conv3b", "conv4a", "conv4b", "convPa", "convPb",
+               "convDa", "convDb")
+
+
+def init_superpoint(
+    seed: int = 0, config: SuperPointConfig = SuperPointConfig()
+) -> Dict:
+    """Random SuperPoint parameter tree (numpy, fp32), HWIO conv weights."""
+    rng = np.random.default_rng(seed)
+    params = {}
+    for name, cin, cout, ks in _SP_CONVS:
+        fan_in = cin * ks * ks
+        bound = 1.0 / np.sqrt(fan_in)
+        params[name] = {
+            "w": rng.uniform(-bound, bound, (ks, ks, cin, cout)).astype(np.float32),
+            "b": rng.uniform(-bound, bound, (cout,)).astype(np.float32),
+        }
+    return params
+
+
+def save_npz(params, path: str) -> None:
+    """Flatten a tree into an .npz archive (keys joined by '/')."""
+    flat = {}
+
+    def walk(prefix, tree):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(f"{prefix}/{k}" if prefix else k, v)
+        else:
+            flat[prefix] = np.asarray(tree)
+
+    walk("", params)
+    np.savez(path, **flat)
+
+
+def load_npz(path: str) -> Dict:
+    with np.load(path) as data:
+        tree: Dict = {}
+        for key in data.files:
+            parts = key.split("/")
+            node = tree
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = data[key]
+    return tree
+
+
+def _to_tensor(a, device, dtype):
+    t = torch.as_tensor(np.ascontiguousarray(a))
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def params_from_numpy(tree, device="cpu", dtype=None) -> Dict:
+    """JAX-layout numpy tree -> the port's tensor tree on ``device``.
+
+    Floating leaves are cast to ``dtype`` when one is given. Layout changes:
+
+    - LightGlue ``layers.self_attn.qkv``: w (L, 3, E, E) -> (L, E, 3E) and
+      b (L, 3, E) -> (L, 3E), columns [q | k | v] (one projection launch);
+    - LightGlue ``layers.cross_attn``: ``qk`` and ``v`` fuse into ``qk_v``,
+      w (L, E, 2E) and b (L, 2E), columns [qk | v];
+    - SuperPoint convs run by ``F.conv2d`` (conv3a..convDb): HWIO -> OIHW.
+      conv1a and conv1b..conv2b keep HWIO (the tap stem and conv3x3 kernel).
+    """
+
+    def conv(node):
+        return {k: conv(v) if isinstance(v, dict) else _to_tensor(v, device, dtype)
+                for k, v in node.items()}
+
+    out = conv(tree)
+    if "layers" in tree:
+        sa = tree["layers"]["self_attn"]
+        ca = tree["layers"]["cross_attn"]
+        if "w" in sa["qkv"]:  # int8 trees are rejected by the stack itself
+            w = np.asarray(sa["qkv"]["w"])
+            nl, _, e, _ = w.shape
+            out["layers"]["self_attn"]["qkv"] = {
+                "w": _to_tensor(w.transpose(0, 2, 1, 3).reshape(nl, e, 3 * e), device, dtype),
+                "b": _to_tensor(np.asarray(sa["qkv"]["b"]).reshape(nl, 3 * e), device, dtype),
+            }
+            out["layers"]["cross_attn"]["qk_v"] = {
+                "w": _to_tensor(np.concatenate([ca["qk"]["w"], ca["v"]["w"]], axis=-1),
+                                device, dtype),
+                "b": _to_tensor(np.concatenate([ca["qk"]["b"], ca["v"]["b"]], axis=-1),
+                                device, dtype),
+            }
+            del out["layers"]["cross_attn"]["qk"], out["layers"]["cross_attn"]["v"]
+    for name in _OIHW_CONVS:
+        if name in tree:
+            out[name]["w"] = _to_tensor(
+                np.asarray(tree[name]["w"]).transpose(3, 2, 0, 1), device, dtype
+            )
+    return out
