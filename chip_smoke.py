@@ -6,15 +6,23 @@ Run from the root of a checkout on a machine with a CUDA card:
     python3 chip_smoke.py
 
 In order it prints the card's name and power limit, builds the CUDA kernels
-of ``src/lightglue_tpu_torch/csrc`` (nvcc, sm_90a), holds each of the five
+of ``src/lightglue_tpu_torch/csrc`` (nvcc, sm_90a), holds each of the six
 kernels to its plain PyTorch version at the main path's shapes in bf16 and
 fp32, holds the whole layer stack to its plain version at 9 layers, drives
 ``MatcherSession(device="cuda").match_pair`` at the default config (BF16,
 9 layers, seed-0 random weights) on a 480x640 pair and checks that every
 kernel launched, then checks a small FP32 pair against the port on the CPU.
-It ends with a ``{"kernels": [...]}`` line and the ``{"ok": true, ...}``
-line. Any failure raises and exits non-zero; so does a missing card or a
-directory without the package.
+
+The adaptive path follows: ``adaptive_decide`` against its plain version
+(masked, unmasked, width with a partly retired keep state, pinned and
+random heads), the keep-masked and liveness operands of the layer kernels,
+``transformer_stack_adaptive`` against its plain version at 9 layers (random
+weights, the exit-3 weights, the pruning weights through the downshift at
+layer 4), and ``match_pair`` with ``depth_confidence=0.95,
+width_confidence=0.99`` in those three weight setups, each with its launch
+counts. It ends with a ``{"kernels": [...]}`` line and the
+``{"ok": true, ...}`` line. Any failure raises and exits non-zero; so does a
+missing card or a directory without the package.
 """
 
 from __future__ import annotations
@@ -124,7 +132,7 @@ def compare(label, got, want, atol, rtol, exact=False):
         raise AssertionError(f"{label}: non-finite kernel output")
     err = (g - w).abs()
     bad = err > atol + rtol * w.abs()
-    max_err = float(err.max())
+    max_err = float(err.max()) if err.numel() else 0.0  # a fully pruned image has no rows
     if bool(bad.any()):
         raise AssertionError(
             f"{label}: {int(bad.sum())} elements beyond atol {atol} rtol {rtol}, "
@@ -184,6 +192,37 @@ def smooth_pair(seed, h=480, w=640, dy=20, dx=30):
     return np.ascontiguousarray(img0), np.ascontiguousarray(img1)
 
 
+def pinned_exit_weights(tree, exit_layer):
+    """bench.py:162-180: token bias -50 before ``exit_layer`` and +50 from
+    it (every token confident from there on), matchability bias +50
+    (nothing is pruned), so every pair exits at ``exit_layer``."""
+    import numpy as np
+
+    tb = tree["token"]["b"]
+    tree = dict(tree)
+    tree["token"] = dict(tree["token"], b=np.where(
+        np.arange(tb.shape[0])[:, None] >= exit_layer - 1, 50.0, -50.0).astype(np.float32))
+    match = tree["assign"]["match"]
+    tree["assign"] = dict(tree["assign"], match=dict(match, b=np.full_like(match["b"], 50.0)))
+    return tree
+
+
+def prune_weights(tree):
+    """bench.py:181-201: a spread token head (normal, numpy seed 11) keeps
+    the confident share under 0.95 (no early exit) and matchability bias
+    -50 retires every confident token, so each layer prunes about half."""
+    import numpy as np
+
+    frng = np.random.default_rng(11)
+    tree = dict(tree)
+    tw = tree["token"]["w"]
+    tree["token"] = dict(tree["token"], w=frng.standard_normal(tw.shape).astype(np.float32),
+                         b=np.zeros_like(tree["token"]["b"]))
+    match = tree["assign"]["match"]
+    tree["assign"] = dict(tree["assign"], match=dict(match, b=np.full_like(match["b"], -50.0)))
+    return tree
+
+
 def profile_breakdown(session, img0, img1, pair_ms, top=12):
     """Device time by kernel over one profiled match_pair. The busy share is
     that device time (kernels and copies, overlap ignored) over ``pair_ms``,
@@ -209,6 +248,340 @@ def profile_breakdown(session, img0, img1, pair_ms, top=12):
         f"{busy / pair_ms:.3f} of the unprofiled {pair_ms:.3f} ms")
     for ms, count, key in rows[:top]:
         log(f"    {ms:8.3f} ms x{count:<4d} {key[:100]}")
+
+
+def adaptive_kernel_checks(ls, rand, freqs_for, dev, dtypes, fp32_scope, dec_e):
+    """adaptive_decide, the keep-masked attention and the liveness operands
+    against their plain versions at the adaptive path's shapes."""
+    import torch
+
+    e, n, heads = 256, BUCKET, 4
+    i32 = dict(dtype=torch.int32, device=dev)
+    log(f"adaptive_decide (per adaptive match_pair: one launch per layer, N={n})")
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def prefix(lens):
+        return [(torch.arange(n, device=dev)[None] < torch.tensor([x], **i32)).float()
+                for x in lens]
+
+    def run(fn, x0, x1, exit, keep, **kw):
+        exit = exit.clone()
+        keep = [k.clone() for k in keep] if keep else None
+        fn(x0, x1, kw.pop("w_tok"), kw.pop("b_tok"), exit,
+           keep0=keep and keep[0], keep1=keep and keep[1], **kw)
+        return exit, keep
+
+    for tag, dt in dtypes.items():
+        x0, x1 = rand(1, n, e, dtype=dt), rand(1, n, e, dtype=dt)
+        zeros = torch.zeros(e, dtype=dt, device=dev)
+        spread = torch.randn(e, generator=gen, device=dev).to(dt)
+        w_match = ((torch.rand(e, generator=gen, device=dev) * 2 - 1) / 16).to(dt)
+        partly = prefix((n, n))  # keep state with ~30 % of the tokens retired
+        for k in partly:
+            k.mul_((torch.rand(k.shape, generator=gen, device=dev) > 0.3).float())
+        exit1 = torch.full((1,), N_LAYERS + 1.0, device=dev)
+
+        def bias(v):
+            return torch.full((1,), v, device=dev)
+
+        lens = dict(lengths0=torch.tensor([700], **i32), lengths1=torch.tensor([900], **i32))
+        width = dict(w_match=w_match, b_match=bias(-50.0), width_confidence=0.99)
+        cases = [
+            # label, exit, keep, kwargs, exact
+            ("masked 700/900 depth, bias +50", exit1, None,
+             dict(w_tok=zeros, b_tok=bias(50.0), depth_confidence=0.95, **lens), True),
+            ("unmasked depth, bias -50", exit1, None,
+             dict(w_tok=zeros, b_tok=bias(-50.0), depth_confidence=0.95), True),
+            ("width, partly retired, bias +50 (all retired)", exit1, partly,
+             dict(w_tok=zeros, b_tok=bias(50.0), depth_confidence=2.0, **width), True),
+            ("width, partly retired, bias -50 (all kept)", exit1, partly,
+             dict(w_tok=zeros, b_tok=bias(-50.0), depth_confidence=0.95, **width), True),
+            ("width, partly retired, random token head", exit1, partly,
+             dict(w_tok=spread, b_tok=bias(0.0), depth_confidence=0.95, **width), False),
+            ("masked depth, random token head", exit1, None,
+             dict(w_tok=spread, b_tok=bias(0.0), depth_confidence=0.95, **lens), False),
+        ]
+        for label, exit, keep, kw, exact in cases:
+            common = dict(layer=4, n_layers=N_LAYERS)
+            with fp32_scope():
+                got = run(ls.adaptive_decide, x0, x1, exit, keep, **common, **dict(kw))
+                want = run(ls.adaptive_decide_plain, x0, x1, exit, keep, **common, **dict(kw))
+            compare(f"{label} {tag} exit", got[0], want[0], 0, 0, exact=True)
+            if keep is None:
+                continue
+            if tag == "bf16":
+                dec_e.err(max(float((g - w).abs().max()) for g, w in zip(got[1], want[1])))
+            if exact:
+                for i in (0, 1):
+                    compare(f"{label} {tag} keep{i}", got[1][i], want[1][i], 0, 0, exact=True)
+            else:
+                flips = sum(int((g != w).sum()) for g, w in zip(got[1], want[1]))
+                retired = sum(int((k - g).sum()) for k, g in zip(keep, got[1]))
+                log(f"  {label} {tag}: keep boundary flips {flips} (at most 4), "
+                    f"tokens retired at this layer {retired}")
+                if flips > 4:
+                    raise AssertionError(f"{label} {tag}: {flips} keep flips")
+        # the last layer only forces the exit of live pairs; a retired pair stays
+        ex2 = torch.tensor([N_LAYERS + 1.0, 3.0], device=dev)
+        x0b, x1b = rand(2, n, e, dtype=dt), rand(2, n, e, dtype=dt)
+        for fn, name in ((ls.adaptive_decide, "kernel"), (ls.adaptive_decide_plain, "plain")):
+            got = run(fn, x0b, x1b, ex2, None, w_tok=spread, b_tok=bias(0.0),
+                      layer=N_LAYERS - 1, n_layers=N_LAYERS, depth_confidence=0.95)[0]
+            compare(f"last layer, B=2 one retired, {name} {tag} exit", got,
+                    torch.tensor([float(N_LAYERS), 3.0], device=dev), 0, 0, exact=True)
+        if tag != "bf16":
+            continue
+        # timed at the adaptive main path's call: width, 1024/1024, all kept
+        full_keep = prefix((n, n))
+        kw = dict(w_tok=spread, b_tok=bias(0.0), depth_confidence=0.95, **width)
+
+        def call(fn, layer):
+            return lambda: fn(x0, x1, kw["w_tok"], kw["b_tok"], exit1.clone(), layer=layer,
+                              n_layers=N_LAYERS, depth_confidence=0.95,
+                              w_match=w_match, b_match=kw["b_match"], width_confidence=0.99,
+                              keep0=full_keep[0].clone(), keep1=full_keep[1].clone())
+
+        for label, layer, weight in (("mid layer", 4, N_LAYERS - 1), ("last layer", N_LAYERS - 1, 1)):
+            ms = cuda_ms(call(ls.adaptive_decide, layer))
+            plain = cuda_ms(call(ls.adaptive_decide_plain, layer))
+            last = layer == N_LAYERS - 1
+            nbytes = 4 if last else 2 * (2 * n * e + 2 * e) + 4 * 2 * (2 * n) + 8 + 4
+            ops = 0 if last else 2 * 2 * (2 * n) * e
+            # library: none, no single PyTorch call computes the decision
+            dec_e.add(f"{label} width 1024x1024 bf16", weight, ms, plain, None, nbytes, ops,
+                      FP32_OP_PER_MS)
+
+    log(f"keep-masked attention and liveness operands (N={n})")
+    hd = 64
+    for tag, dt in dtypes.items():
+        qkv = rand(1, n, 3 * e, dtype=dt)
+        q, k, v = qkv[..., :e], qkv[..., e:2 * e], qkv[..., 2 * e:]
+        f = freqs_for(1, n)
+        kq, kk = prefix((900, 1000))
+        kq.mul_((torch.rand(kq.shape, generator=gen, device=dev) > 0.3).float())
+        kk.mul_((torch.rand(kk.shape, generator=gen, device=dev) > 0.3).float())
+        retired = torch.zeros_like(kk)
+        with fp32_scope():
+            for label, ff, keeps in (("self rope, keep", f, (kq, kq)), ("cross, keep", None, (kq, kk)),
+                                     ("cross, other image retired", None, (kq, retired))):
+                got = ls.attention(q, k, v, ff, None, None, heads, dt, keep_q=keeps[0],
+                                   keep_kv=keeps[1])
+                want = ls.attention_plain(q, k, v, ff, None, None, heads, dt, keep_q=keeps[0],
+                                          keep_kv=keeps[1])
+                compare(f"{label} {tag}", got, want, **TOL[tag])
+                if keeps[1] is retired and float(got.float().abs().max()) != 0.0:
+                    raise AssertionError(f"{label} {tag}: rows are not exactly 0")
+            # a batch of 2 whose second pair retired at layer 3, at layer 5
+            live = ls.Live(torch.tensor([N_LAYERS + 1.0, 3.0], device=dev), 5)
+            a, r = rand(2, n, 2 * e, dtype=dt), rand(2, n, e, dtype=dt)
+            w = (rand(2 * e, e) / math.sqrt(2 * e)).to(dt)
+            b = (rand(e) / math.sqrt(2 * e)).to(dt)
+            got = ls.linear(a, w, b, residual=r, live=live)
+            compare(f"ffn2 +res, retired pair = residual, {tag}", got[1], r[1], 0, 0, exact=True)
+            compare(f"ffn2 +res, live pair, {tag}", got[:1],
+                    ls.linear_plain(a, w, b, None, r, live)[:1], **TOL[tag])
+            compare(f"linear, live pair, {tag}", ls.linear(a, w, b, live=live)[:1],
+                    ls.linear_plain(a, w, b)[:1], **TOL[tag])
+            g, bb = (1 + 0.1 * rand(2 * e)).to(dt), (0.1 * rand(2 * e)).to(dt)
+            compare(f"ln_gelu, live pair, {tag}", ls.ln_gelu(a, g, bb, live=live)[:1],
+                    ls.ln_gelu_plain(a, g, bb)[:1], **TOL[tag])
+            q2 = rand(2, n, e, dtype=dt)
+            kv2 = rand(2, n, 2 * e, dtype=dt)
+            l2 = torch.tensor([n, 700], **i32)
+            compare(f"attention, live pair, {tag}",
+                    ls.attention(q2, kv2[..., :e], kv2[..., e:], None, l2, l2, heads, dt,
+                                 live=live)[:1],
+                    ls.attention_plain(q2, kv2[..., :e], kv2[..., e:], None, l2, l2, heads,
+                                       dt)[:1], **TOL[tag])
+        if tag == "bf16":
+            for label, ff, keeps in (("self rope, keep", f, (kq, kq)), ("cross, keep", None, (kq, kk))):
+                ms = cuda_ms(lambda: ls.attention(q, k, v, ff, None, None, heads, dt,
+                                                  keep_q=keeps[0], keep_kv=keeps[1]))
+                log(f"  {label} bf16: kernel_ms {ms:.4f} (per call; the length-masked and "
+                    f"unmasked calls are timed above)")
+
+
+def adaptive_stack_checks(ls, weights, rand, freqs_for, dev, dtypes, fp32_scope):
+    """transformer_stack_adaptive against its plain version at 9 layers,
+    1x1024x1024, in the three weight setups of the adaptive end-to-end run,
+    and a batch of two pairs that exit at different layers."""
+    import numpy as np
+    import torch
+
+    from lightglue_tpu_torch.config import LightGlueConfig
+    from lightglue_tpu_torch.models.lightglue import _compact, _slice
+
+    e, n, heads, hd, L = 256, BUCKET, 4, 64, N_LAYERS
+    log(f"transformer_stack_adaptive vs plain, L={L}, 1x{n}x{n}, depth 0.95 width 0.99")
+    base = weights.init_lightglue(0, LightGlueConfig(n_layers=L))
+    lens = (torch.tensor([n], dtype=torch.int32, device=dev),) * 2
+
+    def keep_flips(got, want):
+        return sum(int((g != w).sum()) for g, w in zip(got, want))
+
+    def check(label, tag, got, want, d_ref=None):
+        """exit exact; keep flips counted; d' at STACK_TOL on the rows that
+        both keep (a flipped token is masked out of one side's attention)."""
+        compare(f"{label} {tag} exit", got[2], want[2], 0, 0, exact=True)
+        flips = keep_flips(got[3:], want[3:])
+        log(f"  {label} {tag}: exit {got[2].tolist()}, kept {[int(k.sum()) for k in got[3:]]}, "
+            f"keep flips vs plain {flips}")
+        for i in (0, 1):
+            both = (got[3 + i] > 0.5) & (want[3 + i] > 0.5)
+            compare(f"{label} {tag} d{i} (kept rows)", got[i][both], want[i][both],
+                    **STACK_TOL[tag])
+            if d_ref is not None:
+                compare(f"{label} {tag} d{i} vs fixed-depth kernel stack", got[i], d_ref[i],
+                        **STACK_TOL[tag])
+        return flips
+
+    for tag, dt in dtypes.items():
+        d0, d1 = rand(1, n, e, dtype=dt), rand(1, n, e, dtype=dt)
+        f0, f1 = freqs_for(1, n), freqs_for(1, n)
+        kw = dict(num_heads=heads, head_dim=hd, stat_dtype=dt, attn_dtype=dt,
+                  depth_confidence=0.95, width_confidence=0.99)
+        for label, tree in (("random weights", base),
+                            ("exit-3 weights", pinned_exit_weights(base, 3))):
+            p = weights.params_from_numpy(tree, dev, dt)
+            args = (p["layers"], p["token"], d0, d1, f0, f1, *lens, p["assign"]["match"])
+            with fp32_scope():
+                got = ls.transformer_stack_adaptive(*args, **kw)
+                want = ls.transformer_stack_adaptive_plain(*args, **kw)
+                ref = None
+                if tree is base:  # nothing exits or is pruned: the fixed-depth stack
+                    ref = ls.transformer_stack(p["layers"], d0, d1, f0, f1, *lens,
+                                               **{k: kw[k] for k in list(kw)[:4]})
+                flips = check(label, tag, got, want, ref)
+            expect = L if tree is base else 3
+            if int(got[2][0]) != expect or flips or int(got[3].sum() + got[4].sum()) != 2 * n:
+                raise AssertionError(f"{label} {tag}: exit {got[2].tolist()} (want {expect}), "
+                                     f"{flips} flips, or a token was pruned")
+            if tag == "bf16":
+                def stack():
+                    return ls.transformer_stack_adaptive(*args, **kw)
+
+                log(f"  {label} bf16: stack kernel_ms {cuda_ms(stack, inner=2):.4f} "
+                    f"(eager: {eager_ms(stack):.4f})")
+        # a batch of 2 whose pairs exit at layers 1 and 9: descriptors along
+        # (against) a token head on feature 0, depth only, masked
+        tree = dict(base, token=dict(
+            w=np.tile(np.eye(e, 1, dtype=np.float32)[None], (L - 1, 1, 1)),
+            b=np.zeros((L - 1, 1), np.float32)))
+        p = weights.params_from_numpy(tree, dev, dt)
+        x0, x1 = rand(2, n, e, dtype=dt), rand(2, n, e, dtype=dt)
+        for x in (x0, x1):
+            x[0, :, 0], x[1, :, 0] = 100.0, -100.0
+        lens2 = (torch.tensor([n, 900], dtype=torch.int32, device=dev),) * 2
+        args = (p["layers"], p["token"], x0, x1, freqs_for(2, n), freqs_for(2, n), *lens2)
+        dkw = dict(kw, width_confidence=-1.0)
+        with fp32_scope():
+            got = ls.transformer_stack_adaptive(*args, **dkw)
+            want = ls.transformer_stack_adaptive_plain(*args, **dkw)
+        compare(f"B=2 exits 1 and {L} {tag} exit", got[2], want[2], 0, 0, exact=True)
+        if got[2].tolist() != [1, L]:
+            raise AssertionError(f"B=2 {tag}: exits {got[2].tolist()}, want [1, {L}]")
+        for i in (0, 1):
+            compare(f"B=2 exits 1 and {L} {tag} d{i}", got[i], want[i], **STACK_TOL[tag])
+        # pruning weights through the downshift at layer 4, phase by phase
+        ds, half = 4, n // 2
+        p = weights.params_from_numpy(prune_weights(base), dev, dt)
+        tok, match = p["token"], p["assign"]["match"]
+        pkw = dict(kw, total_layers=L)
+        args1 = (_slice(p["layers"], 0, ds), _slice(tok, 0, ds), d0, d1, f0, f1, *lens,
+                 _slice(match, 0, ds))
+        with fp32_scope():
+            got1 = ls.transformer_stack_adaptive(*args1, **pkw)
+            want1 = ls.transformer_stack_adaptive_plain(*args1, **pkw)
+            flips1 = check("prune phase 1 (layers 0-3)", tag, got1, want1)
+        idx = torch.arange(n, dtype=torch.int32, device=dev)[None]
+        nl0, (cd0, cf0, _) = _compact(got1[3] > 0.5, got1[0], f0, idx)
+        nl1, (cd1, cf1, _) = _compact(got1[4] > 0.5, got1[1], f1, idx)
+        fits = bool(((nl0 <= half) & (nl1 <= half)).all())
+        log(f"  prune {tag}: survivors after layer {ds}: {int(nl0[0])}/{int(nl1[0])}, "
+            f"phase 2 arm {half if fits else n}")
+        if not fits:
+            raise AssertionError(f"prune {tag}: the half-width arm was not taken")
+        args2 = (_slice(p["layers"], ds, L), _slice(tok, ds, L - 1),
+                 cd0[:, :half].contiguous(), cd1[:, :half].contiguous(),
+                 cf0[:, :, :half], cf1[:, :, :half], nl0, nl1, _slice(match, ds, L), got1[2])
+        with fp32_scope():
+            got2 = ls.transformer_stack_adaptive(*args2, layer_offset=ds, **pkw)
+            want2 = ls.transformer_stack_adaptive_plain(*args2, layer_offset=ds, **pkw)
+            flips2 = check(f"prune phase 2 (layers {ds}-{L - 1}, width {half})", tag, got2, want2)
+        if tag == "fp32" and flips1 + flips2 > 4:
+            raise AssertionError(f"prune fp32: {flips1 + flips2} keep flips (at most 4)")
+
+
+def adaptive_end_to_end(ls, counters, weights, img0, img1, dec_e):
+    """match_pair at 480x640, BF16, 9 layers, depth 0.95 / width 0.99, in the
+    three weight setups; the random-weights run is the adaptive main path
+    whose launch counts the kernels line reports for adaptive_decide."""
+    import numpy as np
+
+    from lightglue_tpu_torch.config import LightGlueConfig, PipelineConfig
+    from lightglue_tpu_torch.runtime.session import MatcherSession
+
+    counters = counters + [ls.adaptive_decide]
+    widths = []
+    real = ls.transformer_stack_adaptive
+
+    def spy(layers, token, d0, *a, **kw):  # records each call's bucket
+        widths.append(d0.shape[1])
+        return real(layers, token, d0, *a, **kw)
+
+    base = weights.init_lightglue(0, LightGlueConfig())
+    setups = (("random weights", base, -1), ("exit-3 weights", pinned_exit_weights(base, 3), -1),
+              ("prune weights, downshift 4", prune_weights(base), 4))
+    for label, tree, ds in setups:
+        cfg = PipelineConfig(lightglue=LightGlueConfig(depth_confidence=0.95,
+                                                       width_confidence=0.99, downshift_layer=ds))
+        log(f"MatcherSession(device='cuda').match_pair, adaptive, {label}, 480x640 BF16")
+        session = MatcherSession(lg_params=tree, config=cfg, device="cuda")
+        session.match_pair(img0, img1)  # warm
+        for fn in counters:
+            fn.launches = 0
+        result = session.match_pair(img0, img1)
+        launches = {fn.__name__: fn.launches for fn in counters}
+        log(f"  launches in one match_pair: {launches}")
+        for name, count in launches.items():
+            if count < 1:
+                raise AssertionError(f"{label}: kernel {name} did not launch")
+        if label == "random weights":
+            dec_e.d["launches"] = launches["adaptive_decide"]
+        for key in ("scores", "match_scores", "keypoints0", "keypoints1"):
+            if not np.isfinite(result[key]).all():
+                raise AssertionError(f"{label}: match_pair output {key} is not finite")
+        m = result["matches"]
+        n0, n1 = result["num_keypoints0"], result["num_keypoints1"]
+        if len(m) and (m.min() < 0 or m[:, 0].max() >= n0 or m[:, 1].max() >= n1):
+            raise AssertionError(f"{label}: match indices outside the keypoints")
+        ext = session.extract(np.stack([img0, img1]))
+        widths.clear()
+        ls.transformer_stack_adaptive = spy
+        try:
+            out, _ = session.match_from_extractions(ext.slice(0, 1), ext.slice(1, 2))
+        finally:
+            ls.transformer_stack_adaptive = real
+        times = []
+        for _ in range(10):
+            t = time.perf_counter()
+            session.match_pair(img0, img1)
+            times.append((time.perf_counter() - t) * 1e3)
+        pair_ms = statistics.median(times)
+        log(f"  keypoints {n0}/{n1} exit {int(out.exit_layer[0])} surviving "
+            f"{int(out.lengths0[0])}/{int(out.lengths1[0])} stack buckets {widths} "
+            f"matches {len(m)} ms_per_pair median {pair_ms:.3f} (10 repeats, min {min(times):.3f})")
+        expect_exit = {"random weights": N_LAYERS, "exit-3 weights": 3}.get(label)
+        if expect_exit is not None and int(out.exit_layer[0]) != expect_exit:
+            raise AssertionError(f"{label}: exit {int(out.exit_layer[0])}, want {expect_exit}")
+        # two phases where the bucket allows them, the second at half width
+        # when every pair's survivors fit (the stack check above asserts that
+        # arm on random descriptors)
+        bk = [session.config.bucket_for(max(c, 1)) for c in (n0, n1)]
+        if (ds > 0 and bk[0] == bk[1] and (bk[0] // 2) % 128 == 0
+                and (len(widths) != 2 or widths[1] not in (bk[0], bk[0] // 2))):
+            raise AssertionError(f"{label}: stack buckets {widths}, want two phases")
+        profile_breakdown(session, img0, img1, pair_ms, top=8)
 
 
 def main() -> int:
@@ -511,7 +884,14 @@ def main() -> int:
     if not mc or iou <= 0.95 or score_err > 1e-3:
         raise AssertionError(f"cuda vs cpu: IoU {iou:.4f} (needs > 0.95), scores {score_err}")
 
-    log(json.dumps({"kernels": [x.out() for x in (conv_e, nms_e, lin_e, att_e, ln_e)]}))
+    # ---- the adaptive path -------------------------------------------------
+    dec_e = Entry("adaptive_decide", "src/lightglue_tpu_torch/csrc/adaptive.cu",
+                  "src/lightglue_tpu/kernels/layer_stack.py:974")
+    adaptive_kernel_checks(ls, rand, freqs_for, dev, dtypes, fp32_scope, dec_e)
+    adaptive_stack_checks(ls, weights, rand, freqs_for, dev, dtypes, fp32_scope)
+    adaptive_end_to_end(ls, counters, weights, img0, img1, dec_e)
+
+    log(json.dumps({"kernels": [x.out() for x in (conv_e, nms_e, lin_e, att_e, ln_e, dec_e)]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

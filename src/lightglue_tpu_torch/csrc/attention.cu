@@ -17,6 +17,16 @@
 // by 1; padded q rows are zeroed. RoPE casts the freqs to the operand type
 // and rounds each product and the sum (:377-384).
 //
+// Adaptive operands (transformer_stack_adaptive, wrapper :974, pallas_call
+// :1229): under width pruning (B, N) fp32 0/1 keep vectors replace the
+// lengths: kv columns with keep < 0.5 become -1e30 and each output row is
+// multiplied by its own keep (:457, :468-469, :500, :523, :535, :553-555).
+// With an exit register (B,) fp32 and the global layer g, a block whose
+// pair has exit <= g returns at once (the pl.when(live) gate, :734-745):
+// its output rows are left unwritten, and the stack never reads them. The
+// keep masks are a template parameter, so the fixed-depth path runs the
+// code it ran without them.
+//
 // Bound on the H100: per head 4*Nq*Nk*D FLOP against (Nq+2*Nk)*D operands,
 // so at N = 1024 the tensor cores bound it (~1 us per call at the bf16
 // peak). Design: one block per 16 query rows of one head keeps the whole
@@ -24,7 +34,10 @@
 // N <= 1024 gate guarantees) and takes max, exp, sum and P.V in that order,
 // so every rounding point of the reference is reproduced (an online
 // softmax would rescale at other points). The products run on the fp32 FMA
-// units in this first version.
+// units in this first version. Asking for two blocks per SM in the launch
+// bounds (two fit by shared memory either way) lets ptxas unroll the
+// products over 72-95 registers instead of 32-48, without spills; the
+// keep-masked variant gains most (PERF.md).
 
 #include <math.h>
 
@@ -77,10 +90,13 @@ __device__ void rope_rows(float* rows, int stride, int nrows, int pos0,
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
+template <typename T, bool KEEP>
+__global__ void __launch_bounds__(THREADS, 2)
 attention_kernel(Operand q, Operand k, Operand v, const float* __restrict__ freqs,
                  const int* __restrict__ len_q, const int* __restrict__ len_kv,
+                 const float* __restrict__ keep_q,
+                 const float* __restrict__ keep_kv,
+                 const float* __restrict__ exit_reg, int layer,
                  T* __restrict__ out, int Nq, int Nk, int H, float scale,
                  int quant) {
   extern __shared__ float smem[];
@@ -91,9 +107,12 @@ attention_kernel(Operand q, Operand k, Operand v, const float* __restrict__ freq
 
   const int tid = threadIdx.x;
   const int b = blockIdx.z, h = blockIdx.y, i0 = blockIdx.x * BQ;
-  const bool masked = len_q != nullptr;
-  const int lq = masked ? len_q[b] : Nq;
-  const int lk = masked ? len_kv[b] : Nk;
+  if (exit_reg && !(exit_reg[b] > static_cast<float>(layer))) return;
+  const bool masked = KEEP || len_q != nullptr;
+  const int lq = len_q ? len_q[b] : Nq;
+  const int lk = len_kv ? len_kv[b] : Nk;
+  const float* kq = KEEP ? keep_q + (size_t)b * Nq : nullptr;
+  const float* kk = KEEP ? keep_kv + (size_t)b * Nk : nullptr;
   const float* fb = freqs ? freqs + (size_t)b * 2 * Nq * D : nullptr;
 
   for (int i = tid; i < BQ * D; i += THREADS) {
@@ -121,6 +140,7 @@ attention_kernel(Operand q, Operand k, Operand v, const float* __restrict__ freq
       __syncthreads();
     }
     if (cj < jn) {
+      const bool dead_col = KEEP ? kk[j0 + cj] < 0.5f : (masked && j0 + cj >= lk);
 #pragma unroll
       for (int rr = 0; rr < BQ / 4; ++rr) {
         const int r = r0 + 4 * rr;
@@ -128,7 +148,7 @@ attention_kernel(Operand q, Operand k, Operand v, const float* __restrict__ freq
 #pragma unroll 16
         for (int d = 0; d < D; ++d) dot = fmaf(qs[r * D + d], kv[cj * (D + 1) + d], dot);
         float s = quant_stat<T>(dot * scale, quant);
-        if (masked && j0 + cj >= lk) s = NEG;
+        if (dead_col) s = NEG;
         ss[r * Nk + j0 + cj] = s;
       }
     }
@@ -179,29 +199,36 @@ attention_kernel(Operand q, Operand k, Operand v, const float* __restrict__ freq
     if (gi >= Nq) continue;
     const float l = ls[r];
     float o = acc[rr] / (l == 0.f ? 1.f : l);
-    if (masked && gi >= lq) o = 0.f;
+    if (KEEP)
+      o *= kq[gi];
+    else if (masked && gi >= lq)
+      o = 0.f;
     out[((size_t)b * Nq + gi) * H * D + h * D + cj] = lg::from_f<T>(o);
   }
 }
 
-template <typename T>
+template <typename T, bool KEEP>
 int launch(Operand q, Operand k, Operand v, const void* freqs,
-           const void* len_q, const void* len_kv, void* out, int B, int Nq,
-           int Nk, int H, float scale, int quant, cudaStream_t stream) {
+           const void* len_q, const void* len_kv, const void* keep_q,
+           const void* keep_kv, const void* exit_reg, int layer, void* out,
+           int B, int Nq, int Nk, int H, float scale, int quant,
+           cudaStream_t stream) {
   const size_t smem = sizeof(float) * (BQ * D + KC * (D + 1) + BQ * Nk + BQ);
   static size_t opted_in = 48 * 1024;  // raised once per size, not per launch
   if (smem > opted_in) {
     cudaError_t err = cudaFuncSetAttribute(
-        attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        attention_kernel<T, KEEP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     opted_in = smem;
   }
   dim3 grid((Nq + BQ - 1) / BQ, H, B);
-  attention_kernel<T><<<grid, THREADS, smem, stream>>>(
+  attention_kernel<T, KEEP><<<grid, THREADS, smem, stream>>>(
       q, k, v, static_cast<const float*>(freqs),
       static_cast<const int*>(len_q), static_cast<const int*>(len_kv),
-      static_cast<T*>(out), Nq, Nk, H, scale, quant);
+      static_cast<const float*>(keep_q), static_cast<const float*>(keep_kv),
+      static_cast<const float*>(exit_reg), layer, static_cast<T*>(out), Nq,
+      Nk, H, scale, quant);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -210,19 +237,27 @@ int launch(Operand q, Operand k, Operand v, const void* freqs,
 // q: rows of Nq, k/v: rows of Nk; head h of a row at columns [h*64, h*64+64),
 // addressed by (batch, row) strides in elements. freqs: (B, 2, N, 64) fp32
 // [cos; sin] with Nq == Nk == N, or null for no RoPE. len_q/len_kv: (B,)
-// int32, both null for the unmasked variant. out: (B, Nq, H*64) T.
+// int32, both null for the unmasked variant. keep_q/keep_kv: (B, Nq)/(B, Nk)
+// fp32 0/1 keep masks, both null or both set (then the lengths are
+// ignored). exit_reg: (B,) fp32 or null; layer: the global layer index.
+// out: (B, Nq, H*64) T.
 extern "C" int lg_attention(const void* q, long long q_bs, long long q_rs,
                             const void* k, long long k_bs, long long k_rs,
                             const void* v, long long v_bs, long long v_rs,
                             const void* freqs, const void* len_q,
-                            const void* len_kv, void* out, int B, int Nq,
-                            int Nk, int H, float scale, int quant, int bf16,
+                            const void* len_kv, const void* keep_q,
+                            const void* keep_kv, const void* exit_reg,
+                            int layer, void* out, int B, int Nq, int Nk,
+                            int H, float scale, int quant, int bf16,
                             void* stream) {
   const Operand oq{q, q_bs, q_rs}, ok{k, k_bs, k_rs}, ov{v, v_bs, v_rs};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool keep = keep_q != nullptr;
   if (bf16)
-    return launch<__nv_bfloat16>(oq, ok, ov, freqs, len_q, len_kv, out, B, Nq,
-                                 Nk, H, scale, quant, s);
-  return launch<float>(oq, ok, ov, freqs, len_q, len_kv, out, B, Nq, Nk, H,
-                       scale, quant, s);
+    return (keep ? launch<__nv_bfloat16, true> : launch<__nv_bfloat16, false>)(
+        oq, ok, ov, freqs, len_q, len_kv, keep_q, keep_kv, exit_reg, layer, out,
+        B, Nq, Nk, H, scale, quant, s);
+  return (keep ? launch<float, true> : launch<float, false>)(
+      oq, ok, ov, freqs, len_q, len_kv, keep_q, keep_kv, exit_reg, layer, out, B,
+      Nq, Nk, H, scale, quant, s);
 }

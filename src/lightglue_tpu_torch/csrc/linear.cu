@@ -12,6 +12,13 @@
 // ~0.5-0.8 GFLOP on ~2 MB, so the tensor cores bound it (under 1 us at the
 // bf16 peak). This first version is a classic 64x64 shared-memory tile with
 // 4x4 fp32 FMA accumulators per thread; wgmma and TMA are later work.
+//
+// Liveness (transformer_stack_adaptive, wrapper :974, pallas_call :1229):
+// with an exit register (B,) fp32 and the global layer g, a tile whose pair
+// has exit <= g (rows_per_pair % 64 == 0, so a tile holds one pair) skips
+// the product, the pl.when(live) gate of :734-745. With a residual (ffn2)
+// it writes y = R, so a retired pair's activations pass through the layer
+// bit for bit; without one its rows are left unwritten and never read.
 
 #include "common.cuh"
 
@@ -25,13 +32,23 @@ __global__ void __launch_bounds__(THREADS)
 linear_kernel(const T* __restrict__ a, const T* __restrict__ a2, int k1,
               const T* __restrict__ w, const T* __restrict__ bias,
               const T* __restrict__ res, T* __restrict__ y, int M, int N,
-              int K) {
+              int K, const float* __restrict__ exit_reg, int layer,
+              int rows_per_pair) {
   __shared__ __align__(16) float as[BK][BM];  // A tile, transposed
   __shared__ __align__(16) float bs[BK][BN];
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int k2 = K - k1;  // width of the second A operand (0 without one)
+  if (exit_reg && !(exit_reg[m0 / rows_per_pair] > static_cast<float>(layer))) {
+    if (res) {
+      for (int i = tid; i < BM * BN; i += THREADS) {
+        const int gm = m0 + i / BN, gn = n0 + i % BN;
+        if (gm < M) y[(size_t)gm * N + gn] = res[(size_t)gm * N + gn];
+      }
+    }
+    return;
+  }
 
   float acc[4][4] = {};
   for (int kk = 0; kk < K; kk += BK) {
@@ -87,12 +104,14 @@ linear_kernel(const T* __restrict__ a, const T* __restrict__ a2, int k1,
 template <typename T>
 int launch(const void* a, const void* a2, int k1, const void* w,
            const void* bias, const void* res, void* y, int M, int N, int K,
+           const void* exit_reg, int layer, int rows_per_pair,
            cudaStream_t stream) {
   dim3 grid(N / BN, (M + BM - 1) / BM);
   linear_kernel<T><<<grid, THREADS, 0, stream>>>(
       static_cast<const T*>(a), static_cast<const T*>(a2), k1,
       static_cast<const T*>(w), static_cast<const T*>(bias),
-      static_cast<const T*>(res), static_cast<T*>(y), M, N, K);
+      static_cast<const T*>(res), static_cast<T*>(y), M, N, K,
+      static_cast<const float*>(exit_reg), layer, rows_per_pair);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -100,11 +119,16 @@ int launch(const void* a, const void* a2, int k1, const void* w,
 
 // a: (M, k1) T; a2: (M, K - k1) T or null with k1 == K; w: (K, N) T;
 // bias: (N,) T; res: (M, N) T or null; y: (M, N) T. N % 64 == 0, K % 16 == 0.
+// exit_reg: (B,) fp32 or null; layer: the global layer index; the rows of
+// pair b are [b * rows_per_pair, (b + 1) * rows_per_pair).
 extern "C" int lg_linear(const void* a, const void* a2, int k1, const void* w,
                          const void* bias, const void* res, void* y, int M,
-                         int N, int K, int bf16, void* stream) {
+                         int N, int K, const void* exit_reg, int layer,
+                         int rows_per_pair, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return launch<__nv_bfloat16>(a, a2, k1, w, bias, res, y, M, N, K, s);
-  return launch<float>(a, a2, k1, w, bias, res, y, M, N, K, s);
+    return launch<__nv_bfloat16>(a, a2, k1, w, bias, res, y, M, N, K, exit_reg,
+                                 layer, rows_per_pair, s);
+  return launch<float>(a, a2, k1, w, bias, res, y, M, N, K, exit_reg, layer,
+                       rows_per_pair, s);
 }

@@ -11,6 +11,10 @@
 // operations on it, so HBM bounds it (~0.6 us for 1024 x 512 bf16 rows in
 // and out). Design: one warp per row, 16 elements per lane kept in registers
 // between the statistics and the output pass.
+//
+// Liveness (transformer_stack_adaptive, :734-745): with an exit register
+// (B,) fp32 and the global layer g, a row whose pair has exit <= g is left
+// unwritten; the stack never reads it.
 
 #include <math.h>
 
@@ -24,10 +28,14 @@ constexpr int MAX_PER_LANE = 16;  // rows up to 512 wide
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 ln_gelu_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
-               const T* __restrict__ beta, T* __restrict__ y, int M, int C) {
+               const T* __restrict__ beta, T* __restrict__ y, int M, int C,
+               const float* __restrict__ exit_reg, int layer,
+               int rows_per_pair) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int row = blockIdx.x * (THREADS / 32) + warp;
   if (row >= M) return;
+  if (exit_reg && !(exit_reg[row / rows_per_pair] > static_cast<float>(layer)))
+    return;
   const T* xr = x + (size_t)row * C;
   float v[MAX_PER_LANE];
   float s = 0.f, ss = 0.f;
@@ -53,21 +61,30 @@ ln_gelu_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
 
 template <typename T>
 int launch(const void* x, const void* gamma, const void* beta, void* y, int M,
-           int C, cudaStream_t stream) {
+           int C, const void* exit_reg, int layer, int rows_per_pair,
+           cudaStream_t stream) {
   const int rows_per_block = THREADS / 32;
   ln_gelu_kernel<T><<<(M + rows_per_block - 1) / rows_per_block, THREADS, 0,
                       stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(gamma),
-      static_cast<const T*>(beta), static_cast<T*>(y), M, C);
+      static_cast<const T*>(beta), static_cast<T*>(y), M, C,
+      static_cast<const float*>(exit_reg), layer, rows_per_pair);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// x, y: (M, C) T with C <= 512; gamma, beta: (C,) T.
+// x, y: (M, C) T with C <= 512; gamma, beta: (C,) T. exit_reg: (B,) fp32
+// or null; layer: the global layer index; pair b owns rows
+// [b * rows_per_pair, (b + 1) * rows_per_pair).
 extern "C" int lg_ln_gelu(const void* x, const void* gamma, const void* beta,
-                          void* y, int M, int C, int bf16, void* stream) {
+                          void* y, int M, int C, const void* exit_reg,
+                          int layer, int rows_per_pair, int bf16,
+                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) return launch<__nv_bfloat16>(x, gamma, beta, y, M, C, s);
-  return launch<float>(x, gamma, beta, y, M, C, s);
+  if (bf16)
+    return launch<__nv_bfloat16>(x, gamma, beta, y, M, C, exit_reg, layer,
+                                 rows_per_pair, s);
+  return launch<float>(x, gamma, beta, y, M, C, exit_reg, layer,
+                       rows_per_pair, s);
 }

@@ -32,16 +32,21 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 # name -> argtypes; every function returns its launch's cudaError_t
 _SIGNATURES = {
     "lg_conv3x3": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "lg_nms_candidates": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "lg_linear": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "lg_linear": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _P],
     "lg_attention": [
-        _P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _P, _P, _P,
-        _I, _I, _I, _I, ctypes.c_float, _I, _I, _P,
+        _P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _P, _P, _P, _P, _P, _I, _P,
+        _I, _I, _I, _I, _F, _I, _I, _P,
     ],
-    "lg_ln_gelu": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "lg_ln_gelu": [_P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _P],
+    "lg_adaptive_decide": [
+        _P, _P, _I, _I, _I, _I, _P, _P, _F, _P, _P, _F, _P, _P, _P, _P, _P,
+        _I, _I, _F, _I, _P,
+    ],
 }
 
 # dynamic shared memory one Hopper block may opt into (cudaFuncSetAttribute)

@@ -1,22 +1,33 @@
-"""The LightGlue layer stack on three hand-written kernels.
+"""The LightGlue layer stack on four hand-written kernels.
 
 Counterpart of ``lightglue_tpu/kernels/layer_stack.py:transformer_stack``
-(wrapper :801, pallas_call :894, body :121-748, fixed-depth branch). The TPU
-kernel keeps a pair's activations in VMEM across all layers in one
-pallas_call; here a Python loop over the layers launches, per layer and
-image, the kernels of ``csrc/``:
+(wrapper :801, pallas_call :894, body :121-748, fixed-depth branch) and of
+``transformer_stack_adaptive`` (wrapper :974, pallas_call :1229, the
+adaptive branches of the same body). The TPU kernel keeps a pair's
+activations in VMEM across all layers in one pallas_call; here a Python
+loop over the layers launches, per layer and image, the kernels of
+``csrc/``:
 
 - ``linear`` (``csrc/linear.cu``): every projection — fused qkv, the cross
   block's fused [qk | v], the out projections, ffn1 over cat(x, message)
   taken as two operands, ffn2 with its residual add;
 - ``attention`` (``csrc/attention.cu``): masked self-attention with RoPE and
   both cross-attention directions (one launch each);
-- ``ln_gelu`` (``csrc/ln_gelu.cu``): the FFN's LayerNorm + GELU.
+- ``ln_gelu`` (``csrc/ln_gelu.cu``): the FFN's LayerNorm + GELU;
+- ``adaptive_decide`` (``csrc/adaptive.cu``, adaptive stack only): after
+  each layer, the early-exit and pruning decision of every live pair.
+
+The adaptive stack carries a per-pair exit register (B,) fp32 and, under
+width pruning, (B, N) fp32 keep masks, both on the device. The three layer
+kernels take the register and the global layer index (``Live``) and skip
+retired pairs; attention takes the keep masks in place of the lengths. The
+layer loop reads nothing back to the host.
 
 Each wrapper launches its kernel on a CUDA tensor and runs its plain PyTorch
-version (``*_plain``) on a CPU tensor; ``transformer_stack_plain`` runs the
-same loop on the plain versions on any device. Rounding follows the JAX
-kernel's points exactly (see each kernel's header).
+version (``*_plain``) on a CPU tensor; ``transformer_stack_plain`` and
+``transformer_stack_adaptive_plain`` run the same loops on the plain
+versions on any device. Rounding follows the JAX kernel's points exactly
+(see each kernel's header).
 """
 
 from __future__ import annotations
@@ -32,6 +43,22 @@ MAX_SEQ = 1024  # the JAX kernel's VMEM gate, kept as the port's contract
 HEAD_DIM = 64   # the attention kernel's head width
 _NEG_INF = -1e30
 _DEAD = _NEG_INF * 0.5  # all-masked-row clamp (layer_stack.py:276-292)
+
+
+class Live(NamedTuple):
+    """Liveness operand of the layer kernels: pair b runs global layer
+    ``layer`` iff ``exit[b] > layer`` (the Pallas kernel's pl.when(live))."""
+
+    exit: torch.Tensor  # (B,) fp32 exit register
+    layer: int          # global layer index
+
+
+def _live_args(live: Optional[Live], rows_per_pair: int):
+    if live is None:
+        return None, 0, 1
+    if live.exit.dtype != torch.float32 or not live.exit.is_contiguous():
+        raise ValueError("exit register must be contiguous fp32")
+    return live.exit.data_ptr(), live.layer, rows_per_pair
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -58,24 +85,33 @@ def _check_same(name: str, dtype, *tensors) -> None:
 # ---------------------------------------------------------------------------
 
 
-def linear_plain(a, w, b, a2=None, residual=None):
+def linear_plain(a, w, b, a2=None, residual=None, live: Optional[Live] = None):
     """[a | a2] @ w + b (+ residual): fp32 accumulation of w-dtype operands,
-    cast to a's dtype, bias added in a's dtype, residual added in a's dtype."""
+    cast to a's dtype, bias added in a's dtype, residual added in a's dtype.
+    With ``live`` and a residual, a retired pair's rows are the residual."""
     x = a if a2 is None else torch.cat([a, a2], dim=-1)
     y = (x.to(w.dtype).float() @ w.float()).to(a.dtype) + b.to(a.dtype)
-    return y if residual is None else y + residual
+    if residual is None:
+        return y
+    y = y + residual
+    if live is not None:
+        y = torch.where((live.exit > live.layer).view(-1, 1, 1), y, residual)
+    return y
 
 
-def linear(a, w, b, a2=None, residual=None):
+def linear(a, w, b, a2=None, residual=None, live: Optional[Live] = None):
     """Y = [a | a2] @ w + b (+ residual) over the last dim.
 
     Args:
       a: (..., K1) activations; a2: optional (..., K - K1) second operand
         (the concat is never materialised); w: (K, N); b: (N,);
         residual: optional (..., N). On the card all share one dtype.
+      live: optional liveness operand; then ``a`` is (B, N, K1) and a
+        retired pair's rows are skipped (unwritten) or, with a residual,
+        copied from it.
     """
     if a.device.type == "cpu":
-        return linear_plain(a, w, b, a2, residual)
+        return linear_plain(a, w, b, a2, residual, live)
     _check_same("linear", a.dtype, a, w, b, a2, residual)
     k, n = w.shape
     k1 = a.shape[-1]
@@ -90,12 +126,15 @@ def linear(a, w, b, a2=None, residual=None):
     for t in (a, a2, w, b, residual):
         if t is not None and not t.is_contiguous():
             raise ValueError("linear: operands must be contiguous")
+    rows = a.shape[1] if a.dim() == 3 else m
+    if live is not None and (a.dim() != 3 or rows % 64 or live.exit.shape != (a.shape[0],)):
+        raise ValueError(f"linear: liveness needs (B, N % 64 == 0, K) rows, got {a.shape}")
     y = torch.empty((*lead, n), dtype=a.dtype, device=a.device)
     err = _build.lib().lg_linear(
         a.data_ptr(), None if a2 is None else a2.data_ptr(), k1,
         w.data_ptr(), b.data_ptr(),
         None if residual is None else residual.data_ptr(), y.data_ptr(),
-        m, n, k, _is_bf16(a), _stream(a),
+        m, n, k, *_live_args(live, rows), _is_bf16(a), _stream(a),
     )
     _build.check(err, "linear")
     linear.launches += 1
@@ -121,12 +160,16 @@ def _rope(v: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor
 
 
 def attention_plain(q, k, v, freqs, len_q, len_kv, num_heads, stat_dtype,
-                    out_dtype=None):
+                    out_dtype=None, keep_q=None, keep_kv=None,
+                    live: Optional[Live] = None):
     """Masked multi-head attention with the reference's rounding points.
 
     q: (B, Nq, H*D), k/v: (B, Nk, H*D) in the operand dtype; freqs:
-    (B, 2, N, D) fp32 or None; len_q/len_kv: (B,) ints or None. The fp32
-    result is cast once to ``out_dtype`` (default: the operand dtype)."""
+    (B, 2, N, D) fp32 or None; len_q/len_kv: (B,) ints or None;
+    keep_q/keep_kv: (B, Nq)/(B, Nk) fp32 0/1 keep masks, which replace the
+    lengths. The fp32 result is cast once to ``out_dtype`` (default: the
+    operand dtype). ``live`` changes nothing here: a retired pair's rows
+    are computed, where the kernel leaves them unwritten."""
     bsz, nq, e = q.shape
     nk = k.shape[1]
     d = e // num_heads
@@ -142,8 +185,11 @@ def attention_plain(q, k, v, freqs, len_q, len_kv, num_heads, stat_dtype,
         qh, kh = _rope(qh, cos, sin), _rope(kh, cos, sin)
     s = _quant((qh.float() @ kh.float().transpose(-1, -2)) * (1.0 / math.sqrt(d)),
                stat_dtype)
-    masked = len_q is not None
-    if masked:
+    keep = keep_q is not None
+    masked = len_q is not None or keep
+    if keep:
+        s = torch.where(keep_kv.view(bsz, 1, 1, nk) >= 0.5, s, _NEG_INF)
+    elif masked:
         cols = torch.arange(nk, device=q.device)
         s = torch.where(cols < len_kv.view(-1, 1, 1, 1), s, _NEG_INF)
     m = _quant(s.amax(dim=-1, keepdim=True), stat_dtype)
@@ -152,24 +198,31 @@ def attention_plain(q, k, v, freqs, len_q, len_kv, num_heads, stat_dtype,
     p = _quant(torch.exp(s - m), stat_dtype)
     l = _quant(p.sum(dim=-1, keepdim=True), stat_dtype)
     o = (p.to(dt).float() @ vh.float()) / torch.where(l == 0.0, 1.0, l)
-    if masked:
+    if keep:
+        o = o * keep_q.view(bsz, 1, nq, 1)
+    elif masked:
         rows = torch.arange(nq, device=q.device)[:, None]
         o = torch.where(rows < len_q.view(-1, 1, 1, 1), o, 0.0)
     return o.transpose(1, 2).reshape(bsz, nq, e).to(out_dtype or dt)
 
 
 def attention(q, k, v, freqs, len_q, len_kv, num_heads, stat_dtype,
-              out_dtype=None):
+              out_dtype=None, keep_q=None, keep_kv=None,
+              live: Optional[Live] = None):
     """Multi-head attention over (B, N, H*64) rows, heads in column blocks.
 
     q, k, v may be column slices of a wider projection (any batch and row
     stride, unit column stride). ``freqs`` (B, 2, N, 64) turns on half-split
     RoPE for q and k (self-attention, Nq == Nk); ``len_q``/``len_kv`` (B,)
-    mask padded rows/columns (both or neither). Returns (B, Nq, H*64) in
-    ``out_dtype``, which on the card must be the operand dtype."""
+    mask padded rows/columns (both or neither). ``keep_q``/``keep_kv``
+    (B, Nq)/(B, Nk) fp32 0/1 (both or neither) mask by width pruning's keep
+    vectors instead: kv columns < 0.5 are masked and output rows are scaled
+    by their keep. ``live`` skips retired pairs (their rows stay unwritten).
+    Returns (B, Nq, H*64) in ``out_dtype``, which on the card must be the
+    operand dtype."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, freqs, len_q, len_kv, num_heads,
-                               stat_dtype, out_dtype)
+                               stat_dtype, out_dtype, keep_q, keep_kv, live)
     _check_same("attention", q.dtype, q, k, v)
     if out_dtype not in (None, q.dtype):
         raise NotImplementedError(
@@ -199,6 +252,16 @@ def attention(q, k, v, freqs, len_q, len_kv, num_heads, stat_dtype,
         len_kv = len_kv.to(torch.int32).contiguous()
         if len_q.shape != (bsz,) or len_kv.shape != (bsz,):
             raise ValueError("attention: lengths must be (B,)")
+    if (keep_q is None) != (keep_kv is None):
+        raise ValueError("attention: pass both keep masks or neither")
+    if keep_q is not None:
+        if keep_q.shape != (bsz, nq) or keep_kv.shape != (bsz, nk):
+            raise ValueError(f"attention: keep masks {keep_q.shape} {keep_kv.shape}")
+        if keep_q.dtype != torch.float32 or keep_kv.dtype != torch.float32:
+            raise ValueError("attention: keep masks must be fp32")
+        keep_q, keep_kv = keep_q.contiguous(), keep_kv.contiguous()
+    if live is not None and live.exit.shape != (bsz,):
+        raise ValueError(f"attention: exit register {tuple(live.exit.shape)} for B={bsz}")
     out = torch.empty((bsz, nq, e), dtype=q.dtype, device=q.device)
     err = _build.lib().lg_attention(
         q.data_ptr(), q.stride(0), q.stride(1),
@@ -207,6 +270,9 @@ def attention(q, k, v, freqs, len_q, len_kv, num_heads, stat_dtype,
         None if freqs is None else freqs.data_ptr(),
         None if len_q is None else len_q.data_ptr(),
         None if len_kv is None else len_kv.data_ptr(),
+        None if keep_q is None else keep_q.data_ptr(),
+        None if keep_kv is None else keep_kv.data_ptr(),
+        *_live_args(live, nq)[:2],
         out.data_ptr(), bsz, nq, nk, num_heads, 1.0 / math.sqrt(HEAD_DIM),
         int(stat_dtype == torch.bfloat16), _is_bf16(q), _stream(q),
     )
@@ -223,7 +289,9 @@ attention.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def ln_gelu_plain(h, g, b):
+def ln_gelu_plain(h, g, b, live: Optional[Live] = None):
+    """``live`` changes nothing here (the kernel leaves retired rows
+    unwritten)."""
     hf = h.float()
     mean = hf.mean(dim=-1, keepdim=True)
     var = (hf * hf).mean(dim=-1, keepdim=True) - mean * mean
@@ -231,21 +299,25 @@ def ln_gelu_plain(h, g, b):
     return (0.5 * n * (1.0 + torch.erf(n * (1.0 / math.sqrt(2.0))))).to(h.dtype)
 
 
-def ln_gelu(h, g, b):
+def ln_gelu(h, g, b, live: Optional[Live] = None):
     """GELU(LayerNorm(h) * g + b) over the last dim (<= 512), fp32 math,
-    result in h's dtype."""
+    result in h's dtype. With ``live``, h is (B, N, C) and a retired pair's
+    rows stay unwritten."""
     if h.device.type == "cpu":
-        return ln_gelu_plain(h, g, b)
+        return ln_gelu_plain(h, g, b, live)
     _check_same("ln_gelu", h.dtype, h, g, b)
     c = h.shape[-1]
     if c > 512 or g.shape != (c,) or b.shape != (c,):
         raise ValueError(f"ln_gelu: width {c} (<= 512), gamma/beta {g.shape}")
     if not (h.is_contiguous() and g.is_contiguous() and b.is_contiguous()):
         raise ValueError("ln_gelu: operands must be contiguous")
+    if live is not None and (h.dim() != 3 or live.exit.shape != (h.shape[0],)):
+        raise ValueError(f"ln_gelu: liveness needs (B, N, C) rows, got {h.shape}")
     y = torch.empty_like(h)
     err = _build.lib().lg_ln_gelu(
         h.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr(),
-        h.numel() // c, c, _is_bf16(h), _stream(h),
+        h.numel() // c, c, *_live_args(live, h.shape[1] if h.dim() == 3 else 1),
+        _is_bf16(h), _stream(h),
     )
     _build.check(err, "ln_gelu")
     ln_gelu.launches += 1
@@ -253,6 +325,138 @@ def ln_gelu(h, g, b):
 
 
 ln_gelu.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the adaptive decision
+# ---------------------------------------------------------------------------
+
+
+def _logit(p: float) -> float:
+    return math.log(p) - math.log(1.0 - p)
+
+
+def token_logit_threshold(layer: int, n_layers: int) -> float:
+    """logit(th) of the early-exit schedule th = clip(0.8 + 0.1 exp(-4 g / L))
+    at global layer g (layer_stack.py:592-599); th <= 0.9, so the logit is
+    finite. The token head's bias is subtracted on the device."""
+    th = min(max(0.8 + 0.1 * math.exp(-4.0 * layer / n_layers), 0.0), 1.0)
+    return _logit(th)
+
+
+def _decide_checks(x0, x1, w_tok, b_tok, exit, lengths0, lengths1, w_match, b_match,
+                   keep0, keep1):
+    bsz, n0, e = x0.shape
+    n1 = x1.shape[1]
+    if x1.shape != (bsz, n1, e) or w_tok.shape != (e,) or exit.shape != (bsz,):
+        raise ValueError(f"adaptive_decide: x {x0.shape} {x1.shape}, w_tok {w_tok.shape}, "
+                         f"exit {exit.shape}")
+    if (w_match is None) != (keep0 is None) or (keep0 is None) != (keep1 is None):
+        raise ValueError("adaptive_decide: width needs w_match, b_match, keep0 and keep1")
+    if (lengths0 is None) != (lengths1 is None):
+        raise ValueError("adaptive_decide: pass both lengths or neither")
+    for t in (exit, b_tok, b_match, keep0, keep1):
+        if t is not None and (t.dtype != torch.float32 or not t.is_contiguous()):
+            raise ValueError("adaptive_decide: exit, biases and keep masks are contiguous fp32")
+    if keep0 is not None and (keep0.shape != (bsz, n0) or keep1.shape != (bsz, n1)):
+        raise ValueError(f"adaptive_decide: keep masks {keep0.shape} {keep1.shape}")
+
+
+def adaptive_decide_plain(x0, x1, w_tok, b_tok, exit, *, layer: int, n_layers: int,
+                          depth_confidence: float, lengths0=None, lengths1=None,
+                          w_match=None, b_match=None, width_confidence: float = -1.0,
+                          keep0=None, keep1=None) -> None:
+    """``adaptive_decide`` in plain PyTorch: the same arithmetic, in place."""
+    _decide_checks(x0, x1, w_tok, b_tok, exit, lengths0, lengths1, w_match, b_match,
+                   keep0, keep1)
+    live = exit > layer
+    if layer == n_layers - 1:
+        exit.copy_(torch.where(live, float(n_layers), exit))
+        return
+
+    def logits(x, w):  # operands in w's dtype, fp32 sums
+        return x.to(w.dtype).float() @ w.float()
+
+    # Python scalars meet fp32 tensors in fp32, as the kernel's float
+    # arguments do (and a graph capture may not copy a host tensor)
+    thr = token_logit_threshold(layer, n_layers) - b_tok.reshape(())
+    lgt = (logits(x0, w_tok), logits(x1, w_tok))
+    if keep0 is not None:
+        valid = (keep0 >= 0.5, keep1 >= 0.5)
+    elif lengths0 is not None:
+        valid = tuple(torch.arange(x.shape[1], device=x.device)[None] < n.view(-1, 1)
+                      for x, n in ((x0, lengths0), (x1, lengths1)))
+    else:
+        valid = (torch.ones_like(lgt[0], dtype=torch.bool),
+                 torch.ones_like(lgt[1], dtype=torch.bool))
+    cnt = sum(((g >= thr) & v).sum(-1, dtype=torch.int32) for g, v in zip(lgt, valid))
+    total = sum(v.sum(-1, dtype=torch.int32) for v in valid).clamp_min(1)
+    stop = live & (cnt.float() / total.float() > depth_confidence)
+    exit.copy_(torch.where(stop, float(layer + 1), exit))
+    if keep0 is None:
+        return
+    mthr = _logit(1.0 - width_confidence) - b_match.reshape(())
+    prune = (live & ~stop).view(-1, 1)
+    for keep, x, g in ((keep0, x0, lgt[0]), (keep1, x1, lgt[1])):
+        upd = (logits(x, w_match) > mthr) | (g <= thr)
+        keep.copy_(torch.where(prune & ~upd, 0.0, keep))
+
+
+def adaptive_decide(x0, x1, w_tok, b_tok, exit, *, layer: int, n_layers: int,
+                    depth_confidence: float, lengths0=None, lengths1=None,
+                    w_match=None, b_match=None, width_confidence: float = -1.0,
+                    keep0=None, keep1=None) -> None:
+    """Early-exit and pruning decision of every live pair after global layer
+    ``layer`` of an ``n_layers`` stack; updates ``exit`` and the keep masks
+    IN PLACE (they are the stack's device-resident state).
+
+    Args:
+      x0/x1: (B, N0, E) / (B, N1, E) activations after the layer.
+      w_tok: (E,) token-confidence head in the attention operand dtype;
+        b_tok: its fp32 bias, one element.
+      exit: (B,) fp32 exit register; a pair is live iff exit > layer. A
+        pair whose confident share of valid tokens exceeds
+        ``depth_confidence`` gets exit = layer + 1; at the last layer every
+        live pair gets exit = n_layers.
+      lengths0/lengths1: (B,) valid prefixes when masked (depth-only), or
+        None (unmasked: every row is valid).
+      w_match/b_match/keep0/keep1: width pruning — the matchability head
+        and the (B, N) fp32 0/1 keep masks, which then define validity;
+        a live pair that did not stop retires tokens that are confident and
+        not matchable at ``width_confidence``.
+    """
+    if x0.device.type == "cpu":
+        return adaptive_decide_plain(
+            x0, x1, w_tok, b_tok, exit, layer=layer, n_layers=n_layers,
+            depth_confidence=depth_confidence, lengths0=lengths0, lengths1=lengths1,
+            w_match=w_match, b_match=b_match, width_confidence=width_confidence,
+            keep0=keep0, keep1=keep1)
+    _check_same("adaptive_decide", x0.dtype, x0, x1, w_tok, w_match)
+    _decide_checks(x0, x1, w_tok, b_tok, exit, lengths0, lengths1, w_match, b_match,
+                   keep0, keep1)
+    bsz, n0, e = x0.shape
+    n1 = x1.shape[1]
+    if n0 > MAX_SEQ or n1 > MAX_SEQ or not (x0.is_contiguous() and x1.is_contiguous()):
+        raise ValueError(f"adaptive_decide: contiguous rows, N <= {MAX_SEQ}: {n0} {n1}")
+    if lengths0 is not None:
+        lengths0 = lengths0.to(torch.int32).contiguous()
+        lengths1 = lengths1.to(torch.int32).contiguous()
+    width = keep0 is not None
+    err = _build.lib().lg_adaptive_decide(
+        x0.data_ptr(), x1.data_ptr(), bsz, n0, n1, e,
+        w_tok.data_ptr(), b_tok.data_ptr(), token_logit_threshold(layer, n_layers),
+        w_match.data_ptr() if width else None, b_match.data_ptr() if width else None,
+        _logit(1.0 - width_confidence) if width else 0.0,
+        None if lengths0 is None else lengths0.data_ptr(),
+        None if lengths1 is None else lengths1.data_ptr(),
+        keep0.data_ptr() if width else None, keep1.data_ptr() if width else None,
+        exit.data_ptr(), layer, n_layers, depth_confidence, _is_bf16(x0), _stream(x0),
+    )
+    _build.check(err, "adaptive_decide")
+    adaptive_decide.launches += 1
+
+
+adaptive_decide.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -264,10 +468,11 @@ class _Ops(NamedTuple):
     linear: Callable
     attention: Callable
     ln_gelu: Callable
+    decide: Callable
 
 
-KERNEL_OPS = _Ops(linear, attention, ln_gelu)
-PLAIN_OPS = _Ops(linear_plain, attention_plain, ln_gelu_plain)
+KERNEL_OPS = _Ops(linear, attention, ln_gelu, adaptive_decide)
+PLAIN_OPS = _Ops(linear_plain, attention_plain, ln_gelu_plain, adaptive_decide_plain)
 
 
 def supports(layers_params, n0: int, n1: int, act_dtype, tp_axis=None) -> bool:
@@ -280,45 +485,87 @@ def supports(layers_params, n0: int, n1: int, act_dtype, tp_axis=None) -> bool:
     return act_dtype in (torch.bfloat16, torch.float32)
 
 
+class _Adaptive:
+    """Device-resident state of the adaptive stack: the exit register, the
+    keep masks (width only) and the per-layer heads; ``decide`` runs after
+    each layer."""
+
+    def __init__(self, token, match, exit, keep, lengths, *, layer_offset, n_layers,
+                 depth_confidence, width_confidence, attn_dtype):
+        self.exit, self.keep, self.lengths = exit, keep, lengths
+        self.layer_offset, self.n_layers = layer_offset, n_layers
+        self.depth_confidence, self.width_confidence = depth_confidence, width_confidence
+        # (P, E, 1) heads -> (P, E) rows in the operand dtype, fp32 biases
+        self.tok_w = token["w"][..., 0].to(attn_dtype).contiguous()
+        self.tok_b = token["b"].reshape(-1).float().contiguous()
+        self.match_w = self.match_b = None
+        if keep is not None:
+            self.match_w = match["w"][..., 0].to(attn_dtype).contiguous()
+            self.match_b = match["b"].reshape(-1).float().contiguous()
+
+    def live(self, l: int) -> Live:
+        return Live(self.exit, self.layer_offset + l)
+
+    def decide(self, ops: _Ops, l: int, x0, x1) -> None:
+        # the last layer of the stack has no token head: its slot is never
+        # read (the decision only forces the exit there), so the last given
+        # head stands in, as the JAX wrapper pads it
+        t = min(l, self.tok_w.shape[0] - 1)
+        width = self.keep is not None
+        ops.decide(
+            x0, x1, self.tok_w[t], self.tok_b[t:t + 1], self.exit,
+            layer=self.layer_offset + l, n_layers=self.n_layers,
+            depth_confidence=self.depth_confidence,
+            lengths0=self.lengths[0], lengths1=self.lengths[1],
+            w_match=self.match_w[l] if width else None,
+            b_match=self.match_b[l:l + 1] if width else None,
+            width_confidence=self.width_confidence,
+            keep0=self.keep[0] if width else None, keep1=self.keep[1] if width else None,
+        )
+
+
 def _run_stack(layers, d0, d1, freqs0, freqs1, lengths0, lengths1, *,
-               num_heads, stat_dtype, attn_dtype, ops: _Ops):
+               num_heads, stat_dtype, attn_dtype, ops: _Ops,
+               adaptive: Optional[_Adaptive] = None):
     if "w_q" in layers["self_attn"]["qkv"]:
         raise NotImplementedError("int8 / W8A8 layer weights are queued for a later slice")
     e = d0.shape[-1]
     n_layers = layers["self_attn"]["ln_g"].shape[0]
     attn_dtype = attn_dtype or d0.dtype
     lens = (None, None) if lengths0 is None else (lengths0, lengths1)
+    keep = (None, None) if adaptive is None or adaptive.keep is None else adaptive.keep
     freqs = (freqs0.float(), freqs1.float())
     sp, cp = layers["self_attn"], layers["cross_attn"]
 
     def lin(p, name, l, x, a2=None, residual=None):
         return ops.linear(x, p[name]["w"][l].to(attn_dtype), p[name]["b"][l],
-                          a2=a2, residual=residual)
+                          a2=a2, residual=residual, live=live)
 
     def ffn(p, l, x, message):
         h = lin(p, "ffn1", l, x, a2=message)
-        act = ops.ln_gelu(h, p["ln_g"][l], p["ln_b"][l])
+        act = ops.ln_gelu(h, p["ln_g"][l], p["ln_b"][l], live=live)
         return lin(p, "ffn2", l, act, residual=x)
 
-    def attend(q, k, v, f, lq, lk):
+    def attend(q, k, v, f, i, j):  # rows of image i attend to image j
         return ops.attention(q.to(attn_dtype), k.to(attn_dtype), v.to(attn_dtype),
-                             f, lq, lk, num_heads, stat_dtype, d0.dtype)
+                             f, lens[i], lens[j], num_heads, stat_dtype, d0.dtype,
+                             keep_q=keep[i], keep_kv=keep[j], live=live)
 
     x = [d0, d1]
     for l in range(n_layers):
+        live = None if adaptive is None else adaptive.live(l)
         for i in (0, 1):  # self block, per image (the buckets may differ)
             qkv = lin(sp, "qkv", l, x[i])  # (B, N, 3E) = [q | k | v]
-            ctx = attend(qkv[..., :e], qkv[..., e:2 * e], qkv[..., 2 * e:],
-                         freqs[i], lens[i], lens[i])
+            ctx = attend(qkv[..., :e], qkv[..., e:2 * e], qkv[..., 2 * e:], freqs[i], i, i)
             x[i] = ffn(sp, l, x[i], lin(sp, "out", l, ctx))
         qk_v = [lin(cp, "qk_v", l, x[i]) for i in (0, 1)]  # (B, N, 2E) = [qk | v]
         qk = [t[..., :e] for t in qk_v]
         v = [t[..., e:] for t in qk_v]
-        msgs = (
-            attend(qk[0], qk[1], v[1], None, lens[0], lens[1]),
-            attend(qk[1], qk[0], v[0], None, lens[1], lens[0]),
-        )
+        msgs = (attend(qk[0], qk[1], v[1], None, 0, 1),
+                attend(qk[1], qk[0], v[0], None, 1, 0))
         x = [ffn(cp, l, x[i], lin(cp, "out", l, msgs[i])) for i in (0, 1)]
+        if adaptive is not None:
+            adaptive.decide(ops, l, x[0], x[1])
     return x[0], x[1]
 
 
@@ -360,3 +607,104 @@ def transformer_stack_plain(layers, d0, d1, freqs0, freqs1, lengths0, lengths1,
     return _run_stack(layers, d0, d1, freqs0, freqs1, lengths0, lengths1,
                       num_heads=num_heads, stat_dtype=stat_dtype,
                       attn_dtype=attn_dtype, ops=PLAIN_OPS)
+
+
+def _run_adaptive(layers, token, d0, d1, freqs0, freqs1, lengths0, lengths1, match,
+                  exit_in, *, num_heads, depth_confidence, width_confidence, layer_offset,
+                  total_layers, stat_dtype, attn_dtype, masked, ops: _Ops):
+    bsz, dev = d0.shape[0], d0.device
+    phase_layers = layers["self_attn"]["ln_g"].shape[0]
+    n_layers = layer_offset + phase_layers if total_layers is None else int(total_layers)
+    attn_dtype = attn_dtype or d0.dtype
+    lens = (lengths0.to(dev, torch.int32), lengths1.to(dev, torch.int32))
+    # "still running": any value above n_layers; the last layer forces a real
+    # exit, so only a call that ends before the stack's last layer (the
+    # downshift's first phase) returns it
+    if exit_in is None:
+        exit = torch.full((bsz,), n_layers + 1.0, dtype=torch.float32, device=dev)
+    else:
+        exit = exit_in.to(dev, torch.float32).clone()
+    width = match is not None and width_confidence > 0
+    keep = None
+    if width:  # cumulative keep masks, seeded with the valid prefix
+        keep = tuple((torch.arange(x.shape[1], device=dev)[None] < n[:, None]).float()
+                     for x, n in ((d0, lens[0]), (d1, lens[1])))
+    # width masks by the keep vectors alone; unmasked (full buckets) by nothing
+    stack_lens = lens if masked and not width else (None, None)
+    state = _Adaptive(
+        token, match, exit, keep, stack_lens, layer_offset=layer_offset,
+        n_layers=n_layers, depth_confidence=depth_confidence,
+        width_confidence=width_confidence, attn_dtype=attn_dtype)
+    o0, o1 = _run_stack(layers, d0, d1, freqs0, freqs1, *stack_lens,
+                        num_heads=num_heads, stat_dtype=stat_dtype, attn_dtype=attn_dtype,
+                        ops=ops, adaptive=state)
+    out = (o0, o1, exit.to(torch.int32))
+    return out + keep if width else out
+
+
+def transformer_stack_adaptive(
+    layers, token, d0, d1, freqs0, freqs1, lengths0, lengths1, match=None, exit_in=None,
+    *, num_heads: int, head_dim: int, depth_confidence: float,
+    width_confidence: float = -1.0, layer_offset: int = 0,
+    total_layers: Optional[int] = None, stat_dtype=torch.float32, attn_dtype=None,
+    masked: bool = True,
+):
+    """All layers with adaptive depth (early exit) and, with ``match``, width
+    pruning, every decision on the device.
+
+    After each layer ``adaptive_decide`` evaluates the token-confidence head
+    of every live pair in logit space and writes its exit register; the
+    next layer's kernels skip pairs whose register is at or below the
+    global layer index, so a retired pair's activations stay frozen. Width
+    pruning keeps (B, N) 0/1 masks that mask retired tokens out of every
+    attention from the next layer on; compaction happens once, outside.
+
+    Args:
+      layers: the port's ``params["layers"]`` for the layers of THIS call
+        (a downshift phase passes a slice).
+      token: {"w": (P, E, 1), "b": (P, 1)} token heads of this call's
+        layers; the stack's last layer has none, and its slot is not read.
+      d0/d1, freqs0/freqs1: as ``transformer_stack``.
+      lengths0/lengths1: (B,) true keypoint counts (required).
+      match: {"w": (P, E, 1), "b": (P, 1)} matchability heads; together
+        with ``width_confidence > 0`` this turns on width pruning.
+      exit_in: (B,) exit values from an earlier phase (int or float): a
+        pair with exit <= layer_offset retired there and passes through;
+        the sentinel (> total_layers) marks a pair still running. The JAX
+        kernel takes a 0/1 flag here and compares against the LOCAL layer
+        index; this one keeps global indices in every phase.
+      depth_confidence: stop when the confident share of valid tokens
+        exceeds it (width-only passes 2.0, never reached).
+      layer_offset/total_layers: global index of this call's first layer
+        and the stack's depth (thresholds and the forced last-layer exit).
+      masked: False is the unmasked full-bucket variant (depth-only).
+
+    Returns:
+      (d0', d1', exit (B,) int32) and, with width, (..., keep0, keep1):
+      (B, N) fp32 0/1 masks at each pair's exit (the JAX kernel returns them
+      replicated over 128 lanes).
+    """
+    if head_dim != HEAD_DIM and d0.device.type != "cpu":
+        raise NotImplementedError(f"head_dim {head_dim}: the kernel takes {HEAD_DIM}")
+    return _run_adaptive(
+        layers, token, d0, d1, freqs0, freqs1, lengths0, lengths1, match, exit_in,
+        num_heads=num_heads, depth_confidence=depth_confidence,
+        width_confidence=width_confidence, layer_offset=layer_offset,
+        total_layers=total_layers, stat_dtype=stat_dtype, attn_dtype=attn_dtype,
+        masked=masked, ops=KERNEL_OPS)
+
+
+def transformer_stack_adaptive_plain(
+    layers, token, d0, d1, freqs0, freqs1, lengths0, lengths1, match=None, exit_in=None,
+    *, num_heads: int, head_dim: int, depth_confidence: float,
+    width_confidence: float = -1.0, layer_offset: int = 0,
+    total_layers: Optional[int] = None, stat_dtype=torch.float32, attn_dtype=None,
+    masked: bool = True,
+):
+    """``transformer_stack_adaptive`` on the plain versions, on any device."""
+    return _run_adaptive(
+        layers, token, d0, d1, freqs0, freqs1, lengths0, lengths1, match, exit_in,
+        num_heads=num_heads, depth_confidence=depth_confidence,
+        width_confidence=width_confidence, layer_offset=layer_offset,
+        total_layers=total_layers, stat_dtype=stat_dtype, attn_dtype=attn_dtype,
+        masked=masked, ops=PLAIN_OPS)

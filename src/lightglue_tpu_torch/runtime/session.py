@@ -3,10 +3,16 @@
 Counterpart of ``lightglue_tpu/runtime/session.py:MatcherSession``. It runs
 the same two steps — extract (SuperPoint + keypoint selection) and match
 (LightGlue + mutual-NN filtering) — eagerly in PyTorch, with each pair
-padded to the smallest keypoint bucket that holds it. The only host round
-trip is reading the two keypoint counts that pick the bucket. There is no
-jit cache and no compile cache: the kernels are built once per checkout
-(kernels/_build.py).
+padded to the smallest keypoint bucket that holds it. The host round trips
+are reading the two keypoint counts that pick the bucket and, for an
+adaptive config with the downshift, the one read that picks phase 2's
+width. There is no jit cache and no compile cache: the kernels are built
+once per checkout (kernels/_build.py).
+
+An adaptive config (``depth_confidence`` / ``width_confidence`` > 0) runs
+``lightglue.forward_adaptive`` and maps match rows and columns, which index
+compacted (pruned) slots, back to the original keypoint indices on the
+device.
 """
 
 from __future__ import annotations
@@ -23,6 +29,16 @@ from lightglue_tpu_torch.pipeline.match import Matches, filter_matches
 from lightglue_tpu_torch.precision import Precision, policy_for
 from lightglue_tpu_torch.runtime import weights as weights_lib
 from lightglue_tpu_torch.utils.logging import ErrorRecorder
+
+
+def _remap(matches: Matches, index0: torch.Tensor, index1: torch.Tensor) -> Matches:
+    """Match rows/columns index compacted slots; map them to the original
+    keypoint indices (JAX session.py:205-219)."""
+    rows = matches.indices[..., 0].clamp_min(0).long()
+    cols = matches.indices[..., 1].clamp_min(0).long()
+    orig = torch.stack([torch.gather(index0, 1, rows), torch.gather(index1, 1, cols)], -1)
+    indices = torch.where(matches.mask[..., None], orig.to(matches.indices.dtype), -1)
+    return Matches(indices, matches.scores, matches.mask, matches.count)
 
 
 def resolve_device(device: Optional[str]) -> torch.device:
@@ -49,9 +65,6 @@ class MatcherSession:
     ):
         if config.precision == Precision.INT8:
             raise NotImplementedError("the INT8 rung is queued for a later slice")
-        lgc = config.lightglue
-        if lgc.depth_confidence > 0 or lgc.width_confidence > 0:
-            raise NotImplementedError("adaptive depth/width is queued for a later slice")
         self.device = resolve_device(device)
         if config.precision == Precision.MIXED and self.device.type == "cuda":
             # the kernels take one dtype for operands and activations
@@ -106,39 +119,47 @@ class MatcherSession:
 
     # -- matching -----------------------------------------------------------
 
-    def match_from_extractions(
-        self, ext0: Extraction, ext1: Extraction
-    ) -> Tuple[lightglue.LightGlueOutput, Matches]:
+    def match_from_extractions(self, ext0: Extraction, ext1: Extraction):
         """Bucket, pad-slice and run LightGlue on already-extracted features.
 
         Extractions are score-descending, so truncating to the bucket keeps
-        the strongest keypoints."""
-        # exactly two device -> host fetches; every host value derives from them
+        the strongest keypoints. Returns (LightGlueOutput or AdaptiveOutput,
+        Matches), match indices into the original keypoints."""
+        # two device -> host fetches; every host value derives from them
         c0 = ext0.count.cpu().numpy()
         c1 = ext1.count.cpu().numpy()
         b0 = self.config.bucket_for(max(int(c0.max()), 1))
         b1 = self.config.bucket_for(max(int(c1.max()), 1))
         # every pair fills its bucket -> the unmasked variant
         full = bool((c0 >= b0).all() and (c1 >= b1).all())
-        lengths0 = None if full else torch.clamp(ext0.count, max=b0)
-        lengths1 = None if full else torch.clamp(ext1.count, max=b1)
+        lgc = self.config.lightglue
+        adaptive = lgc.depth_confidence > 0 or lgc.width_confidence > 0
+        lengths0 = torch.clamp(ext0.count, max=b0)
+        lengths1 = torch.clamp(ext1.count, max=b1)
+        inputs = (ext0.keypoints_norm[:, :b0], ext1.keypoints_norm[:, :b1],
+                  ext0.descriptors[:, :b0], ext1.descriptors[:, :b1])
         with torch.inference_mode():
-            out = lightglue.forward(
-                self.lg_params,
-                ext0.keypoints_norm[:, :b0],
-                ext1.keypoints_norm[:, :b1],
-                ext0.descriptors[:, :b0],
-                ext1.descriptors[:, :b1],
-                lengths0,
-                lengths1,
-                config=self.config.lightglue,
-                policy=self.policy,
-            )
+            if adaptive:
+                # the JAX session's rules (session.py:144-162): adaptive always
+                # passes lengths; the unmasked variant exists for depth-only
+                # and is used at the cap bucket only
+                full = (full and lgc.width_confidence <= 0
+                        and b0 == b1 == max(self.config.buckets))
+                out = lightglue.forward_adaptive(
+                    self.lg_params, *inputs, lengths0, lengths1,
+                    config=lgc, policy=self.policy, full=full)
+            else:
+                out = lightglue.forward(
+                    self.lg_params, *inputs,
+                    None if full else lengths0, None if full else lengths1,
+                    config=lgc, policy=self.policy)
             matches = filter_matches(
                 out.scores,
                 threshold=self.config.match_threshold,
                 max_matches=min(self.config.max_matches, b0),
             )
+            if adaptive:
+                matches = _remap(matches, out.index0, out.index1)
         return out, matches
 
     # -- end-to-end ---------------------------------------------------------

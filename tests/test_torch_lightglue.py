@@ -77,13 +77,21 @@ def test_forward_matches_jax_bf16(case):
 
 
 def test_gate_and_adaptive_raise():
-    tree = weights.init_lightglue(0, LightGlueConfig(n_layers=1))
+    """The per-block path (buckets off the stack's gate) still raises; an
+    adaptive config runs through forward_adaptive."""
+    tree = weights.init_lightglue(0, LightGlueConfig(n_layers=2))
     params = weights.params_from_numpy(tree, "cpu")
     k, d = torch.zeros(1, 200, 2), torch.zeros(1, 200, 256)
     with pytest.raises(NotImplementedError, match="per-block"):
-        lightglue.forward(params, k, k, d, d, config=LightGlueConfig(n_layers=1),
+        lightglue.forward(params, k, k, d, d, config=LightGlueConfig(n_layers=2),
                           policy=policy_for(Precision.FP32))
-    with pytest.raises(NotImplementedError, match="adaptive"):
-        lightglue.forward(params, k, k, d, d,
-                          config=LightGlueConfig(n_layers=1, depth_confidence=0.95),
-                          policy=policy_for(Precision.FP32))
+    cfg = LightGlueConfig(n_layers=2, depth_confidence=0.95, width_confidence=0.99)
+    lens = torch.tensor([120], dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="per-block"):
+        lightglue.forward_adaptive(params, k, k, d, d, lens, lens, config=cfg,
+                                   policy=policy_for(Precision.FP32))
+    k, d = k[:, :128], torch.randn(1, 128, 256, generator=torch.Generator().manual_seed(0))
+    out = lightglue.forward_adaptive(params, k, k, d, d, lens, lens, config=cfg,
+                                     policy=policy_for(Precision.FP32))
+    assert out.scores.shape == (1, 128, 128) and int(out.exit_layer[0]) in (1, 2)
+    assert torch.isfinite(out.scores).all()
