@@ -20,7 +20,16 @@ random heads), the keep-masked and liveness operands of the layer kernels,
 weights, the exit-3 weights, the pruning weights through the downshift at
 layer 4), and ``match_pair`` with ``depth_confidence=0.95,
 width_confidence=0.99`` in those three weight setups, each with its launch
-counts. It ends with a ``{"kernels": [...]}`` line and the
+counts.
+
+The per-block path comes last: ``fused_mha``, ``bidirectional_cross_attention``
+and ``flash_attention`` against their plain versions (masked, ragged, zero
+lengths, several KV tiles), the per-block ``transformer_layers`` against
+the same loop on the plain versions at 9 layers, and ``match_pair`` in the
+2048-keypoint config (``SuperPointConfig(max_num_keypoints=2048)``, a 2048
+bucket) and the pad-to-64 config (``buckets=range(64, 1025, 64)``, 960 cap),
+each with launch counts, mixed buckets (2048x1024, 960x64) and a two-pair
+``match_batch``. It ends with a ``{"kernels": [...]}`` line and the
 ``{"ok": true, ...}`` line. Any failure raises and exits non-zero; so does a
 missing card or a directory without the package.
 """
@@ -584,6 +593,316 @@ def adaptive_end_to_end(ls, counters, weights, img0, img1, dec_e):
         profile_breakdown(session, img0, img1, pair_ms, top=8)
 
 
+PB_BUCKET = 2048  # the 2048-keypoint config's cap bucket
+PAD64 = 960       # the pad-to-64 config's cap bucket
+
+
+def pb_configs():
+    """The per-block path's two configurations: upstream LightGlue's README
+    setting (SuperPoint(max_num_keypoints=2048), the 128-step ladder plus a
+    2048 bucket) and the reference's pad-to-64 bucketing with a 960 cap."""
+    from lightglue_tpu_torch.config import PipelineConfig, SuperPointConfig
+
+    return {
+        "2048-keypoint": PipelineConfig(
+            superpoint=SuperPointConfig(max_num_keypoints=PB_BUCKET),
+            buckets=(256, 384, 512, 640, 768, 896, 1024, PB_BUCKET)),
+        "pad-to-64": PipelineConfig(superpoint=SuperPointConfig(max_num_keypoints=PAD64),
+                                    buckets=tuple(range(64, 1025, 64))),
+    }
+
+
+def attention_kernel_checks(at, rand, freqs_for, dev, dtypes, fp32_scope, fused_e, bidir_e,
+                            flash_e):
+    """fused_mha, bidirectional_cross_attention and flash_attention against
+    their plain versions at the per-block path's shapes, masked, ragged,
+    with zero lengths and with several KV tiles; the bf16 calls of the
+    main per-block runs are timed."""
+    import torch
+    import torch.nn.functional as F
+
+    e, heads, hd = 256, 4, 64
+    i32 = dict(dtype=torch.int32, device=dev)
+
+    def sdpa(q, k, v):  # library yardstick on (B, H, N, D) heads, no RoPE, no lengths
+        def split(t):
+            return t.reshape(t.shape[0], t.shape[1], heads, hd).transpose(1, 2)
+
+        qh, kh, vh = split(q), split(k), split(v)
+        return lambda: F.scaled_dot_product_attention(qh, kh, vh)
+
+    def zero_rows(label, out, lens, kv_empty):
+        """Rows past a length, and every row of an empty kv side, are 0."""
+        for i, (ql, kl) in enumerate(lens):
+            rows = out[i] if kl == 0 and kv_empty else out[i, ql:]
+            if rows.numel() and float(rows.float().abs().max()) != 0.0:
+                raise AssertionError(f"{label}: padded or empty-side rows are not exactly 0")
+
+    log(f"fused_mha (per 2048-keypoint match_pair: 1 self + 2 cross launches per layer "
+        f"x {N_LAYERS} layers)")
+    fused_cases = [
+        # label, B, Nq, Nk, rope, lengths, block_k, per-pair launches
+        ("self rope 2x2048", 2, PB_BUCKET, PB_BUCKET, True, None, 1024, N_LAYERS),
+        ("cross 2048x2048", 1, PB_BUCKET, PB_BUCKET, False, None, 1024, 2 * N_LAYERS),
+        ("self rope 2x2048 ragged, kv_len 0", 2, PB_BUCKET, PB_BUCKET, True,
+         [[2000, 1500], [700, 0]], 1024, 0),
+        ("cross 2048x1024 masked", 1, PB_BUCKET, 1024, False, [[2000, 1000]], 1024, 0),
+        ("cross 1024x2048 masked", 1, 1024, PB_BUCKET, False, [[1000, 2000]], 1024, 0),
+        ("self rope 2x1024 block_k 64, q_len 0", 2, 1024, 1024, True, [[1000, 900], [0, 1024]],
+         64, 0),
+        ("self rope 2x960 (pad-to-64)", 2, PAD64, PAD64, True, None, 1024, 0),
+    ]
+    for label, b, nq, nk, rope, lens, block, weight in fused_cases:
+        for tag, dt in dtypes.items():
+            if rope:  # q, k, v as column slices of one qkv projection
+                qkv = rand(b, nq, 3 * e, dtype=dt)
+                q, k, v = qkv[..., :e], qkv[..., e:2 * e], qkv[..., 2 * e:]
+                f = freqs_for(b, nq)
+            else:
+                q = rand(b, nq, e, dtype=dt)
+                kv = rand(b, nk, 2 * e, dtype=dt)
+                k, v = kv[..., :e], kv[..., e:]
+                f = None
+            ln = None if lens is None else torch.tensor(lens, **i32)
+            kw = dict(num_heads=heads, stat_dtype=dt, block_q=block, block_k=block)
+            with fp32_scope():
+                got = at.fused_mha(q, k, v, f, ln, **kw)
+                want = at.fused_mha_plain(q, k, v, f, ln, **kw)
+                err = compare(f"{label} {tag}", got, want, **TOL[tag])
+            if lens is not None:
+                zero_rows(f"{label} {tag}", got, lens, True)
+            if tag != "bf16":
+                continue
+            fused_e.err(err)
+            if not weight and "pad-to-64" not in label:
+                continue
+            ms = cuda_ms(lambda: at.fused_mha(q, k, v, f, ln, **kw))
+            plain = cuda_ms(lambda: at.fused_mha_plain(q, k, v, f, ln, **kw))
+            lib_ms = cuda_ms(sdpa(q, k, v))
+            nbytes = 2 * (b * nq * e + 2 * b * nk * e + b * nq * e) + (4 * b * 2 * nk * hd if rope else 0)
+            flops = 4 * b * heads * nq * nk * hd
+            if weight:  # library: scaled_dot_product_attention, which does no RoPE
+                fused_e.add(f"{label} bf16", weight, ms, plain, lib_ms, nbytes, flops,
+                            BF16_FLOP_PER_MS)
+            else:
+                log(f"  {label} bf16: kernel_ms {ms:.4f} plain_ms {plain:.4f} library_ms "
+                    f"{lib_ms:.4f} bound_ms {max(nbytes / HBM_BYTES_PER_MS, flops / BF16_FLOP_PER_MS):.4f}"
+                    f" x{N_LAYERS} per pad-to-64 match_pair")
+
+    log(f"bidirectional_cross_attention (per pad-to-64 match_pair: 1 launch per layer "
+        f"x {N_LAYERS} layers)")
+    bidir_cases = [
+        # label, B, N0, N1, lengths [n0, n1], per-pair launches
+        ("960x960 unmasked", 1, PAD64, PAD64, None, N_LAYERS),
+        ("960x960 ragged, n1 0", 2, PAD64, PAD64, [[900, 700], [960, 0]], 0),
+        ("960x704 masked, n0 0", 2, PAD64, 704, [[950, 700], [0, 500]], 0),
+        ("960x704 unmasked", 1, PAD64, 704, None, 0),
+        ("960x64 masked (mixed buckets)", 1, PAD64, 64, [[955, 60]], 0),
+    ]
+    for label, b, n0, n1, lens, weight in bidir_cases:
+        for tag, dt in dtypes.items():
+            a0, a1 = rand(b, n0, 2 * e, dtype=dt), rand(b, n1, 2 * e, dtype=dt)
+            args = (a0[..., :e], a1[..., :e], a0[..., e:], a1[..., e:])  # [qk | v] slices
+            ln = None if lens is None else torch.tensor(lens, **i32)
+            kw = dict(num_heads=heads, stat_dtype=dt)
+            with fp32_scope():
+                got = at.bidirectional_cross_attention(*args, ln, **kw)
+                want = at.bidirectional_cross_attention_plain(*args, ln, **kw)
+                errs = [compare(f"{label} {tag} o{i}", g, w, **TOL[tag])
+                        for i, (g, w) in enumerate(zip(got, want))]
+            if lens is not None:
+                zero_rows(f"{label} {tag} o0", got[0], lens, True)
+                zero_rows(f"{label} {tag} o1", got[1], [x[::-1] for x in lens], True)
+            if tag != "bf16":
+                continue
+            bidir_e.err(max(errs))
+            if not weight:
+                continue
+            ms = cuda_ms(lambda: at.bidirectional_cross_attention(*args, ln, **kw))
+            plain = cuda_ms(lambda: at.bidirectional_cross_attention_plain(*args, ln, **kw))
+            two = (sdpa(args[0], args[1], args[3]), sdpa(args[1], args[0], args[2]))
+            sdpa2 = cuda_ms(lambda: (two[0](), two[1]()))
+            log(f"  {label} bf16: two scaled_dot_product_attention calls (one per direction, "
+                f"not one call): {sdpa2:.4f} ms")
+            nbytes = 2 * (2 * b * (n0 + n1) * e + b * (n0 + n1) * e)
+            flops = 6 * b * heads * n0 * n1 * hd  # one S and two P.V products
+            # library: none, no single PyTorch call computes both directions
+            bidir_e.add(f"{label} bf16", weight, ms, plain, None, nbytes, flops, BF16_FLOP_PER_MS)
+
+    log("flash_attention (the generic (B, H, N, D) entry point; not on the matching path)")
+    flash_cases = [
+        # label, B, Nq, Nk, lengths, block_k, timed
+        ("2x4x2048 unmasked", 2, PB_BUCKET, PB_BUCKET, None, 1024, True),
+        ("2x4x2048 ragged, q_len 0", 2, PB_BUCKET, PB_BUCKET, [[2048, 1500], [0, 2048]], 1024,
+         False),
+        ("2x4x256x192 block_k 64, kv_len 0", 2, 256, 192, [[256, 100], [200, 0]], 64, False),
+    ]
+    for label, b, nq, nk, lens, block, timed in flash_cases:
+        for tag, dt in dtypes.items():
+            q = rand(b, heads, nq, hd, dtype=dt)
+            k, v = rand(b, heads, nk, hd, dtype=dt), rand(b, heads, nk, hd, dtype=dt)
+            ln = None if lens is None else torch.tensor(lens, **i32)
+            kw = dict(stat_dtype=dt, block_q=block, block_k=block)
+            with fp32_scope():
+                got = at.flash_attention(q, k, v, ln, **kw)
+                want = at.flash_attention_plain(q, k, v, ln, **kw)
+                err = compare(f"{label} {tag}", got, want, **TOL[tag])
+            if lens is not None:
+                zero_rows(f"{label} {tag}", got.transpose(1, 2), lens, True)
+            if tag != "bf16":
+                continue
+            flash_e.err(err)
+            if not timed:
+                continue
+            # the entry point's own path: one call, counted from 0
+            for fn in (at.fused_mha, at.bidirectional_cross_attention, at.flash_attention):
+                fn.launches = 0
+            at.flash_attention(q, k, v, ln, **kw)
+            flash_e.d["launches"] = at.flash_attention.launches
+            log(f"  generic entry point, one call: flash_attention launches "
+                f"{at.flash_attention.launches}")
+            ms = cuda_ms(lambda: at.flash_attention(q, k, v, ln, **kw))
+            plain = cuda_ms(lambda: at.flash_attention_plain(q, k, v, ln, **kw))
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+            nbytes = 2 * (2 * b * heads * nq * hd + 2 * b * heads * nk * hd)
+            flops = 4 * b * heads * nq * nk * hd
+            flash_e.add(f"{label} bf16", 1, ms, plain, lib_ms, nbytes, flops, BF16_FLOP_PER_MS)
+
+
+def per_block_stack_checks(at, weights, rand, freqs_for, dev, dtypes, fp32_scope):
+    """The per-block route at 9 layers (``transformer_layers``) on the
+    kernels against the same loop on their plain versions."""
+    import torch
+
+    from lightglue_tpu_torch.config import LightGlueConfig
+    from lightglue_tpu_torch.models.lightglue import transformer_layers
+    from lightglue_tpu_torch.precision import Precision, policy_for
+
+    e, heads = 256, 4
+    log(f"per-block transformer_layers vs plain, L={N_LAYERS}")
+    lg_np = weights.init_lightglue(0, LightGlueConfig(n_layers=N_LAYERS))
+    cases = [
+        ("1x2048x2048 unmasked", PB_BUCKET, PB_BUCKET, None),
+        ("2048x1024 lengths 2000/1000", PB_BUCKET, 1024, (2000, 1000)),
+        ("960x960 unmasked", PAD64, PAD64, None),
+        ("960x704 lengths 900/600", PAD64, 704, (900, 600)),
+    ]
+    for tag, dt in dtypes.items():
+        policy = policy_for(Precision.BF16 if tag == "bf16" else Precision.FP32)
+        layers = weights.params_from_numpy(lg_np, dev, dt)["layers"]
+        for label, n0, n1, lens in cases:
+            d0, d1 = rand(1, n0, e, dtype=dt), rand(1, n1, e, dtype=dt)
+            f0, f1 = freqs_for(1, n0), freqs_for(1, n1)
+            l0 = l1 = None
+            if lens:
+                l0 = torch.tensor([lens[0]], dtype=torch.int32, device=dev)
+                l1 = torch.tensor([lens[1]], dtype=torch.int32, device=dev)
+
+            def run(ops):
+                return transformer_layers(layers, d0, d1, f0, f1, l0, l1, num_heads=heads,
+                                          policy=policy, ops=ops)
+
+            with fp32_scope():
+                got, want = run(at.KERNEL_OPS), run(at.PLAIN_OPS)
+                for i in (0, 1):
+                    compare(f"per-block {label} {tag} d{i}", got[i], want[i], **STACK_TOL[tag])
+            if tag == "bf16" and lens is None:
+                log(f"  per-block {label} bf16: kernel_ms "
+                    f"{cuda_ms(lambda: run(at.KERNEL_OPS), inner=1):.4f} (eager, launch overhead "
+                    f"included: {eager_ms(lambda: run(at.KERNEL_OPS)):.4f}) plain_ms "
+                    f"{cuda_ms(lambda: run(at.PLAIN_OPS), inner=1):.4f}")
+
+
+def per_block_end_to_end(at, counters, img0, img1, fused_e, bidir_e):
+    """match_pair in the per-block path's two configurations, with every
+    kernel's launch count read from 0 around one call; then mixed buckets
+    (2048x1024, 960x64) through match_from_extractions and a two-pair
+    match_batch."""
+    import numpy as np
+    import torch
+
+    from lightglue_tpu_torch.kernels import layer_stack as ls
+    from lightglue_tpu_torch.runtime.session import MatcherSession
+
+    counters = counters + [ls.adaptive_decide, at.fused_mha, at.bidirectional_cross_attention,
+                           at.flash_attention]
+
+    def expected(b0, b1):
+        """Launches per forward of the routing in models/lightglue.py."""
+        zero = dict(fused_mha=0, bidirectional_cross_attention=0)
+        if ls.supports(None, b0, b1, torch.bfloat16):
+            return zero
+        self_calls = 1 if b0 == b1 else 2
+        if max(b0, b1) <= 1024:
+            return dict(fused_mha=self_calls * N_LAYERS, bidirectional_cross_attention=N_LAYERS)
+        return dict(fused_mha=(self_calls + 2) * N_LAYERS, bidirectional_cross_attention=0)
+
+    def counted(fn):
+        for c in counters:
+            c.launches = 0
+        out = fn()
+        return out, {c.__name__: c.launches for c in counters}
+
+    def check_launches(label, launches, b0, b1, extract):
+        want = expected(b0, b1)
+        want.update(linear=0, attention=0, ln_gelu=0, adaptive_decide=0, flash_attention=0)
+        if want["fused_mha"] == 0:
+            raise AssertionError(f"{label}: buckets {b0}x{b1} take the layer stack, not the "
+                                 "per-block path")
+        if extract:
+            want.update(conv3x3=3, nms_candidates=1)
+        bad = {k: (launches[k], v) for k, v in want.items() if launches[k] != v}
+        if bad:
+            raise AssertionError(f"{label}: launches (got, want) {bad}")
+
+    for label, cfg in pb_configs().items():
+        log(f"MatcherSession(device='cuda').match_pair, per-block, {label}, 480x640 BF16")
+        session = MatcherSession(config=cfg, device="cuda")
+        session.match_pair(img0, img1)  # warm
+        result, launches = counted(lambda: session.match_pair(img0, img1))
+        n0, n1 = result["num_keypoints0"], result["num_keypoints1"]
+        bk = tuple(result["scores"].shape)
+        log(f"  keypoints {n0}/{n1} buckets {bk[0]}x{bk[1]} matches {len(result['matches'])}")
+        log(f"  launches in one match_pair: {launches}")
+        check_launches(label, launches, *bk, True)
+        if label == "2048-keypoint":
+            fused_e.d["launches"] = launches["fused_mha"]
+        else:
+            bidir_e.d["launches"] = launches["bidirectional_cross_attention"]
+        for key in ("scores", "match_scores", "keypoints0", "keypoints1"):
+            if not np.isfinite(result[key]).all():
+                raise AssertionError(f"{label}: match_pair output {key} is not finite")
+        m = result["matches"]
+        if len(m) and (m.min() < 0 or m[:, 0].max() >= n0 or m[:, 1].max() >= n1):
+            raise AssertionError(f"{label}: match indices outside the keypoints")
+        times = []
+        for _ in range(10):
+            t = time.perf_counter()
+            session.match_pair(img0, img1)
+            times.append((time.perf_counter() - t) * 1e3)
+        pair_ms = statistics.median(times)
+        log(f"  ms_per_pair median {pair_ms:.3f} (10 repeats, min {min(times):.3f})")
+        profile_breakdown(session, img0, img1, pair_ms, top=8)
+
+        # mixed buckets: image 1 cut to a smaller bucket's count
+        ext = session.extract(np.stack([img0, img1]))
+        ext0, ext1 = ext.slice(0, 1), ext.slice(1, 2)
+        cut = 1000 if label == "2048-keypoint" else 60
+        ext1 = ext1._replace(count=torch.clamp(ext1.count, max=cut))
+        (out, matches), launches = counted(lambda: session.match_from_extractions(ext0, ext1))
+        b0, b1 = out.scores.shape[1:]
+        log(f"  mixed buckets {b0}x{b1}: launches {launches}, matches {int(matches.count[0])}")
+        check_launches(f"{label} mixed", launches, b0, b1, False)
+        if not torch.isfinite(out.scores).all():
+            raise AssertionError(f"{label} mixed: scores not finite")
+        batch = session.match_batch(np.stack([img0, img1]), np.stack([img1, img0]))
+        log(f"  match_batch of 2 pairs: keypoints {[(r['num_keypoints0'], r['num_keypoints1']) for r in batch]}"
+            f" matches {[len(r['matches']) for r in batch]}")
+        for r in batch:
+            if not np.isfinite(r["match_scores"]).all():
+                raise AssertionError(f"{label}: match_batch scores not finite")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -593,6 +912,7 @@ def main() -> int:
         return 2
     from lightglue_tpu_torch.config import LightGlueConfig, PipelineConfig, SuperPointConfig
     from lightglue_tpu_torch.kernels import _build
+    from lightglue_tpu_torch.kernels import attention as at
     from lightglue_tpu_torch.kernels import conv as conv_k
     from lightglue_tpu_torch.kernels import layer_stack as ls
     from lightglue_tpu_torch.kernels import nms as nms_k
@@ -891,7 +1211,19 @@ def main() -> int:
     adaptive_stack_checks(ls, weights, rand, freqs_for, dev, dtypes, fp32_scope)
     adaptive_end_to_end(ls, counters, weights, img0, img1, dec_e)
 
-    log(json.dumps({"kernels": [x.out() for x in (conv_e, nms_e, lin_e, att_e, ln_e, dec_e)]}))
+    # ---- the per-block path: 2048-keypoint and pad-to-64 configurations ----
+    fused_e = Entry("fused_mha", "src/lightglue_tpu_torch/csrc/flash_attn.cu",
+                    "src/lightglue_tpu/kernels/attention.py:687")
+    bidir_e = Entry("bidirectional_cross_attention", "src/lightglue_tpu_torch/csrc/bidir_cross.cu",
+                    "src/lightglue_tpu/kernels/attention.py:925")
+    flash_e = Entry("flash_attention", "src/lightglue_tpu_torch/csrc/flash_attn.cu",
+                    "src/lightglue_tpu/kernels/attention.py:197")
+    attention_kernel_checks(at, rand, freqs_for, dev, dtypes, fp32_scope, fused_e, bidir_e, flash_e)
+    per_block_stack_checks(at, weights, rand, freqs_for, dev, dtypes, fp32_scope)
+    per_block_end_to_end(at, counters, img0, img1, fused_e, bidir_e)
+
+    entries = (conv_e, nms_e, lin_e, att_e, ln_e, dec_e, fused_e, bidir_e, flash_e)
+    log(json.dumps({"kernels": [x.out() for x in entries]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

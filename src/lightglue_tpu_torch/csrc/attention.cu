@@ -64,32 +64,6 @@ __device__ __forceinline__ const T* row_ptr(const Operand& o, int b, int row,
          (long long)row * o.row_stride + h * D;
 }
 
-template <typename T>
-__device__ __forceinline__ float quant_stat(float x, int quant) {
-  return quant ? lg::round_to<__nv_bfloat16>(x) : x;
-}
-
-// rows[r][0..D) *= RoPE at sequence positions pos0 + r, for r < nrows
-template <typename T>
-__device__ void rope_rows(float* rows, int stride, int nrows, int pos0,
-                          const float* freqs, int n) {
-  const float* cosv = freqs;
-  const float* sinv = freqs + (size_t)n * D;
-  for (int i = threadIdx.x; i < nrows * (D / 2); i += blockDim.x) {
-    const int r = i / (D / 2), d = i % (D / 2);
-    const size_t f = (size_t)(pos0 + r) * D;
-    float* x = rows + r * stride;
-    const float x1 = x[d], x2 = x[d + D / 2];
-    const float c1 = lg::round_to<T>(cosv[f + d]);
-    const float s1 = lg::round_to<T>(sinv[f + d]);
-    const float c2 = lg::round_to<T>(cosv[f + d + D / 2]);
-    const float s2 = lg::round_to<T>(sinv[f + d + D / 2]);
-    x[d] = lg::round_to<T>(lg::round_to<T>(x1 * c1) + lg::round_to<T>(-x2 * s1));
-    x[d + D / 2] =
-        lg::round_to<T>(lg::round_to<T>(x2 * c2) + lg::round_to<T>(x1 * s2));
-  }
-}
-
 template <typename T, bool KEEP>
 __global__ void __launch_bounds__(THREADS, 2)
 attention_kernel(Operand q, Operand k, Operand v, const float* __restrict__ freqs,
@@ -121,7 +95,7 @@ attention_kernel(Operand q, Operand k, Operand v, const float* __restrict__ freq
   }
   __syncthreads();
   if (fb) {
-    rope_rows<T>(qs, D, min(BQ, Nq - i0), i0, fb, Nq);
+    lg::rope_rows<T, D>(qs, D, min(BQ, Nq - i0), i0, fb, Nq);
     __syncthreads();
   }
 
@@ -136,7 +110,7 @@ attention_kernel(Operand q, Operand k, Operand v, const float* __restrict__ freq
     }
     __syncthreads();
     if (fb) {
-      rope_rows<T>(kv, D + 1, jn, j0, fb, Nk);
+      lg::rope_rows<T, D>(kv, D + 1, jn, j0, fb, Nk);
       __syncthreads();
     }
     if (cj < jn) {
@@ -147,7 +121,7 @@ attention_kernel(Operand q, Operand k, Operand v, const float* __restrict__ freq
         float dot = 0.f;
 #pragma unroll 16
         for (int d = 0; d < D; ++d) dot = fmaf(qs[r * D + d], kv[cj * (D + 1) + d], dot);
-        float s = quant_stat<T>(dot * scale, quant);
+        float s = lg::quant_stat(dot * scale, quant);
         if (dead_col) s = NEG;
         ss[r * Nk + j0 + cj] = s;
       }
@@ -162,15 +136,15 @@ attention_kernel(Operand q, Operand k, Operand v, const float* __restrict__ freq
     float* srow = ss + r * Nk;
     float m = -INFINITY;
     for (int j = lane; j < Nk; j += 32) m = fmaxf(m, srow[j]);
-    m = quant_stat<T>(lg::warp_max(m), quant);
+    m = lg::quant_stat(lg::warp_max(m), quant);
     if (masked) m = fmaxf(m, DEAD);
     float sum = 0.f;
     for (int j = lane; j < Nk; j += 32) {
-      const float p = quant_stat<T>(expf(srow[j] - m), quant);
+      const float p = lg::quant_stat(expf(srow[j] - m), quant);
       srow[j] = p;
       sum += p;
     }
-    sum = quant_stat<T>(lg::warp_sum(sum), quant);
+    sum = lg::quant_stat(lg::warp_sum(sum), quant);
     if (lane == 0) ls[r] = sum;
   }
 

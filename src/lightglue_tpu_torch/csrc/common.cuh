@@ -35,6 +35,12 @@ __device__ __forceinline__ float round_to(float x) {
   return to_f(from_f<T>(x));
 }
 
+// The attention statistics' rounding (s, m, p, l, ...): through bf16 when
+// quant is set (stat_dtype bf16), whatever the operands' storage type.
+__device__ __forceinline__ float quant_stat(float x, int quant) {
+  return quant ? round_to<__nv_bfloat16>(x) : x;
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -45,6 +51,29 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// rows[r][0..D) <- half-split RoPE at sequence positions pos0 + r, for
+// r < nrows: x * cos + rotate_half(x) * sin with the freqs cast to T and each
+// product and the sum rounded to T (layer_stack.py:377-384,
+// attention.py:575-582). freqs: [cos; sin], n rows of D each.
+template <typename T, int D>
+__device__ void rope_rows(float* rows, int stride, int nrows, int pos0,
+                          const float* freqs, int n) {
+  const float* cosv = freqs;
+  const float* sinv = freqs + (size_t)n * D;
+  for (int i = threadIdx.x; i < nrows * (D / 2); i += blockDim.x) {
+    const int r = i / (D / 2), d = i % (D / 2);
+    const size_t f = (size_t)(pos0 + r) * D;
+    float* x = rows + r * stride;
+    const float x1 = x[d], x2 = x[d + D / 2];
+    const float c1 = round_to<T>(cosv[f + d]);
+    const float s1 = round_to<T>(sinv[f + d]);
+    const float c2 = round_to<T>(cosv[f + d + D / 2]);
+    const float s2 = round_to<T>(sinv[f + d + D / 2]);
+    x[d] = round_to<T>(round_to<T>(x1 * c1) + round_to<T>(-x2 * s1));
+    x[d + D / 2] = round_to<T>(round_to<T>(x2 * c2) + round_to<T>(x1 * s2));
+  }
 }
 
 }  // namespace lg

@@ -153,10 +153,19 @@ def _quant(x: torch.Tensor, stat_dtype) -> torch.Tensor:
     return x if stat_dtype == torch.float32 else x.to(stat_dtype).float()
 
 
-def _rope(v: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    half = v.shape[-1] // 2
-    rot = torch.cat([-v[..., half:], v[..., :half]], dim=-1)
-    return v * cos + rot * sin
+def rotate_half(t: torch.Tensor) -> torch.Tensor:
+    """Half-split rotation: (..., [x, y]) halves -> (..., [-y, x])."""
+    half = t.shape[-1] // 2
+    return torch.cat([-t[..., half:], t[..., :half]], dim=-1)
+
+
+def apply_rotary(freqs: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Half-split RoPE: t*cos + rotate_half(t)*sin with freqs (B, 2, N, D)
+    [cos; sin] cast to t's dtype, onto (B, H, N, D) heads (JAX
+    models/lightglue.py:131-149)."""
+    cos = freqs[:, 0, None].to(t.dtype)
+    sin = freqs[:, 1, None].to(t.dtype)
+    return t * cos + rotate_half(t) * sin
 
 
 def attention_plain(q, k, v, freqs, len_q, len_kv, num_heads, stat_dtype,
@@ -180,9 +189,7 @@ def attention_plain(q, k, v, freqs, len_q, len_kv, num_heads, stat_dtype,
 
     qh, kh, vh = heads(q, nq), heads(k, nk), heads(v, nk)
     if freqs is not None:
-        cos = freqs[:, 0, None].to(dt)
-        sin = freqs[:, 1, None].to(dt)
-        qh, kh = _rope(qh, cos, sin), _rope(kh, cos, sin)
+        qh, kh = apply_rotary(freqs, qh), apply_rotary(freqs, kh)
     s = _quant((qh.float() @ kh.float().transpose(-1, -2)) * (1.0 / math.sqrt(d)),
                stat_dtype)
     keep = keep_q is not None

@@ -2,27 +2,33 @@
 
 Counterpart of ``lightglue_tpu/models/lightglue.py:forward`` (:479-576): the
 learnable Fourier positional encoding (tiled per half, paired with the
-half-split RoPE the q/k weights are permuted into at load time), all layers
-through ``kernels.layer_stack.transformer_stack``, and the last layer's
-log-assignment head; and of ``forward_adaptive`` (:699-1168): adaptive
-depth and width pruning on ``transformer_stack_adaptive``, the two-phase
-downshift, and the per-layer loop that is the parity oracle. Layouts follow
-the JAX package: (B, N, E) descriptors, (B, 2, N, D) freqs, (B,) lengths.
+half-split RoPE the q/k weights are permuted into at load time), the layers,
+and the last layer's log-assignment head; and of ``forward_adaptive``
+(:699-1168): adaptive depth and width pruning on
+``transformer_stack_adaptive``, the two-phase downshift, and the per-layer
+loop that is the parity oracle. Layouts follow the JAX package: (B, N, E)
+descriptors, (B, 2, N, D) freqs, (B,) lengths.
 
-The per-block fallback the JAX package takes when the stack's gate fails
-(N > 1024, N % 128 != 0, tensor parallelism) is queued for a later slice;
-it raises here instead of falling back.
+The layers take one of two routes, as in the JAX package. Where
+``layer_stack.supports`` passes (both buckets multiples of 128, at most
+1024) they run ``kernels.layer_stack.transformer_stack``. Elsewhere (a 2048
+bucket, a pad-to-64 ladder) they take the per-block route: ``self_block``,
+``cross_block`` and ``transformer_layer`` layer by layer, with projections,
+LayerNorm and GELU in plain torch and attention on
+``kernels.attention.fused_mha`` and ``bidirectional_cross_attention``.
+Tensor parallelism is not ported (``tp_axis`` is always None here).
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
 from lightglue_tpu_torch.config import LightGlueConfig
-from lightglue_tpu_torch.kernels import layer_stack
+from lightglue_tpu_torch.kernels import attention, layer_stack
 from lightglue_tpu_torch.precision import DTypePolicy, precision_scope
 
 _NEG_INF = -1e30
@@ -110,12 +116,134 @@ def _masks_from_lengths(lengths0, lengths1, m: int, n: int):
     return mask0, mask1
 
 
-def _require_stack(params, d0: torch.Tensor, d1: torch.Tensor) -> None:
-    if not layer_stack.supports(params["layers"], d0.shape[1], d1.shape[1], d0.dtype):
-        raise NotImplementedError(
-            f"buckets {d0.shape[1]}x{d1.shape[1]} fail the layer-stack gate "
-            "(multiples of 128, at most 1024); the per-block path is queued"
-        )
+# ---------------------------------------------------------------------------
+# the per-block route (lightglue.py:97-378), where the stack's gate fails
+# ---------------------------------------------------------------------------
+
+# beyond this the bidirectional kernel's whole S rows outgrow fast memory;
+# the two cross directions then run as two fused_mha calls (lightglue.py:61)
+_BIDIR_MAX_N = 1024
+
+
+def _layer_norm(g, b, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last dim in fp32, var = E[x^2] - mean^2 (:97-111)."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf * xf).mean(dim=-1, keepdim=True) - mean * mean
+    return ((xf - mean) * torch.rsqrt(var + eps) * g + b).to(x.dtype)
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact GELU as ``jax.nn.gelu(approximate=False)`` writes it, in x's
+    dtype: 0.5 * x * erfc(-x * sqrt(1/2)), the constant rounded to x's dtype."""
+    sqrt_half = torch.tensor(math.sqrt(0.5), dtype=x.dtype).item()
+    return 0.5 * x * torch.erfc(-x * sqrt_half)
+
+
+# RoPE under the JAX module's names (:131-149): the model applies it inside
+# fused_mha, whose plain version shares it with the layer stack's
+rotate_half, apply_rotary = layer_stack.rotate_half, layer_stack.apply_rotary
+
+
+def _attend(q, k, v, lengths, policy: DTypePolicy, num_heads: int, freqs=None,
+            ops=attention.KERNEL_OPS) -> torch.Tensor:
+    """(B, N, H*D) q/k/v -> (B, N, H*D) through ``fused_mha`` (:164-185)."""
+    dt = policy.attn_in_dtype
+    out = ops.fused_mha(q.to(dt), k.to(dt), v.to(dt), freqs, lengths, num_heads=num_heads,
+                        stat_dtype=policy.attn_stat_dtype, out_dtype=policy.attn_out_dtype)
+    return out.to(q.dtype)
+
+
+def _ffn(p, x: torch.Tensor, message: torch.Tensor) -> torch.Tensor:
+    """Residual FFN over cat(x, message) (:188-202)."""
+    h = _linear(p["ffn1"], torch.cat([x, message], dim=-1))
+    h = _gelu(_layer_norm(p["ln_g"], p["ln_b"], h))
+    return x + _linear(p["ffn2"], h)
+
+
+def self_block(p, x, freqs, lengths, num_heads: int, policy: DTypePolicy,
+               ops=attention.KERNEL_OPS) -> torch.Tensor:
+    """Self-attention block (:205-233): one [q | k | v] projection, RoPE
+    inside ``fused_mha`` on column slices of it."""
+    e = x.shape[-1]
+    qkv = _linear(p["qkv"], x)
+    lens2 = None if lengths is None else torch.stack([lengths, lengths], dim=-1)
+    ctx = _attend(qkv[..., :e], qkv[..., e:2 * e], qkv[..., 2 * e:], lens2, policy,
+                  num_heads, freqs, ops)
+    return _ffn(p, x, _linear(p["out"], ctx))
+
+
+def _cross_attend(qk0, qk1, v0, v1, lengths0, lengths1, policy: DTypePolicy, num_heads: int,
+                  ops=attention.KERNEL_OPS):
+    """Both cross directions (:263-295): the shared-S kernel up to
+    ``_BIDIR_MAX_N``, else two ``fused_mha`` calls."""
+    dt = policy.attn_in_dtype
+    if max(qk0.shape[1], qk1.shape[1]) <= _BIDIR_MAX_N:
+        lens = None if lengths0 is None else torch.stack([lengths0, lengths1], dim=-1)
+        m0, m1 = ops.bidirectional_cross_attention(
+            qk0.to(dt), qk1.to(dt), v0.to(dt), v1.to(dt), lens, num_heads=num_heads,
+            stat_dtype=policy.attn_stat_dtype, out_dtype=policy.attn_out_dtype)
+        return m0.to(qk0.dtype), m1.to(qk0.dtype)
+    l01 = l10 = None
+    if lengths0 is not None:
+        l01 = torch.stack([lengths0, lengths1], dim=-1)
+        l10 = torch.stack([lengths1, lengths0], dim=-1)
+    return (_attend(qk0, qk1, v1, l01, policy, num_heads, ops=ops),
+            _attend(qk1, qk0, v0, l10, policy, num_heads, ops=ops))
+
+
+def cross_block(p, x0, x1, lengths0, lengths1, num_heads: int, policy: DTypePolicy,
+                ops=attention.KERNEL_OPS):
+    """Bidirectional symmetric cross-attention (:236-260); the shared qk and
+    v projections are one [qk | v] product per image."""
+    e = x0.shape[-1]
+    a0, a1 = _linear(p["qk_v"], x0), _linear(p["qk_v"], x1)
+    m0, m1 = _cross_attend(a0[..., :e], a1[..., :e], a0[..., e:], a1[..., e:],
+                           lengths0, lengths1, policy, num_heads, ops)
+    return (_ffn(p, x0, _linear(p["out"], m0)), _ffn(p, x1, _linear(p["out"], m1)))
+
+
+def cross_block_fused(p, x, b: int, lens, num_heads: int, policy: DTypePolicy,
+                      ops=attention.KERNEL_OPS):
+    """Both cross directions of a stacked [image0; image1] batch (:347-378):
+    projections and FFN run once over the 2B stack."""
+    e = x.shape[-1]
+    a = _linear(p["qk_v"], x)
+    qk, v = a[..., :e], a[..., e:]
+    m0, m1 = _cross_attend(qk[:b], qk[b:], v[:b], v[b:],
+                           None if lens is None else lens[:b],
+                           None if lens is None else lens[b:], policy, num_heads, ops)
+    out = _ffn(p, x, _linear(p["out"], torch.cat([m0, m1], dim=0)))
+    return out[:b], out[b:]
+
+
+def transformer_layer(p, d0, d1, freqs0, freqs1, lengths0, lengths1, num_heads: int,
+                      policy: DTypePolicy, ops=attention.KERNEL_OPS):
+    """self(d0) -> self(d1) -> cross (:298-344). When both images share a
+    bucket they are stacked on the batch axis: one self call and one cross
+    call over 2B, with (2B, 2) lengths built from both images' lengths."""
+    if d0.shape == d1.shape:
+        b = d0.shape[0]
+        lens = None if lengths0 is None else torch.cat([lengths0, lengths1], dim=0)
+        x = self_block(p["self_attn"], torch.cat([d0, d1], dim=0),
+                       torch.cat([freqs0, freqs1], dim=0), lens, num_heads, policy, ops)
+        return cross_block_fused(p["cross_attn"], x, b, lens, num_heads, policy, ops)
+    d0 = self_block(p["self_attn"], d0, freqs0, lengths0, num_heads, policy, ops)
+    d1 = self_block(p["self_attn"], d1, freqs1, lengths1, num_heads, policy, ops)
+    return cross_block(p["cross_attn"], d0, d1, lengths0, lengths1, num_heads, policy, ops)
+
+
+def transformer_layers(layers, d0, d1, freqs0, freqs1, lengths0=None, lengths1=None, *,
+                       num_heads: int, policy: DTypePolicy, ops=attention.KERNEL_OPS):
+    """Every stacked layer on the per-block route (the ``lax.scan`` of
+    :548-567). ``ops=attention.PLAIN_OPS`` runs the same loop on the
+    attention kernels' plain versions."""
+    if "w_q" in layers["self_attn"]["qkv"]:
+        raise NotImplementedError("int8 / W8A8 layer weights are queued for a later slice")
+    for i in range(layers["self_attn"]["ln_g"].shape[0]):
+        d0, d1 = transformer_layer(_layer(layers, i), d0, d1, freqs0, freqs1,
+                                   lengths0, lengths1, num_heads, policy, ops)
+    return d0, d1
 
 
 def _embed(params, kpts0, kpts1, desc0, desc1, config, policy):
@@ -153,14 +281,18 @@ def forward(
     """
     with precision_scope(policy):
         d0, d1, freqs0, freqs1 = _embed(params, kpts0, kpts1, desc0, desc1, config, policy)
-        _require_stack(params, d0, d1)
-        d0, d1 = layer_stack.transformer_stack(
-            params["layers"], d0, d1, freqs0, freqs1, lengths0, lengths1,
-            num_heads=config.num_heads,
-            head_dim=config.head_dim,
-            stat_dtype=policy.attn_stat_dtype,
-            attn_dtype=policy.attn_in_dtype,
-        )
+        if layer_stack.supports(params["layers"], d0.shape[1], d1.shape[1], d0.dtype):
+            d0, d1 = layer_stack.transformer_stack(
+                params["layers"], d0, d1, freqs0, freqs1, lengths0, lengths1,
+                num_heads=config.num_heads,
+                head_dim=config.head_dim,
+                stat_dtype=policy.attn_stat_dtype,
+                attn_dtype=policy.attn_in_dtype,
+            )
+        else:
+            d0, d1 = transformer_layers(params["layers"], d0, d1, freqs0, freqs1,
+                                        lengths0, lengths1, num_heads=config.num_heads,
+                                        policy=policy)
         mask0, mask1 = _masks_from_lengths(lengths0, lengths1, kpts0.shape[1], kpts1.shape[1])
         last_assign = {k: {kk: vv[-1] for kk, vv in v.items()}
                        for k, v in params["assign"].items()}
@@ -240,11 +372,13 @@ def forward_adaptive(
     The main path runs ``transformer_stack_adaptive`` (exit register and
     keep masks on the device, one compaction at the end; with
     ``downshift_layer`` the two-phase ``_adaptive_downshift``).
-    ``force_loop=True`` runs the per-layer oracle instead: the JAX
-    while-loop of ``_forward_adaptive_impl`` (:904-1045) with a compaction
-    after every layer, on ``transformer_stack`` one layer at a time. It runs
-    all layers (a pair that stopped is frozen) instead of ending when every
-    pair has stopped, which needs no host read and gives the same result.
+    ``force_loop=True``, and buckets that fail the stack's gate, run the
+    per-layer loop instead: the JAX while-loop of ``_forward_adaptive_impl``
+    (:904-1045) with a compaction after every layer, on
+    ``transformer_stack`` one layer at a time or, off the gate, on the
+    per-block ``transformer_layer``. It runs all layers (a pair that
+    stopped is frozen) instead of ending when every pair has stopped,
+    which needs no host read and gives the same result.
 
     Args:
       lengths0/lengths1: (B,) true keypoint counts (the session always
@@ -254,7 +388,6 @@ def forward_adaptive(
     """
     with precision_scope(policy):
         d0, d1, freqs0, freqs1 = _embed(params, kpts0, kpts1, desc0, desc1, config, policy)
-        _require_stack(params, d0, d1)
         b, m, n = d0.shape[0], d0.shape[1], d1.shape[1]
         lengths0 = lengths0.to(d0.device, torch.int32)
         lengths1 = lengths1.to(d0.device, torch.int32)
@@ -263,8 +396,9 @@ def forward_adaptive(
         args = (params, d0, d1, freqs0, freqs1, lengths0, lengths1, idx0, idx1)
         do_depth = config.depth_confidence > 0
         do_width = config.width_confidence > 0
-        if force_loop or not (do_depth or do_width):
-            final = _adaptive_loop(*args, config=config, policy=policy)
+        use_stack = layer_stack.supports(params["layers"], m, n, d0.dtype)
+        if force_loop or not (do_depth or do_width) or not use_stack:
+            final = _adaptive_loop(*args, config=config, policy=policy, use_stack=use_stack)
         elif do_width and _use_downshift(params, m, n, config, d0.dtype):
             final = _adaptive_downshift(*args, config=config, policy=policy)
         else:
@@ -354,8 +488,10 @@ def _adaptive_downshift(params, d0, d1, freqs0, freqs1, lengths0, lengths1, idx0
 
 
 def _adaptive_loop(params, d0, d1, freqs0, freqs1, lengths0, lengths1, idx0, idx1, *,
-                   config, policy):
-    """The per-layer oracle (JAX ``_forward_adaptive_impl`` :904-1045)."""
+                   config, policy, use_stack):
+    """The per-layer loop (JAX ``_forward_adaptive_impl`` :904-1045): each
+    layer on ``transformer_stack`` where its gate passes, else on the
+    per-block ``transformer_layer`` (:921-966)."""
     n_layers = config.n_layers
     do_depth = config.depth_confidence > 0
     do_width = config.width_confidence > 0
@@ -366,8 +502,12 @@ def _adaptive_loop(params, d0, d1, freqs0, freqs1, lengths0, lengths1, idx0, idx
     exit_layer = torch.full((b,), n_layers, dtype=torch.int32, device=dev)
     kw = _stack_kw(config, policy)
     for i in range(n_layers):
-        nd0, nd1 = layer_stack.transformer_stack(_slice(params["layers"], i, i + 1),
-                                                 d0, d1, freqs0, freqs1, len0, len1, **kw)
+        if use_stack:
+            nd0, nd1 = layer_stack.transformer_stack(_slice(params["layers"], i, i + 1),
+                                                     d0, d1, freqs0, freqs1, len0, len1, **kw)
+        else:
+            nd0, nd1 = transformer_layer(_layer(params["layers"], i), d0, d1, freqs0, freqs1,
+                                         len0, len1, config.num_heads, policy)
         live = ~stopped  # freeze pairs that already exited
         nd0 = torch.where(live[:, None, None], nd0, d0)
         nd1 = torch.where(live[:, None, None], nd1, d1)

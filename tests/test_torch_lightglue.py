@@ -77,20 +77,27 @@ def test_forward_matches_jax_bf16(case):
 
 
 def test_gate_and_adaptive_raise():
-    """The per-block path (buckets off the stack's gate) still raises; an
-    adaptive config runs through forward_adaptive."""
+    """Buckets off the stack's gate take the per-block route (a 200 bucket
+    runs forward and forward_adaptive's per-layer loop); above 1024 a bucket
+    that is not a multiple of 1024 raises fused_mha's ValueError, as in JAX.
+    An adaptive config runs through forward_adaptive."""
     tree = weights.init_lightglue(0, LightGlueConfig(n_layers=2))
     params = weights.params_from_numpy(tree, "cpu")
-    k, d = torch.zeros(1, 200, 2), torch.zeros(1, 200, 256)
-    with pytest.raises(NotImplementedError, match="per-block"):
-        lightglue.forward(params, k, k, d, d, config=LightGlueConfig(n_layers=2),
-                          policy=policy_for(Precision.FP32))
+    gen = torch.Generator().manual_seed(0)
+    k, d = torch.rand(1, 200, 2, generator=gen) * 2 - 1, torch.randn(1, 200, 256, generator=gen)
+    out = lightglue.forward(params, k, k, d, d, config=LightGlueConfig(n_layers=2),
+                            policy=policy_for(Precision.FP32))
+    assert out.scores.shape == (1, 200, 200) and torch.isfinite(out.scores).all()
     cfg = LightGlueConfig(n_layers=2, depth_confidence=0.95, width_confidence=0.99)
     lens = torch.tensor([120], dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="per-block"):
-        lightglue.forward_adaptive(params, k, k, d, d, lens, lens, config=cfg,
-                                   policy=policy_for(Precision.FP32))
-    k, d = k[:, :128], torch.randn(1, 128, 256, generator=torch.Generator().manual_seed(0))
+    out = lightglue.forward_adaptive(params, k, k, d, d, lens, lens, config=cfg,
+                                     policy=policy_for(Precision.FP32))
+    assert out.scores.shape == (1, 200, 200) and torch.isfinite(out.scores).all()
+    big = torch.zeros(1, 1536, 2), torch.zeros(1, 1536, 256)
+    with pytest.raises(ValueError, match="not divisible"):
+        lightglue.forward(params, big[0], big[0], big[1], big[1],
+                          config=LightGlueConfig(n_layers=2), policy=policy_for(Precision.FP32))
+    k, d = k[:, :128], d[:, :128]
     out = lightglue.forward_adaptive(params, k, k, d, d, lens, lens, config=cfg,
                                      policy=policy_for(Precision.FP32))
     assert out.scores.shape == (1, 128, 128) and int(out.exit_layer[0]) in (1, 2)
