@@ -5,33 +5,50 @@ Run from the root of a checkout on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-In order it prints the card's name and power limit, builds the CUDA kernels
-of ``src/lightglue_tpu_torch/csrc`` (nvcc, sm_90a), holds each of the six
-kernels to its plain PyTorch version at the main path's shapes in bf16 and
-fp32, holds the whole layer stack to its plain version at 9 layers, drives
-``MatcherSession(device="cuda").match_pair`` at the default config (BF16,
-9 layers, seed-0 random weights) on a 480x640 pair and checks that every
-kernel launched, then checks a small FP32 pair against the port on the CPU.
+It prints the card's name and power limit and builds the CUDA kernels of
+``src/lightglue_tpu_torch/csrc`` (one nvcc per source, sm_90a, in
+parallel). Then, in order; every kernel check is in bf16 and fp32 against
+the kernel's plain PyTorch version at the shapes its path gives it, every
+path is driven with the launch counts set to 0 just before it and read just
+after, and every kernel the JSON line lists is timed beside its bound, its
+plain version and, where one exists, a PyTorch call for the same function:
 
-The adaptive path follows: ``adaptive_decide`` against its plain version
-(masked, unmasked, width with a partly retired keep state, pinned and
-random heads), the keep-masked and liveness operands of the layer kernels,
-``transformer_stack_adaptive`` against its plain version at 9 layers (random
-weights, the exit-3 weights, the pruning weights through the downshift at
-layer 4), and ``match_pair`` with ``depth_confidence=0.95,
-width_confidence=0.99`` in those three weight setups, each with its launch
-counts.
+1. The main path (default config: BF16, 9 layers, seed-0 random weights,
+   480x640 pair): ``conv3x3`` (its 64->64 calls), ``nms_candidates``,
+   ``linear``, ``attention`` and ``ln_gelu`` against their plain versions;
+   the layer stack at 9 layers; ``MatcherSession(device="cuda").match_pair``
+   with its launch counts and a profile; a small FP32 pair against the port
+   on the CPU.
+2. The adaptive path (``depth_confidence=0.95, width_confidence=0.99``):
+   ``adaptive_decide`` (masked, unmasked, width with a partly retired keep
+   state, pinned and random heads), the keep-masked and liveness operands,
+   ``transformer_stack_adaptive`` at 9 layers (random weights, the exit-3
+   weights, the pruning weights through the downshift at layer 4), and
+   ``match_pair`` in those three weight setups.
+3. The per-block path: ``fused_mha``, ``bidirectional_cross_attention`` and
+   ``flash_attention`` (masked, ragged, zero lengths, several KV tiles), the
+   per-block ``transformer_layers`` at 9 layers, and ``match_pair`` in the
+   2048-keypoint config (``SuperPointConfig(max_num_keypoints=2048)``, a
+   2048 bucket) and the pad-to-64 config (``buckets=range(64, 1025, 64)``,
+   960 cap), mixed buckets (2048x1024, 960x64) and a two-pair
+   ``match_batch``.
+4. The sequence split: ``flash_attention_step`` (kv boundary inside the
+   block, a block past kv_len and a stripe past q_len passing through
+   exactly, 128-row stripes, kv_len 0, blocks fitted to 384-row stripes,
+   unmasked; fp32 and bf16 stats), ``ring_attention`` on ``[cuda:0] * P``
+   for P = 2, 4, 8 against ``reference_attention`` and the plain step, and
+   ``forward_ring`` on ``[cuda:0] * 4`` at full width (9 layers, E=256,
+   H=4, stripes of 512) on the 2048-keypoint extractions of the pair, then
+   ``filter_matches``: BF16 against the same loop on the plain step, with
+   its launch counts, graph and eager times and a profile; FP32 against
+   ``forward`` and its match set.
+5. The conv variants that no path runs: the generic ``conv3x3`` at
+   SuperPoint's C >= 128 layer shapes, and ``conv2_chain`` at the conv2
+   shape against its plain version and the two-launch ``conv3x3`` chain.
 
-The per-block path comes last: ``fused_mha``, ``bidirectional_cross_attention``
-and ``flash_attention`` against their plain versions (masked, ragged, zero
-lengths, several KV tiles), the per-block ``transformer_layers`` against
-the same loop on the plain versions at 9 layers, and ``match_pair`` in the
-2048-keypoint config (``SuperPointConfig(max_num_keypoints=2048)``, a 2048
-bucket) and the pad-to-64 config (``buckets=range(64, 1025, 64)``, 960 cap),
-each with launch counts, mixed buckets (2048x1024, 960x64) and a two-pair
-``match_batch``. It ends with a ``{"kernels": [...]}`` line and the
-``{"ok": true, ...}`` line. Any failure raises and exits non-zero; so does a
-missing card or a directory without the package.
+It ends with a ``{"kernels": [...]}`` line (all ten Pallas functions) and
+the ``{"ok": true, ...}`` line. Any failure raises and exits non-zero; so
+does a missing card or a directory without the package.
 """
 
 from __future__ import annotations
@@ -161,9 +178,10 @@ class Entry:
                       bound_ms=0.0, library_ms=None)
         self._bytes_ms = self._ops_ms = 0.0
 
-    def add(self, label, weight, ms, plain, lib, nbytes, ops, op_rate):
+    def add(self, label, weight, ms, plain, lib, nbytes, ops, op_rate, per="match_pair"):
         """Record one timed case that the main path runs ``weight`` times per
-        match_pair, and print its per-call line."""
+        ``per`` (one match_pair, one forward_ring, one call of an entry point
+        no path runs), and print its per-call line."""
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_MS, ops / op_rate
         self.d["ms"] += weight * ms
         self.d["plain_ms"] += weight * plain
@@ -174,7 +192,7 @@ class Entry:
         lib_txt = "null" if lib is None else f"{lib:.4f}"
         log(f"  {label}: kernel_ms {ms:.4f} plain_ms {plain:.4f} library_ms {lib_txt} "
             f"bound_ms {max(t_bytes, t_ops):.4f} ({'bytes' if t_bytes >= t_ops else 'operations'})"
-            f" x{weight} per match_pair")
+            f" x{weight} per {per}")
 
     def err(self, e):
         self.d["max_abs_err"] = max(self.d["max_abs_err"], e)
@@ -232,18 +250,18 @@ def prune_weights(tree):
     return tree
 
 
-def profile_breakdown(session, img0, img1, pair_ms, top=12):
-    """Device time by kernel over one profiled match_pair. The busy share is
-    that device time (kernels and copies, overlap ignored) over ``pair_ms``,
-    the unprofiled ms per pair: the profiler's own overhead stretches the
-    profiled call's wall time by a varying amount."""
+def profile_breakdown(call, pair_ms, top=12, what="match_pair"):
+    """Device time by kernel over one profiled call (a match_pair). The busy
+    share is that device time (kernels and copies, overlap ignored) over
+    ``pair_ms``, the unprofiled ms per call: the profiler's own overhead
+    stretches the profiled call's wall time by a varying amount."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        session.match_pair(img0, img1)
+        call()
     rows = sorted(
         ((e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
          if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
@@ -253,7 +271,7 @@ def profile_breakdown(session, img0, img1, pair_ms, top=12):
         log("  profile: no device time recorded (device breakdown not measured)")
         return
     busy = sum(r[0] for r in rows)
-    log(f"  profile of one match_pair: device_busy_ms {busy:.3f}, busy_share "
+    log(f"  profile of one {what}: device_busy_ms {busy:.3f}, busy_share "
         f"{busy / pair_ms:.3f} of the unprofiled {pair_ms:.3f} ms")
     for ms, count, key in rows[:top]:
         log(f"    {ms:8.3f} ms x{count:<4d} {key[:100]}")
@@ -590,7 +608,7 @@ def adaptive_end_to_end(ls, counters, weights, img0, img1, dec_e):
         if (ds > 0 and bk[0] == bk[1] and (bk[0] // 2) % 128 == 0
                 and (len(widths) != 2 or widths[1] not in (bk[0], bk[0] // 2))):
             raise AssertionError(f"{label}: stack buckets {widths}, want two phases")
-        profile_breakdown(session, img0, img1, pair_ms, top=8)
+        profile_breakdown(lambda: session.match_pair(img0, img1), pair_ms, top=8)
 
 
 PB_BUCKET = 2048  # the 2048-keypoint config's cap bucket
@@ -882,7 +900,7 @@ def per_block_end_to_end(at, counters, img0, img1, fused_e, bidir_e):
             times.append((time.perf_counter() - t) * 1e3)
         pair_ms = statistics.median(times)
         log(f"  ms_per_pair median {pair_ms:.3f} (10 repeats, min {min(times):.3f})")
-        profile_breakdown(session, img0, img1, pair_ms, top=8)
+        profile_breakdown(lambda: session.match_pair(img0, img1), pair_ms, top=8)
 
         # mixed buckets: image 1 cut to a smaller bucket's count
         ext = session.extract(np.stack([img0, img1]))
@@ -903,6 +921,346 @@ def per_block_end_to_end(at, counters, img0, img1, fused_e, bidir_e):
                 raise AssertionError(f"{label}: match_batch scores not finite")
 
 
+RING = 4                     # ring positions of the main ring run: stripes of 512
+RING_N = PB_BUCKET           # its bucket
+STEP_LAUNCHES = N_LAYERS * 4 * RING * RING  # 4 attentions per layer, ring^2 steps each
+
+
+def step_kernel_checks(at, rand, dev, fp32_scope, step_e):
+    """flash_attention_step against its plain version at the ring path's
+    shapes (B=1, H=4, 512-row stripes of a 2048 bucket): masked with the kv
+    boundary inside the block, a block wholly past kv_len and a stripe past
+    q_len (pass-through, exact), stripes of 128 rows of which some start
+    past q_len, kv_len 0 from the first step's carries, 384-row blocks
+    fitted to 192 (two tiles), and unmasked; all three carries, in bf16 and
+    fp32 operands with fp32 and bf16 stats. The main path's call (bf16
+    operands, fp32 stats, full lengths) is timed."""
+    import torch
+    import torch.nn.functional as F
+
+    heads, hd, n = 4, 64, RING_N // RING
+    i32 = dict(dtype=torch.int32, device=dev)
+    log(f"flash_attention_step (per forward_ring: {STEP_LAUNCHES} launches = {N_LAYERS} layers x "
+        f"4 attentions x {RING}^2 ring steps, B=1 H=4 stripes of {n})")
+    cases = [
+        # label, n = nk, lengths, row0, col0, block cap, fresh carries, exact pass-through
+        ("masked, kv boundary inside the block", n, [[RING_N, 1800]], n, 3 * n, 1024, False,
+         False),
+        ("block wholly past kv_len", n, [[RING_N, 1000]], n, 3 * n, 1024, False, True),
+        ("stripe wholly past q_len", n, [[400, RING_N]], n, 0, 1024, False, True),
+        ("128-row stripes, some past q_len", n, [[700, RING_N]], n, 2 * n, 128, False, False),
+        ("kv_len 0, first step", n, [[RING_N, 0]], 0, 0, 1024, True, True),
+        ("n=nk=384, blocks fitted to 192", 384, [[1000, 900]], 384, 768, 256, False, False),
+        ("unmasked", n, None, 0, n, 1024, False, False),
+    ]
+    operands = {"bf16": torch.bfloat16, "fp32": torch.float32}
+    for label, size, lens, row0, col0, block, fresh, exact in cases:
+        for otag, odt in operands.items():
+            for stag, sdt in operands.items():
+                q, k, v = (rand(1, heads, size, hd, dtype=odt) for _ in range(3))
+                if fresh:
+                    m = torch.full((1, heads, size, 1), -1e30, device=dev)
+                    l, acc = torch.zeros_like(m), torch.zeros(1, heads, size, hd, device=dev)
+                else:
+                    m = rand(1, heads, size, 1, scale=2.0)
+                    l = 1.0 + rand(1, heads, size, 1, uniform=True) * 2
+                    acc = rand(1, heads, size, hd)
+                ln = None if lens is None else torch.tensor(lens, **i32)
+                args = (q, k, v, m, l, acc, ln, row0, col0)
+                kw = dict(stat_dtype=sdt, block_q=block, block_k=block)
+                tag = "fp32" if otag == stag == "fp32" else "bf16"
+                with fp32_scope():
+                    got = at.flash_attention_step(*args, **kw)
+                    want = at.flash_attention_step_plain(*args, **kw)
+                    errs = [compare(f"{label} {otag} operands {stag} stats {c}", g, w, **TOL[tag])
+                            for c, g, w in zip(("m", "l", "acc"), got, want)]
+                if exact:
+                    for c, g, w in zip(("m", "l", "acc"), got, (m, l, acc)):
+                        compare(f"{label} {otag}/{stag} {c} passes through", g, w, 0, 0,
+                                exact=True)
+                if otag == "bf16":
+                    step_e.err(max(errs))
+    # timed: the main path's call, bf16 operands, fp32 stats, full lengths
+    q, k, v = (rand(1, heads, n, hd, dtype=torch.bfloat16) for _ in range(3))
+    m, l, acc = rand(1, heads, n, 1), 1.0 + rand(1, heads, n, 1, uniform=True), rand(1, heads, n, hd)
+    ln = torch.tensor([[RING_N, RING_N]], **i32)
+    args = (q, k, v, m, l, acc, ln, n, 2 * n)
+    ms = cuda_ms(lambda: at.flash_attention_step(*args))
+    plain = cuda_ms(lambda: at.flash_attention_step_plain(*args))
+    sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+    log(f"  scaled_dot_product_attention on the same 512x512 block (context; it merges no "
+        f"carries): {sdpa:.4f} ms")
+    # each operand read once; the three fp32 carries read and written once
+    nbytes = 2 * 3 * heads * n * hd + 4 * 2 * (2 * heads * n + heads * n * hd)
+    flops = 4 * heads * n * n * hd
+    # library: none, no single PyTorch call merges a block into carries
+    step_e.add(f"step 1x4x{n}x{n} bf16, fp32 stats", STEP_LAUNCHES, ms, plain, None, nbytes,
+               flops, BF16_FLOP_PER_MS, per="forward_ring")
+
+
+def ring_checks(at, ring, rand, dev, dtypes, fp32_scope):
+    """ring_attention on [cuda:0] * P for P in 2, 4, 8 against
+    reference_attention and against the same ring on the plain step:
+    unmasked, masked, and a zero-length kv side."""
+    import torch
+
+    heads, hd, nsz = 4, 64, RING_N
+    i32 = dict(dtype=torch.int32, device=dev)
+    log(f"ring_attention on [cuda:0] x P, (2, {heads}, {nsz}, {hd})")
+    cases = [("unmasked", None), ("masked", [[2000, 1500], [700, 1900]]),
+             ("zero-length kv", [[nsz, 0], [100, 50]])]
+    for size in (2, 4, 8):
+        devices = [dev] * size
+        for label, lens in cases:
+            for tag, dt in dtypes.items():
+                q, k, v = (rand(2, heads, nsz, hd, dtype=dt) for _ in range(3))
+                ln = None if lens is None else torch.tensor(lens, **i32)
+                with fp32_scope():
+                    got = ring.ring_attention(q, k, v, ln, devices=devices)
+                    plain = ring.ring_attention(q, k, v, ln, devices=devices,
+                                                step=at.flash_attention_step_plain)
+                    ref = at.reference_attention(q, k, v, ln)
+                compare(f"P={size} {label} {tag} vs plain step", got, plain, **TOL[tag])
+                live = [i for i in range(2) if lens is None or lens[i][1] > 0]
+                compare(f"P={size} {label} {tag} vs reference_attention", got[live], ref[live],
+                        **TOL[tag])
+                for i, (ql, kl) in enumerate(lens or []):
+                    rows = got[i] if kl == 0 else got[i, :, ql:]
+                    if rows.numel() and float(rows.float().abs().max()) != 0.0:
+                        raise AssertionError(f"P={size} {label} {tag}: padded rows are not 0")
+
+
+def ring_end_to_end(at, counters, img0, img1, step_e):
+    """forward_ring at full width on the 2048-keypoint extractions of the
+    480x640 pair, devices [cuda:0] * 4 (stripes of 512), 9 layers, then
+    filter_matches. BF16: launch counts read from 0 around one call,
+    against the same loop on the plain step, graph and eager times. FP32:
+    against forward (the per-block route) and its match set at threshold 0."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from lightglue_tpu_torch.kernels import layer_stack as ls
+    from lightglue_tpu_torch.models.lightglue import forward, forward_ring
+    from lightglue_tpu_torch.pipeline.match import filter_matches
+    from lightglue_tpu_torch.precision import Precision
+    from lightglue_tpu_torch.runtime.session import MatcherSession
+
+    counters = counters + [ls.adaptive_decide, at.fused_mha, at.bidirectional_cross_attention,
+                           at.flash_attention, at.flash_attention_step]
+    devices = [torch.device("cuda", 0)] * RING
+    cfg = pb_configs()["2048-keypoint"]
+    lgc = cfg.lightglue
+
+    def match_set(scores):
+        """Mutual nearest neighbours of the log assignment: the match set at
+        threshold 0 (filter_matches' exp of these random-weight
+        log-probabilities underflows fp32 for all but a few)."""
+        m0, m1 = scores[0].argmax(1), scores[0].argmax(0)
+        rows = torch.nonzero(m1[m0] == torch.arange(RING_N, device=scores.device))[:, 0]
+        return set(zip(rows.tolist(), m0[rows].tolist()))
+
+    def argmax_agreement(a, b):
+        """Share of image-0 keypoints whose best image-1 column is the same,
+        and how many distinct columns each side's row argmax falls on."""
+        ra, rb = a[0].argmax(1), b[0].argmax(1)
+        return (f"row argmax agreement {float((ra == rb).float().mean()):.4f} (on "
+                f"{ra.unique().numel()} / {rb.unique().numel()} distinct columns)")
+
+    for precision in ("bf16", "fp32"):
+        session = MatcherSession(config=dataclasses.replace(cfg, precision=Precision(precision)),
+                                 device="cuda")
+        ext = session.extract(np.stack([img0, img1]))
+        ext0, ext1 = ext.slice(0, 1), ext.slice(1, 2)
+        n0, n1 = int(ext0.count[0]), int(ext1.count[0])
+        if min(n0, n1) < RING_N:
+            raise AssertionError(f"ring: keypoints {n0}/{n1}, want both at {RING_N}")
+        inputs = (ext0.keypoints_norm[:, :RING_N], ext1.keypoints_norm[:, :RING_N],
+                  ext0.descriptors[:, :RING_N], ext1.descriptors[:, :RING_N],
+                  torch.clamp(ext0.count, max=RING_N), torch.clamp(ext1.count, max=RING_N))
+        kw = dict(config=lgc, policy=session.policy)
+
+        def ring_call(step=at.flash_attention_step):
+            with torch.inference_mode():
+                return forward_ring(session.lg_params, *inputs, devices=devices, step=step, **kw)
+
+        log(f"forward_ring, {precision.upper()}, {RING_N}x{RING_N} on [cuda:0] x {RING}, "
+            f"{lgc.n_layers} layers, E={lgc.descriptor_dim}, H={lgc.num_heads}")
+        ring_call()  # warm
+        for fn in counters:
+            fn.launches = 0
+        out = ring_call()
+        launches = {fn.__name__: fn.launches for fn in counters}
+        log(f"  launches in one forward_ring: {launches}")
+        bad = {k: v for k, v in launches.items()
+               if v != (STEP_LAUNCHES if k == "flash_attention_step" else 0)}
+        if bad:
+            raise AssertionError(f"forward_ring {precision}: launches {bad} (want "
+                                 f"flash_attention_step {STEP_LAUNCHES}, every other kernel 0)")
+        if out.scores.shape != (1, RING_N, RING_N) or not torch.isfinite(out.scores).all():
+            raise AssertionError(f"forward_ring {precision}: scores {tuple(out.scores.shape)} "
+                                 "or not finite")
+        matches = filter_matches(out.scores, threshold=cfg.match_threshold,
+                                 max_matches=min(cfg.max_matches, RING_N))
+        idx = matches.indices[0, :int(matches.count[0])]
+        if idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= RING_N):
+            raise AssertionError("forward_ring: match indices outside the keypoints")
+        log(f"  keypoints {n0}/{n1}, matches at threshold {cfg.match_threshold}: "
+            f"{int(matches.count[0])}")
+        if precision == "bf16":
+            step_e.d["launches"] = launches["flash_attention_step"]
+            plain = ring_call(at.flash_attention_step_plain)
+            for i, (g, w) in enumerate(((out.desc0, plain.desc0), (out.desc1, plain.desc1))):
+                compare(f"forward_ring bf16 d{i} vs the plain step", g, w, **STACK_TOL["bf16"])
+            serr = float((out.scores - plain.scores).abs().max())
+            mg, mp = match_set(out.scores), match_set(plain.scores)
+            log(f"  scores vs the plain step: max_abs_err {serr:.3e}; mutual nearest "
+                f"neighbours {len(mg)} / {len(mp)}, IoU {len(mg & mp) / max(1, len(mg | mp)):.4f}; "
+                f"{argmax_agreement(out.scores, plain.scores)}")
+            graph = cuda_ms(ring_call, reps=5, inner=1)
+            eager = eager_ms(ring_call, reps=5)
+            log(f"  forward_ring bf16: ms per call {graph:.3f} as a graph, {eager:.3f} eager "
+                f"(5 repeats each, median)")
+            profile_breakdown(ring_call, eager, top=8, what="forward_ring")
+        else:
+            with torch.inference_mode():
+                ref = forward(session.lg_params, *inputs, **kw)
+            for i, (g, w) in enumerate(((out.desc0, ref.desc0), (out.desc1, ref.desc1))):
+                compare(f"forward_ring fp32 d{i} vs forward", g, w, **STACK_TOL["fp32"])
+            compare("forward_ring fp32 scores vs forward", out.scores, ref.scores,
+                    **STACK_TOL["fp32"])
+            mg, mr = match_set(out.scores), match_set(ref.scores)
+            iou = len(mg & mr) / max(1, len(mg | mr))
+            log(f"  fp32 match sets at threshold 0 (mutual nearest neighbours), forward_ring "
+                f"vs forward: {len(mg)} / {len(mr)}, IoU {iou:.4f} (needs > 0.95); "
+                f"{argmax_agreement(out.scores, ref.scores)}")
+            if not mr or iou <= 0.95:
+                raise AssertionError(f"forward_ring fp32: match-set IoU {iou:.4f}")
+
+
+GENERIC_CONVS = [
+    # label, H, W, C_in, C_out, pool, relu: SuperPoint's C >= 128 layers at 2x480x640
+    ("conv3a 120x160 64->128", 120, 160, 64, 128, False, True),
+    ("conv3b 120x160 128->128 + pool", 120, 160, 128, 128, True, True),
+    ("convDa 60x80 128->256", 60, 80, 128, 256, False, True),
+    ("convDb 60x80 256->256 no ReLU", 60, 80, 256, 256, False, False),
+]
+
+
+def conv_weights(rand, cin, cout, dt):
+    """HWIO weights and an fp32 bias of the port's init scale (1/sqrt(9 C_in))."""
+    bound = 1.0 / math.sqrt(9 * cin)
+    w = ((rand(3, 3, cin, cout, uniform=True) * 2 - 1) * bound).to(dt)
+    return w, (rand(cout, uniform=True) * 2 - 1) * bound
+
+
+def cudnn_conv(w, b, dt, pool, relu):
+    """The library yardstick on NCHW views of NHWC (channels-last) activations:
+    cuDNN's conv with the bias [+ ReLU] [+ 2x2 max-pool]."""
+    import torch
+    import torch.nn.functional as F
+
+    wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    bc = b.to(dt)
+
+    def call(xc):
+        y = F.conv2d(xc, wc, bc, padding=1)
+        y = F.relu(y) if relu else y
+        return F.max_pool2d(y, 2) if pool else y
+
+    return call
+
+
+def generic_conv_checks(conv_k, rand, dev, dtypes, fp32_scope, gen_e):
+    """The generic conv3x3 (JAX conv.py:182) against its plain version at
+    SuperPoint's C >= 128 layer shapes for a 2x480x640 batch, in bf16 and
+    fp32 and with the other output dtype; the bf16 calls are timed."""
+    import torch
+
+    log("conv3x3, generic C_in/C_out (not on a path; the entry point's own calls)")
+    for label, h, w, cin, cout, pool, relu in GENERIC_CONVS:
+        for tag, dt in dtypes.items():
+            x = rand(2, h, w, cin, uniform=True, dtype=dt)
+            wt, b = conv_weights(rand, cin, cout, dt)
+            other = torch.float32 if dt == torch.bfloat16 else torch.bfloat16
+            for out_dt in (dt, other):
+                kw = dict(relu=relu, out_dtype=out_dt)
+                with fp32_scope():
+                    got = conv_k.conv3x3(x, wt, b, pool, **kw)
+                    want = conv_k.conv3x3_plain(x, wt, b, pool, **kw)
+                    out_tag = "bf16" if torch.bfloat16 in (dt, out_dt) else "fp32"
+                    err = compare(f"{label} {tag} -> {str(out_dt)[6:]}", got, want, **TOL[out_tag])
+                if tag == "bf16" and out_dt == dt:
+                    gen_e.err(err)
+    # the entry point's own path: one call per shape, counted from 0
+    conv_k.conv3x3.launches = 0
+    timed = []
+    for label, h, w, cin, cout, pool, relu in GENERIC_CONVS:
+        x = rand(2, h, w, cin, uniform=True, dtype=torch.bfloat16)
+        wt, b = conv_weights(rand, cin, cout, torch.bfloat16)
+        conv_k.conv3x3(x, wt, b, pool, relu=relu)
+        timed.append((label, h, w, cin, cout, pool, relu, x, wt, b))
+    gen_e.d["launches"] = conv_k.conv3x3.launches
+    log(f"  generic entry point, one call per shape: conv3x3 launches {conv_k.conv3x3.launches}")
+    for label, h, w, cin, cout, pool, relu, x, wt, b in timed:
+        ms = cuda_ms(lambda: conv_k.conv3x3(x, wt, b, pool, relu=relu))
+        with fp32_scope():
+            plain = cuda_ms(lambda: conv_k.conv3x3_plain(x, wt, b, pool, relu=relu))
+        lib = cudnn_conv(wt, b, x.dtype, pool, relu)
+        xc = x.permute(0, 3, 1, 2)
+        lib_ms = cuda_ms(lambda: lib(xc))
+        oh, ow = (h // 2, w // 2) if pool else (h, w)
+        nbytes = 2 * (2 * h * w * cin + 9 * cin * cout + 2 * oh * ow * cout) + 4 * cout
+        flops = 2 * 2 * h * w * cin * cout * 9
+        gen_e.add(f"{label} bf16", 1, ms, plain, lib_ms, nbytes, flops, BF16_FLOP_PER_MS,
+                  per="call of the four")
+
+
+def conv_chain_checks(conv_k, cc, rand, dev, dtypes, fp32_scope, chain_e):
+    """conv2_chain (JAX conv_chain.py:140) against its plain version and
+    against the port's two-launch conv3x3 chain at the main path's conv2
+    shape, 2x240x320x64, in bf16 and fp32, with and without conv2b's ReLU;
+    the bf16 call is timed beside the two-launch chain."""
+    import torch
+
+    log("conv2_chain (not on a path: the model runs conv3x3 twice; 2x240x320x64)")
+    h, w = 240, 320
+    for tag, dt in dtypes.items():
+        x = rand(2, h, w, 64, uniform=True, dtype=dt)
+        wa, ba = conv_weights(rand, 64, 64, dt)
+        wb, bb = conv_weights(rand, 64, 64, dt)
+        for relu in (True, False):
+            with fp32_scope():
+                got = cc.conv2_chain(x, wa, ba, wb, bb, relu=relu)
+                want = cc.conv2_chain_plain(x, wa, ba, wb, bb, relu=relu)
+                err = compare(f"conv2_chain relu={relu} {tag}", got, want, **TOL[tag])
+                two = conv_k.conv3x3(conv_k.conv3x3(x, wa, ba), wb, bb, True, relu=relu)
+                compare(f"conv2_chain relu={relu} {tag} vs two conv3x3 launches", got, two,
+                        **TOL[tag])
+            if tag == "bf16":
+                chain_e.err(err)
+        if tag != "bf16":
+            continue
+        cc.conv2_chain.launches = 0
+        cc.conv2_chain(x, wa, ba, wb, bb)
+        chain_e.d["launches"] = cc.conv2_chain.launches
+        log(f"  entry point, one call: conv2_chain launches {cc.conv2_chain.launches}")
+        ms = cuda_ms(lambda: cc.conv2_chain(x, wa, ba, wb, bb))
+        with fp32_scope():
+            plain = cuda_ms(lambda: cc.conv2_chain_plain(x, wa, ba, wb, bb))
+        two_ms = cuda_ms(lambda: conv_k.conv3x3(conv_k.conv3x3(x, wa, ba), wb, bb, True))
+        conv2a, conv2b = (cudnn_conv(wa, ba, dt, False, True), cudnn_conv(wb, bb, dt, True, True))
+        xc = x.permute(0, 3, 1, 2)
+        lib_ms = cuda_ms(lambda: conv2b(conv2a(xc)))
+        log(f"  the port's two-launch conv3x3 chain: {two_ms:.4f} ms")
+        nbytes = 2 * (2 * h * w * 64 + 2 * 9 * 64 * 64 + 2 * (h // 2) * (w // 2) * 64) + 8 * 64
+        flops = 2 * (2 * 2 * h * w * 64 * 64 * 9)
+        # library: two cuDNN convs with bias and ReLU, and the pool
+        chain_e.add("conv2a+conv2b+pool 2x240x320x64 bf16", 1, ms, plain, lib_ms, nbytes, flops,
+                    BF16_FLOP_PER_MS, per="call")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -914,8 +1272,10 @@ def main() -> int:
     from lightglue_tpu_torch.kernels import _build
     from lightglue_tpu_torch.kernels import attention as at
     from lightglue_tpu_torch.kernels import conv as conv_k
+    from lightglue_tpu_torch.kernels import conv_chain as cc
     from lightglue_tpu_torch.kernels import layer_stack as ls
     from lightglue_tpu_torch.kernels import nms as nms_k
+    from lightglue_tpu_torch.parallel import ring
     from lightglue_tpu_torch.precision import Precision, policy_for, precision_scope
     from lightglue_tpu_torch.runtime import weights
     from lightglue_tpu_torch.runtime.session import MatcherSession
@@ -1171,7 +1531,7 @@ def main() -> int:
     pair_ms = statistics.median(times)
     log(f"  keypoints {n0}/{n1} bucket {bucket[0]}x{bucket[1]} matches {len(result['matches'])} "
         f"ms_per_pair median {pair_ms:.3f} (10 repeats, min {min(times):.3f})")
-    profile_breakdown(session, img0, img1, pair_ms)
+    profile_breakdown(lambda: session.match_pair(img0, img1), pair_ms)
 
     # ---- end to end against the port on the CPU, small FP32 pair ----------
     log("match_pair cuda vs cpu, FP32, 96x128, 2 layers, buckets (128, 256), threshold 0")
@@ -1222,7 +1582,23 @@ def main() -> int:
     per_block_stack_checks(at, weights, rand, freqs_for, dev, dtypes, fp32_scope)
     per_block_end_to_end(at, counters, img0, img1, fused_e, bidir_e)
 
-    entries = (conv_e, nms_e, lin_e, att_e, ln_e, dec_e, fused_e, bidir_e, flash_e)
+    # ---- the sequence split: forward_ring on a ring of one card -------------
+    step_e = Entry("flash_attention_step", "src/lightglue_tpu_torch/csrc/flash_attn.cu",
+                   "src/lightglue_tpu/kernels/attention.py:422")
+    step_kernel_checks(at, rand, dev, fp32_scope, step_e)
+    ring_checks(at, ring, rand, dev, dtypes, fp32_scope)
+    ring_end_to_end(at, counters, img0, img1, step_e)
+
+    # ---- the conv variants that no path runs --------------------------------
+    gen_e = Entry("conv3x3 (generic)", "src/lightglue_tpu_torch/csrc/conv3x3.cu",
+                  "src/lightglue_tpu/kernels/conv.py:182")
+    chain_e = Entry("conv2_chain", "src/lightglue_tpu_torch/csrc/conv_chain.cu",
+                    "src/lightglue_tpu/kernels/conv_chain.py:140")
+    generic_conv_checks(conv_k, rand, dev, dtypes, fp32_scope, gen_e)
+    conv_chain_checks(conv_k, cc, rand, dev, dtypes, fp32_scope, chain_e)
+
+    entries = (conv_e, nms_e, lin_e, att_e, ln_e, dec_e, fused_e, bidir_e, flash_e, step_e,
+               gen_e, chain_e)
     log(json.dumps({"kernels": [x.out() for x in entries]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -1,14 +1,16 @@
 // Online-softmax multi-head attention over KV tiles: the per-block LightGlue
 // path's self-attention (half-split RoPE on q and k) and, above 1024
-// keypoints, each cross-attention direction; and the generic (B, H, N, D)
-// attention entry point.
+// keypoints, each cross-attention direction; the generic (B, H, N, D)
+// attention entry point; and the local step of ring attention.
 //
-// Replaces two TPU kernels of lightglue_tpu/kernels/attention.py with one
+// Replaces three TPU kernels of lightglue_tpu/kernels/attention.py with one
 // templated kernel addressed by strides:
-//   fused_mha        wrapper :687, pallas_call :766, body :540-673
-//                    ((B, N, H*D) activation layout, optional RoPE);
-//   flash_attention  wrapper :197, pallas_call :264, body :71-184
-//                    ((B, H, N, D) layout, no RoPE).
+//   fused_mha             wrapper :687, pallas_call :766, body :540-673
+//                         ((B, N, H*D) activation layout, optional RoPE);
+//   flash_attention       wrapper :197, pallas_call :264, body :71-184
+//                         ((B, H, N, D) layout, no RoPE);
+//   flash_attention_step  wrapper :422, pallas_call :507, body :303-415
+//                         (STEP: (B, H, N, D), carries in and out).
 //
 // Contract (attention.py:123-176, :607-657): KV runs in tiles of block_k;
 // per tile s = quant(Q.K^T * scale), columns >= kv_len become -1e30,
@@ -33,6 +35,18 @@
 // version; the updates of l and acc are written with __fmul_rn/__fadd_rn
 // so that the compiler does not fuse them into an FMA the reference does
 // not take.
+//
+// STEP (the ring step, attention.py:303-415) starts m, l and acc from the
+// fp32 carries instead of -1e30, 0, 0, masks the columns at their global
+// ids col0 + j against the GLOBAL kv_len (tiles past kv_len - col0 are
+// skipped), and writes the three carries back in fp32 instead of
+// finalising. Its row rule is the reference's, at the reference's stripe
+// of block_q rows (not at this kernel's 16): with lengths, a stripe runs
+// only if row0 + its first row < q_len and one tile of the block is live,
+// and the rows of a stripe that does not run pass their carries through
+// unchanged. A 16-row block with no running row only copies its carries.
+// Its bound is the fp32 carries' bytes (read and written each step) at the
+// ring's 512-row stripes; the compute design is the same as above.
 
 #include <math.h>
 
@@ -56,6 +70,19 @@ struct Out {
   long long bs, hs, rs;
 };
 
+// The ring step's carries (STEP only): m/l (B, H, Nq, 1) and acc
+// (B, H, Nq, D), fp32 and contiguous; row0/col0 are the global ids of q's
+// first row and k's first column, block_q the reference's q stripe.
+struct Carries {
+  const float* m_in;
+  const float* l_in;
+  const float* acc_in;
+  float* m_out;
+  float* l_out;
+  float* acc_out;
+  int row0, col0, block_q;
+};
+
 template <typename T>
 __device__ __forceinline__ const T* row_ptr(const Operand& o, int b, int h,
                                             int row) {
@@ -63,9 +90,9 @@ __device__ __forceinline__ const T* row_ptr(const Operand& o, int b, int h,
          (long long)row * o.rs;
 }
 
-template <typename T, bool ROPE>
+template <typename T, bool ROPE, bool STEP>
 __global__ void __launch_bounds__(THREADS, 2)
-flash_kernel(Operand q, Operand k, Operand v, Out o,
+flash_kernel(Operand q, Operand k, Operand v, Out o, Carries cy,
              const float* __restrict__ freqs, const int* __restrict__ lens,
              int Nq, int Nk, float scale, int block_k, int quant) {
   extern __shared__ float smem[];
@@ -83,8 +110,34 @@ flash_kernel(Operand q, Operand k, Operand v, Out o,
   const int cj = tid % KC;  // this thread's key within a chunk / output column
   const int r0 = tid / KC;  // rows r0, r0 + 4, r0 + 8, r0 + 12
   T* out = static_cast<T*>(o.ptr) + b * o.bs + h * o.hs;
+  const int col0 = STEP ? cy.col0 : 0;  // global id of k's first column
+  int num_kv = Nk / block_k;
+  if (lens) num_kv = min(num_kv, ((STEP ? max(lk - col0, 0) : lk) + block_k - 1) / block_k);
+  const size_t cbase = ((size_t)b * gridDim.y + h) * Nq + i0;  // STEP: carry row of i0
 
-  if (i0 >= lq) {  // a stripe wholly past q_len: zeros
+  // STEP: does row r's stripe of block_q rows run (attention.py:359-361)?
+  auto runs = [&](int r) {
+    return lens == nullptr ||
+           (cy.row0 + (i0 + r) / cy.block_q * cy.block_q < lq && num_kv > 0);
+  };
+  if (STEP) {
+    bool any = false;
+    for (int r = 0; r < BQ && i0 + r < Nq; ++r) any = any || runs(r);
+    if (!any) {  // no row of this block runs: the carries pass through
+#pragma unroll
+      for (int rr = 0; rr < BQ / 4; ++rr) {
+        const int r = r0 + 4 * rr;
+        if (i0 + r < Nq) cy.acc_out[(cbase + r) * D + cj] = cy.acc_in[(cbase + r) * D + cj];
+      }
+      if (tid < BQ && i0 + tid < Nq) {
+        cy.m_out[cbase + tid] = cy.m_in[cbase + tid];
+        cy.l_out[cbase + tid] = cy.l_in[cbase + tid];
+      }
+      return;
+    }
+  }
+
+  if (!STEP && i0 >= lq) {  // a stripe wholly past q_len: zeros
 #pragma unroll
     for (int rr = 0; rr < BQ / 4; ++rr) {
       const int gi = i0 + r0 + 4 * rr;
@@ -99,8 +152,9 @@ flash_kernel(Operand q, Operand k, Operand v, Out o,
     qs[i] = i0 + r < Nq ? lg::to_f(row_ptr<T>(q, b, h, i0 + r)[d]) : 0.f;
   }
   if (tid < BQ) {
-    mrow[tid] = NEG;
-    lrow[tid] = 0.f;
+    const bool carried = STEP && i0 + tid < Nq;
+    mrow[tid] = carried ? cy.m_in[cbase + tid] : NEG;
+    lrow[tid] = carried ? cy.l_in[cbase + tid] : 0.f;
   }
   __syncthreads();
   if (ROPE) {
@@ -108,10 +162,15 @@ flash_kernel(Operand q, Operand k, Operand v, Out o,
     __syncthreads();
   }
 
-  int num_kv = Nk / block_k;
-  if (lens) num_kv = min(num_kv, (lk + block_k - 1) / block_k);
   const int warp = tid / 32, lane = tid % 32;
   float acc[BQ / 4] = {};
+  if (STEP) {
+#pragma unroll
+    for (int rr = 0; rr < BQ / 4; ++rr) {
+      const int r = r0 + 4 * rr;
+      if (i0 + r < Nq) acc[rr] = cy.acc_in[(cbase + r) * D + cj];
+    }
+  }
   for (int t = 0; t < num_kv; ++t) {
     const int base = t * block_k;
 
@@ -130,7 +189,7 @@ flash_kernel(Operand q, Operand k, Operand v, Out o,
         __syncthreads();
       }
       if (cj < jn) {
-        const bool dead = lens != nullptr && base + c0 + cj >= lk;
+        const bool dead = lens != nullptr && col0 + base + c0 + cj >= lk;
 #pragma unroll
         for (int rr = 0; rr < BQ / 4; ++rr) {
           const int r = r0 + 4 * rr;
@@ -191,6 +250,22 @@ flash_kernel(Operand q, Operand k, Operand v, Out o,
   }
   __syncthreads();  // lrow of the last tile (or of none)
 
+  if (STEP) {  // the carries out; a row whose stripe does not run passes through
+#pragma unroll
+    for (int rr = 0; rr < BQ / 4; ++rr) {
+      const int r = r0 + 4 * rr;
+      if (i0 + r >= Nq) continue;
+      const size_t at = (cbase + r) * D + cj;
+      cy.acc_out[at] = runs(r) ? acc[rr] : cy.acc_in[at];
+    }
+    if (tid < BQ && i0 + tid < Nq) {
+      const bool live = runs(tid);
+      cy.m_out[cbase + tid] = live ? mrow[tid] : cy.m_in[cbase + tid];
+      cy.l_out[cbase + tid] = live ? lrow[tid] : cy.l_in[cbase + tid];
+    }
+    return;
+  }
+
 #pragma unroll
   for (int rr = 0; rr < BQ / 4; ++rr) {
     const int r = r0 + 4 * rr;
@@ -203,8 +278,8 @@ flash_kernel(Operand q, Operand k, Operand v, Out o,
   }
 }
 
-template <typename T, bool ROPE>
-int launch(Operand q, Operand k, Operand v, Out o, const void* freqs,
+template <typename T, bool ROPE, bool STEP>
+int launch(Operand q, Operand k, Operand v, Out o, Carries cy, const void* freqs,
            const void* lens, int B, int H, int Nq, int Nk, float scale,
            int block_k, int quant, cudaStream_t stream) {
   const size_t smem =
@@ -212,14 +287,14 @@ int launch(Operand q, Operand k, Operand v, Out o, const void* freqs,
   static size_t opted_in = 48 * 1024;  // raised once per size, not per launch
   if (smem > opted_in) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_kernel<T, ROPE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_kernel<T, ROPE, STEP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     opted_in = smem;
   }
   dim3 grid((Nq + BQ - 1) / BQ, H, B);
-  flash_kernel<T, ROPE><<<grid, THREADS, smem, stream>>>(
-      q, k, v, o, static_cast<const float*>(freqs),
+  flash_kernel<T, ROPE, STEP><<<grid, THREADS, smem, stream>>>(
+      q, k, v, o, cy, static_cast<const float*>(freqs),
       static_cast<const int*>(lens), Nq, Nk, scale, block_k, quant);
   return static_cast<int>(cudaGetLastError());
 }
@@ -228,11 +303,12 @@ int dispatch(Operand q, Operand k, Operand v, Out o, const void* freqs,
              const void* lens, int B, int H, int Nq, int Nk, float scale,
              int block_k, int quant, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Carries none{};
   if (bf16)
-    return (freqs ? launch<__nv_bfloat16, true> : launch<__nv_bfloat16, false>)(
-        q, k, v, o, freqs, lens, B, H, Nq, Nk, scale, block_k, quant, s);
-  return (freqs ? launch<float, true> : launch<float, false>)(
-      q, k, v, o, freqs, lens, B, H, Nq, Nk, scale, block_k, quant, s);
+    return (freqs ? launch<__nv_bfloat16, true, false> : launch<__nv_bfloat16, false, false>)(
+        q, k, v, o, none, freqs, lens, B, H, Nq, Nk, scale, block_k, quant, s);
+  return (freqs ? launch<float, true, false> : launch<float, false, false>)(
+      q, k, v, o, none, freqs, lens, B, H, Nq, Nk, scale, block_k, quant, s);
 }
 
 }  // namespace
@@ -266,4 +342,31 @@ extern "C" int lg_flash_attention(
   const Out oo{out, (long long)H * Nq * D, (long long)Nq * D, D};
   return dispatch(oq, ok, ov, oo, nullptr, lens, B, H, Nq, Nk, scale, block_k,
                   quant, bf16, stream);
+}
+
+// flash_attention_step: q (B, H, Nq, 64), k/v (B, H, Nk, 64) addressed by
+// (batch, head, row) strides in elements; m/l (B, H, Nq, 1) and acc
+// (B, H, Nq, 64) fp32 contiguous carries in and out (distinct buffers). lens:
+// (B, 2) int32 GLOBAL [q_len, kv_len] or null (unmasked: every stripe runs).
+extern "C" int lg_flash_attention_step(
+    const void* q, long long q_bs, long long q_hs, long long q_rs,
+    const void* k, long long k_bs, long long k_hs, long long k_rs,
+    const void* v, long long v_bs, long long v_hs, long long v_rs,
+    const void* m_in, const void* l_in, const void* acc_in, void* m_out,
+    void* l_out, void* acc_out, const void* lens, int B, int H, int Nq, int Nk,
+    int row0, int col0, float scale, int block_q, int block_k, int quant,
+    int bf16, void* stream) {
+  const Operand oq{q, q_bs, q_hs, q_rs}, ok{k, k_bs, k_hs, k_rs},
+      ov{v, v_bs, v_hs, v_rs};
+  const Out none{nullptr, 0, 0, 0};
+  const Carries cy{static_cast<const float*>(m_in), static_cast<const float*>(l_in),
+                   static_cast<const float*>(acc_in), static_cast<float*>(m_out),
+                   static_cast<float*>(l_out), static_cast<float*>(acc_out),
+                   row0, col0, block_q};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return launch<__nv_bfloat16, false, true>(oq, ok, ov, none, cy, nullptr, lens, B, H, Nq,
+                                              Nk, scale, block_k, quant, s);
+  return launch<float, false, true>(oq, ok, ov, none, cy, nullptr, lens, B, H, Nq, Nk, scale,
+                                    block_k, quant, s);
 }

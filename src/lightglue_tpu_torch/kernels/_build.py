@@ -35,7 +35,8 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 # name -> argtypes; every function returns its launch's cudaError_t
 _SIGNATURES = {
-    "lg_conv3x3": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "lg_conv3x3": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "lg_conv2_chain": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "lg_nms_candidates": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "lg_linear": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _P],
     "lg_attention": [
@@ -54,6 +55,10 @@ _SIGNATURES = {
     "lg_flash_attention": [
         _P, _L, _L, _L, _P, _L, _L, _L, _P, _L, _L, _L, _P, _P, _I, _I, _I, _I,
         _F, _I, _I, _I, _P,
+    ],
+    "lg_flash_attention_step": [
+        _P, _L, _L, _L, _P, _L, _L, _L, _P, _L, _L, _L, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P,
     ],
     "lg_bidirectional_cross": [
         _P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _P, _P, _I, _I, _I,

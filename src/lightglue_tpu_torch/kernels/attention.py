@@ -7,6 +7,10 @@ Counterpart of ``lightglue_tpu/kernels/attention.py``:
   (B, N, H*D) activation layout with optional half-split RoPE and in the
   (B, H, N, D) layout without. Both run ``csrc/flash_attn.cu``, one
   templated kernel addressed by strides.
+- ``flash_attention_step`` (:422, pallas_call :507): the same tile loop
+  from running (m, l, acc) carries over one KV block at global offsets,
+  carries out, the local step of ring attention; the STEP instantiation of
+  the same kernel.
 - ``bidirectional_cross_attention`` (:925, pallas_call :985): both
   directions of the cross block from one S per head, row softmax for
   0 -> 1 and column softmax for 1 -> 0, on ``csrc/bidir_cross.cu``.
@@ -61,27 +65,20 @@ def _merge(t: torch.Tensor) -> torch.Tensor:
     return t.transpose(1, 2).reshape(b, n, h * d)
 
 
-def _online_softmax(qh, kh, vh, lengths, *, scale, stat_dtype, block_k):
-    """The Pallas body (attention.py:123-176) over (B, H, N, D) heads: per KV
-    tile s = quant(q.k * scale), columns past kv_len at -1e30; m, p, the
-    correction, l and acc each rounded once per tile; tiles past kv_len
-    leave the carries as they are; acc / l (l == 0 divides by 1), rows past
-    q_len 0. Returns fp32."""
-    b, h, nq, d = qh.shape
+def _merge_tiles(qh, kh, vh, m, l, acc, kv_len, col0, *, scale, stat_dtype, block_k):
+    """The Pallas tile loop (attention.py:123-176, :366-399) from carries
+    (m, l, acc) over (B, H, N, D) heads: per KV tile s = quant(q.k * scale),
+    columns whose global id ``col0 + j`` is past kv_len at -1e30; m, p, the
+    correction, l and acc each rounded once per tile; a tile that starts at
+    or past kv_len leaves the carries as they are. ``kv_len`` is a
+    (B, 1, 1, 1) tensor or None (unmasked). Returns fp32 carries."""
     nk = kh.shape[2]
-    dev = qh.device
     qf = qh.float()
-    m = torch.full((b, h, nq, 1), _NEG_INF, device=dev)
-    l = torch.zeros((b, h, nq, 1), device=dev)
-    acc = torch.zeros((b, h, nq, d), device=dev)
-    if lengths is not None:
-        lens = lengths.to(dev, torch.int64)
-        q_len, kv_len = lens[:, 0].view(-1, 1, 1, 1), lens[:, 1].view(-1, 1, 1, 1)
     for j in range(nk // block_k):
         cols = slice(j * block_k, (j + 1) * block_k)
         s = _quant((qf @ kh[:, :, cols].float().transpose(-1, -2)) * scale, stat_dtype)
-        if lengths is not None:
-            col = j * block_k + torch.arange(block_k, device=dev)
+        if kv_len is not None:
+            col = col0 + j * block_k + torch.arange(block_k, device=qh.device)
             s = torch.where(col < kv_len, s, _NEG_INF)
         m_new = _quant(torch.maximum(m, s.amax(dim=-1, keepdim=True)), stat_dtype)
         p = _quant(torch.exp(s - m_new), stat_dtype)
@@ -89,12 +86,34 @@ def _online_softmax(qh, kh, vh, lengths, *, scale, stat_dtype, block_k):
         l_new = _quant(l * corr + p.sum(dim=-1, keepdim=True), stat_dtype)
         pv = p.to(vh.dtype).float() @ vh[:, :, cols].float()
         acc_new = _quant(acc * corr + pv, stat_dtype)
-        if lengths is None:
+        if kv_len is None:
             m, l, acc = m_new, l_new, acc_new
-        else:  # the tile is skipped where it starts at or past kv_len
-            live = j * block_k < kv_len
+        else:
+            live = col0 + j * block_k < kv_len
             m, l, acc = (torch.where(live, new, old) for new, old in
                          ((m_new, m), (l_new, l), (acc_new, acc)))
+    return m, l, acc
+
+
+def _split_lengths(lengths, dev):
+    """(B, 2) [q_len, kv_len] -> two (B, 1, 1, 1) int64 tensors."""
+    lens = lengths.to(dev, torch.int64)
+    return lens[:, 0].view(-1, 1, 1, 1), lens[:, 1].view(-1, 1, 1, 1)
+
+
+def _online_softmax(qh, kh, vh, lengths, *, scale, stat_dtype, block_k):
+    """The whole Pallas body (attention.py:123-184): the tile loop from
+    m = -1e30, l = acc = 0, then acc / l (l == 0 divides by 1) with rows
+    past q_len 0. Returns fp32."""
+    b, h, nq, d = qh.shape
+    dev = qh.device
+    q_len = kv_len = None
+    if lengths is not None:
+        q_len, kv_len = _split_lengths(lengths, dev)
+    m, l, acc = _merge_tiles(
+        qh, kh, vh, torch.full((b, h, nq, 1), _NEG_INF, device=dev),
+        torch.zeros((b, h, nq, 1), device=dev), torch.zeros((b, h, nq, d), device=dev),
+        kv_len, 0, scale=scale, stat_dtype=stat_dtype, block_k=block_k)
     out = acc / torch.where(l == 0.0, 1.0, l)
     if lengths is not None:
         rows = torch.arange(nq, device=dev).view(1, 1, -1, 1)
@@ -278,6 +297,109 @@ def flash_attention(q, k, v, lengths=None, *, scale: Optional[float] = None,
 
 
 flash_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# flash_attention_step: one KV block merged into running carries (ring step)
+# ---------------------------------------------------------------------------
+
+
+def _fit_block(size: int, cap: int) -> int:
+    """The largest divisor of ``size`` at most ``cap`` (JAX
+    ``flash_attention_step``'s ``_fit_block``): a ring stripe is N / ring
+    long, so the block shrinks to fit it instead of raising."""
+    b = min(cap, size)
+    while size % b:
+        b -= 1
+    return b
+
+
+def _step_shapes(q, k, v, m, l, acc, block_q, block_k):
+    batch, heads, n, head_dim = q.shape
+    if v.shape != k.shape or k.shape[:2] != (batch, heads) or k.shape[3] != head_dim:
+        raise ValueError(f"flash_attention_step: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    if m.shape != (batch, heads, n, 1) or l.shape != m.shape or acc.shape != q.shape:
+        raise ValueError(f"flash_attention_step: carries m {tuple(m.shape)}, l "
+                         f"{tuple(l.shape)}, acc {tuple(acc.shape)} for q {tuple(q.shape)}")
+    nk = k.shape[2]
+    return batch, heads, n, nk, head_dim, _fit_block(n, block_q), _fit_block(nk, block_k)
+
+
+def flash_attention_step_plain(q, k, v, m, l, acc, lengths=None, row0: Optional[int] = None,
+                               col0: Optional[int] = None, *, scale: Optional[float] = None,
+                               stat_dtype=torch.float32, block_q: int = DEFAULT_BLOCK_Q,
+                               block_k: int = DEFAULT_BLOCK_K):
+    """``flash_attention_step`` in plain PyTorch, on any device."""
+    *_, n, _, head_dim, block_q, block_k = _step_shapes(q, k, v, m, l, acc, block_q, block_k)
+    row0, col0 = row0 or 0, col0 or 0
+    scale = 1.0 / math.sqrt(head_dim) if scale is None else scale
+    carries = (m.float(), l.float(), acc.float())
+    q_len = kv_len = None
+    if lengths is not None:
+        q_len, kv_len = _split_lengths(lengths, q.device)
+    new = _merge_tiles(q, k, v, *carries, kv_len, col0, scale=scale, stat_dtype=stat_dtype,
+                       block_k=block_k)
+    if lengths is None:  # unmasked: every stripe is active
+        return new
+    # a stripe of block_q rows runs only if it starts before q_len and a tile
+    # of the block is live; an inactive stripe passes its carries through
+    start = row0 + torch.arange(n, device=q.device) // block_q * block_q
+    active = (start.view(1, 1, -1, 1) < q_len) & (kv_len > col0)
+    return tuple(torch.where(active, a, b) for a, b in zip(new, carries))
+
+
+def flash_attention_step(q, k, v, m, l, acc, lengths=None, row0: Optional[int] = None,
+                         col0: Optional[int] = None, *, scale: Optional[float] = None,
+                         stat_dtype=torch.float32, block_q: int = DEFAULT_BLOCK_Q,
+                         block_k: int = DEFAULT_BLOCK_K):
+    """Merge one KV block into running online-softmax carries: the local
+    step of ring attention (``parallel/ring.py``).
+
+    Args:
+      q: (B, H, n, D) this position's query stripe; k/v: (B, H, nk, D) the
+        KV block of this ring step. Any strides with a unit last one.
+      m, l: (B, H, n, 1) fp32 running row max and row sum; acc: (B, H, n, D)
+        fp32 running unnormalised output.
+      lengths: optional (B, 2) int GLOBAL [q_len, kv_len].
+      row0/col0: global ids of q's first row and k's first column (Python
+        ints; the ring loop knows them on the host). Default 0.
+      block_q/block_k: caps; each shrinks to the largest divisor of n / nk
+        (so a 384 or 96 stripe runs), which sets where bf16 stats round.
+
+    Returns:
+      (m', l', acc') fp32. Finalise with acc / where(l == 0, 1, l) and the
+      row mask (``parallel/ring.py``).
+    """
+    if q.device.type == "cpu":
+        return flash_attention_step_plain(q, k, v, m, l, acc, lengths, row0, col0, scale=scale,
+                                          stat_dtype=stat_dtype, block_q=block_q,
+                                          block_k=block_k)
+    batch, heads, n, nk, head_dim, block_q, block_k = _step_shapes(q, k, v, m, l, acc,
+                                                                   block_q, block_k)
+    _card_checks("flash_attention_step", q.dtype, None, stat_dtype, head_dim, (q, k, v))
+    _smem_check("flash_attention_step", block_k)
+    for t in (m, l, acc):
+        if t.dtype != torch.float32 or t.device != q.device or not t.is_contiguous():
+            raise ValueError("flash_attention_step: carries must be contiguous fp32 on q's device")
+    lengths = _lengths_arg(lengths, batch, q.device)
+    outs = tuple(torch.empty_like(t) for t in (m, l, acc))
+    err = _build.lib().lg_flash_attention_step(
+        q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
+        k.data_ptr(), k.stride(0), k.stride(1), k.stride(2),
+        v.data_ptr(), v.stride(0), v.stride(1), v.stride(2),
+        m.data_ptr(), l.data_ptr(), acc.data_ptr(), *(t.data_ptr() for t in outs),
+        None if lengths is None else lengths.data_ptr(), batch, heads, n, nk,
+        int(row0 or 0), int(col0 or 0),
+        1.0 / math.sqrt(head_dim) if scale is None else float(scale), block_q, block_k,
+        int(stat_dtype == torch.bfloat16), _is_bf16(q), _stream(q),
+    )
+    _build.check(err, "flash_attention_step")
+    flash_attention_step.launches += 1
+    return outs
+
+
+flash_attention_step.launches = 0
 
 
 # ---------------------------------------------------------------------------

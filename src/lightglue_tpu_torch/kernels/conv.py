@@ -1,14 +1,24 @@
-"""Fused SAME 3x3 conv (64 -> 64) + bias + ReLU [+ 2x2 max-pool], NHWC.
+"""Fused SAME 3x3 conv + bias [+ ReLU] [+ 2x2 max-pool], NHWC.
 
-Counterpart of ``lightglue_tpu/kernels/conv.py:conv3x3_paired`` (wrapper
-:356, pallas_call :458), which runs SuperPoint's conv1b (+pool), conv2a and
-conv2b (+pool). The TPU kernel's paired/offset column layouts exist only to
-fill the MXU; the contract kept is the output of
-``lightglue_tpu/models/superpoint.py:_relu_conv``: fp32 accumulation, fp32
-bias, ReLU, the optional pool, then the cast to the activation dtype.
+Counterpart of two Pallas functions of ``lightglue_tpu/kernels/conv.py``,
+both ``conv3x3`` here:
+
+- ``conv3x3_paired`` (wrapper :356, pallas_call :458), which runs
+  SuperPoint's conv1b (+pool), conv2a and conv2b (+pool): 64 -> 64 with
+  ReLU, the model's calls. The TPU kernel's paired/offset column layouts
+  exist only to fill the MXU; the contract kept is the output of
+  ``lightglue_tpu/models/superpoint.py:_relu_conv``: fp32 accumulation,
+  fp32 bias, ReLU, the optional pool, then the cast to the activation dtype.
+- ``conv3x3`` (wrapper :182, pallas_call :222): the same function for any
+  C_in and C_out that are multiples of 8, ReLU optional, any output dtype;
+  ``supports`` is its gate (:258-268). Neither package routes SuperPoint
+  through it (its C >= 128 convs are plain ``F.conv2d`` here, XLA there); it
+  is a tested variant.
 
 On a CUDA tensor ``conv3x3`` launches ``csrc/conv3x3.cu`` (see its header for
-the design and what bounds it); on a CPU tensor it runs ``conv3x3_plain``.
+the design and what bounds it): its fixed 64 -> 64 instantiation for the
+model's calls, its generic one for every other shape. On a CPU tensor it
+runs ``conv3x3_plain``.
 """
 
 from __future__ import annotations
@@ -18,56 +28,81 @@ import torch.nn.functional as F
 
 from lightglue_tpu_torch.kernels import _build
 
-CHANNELS = 64
+
+def _pick_rows(h: int) -> int:
+    """The JAX kernel's strip height (conv.py:162-175), for ``supports``."""
+    for rows in (32, 16, 8, 4, 2):
+        if h % rows == 0:
+            return rows
+    return h
 
 
-def conv3x3_plain(
-    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, pool: bool
-) -> torch.Tensor:
-    """Plain PyTorch version: (B, H, W, 64) x HWIO (3, 3, 64, 64) + fp32 bias.
+def supports(h: int, w: int, cin: int, cout: int, act_dtype) -> bool:
+    """The JAX ``conv3x3`` gate (conv.py:258-268), kept as the port's
+    contract: W, C_in and C_out multiples of 8, H even, and the TPU kernel's
+    two input strips under 40 MB."""
+    if w % 8 or cin % 8 or cout % 8:
+        return False
+    if h < 2 or h % 2:
+        return False
+    itemsize = torch.empty((), dtype=act_dtype).element_size()
+    strip = 2 * (_pick_rows(h) + 2) * (w + 2) * max(cin, 128) * itemsize
+    return strip < 40 * 1024 * 1024
+
+
+def conv3x3_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, pool: bool = False, *,
+                  relu: bool = True, out_dtype=None) -> torch.Tensor:
+    """Plain PyTorch version: (B, H, W, C_in) x HWIO (3, 3, C_in, C_out), the
+    weights cast to x's dtype, + fp32 bias.
 
     The product runs on fp32 copies of the operands, so on a card it needs
     TF32 off to be exact (``precision.precision_scope`` does that)."""
     xf = x.float().permute(0, 3, 1, 2)
-    wf = w.float().permute(3, 2, 0, 1)  # HWIO -> OIHW
-    out = F.relu(F.conv2d(xf, wf, padding=1) + b.float()[None, :, None, None])
+    wf = w.to(x.dtype).float().permute(3, 2, 0, 1)  # HWIO -> OIHW
+    out = F.conv2d(xf, wf, padding=1) + b.float()[None, :, None, None]
+    if relu:
+        out = F.relu(out)
     if pool:
         out = F.max_pool2d(out, 2)
-    return out.permute(0, 2, 3, 1).to(x.dtype).contiguous()
+    return out.permute(0, 2, 3, 1).to(out_dtype or x.dtype).contiguous()
 
 
-def conv3x3(
-    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, pool: bool = False
-) -> torch.Tensor:
-    """SAME 3x3 conv + bias + ReLU [+ 2x2 max-pool] on NHWC activations.
+def conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, pool: bool = False, *,
+            relu: bool = True, out_dtype=None) -> torch.Tensor:
+    """SAME 3x3 conv + bias [+ ReLU] [+ 2x2 max-pool] on NHWC activations.
 
     Args:
-      x: (B, H, W, 64) fp32 or bf16, contiguous; H and W even when ``pool``.
-      w: (3, 3, 64, 64) HWIO in x's dtype.
-      b: (64,) fp32.
-    Returns (B, H, W, 64), or (B, H/2, W/2, 64) with ``pool``, in x's dtype.
+      x: (B, H, W, C_in) fp32 or bf16, contiguous; H and W even when ``pool``.
+      w: (3, 3, C_in, C_out) HWIO in x's dtype; C_in, C_out multiples of 8.
+      b: (C_out,), applied in fp32.
+      out_dtype: fp32 or bf16 (default x's dtype).
+    Returns (B, H, W, C_out), or (B, H/2, W/2, C_out) with ``pool``.
     """
     if x.device.type == "cpu":
-        return conv3x3_plain(x, w, b, pool)
-    bsz, h, wd, c = x.shape
-    if c != CHANNELS or tuple(w.shape) != (3, 3, CHANNELS, CHANNELS):
-        raise ValueError(f"conv3x3 takes 64 -> 64 channels, got {x.shape} {w.shape}")
-    if x.dtype not in (torch.float32, torch.bfloat16) or w.dtype != x.dtype:
-        raise ValueError(f"conv3x3 dtypes: x {x.dtype}, w {w.dtype}")
-    if b.dtype != torch.float32 or b.shape != (CHANNELS,):
-        raise ValueError("conv3x3 bias must be (64,) fp32")
+        return conv3x3_plain(x, w, b, pool, relu=relu, out_dtype=out_dtype)
+    bsz, h, wd, cin = x.shape
+    cout = w.shape[-1]
+    out_dtype = out_dtype or x.dtype
+    if cin % 8 or cout % 8 or tuple(w.shape) != (3, 3, cin, cout):
+        raise ValueError(f"conv3x3 takes C_in and C_out multiples of 8, got {x.shape} {w.shape}")
+    for t in (x.dtype, out_dtype):
+        if t not in (torch.float32, torch.bfloat16) or w.dtype != x.dtype:
+            raise ValueError(f"conv3x3 dtypes: x {x.dtype}, w {w.dtype}, out {out_dtype}")
+    if b.shape != (cout,):
+        raise ValueError(f"conv3x3 bias must be ({cout},), got {tuple(b.shape)}")
     if pool and (h % 2 or wd % 2):
         raise ValueError(f"pooled conv3x3 needs even H and W, got {h}x{wd}")
+    b = b.float()
     if not (x.is_contiguous() and w.is_contiguous() and b.is_contiguous()):
         raise ValueError("conv3x3 operands must be contiguous")
     if not (x.device == w.device == b.device):
         raise ValueError("conv3x3 operands must share a device")
     oh, ow = (h // 2, wd // 2) if pool else (h, wd)
-    y = torch.empty((bsz, oh, ow, CHANNELS), dtype=x.dtype, device=x.device)
+    y = torch.empty((bsz, oh, ow, cout), dtype=out_dtype, device=x.device)
     err = _build.lib().lg_conv3x3(
-        x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-        bsz, h, wd, int(pool), int(x.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), bsz, h, wd, cin, cout,
+        int(pool), int(relu), int(x.dtype == torch.bfloat16),
+        int(out_dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "conv3x3")
     conv3x3.launches += 1

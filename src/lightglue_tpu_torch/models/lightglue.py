@@ -17,6 +17,10 @@ bucket, a pad-to-64 ladder) they take the per-block route: ``self_block``,
 LayerNorm and GELU in plain torch and attention on
 ``kernels.attention.fused_mha`` and ``bidirectional_cross_attention``.
 Tensor parallelism is not ported (``tp_axis`` is always None here).
+
+``forward_ring`` (:590-695) is the sequence-split forward: every attention
+through ``parallel/ring.py:ring_attention`` on the
+``kernels.attention.flash_attention_step`` kernel.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import torch.nn.functional as F
 
 from lightglue_tpu_torch.config import LightGlueConfig
 from lightglue_tpu_torch.kernels import attention, layer_stack
+from lightglue_tpu_torch.parallel import ring
 from lightglue_tpu_torch.precision import DTypePolicy, precision_scope
 
 _NEG_INF = -1e30
@@ -143,6 +148,8 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
 # RoPE under the JAX module's names (:131-149): the model applies it inside
 # fused_mha, whose plain version shares it with the layer stack's
 rotate_half, apply_rotary = layer_stack.rotate_half, layer_stack.apply_rotary
+# the head split and merge of (B, N, H*D) <-> (B, H, N, D) (:152-160)
+_split_heads, _merge_heads = attention._heads, attention._merge
 
 
 def _attend(q, k, v, lengths, policy: DTypePolicy, num_heads: int, freqs=None,
@@ -293,10 +300,78 @@ def forward(
             d0, d1 = transformer_layers(params["layers"], d0, d1, freqs0, freqs1,
                                         lengths0, lengths1, num_heads=config.num_heads,
                                         policy=policy)
-        mask0, mask1 = _masks_from_lengths(lengths0, lengths1, kpts0.shape[1], kpts1.shape[1])
-        last_assign = {k: {kk: vv[-1] for kk, vv in v.items()}
-                       for k, v in params["assign"].items()}
-        scores = match_assignment(last_assign, d0, d1, mask0, mask1, config.descriptor_dim)
+        scores = _last_assignment(params, d0, d1, lengths0, lengths1, kpts0.shape[1],
+                                  kpts1.shape[1], config.descriptor_dim)
+    return LightGlueOutput(d0, d1, scores, torch.tensor(config.n_layers))
+
+
+def _last_assignment(params, d0, d1, lengths0, lengths1, m: int, n: int, dim: int):
+    mask0, mask1 = _masks_from_lengths(lengths0, lengths1, m, n)
+    last_assign = {k: {kk: vv[-1] for kk, vv in v.items()} for k, v in params["assign"].items()}
+    return match_assignment(last_assign, d0, d1, mask0, mask1, dim)
+
+
+def forward_ring(
+    params,
+    kpts0: torch.Tensor,
+    kpts1: torch.Tensor,
+    desc0: torch.Tensor,
+    desc1: torch.Tensor,
+    lengths0: Optional[torch.Tensor] = None,
+    lengths1: Optional[torch.Tensor] = None,
+    *,
+    config: LightGlueConfig,
+    policy: DTypePolicy,
+    devices,
+    step=attention.flash_attention_step,
+) -> LightGlueOutput:
+    """Sequence-split fixed-depth forward (JAX :590-695): every self and
+    cross attention rides ``parallel/ring.py:ring_attention`` over
+    ``devices``, at fp32 stats (the JAX function passes no stat dtype).
+
+    Semantically ``forward``: self-attention per image, RoPE applied to the
+    heads before the ring in ``policy.attn_in_dtype``, the cross directions
+    (qk0, qk1, v1) and (qk1, qk0, v0), the last layer's assignment. The
+    projections, LayerNorm, GELU and the assignment run on the whole tensors
+    on ``devices[0]`` (the params must be there); only attention is split.
+    ``step=attention.flash_attention_step_plain`` runs the same loop on the
+    plain step.
+    """
+    if "w_q" in params["layers"]["self_attn"]["qkv"]:
+        raise NotImplementedError("int8 / W8A8 layer weights are queued for a later slice")
+    home = torch.device(devices[0])
+    kpts0, kpts1, desc0, desc1 = (t.to(home) for t in (kpts0, kpts1, desc0, desc1))
+    if lengths0 is not None:
+        lengths0, lengths1 = lengths0.to(home), lengths1.to(home)
+    num_heads, dt = config.num_heads, policy.attn_in_dtype
+
+    def attend(q, k, v, freqs, lq, lkv):
+        qh, kh, vh = (_split_heads(t.to(dt), num_heads) for t in (q, k, v))
+        if freqs is not None:
+            qh, kh = apply_rotary(freqs, qh), apply_rotary(freqs, kh)
+        lens = None if lq is None else torch.stack([lq, lkv], dim=-1).to(torch.int32)
+        out = ring.ring_attention(qh, kh, vh, lens, devices=devices, step=step)
+        return _merge_heads(out).to(q.dtype)
+
+    with precision_scope(policy):
+        d0, d1, freqs0, freqs1 = _embed(params, kpts0, kpts1, desc0, desc1, config, policy)
+        layers = params["layers"]
+        e = d0.shape[-1]
+        for i in range(layers["self_attn"]["ln_g"].shape[0]):
+            sp, cp = _layer(layers["self_attn"], i), _layer(layers["cross_attn"], i)
+            new = []
+            for x, freqs, lens in ((d0, freqs0, lengths0), (d1, freqs1, lengths1)):
+                qkv = _linear(sp["qkv"], x)
+                ctx = attend(qkv[..., :e], qkv[..., e:2 * e], qkv[..., 2 * e:], freqs, lens, lens)
+                new.append(_ffn(sp, x, _linear(sp["out"], ctx)))
+            d0, d1 = new
+            a0, a1 = _linear(cp["qk_v"], d0), _linear(cp["qk_v"], d1)
+            m0 = attend(a0[..., :e], a1[..., :e], a1[..., e:], None, lengths0, lengths1)
+            m1 = attend(a1[..., :e], a0[..., :e], a0[..., e:], None, lengths1, lengths0)
+            d0 = _ffn(cp, d0, _linear(cp["out"], m0))
+            d1 = _ffn(cp, d1, _linear(cp["out"], m1))
+        scores = _last_assignment(params, d0, d1, lengths0, lengths1, kpts0.shape[1],
+                                  kpts1.shape[1], config.descriptor_dim)
     return LightGlueOutput(d0, d1, scores, torch.tensor(config.n_layers))
 
 
