@@ -5,9 +5,10 @@ Run from the root of a checkout on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-It prints the card's name and power limit and builds the CUDA kernels of
+It prints the card's name and power limit, builds the CUDA kernels of
 ``src/lightglue_tpu_torch/csrc`` (one nvcc per source, sm_90a, in
-parallel). Then, in order; every kernel check is in bf16 and fp32 against
+parallel) and checks in their SASS that the bf16 flash kernels run on the
+tensor cores. Then, in order; every kernel check is in bf16 and fp32 against
 the kernel's plain PyTorch version at the shapes its path gives it, every
 path is driven with the launch counts set to 0 just before it and read just
 after, and every kernel the JSON line lists is timed beside its bound, its
@@ -26,7 +27,9 @@ plain version and, where one exists, a PyTorch call for the same function:
    weights, the pruning weights through the downshift at layer 4), and
    ``match_pair`` in those three weight setups.
 3. The per-block path: ``fused_mha``, ``bidirectional_cross_attention`` and
-   ``flash_attention`` (masked, ragged, zero lengths, several KV tiles), the
+   ``flash_attention`` (masked, ragged, zero lengths, several KV tiles,
+   block_k 1000; each bf16-operand flash case also against the rounding
+   witness, ``rounding_witness``), the
    per-block ``transformer_layers`` at 9 layers, and ``match_pair`` in the
    2048-keypoint config (``SuperPointConfig(max_num_keypoints=2048)``, a
    2048 bucket) and the pad-to-64 config (``buckets=range(64, 1025, 64)``,
@@ -34,8 +37,9 @@ plain version and, where one exists, a PyTorch call for the same function:
    ``match_batch``.
 4. The sequence split: ``flash_attention_step`` (kv boundary inside the
    block, a block past kv_len and a stripe past q_len passing through
-   exactly, 128-row stripes, kv_len 0, blocks fitted to 384-row stripes,
-   unmasked; fp32 and bf16 stats), ``ring_attention`` on ``[cuda:0] * P``
+   exactly, 128-row and 120-row stripes, kv_len 0, blocks fitted to
+   384-row stripes, unmasked; fp32 and bf16 stats; the witness on the
+   finalised rows), ``ring_attention`` on ``[cuda:0] * P``
    for P = 2, 4, 8 against ``reference_attention`` and the plain step, and
    ``forward_ring`` on ``[cuda:0] * 4`` at full width (9 layers, E=256,
    H=4, stripes of 512) on the 2048-keypoint extractions of the pair, then
@@ -166,6 +170,54 @@ def compare(label, got, want, atol, rtol, exact=False):
         )
     log(f"  {label}: max_abs_err {max_err:.3e} (atol {atol}, rtol {rtol})")
     return max_err
+
+
+def tensor_core_check(build):
+    """The bf16 instantiations of csrc/flash_attn.cu compute Q.K^T and P.V
+    on the tensor cores (HMMA in the SASS of each), the fp32 one on the FMA
+    units (no HMMA): ``cuobjdump -sass`` of the built library."""
+    from lightglue_tpu_torch.kernels import _build
+
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(build)], check=True, capture_output=True,
+                          text=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = 0
+        elif name and "HMMA" in line:
+            counts[name] += 1
+    mma = [n for k, n in counts.items() if "flash_mma_kernel" in k]
+    fma = [n for k, n in counts.items() if "flash_kernel" in k]
+    log(f"  flash_attn.cu SASS: HMMA per bf16 kernel {sorted(mma)}, per fp32 kernel {sorted(fma)}")
+    if not mma or min(mma) == 0 or not fma or max(fma) != 0:
+        raise AssertionError("flash_attn.cu: a bf16 kernel without HMMA or an fp32 one with it")
+
+
+def rounding_witness(label, got, want, plain_at, block, n):
+    """The rounding-contract witness of the flash kernels: ``want`` is the
+    plain version at the kernel's block_k and ``plain_at(block_k / 8)`` the
+    plain version at a block_k 8x smaller, on the same inputs, where that
+    divides the n keys (else the witness is skipped, and says so). Rounding
+    m, l and acc at other
+    points (per staged chunk instead of per tile) makes a kernel differ from
+    ``want`` as ``fine`` does, in a large share of elements, where a
+    different fp32 sum order flips a rounding only here and there. Fails
+    unless the kernel's share of differing elements is at most a quarter of
+    the two plain versions' share."""
+    fine_k = min(block, n) // 8
+    if not fine_k or n % fine_k:
+        log(f"  {label}: rounding witness skipped, block_k / 8 does not divide {n} keys")
+        return
+    fine = plain_at(fine_k)
+    k_share = float((got != want).float().mean())
+    p_share = float((want != fine).float().mean())
+    log(f"  {label}: rounding witness: kernel vs plain differ in {k_share:.5f} of elements, "
+        f"plain at block_k vs block_k / 8 in {p_share:.5f} (kernel at most a quarter)")
+    if k_share > p_share / 4:
+        raise AssertionError(f"{label}: kernel differs from its plain version in {k_share:.5f} "
+                             f"of elements, over a quarter of {p_share:.5f}")
 
 
 class Entry:
@@ -659,19 +711,26 @@ def attention_kernel_checks(at, rand, freqs_for, dev, dtypes, fp32_scope, fused_
     log(f"fused_mha (per 2048-keypoint match_pair: 1 self + 2 cross launches per layer "
         f"x {N_LAYERS} layers)")
     fused_cases = [
-        # label, B, Nq, Nk, rope, lengths, block_k, per-pair launches
-        ("self rope 2x2048", 2, PB_BUCKET, PB_BUCKET, True, None, 1024, N_LAYERS),
-        ("cross 2048x2048", 1, PB_BUCKET, PB_BUCKET, False, None, 1024, 2 * N_LAYERS),
+        # label, B, Nq, Nk, rope, lengths, block_k, per-pair launches, stats
+        # (None: the operands' dtype; fp32: bf16 operands with fp32 stats only)
+        ("self rope 2x2048", 2, PB_BUCKET, PB_BUCKET, True, None, 1024, N_LAYERS, None),
+        ("cross 2048x2048", 1, PB_BUCKET, PB_BUCKET, False, None, 1024, 2 * N_LAYERS, None),
         ("self rope 2x2048 ragged, kv_len 0", 2, PB_BUCKET, PB_BUCKET, True,
-         [[2000, 1500], [700, 0]], 1024, 0),
-        ("cross 2048x1024 masked", 1, PB_BUCKET, 1024, False, [[2000, 1000]], 1024, 0),
-        ("cross 1024x2048 masked", 1, 1024, PB_BUCKET, False, [[1000, 2000]], 1024, 0),
+         [[2000, 1500], [700, 0]], 1024, 0, None),
+        ("self rope 2x2048 ragged, kv_len 0, fp32 stats", 2, PB_BUCKET, PB_BUCKET, True,
+         [[2000, 1500], [700, 0]], 1024, 0, "fp32"),
+        ("cross 2048x1024 masked", 1, PB_BUCKET, 1024, False, [[2000, 1000]], 1024, 0, None),
+        ("cross 1024x2048 masked", 1, 1024, PB_BUCKET, False, [[1000, 2000]], 1024, 0, None),
         ("self rope 2x1024 block_k 64, q_len 0", 2, 1024, 1024, True, [[1000, 900], [0, 1024]],
-         64, 0),
-        ("self rope 2x960 (pad-to-64)", 2, PAD64, PAD64, True, None, 1024, 0),
+         64, 0, None),
+        ("self rope 2x1000 block_k 1000", 2, 1000, 1000, True, None, 1000, 0, None),
+        ("self rope 2x960 (pad-to-64)", 2, PAD64, PAD64, True, None, 1024, 0, None),
     ]
-    for label, b, nq, nk, rope, lens, block, weight in fused_cases:
+    for label, b, nq, nk, rope, lens, block, weight, stats in fused_cases:
         for tag, dt in dtypes.items():
+            if stats and tag != "bf16":
+                continue
+            sdt = torch.float32 if stats == "fp32" else dt
             if rope:  # q, k, v as column slices of one qkv projection
                 qkv = rand(b, nq, 3 * e, dtype=dt)
                 q, k, v = qkv[..., :e], qkv[..., e:2 * e], qkv[..., 2 * e:]
@@ -682,17 +741,20 @@ def attention_kernel_checks(at, rand, freqs_for, dev, dtypes, fp32_scope, fused_
                 k, v = kv[..., :e], kv[..., e:]
                 f = None
             ln = None if lens is None else torch.tensor(lens, **i32)
-            kw = dict(num_heads=heads, stat_dtype=dt, block_q=block, block_k=block)
+            kw = dict(num_heads=heads, stat_dtype=sdt, block_q=block, block_k=block)
             with fp32_scope():
                 got = at.fused_mha(q, k, v, f, ln, **kw)
                 want = at.fused_mha_plain(q, k, v, f, ln, **kw)
                 err = compare(f"{label} {tag}", got, want, **TOL[tag])
+                if tag == "bf16":
+                    rounding_witness(f"{label} {tag}", got, want, lambda bk: at.fused_mha_plain(
+                        q, k, v, f, ln, **dict(kw, block_k=bk)), block, nk)
             if lens is not None:
                 zero_rows(f"{label} {tag}", got, lens, True)
             if tag != "bf16":
                 continue
             fused_e.err(err)
-            if not weight and "pad-to-64" not in label:
+            if stats or (not weight and "pad-to-64" not in label):
                 continue
             ms = cuda_ms(lambda: at.fused_mha(q, k, v, f, ln, **kw))
             plain = cuda_ms(lambda: at.fused_mha_plain(q, k, v, f, ln, **kw))
@@ -765,6 +827,11 @@ def attention_kernel_checks(at, rand, freqs_for, dev, dtypes, fp32_scope, fused_
                 got = at.flash_attention(q, k, v, ln, **kw)
                 want = at.flash_attention_plain(q, k, v, ln, **kw)
                 err = compare(f"{label} {tag}", got, want, **TOL[tag])
+                if tag == "bf16":
+                    rounding_witness(
+                        f"{label} {tag}", got, want,
+                        lambda bk: at.flash_attention_plain(q, k, v, ln, **dict(kw, block_k=bk)),
+                        block, nk)
             if lens is not None:
                 zero_rows(f"{label} {tag}", got.transpose(1, 2), lens, True)
             if tag != "bf16":
@@ -932,7 +999,8 @@ def step_kernel_checks(at, rand, dev, fp32_scope, step_e):
     boundary inside the block, a block wholly past kv_len and a stripe past
     q_len (pass-through, exact), stripes of 128 rows of which some start
     past q_len, kv_len 0 from the first step's carries, 384-row blocks
-    fitted to 192 (two tiles), and unmasked; all three carries, in bf16 and
+    fitted to 192 (two tiles), 120-row stripes (a 960 bucket at ring 8, a
+    tile that is not a multiple of 16), and unmasked; all three carries, in bf16 and
     fp32 operands with fp32 and bf16 stats. The main path's call (bf16
     operands, fp32 stats, full lengths) is timed."""
     import torch
@@ -951,8 +1019,15 @@ def step_kernel_checks(at, rand, dev, fp32_scope, step_e):
         ("128-row stripes, some past q_len", n, [[700, RING_N]], n, 2 * n, 128, False, False),
         ("kv_len 0, first step", n, [[RING_N, 0]], 0, 0, 1024, True, True),
         ("n=nk=384, blocks fitted to 192", 384, [[1000, 900]], 384, 768, 256, False, False),
+        ("120-row stripes (960 keypoints at P = 8)", 120, [[960, 900]], 360, 840, 1024, False,
+         False),
         ("unmasked", n, None, 0, n, 1024, False, False),
     ]
+
+    def finalised(carries):  # acc / l in bf16, as the ring finalises a row
+        _, l, acc = carries
+        return (acc / torch.where(l == 0.0, 1.0, l)).to(torch.bfloat16)
+
     operands = {"bf16": torch.bfloat16, "fp32": torch.float32}
     for label, size, lens, row0, col0, block, fresh, exact in cases:
         for otag, odt in operands.items():
@@ -974,6 +1049,11 @@ def step_kernel_checks(at, rand, dev, fp32_scope, step_e):
                     want = at.flash_attention_step_plain(*args, **kw)
                     errs = [compare(f"{label} {otag} operands {stag} stats {c}", g, w, **TOL[tag])
                             for c, g, w in zip(("m", "l", "acc"), got, want)]
+                    if otag == "bf16":  # the witness on the finalised rows
+                        rounding_witness(
+                            f"{label} {otag} operands {stag} stats, acc / l", finalised(got),
+                            finalised(want), lambda bk: finalised(at.flash_attention_step_plain(
+                                *args, **dict(kw, block_k=bk))), at._fit_block(size, block), size)
                 if exact:
                     for c, g, w in zip(("m", "l", "acc"), got, (m, l, acc)):
                         compare(f"{label} {otag}/{stag} {c} passes through", g, w, 0, 0,
@@ -1292,6 +1372,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.lib()
     log(f"build (nvcc, sm_90a, all sources in parallel): {time.perf_counter() - t0:.1f} s")
+    tensor_core_check(_build.build())
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)

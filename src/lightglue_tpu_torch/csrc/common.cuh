@@ -57,22 +57,28 @@ __device__ __forceinline__ float warp_sum(float v) {
 // r < nrows: x * cos + rotate_half(x) * sin with the freqs cast to T and each
 // product and the sum rounded to T (layer_stack.py:377-384,
 // attention.py:575-582). freqs: [cos; sin], n rows of D each.
+// rope_pair rotates the pair (x[d], x[d + D/2]) of one row at position pos.
+template <typename T, int D>
+__device__ __forceinline__ void rope_pair(float& x1, float& x2, int d, int pos,
+                                          const float* freqs, int n) {
+  const float* cosv = freqs + (size_t)pos * D;
+  const float* sinv = cosv + (size_t)n * D;
+  const float c1 = round_to<T>(cosv[d]);
+  const float s1 = round_to<T>(sinv[d]);
+  const float c2 = round_to<T>(cosv[d + D / 2]);
+  const float s2 = round_to<T>(sinv[d + D / 2]);
+  const float y1 = round_to<T>(round_to<T>(x1 * c1) + round_to<T>(-x2 * s1));
+  x2 = round_to<T>(round_to<T>(x2 * c2) + round_to<T>(x1 * s2));
+  x1 = y1;
+}
+
 template <typename T, int D>
 __device__ void rope_rows(float* rows, int stride, int nrows, int pos0,
                           const float* freqs, int n) {
-  const float* cosv = freqs;
-  const float* sinv = freqs + (size_t)n * D;
   for (int i = threadIdx.x; i < nrows * (D / 2); i += blockDim.x) {
     const int r = i / (D / 2), d = i % (D / 2);
-    const size_t f = (size_t)(pos0 + r) * D;
     float* x = rows + r * stride;
-    const float x1 = x[d], x2 = x[d + D / 2];
-    const float c1 = round_to<T>(cosv[f + d]);
-    const float s1 = round_to<T>(sinv[f + d]);
-    const float c2 = round_to<T>(cosv[f + d + D / 2]);
-    const float s2 = round_to<T>(sinv[f + d + D / 2]);
-    x[d] = round_to<T>(round_to<T>(x1 * c1) + round_to<T>(-x2 * s1));
-    x[d + D / 2] = round_to<T>(round_to<T>(x2 * c2) + round_to<T>(x1 * s2));
+    rope_pair<T, D>(x[d], x[d + D / 2], d, pos0 + r, freqs, n);
   }
 }
 

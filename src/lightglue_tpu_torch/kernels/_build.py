@@ -49,16 +49,16 @@ _SIGNATURES = {
         _I, _I, _F, _I, _P,
     ],
     "lg_fused_mha": [
-        _P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _P, _P, _I, _I, _I, _I, _F, _I,
-        _I, _I, _P,
+        _P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
+        _I, _I, _I, _I, _P,
     ],
     "lg_flash_attention": [
         _P, _L, _L, _L, _P, _L, _L, _L, _P, _L, _L, _L, _P, _P, _I, _I, _I, _I,
-        _F, _I, _I, _I, _P,
+        _F, _I, _I, _I, _I, _I, _P,
     ],
     "lg_flash_attention_step": [
         _P, _L, _L, _L, _P, _L, _L, _L, _P, _L, _L, _L, _P, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P,
+        _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I, _P,
     ],
     "lg_bidirectional_cross": [
         _P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _P, _P, _I, _I, _I,

@@ -6,7 +6,9 @@ Counterpart of ``lightglue_tpu/kernels/attention.py``:
   pallas_call :264): the online softmax over ``block_k`` KV tiles, in the
   (B, N, H*D) activation layout with optional half-split RoPE and in the
   (B, H, N, D) layout without. Both run ``csrc/flash_attn.cu``, one
-  templated kernel addressed by strides.
+  kernel template addressed by strides: bf16 operands on the tensor cores
+  at the launch plan of ``flash_plan`` (with RoPE, q and k rotated once
+  into a scratch first), fp32 operands on the FMA units.
 - ``flash_attention_step`` (:422, pallas_call :507): the same tile loop
   from running (m, l, acc) carries over one KV block at global offsets,
   carries out, the local step of ring attention; the STEP instantiation of
@@ -42,8 +44,71 @@ from lightglue_tpu_torch.kernels.layer_stack import (_check_same, _is_bf16, _qua
 DEFAULT_BLOCK_Q = 1024
 DEFAULT_BLOCK_K = 1024
 HEAD_DIM = 64  # the kernels' head width
-_BQ, _KC = 16, 64  # q rows per block and keys per staged chunk (csrc)
 _NEG_INF = -1e30
+# csrc/flash_attn.cu: keys per staged chunk; the bf16 kernel's warps per
+# block and bf16 row pitch in shared memory; the fp32 kernel's rows per block
+_KC, _WARPS, _LD, _FMA_ROWS = 64, 4, HEAD_DIM + 8, 16
+_SMS = 132            # streaming multiprocessors of the H100
+_FILL_BLOCKS = 256    # blocks a launch plan aims for: about two per SM
+_STREAM_STAGES = 2    # chunk buffers of a streamed tile (csrc: one copy in flight)
+
+
+class FlashPlan(NamedTuple):
+    """Launch of the bf16 ``flash_attn.cu`` kernel for one shape."""
+
+    row_groups: int  # 16-row groups per block: 4, 2 or 1
+    col_split: int   # warps of a row group that split each chunk's keys
+    stages: int      # K and V chunk buffers: the tile's chunks (resident) or 2 (streamed)
+    blocks: int      # blocks of the launch
+    smem: int        # dynamic shared memory per block, bytes
+
+
+def _mma_smem(row_groups: int, stages: int) -> int:
+    """Q, ``stages`` K and V chunks, and (columns split) the warps' partial
+    row max, sum p and P.V (csrc/flash_attn.cu:mma_smem)."""
+    smem = 2 * (16 * row_groups + 2 * _KC * stages) * _LD
+    if row_groups < _WARPS:
+        smem += 4 * _WARPS * 16 * (2 + _LD)
+    return smem
+
+
+def flash_plan(batch: int, heads: int, nq: int, block_k: int) -> FlashPlan:
+    """The bf16 kernel's launch for one shape.
+
+    Rows: the most 16-row groups per block (4, 2, 1) that still give
+    ``_FILL_BLOCKS`` blocks, else 1; the block's four warps split each
+    64-key chunk's columns ``4 / row_groups`` ways. Large blocks read K and
+    V fewer times through L2; short stripes (the ring step's 512 rows) need
+    small ones to fill the card. Buffers: where the launch is one wave (a
+    block per SM) and the whole ``block_k`` tile fits, it stays resident
+    (K and V copied once, read by both passes); else chunks stream through
+    ``_STREAM_STAGES`` buffers."""
+    for groups in (4, 2, 1):
+        blocks = batch * heads * -(-nq // (16 * groups))
+        if blocks >= _FILL_BLOCKS:
+            break
+    chunks = -(-block_k // _KC)
+    stages = min(chunks, _STREAM_STAGES)
+    if blocks <= _SMS and _mma_smem(groups, chunks) <= _build.MAX_DYNAMIC_SMEM:
+        stages = chunks
+    return FlashPlan(groups, _WARPS // groups, stages, blocks, _mma_smem(groups, stages))
+
+
+def _flash_launch(name: str, dtype, batch: int, heads: int, nq: int, block_k: int):
+    """(row_groups, stages) to pass to ``flash_attn.cu``; raises where the
+    block would not fit in shared memory (the fp32 kernel keeps a
+    16 x block_k slab of S)."""
+    if dtype == torch.bfloat16:
+        plan = flash_plan(batch, heads, nq, block_k)
+        smem, what = plan.smem, f"a {plan.row_groups * 16}-row block"
+        args = (plan.row_groups, plan.stages)
+    else:
+        smem = 4 * (_FMA_ROWS * HEAD_DIM + _KC * (HEAD_DIM + 1) + _FMA_ROWS * block_k
+                    + 3 * _FMA_ROWS)
+        what, args = f"a {block_k}-column S slab", (1, 1)
+    if smem > _build.MAX_DYNAMIC_SMEM:
+        raise ValueError(f"{name}: {what} exceeds shared memory")
+    return args
 
 
 def _blocks(nq: int, nk: int, block_q: int, block_k: int):
@@ -136,10 +201,12 @@ def _card_checks(name, dtype, out_dtype, stat_dtype, head_dim, tensors):
         raise NotImplementedError(f"{name}: head dim {head_dim}, the kernel takes {HEAD_DIM}")
 
 
-def _smem_check(name: str, cols: int) -> None:
-    smem = 4 * (_BQ * HEAD_DIM + _KC * (HEAD_DIM + 1) + _BQ * cols + 3 * _BQ)
+def _bidir_smem_check(n: int) -> None:
+    """csrc/bidir_cross.cu keeps a 16 x N slab of S in shared memory."""
+    smem = 4 * (16 * HEAD_DIM + 64 * (HEAD_DIM + 1) + 16 * n + 16)
     if smem > _build.MAX_DYNAMIC_SMEM:
-        raise ValueError(f"{name}: a {cols}-column S slab exceeds shared memory")
+        raise ValueError(f"bidirectional_cross_attention: a {n}-column S slab exceeds "
+                         "shared memory")
 
 
 def _lengths_arg(lengths, bsz: int, dev):
@@ -208,22 +275,25 @@ def fused_mha(q, k, v, freqs=None, lengths=None, *, num_heads: int,
     batch, nq, nk, head_dim, block_k = _fused_mha_shapes(q, k, v, freqs, num_heads,
                                                          block_q, block_k)
     _card_checks("fused_mha", q.dtype, out_dtype, stat_dtype, head_dim, (q, k, v))
-    _smem_check("fused_mha", block_k)
+    plan = _flash_launch("fused_mha", q.dtype, batch, num_heads, nq, block_k)
     if freqs is not None:
         if freqs.shape != (batch, 2, nk, HEAD_DIM):
             raise ValueError(f"fused_mha: freqs {tuple(freqs.shape)}")
         freqs = freqs.float().contiguous()
     lengths = _lengths_arg(lengths, batch, q.device)
     out = torch.empty((batch, nq, q.shape[2]), dtype=q.dtype, device=q.device)
+    rot = None  # bf16 with RoPE: the kernel rotates q and k once into this scratch
+    if freqs is not None and q.dtype == torch.bfloat16:
+        rot = torch.empty((2, batch, nq, q.shape[2]), dtype=q.dtype, device=q.device)
     err = _build.lib().lg_fused_mha(
         q.data_ptr(), q.stride(0), q.stride(1),
         k.data_ptr(), k.stride(0), k.stride(1),
         v.data_ptr(), v.stride(0), v.stride(1),
         None if freqs is None else freqs.data_ptr(),
         None if lengths is None else lengths.data_ptr(),
-        out.data_ptr(), batch, nq, nk, num_heads,
+        out.data_ptr(), None if rot is None else rot.data_ptr(), batch, nq, nk, num_heads,
         1.0 / math.sqrt(head_dim) if scale is None else float(scale), block_k,
-        int(stat_dtype == torch.bfloat16), _is_bf16(q), _stream(q),
+        int(stat_dtype == torch.bfloat16), *plan, _is_bf16(q), _stream(q),
     )
     _build.check(err, "fused_mha")
     fused_mha.launches += 1
@@ -279,7 +349,7 @@ def flash_attention(q, k, v, lengths=None, *, scale: Optional[float] = None,
                                      out_dtype=out_dtype, block_q=block_q, block_k=block_k)
     batch, heads, nq, nk, head_dim, block_k = _flash_shapes(q, k, v, block_q, block_k)
     _card_checks("flash_attention", q.dtype, out_dtype, stat_dtype, head_dim, (q, k, v))
-    _smem_check("flash_attention", block_k)
+    plan = _flash_launch("flash_attention", q.dtype, batch, heads, nq, block_k)
     lengths = _lengths_arg(lengths, batch, q.device)
     out = torch.empty((batch, heads, nq, head_dim), dtype=q.dtype, device=q.device)
     err = _build.lib().lg_flash_attention(
@@ -289,7 +359,7 @@ def flash_attention(q, k, v, lengths=None, *, scale: Optional[float] = None,
         None if lengths is None else lengths.data_ptr(),
         out.data_ptr(), batch, heads, nq, nk,
         1.0 / math.sqrt(head_dim) if scale is None else float(scale), block_k,
-        int(stat_dtype == torch.bfloat16), _is_bf16(q), _stream(q),
+        int(stat_dtype == torch.bfloat16), *plan, _is_bf16(q), _stream(q),
     )
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
@@ -378,7 +448,7 @@ def flash_attention_step(q, k, v, m, l, acc, lengths=None, row0: Optional[int] =
     batch, heads, n, nk, head_dim, block_q, block_k = _step_shapes(q, k, v, m, l, acc,
                                                                    block_q, block_k)
     _card_checks("flash_attention_step", q.dtype, None, stat_dtype, head_dim, (q, k, v))
-    _smem_check("flash_attention_step", block_k)
+    plan = _flash_launch("flash_attention_step", q.dtype, batch, heads, n, block_k)
     for t in (m, l, acc):
         if t.dtype != torch.float32 or t.device != q.device or not t.is_contiguous():
             raise ValueError("flash_attention_step: carries must be contiguous fp32 on q's device")
@@ -392,7 +462,7 @@ def flash_attention_step(q, k, v, m, l, acc, lengths=None, row0: Optional[int] =
         None if lengths is None else lengths.data_ptr(), batch, heads, n, nk,
         int(row0 or 0), int(col0 or 0),
         1.0 / math.sqrt(head_dim) if scale is None else float(scale), block_q, block_k,
-        int(stat_dtype == torch.bfloat16), _is_bf16(q), _stream(q),
+        int(stat_dtype == torch.bfloat16), *plan, _is_bf16(q), _stream(q),
     )
     _build.check(err, "flash_attention_step")
     flash_attention_step.launches += 1
@@ -477,7 +547,7 @@ def bidirectional_cross_attention(qk0, qk1, v0, v1, lengths=None, *, num_heads: 
     batch, n0, n1, head_dim = _bidir_shapes(qk0, qk1, v0, v1, num_heads)
     _card_checks("bidirectional_cross_attention", qk0.dtype, out_dtype, stat_dtype, head_dim,
                  (qk0, qk1, v0, v1))
-    _smem_check("bidirectional_cross_attention", max(n0, n1))
+    _bidir_smem_check(max(n0, n1))
     lengths = _lengths_arg(lengths, batch, qk0.device)
     o0 = torch.empty(qk0.shape, dtype=qk0.dtype, device=qk0.device)
     o1 = torch.empty(qk1.shape, dtype=qk0.dtype, device=qk0.device)

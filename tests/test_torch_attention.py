@@ -213,3 +213,55 @@ def test_wrappers_reject_malformed_operands_before_launch(call, exc):
     # meta tensors take the kernel branch without a card; the checks run first
     with pytest.raises(exc):
         call()
+
+
+@pytest.mark.parametrize("stats", ["bf16", "fp32"])
+def test_rounding_witness_premise_against_jax(stats):
+    """The premise of chip_smoke.py's rounding witness: the plain version at
+    the reference's block_k differs from JAX (Pallas interpret mode) only
+    where a different fp32 sum order flips a rounding, and at a block_k 8x
+    smaller it differs in a large share of elements (m, l and acc rounded
+    at other points). bf16 operands, (1, 4, 256, 64), block_k 128."""
+    rng = np.random.default_rng(9)
+    (jq, tq), (jk, tk), (jv, tv) = (_both(_rand(rng, 1, 4, 256, 64), "bf16") for _ in range(3))
+    jdt, tdt = DTYPES[stats]
+    want = np.asarray(jax_attn.flash_attention(jq, jk, jv, stat_dtype=jdt, block_q=128,
+                                               block_k=128).astype(jnp.float32))
+
+    def share(block_k):
+        got = attention.flash_attention(tq, tk, tv, stat_dtype=tdt, block_q=128, block_k=block_k)
+        return float(np.mean(got.float().numpy() != want))
+
+    assert share(128) < 0.01
+    assert share(16) > 0.20
+
+
+# (batch, heads, nq, block_k, row groups): every flash_attn.cu shape of the
+# paths and chip_smoke.py; the row groups are the plan's choice (the most
+# that still give 256 blocks, else 1)
+PLAN_SHAPES = {
+    "2048 self, block_k 1024": (2, 4, 2048, 1024, 4),
+    "2048 cross, block_k 1024": (1, 4, 2048, 1024, 2),
+    "960 pad-to-64 self": (2, 4, 960, 960, 1),
+    "960 pad-to-64 cross": (1, 4, 960, 960, 1),
+    "1000 / 1000": (2, 4, 1000, 1000, 2),
+    "ring stripe 512": (1, 4, 512, 512, 1),
+    "ring stripe 384": (1, 4, 384, 384, 1),
+    "ring stripe 120": (1, 4, 120, 120, 1),
+    "block_k 64": (2, 4, 1024, 64, 2),
+}
+
+
+@pytest.mark.parametrize("shape", list(PLAN_SHAPES))
+def test_flash_launch_plan_fits(shape):
+    batch, heads, nq, block_k, groups = PLAN_SHAPES[shape]
+    plan = attention.flash_plan(batch, heads, nq, block_k)
+    assert plan.row_groups == groups and plan.row_groups * plan.col_split == 4
+    assert plan.blocks == batch * heads * -(-nq // (16 * groups))
+    assert plan.smem <= attention._build.MAX_DYNAMIC_SMEM
+    assert 1 <= plan.stages <= -(-block_k // 64)
+    if shape == "ring stripe 512":  # the ring step fills the card, its tile resident
+        assert plan.blocks >= 128 and plan.stages == 8
+    for dtype in (torch.bfloat16, torch.float32):  # neither kernel raises here
+        groups_arg, stages = attention._flash_launch("f", dtype, batch, heads, nq, block_k)
+        assert groups_arg in (1, 2, 4) and stages >= 1
