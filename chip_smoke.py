@@ -7,8 +7,9 @@ Run from the root of a checkout on a machine with a CUDA card:
 
 It prints the card's name and power limit, builds the CUDA kernels of
 ``src/lightglue_tpu_torch/csrc`` (one nvcc per source, sm_90a, in
-parallel) and checks in their SASS that the bf16 flash kernels run on the
-tensor cores. Then, in order; every kernel check is in bf16 and fp32 against
+parallel) and checks in their SASS that the bf16 kernels of flash_attn.cu,
+attention.cu and linear.cu run on the tensor cores and their fp32 ones do
+not. Then, in order; every kernel check is in bf16 and fp32 against
 the kernel's plain PyTorch version at the shapes its path gives it, every
 path is driven with the launch counts set to 0 just before it and read just
 after, and every kernel the JSON line lists is timed beside its bound, its
@@ -16,10 +17,13 @@ plain version and, where one exists, a PyTorch call for the same function:
 
 1. The main path (default config: BF16, 9 layers, seed-0 random weights,
    480x640 pair): ``conv3x3`` (its 64->64 calls), ``nms_candidates``,
-   ``linear``, ``attention`` and ``ln_gelu`` against their plain versions;
-   the layer stack at 9 layers; ``MatcherSession(device="cuda").match_pair``
-   with its launch counts and a profile; a small FP32 pair against the port
-   on the CPU.
+   ``linear``, ``attention`` and ``ln_gelu`` against their plain versions
+   (``linear_plan`` / ``attention_plan`` against the card's launch rules;
+   each bf16 ``attention`` case also against the rounding witness and its
+   two wrong designs, ``stack_wrong_designs``); the layer stack at 9
+   layers; ``MatcherSession(device="cuda").match_pair`` with its launch
+   counts (144 / 36 / 36 for linear / attention / ln_gelu) and a profile; a
+   small FP32 pair against the port on the CPU.
 2. The adaptive path (``depth_confidence=0.95, width_confidence=0.99``):
    ``adaptive_decide`` (masked, unmasked, width with a partly retired keep
    state, pinned and random heads), the keep-masked and liveness operands,
@@ -172,10 +176,19 @@ def compare(label, got, want, atol, rtol, exact=False):
     return max_err
 
 
+# source: (its bf16 kernel, on the tensor cores; its fp32 kernel, on the FMA units)
+TENSOR_CORE_KERNELS = {
+    "flash_attn.cu": ("flash_mma_kernel", "flash_kernel"),
+    "attention.cu": ("attention_mma_kernel", "attention_kernel"),
+    "linear.cu": ("linear_mma_kernel", "linear_kernel"),
+}
+
+
 def tensor_core_check(build):
-    """The bf16 instantiations of csrc/flash_attn.cu compute Q.K^T and P.V
-    on the tensor cores (HMMA in the SASS of each), the fp32 one on the FMA
-    units (no HMMA): ``cuobjdump -sass`` of the built library."""
+    """The bf16 instantiations of csrc/flash_attn.cu, attention.cu and
+    linear.cu compute their products on the tensor cores (HMMA in the SASS
+    of each), the fp32 ones on the FMA units (no HMMA): ``cuobjdump -sass``
+    of the built library."""
     from lightglue_tpu_torch.kernels import _build
 
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
@@ -188,36 +201,112 @@ def tensor_core_check(build):
             counts[name] = 0
         elif name and "HMMA" in line:
             counts[name] += 1
-    mma = [n for k, n in counts.items() if "flash_mma_kernel" in k]
-    fma = [n for k, n in counts.items() if "flash_kernel" in k]
-    log(f"  flash_attn.cu SASS: HMMA per bf16 kernel {sorted(mma)}, per fp32 kernel {sorted(fma)}")
-    if not mma or min(mma) == 0 or not fma or max(fma) != 0:
-        raise AssertionError("flash_attn.cu: a bf16 kernel without HMMA or an fp32 one with it")
+    for src, (bf16_kernel, fp32_kernel) in TENSOR_CORE_KERNELS.items():
+        mma = [n for k, n in counts.items() if bf16_kernel in k]
+        fma = [n for k, n in counts.items() if fp32_kernel in k]
+        log(f"  {src} SASS: HMMA per bf16 kernel {sorted(mma)}, per fp32 kernel {sorted(fma)}")
+        if not mma or min(mma) == 0 or not fma or max(fma) != 0:
+            raise AssertionError(f"{src}: a bf16 kernel without HMMA or an fp32 one with it")
 
 
-def rounding_witness(label, got, want, plain_at, block, n):
-    """The rounding-contract witness of the flash kernels: ``want`` is the
-    plain version at the kernel's block_k and ``plain_at(block_k / 8)`` the
-    plain version at a block_k 8x smaller, on the same inputs, where that
-    divides the n keys (else the witness is skipped, and says so). Rounding
-    m, l and acc at other
-    points (per staged chunk instead of per tile) makes a kernel differ from
-    ``want`` as ``fine`` does, in a large share of elements, where a
-    different fp32 sum order flips a rounding only here and there. Fails
-    unless the kernel's share of differing elements is at most a quarter of
-    the two plain versions' share."""
+def rounding_witness(label, got, want, wrong):
+    """The rounding-contract witness of the bf16 attention kernels: ``want``
+    is the kernel's plain version and each of ``wrong`` (name -> output) the
+    plain version of a design that rounds at other points, on the same
+    inputs. Such a design differs from ``want`` in a large share of
+    elements, where a different fp32 sum order flips a rounding only here
+    and there; both pass ``TOL``. Fails unless the kernel's share of
+    elements that differ from ``want`` is at most a quarter of each wrong
+    design's share."""
+    if not wrong:
+        log(f"  {label}: rounding witness skipped, block_k / 8 does not divide the keys")
+        return
+    k_share = float((got != want).float().mean())
+    for name, alt in wrong.items():
+        p_share = float((want != alt).float().mean())
+        log(f"  {label}: rounding witness: kernel vs plain differ in {k_share:.5f} of elements, "
+            f"plain vs {name} in {p_share:.5f} (kernel at most a quarter)")
+        if k_share > p_share / 4:
+            raise AssertionError(f"{label}: kernel differs from its plain version in "
+                                 f"{k_share:.5f} of elements, over a quarter of {p_share:.5f} "
+                                 f"({name})")
+
+
+def fine_block(plain_at, block, n):
+    """The flash kernels' wrong design: the plain version at a block_k 8x
+    smaller (m, l and acc rounded per staged chunk instead of per tile),
+    where that divides the n keys, else none."""
     fine_k = min(block, n) // 8
     if not fine_k or n % fine_k:
-        log(f"  {label}: rounding witness skipped, block_k / 8 does not divide {n} keys")
-        return
-    fine = plain_at(fine_k)
-    k_share = float((got != want).float().mean())
-    p_share = float((want != fine).float().mean())
-    log(f"  {label}: rounding witness: kernel vs plain differ in {k_share:.5f} of elements, "
-        f"plain at block_k vs block_k / 8 in {p_share:.5f} (kernel at most a quarter)")
-    if k_share > p_share / 4:
-        raise AssertionError(f"{label}: kernel differs from its plain version in {k_share:.5f} "
-                             f"of elements, over a quarter of {p_share:.5f}")
+        return {}
+    return {"plain at block_k / 8": plain_at(fine_k)}
+
+
+def stack_wrong_designs(q, k, v, freqs, len_q, len_kv, num_heads):
+    """The stack attention's two wrong designs on the same bf16 operands
+    (``layer_stack.attention``'s arguments, bf16 stats): (a) an online
+    softmax per Nk / 8 keys (``flash_attention_plain`` on the rotated heads,
+    m, l and acc rounded per tile) and (b) the contract's whole-row softmax
+    with acc rounded through bf16 before the division by l. Both outputs
+    are (B, Nq, H*64) bf16."""
+    import torch
+
+    from lightglue_tpu_torch.kernels import attention as at
+    from lightglue_tpu_torch.kernels import layer_stack as ls
+
+    bf16 = torch.bfloat16
+    bsz, nq, e = q.shape
+    nk, hd = k.shape[1], e // num_heads
+
+    def heads(t, n):
+        return t.reshape(bsz, n, num_heads, hd).transpose(1, 2)
+
+    def merge(t):
+        return t.transpose(1, 2).reshape(bsz, nq, e).to(bf16)
+
+    qh, kh, vh = heads(q, nq), heads(k, nk), heads(v, nk)
+    if freqs is not None:
+        qh, kh = ls.apply_rotary(freqs, qh), ls.apply_rotary(freqs, kh)
+    lens = None if len_q is None else torch.stack([len_q, len_kv], dim=1)
+    online = at.flash_attention_plain(qh, kh, vh, lens, stat_dtype=bf16, block_q=nq,
+                                      block_k=nk // 8)
+    s = ls._quant((qh.float() @ kh.float().transpose(-1, -2)) * (1.0 / math.sqrt(hd)), bf16)
+    if lens is not None:
+        s = torch.where(torch.arange(nk, device=q.device) < len_kv.view(-1, 1, 1, 1), s, -1e30)
+    m = ls._quant(s.amax(dim=-1, keepdim=True), bf16)
+    if lens is not None:
+        m = m.clamp_min(-5e29)
+    p = ls._quant(torch.exp(s - m), bf16)
+    l = ls._quant(p.sum(dim=-1, keepdim=True), bf16)
+    rounded = ls._quant(p.to(bf16).float() @ vh.float(), bf16) / torch.where(l == 0.0, 1.0, l)
+    if lens is not None:
+        rows = torch.arange(nq, device=q.device).view(1, 1, -1, 1)
+        rounded = torch.where(rows < len_q.view(-1, 1, 1, 1), rounded, 0.0)
+    return {"(a) online softmax per Nk / 8 keys": merge(online),
+            "(b) acc rounded before / l": merge(rounded)}
+
+
+def plan_checks(ls, lib):
+    """The launch plans the CPU tests hold (``layer_stack.linear_plan``,
+    ``attention_plan``) are the ones the card runs (csrc/linear.cu:
+    linear_tile, csrc/mma.cuh:fill_row_groups), at every shape of the paths
+    through the stack: 128-1024 buckets, one pair or two."""
+    import ctypes
+
+    tile = (ctypes.c_int * 2)()
+    for m in (128, 256, 512, 768, 1024, 2048):
+        for n in (256, 512, 768):
+            lib.lg_linear_tile(m, n, tile)
+            plan = ls.linear_plan(m, n, 256)
+            if (tile[0], tile[1]) != (plan.bm, plan.bn):
+                raise AssertionError(f"linear {m}x{n}: the card's tile {tile[0]}x{tile[1]}, "
+                                     f"linear_plan's {plan.bm}x{plan.bn}")
+    for b in (1, 2):
+        for nq in (128, 256, 512, 768, 1024):
+            groups = lib.lg_attention_row_groups(b, 4, nq)
+            if groups != ls.attention_plan(b, 4, nq, 1024).row_groups:
+                raise AssertionError(f"attention B={b} Nq={nq}: the card's {groups} row groups")
+    log("  launch plans: linear_plan and attention_plan match the card's at every path shape")
 
 
 class Entry:
@@ -747,8 +836,9 @@ def attention_kernel_checks(at, rand, freqs_for, dev, dtypes, fp32_scope, fused_
                 want = at.fused_mha_plain(q, k, v, f, ln, **kw)
                 err = compare(f"{label} {tag}", got, want, **TOL[tag])
                 if tag == "bf16":
-                    rounding_witness(f"{label} {tag}", got, want, lambda bk: at.fused_mha_plain(
-                        q, k, v, f, ln, **dict(kw, block_k=bk)), block, nk)
+                    rounding_witness(f"{label} {tag}", got, want, fine_block(
+                        lambda bk: at.fused_mha_plain(q, k, v, f, ln, **dict(kw, block_k=bk)),
+                        block, nk))
             if lens is not None:
                 zero_rows(f"{label} {tag}", got, lens, True)
             if tag != "bf16":
@@ -828,10 +918,9 @@ def attention_kernel_checks(at, rand, freqs_for, dev, dtypes, fp32_scope, fused_
                 want = at.flash_attention_plain(q, k, v, ln, **kw)
                 err = compare(f"{label} {tag}", got, want, **TOL[tag])
                 if tag == "bf16":
-                    rounding_witness(
-                        f"{label} {tag}", got, want,
+                    rounding_witness(f"{label} {tag}", got, want, fine_block(
                         lambda bk: at.flash_attention_plain(q, k, v, ln, **dict(kw, block_k=bk)),
-                        block, nk)
+                        block, nk))
             if lens is not None:
                 zero_rows(f"{label} {tag}", got.transpose(1, 2), lens, True)
             if tag != "bf16":
@@ -1052,8 +1141,9 @@ def step_kernel_checks(at, rand, dev, fp32_scope, step_e):
                     if otag == "bf16":  # the witness on the finalised rows
                         rounding_witness(
                             f"{label} {otag} operands {stag} stats, acc / l", finalised(got),
-                            finalised(want), lambda bk: finalised(at.flash_attention_step_plain(
-                                *args, **dict(kw, block_k=bk))), at._fit_block(size, block), size)
+                            finalised(want), fine_block(lambda bk: finalised(
+                                at.flash_attention_step_plain(*args, **dict(kw, block_k=bk))),
+                                at._fit_block(size, block), size))
                 if exact:
                     for c, g, w in zip(("m", "l", "acc"), got, (m, l, acc)):
                         compare(f"{label} {otag}/{stag} {c} passes through", g, w, 0, 0,
@@ -1446,6 +1536,7 @@ def main() -> int:
               raw.numel() * (20 * 4 + 4), FP32_OP_PER_MS)
 
     # ---- linear: every projection of one layer of a 1024x1024 pair -------
+    plan_checks(ls, _build.lib())
     log(f"linear (per match_pair: 16 launches per layer x {N_LAYERS} layers, N={BUCKET})")
     e = 256
     m = BUCKET
@@ -1513,6 +1604,9 @@ def main() -> int:
                 got = ls.attention(q, k, v, f, lq, lk, heads, dt)
                 want = ls.attention_plain(q, k, v, f, lq, lk, heads, dt)
                 err = compare(f"{label} {tag}", got, want, **TOL[tag])
+                if tag == "bf16":
+                    rounding_witness(f"{label} {tag}", got, want,
+                                     stack_wrong_designs(q, k, v, f, lq, lk, heads))
             if lens and lens[0][0] == 0 and float(got.float().abs().max()) != 0.0:
                 raise AssertionError(f"{label} {tag}: length-0 rows are not exactly 0")
             if tag != "bf16":
@@ -1592,9 +1686,10 @@ def main() -> int:
     result = session.match_pair(img0, img1)
     launches = {fn.__name__: fn.launches for fn in counters}
     log(f"  launches in one match_pair: {launches}")
-    for name, n in launches.items():
-        if n < 1:
-            raise AssertionError(f"kernel {name} did not launch on the main path")
+    want = dict(conv3x3=3, nms_candidates=1, linear=16 * N_LAYERS, attention=4 * N_LAYERS,
+                ln_gelu=4 * N_LAYERS)
+    if launches != want:
+        raise AssertionError(f"main path launches {launches}, want {want}")
     for entry in (conv_e, nms_e, lin_e, att_e, ln_e):
         entry.d["launches"] = launches[entry.d["name"]]
     n0, n1 = result["num_keypoints0"], result["num_keypoints1"]

@@ -54,6 +54,8 @@
 //   the eight row addresses of an ldmatrix fall in different banks. The
 //   last chunk of a tile that is not a multiple of 64 (block_k 1000, 120,
 //   ...) is zero-padded, and its pad columns take no part in max, p or sum p.
+// - The copy, ldmatrix and mma helpers, the block layout and rope_kernel
+//   are mma.cuh's, shared with the layer stack's attention.cu.
 // - RoPE (fused_mha self-attention) runs once, in rope_kernel, over q and k
 //   into a bf16 scratch the wrapper allocates; the attention kernel then
 //   reads rotated rows. Rotating K in every block that reads it cost more
@@ -84,20 +86,16 @@
 
 #include <math.h>
 
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
-constexpr int D = 64;        // head dim
+using namespace lg;  // Operand, row_ptr and the tensor-core helpers (mma.cuh)
+
+constexpr int D = HD;        // head dim
 constexpr int BQ = 16;       // query rows per block
-constexpr int KC = 64;       // keys per staged chunk
 constexpr int THREADS = 256;
 constexpr float NEG = -1e30f;
-
-struct Operand {
-  const void* ptr;
-  long long bs, hs, rs;  // batch, head and row strides in elements
-};
 
 struct Out {
   void* ptr;
@@ -116,13 +114,6 @@ struct Carries {
   float* acc_out;
   int row0, col0, block_q;
 };
-
-template <typename T>
-__device__ __forceinline__ const T* row_ptr(const Operand& o, int b, int h,
-                                            int row) {
-  return static_cast<const T*>(o.ptr) + b * o.bs + h * o.hs +
-         (long long)row * o.rs;
-}
 
 // ---------------------------------------------------------------------------
 // The FP32 kernel: products on the FMA units
@@ -320,115 +311,6 @@ flash_kernel(Operand q, Operand k, Operand v, Out o, Carries cy,
 // ---------------------------------------------------------------------------
 // The BF16 kernel: both products on the tensor cores (mma.sync m16n8k16)
 // ---------------------------------------------------------------------------
-
-using bf16_t = __nv_bfloat16;
-
-constexpr int WARPS = 4;       // per block: 16 * WARPS / C rows, C warps per 16 rows
-constexpr int LD = D + 8;      // bf16 row pitch in shared memory (144 B)
-constexpr int RS = 2 + D + 8;  // fp32 record per warp row: max, sum p, pv[D] (+ pad)
-
-// dynamic shared memory of one block at column split C with `stages` K and
-// V chunk buffers
-constexpr size_t mma_smem(int C, int stages) {
-  return sizeof(bf16_t) * (size_t)(16 * (WARPS / C) + 2 * KC * stages) * LD +
-         (C > 1 ? sizeof(float) * WARPS * 16 * RS : 0);
-}
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// wait until at most n of this thread's copy groups are in flight (n >= 8
-// waits for all but 7, which is more than asked and so safe)
-__device__ __forceinline__ void cp_async_wait_n(int n) {
-  switch (n) {
-    case 0: cp_async_wait<0>(); break;
-    case 1: cp_async_wait<1>(); break;
-    case 2: cp_async_wait<2>(); break;
-    case 3: cp_async_wait<3>(); break;
-    case 4: cp_async_wait<4>(); break;
-    case 5: cp_async_wait<5>(); break;
-    case 6: cp_async_wait<6>(); break;
-    default: cp_async_wait<7>(); break;
-  }
-}
-
-// four 8x8 b16 matrices; lane i gives the address of row i % 8 of matrix i / 8
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16_t* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p))
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const bf16_t* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p))
-               : "memory");
-}
-
-// d += a (16x16 bf16, row) * b (16x8 bf16, col), fp32 sums
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two fp32 values rounded to bf16 (to nearest even), lo in the low half
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&v);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// rows [0, rows) of a tile of pitch LD from global rows row0 + r; rows at or
-// past nrows are zeroed. aligned: 16 B cp.async per thread (the caller
-// commits), else element loads (any strides).
-__device__ __forceinline__ void stage_rows(bf16_t* dst, const Operand& o, int b, int h, int row0,
-                                           int rows, int nrows, bool aligned) {
-  for (int s = threadIdx.x; s < rows * (D / 8); s += blockDim.x) {
-    const int r = s / (D / 8), c = s % (D / 8) * 8;
-    bf16_t* d = dst + r * LD + c;
-    if (r >= nrows) {
-      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
-      continue;
-    }
-    const bf16_t* src = row_ptr<bf16_t>(o, b, h, row0 + r) + c;
-    if (aligned) {
-      cp_async16(d, src);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) d[e] = src[e];
-    }
-  }
-}
 
 template <bool STEP, int C>
 __global__ void __launch_bounds__(WARPS * 32)
@@ -744,11 +626,6 @@ int launch_fma(Operand q, Operand k, Operand v, Out o, Carries cy, const void* f
   return static_cast<int>(cudaGetLastError());
 }
 
-bool aligned16(const Operand& o) {  // every row start on 16 B: cp.async can stage it
-  return reinterpret_cast<uintptr_t>(o.ptr) % 16 == 0 && o.bs % 8 == 0 && o.hs % 8 == 0 &&
-         o.rs % 8 == 0;
-}
-
 template <bool STEP, int C>
 int launch_mma(Operand q, Operand k, Operand v, Out o, Carries cy, const void* lens, int B,
                int H, int Nq, int Nk, float scale, int block_k, int quant, int stages,
@@ -801,45 +678,6 @@ int launch(Operand q, Operand k, Operand v, Out o, Carries cy, const void* freqs
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// RoPE on q and k (bf16, (B, N, H*64) rows) into contiguous scratch
-// (2, B, N, H*64): the rotation of common.cuh:rope_pair, once per row, in
-// place of once per row in every block that reads it. One thread per 8
-// pairs (x[d], x[d + 32]) of one head of one row, 16 B loads where the rows
-// allow them; blockIdx.z picks q or k.
-__global__ void __launch_bounds__(256)
-rope_kernel(Operand q, Operand k, const float* __restrict__ freqs, bf16_t* __restrict__ out,
-            int N, int H, int aligned) {
-  constexpr int V = 8, G = D / 2 / V;  // pairs per thread, threads per head row
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= N * H * G) return;
-  const int d0 = i % G * V, h = i / G % H, n = i / G / H, b = blockIdx.y;
-  const bf16_t* x = row_ptr<bf16_t>(blockIdx.z ? k : q, b, h, n);
-  float x1[V], x2[V];
-  if (aligned) {
-    const uint4 u1 = *reinterpret_cast<const uint4*>(x + d0);
-    const uint4 u2 = *reinterpret_cast<const uint4*>(x + d0 + D / 2);
-    const bf16_t* e1 = reinterpret_cast<const bf16_t*>(&u1);
-    const bf16_t* e2 = reinterpret_cast<const bf16_t*>(&u2);
-#pragma unroll
-    for (int e = 0; e < V; ++e) x1[e] = lg::to_f(e1[e]), x2[e] = lg::to_f(e2[e]);
-  } else {
-#pragma unroll
-    for (int e = 0; e < V; ++e) x1[e] = lg::to_f(x[d0 + e]), x2[e] = lg::to_f(x[d0 + e + D / 2]);
-  }
-  uint4 o1, o2;
-  bf16_t* y1 = reinterpret_cast<bf16_t*>(&o1);
-  bf16_t* y2 = reinterpret_cast<bf16_t*>(&o2);
-#pragma unroll
-  for (int e = 0; e < V; ++e) {
-    lg::rope_pair<bf16_t, D>(x1[e], x2[e], d0 + e, n, freqs + (size_t)b * 2 * N * D, N);
-    y1[e] = __float2bfloat16(x1[e]);
-    y2[e] = __float2bfloat16(x2[e]);
-  }
-  bf16_t* y = out + (((size_t)blockIdx.z * gridDim.y + b) * N + n) * H * D + h * D + d0;
-  *reinterpret_cast<uint4*>(y) = o1;
-  *reinterpret_cast<uint4*>(y + D / 2) = o2;
-}
-
 }  // namespace
 
 // fused_mha: q (B, Nq, H*64), k/v (B, Nk, H*64) rows addressed by (batch,
@@ -860,11 +698,8 @@ extern "C" int lg_fused_mha(const void* q, long long q_bs, long long q_rs,
   const Out oo{out, (long long)Nq * H * D, D, (long long)H * D};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16 && freqs) {
-    const int threads = Nq * H * (D / 16);
-    rope_kernel<<<dim3((threads + 255) / 256, B, 2), 256, 0, s>>>(
-        oq, ok, static_cast<const float*>(freqs), static_cast<bf16_t*>(rot), Nq, H,
-        aligned16(oq) && aligned16(ok));
-    const cudaError_t err = cudaGetLastError();
+    const cudaError_t err =
+        rope_qk(oq, ok, static_cast<const float*>(freqs), static_cast<bf16_t*>(rot), B, Nq, H, s);
     if (err != cudaSuccess) return static_cast<int>(err);
     const long long bs = (long long)Nq * H * D;
     oq = Operand{rot, bs, D, (long long)H * D};

@@ -38,18 +38,16 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from lightglue_tpu_torch.kernels import _build
-from lightglue_tpu_torch.kernels.layer_stack import (_check_same, _is_bf16, _quant, _stream,
-                                                     apply_rotary)
+from lightglue_tpu_torch.kernels.layer_stack import (_KC, _WARPS, _check_same, _is_bf16, _quant,
+                                                     _stream, apply_rotary, fill_row_groups,
+                                                     mma_smem)
 
 DEFAULT_BLOCK_Q = 1024
 DEFAULT_BLOCK_K = 1024
 HEAD_DIM = 64  # the kernels' head width
 _NEG_INF = -1e30
-# csrc/flash_attn.cu: keys per staged chunk; the bf16 kernel's warps per
-# block and bf16 row pitch in shared memory; the fp32 kernel's rows per block
-_KC, _WARPS, _LD, _FMA_ROWS = 64, 4, HEAD_DIM + 8, 16
+_FMA_ROWS = 16        # csrc/flash_attn.cu: the fp32 kernel's rows per block
 _SMS = 132            # streaming multiprocessors of the H100
-_FILL_BLOCKS = 256    # blocks a launch plan aims for: about two per SM
 _STREAM_STAGES = 2    # chunk buffers of a streamed tile (csrc: one copy in flight)
 
 
@@ -63,35 +61,24 @@ class FlashPlan(NamedTuple):
     smem: int        # dynamic shared memory per block, bytes
 
 
-def _mma_smem(row_groups: int, stages: int) -> int:
-    """Q, ``stages`` K and V chunks, and (columns split) the warps' partial
-    row max, sum p and P.V (csrc/flash_attn.cu:mma_smem)."""
-    smem = 2 * (16 * row_groups + 2 * _KC * stages) * _LD
-    if row_groups < _WARPS:
-        smem += 4 * _WARPS * 16 * (2 + _LD)
-    return smem
-
-
 def flash_plan(batch: int, heads: int, nq: int, block_k: int) -> FlashPlan:
     """The bf16 kernel's launch for one shape.
 
-    Rows: the most 16-row groups per block (4, 2, 1) that still give
-    ``_FILL_BLOCKS`` blocks, else 1; the block's four warps split each
-    64-key chunk's columns ``4 / row_groups`` ways. Large blocks read K and
-    V fewer times through L2; short stripes (the ring step's 512 rows) need
-    small ones to fill the card. Buffers: where the launch is one wave (a
-    block per SM) and the whole ``block_k`` tile fits, it stays resident
-    (K and V copied once, read by both passes); else chunks stream through
-    ``_STREAM_STAGES`` buffers."""
-    for groups in (4, 2, 1):
-        blocks = batch * heads * -(-nq // (16 * groups))
-        if blocks >= _FILL_BLOCKS:
-            break
+    Rows: ``layer_stack.fill_row_groups``, the most 16-row groups per block
+    (4, 2, 1) that still give 256 blocks, else 1; the block's four warps
+    split each 64-key chunk's columns ``4 / row_groups`` ways. Large blocks
+    read K and V fewer times through L2; short stripes (the ring step's 512
+    rows) need small ones to fill the card. Buffers: where the launch is
+    one wave (a block per SM) and the whole ``block_k`` tile fits, it stays
+    resident (K and V copied once, read by both passes); else chunks stream
+    through ``_STREAM_STAGES`` buffers."""
+    groups = fill_row_groups(batch, heads, nq)
+    blocks = batch * heads * -(-nq // (16 * groups))
     chunks = -(-block_k // _KC)
     stages = min(chunks, _STREAM_STAGES)
-    if blocks <= _SMS and _mma_smem(groups, chunks) <= _build.MAX_DYNAMIC_SMEM:
+    if blocks <= _SMS and mma_smem(groups, chunks) <= _build.MAX_DYNAMIC_SMEM:
         stages = chunks
-    return FlashPlan(groups, _WARPS // groups, stages, blocks, _mma_smem(groups, stages))
+    return FlashPlan(groups, _WARPS // groups, stages, blocks, mma_smem(groups, stages))
 
 
 def _flash_launch(name: str, dtype, batch: int, heads: int, nq: int, block_k: int):

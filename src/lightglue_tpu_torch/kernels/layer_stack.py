@@ -10,12 +10,29 @@ loop over the layers launches, per layer and image, the kernels of
 
 - ``linear`` (``csrc/linear.cu``): every projection — fused qkv, the cross
   block's fused [qk | v], the out projections, ffn1 over cat(x, message)
-  taken as two operands, ffn2 with its residual add;
+  taken as two operands, ffn2 with its residual add. Bound by bytes at the
+  path's shapes (a 1024-row product moves 1.2-2.6 MB). bf16 operands run a
+  pipelined ``mma.sync`` GEMM (64-deep K chunks in a 3-buffer ``cp.async``
+  ring, fp32 sums in registers) at the tile ``linear_plan`` gives: at least
+  256 blocks at 1024 rows, tiles of at most 64 rows so none straddles two
+  pairs. The epilogue is JAX ``_linear``'s: round to T, add the bias in T,
+  add the residual in T.
 - ``attention`` (``csrc/attention.cu``): masked self-attention with RoPE and
-  both cross-attention directions (one launch each);
+  both cross-attention directions (one launch each), one softmax over the
+  whole row (N <= 1024). Bound by the tensor cores (1.07 GFLOP per call at
+  B = 1, H = 4, N = 1024). bf16 operands run ``flash_attn.cu``'s machinery
+  (``csrc/mma.cuh``) at one tile of Nk keys: two passes (row max, then p,
+  sum p and P.V), at the row groups ``attention_plan`` gives; RoPE first,
+  once, into a scratch. It keeps the stack's contract where the flash
+  kernel's differs: acc is never rounded (P.V / l in fp32, one cast to T),
+  the row max is clamped at -5e29 when masked, dead columns are -1e30 in
+  every chunk under keep masks, keep and liveness operands stay.
 - ``ln_gelu`` (``csrc/ln_gelu.cu``): the FFN's LayerNorm + GELU;
 - ``adaptive_decide`` (``csrc/adaptive.cu``, adaptive stack only): after
   each layer, the early-exit and pruning decision of every live pair.
+
+fp32 operands (the FP32 rung) run FMA kernels in ``linear.cu`` and
+``attention.cu``: one TF32 ``mma`` would miss the rung's 1e-4 gate.
 
 The adaptive stack carries a per-pair exit register (B,) fp32 and, under
 width pruning, (B, N) fp32 keep masks, both on the device. The three layer
@@ -43,6 +60,87 @@ MAX_SEQ = 1024  # the JAX kernel's VMEM gate, kept as the port's contract
 HEAD_DIM = 64   # the attention kernel's head width
 _NEG_INF = -1e30
 _DEAD = _NEG_INF * 0.5  # all-masked-row clamp (layer_stack.py:276-292)
+
+# csrc/mma.cuh: keys per staged chunk, warps of an attention block, bf16 row
+# pitch in shared memory, fp32 record per warp row, blocks a launch aims for
+_KC, _WARPS, _LD, _RS, _FILL_BLOCKS = 64, 4, HEAD_DIM + 8, 2 + HEAD_DIM + 8, 256
+# csrc/linear.cu: the bf16 GEMM's K chunk, ring buffers, candidate tiles in
+# order of preference and the blocks a tile plan aims for (two per SM)
+_LIN_BK, _LIN_STAGES, _LIN_TILES, _LIN_MIN_BLOCKS = 64, 3, ((64, 64), (64, 32), (32, 32)), 256
+
+
+def fill_row_groups(batch: int, heads: int, nq: int) -> int:
+    """16-row groups per block of the bf16 attention kernels (4, 2 or 1):
+    the most that still give ``_FILL_BLOCKS`` blocks, else 1, whose four
+    warps then split each 64-key chunk (csrc/mma.cuh:fill_row_groups)."""
+    for groups in (4, 2):
+        if batch * heads * -(-nq // (16 * groups)) >= _FILL_BLOCKS:
+            return groups
+    return 1
+
+
+def mma_smem(row_groups: int, stages: int) -> int:
+    """Dynamic shared memory of a bf16 attention block: Q, ``stages`` K and
+    V chunks, and (columns split) the warps' partial row max, sum p and P.V
+    (csrc/mma.cuh:mma_smem)."""
+    smem = 2 * (16 * row_groups + 2 * _KC * stages) * _LD
+    if row_groups < _WARPS:
+        smem += 4 * _WARPS * 16 * _RS
+    return smem
+
+
+class AttentionPlan(NamedTuple):
+    """Launch of ``csrc/attention.cu`` for one shape."""
+
+    row_groups: int  # 16-row groups per block (bf16: 4, 2 or 1; fp32: 1)
+    col_split: int   # warps of a row group that split each chunk's keys
+    blocks: int      # blocks of the launch
+    smem: int        # dynamic shared memory per block, bytes
+
+
+def attention_plan(batch: int, heads: int, nq: int, nk: int,
+                   dtype=torch.bfloat16) -> AttentionPlan:
+    """The stack attention's launch: bf16 operands at ``fill_row_groups``
+    with two K/V chunk buffers (the whole row streams through them, so any
+    Nk fits), fp32 operands one 16-row block with a 16 x Nk slab of S.
+    Raises past the contract's N <= 1024 or the card's shared memory."""
+    if nk > MAX_SEQ:
+        raise ValueError(f"attention: {nk} keys exceed the layer stack's {MAX_SEQ}")
+    if dtype == torch.bfloat16:
+        groups = fill_row_groups(batch, heads, nq)
+        smem = mma_smem(groups, 2)
+        plan = AttentionPlan(groups, _WARPS // groups,
+                             batch * heads * -(-nq // (16 * groups)), smem)
+    else:
+        plan = AttentionPlan(1, 1, batch * heads * -(-nq // 16),
+                             4 * (16 * HEAD_DIM + _KC * (HEAD_DIM + 1) + 16 * nk + 16))
+    if plan.smem > _build.MAX_DYNAMIC_SMEM:
+        raise ValueError(f"attention: {plan.smem} B of shared memory for {nk} keys")
+    return plan
+
+
+class LinearPlan(NamedTuple):
+    """Launch of ``csrc/linear.cu``'s bf16 GEMM for one shape."""
+
+    bm: int      # tile rows (a divisor of 64: a tile never straddles two pairs)
+    bn: int      # tile columns
+    bk: int      # K depth of a staged chunk
+    chunks: int  # K chunks a block runs through
+    stages: int  # chunk buffers in the cp.async ring
+    blocks: int  # blocks of the launch
+    smem: int    # dynamic shared memory per block, bytes
+
+
+def linear_plan(m: int, n: int, k: int) -> LinearPlan:
+    """The bf16 GEMM's tile for an (m, k) x (k, n) product: 64 x 64 where
+    that gives 256 blocks, else 64 x 32, else 32 x 32
+    (csrc/linear.cu:linear_tile)."""
+    for bm, bn in _LIN_TILES:
+        blocks = -(-m // bm) * (n // bn)
+        if blocks >= _LIN_MIN_BLOCKS:
+            break
+    smem = 2 * _LIN_STAGES * (bm * (_LIN_BK + 8) + _LIN_BK * (bn + 8))
+    return LinearPlan(bm, bn, _LIN_BK, -(-k // _LIN_BK), _LIN_STAGES, blocks, smem)
 
 
 class Live(NamedTuple):
@@ -226,7 +324,9 @@ def attention(q, k, v, freqs, len_q, len_kv, num_heads, stat_dtype,
     vectors instead: kv columns < 0.5 are masked and output rows are scaled
     by their keep. ``live`` skips retired pairs (their rows stay unwritten).
     Returns (B, Nq, H*64) in ``out_dtype``, which on the card must be the
-    operand dtype."""
+    operand dtype. On the card Nk <= 1024 (``attention_plan``); with bf16
+    operands and RoPE, q and k are rotated once into a scratch first, and
+    the pair of launches counts as one."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, freqs, len_q, len_kv, num_heads,
                                stat_dtype, out_dtype, keep_q, keep_kv, live)
@@ -243,9 +343,7 @@ def attention(q, k, v, freqs, len_q, len_kv, num_heads, stat_dtype,
         raise ValueError(f"attention: shapes {q.shape} {k.shape} {v.shape}")
     if min(t.stride(-1) for t in (q, k, v)) != 1 or max(t.stride(-1) for t in (q, k, v)) != 1:
         raise ValueError("attention: q/k/v need unit column stride")
-    smem = 4 * (16 * HEAD_DIM + 64 * (HEAD_DIM + 1) + 16 * nk + 16)
-    if smem > _build.MAX_DYNAMIC_SMEM:
-        raise ValueError(f"attention: {nk} keys exceed the shared-memory row block")
+    attention_plan(bsz, num_heads, nq, nk, q.dtype)  # raises where the launch cannot run
     if stat_dtype not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(f"attention: stat dtype {stat_dtype}")
     if freqs is not None:
@@ -270,6 +368,15 @@ def attention(q, k, v, freqs, len_q, len_kv, num_heads, stat_dtype,
     if live is not None and live.exit.shape != (bsz,):
         raise ValueError(f"attention: exit register {tuple(live.exit.shape)} for B={bsz}")
     out = torch.empty((bsz, nq, e), dtype=q.dtype, device=q.device)
+    if freqs is not None and q.dtype == torch.bfloat16:
+        # RoPE once per row into a scratch (2, B, N, E), which the kernel reads
+        rot = torch.empty((2, bsz, nq, e), dtype=q.dtype, device=q.device)
+        err = _build.lib().lg_rope_qk(q.data_ptr(), q.stride(0), q.stride(1),
+                                      k.data_ptr(), k.stride(0), k.stride(1),
+                                      freqs.data_ptr(), rot.data_ptr(), bsz, nq, num_heads,
+                                      _stream(q))
+        _build.check(err, "attention (RoPE)")
+        q, k, freqs = rot[0], rot[1], None
     err = _build.lib().lg_attention(
         q.data_ptr(), q.stride(0), q.stride(1),
         k.data_ptr(), k.stride(0), k.stride(1),
