@@ -8,21 +8,26 @@ Run from the root of a checkout on a machine with a CUDA card:
 It prints the card's name and power limit, builds the CUDA kernels of
 ``src/lightglue_tpu_torch/csrc`` (one nvcc per source, sm_90a, in
 parallel) and checks in their SASS that the bf16 kernels of flash_attn.cu,
-attention.cu and linear.cu run on the tensor cores and their fp32 ones do
-not. Then, in order; every kernel check is in bf16 and fp32 against
+attention.cu, linear.cu, bidir_cross.cu and conv3x3.cu (its model
+instantiation) run on the tensor cores and their fp32 ones do not. Then, in
+order; every kernel check is in bf16 and fp32 against
 the kernel's plain PyTorch version at the shapes its path gives it, every
 path is driven with the launch counts set to 0 just before it and read just
 after, and every kernel the JSON line lists is timed beside its bound, its
 plain version and, where one exists, a PyTorch call for the same function:
 
 1. The main path (default config: BF16, 9 layers, seed-0 random weights,
-   480x640 pair): ``conv3x3`` (its 64->64 calls), ``nms_candidates``,
-   ``linear``, ``attention`` and ``ln_gelu`` against their plain versions
-   (``linear_plan`` / ``attention_plan`` against the card's launch rules;
-   each bf16 ``attention`` case also against the rounding witness and its
-   two wrong designs, ``stack_wrong_designs``); the layer stack at 9
-   layers; ``MatcherSession(device="cuda").match_pair`` with its launch
-   counts (144 / 36 / 36 for linear / attention / ln_gelu) and a profile; a
+   480x640 pair): ``conv3x3`` (its 64->64 calls, and conv1b+pool and conv2a
+   at 360x488 for the edge tiles; each bf16 case also against the rounding
+   witness and two wrong designs, ``conv_wrong_designs``),
+   ``nms_candidates``, ``linear``, ``attention`` and ``ln_gelu`` against
+   their plain versions (``linear_plan`` / ``attention_plan`` /
+   ``bidir_plan`` against the card's launch rules; each bf16 ``attention``
+   case also against the rounding witness and its two wrong designs,
+   ``stack_wrong_designs``); the layer stack at 9 layers;
+   ``MatcherSession(device="cuda").match_pair`` with its launch counts
+   (144 / 36 / 36 for linear / attention / ln_gelu) and a profile that also
+   names the ops behind the device time, with their shapes and callers; a
    small FP32 pair against the port on the CPU.
 2. The adaptive path (``depth_confidence=0.95, width_confidence=0.99``):
    ``adaptive_decide`` (masked, unmasked, width with a partly retired keep
@@ -33,7 +38,8 @@ plain version and, where one exists, a PyTorch call for the same function:
 3. The per-block path: ``fused_mha``, ``bidirectional_cross_attention`` and
    ``flash_attention`` (masked, ragged, zero lengths, several KV tiles,
    block_k 1000; each bf16-operand flash case also against the rounding
-   witness, ``rounding_witness``), the
+   witness, ``rounding_witness``; each bf16 bidirectional case with both
+   sides non-empty per direction against ``stack_wrong_designs``), the
    per-block ``transformer_layers`` at 9 layers, and ``match_pair`` in the
    2048-keypoint config (``SuperPointConfig(max_num_keypoints=2048)``, a
    2048 bucket) and the pad-to-64 config (``buckets=range(64, 1025, 64)``,
@@ -181,14 +187,17 @@ TENSOR_CORE_KERNELS = {
     "flash_attn.cu": ("flash_mma_kernel", "flash_kernel"),
     "attention.cu": ("attention_mma_kernel", "attention_kernel"),
     "linear.cu": ("linear_mma_kernel", "linear_kernel"),
+    "bidir_cross.cu": ("bidir_mma_kernel", "bidir_kernel"),
+    # the generic bf16 conv3x3_kernel (no path calls it) stays on the FMA units
+    "conv3x3.cu": ("conv3x3_mma_kernel", "conv3x3_kernel"),
 }
 
 
 def tensor_core_check(build):
-    """The bf16 instantiations of csrc/flash_attn.cu, attention.cu and
-    linear.cu compute their products on the tensor cores (HMMA in the SASS
-    of each), the fp32 ones on the FMA units (no HMMA): ``cuobjdump -sass``
-    of the built library."""
+    """The bf16 instantiations of csrc/flash_attn.cu, attention.cu,
+    linear.cu, bidir_cross.cu and conv3x3.cu's model conv compute their
+    products on the tensor cores (HMMA in the SASS of each), the others on
+    the FMA units (no HMMA): ``cuobjdump -sass`` of the built library."""
     from lightglue_tpu_torch.kernels import _build
 
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
@@ -210,7 +219,7 @@ def tensor_core_check(build):
 
 
 def rounding_witness(label, got, want, wrong):
-    """The rounding-contract witness of the bf16 attention kernels: ``want``
+    """The rounding-contract witness of the bf16 attention and conv kernels: ``want``
     is the kernel's plain version and each of ``wrong`` (name -> output) the
     plain version of a design that rounds at other points, on the same
     inputs. Such a design differs from ``want`` in a large share of
@@ -286,11 +295,57 @@ def stack_wrong_designs(q, k, v, freqs, len_q, len_kv, num_heads):
             "(b) acc rounded before / l": merge(rounded)}
 
 
-def plan_checks(ls, lib):
+def conv_taps(x, w, taps=range(9), each=None):
+    """The fp32 sum of a SAME 3x3 conv's nine shifted products on NHWC ``x``
+    and HWIO ``w`` (cast to x's dtype), taken tap by tap in the order
+    ``taps``; ``each`` is applied to the running sum after every tap."""
+    import torch.nn.functional as F
+
+    h, wd = x.shape[1:3]
+    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
+    wf = w.to(x.dtype).float()
+    acc = None
+    for t in taps:
+        dy, dx = divmod(t, 3)
+        term = xp[:, dy:dy + h, dx:dx + wd] @ wf[dy, dx]
+        acc = term if acc is None else acc + term
+        if each is not None:
+            acc = each(acc)
+    return acc
+
+
+def conv_epilogue(acc, b, pool):
+    """superpoint.py:_relu_conv after the sum: fp32 bias, ReLU, the optional
+    2x2 max-pool, one cast to bf16."""
+    import torch
+    import torch.nn.functional as F
+
+    out = torch.relu(acc + b.float())
+    if pool:
+        out = F.max_pool2d(out.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
+    return out.to(torch.bfloat16)
+
+
+def conv_wrong_designs(x, w, b, pool):
+    """The model conv's two wrong designs on the same bf16 operands
+    (``conv.conv3x3``'s arguments): (a) acc rounded through bf16 before the
+    bias; (b) acc rounded through bf16 after every tap. Both outputs are
+    (B, H', W', 64) bf16."""
+    import torch
+
+    def rnd(t):
+        return t.to(torch.bfloat16).float()
+
+    return {"(a) acc rounded before the bias": conv_epilogue(rnd(conv_taps(x, w)), b, pool),
+            "(b) acc rounded after every tap": conv_epilogue(conv_taps(x, w, each=rnd), b, pool)}
+
+
+def plan_checks(ls, at, lib):
     """The launch plans the CPU tests hold (``layer_stack.linear_plan``,
-    ``attention_plan``) are the ones the card runs (csrc/linear.cu:
-    linear_tile, csrc/mma.cuh:fill_row_groups), at every shape of the paths
-    through the stack: 128-1024 buckets, one pair or two."""
+    ``attention_plan``, ``attention.bidir_plan``) are the ones the card runs
+    (csrc/linear.cu:linear_tile, csrc/mma.cuh:fill_row_groups), at every
+    shape of the paths through the stack (128-1024 buckets) and through the
+    bidirectional kernel (960x960, 960x704, 960x64), one pair or two."""
     import ctypes
 
     tile = (ctypes.c_int * 2)()
@@ -306,7 +361,13 @@ def plan_checks(ls, lib):
             groups = lib.lg_attention_row_groups(b, 4, nq)
             if groups != ls.attention_plan(b, 4, nq, 1024).row_groups:
                 raise AssertionError(f"attention B={b} Nq={nq}: the card's {groups} row groups")
-    log("  launch plans: linear_plan and attention_plan match the card's at every path shape")
+        for n0, n1 in ((960, 960), (960, 704), (960, 64)):
+            groups = lib.lg_bidir_row_groups(b, 4, n0, n1)
+            if groups != at.bidir_plan(b, 4, n0, n1).row_groups:
+                raise AssertionError(f"bidirectional B={b} {n0}x{n1}: the card's {groups} row "
+                                     "groups")
+    log("  launch plans: linear_plan, attention_plan and bidir_plan match the card's at every "
+        "path shape")
 
 
 class Entry:
@@ -391,17 +452,22 @@ def prune_weights(tree):
     return tree
 
 
-def profile_breakdown(call, pair_ms, top=12, what="match_pair"):
+def profile_breakdown(call, pair_ms, top=12, what="match_pair", attribute=False):
     """Device time by kernel over one profiled call (a match_pair). The busy
     share is that device time (kernels and copies, overlap ignored) over
     ``pair_ms``, the unprofiled ms per call: the profiler's own overhead
-    stretches the profiled call's wall time by a varying amount."""
+    stretches the profiled call's wall time by a varying amount. With
+    ``attribute``, also the host ops that launched the most device time, by
+    input shapes, each with its innermost caller in the port."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # stacks reach the op events only with the verbose experimental config
+    config = dict(experimental_config=torch._C._profiler._ExperimentalConfig(verbose=True),
+                  record_shapes=True, with_stack=True) if attribute else {}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], **config) as prof:
         call()
     rows = sorted(
         ((e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
@@ -412,10 +478,26 @@ def profile_breakdown(call, pair_ms, top=12, what="match_pair"):
         log("  profile: no device time recorded (device breakdown not measured)")
         return
     busy = sum(r[0] for r in rows)
-    log(f"  profile of one {what}: device_busy_ms {busy:.3f}, busy_share "
-        f"{busy / pair_ms:.3f} of the unprofiled {pair_ms:.3f} ms")
+    # pageable copies wait on the host, so their device time varies from call to call
+    copies = sum(r[0] for r in rows if r[2].startswith(("Memcpy", "Memset")))
+    log(f"  profile of one {what}: device_busy_ms {busy:.3f} (kernels {busy - copies:.3f}, "
+        f"copies {copies:.3f}), busy_share {busy / pair_ms:.3f} of the unprofiled {pair_ms:.3f} ms")
     for ms, count, key in rows[:top]:
         log(f"    {ms:8.3f} ms x{count:<4d} {key[:100]}")
+    if not attribute:
+        return
+    ops = sorted(
+        ((e.self_device_time_total / 1e3, e.count, e.key, e.input_shapes, e.stack)
+         for e in prof.key_averages(group_by_input_shape=True, group_by_stack_n=8)
+         if e.device_type == DeviceType.CPU and e.self_device_time_total > 0),
+        key=lambda r: r[0], reverse=True,
+    )
+    log(f"  ops behind the device time of one {what} (input shapes; innermost caller "
+        "in the port):")
+    for ms, count, key, shapes, stack in ops[:top]:
+        caller = next((f for f in stack if "lightglue_tpu_torch" in f),
+                      stack[0] if stack else "no stack recorded")
+        log(f"    {ms:8.3f} ms x{count:<4d} {key} {shapes} <- {caller.split('src/')[-1]}")
 
 
 def adaptive_kernel_checks(ls, rand, freqs_for, dev, dtypes, fp32_scope, dec_e):
@@ -868,6 +950,7 @@ def attention_kernel_checks(at, rand, freqs_for, dev, dtypes, fp32_scope, fused_
         ("960x704 masked, n0 0", 2, PAD64, 704, [[950, 700], [0, 500]], 0),
         ("960x704 unmasked", 1, PAD64, 704, None, 0),
         ("960x64 masked (mixed buckets)", 1, PAD64, 64, [[955, 60]], 0),
+        ("128x64 masked (one row group a block)", 1, 128, 64, [[100, 50]], 0),
     ]
     for label, b, n0, n1, lens, weight in bidir_cases:
         for tag, dt in dtypes.items():
@@ -880,6 +963,14 @@ def attention_kernel_checks(at, rand, freqs_for, dev, dtypes, fp32_scope, fused_
                 want = at.bidirectional_cross_attention_plain(*args, ln, **kw)
                 errs = [compare(f"{label} {tag} o{i}", g, w, **TOL[tag])
                         for i, (g, w) in enumerate(zip(got, want))]
+                if tag == "bf16" and all(min(x) > 0 for x in lens or [[1, 1]]):
+                    # per direction: (q, k, v) = (qk0, qk1, v1) and (qk1, qk0, v0)
+                    len0, len1 = (None, None) if ln is None else (ln[:, 0], ln[:, 1])
+                    for i, (q, k, v, lq, lk) in enumerate(
+                            ((args[0], args[1], args[3], len0, len1),
+                             (args[1], args[0], args[2], len1, len0))):
+                        rounding_witness(f"{label} {tag} o{i}", got[i], want[i],
+                                         stack_wrong_designs(q, k, v, None, lq, lk, heads))
             if lens is not None:
                 zero_rows(f"{label} {tag} o0", got[0], lens, True)
                 zero_rows(f"{label} {tag} o1", got[1], [x[::-1] for x in lens], True)
@@ -1488,10 +1579,13 @@ def main() -> int:
         return (f(*shape, generator=gen, device=dev) * scale).to(dtype)
 
     # ---- conv3x3: conv1b+pool, conv2a, conv2b+pool at 2x480x640 ----------
-    log("conv3x3 (per match_pair: conv1b+pool, conv2a, conv2b+pool)")
-    conv_cases = [("conv1b+pool", 480, 640, True), ("conv2a", 240, 320, False),
-                  ("conv2b+pool", 240, 320, True)]
-    for label, h, w, pool in conv_cases:
+    log("conv3x3 (per match_pair: conv1b+pool, conv2a, conv2b+pool; then edge tiles at 360x488)")
+    conv_cases = [  # label, H, W, pool, timed
+        ("conv1b+pool", 480, 640, True, True), ("conv2a", 240, 320, False, True),
+        ("conv2b+pool", 240, 320, True, True),
+        ("conv1b+pool 360x488", 360, 488, True, False), ("conv2a 180x244", 180, 244, False, False),
+    ]
+    for label, h, w, pool, timed in conv_cases:
         for tag, dt in dtypes.items():
             x = rand(2, h, w, 64, uniform=True, dtype=dt)
             wt = ((torch.rand(3, 3, 64, 64, generator=gen, device=dev) * 2 - 1) / 24).to(dt)
@@ -1500,9 +1594,14 @@ def main() -> int:
                 got = conv_k.conv3x3(x, wt, b, pool=pool)
                 want = conv_k.conv3x3_plain(x, wt, b, pool)
                 err = compare(f"{label} {tag}", got, want, **TOL[tag])
+                if tag == "bf16":
+                    rounding_witness(f"{label} {tag}", got, want,
+                                     conv_wrong_designs(x, wt, b, pool))
             if tag != "bf16":
                 continue
             conv_e.err(err)
+            if not timed:
+                continue
             xc = x.permute(0, 3, 1, 2)
             wc = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
             bc = b.to(dt)
@@ -1536,7 +1635,7 @@ def main() -> int:
               raw.numel() * (20 * 4 + 4), FP32_OP_PER_MS)
 
     # ---- linear: every projection of one layer of a 1024x1024 pair -------
-    plan_checks(ls, _build.lib())
+    plan_checks(ls, at, _build.lib())
     log(f"linear (per match_pair: 16 launches per layer x {N_LAYERS} layers, N={BUCKET})")
     e = 256
     m = BUCKET
@@ -1707,7 +1806,7 @@ def main() -> int:
     pair_ms = statistics.median(times)
     log(f"  keypoints {n0}/{n1} bucket {bucket[0]}x{bucket[1]} matches {len(result['matches'])} "
         f"ms_per_pair median {pair_ms:.3f} (10 repeats, min {min(times):.3f})")
-    profile_breakdown(lambda: session.match_pair(img0, img1), pair_ms)
+    profile_breakdown(lambda: session.match_pair(img0, img1), pair_ms, attribute=True)
 
     # ---- end to end against the port on the CPU, small FP32 pair ----------
     log("match_pair cuda vs cpu, FP32, 96x128, 2 layers, buckets (128, 256), threshold 0")

@@ -5,8 +5,8 @@
 // Replaces lightglue_tpu/kernels/attention.py:bidirectional_cross_attention
 // (wrapper :925, pallas_call :985, body :811-919). The TPU kernel holds one
 // S per head in VMEM and softmaxes it along both axes. Here a direction-1
-// block computes rows of S^T as qk1_j . qk0_i with the same order of
-// products over d as direction 0, so its scores are S's bit for bit.
+// block computes rows of S^T as qk1_j . qk0_i, the same products over d in
+// the same k-step order as direction 0.
 //
 // Contract (attention.py:855-910): s = quant(qk0 . qk1 * scale) once, no
 // online rescaling; per direction the kv columns >= the other image's length
@@ -20,43 +20,68 @@
 // bf16 there (ROADMAP queue 3).
 //
 // Bound on the H100: per head 2 * 2 * N0 * N1 * D FLOP for the two P.V
-// products and 2 * N0 * N1 * D for S (the TPU kernel's one S; here S is
-// computed twice), against (2 N0 + 2 N1) * D operands: tensor-core bound.
-// Design: the grid runs over (row stripe of either direction, head, pair);
-// a block keeps its 16 x Nk slab of S in shared memory (64 KB at Nk = 1024,
-// which the model's _BIDIR_MAX_N gate guarantees) and takes max, exp, sum
-// and P.V in the reference's order. A first version on the fp32 FMA units.
+// products and 2 * N0 * N1 * D for S (the TPU kernel's one S; here each
+// direction computes it twice), against (2 N0 + 2 N1) * D operands:
+// tensor-core bound (~0.013 ms at 960 x 960, B = 1, H = 4).
+//
+// The BF16 kernel (bidir_mma_kernel) is attention.cu's two-pass whole-row
+// softmax on mma.cuh's machinery, both directions in one grid:
+// - the grid runs over (the 16-row groups of direction 0, then those of
+//   direction 1; head; pair). A direction-0 block takes Q = its qk0 rows,
+//   K = qk1, V = v1; a direction-1 block Q = qk1, K = qk0, V = v0 with the
+//   lengths swapped. All four are column slices of the [qk | v] projection,
+//   addressed by the wrapper's row strides (mma.cuh:stage_rows).
+// - mma.sync m16n8k16, bf16 in, fp32 sums; Q and K by ldmatrix, V by
+//   ldmatrix.trans; Q's fragments and S stay in registers. Pass 1 computes S
+//   chunk by chunk and reduces the row max; pass 2 recomputes S with the same
+//   instructions (bit for bit), forms p and sum p, and takes P from the S
+//   accumulator into the A operand of P.V (cast to bf16 there). K (pass 1)
+//   and K and V (pass 2) stage in 64-key chunks, double buffered by 16 B
+//   cp.async. Shared memory no longer grows with N.
+// - Where it differs from attention.cu: no clamp, no RoPE, no keep or
+//   liveness operands; direction 1 keeps the cast of p to the V type before
+//   its sum (the identity at bf16 stats, the contract at fp32 stats); chunks
+//   wholly past the kv length are skipped, which is exact: with a non-empty
+//   kv side m comes from a live column and a dead p is exactly 0; an empty kv
+//   side writes its zero rows before any work.
+// - mma.cuh:fill_row_groups counted over both directions' rows, aiming for
+//   BIDIR_FILL_BLOCKS blocks, picks 4, 2 or 1 16-row groups per block
+//   (kernels/attention.py:bidir_plan mirrors it); the C = 4 / groups warps
+//   of a group split each chunk's keys and meet in shared memory, which
+//   changes only the order of fp32 sums. At 960 x 960 (B = 1, H = 4) 128
+//   blocks give 2 groups, 240 blocks, 0.049 ms; the stack attention's 256
+//   give 1 group, 480 blocks, 0.081 ms; 64 give 4 groups, 0.064 ms
+//   (scripts/tune_torch_bidir.py on an H100 at 700 W).
+//
+// The FP32 kernel (bidir_kernel, the fp32 rung) stays on the FMA units: one
+// TF32 mma would miss the 1e-4 gate. A block per 16 rows of either direction
+// keeps its 16 x Nk slab of S in shared memory (64 KB at Nk = 1024, which
+// the model's _BIDIR_MAX_N gate guarantees) and takes max, exp, sum and P.V
+// in the reference's order.
 
 #include <math.h>
 
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
-constexpr int D = 64;        // head dim
-constexpr int BQ = 16;       // query rows per block
-constexpr int KC = 64;       // keys per staged chunk
+using namespace lg;  // Operand, row_ptr and the tensor-core helpers (mma.cuh)
+
+constexpr int D = HD;        // head dim
+constexpr int BQ = 16;       // query rows per block (FP32 kernel)
 constexpr int THREADS = 256;
 constexpr float NEG = -1e30f;
+constexpr int BIDIR_FILL_BLOCKS = 128;  // blocks the BF16 kernel's row-group rule aims for
 
-struct Operand {
-  const void* ptr;
-  long long batch_stride, row_stride;  // in elements
-};
+// ---------------------------------------------------------------------------
+// The FP32 kernel: products on the FMA units
+// ---------------------------------------------------------------------------
 
-template <typename T>
-__device__ __forceinline__ const T* row_ptr(const Operand& o, int b, int row,
-                                            int h) {
-  return static_cast<const T*>(o.ptr) + b * o.batch_stride +
-         (long long)row * o.row_stride + h * D;
-}
-
-template <typename T>
 __global__ void __launch_bounds__(THREADS, 2)
-bidir_kernel(Operand qk0, Operand qk1, Operand v0, Operand v1,
-             const int* __restrict__ lens, T* __restrict__ o0,
-             T* __restrict__ o1, int N0, int N1, int H, float scale,
+bidir_kernel(Operand qk0, Operand qk1, Operand v0, Operand v1, const int* __restrict__ lens,
+             float* __restrict__ o0, float* __restrict__ o1, int N0, int N1, int H, float scale,
              int quant, int stripes0) {
+  using T = float;
   extern __shared__ float smem[];
   const int bx = blockIdx.x;
   const bool dir1 = bx >= stripes0;  // image 1's rows attend to image 0
@@ -85,14 +110,14 @@ bidir_kernel(Operand qk0, Operand qk1, Operand v0, Operand v1,
 #pragma unroll
     for (int rr = 0; rr < BQ / 4; ++rr) {
       const int gi = i0 + r0 + 4 * rr;
-      if (gi < Nq) ob[gi * out_row + cj] = lg::from_f<T>(0.f);
+      if (gi < Nq) ob[gi * out_row + cj] = 0.f;
     }
     return;
   }
 
   for (int i = tid; i < BQ * D; i += THREADS) {
     const int r = i / D, d = i % D;
-    qs[i] = i0 + r < Nq ? lg::to_f(row_ptr<T>(q, b, i0 + r, h)[d]) : 0.f;
+    qs[i] = i0 + r < Nq ? row_ptr<T>(q, b, h, i0 + r)[d] : 0.f;
   }
 
   // this direction's rows of S (or S^T): quant(dot * scale), products in
@@ -102,7 +127,7 @@ bidir_kernel(Operand qk0, Operand qk1, Operand v0, Operand v1,
     __syncthreads();  // q rows loaded, or the previous chunk is done
     for (int i = tid; i < KC * D; i += THREADS) {
       const int j = i / D, d = i % D;
-      kv[j * (D + 1) + d] = j < jn ? lg::to_f(row_ptr<T>(k, b, j0 + j, h)[d]) : 0.f;
+      kv[j * (D + 1) + d] = j < jn ? row_ptr<T>(k, b, h, j0 + j)[d] : 0.f;
     }
     __syncthreads();
     if (cj < jn) {
@@ -132,27 +157,27 @@ bidir_kernel(Operand qk0, Operand qk1, Operand v0, Operand v1,
     for (int j = lane; j < Nk; j += 32) {
       const float p = lg::quant_stat(expf(srow[j] - m), quant);
       srow[j] = p;
-      sum += dir1 ? lg::round_to<T>(p) : p;
+      sum += p;  // direction 1's cast to the V type is the identity in fp32
     }
     sum = lg::quant_stat(lg::warp_sum(sum), quant);
     if (lane == 0) ls[r] = sum;
   }
 
-  // O = P.V with P cast to the V type, divided by l in fp32
+  // O = P.V, divided by l in fp32
   float acc[BQ / 4] = {};
   for (int j0 = 0; j0 < Nk; j0 += KC) {
     const int jn = min(KC, Nk - j0);
     __syncthreads();  // the stats pass, or the previous chunk, is done
     for (int i = tid; i < KC * D; i += THREADS) {
       const int j = i / D, d = i % D;
-      kv[j * (D + 1) + d] = j < jn ? lg::to_f(row_ptr<T>(v, b, j0 + j, h)[d]) : 0.f;
+      kv[j * (D + 1) + d] = j < jn ? row_ptr<T>(v, b, h, j0 + j)[d] : 0.f;
     }
     __syncthreads();
     for (int j = 0; j < jn; ++j) {
       const float vv = kv[j * (D + 1) + cj];
 #pragma unroll
       for (int rr = 0; rr < BQ / 4; ++rr)
-        acc[rr] = fmaf(lg::round_to<T>(ss[(r0 + 4 * rr) * Nk + j0 + j]), vv, acc[rr]);
+        acc[rr] = fmaf(ss[(r0 + 4 * rr) * Nk + j0 + j], vv, acc[rr]);
     }
   }
 
@@ -162,30 +187,270 @@ bidir_kernel(Operand qk0, Operand qk1, Operand v0, Operand v1,
     const int gi = i0 + r;
     if (gi >= Nq) continue;
     const float l = ls[r];
-    const float val = gi < lq ? acc[rr] / (l == 0.f ? 1.f : l) : 0.f;
-    ob[gi * out_row + cj] = lg::from_f<T>(val);
+    ob[gi * out_row + cj] = gi < lq ? acc[rr] / (l == 0.f ? 1.f : l) : 0.f;
   }
 }
 
-template <typename T>
-int launch(Operand qk0, Operand qk1, Operand v0, Operand v1, const void* lens,
-           void* o0, void* o1, int B, int N0, int N1, int H, float scale,
-           int quant, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (BQ * D + KC * (D + 1) + BQ * max(N0, N1) + BQ);
+// ---------------------------------------------------------------------------
+// The BF16 kernel: both products on the tensor cores (mma.sync m16n8k16)
+// ---------------------------------------------------------------------------
+
+template <int C>
+__global__ void __launch_bounds__(WARPS * 32)
+bidir_mma_kernel(Operand qk0, Operand qk1, Operand v0, Operand v1, const int* __restrict__ lens,
+                 bf16_t* __restrict__ o0, bf16_t* __restrict__ o1, int N0, int N1, int H,
+                 float scale, int quant, int blocks0, int aligned) {
+  constexpr int BR = 16 * (WARPS / C);  // rows per block
+  constexpr int KW = KC / C;            // keys of each chunk per warp
+  constexpr int NT = KW / 8;            // S n-tiles per warp and chunk
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16_t* qs = reinterpret_cast<bf16_t*>(smem_raw);             // [BR][LD]
+  bf16_t* kv = qs + BR * LD;                                    // [2][K, V][KC][LD]
+  float* red = reinterpret_cast<float*>(kv + 2 * 2 * KC * LD);  // C > 1: [WARPS][16][RS]
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int rg = warp / C, part = warp % C;  // 16-row group, share of each chunk's keys
+  const int g = lane / 4, t4 = lane % 4;     // mma fragment row and column pair
+  const int mi = lane / 8, mr = lane % 8;    // ldmatrix matrix and row of this lane
+  const bool dir1 = blockIdx.x >= blocks0;   // image 1's rows attend to image 0
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int i0 = (dir1 ? blockIdx.x - blocks0 : blockIdx.x) * BR;
+  const Operand q = dir1 ? qk1 : qk0;
+  const Operand k = dir1 ? qk0 : qk1;
+  const Operand v = dir1 ? v0 : v1;
+  const int Nq = dir1 ? N1 : N0, Nk = dir1 ? N0 : N1;
+  const int lq = lens ? lens[2 * b + dir1] : Nq;
+  // keys that can be live: the other image's valid prefix
+  const int live_k = lens ? max(min(lens[2 * b + !dir1], Nk), 0) : Nk;
+  bf16_t* ob = (dir1 ? o1 : o0) + (size_t)b * Nq * H * D + h * D;  // row gi at ob + gi * H * D
+
+  if (i0 >= lq || live_k == 0) {  // padded rows, or an empty kv side: zeros
+    for (int i = tid; i < BR * D; i += blockDim.x)
+      if (i0 + i / D < Nq) ob[(size_t)(i0 + i / D) * H * D + i % D] = __float2bfloat16(0.f);
+    return;
+  }
+
+  // Q into registers: this warp's 16 rows as 4 A fragments
+  stage_rows(qs, q, b, h, i0, BR, min(BR, Nq - i0), aligned);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  unsigned qf[D / 16][4];
+#pragma unroll
+  for (int kk16 = 0; kk16 < D / 16; ++kk16)
+    ldsm_x4(qf[kk16], qs + (rg * 16 + mr + (mi & 1) * 8) * LD + kk16 * 16 + (mi >> 1) * 8);
+
+  // chunks over the live keys, two buffers: chunk c + 1 copies while chunk c
+  // is in use
+  const int nc = (live_k + KC - 1) / KC;
+  auto kbuf = [&](int c) { return kv + (c & 1) * 2 * KC * LD; };
+  auto fetch = [&](int c, bool with_v) {
+    const int jn = min(KC, Nk - c * KC);
+    stage_rows(kbuf(c), k, b, h, c * KC, KC, jn, aligned);
+    if (with_v) stage_rows(kbuf(c) + KC * LD, v, b, h, c * KC, KC, jn, aligned);
+    cp_async_commit();
+  };
+  auto land = [&](int c) {  // chunk c has landed (chunk c + 1 may be in flight)
+    if (c + 1 < nc)
+      cp_async_wait<1>();
+    else
+      cp_async_wait<0>();
+    __syncthreads();
+  };
+  // s = quant(Q.K^T * scale) over this warp's KW keys of chunk c. Pad
+  // columns past Nk are -inf (no part in max, p or sum p); columns at or
+  // past the kv length are -1e30, as the reference sets them. Only the
+  // chunk that holds the kv length or Nk has any; one select per element
+  // (no branches) there.
+  auto scores = [&](float (&s)[NT][4], int c) {
+    const bf16_t* kb = kbuf(c) + part * KW * LD;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int kk16 = 0; kk16 < D / 16; ++kk16) {
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        unsigned r[4];
+        ldsm_x4(r, kb + (np * 16 + mr + (mi >> 1) * 8) * LD + kk16 * 16 + (mi & 1) * 8);
+        mma_bf16(s[2 * np], qf[kk16], r[0], r[1]);
+        mma_bf16(s[2 * np + 1], qf[kk16], r[2], r[3]);
+      }
+    }
+    const int c0 = c * KC;
+    const bool ragged = c0 + KC > live_k;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = c0 + part * KW + n * 8 + 2 * t4 + (e & 1);
+        float x = lg::quant_stat(s[n][e] * scale, quant);
+        if (ragged) x = col >= Nk ? -INFINITY : (col >= live_k ? NEG : x);
+        s[n][e] = x;
+      }
+    }
+  };
+
+  // pass 1: the row max
+  float mx[2] = {-INFINITY, -INFINITY};
+  fetch(0, false);
+  for (int c = 0; c < nc; ++c) {
+    if (c + 1 < nc) fetch(c + 1, false);  // the buffer of chunk c - 1
+    land(c);
+    float s[NT][4];
+    scores(s, c);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
+    }
+    __syncthreads();  // this buffer is free for the next fetch
+  }
+  mx[0] = quad_max(mx[0]);
+  mx[1] = quad_max(mx[1]);
+  if (C > 1) {
+    if (t4 == 0) {
+      red[(warp * 16 + g) * RS] = mx[0];
+      red[(warp * 16 + g + 8) * RS] = mx[1];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int w = 0; w < C; ++w) {
+      mx[0] = fmaxf(mx[0], red[((rg * C + w) * 16 + g) * RS]);
+      mx[1] = fmaxf(mx[1], red[((rg * C + w) * 16 + g + 8) * RS]);
+    }
+    __syncthreads();
+  }
+  const float m[2] = {lg::quant_stat(mx[0], quant), lg::quant_stat(mx[1], quant)};
+
+  // pass 2: the same S again, p, sum p and P.V with P cast to bf16
+  float ps[2] = {0.f, 0.f};
+  float pv[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) pv[n][0] = pv[n][1] = pv[n][2] = pv[n][3] = 0.f;
+  fetch(0, true);
+  for (int c = 0; c < nc; ++c) {
+    if (c + 1 < nc) fetch(c + 1, true);
+    land(c);
+    float s[NT][4];
+    scores(s, c);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = lg::quant_stat(expf(s[n][e] - m[e / 2]), quant);
+        s[n][e] = p;
+        ps[e / 2] += dir1 ? lg::round_to<bf16_t>(p) : p;  // direction 1 sums P in the V type
+      }
+    }
+    const bf16_t* vb = kbuf(c) + KC * LD + part * KW * LD;
+#pragma unroll
+    for (int kk16 = 0; kk16 < NT / 2; ++kk16) {  // 16 keys per k step
+      const unsigned a[4] = {pack_bf16(s[2 * kk16][0], s[2 * kk16][1]),
+                             pack_bf16(s[2 * kk16][2], s[2 * kk16][3]),
+                             pack_bf16(s[2 * kk16 + 1][0], s[2 * kk16 + 1][1]),
+                             pack_bf16(s[2 * kk16 + 1][2], s[2 * kk16 + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        unsigned r[4];
+        ldsm_x4_trans(r, vb + (kk16 * 16 + mr + (mi & 1) * 8) * LD + dp * 16 + (mi >> 1) * 8);
+        mma_bf16(pv[2 * dp], a, r[0], r[1]);
+        mma_bf16(pv[2 * dp + 1], a, r[2], r[3]);
+      }
+    }
+    __syncthreads();  // this buffer is free for the next fetch
+  }
+  ps[0] = quad_sum(ps[0]);
+  ps[1] = quad_sum(ps[1]);
+  if (C > 1) {  // the C warps of a row group add their parts in one order
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float* rec = red + (warp * 16 + g + 8 * i) * RS;
+      if (t4 == 0) rec[1] = ps[i];
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<float2*>(rec + 2 + n * 8 + 2 * t4) =
+            make_float2(pv[n][2 * i], pv[n][2 * i + 1]);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      ps[i] = 0.f;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) pv[n][2 * i] = pv[n][2 * i + 1] = 0.f;
+#pragma unroll
+      for (int w = 0; w < C; ++w) {
+        const float* rec = red + ((rg * C + w) * 16 + g + 8 * i) * RS;
+        ps[i] += rec[1];
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          const float2 x = *reinterpret_cast<const float2*>(rec + 2 + n * 8 + 2 * t4);
+          pv[n][2 * i] += x.x;
+          pv[n][2 * i + 1] += x.y;
+        }
+      }
+    }
+  }
+
+  if (part != 0) return;  // the C warps of a row group hold the same rows
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int gi = i0 + rg * 16 + g + 8 * i;
+    if (gi >= Nq) continue;
+    const float l = lg::quant_stat(ps[i], quant);
+    const float den = l == 0.f ? 1.f : l;
+    const bool zero = gi >= lq;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const float x0 = zero ? 0.f : pv[n][2 * i] / den, x1 = zero ? 0.f : pv[n][2 * i + 1] / den;
+      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)gi * H * D + n * 8 + 2 * t4) =
+          __floats2bfloat162_rn(x0, x1);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launches
+// ---------------------------------------------------------------------------
+
+int launch_fma(Operand qk0, Operand qk1, Operand v0, Operand v1, const void* lens, void* o0,
+               void* o1, int B, int N0, int N1, int H, float scale, int quant,
+               cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (BQ * D + KC * (D + 1) + BQ * max(N0, N1) + BQ);
   static size_t opted_in = 48 * 1024;  // raised once per size, not per launch
   if (smem > opted_in) {
-    cudaError_t err = cudaFuncSetAttribute(
-        bidir_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+    cudaError_t err = cudaFuncSetAttribute(bidir_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     opted_in = smem;
   }
   const int stripes0 = (N0 + BQ - 1) / BQ, stripes1 = (N1 + BQ - 1) / BQ;
   dim3 grid(stripes0 + stripes1, H, B);
-  bidir_kernel<T><<<grid, THREADS, smem, stream>>>(
-      qk0, qk1, v0, v1, static_cast<const int*>(lens), static_cast<T*>(o0),
-      static_cast<T*>(o1), N0, N1, H, scale, quant, stripes0);
+  bidir_kernel<<<grid, THREADS, smem, stream>>>(qk0, qk1, v0, v1, static_cast<const int*>(lens),
+                                                static_cast<float*>(o0), static_cast<float*>(o1),
+                                                N0, N1, H, scale, quant, stripes0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int C>
+int launch_mma(Operand qk0, Operand qk1, Operand v0, Operand v1, const void* lens, void* o0,
+               void* o1, int B, int N0, int N1, int H, float scale, int quant,
+               cudaStream_t stream) {
+  const size_t smem = mma_smem(C, 2);
+  static size_t opted_in = 48 * 1024;  // raised once, not per launch
+  if (smem > opted_in) {
+    cudaError_t err = cudaFuncSetAttribute(bidir_mma_kernel<C>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted_in = smem;
+  }
+  constexpr int BR = 16 * (WARPS / C);
+  const int aligned = aligned16(qk0) && aligned16(qk1) && aligned16(v0) && aligned16(v1);
+  const int blocks0 = (N0 + BR - 1) / BR, blocks1 = (N1 + BR - 1) / BR;
+  dim3 grid(blocks0 + blocks1, H, B);
+  bidir_mma_kernel<C><<<grid, WARPS * 32, smem, stream>>>(
+      qk0, qk1, v0, v1, static_cast<const int*>(lens), static_cast<bf16_t*>(o0),
+      static_cast<bf16_t*>(o1), N0, N1, H, scale, quant, blocks0, aligned);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -194,19 +459,31 @@ int launch(Operand qk0, Operand qk1, Operand v0, Operand v1, const void* lens,
 // qk0/v0: rows of N0, qk1/v1: rows of N1; head h of a row at columns
 // [h*64, h*64 + 64), addressed by (batch, row) strides in elements. lens:
 // (B, 2) int32 [n0, n1] or null (unmasked). o0: (B, N0, H*64) and o1:
-// (B, N1, H*64) T, contiguous.
+// (B, N1, H*64) in the operands' type, contiguous. bf16 operands run
+// bidir_mma_kernel with lg_bidir_row_groups' 16-row groups per block, fp32
+// operands the FMA kernel.
 extern "C" int lg_bidirectional_cross(
     const void* qk0, long long qk0_bs, long long qk0_rs, const void* qk1,
     long long qk1_bs, long long qk1_rs, const void* v0, long long v0_bs,
     long long v0_rs, const void* v1, long long v1_bs, long long v1_rs,
     const void* lens, void* o0, void* o1, int B, int N0, int N1, int H,
     float scale, int quant, int bf16, void* stream) {
-  const Operand a{qk0, qk0_bs, qk0_rs}, c{qk1, qk1_bs, qk1_rs},
-      w0{v0, v0_bs, v0_rs}, w1{v1, v1_bs, v1_rs};
+  const Operand a{qk0, qk0_bs, D, qk0_rs}, c{qk1, qk1_bs, D, qk1_rs}, w0{v0, v0_bs, D, v0_rs},
+      w1{v1, v1_bs, D, v1_rs};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return launch<__nv_bfloat16>(a, c, w0, w1, lens, o0, o1, B, N0, N1, H,
-                                 scale, quant, s);
-  return launch<float>(a, c, w0, w1, lens, o0, o1, B, N0, N1, H, scale, quant,
-                       s);
+  if (!bf16) return launch_fma(a, c, w0, w1, lens, o0, o1, B, N0, N1, H, scale, quant, s);
+  switch (fill_row_groups(B, H, N0, N1, BIDIR_FILL_BLOCKS)) {
+    case 4:
+      return launch_mma<1>(a, c, w0, w1, lens, o0, o1, B, N0, N1, H, scale, quant, s);
+    case 2:
+      return launch_mma<2>(a, c, w0, w1, lens, o0, o1, B, N0, N1, H, scale, quant, s);
+    default:
+      return launch_mma<4>(a, c, w0, w1, lens, o0, o1, B, N0, N1, H, scale, quant, s);
+  }
+}
+
+// The 16-row groups per block of lg_bidirectional_cross's bf16 kernel at
+// this shape (the wrapper's bidir_plan is held against it).
+extern "C" int lg_bidir_row_groups(int B, int H, int N0, int N1) {
+  return fill_row_groups(B, H, N0, N1, BIDIR_FILL_BLOCKS);
 }

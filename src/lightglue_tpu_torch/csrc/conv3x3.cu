@@ -10,23 +10,48 @@
 //   conv3x3         wrapper :182, pallas_call :222, the same body: any
 //                   C_in, C_out multiple of 8, ReLU optional, any output
 //                   type (a tested variant the model does not call).
-// One templated kernel: the fixed instantiation (C_in = C_out = 64, ReLU,
-// output type = input type) is the model's, with its channel counts as
-// compile-time constants; the generic one takes C_in and C_out at run time
-// and tiles C_out over 64-channel blocks.
+// The contract kept is superpoint.py:_relu_conv's: fp32 accumulation over all
+// 9 taps x C_in, fp32 bias, ReLU, the optional 2x2 max-pool in fp32, then ONE
+// cast to the output type.
 //
 // Bound on the H100: at 2x480x640 the three 64-channel convs are ~68 GFLOP
 // against ~0.2 GB of activations, so the tensor cores bound them (~0.07 ms
-// at the bf16 peak); the C >= 128 shapes are further above the ridge. This
-// first version is a direct conv on the fp32 FMA units: one block per 8x16
-// output tile and 64 output channels, the haloed input tile and the taps'
-// weights staged in shared memory 16 input channels at a time (under the
-// 48 KB static limit, so several blocks share an SM; a chunk past C_in is
-// zero-filled), 8 pixels x 4 output channels of fp32 accumulators per
-// thread, and the bias/ReLU/pool epilogue in registers. Moving the inner
-// product onto wgmma is later work.
+// at the bf16 peak); the C >= 128 shapes are further above the ridge.
+//
+// The model's bf16 calls (C_in = C_out = 64, ReLU, bf16 out) run
+// conv3x3_mma_kernel, an implicit GEMM on the tensor cores: M = a tile's
+// output pixels, N = the 64 output channels, K = 9 taps x 64 input channels
+// (36 k16 steps of mma.sync m16n8k16, bf16 in, fp32 sums).
+// - Persistent blocks (as many as fit on the card at once) walk the 16x16
+//   output tiles; each block stages all nine taps' weights once (HWIO is
+//   [tap][ci][co], i.e. [k][n]: 72 KB, read by ldmatrix.trans as
+//   linear.cu reads the stack's weights).
+// - The haloed 18x18 input tile stages by 16 B cp.async (NHWC: a pixel's 64
+//   channels are one 128 B row, padded to mma.cuh's LD pitch so the eight
+//   rows of an ldmatrix fall in different banks), zero-filled for the SAME
+//   padding and past the image; the next tile copies while this one
+//   computes. The A fragments of tap (dy, dx) come by ldmatrix straight from
+//   the tile at that offset: no im2col copy.
+// - Eight warps, two tile rows of 16 pixels each, all 64 channels: the two
+//   m-tiles share every B fragment, and a 2x2 pool window lies in one
+//   warp (its rows in one thread, its columns in lanes 4 apart).
+// - Epilogue: fp32 acc + fp32 bias, ReLU, the pool max, one cast to bf16,
+//   through the finished input tile as a stage to 16 B stores; edge tiles
+//   are masked per pixel, so any H and W run (360x488 gives a 488-wide
+//   conv1b and a 244-wide conv2a).
+//
+// Left on the fp32 FMA units: the fp32 rung (one TF32 mma would miss its
+// 1e-4 gate) and the generic instantiation in both types (a tested variant
+// no path calls), conv3x3_kernel: one block per 8x16 output tile and 64
+// output channels, the haloed input tile and the taps' weights staged in
+// shared memory 16 input channels at a time (under the 48 KB static limit;
+// a chunk past C_in is zero-filled), 8 pixels x 4 output channels of fp32
+// accumulators per thread, and the bias/ReLU/pool epilogue in registers. Its
+// fixed instantiation (C_in = C_out = 64, ReLU) takes the channel counts as
+// compile-time constants; the generic one takes them at run time and tiles
+// C_out over 64-channel blocks.
 
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -169,6 +194,175 @@ int launch(const void* x, const void* w, const void* bias, void* y, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// The model's bf16 64 -> 64 ReLU conv on the tensor cores
+// ---------------------------------------------------------------------------
+
+using lg::bf16_t;
+using lg::LD;                  // bf16 pixel pitch in shared memory: 64 channels + 8 (144 B)
+constexpr int MT = 16;         // output tile side (pre-pool)
+constexpr int MH = MT + 2;     // haloed input tile side
+constexpr int MWARPS = MT / 2;  // warps of a block: two tile rows each
+constexpr int TILE_PIX = MH * MH;
+constexpr size_t MMA_SMEM = sizeof(bf16_t) * (9 * C + 2 * TILE_PIX) * LD;  // 176,256 B
+
+__global__ void __launch_bounds__(MWARPS * 32, 1)
+conv3x3_mma_kernel(const bf16_t* __restrict__ x, const bf16_t* __restrict__ w,
+                   const float* __restrict__ bias, bf16_t* __restrict__ y, int H, int W,
+                   int tiles_x, int tiles_y, int tiles, int pool) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16_t* ws = reinterpret_cast<bf16_t*>(smem_raw);  // [tap * 64 + ci][LD]: the weights
+  bf16_t* xs = ws + 9 * C * LD;                      // [2][TILE_PIX][LD]: input tiles
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t4 = lane % 4;   // mma fragment row and column pair
+  const int mi = lane / 8, mr = lane % 8;  // ldmatrix matrix and row of this lane
+  const int per_image = tiles_x * tiles_y;
+
+  // all nine taps' weights, once per block (in the first tile's copy group)
+  for (int s = tid; s < 9 * C * (C / 8); s += blockDim.x) {
+    const int r = s / (C / 8), c = s % (C / 8) * 8;
+    lg::cp_async16(ws + r * LD + c, w + (size_t)r * C + c);
+  }
+  float bv[C / 8][2];  // this thread's output channels n * 8 + 2 * t4 + {0, 1}
+#pragma unroll
+  for (int n = 0; n < C / 8; ++n) {
+    bv[n][0] = __ldg(bias + n * 8 + 2 * t4);
+    bv[n][1] = __ldg(bias + n * 8 + 2 * t4 + 1);
+  }
+
+  // the haloed input tile of output tile t; zeros outside the image
+  auto stage = [&](int t, bf16_t* buf) {
+    const int b = t / per_image, ty = t % per_image / tiles_x, tx = t % tiles_x;
+    const int gy0 = ty * MT - 1, gx0 = tx * MT - 1;
+    for (int s = tid; s < TILE_PIX * (C / 8); s += blockDim.x) {
+      const int p = s / (C / 8), c = s % (C / 8) * 8;
+      const int gy = gy0 + p / MH, gx = gx0 + p % MH;
+      bf16_t* d = buf + p * LD + c;
+      if (gy >= 0 && gy < H && gx >= 0 && gx < W)
+        lg::cp_async16(d, x + (((size_t)b * H + gy) * W + gx) * C + c);
+      else
+        *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  };
+
+  int t = blockIdx.x, cur = 0;
+  stage(t, xs);  // gridDim.x <= tiles
+  lg::cp_async_commit();
+  for (; t < tiles; t += gridDim.x, cur ^= 1) {
+    bf16_t* buf = xs + cur * TILE_PIX * LD;
+    if (t + gridDim.x < tiles) stage(t + gridDim.x, xs + (cur ^ 1) * TILE_PIX * LD);
+    lg::cp_async_commit();
+    lg::cp_async_wait<1>();  // the weights and tile t have landed
+    __syncthreads();
+
+    // acc[m][n]: tile row 2 * warp + m, channels n * 8.., fp32 over 9 x 64
+    float acc[2][C / 8][4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int n = 0; n < C / 8; ++n) acc[m][n][0] = acc[m][n][1] = acc[m][n][2] = acc[m][n][3] = 0.f;
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const int dy = tap / 3, dx = tap % 3;
+#pragma unroll
+      for (int k16 = 0; k16 < C / 16; ++k16) {
+        unsigned a[2][4];
+#pragma unroll
+        for (int m = 0; m < 2; ++m)  // 16 pixels of a row, shifted by the tap
+          lg::ldsm_x4(a[m], buf + ((2 * warp + m + dy) * MH + mr + (mi & 1) * 8 + dx) * LD +
+                                k16 * 16 + (mi >> 1) * 8);
+        const bf16_t* wk = ws + (tap * C + k16 * 16 + mr + (mi & 1) * 8) * LD + (mi >> 1) * 8;
+#pragma unroll
+        for (int np = 0; np < C / 16; ++np) {
+          unsigned r[4];
+          lg::ldsm_x4_trans(r, wk + np * 16);
+#pragma unroll
+          for (int m = 0; m < 2; ++m) {
+            lg::mma_bf16(acc[m][2 * np], a[m], r[0], r[1]);
+            lg::mma_bf16(acc[m][2 * np + 1], a[m], r[2], r[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with buf: it becomes the output stage
+
+    // fp32 bias, ReLU, [the pool max,] one cast, into the stage [pixel][LD]
+    if (pool) {
+#pragma unroll
+      for (int n = 0; n < C / 8; ++n)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {  // fragment rows g and g + 8
+          float v[2];
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const float top = fmaxf(acc[0][n][2 * i + j] + bv[n][j], 0.f);
+            const float bot = fmaxf(acc[1][n][2 * i + j] + bv[n][j], 0.f);
+            v[j] = fmaxf(top, bot);
+            v[j] = fmaxf(v[j], __shfl_xor_sync(0xffffffffu, v[j], 4));  // the column pair
+          }
+          if (!(g & 1))
+            *reinterpret_cast<__nv_bfloat162*>(buf + (warp * MT / 2 + (g + 8 * i) / 2) * LD +
+                                               n * 8 + 2 * t4) = __floats2bfloat162_rn(v[0], v[1]);
+        }
+    } else {
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int n = 0; n < C / 8; ++n)
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            *reinterpret_cast<__nv_bfloat162*>(buf + ((2 * warp + m) * MT + g + 8 * i) * LD +
+                                               n * 8 + 2 * t4) =
+                __floats2bfloat162_rn(fmaxf(acc[m][n][2 * i] + bv[n][0], 0.f),
+                                      fmaxf(acc[m][n][2 * i + 1] + bv[n][1], 0.f));
+    }
+    __syncwarp();
+
+    // this warp's output pixels, 16 B stores, masked at the image's edge
+    const int b = t / per_image, ty = t % per_image / tiles_x, tx = t % tiles_x;
+    const int side = pool ? MT / 2 : MT, rows = pool ? 1 : 2;
+    const int Ho = pool ? H / 2 : H, Wo = pool ? W / 2 : W;
+    for (int s = lane; s < rows * side * (C / 8); s += 32) {
+      const int p = s / (C / 8), c = s % (C / 8) * 8;
+      const int row = rows * warp + p / side;  // output row within the tile
+      const int oy = ty * side + row, ox = tx * side + p % side;
+      if (oy < Ho && ox < Wo)
+        *reinterpret_cast<uint4*>(y + (((size_t)b * Ho + oy) * Wo + ox) * C + c) =
+            *reinterpret_cast<const uint4*>(buf + (row * side + p % side) * LD + c);
+    }
+    __syncthreads();  // buf is free for the tile after next
+  }
+}
+
+int launch_mma(const void* x, const void* w, const void* bias, void* y, int B, int H, int W,
+               int pool, cudaStream_t stream) {
+  // x and w are read 16 B at a time
+  if (reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(w) % 16)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  static int resident = 0;  // blocks the card runs at once, found once
+  if (!resident) {
+    cudaError_t err = cudaFuncSetAttribute(conv3x3_mma_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(MMA_SMEM));
+    int dev = 0, sms = 0, per_sm = 0;
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, conv3x3_mma_kernel,
+                                                          MWARPS * 32, MMA_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    resident = sms * max(per_sm, 1);
+  }
+  const int tiles_x = (W + MT - 1) / MT, tiles_y = (H + MT - 1) / MT;
+  const int tiles = B * tiles_x * tiles_y;
+  conv3x3_mma_kernel<<<min(tiles, resident), MWARPS * 32, MMA_SMEM, stream>>>(
+      static_cast<const bf16_t*>(x), static_cast<const bf16_t*>(w),
+      static_cast<const float*>(bias), static_cast<bf16_t*>(y), H, W, tiles_x, tiles_y, tiles,
+      pool);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, typename O>
 int generic(const void* x, const void* w, const void* bias, void* y, int B,
             int H, int W, int Cin, int Cout, int pool, int relu, cudaStream_t s) {
@@ -181,8 +375,12 @@ int dispatch(const void* x, const void* w, const void* bias, void* y, int B,
              int H, int W, int Cin, int Cout, int pool, int relu, int bf16_out,
              cudaStream_t s) {
   const bool same = bf16_out == (sizeof(T) == 2);
-  if (Cin == C && Cout == C && relu && same)  // the model's 64 -> 64 convs
-    return launch<T, T, false, true>(x, w, bias, y, B, H, W, Cin, Cout, pool, s);
+  if (Cin == C && Cout == C && relu && same) {  // the model's 64 -> 64 convs
+    if constexpr (sizeof(T) == 2)
+      return launch_mma(x, w, bias, y, B, H, W, pool, s);
+    else
+      return launch<T, T, false, true>(x, w, bias, y, B, H, W, Cin, Cout, pool, s);
+  }
   if (bf16_out)
     return generic<T, __nv_bfloat16>(x, w, bias, y, B, H, W, Cin, Cout, pool, relu, s);
   return generic<T, float>(x, w, bias, y, B, H, W, Cin, Cout, pool, relu, s);

@@ -1,6 +1,7 @@
 // Tensor-core machinery shared by the port's bf16 kernels: flash_attn.cu
 // (fused_mha, flash_attention, the ring step), attention.cu (the layer
-// stack's attention) and linear.cu (the stack's projections).
+// stack's attention), linear.cu (the stack's projections), bidir_cross.cu
+// (both cross directions) and conv3x3.cu (SuperPoint's 64 -> 64 convs).
 //
 // - 16-byte cp.async staging into shared memory (stage_rows for the
 //   attention operands: rows of one head addressed by batch, head and row
@@ -58,10 +59,14 @@ constexpr size_t mma_smem(int C, int stages) {
 
 // 16-row groups per block (4, 2 or 1): the most that still give
 // FILL_BLOCKS blocks, else 1 (the block's warps then split each chunk's keys
-// 4 / groups ways)
-inline int fill_row_groups(int B, int H, int Nq) {
-  for (int groups = 4; groups > 1; groups /= 2)
-    if ((long long)B * H * ((Nq + 16 * groups - 1) / (16 * groups)) >= FILL_BLOCKS) return groups;
+// 4 / groups ways). Nq2: the rows of a second direction in the same grid
+// (bidir_cross.cu), 0 for one; target: the blocks to aim for.
+inline int fill_row_groups(int B, int H, int Nq, int Nq2 = 0, int target = FILL_BLOCKS) {
+  for (int groups = 4; groups > 1; groups /= 2) {
+    const int rows = 16 * groups;
+    if ((long long)B * H * ((Nq + rows - 1) / rows + (Nq2 + rows - 1) / rows) >= target)
+      return groups;
+  }
   return 1;
 }
 

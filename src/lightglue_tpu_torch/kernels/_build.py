@@ -67,6 +67,7 @@ _SIGNATURES = {
         _P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _P, _P, _I, _I, _I,
         _I, _F, _I, _I, _P,
     ],
+    "lg_bidir_row_groups": [_I, _I, _I, _I],
 }
 
 # dynamic shared memory one Hopper block may opt into (cudaFuncSetAttribute)

@@ -15,7 +15,9 @@ Counterpart of ``lightglue_tpu/kernels/attention.py``:
   the same kernel.
 - ``bidirectional_cross_attention`` (:925, pallas_call :985): both
   directions of the cross block from one S per head, row softmax for
-  0 -> 1 and column softmax for 1 -> 0, on ``csrc/bidir_cross.cu``.
+  0 -> 1 and column softmax for 1 -> 0, on ``csrc/bidir_cross.cu``: bf16
+  operands on the tensor cores at the launch plan of ``bidir_plan``, fp32
+  operands on the FMA units.
 - ``reference_attention`` (:1012): the naive fp32 oracle, for tests.
 
 Each wrapper launches its kernel on a CUDA tensor and runs its plain
@@ -49,6 +51,7 @@ _NEG_INF = -1e30
 _FMA_ROWS = 16        # csrc/flash_attn.cu: the fp32 kernel's rows per block
 _SMS = 132            # streaming multiprocessors of the H100
 _STREAM_STAGES = 2    # chunk buffers of a streamed tile (csrc: one copy in flight)
+_BIDIR_FILL_BLOCKS = 128  # csrc/bidir_cross.cu: the blocks its row-group rule aims for
 
 
 class FlashPlan(NamedTuple):
@@ -188,12 +191,35 @@ def _card_checks(name, dtype, out_dtype, stat_dtype, head_dim, tensors):
         raise NotImplementedError(f"{name}: head dim {head_dim}, the kernel takes {HEAD_DIM}")
 
 
-def _bidir_smem_check(n: int) -> None:
-    """csrc/bidir_cross.cu keeps a 16 x N slab of S in shared memory."""
-    smem = 4 * (16 * HEAD_DIM + 64 * (HEAD_DIM + 1) + 16 * n + 16)
-    if smem > _build.MAX_DYNAMIC_SMEM:
-        raise ValueError(f"bidirectional_cross_attention: a {n}-column S slab exceeds "
-                         "shared memory")
+class BidirPlan(NamedTuple):
+    """Launch of ``csrc/bidir_cross.cu`` for one shape."""
+
+    row_groups: int  # 16-row groups per block (bf16: 4, 2 or 1; fp32: 1)
+    col_split: int   # warps of a row group that split each chunk's keys
+    blocks: int      # blocks of the launch: both directions' row blocks
+    smem: int        # dynamic shared memory per block, bytes
+
+
+def bidir_plan(batch: int, heads: int, n0: int, n1: int, dtype=torch.bfloat16) -> BidirPlan:
+    """The bidirectional kernel's launch for one shape: bf16 operands at
+    ``fill_row_groups`` counted over both directions' rows and aiming for
+    128 blocks (at 960 x 960 two row groups ran 1.6x faster than the stack
+    attention's one), with two K/V chunk buffers (any N fits); fp32
+    operands a 16-row block of either direction with a 16 x max(N0, N1)
+    slab of S. Raises where the block would not fit in shared memory
+    (csrc/bidir_cross.cu)."""
+    if dtype == torch.bfloat16:
+        groups = fill_row_groups(batch, heads, n0, n1, _BIDIR_FILL_BLOCKS)
+        rows = 16 * groups
+        plan = BidirPlan(groups, _WARPS // groups,
+                         batch * heads * (-(-n0 // rows) - (-n1 // rows)), mma_smem(groups, 2))
+    else:
+        plan = BidirPlan(1, 1, batch * heads * (-(-n0 // 16) - (-n1 // 16)),
+                         4 * (16 * HEAD_DIM + _KC * (HEAD_DIM + 1) + 16 * max(n0, n1) + 16))
+    if plan.smem > _build.MAX_DYNAMIC_SMEM:
+        raise ValueError(f"bidirectional_cross_attention: a {max(n0, n1)}-column S slab "
+                         "exceeds shared memory")
+    return plan
 
 
 def _lengths_arg(lengths, bsz: int, dev):
@@ -516,9 +542,12 @@ def bidirectional_cross_attention(qk0, qk1, v0, v1, lengths=None, *, num_heads: 
 
     The projection is shared, so scores(1 -> 0) == scores(0 -> 1)^T: one S
     per head, softmax along its rows for image 0's messages and along its
-    columns for image 1's. No online rescaling: the whole S row is in hand
-    (the kernel keeps a 16 x N slab in shared memory, N <= ~3300; the model
-    calls it up to N = 1024).
+    columns for image 1's. No online rescaling: one softmax over the whole
+    row. On bf16 operands the kernel takes it in two passes on the tensor
+    cores (pass 2 recomputes S), both directions in one grid at
+    ``bidir_plan``'s launch, so any N fits; on fp32 operands it keeps a
+    16 x N slab of S in shared memory (N <= ~3300). The model calls it up to
+    N = 1024.
 
     Args:
       qk0/v0: (B, N0, H*D); qk1/v1: (B, N1, H*D), unit column stride.
@@ -534,7 +563,7 @@ def bidirectional_cross_attention(qk0, qk1, v0, v1, lengths=None, *, num_heads: 
     batch, n0, n1, head_dim = _bidir_shapes(qk0, qk1, v0, v1, num_heads)
     _card_checks("bidirectional_cross_attention", qk0.dtype, out_dtype, stat_dtype, head_dim,
                  (qk0, qk1, v0, v1))
-    _bidir_smem_check(max(n0, n1))
+    bidir_plan(batch, num_heads, n0, n1, qk0.dtype)
     lengths = _lengths_arg(lengths, batch, qk0.device)
     o0 = torch.empty(qk0.shape, dtype=qk0.dtype, device=qk0.device)
     o1 = torch.empty(qk1.shape, dtype=qk0.dtype, device=qk0.device)

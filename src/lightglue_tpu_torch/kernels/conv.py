@@ -16,8 +16,11 @@ both ``conv3x3`` here:
   is a tested variant.
 
 On a CUDA tensor ``conv3x3`` launches ``csrc/conv3x3.cu`` (see its header for
-the design and what bounds it): its fixed 64 -> 64 instantiation for the
-model's calls, its generic one for every other shape. On a CPU tensor it
+the design and what bounds it). The model's bf16 calls run an implicit GEMM
+on the tensor cores (``mma.sync``: the haloed input tile and all nine taps'
+weights in shared memory, fp32 sums, the bias/ReLU/pool epilogue in fp32 and
+one cast); the model's fp32 calls run the fixed 64 -> 64 instantiation on
+the FMA units, and every other shape the generic one. On a CPU tensor it
 runs ``conv3x3_plain``.
 """
 

@@ -69,12 +69,15 @@ _KC, _WARPS, _LD, _RS, _FILL_BLOCKS = 64, 4, HEAD_DIM + 8, 2 + HEAD_DIM + 8, 256
 _LIN_BK, _LIN_STAGES, _LIN_TILES, _LIN_MIN_BLOCKS = 64, 3, ((64, 64), (64, 32), (32, 32)), 256
 
 
-def fill_row_groups(batch: int, heads: int, nq: int) -> int:
+def fill_row_groups(batch: int, heads: int, nq: int, nq2: int = 0,
+                    target: int = _FILL_BLOCKS) -> int:
     """16-row groups per block of the bf16 attention kernels (4, 2 or 1):
-    the most that still give ``_FILL_BLOCKS`` blocks, else 1, whose four
-    warps then split each 64-key chunk (csrc/mma.cuh:fill_row_groups)."""
+    the most that still give ``target`` blocks, else 1, whose four warps
+    then split each 64-key chunk (csrc/mma.cuh:fill_row_groups). ``nq2``:
+    the rows of a second direction in the same grid (the bidirectional
+    kernel)."""
     for groups in (4, 2):
-        if batch * heads * -(-nq // (16 * groups)) >= _FILL_BLOCKS:
+        if batch * heads * (-(-nq // (16 * groups)) - (-nq2 // (16 * groups))) >= target:
             return groups
     return 1
 

@@ -198,8 +198,8 @@ def _meta(*shape, dtype=torch.bfloat16):
         (lambda: attention.flash_attention(_meta(1, 4, 128, 64), _meta(1, 4, 128, 64),
                                            _meta(1, 4, 128, 64), out_dtype=torch.float32),
          NotImplementedError),
-        (lambda: attention.bidirectional_cross_attention(
-            _meta(1, 4096, 256), _meta(1, 64, 256), _meta(1, 4096, 256), _meta(1, 64, 256),
+        (lambda: attention.bidirectional_cross_attention(  # the fp32 kernel's S slab
+            *(_meta(1, n, 256, dtype=torch.float32) for n in (4096, 64, 4096, 64)),
             num_heads=4), ValueError),
         (lambda: attention.bidirectional_cross_attention(
             _meta(1, 64, 256), _meta(1, 64, 256), _meta(1, 64, 256), _meta(1, 64, 256),
