@@ -65,6 +65,15 @@
 //   scratch (lg_rope_qk, which the wrapper launches first); the kernel then
 //   reads rotated rows. Rotating K in every block that reads it cost more
 //   than the attention at N = 2048 (flash_attn.cu, PR 5).
+// - The output type TO is bf16 (the BF16 and INT8 rungs) or fp32 (MIXED:
+//   bf16 operands, fp32 stats, o.astype(fp32) with no rounding, :472/:559).
+// - dir1 (the cross block's direction 1 at MIXED): the reference takes that
+//   direction as the column softmax of the shared S and sums p after its
+//   cast to the operand type (p1.astype(attn_dtype), then a ones-vector
+//   product, :543-549), where direction 0 and self-attention sum fp32 p
+//   (:464, :509). With dir1 the row sum takes round_to<bf16>(p), as
+//   bidir_cross.cu's direction 1 does. At bf16 stats p is already bf16 and
+//   the two rules agree.
 // - A block has 4 warps and 16 * 4 / C rows; the launch picks C so that a
 //   short grid still fills the card (mma.cuh:fill_row_groups: at B = 1,
 //   H = 4, N = 1024 one 16-row group, its four warps splitting each chunk's
@@ -217,13 +226,13 @@ attention_kernel(Operand q, Operand k, Operand v, const float* __restrict__ freq
 // The BF16 kernel: both products on the tensor cores (mma.sync m16n8k16)
 // ---------------------------------------------------------------------------
 
-template <bool KEEP, int C>
+template <bool KEEP, int C, typename TO>
 __global__ void __launch_bounds__(WARPS * 32)
 attention_mma_kernel(Operand q, Operand k, Operand v, const int* __restrict__ len_q,
                      const int* __restrict__ len_kv, const float* __restrict__ keep_q,
                      const float* __restrict__ keep_kv, const float* __restrict__ exit_reg,
-                     int layer, bf16_t* __restrict__ out, int Nq, int Nk, int H, float scale,
-                     int quant, int aligned) {
+                     int layer, TO* __restrict__ out, int Nq, int Nk, int H, float scale,
+                     int quant, int dir1, int aligned) {
   constexpr int BR = 16 * (WARPS / C);  // rows per block
   constexpr int KW = KC / C;            // keys of each chunk per warp
   constexpr int NT = KW / 8;            // S n-tiles per warp and chunk
@@ -244,11 +253,11 @@ attention_mma_kernel(Operand q, Operand k, Operand v, const int* __restrict__ le
   const int live_k = (!KEEP && len_kv) ? max(min(len_kv[b], Nk), 0) : Nk;
   const float* kq = KEEP ? keep_q + (size_t)b * Nq : nullptr;
   const float* kk = KEEP ? keep_kv + (size_t)b * Nk : nullptr;
-  bf16_t* ob = out + (size_t)b * Nq * H * D + h * D;  // row gi at ob + gi * H * D
+  TO* ob = out + (size_t)b * Nq * H * D + h * D;  // row gi at ob + gi * H * D
 
   if (!KEEP && i0 >= lq) {  // a block wholly past q_len: zeros
     for (int i = tid; i < BR * D; i += blockDim.x)
-      if (i0 + i / D < Nq) ob[(size_t)(i0 + i / D) * H * D + i % D] = __float2bfloat16(0.f);
+      if (i0 + i / D < Nq) ob[(size_t)(i0 + i / D) * H * D + i % D] = lg::from_f<TO>(0.f);
     return;
   }
 
@@ -368,8 +377,9 @@ attention_mma_kernel(Operand q, Operand k, Operand v, const int* __restrict__ le
     for (int n = 0; n < NT; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        s[n][e] = lg::quant_stat(expf(s[n][e] - m[e / 2]), quant);
-        ps[e / 2] += s[n][e];
+        const float p = lg::quant_stat(expf(s[n][e] - m[e / 2]), quant);
+        s[n][e] = p;
+        ps[e / 2] += dir1 ? lg::round_to<bf16_t>(p) : p;  // direction 1 sums P in the V type
       }
     }
     const bf16_t* vb = kbuf(c) + KC * LD + part * KW * LD;
@@ -435,8 +445,7 @@ attention_mma_kernel(Operand q, Operand k, Operand v, const int* __restrict__ le
       float x0 = pv[n][2 * i] / den, x1 = pv[n][2 * i + 1] / den;
       if (KEEP) x0 *= keep, x1 *= keep;
       if (zero) x0 = x1 = 0.f;
-      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)gi * H * D + n * 8 + 2 * t4) =
-          __floats2bfloat162_rn(x0, x1);
+      store2(ob + (size_t)gi * H * D + n * 8 + 2 * t4, x0, x1);
     }
   }
 }
@@ -469,15 +478,15 @@ int launch_fma(Operand q, Operand k, Operand v, const void* freqs, const void* l
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool KEEP, int C>
+template <bool KEEP, int C, typename TO>
 int launch_mma(Operand q, Operand k, Operand v, const void* len_q, const void* len_kv,
                const void* keep_q, const void* keep_kv, const void* exit_reg, int layer,
-               void* out, int B, int Nq, int Nk, int H, float scale, int quant,
+               void* out, int B, int Nq, int Nk, int H, float scale, int quant, int dir1,
                cudaStream_t stream) {
   const size_t smem = mma_smem(C, 2);
   static size_t opted_in = 48 * 1024;  // raised once, not per launch
   if (smem > opted_in) {
-    cudaError_t err = cudaFuncSetAttribute(attention_mma_kernel<KEEP, C>,
+    cudaError_t err = cudaFuncSetAttribute(attention_mma_kernel<KEEP, C, TO>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -486,31 +495,34 @@ int launch_mma(Operand q, Operand k, Operand v, const void* len_q, const void* l
   constexpr int BR = 16 * (WARPS / C);
   const int aligned = aligned16(q) && aligned16(k) && aligned16(v);
   dim3 grid((Nq + BR - 1) / BR, H, B);
-  attention_mma_kernel<KEEP, C><<<grid, WARPS * 32, smem, stream>>>(
+  attention_mma_kernel<KEEP, C, TO><<<grid, WARPS * 32, smem, stream>>>(
       q, k, v, static_cast<const int*>(len_q), static_cast<const int*>(len_kv),
       static_cast<const float*>(keep_q), static_cast<const float*>(keep_kv),
-      static_cast<const float*>(exit_reg), layer, static_cast<bf16_t*>(out), Nq, Nk, H, scale,
-      quant, aligned);
+      static_cast<const float*>(exit_reg), layer, static_cast<TO*>(out), Nq, Nk, H, scale,
+      quant, dir1, aligned);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool KEEP>
+template <bool KEEP, typename TO>
 int launch_bf16(Operand q, Operand k, Operand v, const void* len_q, const void* len_kv,
                 const void* keep_q, const void* keep_kv, const void* exit_reg, int layer,
-                void* out, int B, int Nq, int Nk, int H, float scale, int quant,
+                void* out, int B, int Nq, int Nk, int H, float scale, int quant, int dir1,
                 cudaStream_t s) {
   switch (fill_row_groups(B, H, Nq)) {
     case 4:
-      return launch_mma<KEEP, 1>(q, k, v, len_q, len_kv, keep_q, keep_kv, exit_reg, layer, out,
-                                 B, Nq, Nk, H, scale, quant, s);
+      return launch_mma<KEEP, 1, TO>(q, k, v, len_q, len_kv, keep_q, keep_kv, exit_reg, layer,
+                                     out, B, Nq, Nk, H, scale, quant, dir1, s);
     case 2:
-      return launch_mma<KEEP, 2>(q, k, v, len_q, len_kv, keep_q, keep_kv, exit_reg, layer, out,
-                                 B, Nq, Nk, H, scale, quant, s);
+      return launch_mma<KEEP, 2, TO>(q, k, v, len_q, len_kv, keep_q, keep_kv, exit_reg, layer,
+                                     out, B, Nq, Nk, H, scale, quant, dir1, s);
     default:
-      return launch_mma<KEEP, 4>(q, k, v, len_q, len_kv, keep_q, keep_kv, exit_reg, layer, out,
-                                 B, Nq, Nk, H, scale, quant, s);
+      return launch_mma<KEEP, 4, TO>(q, k, v, len_q, len_kv, keep_q, keep_kv, exit_reg, layer,
+                                     out, B, Nq, Nk, H, scale, quant, dir1, s);
   }
 }
+
+// operand modes of lg_attention (kernels/layer_stack.py:attention mirrors them)
+enum Mode { FP32 = 0, BF16 = 1, BF16_F32_OUT = 2 };
 
 }  // namespace
 
@@ -521,10 +533,12 @@ int launch_bf16(Operand q, Operand k, Operand v, const void* len_q, const void* 
 // rotated rows. len_q/len_kv: (B,) int32, both null for the unmasked
 // variant. keep_q/keep_kv: (B, Nq)/(B, Nk) fp32 0/1 keep masks, both null
 // or both set (then the lengths are ignored). exit_reg: (B,) fp32 or null;
-// layer: the global layer index. out: (B, Nq, H*64) T. bf16 operands run
+// layer: the global layer index. out: (B, Nq, H*64). mode: FP32 (fp32
+// operands and out, the FMA kernel), BF16 (bf16 operands and out) or
+// BF16_F32_OUT (bf16 operands, fp32 out); the bf16-operand modes run
 // attention_mma_kernel with mma.cuh:fill_row_groups' 16-row groups per
-// block (kernels/layer_stack.py:attention_plan mirrors it), fp32 operands
-// the FMA kernel.
+// block (kernels/layer_stack.py:attention_plan mirrors it). dir1: the row
+// sum takes p rounded to bf16 (the cross block's direction 1).
 extern "C" int lg_attention(const void* q, long long q_bs, long long q_rs,
                             const void* k, long long k_bs, long long k_rs,
                             const void* v, long long v_bs, long long v_rs,
@@ -532,20 +546,21 @@ extern "C" int lg_attention(const void* q, long long q_bs, long long q_rs,
                             const void* len_kv, const void* keep_q,
                             const void* keep_kv, const void* exit_reg,
                             int layer, void* out, int B, int Nq, int Nk,
-                            int H, float scale, int quant, int bf16,
+                            int H, float scale, int quant, int mode, int dir1,
                             void* stream) {
   const Operand oq{q, q_bs, D, q_rs}, ok{k, k_bs, D, k_rs}, ov{v, v_bs, D, v_rs};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool keep = keep_q != nullptr;
-  if (bf16) {
-    if (freqs) return static_cast<int>(cudaErrorInvalidValue);
-    return (keep ? launch_bf16<true> : launch_bf16<false>)(
-        oq, ok, ov, len_q, len_kv, keep_q, keep_kv, exit_reg, layer, out, B, Nq, Nk, H, scale,
-        quant, s);
-  }
-  return (keep ? launch_fma<true> : launch_fma<false>)(
-      oq, ok, ov, freqs, len_q, len_kv, keep_q, keep_kv, exit_reg, layer, out, B, Nq, Nk, H,
-      scale, quant, s);
+  if (mode == FP32)
+    return (keep ? launch_fma<true> : launch_fma<false>)(
+        oq, ok, ov, freqs, len_q, len_kv, keep_q, keep_kv, exit_reg, layer, out, B, Nq, Nk, H,
+        scale, quant, s);
+  if (freqs || (mode != BF16 && mode != BF16_F32_OUT))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto run = mode == BF16 ? (keep ? launch_bf16<true, bf16_t> : launch_bf16<false, bf16_t>)
+                          : (keep ? launch_bf16<true, float> : launch_bf16<false, float>);
+  return run(oq, ok, ov, len_q, len_kv, keep_q, keep_kv, exit_reg, layer, out, B, Nq, Nk, H,
+             scale, quant, dir1, s);
 }
 
 // The bf16 self-attention's RoPE pre-pass: q and k ((B, N, H*64) bf16 rows

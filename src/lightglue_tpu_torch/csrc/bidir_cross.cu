@@ -44,6 +44,9 @@
 //   wholly past the kv length are skipped, which is exact: with a non-empty
 //   kv side m comes from a live column and a dead p is exactly 0; an empty kv
 //   side writes its zero rows before any work.
+// - The output type TO is bf16 (the BF16 rung) or fp32 (MIXED: bf16
+//   operands, fp32 stats, an fp32 out): the same instructions up to the
+//   final store, which rounds to TO or does not.
 // - mma.cuh:fill_row_groups counted over both directions' rows, aiming for
 //   BIDIR_FILL_BLOCKS blocks, picks 4, 2 or 1 16-row groups per block
 //   (kernels/attention.py:bidir_plan mirrors it); the C = 4 / groups warps
@@ -195,10 +198,10 @@ bidir_kernel(Operand qk0, Operand qk1, Operand v0, Operand v1, const int* __rest
 // The BF16 kernel: both products on the tensor cores (mma.sync m16n8k16)
 // ---------------------------------------------------------------------------
 
-template <int C>
+template <int C, typename TO>
 __global__ void __launch_bounds__(WARPS * 32)
 bidir_mma_kernel(Operand qk0, Operand qk1, Operand v0, Operand v1, const int* __restrict__ lens,
-                 bf16_t* __restrict__ o0, bf16_t* __restrict__ o1, int N0, int N1, int H,
+                 TO* __restrict__ o0, TO* __restrict__ o1, int N0, int N1, int H,
                  float scale, int quant, int blocks0, int aligned) {
   constexpr int BR = 16 * (WARPS / C);  // rows per block
   constexpr int KW = KC / C;            // keys of each chunk per warp
@@ -222,11 +225,11 @@ bidir_mma_kernel(Operand qk0, Operand qk1, Operand v0, Operand v1, const int* __
   const int lq = lens ? lens[2 * b + dir1] : Nq;
   // keys that can be live: the other image's valid prefix
   const int live_k = lens ? max(min(lens[2 * b + !dir1], Nk), 0) : Nk;
-  bf16_t* ob = (dir1 ? o1 : o0) + (size_t)b * Nq * H * D + h * D;  // row gi at ob + gi * H * D
+  TO* ob = (dir1 ? o1 : o0) + (size_t)b * Nq * H * D + h * D;  // row gi at ob + gi * H * D
 
   if (i0 >= lq || live_k == 0) {  // padded rows, or an empty kv side: zeros
     for (int i = tid; i < BR * D; i += blockDim.x)
-      if (i0 + i / D < Nq) ob[(size_t)(i0 + i / D) * H * D + i % D] = __float2bfloat16(0.f);
+      if (i0 + i / D < Nq) ob[(size_t)(i0 + i / D) * H * D + i % D] = lg::from_f<TO>(0.f);
     return;
   }
 
@@ -402,8 +405,7 @@ bidir_mma_kernel(Operand qk0, Operand qk1, Operand v0, Operand v1, const int* __
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
       const float x0 = zero ? 0.f : pv[n][2 * i] / den, x1 = zero ? 0.f : pv[n][2 * i + 1] / den;
-      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)gi * H * D + n * 8 + 2 * t4) =
-          __floats2bfloat162_rn(x0, x1);
+      store2(ob + (size_t)gi * H * D + n * 8 + 2 * t4, x0, x1);
     }
   }
 }
@@ -431,14 +433,14 @@ int launch_fma(Operand qk0, Operand qk1, Operand v0, Operand v1, const void* len
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int C>
+template <int C, typename TO>
 int launch_mma(Operand qk0, Operand qk1, Operand v0, Operand v1, const void* lens, void* o0,
                void* o1, int B, int N0, int N1, int H, float scale, int quant,
                cudaStream_t stream) {
   const size_t smem = mma_smem(C, 2);
   static size_t opted_in = 48 * 1024;  // raised once, not per launch
   if (smem > opted_in) {
-    cudaError_t err = cudaFuncSetAttribute(bidir_mma_kernel<C>,
+    cudaError_t err = cudaFuncSetAttribute(bidir_mma_kernel<C, TO>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -448,38 +450,55 @@ int launch_mma(Operand qk0, Operand qk1, Operand v0, Operand v1, const void* len
   const int aligned = aligned16(qk0) && aligned16(qk1) && aligned16(v0) && aligned16(v1);
   const int blocks0 = (N0 + BR - 1) / BR, blocks1 = (N1 + BR - 1) / BR;
   dim3 grid(blocks0 + blocks1, H, B);
-  bidir_mma_kernel<C><<<grid, WARPS * 32, smem, stream>>>(
-      qk0, qk1, v0, v1, static_cast<const int*>(lens), static_cast<bf16_t*>(o0),
-      static_cast<bf16_t*>(o1), N0, N1, H, scale, quant, blocks0, aligned);
+  bidir_mma_kernel<C, TO><<<grid, WARPS * 32, smem, stream>>>(
+      qk0, qk1, v0, v1, static_cast<const int*>(lens), static_cast<TO*>(o0),
+      static_cast<TO*>(o1), N0, N1, H, scale, quant, blocks0, aligned);
   return static_cast<int>(cudaGetLastError());
 }
+
+template <typename TO>
+int launch_bf16(Operand qk0, Operand qk1, Operand v0, Operand v1, const void* lens, void* o0,
+                void* o1, int B, int N0, int N1, int H, float scale, int quant, cudaStream_t s) {
+  switch (fill_row_groups(B, H, N0, N1, BIDIR_FILL_BLOCKS)) {
+    case 4:
+      return launch_mma<1, TO>(qk0, qk1, v0, v1, lens, o0, o1, B, N0, N1, H, scale, quant, s);
+    case 2:
+      return launch_mma<2, TO>(qk0, qk1, v0, v1, lens, o0, o1, B, N0, N1, H, scale, quant, s);
+    default:
+      return launch_mma<4, TO>(qk0, qk1, v0, v1, lens, o0, o1, B, N0, N1, H, scale, quant, s);
+  }
+}
+
+// operand modes (kernels/attention.py mirrors them)
+enum Mode { FP32 = 0, BF16 = 1, BF16_F32_OUT = 2 };
 
 }  // namespace
 
 // qk0/v0: rows of N0, qk1/v1: rows of N1; head h of a row at columns
 // [h*64, h*64 + 64), addressed by (batch, row) strides in elements. lens:
 // (B, 2) int32 [n0, n1] or null (unmasked). o0: (B, N0, H*64) and o1:
-// (B, N1, H*64) in the operands' type, contiguous. bf16 operands run
-// bidir_mma_kernel with lg_bidir_row_groups' 16-row groups per block, fp32
-// operands the FMA kernel.
+// (B, N1, H*64), contiguous, in the mode's output type. mode: FP32 (fp32
+// operands and out, the FMA kernel), BF16 (bf16 operands and out) or
+// BF16_F32_OUT (bf16 operands, fp32 out); the bf16-operand modes run
+// bidir_mma_kernel with lg_bidir_row_groups' 16-row groups per block.
 extern "C" int lg_bidirectional_cross(
     const void* qk0, long long qk0_bs, long long qk0_rs, const void* qk1,
     long long qk1_bs, long long qk1_rs, const void* v0, long long v0_bs,
     long long v0_rs, const void* v1, long long v1_bs, long long v1_rs,
     const void* lens, void* o0, void* o1, int B, int N0, int N1, int H,
-    float scale, int quant, int bf16, void* stream) {
+    float scale, int quant, int mode, void* stream) {
   const Operand a{qk0, qk0_bs, D, qk0_rs}, c{qk1, qk1_bs, D, qk1_rs}, w0{v0, v0_bs, D, v0_rs},
       w1{v1, v1_bs, D, v1_rs};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!bf16) return launch_fma(a, c, w0, w1, lens, o0, o1, B, N0, N1, H, scale, quant, s);
-  switch (fill_row_groups(B, H, N0, N1, BIDIR_FILL_BLOCKS)) {
-    case 4:
-      return launch_mma<1>(a, c, w0, w1, lens, o0, o1, B, N0, N1, H, scale, quant, s);
-    case 2:
-      return launch_mma<2>(a, c, w0, w1, lens, o0, o1, B, N0, N1, H, scale, quant, s);
-    default:
-      return launch_mma<4>(a, c, w0, w1, lens, o0, o1, B, N0, N1, H, scale, quant, s);
+  switch (mode) {
+    case FP32:
+      return launch_fma(a, c, w0, w1, lens, o0, o1, B, N0, N1, H, scale, quant, s);
+    case BF16:
+      return launch_bf16<bf16_t>(a, c, w0, w1, lens, o0, o1, B, N0, N1, H, scale, quant, s);
+    case BF16_F32_OUT:
+      return launch_bf16<float>(a, c, w0, w1, lens, o0, o1, B, N0, N1, H, scale, quant, s);
   }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The 16-row groups per block of lg_bidirectional_cross's bf16 kernel at

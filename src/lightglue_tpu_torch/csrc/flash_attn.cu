@@ -56,6 +56,9 @@
 //   ...) is zero-padded, and its pad columns take no part in max, p or sum p.
 // - The copy, ldmatrix and mma helpers, the block layout and rope_kernel
 //   are mma.cuh's, shared with the layer stack's attention.cu.
+// - The output type TO is bf16 (the BF16 rung) or fp32 (MIXED: bf16
+//   operands, fp32 stats, an fp32 out, attention.py's out_dtype): the same
+//   instructions up to the final store, which rounds to TO or does not.
 // - RoPE (fused_mha self-attention) runs once, in rope_kernel, over q and k
 //   into a bf16 scratch the wrapper allocates; the attention kernel then
 //   reads rotated rows. Rotating K in every block that reads it cost more
@@ -312,7 +315,7 @@ flash_kernel(Operand q, Operand k, Operand v, Out o, Carries cy,
 // The BF16 kernel: both products on the tensor cores (mma.sync m16n8k16)
 // ---------------------------------------------------------------------------
 
-template <bool STEP, int C>
+template <bool STEP, int C, typename TO>
 __global__ void __launch_bounds__(WARPS * 32)
 flash_mma_kernel(Operand q, Operand k, Operand v, Out o, Carries cy, const int* __restrict__ lens,
                  int Nq, int Nk, float scale, int block_k, int quant, int stages,
@@ -354,10 +357,10 @@ flash_mma_kernel(Operand q, Operand k, Operand v, Out o, Carries cy, const int* 
       return;
     }
   }
-  bf16_t* out = STEP ? nullptr : static_cast<bf16_t*>(o.ptr) + b * o.bs + h * o.hs;
+  TO* out = STEP ? nullptr : static_cast<TO*>(o.ptr) + b * o.bs + h * o.hs;
   if (!STEP && i0 >= lq) {  // a stripe wholly past q_len: zeros
     for (int i = tid; i < BR * D; i += blockDim.x)
-      if (i0 + i / D < Nq) out[(long long)(i0 + i / D) * o.rs + i % D] = __float2bfloat16(0.f);
+      if (i0 + i / D < Nq) out[(long long)(i0 + i / D) * o.rs + i % D] = lg::from_f<TO>(0.f);
     return;
   }
 
@@ -595,8 +598,7 @@ flash_mma_kernel(Operand q, Operand k, Operand v, Out o, Carries cy, const int* 
     for (int n = 0; n < D / 8; ++n) {
       float x0 = acc[n][2 * i] / den, x1 = acc[n][2 * i + 1] / den;
       if (gi >= lq) x0 = x1 = 0.f;
-      *reinterpret_cast<__nv_bfloat162*>(out + (long long)gi * o.rs + n * 8 + 2 * t4) =
-          __floats2bfloat162_rn(x0, x1);
+      store2(out + (long long)gi * o.rs + n * 8 + 2 * t4, x0, x1);
     }
   }
 }
@@ -626,14 +628,14 @@ int launch_fma(Operand q, Operand k, Operand v, Out o, Carries cy, const void* f
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool STEP, int C>
+template <bool STEP, int C, typename TO>
 int launch_mma(Operand q, Operand k, Operand v, Out o, Carries cy, const void* lens, int B,
                int H, int Nq, int Nk, float scale, int block_k, int quant, int stages,
                cudaStream_t stream) {
   const size_t smem = mma_smem(C, stages);
   static size_t opted_in = 48 * 1024;  // raised once per size, not per launch
   if (smem > opted_in) {
-    cudaError_t err = cudaFuncSetAttribute(flash_mma_kernel<STEP, C>,
+    cudaError_t err = cudaFuncSetAttribute(flash_mma_kernel<STEP, C, TO>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -642,11 +644,34 @@ int launch_mma(Operand q, Operand k, Operand v, Out o, Carries cy, const void* l
   constexpr int BR = 16 * (WARPS / C);
   const int aligned = aligned16(q) && aligned16(k) && aligned16(v);
   dim3 grid((Nq + BR - 1) / BR, H, B);
-  flash_mma_kernel<STEP, C><<<grid, WARPS * 32, smem, stream>>>(
+  flash_mma_kernel<STEP, C, TO><<<grid, WARPS * 32, smem, stream>>>(
       q, k, v, o, cy, static_cast<const int*>(lens), Nq, Nk, scale, block_k, quant, stages,
       aligned);
   return static_cast<int>(cudaGetLastError());
 }
+
+template <bool STEP, typename TO>
+int launch_bf16(Operand q, Operand k, Operand v, Out o, Carries cy, const void* lens, int B,
+                int H, int Nq, int Nk, float scale, int block_k, int quant, int row_groups,
+                int stages, cudaStream_t s) {
+  switch (row_groups) {
+    case 4:
+      return launch_mma<STEP, 1, TO>(q, k, v, o, cy, lens, B, H, Nq, Nk, scale, block_k, quant,
+                                     stages, s);
+    case 2:
+      return launch_mma<STEP, 2, TO>(q, k, v, o, cy, lens, B, H, Nq, Nk, scale, block_k, quant,
+                                     stages, s);
+    case 1:
+      return launch_mma<STEP, 4, TO>(q, k, v, o, cy, lens, B, H, Nq, Nk, scale, block_k, quant,
+                                     stages, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// operand modes (kernels/attention.py mirrors them): FP32 (fp32 operands and
+// out), BF16 (bf16 operands and out), BF16_F32_OUT (bf16 operands, fp32 out;
+// not the ring step, which writes fp32 carries in every mode)
+enum Mode { FP32 = 0, BF16 = 1, BF16_F32_OUT = 2 };
 
 // bf16 operands on the tensor cores at the plan of kernels/attention.py:
 // flash_plan (row_groups 4, 2 or 1 16-row groups per block, `stages` chunk
@@ -655,8 +680,8 @@ int launch_mma(Operand q, Operand k, Operand v, Out o, Carries cy, const void* l
 template <bool STEP>
 int launch(Operand q, Operand k, Operand v, Out o, Carries cy, const void* freqs,
            const void* lens, int B, int H, int Nq, int Nk, float scale, int block_k, int quant,
-           int row_groups, int stages, int bf16_ops, cudaStream_t s) {
-  if (!bf16_ops) {
+           int row_groups, int stages, int mode, cudaStream_t s) {
+  if (mode == FP32) {
     if constexpr (STEP)  // the ring step has no RoPE
       return launch_fma<false, true>(q, k, v, o, cy, freqs, lens, B, H, Nq, Nk, scale, block_k,
                                      quant, s);
@@ -664,16 +689,13 @@ int launch(Operand q, Operand k, Operand v, Out o, Carries cy, const void* freqs
         q, k, v, o, cy, freqs, lens, B, H, Nq, Nk, scale, block_k, quant, s);
   }
   if (stages < min(2, (block_k + KC - 1) / KC)) return static_cast<int>(cudaErrorInvalidValue);
-  switch (row_groups) {
-    case 4:
-      return launch_mma<STEP, 1>(q, k, v, o, cy, lens, B, H, Nq, Nk, scale, block_k, quant,
-                                 stages, s);
-    case 2:
-      return launch_mma<STEP, 2>(q, k, v, o, cy, lens, B, H, Nq, Nk, scale, block_k, quant,
-                                 stages, s);
-    case 1:
-      return launch_mma<STEP, 4>(q, k, v, o, cy, lens, B, H, Nq, Nk, scale, block_k, quant,
-                                 stages, s);
+  if (mode == BF16)
+    return launch_bf16<STEP, bf16_t>(q, k, v, o, cy, lens, B, H, Nq, Nk, scale, block_k, quant,
+                                     row_groups, stages, s);
+  if constexpr (!STEP) {
+    if (mode == BF16_F32_OUT)
+      return launch_bf16<false, float>(q, k, v, o, cy, lens, B, H, Nq, Nk, scale, block_k,
+                                       quant, row_groups, stages, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -683,21 +705,22 @@ int launch(Operand q, Operand k, Operand v, Out o, Carries cy, const void* freqs
 // fused_mha: q (B, Nq, H*64), k/v (B, Nk, H*64) rows addressed by (batch,
 // row) strides in elements, head h at columns [h*64, h*64 + 64). freqs:
 // (B, 2, Nk, 64) fp32 [cos; sin] (Nq == Nk) or null for no RoPE. lens:
-// (B, 2) int32 [q_len, kv_len] or null (unmasked). out: (B, Nq, H*64) T.
-// row_groups, stages: the bf16 kernel's plan (kernels/attention.py:flash_plan).
-// rot: bf16 with RoPE, (2, B, Nq, H*64) scratch for the rotated q and k.
+// (B, 2) int32 [q_len, kv_len] or null (unmasked). out: (B, Nq, H*64) in
+// the mode's output type. row_groups, stages: the bf16 kernel's plan
+// (kernels/attention.py:flash_plan). rot: bf16 operands with RoPE,
+// (2, B, Nq, H*64) scratch for the rotated q and k.
 extern "C" int lg_fused_mha(const void* q, long long q_bs, long long q_rs,
                             const void* k, long long k_bs, long long k_rs,
                             const void* v, long long v_bs, long long v_rs,
                             const void* freqs, const void* lens, void* out, void* rot,
                             int B, int Nq, int Nk, int H, float scale,
-                            int block_k, int quant, int row_groups, int stages, int bf16,
+                            int block_k, int quant, int row_groups, int stages, int mode,
                             void* stream) {
   Operand oq{q, q_bs, D, q_rs}, ok{k, k_bs, D, k_rs};
   const Operand ov{v, v_bs, D, v_rs};
   const Out oo{out, (long long)Nq * H * D, D, (long long)H * D};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16 && freqs) {
+  if (mode != FP32 && freqs) {
     const cudaError_t err =
         rope_qk(oq, ok, static_cast<const float*>(freqs), static_cast<bf16_t*>(rot), B, Nq, H, s);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -707,28 +730,30 @@ extern "C" int lg_fused_mha(const void* q, long long q_bs, long long q_rs,
     freqs = nullptr;
   }
   return launch<false>(oq, ok, ov, oo, Carries{}, freqs, lens, B, H, Nq, Nk, scale, block_k,
-                       quant, row_groups, stages, bf16, s);
+                       quant, row_groups, stages, mode, s);
 }
 
 // flash_attention: q (B, H, Nq, 64), k/v (B, H, Nk, 64) addressed by (batch,
-// head, row) strides in elements. lens as above. out: (B, H, Nq, 64) T.
+// head, row) strides in elements. lens as above. out: (B, H, Nq, 64) in the
+// mode's output type.
 extern "C" int lg_flash_attention(
     const void* q, long long q_bs, long long q_hs, long long q_rs,
     const void* k, long long k_bs, long long k_hs, long long k_rs,
     const void* v, long long v_bs, long long v_hs, long long v_rs,
     const void* lens, void* out, int B, int H, int Nq, int Nk, float scale,
-    int block_k, int quant, int row_groups, int stages, int bf16, void* stream) {
+    int block_k, int quant, int row_groups, int stages, int mode, void* stream) {
   const Operand oq{q, q_bs, q_hs, q_rs}, ok{k, k_bs, k_hs, k_rs},
       ov{v, v_bs, v_hs, v_rs};
   const Out oo{out, (long long)H * Nq * D, (long long)Nq * D, D};
   return launch<false>(oq, ok, ov, oo, Carries{}, nullptr, lens, B, H, Nq, Nk, scale, block_k,
-                       quant, row_groups, stages, bf16, static_cast<cudaStream_t>(stream));
+                       quant, row_groups, stages, mode, static_cast<cudaStream_t>(stream));
 }
 
 // flash_attention_step: q (B, H, Nq, 64), k/v (B, H, Nk, 64) addressed by
 // (batch, head, row) strides in elements; m/l (B, H, Nq, 1) and acc
 // (B, H, Nq, 64) fp32 contiguous carries in and out (distinct buffers). lens:
 // (B, 2) int32 GLOBAL [q_len, kv_len] or null (unmasked: every stripe runs).
+// mode: FP32 or BF16 (the operands' type).
 extern "C" int lg_flash_attention_step(
     const void* q, long long q_bs, long long q_hs, long long q_rs,
     const void* k, long long k_bs, long long k_hs, long long k_rs,
@@ -736,7 +761,7 @@ extern "C" int lg_flash_attention_step(
     const void* m_in, const void* l_in, const void* acc_in, void* m_out,
     void* l_out, void* acc_out, const void* lens, int B, int H, int Nq, int Nk,
     int row0, int col0, float scale, int block_q, int block_k, int quant,
-    int row_groups, int stages, int bf16, void* stream) {
+    int row_groups, int stages, int mode, void* stream) {
   const Operand oq{q, q_bs, q_hs, q_rs}, ok{k, k_bs, k_hs, k_rs},
       ov{v, v_bs, v_hs, v_rs};
   const Out none{nullptr, 0, 0, 0};
@@ -745,5 +770,5 @@ extern "C" int lg_flash_attention_step(
                    static_cast<float*>(l_out), static_cast<float*>(acc_out),
                    row0, col0, block_q};
   return launch<true>(oq, ok, ov, none, cy, nullptr, lens, B, H, Nq, Nk, scale, block_k, quant,
-                      row_groups, stages, bf16, static_cast<cudaStream_t>(stream));
+                      row_groups, stages, mode, static_cast<cudaStream_t>(stream));
 }

@@ -8,7 +8,8 @@
 //   strides, zero-filled past the valid rows, element loads where a row
 //   does not start on 16 B);
 // - ldmatrix (.trans for an operand stored [k][n], as V and the weights)
-//   and mma.sync m16n8k16 with bf16 operands and fp32 sums;
+//   and mma.sync m16n8k16 with bf16 operands and fp32 sums; mma.sync
+//   m16n8k32 with s8 operands and s32 sums (linear.cu's W8A8 GEMM);
 // - the attention block layout: WARPS warps, 16-row groups, C warps of a
 //   group splitting each 64-key chunk, rows padded to LD elements so the
 //   eight row addresses of an ldmatrix fall in different banks; the launch
@@ -128,10 +129,31 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// d += a (16x32 s8, row) * b (32x8 s8, col), exact s32 sums (the W8A8
+// GEMM of linear.cu). Fragments: a0/a2 hold row g, a1/a3 row g + 8, each
+// four k values 4 t4..4 t4 + 3 (a2/a3: + 16); b0 holds k 4 t4..4 t4 + 3 of
+// column g, b1 the same + 16; d as mma_bf16's (g = lane / 4, t4 = lane % 4).
+__device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                       unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // two fp32 values rounded to bf16 (to nearest even), lo in the low half
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<unsigned*>(&v);
+}
+
+// two adjacent outputs in the output type: bf16 rounded to nearest even, or fp32
+__device__ __forceinline__ void store2(bf16_t* p, float lo, float hi) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(lo, hi);
+}
+__device__ __forceinline__ void store2(float* p, float lo, float hi) {
+  *reinterpret_cast<float2*>(p) = make_float2(lo, hi);
 }
 
 __device__ __forceinline__ float quad_max(float x) {

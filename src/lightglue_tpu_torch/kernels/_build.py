@@ -38,11 +38,13 @@ _SIGNATURES = {
     "lg_conv3x3": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "lg_conv2_chain": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "lg_nms_candidates": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "lg_linear": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _P],
+    "lg_linear": [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _P],
+    "lg_row_quant": [_P, _P, _I, _I, _I, _P, _P, _P],
+    "lg_linear_s8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _P],
     "lg_linear_tile": [_I, _I, ctypes.POINTER(_I)],
     "lg_attention": [
         _P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _P, _P, _P, _P, _P, _I, _P,
-        _I, _I, _I, _I, _F, _I, _I, _P,
+        _I, _I, _I, _I, _F, _I, _I, _I, _P,
     ],
     "lg_rope_qk": [_P, _L, _L, _P, _L, _L, _P, _P, _I, _I, _I, _P],
     "lg_attention_row_groups": [_I, _I, _I],

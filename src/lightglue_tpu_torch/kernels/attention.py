@@ -24,7 +24,10 @@ Each wrapper launches its kernel on a CUDA tensor and runs its plain
 PyTorch version (``*_plain``) on a CPU tensor; an unsupported shape raises
 the JAX package's ``ValueError`` on either. Rounding follows the Pallas
 kernels' points; with ``stat_dtype`` bf16 every ``_quant`` of the reference
-is a round trip through bf16.
+is a round trip through bf16. On the card the output takes the operands'
+type, or fp32 beside bf16 operands (the MIXED rung: bf16 operands, fp32
+statistics, an fp32 output); ``flash_attention_step`` always gives fp32
+carries.
 
 One deliberate departure: in ``bidirectional_cross_attention`` a direction
 whose kv side has length 0 gives 0 rows, as ``fused_mha`` and the layer
@@ -40,9 +43,9 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from lightglue_tpu_torch.kernels import _build
-from lightglue_tpu_torch.kernels.layer_stack import (_KC, _WARPS, _check_same, _is_bf16, _quant,
-                                                     _stream, apply_rotary, fill_row_groups,
-                                                     mma_smem)
+from lightglue_tpu_torch.kernels.layer_stack import (_KC, _WARPS, _check_same, _quant, _stream,
+                                                     apply_rotary, attention_mode,
+                                                     fill_row_groups, mma_smem)
 
 DEFAULT_BLOCK_Q = 1024
 DEFAULT_BLOCK_K = 1024
@@ -176,19 +179,19 @@ def _online_softmax(qh, kh, vh, lengths, *, scale, stat_dtype, block_k):
     return out
 
 
-def _card_checks(name, dtype, out_dtype, stat_dtype, head_dim, tensors):
+def _card_checks(name, dtype, out_dtype, stat_dtype, head_dim, tensors) -> int:
+    """Raises on what the kernels do not take; returns the C entry's mode
+    (``layer_stack.attention_mode``)."""
     _check_same(name, dtype, *tensors)
     for t in tensors:
         if t.stride(-1) != 1:
             raise ValueError(f"{name}: operands need unit column stride")
-    if out_dtype not in (None, dtype):
-        raise NotImplementedError(
-            f"{name}: output dtype differs from the operands (mixed-precision rung on the "
-            "card is queued)")
+    mode = attention_mode(name, dtype, out_dtype)
     if stat_dtype not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(f"{name}: stat dtype {stat_dtype}")
     if head_dim != HEAD_DIM:
         raise NotImplementedError(f"{name}: head dim {head_dim}, the kernel takes {HEAD_DIM}")
+    return mode
 
 
 class BidirPlan(NamedTuple):
@@ -269,7 +272,7 @@ def fused_mha(q, k, v, freqs=None, lengths=None, *, num_heads: int,
     Args:
       q: (B, Nq, H*D); k/v: (B, Nk, H*D), head-major columns. Any batch and
         row strides with unit column stride (column slices of one
-        projection). On the card all three share the output dtype.
+        projection), in one dtype.
       freqs: optional (B, 2, Nk, D) fp32 [cos; sin], tiled per half: RoPE
         on q and k, self-attention only (Nq == Nk).
       lengths: optional (B, 2) int [q_len, kv_len]; KV tiles past kv_len
@@ -287,14 +290,14 @@ def fused_mha(q, k, v, freqs=None, lengths=None, *, num_heads: int,
                                block_q=block_q, block_k=block_k)
     batch, nq, nk, head_dim, block_k = _fused_mha_shapes(q, k, v, freqs, num_heads,
                                                          block_q, block_k)
-    _card_checks("fused_mha", q.dtype, out_dtype, stat_dtype, head_dim, (q, k, v))
+    mode = _card_checks("fused_mha", q.dtype, out_dtype, stat_dtype, head_dim, (q, k, v))
     plan = _flash_launch("fused_mha", q.dtype, batch, num_heads, nq, block_k)
     if freqs is not None:
         if freqs.shape != (batch, 2, nk, HEAD_DIM):
             raise ValueError(f"fused_mha: freqs {tuple(freqs.shape)}")
         freqs = freqs.float().contiguous()
     lengths = _lengths_arg(lengths, batch, q.device)
-    out = torch.empty((batch, nq, q.shape[2]), dtype=q.dtype, device=q.device)
+    out = torch.empty((batch, nq, q.shape[2]), dtype=out_dtype or q.dtype, device=q.device)
     rot = None  # bf16 with RoPE: the kernel rotates q and k once into this scratch
     if freqs is not None and q.dtype == torch.bfloat16:
         rot = torch.empty((2, batch, nq, q.shape[2]), dtype=q.dtype, device=q.device)
@@ -306,7 +309,7 @@ def fused_mha(q, k, v, freqs=None, lengths=None, *, num_heads: int,
         None if lengths is None else lengths.data_ptr(),
         out.data_ptr(), None if rot is None else rot.data_ptr(), batch, nq, nk, num_heads,
         1.0 / math.sqrt(head_dim) if scale is None else float(scale), block_k,
-        int(stat_dtype == torch.bfloat16), *plan, _is_bf16(q), _stream(q),
+        int(stat_dtype == torch.bfloat16), *plan, mode, _stream(q),
     )
     _build.check(err, "fused_mha")
     fused_mha.launches += 1
@@ -361,10 +364,10 @@ def flash_attention(q, k, v, lengths=None, *, scale: Optional[float] = None,
         return flash_attention_plain(q, k, v, lengths, scale=scale, stat_dtype=stat_dtype,
                                      out_dtype=out_dtype, block_q=block_q, block_k=block_k)
     batch, heads, nq, nk, head_dim, block_k = _flash_shapes(q, k, v, block_q, block_k)
-    _card_checks("flash_attention", q.dtype, out_dtype, stat_dtype, head_dim, (q, k, v))
+    mode = _card_checks("flash_attention", q.dtype, out_dtype, stat_dtype, head_dim, (q, k, v))
     plan = _flash_launch("flash_attention", q.dtype, batch, heads, nq, block_k)
     lengths = _lengths_arg(lengths, batch, q.device)
-    out = torch.empty((batch, heads, nq, head_dim), dtype=q.dtype, device=q.device)
+    out = torch.empty((batch, heads, nq, head_dim), dtype=out_dtype or q.dtype, device=q.device)
     err = _build.lib().lg_flash_attention(
         q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
         k.data_ptr(), k.stride(0), k.stride(1), k.stride(2),
@@ -372,7 +375,7 @@ def flash_attention(q, k, v, lengths=None, *, scale: Optional[float] = None,
         None if lengths is None else lengths.data_ptr(),
         out.data_ptr(), batch, heads, nq, nk,
         1.0 / math.sqrt(head_dim) if scale is None else float(scale), block_k,
-        int(stat_dtype == torch.bfloat16), *plan, _is_bf16(q), _stream(q),
+        int(stat_dtype == torch.bfloat16), *plan, mode, _stream(q),
     )
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
@@ -460,7 +463,7 @@ def flash_attention_step(q, k, v, m, l, acc, lengths=None, row0: Optional[int] =
                                           block_k=block_k)
     batch, heads, n, nk, head_dim, block_q, block_k = _step_shapes(q, k, v, m, l, acc,
                                                                    block_q, block_k)
-    _card_checks("flash_attention_step", q.dtype, None, stat_dtype, head_dim, (q, k, v))
+    mode = _card_checks("flash_attention_step", q.dtype, None, stat_dtype, head_dim, (q, k, v))
     plan = _flash_launch("flash_attention_step", q.dtype, batch, heads, n, block_k)
     for t in (m, l, acc):
         if t.dtype != torch.float32 or t.device != q.device or not t.is_contiguous():
@@ -475,7 +478,7 @@ def flash_attention_step(q, k, v, m, l, acc, lengths=None, row0: Optional[int] =
         None if lengths is None else lengths.data_ptr(), batch, heads, n, nk,
         int(row0 or 0), int(col0 or 0),
         1.0 / math.sqrt(head_dim) if scale is None else float(scale), block_q, block_k,
-        int(stat_dtype == torch.bfloat16), *plan, _is_bf16(q), _stream(q),
+        int(stat_dtype == torch.bfloat16), *plan, mode, _stream(q),
     )
     _build.check(err, "flash_attention_step")
     flash_attention_step.launches += 1
@@ -561,12 +564,12 @@ def bidirectional_cross_attention(qk0, qk1, v0, v1, lengths=None, *, num_heads: 
             qk0, qk1, v0, v1, lengths, num_heads=num_heads, scale=scale,
             stat_dtype=stat_dtype, out_dtype=out_dtype)
     batch, n0, n1, head_dim = _bidir_shapes(qk0, qk1, v0, v1, num_heads)
-    _card_checks("bidirectional_cross_attention", qk0.dtype, out_dtype, stat_dtype, head_dim,
-                 (qk0, qk1, v0, v1))
+    mode = _card_checks("bidirectional_cross_attention", qk0.dtype, out_dtype, stat_dtype,
+                        head_dim, (qk0, qk1, v0, v1))
     bidir_plan(batch, num_heads, n0, n1, qk0.dtype)
     lengths = _lengths_arg(lengths, batch, qk0.device)
-    o0 = torch.empty(qk0.shape, dtype=qk0.dtype, device=qk0.device)
-    o1 = torch.empty(qk1.shape, dtype=qk0.dtype, device=qk0.device)
+    o0 = torch.empty(qk0.shape, dtype=out_dtype or qk0.dtype, device=qk0.device)
+    o1 = torch.empty(qk1.shape, dtype=out_dtype or qk0.dtype, device=qk0.device)
     err = _build.lib().lg_bidirectional_cross(
         qk0.data_ptr(), qk0.stride(0), qk0.stride(1),
         qk1.data_ptr(), qk1.stride(0), qk1.stride(1),
@@ -575,7 +578,7 @@ def bidirectional_cross_attention(qk0, qk1, v0, v1, lengths=None, *, num_heads: 
         None if lengths is None else lengths.data_ptr(),
         o0.data_ptr(), o1.data_ptr(), batch, n0, n1, num_heads,
         1.0 / math.sqrt(head_dim) if scale is None else float(scale),
-        int(stat_dtype == torch.bfloat16), _is_bf16(qk0), _stream(qk0),
+        int(stat_dtype == torch.bfloat16), mode, _stream(qk0),
     )
     _build.check(err, "bidirectional_cross_attention")
     bidirectional_cross_attention.launches += 1

@@ -11,12 +11,16 @@ loop over the layers launches, per layer and image, the kernels of
 - ``linear`` (``csrc/linear.cu``): every projection — fused qkv, the cross
   block's fused [qk | v], the out projections, ffn1 over cat(x, message)
   taken as two operands, ffn2 with its residual add. Bound by bytes at the
-  path's shapes (a 1024-row product moves 1.2-2.6 MB). bf16 operands run a
+  path's shapes (a 1024-row product moves 1.2-2.6 MB). bf16 products run a
   pipelined ``mma.sync`` GEMM (64-deep K chunks in a 3-buffer ``cp.async``
   ring, fp32 sums in registers) at the tile ``linear_plan`` gives: at least
   256 blocks at 1024 rows, tiles of at most 64 rows so none straddles two
-  pairs. The epilogue is JAX ``_linear``'s: round to T, add the bias in T,
-  add the residual in T.
+  pairs. The epilogue is JAX ``_linear``'s: round to the activation type T,
+  add the bias in T, add the residual in T. The GEMM takes fp32 activations
+  (MIXED, rounded to bf16 as they are staged) and int8 weights with a
+  per-channel scale (INT8, dequantized as they are staged); W8A8
+  (``LGTPU_W8A8=1`` on the INT8 rung) quantizes each activation row first
+  (``row_quant``) and multiplies int8 by int8 on the tensor cores.
 - ``attention`` (``csrc/attention.cu``): masked self-attention with RoPE and
   both cross-attention directions (one launch each), one softmax over the
   whole row (N <= 1024). Bound by the tensor cores (1.07 GFLOP per call at
@@ -34,6 +38,19 @@ loop over the layers launches, per layer and image, the kernels of
 fp32 operands (the FP32 rung) run FMA kernels in ``linear.cu`` and
 ``attention.cu``: one TF32 ``mma`` would miss the rung's 1e-4 gate.
 
+Every rung of the precision ladder runs on the card (``_LINEAR_MODES`` and
+``_ATTENTION_MODES`` list the operand types each kernel takes):
+
+- FP32: fp32 everywhere;
+- BF16: bf16 activations, operands and statistics;
+- MIXED: fp32 activations, residuals, LayerNorm and statistics, bf16
+  products; attention takes bf16 operands and gives fp32 (its direction-1
+  launch sums p after its cast to bf16, as the reference's shared-S column
+  softmax does);
+- INT8: the BF16 stack with int8 weights and fp32 per-channel scales,
+  biases and LayerNorm (the quantized tree is not cast); with
+  ``LGTPU_W8A8=1`` the projections are W8A8 (``_w8a8_default``).
+
 The adaptive stack carries a per-pair exit register (B,) fp32 and, under
 width pruning, (B, N) fp32 keep masks, both on the device. The three layer
 kernels take the register and the global layer index (``Live``) and skip
@@ -50,10 +67,12 @@ versions on any device. Rounding follows the JAX kernel's points exactly
 from __future__ import annotations
 
 import math
+import os
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from lightglue_tpu_torch import quant
 from lightglue_tpu_torch.kernels import _build
 
 MAX_SEQ = 1024  # the JAX kernel's VMEM gate, kept as the port's contract
@@ -166,54 +185,140 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _is_bf16(t: torch.Tensor) -> int:
-    return int(t.dtype == torch.bfloat16)
-
-
 def _check_same(name: str, dtype, *tensors) -> None:
     if dtype not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(f"{name}: dtype {dtype} (fp32 and bf16 only)")
     for t in tensors:
         if t is not None and (t.dtype != dtype or t.device != tensors[0].device):
             raise NotImplementedError(
-                f"{name}: operands must share dtype {dtype} and a device; got "
-                f"{t.dtype} on {t.device} (mixed-precision rung on the card is queued)"
+                f"{name}: these operands share dtype {dtype} and a device; got "
+                f"{t.dtype} on {t.device}"
             )
+
+
+_F32, _BF16, _I8 = torch.float32, torch.bfloat16, torch.int8
+
+# (operand, output) types -> the mode of lg_attention, lg_fused_mha,
+# lg_flash_attention and lg_bidirectional_cross: fp32 (the FMA kernels),
+# bf16, and bf16 operands with an fp32 output (MIXED)
+_ATTENTION_MODES = {(_F32, _F32): 0, (_BF16, _BF16): 1, (_BF16, _F32): 2}
+
+
+def attention_mode(name: str, dtype, out_dtype) -> int:
+    """The attention kernels' mode for ``dtype`` operands and an
+    ``out_dtype`` output (None: the operands'); raises for a pair no kernel
+    takes."""
+    mode = _ATTENTION_MODES.get((dtype, out_dtype or dtype))
+    if mode is None:
+        raise NotImplementedError(f"{name}: {dtype} operands with a {out_dtype} output")
+    return mode
+
+
+def _w8a8_default() -> bool:
+    """The INT8 rung's W8A8 mode: off unless ``LGTPU_W8A8`` is set to a value
+    other than "" and "0", the switch of the JAX package's ``_w8a8_default``
+    (layer_stack.py:72-82). It acts on the two stacks only (the per-block
+    route and ``forward_ring`` stay weight-only, as in JAX), and is read at
+    every stack call."""
+    return os.environ.get("LGTPU_W8A8", "0") not in ("", "0")
 
 
 # ---------------------------------------------------------------------------
 # linear
 # ---------------------------------------------------------------------------
 
+# (activations, weight, bias, output) types -> csrc/linear.cu:lg_linear's mode
+_LINEAR_MODES = {
+    (_F32, _F32, _F32, _F32): 0,      # FP32, the FMA kernel
+    (_BF16, _BF16, _BF16, _BF16): 1,  # BF16
+    (_F32, _BF16, _F32, _F32): 2,     # MIXED: fp32 activations, bf16 products
+    (_F32, _BF16, _F32, _BF16): 3,    # MIXED, the qkv and qk_v projections (bf16 out)
+    (_BF16, _I8, _F32, _BF16): 4,     # INT8 weight-only
+}
 
-def linear_plain(a, w, b, a2=None, residual=None, live: Optional[Live] = None):
+
+def row_quant_plain(a, a2=None):
+    """``row_quant`` in plain PyTorch: JAX ``_aquant`` (:339-346) over each
+    row of [a | a2]."""
+    x = (a if a2 is None else torch.cat([a, a2], dim=-1)).float()
+    sa = x.abs().amax(dim=-1, keepdim=True).clamp_min(1e-6) * (1.0 / 127.0)
+    q = torch.clamp(torch.round(x / sa), -127.0, 127.0).to(torch.int8)
+    return q, sa[..., 0]
+
+
+def row_quant(a, a2=None):
+    """W8A8's activation quantization of each row of [a | a2] (bf16, K <= 512
+    in all): sa = max(amax, 1e-6) * (1/127), q = clip(rint(v / sa), -127,
+    127). Returns (q (..., K) int8, sa (...,) fp32)."""
+    if a.device.type == "cpu":
+        return row_quant_plain(a, a2)
+    k1 = a.shape[-1]
+    k = k1 + (0 if a2 is None else a2.shape[-1])
+    for t in (a, a2):
+        if t is not None and (t.dtype != _BF16 or not t.is_contiguous()):
+            raise NotImplementedError("row_quant: contiguous bf16 rows")
+    if k > 512 or (a2 is not None and a2.shape[:-1] != a.shape[:-1]):
+        raise ValueError(f"row_quant: rows of {k} (<= 512), operands {a.shape} {a2.shape}")
+    q = torch.empty((*a.shape[:-1], k), dtype=_I8, device=a.device)
+    sa = torch.empty(a.shape[:-1], dtype=_F32, device=a.device)
+    err = _build.lib().lg_row_quant(a.data_ptr(), None if a2 is None else a2.data_ptr(), k1, k,
+                                    a.numel() // k1, q.data_ptr(), sa.data_ptr(), _stream(a))
+    _build.check(err, "row_quant")
+    row_quant.launches += 1
+    return q, sa
+
+
+row_quant.launches = 0
+
+
+def linear_plain(a, w, b, a2=None, residual=None, live: Optional[Live] = None, *,
+                 scale=None, out_dtype=None, w8a8: bool = False):
     """[a | a2] @ w + b (+ residual): fp32 accumulation of w-dtype operands,
-    cast to a's dtype, bias added in a's dtype, residual added in a's dtype.
-    With ``live`` and a residual, a retired pair's rows are the residual."""
+    cast to a's dtype, bias added in a's dtype, residual added in a's dtype,
+    one cast to ``out_dtype``. int8 ``w`` with ``scale``: the product takes
+    ``quant.dequantize`` (JAX ``_take_linear`` :245-249, the weights the
+    INT8 GEMM stages), or with ``w8a8`` the int8 rows of
+    ``row_quant_plain`` (JAX ``_linear``'s q8 branch :368-372: the exact
+    integer sum times sa times scale, rounded to bf16). With ``live`` and a
+    residual, a retired pair's rows are the residual."""
     x = a if a2 is None else torch.cat([a, a2], dim=-1)
-    y = (x.to(w.dtype).float() @ w.float()).to(a.dtype) + b.to(a.dtype)
-    if residual is None:
-        return y
-    y = y + residual
-    if live is not None:
-        y = torch.where((live.exit > live.layer).view(-1, 1, 1), y, residual)
-    return y
+    if w8a8:  # every partial sum is an integer below 2^24: exact in fp32
+        q, sa = row_quant_plain(a, a2)
+        acc = q.float() @ w.float()
+        y = ((acc * sa[..., None]) * scale.float()).to(a.dtype) + b.to(a.dtype)
+    else:
+        if scale is not None:
+            w = quant.dequantize({"w_q": w, "scale": scale})
+        y = (x.to(w.dtype).float() @ w.float()).to(a.dtype) + b.to(a.dtype)
+    if residual is not None:
+        new = y + residual
+        y = new if live is None else torch.where((live.exit > live.layer).view(-1, 1, 1), new,
+                                                 residual)
+    return y.to(out_dtype or a.dtype)
 
 
-def linear(a, w, b, a2=None, residual=None, live: Optional[Live] = None):
+def linear(a, w, b, a2=None, residual=None, live: Optional[Live] = None, *,
+           scale=None, out_dtype=None, w8a8: bool = False):
     """Y = [a | a2] @ w + b (+ residual) over the last dim.
 
     Args:
       a: (..., K1) activations; a2: optional (..., K - K1) second operand
         (the concat is never materialised); w: (K, N); b: (N,);
-        residual: optional (..., N). On the card all share one dtype.
+        residual: optional (..., N) in a's dtype. On the card the types are
+        one row of ``_LINEAR_MODES``.
+      scale: (N,) fp32 per-channel scale of an int8 ``w`` (INT8); with
+        ``w8a8`` the activation rows are quantized by ``row_quant`` (its own
+        launch) and multiplied as int8 (bf16 activations, fp32 bias).
+      out_dtype: Y's type (default a's); MIXED's bf16 output takes no
+        residual.
       live: optional liveness operand; then ``a`` is (B, N, K1) and a
         retired pair's rows are skipped (unwritten) or, with a residual,
         copied from it.
     """
     if a.device.type == "cpu":
-        return linear_plain(a, w, b, a2, residual, live)
-    _check_same("linear", a.dtype, a, w, b, a2, residual)
+        return linear_plain(a, w, b, a2, residual, live, scale=scale, out_dtype=out_dtype,
+                            w8a8=w8a8)
+    out_dtype = out_dtype or a.dtype
     k, n = w.shape
     k1 = a.shape[-1]
     lead = a.shape[:-1]
@@ -224,22 +329,53 @@ def linear(a, w, b, a2=None, residual=None, live: Optional[Live] = None):
         raise ValueError(f"linear: operands {a.shape} + {a2.shape} vs K={k}")
     if b.shape != (n,) or (residual is not None and residual.shape != (*lead, n)):
         raise ValueError("linear: bias or residual shape")
-    for t in (a, a2, w, b, residual):
+    if (w.dtype == _I8) != (scale is not None) or (
+            scale is not None and (scale.shape != (n,) or scale.dtype != _F32)):
+        raise ValueError("linear: int8 weights, and only they, take an (N,) fp32 scale")
+    for t in (a, a2, w, b, residual, scale):
         if t is not None and not t.is_contiguous():
             raise ValueError("linear: operands must be contiguous")
     rows = a.shape[1] if a.dim() == 3 else m
     if live is not None and (a.dim() != 3 or rows % 64 or live.exit.shape != (a.shape[0],)):
         raise ValueError(f"linear: liveness needs (B, N % 64 == 0, K) rows, got {a.shape}")
-    y = torch.empty((*lead, n), dtype=a.dtype, device=a.device)
-    err = _build.lib().lg_linear(
-        a.data_ptr(), None if a2 is None else a2.data_ptr(), k1,
-        w.data_ptr(), b.data_ptr(),
-        None if residual is None else residual.data_ptr(), y.data_ptr(),
-        m, n, k, *_live_args(live, rows), _is_bf16(a), _stream(a),
-    )
-    _build.check(err, "linear")
+    types = (a.dtype, w.dtype, b.dtype, out_dtype)
+    mode = _LINEAR_MODES.get(types)
+    if w8a8:
+        if types != (_BF16, _I8, _F32, _BF16) or k > 512:
+            raise NotImplementedError(f"linear: W8A8 takes bf16 rows of K <= 512, int8 weights "
+                                      f"and an fp32 bias; got {types}, K={k}")
+    elif mode is None or (mode == 3 and residual is not None):
+        raise NotImplementedError(f"linear: operand types {types} (the card takes "
+                                  f"{list(_LINEAR_MODES)})")
+    if any(t is not None and (t.dtype != a.dtype or t.device != a.device) for t in (a2, residual)):
+        raise NotImplementedError("linear: a2 and the residual share a's dtype and device")
+    y = torch.empty((*lead, n), dtype=out_dtype, device=a.device)
+    if w8a8:
+        q, sa = row_quant(a, a2)
+        linear_s8(q, sa, w, scale, b, residual, y, live, rows)
+    else:
+        err = _build.lib().lg_linear(
+            a.data_ptr(), None if a2 is None else a2.data_ptr(), k1, w.data_ptr(),
+            None if scale is None else scale.data_ptr(), b.data_ptr(),
+            None if residual is None else residual.data_ptr(), y.data_ptr(),
+            m, n, k, *_live_args(live, rows), mode, _stream(a),
+        )
+        _build.check(err, "linear")
     linear.launches += 1
     return y
+
+
+def linear_s8(q, sa, w, scale, b, residual, y, live: Optional[Live], rows: int) -> None:
+    """W8A8's GEMM, the launch ``linear`` makes after ``row_quant``: y =
+    round((float(q . w) * sa) * scale) + round(b) (+ residual) into ``y``;
+    ``linear`` counts it."""
+    m, k = q.numel() // q.shape[-1], q.shape[-1]
+    err = _build.lib().lg_linear_s8(q.data_ptr(), sa.data_ptr(), w.data_ptr(), scale.data_ptr(),
+                                    b.data_ptr(),
+                                    None if residual is None else residual.data_ptr(),
+                                    y.data_ptr(), m, w.shape[1], k, *_live_args(live, rows),
+                                    _stream(q))
+    _build.check(err, "linear")
 
 
 linear.launches = 0
@@ -271,15 +407,17 @@ def apply_rotary(freqs: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
 
 def attention_plain(q, k, v, freqs, len_q, len_kv, num_heads, stat_dtype,
                     out_dtype=None, keep_q=None, keep_kv=None,
-                    live: Optional[Live] = None):
+                    live: Optional[Live] = None, dir1: bool = False):
     """Masked multi-head attention with the reference's rounding points.
 
     q: (B, Nq, H*D), k/v: (B, Nk, H*D) in the operand dtype; freqs:
     (B, 2, N, D) fp32 or None; len_q/len_kv: (B,) ints or None;
     keep_q/keep_kv: (B, Nq)/(B, Nk) fp32 0/1 keep masks, which replace the
     lengths. The fp32 result is cast once to ``out_dtype`` (default: the
-    operand dtype). ``live`` changes nothing here: a retired pair's rows
-    are computed, where the kernel leaves them unwritten."""
+    operand dtype). ``dir1``: l sums p after its cast to the operand dtype
+    (the reference's shared-S direction 1, layer_stack.py:543-549).
+    ``live`` changes nothing here: a retired pair's rows are computed,
+    where the kernel leaves them unwritten."""
     bsz, nq, e = q.shape
     nk = k.shape[1]
     d = e // num_heads
@@ -304,7 +442,7 @@ def attention_plain(q, k, v, freqs, len_q, len_kv, num_heads, stat_dtype,
     if masked:
         m = m.clamp_min(_DEAD)
     p = _quant(torch.exp(s - m), stat_dtype)
-    l = _quant(p.sum(dim=-1, keepdim=True), stat_dtype)
+    l = _quant((p.to(dt).float() if dir1 else p).sum(dim=-1, keepdim=True), stat_dtype)
     o = (p.to(dt).float() @ vh.float()) / torch.where(l == 0.0, 1.0, l)
     if keep:
         o = o * keep_q.view(bsz, 1, nq, 1)
@@ -316,7 +454,7 @@ def attention_plain(q, k, v, freqs, len_q, len_kv, num_heads, stat_dtype,
 
 def attention(q, k, v, freqs, len_q, len_kv, num_heads, stat_dtype,
               out_dtype=None, keep_q=None, keep_kv=None,
-              live: Optional[Live] = None):
+              live: Optional[Live] = None, dir1: bool = False):
     """Multi-head attention over (B, N, H*64) rows, heads in column blocks.
 
     q, k, v may be column slices of a wider projection (any batch and row
@@ -326,18 +464,18 @@ def attention(q, k, v, freqs, len_q, len_kv, num_heads, stat_dtype,
     (B, Nq)/(B, Nk) fp32 0/1 (both or neither) mask by width pruning's keep
     vectors instead: kv columns < 0.5 are masked and output rows are scaled
     by their keep. ``live`` skips retired pairs (their rows stay unwritten).
-    Returns (B, Nq, H*64) in ``out_dtype``, which on the card must be the
-    operand dtype. On the card Nk <= 1024 (``attention_plan``); with bf16
-    operands and RoPE, q and k are rotated once into a scratch first, and
-    the pair of launches counts as one."""
+    ``dir1``: the cross block's direction 1, whose row sum takes p after
+    its cast to the operand dtype (the same at bf16 stats; at MIXED the
+    reference's rule). Returns (B, Nq, H*64) in ``out_dtype``: on the card
+    the operand dtype, or fp32 beside bf16 operands (MIXED). On the card
+    Nk <= 1024 (``attention_plan``); with bf16 operands and RoPE, q and k
+    are rotated once into a scratch first, and the pair of launches counts
+    as one."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, freqs, len_q, len_kv, num_heads,
-                               stat_dtype, out_dtype, keep_q, keep_kv, live)
+                               stat_dtype, out_dtype, keep_q, keep_kv, live, dir1)
     _check_same("attention", q.dtype, q, k, v)
-    if out_dtype not in (None, q.dtype):
-        raise NotImplementedError(
-            "attention: output dtype differs from the operands (mixed-precision "
-            "rung on the card is queued)")
+    mode = attention_mode("attention", q.dtype, out_dtype)
     bsz, nq, e = q.shape
     nk = k.shape[1]
     if e != num_heads * HEAD_DIM or k.shape[-1] != e or v.shape[:2] != k.shape[:2]:
@@ -370,7 +508,7 @@ def attention(q, k, v, freqs, len_q, len_kv, num_heads, stat_dtype,
         keep_q, keep_kv = keep_q.contiguous(), keep_kv.contiguous()
     if live is not None and live.exit.shape != (bsz,):
         raise ValueError(f"attention: exit register {tuple(live.exit.shape)} for B={bsz}")
-    out = torch.empty((bsz, nq, e), dtype=q.dtype, device=q.device)
+    out = torch.empty((bsz, nq, e), dtype=out_dtype or q.dtype, device=q.device)
     if freqs is not None and q.dtype == torch.bfloat16:
         # RoPE once per row into a scratch (2, B, N, E), which the kernel reads
         rot = torch.empty((2, bsz, nq, e), dtype=q.dtype, device=q.device)
@@ -391,7 +529,7 @@ def attention(q, k, v, freqs, len_q, len_kv, num_heads, stat_dtype,
         None if keep_kv is None else keep_kv.data_ptr(),
         *_live_args(live, nq)[:2],
         out.data_ptr(), bsz, nq, nk, num_heads, 1.0 / math.sqrt(HEAD_DIM),
-        int(stat_dtype == torch.bfloat16), _is_bf16(q), _stream(q),
+        int(stat_dtype == torch.bfloat16), mode, int(dir1), _stream(q),
     )
     _build.check(err, "attention")
     attention.launches += 1
@@ -416,13 +554,21 @@ def ln_gelu_plain(h, g, b, live: Optional[Live] = None):
     return (0.5 * n * (1.0 + torch.erf(n * (1.0 / math.sqrt(2.0))))).to(h.dtype)
 
 
+# (rows, gamma and beta) types -> csrc/ln_gelu.cu:lg_ln_gelu's mode; INT8
+# keeps LayerNorm in fp32 beside bf16 rows
+_LN_MODES = {(_F32, _F32): 0, (_BF16, _BF16): 1, (_BF16, _F32): 2}
+
+
 def ln_gelu(h, g, b, live: Optional[Live] = None):
     """GELU(LayerNorm(h) * g + b) over the last dim (<= 512), fp32 math,
-    result in h's dtype. With ``live``, h is (B, N, C) and a retired pair's
-    rows stay unwritten."""
+    result in h's dtype; g and b in h's dtype or fp32 (``_LN_MODES``). With
+    ``live``, h is (B, N, C) and a retired pair's rows stay unwritten."""
     if h.device.type == "cpu":
         return ln_gelu_plain(h, g, b, live)
-    _check_same("ln_gelu", h.dtype, h, g, b)
+    _check_same("ln_gelu", g.dtype, g, b)
+    mode = _LN_MODES.get((h.dtype, g.dtype))
+    if mode is None or h.device != g.device:
+        raise NotImplementedError(f"ln_gelu: {h.dtype} rows with {g.dtype} gamma and beta")
     c = h.shape[-1]
     if c > 512 or g.shape != (c,) or b.shape != (c,):
         raise ValueError(f"ln_gelu: width {c} (<= 512), gamma/beta {g.shape}")
@@ -434,7 +580,7 @@ def ln_gelu(h, g, b, live: Optional[Live] = None):
     err = _build.lib().lg_ln_gelu(
         h.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr(),
         h.numel() // c, c, *_live_args(live, h.shape[1] if h.dim() == 3 else 1),
-        _is_bf16(h), _stream(h),
+        mode, _stream(h),
     )
     _build.check(err, "ln_gelu")
     ln_gelu.launches += 1
@@ -519,6 +665,11 @@ def adaptive_decide_plain(x0, x1, w_tok, b_tok, exit, *, layer: int, n_layers: i
         keep.copy_(torch.where(prune & ~upd, 0.0, keep))
 
 
+# (rows, heads) types -> csrc/adaptive.cu:lg_adaptive_decide's mode; MIXED
+# rounds fp32 rows to the bf16 heads' type
+_DECIDE_MODES = {(_F32, _F32): 0, (_BF16, _BF16): 1, (_F32, _BF16): 2}
+
+
 def adaptive_decide(x0, x1, w_tok, b_tok, exit, *, layer: int, n_layers: int,
                     depth_confidence: float, lengths0=None, lengths1=None,
                     w_match=None, b_match=None, width_confidence: float = -1.0,
@@ -529,7 +680,8 @@ def adaptive_decide(x0, x1, w_tok, b_tok, exit, *, layer: int, n_layers: int,
 
     Args:
       x0/x1: (B, N0, E) / (B, N1, E) activations after the layer.
-      w_tok: (E,) token-confidence head in the attention operand dtype;
+      w_tok: (E,) token-confidence head in the attention operand dtype
+        (x's, or bf16 beside fp32 x at MIXED: x is rounded to it);
         b_tok: its fp32 bias, one element.
       exit: (B,) fp32 exit register; a pair is live iff exit > layer. A
         pair whose confident share of valid tokens exceeds
@@ -548,7 +700,11 @@ def adaptive_decide(x0, x1, w_tok, b_tok, exit, *, layer: int, n_layers: int,
             depth_confidence=depth_confidence, lengths0=lengths0, lengths1=lengths1,
             w_match=w_match, b_match=b_match, width_confidence=width_confidence,
             keep0=keep0, keep1=keep1)
-    _check_same("adaptive_decide", x0.dtype, x0, x1, w_tok, w_match)
+    _check_same("adaptive_decide", x0.dtype, x0, x1)
+    _check_same("adaptive_decide", w_tok.dtype, w_tok, w_match)
+    mode = _DECIDE_MODES.get((x0.dtype, w_tok.dtype))
+    if mode is None or x0.device != w_tok.device:
+        raise NotImplementedError(f"adaptive_decide: {x0.dtype} rows with {w_tok.dtype} heads")
     _decide_checks(x0, x1, w_tok, b_tok, exit, lengths0, lengths1, w_match, b_match,
                    keep0, keep1)
     bsz, n0, e = x0.shape
@@ -567,7 +723,7 @@ def adaptive_decide(x0, x1, w_tok, b_tok, exit, *, layer: int, n_layers: int,
         None if lengths0 is None else lengths0.data_ptr(),
         None if lengths1 is None else lengths1.data_ptr(),
         keep0.data_ptr() if width else None, keep1.data_ptr() if width else None,
-        exit.data_ptr(), layer, n_layers, depth_confidence, _is_bf16(x0), _stream(x0),
+        exit.data_ptr(), layer, n_layers, depth_confidence, mode, _stream(x0),
     )
     _build.check(err, "adaptive_decide")
     adaptive_decide.launches += 1
@@ -644,43 +800,53 @@ class _Adaptive:
 def _run_stack(layers, d0, d1, freqs0, freqs1, lengths0, lengths1, *,
                num_heads, stat_dtype, attn_dtype, ops: _Ops,
                adaptive: Optional[_Adaptive] = None):
-    if "w_q" in layers["self_attn"]["qkv"]:
-        raise NotImplementedError("int8 / W8A8 layer weights are queued for a later slice")
     e = d0.shape[-1]
     n_layers = layers["self_attn"]["ln_g"].shape[0]
     attn_dtype = attn_dtype or d0.dtype
     lens = (None, None) if lengths0 is None else (lengths0, lengths1)
     keep = (None, None) if adaptive is None or adaptive.keep is None else adaptive.keep
     freqs = (freqs0.float(), freqs1.float())
+    quantized = "w_q" in layers["self_attn"]["qkv"]
+    w8a8 = quantized and _w8a8_default()
+
+    def operands(block):  # name -> (weights, scales or None, biases), cast once per call
+        return {name: (p["w_q"], p["scale"], p["b"]) if quantized
+                else (p["w"].to(attn_dtype), None, p["b"])
+                for name, p in block.items() if isinstance(p, dict)}
+
     sp, cp = layers["self_attn"], layers["cross_attn"]
+    sw, cw = operands(sp), operands(cp)
 
-    def lin(p, name, l, x, a2=None, residual=None):
-        return ops.linear(x, p[name]["w"][l].to(attn_dtype), p[name]["b"][l],
-                          a2=a2, residual=residual, live=live)
+    def lin(ws, name, l, x, a2=None, residual=None, out_dtype=None):
+        w, scale, b = ws[name]
+        return ops.linear(x, w[l], b[l], a2=a2, residual=residual, live=live,
+                          scale=None if scale is None else scale[l], out_dtype=out_dtype,
+                          w8a8=w8a8)
 
-    def ffn(p, l, x, message):
-        h = lin(p, "ffn1", l, x, a2=message)
+    def ffn(p, ws, l, x, message):
+        h = lin(ws, "ffn1", l, x, a2=message)
         act = ops.ln_gelu(h, p["ln_g"][l], p["ln_b"][l], live=live)
-        return lin(p, "ffn2", l, act, residual=x)
+        return lin(ws, "ffn2", l, act, residual=x)
 
     def attend(q, k, v, f, i, j):  # rows of image i attend to image j
-        return ops.attention(q.to(attn_dtype), k.to(attn_dtype), v.to(attn_dtype),
-                             f, lens[i], lens[j], num_heads, stat_dtype, d0.dtype,
-                             keep_q=keep[i], keep_kv=keep[j], live=live)
+        return ops.attention(q, k, v, f, lens[i], lens[j], num_heads, stat_dtype, d0.dtype,
+                             keep_q=keep[i], keep_kv=keep[j], live=live, dir1=i == 1 and j == 0)
 
     x = [d0, d1]
     for l in range(n_layers):
         live = None if adaptive is None else adaptive.live(l)
         for i in (0, 1):  # self block, per image (the buckets may differ)
-            qkv = lin(sp, "qkv", l, x[i])  # (B, N, 3E) = [q | k | v]
+            # (B, N, 3E) = [q | k | v], in the attention operand dtype
+            qkv = lin(sw, "qkv", l, x[i], out_dtype=attn_dtype)
             ctx = attend(qkv[..., :e], qkv[..., e:2 * e], qkv[..., 2 * e:], freqs[i], i, i)
-            x[i] = ffn(sp, l, x[i], lin(sp, "out", l, ctx))
-        qk_v = [lin(cp, "qk_v", l, x[i]) for i in (0, 1)]  # (B, N, 2E) = [qk | v]
+            x[i] = ffn(sp, sw, l, x[i], lin(sw, "out", l, ctx))
+        # (B, N, 2E) = [qk | v]
+        qk_v = [lin(cw, "qk_v", l, x[i], out_dtype=attn_dtype) for i in (0, 1)]
         qk = [t[..., :e] for t in qk_v]
         v = [t[..., e:] for t in qk_v]
         msgs = (attend(qk[0], qk[1], v[1], None, 0, 1),
                 attend(qk[1], qk[0], v[0], None, 1, 0))
-        x = [ffn(cp, l, x[i], lin(cp, "out", l, msgs[i])) for i in (0, 1)]
+        x = [ffn(cp, cw, l, x[i], lin(cw, "out", l, msgs[i])) for i in (0, 1)]
         if adaptive is not None:
             adaptive.decide(ops, l, x[0], x[1])
     return x[0], x[1]

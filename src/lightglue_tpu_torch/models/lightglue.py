@@ -31,6 +31,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from lightglue_tpu_torch import quant
 from lightglue_tpu_torch.config import LightGlueConfig
 from lightglue_tpu_torch.kernels import attention, layer_stack
 from lightglue_tpu_torch.parallel import ring
@@ -39,14 +40,23 @@ from lightglue_tpu_torch.precision import DTypePolicy, precision_scope
 _NEG_INF = -1e30
 
 
+def _weight(p, dtype) -> torch.Tensor:
+    """A linear's weight in ``dtype``; an int8 one is dequantized on the fly
+    (JAX :71-77). The scale carries one value per output channel (and the
+    weight's leading axes)."""
+    if "w_q" in p:
+        return quant.dequantize({"w_q": p["w_q"], "scale": p["scale"].unsqueeze(-2)}, dtype)
+    return p["w"].to(dtype)
+
+
 def _linear(p, x: torch.Tensor) -> torch.Tensor:
-    return x @ p["w"].to(x.dtype) + p["b"].to(x.dtype)
+    return x @ _weight(p, x.dtype) + p["b"].to(x.dtype)
 
 
 def _linear_maybe_batched(p, x: torch.Tensor) -> torch.Tensor:
     """Linear whose weights may carry a leading per-pair axis (B, in, out):
     each pair of an adaptive batch uses the head of the layer it exited at."""
-    w = p["w"].to(x.dtype)
+    w = _weight(p, x.dtype)
     if w.dim() == x.dim():
         return torch.bmm(x, w) + p["b"].to(x.dtype)[:, None, :]
     return _linear(p, x)
@@ -244,9 +254,8 @@ def transformer_layers(layers, d0, d1, freqs0, freqs1, lengths0=None, lengths1=N
                        num_heads: int, policy: DTypePolicy, ops=attention.KERNEL_OPS):
     """Every stacked layer on the per-block route (the ``lax.scan`` of
     :548-567). ``ops=attention.PLAIN_OPS`` runs the same loop on the
-    attention kernels' plain versions."""
-    if "w_q" in layers["self_attn"]["qkv"]:
-        raise NotImplementedError("int8 / W8A8 layer weights are queued for a later slice")
+    attention kernels' plain versions. An int8 tree runs weight-only
+    (``_weight``), whatever ``LGTPU_W8A8`` says, as in the JAX package."""
     for i in range(layers["self_attn"]["ln_g"].shape[0]):
         d0, d1 = transformer_layer(_layer(layers, i), d0, d1, freqs0, freqs1,
                                    lengths0, lengths1, num_heads, policy, ops)
@@ -335,10 +344,9 @@ def forward_ring(
     projections, LayerNorm, GELU and the assignment run on the whole tensors
     on ``devices[0]`` (the params must be there); only attention is split.
     ``step=attention.flash_attention_step_plain`` runs the same loop on the
-    plain step.
+    plain step. An int8 tree runs weight-only (``_weight``), whatever
+    ``LGTPU_W8A8`` says, as in the JAX package.
     """
-    if "w_q" in params["layers"]["self_attn"]["qkv"]:
-        raise NotImplementedError("int8 / W8A8 layer weights are queued for a later slice")
     home = torch.device(devices[0])
     kpts0, kpts1, desc0, desc1 = (t.to(home) for t in (kpts0, kpts1, desc0, desc1))
     if lengths0 is not None:

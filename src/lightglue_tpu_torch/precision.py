@@ -1,13 +1,17 @@
 """Precision ladder as torch dtypes (counterpart of lightglue_tpu/precision.py).
 
-===========  =============================================  ================
+===========  =============================================  ===================
 rung         dtypes                                         on the card
-===========  =============================================  ================
+===========  =============================================  ===================
 FP32         fp32 everywhere, true fp32 products            kernels in fp32
-MIXED        bf16 matmul operands, fp32 stats/activations   queued (CPU only)
+MIXED        bf16 matmul operands, fp32 stats/activations   bf16-in, fp32-out
+                                                            kernels
 BF16         bf16 activations and attention statistics      kernels in bf16
-INT8         BF16 + int8 weight-only linears                queued
-===========  =============================================  ================
+INT8         bf16 activations + int8 weight-only linears    int8 weights staged
+             (fp32 scales, biases, LayerNorm); W8A8 with    as bf16; W8A8: s8
+             ``LGTPU_W8A8=1`` (the layer stack only)        mma on row-quantized
+                                                            activations
+===========  =============================================  ===================
 
 FP32 means true fp32: PyTorch runs fp32 convolutions through TF32 by default
 (``torch.backends.cudnn.allow_tf32``), which keeps ~3 decimal digits, so the

@@ -13,6 +13,13 @@ An adaptive config (``depth_confidence`` / ``width_confidence`` > 0) runs
 ``lightglue.forward_adaptive`` and maps match rows and columns, which index
 compacted (pruned) slots, back to the original keypoint indices on the
 device.
+
+Every precision rung runs on the card (``config.precision``): FP32, MIXED
+(fp32 activations and statistics, bf16 products: the kernels' mixed
+instantiations), BF16 and INT8 (``quant.quantize_lightglue``: int8 weights
+with fp32 per-channel scales, bf16 activations; the layer stack's GEMM
+dequantizes while it stages the weights, or with ``LGTPU_W8A8=1`` runs
+int8 x int8 products on row-quantized activations).
 """
 
 from __future__ import annotations
@@ -26,7 +33,8 @@ from lightglue_tpu_torch.config import PipelineConfig
 from lightglue_tpu_torch.models import lightglue, superpoint
 from lightglue_tpu_torch.pipeline.extract import Extraction, extract_keypoints
 from lightglue_tpu_torch.pipeline.match import Matches, filter_matches
-from lightglue_tpu_torch.precision import Precision, policy_for
+from lightglue_tpu_torch.precision import policy_for
+from lightglue_tpu_torch.quant import quantize_lightglue
 from lightglue_tpu_torch.runtime import weights as weights_lib
 from lightglue_tpu_torch.utils.logging import ErrorRecorder
 
@@ -63,12 +71,7 @@ class MatcherSession:
         seed: int = 0,
         device: Optional[str] = None,
     ):
-        if config.precision == Precision.INT8:
-            raise NotImplementedError("the INT8 rung is queued for a later slice")
         self.device = resolve_device(device)
-        if config.precision == Precision.MIXED and self.device.type == "cuda":
-            # the kernels take one dtype for operands and activations
-            raise NotImplementedError("the MIXED rung on the card is queued for a later slice")
         self.config = config
         self.policy = policy_for(config.precision)
         sp_params = (
@@ -80,11 +83,18 @@ class MatcherSession:
             if lg_params is None else lg_params
         )
         # SuperPoint keeps fp32 master weights (cast per call, like the JAX
-        # session's trace-time cast); LightGlue weights are cast once
+        # session's trace-time cast); LightGlue weights are cast once, or on
+        # the INT8 rung quantized to int8 with fp32 per-channel scales and
+        # NOT cast (JAX session.py:75-78): biases, LayerNorm, posenc and the
+        # heads stay fp32, so INT8 is not BF16 with dequantized weights
         self.sp_params = weights_lib.params_from_numpy(sp_params, self.device)
-        self.lg_params = weights_lib.params_from_numpy(
-            lg_params, self.device, self.policy.param_dtype
-        )
+        if self.policy.int8_weights:
+            self.lg_params = weights_lib.params_from_numpy(
+                quantize_lightglue(lg_params), self.device)
+        else:
+            self.lg_params = weights_lib.params_from_numpy(
+                lg_params, self.device, self.policy.param_dtype
+            )
         # aggregates input-validation failures so a caller sees every problem
         # with a bad batch at once
         self.errors = ErrorRecorder()

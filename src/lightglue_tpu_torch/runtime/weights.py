@@ -166,38 +166,53 @@ def _to_tensor(a, device, dtype):
 def params_from_numpy(tree, device="cpu", dtype=None) -> Dict:
     """JAX-layout numpy tree -> the port's tensor tree on ``device``.
 
-    Floating leaves are cast to ``dtype`` when one is given. Layout changes:
+    Floating leaves are cast to ``dtype`` when one is given, except an int8
+    linear's ``scale``: ``w_q`` stays int8 and ``scale`` fp32. Layout
+    changes:
 
-    - LightGlue ``layers.self_attn.qkv``: w (L, 3, E, E) -> (L, E, 3E) and
-      b (L, 3, E) -> (L, 3E), columns [q | k | v] (one projection launch);
+    - LightGlue ``layers.self_attn.qkv``: w or w_q (L, 3, E, E) -> (L, E, 3E)
+      and b (L, 3, E) -> (L, 3E), columns [q | k | v] (one projection
+      launch); an int8 scale (L, 3, 1, E) -> (L, 3E);
     - LightGlue ``layers.cross_attn``: ``qk`` and ``v`` fuse into ``qk_v``,
-      w (L, E, 2E) and b (L, 2E), columns [qk | v];
+      w or w_q (L, E, 2E) and b (L, 2E), columns [qk | v]; an int8 scale
+      (L, 1, E) each -> (L, 2E);
+    - every other int8 linear's scale takes its bias's shape ((L, 1, N) ->
+      (L, N)): one fp32 scale per output channel;
     - SuperPoint convs run by ``F.conv2d`` (conv3a..convDb): HWIO -> OIHW.
       conv1a and conv1b..conv2b keep HWIO (the tap stem and conv3x3 kernel).
     """
 
+    def leaf(key, v, node):
+        if key == "scale" and "w_q" in node:
+            return _to_tensor(np.asarray(v).reshape(np.shape(node["b"])), device, None)
+        return _to_tensor(v, device, dtype)
+
     def conv(node):
-        return {k: conv(v) if isinstance(v, dict) else _to_tensor(v, device, dtype)
+        return {k: conv(v) if isinstance(v, dict) else leaf(k, v, node)
                 for k, v in node.items()}
 
     out = conv(tree)
     if "layers" in tree:
         sa = tree["layers"]["self_attn"]
         ca = tree["layers"]["cross_attn"]
-        if "w" in sa["qkv"]:  # int8 trees are rejected by the stack itself
-            w = np.asarray(sa["qkv"]["w"])
-            nl, _, e, _ = w.shape
-            out["layers"]["self_attn"]["qkv"] = {
-                "w": _to_tensor(w.transpose(0, 2, 1, 3).reshape(nl, e, 3 * e), device, dtype),
-                "b": _to_tensor(np.asarray(sa["qkv"]["b"]).reshape(nl, 3 * e), device, dtype),
-            }
-            out["layers"]["cross_attn"]["qk_v"] = {
-                "w": _to_tensor(np.concatenate([ca["qk"]["w"], ca["v"]["w"]], axis=-1),
-                                device, dtype),
+        wk = "w" if "w" in sa["qkv"] else "w_q"
+        w = np.asarray(sa["qkv"][wk])
+        nl, _, e, _ = w.shape
+        qkv = {wk: _to_tensor(w.transpose(0, 2, 1, 3).reshape(nl, e, 3 * e), device, dtype),
+               "b": _to_tensor(np.asarray(sa["qkv"]["b"]).reshape(nl, 3 * e), device, dtype)}
+        qk_v = {wk: _to_tensor(np.concatenate([ca["qk"][wk], ca["v"][wk]], axis=-1),
+                               device, dtype),
                 "b": _to_tensor(np.concatenate([ca["qk"]["b"], ca["v"]["b"]], axis=-1),
-                                device, dtype),
-            }
-            del out["layers"]["cross_attn"]["qk"], out["layers"]["cross_attn"]["v"]
+                                device, dtype)}
+        if wk == "w_q":
+            qkv["scale"] = _to_tensor(np.asarray(sa["qkv"]["scale"]).reshape(nl, 3 * e),
+                                      device, None)
+            qk_v["scale"] = _to_tensor(
+                np.concatenate([ca["qk"]["scale"], ca["v"]["scale"]], axis=-1).reshape(nl, -1),
+                device, None)
+        out["layers"]["self_attn"]["qkv"] = qkv
+        out["layers"]["cross_attn"]["qk_v"] = qk_v
+        del out["layers"]["cross_attn"]["qk"], out["layers"]["cross_attn"]["v"]
     for name in _OIHW_CONVS:
         if name in tree:
             out[name]["w"] = _to_tensor(

@@ -195,8 +195,8 @@ def _meta(*shape, dtype=torch.bfloat16):
         (lambda: attention.fused_mha(_meta(1, 128, 256), _meta(1, 128, 256), _meta(1, 128, 256),
                                      _meta(1, 2, 64, 64, dtype=torch.float32), num_heads=4),
          ValueError),
-        (lambda: attention.flash_attention(_meta(1, 4, 128, 64), _meta(1, 4, 128, 64),
-                                           _meta(1, 4, 128, 64), out_dtype=torch.float32),
+        (lambda: attention.flash_attention(*(_meta(1, 4, 128, 64, dtype=torch.float32),) * 3,
+                                           out_dtype=torch.bfloat16),
          NotImplementedError),
         (lambda: attention.bidirectional_cross_attention(  # the fp32 kernel's S slab
             *(_meta(1, n, 256, dtype=torch.float32) for n in (4096, 64, 4096, 64)),

@@ -84,12 +84,18 @@ def test_supports_is_the_jax_gate():
 
 
 def test_quantized_layers_are_refused():
-    d = torch.zeros(1, 128, 256)
-    f = torch.zeros(1, 2, 128, 64)
-    layers = {"self_attn": {"qkv": {"w_q": None}, "ln_g": torch.zeros(1, 512)}}
+    """int8 weights run beside bf16 activations only (the INT8 rung): under
+    fp32 activations, or as W8A8 past K = 512, the card refuses them before
+    any launch (meta tensors take the kernel branch without a card)."""
+    w, scale = _meta(256, 256, dtype=torch.int8), _meta(256, dtype=torch.float32)
+    b = _meta(256, dtype=torch.float32)
     with pytest.raises(NotImplementedError):
-        layer_stack.transformer_stack(layers, d, d, f, f, None, None,
-                                      num_heads=4, head_dim=64)
+        layer_stack.linear(_meta(8, 256, dtype=torch.float32), w, b, scale=scale)
+    with pytest.raises(NotImplementedError):
+        layer_stack.linear(_meta(8, 1024), _meta(1024, 256, dtype=torch.int8), b, scale=scale,
+                           w8a8=True)
+    with pytest.raises(ValueError):  # an int8 weight without its scale
+        layer_stack.linear(_meta(8, 256), w, b)
 
 
 def _meta(*shape, dtype=torch.bfloat16):
@@ -105,9 +111,9 @@ def _meta(*shape, dtype=torch.bfloat16):
         (lambda: layer_stack.attention(_meta(1, 128, 256), _meta(1, 128, 256),
                                        _meta(1, 128, 256), None, None, None, 2,
                                        torch.bfloat16), ValueError),
-        (lambda: layer_stack.attention(_meta(1, 128, 256), _meta(1, 128, 256),
-                                       _meta(1, 128, 256), None, None, None, 4,
-                                       torch.bfloat16, torch.float32), NotImplementedError),
+        (lambda: layer_stack.attention(*(_meta(1, 128, 256, dtype=torch.float32),) * 3,
+                                       None, None, None, 4, torch.float32, torch.bfloat16),
+         NotImplementedError),
         (lambda: layer_stack.ln_gelu(_meta(8, 1024), _meta(1024), _meta(1024)), ValueError),
     ],
     ids=["linear K%16", "linear dtypes", "attention head dim", "attention out dtype",

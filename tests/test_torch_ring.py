@@ -12,6 +12,7 @@ import pytest
 import torch
 from jax.sharding import Mesh
 
+from lightglue_tpu import quant as jax_quant
 from lightglue_tpu.config import LightGlueConfig as JLGC
 from lightglue_tpu.kernels import attention as jax_attn
 from lightglue_tpu.models import lightglue as jax_lg
@@ -19,6 +20,7 @@ from lightglue_tpu.parallel import ring as jax_ring
 from lightglue_tpu.precision import Precision as JPrecision
 from lightglue_tpu.precision import policy_for as jax_policy_for
 from lightglue_tpu.runtime import weights as jax_weights
+from lightglue_tpu_torch import quant
 from lightglue_tpu_torch.config import LightGlueConfig
 from lightglue_tpu_torch.kernels import attention
 from lightglue_tpu_torch.models import lightglue
@@ -226,13 +228,17 @@ def _model_case(n_layers, precision, with_forward=False):
     lens0, lens1 = np.asarray([n, 200], np.int32), np.asarray([173, n], np.int32)
     tree = jax_weights.init_lightglue(0, JLGC(n_layers=n_layers))
     jpol = jax_policy_for(JPrecision(precision))
-    want = jax_lg.forward_ring(
-        jax_weights.to_jax(tree, jpol.param_dtype), *map(jnp.asarray, (k0, k1, d0, d1)),
-        jnp.asarray(lens0), jnp.asarray(lens1), config=JLGC(n_layers=n_layers), policy=jpol,
-        mesh=_mesh())
     pol = policy_for(Precision(precision))
-    args = (weights.params_from_numpy(tree, "cpu", pol.param_dtype),
-            *map(torch.from_numpy, (k0, k1, d0, d1, lens0, lens1)))
+    if pol.int8_weights:  # quantized and not cast, as both sessions do on the INT8 rung
+        jtree = jax_weights.to_jax(jax_quant.quantize_lightglue(tree))
+        ptree = weights.params_from_numpy(quant.quantize_lightglue(tree))
+    else:
+        jtree = jax_weights.to_jax(tree, jpol.param_dtype)
+        ptree = weights.params_from_numpy(tree, "cpu", pol.param_dtype)
+    want = jax_lg.forward_ring(
+        jtree, *map(jnp.asarray, (k0, k1, d0, d1)), jnp.asarray(lens0), jnp.asarray(lens1),
+        config=JLGC(n_layers=n_layers), policy=jpol, mesh=_mesh())
+    args = (ptree, *map(torch.from_numpy, (k0, k1, d0, d1, lens0, lens1)))
     kw = dict(config=LightGlueConfig(n_layers=n_layers), policy=pol)
     got = lightglue.forward_ring(*args, devices=["cpu"] * 8, **kw)
     return got, want, lightglue.forward(*args, **kw) if with_forward else None
@@ -260,8 +266,8 @@ def test_forward_ring_matches_jax_and_forward_fp32():
         np.testing.assert_allclose(g.numpy(), f.numpy(), atol=5e-5, rtol=0)
 
 
-def test_forward_ring_matches_jax_bf16():
-    got, want, _ = _model_case(2, "bf16")
+def _assert_16bit_parity(precision):
+    got, want, _ = _model_case(2, precision)
     s_got, valid = _scores(got)
     s_want, _ = _scores(want)
     assert np.array_equal(valid, s_want > -1e29)
@@ -274,8 +280,12 @@ def test_forward_ring_matches_jax_bf16():
     assert np.abs(s_got - s_want)[valid].max() < 0.15
 
 
-def test_forward_ring_rejects_int8_trees():
-    layers = {"self_attn": {"qkv": {"w_q": None}}}
-    with pytest.raises(NotImplementedError, match="int8"):
-        lightglue.forward_ring({"layers": layers}, *([None] * 4), config=LightGlueConfig(),
-                               policy=policy_for(Precision.BF16), devices=["cpu"])
+def test_forward_ring_matches_jax_bf16():
+    _assert_16bit_parity("bf16")
+
+
+def test_forward_ring_matches_jax_int8():
+    """int8 weights dequantized as each linear fetches them (weight-only
+    whatever LGTPU_W8A8 says, as in the JAX package), beside the fp32
+    biases, LayerNorm and heads of the uncast quantized tree."""
+    _assert_16bit_parity("int8")

@@ -92,14 +92,9 @@ def test_session_input_checks(sessions):
 
 def test_session_requires_card_unless_cpu_asked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    _, cfg = _configs()
-    with pytest.raises(RuntimeError, match="CUDA"):
-        MatcherSession(config=cfg)
-    with pytest.raises(NotImplementedError, match="INT8"):
-        MatcherSession(config=_configs("int8")[1], device="cpu")
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(NotImplementedError, match="MIXED"):
-        MatcherSession(config=_configs("mixed")[1])
+    for precision in ("fp32", "mixed", "bf16", "int8"):  # every rung runs on the card
+        with pytest.raises(RuntimeError, match="CUDA"):
+            MatcherSession(config=_configs(precision)[1])
 
 
 def _port_sources():
