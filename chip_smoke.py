@@ -9,7 +9,8 @@ It prints the card's name and power limit, builds the CUDA kernels of
 ``src/lightglue_tpu_torch/csrc`` (one nvcc per source, sm_90a, in
 parallel) and checks in their SASS that the bf16 kernels of flash_attn.cu,
 attention.cu, linear.cu, bidir_cross.cu and conv3x3.cu (its model
-instantiation) run on the tensor cores and their fp32 ones do not. Then, in
+instantiation) run on the tensor cores and their fp32 ones do not, and that
+stem.cu's kernel has no contracted multiply-add. Then, in
 order; every kernel check is in bf16 and fp32 against
 the kernel's plain PyTorch version at the shapes its path gives it, every
 path is driven with the launch counts set to 0 just before it and read just
@@ -20,15 +21,22 @@ plain version and, where one exists, a PyTorch call for the same function:
    480x640 pair): ``conv3x3`` (its 64->64 calls, and conv1b+pool and conv2a
    at 360x488 for the edge tiles; each bf16 case also against the rounding
    witness and two wrong designs, ``conv_wrong_designs``),
-   ``nms_candidates``, ``linear``, ``attention`` and ``ln_gelu`` against
+   ``nms_candidates`` (exact; also at 360x488 and 480x600, radius 2, caps
+   1 and 8, below the border value, ties across band edges: ``nms_checks``),
+   ``relu_conv1a_shift`` (conv1a's stem, bit for bit in bf16 and fp32, also
+   at 360x488 and 480x600: ``stem_checks``), ``linear``, ``attention`` and
+   ``ln_gelu`` against
    their plain versions (``linear_plan`` / ``attention_plan`` /
    ``bidir_plan`` against the card's launch rules; each bf16 ``attention``
    case also against the rounding witness and its two wrong designs,
    ``stack_wrong_designs``); the layer stack at 9 layers;
    ``MatcherSession(device="cuda").match_pair`` with its launch counts
-   (144 / 36 / 36 for linear / attention / ln_gelu) and a profile that also
-   names the ops behind the device time, with their shapes and callers; a
-   small FP32 pair against the port on the CPU.
+   (144 / 36 / 36 for linear / attention / ln_gelu; one stem, three convs,
+   one NMS per SuperPoint forward on every route and rung below,
+   ``SP_LAUNCHES``) and a profile that also names the ops behind the device
+   time, with their shapes and callers, then the same for one extraction of
+   the pair (also at MIXED in phase 6); a small FP32 pair against the port
+   on the CPU.
 2. The adaptive path (``depth_confidence=0.95, width_confidence=0.99``):
    ``adaptive_decide`` (masked, unmasked, width with a partly retired keep
    state, pinned and random heads), the keep-masked and liveness operands,
@@ -74,8 +82,9 @@ plain version and, where one exists, a PyTorch call for the same function:
    (``plain_lightglue``); ``forward_ring`` at INT8.
    The SASS check above also requires IMMA in every W8A8 GEMM.
 
-It ends with a ``{"kernels": [...]}`` line (all ten Pallas functions, and
-a row per MIXED / INT8 / W8A8 instantiation) and the ``{"ok": true, ...}``
+It ends with a ``{"kernels": [...]}`` line (all ten Pallas functions, a
+row per MIXED / INT8 / W8A8 instantiation, and conv1a's stem in bf16 and
+fp32) and the ``{"ok": true, ...}``
 line. Any failure raises and exits non-zero; so does a missing card or a
 directory without the package.
 """
@@ -100,6 +109,8 @@ BF16_FLOP_PER_MS = 989e9       # dense bf16 tensor-core peak
 FP32_OP_PER_MS = 67e9          # fp32 outside the tensor cores
 N_LAYERS = 9
 BUCKET = 1024
+# launches of one SuperPoint forward and its extraction, on every route and rung
+SP_LAUNCHES = dict(relu_conv1a_shift=1, conv3x3=3, nms_candidates=1)
 
 # stated tolerances, |kernel - plain| <= atol + rtol * |plain|
 TOL = {
@@ -211,6 +222,8 @@ TENSOR_CORE_KERNELS = {
 }
 # source: its int8 x int8 kernel (W8A8), on the integer tensor cores (IMMA)
 INT8_TENSOR_CORE_KERNELS = {"linear.cu": "linear_s8_kernel"}
+# source: a kernel whose rounding contract rounds every product and every add
+NO_FMA_KERNELS = {"stem.cu": "stem_kernel"}
 
 
 def tensor_core_check(build):
@@ -219,7 +232,8 @@ def tensor_core_check(build):
     as bf16), bidir_cross.cu and conv3x3.cu's model conv compute their
     products on the tensor cores (HMMA in the SASS of every one), the fp32
     kernels on the FMA units (no HMMA), and linear.cu's W8A8 GEMM on the
-    integer tensor cores (IMMA in every instantiation, no HMMA):
+    integer tensor cores (IMMA in every instantiation, no HMMA), and the
+    stem rounds each product and each add (no FFMA in stem.cu's kernel):
     ``cuobjdump -sass`` of the built library."""
     from lightglue_tpu_torch.kernels import _build
 
@@ -230,9 +244,9 @@ def tensor_core_check(build):
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            counts[name] = {"HMMA": 0, "IMMA": 0}
+            counts[name] = {"HMMA": 0, "IMMA": 0, "FFMA": 0}
         elif name:
-            for op in ("HMMA", "IMMA"):
+            for op in ("HMMA", "IMMA", "FFMA"):
                 if op in line:
                     counts[name][op] += 1
     for src, (bf16_kernel, fp32_kernel) in TENSOR_CORE_KERNELS.items():
@@ -247,6 +261,11 @@ def tensor_core_check(build):
         log(f"  {src} SASS: (IMMA, HMMA) per W8A8 instantiation ({len(imma)}) {sorted(imma)}")
         if not imma or min(i for i, _ in imma) == 0 or max(h for _, h in imma) != 0:
             raise AssertionError(f"{src}: a W8A8 GEMM without IMMA, or with HMMA")
+    for src, kernel in NO_FMA_KERNELS.items():
+        ffma = [c["FFMA"] for k, c in counts.items() if kernel in k]
+        log(f"  {src} SASS: FFMA per instantiation ({len(ffma)}) {ffma}")
+        if not ffma or max(ffma) != 0:
+            raise AssertionError(f"{src}: a contracted multiply-add breaks the stem's rounding")
 
 
 def rounding_witness(label, got, want, wrong):
@@ -371,12 +390,14 @@ def conv_wrong_designs(x, w, b, pool):
             "(b) acc rounded after every tap": conv_epilogue(conv_taps(x, w, each=rnd), b, pool)}
 
 
-def plan_checks(ls, at, lib):
+def plan_checks(ls, at, nms_k, lib):
     """The launch plans the CPU tests hold (``layer_stack.linear_plan``,
-    ``attention_plan``, ``attention.bidir_plan``) are the ones the card runs
-    (csrc/linear.cu:linear_tile, csrc/mma.cuh:fill_row_groups), at every
-    shape of the paths through the stack (128-1024 buckets) and through the
-    bidirectional kernel (960x960, 960x704, 960x64), one pair or two."""
+    ``attention_plan``, ``attention.bidir_plan``, ``nms.nms_smem_bytes``)
+    are the ones the card runs (csrc/linear.cu:linear_tile,
+    csrc/mma.cuh:fill_row_groups, csrc/nms.cu:Band), at every shape of the
+    paths through the stack (128-1024 buckets) and through the
+    bidirectional kernel (960x960, 960x704, 960x64), one pair or two, and at
+    every NMS radius the kernel is built for (and one past it)."""
     import ctypes
 
     tile = (ctypes.c_int * 2)()
@@ -397,8 +418,92 @@ def plan_checks(ls, at, lib):
             if groups != at.bidir_plan(b, 4, n0, n1).row_groups:
                 raise AssertionError(f"bidirectional B={b} {n0}x{n1}: the card's {groups} row "
                                      "groups")
-    log("  launch plans: linear_plan, attention_plan and bidir_plan match the card's at every "
-        "path shape")
+    for r in range(nms_k.MAX_RADIUS + 2):
+        want = nms_k.nms_smem_bytes(r) if r <= nms_k.MAX_RADIUS else -1
+        if lib.lg_nms_smem_bytes(r) != want:
+            raise AssertionError(f"nms radius {r}: the card's {lib.lg_nms_smem_bytes(r)} bytes "
+                                 f"of shared memory, nms_smem_bytes' {want}")
+    log("  launch plans: linear_plan, attention_plan, bidir_plan and nms_smem_bytes match the "
+        "card's at every path shape")
+
+
+def nms_map(gen, dev, b, h, w):
+    """Raw scores on a grid of 64 levels (many exact ties) with one planted
+    plateau tile, every pixel tied, where the map holds it."""
+    import torch
+
+    raw = torch.floor(torch.rand(b, h, w, generator=gen, device=dev) * 64) / 4096
+    raw[:, 100:108, 200:208] = 0.02
+    return raw
+
+
+def nms_checks(nms_k, gen, dev):
+    """nms_candidates against its plain version, values and indices exactly:
+    the path's 2x480x640 map, the edge bands of 360x488 and 480x600 (W not
+    a multiple of the kernel's 64-column band, H not of its 32-row band),
+    radius 2, caps 1 and 8, a map entirely below the border value -1 (with
+    and without the border), and plateaus across the band edges (rows 32
+    and 64, cols 64 and 128) on a map of four levels."""
+    import torch
+
+    ties = torch.floor(torch.rand(2, 480, 640, generator=gen, device=dev) * 4) / 16
+    ties[:, 28:36, 60:68] = 0.5
+    ties[:, 60:68, 124:132] = 0.5
+    ties[:, 30:34, 126:130] = 0.75
+    low = -2 - nms_map(gen, dev, 2, 480, 640)
+    cases = [  # label, map, radius, border, cap
+        ("2x480x640", nms_map(gen, dev, 2, 480, 640), 4, 4, 4),
+        ("2x360x488", nms_map(gen, dev, 2, 360, 488), 4, 4, 4),
+        ("2x480x600", nms_map(gen, dev, 2, 480, 600), 4, 4, 4),
+        ("radius 2", nms_map(gen, dev, 2, 480, 640), 2, 4, 4),
+        ("cap 1", nms_map(gen, dev, 2, 480, 640), 4, 4, 1),
+        ("cap 8", nms_map(gen, dev, 2, 360, 488), 4, 4, 8),
+        ("below the border value", low, 4, 4, 4),
+        ("below the border value, border 0", low, 4, 0, 4),
+        ("ties across band edges", ties, 4, 4, 4),
+    ]
+    for label, raw, radius, border, cap in cases:
+        got_v, got_i = nms_k.nms_candidates(raw, radius, border, cap)
+        want_v, want_i = nms_k.nms_candidates_plain(raw, radius, border, cap)
+        compare(f"nms {label} values", got_v, want_v, 0, 0, exact=True)
+        compare(f"nms {label} indices", got_i, want_i, 0, 0, exact=True)
+
+
+def stem_checks(stem_k, gen, dev, fp32_scope, stem_e, stem_fp32_e):
+    """relu_conv1a_shift against its plain version bit for bit, on a bf16
+    image (BF16, INT8) and an fp32 one (MIXED, FP32), both with fp32
+    weights as the session's SuperPoint tree holds them on every rung, at
+    2x480x640 and at the edge tiles of 2x360x488 and 2x480x600.
+    At 480x640 it times the kernel, its plain version and one cuDNN call
+    for the same function on channels-last input with TF32 off (its sum
+    order differs, so it is only a yardstick)."""
+    import torch
+    import torch.nn.functional as F
+
+    for h, w, timed in ((480, 640, True), (360, 488, False), (480, 600, False)):
+        for tag, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+            x = torch.rand(2, h, w, 1, generator=gen, device=dev).to(dt)
+            wt = (torch.rand(3, 3, 1, 64, generator=gen, device=dev) * 2 - 1) / 3
+            b = (torch.rand(64, generator=gen, device=dev) * 2 - 1) / 4
+            label = f"stem 2x{h}x{w} {tag}"
+            got = stem_k.relu_conv1a_shift(x, wt, b)
+            want = stem_k.relu_conv1a_shift_plain(x, wt, b)
+            if got.dtype != dt or got.shape != (2, h, w, 64):
+                raise AssertionError(f"{label}: {got.dtype} {tuple(got.shape)}")
+            compare(label, got, want, 0, 0, exact=True)
+            if not timed:
+                continue
+            ent = stem_e if tag == "bf16" else stem_fp32_e
+            bc = b.to(dt)  # cuDNN takes the weights and bias in the input's dtype
+            xc = x.permute(0, 3, 1, 2)
+            wc = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last).to(dt)
+            ms = cuda_ms(lambda: stem_k.relu_conv1a_shift(x, wt, b))
+            plain = cuda_ms(lambda: stem_k.relu_conv1a_shift_plain(x, wt, b))
+            with fp32_scope():
+                lib_ms = cuda_ms(lambda: F.relu(F.conv2d(xc, wc, bc, padding=1)))
+            nbytes = x.element_size() * (2 * h * w + 2 * h * w * 64) + 4 * (9 * 64 + 64)
+            # 9 products and 9 adds per output, the bias and the ReLU
+            ent.add(label, 1, ms, plain, lib_ms, nbytes, 2 * h * w * 64 * 20, FP32_OP_PER_MS)
 
 
 class Entry:
@@ -529,6 +634,48 @@ def profile_breakdown(call, pair_ms, top=12, what="match_pair", attribute=False)
         caller = next((f for f in stack if "lightglue_tpu_torch" in f),
                       stack[0] if stack else "no stack recorded")
         log(f"    {ms:8.3f} ms x{count:<4d} {key} {shapes} <- {caller.split('src/')[-1]}")
+
+
+def counted_extract(session, counters, img0, img1, label):
+    """session.extract of the pair with every launch count read from 0
+    around it: one SuperPoint forward's kernels (SP_LAUNCHES), nothing else."""
+    import numpy as np
+
+    for fn in counters:
+        fn.launches = 0
+    ext = session.extract(np.stack([img0, img1]))
+    launches = {fn.__name__: fn.launches for fn in counters}
+    log(f"  launches in the {label} extraction: {launches}")
+    want = {k: SP_LAUNCHES.get(k, 0) for k in launches}
+    if launches != want:
+        raise AssertionError(f"{label} extraction: launches {launches}, want {want}")
+    return ext
+
+
+def extract_profile(session, img0, img1, label):
+    """ms per extraction of the pair (SuperPoint, NMS, top-k; median of 10
+    synchronised calls) and one profiled call with the ops behind its device
+    time: where SuperPoint's share of a match_pair goes."""
+    import numpy as np
+    import torch
+
+    pair = np.stack([img0, img1])
+
+    def call():
+        out = session.extract(pair)
+        torch.cuda.synchronize()
+        return out
+
+    call()
+    times = []
+    for _ in range(10):
+        t = time.perf_counter()
+        call()
+        times.append((time.perf_counter() - t) * 1e3)
+    ms = statistics.median(times)
+    log(f"  extract {label}: ms per extraction of the pair median {ms:.3f} (10 repeats, min "
+        f"{min(times):.3f})")
+    profile_breakdown(call, ms, top=10, what=f"{label} extraction", attribute=True)
 
 
 def adaptive_kernel_checks(ls, rand, freqs_for, dev, dtypes, fp32_scope, dec_e, dec_mixed_e):
@@ -834,6 +981,9 @@ def adaptive_end_to_end(ls, counters, weights, img0, img1, dec_e):
         for name, count in launches.items():
             if count < 1:
                 raise AssertionError(f"{label}: kernel {name} did not launch")
+        bad = {k: (launches[k], v) for k, v in SP_LAUNCHES.items() if launches[k] != v}
+        if bad:
+            raise AssertionError(f"{label}: SuperPoint launches (got, want) {bad}")
         if label == "random weights":
             dec_e.d["launches"] = launches["adaptive_decide"]
         for key in ("scores", "match_scores", "keypoints0", "keypoints1"):
@@ -1153,7 +1303,7 @@ def per_block_end_to_end(at, counters, img0, img1, fused_e, bidir_e):
             raise AssertionError(f"{label}: buckets {b0}x{b1} take the layer stack, not the "
                                  "per-block path")
         if extract:
-            want.update(conv3x3=3, nms_candidates=1)
+            want.update(SP_LAUNCHES)
         bad = {k: (launches[k], v) for k, v in want.items() if launches[k] != v}
         if bad:
             raise AssertionError(f"{label}: launches (got, want) {bad}")
@@ -1370,7 +1520,7 @@ def ring_end_to_end(at, counters, img0, img1, step_e):
     for precision in ("bf16", "fp32"):
         session = MatcherSession(config=dataclasses.replace(cfg, precision=Precision(precision)),
                                  device="cuda")
-        ext = session.extract(np.stack([img0, img1]))
+        ext = counted_extract(session, counters, img0, img1, f"ring {precision}")
         ext0, ext1 = ext.slice(0, 1), ext.slice(1, 2)
         n0, n1 = int(ext0.count[0]), int(ext1.count[0])
         if min(n0, n1) < RING_N:
@@ -2150,7 +2300,8 @@ def rung_end_to_end(ls, at, counters, img0, img1, ents):
             ("mixed", "2048-keypoint"), ("int8", "2048-keypoint"),
             ("mixed", "pad-to-64"), ("int8", "pad-to-64")]
     # (rung, config) -> {kernels line entry: launch counter}: the rung's main path
-    main_of = {("mixed", "fixed depth"): {"linear mixed": "linear", "attention mixed": "attention"},
+    main_of = {("mixed", "fixed depth"): {"linear mixed": "linear", "attention mixed": "attention",
+                                          "relu_conv1a_shift mixed": "relu_conv1a_shift"},
                ("int8", "fixed depth"): {"linear int8": "linear", "ln_gelu int8": "ln_gelu"},
                ("w8a8", "fixed depth"): {"linear w8a8": "linear", "row_quant": "row_quant"},
                ("mixed", "adaptive"): {"adaptive_decide mixed": "adaptive_decide"},
@@ -2172,8 +2323,7 @@ def rung_end_to_end(ls, at, counters, img0, img1, ents):
             launches = {fn.__name__: fn.launches for fn in counters}
             log(f"  launches in one match_pair: {launches}")
             stack = route in ("fixed depth", "adaptive")
-            want = dict(conv3x3=3, nms_candidates=1,
-                        row_quant=16 * N_LAYERS if rung == "w8a8" else 0)
+            want = dict(SP_LAUNCHES, row_quant=16 * N_LAYERS if rung == "w8a8" else 0)
             if stack:
                 want.update(fused_mha=0, bidirectional_cross_attention=0, flash_attention=0)
                 if route == "fixed depth":
@@ -2209,6 +2359,8 @@ def rung_end_to_end(ls, at, counters, img0, img1, ents):
                 f"{len(result['matches'])} ms_per_pair median {pair_ms:.3f} (10 repeats, min "
                 f"{min(times):.3f})")
             profile_breakdown(lambda: session.match_pair(img0, img1), pair_ms, top=6)
+            if (rung, route) == ("mixed", "fixed depth"):
+                extract_profile(session, img0, img1, "MIXED")
             batch = session.match_batch(np.stack([img0, img1]), np.stack([img1, img0]))
             if len(batch) != 2 or not all(np.isfinite(r["match_scores"]).all() for r in batch):
                 raise AssertionError(f"{rung} {route}: match_batch of 2 pairs failed")
@@ -2262,7 +2414,7 @@ def ring_int8(at, counters, img0, img1):
                            at.flash_attention_step]
     cfg = dataclasses.replace(pb_configs()["2048-keypoint"], precision=Precision.INT8)
     session = MatcherSession(config=cfg, device="cuda")
-    ext = session.extract(np.stack([img0, img1]))
+    ext = counted_extract(session, counters, img0, img1, "ring int8")
     e0, e1 = ext.slice(0, 1), ext.slice(1, 2)
     inputs = (e0.keypoints_norm[:, :RING_N], e1.keypoints_norm[:, :RING_N],
               e0.descriptors[:, :RING_N], e1.descriptors[:, :RING_N],
@@ -2313,6 +2465,7 @@ def main() -> int:
     from lightglue_tpu_torch.kernels import conv_chain as cc
     from lightglue_tpu_torch.kernels import layer_stack as ls
     from lightglue_tpu_torch.kernels import nms as nms_k
+    from lightglue_tpu_torch.kernels import stem as stem_k
     from lightglue_tpu_torch.parallel import ring
     from lightglue_tpu_torch.precision import Precision, policy_for, precision_scope
     from lightglue_tpu_torch.runtime import weights
@@ -2344,6 +2497,11 @@ def main() -> int:
                    "src/lightglue_tpu/kernels/conv.py:356")
     nms_e = Entry("nms_candidates", "src/lightglue_tpu_torch/csrc/nms.cu",
                   "src/lightglue_tpu/kernels/nms.py:199")
+    stem_e = Entry("relu_conv1a_shift", "src/lightglue_tpu_torch/csrc/stem.cu",
+                   "src/lightglue_tpu/models/superpoint.py:56")
+    stem_fp32_e = Entry("relu_conv1a_shift (MIXED, FP32: fp32 image and out)",
+                        "src/lightglue_tpu_torch/csrc/stem.cu",
+                        "src/lightglue_tpu/models/superpoint.py:56")
     lin_e = Entry("linear", "src/lightglue_tpu_torch/csrc/linear.cu",
                   "src/lightglue_tpu/kernels/layer_stack.py:801")
     att_e = Entry("attention", "src/lightglue_tpu_torch/csrc/attention.cu",
@@ -2380,7 +2538,7 @@ def main() -> int:
             if not timed:
                 continue
             xc = x.permute(0, 3, 1, 2)
-            wc = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            wc = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last).to(dt)
             bc = b.to(dt)
 
             def lib():
@@ -2396,23 +2554,25 @@ def main() -> int:
             flops = 2 * 2 * h * w * 64 * 64 * 9
             conv_e.add(f"{label} bf16", 1, ms, plain, lib_ms, nbytes, flops, BF16_FLOP_PER_MS)
 
-    # ---- nms_candidates: 2x480x640 raw score map with planted ties -------
-    log("nms_candidates (per match_pair: one launch over 2x480x640)")
-    raw = torch.floor(torch.rand(2, 480, 640, generator=gen, device=dev) * 64) / 4096
-    raw[:, 100:108, 200:208] = 0.02  # a plateau: every pixel of a tile tied
-    got_v, got_i = nms_k.nms_candidates(raw)
-    want_v, want_i = nms_k.nms_candidates_plain(raw)
-    compare("nms values", got_v, want_v, 0, 0, exact=True)
-    compare("nms indices", got_i, want_i, 0, 0, exact=True)
+    # ---- nms_candidates: 2x480x640, edge bands, radii, caps, ties ----------
+    log("nms_candidates (per match_pair: one launch over 2x480x640; then edge bands, radius 2, "
+        "caps 1 and 8, a map below the border value, ties across band edges)")
+    nms_checks(nms_k, gen, dev)  # exact: max_abs_err stays 0
+    raw = nms_map(gen, dev, 2, 480, 640)
     ms = cuda_ms(lambda: nms_k.nms_candidates(raw))
     plain = cuda_ms(lambda: nms_k.nms_candidates_plain(raw))
-    ncand = got_v.numel()
+    ncand = raw.numel() // 16
     # ops: 5 separable radius-4 max-pools (2 x 8 compares each) + 4 rounds
     nms_e.add("2x480x640", 1, ms, plain, None, 4 * raw.numel() + 8 * ncand,
               raw.numel() * (20 * 4 + 4), FP32_OP_PER_MS)
 
+    # ---- relu_conv1a_shift: conv1a's tap stem, bf16 and fp32 -----------------
+    log("relu_conv1a_shift (per match_pair: one launch over 2x480x640; bf16 on BF16 and INT8, "
+        "fp32 on MIXED and FP32; then edge tiles at 360x488 and 480x600)")
+    stem_checks(stem_k, gen, dev, fp32_scope, stem_e, stem_fp32_e)
+
     # ---- linear: every projection of one layer of a 1024x1024 pair -------
-    plan_checks(ls, at, _build.lib())
+    plan_checks(ls, at, nms_k, _build.lib())
     log(f"linear (per match_pair: 16 launches per layer x {N_LAYERS} layers, N={BUCKET})")
     e = 256
     m = BUCKET
@@ -2556,17 +2716,18 @@ def main() -> int:
     img0, img1 = smooth_pair(0)
     session = MatcherSession(device="cuda")
     session.match_pair(img0, img1)  # warm: first launches, allocator
-    counters = [conv_k.conv3x3, nms_k.nms_candidates, ls.linear, ls.attention, ls.ln_gelu]
+    counters = [stem_k.relu_conv1a_shift, conv_k.conv3x3, nms_k.nms_candidates, ls.linear,
+                ls.attention, ls.ln_gelu]
     for fn in counters:
         fn.launches = 0
     result = session.match_pair(img0, img1)
     launches = {fn.__name__: fn.launches for fn in counters}
     log(f"  launches in one match_pair: {launches}")
-    want = dict(conv3x3=3, nms_candidates=1, linear=16 * N_LAYERS, attention=4 * N_LAYERS,
+    want = dict(SP_LAUNCHES, linear=16 * N_LAYERS, attention=4 * N_LAYERS,
                 ln_gelu=4 * N_LAYERS)
     if launches != want:
         raise AssertionError(f"main path launches {launches}, want {want}")
-    for entry in (conv_e, nms_e, lin_e, att_e, ln_e):
+    for entry in (stem_e, conv_e, nms_e, lin_e, att_e, ln_e):
         entry.d["launches"] = launches[entry.d["name"]]
     n0, n1 = result["num_keypoints0"], result["num_keypoints1"]
     bucket = (session.config.bucket_for(max(n0, 1)), session.config.bucket_for(max(n1, 1)))
@@ -2584,6 +2745,7 @@ def main() -> int:
     log(f"  keypoints {n0}/{n1} bucket {bucket[0]}x{bucket[1]} matches {len(result['matches'])} "
         f"ms_per_pair median {pair_ms:.3f} (10 repeats, min {min(times):.3f})")
     profile_breakdown(lambda: session.match_pair(img0, img1), pair_ms, attribute=True)
+    extract_profile(session, img0, img1, "BF16")
 
     # ---- end to end against the port on the CPU, small FP32 pair ----------
     log("match_pair cuda vs cpu, FP32, 96x128, 2 layers, buckets (128, 256), threshold 0")
@@ -2668,6 +2830,7 @@ def main() -> int:
         "ln_gelu int8": Entry("ln_gelu (INT8: fp32 gamma/beta)", stack_src + "ln_gelu.cu",
                               stack_ref + "layer_stack.py:801"),
         "adaptive_decide mixed": dec_mixed_e,
+        "relu_conv1a_shift mixed": stem_fp32_e,
         "fused_mha mixed": Entry("fused_mha (MIXED: fp32 out)", stack_src + "flash_attn.cu",
                                  stack_ref + "attention.py:687"),
         "bidirectional_cross_attention mixed": Entry(
@@ -2683,8 +2846,8 @@ def main() -> int:
     rung_end_to_end(ls, at, counters, img0, img1, rung_ents)
     ring_int8(at, counters, img0, img1)
 
-    entries = (conv_e, nms_e, lin_e, att_e, ln_e, dec_e, fused_e, bidir_e, flash_e, step_e,
-               gen_e, chain_e, *rung_ents.values())
+    entries = (stem_e, conv_e, nms_e, lin_e, att_e, ln_e, dec_e, fused_e, bidir_e, flash_e,
+               step_e, gen_e, chain_e, *rung_ents.values())
     log(json.dumps({"kernels": [x.out() for x in entries]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -38,6 +38,8 @@ _SIGNATURES = {
     "lg_conv3x3": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "lg_conv2_chain": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "lg_nms_candidates": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "lg_nms_smem_bytes": [_I],
+    "lg_relu_conv1a_shift": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "lg_linear": [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _P],
     "lg_row_quant": [_P, _P, _I, _I, _I, _P, _P, _P],
     "lg_linear_s8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _P],

@@ -19,6 +19,18 @@ import torch.nn.functional as F
 from lightglue_tpu_torch.kernels import _build
 
 TILE = 8
+# csrc/nms.cu's launch rule: a block takes a band of BAND rows x cols plus a
+# 5r halo, and the kernel is built for radii 0..MAX_RADIUS
+BAND = (32, 64)
+MAX_RADIUS = 6
+
+
+def nms_smem_bytes(radius: int) -> int:
+    """Dynamic shared memory of one block (csrc/nms.cu:Band::smem, held
+    equal by chip_smoke.py:plan_checks): two fp32 planes and one byte of
+    flags per pixel of the haloed band, rows padded to an odd stride."""
+    rows, cols = BAND[0] + 10 * radius, BAND[1] + 10 * radius
+    return (2 * 4 + 1) * rows * (cols | 1)
 
 
 def _max_pool_same(x: torch.Tensor, radius: int) -> torch.Tensor:
@@ -100,9 +112,9 @@ def nms_candidates(
     b, h, w = scores.shape
     if h % TILE or w % TILE:
         raise ValueError(f"nms_candidates needs H, W multiples of 8, got {h}x{w}")
-    # the kernel keeps six fp32 copies of its band (8 x 64 plus a 5r halo)
-    band_bytes = 6 * 4 * (TILE + 10 * nms_radius) * (64 + 10 * nms_radius)
-    if nms_radius < 0 or band_bytes > _build.MAX_DYNAMIC_SMEM or not 1 <= cap <= TILE * TILE:
+    # the kernel is instantiated for radii 0..MAX_RADIUS, all of whose bands
+    # fit a block's shared memory (nms_smem_bytes(6) is 103,500 bytes)
+    if not 0 <= nms_radius <= MAX_RADIUS or not 1 <= cap <= TILE * TILE:
         raise ValueError(f"nms_candidates: radius {nms_radius}, cap {cap}")
     x = scores.float().contiguous()
     n = (h // TILE) * (w // TILE) * cap

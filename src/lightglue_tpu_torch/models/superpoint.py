@@ -6,10 +6,11 @@ head (65-channel softmax, dustbin dropped, 8x8 pixel shuffle to a
 full-resolution score map, optional NMS) and descriptor head (256-d,
 L2-normalised dense map).
 
-conv1a is the fp32 9-tap shift stem of the reference; the three 64-channel
-convs conv1b (+pool), conv2a and conv2b (+pool) run on the hand-written
-``kernels.conv.conv3x3``; the remaining convs and the heads are plain
-``F.conv2d`` on channels-last views, as the JAX package leaves them to XLA.
+conv1a, the reference's fp32 9-tap shift stem, runs on the hand-written
+``kernels.stem.relu_conv1a_shift``; the three 64-channel convs conv1b
+(+pool), conv2a and conv2b (+pool) on ``kernels.conv.conv3x3``; the
+remaining convs and the heads are plain ``F.conv2d`` on channels-last
+views, as the JAX package leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch.nn.functional as F
 
 from lightglue_tpu_torch.config import SuperPointConfig
 from lightglue_tpu_torch.kernels import conv as conv_kernel
+from lightglue_tpu_torch.kernels import stem
 from lightglue_tpu_torch.kernels.nms import simple_nms
 from lightglue_tpu_torch.precision import DTypePolicy, precision_scope
 
@@ -43,19 +45,6 @@ def _relu_conv(p, x: torch.Tensor) -> torch.Tensor:
 
 def _max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
     return F.max_pool2d(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
-
-
-def _relu_conv1a_shift(p, x: torch.Tensor) -> torch.Tensor:
-    """First conv (C_in = 1) as 9 shifted broadcast FMAs in fp32, the
-    reference's tap stem (lightglue_tpu/models/superpoint.py:56-75)."""
-    b, h, w, _ = x.shape
-    xp = F.pad(x[..., 0].float(), (1, 1, 1, 1))
-    wf = p["w"].float()  # (3, 3, 1, C)
-    acc = torch.zeros((b, h, w, wf.shape[-1]), dtype=torch.float32, device=x.device)
-    for di in range(3):
-        for dj in range(3):
-            acc += xp[:, di:di + h, dj:dj + w, None] * wf[di, dj, 0]
-    return F.relu(acc + p["b"]).to(x.dtype)
 
 
 def _kernel_conv(p, x: torch.Tensor, pool: bool) -> torch.Tensor:
@@ -85,7 +74,7 @@ def forward(
     """
     with precision_scope(policy):
         x = image.to(policy.act_dtype)
-        x = _relu_conv1a_shift(params["conv1a"], x)
+        x = stem.relu_conv1a_shift(x, params["conv1a"]["w"], params["conv1a"]["b"])
         x = _kernel_conv(params["conv1b"], x, pool=True)
         x = _kernel_conv(params["conv2a"], x, pool=False)
         x = _kernel_conv(params["conv2b"], x, pool=True)

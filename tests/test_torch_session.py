@@ -98,7 +98,10 @@ def test_session_requires_card_unless_cpu_asked(monkeypatch):
 
 
 def _port_sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    # the package (kernels/stem.py included), chip_smoke.py and the port's
+    # tuning scripts
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "scripts").glob("tune_torch_*.py")))
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
