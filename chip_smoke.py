@@ -8,8 +8,9 @@ Run from the root of a checkout on a machine with a CUDA card:
 It prints the card's name and power limit, builds the CUDA kernels of
 ``src/lightglue_tpu_torch/csrc`` (one nvcc per source, sm_90a, in
 parallel) and checks in their SASS that the bf16 kernels of flash_attn.cu,
-attention.cu, linear.cu, bidir_cross.cu and conv3x3.cu (its model
-instantiation) run on the tensor cores and their fp32 ones do not, and that
+attention.cu, linear.cu, bidir_cross.cu, conv3x3.cu (the model conv and the
+generic one) and conv_chain.cu run on the tensor cores and their fp32 ones
+do not, and that
 stem.cu's kernel has no contracted multiply-add. Then, in
 order; every kernel check is in bf16 and fp32 against
 the kernel's plain PyTorch version at the shapes its path gives it, every
@@ -18,9 +19,10 @@ after, and every kernel the JSON line lists is timed beside its bound, its
 plain version and, where one exists, a PyTorch call for the same function:
 
 1. The main path (default config: BF16, 9 layers, seed-0 random weights,
-   480x640 pair): ``conv3x3`` (its 64->64 calls, and conv1b+pool and conv2a
-   at 360x488 for the edge tiles; each bf16 case also against the rounding
-   witness and two wrong designs, ``conv_wrong_designs``),
+   480x640 pair): ``conv3x3`` (its 64->64 calls, timed in bf16 and in fp32
+   for the MIXED and FP32 rungs, and conv1b+pool and conv2a at 360x488 for
+   the edge tiles; each bf16 case also against the rounding witness and two
+   wrong designs, ``conv_wrong_designs``),
    ``nms_candidates`` (exact; also at 360x488 and 480x600, radius 2, caps
    1 and 8, below the border value, ties across band edges: ``nms_checks``),
    ``relu_conv1a_shift`` (conv1a's stem, bit for bit in bf16 and fp32, also
@@ -65,8 +67,16 @@ plain version and, where one exists, a PyTorch call for the same function:
    its launch counts, graph and eager times and a profile; FP32 against
    ``forward`` and its match set.
 5. The conv variants that no path runs: the generic ``conv3x3`` at
-   SuperPoint's C >= 128 layer shapes, and ``conv2_chain`` at the conv2
-   shape against its plain version and the two-launch ``conv3x3`` chain.
+   SuperPoint's C >= 128 layer shapes and at edge shapes (C_in 24 ->
+   C_out 40 without ReLU, a 488-wide map with the pool), each also into
+   the other output dtype, and ``conv2_chain`` at the conv2 shape and the
+   360x488 edge's, ReLU on and off, into either output dtype, against its
+   plain version and the two-launch ``conv3x3`` chain; every bf16-operand
+   case against the rounding witness (by magnitude where the output is
+   fp32) and its two wrong designs (``conv_wrong_designs``,
+   ``chain_wrong_designs``); both timed in bf16 and fp32 (cuDNN with TF32
+   off), the chain beside the two-launch chain. ``conv_plan`` is held to
+   the card's ``conv_rows`` in phase 1.
 6. The MIXED and INT8 rungs (INT8's W8A8 mode with ``LGTPU_W8A8=1``):
    ``linear`` at MIXED (fp32 activations, bf16 products; 1e-4), INT8
    weight-only (bit for bit against ``linear`` on the dequantized weight)
@@ -83,8 +93,9 @@ plain version and, where one exists, a PyTorch call for the same function:
    The SASS check above also requires IMMA in every W8A8 GEMM.
 
 It ends with a ``{"kernels": [...]}`` line (all ten Pallas functions, a
-row per MIXED / INT8 / W8A8 instantiation, and conv1a's stem in bf16 and
-fp32) and the ``{"ok": true, ...}``
+row per MIXED / INT8 / W8A8 instantiation and per fp32-operand conv, and
+conv1a's stem in bf16 and fp32; the chain's rows also carry the two-launch
+chain's ``two_launch_ms``) and the ``{"ok": true, ...}``
 line. Any failure raises and exits non-zero; so does a missing card or a
 directory without the package.
 """
@@ -210,15 +221,16 @@ def compare(label, got, want, atol, rtol, exact=False):
     return max_err
 
 
-# source: (its bf16-operand kernel, on the tensor cores in every instantiation,
-# the fp32-output ones of the MIXED rung included; its fp32 kernel, on the FMA units)
+# source: (its bf16-operand kernels, each on the tensor cores in every
+# instantiation, the fp32-output ones included; its fp32 kernel, on the FMA units)
 TENSOR_CORE_KERNELS = {
-    "flash_attn.cu": ("flash_mma_kernel", "flash_kernel"),
-    "attention.cu": ("attention_mma_kernel", "attention_kernel"),
-    "linear.cu": ("linear_mma_kernel", "linear_kernel"),
-    "bidir_cross.cu": ("bidir_mma_kernel", "bidir_kernel"),
-    # the generic bf16 conv3x3_kernel (no path calls it) stays on the FMA units
-    "conv3x3.cu": ("conv3x3_mma_kernel", "conv3x3_kernel"),
+    "flash_attn.cu": (("flash_mma_kernel",), "flash_kernel"),
+    "attention.cu": (("attention_mma_kernel",), "attention_kernel"),
+    "linear.cu": (("linear_mma_kernel",), "linear_kernel"),
+    "bidir_cross.cu": (("bidir_mma_kernel",), "bidir_kernel"),
+    # the model's 64 -> 64 convs, and every other bf16-operand conv
+    "conv3x3.cu": (("conv3x3_mma_kernel", "conv3x3_igemm_kernel"), "conv3x3_kernel"),
+    "conv_chain.cu": (("chain_mma_kernel",), "chain_kernel"),
 }
 # source: its int8 x int8 kernel (W8A8), on the integer tensor cores (IMMA)
 INT8_TENSOR_CORE_KERNELS = {"linear.cu": "linear_s8_kernel"}
@@ -229,9 +241,10 @@ NO_FMA_KERNELS = {"stem.cu": "stem_kernel"}
 def tensor_core_check(build):
     """The bf16-operand instantiations of csrc/flash_attn.cu, attention.cu,
     linear.cu (MIXED's fp32 activations and INT8's int8 weights are staged
-    as bf16), bidir_cross.cu and conv3x3.cu's model conv compute their
-    products on the tensor cores (HMMA in the SASS of every one), the fp32
-    kernels on the FMA units (no HMMA), and linear.cu's W8A8 GEMM on the
+    as bf16), bidir_cross.cu, conv3x3.cu (the model conv and the generic
+    one) and conv_chain.cu compute their products on the tensor cores
+    (HMMA in the SASS of every one), the fp32 kernels on the FMA units (no
+    HMMA), and linear.cu's W8A8 GEMM on the
     integer tensor cores (IMMA in every instantiation, no HMMA), and the
     stem rounds each product and each add (no FFMA in stem.cu's kernel):
     ``cuobjdump -sass`` of the built library."""
@@ -249,13 +262,16 @@ def tensor_core_check(build):
             for op in ("HMMA", "IMMA", "FFMA"):
                 if op in line:
                     counts[name][op] += 1
-    for src, (bf16_kernel, fp32_kernel) in TENSOR_CORE_KERNELS.items():
-        mma = [c["HMMA"] for k, c in counts.items() if bf16_kernel in k]
+    for src, (bf16_kernels, fp32_kernel) in TENSOR_CORE_KERNELS.items():
+        for bf16_kernel in bf16_kernels:
+            mma = [c["HMMA"] for k, c in counts.items() if bf16_kernel in k]
+            log(f"  {src} SASS: HMMA per {bf16_kernel} instantiation ({len(mma)}) {sorted(mma)}")
+            if not mma or min(mma) == 0:
+                raise AssertionError(f"{src}: a {bf16_kernel} instantiation without HMMA")
         fma = [c["HMMA"] for k, c in counts.items() if fp32_kernel in k]
-        log(f"  {src} SASS: HMMA per bf16-operand instantiation ({len(mma)}) {sorted(mma)}, "
-            f"per fp32 kernel {sorted(fma)}")
-        if not mma or min(mma) == 0 or not fma or max(fma) != 0:
-            raise AssertionError(f"{src}: a bf16 kernel without HMMA or an fp32 one with it")
+        log(f"  {src} SASS: HMMA per {fp32_kernel} instantiation ({len(fma)}) {sorted(fma)}")
+        if not fma or max(fma) != 0:
+            raise AssertionError(f"{src}: an fp32 kernel with HMMA")
     for src, kernel in INT8_TENSOR_CORE_KERNELS.items():
         imma = [(c["IMMA"], c["HMMA"]) for k, c in counts.items() if kernel in k]
         log(f"  {src} SASS: (IMMA, HMMA) per W8A8 instantiation ({len(imma)}) {sorted(imma)}")
@@ -364,40 +380,64 @@ def conv_taps(x, w, taps=range(9), each=None):
     return acc
 
 
-def conv_epilogue(acc, b, pool):
-    """superpoint.py:_relu_conv after the sum: fp32 bias, ReLU, the optional
-    2x2 max-pool, one cast to bf16."""
+def conv_epilogue(acc, b, pool, relu=True, out_dtype=None):
+    """superpoint.py:_relu_conv after the sum (conv.py:conv3x3's with
+    ``relu``): fp32 bias, ReLU when asked, the optional 2x2 max-pool, one
+    cast to ``out_dtype`` (bf16 by default)."""
     import torch
     import torch.nn.functional as F
 
-    out = torch.relu(acc + b.float())
+    out = acc + b.float()
+    if relu:
+        out = torch.relu(out)
     if pool:
         out = F.max_pool2d(out.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
-    return out.to(torch.bfloat16)
+    return out.to(out_dtype or torch.bfloat16)
 
 
-def conv_wrong_designs(x, w, b, pool):
-    """The model conv's two wrong designs on the same bf16 operands
-    (``conv.conv3x3``'s arguments): (a) acc rounded through bf16 before the
-    bias; (b) acc rounded through bf16 after every tap. Both outputs are
-    (B, H', W', 64) bf16."""
+def _round_bf16(t):
     import torch
 
-    def rnd(t):
-        return t.to(torch.bfloat16).float()
-
-    return {"(a) acc rounded before the bias": conv_epilogue(rnd(conv_taps(x, w)), b, pool),
-            "(b) acc rounded after every tap": conv_epilogue(conv_taps(x, w, each=rnd), b, pool)}
+    return t.to(torch.bfloat16).float()
 
 
-def plan_checks(ls, at, nms_k, lib):
+def conv_wrong_designs(x, w, b, pool, relu=True, out_dtype=None):
+    """A bf16 conv's two wrong designs on the same bf16 operands
+    (``conv.conv3x3``'s arguments, any C_out): (a) acc rounded through bf16
+    before the bias; (b) acc rounded through bf16 after every tap. Both
+    outputs are (B, H', W', C_out) in ``out_dtype`` (bf16 by default)."""
+    rnd = _round_bf16
+    return {"(a) acc rounded before the bias":
+            conv_epilogue(rnd(conv_taps(x, w)), b, pool, relu, out_dtype),
+            "(b) acc rounded after every tap":
+            conv_epilogue(conv_taps(x, w, each=rnd), b, pool, relu, out_dtype)}
+
+
+def chain_wrong_designs(x, wa, ba, wb, bb, relu=True, out_dtype=None):
+    """``conv2_chain``'s two wrong designs on the same bf16 operands: (a)
+    conv2a's output kept in fp32, not rounded to bf16 before conv2b; (b)
+    conv2b's acc rounded through bf16 before the bias. Both outputs are
+    (B, H/2, W/2, 64) in ``out_dtype`` (bf16 by default)."""
+    import torch
+
+    mid = torch.relu(conv_taps(x, wa) + ba.float())  # conv_taps pads it with zeros
+    rounded = mid.to(torch.bfloat16)
+    return {"(a) conv2a kept in fp32":
+            conv_epilogue(conv_taps(mid, wb), bb, True, relu, out_dtype),
+            "(b) conv2b's acc rounded before the bias":
+            conv_epilogue(_round_bf16(conv_taps(rounded, wb)), bb, True, relu, out_dtype)}
+
+
+def plan_checks(ls, at, nms_k, conv_k, lib):
     """The launch plans the CPU tests hold (``layer_stack.linear_plan``,
-    ``attention_plan``, ``attention.bidir_plan``, ``nms.nms_smem_bytes``)
-    are the ones the card runs (csrc/linear.cu:linear_tile,
-    csrc/mma.cuh:fill_row_groups, csrc/nms.cu:Band), at every shape of the
-    paths through the stack (128-1024 buckets) and through the
-    bidirectional kernel (960x960, 960x704, 960x64), one pair or two, and at
-    every NMS radius the kernel is built for (and one past it)."""
+    ``attention_plan``, ``attention.bidir_plan``, ``nms.nms_smem_bytes``,
+    ``conv.conv_plan``) are the ones the card runs (csrc/linear.cu:
+    linear_tile, csrc/mma.cuh:fill_row_groups, csrc/nms.cu:Band,
+    csrc/conv3x3.cu:conv_rows), at every shape of the paths through the
+    stack (128-1024 buckets) and through the bidirectional kernel (960x960,
+    960x704, 960x64), one pair or two, at every NMS radius the kernel is
+    built for (and one past it), and at the generic conv's shapes in
+    phase 5 and a grid of SuperPoint-like maps and widths."""
     import ctypes
 
     tile = (ctypes.c_int * 2)()
@@ -423,8 +463,18 @@ def plan_checks(ls, at, nms_k, lib):
         if lib.lg_nms_smem_bytes(r) != want:
             raise AssertionError(f"nms radius {r}: the card's {lib.lg_nms_smem_bytes(r)} bytes "
                                  f"of shared memory, nms_smem_bytes' {want}")
-    log("  launch plans: linear_plan, attention_plan, bidir_plan and nms_smem_bytes match the "
-        "card's at every path shape")
+    conv_shapes = {(2, h, w, cout) for _, h, w, _, cout, _, _ in GENERIC_CONVS + GENERIC_EDGE_CONVS}
+    conv_shapes |= {(b, h, w, cout) for b in (1, 2) for h, w in ((60, 80), (120, 160), (180, 244),
+                                                                   (240, 320), (480, 640))
+                    for cout in (8, 40, 64, 128, 256)}
+    out = (ctypes.c_int * 4)()
+    for shape in sorted(conv_shapes):
+        lib.lg_conv_tile(*shape, out)
+        if tuple(out) != tuple(conv_k.conv_plan(*shape)):
+            raise AssertionError(f"conv3x3 {shape}: the card's tile {tuple(out)}, conv_plan's "
+                                 f"{tuple(conv_k.conv_plan(*shape))}")
+    log("  launch plans: linear_plan, attention_plan, bidir_plan, nms_smem_bytes and conv_plan "
+        "match the card's at every path shape")
 
 
 def nms_map(gen, dev, b, h, w):
@@ -1595,6 +1645,12 @@ GENERIC_CONVS = [
     ("convDa 60x80 128->256", 60, 80, 128, 256, False, True),
     ("convDb 60x80 256->256 no ReLU", 60, 80, 256, 256, False, False),
 ]
+GENERIC_EDGE_CONVS = [
+    # C_in a multiple of 8, not 16, and C_out of 64 channels; a 488-wide
+    # map (30.5 tiles) with the pool; batch 2
+    ("60x80 24->40 no ReLU", 60, 80, 24, 40, False, False),
+    ("360x488 64->128 + pool", 360, 488, 64, 128, True, True),
+]
 
 
 def conv_weights(rand, cin, cout, dt):
@@ -1621,93 +1677,133 @@ def cudnn_conv(w, b, dt, pool, relu):
     return call
 
 
-def generic_conv_checks(conv_k, rand, dev, dtypes, fp32_scope, gen_e):
+def bf16_witness(label, got, want, wrong):
+    """The rounding witness of a bf16-operand conv case: by elements where
+    the output is bf16 (``rounding_witness``), by mean magnitude where it is
+    fp32 (``magnitude_witness``: there a different fp32 sum order moves
+    nearly every element by an ulp of fp32)."""
+    import torch
+
+    if got.dtype == torch.bfloat16:
+        rounding_witness(label, got, want, wrong)
+    else:
+        magnitude_witness(label, got, want, wrong)
+
+
+def generic_conv_checks(conv_k, rand, dev, dtypes, fp32_scope, gen_e, gen_fp32_e):
     """The generic conv3x3 (JAX conv.py:182) against its plain version at
-    SuperPoint's C >= 128 layer shapes for a 2x480x640 batch, in bf16 and
-    fp32 and with the other output dtype; the bf16 calls are timed."""
+    SuperPoint's C >= 128 layer shapes for a 2x480x640 batch and at the
+    edge shapes, in bf16 and fp32 and with the other output dtype; every
+    bf16-operand case also against the rounding witness and the conv's two
+    wrong designs. The four SuperPoint shapes are timed in both operand
+    dtypes, cuDNN beside them (fp32 with TF32 off)."""
     import torch
 
     log("conv3x3, generic C_in/C_out (not on a path; the entry point's own calls)")
-    for label, h, w, cin, cout, pool, relu in GENERIC_CONVS:
+    for label, h, w, cin, cout, pool, relu in GENERIC_CONVS + GENERIC_EDGE_CONVS:
         for tag, dt in dtypes.items():
             x = rand(2, h, w, cin, uniform=True, dtype=dt)
             wt, b = conv_weights(rand, cin, cout, dt)
             other = torch.float32 if dt == torch.bfloat16 else torch.bfloat16
             for out_dt in (dt, other):
                 kw = dict(relu=relu, out_dtype=out_dt)
+                case = f"{label} {tag} -> {str(out_dt)[6:]}"
                 with fp32_scope():
                     got = conv_k.conv3x3(x, wt, b, pool, **kw)
                     want = conv_k.conv3x3_plain(x, wt, b, pool, **kw)
                     out_tag = "bf16" if torch.bfloat16 in (dt, out_dt) else "fp32"
-                    err = compare(f"{label} {tag} -> {str(out_dt)[6:]}", got, want, **TOL[out_tag])
-                if tag == "bf16" and out_dt == dt:
-                    gen_e.err(err)
+                    err = compare(case, got, want, **TOL[out_tag])
+                    if tag == "bf16":
+                        bf16_witness(case, got, want,
+                                     conv_wrong_designs(x, wt, b, pool, relu, out_dt))
+                if out_dt == dt:
+                    (gen_e if tag == "bf16" else gen_fp32_e).err(err)
     # the entry point's own path: one call per shape, counted from 0
-    conv_k.conv3x3.launches = 0
-    timed = []
-    for label, h, w, cin, cout, pool, relu in GENERIC_CONVS:
-        x = rand(2, h, w, cin, uniform=True, dtype=torch.bfloat16)
-        wt, b = conv_weights(rand, cin, cout, torch.bfloat16)
-        conv_k.conv3x3(x, wt, b, pool, relu=relu)
-        timed.append((label, h, w, cin, cout, pool, relu, x, wt, b))
-    gen_e.d["launches"] = conv_k.conv3x3.launches
-    log(f"  generic entry point, one call per shape: conv3x3 launches {conv_k.conv3x3.launches}")
-    for label, h, w, cin, cout, pool, relu, x, wt, b in timed:
-        ms = cuda_ms(lambda: conv_k.conv3x3(x, wt, b, pool, relu=relu))
-        with fp32_scope():
-            plain = cuda_ms(lambda: conv_k.conv3x3_plain(x, wt, b, pool, relu=relu))
-        lib = cudnn_conv(wt, b, x.dtype, pool, relu)
-        xc = x.permute(0, 3, 1, 2)
-        lib_ms = cuda_ms(lambda: lib(xc))
-        oh, ow = (h // 2, w // 2) if pool else (h, w)
-        nbytes = 2 * (2 * h * w * cin + 9 * cin * cout + 2 * oh * ow * cout) + 4 * cout
-        flops = 2 * 2 * h * w * cin * cout * 9
-        gen_e.add(f"{label} bf16", 1, ms, plain, lib_ms, nbytes, flops, BF16_FLOP_PER_MS,
-                  per="call of the four")
+    for tag, dt in dtypes.items():
+        ent = gen_e if tag == "bf16" else gen_fp32_e
+        conv_k.conv3x3.launches = 0
+        timed = []
+        for label, h, w, cin, cout, pool, relu in GENERIC_CONVS:
+            x = rand(2, h, w, cin, uniform=True, dtype=dt)
+            wt, b = conv_weights(rand, cin, cout, dt)
+            conv_k.conv3x3(x, wt, b, pool, relu=relu)
+            timed.append((label, h, w, cin, cout, pool, relu, x, wt, b))
+        ent.d["launches"] = conv_k.conv3x3.launches
+        log(f"  generic entry point {tag}, one call per shape: conv3x3 launches "
+            f"{conv_k.conv3x3.launches}")
+        for label, h, w, cin, cout, pool, relu, x, wt, b in timed:
+            lib = cudnn_conv(wt, b, x.dtype, pool, relu)
+            xc = x.permute(0, 3, 1, 2)
+            with fp32_scope():
+                ms = cuda_ms(lambda: conv_k.conv3x3(x, wt, b, pool, relu=relu))
+                plain = cuda_ms(lambda: conv_k.conv3x3_plain(x, wt, b, pool, relu=relu))
+                lib_ms = cuda_ms(lambda: lib(xc))
+            oh, ow = (h // 2, w // 2) if pool else (h, w)
+            size = x.element_size()
+            nbytes = size * (2 * h * w * cin + 9 * cin * cout + 2 * oh * ow * cout) + 4 * cout
+            flops = 2 * 2 * h * w * cin * cout * 9
+            ent.add(f"{label} {tag}", 1, ms, plain, lib_ms, nbytes, flops,
+                    BF16_FLOP_PER_MS if tag == "bf16" else FP32_OP_PER_MS,
+                    per="call of the four")
 
 
-def conv_chain_checks(conv_k, cc, rand, dev, dtypes, fp32_scope, chain_e):
+def conv_chain_checks(conv_k, cc, rand, dev, dtypes, fp32_scope, chain_e, chain_fp32_e):
     """conv2_chain (JAX conv_chain.py:140) against its plain version and
     against the port's two-launch conv3x3 chain at the main path's conv2
-    shape, 2x240x320x64, in bf16 and fp32, with and without conv2b's ReLU;
-    the bf16 call is timed beside the two-launch chain."""
+    shape, 2x240x320x64, and at the 360x488 edge's 2x180x244, in bf16 and
+    fp32, with and without conv2b's ReLU, into either output dtype; every
+    bf16-operand case also against the rounding witness and the chain's two
+    wrong designs (``chain_wrong_designs``). One call in each operand dtype
+    is timed beside the two-launch chain and cuDNN (fp32 with TF32 off)."""
     import torch
 
-    log("conv2_chain (not on a path: the model runs conv3x3 twice; 2x240x320x64)")
-    h, w = 240, 320
+    log("conv2_chain (not on a path: the model runs conv3x3 twice; 2x240x320x64, 2x180x244x64)")
     for tag, dt in dtypes.items():
+        other = torch.float32 if dt == torch.bfloat16 else torch.bfloat16
+        for h, w in ((240, 320), (180, 244)):
+            x = rand(2, h, w, 64, uniform=True, dtype=dt)
+            wa, ba = conv_weights(rand, 64, 64, dt)
+            wb, bb = conv_weights(rand, 64, 64, dt)
+            for relu in (True, False):
+                for out_dt in (dt, other):
+                    kw = dict(relu=relu, out_dtype=out_dt)
+                    case = f"conv2_chain {h}x{w} relu={relu} {tag} -> {str(out_dt)[6:]}"
+                    out_tag = "bf16" if torch.bfloat16 in (dt, out_dt) else "fp32"
+                    with fp32_scope():
+                        got = cc.conv2_chain(x, wa, ba, wb, bb, **kw)
+                        want = cc.conv2_chain_plain(x, wa, ba, wb, bb, **kw)
+                        err = compare(case, got, want, **TOL[out_tag])
+                        two = conv_k.conv3x3(conv_k.conv3x3(x, wa, ba), wb, bb, True, **kw)
+                        compare(f"{case} vs two conv3x3 launches", got, two, **TOL[out_tag])
+                        if tag == "bf16":
+                            bf16_witness(case, got, want,
+                                         chain_wrong_designs(x, wa, ba, wb, bb, relu, out_dt))
+                    if out_dt == dt:
+                        (chain_e if tag == "bf16" else chain_fp32_e).err(err)
+        h, w = 240, 320
         x = rand(2, h, w, 64, uniform=True, dtype=dt)
         wa, ba = conv_weights(rand, 64, 64, dt)
         wb, bb = conv_weights(rand, 64, 64, dt)
-        for relu in (True, False):
-            with fp32_scope():
-                got = cc.conv2_chain(x, wa, ba, wb, bb, relu=relu)
-                want = cc.conv2_chain_plain(x, wa, ba, wb, bb, relu=relu)
-                err = compare(f"conv2_chain relu={relu} {tag}", got, want, **TOL[tag])
-                two = conv_k.conv3x3(conv_k.conv3x3(x, wa, ba), wb, bb, True, relu=relu)
-                compare(f"conv2_chain relu={relu} {tag} vs two conv3x3 launches", got, two,
-                        **TOL[tag])
-            if tag == "bf16":
-                chain_e.err(err)
-        if tag != "bf16":
-            continue
+        ent = chain_e if tag == "bf16" else chain_fp32_e
         cc.conv2_chain.launches = 0
         cc.conv2_chain(x, wa, ba, wb, bb)
-        chain_e.d["launches"] = cc.conv2_chain.launches
-        log(f"  entry point, one call: conv2_chain launches {cc.conv2_chain.launches}")
-        ms = cuda_ms(lambda: cc.conv2_chain(x, wa, ba, wb, bb))
-        with fp32_scope():
-            plain = cuda_ms(lambda: cc.conv2_chain_plain(x, wa, ba, wb, bb))
-        two_ms = cuda_ms(lambda: conv_k.conv3x3(conv_k.conv3x3(x, wa, ba), wb, bb, True))
+        ent.d["launches"] = cc.conv2_chain.launches
+        log(f"  entry point {tag}, one call: conv2_chain launches {cc.conv2_chain.launches}")
         conv2a, conv2b = (cudnn_conv(wa, ba, dt, False, True), cudnn_conv(wb, bb, dt, True, True))
         xc = x.permute(0, 3, 1, 2)
-        lib_ms = cuda_ms(lambda: conv2b(conv2a(xc)))
-        log(f"  the port's two-launch conv3x3 chain: {two_ms:.4f} ms")
-        nbytes = 2 * (2 * h * w * 64 + 2 * 9 * 64 * 64 + 2 * (h // 2) * (w // 2) * 64) + 8 * 64
+        with fp32_scope():
+            ms = cuda_ms(lambda: cc.conv2_chain(x, wa, ba, wb, bb))
+            plain = cuda_ms(lambda: cc.conv2_chain_plain(x, wa, ba, wb, bb))
+            two_ms = cuda_ms(lambda: conv_k.conv3x3(conv_k.conv3x3(x, wa, ba), wb, bb, True))
+            lib_ms = cuda_ms(lambda: conv2b(conv2a(xc)))
+        ent.d["two_launch_ms"] = two_ms
+        log(f"  the port's two-launch conv3x3 chain {tag}: {two_ms:.4f} ms (fused: {ms:.4f})")
+        size = x.element_size()
+        nbytes = size * (2 * h * w * 64 + 2 * 9 * 64 * 64 + 2 * (h // 2) * (w // 2) * 64) + 8 * 64
         flops = 2 * (2 * 2 * h * w * 64 * 64 * 9)
         # library: two cuDNN convs with bias and ReLU, and the pool
-        chain_e.add("conv2a+conv2b+pool 2x240x320x64 bf16", 1, ms, plain, lib_ms, nbytes, flops,
-                    BF16_FLOP_PER_MS, per="call")
+        ent.add(f"conv2a+conv2b+pool 2x240x320x64 {tag}", 1, ms, plain, lib_ms, nbytes, flops,
+                BF16_FLOP_PER_MS if tag == "bf16" else FP32_OP_PER_MS, per="call")
 
 
 # ---------------------------------------------------------------------------
@@ -2301,7 +2397,8 @@ def rung_end_to_end(ls, at, counters, img0, img1, ents):
             ("mixed", "pad-to-64"), ("int8", "pad-to-64")]
     # (rung, config) -> {kernels line entry: launch counter}: the rung's main path
     main_of = {("mixed", "fixed depth"): {"linear mixed": "linear", "attention mixed": "attention",
-                                          "relu_conv1a_shift mixed": "relu_conv1a_shift"},
+                                          "relu_conv1a_shift mixed": "relu_conv1a_shift",
+                                          "conv3x3 mixed": "conv3x3"},
                ("int8", "fixed depth"): {"linear int8": "linear", "ln_gelu int8": "ln_gelu"},
                ("w8a8", "fixed depth"): {"linear w8a8": "linear", "row_quant": "row_quant"},
                ("mixed", "adaptive"): {"adaptive_decide mixed": "adaptive_decide"},
@@ -2495,6 +2592,9 @@ def main() -> int:
 
     conv_e = Entry("conv3x3", "src/lightglue_tpu_torch/csrc/conv3x3.cu",
                    "src/lightglue_tpu/kernels/conv.py:356")
+    conv_fp32_e = Entry("conv3x3 (MIXED, FP32: fp32 operands)",
+                        "src/lightglue_tpu_torch/csrc/conv3x3.cu",
+                        "src/lightglue_tpu/kernels/conv.py:356")
     nms_e = Entry("nms_candidates", "src/lightglue_tpu_torch/csrc/nms.cu",
                   "src/lightglue_tpu/kernels/nms.py:199")
     stem_e = Entry("relu_conv1a_shift", "src/lightglue_tpu_torch/csrc/stem.cu",
@@ -2514,7 +2614,8 @@ def main() -> int:
         return (f(*shape, generator=gen, device=dev) * scale).to(dtype)
 
     # ---- conv3x3: conv1b+pool, conv2a, conv2b+pool at 2x480x640 ----------
-    log("conv3x3 (per match_pair: conv1b+pool, conv2a, conv2b+pool; then edge tiles at 360x488)")
+    log("conv3x3 (per match_pair: conv1b+pool, conv2a, conv2b+pool, bf16 on BF16 and INT8, "
+        "fp32 on MIXED and FP32; then edge tiles at 360x488)")
     conv_cases = [  # label, H, W, pool, timed
         ("conv1b+pool", 480, 640, True, True), ("conv2a", 240, 320, False, True),
         ("conv2b+pool", 240, 320, True, True),
@@ -2532,27 +2633,21 @@ def main() -> int:
                 if tag == "bf16":
                     rounding_witness(f"{label} {tag}", got, want,
                                      conv_wrong_designs(x, wt, b, pool))
-            if tag != "bf16":
-                continue
-            conv_e.err(err)
+            ent = conv_e if tag == "bf16" else conv_fp32_e
+            ent.err(err)
             if not timed:
                 continue
+            lib = cudnn_conv(wt, b, dt, pool, True)
             xc = x.permute(0, 3, 1, 2)
-            wc = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last).to(dt)
-            bc = b.to(dt)
-
-            def lib():
-                y = F.relu(F.conv2d(xc, wc, bc, padding=1))
-                return F.max_pool2d(y, 2) if pool else y
-
-            ms = cuda_ms(lambda: conv_k.conv3x3(x, wt, b, pool=pool))
-            with fp32_scope():
+            with fp32_scope():  # cuDNN's fp32 conv with TF32 off
+                ms = cuda_ms(lambda: conv_k.conv3x3(x, wt, b, pool=pool))
                 plain = cuda_ms(lambda: conv_k.conv3x3_plain(x, wt, b, pool))
-            lib_ms = cuda_ms(lib)
+                lib_ms = cuda_ms(lambda: lib(xc))
             oh, ow = (h // 2, w // 2) if pool else (h, w)
-            nbytes = 2 * (2 * h * w * 64 + 9 * 64 * 64 + 2 * oh * ow * 64) + 4 * 64
+            nbytes = x.element_size() * (2 * h * w * 64 + 9 * 64 * 64 + 2 * oh * ow * 64) + 4 * 64
             flops = 2 * 2 * h * w * 64 * 64 * 9
-            conv_e.add(f"{label} bf16", 1, ms, plain, lib_ms, nbytes, flops, BF16_FLOP_PER_MS)
+            ent.add(f"{label} {tag}", 1, ms, plain, lib_ms, nbytes, flops,
+                    BF16_FLOP_PER_MS if tag == "bf16" else FP32_OP_PER_MS)
 
     # ---- nms_candidates: 2x480x640, edge bands, radii, caps, ties ----------
     log("nms_candidates (per match_pair: one launch over 2x480x640; then edge bands, radius 2, "
@@ -2572,7 +2667,7 @@ def main() -> int:
     stem_checks(stem_k, gen, dev, fp32_scope, stem_e, stem_fp32_e)
 
     # ---- linear: every projection of one layer of a 1024x1024 pair -------
-    plan_checks(ls, at, nms_k, _build.lib())
+    plan_checks(ls, at, nms_k, conv_k, _build.lib())
     log(f"linear (per match_pair: 16 launches per layer x {N_LAYERS} layers, N={BUCKET})")
     e = 256
     m = BUCKET
@@ -2809,10 +2904,14 @@ def main() -> int:
     # ---- the conv variants that no path runs --------------------------------
     gen_e = Entry("conv3x3 (generic)", "src/lightglue_tpu_torch/csrc/conv3x3.cu",
                   "src/lightglue_tpu/kernels/conv.py:182")
+    gen_fp32_e = Entry("conv3x3 (generic, fp32 operands)", "src/lightglue_tpu_torch/csrc/conv3x3.cu",
+                       "src/lightglue_tpu/kernels/conv.py:182")
     chain_e = Entry("conv2_chain", "src/lightglue_tpu_torch/csrc/conv_chain.cu",
                     "src/lightglue_tpu/kernels/conv_chain.py:140")
-    generic_conv_checks(conv_k, rand, dev, dtypes, fp32_scope, gen_e)
-    conv_chain_checks(conv_k, cc, rand, dev, dtypes, fp32_scope, chain_e)
+    chain_fp32_e = Entry("conv2_chain (fp32 operands)", "src/lightglue_tpu_torch/csrc/conv_chain.cu",
+                         "src/lightglue_tpu/kernels/conv_chain.py:140")
+    generic_conv_checks(conv_k, rand, dev, dtypes, fp32_scope, gen_e, gen_fp32_e)
+    conv_chain_checks(conv_k, cc, rand, dev, dtypes, fp32_scope, chain_e, chain_fp32_e)
 
     # ---- the MIXED and INT8 rungs (and W8A8) on every route ---------------------
     stack_src, stack_ref = "src/lightglue_tpu_torch/csrc/", "src/lightglue_tpu/kernels/"
@@ -2831,6 +2930,7 @@ def main() -> int:
                               stack_ref + "layer_stack.py:801"),
         "adaptive_decide mixed": dec_mixed_e,
         "relu_conv1a_shift mixed": stem_fp32_e,
+        "conv3x3 mixed": conv_fp32_e,
         "fused_mha mixed": Entry("fused_mha (MIXED: fp32 out)", stack_src + "flash_attn.cu",
                                  stack_ref + "attention.py:687"),
         "bidirectional_cross_attention mixed": Entry(
@@ -2847,7 +2947,7 @@ def main() -> int:
     ring_int8(at, counters, img0, img1)
 
     entries = (stem_e, conv_e, nms_e, lin_e, att_e, ln_e, dec_e, fused_e, bidir_e, flash_e,
-               step_e, gen_e, chain_e, *rung_ents.values())
+               step_e, gen_e, gen_fp32_e, chain_e, chain_fp32_e, *rung_ents.values())
     log(json.dumps({"kernels": [x.out() for x in entries]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

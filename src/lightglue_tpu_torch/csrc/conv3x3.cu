@@ -11,17 +11,18 @@
 //                   C_in, C_out multiple of 8, ReLU optional, any output
 //                   type (a tested variant the model does not call).
 // The contract kept is superpoint.py:_relu_conv's: fp32 accumulation over all
-// 9 taps x C_in, fp32 bias, ReLU, the optional 2x2 max-pool in fp32, then ONE
-// cast to the output type.
+// 9 taps x C_in, fp32 bias, ReLU (when asked), the optional 2x2 max-pool in
+// fp32, then ONE cast to the output type.
 //
 // Bound on the H100: at 2x480x640 the three 64-channel convs are ~68 GFLOP
 // against ~0.2 GB of activations, so the tensor cores bound them (~0.07 ms
-// at the bf16 peak); the C >= 128 shapes are further above the ridge.
+// at the bf16 peak); SuperPoint's C >= 128 shapes (conv3a..convDb, ~34
+// GFLOP, 0.034 ms) are further above the ridge. Three kernels:
 //
-// The model's bf16 calls (C_in = C_out = 64, ReLU, bf16 out) run
-// conv3x3_mma_kernel, an implicit GEMM on the tensor cores: M = a tile's
-// output pixels, N = the 64 output channels, K = 9 taps x 64 input channels
-// (36 k16 steps of mma.sync m16n8k16, bf16 in, fp32 sums).
+// conv3x3_mma_kernel, the model's bf16 calls (C_in = C_out = 64, ReLU, bf16
+// out): an implicit GEMM on the tensor cores: M = a tile's output pixels,
+// N = the 64 output channels, K = 9 taps x 64 input channels (36 k16 steps
+// of mma.sync m16n8k16, bf16 in, fp32 sums).
 // - Persistent blocks (as many as fit on the card at once) walk the 16x16
 //   output tiles; each block stages all nine taps' weights once (HWIO is
 //   [tap][ci][co], i.e. [k][n]: 72 KB, read by ldmatrix.trans as
@@ -40,12 +41,42 @@
 //   are masked per pixel, so any H and W run (360x488 gives a 488-wide
 //   conv1b and a 244-wide conv2a).
 //
-// Left on the fp32 FMA units: the fp32 rung (one TF32 mma would miss its
-// 1e-4 gate) and the generic instantiation in both types (a tested variant
-// no path calls), conv3x3_kernel: one block per 8x16 output tile and 64
-// output channels, the haloed input tile and the taps' weights staged in
-// shared memory 16 input channels at a time (under the 48 KB static limit;
-// a chunk past C_in is zero-filled), 8 pixels x 4 output channels of fp32
+// conv3x3_igemm_kernel, every other bf16-operand call (any C_in and C_out
+// multiples of 8, ReLU on or off, pool on or off, bf16 or fp32 out): the
+// same implicit GEMM and warp tile (2 tile rows x 64 channels, the m-tiles
+// sharing each B fragment), but the weights do not stay resident (convDb,
+// 256 -> 256, has 1.18 MB), so K streams:
+// - A block owns `rows` x 16 output pixels x 64 output channels (rows / 2
+//   warps). K runs in chunks of 16 input channels: a chunk is the haloed
+//   (rows + 2) x 18 input tile's 16 channels and those channels' nine taps
+//   of weights for the block's channels, 9 k16 steps; a two-stage cp.async
+//   ring copies chunk c + 1 while chunk c computes (one barrier per chunk).
+//   A chunk past C_in is zero-filled in both operands (C_in = 24 runs two
+//   chunks, the second half zeros), as are weight columns past C_out, whose
+//   fragments are never stored.
+// - The plan (conv_rows; kernels/conv.py:conv_plan mirrors it): rows the
+//   largest of 16, 8 and 4 whose grid has CONV_FILL = 264 blocks, two per
+//   SM, so the small maps spread evenly: conv3a/conv3b (2x120x160) run 320
+//   blocks of 16 rows, convDa/convDb (2x60x80) 320 of 8 rows. The
+//   registers are held to 128 a thread so that two 256-thread blocks (72.6
+//   KB of shared memory each) share an SM. scripts/tune_torch_convs.py
+//   sweeps CONV_FILL, GSTAGES and that bound: one block an SM (166
+//   registers) left a 160-block grid in two waves, and 128-channel tiles
+//   (fewer, larger blocks) ran slower at every shape.
+// - What bounds it: each block reads all of C_in's weights for its 64
+//   channels from L2 (convDb: 295 KB a block, 94 MB over its 320 blocks)
+//   beside the ldmatrix traffic (six ldmatrix.x4 per 16 mma in a warp), not
+//   device memory.
+// - Epilogue in registers: fp32 acc + fp32 bias, ReLU when asked, the pool
+//   max across the thread's two rows and the lane 4 apart, one cast, 2-value
+//   stores masked per pixel and per 8-channel column.
+//
+// conv3x3_kernel, the fp32-operand calls (the MIXED and FP32 rungs' model
+// convs and the generic fp32 calls), on the fp32 FMA units: one TF32 mma
+// would miss their 1e-4 gate. One block per 8x16 output tile and 64 output
+// channels, the haloed input tile and the taps' weights staged in shared
+// memory 16 input channels at a time (under the 48 KB static limit; a chunk
+// past C_in is zero-filled), 8 pixels x 4 output channels of fp32
 // accumulators per thread, and the bias/ReLU/pool epilogue in registers. Its
 // fixed instantiation (C_in = C_out = 64, ReLU) takes the channel counts as
 // compile-time constants; the generic one takes them at run time and tiles
@@ -63,9 +94,9 @@ constexpr int HR = TH + 2;   // haloed tile rows
 constexpr int HC = TW + 2;   // haloed tile cols
 constexpr int THREADS = 256;
 
-template <typename T, typename O, bool GENERIC, bool RELU>
+template <typename O, bool GENERIC, bool RELU>
 __global__ void __launch_bounds__(THREADS)
-conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
+conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
                const float* __restrict__ bias, O* __restrict__ y,
                int H, int W, int Cin, int Cout, int pool) {
   __shared__ float xs[HR * HC * CI];               // [row][col][ci] 11.5 KB
@@ -83,7 +114,7 @@ conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int co0 = GENERIC ? blockIdx.z % tiles * C : 0;
   const int y0 = blockIdx.y * TH;
   const int x0 = blockIdx.x * TW;
-  const T* xb = x + (size_t)b * H * W * cin;
+  const float* xb = x + (size_t)b * H * W * cin;
 
   float acc[2][4][4];
 #pragma unroll
@@ -102,7 +133,7 @@ conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
       const int gx = x0 - 1 + pix % HC;
       float v = 0.f;  // SAME zero padding, and channels past C_in
       if (gy >= 0 && gy < H && gx >= 0 && gx < W && (!GENERIC || c0 + ci < cin))
-        v = lg::to_f(xb[((size_t)gy * W + gx) * cin + c0 + ci]);
+        v = xb[((size_t)gy * W + gx) * cin + c0 + ci];
       xs[i] = v;
     }
     for (int i = tid; i < 9 * CI * C; i += THREADS) {
@@ -111,7 +142,7 @@ conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
       const int tap = i / (C * CI);
       float v = 0.f;
       if (!GENERIC || (c0 + ci < cin && co0 + co < cout))
-        v = lg::to_f(w[((size_t)tap * cin + c0 + ci) * cout + co0 + co]);
+        v = w[((size_t)tap * cin + c0 + ci) * cout + co0 + co];
       ws[i] = v;
     }
     __syncthreads();
@@ -183,13 +214,13 @@ conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
-template <typename T, typename O, bool GENERIC, bool RELU>
+template <typename O, bool GENERIC, bool RELU>
 int launch(const void* x, const void* w, const void* bias, void* y, int B,
            int H, int W, int Cin, int Cout, int pool, cudaStream_t stream) {
   const int tiles = GENERIC ? (Cout + C - 1) / C : 1;
   dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B * tiles);
-  conv3x3_kernel<T, O, GENERIC, RELU><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
+  conv3x3_kernel<O, GENERIC, RELU><<<grid, THREADS, 0, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
       static_cast<const float*>(bias), static_cast<O*>(y), H, W, Cin, Cout, pool);
   return static_cast<int>(cudaGetLastError());
 }
@@ -363,27 +394,208 @@ int launch_mma(const void* x, const void* w, const void* bias, void* y, int B, i
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, typename O>
-int generic(const void* x, const void* w, const void* bias, void* y, int B,
-            int H, int W, int Cin, int Cout, int pool, int relu, cudaStream_t s) {
-  return (relu ? launch<T, O, true, true> : launch<T, O, true, false>)(
-      x, w, bias, y, B, H, W, Cin, Cout, pool, s);
+
+// ---------------------------------------------------------------------------
+// Every other bf16-operand conv on the tensor cores: C_in, C_out multiples of 8
+// ---------------------------------------------------------------------------
+
+constexpr int GK = 16;          // input channels per K chunk: one k16 step per tap
+constexpr int GPA = GK + 8;     // pixel pitch of a chunk's input tile (48 B: the eight
+                                // rows of an ldmatrix fall in different banks)
+constexpr int GW = 16;          // output tile width: an m16 fragment is one tile row
+constexpr int GN = 64;          // output channels of a tile: one warp's eight n8 fragments
+constexpr int GSTAGES = 2;      // K chunks in the cp.async ring
+constexpr int CONV_FILL = 264;  // blocks a launch aims for: two per SM of an H100
+
+// A launch's tile: rows x 16 output pixels x 64 output channels, a warp per
+// 2 rows; rows the largest of 16, 8 and 4 whose grid has CONV_FILL blocks,
+// else 4. kernels/conv.py:conv_plan mirrors it.
+inline int conv_rows(int B, int H, int W, int Cout) {
+  const long long per_row = (long long)B * ((W + GW - 1) / GW) * ((Cout + GN - 1) / GN);
+  for (int rows = 16; rows > 4; rows /= 2)
+    if (per_row * ((H + rows - 1) / rows) >= CONV_FILL) return rows;
+  return 4;
 }
 
-template <typename T>
-int dispatch(const void* x, const void* w, const void* bias, void* y, int B,
-             int H, int W, int Cin, int Cout, int pool, int relu, int bf16_out,
-             cudaStream_t s) {
-  const bool same = bf16_out == (sizeof(T) == 2);
-  if (Cin == C && Cout == C && relu && same) {  // the model's 64 -> 64 convs
-    if constexpr (sizeof(T) == 2)
-      return launch_mma(x, w, bias, y, B, H, W, pool, s);
-    else
-      return launch<T, T, false, true>(x, w, bias, y, B, H, W, Cin, Cout, pool, s);
+// elements of one ring stage: the haloed input tile's chunk and its weights
+__host__ __device__ constexpr int igemm_stage(int rows) {
+  return (rows + 2) * (GW + 2) * GPA + 9 * GK * LD;
+}
+
+constexpr size_t igemm_smem(int rows) { return sizeof(bf16_t) * GSTAGES * igemm_stage(rows); }
+
+// 128 registers a thread at most, so that two 256-thread blocks share an SM
+// (unbounded, the compiler takes 166: one block an SM)
+template <typename O, int ROWS>
+__global__ void __launch_bounds__(ROWS / 2 * 32, 512 / (ROWS / 2 * 32))
+conv3x3_igemm_kernel(const bf16_t* __restrict__ x, const bf16_t* __restrict__ w,
+                     const float* __restrict__ bias, O* __restrict__ y, int B, int H, int W,
+                     int Cin, int Cout, int pool, int relu) {
+  constexpr int THREADS = ROWS / 2 * 32;
+  constexpr int HW = GW + 2;              // haloed tile width
+  constexpr int APIX = (ROWS + 2) * HW;   // haloed tile pixels
+  constexpr int STAGE = igemm_stage(ROWS);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // GSTAGES x {[APIX][GPA] input chunk, [9 * GK][LD] its taps' weights}
+  bf16_t* sm = reinterpret_cast<bf16_t*>(smem_raw);
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;  // tile rows 2 warp + {0, 1}
+  const int g = lane / 4, t4 = lane % 4;   // mma fragment row and column pair
+  const int mi = lane / 8, mr = lane % 8;  // ldmatrix matrix and row of this lane
+  const int x0 = blockIdx.x * GW, y0 = blockIdx.y * ROWS;
+  const int b = blockIdx.z % B, n0 = blockIdx.z / B * GN;
+  const int chunks = (Cin + GK - 1) / GK;
+
+  // chunk c into its ring stage: channels c * GK.. of the haloed tile and
+  // their nine taps' weights for the block's channels; zeros outside the
+  // image and past C_in or C_out
+  auto stage = [&](int c) {
+    bf16_t* as = sm + c % GSTAGES * STAGE;
+    bf16_t* ws = as + APIX * GPA;
+    const int c0 = c * GK;
+    for (int s = tid; s < APIX * (GK / 8); s += THREADS) {
+      const int p = s / (GK / 8), k8 = s % (GK / 8) * 8;
+      const int gy = y0 - 1 + p / HW, gx = x0 - 1 + p % HW;
+      bf16_t* d = as + p * GPA + k8;
+      if (gy >= 0 && gy < H && gx >= 0 && gx < W && c0 + k8 < Cin)
+        lg::cp_async16(d, x + (((size_t)b * H + gy) * W + gx) * Cin + c0 + k8);
+      else
+        *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+    }
+    for (int s = tid; s < 9 * GK * (GN / 8); s += THREADS) {
+      const int r = s / (GN / 8), n8 = s % (GN / 8) * 8;  // r = tap * GK + channel in chunk
+      const int ci = c0 + r % GK, co = n0 + n8;
+      bf16_t* d = ws + r * LD + n8;
+      if (ci < Cin && co < Cout)
+        lg::cp_async16(d, w + ((size_t)(r / GK) * Cin + ci) * Cout + co);
+      else
+        *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  };
+
+  // acc[m][n]: tile row 2 * warp + m, channels n0 + n * 8.., fp32 over 9 x C_in
+  float acc[2][GN / 8][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int n = 0; n < GN / 8; ++n) acc[m][n][0] = acc[m][n][1] = acc[m][n][2] = acc[m][n][3] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < GSTAGES - 1; ++s) {
+    if (s < chunks) stage(s);
+    lg::cp_async_commit();
   }
-  if (bf16_out)
-    return generic<T, __nv_bfloat16>(x, w, bias, y, B, H, W, Cin, Cout, pool, relu, s);
-  return generic<T, float>(x, w, bias, y, B, H, W, Cin, Cout, pool, relu, s);
+  for (int c = 0; c < chunks; ++c) {
+    lg::cp_async_wait<GSTAGES - 2>();  // this thread's copies of chunk c have landed
+    __syncthreads();                   // everyone's, and chunk c - 1's stage is read
+    if (c + GSTAGES - 1 < chunks) stage(c + GSTAGES - 1);
+    lg::cp_async_commit();
+    const bf16_t* as = sm + c % GSTAGES * STAGE;
+    const bf16_t* ws = as + APIX * GPA;
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const int dy = tap / 3, dx = tap % 3;
+      unsigned a[2][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m)  // 16 pixels of a row, shifted by the tap
+        lg::ldsm_x4(a[m], as + ((2 * warp + m + dy) * HW + mr + (mi & 1) * 8 + dx) * GPA +
+                              (mi >> 1) * 8);
+      const bf16_t* wk = ws + (tap * GK + mr + (mi & 1) * 8) * LD + (mi >> 1) * 8;
+#pragma unroll
+      for (int np = 0; np < GN / 16; ++np) {
+        unsigned r[4];
+        lg::ldsm_x4_trans(r, wk + np * 16);
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          lg::mma_bf16(acc[m][2 * np], a[m], r[0], r[1]);
+          lg::mma_bf16(acc[m][2 * np + 1], a[m], r[2], r[3]);
+        }
+      }
+    }
+  }
+
+  // fp32 bias, [ReLU,] [the pool max,] one cast. C_out % 8 == 0: an n8
+  // fragment column is all inside C_out or all past it (then never stored)
+  float bv[GN / 8][2];
+#pragma unroll
+  for (int n = 0; n < GN / 8; ++n) {
+    const int co = n0 + n * 8 + 2 * t4;
+    bv[n][0] = co < Cout ? __ldg(bias + co) : 0.f;
+    bv[n][1] = co < Cout ? __ldg(bias + co + 1) : 0.f;
+  }
+  auto act = [&](float v) { return relu ? fmaxf(v, 0.f) : v; };
+  if (pool) {
+    const int Ho = H / 2, Wo = W / 2, oy = y0 / 2 + warp;
+#pragma unroll
+    for (int n = 0; n < GN / 8; ++n) {
+      if (n0 + n * 8 >= Cout) break;  // the same for the whole warp
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {  // fragment rows g and g + 8
+        float v[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          v[j] = fmaxf(act(acc[0][n][2 * i + j] + bv[n][j]), act(acc[1][n][2 * i + j] + bv[n][j]));
+          v[j] = fmaxf(v[j], __shfl_xor_sync(0xffffffffu, v[j], 4));  // the column pair
+        }
+        const int ox = x0 / 2 + (g + 8 * i) / 2;
+        if (!(g & 1) && oy < Ho && ox < Wo)
+          lg::store2(y + (((size_t)b * Ho + oy) * Wo + ox) * Cout + n0 + n * 8 + 2 * t4, v[0],
+                     v[1]);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const int gy = y0 + 2 * warp + m;
+#pragma unroll
+      for (int n = 0; n < GN / 8; ++n) {
+        if (n0 + n * 8 >= Cout) break;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int gx = x0 + g + 8 * i;
+          if (gy < H && gx < W)
+            lg::store2(y + (((size_t)b * H + gy) * W + gx) * Cout + n0 + n * 8 + 2 * t4,
+                       act(acc[m][n][2 * i] + bv[n][0]), act(acc[m][n][2 * i + 1] + bv[n][1]));
+        }
+      }
+    }
+  }
+}
+
+template <typename O, int ROWS>
+int launch_igemm_tile(const void* x, const void* w, const void* bias, void* y, int B, int H,
+                      int W, int Cin, int Cout, int pool, int relu, cudaStream_t stream) {
+  constexpr size_t smem = igemm_smem(ROWS);
+  // above 48 KB: opt in once per instantiation
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      conv3x3_igemm_kernel<O, ROWS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
+  dim3 grid((W + GW - 1) / GW, (H + ROWS - 1) / ROWS, B * ((Cout + GN - 1) / GN));
+  conv3x3_igemm_kernel<O, ROWS><<<grid, ROWS / 2 * 32, smem, stream>>>(
+      static_cast<const bf16_t*>(x), static_cast<const bf16_t*>(w),
+      static_cast<const float*>(bias), static_cast<O*>(y), B, H, W, Cin, Cout, pool, relu);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename O>
+int launch_igemm(const void* x, const void* w, const void* bias, void* y, int B, int H, int W,
+                 int Cin, int Cout, int pool, int relu, cudaStream_t s) {
+  // x and w are read 16 B at a time
+  if (reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(w) % 16)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const int rows = conv_rows(B, H, W, Cout);
+  auto run = rows == 16 ? launch_igemm_tile<O, 16>
+             : rows == 8 ? launch_igemm_tile<O, 8>
+                         : launch_igemm_tile<O, 4>;
+  return run(x, w, bias, y, B, H, W, Cin, Cout, pool, relu, s);
+}
+
+template <typename O>
+int generic_fp32(const void* x, const void* w, const void* bias, void* y, int B, int H, int W,
+                 int Cin, int Cout, int pool, int relu, cudaStream_t s) {
+  return (relu ? launch<O, true, true> : launch<O, true, false>)(x, w, bias, y, B, H, W, Cin,
+                                                                 Cout, pool, s);
 }
 
 }  // namespace
@@ -397,7 +609,24 @@ extern "C" int lg_conv3x3(const void* x, const void* w, const void* bias,
                           int pool, int relu, int bf16, int bf16_out,
                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return dispatch<__nv_bfloat16>(x, w, bias, y, B, H, W, Cin, Cout, pool, relu, bf16_out, s);
-  return dispatch<float>(x, w, bias, y, B, H, W, Cin, Cout, pool, relu, bf16_out, s);
+  const bool model = Cin == C && Cout == C && relu && bf16_out == bf16;  // the 64 -> 64 convs
+  if (bf16) {
+    if (model) return launch_mma(x, w, bias, y, B, H, W, pool, s);
+    return (bf16_out ? launch_igemm<bf16_t> : launch_igemm<float>)(x, w, bias, y, B, H, W, Cin,
+                                                                   Cout, pool, relu, s);
+  }
+  if (model) return launch<float, false, true>(x, w, bias, y, B, H, W, Cin, Cout, pool, s);
+  return (bf16_out ? generic_fp32<bf16_t> : generic_fp32<float>)(x, w, bias, y, B, H, W, Cin,
+                                                                 Cout, pool, relu, s);
+}
+
+// The generic bf16 launch's tile at (B, H, W, Cout) (conv_rows): out =
+// {rows, threads, blocks, dynamic shared memory in bytes}.
+extern "C" int lg_conv_tile(int B, int H, int W, int Cout, int* out) {
+  const int rows = conv_rows(B, H, W, Cout);
+  out[0] = rows;
+  out[1] = rows / 2 * 32;
+  out[2] = B * ((W + GW - 1) / GW) * ((H + rows - 1) / rows) * ((Cout + GN - 1) / GN);
+  out[3] = static_cast<int>(igemm_smem(rows));
+  return 0;
 }

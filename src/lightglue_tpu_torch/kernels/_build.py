@@ -36,6 +36,7 @@ _F = ctypes.c_float
 # name -> argtypes; every function returns its launch's cudaError_t
 _SIGNATURES = {
     "lg_conv3x3": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "lg_conv_tile": [_I, _I, _I, _I, ctypes.POINTER(_I)],
     "lg_conv2_chain": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "lg_nms_candidates": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "lg_nms_smem_bytes": [_I],

@@ -16,20 +16,53 @@ both ``conv3x3`` here:
   is a tested variant.
 
 On a CUDA tensor ``conv3x3`` launches ``csrc/conv3x3.cu`` (see its header for
-the design and what bounds it). The model's bf16 calls run an implicit GEMM
-on the tensor cores (``mma.sync``: the haloed input tile and all nine taps'
-weights in shared memory, fp32 sums, the bias/ReLU/pool epilogue in fp32 and
-one cast); the model's fp32 calls run the fixed 64 -> 64 instantiation on
-the FMA units, and every other shape the generic one. On a CPU tensor it
-runs ``conv3x3_plain``.
+the designs and what bounds them). Every bf16-operand call runs an implicit
+GEMM on the tensor cores (``mma.sync``, fp32 sums, the bias/ReLU/pool
+epilogue in fp32 and one cast): the model's 64 -> 64 ReLU calls with the
+input tile and all nine taps' weights resident in shared memory, every other
+shape and option with K streamed in 16-channel chunks over a tile that
+``conv_plan`` sizes. The fp32-operand calls run on the FMA units: the fixed
+64 -> 64 instantiation for the model's calls, the generic one for the rest.
+On a CPU tensor it runs ``conv3x3_plain``.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from lightglue_tpu_torch.kernels import _build
+
+# csrc/conv3x3.cu's generic bf16 launch: output tile width and channels,
+# input channels per K chunk, ring stages, and the blocks a launch aims for
+# (two per SM)
+CONV_TILE_W = 16
+CONV_TILE_N = 64
+CONV_K_CHUNK = 16
+CONV_STAGES = 2
+CONV_FILL = 264
+
+
+class ConvPlan(NamedTuple):
+    rows: int     # output rows of a block's tile (16 pixels x 64 channels)
+    threads: int  # a warp per 2 rows
+    blocks: int
+    smem: int     # dynamic shared memory, bytes
+
+
+def conv_plan(b: int, h: int, w: int, cout: int) -> ConvPlan:
+    """The generic bf16 conv's launch (csrc/conv3x3.cu:conv_rows, which
+    ``lg_conv_tile`` reports): rows the largest of 16, 8 and 4 whose grid
+    has CONV_FILL blocks, else 4. Each ring stage holds the haloed
+    (rows + 2) x 18 tile's 16 channels at a 24-element pitch and their nine
+    taps' weights at a 72-element pitch."""
+    per_row = b * -(-w // CONV_TILE_W) * -(-cout // CONV_TILE_N)
+    rows = next((r for r in (16, 8) if per_row * -(-h // r) >= CONV_FILL), 4)
+    stage = ((rows + 2) * (CONV_TILE_W + 2) * (CONV_K_CHUNK + 8)
+             + 9 * CONV_K_CHUNK * (CONV_TILE_N + 8))
+    return ConvPlan(rows, rows // 2 * 32, per_row * -(-h // rows), 2 * CONV_STAGES * stage)
 
 
 def _pick_rows(h: int) -> int:

@@ -9,9 +9,12 @@ neither does the port's SuperPoint, which runs ``conv.conv3x3`` twice. It
 is a tested variant.
 
 On a CUDA tensor ``conv2_chain`` launches ``csrc/conv_chain.cu`` once (see
-its header for the design and what bounds it); on a CPU tensor it runs
-``conv2_chain_plain``: two ``conv3x3_plain`` calls with the intermediate cast
-to x's dtype.
+its header for the designs and what bounds them): bf16 operands on the
+tensor cores, persistent blocks with both layers' weights resident and one
+buffer that holds a 16x16 output tile's input and then its bf16 conv2a
+tile; fp32 operands on the FMA units. On a CPU tensor it runs
+``conv2_chain_plain``: two ``conv3x3_plain`` calls with the intermediate
+cast to x's dtype.
 """
 
 from __future__ import annotations

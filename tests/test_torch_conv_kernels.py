@@ -1,0 +1,209 @@
+"""The generic bf16 conv and the bf16 chain of csrc/conv3x3.cu and
+csrc/conv_chain.cu on the CPU: the generic conv's launch plan at the shapes
+chip_smoke.py gives it, the premises of chip_smoke.py's rounding witnesses
+for both kernels, and the plain versions against JAX at the edge shapes
+(tests/test_torch_conv.py covers the others)."""
+
+import importlib.util
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lightglue_tpu.kernels import conv as jax_conv
+from lightglue_tpu.kernels import conv_chain as jax_chain
+from lightglue_tpu_torch.kernels import _build, conv, conv_chain
+
+ROOT = Path(__file__).resolve().parents[1]
+BF16 = torch.bfloat16
+SMS = 132  # an H100's SMs
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _share(a, b):
+    """The share of elements in which two bf16 outputs differ."""
+    assert a.shape == b.shape and a.dtype == b.dtype == BF16
+    return float((a != b).float().mean())
+
+
+def _mean_diff(a, b):
+    assert a.shape == b.shape and a.dtype == b.dtype == torch.float32
+    return float((a - b).abs().mean())
+
+
+# (B, H, W, C_out) -> (rows, blocks): chip_smoke.py's generic shapes
+# (SuperPoint's C >= 128 layers at 2x480x640 and the edge shapes) and maps
+# whose grid needs the smaller tiles
+CONV_PLANS = {
+    "conv3a/conv3b 120x160 -> 128": ((2, 120, 160, 128), (16, 320)),
+    "convDa/convDb 60x80 -> 256": ((2, 60, 80, 256), (8, 320)),
+    "edge 60x80 -> 40": ((2, 60, 80, 40), (4, 150)),
+    "edge 360x488 -> 128": ((2, 360, 488, 128), (16, 2852)),
+    "240x320 -> 64 (fp32-out conv2a)": ((2, 240, 320, 64), (16, 600)),
+    "one image 60x80 -> 256": ((1, 60, 80, 256), (4, 300)),
+    "one image 60x80 -> 64": ((1, 60, 80, 64), (4, 75)),
+    "30x40 -> 512": ((1, 30, 40, 512), (4, 192)),
+}
+
+
+@pytest.mark.parametrize("shape", list(CONV_PLANS))
+def test_conv_plan_fits(shape):
+    (b, h, w, cout), (rows, blocks) = CONV_PLANS[shape]
+    plan = conv.conv_plan(b, h, w, cout)
+    assert (plan.rows, plan.blocks) == (rows, blocks)
+    assert plan.blocks == b * -(-h // rows) * -(-w // 16) * -(-cout // 64)
+    assert plan.threads == rows // 2 * 32  # a warp per 2 rows x 64 channels
+    # a ring stage: the haloed tile's 16 channels at a 24-element pitch and
+    # their nine taps' weights at 72, two stages, bf16
+    assert plan.smem == 2 * 2 * ((rows + 2) * 18 * 24 + 9 * 16 * 72)
+    assert 2 * plan.smem <= _build.MAX_DYNAMIC_SMEM  # two blocks share an SM
+    # two blocks an SM, or the smallest tile where even that cannot fill the card
+    assert plan.blocks >= 2 * SMS or rows == 4
+    # the largest tile that does: the next larger one would not
+    if rows < 16:
+        assert b * -(-h // (2 * rows)) * -(-w // 16) * -(-cout // 64) < 2 * SMS
+
+
+def _conv_inputs(seed, b, h, w, cin, cout):
+    """chip_smoke.py's value ranges: inputs in [0, 1), the port's init scale."""
+    rng = np.random.default_rng(seed)
+    bound = 1 / np.sqrt(9 * cin)
+    x = torch.from_numpy(rng.uniform(0, 1, (b, h, w, cin)).astype(np.float32)).to(BF16)
+    wt = torch.from_numpy(rng.uniform(-bound, bound, (3, 3, cin, cout)).astype(np.float32))
+    bias = torch.from_numpy(rng.uniform(-bound, bound, cout).astype(np.float32))
+    return x, wt.to(BF16), bias
+
+
+# label: (H, W, C_in, C_out, pool, relu, out dtype)
+GENERIC_WITNESS = {
+    "24->40 no ReLU": (16, 32, 24, 40, False, False, BF16),
+    "128->128 + pool": (16, 32, 128, 128, True, True, BF16),
+    "64->128, fp32 out": (16, 32, 64, 128, False, True, torch.float32),
+}
+
+
+@pytest.mark.parametrize("case", list(GENERIC_WITNESS))
+def test_generic_conv_rounding_witness_premise(case):
+    """The premise of the generic conv's witness in chip_smoke.py: the plain
+    version differs from the same conv with its nine taps summed in reverse
+    order in under 0.2 % of elements, and from each of
+    ``conv_wrong_designs`` ((a) acc rounded through bf16 before the bias, (b)
+    after every tap) in over 10 %. Into fp32 the witness counts by mean
+    magnitude: there the reordered sum's mean difference is under a
+    hundredth of each wrong design's. bf16 operands, batch 1."""
+    h, w, cin, cout, pool, relu, out = GENERIC_WITNESS[case]
+    x, wt, b = _conv_inputs(13, 1, h, w, cin, cout)
+    want = conv.conv3x3_plain(x, wt, b, pool, relu=relu, out_dtype=out)
+    cs = _chip_smoke()
+    reordered = cs.conv_epilogue(cs.conv_taps(x, wt, taps=range(8, -1, -1)), b, pool, relu, out)
+    wrong = cs.conv_wrong_designs(x, wt, b, pool, relu, out)
+    assert len(wrong) == 2
+    if out == BF16:
+        assert _share(reordered, want) < 0.002
+        for name, alt in wrong.items():
+            assert _share(alt, want) > 0.10, name
+    else:
+        for name, alt in wrong.items():
+            assert _mean_diff(reordered, want) < _mean_diff(alt, want) / 100, name
+
+
+def _chain_witness_inputs(seed, b=1, h=16, w=32):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.uniform(0, 1, (b, h, w, 64)).astype(np.float32)).to(BF16)
+    wa, wb = (torch.from_numpy(rng.uniform(-1 / 24, 1 / 24, (3, 3, 64, 64)).astype(np.float32))
+              .to(BF16) for _ in range(2))
+    ba, bb = (torch.from_numpy(rng.uniform(-1 / 24, 1 / 24, 64).astype(np.float32))
+              for _ in range(2))
+    return x, wa, ba, wb, bb
+
+
+@pytest.mark.parametrize("out", [BF16, torch.float32], ids=["bf16 out", "fp32 out"])
+@pytest.mark.parametrize("relu", [True, False], ids=["relu", "no relu"])
+def test_chain_rounding_witness_premise(relu, out):
+    """The premise of the chain's witness in chip_smoke.py: the plain
+    version differs from the same chain with both convs' taps summed in
+    reverse order in under 0.5 % of elements (0.03-0.25 % over three seeds:
+    a flipped bf16 rounding of one conv2a value reaches the 9 x 64 conv2b
+    sums that read it), and from each of ``chain_wrong_designs`` ((a)
+    conv2a's output kept in fp32, (b) conv2b's acc rounded through bf16
+    before the bias) in over 10 %; into fp32, by mean magnitude, the
+    reordered chain's difference is under a tenth of each wrong design's.
+    bf16 operands, 1x32x48x64."""
+    x, wa, ba, wb, bb = _chain_witness_inputs(17, 1, 32, 48)
+    want = conv_chain.conv2_chain_plain(x, wa, ba, wb, bb, relu=relu, out_dtype=out)
+    cs = _chip_smoke()
+    back = range(8, -1, -1)
+    mid = torch.relu(cs.conv_taps(x, wa, taps=back) + ba).to(BF16)
+    reordered = cs.conv_epilogue(cs.conv_taps(mid, wb, taps=back), bb, True, relu, out)
+    wrong = cs.chain_wrong_designs(x, wa, ba, wb, bb, relu, out)
+    assert len(wrong) == 2
+    if out == BF16:
+        assert _share(reordered, want) < 0.005
+        for name, alt in wrong.items():
+            assert alt.shape == want.shape
+            assert _share(alt, want) > 0.10, name
+    else:
+        for name, alt in wrong.items():
+            assert _mean_diff(reordered, want) < _mean_diff(alt, want) / 10, name
+
+
+DTYPES = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
+OTHER = {"fp32": "bf16", "bf16": "fp32"}
+# label: (B, H, W, C_in, C_out, pool, relu): chip_smoke.py's edge shapes,
+# the 488-wide one at 8 rows
+GENERIC_EDGES = {
+    "24->40 no ReLU": (2, 12, 40, 24, 40, False, False),
+    "488 wide + pool": (1, 8, 488, 64, 128, True, True),
+}
+
+
+@pytest.mark.parametrize("other", [False, True], ids=["same out", "other out"])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("edge", list(GENERIC_EDGES))
+def test_generic_conv_edges_match_jax(edge, dtype, other):
+    b, h, w, cin, cout, pool, relu = GENERIC_EDGES[edge]
+    out = OTHER[dtype] if other else dtype
+    rng = np.random.default_rng(21)
+    x = rng.standard_normal((b, h, w, cin), dtype=np.float32)
+    wt = (rng.standard_normal((3, 3, cin, cout)) / np.sqrt(9 * cin)).astype(np.float32)
+    bias = rng.standard_normal(cout).astype(np.float32)
+    jdt, tdt = DTYPES[dtype]
+    want = jax_conv.conv3x3(jnp.asarray(x, jdt), jnp.asarray(wt, jdt), jnp.asarray(bias),
+                            relu=relu, pool=pool, out_dtype=DTYPES[out][0])
+    got = conv.conv3x3(torch.from_numpy(x).to(tdt), torch.from_numpy(wt).to(tdt),
+                       torch.from_numpy(bias), pool, relu=relu, out_dtype=DTYPES[out][1])
+    assert got.dtype == DTYPES[out][1] and got.shape == want.shape
+    # fp32: two frameworks' fp32 sums; bf16: one rounding of the output
+    tol = (dict(atol=2e-2, rtol=2e-2) if "bf16" in (dtype, out)
+           else dict(atol=1e-5, rtol=1e-5))
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), **tol)
+
+
+@pytest.mark.parametrize("relu", [True, False], ids=["relu", "no relu"])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_conv2_chain_edge_matches_jax(dtype, relu):
+    """A map that is no multiple of the kernel's 16x16 tile (12x44, 22 x 2.75
+    tiles), as the 360x488 edge's 180x244 conv2 is not."""
+    rng = np.random.default_rng(23)
+    x = rng.standard_normal((2, 12, 44, 64)).astype(np.float32)
+    wa, wb = ((rng.standard_normal((3, 3, 64, 64)) * 0.1).astype(np.float32) for _ in range(2))
+    ba, bb = (rng.standard_normal(64).astype(np.float32) for _ in range(2))
+    jdt, tdt = DTYPES[dtype]
+    want = jax_chain.conv2_chain(jnp.asarray(x, jdt), jnp.asarray(wa, jdt), jnp.asarray(ba),
+                                 jnp.asarray(wb, jdt), jnp.asarray(bb), relu=relu)
+    got = conv_chain.conv2_chain(*(torch.from_numpy(t).to(tdt) for t in (x, wa)),
+                                 torch.from_numpy(ba), torch.from_numpy(wb).to(tdt),
+                                 torch.from_numpy(bb), relu=relu)
+    assert got.dtype == tdt and got.shape == (2, 6, 22, 64)
+    # as tests/test_torch_conv.py:test_conv2_chain_matches_jax: a flipped
+    # rounding of the bf16 intermediate moves an output by a few hundredths
+    tol = dict(atol=1e-5, rtol=1e-5) if dtype == "fp32" else dict(atol=5e-2, rtol=2e-2)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), **tol)
