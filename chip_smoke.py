@@ -10,7 +10,8 @@ It prints the card's name and power limit, builds the CUDA kernels of
 parallel) and checks in their SASS that the bf16 kernels of flash_attn.cu,
 attention.cu, linear.cu, bidir_cross.cu, conv3x3.cu (the model conv and the
 generic one) and conv_chain.cu run on the tensor cores and their fp32 ones
-do not, and that
+do not, apart from the fp32 model conv, which runs in 3xTF32 on the tensor
+cores (TF32 HMMA only), and that
 stem.cu's kernel has no contracted multiply-add. Then, in
 order; every kernel check is in bf16 and fp32 against
 the kernel's plain PyTorch version at the shapes its path gives it, every
@@ -22,14 +23,16 @@ plain version and, where one exists, a PyTorch call for the same function:
    480x640 pair): ``conv3x3`` (its 64->64 calls, timed in bf16 and in fp32
    for the MIXED and FP32 rungs, and conv1b+pool and conv2a at 360x488 for
    the edge tiles; each bf16 case also against the rounding witness and two
-   wrong designs, ``conv_wrong_designs``),
+   wrong designs, ``conv_wrong_designs``; each fp32 case, the 3xTF32
+   kernel, also against a float64 conv beside the FMA kernel's error and
+   an emulated one-TF32 conv as its wrong design, ``tf32_witness``),
    ``nms_candidates`` (exact; also at 360x488 and 480x600, radius 2, caps
    1 and 8, below the border value, ties across band edges: ``nms_checks``),
    ``relu_conv1a_shift`` (conv1a's stem, bit for bit in bf16 and fp32, also
    at 360x488 and 480x600: ``stem_checks``), ``linear``, ``attention`` and
-   ``ln_gelu`` against
+   ``ln_gelu`` (each timed in bf16 and, for the FP32 rung, in fp32) against
    their plain versions (``linear_plan`` / ``attention_plan`` /
-   ``bidir_plan`` against the card's launch rules; each bf16 ``attention``
+   ``bidir_plan`` / ``decide_plan`` against the card's launch rules; each bf16 ``attention``
    case also against the rounding witness and its two wrong designs,
    ``stack_wrong_designs``); the layer stack at 9 layers;
    ``MatcherSession(device="cuda").match_pair`` with its launch counts
@@ -41,7 +44,11 @@ plain version and, where one exists, a PyTorch call for the same function:
    on the CPU.
 2. The adaptive path (``depth_confidence=0.95, width_confidence=0.99``):
    ``adaptive_decide`` (masked, unmasked, width with a partly retired keep
-   state, pinned and random heads), the keep-masked and liveness operands,
+   state, pinned and random heads; then ``decide_batch_checks``: B = 1, 2
+   and 4 with live and dead pairs, N0 != N1, width-only and the last layer
+   in all three operand modes, each case also replayed twice from one CUDA
+   graph, which shows the kernel leaves its scratch zeroed), the
+   keep-masked and liveness operands,
    ``transformer_stack_adaptive`` at 9 layers (random weights, the exit-3
    weights, the pruning weights through the downshift at layer 4), and
    ``match_pair`` in those three weight setups.
@@ -89,11 +96,13 @@ plain version and, where one exists, a PyTorch call for the same function:
    rung and the adaptive stack at MIXED and INT8; ``match_pair`` (and a
    two-pair ``match_batch``) at MIXED and INT8 on every route (W8A8 at
    fixed depth) against the same session on the plain versions
-   (``plain_lightglue``); ``forward_ring`` at INT8.
+   (``plain_lightglue``); ``forward_ring`` at INT8. The FP32 rung's
+   ``match_pair`` on every route, against the same session on the plain
+   versions, gives the launch counts of its rows.
    The SASS check above also requires IMMA in every W8A8 GEMM.
 
 It ends with a ``{"kernels": [...]}`` line (all ten Pallas functions, a
-row per MIXED / INT8 / W8A8 instantiation and per fp32-operand conv, and
+row per FP32 / MIXED / INT8 / W8A8 instantiation and per fp32-operand conv, and
 conv1a's stem in bf16 and fp32; the chain's rows also carry the two-launch
 chain's ``two_launch_ms``) and the ``{"ok": true, ...}``
 line. Any failure raises and exits non-zero; so does a missing card or a
@@ -118,6 +127,9 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_MS = 3.35e9      # 3.35 TB/s
 BF16_FLOP_PER_MS = 989e9       # dense bf16 tensor-core peak
 FP32_OP_PER_MS = 67e9          # fp32 outside the tensor cores
+# fp32-accurate products on the tensor cores: three TF32 products each
+# (495 TFLOP/s dense); the fp32 convs' bound takes the faster of the two
+TF32X3_OP_PER_MS = 495e9 / 3
 N_LAYERS = 9
 BUCKET = 1024
 # launches of one SuperPoint forward and its extraction, on every route and rung
@@ -234,6 +246,8 @@ TENSOR_CORE_KERNELS = {
 }
 # source: its int8 x int8 kernel (W8A8), on the integer tensor cores (IMMA)
 INT8_TENSOR_CORE_KERNELS = {"linear.cu": "linear_s8_kernel"}
+# source: its fp32 kernel on the tensor cores in 3xTF32 (TF32 HMMA only)
+TF32_TENSOR_CORE_KERNELS = {"conv3x3.cu": "conv3x3_tf32x3_kernel"}
 # source: a kernel whose rounding contract rounds every product and every add
 NO_FMA_KERNELS = {"stem.cu": "stem_kernel"}
 
@@ -245,7 +259,9 @@ def tensor_core_check(build):
     one) and conv_chain.cu compute their products on the tensor cores
     (HMMA in the SASS of every one), the fp32 kernels on the FMA units (no
     HMMA), and linear.cu's W8A8 GEMM on the
-    integer tensor cores (IMMA in every instantiation, no HMMA), and the
+    integer tensor cores (IMMA in every instantiation, no HMMA), the fp32
+    model conv on the tensor cores in TF32 (every HMMA of
+    ``conv3x3_tf32x3_kernel`` takes TF32 operands), and the
     stem rounds each product and each add (no FFMA in stem.cu's kernel):
     ``cuobjdump -sass`` of the built library."""
     from lightglue_tpu_torch.kernels import _build
@@ -257,11 +273,13 @@ def tensor_core_check(build):
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            counts[name] = {"HMMA": 0, "IMMA": 0, "FFMA": 0}
+            counts[name] = {"HMMA": 0, "IMMA": 0, "FFMA": 0, "TF32": 0}
         elif name:
             for op in ("HMMA", "IMMA", "FFMA"):
                 if op in line:
                     counts[name][op] += 1
+            if "HMMA" in line and "TF32" in line:
+                counts[name]["TF32"] += 1
     for src, (bf16_kernels, fp32_kernel) in TENSOR_CORE_KERNELS.items():
         for bf16_kernel in bf16_kernels:
             mma = [c["HMMA"] for k, c in counts.items() if bf16_kernel in k]
@@ -277,6 +295,11 @@ def tensor_core_check(build):
         log(f"  {src} SASS: (IMMA, HMMA) per W8A8 instantiation ({len(imma)}) {sorted(imma)}")
         if not imma or min(i for i, _ in imma) == 0 or max(h for _, h in imma) != 0:
             raise AssertionError(f"{src}: a W8A8 GEMM without IMMA, or with HMMA")
+    for src, kernel in TF32_TENSOR_CORE_KERNELS.items():
+        tf32 = [(c["TF32"], c["HMMA"]) for k, c in counts.items() if kernel in k]
+        log(f"  {src} SASS: (TF32 HMMA, HMMA) per {kernel} instantiation ({len(tf32)}) {tf32}")
+        if not tf32 or min(t for t, _ in tf32) == 0 or any(t != h for t, h in tf32):
+            raise AssertionError(f"{src}: {kernel} without TF32 HMMA, or with another HMMA")
     for src, kernel in NO_FMA_KERNELS.items():
         ffma = [c["FFMA"] for k, c in counts.items() if kernel in k]
         log(f"  {src} SASS: FFMA per instantiation ({len(ffma)}) {ffma}")
@@ -428,19 +451,66 @@ def chain_wrong_designs(x, wa, ba, wb, bb, relu=True, out_dtype=None):
             conv_epilogue(_round_bf16(conv_taps(rounded, wb)), bb, True, relu, out_dtype)}
 
 
+def tf32_round(t):
+    """fp32 values rounded to TF32 as cvt.rna.tf32.f32 does on finite
+    values: to nearest on the 10-bit mantissa, ties away from zero."""
+    import torch
+
+    return ((t.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def conv_f64(x, w, b, pool):
+    """superpoint.py:_relu_conv in float64 on NHWC x and HWIO w: the
+    reference the fp32 model conv's error is measured against."""
+    import torch.nn.functional as F
+
+    out = F.conv2d(x.double().permute(0, 3, 1, 2), w.double().permute(3, 2, 0, 1), padding=1)
+    out = F.relu(out + b.double()[None, :, None, None])
+    if pool:
+        out = F.max_pool2d(out, 2)
+    return out.permute(0, 2, 3, 1)
+
+
+def tf32_witness(conv_k, label, got, x, w, b, pool):
+    """The fp32 model conv (3xTF32) against a float64 conv, beside the FMA
+    kernel's error on the same inputs (the generic fp32 conv, which runs on
+    the FMA units, without the ReLU and pool that the epilogue then adds in
+    fp32) and an emulated one-TF32 conv (operands rounded to TF32, the
+    product in fp32 with TF32 off) as the wrong design: the kernel's mean
+    |kernel - f64| is at most a quarter of the one-TF32 conv's
+    (``magnitude_witness``). Returns the kernel's max |kernel - f64|."""
+    import torch
+    import torch.nn.functional as F
+
+    want = conv_f64(x, w, b, pool)
+    fma = F.relu(conv_k.conv3x3(x, w, b, relu=False))
+    if pool:
+        fma = F.max_pool2d(fma.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
+    one = conv_k.conv3x3_plain(tf32_round(x), tf32_round(w), b, pool)
+    errs = {name: (t.double() - want).abs() for name, t in
+            (("3xTF32 kernel", got), ("FMA kernel", fma), ("one TF32", one))}
+    log(f"  {label}: vs float64: " + "; ".join(
+        f"{name} max {float(e.max()):.3e} mean {float(e.mean()):.3e}" for name, e in errs.items()))
+    magnitude_witness(label, got.double(), want, {"one TF32 product": one.double()})
+    return float(errs["3xTF32 kernel"].max())
+
+
 def plan_checks(ls, at, nms_k, conv_k, lib):
     """The launch plans the CPU tests hold (``layer_stack.linear_plan``,
-    ``attention_plan``, ``attention.bidir_plan``, ``nms.nms_smem_bytes``,
-    ``conv.conv_plan``) are the ones the card runs (csrc/linear.cu:
-    linear_tile, csrc/mma.cuh:fill_row_groups, csrc/nms.cu:Band,
+    ``attention_plan``, ``decide_plan``, ``attention.bidir_plan``,
+    ``nms.nms_smem_bytes``, ``conv.conv_plan``) are the ones the card runs
+    (csrc/linear.cu:linear_tile, csrc/mma.cuh:fill_row_groups,
+    csrc/adaptive.cu:decide_rows, csrc/nms.cu:Band,
     csrc/conv3x3.cu:conv_rows), at every shape of the paths through the
     stack (128-1024 buckets) and through the bidirectional kernel (960x960,
-    960x704, 960x64), one pair or two, at every NMS radius the kernel is
+    960x704, 960x64), one pair or two, the decision at B = 1..8 over the
+    stack's buckets in both row types, at every NMS radius the kernel is
     built for (and one past it), and at the generic conv's shapes in
     phase 5 and a grid of SuperPoint-like maps and widths."""
     import ctypes
 
     tile = (ctypes.c_int * 2)()
+    out = (ctypes.c_int * 4)()
     for m in (128, 256, 512, 768, 1024, 2048):
         for n in (256, 512, 768):
             lib.lg_linear_tile(m, n, tile)
@@ -458,6 +528,15 @@ def plan_checks(ls, at, nms_k, conv_k, lib):
             if groups != at.bidir_plan(b, 4, n0, n1).row_groups:
                 raise AssertionError(f"bidirectional B={b} {n0}x{n1}: the card's {groups} row "
                                      "groups")
+    for b in range(1, 9):
+        for n0 in (128, 256, 512, 768, 1024):
+            for n1 in (128, 512, 1024):
+                for size in (2, 4):
+                    lib.lg_decide_plan(b, n0, n1, 256, size, out)
+                    plan = ls.decide_plan(b, n0, n1, 256, size)
+                    if tuple(out) != tuple(plan):
+                        raise AssertionError(f"adaptive_decide B={b} {n0}x{n1} x{size}: the card's "
+                                             f"{tuple(out)}, decide_plan's {tuple(plan)}")
     for r in range(nms_k.MAX_RADIUS + 2):
         want = nms_k.nms_smem_bytes(r) if r <= nms_k.MAX_RADIUS else -1
         if lib.lg_nms_smem_bytes(r) != want:
@@ -467,14 +546,13 @@ def plan_checks(ls, at, nms_k, conv_k, lib):
     conv_shapes |= {(b, h, w, cout) for b in (1, 2) for h, w in ((60, 80), (120, 160), (180, 244),
                                                                    (240, 320), (480, 640))
                     for cout in (8, 40, 64, 128, 256)}
-    out = (ctypes.c_int * 4)()
     for shape in sorted(conv_shapes):
         lib.lg_conv_tile(*shape, out)
         if tuple(out) != tuple(conv_k.conv_plan(*shape)):
             raise AssertionError(f"conv3x3 {shape}: the card's tile {tuple(out)}, conv_plan's "
                                  f"{tuple(conv_k.conv_plan(*shape))}")
-    log("  launch plans: linear_plan, attention_plan, bidir_plan, nms_smem_bytes and conv_plan "
-        "match the card's at every path shape")
+    log("  launch plans: linear_plan, attention_plan, decide_plan, bidir_plan, nms_smem_bytes "
+        "and conv_plan match the card's at every path shape")
 
 
 def nms_map(gen, dev, b, h, w):
@@ -564,7 +642,7 @@ class Entry:
         self.d = dict(name=name, route="cuda", source=source, replaces=replaces,
                       launches=0, max_abs_err=0.0, ms=0.0, plain_ms=0.0,
                       bound_ms=0.0, library_ms=None)
-        self._bytes_ms = self._ops_ms = 0.0
+        self._bytes_ms = self._ops_ms = self.ops = 0.0
 
     def add(self, label, weight, ms, plain, lib, nbytes, ops, op_rate, per="match_pair"):
         """Record one timed case that the main path runs ``weight`` times per
@@ -577,6 +655,7 @@ class Entry:
             self.d["library_ms"] = (self.d["library_ms"] or 0.0) + weight * lib
         self._bytes_ms += weight * t_bytes
         self._ops_ms += weight * t_ops
+        self.ops += weight * ops
         lib_txt = "null" if lib is None else f"{lib:.4f}"
         log(f"  {label}: kernel_ms {ms:.4f} plain_ms {plain:.4f} library_ms {lib_txt} "
             f"bound_ms {max(t_bytes, t_ops):.4f} ({'bytes' if t_bytes >= t_ops else 'operations'})"
@@ -639,7 +718,10 @@ def prune_weights(tree):
 
 
 def profile_breakdown(call, pair_ms, top=12, what="match_pair", attribute=False):
-    """Device time by kernel over one profiled call (a match_pair). The busy
+    """Device time by kernel over one profiled call (a match_pair), the
+    second of two under the profiler: the first is its warm-up step, not
+    recorded (a profile's first events can be lost: a MIXED extraction once
+    showed two of its three conv launches and no stem). The busy
     share is that device time (kernels and copies, overlap ignored) over
     ``pair_ms``, the unprofiled ms per call: the profiler's own overhead
     stretches the profiled call's wall time by a varying amount. With
@@ -647,17 +729,23 @@ def profile_breakdown(call, pair_ms, top=12, what="match_pair", attribute=False)
     input shapes, each with its innermost caller in the port."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
     # stacks reach the op events only with the verbose experimental config
     config = dict(experimental_config=torch._C._profiler._ExperimentalConfig(verbose=True),
                   record_shapes=True, with_stack=True) if attribute else {}
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], **config) as prof:
-        call()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1), **config) as prof:
+        for _ in range(2):
+            call()
+            torch.cuda.synchronize()
+            prof.step()
+    # the schedule's step annotation spans the call: not device work
     rows = sorted(
         ((e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
-         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+         and not e.key.startswith("ProfilerStep")),
         reverse=True,
     )
     if not rows:
@@ -675,7 +763,8 @@ def profile_breakdown(call, pair_ms, top=12, what="match_pair", attribute=False)
     ops = sorted(
         ((e.self_device_time_total / 1e3, e.count, e.key, e.input_shapes, e.stack)
          for e in prof.key_averages(group_by_input_shape=True, group_by_stack_n=8)
-         if e.device_type == DeviceType.CPU and e.self_device_time_total > 0),
+         if e.device_type == DeviceType.CPU and e.self_device_time_total > 0
+         and not e.key.startswith("ProfilerStep")),
         key=lambda r: r[0], reverse=True,
     )
     log(f"  ops behind the device time of one {what} (input shapes; innermost caller "
@@ -728,7 +817,7 @@ def extract_profile(session, img0, img1, label):
     profile_breakdown(call, ms, top=10, what=f"{label} extraction", attribute=True)
 
 
-def adaptive_kernel_checks(ls, rand, freqs_for, dev, dtypes, fp32_scope, dec_e, dec_mixed_e):
+def adaptive_kernel_checks(ls, rand, freqs_for, dev, dtypes, fp32_scope, dec_ents):
     """adaptive_decide (x and heads in bf16 or fp32, and MIXED's fp32 x with
     bf16 heads), the keep-masked attention and the liveness operands
     against their plain versions at the adaptive path's shapes."""
@@ -791,9 +880,7 @@ def adaptive_kernel_checks(ls, rand, freqs_for, dev, dtypes, fp32_scope, dec_e, 
             compare(f"{label} {tag} exit", got[0], want[0], 0, 0, exact=True)
             if keep is None:
                 continue
-            if tag != "fp32":
-                (dec_e if tag == "bf16" else dec_mixed_e).err(
-                    max(float((g - w).abs().max()) for g, w in zip(got[1], want[1])))
+            dec_ents[tag].err(max(float((g - w).abs().max()) for g, w in zip(got[1], want[1])))
             if exact:
                 for i in (0, 1):
                     compare(f"{label} {tag} keep{i}", got[1][i], want[1][i], 0, 0, exact=True)
@@ -812,29 +899,41 @@ def adaptive_kernel_checks(ls, rand, freqs_for, dev, dtypes, fp32_scope, dec_e, 
                       layer=N_LAYERS - 1, n_layers=N_LAYERS, depth_confidence=0.95)[0]
             compare(f"last layer, B=2 one retired, {name} {tag} exit", got,
                     torch.tensor([float(N_LAYERS), 3.0], device=dev), 0, 0, exact=True)
-        if tag == "fp32":
-            continue
         # timed at the adaptive main path's call: width, 1024/1024, all kept
         full_keep = prefix((n, n))
         kw = dict(w_tok=spread, b_tok=bias(0.0), depth_confidence=0.95, **width)
 
-        def call(fn, layer):
-            return lambda: fn(x0, x1, kw["w_tok"], kw["b_tok"], exit1.clone(), layer=layer,
-                              n_layers=N_LAYERS, depth_confidence=0.95,
-                              w_match=w_match, b_match=kw["b_match"], width_confidence=0.99,
-                              keep0=full_keep[0].clone(), keep1=full_keep[1].clone())
+        def call(fn, layer, copies=False):
+            """One decision on state that persists from call to call: the
+            pair never stops at depth 0.95 here, and after the first call
+            the keep masks hold, so every call reads the same rows and
+            writes the same flags. ``copies``: on fresh copies of the state
+            each call (three more launches), as the one-block design's
+            time was taken."""
+            state = [exit1.clone(), full_keep[0].clone(), full_keep[1].clone()]
 
+            def run():
+                ex, k0, k1 = [t.clone() for t in state] if copies else state
+                fn(x0, x1, kw["w_tok"], kw["b_tok"], ex, layer=layer, n_layers=N_LAYERS,
+                   depth_confidence=0.95, w_match=w_match, b_match=kw["b_match"],
+                   width_confidence=0.99, keep0=k0, keep1=k1)
+            return run
+
+        plan = ls.decide_plan(1, n, n, e, x0.element_size())
+        log(f"  decide_plan at B=1, {n}x{n} {tag}: {plan.blocks} blocks of {plan.rows} rows")
         for label, layer, weight in (("mid layer", 4, N_LAYERS - 1), ("last layer", N_LAYERS - 1, 1)):
             ms = cuda_ms(call(ls.adaptive_decide, layer))
             plain = cuda_ms(call(ls.adaptive_decide_plain, layer))
+            log(f"  {label} {tag}: on fresh copies of the state (+3 copy launches a call): "
+                f"kernel_ms {cuda_ms(call(ls.adaptive_decide, layer, copies=True)):.4f}")
             last = layer == N_LAYERS - 1
-            xb = 2 if dt == torch.bfloat16 else 4
-            nbytes = 4 if last else xb * 2 * n * e + 2 * 2 * e + 4 * 2 * (2 * n) + 8 + 4
+            xb = x0.element_size()
+            wb = w_match.element_size()
+            nbytes = 4 if last else xb * 2 * n * e + wb * 2 * e + 4 * 2 * (2 * n) + 8 + 4
             ops = 0 if last else 2 * 2 * (2 * n) * e
             # library: none, no single PyTorch call computes the decision
-            (dec_e if tag == "bf16" else dec_mixed_e).add(
-                f"{label} width 1024x1024 {tag}", weight, ms, plain, None, nbytes, ops,
-                FP32_OP_PER_MS)
+            dec_ents[tag].add(f"{label} width 1024x1024 {tag}", weight, ms, plain, None, nbytes,
+                              ops, FP32_OP_PER_MS)
 
     log(f"keep-masked attention and liveness operands (N={n})")
     hd = 64
@@ -884,6 +983,96 @@ def adaptive_kernel_checks(ls, rand, freqs_for, dev, dtypes, fp32_scope, dec_e, 
                                                   keep_q=keeps[0], keep_kv=keeps[1]))
                 log(f"  {label} bf16: kernel_ms {ms:.4f} (per call; the length-masked and "
                     f"unmasked calls are timed above)")
+
+
+def decide_batch_checks(ls, dev):
+    """adaptive_decide exact against its plain version (exit and keep) in
+    its three operand modes at B = 1, 2 and 4 on 1024 x 772 rows (N0 !=
+    N1, and 1796 rows a pair, not a multiple of a block's 8 or 16: the
+    pair's last block takes a partial slice), with the first pair of each
+    batch of two or more dead: masked depth near the confident share,
+    width with pruning (every live pair loses tokens), width-only (depth
+    2.0), a stop at this layer (no pruning then) and the last layer (the
+    forced exit). Each case also runs twice from one captured CUDA graph,
+    the state reset between replays: both replays give the plain version's
+    result, which they cannot if a launch leaves the scratch's counters or
+    tickets dirty. Its inputs come from a generator of its own, so the
+    phases after it see the inputs they saw before it was added."""
+    import torch
+
+    e, n0, n1, layer = 256, 1024, 772, 4
+    log(f"adaptive_decide, batches: B = 1, 2, 4, {n0}x{n1} rows, three modes, graph replay x2")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    variants = {"fp32": (torch.float32, torch.float32), "bf16": (torch.bfloat16, torch.bfloat16),
+                "mixed": (torch.float32, torch.bfloat16)}
+    for tag, (dt, hdt) in variants.items():
+        for bsz in (1, 2, 4):
+            x0, x1 = (torch.randn(bsz, n, e, generator=gen, device=dev).to(dt) for n in (n0, n1))
+            # logits ~ N(0, 1.6): a fifth of the tokens are confident
+            w_tok = (torch.randn(e, generator=gen, device=dev) * 0.1).to(hdt)
+            w_match = (torch.randn(e, generator=gen, device=dev) * 0.1).to(hdt)
+            keep = [(torch.rand(bsz, k, generator=gen, device=dev) > 0.3).float()
+                    for k in (n0, n1)]
+            exit0 = torch.full((bsz,), N_LAYERS + 1.0, device=dev)
+            if bsz > 1:
+                exit0[0] = 3.0  # retired at layer 3: untouched
+            lens = dict(lengths0=torch.randint(0, n0 + 1, (bsz,), generator=gen, device=dev,
+                                               dtype=torch.int32),
+                        lengths1=torch.randint(0, n1 + 1, (bsz,), generator=gen, device=dev,
+                                               dtype=torch.int32))
+            width = dict(w_match=w_match, b_match=torch.full((1,), -50.0, device=dev),
+                         width_confidence=0.99)
+            cases = [  # label, layer, depth_confidence, kwargs
+                ("masked depth", layer, 0.18, lens),
+                ("width, pruning", layer, 0.95, width),
+                ("width-only", layer, 2.0, width),
+                ("stop at this layer", layer, 0.0, width),
+                ("last layer", N_LAYERS - 1, 0.95, width),
+            ]
+            for label, g, dc, kw in cases:
+                has_keep = "w_match" in kw
+                b_tok = torch.zeros(1, device=dev)
+                args = dict(kw, layer=g, n_layers=N_LAYERS, depth_confidence=dc)
+                st_exit = exit0.clone()
+                st_keep = [k.clone() for k in keep] if has_keep else [None, None]
+
+                def reset():
+                    st_exit.copy_(exit0)
+                    if has_keep:
+                        for k, k_init in zip(st_keep, keep):
+                            k.copy_(k_init)
+
+                def call(fn=ls.adaptive_decide):
+                    fn(x0, x1, w_tok, b_tok, st_exit, keep0=st_keep[0], keep1=st_keep[1], **args)
+
+                def state():
+                    return [st_exit.clone()] + ([k.clone() for k in st_keep] if has_keep else [])
+
+                call(ls.adaptive_decide_plain)
+                want = state()
+                reset()
+                call()
+                runs = {"eager": state()}
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    call()
+                for i in range(2):
+                    reset()
+                    graph.replay()
+                    torch.cuda.synchronize()
+                    runs[f"graph replay {i + 1}"] = state()
+                del graph
+                for run, got in runs.items():
+                    for name, gt, wt in zip(("exit", "keep0", "keep1"), got, want):
+                        compare(f"B={bsz} {label} {tag} {run} {name}", gt, wt, 0, 0, exact=True)
+                retired = sum(int((k - w).sum()) for k, w in zip(keep, want[1:])) if has_keep else 0
+                log(f"  B={bsz} {label} {tag}: exit {want[0].tolist()}, tokens retired {retired}")
+                if label == "width, pruning" and retired == 0:
+                    raise AssertionError(f"B={bsz} {label} {tag}: no token retired")
+                if label == "stop at this layer" and (retired or want[0].tolist() != [
+                        3.0 if (i == 0 and bsz > 1) else layer + 1.0 for i in range(bsz)]):
+                    raise AssertionError(f"B={bsz} {label} {tag}: exit {want[0].tolist()}, "
+                                         f"{retired} retired")
 
 
 def adaptive_stack_checks(ls, weights, rand, freqs_for, dev, dtypes, fp32_scope):
@@ -1092,11 +1281,12 @@ def pb_configs():
 
 
 def attention_kernel_checks(at, rand, freqs_for, dev, dtypes, fp32_scope, fused_e, bidir_e,
-                            flash_e):
+                            flash_e, fp32_ents):
     """fused_mha, bidirectional_cross_attention and flash_attention against
     their plain versions at the per-block path's shapes, masked, ragged,
-    with zero lengths and with several KV tiles; the bf16 calls of the
-    main per-block runs are timed."""
+    with zero lengths and with several KV tiles; the calls of the main
+    per-block runs are timed in bf16 and, for the FP32 rung, in fp32 (SDPA
+    in fp32 with TF32 off beside them)."""
     import torch
     import torch.nn.functional as F
 
@@ -1161,19 +1351,20 @@ def attention_kernel_checks(at, rand, freqs_for, dev, dtypes, fp32_scope, fused_
                         block, nk))
             if lens is not None:
                 zero_rows(f"{label} {tag}", got, lens, True)
-            if tag != "bf16":
+            ent = fused_e if tag == "bf16" else fp32_ents["fused_mha"]
+            ent.err(err)
+            if stats or (not weight and ("pad-to-64" not in label or tag != "bf16")):
                 continue
-            fused_e.err(err)
-            if stats or (not weight and "pad-to-64" not in label):
-                continue
-            ms = cuda_ms(lambda: at.fused_mha(q, k, v, f, ln, **kw))
-            plain = cuda_ms(lambda: at.fused_mha_plain(q, k, v, f, ln, **kw))
-            lib_ms = cuda_ms(sdpa(q, k, v))
-            nbytes = 2 * (b * nq * e + 2 * b * nk * e + b * nq * e) + (4 * b * 2 * nk * hd if rope else 0)
+            with fp32_scope():  # fp32 SDPA with TF32 off
+                ms = cuda_ms(lambda: at.fused_mha(q, k, v, f, ln, **kw))
+                plain = cuda_ms(lambda: at.fused_mha_plain(q, k, v, f, ln, **kw))
+                lib_ms = cuda_ms(sdpa(q, k, v))
+            nbytes = (q.element_size() * (b * nq * e + 2 * b * nk * e + b * nq * e)
+                      + (4 * b * 2 * nk * hd if rope else 0))
             flops = 4 * b * heads * nq * nk * hd
             if weight:  # library: scaled_dot_product_attention, which does no RoPE
-                fused_e.add(f"{label} bf16", weight, ms, plain, lib_ms, nbytes, flops,
-                            BF16_FLOP_PER_MS)
+                ent.add(f"{label} {tag}", weight, ms, plain, lib_ms, nbytes, flops,
+                        BF16_FLOP_PER_MS if tag == "bf16" else FP32_OP_PER_MS)
             else:
                 log(f"  {label} bf16: kernel_ms {ms:.4f} plain_ms {plain:.4f} library_ms "
                     f"{lib_ms:.4f} bound_ms {max(nbytes / HBM_BYTES_PER_MS, flops / BF16_FLOP_PER_MS):.4f}"
@@ -1212,21 +1403,22 @@ def attention_kernel_checks(at, rand, freqs_for, dev, dtypes, fp32_scope, fused_
             if lens is not None:
                 zero_rows(f"{label} {tag} o0", got[0], lens, True)
                 zero_rows(f"{label} {tag} o1", got[1], [x[::-1] for x in lens], True)
-            if tag != "bf16":
-                continue
-            bidir_e.err(max(errs))
+            ent = bidir_e if tag == "bf16" else fp32_ents["bidirectional_cross_attention"]
+            ent.err(max(errs))
             if not weight:
                 continue
-            ms = cuda_ms(lambda: at.bidirectional_cross_attention(*args, ln, **kw))
-            plain = cuda_ms(lambda: at.bidirectional_cross_attention_plain(*args, ln, **kw))
             two = (sdpa(args[0], args[1], args[3]), sdpa(args[1], args[0], args[2]))
-            sdpa2 = cuda_ms(lambda: (two[0](), two[1]()))
-            log(f"  {label} bf16: two scaled_dot_product_attention calls (one per direction, "
+            with fp32_scope():  # fp32 SDPA with TF32 off
+                ms = cuda_ms(lambda: at.bidirectional_cross_attention(*args, ln, **kw))
+                plain = cuda_ms(lambda: at.bidirectional_cross_attention_plain(*args, ln, **kw))
+                sdpa2 = cuda_ms(lambda: (two[0](), two[1]()))
+            log(f"  {label} {tag}: two scaled_dot_product_attention calls (one per direction, "
                 f"not one call): {sdpa2:.4f} ms")
-            nbytes = 2 * (2 * b * (n0 + n1) * e + b * (n0 + n1) * e)
+            nbytes = a0.element_size() * (2 * b * (n0 + n1) * e + b * (n0 + n1) * e)
             flops = 6 * b * heads * n0 * n1 * hd  # one S and two P.V products
             # library: none, no single PyTorch call computes both directions
-            bidir_e.add(f"{label} bf16", weight, ms, plain, None, nbytes, flops, BF16_FLOP_PER_MS)
+            ent.add(f"{label} {tag}", weight, ms, plain, None, nbytes, flops,
+                    BF16_FLOP_PER_MS if tag == "bf16" else FP32_OP_PER_MS)
 
     log("flash_attention (the generic (B, H, N, D) entry point; not on the matching path)")
     flash_cases = [
@@ -1252,24 +1444,25 @@ def attention_kernel_checks(at, rand, freqs_for, dev, dtypes, fp32_scope, fused_
                         block, nk))
             if lens is not None:
                 zero_rows(f"{label} {tag}", got.transpose(1, 2), lens, True)
-            if tag != "bf16":
-                continue
-            flash_e.err(err)
+            ent = flash_e if tag == "bf16" else fp32_ents["flash_attention"]
+            ent.err(err)
             if not timed:
                 continue
             # the entry point's own path: one call, counted from 0
             for fn in (at.fused_mha, at.bidirectional_cross_attention, at.flash_attention):
                 fn.launches = 0
             at.flash_attention(q, k, v, ln, **kw)
-            flash_e.d["launches"] = at.flash_attention.launches
-            log(f"  generic entry point, one call: flash_attention launches "
+            ent.d["launches"] = at.flash_attention.launches
+            log(f"  generic entry point, one {tag} call: flash_attention launches "
                 f"{at.flash_attention.launches}")
-            ms = cuda_ms(lambda: at.flash_attention(q, k, v, ln, **kw))
-            plain = cuda_ms(lambda: at.flash_attention_plain(q, k, v, ln, **kw))
-            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
-            nbytes = 2 * (2 * b * heads * nq * hd + 2 * b * heads * nk * hd)
+            with fp32_scope():  # fp32 SDPA with TF32 off
+                ms = cuda_ms(lambda: at.flash_attention(q, k, v, ln, **kw))
+                plain = cuda_ms(lambda: at.flash_attention_plain(q, k, v, ln, **kw))
+                lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+            nbytes = q.element_size() * (2 * b * heads * nq * hd + 2 * b * heads * nk * hd)
             flops = 4 * b * heads * nq * nk * hd
-            flash_e.add(f"{label} bf16", 1, ms, plain, lib_ms, nbytes, flops, BF16_FLOP_PER_MS)
+            ent.add(f"{label} {tag}", 1, ms, plain, lib_ms, nbytes, flops,
+                    BF16_FLOP_PER_MS if tag == "bf16" else FP32_OP_PER_MS)
 
 
 def per_block_stack_checks(at, weights, rand, freqs_for, dev, dtypes, fp32_scope):
@@ -1743,7 +1936,7 @@ def generic_conv_checks(conv_k, rand, dev, dtypes, fp32_scope, gen_e, gen_fp32_e
             nbytes = size * (2 * h * w * cin + 9 * cin * cout + 2 * oh * ow * cout) + 4 * cout
             flops = 2 * 2 * h * w * cin * cout * 9
             ent.add(f"{label} {tag}", 1, ms, plain, lib_ms, nbytes, flops,
-                    BF16_FLOP_PER_MS if tag == "bf16" else FP32_OP_PER_MS,
+                    BF16_FLOP_PER_MS if tag == "bf16" else TF32X3_OP_PER_MS,
                     per="call of the four")
 
 
@@ -1803,7 +1996,7 @@ def conv_chain_checks(conv_k, cc, rand, dev, dtypes, fp32_scope, chain_e, chain_
         flops = 2 * (2 * 2 * h * w * 64 * 64 * 9)
         # library: two cuDNN convs with bias and ReLU, and the pool
         ent.add(f"conv2a+conv2b+pool 2x240x320x64 {tag}", 1, ms, plain, lib_ms, nbytes, flops,
-                BF16_FLOP_PER_MS if tag == "bf16" else FP32_OP_PER_MS, per="call")
+                BF16_FLOP_PER_MS if tag == "bf16" else TF32X3_OP_PER_MS, per="call")
 
 
 # ---------------------------------------------------------------------------
@@ -1825,8 +2018,8 @@ MIXED_TOL = {"linear": dict(atol=1e-4, rtol=1e-4), "attention": dict(atol=1e-3, 
 # (tests/test_layer_stack.py:149-156), were set at 2 layers; each check
 # logs its share beside them
 RUNG_GATE = {"mixed": dict(atol=0.0581, rtol=0.0), "int8": STACK_TOL["bf16"],
-             "w8a8": dict(atol=0.4375, rtol=0.0)}
-JAX_SHARE = {"mixed": 5e-3, "int8": None, "w8a8": 0.02}
+             "w8a8": dict(atol=0.4375, rtol=0.0), "fp32": STACK_TOL["fp32"]}
+JAX_SHARE = {"mixed": 5e-3, "int8": None, "w8a8": 0.02, "fp32": None}
 # rung: (Precision value, LGTPU_W8A8)
 RUNGS = {"mixed": ("mixed", False), "int8": ("int8", False), "w8a8": ("int8", True)}
 # the projections whose only reader is the attention: bf16 out at MIXED
@@ -2369,9 +2562,10 @@ def mutual_matches(scores, n0, n1):
 
 
 def rung_end_to_end(ls, at, counters, img0, img1, ents):
-    """match_pair at 480x640, 9 layers, on every route at MIXED and INT8:
-    the fixed-depth stack (and INT8 with LGTPU_W8A8=1), the adaptive stack
-    (random weights), the 2048-keypoint and pad-to-64 per-block configs.
+    """match_pair at 480x640, 9 layers, on every route at MIXED, INT8 and
+    FP32: the fixed-depth stack (and INT8 with LGTPU_W8A8=1), the adaptive
+    stack (random weights), the 2048-keypoint and pad-to-64 per-block
+    configs. The FP32 runs give the launch counts of the FP32 rows.
     Each: launch counts read from 0 around one call, ms per pair (median of
     10 after a warm call), one profiled call, a two-pair match_batch, and
     the same extraction's LightGlue on the kernels against it on their plain
@@ -2394,7 +2588,9 @@ def rung_end_to_end(ls, at, counters, img0, img1, ents):
     runs = [("mixed", "fixed depth"), ("int8", "fixed depth"), ("w8a8", "fixed depth"),
             ("mixed", "adaptive"), ("int8", "adaptive"),
             ("mixed", "2048-keypoint"), ("int8", "2048-keypoint"),
-            ("mixed", "pad-to-64"), ("int8", "pad-to-64")]
+            ("mixed", "pad-to-64"), ("int8", "pad-to-64"),
+            ("fp32", "fixed depth"), ("fp32", "adaptive"), ("fp32", "2048-keypoint"),
+            ("fp32", "pad-to-64")]
     # (rung, config) -> {kernels line entry: launch counter}: the rung's main path
     main_of = {("mixed", "fixed depth"): {"linear mixed": "linear", "attention mixed": "attention",
                                           "relu_conv1a_shift mixed": "relu_conv1a_shift",
@@ -2404,10 +2600,16 @@ def rung_end_to_end(ls, at, counters, img0, img1, ents):
                ("mixed", "adaptive"): {"adaptive_decide mixed": "adaptive_decide"},
                ("mixed", "2048-keypoint"): {"fused_mha mixed": "fused_mha"},
                ("mixed", "pad-to-64"): {"bidirectional_cross_attention mixed":
-                                        "bidirectional_cross_attention"}}
+                                        "bidirectional_cross_attention"},
+               ("fp32", "fixed depth"): {"linear fp32": "linear", "attention fp32": "attention",
+                                         "ln_gelu fp32": "ln_gelu"},
+               ("fp32", "adaptive"): {"adaptive_decide fp32": "adaptive_decide"},
+               ("fp32", "2048-keypoint"): {"fused_mha fp32": "fused_mha"},
+               ("fp32", "pad-to-64"): {"bidirectional_cross_attention fp32":
+                                       "bidirectional_cross_attention"}}
     summary = []
     for rung, route in runs:
-        precision, w8 = RUNGS[rung]
+        precision, w8 = {**RUNGS, "fp32": ("fp32", False)}[rung]
         cfg = dataclasses.replace(configs[route], precision=Precision(precision))
         log(f"MatcherSession(device='cuda').match_pair, {rung.upper()}, {route}, 480x640, "
             f"{N_LAYERS} layers")
@@ -2608,6 +2810,25 @@ def main() -> int:
                   "src/lightglue_tpu/kernels/layer_stack.py:801")
     ln_e = Entry("ln_gelu", "src/lightglue_tpu_torch/csrc/ln_gelu.cu",
                  "src/lightglue_tpu/kernels/layer_stack.py:801")
+    # the FP32 rung's instantiations (FMA kernels): launches from its match_pair
+    # on each route (rung_end_to_end), flash_attention's from its own call
+    src, ref = "src/lightglue_tpu_torch/csrc/", "src/lightglue_tpu/kernels/"
+    fp32_ents = {
+        "linear": Entry("linear (FP32: fp32 operands, FMA)", src + "linear.cu",
+                        ref + "layer_stack.py:801"),
+        "attention": Entry("attention (FP32: fp32 operands, FMA)", src + "attention.cu",
+                           ref + "layer_stack.py:801"),
+        "ln_gelu": Entry("ln_gelu (FP32)", src + "ln_gelu.cu", ref + "layer_stack.py:801"),
+        "adaptive_decide": Entry("adaptive_decide (FP32)", src + "adaptive.cu",
+                                 ref + "layer_stack.py:974"),
+        "fused_mha": Entry("fused_mha (FP32: fp32 operands, FMA)", src + "flash_attn.cu",
+                           ref + "attention.py:687"),
+        "bidirectional_cross_attention": Entry(
+            "bidirectional_cross_attention (FP32: fp32 operands, FMA)", src + "bidir_cross.cu",
+            ref + "attention.py:925"),
+        "flash_attention": Entry("flash_attention (FP32: fp32 operands, FMA)",
+                                 src + "flash_attn.cu", ref + "attention.py:197"),
+    }
 
     def rand(*shape, dtype=torch.float32, scale=1.0, uniform=False):
         f = torch.rand if uniform else torch.randn
@@ -2633,6 +2854,8 @@ def main() -> int:
                 if tag == "bf16":
                     rounding_witness(f"{label} {tag}", got, want,
                                      conv_wrong_designs(x, wt, b, pool))
+                else:
+                    tf32_witness(conv_k, f"{label} {tag}", got, x, wt, b, pool)
             ent = conv_e if tag == "bf16" else conv_fp32_e
             ent.err(err)
             if not timed:
@@ -2647,7 +2870,7 @@ def main() -> int:
             nbytes = x.element_size() * (2 * h * w * 64 + 9 * 64 * 64 + 2 * oh * ow * 64) + 4 * 64
             flops = 2 * 2 * h * w * 64 * 64 * 9
             ent.add(f"{label} {tag}", 1, ms, plain, lib_ms, nbytes, flops,
-                    BF16_FLOP_PER_MS if tag == "bf16" else FP32_OP_PER_MS)
+                    BF16_FLOP_PER_MS if tag == "bf16" else TF32X3_OP_PER_MS)
 
     # ---- nms_candidates: 2x480x640, edge bands, radii, caps, ties ----------
     log("nms_candidates (per match_pair: one launch over 2x480x640; then edge bands, radius 2, "
@@ -2687,17 +2910,18 @@ def main() -> int:
                 got = ls.linear(a, w, b, a2=a2, residual=r)
                 want = ls.linear_plain(a, w, b, a2, r)
                 err = compare(f"{label} {tag}", got, want, **TOL[tag])
-            if tag != "bf16":
-                continue
-            lin_e.err(err)
+            ent = lin_e if tag == "bf16" else fp32_ents["linear"]
+            ent.err(err)
             a_cat = a if a2 is None else torch.cat([a, a2], -1)
-            ms = cuda_ms(lambda: ls.linear(a, w, b, a2=a2, residual=r))
-            plain = cuda_ms(lambda: ls.linear_plain(a, w, b, a2, r))
-            lib_ms = cuda_ms(lambda: torch.addmm(b, a_cat[0], w))
-            nbytes = 2 * (m * (k1 + k2) + (k1 + k2) * n + n + m * n * (2 if res else 1))
+            with fp32_scope():  # the fp32 addmm in true fp32, TF32 off
+                ms = cuda_ms(lambda: ls.linear(a, w, b, a2=a2, residual=r))
+                plain = cuda_ms(lambda: ls.linear_plain(a, w, b, a2, r))
+                lib_ms = cuda_ms(lambda: torch.addmm(b, a_cat[0], w))
+            nbytes = a.element_size() * (m * (k1 + k2) + (k1 + k2) * n + n
+                                         + m * n * (2 if res else 1))
             flops = 2 * m * (k1 + k2) * n
-            lin_e.add(f"{label} bf16", per_layer * N_LAYERS, ms, plain, lib_ms, nbytes, flops,
-                      BF16_FLOP_PER_MS)
+            ent.add(f"{label} {tag}", per_layer * N_LAYERS, ms, plain, lib_ms, nbytes, flops,
+                    BF16_FLOP_PER_MS if tag == "bf16" else FP32_OP_PER_MS)
 
     # ---- attention: self (RoPE) and cross at 1024, masked, length 0 -------
     log(f"attention (per match_pair: 4 launches per layer x {N_LAYERS} layers, N={BUCKET})")
@@ -2740,22 +2964,23 @@ def main() -> int:
                                      stack_wrong_designs(q, k, v, f, lq, lk, heads))
             if lens and lens[0][0] == 0 and float(got.float().abs().max()) != 0.0:
                 raise AssertionError(f"{label} {tag}: length-0 rows are not exactly 0")
-            if tag != "bf16":
-                continue
-            att_e.err(err)
+            ent = att_e if tag == "bf16" else fp32_ents["attention"]
+            ent.err(err)
             if not per_layer:
                 continue
             qh = q.reshape(1, nq, heads, hd).transpose(1, 2)
             kh = k.reshape(1, nk, heads, hd).transpose(1, 2)
             vh = v.reshape(1, nk, heads, hd).transpose(1, 2)
-            ms = cuda_ms(lambda: ls.attention(q, k, v, f, lq, lk, heads, dt))
-            plain = cuda_ms(lambda: ls.attention_plain(q, k, v, f, lq, lk, heads, dt))
-            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
-            nbytes = 2 * (nq * e + 2 * nk * e + nq * e) + (4 * 2 * nq * hd if rope else 0)
+            with fp32_scope():  # fp32 SDPA with TF32 off
+                ms = cuda_ms(lambda: ls.attention(q, k, v, f, lq, lk, heads, dt))
+                plain = cuda_ms(lambda: ls.attention_plain(q, k, v, f, lq, lk, heads, dt))
+                lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
+            nbytes = (q.element_size() * (nq * e + 2 * nk * e + nq * e)
+                      + (4 * 2 * nq * hd if rope else 0))
             flops = 4 * heads * nq * nk * hd
             # library: scaled_dot_product_attention, which does no RoPE
-            att_e.add(f"{label} bf16", per_layer * N_LAYERS, ms, plain, lib_ms, nbytes, flops,
-                      BF16_FLOP_PER_MS)
+            ent.add(f"{label} {tag}", per_layer * N_LAYERS, ms, plain, lib_ms, nbytes, flops,
+                    BF16_FLOP_PER_MS if tag == "bf16" else FP32_OP_PER_MS)
 
     # ---- ln_gelu: 1024 rows of 512 ----------------------------------------
     log(f"ln_gelu (per match_pair: 4 launches per layer x {N_LAYERS} layers, N={BUCKET})")
@@ -2766,15 +2991,14 @@ def main() -> int:
         with fp32_scope():
             err = compare(f"ln_gelu {tag}", ls.ln_gelu(h, g, bb), ls.ln_gelu_plain(h, g, bb),
                           **TOL[tag])
-        if tag != "bf16":
-            continue
-        ln_e.err(err)
+        ent = ln_e if tag == "bf16" else fp32_ents["ln_gelu"]
+        ent.err(err)
         ms = cuda_ms(lambda: ls.ln_gelu(h, g, bb))
         plain = cuda_ms(lambda: ls.ln_gelu_plain(h, g, bb))
         lib_ms = cuda_ms(lambda: F.gelu(F.layer_norm(h, (2 * e,), g, bb)))
-        nbytes = 2 * (2 * h.numel() + 4 * e)
-        ln_e.add("1024x512 bf16", 4 * N_LAYERS, ms, plain, lib_ms, nbytes, 20 * h.numel(),
-                 FP32_OP_PER_MS)
+        nbytes = h.element_size() * (2 * h.numel() + 4 * e)
+        ent.add(f"1024x512 {tag}", 4 * N_LAYERS, ms, plain, lib_ms, nbytes, 20 * h.numel(),
+                FP32_OP_PER_MS)
 
     # ---- the whole stack against its plain version, 9 layers -------------
     log(f"transformer_stack vs plain, L={N_LAYERS}")
@@ -2879,7 +3103,10 @@ def main() -> int:
     dec_mixed_e = Entry("adaptive_decide (MIXED: fp32 x, bf16 heads)",
                         "src/lightglue_tpu_torch/csrc/adaptive.cu",
                         "src/lightglue_tpu/kernels/layer_stack.py:974")
-    adaptive_kernel_checks(ls, rand, freqs_for, dev, dtypes, fp32_scope, dec_e, dec_mixed_e)
+    adaptive_kernel_checks(ls, rand, freqs_for, dev, dtypes, fp32_scope,
+                           {"bf16": dec_e, "mixed": dec_mixed_e,
+                            "fp32": fp32_ents["adaptive_decide"]})
+    decide_batch_checks(ls, dev)
     adaptive_stack_checks(ls, weights, rand, freqs_for, dev, dtypes, fp32_scope)
     adaptive_end_to_end(ls, counters, weights, img0, img1, dec_e)
 
@@ -2890,7 +3117,8 @@ def main() -> int:
                     "src/lightglue_tpu/kernels/attention.py:925")
     flash_e = Entry("flash_attention", "src/lightglue_tpu_torch/csrc/flash_attn.cu",
                     "src/lightglue_tpu/kernels/attention.py:197")
-    attention_kernel_checks(at, rand, freqs_for, dev, dtypes, fp32_scope, fused_e, bidir_e, flash_e)
+    attention_kernel_checks(at, rand, freqs_for, dev, dtypes, fp32_scope, fused_e, bidir_e, flash_e,
+                            fp32_ents)
     per_block_stack_checks(at, weights, rand, freqs_for, dev, dtypes, fp32_scope)
     per_block_end_to_end(at, counters, img0, img1, fused_e, bidir_e)
 
@@ -2938,6 +3166,7 @@ def main() -> int:
             stack_ref + "attention.py:925"),
         "flash_attention mixed": Entry("flash_attention (MIXED: fp32 out)",
                                        stack_src + "flash_attn.cu", stack_ref + "attention.py:197"),
+        **{f"{name} fp32": ent for name, ent in fp32_ents.items()},
     }
     rung_linear_checks(ls, rand, dev, fp32_scope, rung_ents)
     rung_stack_kernel_checks(ls, at, rand, freqs_for, dev, fp32_scope, rung_ents)
@@ -2945,6 +3174,14 @@ def main() -> int:
     rung_stack_checks(ls, weights, rand, freqs_for, dev, fp32_scope)
     rung_end_to_end(ls, at, counters, img0, img1, rung_ents)
     ring_int8(at, counters, img0, img1)
+
+    log("the FP32 rows' products at three TF32 products each (495 TFLOP/s dense): the floor "
+        "a 3xTF32 design would have, per match_pair (flash_attention: per call)")
+    for name in ("linear", "attention", "fused_mha", "bidirectional_cross_attention",
+                 "flash_attention"):
+        ent = fp32_ents[name]
+        log(f"  {ent.d['name']}: 3xTF32 floor {ent.ops / TF32X3_OP_PER_MS:.4f} ms, fp32 FMA "
+            f"floor {ent.ops / FP32_OP_PER_MS:.4f} ms, kernel {ent.d['ms']:.4f} ms")
 
     entries = (stem_e, conv_e, nms_e, lin_e, att_e, ln_e, dec_e, fused_e, bidir_e, flash_e,
                step_e, gen_e, gen_fp32_e, chain_e, chain_fp32_e, *rung_ents.values())

@@ -17,7 +17,7 @@
 // Bound on the H100: at 2x480x640 the three 64-channel convs are ~68 GFLOP
 // against ~0.2 GB of activations, so the tensor cores bound them (~0.07 ms
 // at the bf16 peak); SuperPoint's C >= 128 shapes (conv3a..convDb, ~34
-// GFLOP, 0.034 ms) are further above the ridge. Three kernels:
+// GFLOP, 0.034 ms) are further above the ridge. Four kernels:
 //
 // conv3x3_mma_kernel, the model's bf16 calls (C_in = C_out = 64, ReLU, bf16
 // out): an implicit GEMM on the tensor cores: M = a tile's output pixels,
@@ -71,16 +71,40 @@
 //   max across the thread's two rows and the lane 4 apart, one cast, 2-value
 //   stores masked per pixel and per 8-channel column.
 //
-// conv3x3_kernel, the fp32-operand calls (the MIXED and FP32 rungs' model
-// convs and the generic fp32 calls), on the fp32 FMA units: one TF32 mma
-// would miss their 1e-4 gate. One block per 8x16 output tile and 64 output
-// channels, the haloed input tile and the taps' weights staged in shared
-// memory 16 input channels at a time (under the 48 KB static limit; a chunk
-// past C_in is zero-filled), 8 pixels x 4 output channels of fp32
-// accumulators per thread, and the bias/ReLU/pool epilogue in registers. Its
-// fixed instantiation (C_in = C_out = 64, ReLU) takes the channel counts as
-// compile-time constants; the generic one takes them at run time and tiles
-// C_out over 64-channel blocks.
+// conv3x3_tf32x3_kernel, the model's fp32 calls (the MIXED and FP32 rungs:
+// C_in = C_out = 64, ReLU, fp32 out): the same implicit GEMM on the tensor
+// cores in 3xTF32. One TF32 product rounds each operand to 10 mantissa bits
+// and misses the fp32 gate of 1e-4 (tests/test_torch_conv_kernels.py
+// measures it); split each operand into hi = tf32(x) and lo = tf32(x - hi)
+// and hi*lo + lo*hi + hi*hi in fp32 keeps about fp32's precision at three
+// mma.sync m16n8k8 products (lo*lo dropped, the small terms first).
+// - One block per 16x16 output tile and all 64 channels, eight warps of two
+//   tile rows each (the m-tiles share every B fragment). fp32 operands
+//   double the bf16 kernel's bytes: all nine taps' weights (147 KB) and an
+//   18x18 haloed tile (83 KB) cannot both stay, so K streams in chunks of 8
+//   input channels (one k8 step per tap): a two-stage cp.async ring of raw
+//   fp32 chunks (the tile's 8 channels at a 12-float pitch, their 9 x 8 x 64
+//   weights) copies chunk c + 1 while chunk c computes.
+// - The weights are split once per chunk, for all warps, into (hi, lo)
+//   pairs at a 68-pair pitch, read as one 8 B load per B element; the
+//   activations are split as each A fragment is loaded (8 values a warp
+//   per k8 step against 48 mma).
+// - 107 KB of shared memory and at most 128 registers a thread: two blocks
+//   an SM.
+// - Epilogue in registers: fp32 acc + fp32 bias, ReLU, the pool max across
+//   the thread's two rows and the lane 4 apart, 2-value fp32 stores masked
+//   per pixel (any H and W: 360x488 gives a 488-wide conv1b).
+// - What bounds it: the tensor cores at three TF32 products per MAC (3 x 68
+//   GFLOP per pair at 495 TFLOP/s: 0.41 ms), below the fp32 FMA units'
+//   1.01 ms for the same sums.
+//
+// conv3x3_kernel, every other fp32-operand call (the generic fp32 conv, any
+// C_in and C_out multiples of 8), on the fp32 FMA units: one block per 8x16
+// output tile and 64 output channels, the haloed input tile and the taps'
+// weights staged in shared memory 16 input channels at a time (under the
+// 48 KB static limit; a chunk past C_in is zero-filled), 8 pixels x 4 output
+// channels of fp32 accumulators per thread, and the bias/ReLU/pool epilogue
+// in registers; C_out tiles over 64-channel blocks.
 
 #include "mma.cuh"
 
@@ -94,24 +118,22 @@ constexpr int HR = TH + 2;   // haloed tile rows
 constexpr int HC = TW + 2;   // haloed tile cols
 constexpr int THREADS = 256;
 
-template <typename O, bool GENERIC, bool RELU>
+template <typename O, bool RELU>
 __global__ void __launch_bounds__(THREADS)
 conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
                const float* __restrict__ bias, O* __restrict__ y,
-               int H, int W, int Cin, int Cout, int pool) {
+               int H, int W, int cin, int cout, int pool) {
   __shared__ float xs[HR * HC * CI];               // [row][col][ci] 11.5 KB
   __shared__ __align__(16) float ws[9 * CI * C];   // [tap][ci][co]  36.9 KB
 
-  const int cin = GENERIC ? Cin : C;
-  const int cout = GENERIC ? Cout : C;
-  const int tiles = GENERIC ? (cout + C - 1) / C : 1;  // 64-channel output tiles
+  const int tiles = (cout + C - 1) / C;  // 64-channel output tiles
   const int tid = threadIdx.x;
   const int cg = tid % 16;             // output channels co0 + 4cg .. co0 + 4cg+3
   const int pg = tid / 16;             // pixel group: 2 rows x 4 cols
   const int pr = 2 * (pg / 4);         // tile row of the group
   const int pc = 4 * (pg % 4);         // tile col of the group
-  const int b = GENERIC ? blockIdx.z / tiles : blockIdx.z;
-  const int co0 = GENERIC ? blockIdx.z % tiles * C : 0;
+  const int b = blockIdx.z / tiles;
+  const int co0 = blockIdx.z % tiles * C;
   const int y0 = blockIdx.y * TH;
   const int x0 = blockIdx.x * TW;
   const float* xb = x + (size_t)b * H * W * cin;
@@ -132,7 +154,7 @@ conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
       const int gy = y0 - 1 + pix / HC;
       const int gx = x0 - 1 + pix % HC;
       float v = 0.f;  // SAME zero padding, and channels past C_in
-      if (gy >= 0 && gy < H && gx >= 0 && gx < W && (!GENERIC || c0 + ci < cin))
+      if (gy >= 0 && gy < H && gx >= 0 && gx < W && c0 + ci < cin)
         v = xb[((size_t)gy * W + gx) * cin + c0 + ci];
       xs[i] = v;
     }
@@ -141,7 +163,7 @@ conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
       const int ci = (i / C) % CI;
       const int tap = i / (C * CI);
       float v = 0.f;
-      if (!GENERIC || (c0 + ci < cin && co0 + co < cout))
+      if (c0 + ci < cin && co0 + co < cout)
         v = w[((size_t)tap * cin + c0 + ci) * cout + co0 + co];
       ws[i] = v;
     }
@@ -169,7 +191,7 @@ conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 
   const int co = co0 + 4 * cg;  // C_out % 8 == 0: all four channels or none
-  if (GENERIC && co >= cout) return;
+  if (co >= cout) return;
   float bv[4];
 #pragma unroll
   for (int o = 0; o < 4; ++o) bv[o] = bias[co + o];
@@ -214,12 +236,13 @@ conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-template <typename O, bool GENERIC, bool RELU>
-int launch(const void* x, const void* w, const void* bias, void* y, int B,
-           int H, int W, int Cin, int Cout, int pool, cudaStream_t stream) {
-  const int tiles = GENERIC ? (Cout + C - 1) / C : 1;
+template <typename O>
+int generic_fp32(const void* x, const void* w, const void* bias, void* y, int B, int H, int W,
+                 int Cin, int Cout, int pool, int relu, cudaStream_t stream) {
+  const int tiles = (Cout + C - 1) / C;
   dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B * tiles);
-  conv3x3_kernel<O, GENERIC, RELU><<<grid, THREADS, 0, stream>>>(
+  auto kernel = relu ? conv3x3_kernel<O, true> : conv3x3_kernel<O, false>;
+  kernel<<<grid, THREADS, 0, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(w),
       static_cast<const float*>(bias), static_cast<O*>(y), H, W, Cin, Cout, pool);
   return static_cast<int>(cudaGetLastError());
@@ -591,11 +614,178 @@ int launch_igemm(const void* x, const void* w, const void* bias, void* y, int B,
   return run(x, w, bias, y, B, H, W, Cin, Cout, pool, relu, s);
 }
 
-template <typename O>
-int generic_fp32(const void* x, const void* w, const void* bias, void* y, int B, int H, int W,
-                 int Cin, int Cout, int pool, int relu, cudaStream_t s) {
-  return (relu ? launch<O, true, true> : launch<O, true, false>)(x, w, bias, y, B, H, W, Cin,
-                                                                 Cout, pool, s);
+// ---------------------------------------------------------------------------
+// The model's fp32 64 -> 64 ReLU conv on the tensor cores: 3xTF32
+// ---------------------------------------------------------------------------
+
+constexpr int XK = 8;          // input channels per K chunk: one k8 step per tap
+constexpr int XPA = XK + 4;    // fp32 pixel pitch of a chunk's input tile (48 B): the
+                               // eight pixels of an A fragment column fall in different banks
+constexpr int XPN = C + 4;     // (hi, lo) pair pitch of the split weights (68 pairs): a
+                               // half-warp's B pairs fall in different bank pairs
+constexpr int XT = 16;         // output tile side (pre-pool)
+constexpr int XH = XT + 2;     // haloed input tile side
+constexpr int XWARPS = XT / 2;  // warps of a block: two tile rows each
+constexpr int XTHREADS = XWARPS * 32;
+constexpr int XPIX = XH * XH;
+constexpr int XSTAGE = XPIX * XPA + 9 * XK * C;  // floats of a raw ring stage
+constexpr size_t TF32X3_SMEM =
+    sizeof(float) * 2 * XSTAGE + sizeof(float2) * 9 * XK * XPN;  // 107,136 B
+
+// One block per 16x16 output tile and all 64 channels; 128 registers a
+// thread at most, so that two blocks (and their 107 KB of shared memory)
+// share an SM.
+__global__ void __launch_bounds__(XTHREADS, 2)
+conv3x3_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                      const float* __restrict__ bias, float* __restrict__ y, int H, int W,
+                      int pool) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // [2] x {[XPIX][XPA] input chunk, [9 * XK][C] its taps' weights}, as copied
+  float* raw = reinterpret_cast<float*>(smem_raw);
+  // [9 * XK][XPN] (hi, lo) of the chunk's weights, split once for all warps
+  float2* ws = reinterpret_cast<float2*>(raw + 2 * XSTAGE);
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;  // tile rows 2 warp + {0, 1}
+  const int g = lane / 4, t4 = lane % 4;  // mma fragment row and column
+  const int x0 = blockIdx.x * XT, y0 = blockIdx.y * XT, b = blockIdx.z;
+  constexpr int chunks = C / XK;
+
+  // chunk c's raw stage: channels c * XK.. of the haloed tile (zeros outside
+  // the image) and their nine taps' weights
+  auto stage = [&](int c) {
+    float* xs = raw + c % 2 * XSTAGE;
+    float* wr = xs + XPIX * XPA;
+    const int c0 = c * XK;
+    for (int s = tid; s < XPIX * (XK / 4); s += XTHREADS) {
+      const int p = s / (XK / 4), k4 = s % (XK / 4) * 4;
+      const int gy = y0 - 1 + p / XH, gx = x0 - 1 + p % XH;
+      float* d = xs + p * XPA + k4;
+      if (gy >= 0 && gy < H && gx >= 0 && gx < W)
+        lg::cp_async16(d, x + (((size_t)b * H + gy) * W + gx) * C + c0 + k4);
+      else
+        *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    for (int s = tid; s < 9 * XK * (C / 4); s += XTHREADS) {
+      const int r = s / (C / 4), n4 = s % (C / 4) * 4;  // r = tap * XK + channel in chunk
+      lg::cp_async16(wr + r * C + n4, w + ((size_t)(r / XK) * C + c0 + r % XK) * C + n4);
+    }
+  };
+
+  // acc[m][n]: tile row 2 * warp + m, channels n * 8.., fp32 over 9 x 64
+  float acc[2][C / 8][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int n = 0; n < C / 8; ++n) acc[m][n][0] = acc[m][n][1] = acc[m][n][2] = acc[m][n][3] = 0.f;
+
+  stage(0);
+  lg::cp_async_commit();
+  for (int c = 0; c < chunks; ++c) {
+    lg::cp_async_wait<0>();  // this thread's copies of chunk c have landed
+    __syncthreads();         // everyone's, and chunk c - 1 is no longer read
+    if (c + 1 < chunks) stage(c + 1);
+    lg::cp_async_commit();
+    const float* xs = raw + c % 2 * XSTAGE;
+    {  // split the chunk's weights into (hi, lo) pairs
+      const float4* wr = reinterpret_cast<const float4*>(xs + XPIX * XPA);
+      for (int s = tid; s < 9 * XK * (C / 4); s += XTHREADS) {
+        const float4 v = wr[s];
+        unsigned h[4], l[4];
+        lg::split_tf32(v.x, h[0], l[0]);
+        lg::split_tf32(v.y, h[1], l[1]);
+        lg::split_tf32(v.z, h[2], l[2]);
+        lg::split_tf32(v.w, h[3], l[3]);
+        uint4* d = reinterpret_cast<uint4*>(ws + s / (C / 4) * XPN + s % (C / 4) * 4);
+        d[0] = make_uint4(h[0], l[0], h[1], l[1]);
+        d[1] = make_uint4(h[2], l[2], h[3], l[3]);
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const int dy = tap / 3, dx = tap % 3;
+      unsigned ah[2][4], al[2][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {  // 16 pixels of a row, shifted by the tap
+        const float* px = xs + ((2 * warp + m + dy) * XH + dx + g) * XPA + t4;
+        lg::split_tf32(px[0], ah[m][0], al[m][0]);                // pixel g, k t4
+        lg::split_tf32(px[8 * XPA], ah[m][1], al[m][1]);          // pixel g + 8
+        lg::split_tf32(px[4], ah[m][2], al[m][2]);                // k t4 + 4
+        lg::split_tf32(px[8 * XPA + 4], ah[m][3], al[m][3]);
+      }
+      const float2* wk = ws + (tap * XK + t4) * XPN + g;  // k t4, column g
+#pragma unroll
+      for (int n = 0; n < C / 8; ++n) {
+        const float2 w0 = wk[n * 8], w1 = wk[4 * XPN + n * 8];  // k t4 and t4 + 4
+        const unsigned bh0 = __float_as_uint(w0.x), bl0 = __float_as_uint(w0.y);
+        const unsigned bh1 = __float_as_uint(w1.x), bl1 = __float_as_uint(w1.y);
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {  // the small terms first, lo * lo dropped
+          lg::mma_tf32(acc[m][n], ah[m], bl0, bl1);
+          lg::mma_tf32(acc[m][n], al[m], bh0, bh1);
+          lg::mma_tf32(acc[m][n], ah[m], bh0, bh1);
+        }
+      }
+    }
+  }
+
+  // fp32 bias, ReLU, [the pool max,] fp32 out, 2-value stores masked per pixel
+  float bv[C / 8][2];
+#pragma unroll
+  for (int n = 0; n < C / 8; ++n) {
+    bv[n][0] = __ldg(bias + n * 8 + 2 * t4);
+    bv[n][1] = __ldg(bias + n * 8 + 2 * t4 + 1);
+  }
+  if (pool) {
+    const int Ho = H / 2, Wo = W / 2, oy = y0 / 2 + warp;
+#pragma unroll
+    for (int n = 0; n < C / 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {  // fragment rows g and g + 8
+        float v[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          v[j] = fmaxf(fmaxf(acc[0][n][2 * i + j] + bv[n][j], 0.f),
+                       fmaxf(acc[1][n][2 * i + j] + bv[n][j], 0.f));
+          v[j] = fmaxf(v[j], __shfl_xor_sync(0xffffffffu, v[j], 4));  // the column pair
+        }
+        const int ox = x0 / 2 + (g + 8 * i) / 2;
+        if (!(g & 1) && oy < Ho && ox < Wo)
+          lg::store2(y + (((size_t)b * Ho + oy) * Wo + ox) * C + n * 8 + 2 * t4, v[0], v[1]);
+      }
+  } else {
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const int gy = y0 + 2 * warp + m;
+#pragma unroll
+      for (int n = 0; n < C / 8; ++n)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int gx = x0 + g + 8 * i;
+          if (gy < H && gx < W)
+            lg::store2(y + (((size_t)b * H + gy) * W + gx) * C + n * 8 + 2 * t4,
+                       fmaxf(acc[m][n][2 * i] + bv[n][0], 0.f),
+                       fmaxf(acc[m][n][2 * i + 1] + bv[n][1], 0.f));
+        }
+    }
+  }
+}
+
+int launch_tf32x3(const void* x, const void* w, const void* bias, void* y, int B, int H, int W,
+                  int pool, cudaStream_t stream) {
+  // x and w are read 16 B at a time
+  if (reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(w) % 16)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  // above 48 KB: opt in once
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      conv3x3_tf32x3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(TF32X3_SMEM));
+  if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
+  dim3 grid((W + XT - 1) / XT, (H + XT - 1) / XT, B);
+  conv3x3_tf32x3_kernel<<<grid, XTHREADS, TF32X3_SMEM, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<const float*>(bias), static_cast<float*>(y), H, W, pool);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -615,7 +805,7 @@ extern "C" int lg_conv3x3(const void* x, const void* w, const void* bias,
     return (bf16_out ? launch_igemm<bf16_t> : launch_igemm<float>)(x, w, bias, y, B, H, W, Cin,
                                                                    Cout, pool, relu, s);
   }
-  if (model) return launch<float, false, true>(x, w, bias, y, B, H, W, Cin, Cout, pool, s);
+  if (model) return launch_tf32x3(x, w, bias, y, B, H, W, pool, s);
   return (bf16_out ? generic_fp32<bf16_t> : generic_fp32<float>)(x, w, bias, y, B, H, W, Cin,
                                                                  Cout, pool, relu, s);
 }

@@ -1,7 +1,8 @@
 // Tensor-core machinery shared by the port's bf16 kernels: flash_attn.cu
 // (fused_mha, flash_attention, the ring step), attention.cu (the layer
 // stack's attention), linear.cu (the stack's projections), bidir_cross.cu
-// (both cross directions) and conv3x3.cu (SuperPoint's 64 -> 64 convs).
+// (both cross directions) and conv3x3.cu (SuperPoint's 64 -> 64 convs,
+// bf16 and, in 3xTF32, fp32).
 //
 // - 16-byte cp.async staging into shared memory (stage_rows for the
 //   attention operands: rows of one head addressed by batch, head and row
@@ -10,6 +11,8 @@
 // - ldmatrix (.trans for an operand stored [k][n], as V and the weights)
 //   and mma.sync m16n8k16 with bf16 operands and fp32 sums; mma.sync
 //   m16n8k32 with s8 operands and s32 sums (linear.cu's W8A8 GEMM);
+//   mma.sync m16n8k8 with tf32 operands and the 3xTF32 split of an fp32
+//   value (conv3x3.cu's fp32 model conv);
 // - the attention block layout: WARPS warps, 16-row groups, C warps of a
 //   group splitting each 64-key chunk, rows padded to LD elements so the
 //   eight row addresses of an ldmatrix fall in different banks; the launch
@@ -139,6 +142,34 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4], unsi
       "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x rounded to TF32 (10 mantissa bits, to nearest, ties away from zero):
+// the bits an mma.sync .tf32 operand reads
+__device__ __forceinline__ unsigned tf32(float x) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// the 3xTF32 split of x: hi = tf32(x), lo = tf32(x - hi) (x - hi is exact);
+// hi * hi + hi * lo + lo * hi keeps about fp32's precision
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+// d += a (16x8 tf32, row) * b (8x8 tf32, col), fp32 sums. Fragments (g =
+// lane / 4, t4 = lane % 4): a0 (row g, k t4), a1 (g + 8, t4), a2 (g, t4 + 4),
+// a3 (g + 8, t4 + 4); b0 (k t4, column g), b1 (k t4 + 4, g); d as
+// mma_bf16's: d0, d1 row g, d2, d3 row g + 8, columns 2 t4 and 2 t4 + 1
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

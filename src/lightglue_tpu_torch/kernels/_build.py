@@ -54,8 +54,9 @@ _SIGNATURES = {
     "lg_ln_gelu": [_P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _P],
     "lg_adaptive_decide": [
         _P, _P, _I, _I, _I, _I, _P, _P, _F, _P, _P, _F, _P, _P, _P, _P, _P,
-        _I, _I, _F, _I, _P,
+        _I, _I, _F, _I, _P, _P, _P,
     ],
+    "lg_decide_plan": [_I, _I, _I, _I, _I, ctypes.POINTER(_I)],
     "lg_fused_mha": [
         _P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
         _I, _I, _I, _I, _P,

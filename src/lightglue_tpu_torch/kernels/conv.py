@@ -21,9 +21,11 @@ GEMM on the tensor cores (``mma.sync``, fp32 sums, the bias/ReLU/pool
 epilogue in fp32 and one cast): the model's 64 -> 64 ReLU calls with the
 input tile and all nine taps' weights resident in shared memory, every other
 shape and option with K streamed in 16-channel chunks over a tile that
-``conv_plan`` sizes. The fp32-operand calls run on the FMA units: the fixed
-64 -> 64 instantiation for the model's calls, the generic one for the rest.
-On a CPU tensor it runs ``conv3x3_plain``.
+``conv_plan`` sizes. The model's fp32 64 -> 64 ReLU calls (the MIXED and
+FP32 rungs) run the same implicit GEMM in 3xTF32 (each operand split into
+two TF32 values, three ``mma.sync`` products per step, about fp32's
+precision); every other fp32-operand call runs on the FMA units. On a CPU
+tensor it runs ``conv3x3_plain``.
 """
 
 from __future__ import annotations

@@ -33,7 +33,9 @@ loop over the layers launches, per layer and image, the kernels of
   every chunk under keep masks, keep and liveness operands stay.
 - ``ln_gelu`` (``csrc/ln_gelu.cu``): the FFN's LayerNorm + GELU;
 - ``adaptive_decide`` (``csrc/adaptive.cu``, adaptive stack only): after
-  each layer, the early-exit and pruning decision of every live pair.
+  each layer, the early-exit and pruning decision of every live pair, one
+  launch whose blocks each take a slice of one pair's rows
+  (``decide_plan``) and meet in a per-device scratch.
 
 fp32 operands (the FP32 rung) run FMA kernels in ``linear.cu`` and
 ``attention.cu``: one TF32 ``mma`` would miss the rung's 1e-4 gate.
@@ -668,6 +670,56 @@ def adaptive_decide_plain(x0, x1, w_tok, b_tok, exit, *, layer: int, n_layers: i
 # (rows, heads) types -> csrc/adaptive.cu:lg_adaptive_decide's mode; MIXED
 # rounds fp32 rows to the bf16 heads' type
 _DECIDE_MODES = {(_F32, _F32): 0, (_BF16, _BF16): 1, (_F32, _BF16): 2}
+# csrc/adaptive.cu: threads of a block, the blocks a launch aims for, a
+# block's row copies at most (bytes)
+_DECIDE_THREADS, _DECIDE_FILL, _DECIDE_MAX_SMEM = 256, 256, 48 * 1024
+
+
+class DecidePlan(NamedTuple):
+    """Launch of ``csrc/adaptive.cu`` for one shape."""
+
+    rows: int     # rows of one pair a block takes (a row per warp at least)
+    threads: int
+    blocks: int   # blocks of the launch: blocks per pair x B
+    smem: int     # dynamic shared memory per block: its rows, bytes
+
+
+def decide_plan(bsz: int, n0: int, n1: int, e: int, itemsize: int) -> DecidePlan:
+    """The decision's launch (csrc/adaptive.cu:decide_rows, which
+    ``lg_decide_plan`` reports): rows per block the largest of 32, 16 and 8
+    whose grid has ``_DECIDE_FILL`` blocks, else 8. Raises where a block's
+    rows of ``itemsize``-byte values exceed its shared memory."""
+    rows = n0 + n1
+    r = next((r for r in (32, 16) if bsz * -(-rows // r) >= _DECIDE_FILL), 8)
+    plan = DecidePlan(r, _DECIDE_THREADS, bsz * -(-rows // r), r * e * itemsize)
+    if plan.smem > _DECIDE_MAX_SMEM:
+        raise ValueError(f"adaptive_decide: {plan.smem} B of rows a block, E={e}")
+    return plan
+
+
+# device -> (counters (pairs, 4) int32, flags (pairs * 2 * MAX_SEQ,) uint8):
+# the blocks of a pair meet there; zeroed once, and the kernel leaves the
+# counters zeroed, so a replayed CUDA graph starts clean. The launches of a
+# device share it, so they run one after another (one stream). A grown
+# scratch keeps the old one alive: a captured graph may still use it.
+_DECIDE_SCRATCH: dict = {}
+_RETIRED_SCRATCH: list = []
+
+
+def _decide_scratch(device: torch.device, pairs: int):
+    have = _DECIDE_SCRATCH.get(device)
+    if have is not None and have[0].shape[0] >= pairs:
+        return have
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("adaptive_decide: run one call at this batch size outside CUDA "
+                           "graph capture first (it allocates the decision's scratch)")
+    if have is not None:
+        _RETIRED_SCRATCH.append(have)
+    pairs = max(pairs, 8, 2 * (have[0].shape[0] if have is not None else 0))
+    scratch = (torch.zeros((pairs, 4), dtype=torch.int32, device=device),
+               torch.zeros(pairs * 2 * MAX_SEQ, dtype=torch.uint8, device=device))
+    _DECIDE_SCRATCH[device] = scratch
+    return scratch
 
 
 def adaptive_decide(x0, x1, w_tok, b_tok, exit, *, layer: int, n_layers: int,
@@ -711,10 +763,14 @@ def adaptive_decide(x0, x1, w_tok, b_tok, exit, *, layer: int, n_layers: int,
     n1 = x1.shape[1]
     if n0 > MAX_SEQ or n1 > MAX_SEQ or not (x0.is_contiguous() and x1.is_contiguous()):
         raise ValueError(f"adaptive_decide: contiguous rows, N <= {MAX_SEQ}: {n0} {n1}")
+    if (e * x0.element_size()) % 16 or x0.data_ptr() % 16 or x1.data_ptr() % 16:
+        raise ValueError(f"adaptive_decide: rows are copied 16 B at a time: E={e} {x0.dtype}")
+    decide_plan(bsz, n0, n1, e, x0.element_size())  # raises where the launch cannot run
     if lengths0 is not None:
         lengths0 = lengths0.to(torch.int32).contiguous()
         lengths1 = lengths1.to(torch.int32).contiguous()
     width = keep0 is not None
+    counters, flags = _decide_scratch(x0.device, bsz)
     err = _build.lib().lg_adaptive_decide(
         x0.data_ptr(), x1.data_ptr(), bsz, n0, n1, e,
         w_tok.data_ptr(), b_tok.data_ptr(), token_logit_threshold(layer, n_layers),
@@ -723,7 +779,8 @@ def adaptive_decide(x0, x1, w_tok, b_tok, exit, *, layer: int, n_layers: int,
         None if lengths0 is None else lengths0.data_ptr(),
         None if lengths1 is None else lengths1.data_ptr(),
         keep0.data_ptr() if width else None, keep1.data_ptr() if width else None,
-        exit.data_ptr(), layer, n_layers, depth_confidence, mode, _stream(x0),
+        exit.data_ptr(), layer, n_layers, depth_confidence, mode, counters.data_ptr(),
+        flags.data_ptr(), _stream(x0),
     )
     _build.check(err, "adaptive_decide")
     adaptive_decide.launches += 1

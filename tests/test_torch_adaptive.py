@@ -1,8 +1,10 @@
 """Port adaptive depth and width (plain versions on the CPU) against the JAX
 package: ``forward_adaptive`` on the Pallas ``transformer_stack_adaptive``
-in interpret mode, its ``force_loop`` oracle, the stack itself, and the
-adaptive session. The cases mirror tests/test_adaptive.py, on the same numpy
-weights from ``weights.init_lightglue`` with the same overrides."""
+in interpret mode, its ``force_loop`` oracle, the stack itself (and its
+decision on a batch with a retired pair), and the adaptive session; and
+``decide_plan``, the decision kernel's launch. The cases mirror
+tests/test_adaptive.py, on the same numpy weights from
+``weights.init_lightglue`` with the same overrides."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -418,3 +420,104 @@ def test_adaptive_decide_rejects_malformed_operands(kwargs):
     args.update(kwargs)
     with pytest.raises(ValueError):
         layer_stack.adaptive_decide(**args, layer=0, n_layers=3, depth_confidence=0.95)
+
+
+# (B, N0, N1, E, itemsize) -> (rows a block, blocks): csrc/adaptive.cu's
+# launch at the adaptive path's buckets, batches of 1, 2 and 4, N0 != N1 and
+# pairs whose rows are no multiple of a block's slice
+DECIDE_PLANS = {
+    "B=1 1024x1024 bf16": ((1, 1024, 1024, 256, 2), (8, 256)),
+    "B=1 1024x1024 fp32 (MIXED rows)": ((1, 1024, 1024, 256, 4), (8, 256)),
+    "B=2 1024x772": ((2, 1024, 772, 256, 2), (8, 450)),
+    "B=4 1024x772": ((4, 1024, 772, 256, 4), (16, 452)),
+    "B=4 512x512": ((4, 512, 512, 256, 2), (16, 256)),
+    "B=8 1024x1024": ((8, 1024, 1024, 256, 4), (32, 512)),
+    "B=3 128x256": ((3, 128, 256, 256, 2), (8, 144)),
+}
+
+
+@pytest.mark.parametrize("case", list(DECIDE_PLANS))
+def test_decide_plan_covers_every_row_once(case):
+    """decide_plan (csrc/adaptive.cu:decide_rows): block (x, b) takes rows
+    [x R, min((x + 1) R, N0 + N1)) of pair b, one warp a row in turn, so
+    every row of every pair is read by exactly one block and one warp; the
+    largest slice that still gives 256 blocks, a row per warp at least; a
+    block's rows fit its shared memory; one pair of 1024 x 1024 rows fills
+    the card (an H100 has 132 SMs)."""
+    (bsz, n0, n1, e, size), (rows, blocks) = DECIDE_PLANS[case]
+    plan = layer_stack.decide_plan(bsz, n0, n1, e, size)
+    assert (plan.rows, plan.blocks) == (rows, blocks)
+    assert plan.threads == 256 and plan.smem == rows * e * size <= 48 * 1024
+    n, warps = n0 + n1, plan.threads // 32
+    per_pair = plan.blocks // bsz
+    assert per_pair * bsz == plan.blocks and per_pair == -(-n // rows)
+    for b in range(bsz):
+        seen = np.zeros(n, np.int32)
+        for x in range(per_pair):
+            lo, hi = x * rows, min((x + 1) * rows, n)
+            assert hi > lo
+            for w in range(warps):  # the kernel's warp loop over its slice
+                for i in range(w, hi - lo, warps):
+                    seen[lo + i] += 1
+        assert (seen == 1).all()
+    if n % rows:
+        assert n - (per_pair - 1) * rows < rows  # the last slice is partial
+    if rows > warps:  # the next smaller slice would have been taken
+        assert bsz * -(-n // rows) >= 256
+    if rows < 32:  # the next larger slice would not give 256 blocks
+        assert bsz * -(-n // (2 * rows)) < 256
+    if (bsz, n0, n1) == (1, 1024, 1024):
+        assert plan.blocks >= 132
+
+
+def test_decide_plan_rejects_rows_past_shared_memory():
+    with pytest.raises(ValueError):
+        layer_stack.decide_plan(1, 1024, 1024, 2048, 4)  # 8 rows of 8 KB
+
+
+@pytest.mark.parametrize("width", [False, True], ids=["depth, masked", "depth and width, masked"])
+def test_decision_batch_matches_jax(width):
+    """The plain decision (adaptive_decide_plain, which chip_smoke.py holds
+    the kernel to exactly) against the JAX kernel's in-kernel decision on a
+    B = 3 batch, masked, N0 != N1, over L = 2 layers: pair 0 retired before
+    the stack (JAX's ``exited``, the port's exit register 0), pair 1
+    confident (it stops at layer 0), pair 2 live to g = L - 1, whose forced
+    exit it takes; under width, pair 2's confident tokens are pruned at
+    layer 0 and pair 1 prunes nothing (it stopped). Token head on feature
+    0; FP32."""
+    n_layers, n0, n1 = 2, N, 2 * N
+    tree = _tree(n_layers, token={
+        "w": np.tile(np.eye(256, 1, dtype=np.float32)[None], (n_layers - 1, 1, 1)),
+        "b": np.zeros((n_layers - 1, 1), np.float32)})
+    if width:
+        tree = _with_match_bias(tree, -50.0)  # confident tokens are not matchable
+    (d0, f0), (d1, f1) = make_inputs(9, 3, n0, n1, tree["posenc"]["wr"])
+    rng = np.random.default_rng(10)
+    for d in (d0, d1):
+        d[1, :, 0] = 100.0  # along the token head: every token confident
+        d[2, :, 0] = rng.normal(0.0, 3.0, d.shape[1])  # a share of them
+    l0, l1 = np.asarray([120, 100, 128], np.int32), np.asarray([250, 256, 200], np.int32)
+    wc = 0.99 if width else -1.0
+    jt = jax_weights.to_jax(tree, jnp.float32)
+    want = jax_stack.transformer_stack_adaptive(
+        jt["layers"], jt["token"], jnp.asarray(d0), jnp.asarray(d1), jnp.asarray(f0),
+        jnp.asarray(f1), jnp.asarray(l0), jnp.asarray(l1),
+        jt["assign"]["match"] if width else None, jnp.asarray([True, False, False]),
+        num_heads=4, head_dim=64, depth_confidence=0.95, width_confidence=wc)
+    pt = weights.params_from_numpy(tree, "cpu", torch.float32)
+    got = layer_stack.transformer_stack_adaptive_plain(
+        pt["layers"], pt["token"], torch.from_numpy(d0), torch.from_numpy(d1),
+        torch.from_numpy(f0), torch.from_numpy(f1), torch.from_numpy(l0), torch.from_numpy(l1),
+        pt["assign"]["match"] if width else None,
+        torch.tensor([0.0, n_layers + 1.0, n_layers + 1.0]),
+        num_heads=4, head_dim=64, depth_confidence=0.95, width_confidence=wc)
+    assert got[2].tolist() == np.asarray(want[2]).reshape(-1).tolist() == [0, 1, 2]
+    if width:
+        for i, lens in ((0, l0), (1, l1)):
+            keep_j = np.asarray(want[3 + i])[..., 0]
+            np.testing.assert_array_equal(got[3 + i].numpy(), keep_j)
+            prefix = np.arange(keep_j.shape[1])[None] < lens[:, None]
+            assert (keep_j[:2] == prefix[:2]).all()  # dead and stopped pairs prune nothing
+            assert keep_j[2].sum() < lens[2]  # pair 2 prunes at layer 0
+    for i in (0, 1):
+        np.testing.assert_allclose(got[i][1:].numpy(), np.asarray(want[i])[1:], atol=ATOL, rtol=0)

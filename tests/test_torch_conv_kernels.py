@@ -2,7 +2,10 @@
 csrc/conv_chain.cu on the CPU: the generic conv's launch plan at the shapes
 chip_smoke.py gives it, the premises of chip_smoke.py's rounding witnesses
 for both kernels, and the plain versions against JAX at the edge shapes
-(tests/test_torch_conv.py covers the others)."""
+(tests/test_torch_conv.py covers the others); and the fp32 model conv's
+3xTF32 design: the premise against JAX with the one-TF32 wrong design, the
+mma.sync m16n8k8 tf32 fragment maps as the kernel addresses them, and one
+tile computed through them."""
 
 import importlib.util
 from pathlib import Path
@@ -207,3 +210,182 @@ def test_conv2_chain_edge_matches_jax(dtype, relu):
     # rounding of the bf16 intermediate moves an output by a few hundredths
     tol = dict(atol=1e-5, rtol=1e-5) if dtype == "fp32" else dict(atol=5e-2, rtol=2e-2)
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), **tol)
+
+
+def _tf32(t):
+    """fp32 values rounded to TF32 as cvt.rna.tf32.f32 does on finite values:
+    to nearest on the 10-bit mantissa, ties away from zero (the rounding of
+    the magnitude's bits: add half of the 13 dropped bits' unit, cut them)."""
+    return ((t.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _conv_sum(x, w):
+    """The fp32 sum of a SAME 3x3 conv, NHWC x HWIO, no bias."""
+    return torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+                                      padding=1).permute(0, 2, 3, 1)
+
+
+def test_tf32_rounding_emulation():
+    """The emulated cvt.rna: ties away from zero, a carry into the exponent,
+    10 mantissa bits kept, signs kept."""
+    one = 1.0 + 2.0 ** -10
+    cases = {1.0 + 2.0 ** -11: one, -(1.0 + 2.0 ** -11): -one,  # a tie, away from zero
+             1.0 + 2.0 ** -11 - 2.0 ** -23: 1.0,  # below the tie
+             2.0 - 2.0 ** -23: 2.0, one: one, 0.0: 0.0}  # a carry; exact values stay
+    x = torch.tensor(list(cases), dtype=torch.float32)
+    assert _tf32(x).tolist() == list(cases.values())
+    r = _tf32(torch.randn(1000, generator=torch.Generator().manual_seed(0)))
+    assert ((r.view(torch.int32) & 0x1FFF) == 0).all()
+
+
+# conv2a (64 -> 64) and conv1b+pool at 16x32, SuperPoint-scale values:
+# inputs in [0, 1), weights and bias in +-1/24 (chip_smoke.py's)
+TF32_CASES = {"conv2a": False, "conv1b+pool": True}
+
+
+@pytest.mark.parametrize("case", list(TF32_CASES))
+def test_3xtf32_conv_premise(case):
+    """The premise of csrc/conv3x3.cu's fp32 model conv: each operand split
+    into hi = tf32(x) and lo = tf32(x - hi), hi*lo + lo*hi + hi*hi summed in
+    fp32 (lo*lo dropped) agrees with JAX's fp32 conv3x3_paired within 1e-5,
+    while one TF32 product (hi*hi alone) misses the port's fp32 gate of 1e-4
+    (its max error here is 2.4-4.0e-4, mean ~5e-5): the wrong design of
+    chip_smoke.py's tf32_witness, which holds the kernel's mean error
+    against a float64 conv to under a quarter of that one's."""
+    pool = TF32_CASES[case]
+    rng = np.random.default_rng(31)
+    x = rng.uniform(0, 1, (1, 16, 32, 64)).astype(np.float32)
+    w = rng.uniform(-1 / 24, 1 / 24, (3, 3, 64, 64)).astype(np.float32)
+    b = rng.uniform(-1 / 24, 1 / 24, 64).astype(np.float32)
+    if pool:
+        want = jax_conv.conv3x3_paired(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), pool=True,
+                                       offset=True)
+    else:
+        want = jax_conv.conv3x3_paired(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
+                                       offset=True, out_paired=True).reshape(1, 16, 32, 64)
+    want = np.asarray(want, np.float32)
+    xt, wt, bt = (torch.from_numpy(a) for a in (x, w, b))
+    xh, wh = _tf32(xt), _tf32(wt)
+    xl, wl = _tf32(xt - xh), _tf32(wt - wh)
+
+    def epilogue(acc):
+        out = torch.relu(acc + bt)
+        if pool:
+            out = torch.nn.functional.max_pool2d(out.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
+        return out.numpy()
+
+    three = epilogue(_conv_sum(xh, wl) + _conv_sum(xl, wh) + _conv_sum(xh, wh))
+    one = epilogue(_conv_sum(xh, wh))
+    err3, err1 = np.abs(three - want).max(), np.abs(one - want).max()
+    assert err3 < 1e-5
+    assert 2e-4 < err1 < 1e-3 and err3 < err1 / 50
+
+
+# csrc/conv3x3.cu's 3xTF32 kernel: a chunk's input tile pitch (floats a
+# pixel), the split weights' pitch ((hi, lo) pairs a row), the haloed side
+XPA, XPN, XH = 12, 68, 18
+
+
+def _mma_tf32_maps():
+    """(row, col) of each (lane, register) of mma.sync m16n8k8's tf32 A (16 x
+    8, row-major), B (8 x 8, k x n) and C (16 x 8) fragments, from the PTX
+    ISA's tables, with g = lane / 4 and t4 = lane % 4."""
+    a, b, c = {}, {}, {}
+    for lane in range(32):
+        g, t4 = divmod(lane, 4)
+        for i in range(4):
+            a[lane, i] = (g + 8 * (i % 2), t4 + 4 * (i // 2))
+            c[lane, i] = (g + 8 * (i // 2), 2 * t4 + i % 2)
+        for i in range(2):
+            b[lane, i] = (t4 + 4 * i, g)
+    return a, b, c
+
+
+def _kernel_maps():
+    """The same fragments as the kernel addresses them: A register i at
+    px[{0, 8 XPA, 4, 8 XPA + 4}[i]] past px = tile + (pixel g) XPA + t4, so
+    (pixel, channel) = (g + off // XPA, t4 + off % XPA); B register i at
+    wk[{0, 4 XPN}[i]] past wk = split + (k t4) XPN + column g; acc[.][n][2 i
+    + j] stored at pixel g + 8 i, channel n 8 + 2 t4 + j."""
+    a, b, c = {}, {}, {}
+    for lane in range(32):
+        g, t4 = divmod(lane, 4)
+        for i, off in enumerate((0, 8 * XPA, 4, 8 * XPA + 4)):
+            a[lane, i] = (g + off // XPA, t4 + off % XPA)
+        for i, off in enumerate((0, 4 * XPN)):
+            b[lane, i] = (t4 + off // XPN, g + off % XPN)
+        for i in range(2):
+            for j in range(2):
+                c[lane, 2 * i + j] = (g + 8 * i, 2 * t4 + j)
+    return a, b, c
+
+
+def test_tf32_fragment_maps_cover_each_element_once():
+    """The kernel's A, B and C fragment addressing is the PTX layout, and
+    each covers its 16 x 8, 8 x 8 and 16 x 8 matrix exactly once; the A
+    loads of a warp fall in 32 different banks (pitch 12 floats) and the B
+    loads of each half-warp in 16 different bank pairs (pitch 68 pairs)."""
+    ptx, kernel = _mma_tf32_maps(), _kernel_maps()
+    assert ptx == kernel
+    for frag, (rows, cols) in zip(ptx, ((16, 8), (8, 8), (16, 8))):
+        seen = np.zeros((rows, cols), np.int32)
+        for r, col in frag.values():
+            seen[r, col] += 1
+        assert (seen == 1).all()
+    a_words = [g * XPA + t4 for g in range(8) for t4 in range(4)]  # register 0, one warp
+    assert len({w % 32 for w in a_words}) == 32
+    for half in (range(16), range(16, 32)):
+        pairs = [(lane % 4) * XPN + lane // 4 for lane in half]  # B register 0
+        assert len({p % 16 for p in pairs}) == 16
+
+
+def test_tf32_kernel_tile_by_fragments_matches_conv():
+    """One 16 x 16 output tile computed as the kernel's warps do, each
+    register read at the kernel's shared-memory address and placed where
+    the PTX layout puts it, each result stored where the kernel's epilogue
+    stores it: K in chunks of 8 input
+    channels, each tap's A fragments read from the haloed tile at the tap's
+    offset, the B fragments from the chunk's split weights, the three TF32
+    products per step accumulated in float64. It agrees with the conv of
+    that tile (no bias, before the epilogue) within 1e-5."""
+    rng = np.random.default_rng(37)
+    x = rng.uniform(0, 1, (1, 16, 16, 64)).astype(np.float32)
+    w = rng.uniform(-1 / 24, 1 / 24, (3, 3, 64, 64)).astype(np.float32)
+    xp = np.pad(x[0], ((1, 1), (1, 1), (0, 0)))  # the haloed tile, zeros outside
+    amap, bmap, cmap = _mma_tf32_maps()  # where mma.sync takes each register
+    tf = lambda v: _tf32(torch.tensor(v, dtype=torch.float32)).numpy().astype(np.float64)  # noqa: E731
+    acc = np.zeros((16, 16, 64))
+    for c0 in range(0, 64, 8):
+        xs = np.zeros(XH * XH * XPA, np.float32)  # the chunk's raw input tile
+        for p in range(XH * XH):
+            xs[p * XPA:p * XPA + 8] = xp[p // XH, p % XH, c0:c0 + 8]
+        ws = np.zeros((9 * 8 * XPN, 2))  # (hi, lo) of the chunk's weights
+        for tap in range(9):
+            for k in range(8):
+                v = w[tap // 3, tap % 3, c0 + k]
+                hi = tf(v)
+                ws[(tap * 8 + k) * XPN:(tap * 8 + k) * XPN + 64] = np.stack(
+                    [hi, tf(v - hi.astype(np.float32))], -1)
+        for warp in range(8):
+            for tap in range(9):
+                dy, dx = divmod(tap, 3)
+                for m in range(2):
+                    a = np.zeros((16, 8, 2))
+                    for (lane, i), (row, col) in amap.items():
+                        g, t4 = divmod(lane, 4)
+                        px = ((2 * warp + m + dy) * XH + dx + g) * XPA + t4
+                        off = (0, 8 * XPA, 4, 8 * XPA + 4)[i]
+                        v = xs[px + off]
+                        a[row, col] = (tf(v), tf(v - tf(v).astype(np.float32)))
+                    for n in range(8):
+                        bm = np.zeros((8, 8, 2))
+                        for (lane, i), (k, col) in bmap.items():
+                            g, t4 = divmod(lane, 4)
+                            bm[k, col] = ws[(tap * 8 + t4) * XPN + g + n * 8 + (0, 4 * XPN)[i]]
+                        d = (a[..., 0] @ bm[..., 1] + a[..., 1] @ bm[..., 0]
+                             + a[..., 0] @ bm[..., 0])
+                        for (lane, r), (row, col) in cmap.items():
+                            g, t4 = divmod(lane, 4)  # the kernel's store of acc[m][n][r]
+                            acc[2 * warp + m, g + 8 * (r // 2), n * 8 + 2 * t4 + r % 2] += d[row, col]
+    want = _conv_sum(torch.from_numpy(x), torch.from_numpy(w))[0].double().numpy()
+    assert np.abs(acc - want).max() < 1e-5
