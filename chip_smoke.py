@@ -9,9 +9,10 @@ It prints the card's name and power limit, builds the CUDA kernels of
 ``src/lightglue_tpu_torch/csrc`` (one nvcc per source, sm_90a, in
 parallel) and checks in their SASS that the bf16 kernels of flash_attn.cu,
 attention.cu, linear.cu, bidir_cross.cu, conv3x3.cu (the model conv and the
-generic one) and conv_chain.cu run on the tensor cores and their fp32 ones
-do not, apart from the fp32 model conv, which runs in 3xTF32 on the tensor
-cores (TF32 HMMA only), and that
+generic one) and conv_chain.cu run on the tensor cores and the FMA kernels
+of attention.cu, bidir_cross.cu, conv3x3.cu and conv_chain.cu do not, that
+the fp32 model conv and the fp32 kernels of flash_attn.cu and linear.cu run
+in 3xTF32 on the tensor cores (TF32 HMMA only), and that
 stem.cu's kernel has no contracted multiply-add. Then, in
 order; every kernel check is in bf16 and fp32 against
 the kernel's plain PyTorch version at the shapes its path gives it, every
@@ -30,7 +31,9 @@ plain version and, where one exists, a PyTorch call for the same function:
    1 and 8, below the border value, ties across band edges: ``nms_checks``),
    ``relu_conv1a_shift`` (conv1a's stem, bit for bit in bf16 and fp32, also
    at 360x488 and 480x600: ``stem_checks``), ``linear``, ``attention`` and
-   ``ln_gelu`` (each timed in bf16 and, for the FP32 rung, in fp32) against
+   ``ln_gelu`` (each timed in bf16 and, for the FP32 rung, in fp32; the
+   fp32 ffn2 ``linear``, 3xTF32, also against a float64 product beside an
+   emulated one-TF32 one, ``tf32_witness``) against
    their plain versions (``linear_plan`` / ``attention_plan`` /
    ``bidir_plan`` / ``decide_plan`` against the card's launch rules; each bf16 ``attention``
    case also against the rounding witness and its two wrong designs,
@@ -55,7 +58,9 @@ plain version and, where one exists, a PyTorch call for the same function:
 3. The per-block path: ``fused_mha``, ``bidirectional_cross_attention`` and
    ``flash_attention`` (masked, ragged, zero lengths, several KV tiles,
    block_k 1000; each bf16-operand flash case also against the rounding
-   witness, ``rounding_witness``; each bf16 bidirectional case with both
+   witness, ``rounding_witness``, and the timed fp32 ``flash_attention``
+   case, 3xTF32, against float64 (``tf32_witness``); each bf16
+   bidirectional case with both
    sides non-empty per direction against ``stack_wrong_designs``), the
    per-block ``transformer_layers`` at 9 layers, and ``match_pair`` in the
    2048-keypoint config (``SuperPointConfig(max_num_keypoints=2048)``, a
@@ -65,8 +70,11 @@ plain version and, where one exists, a PyTorch call for the same function:
 4. The sequence split: ``flash_attention_step`` (kv boundary inside the
    block, a block past kv_len and a stripe past q_len passing through
    exactly, 128-row and 120-row stripes, kv_len 0, blocks fitted to
-   384-row stripes, unmasked; fp32 and bf16 stats; the witness on the
-   finalised rows), ``ring_attention`` on ``[cuda:0] * P``
+   384-row stripes, unmasked; fp32 and bf16 stats, each case at three
+   seeds of the phase's own generator, bf16-stats carries held per element
+   to the ulps of the plain step's rounded intermediates,
+   ``step_ulp_units``; the witness on the finalised rows; the bf16 and fp32
+   steps timed), ``ring_attention`` on ``[cuda:0] * P``
    for P = 2, 4, 8 against ``reference_attention`` and the plain step, and
    ``forward_ring`` on ``[cuda:0] * 4`` at full width (9 layers, E=256,
    H=4, stripes of 512) on the 2048-keypoint extractions of the pair, then
@@ -102,7 +110,8 @@ plain version and, where one exists, a PyTorch call for the same function:
    The SASS check above also requires IMMA in every W8A8 GEMM.
 
 It ends with a ``{"kernels": [...]}`` line (all ten Pallas functions, a
-row per FP32 / MIXED / INT8 / W8A8 instantiation and per fp32-operand conv, and
+row per FP32 / MIXED / INT8 / W8A8 instantiation (the fp32 step's launches
+from the FP32 ``forward_ring``) and per fp32-operand conv, and
 conv1a's stem in bf16 and fp32; the chain's rows also carry the two-launch
 chain's ``two_launch_ms``) and the ``{"ok": true, ...}``
 line. Any failure raises and exits non-zero; so does a missing card or a
@@ -234,11 +243,12 @@ def compare(label, got, want, atol, rtol, exact=False):
 
 
 # source: (its bf16-operand kernels, each on the tensor cores in every
-# instantiation, the fp32-output ones included; its fp32 kernel, on the FMA units)
+# instantiation, the fp32-output ones included; its fp32 kernel on the FMA
+# units, or None where the fp32 kernel is a TF32_TENSOR_CORE_KERNELS one)
 TENSOR_CORE_KERNELS = {
-    "flash_attn.cu": (("flash_mma_kernel",), "flash_kernel"),
+    "flash_attn.cu": (("flash_mma_kernel",), None),
     "attention.cu": (("attention_mma_kernel",), "attention_kernel"),
-    "linear.cu": (("linear_mma_kernel",), "linear_kernel"),
+    "linear.cu": (("linear_mma_kernel",), None),
     "bidir_cross.cu": (("bidir_mma_kernel",), "bidir_kernel"),
     # the model's 64 -> 64 convs, and every other bf16-operand conv
     "conv3x3.cu": (("conv3x3_mma_kernel", "conv3x3_igemm_kernel"), "conv3x3_kernel"),
@@ -247,7 +257,9 @@ TENSOR_CORE_KERNELS = {
 # source: its int8 x int8 kernel (W8A8), on the integer tensor cores (IMMA)
 INT8_TENSOR_CORE_KERNELS = {"linear.cu": "linear_s8_kernel"}
 # source: its fp32 kernel on the tensor cores in 3xTF32 (TF32 HMMA only)
-TF32_TENSOR_CORE_KERNELS = {"conv3x3.cu": "conv3x3_tf32x3_kernel"}
+TF32_TENSOR_CORE_KERNELS = {"conv3x3.cu": "conv3x3_tf32x3_kernel",
+                            "flash_attn.cu": "flash_tf32_kernel",
+                            "linear.cu": "linear_tf32_kernel"}
 # source: a kernel whose rounding contract rounds every product and every add
 NO_FMA_KERNELS = {"stem.cu": "stem_kernel"}
 
@@ -257,11 +269,14 @@ def tensor_core_check(build):
     linear.cu (MIXED's fp32 activations and INT8's int8 weights are staged
     as bf16), bidir_cross.cu, conv3x3.cu (the model conv and the generic
     one) and conv_chain.cu compute their products on the tensor cores
-    (HMMA in the SASS of every one), the fp32 kernels on the FMA units (no
+    (HMMA in the SASS of every one), the FMA kernels of attention.cu,
+    bidir_cross.cu, conv3x3.cu and conv_chain.cu on the FMA units (no
     HMMA), and linear.cu's W8A8 GEMM on the
     integer tensor cores (IMMA in every instantiation, no HMMA), the fp32
-    model conv on the tensor cores in TF32 (every HMMA of
-    ``conv3x3_tf32x3_kernel`` takes TF32 operands), and the
+    model conv and the fp32 kernels of flash_attn.cu and linear.cu on the
+    tensor cores in 3xTF32 (every HMMA of ``conv3x3_tf32x3_kernel``,
+    ``flash_tf32_kernel`` and ``linear_tf32_kernel`` takes TF32 operands,
+    in every instantiation), and the
     stem rounds each product and each add (no FFMA in stem.cu's kernel):
     ``cuobjdump -sass`` of the built library."""
     from lightglue_tpu_torch.kernels import _build
@@ -286,6 +301,8 @@ def tensor_core_check(build):
             log(f"  {src} SASS: HMMA per {bf16_kernel} instantiation ({len(mma)}) {sorted(mma)}")
             if not mma or min(mma) == 0:
                 raise AssertionError(f"{src}: a {bf16_kernel} instantiation without HMMA")
+        if fp32_kernel is None:
+            continue
         fma = [c["HMMA"] for k, c in counts.items() if fp32_kernel in k]
         log(f"  {src} SASS: HMMA per {fp32_kernel} instantiation ({len(fma)}) {sorted(fma)}")
         if not fma or max(fma) != 0:
@@ -471,35 +488,62 @@ def conv_f64(x, w, b, pool):
     return out.permute(0, 2, 3, 1)
 
 
-def tf32_witness(conv_k, label, got, x, w, b, pool):
-    """The fp32 model conv (3xTF32) against a float64 conv, beside the FMA
-    kernel's error on the same inputs (the generic fp32 conv, which runs on
-    the FMA units, without the ReLU and pool that the epilogue then adds in
-    fp32) and an emulated one-TF32 conv (operands rounded to TF32, the
-    product in fp32 with TF32 off) as the wrong design: the kernel's mean
-    |kernel - f64| is at most a quarter of the one-TF32 conv's
-    (``magnitude_witness``). Returns the kernel's max |kernel - f64|."""
-    import torch
+def tf32_witness(label, got, f64, one, others=()):
+    """A 3xTF32 kernel (the fp32 model conv, ``flash_tf32_kernel``,
+    ``linear_tf32_kernel``) against a float64 computation of its function,
+    beside an emulated one-TF32 version (operands rounded to TF32, products
+    in fp32 with TF32 off) as the wrong design: the kernel's mean |kernel -
+    f64| is at most a quarter of the one-TF32 version's
+    (``magnitude_witness``). ``others``: (name, output) pairs whose error is
+    logged beside. Returns the kernel's max |kernel - f64|."""
+    errs = {name: (t.double() - f64).abs() for name, t in
+            (("3xTF32 kernel", got), *others, ("one TF32", one))}
+    log(f"  {label}: vs float64: " + "; ".join(
+        f"{name} max {float(e.max()):.3e} mean {float(e.mean()):.3e}" for name, e in errs.items()))
+    magnitude_witness(label, got.double(), f64, {"one TF32 product": one.double()})
+    return float(errs["3xTF32 kernel"].max())
+
+
+def conv_tf32_witness(conv_k, label, got, x, w, b, pool):
+    """``tf32_witness`` of the fp32 model conv against ``conv_f64``, beside
+    the FMA kernel's error on the same inputs (the generic fp32 conv, which
+    runs on the FMA units, without the ReLU and pool that the epilogue then
+    adds in fp32), the wrong design an emulated one-TF32 conv."""
     import torch.nn.functional as F
 
-    want = conv_f64(x, w, b, pool)
     fma = F.relu(conv_k.conv3x3(x, w, b, relu=False))
     if pool:
         fma = F.max_pool2d(fma.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
     one = conv_k.conv3x3_plain(tf32_round(x), tf32_round(w), b, pool)
-    errs = {name: (t.double() - want).abs() for name, t in
-            (("3xTF32 kernel", got), ("FMA kernel", fma), ("one TF32", one))}
-    log(f"  {label}: vs float64: " + "; ".join(
-        f"{name} max {float(e.max()):.3e} mean {float(e.mean()):.3e}" for name, e in errs.items()))
-    magnitude_witness(label, got.double(), want, {"one TF32 product": one.double()})
-    return float(errs["3xTF32 kernel"].max())
+    return tf32_witness(label, got, conv_f64(x, w, b, pool), one, (("FMA kernel", fma),))
+
+
+def attention_f64(q, k, v, lengths=None, scale=None):
+    """softmax(Q.K^T * scale) V in float64 on (B, H, N, D) heads, masked as
+    ``reference_attention`` (columns past kv_len at -1e30, rows past q_len
+    0): the function the fp32 flash kernel computes with fp32 stats."""
+    import torch
+
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+    s = (q.double() @ k.double().transpose(-1, -2)) * scale
+    if lengths is not None:
+        lens = lengths.to(q.device, torch.int64)
+        s = torch.where(torch.arange(k.shape[2], device=q.device) < lens[:, 1].view(-1, 1, 1, 1),
+                        s, -1e30)
+    out = torch.softmax(s, dim=-1) @ v.double()
+    if lengths is not None:
+        rows = torch.arange(q.shape[2], device=q.device).view(1, 1, -1, 1)
+        out = torch.where(rows < lens[:, 0].view(-1, 1, 1, 1), out, 0.0)
+    return out
 
 
 def plan_checks(ls, at, nms_k, conv_k, lib):
     """The launch plans the CPU tests hold (``layer_stack.linear_plan``,
-    ``attention_plan``, ``decide_plan``, ``attention.bidir_plan``,
-    ``nms.nms_smem_bytes``, ``conv.conv_plan``) are the ones the card runs
-    (csrc/linear.cu:linear_tile, csrc/mma.cuh:fill_row_groups,
+    ``attention_plan``, ``decide_plan``, ``attention.flash_plan``,
+    ``bidir_plan``, ``nms.nms_smem_bytes``, ``conv.conv_plan``) are the ones
+    the card runs (csrc/linear.cu:linear_tile and the shared memory of its
+    bf16 and fp32 rings, lg_linear_smem; csrc/flash_attn.cu:lg_flash_smem,
+    the bf16 and fp32 blocks' shared memory; csrc/mma.cuh:fill_row_groups,
     csrc/adaptive.cu:decide_rows, csrc/nms.cu:Band,
     csrc/conv3x3.cu:conv_rows), at every shape of the paths through the
     stack (128-1024 buckets) and through the bidirectional kernel (960x960,
@@ -511,6 +555,8 @@ def plan_checks(ls, at, nms_k, conv_k, lib):
 
     tile = (ctypes.c_int * 2)()
     out = (ctypes.c_int * 4)()
+    import torch
+
     for m in (128, 256, 512, 768, 1024, 2048):
         for n in (256, 512, 768):
             lib.lg_linear_tile(m, n, tile)
@@ -518,6 +564,24 @@ def plan_checks(ls, at, nms_k, conv_k, lib):
             if (tile[0], tile[1]) != (plan.bm, plan.bn):
                 raise AssertionError(f"linear {m}x{n}: the card's tile {tile[0]}x{tile[1]}, "
                                      f"linear_plan's {plan.bm}x{plan.bn}")
+            for mode, dt in ((0, torch.float32), (1, torch.bfloat16)):
+                smem = ls.linear_plan(m, n, 256, dt).smem
+                if lib.lg_linear_smem(m, n, mode) != smem:
+                    raise AssertionError(f"linear {m}x{n} {dt}: the card's "
+                                         f"{lib.lg_linear_smem(m, n, mode)} B of shared memory, "
+                                         f"linear_plan's {smem}")
+    # flash_attn.cu at the per-block, generic and ring shapes (block_k 1024,
+    # 1000, 64, the ring's 512, 384 and 120-row stripes), both kernels
+    for b, nq, block_k in ((2, 2048, 1024), (1, 2048, 1024), (2, 960, 960), (1, 960, 960),
+                           (2, 1000, 1000), (1, 512, 512), (1, 384, 192), (1, 120, 120),
+                           (2, 256, 64)):
+        for mode, dt in ((0, torch.float32), (1, torch.bfloat16)):
+            plan = at.flash_plan(b, 4, nq, block_k, dt)
+            smem = lib.lg_flash_smem(plan.row_groups, plan.stages, mode)
+            if lib.lg_attention_row_groups(b, 4, nq) != plan.row_groups or smem != plan.smem:
+                raise AssertionError(f"flash B={b} Nq={nq} block_k {block_k} {dt}: the card's "
+                                     f"{lib.lg_attention_row_groups(b, 4, nq)} row groups and "
+                                     f"{smem} B, flash_plan's {plan.row_groups} and {plan.smem}")
     for b in (1, 2):
         for nq in (128, 256, 512, 768, 1024):
             groups = lib.lg_attention_row_groups(b, 4, nq)
@@ -551,8 +615,9 @@ def plan_checks(ls, at, nms_k, conv_k, lib):
         if tuple(out) != tuple(conv_k.conv_plan(*shape)):
             raise AssertionError(f"conv3x3 {shape}: the card's tile {tuple(out)}, conv_plan's "
                                  f"{tuple(conv_k.conv_plan(*shape))}")
-    log("  launch plans: linear_plan, attention_plan, decide_plan, bidir_plan, nms_smem_bytes "
-        "and conv_plan match the card's at every path shape")
+    log("  launch plans: linear_plan (tile and both rings), flash_plan (both kernels), "
+        "attention_plan, decide_plan, bidir_plan, nms_smem_bytes and conv_plan match the card's "
+        "at every path shape")
 
 
 def nms_map(gen, dev, b, h, w):
@@ -1364,7 +1429,7 @@ def attention_kernel_checks(at, rand, freqs_for, dev, dtypes, fp32_scope, fused_
             flops = 4 * b * heads * nq * nk * hd
             if weight:  # library: scaled_dot_product_attention, which does no RoPE
                 ent.add(f"{label} {tag}", weight, ms, plain, lib_ms, nbytes, flops,
-                        BF16_FLOP_PER_MS if tag == "bf16" else FP32_OP_PER_MS)
+                        BF16_FLOP_PER_MS if tag == "bf16" else TF32X3_OP_PER_MS)
             else:
                 log(f"  {label} bf16: kernel_ms {ms:.4f} plain_ms {plain:.4f} library_ms "
                     f"{lib_ms:.4f} bound_ms {max(nbytes / HBM_BYTES_PER_MS, flops / BF16_FLOP_PER_MS):.4f}"
@@ -1418,7 +1483,7 @@ def attention_kernel_checks(at, rand, freqs_for, dev, dtypes, fp32_scope, fused_
             flops = 6 * b * heads * n0 * n1 * hd  # one S and two P.V products
             # library: none, no single PyTorch call computes both directions
             ent.add(f"{label} {tag}", weight, ms, plain, None, nbytes, flops,
-                    BF16_FLOP_PER_MS if tag == "bf16" else FP32_OP_PER_MS)
+                    BF16_FLOP_PER_MS if tag == "bf16" else TF32X3_OP_PER_MS)
 
     log("flash_attention (the generic (B, H, N, D) entry point; not on the matching path)")
     flash_cases = [
@@ -1442,6 +1507,9 @@ def attention_kernel_checks(at, rand, freqs_for, dev, dtypes, fp32_scope, fused_
                     rounding_witness(f"{label} {tag}", got, want, fine_block(
                         lambda bk: at.flash_attention_plain(q, k, v, ln, **dict(kw, block_k=bk)),
                         block, nk))
+                elif timed:  # 3xTF32 against float64, one TF32 product the wrong design
+                    tf32_witness(f"{label} {tag}", got, attention_f64(q, k, v, ln),
+                                 at.flash_attention_plain(*map(tf32_round, (q, k, v)), ln, **kw))
             if lens is not None:
                 zero_rows(f"{label} {tag}", got.transpose(1, 2), lens, True)
             ent = flash_e if tag == "bf16" else fp32_ents["flash_attention"]
@@ -1462,7 +1530,7 @@ def attention_kernel_checks(at, rand, freqs_for, dev, dtypes, fp32_scope, fused_
             nbytes = q.element_size() * (2 * b * heads * nq * hd + 2 * b * heads * nk * hd)
             flops = 4 * b * heads * nq * nk * hd
             ent.add(f"{label} {tag}", 1, ms, plain, lib_ms, nbytes, flops,
-                    BF16_FLOP_PER_MS if tag == "bf16" else FP32_OP_PER_MS)
+                    BF16_FLOP_PER_MS if tag == "bf16" else TF32X3_OP_PER_MS)
 
 
 def per_block_stack_checks(at, weights, rand, freqs_for, dev, dtypes, fp32_scope):
@@ -1604,23 +1672,73 @@ RING_N = PB_BUCKET           # its bucket
 STEP_LAUNCHES = N_LAYERS * 4 * RING * RING  # 4 attentions per layer, ring^2 steps each
 
 
-def step_kernel_checks(at, rand, dev, fp32_scope, step_e):
+STEP_SEEDS = (0, 1, 2)  # the step phase's own generator: every case at each seed
+STEP_ULPS = 2  # bf16-stats carries: flips of the reference's roundings (step_ulp_units)
+
+
+def bf16_ulp(x):
+    """The bf16 ulp at |x| (2^-8 at 0): 2^(floor(log2 |x|) - 7)."""
+    import torch
+
+    _, e = torch.frexp(x.abs())
+    return torch.ldexp(torch.ones_like(x), e - 8)
+
+
+def step_ulp_units(at, q, k, v, m, l, acc, lengths, col0, stat_dtype, block_k):
+    """Per element of (m', l', acc'), the sum over the plain step's tiles of
+    one bf16 ulp of each rounding the reference makes on the way to it,
+    taken on the plain step's own intermediates (``_merge_tiles``' taps):
+    m' (a flip moves m' by its ulp); l' = quant(l c + sum p): c (which
+    moves l c by about its ulp), p (sum p), l' itself, and m' (which moves c
+    and every p by the factor e^ulp(m'), so l c + sum p by ulp(m') (l c +
+    sum p)); acc' = quant(acc c + P.V) the same with |acc| c and |P| . |V|
+    (a flip of p_j, or of s_j, moves P.V by a share of |p_j| |v_j|).
+    A kernel whose fp32 sums run in another order may flip any of these
+    roundings; an intermediate larger than the carry it feeds (acc c and
+    P.V cancelling) makes that flip larger than the carry's own ulps, which
+    a tolerance taken against the carry does not count."""
+    taps = []
+    q_len = kv_len = None
+    if lengths is not None:
+        q_len, kv_len = at._split_lengths(lengths, q.device)
+    at._merge_tiles(q, k, v, m.float(), l.float(), acc.float(), kv_len, col0,
+                    scale=1.0 / math.sqrt(q.shape[-1]), stat_dtype=stat_dtype, block_k=block_k,
+                    taps=taps)
+    um = sum(bf16_ulp(t["m"]) for t in taps)
+    ul = sum(bf16_ulp(t["lc"]) + bf16_ulp(t["ps"]) + bf16_ulp(t["l"])
+             + bf16_ulp(t["m"]) * (t["lc"] + t["ps"]) for t in taps)
+    ua = sum(bf16_ulp(t["ac"]) + bf16_ulp(t["pv"]) + bf16_ulp(t["acc"])
+             + bf16_ulp(t["m"]) * (t["ac"] + t["pv"]) for t in taps)
+    return um, ul, ua
+
+
+def step_kernel_checks(at, dev, fp32_scope, step_e, step_fp32_e):
     """flash_attention_step against its plain version at the ring path's
     shapes (B=1, H=4, 512-row stripes of a 2048 bucket): masked with the kv
     boundary inside the block, a block wholly past kv_len and a stripe past
     q_len (pass-through, exact), stripes of 128 rows of which some start
     past q_len, kv_len 0 from the first step's carries, 384-row blocks
     fitted to 192 (two tiles), 120-row stripes (a 960 bucket at ring 8, a
-    tile that is not a multiple of 16), and unmasked; all three carries, in bf16 and
-    fp32 operands with fp32 and bf16 stats. The main path's call (bf16
-    operands, fp32 stats, full lengths) is timed."""
+    tile that is not a multiple of 16), and unmasked; all three carries, in
+    bf16 and fp32 operands with fp32 and bf16 stats, each case at the
+    ``STEP_SEEDS`` of the phase's own generator. Carries with fp32 stats
+    are held to ``TOL``; with bf16 stats each element to ``STEP_ULPS``
+    units of ``step_ulp_units`` (the largest count seen is printed). The
+    main path's calls (fp32 stats, full lengths) are timed: bf16 operands
+    (the BF16 ring) and fp32 operands (the FP32 ring)."""
     import torch
     import torch.nn.functional as F
 
     heads, hd, n = 4, 64, RING_N // RING
     i32 = dict(dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev)
+
+    def rand(*shape, dtype=torch.float32, scale=1.0, uniform=False):
+        f = torch.rand if uniform else torch.randn
+        return (f(*shape, generator=gen, device=dev) * scale).to(dtype)
+
     log(f"flash_attention_step (per forward_ring: {STEP_LAUNCHES} launches = {N_LAYERS} layers x "
-        f"4 attentions x {RING}^2 ring steps, B=1 H=4 stripes of {n})")
+        f"4 attentions x {RING}^2 ring steps, B=1 H=4 stripes of {n}); seeds {STEP_SEEDS}")
     cases = [
         # label, n = nk, lengths, row0, col0, block cap, fresh carries, exact pass-through
         ("masked, kv boundary inside the block", n, [[RING_N, 1800]], n, 3 * n, 1024, False,
@@ -1640,54 +1758,88 @@ def step_kernel_checks(at, rand, dev, fp32_scope, step_e):
         return (acc / torch.where(l == 0.0, 1.0, l)).to(torch.bfloat16)
 
     operands = {"bf16": torch.bfloat16, "fp32": torch.float32}
-    for label, size, lens, row0, col0, block, fresh, exact in cases:
-        for otag, odt in operands.items():
-            for stag, sdt in operands.items():
-                q, k, v = (rand(1, heads, size, hd, dtype=odt) for _ in range(3))
-                if fresh:
-                    m = torch.full((1, heads, size, 1), -1e30, device=dev)
-                    l, acc = torch.zeros_like(m), torch.zeros(1, heads, size, hd, device=dev)
-                else:
-                    m = rand(1, heads, size, 1, scale=2.0)
-                    l = 1.0 + rand(1, heads, size, 1, uniform=True) * 2
-                    acc = rand(1, heads, size, hd)
-                ln = None if lens is None else torch.tensor(lens, **i32)
-                args = (q, k, v, m, l, acc, ln, row0, col0)
-                kw = dict(stat_dtype=sdt, block_q=block, block_k=block)
-                tag = "fp32" if otag == stag == "fp32" else "bf16"
-                with fp32_scope():
-                    got = at.flash_attention_step(*args, **kw)
-                    want = at.flash_attention_step_plain(*args, **kw)
-                    errs = [compare(f"{label} {otag} operands {stag} stats {c}", g, w, **TOL[tag])
-                            for c, g, w in zip(("m", "l", "acc"), got, want)]
-                    if otag == "bf16":  # the witness on the finalised rows
-                        rounding_witness(
-                            f"{label} {otag} operands {stag} stats, acc / l", finalised(got),
-                            finalised(want), fine_block(lambda bk: finalised(
-                                at.flash_attention_step_plain(*args, **dict(kw, block_k=bk))),
-                                at._fit_block(size, block), size))
-                if exact:
-                    for c, g, w in zip(("m", "l", "acc"), got, (m, l, acc)):
-                        compare(f"{label} {otag}/{stag} {c} passes through", g, w, 0, 0,
-                                exact=True)
-                if otag == "bf16":
-                    step_e.err(max(errs))
-    # timed: the main path's call, bf16 operands, fp32 stats, full lengths
-    q, k, v = (rand(1, heads, n, hd, dtype=torch.bfloat16) for _ in range(3))
-    m, l, acc = rand(1, heads, n, 1), 1.0 + rand(1, heads, n, 1, uniform=True), rand(1, heads, n, hd)
-    ln = torch.tensor([[RING_N, RING_N]], **i32)
-    args = (q, k, v, m, l, acc, ln, n, 2 * n)
-    ms = cuda_ms(lambda: at.flash_attention_step(*args))
-    plain = cuda_ms(lambda: at.flash_attention_step_plain(*args))
-    sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
-    log(f"  scaled_dot_product_attention on the same 512x512 block (context; it merges no "
-        f"carries): {sdpa:.4f} ms")
-    # each operand read once; the three fp32 carries read and written once
-    nbytes = 2 * 3 * heads * n * hd + 4 * 2 * (2 * heads * n + heads * n * hd)
-    flops = 4 * heads * n * n * hd
-    # library: none, no single PyTorch call merges a block into carries
-    step_e.add(f"step 1x4x{n}x{n} bf16, fp32 stats", STEP_LAUNCHES, ms, plain, None, nbytes,
-               flops, BF16_FLOP_PER_MS, per="forward_ring")
+    worst = {}  # operands -> (ulp count, its label)
+    for seed in STEP_SEEDS:
+        gen.manual_seed(seed)
+        for label, size, lens, row0, col0, block, fresh, exact in cases:
+            for otag, odt in operands.items():
+                for stag, sdt in operands.items():
+                    q, k, v = (rand(1, heads, size, hd, dtype=odt) for _ in range(3))
+                    if fresh:
+                        m = torch.full((1, heads, size, 1), -1e30, device=dev)
+                        l, acc = torch.zeros_like(m), torch.zeros(1, heads, size, hd, device=dev)
+                    else:
+                        m = rand(1, heads, size, 1, scale=2.0)
+                        l = 1.0 + rand(1, heads, size, 1, uniform=True) * 2
+                        acc = rand(1, heads, size, hd)
+                    ln = None if lens is None else torch.tensor(lens, **i32)
+                    args = (q, k, v, m, l, acc, ln, row0, col0)
+                    kw = dict(stat_dtype=sdt, block_q=block, block_k=block)
+                    name = f"seed {seed} {label} {otag} operands {stag} stats"
+                    with fp32_scope():
+                        got = at.flash_attention_step(*args, **kw)
+                        want = at.flash_attention_step_plain(*args, **kw)
+                        if stag == "fp32":
+                            tag = "fp32" if otag == "fp32" else "bf16"
+                            errs = [compare(f"{name} {c}", g, w, **TOL[tag])
+                                    for c, g, w in zip(("m", "l", "acc"), got, want)]
+                        else:
+                            units = step_ulp_units(at, q, k, v, m, l, acc, ln, col0, sdt,
+                                                   at._fit_block(size, block))
+                            errs, counts = [], []
+                            for c, g, w, u in zip(("m", "l", "acc"), got, want, units):
+                                err = (g - w).abs()
+                                count = float((err / u).max())
+                                errs.append(float(err.max()))
+                                counts.append(count)
+                                if not (torch.isfinite(g).all() and count <= STEP_ULPS):
+                                    raise AssertionError(
+                                        f"{name} {c}: {count:.3f} units of its rounded "
+                                        f"intermediates' ulps (at most {STEP_ULPS}), max abs err "
+                                        f"{errs[-1]:.3e}")
+                            log(f"  {name}: max abs err m {errs[0]:.3e} l {errs[1]:.3e} acc "
+                                f"{errs[2]:.3e}; ulp units m {counts[0]:.3f} l {counts[1]:.3f} "
+                                f"acc {counts[2]:.3f} (at most {STEP_ULPS})")
+                            if max(counts) > worst.get(otag, (-1.0, ""))[0]:
+                                worst[otag] = (max(counts), name)
+                        if otag == "bf16":  # the witness on the finalised rows
+                            rounding_witness(
+                                f"{name}, acc / l", finalised(got), finalised(want),
+                                fine_block(lambda bk: finalised(
+                                    at.flash_attention_step_plain(*args, **dict(kw, block_k=bk))),
+                                    at._fit_block(size, block), size))
+                    if exact:
+                        for c, g, w in zip(("m", "l", "acc"), got, (m, l, acc)):
+                            compare(f"{name} {c} passes through", g, w, 0, 0, exact=True)
+                    if otag == "bf16":  # the BF16 ring's carries, either stats
+                        step_e.err(max(errs))
+                    elif stag == "fp32":  # the FP32 ring's
+                        step_fp32_e.err(max(errs))
+    for otag, (count, name) in worst.items():
+        log(f"  bf16-stats carries, {otag} operands: largest count {count:.3f} ulp units "
+            f"({name})")
+    # timed: the main path's calls, fp32 stats, full lengths
+    gen.manual_seed(len(STEP_SEEDS))
+    for otag, odt in operands.items():
+        q, k, v = (rand(1, heads, n, hd, dtype=odt) for _ in range(3))
+        m, l = rand(1, heads, n, 1), 1.0 + rand(1, heads, n, 1, uniform=True)
+        acc = rand(1, heads, n, hd)
+        ln = torch.tensor([[RING_N, RING_N]], **i32)
+        args = (q, k, v, m, l, acc, ln, n, 2 * n)
+        with fp32_scope():
+            ms = cuda_ms(lambda: at.flash_attention_step(*args))
+            plain = cuda_ms(lambda: at.flash_attention_step_plain(*args))
+            sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        log(f"  scaled_dot_product_attention on the same 512x512 {otag} block (context; it "
+            f"merges no carries): {sdpa:.4f} ms")
+        # each operand read once; the three fp32 carries read and written once
+        nbytes = q.element_size() * 3 * heads * n * hd + 4 * 2 * (2 * heads * n + heads * n * hd)
+        flops = 4 * heads * n * n * hd
+        # library: none, no single PyTorch call merges a block into carries
+        ent = step_e if otag == "bf16" else step_fp32_e
+        ent.add(f"step 1x4x{n}x{n} {otag}, fp32 stats", STEP_LAUNCHES, ms, plain, None, nbytes,
+                flops, BF16_FLOP_PER_MS if otag == "bf16" else TF32X3_OP_PER_MS,
+                per="forward_ring")
 
 
 def ring_checks(at, ring, rand, dev, dtypes, fp32_scope):
@@ -1722,7 +1874,7 @@ def ring_checks(at, ring, rand, dev, dtypes, fp32_scope):
                         raise AssertionError(f"P={size} {label} {tag}: padded rows are not 0")
 
 
-def ring_end_to_end(at, counters, img0, img1, step_e):
+def ring_end_to_end(at, counters, img0, img1, step_e, step_fp32_e):
     """forward_ring at full width on the 2048-keypoint extractions of the
     480x640 pair, devices [cuda:0] * 4 (stripes of 512), 9 layers, then
     filter_matches. BF16: launch counts read from 0 around one call,
@@ -1800,8 +1952,9 @@ def ring_end_to_end(at, counters, img0, img1, step_e):
             raise AssertionError("forward_ring: match indices outside the keypoints")
         log(f"  keypoints {n0}/{n1}, matches at threshold {cfg.match_threshold}: "
             f"{int(matches.count[0])}")
+        step_ent = step_e if precision == "bf16" else step_fp32_e
+        step_ent.d["launches"] = launches["flash_attention_step"]
         if precision == "bf16":
-            step_e.d["launches"] = launches["flash_attention_step"]
             plain = ring_call(at.flash_attention_step_plain)
             for i, (g, w) in enumerate(((out.desc0, plain.desc0), (out.desc1, plain.desc1))):
                 compare(f"forward_ring bf16 d{i} vs the plain step", g, w, **STACK_TOL["bf16"])
@@ -2810,24 +2963,27 @@ def main() -> int:
                   "src/lightglue_tpu/kernels/layer_stack.py:801")
     ln_e = Entry("ln_gelu", "src/lightglue_tpu_torch/csrc/ln_gelu.cu",
                  "src/lightglue_tpu/kernels/layer_stack.py:801")
-    # the FP32 rung's instantiations (FMA kernels): launches from its match_pair
-    # on each route (rung_end_to_end), flash_attention's from its own call
+    # the FP32 rung's instantiations (3xTF32 on the tensor cores, or FMA
+    # kernels): launches from its match_pair on each route (rung_end_to_end),
+    # flash_attention's from its own call, the step's from the FP32 forward_ring
     src, ref = "src/lightglue_tpu_torch/csrc/", "src/lightglue_tpu/kernels/"
     fp32_ents = {
-        "linear": Entry("linear (FP32: fp32 operands, FMA)", src + "linear.cu",
+        "linear": Entry("linear (FP32: fp32 operands, 3xTF32)", src + "linear.cu",
                         ref + "layer_stack.py:801"),
         "attention": Entry("attention (FP32: fp32 operands, FMA)", src + "attention.cu",
                            ref + "layer_stack.py:801"),
         "ln_gelu": Entry("ln_gelu (FP32)", src + "ln_gelu.cu", ref + "layer_stack.py:801"),
         "adaptive_decide": Entry("adaptive_decide (FP32)", src + "adaptive.cu",
                                  ref + "layer_stack.py:974"),
-        "fused_mha": Entry("fused_mha (FP32: fp32 operands, FMA)", src + "flash_attn.cu",
+        "fused_mha": Entry("fused_mha (FP32: fp32 operands, 3xTF32)", src + "flash_attn.cu",
                            ref + "attention.py:687"),
         "bidirectional_cross_attention": Entry(
             "bidirectional_cross_attention (FP32: fp32 operands, FMA)", src + "bidir_cross.cu",
             ref + "attention.py:925"),
-        "flash_attention": Entry("flash_attention (FP32: fp32 operands, FMA)",
+        "flash_attention": Entry("flash_attention (FP32: fp32 operands, 3xTF32)",
                                  src + "flash_attn.cu", ref + "attention.py:197"),
+        "flash_attention_step": Entry("flash_attention_step (FP32: fp32 operands, 3xTF32)",
+                                      src + "flash_attn.cu", ref + "attention.py:422"),
     }
 
     def rand(*shape, dtype=torch.float32, scale=1.0, uniform=False):
@@ -2855,7 +3011,7 @@ def main() -> int:
                     rounding_witness(f"{label} {tag}", got, want,
                                      conv_wrong_designs(x, wt, b, pool))
                 else:
-                    tf32_witness(conv_k, f"{label} {tag}", got, x, wt, b, pool)
+                    conv_tf32_witness(conv_k, f"{label} {tag}", got, x, wt, b, pool)
             ent = conv_e if tag == "bf16" else conv_fp32_e
             ent.err(err)
             if not timed:
@@ -2910,6 +3066,10 @@ def main() -> int:
                 got = ls.linear(a, w, b, a2=a2, residual=r)
                 want = ls.linear_plain(a, w, b, a2, r)
                 err = compare(f"{label} {tag}", got, want, **TOL[tag])
+                if tag == "fp32" and res:  # 3xTF32 against float64, one TF32 product wrong
+                    tf32_witness(f"{label} {tag}", got,
+                                 (a.double() @ w.double() + b.double()) + r.double(),
+                                 ls.linear_plain(tf32_round(a), tf32_round(w), b, None, r))
             ent = lin_e if tag == "bf16" else fp32_ents["linear"]
             ent.err(err)
             a_cat = a if a2 is None else torch.cat([a, a2], -1)
@@ -2921,7 +3081,7 @@ def main() -> int:
                                          + m * n * (2 if res else 1))
             flops = 2 * m * (k1 + k2) * n
             ent.add(f"{label} {tag}", per_layer * N_LAYERS, ms, plain, lib_ms, nbytes, flops,
-                    BF16_FLOP_PER_MS if tag == "bf16" else FP32_OP_PER_MS)
+                    BF16_FLOP_PER_MS if tag == "bf16" else TF32X3_OP_PER_MS)
 
     # ---- attention: self (RoPE) and cross at 1024, masked, length 0 -------
     log(f"attention (per match_pair: 4 launches per layer x {N_LAYERS} layers, N={BUCKET})")
@@ -2980,7 +3140,7 @@ def main() -> int:
             flops = 4 * heads * nq * nk * hd
             # library: scaled_dot_product_attention, which does no RoPE
             ent.add(f"{label} {tag}", per_layer * N_LAYERS, ms, plain, lib_ms, nbytes, flops,
-                    BF16_FLOP_PER_MS if tag == "bf16" else FP32_OP_PER_MS)
+                    BF16_FLOP_PER_MS if tag == "bf16" else TF32X3_OP_PER_MS)
 
     # ---- ln_gelu: 1024 rows of 512 ----------------------------------------
     log(f"ln_gelu (per match_pair: 4 launches per layer x {N_LAYERS} layers, N={BUCKET})")
@@ -3125,9 +3285,9 @@ def main() -> int:
     # ---- the sequence split: forward_ring on a ring of one card -------------
     step_e = Entry("flash_attention_step", "src/lightglue_tpu_torch/csrc/flash_attn.cu",
                    "src/lightglue_tpu/kernels/attention.py:422")
-    step_kernel_checks(at, rand, dev, fp32_scope, step_e)
+    step_kernel_checks(at, dev, fp32_scope, step_e, fp32_ents["flash_attention_step"])
     ring_checks(at, ring, rand, dev, dtypes, fp32_scope)
-    ring_end_to_end(at, counters, img0, img1, step_e)
+    ring_end_to_end(at, counters, img0, img1, step_e, fp32_ents["flash_attention_step"])
 
     # ---- the conv variants that no path runs --------------------------------
     gen_e = Entry("conv3x3 (generic)", "src/lightglue_tpu_torch/csrc/conv3x3.cu",
@@ -3175,10 +3335,11 @@ def main() -> int:
     rung_end_to_end(ls, at, counters, img0, img1, rung_ents)
     ring_int8(at, counters, img0, img1)
 
-    log("the FP32 rows' products at three TF32 products each (495 TFLOP/s dense): the floor "
-        "a 3xTF32 design would have, per match_pair (flash_attention: per call)")
+    log("the FP32 rows' products at three TF32 products each (495 TFLOP/s dense; their "
+        "bound) and on the fp32 FMA units (67 TFLOP/s), per match_pair (flash_attention: per "
+        "call; the step: per forward_ring)")
     for name in ("linear", "attention", "fused_mha", "bidirectional_cross_attention",
-                 "flash_attention"):
+                 "flash_attention", "flash_attention_step"):
         ent = fp32_ents[name]
         log(f"  {ent.d['name']}: 3xTF32 floor {ent.ops / TF32X3_OP_PER_MS:.4f} ms, fp32 FMA "
             f"floor {ent.ops / FP32_OP_PER_MS:.4f} ms, kernel {ent.d['ms']:.4f} ms")

@@ -57,7 +57,10 @@ __device__ __forceinline__ float warp_sum(float v) {
 // r < nrows: x * cos + rotate_half(x) * sin with the freqs cast to T and each
 // product and the sum rounded to T (layer_stack.py:377-384,
 // attention.py:575-582). freqs: [cos; sin], n rows of D each.
-// rope_pair rotates the pair (x[d], x[d + D/2]) of one row at position pos.
+// rope_pair rotates the pair (x[d], x[d + D/2]) of one row at position pos;
+// __fmul_rn / __fadd_rn keep nvcc from contracting a product and the sum
+// into one FMA, which at T = float would round once where the reference
+// rounds twice.
 template <typename T, int D>
 __device__ __forceinline__ void rope_pair(float& x1, float& x2, int d, int pos,
                                           const float* freqs, int n) {
@@ -67,8 +70,9 @@ __device__ __forceinline__ void rope_pair(float& x1, float& x2, int d, int pos,
   const float s1 = round_to<T>(sinv[d]);
   const float c2 = round_to<T>(cosv[d + D / 2]);
   const float s2 = round_to<T>(sinv[d + D / 2]);
-  const float y1 = round_to<T>(round_to<T>(x1 * c1) + round_to<T>(-x2 * s1));
-  x2 = round_to<T>(round_to<T>(x2 * c2) + round_to<T>(x1 * s2));
+  const float y1 =
+      round_to<T>(__fadd_rn(round_to<T>(__fmul_rn(x1, c1)), round_to<T>(__fmul_rn(-x2, s1))));
+  x2 = round_to<T>(__fadd_rn(round_to<T>(__fmul_rn(x2, c2)), round_to<T>(__fmul_rn(x1, s2))));
   x1 = y1;
 }
 

@@ -28,8 +28,9 @@
 //
 // Bound on the H100: per head 4 * Nq * Nk * D FLOP against (Nq + 2 Nk) * D
 // operands, so the tensor cores bound the 2048-keypoint calls (~9 us for the
-// stacked self call, B = 2, H = 4); the ring step at 512-row stripes is
-// bound by its fp32 carries' bytes, read and written once per step.
+// stacked self call, B = 2, H = 4, in bf16; ~52 us in fp32 at three TF32
+// products a product); the ring step at 512-row stripes is bound by its
+// fp32 carries' bytes, read and written once per step.
 //
 // The BF16 kernel (flash_mma_kernel) puts both products on the tensor cores:
 // - mma.sync m16n8k16, bf16 in, fp32 sums, operands from shared memory by
@@ -71,11 +72,37 @@
 //   wrapper picks C and the buffers per shape (kernels/attention.py:
 //   flash_plan).
 //
-// The FP32 kernel (flash_kernel, the fp32 rung) stays on the FMA units:
-// TF32 mma keeps about three decimal digits and would miss the 1e-4 gate
-// of the fp32 rung (3xTF32 is later work). One block per 16 query rows
-// keeps a 16 x block_k slab of S in shared memory and stages K and V in
-// 64-key chunks.
+// The FP32 kernel (flash_tf32_kernel, the fp32 rung and fp32 operands with
+// bf16 stats) runs the same two-pass design on the tensor cores in 3xTF32:
+// one TF32 product keeps about three decimal digits and misses the fp32
+// gate of 1e-4, so each operand x is split into hi and lo = x - hi and
+// every product is hi*lo + lo*hi + hi*hi on mma.sync m16n8k8, fp32 sums
+// (the small terms first, lo*lo dropped), as conv3x3.cu's fp32 model conv
+// does, but split by truncation (mma.cuh:split_tf32_rz: hi = x with its low
+// 13 bits cleared, lo passed as it is, two instructions where rounding with
+// cvt.rna takes several; 1.1-1.4x faster by shape,
+// scripts/tune_torch_fp32_flash.py).
+// - Q is split once into (hi, lo) A fragments kept in registers for the
+//   whole KV loop (64 registers); S stays in registers as in the bf16
+//   kernel, and the same two passes per block_k tile keep the rounding
+//   points.
+// - K and V stage as raw fp32 in 64-key chunks through a two-buffer
+//   cp.async ring (pass 1 K only), rows at a 68-float pitch (mma.cuh:FP)
+//   so that a warp's 32-bit fragment loads fall in 32 banks (there is no
+//   ldmatrix for 32-bit elements); each element is split as its B fragment
+//   loads. ~85-106 KB a block, two blocks an SM; fp32 chunks are too large
+//   for the bf16 kernel's resident tiles.
+// - P goes from the S accumulator into the A operand of P.V without a
+//   shuffle: for tf32 m16n8k8 the accumulator holds columns 2 t4, 2 t4 + 1
+//   where A wants k = t4, t4 + 4, but the order of keys within a k step
+//   does not change the sum, so slot t4 takes key 2 t4 and slot t4 + 4 key
+//   2 t4 + 1, and V's B fragment is read at those two keys. P is split in
+//   registers (its cast to the fp32 V type is the identity).
+// - Row groups and the column split are the bf16 kernel's (fill_row_groups),
+//   so the 512-row ring stripes still fill the card; tf32_smem (mma.cuh) is
+//   its shared memory, which kernels/attention.py:flash_plan mirrors.
+// - RoPE (fused_mha self-attention) runs once, in rope_kernel<float>, into
+//   an fp32 scratch, every product and sum rounded in fp32.
 //
 // STEP (the ring step, attention.py:303-415) starts m, l and acc from the
 // fp32 carries instead of -1e30, 0, 0, masks the columns at their global
@@ -95,9 +122,7 @@ namespace {
 
 using namespace lg;  // Operand, row_ptr and the tensor-core helpers (mma.cuh)
 
-constexpr int D = HD;        // head dim
-constexpr int BQ = 16;       // query rows per block
-constexpr int THREADS = 256;
+constexpr int D = HD;  // head dim
 constexpr float NEG = -1e30f;
 
 struct Out {
@@ -119,195 +144,297 @@ struct Carries {
 };
 
 // ---------------------------------------------------------------------------
-// The FP32 kernel: products on the FMA units
+// The FP32 kernel: both products on the tensor cores in 3xTF32 (m16n8k8)
 // ---------------------------------------------------------------------------
 
-template <bool ROPE, bool STEP>
-__global__ void __launch_bounds__(THREADS, 2)
-flash_kernel(Operand q, Operand k, Operand v, Out o, Carries cy,
-             const float* __restrict__ freqs, const int* __restrict__ lens,
-             int Nq, int Nk, float scale, int block_k, int quant) {
-  using T = float;
-  extern __shared__ float smem[];
-  float* qs = smem;                 // [BQ][D]
-  float* kv = qs + BQ * D;          // [KC][D + 1]
-  float* ss = kv + KC * (D + 1);    // [BQ][block_k]
-  float* mrow = ss + BQ * block_k;  // [BQ] running max
-  float* lrow = mrow + BQ;          // [BQ] running sum
-  float* crow = lrow + BQ;          // [BQ] this tile's correction
+template <bool STEP, int C>
+__global__ void __launch_bounds__(WARPS * 32, 2)
+flash_tf32_kernel(Operand q, Operand k, Operand v, Out o, Carries cy,
+                  const int* __restrict__ lens, int Nq, int Nk, float scale, int block_k,
+                  int quant, int aligned) {
+  constexpr int BR = 16 * (WARPS / C);  // rows per block
+  constexpr int KW = KC / C;            // keys of each chunk per warp
+  constexpr int NT = KW / 8;            // S n-tiles per warp and chunk (= P.V k steps)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* qs = reinterpret_cast<float*>(smem_raw);  // [BR][FP]
+  float* kv = qs + BR * FP;                         // [TF32_STAGES][K, V][KC][FP]
+  float* red = kv + TF32_STAGES * 2 * KC * FP;      // C > 1: [WARPS][16][RS]
 
-  const int tid = threadIdx.x;
-  const int b = blockIdx.z, h = blockIdx.y, i0 = blockIdx.x * BQ;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int rg = warp / C, part = warp % C;  // 16-row group, share of each chunk's keys
+  const int g = lane / 4, t4 = lane % 4;     // mma fragment row and column
+  const int b = blockIdx.z, h = blockIdx.y, i0 = blockIdx.x * BR;
   const int lq = lens ? lens[2 * b] : Nq;
   const int lk = lens ? lens[2 * b + 1] : Nk;
-  const int cj = tid % KC;  // this thread's key within a chunk / output column
-  const int r0 = tid / KC;  // rows r0, r0 + 4, r0 + 8, r0 + 12
-  T* out = static_cast<T*>(o.ptr) + b * o.bs + h * o.hs;
-  const int col0 = STEP ? cy.col0 : 0;  // global id of k's first column
+  const int col0 = STEP ? cy.col0 : 0;
   int num_kv = Nk / block_k;
   if (lens) num_kv = min(num_kv, ((STEP ? max(lk - col0, 0) : lk) + block_k - 1) / block_k);
   const size_t cbase = ((size_t)b * gridDim.y + h) * Nq + i0;  // STEP: carry row of i0
 
-  // STEP: does row r's stripe of block_q rows run (attention.py:359-361)?
-  auto runs = [&](int r) {
+  auto runs = [&](int r) {  // STEP: does row r's stripe of block_q rows run?
     return lens == nullptr ||
            (cy.row0 + (i0 + r) / cy.block_q * cy.block_q < lq && num_kv > 0);
   };
   if (STEP) {
     bool any = false;
-    for (int r = 0; r < BQ && i0 + r < Nq; ++r) any = any || runs(r);
+    for (int r = 0; r < BR && i0 + r < Nq; ++r) any = any || runs(r);
     if (!any) {  // no row of this block runs: the carries pass through
-#pragma unroll
-      for (int rr = 0; rr < BQ / 4; ++rr) {
-        const int r = r0 + 4 * rr;
-        if (i0 + r < Nq) cy.acc_out[(cbase + r) * D + cj] = cy.acc_in[(cbase + r) * D + cj];
-      }
-      if (tid < BQ && i0 + tid < Nq) {
+      for (int i = tid; i < BR * D; i += blockDim.x)
+        if (i0 + i / D < Nq) cy.acc_out[cbase * D + i] = cy.acc_in[cbase * D + i];
+      if (tid < BR && i0 + tid < Nq) {
         cy.m_out[cbase + tid] = cy.m_in[cbase + tid];
         cy.l_out[cbase + tid] = cy.l_in[cbase + tid];
       }
       return;
     }
   }
-
+  float* out = STEP ? nullptr : static_cast<float*>(o.ptr) + b * o.bs + h * o.hs;
   if (!STEP && i0 >= lq) {  // a stripe wholly past q_len: zeros
-#pragma unroll
-    for (int rr = 0; rr < BQ / 4; ++rr) {
-      const int gi = i0 + r0 + 4 * rr;
-      if (gi < Nq) out[(long long)gi * o.rs + cj] = lg::from_f<T>(0.f);
-    }
+    for (int i = tid; i < BR * D; i += blockDim.x)
+      if (i0 + i / D < Nq) out[(long long)(i0 + i / D) * o.rs + i % D] = 0.f;
     return;
   }
 
-  const float* fb = ROPE ? freqs + (size_t)b * 2 * Nk * D : nullptr;
-  for (int i = tid; i < BQ * D; i += THREADS) {
-    const int r = i / D, d = i % D;
-    qs[i] = i0 + r < Nq ? lg::to_f(row_ptr<T>(q, b, h, i0 + r)[d]) : 0.f;
-  }
-  if (tid < BQ) {
-    const bool carried = STEP && i0 + tid < Nq;
-    mrow[tid] = carried ? cy.m_in[cbase + tid] : NEG;
-    lrow[tid] = carried ? cy.l_in[cbase + tid] : 0.f;
-  }
+  // Q into registers, split once: this warp's 16 rows as D / 8 (hi, lo) A
+  // fragments (a0 row g, dim t4; a1 row g + 8; a2, a3 dim t4 + 4)
+  stage_rows(qs, q, b, h, i0, BR, min(BR, Nq - i0), aligned);
+  cp_async_commit();
+  cp_async_wait<0>();
   __syncthreads();
-  if (ROPE) {
-    lg::rope_rows<T, D>(qs, D, min(BQ, Nq - i0), i0, fb, Nk);
-    __syncthreads();
+  unsigned qh[D / 8][4], ql[D / 8][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    const float* qr = qs + (rg * 16 + g) * FP + kk * 8 + t4;
+    split_tf32_rz(qr[0], qh[kk][0], ql[kk][0]);
+    split_tf32_rz(qr[8 * FP], qh[kk][1], ql[kk][1]);
+    split_tf32_rz(qr[4], qh[kk][2], ql[kk][2]);
+    split_tf32_rz(qr[8 * FP + 4], qh[kk][3], ql[kk][3]);
   }
 
-  const int warp = tid / 32, lane = tid % 32;
-  float acc[BQ / 4] = {};
-  if (STEP) {
+  // this thread's rows: rg * 16 + g (fragment elements 0, 1) and + 8 (2, 3)
+  const int row[2] = {rg * 16 + g, rg * 16 + g + 8};
+  float m[2], l[2], acc[D / 8][4];
 #pragma unroll
-    for (int rr = 0; rr < BQ / 4; ++rr) {
-      const int r = r0 + 4 * rr;
-      if (i0 + r < Nq) acc[rr] = cy.acc_in[(cbase + r) * D + cj];
+  for (int i = 0; i < 2; ++i) {
+    const bool carried = STEP && i0 + row[i] < Nq;
+    m[i] = carried ? cy.m_in[cbase + row[i]] : NEG;
+    l[i] = carried ? cy.l_in[cbase + row[i]] : 0.f;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      float2 a = make_float2(0.f, 0.f);
+      if (carried)
+        a = *reinterpret_cast<const float2*>(cy.acc_in + (cbase + row[i]) * D + n * 8 + 2 * t4);
+      acc[n][2 * i] = a.x;
+      acc[n][2 * i + 1] = a.y;
     }
   }
+
+  // Two chunk buffers: each pass copies chunk c + 1 while chunk c is in use
+  // (pass 1 K only, pass 2 K and V).
+  const int nc = (block_k + KC - 1) / KC;  // chunks per tile
+  auto kbuf = [&](int c) { return kv + (c & 1) * 2 * KC * FP; };
+  auto fetch = [&](int base, int c, bool with_v) {
+    const int jn = min(KC, block_k - c * KC);
+    stage_rows(kbuf(c), k, b, h, base + c * KC, KC, jn, aligned);
+    if (with_v) stage_rows(kbuf(c) + KC * FP, v, b, h, base + c * KC, KC, jn, aligned);
+    cp_async_commit();
+  };
+  auto land = [&](int c) {  // chunk c has landed (chunk c + 1 may still be in flight)
+    if (c + 1 < nc)
+      cp_async_wait<1>();
+    else
+      cp_async_wait<0>();
+    __syncthreads();
+  };
+  // s = quant(Q.K^T * scale) over this warp's KW keys of chunk c, each K
+  // element split as its B fragment loads (b0 key g, dim t4; b1 dim t4 + 4);
+  // masking as the bf16 kernel's
+  auto scores = [&](float (&s)[NT][4], int base, int c) {
+    const float* kb = kbuf(c) + (part * KW + g) * FP + t4;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const float* kr = kb + n * 8 * FP + kk * 8;
+        unsigned bh0, bl0, bh1, bl1;
+        split_tf32_rz(kr[0], bh0, bl0);
+        split_tf32_rz(kr[4], bh1, bl1);
+        mma_3xtf32(s[n], qh[kk], ql[kk], bh0, bl0, bh1, bl1);
+      }
+    }
+    const int jn = block_k - c * KC;      // keys of this chunk in the tile (may exceed KC)
+    const int gc = col0 + base + c * KC;  // global column of the chunk's first key
+    const bool ragged = jn < KC || (lens != nullptr && gc + KC > lk);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = part * KW + n * 8 + 2 * t4 + (e & 1);
+        s[n][e] = ragged && (j >= jn || (lens != nullptr && gc + j >= lk))
+                      ? (j >= jn ? -INFINITY : NEG)
+                      : lg::quant_stat(s[n][e] * scale, quant);
+      }
+    }
+  };
+
   for (int t = 0; t < num_kv; ++t) {
     const int base = t * block_k;
 
-    // S = quant(Q.K^T * scale) over the tile, columns >= kv_len at -1e30
-    for (int c0 = 0; c0 < block_k; c0 += KC) {
-      const int jn = min(KC, block_k - c0);
-      __syncthreads();  // the previous chunk, or the previous tile's P.V, is done
-      for (int i = tid; i < KC * D; i += THREADS) {
-        const int j = i / D, d = i % D;
-        kv[j * (D + 1) + d] =
-            j < jn ? lg::to_f(row_ptr<T>(k, b, h, base + c0 + j)[d]) : 0.f;
+    // pass 1: the row max of the whole tile
+    float mx[2] = {-INFINITY, -INFINITY};
+    fetch(base, 0, false);
+    for (int c = 0; c < nc; ++c) {
+      if (c + 1 < nc) fetch(base, c + 1, false);  // the buffer of chunk c - 1
+      land(c);
+      float s[NT][4];
+      scores(s, base, c);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
+      }
+      __syncthreads();  // this buffer is free for the next fetch
+    }
+    mx[0] = quad_max(mx[0]);
+    mx[1] = quad_max(mx[1]);
+    if (C > 1) {
+      if (t4 == 0) {
+        red[(warp * 16 + g) * RS] = mx[0];
+        red[(warp * 16 + g + 8) * RS] = mx[1];
       }
       __syncthreads();
-      if (ROPE) {
-        lg::rope_rows<T, D>(kv, D + 1, jn, base + c0, fb, Nk);
-        __syncthreads();
-      }
-      if (cj < jn) {
-        const bool dead = lens != nullptr && col0 + base + c0 + cj >= lk;
 #pragma unroll
-        for (int rr = 0; rr < BQ / 4; ++rr) {
-          const int r = r0 + 4 * rr;
-          float dot = 0.f;
-#pragma unroll 16
-          for (int d = 0; d < D; ++d)
-            dot = fmaf(qs[r * D + d], kv[cj * (D + 1) + d], dot);
-          ss[r * block_k + c0 + cj] = dead ? NEG : lg::quant_stat(dot * scale, quant);
+      for (int w = 0; w < C; ++w) {
+        mx[0] = fmaxf(mx[0], red[((rg * C + w) * 16 + g) * RS]);
+        mx[1] = fmaxf(mx[1], red[((rg * C + w) * 16 + g + 8) * RS]);
+      }
+      __syncthreads();
+    }
+    float mn[2], cf[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mn[i] = lg::quant_stat(fmaxf(m[i], mx[i]), quant);
+      cf[i] = lg::quant_stat(expf(m[i] - mn[i]), quant);
+    }
+
+    // pass 2: the same S again, p, sum p and P.V (P is fp32: its cast to
+    // the V type is the identity)
+    float ps[2] = {0.f, 0.f};
+    float pv[D / 8][4];
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) pv[n][0] = pv[n][1] = pv[n][2] = pv[n][3] = 0.f;
+    fetch(base, 0, true);
+    for (int c = 0; c < nc; ++c) {
+      if (c + 1 < nc) fetch(base, c + 1, true);
+      land(c);
+      float s[NT][4];
+      scores(s, base, c);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[n][e] = lg::quant_stat(expf(s[n][e] - mn[e / 2]), quant);
+          ps[e / 2] += s[n][e];
         }
       }
-    }
-    __syncthreads();
-
-    // per row: m', p, c and l' (one warp per 2 rows)
-    for (int rr = 0; rr < 2; ++rr) {
-      const int r = 2 * warp + rr;
-      float* srow = ss + r * block_k;
-      float mx = -INFINITY;
-      for (int j = lane; j < block_k; j += 32) mx = fmaxf(mx, srow[j]);
-      const float m_prev = mrow[r];
-      const float m_new = lg::quant_stat(fmaxf(m_prev, lg::warp_max(mx)), quant);
-      float sum = 0.f;
-      for (int j = lane; j < block_k; j += 32) {
-        const float p = lg::quant_stat(expf(srow[j] - m_new), quant);
-        srow[j] = p;
-        sum += p;
+      // P from the S accumulator into the A operand, no shuffle: S n-tile kk
+      // holds keys 2 t4 and 2 t4 + 1 of rows g and g + 8, and the order of
+      // keys within a k step does not change the sum, so k slot t4 takes key
+      // 2 t4 and slot t4 + 4 key 2 t4 + 1 (a0, a2 = d0, d1; a1, a3 = d2, d3),
+      // and V's B fragment is read at keys 2 t4 and 2 t4 + 1, dim g
+      const float* vb = kbuf(c) + KC * FP + (part * KW + 2 * t4) * FP + g;
+#pragma unroll
+      for (int kk = 0; kk < NT; ++kk) {  // 8 keys per k step
+        unsigned ah[4], al[4];
+        split_tf32_rz(s[kk][0], ah[0], al[0]);
+        split_tf32_rz(s[kk][2], ah[1], al[1]);
+        split_tf32_rz(s[kk][1], ah[2], al[2]);
+        split_tf32_rz(s[kk][3], ah[3], al[3]);
+#pragma unroll
+        for (int dn = 0; dn < D / 8; ++dn) {
+          const float* vr = vb + kk * 8 * FP + dn * 8;
+          unsigned bh0, bl0, bh1, bl1;
+          split_tf32_rz(vr[0], bh0, bl0);
+          split_tf32_rz(vr[FP], bh1, bl1);
+          mma_3xtf32(pv[dn], ah, al, bh0, bl0, bh1, bl1);
+        }
       }
-      sum = lg::warp_sum(sum);
-      if (lane == 0) {
-        const float c = lg::quant_stat(expf(m_prev - m_new), quant);
-        crow[r] = c;
-        lrow[r] = lg::quant_stat(__fadd_rn(__fmul_rn(lrow[r], c), sum), quant);
-        mrow[r] = m_new;
-      }
+      __syncthreads();  // this buffer is free for the next fetch
     }
-
-    // P.V over the tile with P cast to the operand type, then acc' = quant(acc c + P.V)
-    float pv[BQ / 4] = {};
-    for (int c0 = 0; c0 < block_k; c0 += KC) {
-      const int jn = min(KC, block_k - c0);
-      __syncthreads();  // the stats pass, or the previous chunk, is done
-      for (int i = tid; i < KC * D; i += THREADS) {
-        const int j = i / D, d = i % D;
-        kv[j * (D + 1) + d] =
-            j < jn ? lg::to_f(row_ptr<T>(v, b, h, base + c0 + j)[d]) : 0.f;
+    ps[0] = quad_sum(ps[0]);
+    ps[1] = quad_sum(ps[1]);
+    if (C > 1) {  // the C warps of a row group add their parts in one order
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float* rec = red + (warp * 16 + g + 8 * i) * RS;
+        if (t4 == 0) rec[1] = ps[i];
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n)
+          *reinterpret_cast<float2*>(rec + 2 + n * 8 + 2 * t4) =
+              make_float2(pv[n][2 * i], pv[n][2 * i + 1]);
       }
       __syncthreads();
-      for (int j = 0; j < jn; ++j) {
-        const float vv = kv[j * (D + 1) + cj];
 #pragma unroll
-        for (int rr = 0; rr < BQ / 4; ++rr)
-          pv[rr] = fmaf(lg::round_to<T>(ss[(r0 + 4 * rr) * block_k + c0 + j]), vv, pv[rr]);
+      for (int i = 0; i < 2; ++i) {
+        ps[i] = 0.f;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) pv[n][2 * i] = pv[n][2 * i + 1] = 0.f;
+#pragma unroll
+        for (int w = 0; w < C; ++w) {
+          const float* rec = red + ((rg * C + w) * 16 + g + 8 * i) * RS;
+          ps[i] += rec[1];
+#pragma unroll
+          for (int n = 0; n < D / 8; ++n) {
+            const float2 x = *reinterpret_cast<const float2*>(rec + 2 + n * 8 + 2 * t4);
+            pv[n][2 * i] += x.x;
+            pv[n][2 * i + 1] += x.y;
+          }
+        }
       }
+      __syncthreads();
     }
 #pragma unroll
-    for (int rr = 0; rr < BQ / 4; ++rr)
-      acc[rr] = lg::quant_stat(__fadd_rn(__fmul_rn(acc[rr], crow[r0 + 4 * rr]), pv[rr]), quant);
-  }
-  __syncthreads();  // lrow of the last tile (or of none)
-
-  if (STEP) {  // the carries out; a row whose stripe does not run passes through
+    for (int i = 0; i < 2; ++i) {
+      l[i] = lg::quant_stat(__fadd_rn(__fmul_rn(l[i], cf[i]), ps[i]), quant);
+      m[i] = mn[i];
+    }
 #pragma unroll
-    for (int rr = 0; rr < BQ / 4; ++rr) {
-      const int r = r0 + 4 * rr;
-      if (i0 + r >= Nq) continue;
-      const size_t at = (cbase + r) * D + cj;
-      cy.acc_out[at] = runs(r) ? acc[rr] : cy.acc_in[at];
-    }
-    if (tid < BQ && i0 + tid < Nq) {
-      const bool live = runs(tid);
-      cy.m_out[cbase + tid] = live ? mrow[tid] : cy.m_in[cbase + tid];
-      cy.l_out[cbase + tid] = live ? lrow[tid] : cy.l_in[cbase + tid];
-    }
-    return;
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[n][e] = lg::quant_stat(__fadd_rn(__fmul_rn(acc[n][e], cf[e / 2]), pv[n][e]), quant);
   }
 
+  if (part != 0) return;  // the C warps of a row group hold the same rows
 #pragma unroll
-  for (int rr = 0; rr < BQ / 4; ++rr) {
-    const int r = r0 + 4 * rr;
-    const int gi = i0 + r;
+  for (int i = 0; i < 2; ++i) {
+    const int gi = i0 + row[i];
     if (gi >= Nq) continue;
-    const float l = lrow[r];
-    float val = acc[rr] / (l == 0.f ? 1.f : l);
-    if (gi >= lq) val = 0.f;
-    out[(long long)gi * o.rs + cj] = lg::from_f<T>(val);
+    if (STEP) {  // the carries out; a row whose stripe does not run passes through
+      const size_t at = cbase + row[i];
+      const bool live = runs(row[i]);
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        const size_t ai = at * D + n * 8 + 2 * t4;
+        *reinterpret_cast<float2*>(cy.acc_out + ai) =
+            live ? make_float2(acc[n][2 * i], acc[n][2 * i + 1])
+                 : *reinterpret_cast<const float2*>(cy.acc_in + ai);
+      }
+      if (t4 == 0) {
+        cy.m_out[at] = live ? m[i] : cy.m_in[at];
+        cy.l_out[at] = live ? l[i] : cy.l_in[at];
+      }
+      continue;
+    }
+    const float den = l[i] == 0.f ? 1.f : l[i];
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      float x0 = acc[n][2 * i] / den, x1 = acc[n][2 * i + 1] / den;
+      if (gi >= lq) x0 = x1 = 0.f;
+      store2(out + (long long)gi * o.rs + n * 8 + 2 * t4, x0, x1);
+    }
   }
 }
 
@@ -607,24 +734,19 @@ flash_mma_kernel(Operand q, Operand k, Operand v, Out o, Carries cy, const int* 
 // launches
 // ---------------------------------------------------------------------------
 
-template <bool ROPE, bool STEP>
-int launch_fma(Operand q, Operand k, Operand v, Out o, Carries cy, const void* freqs,
-               const void* lens, int B, int H, int Nq, int Nk, float scale, int block_k,
-               int quant, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (BQ * D + KC * (D + 1) + BQ * block_k + 3 * BQ);
-  static size_t opted_in = 48 * 1024;  // raised once per size, not per launch
-  if (smem > opted_in) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_kernel<ROPE, STEP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    opted_in = smem;
-  }
-  dim3 grid((Nq + BQ - 1) / BQ, H, B);
-  flash_kernel<ROPE, STEP><<<grid, THREADS, smem, stream>>>(
-      q, k, v, o, cy, static_cast<const float*>(freqs),
-      static_cast<const int*>(lens), Nq, Nk, scale, block_k, quant);
+template <bool STEP, int C>
+int launch_tf32(Operand q, Operand k, Operand v, Out o, Carries cy, const void* lens, int B,
+                int H, int Nq, int Nk, float scale, int block_k, int quant, cudaStream_t stream) {
+  constexpr size_t smem = tf32_smem(C, TF32_STAGES);
+  static const cudaError_t opt_in =  // above 48 KB: opt in once
+      cudaFuncSetAttribute(flash_tf32_kernel<STEP, C>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
+  constexpr int BR = 16 * (WARPS / C);
+  const int aligned = aligned16(q) && aligned16(k) && aligned16(v);
+  dim3 grid((Nq + BR - 1) / BR, H, B);
+  flash_tf32_kernel<STEP, C><<<grid, WARPS * 32, smem, stream>>>(
+      q, k, v, o, cy, static_cast<const int*>(lens), Nq, Nk, scale, block_k, quant, aligned);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -650,6 +772,21 @@ int launch_mma(Operand q, Operand k, Operand v, Out o, Carries cy, const void* l
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool STEP>
+int launch_fp32(Operand q, Operand k, Operand v, Out o, Carries cy, const void* lens, int B,
+                int H, int Nq, int Nk, float scale, int block_k, int quant, int row_groups,
+                cudaStream_t s) {
+  switch (row_groups) {
+    case 4:
+      return launch_tf32<STEP, 1>(q, k, v, o, cy, lens, B, H, Nq, Nk, scale, block_k, quant, s);
+    case 2:
+      return launch_tf32<STEP, 2>(q, k, v, o, cy, lens, B, H, Nq, Nk, scale, block_k, quant, s);
+    case 1:
+      return launch_tf32<STEP, 4>(q, k, v, o, cy, lens, B, H, Nq, Nk, scale, block_k, quant, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <bool STEP, typename TO>
 int launch_bf16(Operand q, Operand k, Operand v, Out o, Carries cy, const void* lens, int B,
                 int H, int Nq, int Nk, float scale, int block_k, int quant, int row_groups,
@@ -673,20 +810,18 @@ int launch_bf16(Operand q, Operand k, Operand v, Out o, Carries cy, const void* 
 // not the ring step, which writes fp32 carries in every mode)
 enum Mode { FP32 = 0, BF16 = 1, BF16_F32_OUT = 2 };
 
-// bf16 operands on the tensor cores at the plan of kernels/attention.py:
-// flash_plan (row_groups 4, 2 or 1 16-row groups per block, `stages` chunk
-// buffers); fp32 operands on the FMA units (with RoPE inside when freqs is
-// set; the bf16 caller has rotated q and k)
+// Both kernels at the plan of kernels/attention.py:flash_plan (row_groups
+// 4, 2 or 1 16-row groups per block, `stages` chunk buffers): bf16 operands
+// on the tensor cores in bf16, fp32 operands in 3xTF32 (TF32_STAGES
+// buffers). A caller with RoPE has rotated q and k first.
 template <bool STEP>
-int launch(Operand q, Operand k, Operand v, Out o, Carries cy, const void* freqs,
-           const void* lens, int B, int H, int Nq, int Nk, float scale, int block_k, int quant,
-           int row_groups, int stages, int mode, cudaStream_t s) {
+int launch(Operand q, Operand k, Operand v, Out o, Carries cy, const void* lens, int B, int H,
+           int Nq, int Nk, float scale, int block_k, int quant, int row_groups, int stages,
+           int mode, cudaStream_t s) {
   if (mode == FP32) {
-    if constexpr (STEP)  // the ring step has no RoPE
-      return launch_fma<false, true>(q, k, v, o, cy, freqs, lens, B, H, Nq, Nk, scale, block_k,
-                                     quant, s);
-    return (freqs ? launch_fma<true, false> : launch_fma<false, false>)(
-        q, k, v, o, cy, freqs, lens, B, H, Nq, Nk, scale, block_k, quant, s);
+    if (stages != TF32_STAGES) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_fp32<STEP>(q, k, v, o, cy, lens, B, H, Nq, Nk, scale, block_k, quant,
+                             row_groups, s);
   }
   if (stages < min(2, (block_k + KC - 1) / KC)) return static_cast<int>(cudaErrorInvalidValue);
   if (mode == BF16)
@@ -706,9 +841,9 @@ int launch(Operand q, Operand k, Operand v, Out o, Carries cy, const void* freqs
 // row) strides in elements, head h at columns [h*64, h*64 + 64). freqs:
 // (B, 2, Nk, 64) fp32 [cos; sin] (Nq == Nk) or null for no RoPE. lens:
 // (B, 2) int32 [q_len, kv_len] or null (unmasked). out: (B, Nq, H*64) in
-// the mode's output type. row_groups, stages: the bf16 kernel's plan
-// (kernels/attention.py:flash_plan). rot: bf16 operands with RoPE,
-// (2, B, Nq, H*64) scratch for the rotated q and k.
+// the mode's output type. row_groups, stages: the plan
+// (kernels/attention.py:flash_plan). rot: with RoPE, (2, B, Nq, H*64)
+// scratch of the operands' type for the rotated q and k.
 extern "C" int lg_fused_mha(const void* q, long long q_bs, long long q_rs,
                             const void* k, long long k_bs, long long k_rs,
                             const void* v, long long v_bs, long long v_rs,
@@ -720,17 +855,22 @@ extern "C" int lg_fused_mha(const void* q, long long q_bs, long long q_rs,
   const Operand ov{v, v_bs, D, v_rs};
   const Out oo{out, (long long)Nq * H * D, D, (long long)H * D};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mode != FP32 && freqs) {
-    const cudaError_t err =
-        rope_qk(oq, ok, static_cast<const float*>(freqs), static_cast<bf16_t*>(rot), B, Nq, H, s);
-    if (err != cudaSuccess) return static_cast<int>(err);
+  if (freqs) {
+    const float* f = static_cast<const float*>(freqs);
     const long long bs = (long long)Nq * H * D;
+    cudaError_t err;
+    if (mode == FP32) {
+      err = rope_qk(oq, ok, f, static_cast<float*>(rot), B, Nq, H, s);
+      ok = Operand{static_cast<float*>(rot) + B * bs, bs, D, (long long)H * D};
+    } else {
+      err = rope_qk(oq, ok, f, static_cast<bf16_t*>(rot), B, Nq, H, s);
+      ok = Operand{static_cast<bf16_t*>(rot) + B * bs, bs, D, (long long)H * D};
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
     oq = Operand{rot, bs, D, (long long)H * D};
-    ok = Operand{static_cast<bf16_t*>(rot) + B * bs, bs, D, (long long)H * D};
-    freqs = nullptr;
   }
-  return launch<false>(oq, ok, ov, oo, Carries{}, freqs, lens, B, H, Nq, Nk, scale, block_k,
-                       quant, row_groups, stages, mode, s);
+  return launch<false>(oq, ok, ov, oo, Carries{}, lens, B, H, Nq, Nk, scale, block_k, quant,
+                       row_groups, stages, mode, s);
 }
 
 // flash_attention: q (B, H, Nq, 64), k/v (B, H, Nk, 64) addressed by (batch,
@@ -745,8 +885,8 @@ extern "C" int lg_flash_attention(
   const Operand oq{q, q_bs, q_hs, q_rs}, ok{k, k_bs, k_hs, k_rs},
       ov{v, v_bs, v_hs, v_rs};
   const Out oo{out, (long long)H * Nq * D, (long long)Nq * D, D};
-  return launch<false>(oq, ok, ov, oo, Carries{}, nullptr, lens, B, H, Nq, Nk, scale, block_k,
-                       quant, row_groups, stages, mode, static_cast<cudaStream_t>(stream));
+  return launch<false>(oq, ok, ov, oo, Carries{}, lens, B, H, Nq, Nk, scale, block_k, quant,
+                       row_groups, stages, mode, static_cast<cudaStream_t>(stream));
 }
 
 // flash_attention_step: q (B, H, Nq, 64), k/v (B, H, Nk, 64) addressed by
@@ -769,6 +909,13 @@ extern "C" int lg_flash_attention_step(
                    static_cast<const float*>(acc_in), static_cast<float*>(m_out),
                    static_cast<float*>(l_out), static_cast<float*>(acc_out),
                    row0, col0, block_q};
-  return launch<true>(oq, ok, ov, none, cy, nullptr, lens, B, H, Nq, Nk, scale, block_k, quant,
+  return launch<true>(oq, ok, ov, none, cy, lens, B, H, Nq, Nk, scale, block_k, quant,
                       row_groups, stages, mode, static_cast<cudaStream_t>(stream));
+}
+
+// The dynamic shared memory of a block at this plan, bytes, in this mode
+// (the wrapper's plan is held against it).
+extern "C" int lg_flash_smem(int row_groups, int stages, int mode) {
+  const int C = WARPS / row_groups;
+  return static_cast<int>(mode == FP32 ? tf32_smem(C, stages) : mma_smem(C, stages));
 }

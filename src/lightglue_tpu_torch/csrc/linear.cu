@@ -71,9 +71,27 @@
 // the reference's: y = (float(acc) * sa) * scale, rounded to bf16, + the
 // bias rounded to bf16, + the residual in bf16.
 //
-// The FP32 kernel (linear_kernel, the fp32 rung) stays on the FMA units: a
-// 64x64 shared-memory tile with 4x4 fp32 accumulators per thread (one TF32
-// mma would miss the 1e-4 gate of the fp32 rung).
+// The FP32 kernel (linear_tf32_kernel, the fp32 rung) is the same pipelined
+// GEMM on the tensor cores in 3xTF32: one TF32 product keeps about three
+// decimal digits and misses the fp32 gate of 1e-4, so each operand x is
+// split into hi and lo = x - hi and every product is hi*lo + lo*hi + hi*hi
+// on mma.sync m16n8k8 with fp32 sums (the small terms first, lo*lo
+// dropped), the fp32 model conv's design (conv3x3.cu) with flash_attn.cu's
+// split by truncation (mma.cuh:split_tf32_rz; 1.15x faster whole than the
+// rounding split, scripts/tune_torch_fp32_flash.py).
+// - linear_tile's tile, 4 warps 2 x 2, a 3-buffer cp.async ring; the chunks
+//   are raw fp32, 64 deep in K (eight k8 steps), A rows at a 68-float pitch
+//   and W rows at TN + 8 so that a warp's 32-bit fragment loads (there is
+//   no ldmatrix for 32-bit elements) fall in 32 banks: 56-105 KB a block.
+//   64-deep chunks ran 7 % faster per stack pair than 32-deep ones, and a
+//   tile rule aiming for 128 blocks (larger tiles) no faster
+//   (scripts/tune_torch_fp32_flash.py, PERF.md PR 12).
+// - Each element is split as its fragment loads: per k8 step a warp splits
+//   4 MT A and 2 NT B values against 3 MT NT products.
+// - Bound at 3xTF32: 3 x 0.13-0.54 GFLOP a call at 495 TFLOP/s, 0.8-3.3 us,
+//   above the 0.7-1.6 us of its fp32 bytes.
+// - The epilogue in fp32 (the reference's rounding to T is the identity):
+//   + bias, + residual; ffn1's concat, the residual and liveness as above.
 //
 // Liveness (transformer_stack_adaptive, wrapper :974, pallas_call :1229):
 // with an exit register (B,) fp32 and the global layer g, a tile whose pair
@@ -104,80 +122,6 @@ __device__ __forceinline__ bool retired(const float* exit_reg, int layer, int ro
     }
   }
   return true;
-}
-
-// ---------------------------------------------------------------------------
-// The FP32 kernel: products on the FMA units
-// ---------------------------------------------------------------------------
-
-constexpr int BM = 64, BN = 64, BK = 16;
-constexpr int THREADS = 256;
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-linear_kernel(const T* __restrict__ a, const T* __restrict__ a2, int k1,
-              const T* __restrict__ w, const T* __restrict__ bias,
-              const T* __restrict__ res, T* __restrict__ y, int M, int N,
-              int K, const float* __restrict__ exit_reg, int layer,
-              int rows_per_pair) {
-  __shared__ __align__(16) float as[BK][BM];  // A tile, transposed
-  __shared__ __align__(16) float bs[BK][BN];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int k2 = K - k1;  // width of the second A operand (0 without one)
-  if (retired(exit_reg, layer, rows_per_pair, m0, n0, BM, BN, M, N, res, y, tid, THREADS))
-    return;
-
-  float acc[4][4] = {};
-  for (int kk = 0; kk < K; kk += BK) {
-    // A tile: 64 rows x 16 cols, 4 elements per thread
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int i = tid + q * THREADS;
-      const int r = i / BK, c = i % BK;
-      const int gm = m0 + r, gk = kk + c;
-      float v = 0.f;
-      if (gm < M)
-        v = gk < k1 ? lg::to_f(a[(size_t)gm * k1 + gk])
-                    : lg::to_f(a2[(size_t)gm * k2 + gk - k1]);
-      as[c][r] = v;
-    }
-    // W tile: 16 rows x 64 cols (N % 64 == 0, K % 16 == 0)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int i = tid + q * THREADS;
-      const int r = i / BN, c = i % BN;
-      bs[r][c] = lg::to_f(w[(size_t)(kk + r) * N + n0 + c]);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      const float4 av = *reinterpret_cast<const float4*>(&as[k][ty * 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&bs[k][tx * 4]);
-      const float ar[4] = {av.x, av.y, av.z, av.w};
-      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gm = m0 + ty * 4 + i;
-    if (gm >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gn = n0 + tx * 4 + j;
-      float v = lg::round_to<T>(acc[i][j]);
-      v = lg::round_to<T>(v + lg::to_f(bias[gn]));
-      if (res) v = lg::round_to<T>(v + lg::to_f(res[(size_t)gm * N + gn]));
-      y[(size_t)gm * N + gn] = lg::from_f<T>(v);
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -338,6 +282,147 @@ linear_mma_kernel(const TA* __restrict__ a, const TA* __restrict__ a2, int k1,
         if (res) {
           v0 = round_to<TA>(v0 + to_f(res[(size_t)gm * N + gn]));
           v1 = round_to<TA>(v1 + to_f(res[(size_t)gm * N + gn + 1]));
+        }
+        store2(y + (size_t)gm * N + gn, v0, v1);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The FP32 kernel: a pipelined mma.sync GEMM in 3xTF32
+// ---------------------------------------------------------------------------
+
+constexpr int TF32_BK = 64;           // K depth of a staged fp32 chunk: eight k8 steps
+constexpr int TF32_AP = TF32_BK + 4;  // A row pitch (68 floats): a warp's A fragment
+                                      // loads (row g, k t4) fall in 32 banks
+
+// Y = [A | A2] . W + b (+ R), all fp32: linear_mma_kernel's tile, warps and
+// ring, with raw fp32 chunks and each product in 3xTF32 on m16n8k8
+template <int TM, int TN>
+__global__ void __launch_bounds__(MMA_THREADS)
+linear_tf32_kernel(const float* __restrict__ a, const float* __restrict__ a2, int k1,
+                   const float* __restrict__ w, const float* __restrict__ bias,
+                   const float* __restrict__ res, float* __restrict__ y, int M, int N, int K,
+                   const float* __restrict__ exit_reg, int layer, int rows_per_pair,
+                   int aligned) {
+  constexpr int WP = TN + 8;         // W row pitch: a warp's B loads (k t4, column g) in 32 banks
+  constexpr int MT = TM / 32;        // m16 tiles per warp
+  constexpr int NT = TN / 16;        // n8 tiles per warp
+  constexpr int SA = TF32_BK / 4;    // 16 B segments of an A chunk row
+  constexpr int SW = TN / 4;         // 16 B segments of a W chunk row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* const as = reinterpret_cast<float*>(smem_raw);  // slot s: as + s * TM * TF32_AP
+  float* const ws = as + MMA_STAGES * TM * TF32_AP;      // slot s: ws + s * TF32_BK * WP
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int wm = warp / 2, wn = warp % 2;  // this warp's quarter of the tile
+  const int g = lane / 4, t4 = lane % 4;   // mma fragment row and column
+  const int m0 = blockIdx.y * TM, n0 = blockIdx.x * TN;
+  const int k2 = K - k1;  // width of the second A operand (0 without one)
+  if (retired(exit_reg, layer, rows_per_pair, m0, n0, TM, TN, M, N, res, y, tid, MMA_THREADS))
+    return;
+
+  // chunk kt of A (TM x 64, from a or a2) and W (64 x TN) into slot kt % 3;
+  // rows past M and columns past K are zero
+  auto fetch = [&](int kt) {
+    const int kc = kt * TF32_BK, slot = kt % MMA_STAGES;
+    for (int s = tid; s < TM * SA; s += MMA_THREADS) {
+      const int r = s / SA, c = kc + s % SA * 4, gm = m0 + r;
+      float* d = as + slot * TM * TF32_AP + r * TF32_AP + s % SA * 4;
+      if (gm >= M || c >= K) {
+        *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+      } else if (aligned) {
+        cp_async16(d, c < k1 ? a + (size_t)gm * k1 + c : a2 + (size_t)gm * k2 + c - k1);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = c + e;
+          d[e] = col < k1 ? a[(size_t)gm * k1 + col]
+                          : col < K ? a2[(size_t)gm * k2 + col - k1] : 0.f;
+        }
+      }
+    }
+    for (int s = tid; s < TF32_BK * SW; s += MMA_THREADS) {
+      const int r = s / SW, c = s % SW * 4, gk = kc + r;
+      float* d = ws + slot * TF32_BK * WP + r * WP + c;
+      if (gk >= K) {
+        *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+      } else if (aligned) {
+        cp_async16(d, w + (size_t)gk * N + n0 + c);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) d[e] = w[(size_t)gk * N + n0 + c + e];
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+      acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
+
+  const int nk = (K + TF32_BK - 1) / TF32_BK;
+#pragma unroll
+  for (int kt = 0; kt < MMA_STAGES - 1; ++kt) {
+    if (kt < nk)
+      fetch(kt);
+    else
+      cp_async_commit();  // an empty group keeps the wait count uniform
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<MMA_STAGES - 2>();  // chunk kt has landed
+    __syncthreads();                  // ... for every thread, and chunk kt - 1 is done
+    if (kt + MMA_STAGES - 1 < nk)
+      fetch(kt + MMA_STAGES - 1);  // into the slot of chunk kt - 1
+    else
+      cp_async_commit();
+    const float* at = as + (kt % MMA_STAGES) * TM * TF32_AP + (wm * (TM / 2) + g) * TF32_AP + t4;
+    const float* wt = ws + (kt % MMA_STAGES) * TF32_BK * WP + t4 * WP + wn * (TN / 2) + g;
+#pragma unroll
+    for (int ks = 0; ks < TF32_BK / 8; ++ks) {
+      // A: a0 (row g, k t4), a1 (g + 8, t4), a2 (g, t4 + 4), a3 (g + 8, t4 + 4),
+      // each split into (hi, lo) as it loads
+      unsigned ah[MT][4], al[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const float* ar = at + mt * 16 * TF32_AP + ks * 8;
+        split_tf32_rz(ar[0], ah[mt][0], al[mt][0]);
+        split_tf32_rz(ar[8 * TF32_AP], ah[mt][1], al[mt][1]);
+        split_tf32_rz(ar[4], ah[mt][2], al[mt][2]);
+        split_tf32_rz(ar[8 * TF32_AP + 4], ah[mt][3], al[mt][3]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {  // B: b0 (k t4, column g), b1 (k t4 + 4, g)
+        const float* br = wt + ks * 8 * WP + nt * 8;
+        unsigned bh0, bl0, bh1, bl1;
+        split_tf32_rz(br[0], bh0, bl0);
+        split_tf32_rz(br[4 * WP], bh1, bl1);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          mma_3xtf32(acc[mt][nt], ah[mt], al[mt], bh0, bl0, bh1, bl1);
+      }
+    }
+  }
+
+  // epilogue in fp32: + bias, + residual
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int gm = m0 + wm * (TM / 2) + mt * 16 + g + 8 * i;
+      if (gm >= M) continue;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int gn = n0 + wn * (TN / 2) + nt * 8 + 2 * t4;
+        float v0 = acc[mt][nt][2 * i] + bias[gn];
+        float v1 = acc[mt][nt][2 * i + 1] + bias[gn + 1];
+        if (res) {
+          v0 += res[(size_t)gm * N + gn];
+          v1 += res[(size_t)gm * N + gn + 1];
         }
         store2(y + (size_t)gm * N + gn, v0, v1);
       }
@@ -515,6 +600,43 @@ int launch_mma(const void* a, const void* a2, int k1, const void* w, const void*
   return static_cast<int>(cudaGetLastError());
 }
 
+// the ring of one fp32 block: MMA_STAGES raw chunks of A and W
+constexpr size_t tf32_ring_smem(int TM, int TN) {
+  return sizeof(float) * MMA_STAGES * (TM * TF32_AP + TF32_BK * (TN + 8));
+}
+
+template <int TM, int TN>
+int launch_tf32(const void* a, const void* a2, int k1, const void* w, const void* bias,
+                const void* res, void* y, int M, int N, int K, const void* exit_reg, int layer,
+                int rows_per_pair, int aligned, cudaStream_t stream) {
+  constexpr size_t smem = tf32_ring_smem(TM, TN);
+  auto kernel = linear_tf32_kernel<TM, TN>;
+  static bool opted_in = smem <= 48 * 1024;  // raised once, not per launch
+  if (!opted_in) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted_in = true;
+  }
+  dim3 grid(N / TN, (M + TM - 1) / TM);
+  kernel<<<grid, MMA_THREADS, smem, stream>>>(
+      static_cast<const float*>(a), static_cast<const float*>(a2), k1,
+      static_cast<const float*>(w), static_cast<const float*>(bias),
+      static_cast<const float*>(res), static_cast<float*>(y), M, N, K,
+      static_cast<const float*>(exit_reg), layer, rows_per_pair, aligned);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int run_tf32(const void* a, const void* a2, int k1, const void* w, const void* wscale,
+             const void* bias, const void* res, void* y, int M, int N, int K,
+             const void* exit_reg, int layer, int rows_per_pair, int aligned, cudaStream_t s) {
+  int tm, tn;
+  linear_tile(M, N, &tm, &tn);
+  auto run = tm == 64 ? (tn == 64 ? launch_tf32<64, 64> : launch_tf32<64, 32>)
+                      : launch_tf32<32, 32>;
+  return run(a, a2, k1, w, bias, res, y, M, N, K, exit_reg, layer, rows_per_pair, aligned, s);
+}
+
 template <typename TA, typename TW, typename TB, typename TO>
 int run_mma(const void* a, const void* a2, int k1, const void* w, const void* wscale,
             const void* bias, const void* res, void* y, int M, int N, int K,
@@ -562,16 +684,8 @@ extern "C" int lg_linear(const void* a, const void* a2, int k1, const void* w,
                          int N, int K, const void* exit_reg, int layer, int rows_per_pair,
                          int mode, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mode == FP32) {
-    dim3 grid(N / BN, (M + BM - 1) / BM);
-    linear_kernel<float><<<grid, THREADS, 0, s>>>(
-        static_cast<const float*>(a), static_cast<const float*>(a2), k1,
-        static_cast<const float*>(w), static_cast<const float*>(bias),
-        static_cast<const float*>(res), static_cast<float*>(y), M, N, K,
-        static_cast<const float*>(exit_reg), layer, rows_per_pair);
-    return static_cast<int>(cudaGetLastError());
-  }
-  auto run = mode == BF16 ? run_mma<bf16_t, bf16_t, bf16_t, bf16_t>
+  auto run = mode == FP32 && !wscale ? run_tf32
+             : mode == BF16 ? run_mma<bf16_t, bf16_t, bf16_t, bf16_t>
              : mode == MIXED ? run_mma<float, bf16_t, float, float>
              : mode == MIXED_BF16_OUT && !res ? run_mma<float, bf16_t, float, bf16_t>
              : mode == INT8_WEIGHTS && wscale ? run_mma<bf16_t, int8_t, float, bf16_t>
@@ -614,4 +728,12 @@ extern "C" int lg_linear_s8(const void* q, const void* sa, const void* w, const 
 extern "C" int lg_linear_tile(int M, int N, int* tile) {
   linear_tile(M, N, &tile[0], &tile[1]);
   return 0;
+}
+
+// The dynamic shared memory of a block of lg_linear's GEMM at this shape,
+// bytes: the fp32 ring in FP32 mode, the bf16 ring in the others
+extern "C" int lg_linear_smem(int M, int N, int mode) {
+  int tm, tn;
+  linear_tile(M, N, &tm, &tn);
+  return static_cast<int>(mode == FP32 ? tf32_ring_smem(tm, tn) : ring_smem(tm, tn));
 }

@@ -1,25 +1,27 @@
-// Tensor-core machinery shared by the port's bf16 kernels: flash_attn.cu
-// (fused_mha, flash_attention, the ring step), attention.cu (the layer
-// stack's attention), linear.cu (the stack's projections), bidir_cross.cu
-// (both cross directions) and conv3x3.cu (SuperPoint's 64 -> 64 convs,
-// bf16 and, in 3xTF32, fp32).
+// Tensor-core machinery shared by the port's kernels: flash_attn.cu
+// (fused_mha, flash_attention, the ring step; bf16 and, in 3xTF32, fp32),
+// attention.cu (the layer stack's attention), linear.cu (the stack's
+// projections; bf16 and, in 3xTF32, fp32), bidir_cross.cu (both cross
+// directions) and conv3x3.cu (SuperPoint's 64 -> 64 convs, bf16 and, in
+// 3xTF32, fp32).
 //
 // - 16-byte cp.async staging into shared memory (stage_rows for the
 //   attention operands: rows of one head addressed by batch, head and row
 //   strides, zero-filled past the valid rows, element loads where a row
-//   does not start on 16 B);
+//   does not start on 16 B; bf16 rows at pitch LD, fp32 rows at FP);
 // - ldmatrix (.trans for an operand stored [k][n], as V and the weights)
 //   and mma.sync m16n8k16 with bf16 operands and fp32 sums; mma.sync
 //   m16n8k32 with s8 operands and s32 sums (linear.cu's W8A8 GEMM);
 //   mma.sync m16n8k8 with tf32 operands and the 3xTF32 split of an fp32
-//   value (conv3x3.cu's fp32 model conv);
+//   value, rounded (the fp32 model conv) or truncated (flash_attn.cu's and
+//   linear.cu's fp32 kernels);
 // - the attention block layout: WARPS warps, 16-row groups, C warps of a
 //   group splitting each 64-key chunk, rows padded to LD elements so the
 //   eight row addresses of an ldmatrix fall in different banks; the launch
 //   rule that picks the groups per block (kernels/layer_stack.py:
 //   fill_row_groups mirrors it);
-// - rope_kernel: half-split RoPE on q and k into a bf16 scratch, once per
-//   row instead of once in every block that reads a row.
+// - rope_kernel: half-split RoPE on q and k into a scratch of their type,
+//   once per row instead of once in every block that reads a row.
 #pragma once
 
 #include "common.cuh"
@@ -33,6 +35,11 @@ constexpr int KC = 64;          // keys per staged chunk
 constexpr int WARPS = 4;        // warps of an attention block
 constexpr int LD = HD + 8;      // bf16 row pitch in shared memory (144 B)
 constexpr int RS = 2 + HD + 8;  // fp32 record per warp row: max, sum p, pv[HD] (+ pad)
+// fp32 row pitch in shared memory (68 floats, 272 B): the 32-bit tf32
+// fragment loads of a warp fall in 32 different banks, both a K fragment's
+// (key g, dim t4: 4 g + t4) and a V fragment's (key 2 t4, dim g: 8 t4 + g)
+constexpr int FP = HD + 4;
+constexpr int TF32_STAGES = 2;  // K and V chunk buffers of an fp32 attention block
 constexpr int FILL_BLOCKS = 256;  // blocks a launch aims for: about two per SM
 
 // Rows of (B, H, N, HD) heads, or of a (B, N, H*HD) activation with hs = HD,
@@ -58,6 +65,13 @@ inline bool aligned16(const Operand& o) {
 // warps' partial row max, sum p and P.V
 constexpr size_t mma_smem(int C, int stages) {
   return sizeof(bf16_t) * (size_t)(16 * (WARPS / C) + 2 * KC * stages) * LD +
+         (C > 1 ? sizeof(float) * WARPS * 16 * RS : 0);
+}
+
+// the same for the fp32 (3xTF32) attention block: fp32 Q and chunks at
+// pitch FP (kernels/attention.py:flash_plan mirrors both)
+constexpr size_t tf32_smem(int C, int stages) {
+  return sizeof(float) * (size_t)(16 * (WARPS / C) + 2 * KC * stages) * FP +
          (C > 1 ? sizeof(float) * WARPS * 16 * RS : 0);
 }
 
@@ -160,6 +174,17 @@ __device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) 
   lo = tf32(x - __uint_as_float(hi));
 }
 
+// The same split by truncation (CUTLASS's round-toward-zero "fast fp32"):
+// hi = x with its low 13 bits cleared, lo = x - hi (exact), passed as it is;
+// mma.sync reads the top 19 bits of a .tf32 operand, so lo loses at most
+// its low bits in the product, ~2^-21 of x (the rounding split's ~2^-23),
+// for two integer/float instructions where each cvt.rna takes several
+// (flash_attn.cu's and linear.cu's fp32 kernels: 1.1-1.4x faster by shape)
+__device__ __forceinline__ void split_tf32_rz(float x, unsigned& hi, unsigned& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
 // d += a (16x8 tf32, row) * b (8x8 tf32, col), fp32 sums. Fragments (g =
 // lane / 4, t4 = lane % 4): a0 (row g, k t4), a1 (g + 8, t4), a2 (g, t4 + 4),
 // a3 (g + 8, t4 + 4); b0 (k t4, column g), b1 (k t4 + 4, g); d as
@@ -171,6 +196,16 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4], 
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a * b in 3xTF32 from split operands (a: ah, al; b: (bh0, bl0), (bh1,
+// bl1)): hi*lo + lo*hi + hi*hi, the small terms first, lo*lo dropped
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const unsigned (&ah)[4],
+                                           const unsigned (&al)[4], unsigned bh0, unsigned bl0,
+                                           unsigned bh1, unsigned bl1) {
+  mma_tf32(d, ah, bl0, bl1);
+  mma_tf32(d, al, bh0, bh1);
+  mma_tf32(d, ah, bh0, bh1);
 }
 
 // two fp32 values rounded to bf16 (to nearest even), lo in the low half
@@ -219,52 +254,93 @@ __device__ __forceinline__ void stage_rows(bf16_t* dst, const Operand& o, int b,
   }
 }
 
-// RoPE on q and k (bf16, (B, N, H*64) rows) into contiguous scratch
-// (2, B, N, H*64): the rotation of common.cuh:rope_pair, once per row, in
-// place of once per row in every block that reads it. One thread per 8
-// pairs (x[d], x[d + 32]) of one head of one row, 16 B loads where the rows
-// allow them; blockIdx.z picks q or k. Static: each including source has
-// its own copy.
+// fp32 rows [0, rows) of a tile of pitch FP from global rows row0 + r, as
+// the bf16 stage_rows (4 floats per 16 B copy)
+__device__ __forceinline__ void stage_rows(float* dst, const Operand& o, int b, int h, int row0,
+                                           int rows, int nrows, bool aligned) {
+  for (int s = threadIdx.x; s < rows * (HD / 4); s += blockDim.x) {
+    const int r = s / (HD / 4), c = s % (HD / 4) * 4;
+    float* d = dst + r * FP + c;
+    if (r >= nrows) {
+      *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+      continue;
+    }
+    const float* src = row_ptr<float>(o, b, h, row0 + r) + c;
+    if (aligned) {
+      cp_async16(d, src);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) d[e] = src[e];
+    }
+  }
+}
+
+// eight consecutive elements as fp32, 16 B loads where aligned; and back
+__device__ __forceinline__ void load8(const bf16_t* p, float (&x)[8], bool aligned) {
+  if (aligned) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    const bf16_t* e = reinterpret_cast<const bf16_t*>(&u);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) x[i] = to_f(e[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) x[i] = to_f(p[i]);
+  }
+}
+__device__ __forceinline__ void load8(const float* p, float (&x)[8], bool aligned) {
+  if (aligned) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    const float4 b = *reinterpret_cast<const float4*>(p + 4);
+    x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w, x[4] = b.x, x[5] = b.y, x[6] = b.z,
+    x[7] = b.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) x[i] = p[i];
+  }
+}
+__device__ __forceinline__ void store8(bf16_t* p, const float (&x)[8]) {  // 16 B aligned
+  *reinterpret_cast<uint4*>(p) = make_uint4(pack_bf16(x[0], x[1]), pack_bf16(x[2], x[3]),
+                                            pack_bf16(x[4], x[5]), pack_bf16(x[6], x[7]));
+}
+__device__ __forceinline__ void store8(float* p, const float (&x)[8]) {  // 16 B aligned
+  *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  *reinterpret_cast<float4*>(p + 4) = make_float4(x[4], x[5], x[6], x[7]);
+}
+
+// RoPE on q and k (T = bf16 or fp32, (B, N, H*64) rows) into contiguous
+// scratch (2, B, N, H*64) of T: the rotation of common.cuh:rope_pair, once
+// per row, in place of once per row in every block that reads it. One
+// thread per 8 pairs (x[d], x[d + 32]) of one head of one row, 16 B loads
+// where the rows allow them; blockIdx.z picks q or k. Static: each
+// including source has its own copy.
+template <typename T>
 static __global__ void __launch_bounds__(256)
-rope_kernel(Operand q, Operand k, const float* __restrict__ freqs, bf16_t* __restrict__ out,
-            int N, int H, int aligned) {
+rope_kernel(Operand q, Operand k, const float* __restrict__ freqs, T* __restrict__ out, int N,
+            int H, int aligned) {
   constexpr int V = 8, G = HD / 2 / V;  // pairs per thread, threads per head row
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= N * H * G) return;
   const int d0 = i % G * V, h = i / G % H, n = i / G / H, b = blockIdx.y;
-  const bf16_t* x = row_ptr<bf16_t>(blockIdx.z ? k : q, b, h, n);
+  const T* x = row_ptr<T>(blockIdx.z ? k : q, b, h, n);
   float x1[V], x2[V];
-  if (aligned) {
-    const uint4 u1 = *reinterpret_cast<const uint4*>(x + d0);
-    const uint4 u2 = *reinterpret_cast<const uint4*>(x + d0 + HD / 2);
-    const bf16_t* e1 = reinterpret_cast<const bf16_t*>(&u1);
-    const bf16_t* e2 = reinterpret_cast<const bf16_t*>(&u2);
+  load8(x + d0, x1, aligned);
+  load8(x + d0 + HD / 2, x2, aligned);
 #pragma unroll
-    for (int e = 0; e < V; ++e) x1[e] = to_f(e1[e]), x2[e] = to_f(e2[e]);
-  } else {
-#pragma unroll
-    for (int e = 0; e < V; ++e) x1[e] = to_f(x[d0 + e]), x2[e] = to_f(x[d0 + e + HD / 2]);
-  }
-  uint4 o1, o2;
-  bf16_t* y1 = reinterpret_cast<bf16_t*>(&o1);
-  bf16_t* y2 = reinterpret_cast<bf16_t*>(&o2);
-#pragma unroll
-  for (int e = 0; e < V; ++e) {
-    rope_pair<bf16_t, HD>(x1[e], x2[e], d0 + e, n, freqs + (size_t)b * 2 * N * HD, N);
-    y1[e] = __float2bfloat16(x1[e]);
-    y2[e] = __float2bfloat16(x2[e]);
-  }
-  bf16_t* y = out + (((size_t)blockIdx.z * gridDim.y + b) * N + n) * H * HD + h * HD + d0;
-  *reinterpret_cast<uint4*>(y) = o1;
-  *reinterpret_cast<uint4*>(y + HD / 2) = o2;
+  for (int e = 0; e < V; ++e)
+    rope_pair<T, HD>(x1[e], x2[e], d0 + e, n, freqs + (size_t)b * 2 * N * HD, N);
+  T* y = out + (((size_t)blockIdx.z * gridDim.y + b) * N + n) * H * HD + h * HD + d0;
+  store8(y, x1);
+  store8(y + HD / 2, x2);
 }
 
-// q and k rotated into rot (2, B, N, H*64) with freqs (B, 2, N, 64) fp32
-static inline cudaError_t rope_qk(const Operand& q, const Operand& k, const float* freqs, bf16_t* rot,
-                           int B, int N, int H, cudaStream_t s) {
+// q and k rotated into rot (2, B, N, H*64) of their type T with freqs (B,
+// 2, N, 64) fp32
+template <typename T>
+static inline cudaError_t rope_qk(const Operand& q, const Operand& k, const float* freqs, T* rot,
+                                  int B, int N, int H, cudaStream_t s) {
   const int threads = N * H * (HD / 16);
-  rope_kernel<<<dim3((threads + 255) / 256, B, 2), 256, 0, s>>>(q, k, freqs, rot, N, H,
-                                                                aligned16(q) && aligned16(k));
+  rope_kernel<T><<<dim3((threads + 255) / 256, B, 2), 256, 0, s>>>(
+      q, k, freqs, rot, N, H, aligned16(q) && aligned16(k));
   return cudaGetLastError();
 }
 

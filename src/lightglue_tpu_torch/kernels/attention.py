@@ -6,9 +6,10 @@ Counterpart of ``lightglue_tpu/kernels/attention.py``:
   pallas_call :264): the online softmax over ``block_k`` KV tiles, in the
   (B, N, H*D) activation layout with optional half-split RoPE and in the
   (B, H, N, D) layout without. Both run ``csrc/flash_attn.cu``, one
-  kernel template addressed by strides: bf16 operands on the tensor cores
-  at the launch plan of ``flash_plan`` (with RoPE, q and k rotated once
-  into a scratch first), fp32 operands on the FMA units.
+  design addressed by strides, on the tensor cores at the launch plan of
+  ``flash_plan`` (with RoPE, q and k rotated once into a scratch first):
+  bf16 operands in bf16, fp32 operands in 3xTF32 (each operand split into
+  two TF32 parts, three ``mma.sync`` m16n8k8 products a product).
 - ``flash_attention_step`` (:422, pallas_call :507): the same tile loop
   from running (m, l, acc) carries over one KV block at global offsets,
   carries out, the local step of ring attention; the STEP instantiation of
@@ -43,22 +44,23 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from lightglue_tpu_torch.kernels import _build
-from lightglue_tpu_torch.kernels.layer_stack import (_KC, _WARPS, _check_same, _quant, _stream,
-                                                     apply_rotary, attention_mode,
+from lightglue_tpu_torch.kernels.layer_stack import (_KC, _RS, _WARPS, _check_same, _quant,
+                                                     _stream, apply_rotary, attention_mode,
                                                      fill_row_groups, mma_smem)
 
 DEFAULT_BLOCK_Q = 1024
 DEFAULT_BLOCK_K = 1024
 HEAD_DIM = 64  # the kernels' head width
 _NEG_INF = -1e30
-_FMA_ROWS = 16        # csrc/flash_attn.cu: the fp32 kernel's rows per block
 _SMS = 132            # streaming multiprocessors of the H100
-_STREAM_STAGES = 2    # chunk buffers of a streamed tile (csrc: one copy in flight)
+_STREAM_STAGES = 2    # chunk buffers of a streamed tile (csrc: one copy in flight;
+                      # mma.cuh:TF32_STAGES, every fp32 tile)
+_FP = HEAD_DIM + 4    # csrc/mma.cuh:FP, the fp32 row pitch in shared memory
 _BIDIR_FILL_BLOCKS = 128  # csrc/bidir_cross.cu: the blocks its row-group rule aims for
 
 
 class FlashPlan(NamedTuple):
-    """Launch of the bf16 ``flash_attn.cu`` kernel for one shape."""
+    """Launch of a ``flash_attn.cu`` kernel for one shape."""
 
     row_groups: int  # 16-row groups per block: 4, 2 or 1
     col_split: int   # warps of a row group that split each chunk's keys
@@ -67,19 +69,35 @@ class FlashPlan(NamedTuple):
     smem: int        # dynamic shared memory per block, bytes
 
 
-def flash_plan(batch: int, heads: int, nq: int, block_k: int) -> FlashPlan:
-    """The bf16 kernel's launch for one shape.
+def tf32_smem(row_groups: int, stages: int) -> int:
+    """Dynamic shared memory of an fp32 (3xTF32) flash block: fp32 Q,
+    ``stages`` K and V chunks at the fp32 pitch, and (columns split) the
+    warps' partial row max, sum p and P.V (csrc/mma.cuh:tf32_smem)."""
+    smem = 4 * (16 * row_groups + 2 * _KC * stages) * _FP
+    if row_groups < _WARPS:
+        smem += 4 * _WARPS * 16 * _RS
+    return smem
+
+
+def flash_plan(batch: int, heads: int, nq: int, block_k: int,
+               dtype=torch.bfloat16) -> FlashPlan:
+    """The kernel's launch for one shape, ``dtype`` operands.
 
     Rows: ``layer_stack.fill_row_groups``, the most 16-row groups per block
     (4, 2, 1) that still give 256 blocks, else 1; the block's four warps
     split each 64-key chunk's columns ``4 / row_groups`` ways. Large blocks
     read K and V fewer times through L2; short stripes (the ring step's 512
-    rows) need small ones to fill the card. Buffers: where the launch is
-    one wave (a block per SM) and the whole ``block_k`` tile fits, it stays
-    resident (K and V copied once, read by both passes); else chunks stream
-    through ``_STREAM_STAGES`` buffers."""
+    rows) need small ones to fill the card. Buffers: bf16 operands keep the
+    whole ``block_k`` tile resident (K and V copied once, read by both
+    passes) where the launch is one wave (a block per SM) and the tile
+    fits, else chunks stream through ``_STREAM_STAGES`` buffers; fp32
+    chunks always stream (a 64-key fp32 chunk of K and V is 34 KB), so the
+    fp32 block's shared memory does not grow with ``block_k``."""
     groups = fill_row_groups(batch, heads, nq)
     blocks = batch * heads * -(-nq // (16 * groups))
+    if dtype == torch.float32:
+        return FlashPlan(groups, _WARPS // groups, _STREAM_STAGES, blocks,
+                         tf32_smem(groups, _STREAM_STAGES))
     chunks = -(-block_k // _KC)
     stages = min(chunks, _STREAM_STAGES)
     if blocks <= _SMS and mma_smem(groups, chunks) <= _build.MAX_DYNAMIC_SMEM:
@@ -89,19 +107,11 @@ def flash_plan(batch: int, heads: int, nq: int, block_k: int) -> FlashPlan:
 
 def _flash_launch(name: str, dtype, batch: int, heads: int, nq: int, block_k: int):
     """(row_groups, stages) to pass to ``flash_attn.cu``; raises where the
-    block would not fit in shared memory (the fp32 kernel keeps a
-    16 x block_k slab of S)."""
-    if dtype == torch.bfloat16:
-        plan = flash_plan(batch, heads, nq, block_k)
-        smem, what = plan.smem, f"a {plan.row_groups * 16}-row block"
-        args = (plan.row_groups, plan.stages)
-    else:
-        smem = 4 * (_FMA_ROWS * HEAD_DIM + _KC * (HEAD_DIM + 1) + _FMA_ROWS * block_k
-                    + 3 * _FMA_ROWS)
-        what, args = f"a {block_k}-column S slab", (1, 1)
-    if smem > _build.MAX_DYNAMIC_SMEM:
-        raise ValueError(f"{name}: {what} exceeds shared memory")
-    return args
+    block would not fit in shared memory."""
+    plan = flash_plan(batch, heads, nq, block_k, dtype)
+    if plan.smem > _build.MAX_DYNAMIC_SMEM:
+        raise ValueError(f"{name}: a {plan.row_groups * 16}-row block exceeds shared memory")
+    return plan.row_groups, plan.stages
 
 
 def _blocks(nq: int, nk: int, block_q: int, block_k: int):
@@ -123,13 +133,17 @@ def _merge(t: torch.Tensor) -> torch.Tensor:
     return t.transpose(1, 2).reshape(b, n, h * d)
 
 
-def _merge_tiles(qh, kh, vh, m, l, acc, kv_len, col0, *, scale, stat_dtype, block_k):
+def _merge_tiles(qh, kh, vh, m, l, acc, kv_len, col0, *, scale, stat_dtype, block_k,
+                 taps: Optional[list] = None):
     """The Pallas tile loop (attention.py:123-176, :366-399) from carries
     (m, l, acc) over (B, H, N, D) heads: per KV tile s = quant(q.k * scale),
     columns whose global id ``col0 + j`` is past kv_len at -1e30; m, p, the
     correction, l and acc each rounded once per tile; a tile that starts at
     or past kv_len leaves the carries as they are. ``kv_len`` is a
-    (B, 1, 1, 1) tensor or None (unmasked). Returns fp32 carries."""
+    (B, 1, 1, 1) tensor or None (unmasked). Returns fp32 carries. ``taps``:
+    a list that gets, per tile, the magnitudes the rounded carries are built
+    from (``m`` m', ``lc`` l * c, ``ps`` sum p, ``l`` l', ``ac`` |acc| * c,
+    ``pv`` |P| . |V|, ``acc`` |acc'|), for an error bound in ulps."""
     nk = kh.shape[2]
     qf = qh.float()
     for j in range(nk // block_k):
@@ -144,10 +158,15 @@ def _merge_tiles(qh, kh, vh, m, l, acc, kv_len, col0, *, scale, stat_dtype, bloc
         l_new = _quant(l * corr + p.sum(dim=-1, keepdim=True), stat_dtype)
         pv = p.to(vh.dtype).float() @ vh[:, :, cols].float()
         acc_new = _quant(acc * corr + pv, stat_dtype)
-        if kv_len is None:
+        live = None if kv_len is None else col0 + j * block_k < kv_len
+        if taps is not None:  # a tile that is not live rounds nothing
+            taps.append({name: x if live is None else torch.where(live, x, 0.0) for name, x in (
+                ("m", m_new.abs()), ("lc", l * corr), ("ps", p.sum(dim=-1, keepdim=True)),
+                ("l", l_new), ("ac", acc.abs() * corr),
+                ("pv", p.abs() @ vh[:, :, cols].float().abs()), ("acc", acc_new.abs()))})
+        if live is None:
             m, l, acc = m_new, l_new, acc_new
         else:
-            live = col0 + j * block_k < kv_len
             m, l, acc = (torch.where(live, new, old) for new, old in
                          ((m_new, m), (l_new, l), (acc_new, acc)))
     return m, l, acc
@@ -298,8 +317,8 @@ def fused_mha(q, k, v, freqs=None, lengths=None, *, num_heads: int,
         freqs = freqs.float().contiguous()
     lengths = _lengths_arg(lengths, batch, q.device)
     out = torch.empty((batch, nq, q.shape[2]), dtype=out_dtype or q.dtype, device=q.device)
-    rot = None  # bf16 with RoPE: the kernel rotates q and k once into this scratch
-    if freqs is not None and q.dtype == torch.bfloat16:
+    rot = None  # with RoPE: the kernel rotates q and k once into this scratch
+    if freqs is not None:
         rot = torch.empty((2, batch, nq, q.shape[2]), dtype=q.dtype, device=q.device)
     err = _build.lib().lg_fused_mha(
         q.data_ptr(), q.stride(0), q.stride(1),

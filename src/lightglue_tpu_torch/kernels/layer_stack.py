@@ -37,8 +37,10 @@ loop over the layers launches, per layer and image, the kernels of
   launch whose blocks each take a slice of one pair's rows
   (``decide_plan``) and meet in a per-device scratch.
 
-fp32 operands (the FP32 rung) run FMA kernels in ``linear.cu`` and
-``attention.cu``: one TF32 ``mma`` would miss the rung's 1e-4 gate.
+fp32 operands (the FP32 rung): ``linear.cu`` runs the same GEMM on the
+tensor cores in 3xTF32 (each operand split into two TF32 parts, three
+``mma.sync`` m16n8k8 products; one TF32 product would miss the rung's 1e-4
+gate) at ``linear_plan``'s fp32 ring; ``attention.cu`` runs an FMA kernel.
 
 Every rung of the precision ladder runs on the card (``_LINEAR_MODES`` and
 ``_ATTENTION_MODES`` list the operand types each kernel takes):
@@ -86,8 +88,10 @@ _DEAD = _NEG_INF * 0.5  # all-masked-row clamp (layer_stack.py:276-292)
 # pitch in shared memory, fp32 record per warp row, blocks a launch aims for
 _KC, _WARPS, _LD, _RS, _FILL_BLOCKS = 64, 4, HEAD_DIM + 8, 2 + HEAD_DIM + 8, 256
 # csrc/linear.cu: the bf16 GEMM's K chunk, ring buffers, candidate tiles in
-# order of preference and the blocks a tile plan aims for (two per SM)
+# order of preference and the blocks a tile plan aims for (two per SM); the
+# fp32 (3xTF32) GEMM's K chunk
 _LIN_BK, _LIN_STAGES, _LIN_TILES, _LIN_MIN_BLOCKS = 64, 3, ((64, 64), (64, 32), (32, 32)), 256
+_LIN_TF32_BK = 64
 
 
 def fill_row_groups(batch: int, heads: int, nq: int, nq2: int = 0,
@@ -144,7 +148,7 @@ def attention_plan(batch: int, heads: int, nq: int, nk: int,
 
 
 class LinearPlan(NamedTuple):
-    """Launch of ``csrc/linear.cu``'s bf16 GEMM for one shape."""
+    """Launch of ``csrc/linear.cu``'s GEMM for one shape."""
 
     bm: int      # tile rows (a divisor of 64: a tile never straddles two pairs)
     bn: int      # tile columns
@@ -155,16 +159,24 @@ class LinearPlan(NamedTuple):
     smem: int    # dynamic shared memory per block, bytes
 
 
-def linear_plan(m: int, n: int, k: int) -> LinearPlan:
-    """The bf16 GEMM's tile for an (m, k) x (k, n) product: 64 x 64 where
-    that gives 256 blocks, else 64 x 32, else 32 x 32
-    (csrc/linear.cu:linear_tile)."""
+def linear_plan(m: int, n: int, k: int, dtype=torch.bfloat16) -> LinearPlan:
+    """The GEMM's tile for an (m, k) x (k, n) product: 64 x 64 where that
+    gives 256 blocks, else 64 x 32, else 32 x 32
+    (csrc/linear.cu:linear_tile), in every mode; the ring of ``dtype``
+    products (the tensor-core modes' bf16 chunks 64 deep, rows padded by 8;
+    fp32's raw chunks 64 deep, A rows padded by 4 and W rows by 8:
+    csrc/linear.cu:ring_smem, tf32_ring_smem)."""
     for bm, bn in _LIN_TILES:
         blocks = -(-m // bm) * (n // bn)
         if blocks >= _LIN_MIN_BLOCKS:
             break
-    smem = 2 * _LIN_STAGES * (bm * (_LIN_BK + 8) + _LIN_BK * (bn + 8))
-    return LinearPlan(bm, bn, _LIN_BK, -(-k // _LIN_BK), _LIN_STAGES, blocks, smem)
+    if dtype == torch.float32:
+        bk = _LIN_TF32_BK
+        smem = 4 * _LIN_STAGES * (bm * (bk + 4) + bk * (bn + 8))
+    else:
+        bk = _LIN_BK
+        smem = 2 * _LIN_STAGES * (bm * (bk + 8) + bk * (bn + 8))
+    return LinearPlan(bm, bn, bk, -(-k // bk), _LIN_STAGES, blocks, smem)
 
 
 class Live(NamedTuple):
@@ -201,7 +213,8 @@ def _check_same(name: str, dtype, *tensors) -> None:
 _F32, _BF16, _I8 = torch.float32, torch.bfloat16, torch.int8
 
 # (operand, output) types -> the mode of lg_attention, lg_fused_mha,
-# lg_flash_attention and lg_bidirectional_cross: fp32 (the FMA kernels),
+# lg_flash_attention and lg_bidirectional_cross: fp32 (3xTF32 in
+# flash_attn.cu, FMA kernels in attention.cu and bidir_cross.cu),
 # bf16, and bf16 operands with an fp32 output (MIXED)
 _ATTENTION_MODES = {(_F32, _F32): 0, (_BF16, _BF16): 1, (_BF16, _F32): 2}
 
@@ -231,7 +244,7 @@ def _w8a8_default() -> bool:
 
 # (activations, weight, bias, output) types -> csrc/linear.cu:lg_linear's mode
 _LINEAR_MODES = {
-    (_F32, _F32, _F32, _F32): 0,      # FP32, the FMA kernel
+    (_F32, _F32, _F32, _F32): 0,      # FP32, the 3xTF32 GEMM
     (_BF16, _BF16, _BF16, _BF16): 1,  # BF16
     (_F32, _BF16, _F32, _F32): 2,     # MIXED: fp32 activations, bf16 products
     (_F32, _BF16, _F32, _BF16): 3,    # MIXED, the qkv and qk_v projections (bf16 out)

@@ -18,6 +18,7 @@ import torch
 from lightglue_tpu.kernels import conv as jax_conv
 from lightglue_tpu.kernels import conv_chain as jax_chain
 from lightglue_tpu_torch.kernels import _build, conv, conv_chain
+from tf32_emulation import mma_tf32_maps, tf32
 
 ROOT = Path(__file__).resolve().parents[1]
 BF16 = torch.bfloat16
@@ -212,13 +213,6 @@ def test_conv2_chain_edge_matches_jax(dtype, relu):
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), **tol)
 
 
-def _tf32(t):
-    """fp32 values rounded to TF32 as cvt.rna.tf32.f32 does on finite values:
-    to nearest on the 10-bit mantissa, ties away from zero (the rounding of
-    the magnitude's bits: add half of the 13 dropped bits' unit, cut them)."""
-    return ((t.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
 def _conv_sum(x, w):
     """The fp32 sum of a SAME 3x3 conv, NHWC x HWIO, no bias."""
     return torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
@@ -233,8 +227,8 @@ def test_tf32_rounding_emulation():
              1.0 + 2.0 ** -11 - 2.0 ** -23: 1.0,  # below the tie
              2.0 - 2.0 ** -23: 2.0, one: one, 0.0: 0.0}  # a carry; exact values stay
     x = torch.tensor(list(cases), dtype=torch.float32)
-    assert _tf32(x).tolist() == list(cases.values())
-    r = _tf32(torch.randn(1000, generator=torch.Generator().manual_seed(0)))
+    assert tf32(x).tolist() == list(cases.values())
+    r = tf32(torch.randn(1000, generator=torch.Generator().manual_seed(0)))
     assert ((r.view(torch.int32) & 0x1FFF) == 0).all()
 
 
@@ -265,8 +259,8 @@ def test_3xtf32_conv_premise(case):
                                        offset=True, out_paired=True).reshape(1, 16, 32, 64)
     want = np.asarray(want, np.float32)
     xt, wt, bt = (torch.from_numpy(a) for a in (x, w, b))
-    xh, wh = _tf32(xt), _tf32(wt)
-    xl, wl = _tf32(xt - xh), _tf32(wt - wh)
+    xh, wh = tf32(xt), tf32(wt)
+    xl, wl = tf32(xt - xh), tf32(wt - wh)
 
     def epilogue(acc):
         out = torch.relu(acc + bt)
@@ -284,21 +278,6 @@ def test_3xtf32_conv_premise(case):
 # csrc/conv3x3.cu's 3xTF32 kernel: a chunk's input tile pitch (floats a
 # pixel), the split weights' pitch ((hi, lo) pairs a row), the haloed side
 XPA, XPN, XH = 12, 68, 18
-
-
-def _mma_tf32_maps():
-    """(row, col) of each (lane, register) of mma.sync m16n8k8's tf32 A (16 x
-    8, row-major), B (8 x 8, k x n) and C (16 x 8) fragments, from the PTX
-    ISA's tables, with g = lane / 4 and t4 = lane % 4."""
-    a, b, c = {}, {}, {}
-    for lane in range(32):
-        g, t4 = divmod(lane, 4)
-        for i in range(4):
-            a[lane, i] = (g + 8 * (i % 2), t4 + 4 * (i // 2))
-            c[lane, i] = (g + 8 * (i // 2), 2 * t4 + i % 2)
-        for i in range(2):
-            b[lane, i] = (t4 + 4 * i, g)
-    return a, b, c
 
 
 def _kernel_maps():
@@ -325,7 +304,7 @@ def test_tf32_fragment_maps_cover_each_element_once():
     each covers its 16 x 8, 8 x 8 and 16 x 8 matrix exactly once; the A
     loads of a warp fall in 32 different banks (pitch 12 floats) and the B
     loads of each half-warp in 16 different bank pairs (pitch 68 pairs)."""
-    ptx, kernel = _mma_tf32_maps(), _kernel_maps()
+    ptx, kernel = mma_tf32_maps(), _kernel_maps()
     assert ptx == kernel
     for frag, (rows, cols) in zip(ptx, ((16, 8), (8, 8), (16, 8))):
         seen = np.zeros((rows, cols), np.int32)
@@ -352,8 +331,8 @@ def test_tf32_kernel_tile_by_fragments_matches_conv():
     x = rng.uniform(0, 1, (1, 16, 16, 64)).astype(np.float32)
     w = rng.uniform(-1 / 24, 1 / 24, (3, 3, 64, 64)).astype(np.float32)
     xp = np.pad(x[0], ((1, 1), (1, 1), (0, 0)))  # the haloed tile, zeros outside
-    amap, bmap, cmap = _mma_tf32_maps()  # where mma.sync takes each register
-    tf = lambda v: _tf32(torch.tensor(v, dtype=torch.float32)).numpy().astype(np.float64)  # noqa: E731
+    amap, bmap, cmap = mma_tf32_maps()  # where mma.sync takes each register
+    tf = lambda v: tf32(torch.tensor(v, dtype=torch.float32)).numpy().astype(np.float64)  # noqa: E731
     acc = np.zeros((16, 16, 64))
     for c0 in range(0, 64, 8):
         xs = np.zeros(XH * XH * XPA, np.float32)  # the chunk's raw input tile

@@ -1,0 +1,472 @@
+"""The FP32 rung's 3xTF32 kernels on the CPU: csrc/flash_attn.cu's
+flash_tf32_kernel (fused_mha, flash_attention, flash_attention_step at fp32
+operands) and csrc/linear.cu's linear_tf32_kernel. The premise of 3xTF32 at
+the attention and linear shapes, emulated; the fragment addressing of both
+kernels against the PTX tables of mma.sync m16n8k8, with P taken from the S
+accumulator into P.V's A operand without a shuffle, and a step of each
+computed through it; the fp32 launch plans; and the wrappers' CPU path
+against JAX at fp32 where tests/test_torch_attention.py, test_torch_ring.py
+and test_torch_quant.py do not reach (tiles that end in a short chunk, fp32
+operands with bf16 stats, the fp32 projections)."""
+
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lightglue_tpu.kernels import attention as jax_attn
+from lightglue_tpu.kernels.layer_stack import _dot
+from lightglue_tpu_torch.kernels import _build, attention, layer_stack
+from tf32_emulation import mma_tf32_maps, split_rz, tf32, tf32_rz
+
+FP = 68        # csrc/mma.cuh:FP, the fp32 row pitch of flash_tf32_kernel's tiles
+LIN_AP = 68    # csrc/linear.cu:TF32_AP, linear_tf32_kernel's A row pitch
+GATE = 1e-4    # the fp32 rung's gate (chip_smoke.py TOL["fp32"])
+
+
+def _mm3(a, b):
+    """a @ b in 3xTF32 as both kernels take it: each operand split by
+    truncation (split_tf32_rz), hi*lo + lo*hi + hi*hi in fp32, lo*lo
+    dropped."""
+    (ah, al), (bh, bl) = split_rz(a), split_rz(b)
+    return ah @ bl + al @ bh + ah @ bh
+
+
+def _mm1(a, b):
+    """a @ b in one TF32 product: both operands rounded, the sum in fp32."""
+    return tf32(a) @ tf32(b)
+
+
+# ---------------------------------------------------------------------------
+# the premise: 3xTF32 holds the fp32 gate, one TF32 product misses it
+# ---------------------------------------------------------------------------
+
+# (B, H, Nq, Nk, lengths): a self and a masked cross call at head dim 64
+ATTENTION_PREMISE = {"self 1x4x256": (1, 256, 256, None),
+                     "cross 2x4x128x384, masked": (2, 128, 384, [[128, 300], [100, 384]])}
+
+
+@pytest.mark.parametrize("case", list(ATTENTION_PREMISE))
+def test_3xtf32_attention_premise(case):
+    """softmax(Q.K^T / 8) V with both products in 3xTF32 (P split as the
+    kernel splits it, by truncation) agrees with JAX's fp32
+    flash_attention within 1e-5;
+    with one TF32 product each it misses the fp32 gate of 1e-4 (its max
+    error here is 2.9-4.7e-4)."""
+    b, nq, nk, lens = ATTENTION_PREMISE[case]
+    rng = np.random.default_rng(41)
+    q, k, v = (rng.standard_normal((b, 4, n, 64), dtype=np.float32) for n in (nq, nk, nk))
+    ln = None if lens is None else np.asarray(lens, np.int32)
+    want = np.asarray(jax_attn.flash_attention(*map(jnp.asarray, (q, k, v)),
+                                               None if ln is None else jnp.asarray(ln)))
+    qt, kt, vt = map(torch.from_numpy, (q, k, v))
+
+    def attend(mm):
+        s = mm(qt, kt.transpose(-1, -2)) * 0.125
+        if ln is not None:
+            s = torch.where(torch.arange(nk) < torch.from_numpy(ln[:, 1]).view(-1, 1, 1, 1), s,
+                            -1e30)
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        out = mm(p, vt) / p.sum(-1, keepdim=True)
+        if ln is not None:
+            out = torch.where(torch.arange(nq).view(-1, 1) < torch.from_numpy(ln[:, 0])
+                              .view(-1, 1, 1, 1), out, 0.0)
+        return out.numpy()
+
+    err3, err1 = (np.abs(attend(mm) - want).max() for mm in (_mm3, _mm1))
+    assert err3 < 1e-5
+    assert err1 > GATE and err3 < err1 / 50
+
+
+# the stack's projections at M = 64 rows: (K, N)
+LINEAR_PREMISE = [(256, 768), (256, 256), (512, 512), (512, 256), (256, 512)]
+
+
+@pytest.mark.parametrize("kn", LINEAR_PREMISE, ids=[f"{k}x{n}" for k, n in LINEAR_PREMISE])
+def test_3xtf32_linear_premise(kn):
+    """x @ w + b in 3xTF32 (split by truncation) agrees with JAX _linear
+    at fp32 (_dot at
+    Precision.HIGHEST, layer_stack.py:357-375) within 1e-5; one TF32
+    product misses the fp32 gate (7.0-7.6e-4 here)."""
+    k, n = kn
+    rng = np.random.default_rng(43)
+    x = rng.standard_normal((64, k), dtype=np.float32)
+    w = (rng.uniform(-1, 1, (k, n)) / math.sqrt(k)).astype(np.float32)
+    b = (rng.uniform(-1, 1, n) / math.sqrt(k)).astype(np.float32)
+    want = np.asarray(_dot(jnp.asarray(x), jnp.asarray(w)) + jnp.asarray(b))
+    xt, wt, bt = map(torch.from_numpy, (x, w, b))
+    err3, err1 = (np.abs((mm(xt, wt) + bt).numpy() - want).max() for mm in (_mm3, _mm1))
+    assert err3 < 1e-5
+    assert err1 > GATE and err3 < err1 / 50
+
+
+# ---------------------------------------------------------------------------
+# fragment addressing (the kernels' shared-memory offsets against PTX)
+# ---------------------------------------------------------------------------
+
+
+def _flash_maps():
+    """flash_tf32_kernel's fragments as it addresses them, per (lane,
+    register): Q's A register i at qr[{0, 8 FP, 4, 8 FP + 4}[i]] past qr =
+    qs + (row g) FP + t4, so (row, dim) = (g + off // FP, t4 + off % FP);
+    K's B register i at kr[{0, 4}[i]] past kr = kbuf + (key g) FP + t4, so
+    (k = dim, n = key) = (t4 + off, g); V's B register i at vr[{0, FP}[i]]
+    past vr = vbuf + (key 2 t4) FP + dim g, so (key, dim) = (2 t4 + i, g);
+    P's A register i is S accumulator register (0, 2, 1, 3)[i]."""
+    qa, kb, vb = {}, {}, {}
+    for lane in range(32):
+        g, t4 = divmod(lane, 4)
+        for i, off in enumerate((0, 8 * FP, 4, 8 * FP + 4)):
+            qa[lane, i] = (g + off // FP, t4 + off % FP)
+        for i, off in enumerate((0, 4)):
+            kb[lane, i] = (t4 + off, g)
+        for i, off in enumerate((0, FP)):
+            vb[lane, i] = (2 * t4 + off // FP, g)
+    return qa, kb, vb, (0, 2, 1, 3)
+
+
+def test_flash_fragment_maps_are_ptx_and_spread_over_the_banks():
+    """Q's A fragment and K's B fragment are the PTX layout; P's A register
+    i holds the S accumulator's element (row, key) = (row of A register i,
+    2 t4 + i // 2): k slot t4 is key 2 t4 and slot t4 + 4 key 2 t4 + 1 of
+    the 8-key step, and V's B register i is read at the key of slot t4 +
+    4 i. A warp's K loads (key g, dim t4) and V loads (key 2 t4, dim g) fall
+    in 32 different banks at the 68-float pitch."""
+    amap, bmap, cmap = mma_tf32_maps()
+    qa, kb, vb, perm = _flash_maps()
+    assert qa == amap and kb == bmap
+    for lane in range(32):
+        g, t4 = divmod(lane, 4)
+        for i in range(4):
+            row, slot = amap[lane, i]
+            assert cmap[lane, perm[i]] == (row, 2 * t4 + i // 2)  # P register i's element
+            assert slot == t4 + 4 * (i // 2)
+        for i in range(2):
+            slot, col = bmap[lane, i]
+            assert vb[lane, i] == (2 * (slot % 4) + slot // 4, col)  # the key of its slot
+    assert len({(g * FP + t4) % 32 for g in range(8) for t4 in range(4)}) == 32
+    assert len({(2 * t4 * FP + g) % 32 for g in range(8) for t4 in range(4)}) == 32
+
+
+def _through_fragments(a_frag, b_frag):
+    """D (rows x cols, float64) of one mma.sync m16n8k8 from per-lane
+    registers: a_frag[lane, i] and b_frag[lane, i] are values, placed where
+    the PTX layout takes them; D is read back per lane through the C map."""
+    amap, bmap, cmap = mma_tf32_maps()
+    a, b = np.zeros((16, 8)), np.zeros((8, 8))
+    for (lane, i), (r, c) in amap.items():
+        a[r, c] = a_frag[lane, i]
+    for (lane, i), (r, c) in bmap.items():
+        b[r, c] = b_frag[lane, i]
+    d = a @ b
+    return {(lane, i): d[r, c] for (lane, i), (r, c) in cmap.items()}
+
+
+def test_flash_step_by_fragments_matches_attention():
+    """One 16-row group against one 64-key chunk as a warp of
+    flash_tf32_kernel computes it: S = Q.K^T through Q's and K's fragments
+    at the kernel's offsets (8 k steps x 8 n tiles), then P = S (any values
+    stand for p here) from the accumulator into the A operand by the
+    kernel's register order, times V read at the kernel's offsets (8 k
+    steps x 8 dim tiles), each result placed where the kernel stores
+    pv[dn][2 i + j] (row g + 8 i, dim dn 8 + 2 t4 + j). Both products agree
+    with Q.K^T and S.V in float64, exactly up to the sum order."""
+    rng = np.random.default_rng(47)
+    q = rng.standard_normal((16, 64))
+    kv = rng.standard_normal((2, 64, 64))  # K and V of a 64-key chunk, [key][dim]
+    qs = np.zeros(16 * FP)
+    for r in range(16):
+        qs[r * FP:r * FP + 64] = q[r]
+    kbuf, vbuf = np.zeros(64 * FP), np.zeros(64 * FP)
+    for j in range(64):
+        kbuf[j * FP:j * FP + 64], vbuf[j * FP:j * FP + 64] = kv[0, j], kv[1, j]
+    s = np.zeros((8, 32, 4))  # s[n][lane][e]
+    for kk in range(8):
+        qf, kf = {}, {}
+        for lane in range(32):
+            g, t4 = divmod(lane, 4)
+            qr = g * FP + kk * 8 + t4
+            for i, off in enumerate((0, 8 * FP, 4, 8 * FP + 4)):
+                qf[lane, i] = qs[qr + off]
+        for n in range(8):
+            for lane in range(32):
+                g, t4 = divmod(lane, 4)
+                kr = (n * 8 + g) * FP + kk * 8 + t4
+                kf[lane, 0], kf[lane, 1] = kbuf[kr], kbuf[kr + 4]
+            for (lane, e), x in _through_fragments(qf, kf).items():
+                s[n, lane, e] += x
+    got_s = np.zeros((16, 64))
+    for n in range(8):
+        for lane in range(32):
+            g, t4 = divmod(lane, 4)
+            for e in range(4):
+                got_s[g + 8 * (e // 2), n * 8 + 2 * t4 + e % 2] = s[n, lane, e]
+    np.testing.assert_allclose(got_s, q @ kv[0].T, rtol=1e-12, atol=1e-12)
+    pv = np.zeros((16, 64))
+    for kk in range(8):  # P.V: 8 keys a step, P straight from the accumulator
+        pf = {(lane, i): s[kk, lane, (0, 2, 1, 3)[i]] for lane in range(32) for i in range(4)}
+        for dn in range(8):
+            vf = {}
+            for lane in range(32):
+                g, t4 = divmod(lane, 4)
+                vr = (kk * 8 + 2 * t4) * FP + dn * 8 + g
+                vf[lane, 0], vf[lane, 1] = vbuf[vr], vbuf[vr + FP]
+            for (lane, e), x in _through_fragments(pf, vf).items():
+                g, t4 = divmod(lane, 4)
+                pv[g + 8 * (e // 2), dn * 8 + 2 * t4 + e % 2] += x
+    np.testing.assert_allclose(pv, got_s @ kv[1], rtol=1e-12, atol=1e-12)
+
+
+def test_pv_step_in_3xtf32_through_the_key_order():
+    """The 16 x 8 . 8 x 64 P.V step of flash_tf32_kernel in 3xTF32: P
+    (softmax-like values in [0, 1]) from the S accumulator layout, split into
+    (hi, lo) in registers by truncation (lo read truncated by mma.sync), V
+    split as its fragments load, the three TF32 products summed per
+    register; within 2^-20 of |P|.|V| of P.V in float64 (2.1e-6 here),
+    where one TF32 product (hi alone) is off by over 1e-4."""
+    rng = np.random.default_rng(53)
+    p = rng.uniform(0, 1, (16, 8)).astype(np.float32)
+    v = rng.standard_normal((8, 64)).astype(np.float32)
+    _, _, cmap = mma_tf32_maps()
+    acc = {(lane, i): p[cmap[lane, i]] for lane in range(32) for i in range(4)}  # S layout
+    t = lambda x: tf32_rz(torch.tensor(x, dtype=torch.float32)).item()  # noqa: E731
+    out3, out1 = np.zeros((16, 64)), np.zeros((16, 64))
+    for dn in range(8):
+        ph, pl, vh, vl, pw, vw = {}, {}, {}, {}, {}, {}
+        for lane in range(32):
+            g, t4 = divmod(lane, 4)
+            for i in range(4):
+                x = acc[lane, (0, 2, 1, 3)[i]]
+                ph[lane, i] = t(x)
+                pl[lane, i] = t(np.float32(x - np.float32(ph[lane, i])))
+            for i in range(2):
+                x = v[2 * t4 + i, dn * 8 + g]
+                vh[lane, i] = t(x)
+                vl[lane, i] = t(np.float32(x - np.float32(vh[lane, i])))
+        parts = [_through_fragments(a, b) for a, b in ((ph, vl), (pl, vh), (ph, vh))]
+        for lane in range(32):
+            g, t4 = divmod(lane, 4)
+            for e in range(4):
+                at = (g + 8 * (e // 2), dn * 8 + 2 * t4 + e % 2)
+                out3[at] = sum(part[lane, e] for part in parts)
+                out1[at] = parts[2][lane, e]
+    want = p.astype(np.float64) @ v.astype(np.float64)
+    # each operand within 2^-21 of its value (truncated hi, lo read
+    # truncated), lo * lo dropped: every product within 2^-20 of its value
+    mag = np.abs(p).astype(np.float64) @ np.abs(v).astype(np.float64)
+    assert (np.abs(out3 - want) <= 2.0 ** -20 * mag).all()
+    assert np.abs(out1 - want).max() > GATE
+
+
+@pytest.mark.parametrize("tn", [64, 32])
+def test_linear_tile_by_fragments_matches_gemm(tn):
+    """One 64 x TN tile of linear_tf32_kernel over a 64-deep chunk as its
+    four warps (2 x 2) address it: A register i at ar[{0, 8 AP, 4, 8 AP +
+    4}[i]] past ar = as + (wm TM/2 + mt 16 + g) AP + ks 8 + t4, W register
+    i at br[{0, 4 WP}[i]] past br = ws + (ks 8 + t4) WP + wn TN/2 + nt 8 +
+    g, each result stored at row g + 8 i, column nt 8 + 2 t4 + j of the
+    warp's quarter. It is the GEMM of the chunk; a warp's A loads and W
+    loads each fall in 32 different banks (pitches 68 and TN + 8)."""
+    tm, wp = 64, tn + 8
+    mt_n, nt_n = tm // 32, tn // 16
+    rng = np.random.default_rng(59)
+    a = rng.standard_normal((tm, 64))
+    w = rng.standard_normal((64, tn))
+    as_, ws = np.zeros(tm * LIN_AP), np.zeros(64 * wp)
+    for r in range(tm):
+        as_[r * LIN_AP:r * LIN_AP + 64] = a[r]
+    for r in range(64):
+        ws[r * wp:r * wp + tn] = w[r]
+    y = np.zeros((tm, tn))
+    for warp in range(4):
+        wm, wn = divmod(warp, 2)
+        for ks in range(8):
+            for mt in range(mt_n):
+                af = {}
+                for lane in range(32):
+                    g, t4 = divmod(lane, 4)
+                    ar = (wm * tm // 2 + mt * 16 + g) * LIN_AP + ks * 8 + t4
+                    for i, off in enumerate((0, 8 * LIN_AP, 4, 8 * LIN_AP + 4)):
+                        af[lane, i] = as_[ar + off]
+                for nt in range(nt_n):
+                    bf = {}
+                    for lane in range(32):
+                        g, t4 = divmod(lane, 4)
+                        br = (ks * 8 + t4) * wp + wn * tn // 2 + nt * 8 + g
+                        bf[lane, 0], bf[lane, 1] = ws[br], ws[br + 4 * wp]
+                    for (lane, e), x in _through_fragments(af, bf).items():
+                        g, t4 = divmod(lane, 4)
+                        y[wm * tm // 2 + mt * 16 + g + 8 * (e // 2),
+                          wn * tn // 2 + nt * 8 + 2 * t4 + e % 2] += x
+    np.testing.assert_allclose(y, a @ w, rtol=1e-12, atol=1e-12)
+    assert len({(g * LIN_AP + t4) % 32 for g in range(8) for t4 in range(4)}) == 32
+    assert len({(t4 * wp + g) % 32 for g in range(8) for t4 in range(4)}) == 32
+
+
+# ---------------------------------------------------------------------------
+# launch plans
+# ---------------------------------------------------------------------------
+
+# (B, H, Nq, block_k, row groups): every route's fp32 flash shape, block_k
+# 1000 and 4096 (past the FMA kernel's 16 x block_k slab of S)
+FP32_FLASH_PLANS = {
+    "2048 self": (2, 4, 2048, 1024, 4),
+    "2048 cross": (1, 4, 2048, 1024, 2),
+    "960 pad-to-64": (2, 4, 960, 960, 1),
+    "block_k 1000": (2, 4, 1000, 1000, 2),
+    "ring stripe 512": (1, 4, 512, 512, 1),
+    "ring stripe 120": (1, 4, 120, 120, 1),
+    "block_k 4096": (1, 4, 4096, 4096, 4),
+}
+
+
+@pytest.mark.parametrize("shape", list(FP32_FLASH_PLANS))
+def test_fp32_flash_plan_fits(shape):
+    """The fp32 plan streams two chunk buffers at every block_k (its shared
+    memory is mma.cuh:tf32_smem, not a function of block_k), two blocks an
+    SM, at the bf16 kernel's row groups."""
+    batch, heads, nq, block_k, groups = FP32_FLASH_PLANS[shape]
+    plan = attention.flash_plan(batch, heads, nq, block_k, torch.float32)
+    assert plan.row_groups == groups == attention.flash_plan(batch, heads, nq, block_k).row_groups
+    assert plan.col_split * groups == 4 and plan.stages == 2
+    assert plan.blocks == batch * heads * -(-nq // (16 * groups))
+    q_rows, chunks = 16 * groups * FP, 2 * 64 * 2 * FP
+    assert plan.smem == 4 * (q_rows + chunks) + (0 if groups == 4 else 4 * 4 * 16 * 74)
+    assert 2 * plan.smem <= _build.MAX_DYNAMIC_SMEM
+    assert attention._flash_launch("f", torch.float32, batch, heads, nq, block_k) == (groups, 2)
+
+
+def test_flash_launch_raises_where_the_block_does_not_fit(monkeypatch):
+    """_flash_launch refuses a plan past the card's shared memory before any
+    launch, in both operand types."""
+    monkeypatch.setattr(_build, "MAX_DYNAMIC_SMEM", 32 * 1024)
+    for dtype in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match="exceeds shared memory"):
+            attention._flash_launch("f", dtype, 2, 4, 2048, 1024)
+
+
+@pytest.mark.parametrize("shape", [(1024, 768, 256), (1024, 256, 256), (1024, 512, 512),
+                                   (1024, 256, 512), (128, 256, 512), (2048, 768, 256)])
+def test_fp32_linear_plan_fits(shape):
+    """The fp32 GEMM takes the bf16 GEMM's tile with a ring of three raw
+    fp32 chunks 64 deep (A rows padded by 4, W rows by 8:
+    csrc/linear.cu:tf32_ring_smem), at most 105 KB a block: two an SM."""
+    m, n, k = shape
+    plan = layer_stack.linear_plan(m, n, k, torch.float32)
+    bf16 = layer_stack.linear_plan(m, n, k)
+    assert (plan.bm, plan.bn, plan.blocks) == (bf16.bm, bf16.bn, bf16.blocks)
+    assert plan.bk == 64 and plan.chunks == k // 64 and plan.stages == 3
+    assert plan.smem == 4 * 3 * (plan.bm * 68 + 64 * (plan.bn + 8)) <= 107_520
+    assert 2 * plan.smem <= _build.MAX_DYNAMIC_SMEM
+
+
+# ---------------------------------------------------------------------------
+# the wrappers' CPU path against JAX at fp32
+# ---------------------------------------------------------------------------
+
+TOL = dict(atol=1e-5, rtol=1e-5)  # true fp32 on both sides, sums in another order
+
+
+def _freqs(rng, b, n):
+    ang = rng.uniform(-3, 3, (b, n, 32)).astype(np.float32)
+    emb = np.stack([np.cos(ang), np.sin(ang)], axis=1)
+    return np.concatenate([emb, emb], axis=-1)
+
+
+# (B, N, block, rope, lengths): tiles that end in a short chunk (100 = 64 +
+# 36 keys, 40 < 64), as block_k 1000 does on the card
+FP32_FUSED = {"rope, 100-key tiles": (2, 200, 100, True, [[190, 150], [200, 0]]),
+              "40-key tiles": (1, 120, 40, False, [[120, 97]])}
+
+
+@pytest.mark.parametrize("case", list(FP32_FUSED))
+def test_fp32_fused_mha_short_chunk_tiles_match_jax(case):
+    b, n, block, rope, lens = FP32_FUSED[case]
+    rng = np.random.default_rng(61)
+    q, k, v = (rng.standard_normal((b, n, 256), dtype=np.float32) for _ in range(3))
+    f = _freqs(rng, b, n) if rope else None
+    ln = np.asarray(lens, np.int32)
+    kw = dict(num_heads=4, block_q=block, block_k=block)
+    want = jax_attn.fused_mha(*map(jnp.asarray, (q, k, v)), None if f is None else jnp.asarray(f),
+                              jnp.asarray(ln), **kw)
+    got = attention.fused_mha(*map(torch.from_numpy, (q, k, v)),
+                              None if f is None else torch.from_numpy(f), torch.from_numpy(ln),
+                              **kw)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_fp32_flash_attention_short_chunk_tiles_match_jax():
+    rng = np.random.default_rng(67)
+    q, k, v = (rng.standard_normal((2, 4, 240, 64), dtype=np.float32) for _ in range(3))
+    ln = np.asarray([[240, 200], [130, 240]], np.int32)
+    kw = dict(block_q=120, block_k=120)
+    want = jax_attn.flash_attention(*map(jnp.asarray, (q, k, v)), jnp.asarray(ln), **kw)
+    got = attention.flash_attention(*map(torch.from_numpy, (q, k, v)), torch.from_numpy(ln), **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+# (n = nk, GLOBAL lengths or None, row0, col0, block cap)
+FP32_BF16_STATS_STEP = {"unmasked": (128, None, 0, 128, 64),
+                        "masked, 120-row stripes": (120, [[300, 200]], 120, 120, 120)}
+
+
+@pytest.mark.parametrize("case", list(FP32_BF16_STATS_STEP))
+def test_fp32_operands_bf16_stats_step_matches_jax(case):
+    """flash_attention_step at fp32 operands with bf16 stats (chip_smoke.py's
+    step check runs it): the same rounding points as JAX's step, a different
+    fp32 sum order flipping a bf16 rounding here and there."""
+    n, lens, row0, col0, block = FP32_BF16_STATS_STEP[case]
+    rng = np.random.default_rng(71)
+    q, k, v = (rng.standard_normal((1, 2, n, 64), dtype=np.float32) for _ in range(3))
+    carries = (rng.uniform(-2, 2, (1, 2, n, 1)).astype(np.float32),
+               rng.uniform(0.5, 3, (1, 2, n, 1)).astype(np.float32),
+               rng.standard_normal((1, 2, n, 64), dtype=np.float32))
+    ln = None if lens is None else np.asarray(lens, np.int32)
+    kw = dict(block_q=block, block_k=block)
+    want = jax_attn.flash_attention_step(
+        *map(jnp.asarray, (q, k, v)), *map(jnp.asarray, carries),
+        None if ln is None else jnp.asarray(ln), row0, col0, stat_dtype=jnp.bfloat16, **kw)
+    got = attention.flash_attention_step(
+        *map(torch.from_numpy, (q, k, v)), *map(torch.from_numpy, carries),
+        None if ln is None else torch.from_numpy(ln), row0, col0, stat_dtype=torch.bfloat16,
+        **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-2, rtol=2e-2)
+
+
+# (K1, K2, N, residual, liveness): the ffn1 concat, ffn2 with its residual,
+# and a retired pair of the adaptive stack
+FP32_LINEAR = {"ffn1 concat": (256, 256, 512, False, False),
+               "ffn2 + residual": (512, 0, 256, True, False),
+               "ffn2, pair 1 retired": (512, 0, 256, True, True)}
+
+
+@pytest.mark.parametrize("case", list(FP32_LINEAR))
+def test_fp32_linear_matches_jax(case):
+    """linear at fp32 against JAX _linear (:357-375 with dt = attn_dtype =
+    fp32: _dot at HIGHEST, + bias) and the residual add (:399); a retired
+    pair's rows are the residual (the pl.when(live) gate)."""
+    k1, k2, n, res, live = FP32_LINEAR[case]
+    rng = np.random.default_rng(73)
+    a = rng.standard_normal((2, 64, k1), dtype=np.float32)
+    a2 = rng.standard_normal((2, 64, k2), dtype=np.float32) if k2 else None
+    w = (rng.uniform(-1, 1, (k1 + k2, n)) / math.sqrt(k1 + k2)).astype(np.float32)
+    b = (rng.uniform(-1, 1, n) / math.sqrt(k1 + k2)).astype(np.float32)
+    r = rng.standard_normal((2, 64, n), dtype=np.float32) if res else None
+    x = a if a2 is None else np.concatenate([a, a2], -1)
+    want = np.stack([np.asarray(_dot(jnp.asarray(xi), jnp.asarray(w)) + jnp.asarray(b))
+                     for xi in x])
+    if res:
+        want = want + r
+        if live:
+            want[1] = r[1]
+    got = layer_stack.linear(torch.from_numpy(a), torch.from_numpy(w), torch.from_numpy(b),
+                             None if a2 is None else torch.from_numpy(a2),
+                             None if r is None else torch.from_numpy(r),
+                             layer_stack.Live(torch.tensor([9.0, 3.0]), 3) if live else None)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
