@@ -10,9 +10,9 @@ It prints the card's name and power limit, builds the CUDA kernels of
 parallel) and checks in their SASS that the bf16 kernels of flash_attn.cu,
 attention.cu, linear.cu, bidir_cross.cu, conv3x3.cu (the model conv and the
 generic one) and conv_chain.cu run on the tensor cores and the FMA kernels
-of attention.cu, bidir_cross.cu, conv3x3.cu and conv_chain.cu do not, that
-the fp32 model conv and the fp32 kernels of flash_attn.cu and linear.cu run
-in 3xTF32 on the tensor cores (TF32 HMMA only), and that
+of conv3x3.cu and conv_chain.cu do not, that the fp32 model conv and the
+fp32 kernels of flash_attn.cu, attention.cu, bidir_cross.cu and linear.cu
+run in 3xTF32 on the tensor cores (TF32 HMMA only), and that
 stem.cu's kernel has no contracted multiply-add. Then, in
 order; every kernel check is in bf16 and fp32 against
 the kernel's plain PyTorch version at the shapes its path gives it, every
@@ -32,8 +32,10 @@ plain version and, where one exists, a PyTorch call for the same function:
    ``relu_conv1a_shift`` (conv1a's stem, bit for bit in bf16 and fp32, also
    at 360x488 and 480x600: ``stem_checks``), ``linear``, ``attention`` and
    ``ln_gelu`` (each timed in bf16 and, for the FP32 rung, in fp32; the
-   fp32 ffn2 ``linear``, 3xTF32, also against a float64 product beside an
-   emulated one-TF32 one, ``tf32_witness``) against
+   fp32 ffn2 ``linear`` and the fp32 self-RoPE and cross ``attention``
+   at 1024, 3xTF32, also against float64 beside an emulated one-TF32
+   version, ``tf32_witness``; ``attention`` also at fp32 operands with
+   bf16 stats) against
    their plain versions (``linear_plan`` / ``attention_plan`` /
    ``bidir_plan`` / ``decide_plan`` against the card's launch rules; each bf16 ``attention``
    case also against the rounding witness and its two wrong designs,
@@ -59,9 +61,12 @@ plain version and, where one exists, a PyTorch call for the same function:
    ``flash_attention`` (masked, ragged, zero lengths, several KV tiles,
    block_k 1000; each bf16-operand flash case also against the rounding
    witness, ``rounding_witness``, and the timed fp32 ``flash_attention``
-   case, 3xTF32, against float64 (``tf32_witness``); each bf16
+   and unmasked 960x960 fp32 ``bidirectional_cross_attention`` cases,
+   3xTF32, against float64 (``tf32_witness``); each bf16
    bidirectional case with both
-   sides non-empty per direction against ``stack_wrong_designs``), the
+   sides non-empty per direction against ``stack_wrong_designs``; the
+   bidirectional kernel also at fp32 operands with bf16 stats, and timed
+   beside two SDPA calls, ``two_sdpa_ms``), the
    per-block ``transformer_layers`` at 9 layers, and ``match_pair`` in the
    2048-keypoint config (``SuperPointConfig(max_num_keypoints=2048)``, a
    2048 bucket) and the pad-to-64 config (``buckets=range(64, 1025, 64)``,
@@ -113,7 +118,8 @@ It ends with a ``{"kernels": [...]}`` line (all ten Pallas functions, a
 row per FP32 / MIXED / INT8 / W8A8 instantiation (the fp32 step's launches
 from the FP32 ``forward_ring``) and per fp32-operand conv, and
 conv1a's stem in bf16 and fp32; the chain's rows also carry the two-launch
-chain's ``two_launch_ms``) and the ``{"ok": true, ...}``
+chain's ``two_launch_ms``, the bidirectional rows the two SDPA calls'
+``two_sdpa_ms``) and the ``{"ok": true, ...}``
 line. Any failure raises and exits non-zero; so does a missing card or a
 directory without the package.
 """
@@ -247,9 +253,9 @@ def compare(label, got, want, atol, rtol, exact=False):
 # units, or None where the fp32 kernel is a TF32_TENSOR_CORE_KERNELS one)
 TENSOR_CORE_KERNELS = {
     "flash_attn.cu": (("flash_mma_kernel",), None),
-    "attention.cu": (("attention_mma_kernel",), "attention_kernel"),
+    "attention.cu": (("attention_mma_kernel",), None),
     "linear.cu": (("linear_mma_kernel",), None),
-    "bidir_cross.cu": (("bidir_mma_kernel",), "bidir_kernel"),
+    "bidir_cross.cu": (("bidir_mma_kernel",), None),
     # the model's 64 -> 64 convs, and every other bf16-operand conv
     "conv3x3.cu": (("conv3x3_mma_kernel", "conv3x3_igemm_kernel"), "conv3x3_kernel"),
     "conv_chain.cu": (("chain_mma_kernel",), "chain_kernel"),
@@ -259,6 +265,8 @@ INT8_TENSOR_CORE_KERNELS = {"linear.cu": "linear_s8_kernel"}
 # source: its fp32 kernel on the tensor cores in 3xTF32 (TF32 HMMA only)
 TF32_TENSOR_CORE_KERNELS = {"conv3x3.cu": "conv3x3_tf32x3_kernel",
                             "flash_attn.cu": "flash_tf32_kernel",
+                            "attention.cu": "attention_tf32_kernel",
+                            "bidir_cross.cu": "bidir_tf32_kernel",
                             "linear.cu": "linear_tf32_kernel"}
 # source: a kernel whose rounding contract rounds every product and every add
 NO_FMA_KERNELS = {"stem.cu": "stem_kernel"}
@@ -269,14 +277,13 @@ def tensor_core_check(build):
     linear.cu (MIXED's fp32 activations and INT8's int8 weights are staged
     as bf16), bidir_cross.cu, conv3x3.cu (the model conv and the generic
     one) and conv_chain.cu compute their products on the tensor cores
-    (HMMA in the SASS of every one), the FMA kernels of attention.cu,
-    bidir_cross.cu, conv3x3.cu and conv_chain.cu on the FMA units (no
-    HMMA), and linear.cu's W8A8 GEMM on the
-    integer tensor cores (IMMA in every instantiation, no HMMA), the fp32
-    model conv and the fp32 kernels of flash_attn.cu and linear.cu on the
-    tensor cores in 3xTF32 (every HMMA of ``conv3x3_tf32x3_kernel``,
-    ``flash_tf32_kernel`` and ``linear_tf32_kernel`` takes TF32 operands,
-    in every instantiation), and the
+    (HMMA in the SASS of every one), the FMA kernels of conv3x3.cu and
+    conv_chain.cu on the FMA units (no HMMA), and linear.cu's W8A8 GEMM on
+    the integer tensor cores (IMMA in every instantiation, no HMMA), the
+    fp32 model conv and the fp32 kernels of flash_attn.cu, attention.cu,
+    bidir_cross.cu and linear.cu on the tensor cores in 3xTF32 (every HMMA
+    of each ``TF32_TENSOR_CORE_KERNELS`` kernel takes TF32 operands, in
+    every instantiation), and the
     stem rounds each product and each add (no FFMA in stem.cu's kernel):
     ``cuobjdump -sass`` of the built library."""
     from lightglue_tpu_torch.kernels import _build
@@ -489,7 +496,7 @@ def conv_f64(x, w, b, pool):
 
 
 def tf32_witness(label, got, f64, one, others=()):
-    """A 3xTF32 kernel (the fp32 model conv, ``flash_tf32_kernel``,
+    """A 3xTF32 kernel (the fp32 model conv, the fp32 attention kernels,
     ``linear_tf32_kernel``) against a float64 computation of its function,
     beside an emulated one-TF32 version (operands rounded to TF32, products
     in fp32 with TF32 off) as the wrong design: the kernel's mean |kernel -
@@ -537,14 +544,35 @@ def attention_f64(q, k, v, lengths=None, scale=None):
     return out
 
 
+def heads_of(t, heads=4):
+    """(B, N, H*D) -> (B, H, N, D)."""
+    b, n, e = t.shape
+    return t.reshape(b, n, heads, e // heads).transpose(1, 2)
+
+
+def stack_tf32_witness(ls, label, got, q, k, v, f, heads):
+    """``tf32_witness`` of the fp32 stack attention (unmasked; RoPE when
+    ``f`` is given, applied in fp32 as the kernel's pre-pass does) against
+    ``attention_f64``, the wrong design its plain version on rotated q, k and
+    v rounded to TF32."""
+    if f is not None:
+        q, k = (ls.apply_rotary(f, heads_of(t, heads)).transpose(1, 2).reshape(t.shape)
+                for t in (q, k))
+    f64 = attention_f64(heads_of(q, heads), heads_of(k, heads), heads_of(v, heads))
+    one = ls.attention_plain(*map(tf32_round, (q, k, v)), None, None, None, heads, q.dtype)
+    return tf32_witness(label, heads_of(got, heads), f64, heads_of(one, heads))
+
+
 def plan_checks(ls, at, nms_k, conv_k, lib):
     """The launch plans the CPU tests hold (``layer_stack.linear_plan``,
     ``attention_plan``, ``decide_plan``, ``attention.flash_plan``,
     ``bidir_plan``, ``nms.nms_smem_bytes``, ``conv.conv_plan``) are the ones
     the card runs (csrc/linear.cu:linear_tile and the shared memory of its
     bf16 and fp32 rings, lg_linear_smem; csrc/flash_attn.cu:lg_flash_smem,
-    the bf16 and fp32 blocks' shared memory; csrc/mma.cuh:fill_row_groups,
-    csrc/adaptive.cu:decide_rows, csrc/nms.cu:Band,
+    the bf16 and fp32 blocks' shared memory; csrc/mma.cuh:fill_row_groups
+    in both operand types; csrc/attention.cu:lg_attention_plan, the fp32
+    stack's eight-warp blocks too; csrc/adaptive.cu:decide_rows,
+    csrc/nms.cu:Band,
     csrc/conv3x3.cu:conv_rows), at every shape of the paths through the
     stack (128-1024 buckets) and through the bidirectional kernel (960x960,
     960x704, 960x64), one pair or two, the decision at B = 1..8 over the
@@ -582,16 +610,21 @@ def plan_checks(ls, at, nms_k, conv_k, lib):
                 raise AssertionError(f"flash B={b} Nq={nq} block_k {block_k} {dt}: the card's "
                                      f"{lib.lg_attention_row_groups(b, 4, nq)} row groups and "
                                      f"{smem} B, flash_plan's {plan.row_groups} and {plan.smem}")
+    attn = (ctypes.c_int * 3)()
     for b in (1, 2):
-        for nq in (128, 256, 512, 768, 1024):
-            groups = lib.lg_attention_row_groups(b, 4, nq)
-            if groups != ls.attention_plan(b, 4, nq, 1024).row_groups:
-                raise AssertionError(f"attention B={b} Nq={nq}: the card's {groups} row groups")
-        for n0, n1 in ((960, 960), (960, 704), (960, 64)):
-            groups = lib.lg_bidir_row_groups(b, 4, n0, n1)
-            if groups != at.bidir_plan(b, 4, n0, n1).row_groups:
-                raise AssertionError(f"bidirectional B={b} {n0}x{n1}: the card's {groups} row "
-                                     "groups")
+        for mode, dt in ((0, torch.float32), (1, torch.bfloat16)):
+            for nq in (128, 256, 512, 768, 896, 1024):
+                plan = ls.attention_plan(b, 4, nq, 1024, dt)
+                lib.lg_attention_plan(b, 4, nq, mode, attn)
+                if tuple(attn) != (plan.row_groups, plan.col_split, plan.smem):
+                    raise AssertionError(f"attention B={b} Nq={nq} {dt}: the card's (row groups, "
+                                         f"split, smem) {tuple(attn)}, attention_plan's "
+                                         f"{(plan.row_groups, plan.col_split, plan.smem)}")
+            for n0, n1 in ((960, 960), (960, 704), (960, 64)):
+                groups = lib.lg_bidir_row_groups(b, 4, n0, n1)
+                if groups != at.bidir_plan(b, 4, n0, n1, dt).row_groups:
+                    raise AssertionError(f"bidirectional B={b} {n0}x{n1} {dt}: the card's "
+                                         f"{groups} row groups")
     for b in range(1, 9):
         for n0 in (128, 256, 512, 768, 1024):
             for n1 in (128, 512, 1024):
@@ -615,9 +648,9 @@ def plan_checks(ls, at, nms_k, conv_k, lib):
         if tuple(out) != tuple(conv_k.conv_plan(*shape)):
             raise AssertionError(f"conv3x3 {shape}: the card's tile {tuple(out)}, conv_plan's "
                                  f"{tuple(conv_k.conv_plan(*shape))}")
-    log("  launch plans: linear_plan (tile and both rings), flash_plan (both kernels), "
-        "attention_plan, decide_plan, bidir_plan, nms_smem_bytes and conv_plan match the card's "
-        "at every path shape")
+    log("  launch plans: linear_plan (tile and both rings), flash_plan, attention_plan and "
+        "bidir_plan (both kernels each), decide_plan, nms_smem_bytes and conv_plan match the "
+        "card's at every path shape")
 
 
 def nms_map(gen, dev, b, h, w):
@@ -1438,25 +1471,36 @@ def attention_kernel_checks(at, rand, freqs_for, dev, dtypes, fp32_scope, fused_
     log(f"bidirectional_cross_attention (per pad-to-64 match_pair: 1 launch per layer "
         f"x {N_LAYERS} layers)")
     bidir_cases = [
-        # label, B, N0, N1, lengths [n0, n1], per-pair launches
-        ("960x960 unmasked", 1, PAD64, PAD64, None, N_LAYERS),
-        ("960x960 ragged, n1 0", 2, PAD64, PAD64, [[900, 700], [960, 0]], 0),
-        ("960x704 masked, n0 0", 2, PAD64, 704, [[950, 700], [0, 500]], 0),
-        ("960x704 unmasked", 1, PAD64, 704, None, 0),
-        ("960x64 masked (mixed buckets)", 1, PAD64, 64, [[955, 60]], 0),
-        ("128x64 masked (one row group a block)", 1, 128, 64, [[100, 50]], 0),
+        # label, B, N0, N1, lengths [n0, n1], per-pair launches, stats (as
+        # att_cases')
+        ("960x960 unmasked", 1, PAD64, PAD64, None, N_LAYERS, None),
+        ("960x960 ragged, n1 0", 2, PAD64, PAD64, [[900, 700], [960, 0]], 0, None),
+        ("960x704 masked, n0 0", 2, PAD64, 704, [[950, 700], [0, 500]], 0, None),
+        ("960x704 unmasked", 1, PAD64, 704, None, 0, None),
+        ("960x64 masked (mixed buckets)", 1, PAD64, 64, [[955, 60]], 0, None),
+        ("128x64 masked (one row group a block)", 1, 128, 64, [[100, 50]], 0, None),
+        ("960x704 masked, bf16 stats", 1, PAD64, 704, [[950, 650]], 0, "bf16"),
     ]
-    for label, b, n0, n1, lens, weight in bidir_cases:
+    for label, b, n0, n1, lens, weight, stats in bidir_cases:
         for tag, dt in dtypes.items():
+            if stats and tag != "fp32":
+                continue
             a0, a1 = rand(b, n0, 2 * e, dtype=dt), rand(b, n1, 2 * e, dtype=dt)
             args = (a0[..., :e], a1[..., :e], a0[..., e:], a1[..., e:])  # [qk | v] slices
             ln = None if lens is None else torch.tensor(lens, **i32)
-            kw = dict(num_heads=heads, stat_dtype=dt)
+            kw = dict(num_heads=heads, stat_dtype=torch.bfloat16 if stats else dt)
             with fp32_scope():
                 got = at.bidirectional_cross_attention(*args, ln, **kw)
                 want = at.bidirectional_cross_attention_plain(*args, ln, **kw)
-                errs = [compare(f"{label} {tag} o{i}", g, w, **TOL[tag])
+                errs = [compare(f"{label} {tag} o{i}", g, w, **TOL["bf16" if stats else tag])
                         for i, (g, w) in enumerate(zip(got, want))]
+                if tag == "fp32" and weight:  # 3xTF32 against float64, one TF32 the wrong design
+                    q0, q1, w0, w1 = (heads_of(x, heads) for x in args)
+                    one = at.bidirectional_cross_attention_plain(*map(tf32_round, args), ln, **kw)
+                    tf32_witness(f"{label} {tag}", torch.cat(got, 1),
+                                 torch.cat([attention_f64(q0, q1, w1),
+                                            attention_f64(q1, q0, w0)], 2).transpose(1, 2)
+                                 .reshape(b, n0 + n1, e), torch.cat(one, 1))
                 if tag == "bf16" and all(min(x) > 0 for x in lens or [[1, 1]]):
                     # per direction: (q, k, v) = (qk0, qk1, v1) and (qk1, qk0, v0)
                     len0, len1 = (None, None) if ln is None else (ln[:, 0], ln[:, 1])
@@ -1468,6 +1512,8 @@ def attention_kernel_checks(at, rand, freqs_for, dev, dtypes, fp32_scope, fused_
             if lens is not None:
                 zero_rows(f"{label} {tag} o0", got[0], lens, True)
                 zero_rows(f"{label} {tag} o1", got[1], [x[::-1] for x in lens], True)
+            if stats:  # not the FP32 rung's row: its error is logged above
+                continue
             ent = bidir_e if tag == "bf16" else fp32_ents["bidirectional_cross_attention"]
             ent.err(max(errs))
             if not weight:
@@ -1479,6 +1525,8 @@ def attention_kernel_checks(at, rand, freqs_for, dev, dtypes, fp32_scope, fused_
                 sdpa2 = cuda_ms(lambda: (two[0](), two[1]()))
             log(f"  {label} {tag}: two scaled_dot_product_attention calls (one per direction, "
                 f"not one call): {sdpa2:.4f} ms")
+            # per pad-to-64 match_pair, beside library_ms (null: no one call)
+            ent.d["two_sdpa_ms"] = weight * sdpa2
             nbytes = a0.element_size() * (2 * b * (n0 + n1) * e + b * (n0 + n1) * e)
             flops = 6 * b * heads * n0 * n1 * hd  # one S and two P.V products
             # library: none, no single PyTorch call computes both directions
@@ -2963,14 +3011,14 @@ def main() -> int:
                   "src/lightglue_tpu/kernels/layer_stack.py:801")
     ln_e = Entry("ln_gelu", "src/lightglue_tpu_torch/csrc/ln_gelu.cu",
                  "src/lightglue_tpu/kernels/layer_stack.py:801")
-    # the FP32 rung's instantiations (3xTF32 on the tensor cores, or FMA
-    # kernels): launches from its match_pair on each route (rung_end_to_end),
+    # the FP32 rung's instantiations (3xTF32 on the tensor cores, or fp32 on
+    # the FMA units): launches from its match_pair on each route (rung_end_to_end),
     # flash_attention's from its own call, the step's from the FP32 forward_ring
     src, ref = "src/lightglue_tpu_torch/csrc/", "src/lightglue_tpu/kernels/"
     fp32_ents = {
         "linear": Entry("linear (FP32: fp32 operands, 3xTF32)", src + "linear.cu",
                         ref + "layer_stack.py:801"),
-        "attention": Entry("attention (FP32: fp32 operands, FMA)", src + "attention.cu",
+        "attention": Entry("attention (FP32: fp32 operands, 3xTF32)", src + "attention.cu",
                            ref + "layer_stack.py:801"),
         "ln_gelu": Entry("ln_gelu (FP32)", src + "ln_gelu.cu", ref + "layer_stack.py:801"),
         "adaptive_decide": Entry("adaptive_decide (FP32)", src + "adaptive.cu",
@@ -2978,7 +3026,7 @@ def main() -> int:
         "fused_mha": Entry("fused_mha (FP32: fp32 operands, 3xTF32)", src + "flash_attn.cu",
                            ref + "attention.py:687"),
         "bidirectional_cross_attention": Entry(
-            "bidirectional_cross_attention (FP32: fp32 operands, FMA)", src + "bidir_cross.cu",
+            "bidirectional_cross_attention (FP32: fp32 operands, 3xTF32)", src + "bidir_cross.cu",
             ref + "attention.py:925"),
         "flash_attention": Entry("flash_attention (FP32: fp32 operands, 3xTF32)",
                                  src + "flash_attn.cu", ref + "attention.py:197"),
@@ -3093,15 +3141,21 @@ def main() -> int:
         return torch.cat([emb, emb], dim=-1).contiguous()
 
     att_cases = [
-        # label, Nq, Nk, rope, lengths (q, kv) or None, per-layer launches
-        ("self rope", BUCKET, BUCKET, True, None, 2),
-        ("cross", BUCKET, BUCKET, False, None, 2),
-        ("self masked", 768, 768, True, ([700], [700]), 0),
-        ("cross masked 768x1024", 768, BUCKET, False, ([700], [900]), 0),
-        ("cross length 0", 256, 512, False, ([0], [0]), 0),
+        # label, Nq, Nk, rope, lengths (q, kv) or None, per-layer launches,
+        # stats (None: the operands' dtype; bf16: fp32 operands with bf16
+        # stats only)
+        ("self rope", BUCKET, BUCKET, True, None, 2, None),
+        ("cross", BUCKET, BUCKET, False, None, 2, None),
+        ("self masked", 768, 768, True, ([700], [700]), 0, None),
+        ("cross masked 768x1024", 768, BUCKET, False, ([700], [900]), 0, None),
+        ("cross length 0", 256, 512, False, ([0], [0]), 0, None),
+        ("self rope masked, bf16 stats", 768, 768, True, ([700], [650]), 0, "bf16"),
     ]
-    for label, nq, nk, rope, lens, per_layer in att_cases:
+    for label, nq, nk, rope, lens, per_layer, stats in att_cases:
         for tag, dt in dtypes.items():
+            if stats and tag != "fp32":
+                continue
+            sdt = torch.bfloat16 if stats else dt
             if rope:  # q, k, v as column slices of one qkv projection
                 qkv = rand(1, nq, 3 * e, dtype=dt)
                 q, k, v = qkv[..., :e], qkv[..., e:2 * e], qkv[..., 2 * e:]
@@ -3116,14 +3170,18 @@ def main() -> int:
                 lq = torch.tensor(lens[0], dtype=torch.int32, device=dev)
                 lk = torch.tensor(lens[1], dtype=torch.int32, device=dev)
             with fp32_scope():
-                got = ls.attention(q, k, v, f, lq, lk, heads, dt)
-                want = ls.attention_plain(q, k, v, f, lq, lk, heads, dt)
-                err = compare(f"{label} {tag}", got, want, **TOL[tag])
+                got = ls.attention(q, k, v, f, lq, lk, heads, sdt)
+                want = ls.attention_plain(q, k, v, f, lq, lk, heads, sdt)
+                err = compare(f"{label} {tag}", got, want, **TOL["bf16" if stats else tag])
                 if tag == "bf16":
                     rounding_witness(f"{label} {tag}", got, want,
                                      stack_wrong_designs(q, k, v, f, lq, lk, heads))
+                elif per_layer:  # 3xTF32 against float64, one TF32 product the wrong design
+                    stack_tf32_witness(ls, f"{label} {tag}", got, q, k, v, f, heads)
             if lens and lens[0][0] == 0 and float(got.float().abs().max()) != 0.0:
                 raise AssertionError(f"{label} {tag}: length-0 rows are not exactly 0")
+            if stats:  # not the FP32 rung's row: its error is logged above
+                continue
             ent = att_e if tag == "bf16" else fp32_ents["attention"]
             ent.err(err)
             if not per_layer:

@@ -62,7 +62,8 @@ SPLIT_ONCE = [
      "  float* red = kv + TF32_STAGES * 2 * KC * FP;      // C > 1: [WARPS][16][RS]\n"
      "  uint2* kp = reinterpret_cast<uint2*>(red + WARPS * 16 * RS);  // [KC][FP] K pairs\n"
      "  uint2* vp = kp + KC * FP;                                     // [KC][VPP] V pairs"),
-    ("  // s = quant(Q.K^T * scale) over this warp's KW keys of chunk c, each K",
+    ("  // s = quant(Q.K^T * scale) over this warp's KW keys of chunk c\n"
+     "  // (mma.cuh:tf32_scores)",
      """  auto split_chunk = [&](int c, bool with_v) {
     const float* kr = kbuf(c);
     for (int s = tid; s < KC * D; s += blockDim.x) {
@@ -77,17 +78,21 @@ SPLIT_ONCE = [
     }
     __syncthreads();
   };
-  // s = quant(Q.K^T * scale) over this warp's KW keys of chunk c, each K"""),
-    ("    const float* kb = kbuf(c) + (part * KW + g) * FP + t4;",
-     "    const uint2* kb = kp + (part * KW + g) * FP + t4;"),
-    ("""        const float* kr = kb + n * 8 * FP + kk * 8;
-        unsigned bh0, bl0, bh1, bl1;
-        split_tf32_rz(kr[0], bh0, bl0);
-        split_tf32_rz(kr[4], bh1, bl1);
-        mma_3xtf32(s[n], qh[kk], ql[kk], bh0, bl0, bh1, bl1);""",
-     """        const uint2* kr = kb + n * 8 * FP + kk * 8;
+  // s = quant(Q.K^T * scale) over this warp's KW keys of chunk c
+  // (mma.cuh:tf32_scores)"""),
+    ("    tf32_scores<NT>(s, qh, ql, kbuf(c) + part * KW * FP, g, t4);",
+     """    const uint2* kb = kp + (part * KW + g) * FP + t4;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const uint2* kr = kb + n * 8 * FP + kk * 8;
         const uint2 b0 = kr[0], b1 = kr[4];
-        mma_3xtf32(s[n], qh[kk], ql[kk], b0.x, b0.y, b1.x, b1.y);"""),
+        mma_3xtf32(s[n], qh[kk], ql[kk], b0.x, b0.y, b1.x, b1.y);
+      }
+    }"""),
     ("""      if (c + 1 < nc) fetch(base, c + 1, false);  // the buffer of chunk c - 1
       land(c);""",
      """      if (c + 1 < nc) fetch(base, c + 1, false);  // the buffer of chunk c - 1
@@ -98,16 +103,22 @@ SPLIT_ONCE = [
      """      if (c + 1 < nc) fetch(base, c + 1, true);
       land(c);
       split_chunk(c, true);"""),
-    ("      const float* vb = kbuf(c) + KC * FP + (part * KW + 2 * t4) * FP + g;",
-     "      const uint2* vb = vp + (part * KW + 2 * t4) * VPP + g;"),
-    ("""          const float* vr = vb + kk * 8 * FP + dn * 8;
-          unsigned bh0, bl0, bh1, bl1;
-          split_tf32_rz(vr[0], bh0, bl0);
-          split_tf32_rz(vr[FP], bh1, bl1);
-          mma_3xtf32(pv[dn], ah, al, bh0, bl0, bh1, bl1);""",
-     """          const uint2* vr = vb + kk * 8 * VPP + dn * 8;
+    ("      tf32_pv<NT>(pv, s, kbuf(c) + KC * FP + part * KW * FP, g, t4);",
+     """      const uint2* vb = vp + (part * KW + 2 * t4) * VPP + g;
+#pragma unroll
+      for (int kk = 0; kk < NT; ++kk) {
+        unsigned ah[4], al[4];
+        split_tf32_rz(s[kk][0], ah[0], al[0]);
+        split_tf32_rz(s[kk][2], ah[1], al[1]);
+        split_tf32_rz(s[kk][1], ah[2], al[2]);
+        split_tf32_rz(s[kk][3], ah[3], al[3]);
+#pragma unroll
+        for (int dn = 0; dn < D / 8; ++dn) {
+          const uint2* vr = vb + kk * 8 * VPP + dn * 8;
           const uint2 b0 = vr[0], b1 = vr[VPP];
-          mma_3xtf32(pv[dn], ah, al, b0.x, b0.y, b1.x, b1.y);"""),
+          mma_3xtf32(pv[dn], ah, al, b0.x, b0.y, b1.x, b1.y);
+        }
+      }"""),
     ("  constexpr size_t smem = tf32_smem(C, TF32_STAGES);",
      "  constexpr size_t smem = tf32_smem(C, TF32_STAGES) +\n"
      "      (C > 1 ? 0 : sizeof(float) * WARPS * 16 * RS) + sizeof(uint2) * KC * (FP + VPP);"),
@@ -116,10 +127,11 @@ SPLIT_ONCE = [
 
 def rounded_split(text):
     """The kernels' split by rounding (mma.cuh:split_tf32, cvt.rna for hi and
-    for lo) in place of their split by truncation (split_tf32_rz)."""
-    if "split_tf32_rz(" not in text:
-        raise RuntimeError("variant: the source has no split_tf32_rz")
-    return text.replace("split_tf32_rz(", "split_tf32(")
+    for lo) in place of their split by truncation (split_tf32_rz) at every
+    call in ``text``; the definition of split_tf32_rz stays."""
+    return (text.replace("void split_tf32_rz(", "void SPLIT_TF32_RZ(")
+            .replace("split_tf32_rz(", "split_tf32(")
+            .replace("void SPLIT_TF32_RZ(", "void split_tf32_rz("))
 
 
 def replaced(pairs):
@@ -200,8 +212,9 @@ def main():
                                                         tune.same, tune.same),
               "split once per chunk": tune.build("fp32flash_once", "flash_attn.cu", tune.same,
                                                  replaced(SPLIT_ONCE)),
-              "split by rounding": tune.build("fp32flash_rna", "flash_attn.cu", tune.same,
-                                              rounded_split)}
+              # flash_attn.cu's splits are mma.cuh's tf32_* helpers
+              "split by rounding": tune.build("fp32flash_rna", "flash_attn.cu", rounded_split,
+                                              tune.same)}
     lin_builds = {name: tune.build("fp32lin_" + str(i), "linear.cu", tune.same, patch)
                   for i, (name, patch) in enumerate(LINEAR.items())}
     if len(sys.argv) > 1:  # the parent's kernels, timed beside

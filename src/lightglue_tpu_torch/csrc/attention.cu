@@ -32,7 +32,7 @@
 //
 // Bound on the H100: per head 4*Nq*Nk*D FLOP against (Nq+2*Nk)*D operands,
 // so at N = 1024 the tensor cores bound it (~1.1 us per call at the bf16
-// peak, B = 1, H = 4).
+// peak, B = 1, H = 4; ~6.5 us in fp32 at three TF32 products a product).
 //
 // The BF16 kernel (attention_mma_kernel) is flash_attn.cu's machinery
 // (mma.cuh) at one tile of block_k = Nk:
@@ -61,10 +61,10 @@
 //   5. Q, K and V are column slices of one (B, N, H*64) projection (row
 //      stride 3E for self qkv, 2E for cross [qk | v]); rows not on 16 B
 //      are staged by element loads (mma.cuh:stage_rows).
-// - RoPE runs once, in mma.cuh's rope_kernel, over q and k into a bf16
-//   scratch (lg_rope_qk, which the wrapper launches first); the kernel then
-//   reads rotated rows. Rotating K in every block that reads it cost more
-//   than the attention at N = 2048 (flash_attn.cu, PR 5).
+// - RoPE runs once, in mma.cuh's rope_kernel, over q and k into a scratch
+//   of their type (lg_rope_qk, which the wrapper launches first); the
+//   kernel then reads rotated rows. Rotating K in every block that reads it
+//   cost more than the attention at N = 2048 (measured in flash_attn.cu).
 // - The output type TO is bf16 (the BF16 and INT8 rungs) or fp32 (MIXED:
 //   bf16 operands, fp32 stats, o.astype(fp32) with no rounding, :472/:559).
 // - dir1 (the cross block's direction 1 at MIXED): the reference takes that
@@ -80,11 +80,34 @@
 //   keys, 256 blocks); the split warps' row max, sum p and P.V meet in
 //   shared memory, which changes only the order of fp32 sums.
 //
-// The FP32 kernel (attention_kernel, the fp32 rung) stays on the FMA units:
-// one TF32 mma would miss the 1e-4 gate of the fp32 rung. One block per 16
-// query rows keeps the whole 16 x Nk row block of S in shared memory and
-// takes max, exp, sum and P.V in that order, with RoPE applied as it stages
-// Q and K.
+// The FP32 kernel (attention_tf32_kernel: fp32 operands and out, with fp32
+// or bf16 stats) runs the same two passes and the same contract on the
+// tensor cores in 3xTF32: one TF32 product keeps about three decimal
+// digits and misses the fp32 rung's 1e-4 gate, so every product is
+// hi*lo + lo*hi + hi*hi of operands split by truncation
+// (mma.cuh:split_tf32_rz) on mma.sync m16n8k8. It is flash_attn.cu's
+// flash_tf32_kernel at one whole-row tile (block_k = Nk <= 1024), built from
+// the same mma.cuh pieces: Q split once into register fragments
+// (tf32_q_frags); S per chunk (tf32_scores), recomputed bit for bit in pass
+// 2; P from the S accumulator into P.V's A operand unshuffled, V read at
+// keys 2 t4 and 2 t4 + 1 (tf32_pv); K and V staged as raw fp32 at pitch FP
+// in 64-key chunks through a two-stage cp.async ring and split as their
+// fragments load; the split warps meet in shared memory (meet_max,
+// meet_sums). Where the stack's contract differs from the flash kernel's,
+// it keeps the bf16 kernel's items 1-5 above on the tf32 accumulator
+// layout, whose element e of n-tile n is row g + 8 (e / 2), key
+// 2 t4 + (e & 1) as in m16n8k16: so the clamp, the dead-column selects and
+// the keep multiply are the bf16 kernel's lines. A block holds G 16-row
+// groups of C warps each: the bf16 kernel's row groups (fill_row_groups,
+// G * C = 4), except where that is one group whose four warps split each
+// chunk and two groups still give FILL_BLOCKS / 2 blocks: then two groups
+// share a block of eight warps (tf32_plan), which halves the K and V reads
+// through L2 a query row at the same warps an SM (at B = 1, H = 4,
+// N = 1024: 1.96 against 2.45-2.50 ms per pair,
+// scripts/tune_torch_fp32_stack_bidir.py on an H100 at 700 W). Its shared
+// memory is mma.cuh:tf32_smem (kernels/layer_stack.py:attention_plan
+// mirrors both, lg_attention_plan). RoPE runs first, in rope_kernel<float>,
+// into an fp32 scratch.
 
 #include <math.h>
 
@@ -94,131 +117,167 @@ namespace {
 
 using namespace lg;  // Operand, row_ptr and the tensor-core helpers (mma.cuh)
 
-constexpr int D = HD;        // head dim
-constexpr int BQ = 16;       // query rows per block (FP32 kernel)
-constexpr int THREADS = 256;
+constexpr int D = HD;  // head dim
 constexpr float NEG = -1e30f;
 constexpr float DEAD = -5e29f;
 
 // ---------------------------------------------------------------------------
-// The FP32 kernel: products on the FMA units
+// The FP32 kernel: both products on the tensor cores in 3xTF32 (m16n8k8)
 // ---------------------------------------------------------------------------
 
-template <bool KEEP>
-__global__ void __launch_bounds__(THREADS, 2)
-attention_kernel(Operand q, Operand k, Operand v, const float* __restrict__ freqs,
-                 const int* __restrict__ len_q, const int* __restrict__ len_kv,
-                 const float* __restrict__ keep_q,
-                 const float* __restrict__ keep_kv,
-                 const float* __restrict__ exit_reg, int layer,
-                 float* __restrict__ out, int Nq, int Nk, int H, float scale,
-                 int quant) {
-  using T = float;
-  extern __shared__ float smem[];
-  float* qs = smem;                 // [BQ][D]
-  float* kv = qs + BQ * D;          // [KC][D + 1]
-  float* ss = kv + KC * (D + 1);    // [BQ][Nk]
-  float* ls = ss + BQ * Nk;         // [BQ]
+template <bool KEEP, int G, int C>
+__global__ void __launch_bounds__(G * C * 32, G * C > WARPS ? 1 : 2)
+attention_tf32_kernel(Operand q, Operand k, Operand v, const int* __restrict__ len_q,
+                      const int* __restrict__ len_kv, const float* __restrict__ keep_q,
+                      const float* __restrict__ keep_kv, const float* __restrict__ exit_reg,
+                      int layer, float* __restrict__ out, int Nq, int Nk, int H, float scale,
+                      int quant, int dir1, int aligned) {
+  constexpr int BR = 16 * G;   // rows per block
+  constexpr int KW = KC / C;   // keys of each chunk per warp
+  constexpr int NT = KW / 8;   // S n-tiles per warp and chunk (= P.V k steps)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* qs = reinterpret_cast<float*>(smem_raw);  // [BR][FP]
+  float* kv = qs + BR * FP;                         // [TF32_STAGES][K, V][KC][FP]
+  float* red = kv + TF32_STAGES * 2 * KC * FP;      // C > 1: [G * C][16][RS]
 
-  const int tid = threadIdx.x;
-  const int b = blockIdx.z, h = blockIdx.y, i0 = blockIdx.x * BQ;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int rg = warp / C, part = warp % C;  // 16-row group, share of each chunk's keys
+  const int g = lane / 4, t4 = lane % 4;     // mma fragment row and column
+  const int b = blockIdx.z, h = blockIdx.y, i0 = blockIdx.x * BR;
   if (exit_reg && !(exit_reg[b] > static_cast<float>(layer))) return;
   const bool masked = KEEP || len_q != nullptr;
-  const int lq = len_q ? len_q[b] : Nq;
-  const int lk = len_kv ? len_kv[b] : Nk;
+  const int lq = (!KEEP && len_q) ? len_q[b] : Nq;
+  // keys that can be live: every key under KEEP, the valid prefix with lengths
+  const int live_k = (!KEEP && len_kv) ? max(min(len_kv[b], Nk), 0) : Nk;
   const float* kq = KEEP ? keep_q + (size_t)b * Nq : nullptr;
   const float* kk = KEEP ? keep_kv + (size_t)b * Nk : nullptr;
-  const float* fb = freqs ? freqs + (size_t)b * 2 * Nq * D : nullptr;
+  float* ob = out + (size_t)b * Nq * H * D + h * D;  // row gi at ob + gi * H * D
 
-  for (int i = tid; i < BQ * D; i += THREADS) {
-    const int r = i / D, d = i % D;
-    qs[i] = i0 + r < Nq ? lg::to_f(row_ptr<T>(q, b, h, i0 + r)[d]) : 0.f;
+  if (!KEEP && i0 >= lq) {  // a block wholly past q_len: zeros
+    for (int i = tid; i < BR * D; i += blockDim.x)
+      if (i0 + i / D < Nq) ob[(size_t)(i0 + i / D) * H * D + i % D] = 0.f;
+    return;
   }
+
+  // Q into registers, split once: this warp's 16 rows as D / 8 (hi, lo) A
+  // fragments
+  stage_rows(qs, q, b, h, i0, BR, min(BR, Nq - i0), aligned);
+  cp_async_commit();
+  cp_async_wait<0>();
   __syncthreads();
-  if (fb) {
-    lg::rope_rows<T, D>(qs, D, min(BQ, Nq - i0), i0, fb, Nq);
-    __syncthreads();
-  }
+  unsigned qh[D / 8][4], ql[D / 8][4];
+  tf32_q_frags(qs + rg * 16 * FP, g, t4, qh, ql);
 
-  // S = quant(Q.K^T * scale), masked columns -1e30
-  const int cj = tid % KC;  // this thread's key within a chunk / output dim
-  const int r0 = tid / KC;  // rows r0, r0+4, r0+8, r0+12
-  for (int j0 = 0; j0 < Nk; j0 += KC) {
-    const int jn = min(KC, Nk - j0);
-    for (int i = tid; i < KC * D; i += THREADS) {
-      const int j = i / D, d = i % D;
-      kv[j * (D + 1) + d] = j < jn ? lg::to_f(row_ptr<T>(k, b, h, j0 + j)[d]) : 0.f;
-    }
+  // chunks over the keys that can be live, two buffers: chunk c + 1 copies
+  // while chunk c is in use (pass 1 K only, pass 2 K and V)
+  const int nc = (live_k + KC - 1) / KC;
+  auto kbuf = [&](int c) { return kv + (c & 1) * 2 * KC * FP; };
+  auto fetch = [&](int c, bool with_v) {
+    const int jn = min(KC, Nk - c * KC);
+    stage_rows(kbuf(c), k, b, h, c * KC, KC, jn, aligned);
+    if (with_v) stage_rows(kbuf(c) + KC * FP, v, b, h, c * KC, KC, jn, aligned);
+    cp_async_commit();
+  };
+  auto land = [&](int c) {  // chunk c has landed (chunk c + 1 may be in flight)
+    if (c + 1 < nc)
+      cp_async_wait<1>();
+    else
+      cp_async_wait<0>();
     __syncthreads();
-    if (fb) {
-      lg::rope_rows<T, D>(kv, D + 1, jn, j0, fb, Nk);
-      __syncthreads();
-    }
-    if (cj < jn) {
-      const bool dead_col = KEEP ? kk[j0 + cj] < 0.5f : (masked && j0 + cj >= lk);
+  };
+  // s = quant(Q.K^T * scale) over this warp's KW keys of chunk c
+  // (mma.cuh:tf32_scores), masked as the bf16 kernel's: pad columns past
+  // Nk are -inf, dead columns (keep < 0.5, or at or past kv_len) -1e30;
+  // without keep masks only the chunk that holds kv_len or Nk has any
+  auto scores = [&](float (&s)[NT][4], int c) {
+    tf32_scores<NT>(s, qh, ql, kbuf(c) + part * KW * FP, g, t4);
+    const int c0 = c * KC;
+    const bool ragged = KEEP || c0 + KC > live_k;
 #pragma unroll
-      for (int rr = 0; rr < BQ / 4; ++rr) {
-        const int r = r0 + 4 * rr;
-        float dot = 0.f;
-#pragma unroll 16
-        for (int d = 0; d < D; ++d) dot = fmaf(qs[r * D + d], kv[cj * (D + 1) + d], dot);
-        float s = lg::quant_stat(dot * scale, quant);
-        if (dead_col) s = NEG;
-        ss[r * Nk + j0 + cj] = s;
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = c0 + part * KW + n * 8 + 2 * t4 + (e & 1);
+        float x = lg::quant_stat(s[n][e] * scale, quant);
+        if (ragged) {
+          const bool pad = col >= Nk;
+          const bool dead = KEEP ? !pad && __ldg(kk + col) < 0.5f : col >= live_k;
+          x = pad ? -INFINITY : (dead ? NEG : x);
+        }
+        s[n][e] = x;
       }
     }
-    __syncthreads();
-  }
+  };
 
-  // row max, p = quant(exp(s - m)), l = quant(sum p): one warp per 2 rows
-  const int warp = tid / 32, lane = tid % 32;
-  for (int rr = 0; rr < 2; ++rr) {
-    const int r = 2 * warp + rr;
-    float* srow = ss + r * Nk;
-    float m = -INFINITY;
-    for (int j = lane; j < Nk; j += 32) m = fmaxf(m, srow[j]);
-    m = lg::quant_stat(lg::warp_max(m), quant);
-    if (masked) m = fmaxf(m, DEAD);
-    float sum = 0.f;
-    for (int j = lane; j < Nk; j += 32) {
-      const float p = lg::quant_stat(expf(srow[j] - m), quant);
-      srow[j] = p;
-      sum += p;
-    }
-    sum = lg::quant_stat(lg::warp_sum(sum), quant);
-    if (lane == 0) ls[r] = sum;
-  }
-
-  // O = P.V with P cast to the operand type
-  float acc[BQ / 4] = {};
-  for (int j0 = 0; j0 < Nk; j0 += KC) {
-    const int jn = min(KC, Nk - j0);
-    __syncthreads();  // previous chunk (or the stats pass) is done
-    for (int i = tid; i < KC * D; i += THREADS) {
-      const int j = i / D, d = i % D;
-      kv[j * (D + 1) + d] = j < jn ? lg::to_f(row_ptr<T>(v, b, h, j0 + j)[d]) : 0.f;
-    }
-    __syncthreads();
-    for (int j = 0; j < jn; ++j) {
-      const float vv = kv[j * (D + 1) + cj];
+  // pass 1: the row max
+  float mx[2] = {-INFINITY, -INFINITY};
+  if (nc) fetch(0, false);
+  for (int c = 0; c < nc; ++c) {
+    if (c + 1 < nc) fetch(c + 1, false);  // the buffer of chunk c - 1
+    land(c);
+    float s[NT][4];
+    scores(s, c);
 #pragma unroll
-      for (int rr = 0; rr < BQ / 4; ++rr)
-        acc[rr] = fmaf(lg::round_to<T>(ss[(r0 + 4 * rr) * Nk + j0 + j]), vv, acc[rr]);
+    for (int n = 0; n < NT; ++n) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
     }
+    __syncthreads();  // this buffer is free for the next fetch
+  }
+  mx[0] = quad_max(mx[0]);
+  mx[1] = quad_max(mx[1]);
+  meet_max<C>(mx, red, warp, g, t4);
+  float m[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    m[i] = lg::quant_stat(mx[i], quant);
+    if (masked) m[i] = fmaxf(m[i], DEAD);
   }
 
+  // pass 2: the same S again, p, sum p and P.V (mma.cuh:tf32_pv; P is fp32,
+  // its cast to the fp32 V type the identity)
+  float ps[2] = {0.f, 0.f};
+  float pv[D / 8][4];
 #pragma unroll
-  for (int rr = 0; rr < BQ / 4; ++rr) {
-    const int r = r0 + 4 * rr;
-    const int gi = i0 + r;
+  for (int n = 0; n < D / 8; ++n) pv[n][0] = pv[n][1] = pv[n][2] = pv[n][3] = 0.f;
+  if (nc) fetch(0, true);
+  for (int c = 0; c < nc; ++c) {
+    if (c + 1 < nc) fetch(c + 1, true);
+    land(c);
+    float s[NT][4];
+    scores(s, c);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = lg::quant_stat(expf(s[n][e] - m[e / 2]), quant);
+        s[n][e] = p;
+        ps[e / 2] += dir1 ? lg::round_to<float>(p) : p;  // direction 1 sums P in the V type
+      }
+    }
+    tf32_pv<NT>(pv, s, kbuf(c) + KC * FP + part * KW * FP, g, t4);
+    __syncthreads();  // this buffer is free for the next fetch
+  }
+  ps[0] = quad_sum(ps[0]);
+  ps[1] = quad_sum(ps[1]);
+  meet_sums<C>(ps, pv, red, warp, g, t4);
+
+  if (part != 0) return;  // the C warps of a row group hold the same rows
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int gi = i0 + rg * 16 + g + 8 * i;
     if (gi >= Nq) continue;
-    const float l = ls[r];
-    float o = acc[rr] / (l == 0.f ? 1.f : l);
-    if (KEEP)
-      o *= kq[gi];
-    else if (masked && gi >= lq)
-      o = 0.f;
-    out[((size_t)b * Nq + gi) * H * D + h * D + cj] = lg::from_f<T>(o);
+    const float l = lg::quant_stat(ps[i], quant);
+    const float den = l == 0.f ? 1.f : l;
+    const bool zero = !KEEP && masked && gi >= lq;
+    const float keep = KEEP ? kq[gi] : 1.f;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      float x0 = pv[n][2 * i] / den, x1 = pv[n][2 * i + 1] / den;
+      if (KEEP) x0 *= keep, x1 *= keep;
+      if (zero) x0 = x1 = 0.f;
+      store2(ob + (size_t)gi * H * D + n * 8 + 2 * t4, x0, x1);
+    }
   }
 }
 
@@ -454,28 +513,48 @@ attention_mma_kernel(Operand q, Operand k, Operand v, const int* __restrict__ le
 // launches
 // ---------------------------------------------------------------------------
 
-template <bool KEEP>
-int launch_fma(Operand q, Operand k, Operand v, const void* freqs, const void* len_q,
-               const void* len_kv, const void* keep_q, const void* keep_kv,
-               const void* exit_reg, int layer, void* out, int B, int Nq, int Nk, int H,
-               float scale, int quant, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (BQ * D + KC * (D + 1) + BQ * Nk + BQ);
-  static size_t opted_in = 48 * 1024;  // raised once per size, not per launch
-  if (smem > opted_in) {
-    cudaError_t err = cudaFuncSetAttribute(
-        attention_kernel<KEEP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    opted_in = smem;
-  }
-  dim3 grid((Nq + BQ - 1) / BQ, H, B);
-  attention_kernel<KEEP><<<grid, THREADS, smem, stream>>>(
-      q, k, v, static_cast<const float*>(freqs),
-      static_cast<const int*>(len_q), static_cast<const int*>(len_kv),
+template <bool KEEP, int G, int C>
+int launch_tf32(Operand q, Operand k, Operand v, const void* len_q, const void* len_kv,
+                const void* keep_q, const void* keep_kv, const void* exit_reg, int layer,
+                void* out, int B, int Nq, int Nk, int H, float scale, int quant, int dir1,
+                cudaStream_t stream) {
+  constexpr size_t smem = tf32_smem(C, TF32_STAGES, G);
+  static const cudaError_t opt_in =  // above 48 KB: opt in once
+      cudaFuncSetAttribute(attention_tf32_kernel<KEEP, G, C>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
+  const int aligned = aligned16(q) && aligned16(k) && aligned16(v);
+  dim3 grid((Nq + 16 * G - 1) / (16 * G), H, B);
+  attention_tf32_kernel<KEEP, G, C><<<grid, G * C * 32, smem, stream>>>(
+      q, k, v, static_cast<const int*>(len_q), static_cast<const int*>(len_kv),
       static_cast<const float*>(keep_q), static_cast<const float*>(keep_kv),
-      static_cast<const float*>(exit_reg), layer, static_cast<float*>(out), Nq,
-      Nk, H, scale, quant);
+      static_cast<const float*>(exit_reg), layer, static_cast<float*>(out), Nq, Nk, H, scale,
+      quant, dir1, aligned);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The FP32 kernel's block at this shape: G 16-row groups of C warps. The
+// bf16 kernel's groups with WARPS warps, but two one-group rows (C = 4) in
+// one block of eight warps where that still gives FILL_BLOCKS / 2 blocks.
+inline void tf32_plan(int B, int H, int Nq, int& G, int& C) {
+  G = fill_row_groups(B, H, Nq);
+  C = WARPS / G;
+  if (G == 1 && (long long)B * H * ((Nq + 31) / 32) >= FILL_BLOCKS / 2) G = 2;
+}
+
+template <bool KEEP>
+int launch_fp32(Operand q, Operand k, Operand v, const void* len_q, const void* len_kv,
+                const void* keep_q, const void* keep_kv, const void* exit_reg, int layer,
+                void* out, int B, int Nq, int Nk, int H, float scale, int quant, int dir1,
+                cudaStream_t s) {
+  int G, C;
+  tf32_plan(B, H, Nq, G, C);
+  auto run = G == 4   ? launch_tf32<KEEP, 4, 1>
+             : G == 1 ? launch_tf32<KEEP, 1, 4>
+             : C == 2 ? launch_tf32<KEEP, 2, 2>
+                      : launch_tf32<KEEP, 2, 4>;
+  return run(q, k, v, len_q, len_kv, keep_q, keep_kv, exit_reg, layer, out, B, Nq, Nk, H, scale,
+             quant, dir1, s);
 }
 
 template <bool KEEP, int C, typename TO>
@@ -527,23 +606,21 @@ enum Mode { FP32 = 0, BF16 = 1, BF16_F32_OUT = 2 };
 }  // namespace
 
 // q: rows of Nq, k/v: rows of Nk; head h of a row at columns [h*64, h*64+64),
-// addressed by (batch, row) strides in elements. freqs: (B, 2, N, 64) fp32
-// [cos; sin] with Nq == Nk == N, or null for no RoPE; with bf16 operands it
-// must be null: the caller rotates q and k first (lg_rope_qk) and passes the
-// rotated rows. len_q/len_kv: (B,) int32, both null for the unmasked
-// variant. keep_q/keep_kv: (B, Nq)/(B, Nk) fp32 0/1 keep masks, both null
-// or both set (then the lengths are ignored). exit_reg: (B,) fp32 or null;
-// layer: the global layer index. out: (B, Nq, H*64). mode: FP32 (fp32
-// operands and out, the FMA kernel), BF16 (bf16 operands and out) or
-// BF16_F32_OUT (bf16 operands, fp32 out); the bf16-operand modes run
-// attention_mma_kernel with mma.cuh:fill_row_groups' 16-row groups per
-// block (kernels/layer_stack.py:attention_plan mirrors it). dir1: the row
-// sum takes p rounded to bf16 (the cross block's direction 1).
+// addressed by (batch, row) strides in elements; with RoPE the caller has
+// rotated q and k first (lg_rope_qk) and passes the rotated rows.
+// len_q/len_kv: (B,) int32, both null for the unmasked variant.
+// keep_q/keep_kv: (B, Nq)/(B, Nk) fp32 0/1 keep masks, both null or both set
+// (then the lengths are ignored). exit_reg: (B,) fp32 or null; layer: the
+// global layer index. out: (B, Nq, H*64). mode: FP32 (fp32 operands and out,
+// attention_tf32_kernel at tf32_plan's blocks), BF16 (bf16 operands and out)
+// or BF16_F32_OUT (bf16 operands, fp32 out), the last two
+// attention_mma_kernel at mma.cuh:fill_row_groups' 16-row groups per block
+// (kernels/layer_stack.py:attention_plan mirrors both). dir1: the row sum
+// takes p rounded to the operand type (the cross block's direction 1).
 extern "C" int lg_attention(const void* q, long long q_bs, long long q_rs,
                             const void* k, long long k_bs, long long k_rs,
                             const void* v, long long v_bs, long long v_rs,
-                            const void* freqs, const void* len_q,
-                            const void* len_kv, const void* keep_q,
+                            const void* len_q, const void* len_kv, const void* keep_q,
                             const void* keep_kv, const void* exit_reg,
                             int layer, void* out, int B, int Nq, int Nk,
                             int H, float scale, int quant, int mode, int dir1,
@@ -552,29 +629,42 @@ extern "C" int lg_attention(const void* q, long long q_bs, long long q_rs,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool keep = keep_q != nullptr;
   if (mode == FP32)
-    return (keep ? launch_fma<true> : launch_fma<false>)(
-        oq, ok, ov, freqs, len_q, len_kv, keep_q, keep_kv, exit_reg, layer, out, B, Nq, Nk, H,
-        scale, quant, s);
-  if (freqs || (mode != BF16 && mode != BF16_F32_OUT))
-    return static_cast<int>(cudaErrorInvalidValue);
+    return (keep ? launch_fp32<true> : launch_fp32<false>)(
+        oq, ok, ov, len_q, len_kv, keep_q, keep_kv, exit_reg, layer, out, B, Nq, Nk, H, scale,
+        quant, dir1, s);
+  if (mode != BF16 && mode != BF16_F32_OUT) return static_cast<int>(cudaErrorInvalidValue);
   auto run = mode == BF16 ? (keep ? launch_bf16<true, bf16_t> : launch_bf16<false, bf16_t>)
                           : (keep ? launch_bf16<true, float> : launch_bf16<false, float>);
   return run(oq, ok, ov, len_q, len_kv, keep_q, keep_kv, exit_reg, layer, out, B, Nq, Nk, H,
              scale, quant, dir1, s);
 }
 
-// The bf16 self-attention's RoPE pre-pass: q and k ((B, N, H*64) bf16 rows
-// addressed by (batch, row) strides) rotated with freqs (B, 2, N, 64) fp32
-// into rot (2, B, N, H*64) bf16, which lg_attention then reads as q and k.
+// The self-attention's RoPE pre-pass: q and k ((B, N, H*64) rows of the
+// mode's operand type, addressed by (batch, row) strides) rotated with freqs
+// (B, 2, N, 64) fp32 into rot (2, B, N, H*64) of that type, which
+// lg_attention then reads as q and k.
 extern "C" int lg_rope_qk(const void* q, long long q_bs, long long q_rs, const void* k,
                           long long k_bs, long long k_rs, const void* freqs, void* rot, int B,
-                          int N, int H, void* stream) {
+                          int N, int H, int mode, void* stream) {
   const Operand oq{q, q_bs, D, q_rs}, ok{k, k_bs, D, k_rs};
-  return static_cast<int>(rope_qk(oq, ok, static_cast<const float*>(freqs),
-                                  static_cast<bf16_t*>(rot), B, N, H,
-                                  static_cast<cudaStream_t>(stream)));
+  const float* f = static_cast<const float*>(freqs);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(mode == FP32 ? rope_qk(oq, ok, f, static_cast<float*>(rot), B, N, H, s)
+                                       : rope_qk(oq, ok, f, static_cast<bf16_t*>(rot), B, N, H, s));
 }
 
 // The 16-row groups per block of lg_attention's bf16 kernel at this shape
-// (the wrapper's plan is held against it).
+// (the wrapper's plan and flash_plan are held against it).
 extern "C" int lg_attention_row_groups(int B, int H, int Nq) { return fill_row_groups(B, H, Nq); }
+
+// lg_attention's block at this shape in this mode: out = {16-row groups,
+// warps of a group splitting each chunk's keys, dynamic shared memory in
+// bytes} (the wrapper's attention_plan is held against it).
+extern "C" int lg_attention_plan(int B, int H, int Nq, int mode, int* out) {
+  int G = fill_row_groups(B, H, Nq), C = WARPS / G;
+  if (mode == FP32) tf32_plan(B, H, Nq, G, C);
+  out[0] = G;
+  out[1] = C;
+  out[2] = static_cast<int>(mode == FP32 ? tf32_smem(C, TF32_STAGES, G) : mma_smem(C, 2));
+  return 0;
+}

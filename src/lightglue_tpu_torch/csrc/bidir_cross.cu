@@ -22,7 +22,8 @@
 // Bound on the H100: per head 2 * 2 * N0 * N1 * D FLOP for the two P.V
 // products and 2 * N0 * N1 * D for S (the TPU kernel's one S; here each
 // direction computes it twice), against (2 N0 + 2 N1) * D operands:
-// tensor-core bound (~0.013 ms at 960 x 960, B = 1, H = 4).
+// tensor-core bound (~0.013 ms at 960 x 960, B = 1, H = 4, in bf16; ~0.077
+// ms in fp32 at three TF32 products a product).
 //
 // The BF16 kernel (bidir_mma_kernel) is attention.cu's two-pass whole-row
 // softmax on mma.cuh's machinery, both directions in one grid:
@@ -56,11 +57,21 @@
 //   give 1 group, 480 blocks, 0.081 ms; 64 give 4 groups, 0.064 ms
 //   (scripts/tune_torch_bidir.py on an H100 at 700 W).
 //
-// The FP32 kernel (bidir_kernel, the fp32 rung) stays on the FMA units: one
-// TF32 mma would miss the 1e-4 gate. A block per 16 rows of either direction
-// keeps its 16 x Nk slab of S in shared memory (64 KB at Nk = 1024, which
-// the model's _BIDIR_MAX_N gate guarantees) and takes max, exp, sum and P.V
-// in the reference's order.
+// The FP32 kernel (bidir_tf32_kernel: fp32 operands and out, fp32 or bf16
+// stats) is the same grid and the same contract on the tensor cores in
+// 3xTF32 (one TF32 product misses the fp32 rung's 1e-4 gate): every product
+// hi*lo + lo*hi + hi*hi of operands split by truncation on mma.sync
+// m16n8k8, from mma.cuh's pieces of flash_attn.cu's flash_tf32_kernel (Q
+// split once into register fragments, tf32_q_frags; S per chunk,
+// tf32_scores, recomputed bit for bit in pass 2; P from the S accumulator
+// into P.V unshuffled, tf32_pv; K and V raw fp32 at pitch FP through the
+// two-stage cp.async ring, split as their fragments load; meet_max and
+// meet_sums where warps split the keys). Its shared memory does not grow
+// with N (mma.cuh:tf32_smem); its row groups are the bf16 kernel's, aiming
+// for BIDIR_FILL_BLOCKS (kernels/attention.py:bidir_plan mirrors both): at
+// 960 x 960 (B = 1, H = 4) 128 blocks give 2 groups, 240 blocks, 0.080 ms;
+// 256 give 1 group, 480 blocks, 0.124 ms; 64 give 4 groups, 0.089 ms
+// (scripts/tune_torch_fp32_stack_bidir.py on an H100 at 700 W).
 
 #include <math.h>
 
@@ -70,127 +81,155 @@ namespace {
 
 using namespace lg;  // Operand, row_ptr and the tensor-core helpers (mma.cuh)
 
-constexpr int D = HD;        // head dim
-constexpr int BQ = 16;       // query rows per block (FP32 kernel)
-constexpr int THREADS = 256;
+constexpr int D = HD;  // head dim
 constexpr float NEG = -1e30f;
-constexpr int BIDIR_FILL_BLOCKS = 128;  // blocks the BF16 kernel's row-group rule aims for
+constexpr int BIDIR_FILL_BLOCKS = 128;  // blocks the row-group rule aims for (both kernels)
 
 // ---------------------------------------------------------------------------
-// The FP32 kernel: products on the FMA units
+// The FP32 kernel: both products on the tensor cores in 3xTF32 (m16n8k8)
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(THREADS, 2)
-bidir_kernel(Operand qk0, Operand qk1, Operand v0, Operand v1, const int* __restrict__ lens,
-             float* __restrict__ o0, float* __restrict__ o1, int N0, int N1, int H, float scale,
-             int quant, int stripes0) {
-  using T = float;
-  extern __shared__ float smem[];
-  const int bx = blockIdx.x;
-  const bool dir1 = bx >= stripes0;  // image 1's rows attend to image 0
+template <int C>
+__global__ void __launch_bounds__(WARPS * 32, 2)
+bidir_tf32_kernel(Operand qk0, Operand qk1, Operand v0, Operand v1, const int* __restrict__ lens,
+                  float* __restrict__ o0, float* __restrict__ o1, int N0, int N1, int H,
+                  float scale, int quant, int blocks0, int aligned) {
+  constexpr int BR = 16 * (WARPS / C);  // rows per block
+  constexpr int KW = KC / C;            // keys of each chunk per warp
+  constexpr int NT = KW / 8;            // S n-tiles per warp and chunk (= P.V k steps)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* qs = reinterpret_cast<float*>(smem_raw);  // [BR][FP]
+  float* kv = qs + BR * FP;                         // [TF32_STAGES][K, V][KC][FP]
+  float* red = kv + TF32_STAGES * 2 * KC * FP;      // C > 1: [WARPS][16][RS]
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int rg = warp / C, part = warp % C;  // 16-row group, share of each chunk's keys
+  const int g = lane / 4, t4 = lane % 4;     // mma fragment row and column
+  const bool dir1 = blockIdx.x >= blocks0;   // image 1's rows attend to image 0
   const int b = blockIdx.z, h = blockIdx.y;
-  const int i0 = (dir1 ? bx - stripes0 : bx) * BQ;
+  const int i0 = (dir1 ? blockIdx.x - blocks0 : blockIdx.x) * BR;
   const Operand q = dir1 ? qk1 : qk0;
   const Operand k = dir1 ? qk0 : qk1;
   const Operand v = dir1 ? v0 : v1;
-  T* out = dir1 ? o1 : o0;
   const int Nq = dir1 ? N1 : N0, Nk = dir1 ? N0 : N1;
   const int lq = lens ? lens[2 * b + dir1] : Nq;
-  const int lk = lens ? lens[2 * b + !dir1] : Nk;
+  // keys that can be live: the other image's valid prefix
+  const int live_k = lens ? max(min(lens[2 * b + !dir1], Nk), 0) : Nk;
+  float* ob = (dir1 ? o1 : o0) + (size_t)b * Nq * H * D + h * D;  // row gi at ob + gi * H * D
 
-  float* qs = smem;               // [BQ][D]
-  float* kv = qs + BQ * D;        // [KC][D + 1]
-  float* ss = kv + KC * (D + 1);  // [BQ][Nk]
-  float* ls = ss + BQ * Nk;       // [BQ]
-
-  const int tid = threadIdx.x;
-  const int cj = tid % KC;  // this thread's key within a chunk / output column
-  const int r0 = tid / KC;  // rows r0, r0 + 4, r0 + 8, r0 + 12
-  const size_t out_row = (size_t)H * D;
-  T* ob = out + (size_t)b * Nq * out_row + h * D;
-
-  if (i0 >= lq || lk == 0) {  // padded rows, or an empty kv side: zeros
-#pragma unroll
-    for (int rr = 0; rr < BQ / 4; ++rr) {
-      const int gi = i0 + r0 + 4 * rr;
-      if (gi < Nq) ob[gi * out_row + cj] = 0.f;
-    }
+  if (i0 >= lq || live_k == 0) {  // padded rows, or an empty kv side: zeros
+    for (int i = tid; i < BR * D; i += blockDim.x)
+      if (i0 + i / D < Nq) ob[(size_t)(i0 + i / D) * H * D + i % D] = 0.f;
     return;
   }
 
-  for (int i = tid; i < BQ * D; i += THREADS) {
-    const int r = i / D, d = i % D;
-    qs[i] = i0 + r < Nq ? row_ptr<T>(q, b, h, i0 + r)[d] : 0.f;
-  }
+  // Q into registers, split once: this warp's 16 rows as D / 8 (hi, lo) A
+  // fragments
+  stage_rows(qs, q, b, h, i0, BR, min(BR, Nq - i0), aligned);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  unsigned qh[D / 8][4], ql[D / 8][4];
+  tf32_q_frags(qs + rg * 16 * FP, g, t4, qh, ql);
 
-  // this direction's rows of S (or S^T): quant(dot * scale), products in
-  // d order as qk0_i[d] * qk1_j[d] either way; kv columns >= lk at -1e30
-  for (int j0 = 0; j0 < Nk; j0 += KC) {
-    const int jn = min(KC, Nk - j0);
-    __syncthreads();  // q rows loaded, or the previous chunk is done
-    for (int i = tid; i < KC * D; i += THREADS) {
-      const int j = i / D, d = i % D;
-      kv[j * (D + 1) + d] = j < jn ? row_ptr<T>(k, b, h, j0 + j)[d] : 0.f;
-    }
+  // chunks over the live keys, two buffers: chunk c + 1 copies while chunk c
+  // is in use (pass 1 K only, pass 2 K and V)
+  const int nc = (live_k + KC - 1) / KC;
+  auto kbuf = [&](int c) { return kv + (c & 1) * 2 * KC * FP; };
+  auto fetch = [&](int c, bool with_v) {
+    const int jn = min(KC, Nk - c * KC);
+    stage_rows(kbuf(c), k, b, h, c * KC, KC, jn, aligned);
+    if (with_v) stage_rows(kbuf(c) + KC * FP, v, b, h, c * KC, KC, jn, aligned);
+    cp_async_commit();
+  };
+  auto land = [&](int c) {  // chunk c has landed (chunk c + 1 may be in flight)
+    if (c + 1 < nc)
+      cp_async_wait<1>();
+    else
+      cp_async_wait<0>();
     __syncthreads();
-    if (cj < jn) {
-      const bool dead = lens != nullptr && j0 + cj >= lk;
+  };
+  // s = quant(Q.K^T * scale) over this warp's KW keys of chunk c
+  // (mma.cuh:tf32_scores), masked as the bf16 kernel's: pad columns past Nk
+  // -inf, columns at or past the kv length -1e30, only in the chunk that
+  // holds the kv length or Nk
+  auto scores = [&](float (&s)[NT][4], int c) {
+    tf32_scores<NT>(s, qh, ql, kbuf(c) + part * KW * FP, g, t4);
+    const int c0 = c * KC;
+    const bool ragged = c0 + KC > live_k;
 #pragma unroll
-      for (int rr = 0; rr < BQ / 4; ++rr) {
-        const int r = r0 + 4 * rr;
-        float dot = 0.f;
-#pragma unroll 16
-        for (int d = 0; d < D; ++d)
-          dot = fmaf(qs[r * D + d], kv[cj * (D + 1) + d], dot);
-        ss[r * Nk + j0 + cj] = dead ? NEG : lg::quant_stat(dot * scale, quant);
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = c0 + part * KW + n * 8 + 2 * t4 + (e & 1);
+        float x = lg::quant_stat(s[n][e] * scale, quant);
+        if (ragged) x = col >= Nk ? -INFINITY : (col >= live_k ? NEG : x);
+        s[n][e] = x;
       }
     }
-  }
-  __syncthreads();
+  };
 
-  // m = quant(max), p = quant(exp(s - m)), l = quant(sum p): a warp per 2 rows
-  const int warp = tid / 32, lane = tid % 32;
-  for (int rr = 0; rr < 2; ++rr) {
-    const int r = 2 * warp + rr;
-    float* srow = ss + r * Nk;
-    float m = -INFINITY;
-    for (int j = lane; j < Nk; j += 32) m = fmaxf(m, srow[j]);
-    m = lg::quant_stat(lg::warp_max(m), quant);
-    float sum = 0.f;
-    for (int j = lane; j < Nk; j += 32) {
-      const float p = lg::quant_stat(expf(srow[j] - m), quant);
-      srow[j] = p;
-      sum += p;  // direction 1's cast to the V type is the identity in fp32
-    }
-    sum = lg::quant_stat(lg::warp_sum(sum), quant);
-    if (lane == 0) ls[r] = sum;
-  }
-
-  // O = P.V, divided by l in fp32
-  float acc[BQ / 4] = {};
-  for (int j0 = 0; j0 < Nk; j0 += KC) {
-    const int jn = min(KC, Nk - j0);
-    __syncthreads();  // the stats pass, or the previous chunk, is done
-    for (int i = tid; i < KC * D; i += THREADS) {
-      const int j = i / D, d = i % D;
-      kv[j * (D + 1) + d] = j < jn ? row_ptr<T>(v, b, h, j0 + j)[d] : 0.f;
-    }
-    __syncthreads();
-    for (int j = 0; j < jn; ++j) {
-      const float vv = kv[j * (D + 1) + cj];
+  // pass 1: the row max
+  float mx[2] = {-INFINITY, -INFINITY};
+  fetch(0, false);
+  for (int c = 0; c < nc; ++c) {
+    if (c + 1 < nc) fetch(c + 1, false);  // the buffer of chunk c - 1
+    land(c);
+    float s[NT][4];
+    scores(s, c);
 #pragma unroll
-      for (int rr = 0; rr < BQ / 4; ++rr)
-        acc[rr] = fmaf(ss[(r0 + 4 * rr) * Nk + j0 + j], vv, acc[rr]);
+    for (int n = 0; n < NT; ++n) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
     }
+    __syncthreads();  // this buffer is free for the next fetch
   }
+  mx[0] = quad_max(mx[0]);
+  mx[1] = quad_max(mx[1]);
+  meet_max<C>(mx, red, warp, g, t4);
+  const float m[2] = {lg::quant_stat(mx[0], quant), lg::quant_stat(mx[1], quant)};
 
+  // pass 2: the same S again, p, sum p and P.V (mma.cuh:tf32_pv; P is fp32,
+  // its cast to the fp32 V type the identity)
+  float ps[2] = {0.f, 0.f};
+  float pv[D / 8][4];
 #pragma unroll
-  for (int rr = 0; rr < BQ / 4; ++rr) {
-    const int r = r0 + 4 * rr;
-    const int gi = i0 + r;
+  for (int n = 0; n < D / 8; ++n) pv[n][0] = pv[n][1] = pv[n][2] = pv[n][3] = 0.f;
+  fetch(0, true);
+  for (int c = 0; c < nc; ++c) {
+    if (c + 1 < nc) fetch(c + 1, true);
+    land(c);
+    float s[NT][4];
+    scores(s, c);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = lg::quant_stat(expf(s[n][e] - m[e / 2]), quant);
+        s[n][e] = p;
+        ps[e / 2] += dir1 ? lg::round_to<float>(p) : p;  // direction 1 sums P in the V type
+      }
+    }
+    tf32_pv<NT>(pv, s, kbuf(c) + KC * FP + part * KW * FP, g, t4);
+    __syncthreads();  // this buffer is free for the next fetch
+  }
+  ps[0] = quad_sum(ps[0]);
+  ps[1] = quad_sum(ps[1]);
+  meet_sums<C>(ps, pv, red, warp, g, t4);
+
+  if (part != 0) return;  // the C warps of a row group hold the same rows
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int gi = i0 + rg * 16 + g + 8 * i;
     if (gi >= Nq) continue;
-    const float l = ls[r];
-    ob[gi * out_row + cj] = gi < lq ? acc[rr] / (l == 0.f ? 1.f : l) : 0.f;
+    const float l = lg::quant_stat(ps[i], quant);
+    const float den = l == 0.f ? 1.f : l;
+    const bool zero = gi >= lq;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const float x0 = zero ? 0.f : pv[n][2 * i] / den, x1 = zero ? 0.f : pv[n][2 * i + 1] / den;
+      store2(ob + (size_t)gi * H * D + n * 8 + 2 * t4, x0, x1);
+    }
   }
 }
 
@@ -414,23 +453,35 @@ bidir_mma_kernel(Operand qk0, Operand qk1, Operand v0, Operand v1, const int* __
 // launches
 // ---------------------------------------------------------------------------
 
-int launch_fma(Operand qk0, Operand qk1, Operand v0, Operand v1, const void* lens, void* o0,
-               void* o1, int B, int N0, int N1, int H, float scale, int quant,
-               cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (BQ * D + KC * (D + 1) + BQ * max(N0, N1) + BQ);
-  static size_t opted_in = 48 * 1024;  // raised once per size, not per launch
-  if (smem > opted_in) {
-    cudaError_t err = cudaFuncSetAttribute(bidir_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    opted_in = smem;
-  }
-  const int stripes0 = (N0 + BQ - 1) / BQ, stripes1 = (N1 + BQ - 1) / BQ;
-  dim3 grid(stripes0 + stripes1, H, B);
-  bidir_kernel<<<grid, THREADS, smem, stream>>>(qk0, qk1, v0, v1, static_cast<const int*>(lens),
-                                                static_cast<float*>(o0), static_cast<float*>(o1),
-                                                N0, N1, H, scale, quant, stripes0);
+template <int C>
+int launch_tf32(Operand qk0, Operand qk1, Operand v0, Operand v1, const void* lens, void* o0,
+                void* o1, int B, int N0, int N1, int H, float scale, int quant,
+                cudaStream_t stream) {
+  constexpr size_t smem = tf32_smem(C, TF32_STAGES);
+  static const cudaError_t opt_in =  // above 48 KB: opt in once
+      cudaFuncSetAttribute(bidir_tf32_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+  if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
+  constexpr int BR = 16 * (WARPS / C);
+  const int aligned = aligned16(qk0) && aligned16(qk1) && aligned16(v0) && aligned16(v1);
+  const int blocks0 = (N0 + BR - 1) / BR, blocks1 = (N1 + BR - 1) / BR;
+  dim3 grid(blocks0 + blocks1, H, B);
+  bidir_tf32_kernel<C><<<grid, WARPS * 32, smem, stream>>>(
+      qk0, qk1, v0, v1, static_cast<const int*>(lens), static_cast<float*>(o0),
+      static_cast<float*>(o1), N0, N1, H, scale, quant, blocks0, aligned);
   return static_cast<int>(cudaGetLastError());
+}
+
+int launch_fp32(Operand qk0, Operand qk1, Operand v0, Operand v1, const void* lens, void* o0,
+                void* o1, int B, int N0, int N1, int H, float scale, int quant, cudaStream_t s) {
+  switch (fill_row_groups(B, H, N0, N1, BIDIR_FILL_BLOCKS)) {
+    case 4:
+      return launch_tf32<1>(qk0, qk1, v0, v1, lens, o0, o1, B, N0, N1, H, scale, quant, s);
+    case 2:
+      return launch_tf32<2>(qk0, qk1, v0, v1, lens, o0, o1, B, N0, N1, H, scale, quant, s);
+    default:
+      return launch_tf32<4>(qk0, qk1, v0, v1, lens, o0, o1, B, N0, N1, H, scale, quant, s);
+  }
 }
 
 template <int C, typename TO>
@@ -478,9 +529,9 @@ enum Mode { FP32 = 0, BF16 = 1, BF16_F32_OUT = 2 };
 // [h*64, h*64 + 64), addressed by (batch, row) strides in elements. lens:
 // (B, 2) int32 [n0, n1] or null (unmasked). o0: (B, N0, H*64) and o1:
 // (B, N1, H*64), contiguous, in the mode's output type. mode: FP32 (fp32
-// operands and out, the FMA kernel), BF16 (bf16 operands and out) or
-// BF16_F32_OUT (bf16 operands, fp32 out); the bf16-operand modes run
-// bidir_mma_kernel with lg_bidir_row_groups' 16-row groups per block.
+// operands and out, bidir_tf32_kernel), BF16 (bf16 operands and out) or
+// BF16_F32_OUT (bf16 operands, fp32 out; both bidir_mma_kernel), each with
+// lg_bidir_row_groups' 16-row groups per block.
 extern "C" int lg_bidirectional_cross(
     const void* qk0, long long qk0_bs, long long qk0_rs, const void* qk1,
     long long qk1_bs, long long qk1_rs, const void* v0, long long v0_bs,
@@ -492,7 +543,7 @@ extern "C" int lg_bidirectional_cross(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mode) {
     case FP32:
-      return launch_fma(a, c, w0, w1, lens, o0, o1, B, N0, N1, H, scale, quant, s);
+      return launch_fp32(a, c, w0, w1, lens, o0, o1, B, N0, N1, H, scale, quant, s);
     case BF16:
       return launch_bf16<bf16_t>(a, c, w0, w1, lens, o0, o1, B, N0, N1, H, scale, quant, s);
     case BF16_F32_OUT:
@@ -501,8 +552,8 @@ extern "C" int lg_bidirectional_cross(
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The 16-row groups per block of lg_bidirectional_cross's bf16 kernel at
-// this shape (the wrapper's bidir_plan is held against it).
+// The 16-row groups per block of lg_bidirectional_cross at this shape, in
+// every mode (the wrapper's bidir_plan is held against it).
 extern "C" int lg_bidir_row_groups(int B, int H, int N0, int N1) {
   return fill_row_groups(B, H, N0, N1, BIDIR_FILL_BLOCKS);
 }

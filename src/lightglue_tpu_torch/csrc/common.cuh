@@ -53,14 +53,12 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// rows[r][0..D) <- half-split RoPE at sequence positions pos0 + r, for
-// r < nrows: x * cos + rotate_half(x) * sin with the freqs cast to T and each
-// product and the sum rounded to T (layer_stack.py:377-384,
-// attention.py:575-582). freqs: [cos; sin], n rows of D each.
-// rope_pair rotates the pair (x[d], x[d + D/2]) of one row at position pos;
-// __fmul_rn / __fadd_rn keep nvcc from contracting a product and the sum
-// into one FMA, which at T = float would round once where the reference
-// rounds twice.
+// Half-split RoPE of the pair (x[d], x[d + D/2]) of one row at sequence
+// position pos: x * cos + rotate_half(x) * sin with the freqs cast to T and
+// each product and the sum rounded to T (layer_stack.py:377-384,
+// attention.py:575-582). freqs: [cos; sin], n rows of D each. __fmul_rn /
+// __fadd_rn keep nvcc from contracting a product and the sum into one FMA,
+// which at T = float would round once where the reference rounds twice.
 template <typename T, int D>
 __device__ __forceinline__ void rope_pair(float& x1, float& x2, int d, int pos,
                                           const float* freqs, int n) {
@@ -74,16 +72,6 @@ __device__ __forceinline__ void rope_pair(float& x1, float& x2, int d, int pos,
       round_to<T>(__fadd_rn(round_to<T>(__fmul_rn(x1, c1)), round_to<T>(__fmul_rn(-x2, s1))));
   x2 = round_to<T>(__fadd_rn(round_to<T>(__fmul_rn(x2, c2)), round_to<T>(__fmul_rn(x1, s2))));
   x1 = y1;
-}
-
-template <typename T, int D>
-__device__ void rope_rows(float* rows, int stride, int nrows, int pos0,
-                          const float* freqs, int n) {
-  for (int i = threadIdx.x; i < nrows * (D / 2); i += blockDim.x) {
-    const int r = i / (D / 2), d = i % (D / 2);
-    float* x = rows + r * stride;
-    rope_pair<T, D>(x[d], x[d + D / 2], d, pos0 + r, freqs, n);
-  }
 }
 
 }  // namespace lg

@@ -21,7 +21,7 @@
 // through bf16 on the BF16 rung. Tiles that start at or past kv_len are
 // skipped, so in a live tile m is a real maximum (no clamp) and kv_len == 0
 // gives l = 0 and a zero output. m starts at -1e30. RoPE casts the freqs to
-// the operand type and rounds each product and the sum (common.cuh:rope_rows).
+// the operand type and rounds each product and the sum (common.cuh:rope_pair).
 // block_k is a runtime argument and sets the rounding points: m, l and acc
 // round once per tile, after the max of the whole tile is known, never once
 // per staged chunk (an online softmax per chunk computes another function).
@@ -98,6 +98,9 @@
 //   does not change the sum, so slot t4 takes key 2 t4 and slot t4 + 4 key
 //   2 t4 + 1, and V's B fragment is read at those two keys. P is split in
 //   registers (its cast to the fp32 V type is the identity).
+// - Its block pieces are mma.cuh's tf32_q_frags, tf32_scores, tf32_pv,
+//   meet_max and meet_sums, shared with attention.cu's and bidir_cross.cu's
+//   fp32 kernels.
 // - Row groups and the column split are the bf16 kernel's (fill_row_groups),
 //   so the 512-row ring stripes still fill the card; tf32_smem (mma.cuh) is
 //   its shared memory, which kernels/attention.py:flash_plan mirrors.
@@ -196,20 +199,13 @@ flash_tf32_kernel(Operand q, Operand k, Operand v, Out o, Carries cy,
   }
 
   // Q into registers, split once: this warp's 16 rows as D / 8 (hi, lo) A
-  // fragments (a0 row g, dim t4; a1 row g + 8; a2, a3 dim t4 + 4)
+  // fragments
   stage_rows(qs, q, b, h, i0, BR, min(BR, Nq - i0), aligned);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
   unsigned qh[D / 8][4], ql[D / 8][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 8; ++kk) {
-    const float* qr = qs + (rg * 16 + g) * FP + kk * 8 + t4;
-    split_tf32_rz(qr[0], qh[kk][0], ql[kk][0]);
-    split_tf32_rz(qr[8 * FP], qh[kk][1], ql[kk][1]);
-    split_tf32_rz(qr[4], qh[kk][2], ql[kk][2]);
-    split_tf32_rz(qr[8 * FP + 4], qh[kk][3], ql[kk][3]);
-  }
+  tf32_q_frags(qs + rg * 16 * FP, g, t4, qh, ql);
 
   // this thread's rows: rg * 16 + g (fragment elements 0, 1) and + 8 (2, 3)
   const int row[2] = {rg * 16 + g, rg * 16 + g + 8};
@@ -246,24 +242,10 @@ flash_tf32_kernel(Operand q, Operand k, Operand v, Out o, Carries cy,
       cp_async_wait<0>();
     __syncthreads();
   };
-  // s = quant(Q.K^T * scale) over this warp's KW keys of chunk c, each K
-  // element split as its B fragment loads (b0 key g, dim t4; b1 dim t4 + 4);
-  // masking as the bf16 kernel's
+  // s = quant(Q.K^T * scale) over this warp's KW keys of chunk c
+  // (mma.cuh:tf32_scores); masking as the bf16 kernel's
   auto scores = [&](float (&s)[NT][4], int base, int c) {
-    const float* kb = kbuf(c) + (part * KW + g) * FP + t4;
-#pragma unroll
-    for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 8; ++kk) {
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const float* kr = kb + n * 8 * FP + kk * 8;
-        unsigned bh0, bl0, bh1, bl1;
-        split_tf32_rz(kr[0], bh0, bl0);
-        split_tf32_rz(kr[4], bh1, bl1);
-        mma_3xtf32(s[n], qh[kk], ql[kk], bh0, bl0, bh1, bl1);
-      }
-    }
+    tf32_scores<NT>(s, qh, ql, kbuf(c) + part * KW * FP, g, t4);
     const int jn = block_k - c * KC;      // keys of this chunk in the tile (may exceed KC)
     const int gc = col0 + base + c * KC;  // global column of the chunk's first key
     const bool ragged = jn < KC || (lens != nullptr && gc + KC > lk);
@@ -299,19 +281,7 @@ flash_tf32_kernel(Operand q, Operand k, Operand v, Out o, Carries cy,
     }
     mx[0] = quad_max(mx[0]);
     mx[1] = quad_max(mx[1]);
-    if (C > 1) {
-      if (t4 == 0) {
-        red[(warp * 16 + g) * RS] = mx[0];
-        red[(warp * 16 + g + 8) * RS] = mx[1];
-      }
-      __syncthreads();
-#pragma unroll
-      for (int w = 0; w < C; ++w) {
-        mx[0] = fmaxf(mx[0], red[((rg * C + w) * 16 + g) * RS]);
-        mx[1] = fmaxf(mx[1], red[((rg * C + w) * 16 + g + 8) * RS]);
-      }
-      __syncthreads();
-    }
+    meet_max<C>(mx, red, warp, g, t4);
     float mn[2], cf[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -319,8 +289,7 @@ flash_tf32_kernel(Operand q, Operand k, Operand v, Out o, Carries cy,
       cf[i] = lg::quant_stat(expf(m[i] - mn[i]), quant);
     }
 
-    // pass 2: the same S again, p, sum p and P.V (P is fp32: its cast to
-    // the V type is the identity)
+    // pass 2: the same S again, p, sum p and P.V (mma.cuh:tf32_pv)
     float ps[2] = {0.f, 0.f};
     float pv[D / 8][4];
 #pragma unroll
@@ -339,62 +308,12 @@ flash_tf32_kernel(Operand q, Operand k, Operand v, Out o, Carries cy,
           ps[e / 2] += s[n][e];
         }
       }
-      // P from the S accumulator into the A operand, no shuffle: S n-tile kk
-      // holds keys 2 t4 and 2 t4 + 1 of rows g and g + 8, and the order of
-      // keys within a k step does not change the sum, so k slot t4 takes key
-      // 2 t4 and slot t4 + 4 key 2 t4 + 1 (a0, a2 = d0, d1; a1, a3 = d2, d3),
-      // and V's B fragment is read at keys 2 t4 and 2 t4 + 1, dim g
-      const float* vb = kbuf(c) + KC * FP + (part * KW + 2 * t4) * FP + g;
-#pragma unroll
-      for (int kk = 0; kk < NT; ++kk) {  // 8 keys per k step
-        unsigned ah[4], al[4];
-        split_tf32_rz(s[kk][0], ah[0], al[0]);
-        split_tf32_rz(s[kk][2], ah[1], al[1]);
-        split_tf32_rz(s[kk][1], ah[2], al[2]);
-        split_tf32_rz(s[kk][3], ah[3], al[3]);
-#pragma unroll
-        for (int dn = 0; dn < D / 8; ++dn) {
-          const float* vr = vb + kk * 8 * FP + dn * 8;
-          unsigned bh0, bl0, bh1, bl1;
-          split_tf32_rz(vr[0], bh0, bl0);
-          split_tf32_rz(vr[FP], bh1, bl1);
-          mma_3xtf32(pv[dn], ah, al, bh0, bl0, bh1, bl1);
-        }
-      }
+      tf32_pv<NT>(pv, s, kbuf(c) + KC * FP + part * KW * FP, g, t4);
       __syncthreads();  // this buffer is free for the next fetch
     }
     ps[0] = quad_sum(ps[0]);
     ps[1] = quad_sum(ps[1]);
-    if (C > 1) {  // the C warps of a row group add their parts in one order
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        float* rec = red + (warp * 16 + g + 8 * i) * RS;
-        if (t4 == 0) rec[1] = ps[i];
-#pragma unroll
-        for (int n = 0; n < D / 8; ++n)
-          *reinterpret_cast<float2*>(rec + 2 + n * 8 + 2 * t4) =
-              make_float2(pv[n][2 * i], pv[n][2 * i + 1]);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        ps[i] = 0.f;
-#pragma unroll
-        for (int n = 0; n < D / 8; ++n) pv[n][2 * i] = pv[n][2 * i + 1] = 0.f;
-#pragma unroll
-        for (int w = 0; w < C; ++w) {
-          const float* rec = red + ((rg * C + w) * 16 + g + 8 * i) * RS;
-          ps[i] += rec[1];
-#pragma unroll
-          for (int n = 0; n < D / 8; ++n) {
-            const float2 x = *reinterpret_cast<const float2*>(rec + 2 + n * 8 + 2 * t4);
-            pv[n][2 * i] += x.x;
-            pv[n][2 * i + 1] += x.y;
-          }
-        }
-      }
-      __syncthreads();
-    }
+    meet_sums<C>(ps, pv, red, warp, g, t4);
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       l[i] = lg::quant_stat(__fadd_rn(__fmul_rn(l[i], cf[i]), ps[i]), quant);

@@ -1,9 +1,9 @@
-// Tensor-core machinery shared by the port's kernels: flash_attn.cu
-// (fused_mha, flash_attention, the ring step; bf16 and, in 3xTF32, fp32),
-// attention.cu (the layer stack's attention), linear.cu (the stack's
-// projections; bf16 and, in 3xTF32, fp32), bidir_cross.cu (both cross
-// directions) and conv3x3.cu (SuperPoint's 64 -> 64 convs, bf16 and, in
-// 3xTF32, fp32).
+// Tensor-core machinery shared by the port's kernels, each with a bf16
+// kernel and, in 3xTF32, an fp32 one: flash_attn.cu (fused_mha,
+// flash_attention, the ring step), attention.cu (the layer stack's
+// attention), linear.cu (the stack's projections), bidir_cross.cu (both
+// cross directions) and conv3x3.cu (SuperPoint's 64 -> 64 convs). No
+// attention kernel is left on the FMA units.
 //
 // - 16-byte cp.async staging into shared memory (stage_rows for the
 //   attention operands: rows of one head addressed by batch, head and row
@@ -13,8 +13,12 @@
 //   and mma.sync m16n8k16 with bf16 operands and fp32 sums; mma.sync
 //   m16n8k32 with s8 operands and s32 sums (linear.cu's W8A8 GEMM);
 //   mma.sync m16n8k8 with tf32 operands and the 3xTF32 split of an fp32
-//   value, rounded (the fp32 model conv) or truncated (flash_attn.cu's and
-//   linear.cu's fp32 kernels);
+//   value, rounded (the fp32 model conv) or truncated (the fp32 kernels of
+//   flash_attn.cu, attention.cu, bidir_cross.cu and linear.cu);
+// - the 3xTF32 attention block of those three attention kernels: Q split
+//   once into fragments (tf32_q_frags), S over a chunk (tf32_scores), P.V
+//   from the S accumulator (tf32_pv), the split warps' meeting in shared
+//   memory (meet_max, meet_sums);
 // - the attention block layout: WARPS warps, 16-row groups, C warps of a
 //   group splitting each 64-key chunk, rows padded to LD elements so the
 //   eight row addresses of an ldmatrix fall in different banks; the launch
@@ -68,11 +72,14 @@ constexpr size_t mma_smem(int C, int stages) {
          (C > 1 ? sizeof(float) * WARPS * 16 * RS : 0);
 }
 
-// the same for the fp32 (3xTF32) attention block: fp32 Q and chunks at
-// pitch FP (kernels/attention.py:flash_plan mirrors both)
-constexpr size_t tf32_smem(int C, int stages) {
-  return sizeof(float) * (size_t)(16 * (WARPS / C) + 2 * KC * stages) * FP +
-         (C > 1 ? sizeof(float) * WARPS * 16 * RS : 0);
+// the same for the fp32 (3xTF32) attention block of G 16-row groups (G * C
+// warps; 0: WARPS / C): fp32 Q and chunks at pitch FP
+// (kernels/layer_stack.py:tf32_smem mirrors it for the three fp32 attention
+// kernels' plans)
+constexpr size_t tf32_smem(int C, int stages, int G = 0) {
+  const int groups = G ? G : WARPS / C;
+  return sizeof(float) * (size_t)(16 * groups + 2 * KC * stages) * FP +
+         (C > 1 ? sizeof(float) * groups * C * 16 * RS : 0);
 }
 
 // 16-row groups per block (4, 2 or 1): the most that still give
@@ -206,6 +213,135 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4], const unsigned (&ah)[4
   mma_tf32(d, ah, bl0, bl1);
   mma_tf32(d, al, bh0, bh1);
   mma_tf32(d, ah, bh0, bh1);
+}
+
+// ---------------------------------------------------------------------------
+// The 3xTF32 attention block (flash_attn.cu:flash_tf32_kernel,
+// attention.cu:attention_tf32_kernel, bidir_cross.cu:bidir_tf32_kernel): a
+// warp owns 16 query rows; g = lane / 4, t4 = lane % 4 as in mma_tf32
+// ---------------------------------------------------------------------------
+
+// Q's 16 rows at qs (pitch FP) split once into HD / 8 (hi, lo) A fragments
+// kept in registers (a0 row g, dim t4; a1 row g + 8; a2, a3 dim t4 + 4)
+__device__ __forceinline__ void tf32_q_frags(const float* qs, int g, int t4,
+                                             unsigned (&qh)[HD / 8][4],
+                                             unsigned (&ql)[HD / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 8; ++kk) {
+    const float* qr = qs + g * FP + kk * 8 + t4;
+    split_tf32_rz(qr[0], qh[kk][0], ql[kk][0]);
+    split_tf32_rz(qr[8 * FP], qh[kk][1], ql[kk][1]);
+    split_tf32_rz(qr[4], qh[kk][2], ql[kk][2]);
+    split_tf32_rz(qr[8 * FP + 4], qh[kk][3], ql[kk][3]);
+  }
+}
+
+// s = Q.K^T (unscaled) over NT 8-key n-tiles of keys at kb (pitch FP), each
+// K element split as its B fragment loads (b0 key g, dim t4; b1 dim t4 + 4)
+template <int NT>
+__device__ __forceinline__ void tf32_scores(float (&s)[NT][4], const unsigned (&qh)[HD / 8][4],
+                                            const unsigned (&ql)[HD / 8][4], const float* kb,
+                                            int g, int t4) {
+  kb += g * FP + t4;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < HD / 8; ++kk) {
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const float* kr = kb + n * 8 * FP + kk * 8;
+      unsigned bh0, bl0, bh1, bl1;
+      split_tf32_rz(kr[0], bh0, bl0);
+      split_tf32_rz(kr[4], bh1, bl1);
+      mma_3xtf32(s[n], qh[kk], ql[kk], bh0, bl0, bh1, bl1);
+    }
+  }
+}
+
+// pv += P.V over the same NT n-tiles, one 8-key k step each, with P (fp32:
+// its cast to the fp32 V type is the identity) taken from the S accumulator
+// into the A operand without a shuffle: n-tile kk holds keys 2 t4 and
+// 2 t4 + 1 of rows g and g + 8, and the order of keys within a k step does
+// not change the sum, so k slot t4 takes key 2 t4 and slot t4 + 4 key
+// 2 t4 + 1 (a0, a2 = d0, d1; a1, a3 = d2, d3), and V's B fragment is read
+// at keys 2 t4 and 2 t4 + 1, dim g, of the keys at vb (pitch FP)
+template <int NT>
+__device__ __forceinline__ void tf32_pv(float (&pv)[HD / 8][4], const float (&p)[NT][4],
+                                        const float* vb, int g, int t4) {
+  vb += 2 * t4 * FP + g;
+#pragma unroll
+  for (int kk = 0; kk < NT; ++kk) {
+    unsigned ah[4], al[4];
+    split_tf32_rz(p[kk][0], ah[0], al[0]);
+    split_tf32_rz(p[kk][2], ah[1], al[1]);
+    split_tf32_rz(p[kk][1], ah[2], al[2]);
+    split_tf32_rz(p[kk][3], ah[3], al[3]);
+#pragma unroll
+    for (int dn = 0; dn < HD / 8; ++dn) {
+      const float* vr = vb + kk * 8 * FP + dn * 8;
+      unsigned bh0, bl0, bh1, bl1;
+      split_tf32_rz(vr[0], bh0, bl0);
+      split_tf32_rz(vr[FP], bh1, bl1);
+      mma_3xtf32(pv[dn], ah, al, bh0, bl0, bh1, bl1);
+    }
+  }
+}
+
+// With C > 1 warps of a 16-row group splitting each chunk's keys: this
+// warp's partial row max of rows g and g + 8 (after quad_max) becomes the
+// group's, through red ([WARPS][16][RS])
+template <int C>
+__device__ __forceinline__ void meet_max(float (&mx)[2], float* red, int warp, int g, int t4) {
+  if constexpr (C > 1) {
+    if (t4 == 0) {
+      red[(warp * 16 + g) * RS] = mx[0];
+      red[(warp * 16 + g + 8) * RS] = mx[1];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int w = 0; w < C; ++w) {
+      mx[0] = fmaxf(mx[0], red[((warp / C * C + w) * 16 + g) * RS]);
+      mx[1] = fmaxf(mx[1], red[((warp / C * C + w) * 16 + g + 8) * RS]);
+    }
+    __syncthreads();
+  }
+}
+
+// the same for sum p (after quad_sum) and P.V: the C warps of a row group
+// add their parts in one order, so only the order of fp32 sums changes
+template <int C>
+__device__ __forceinline__ void meet_sums(float (&ps)[2], float (&pv)[HD / 8][4], float* red,
+                                          int warp, int g, int t4) {
+  if constexpr (C > 1) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float* rec = red + (warp * 16 + g + 8 * i) * RS;
+      if (t4 == 0) rec[1] = ps[i];
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n)
+        *reinterpret_cast<float2*>(rec + 2 + n * 8 + 2 * t4) =
+            make_float2(pv[n][2 * i], pv[n][2 * i + 1]);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      ps[i] = 0.f;
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n) pv[n][2 * i] = pv[n][2 * i + 1] = 0.f;
+#pragma unroll
+      for (int w = 0; w < C; ++w) {
+        const float* rec = red + ((warp / C * C + w) * 16 + g + 8 * i) * RS;
+        ps[i] += rec[1];
+#pragma unroll
+        for (int n = 0; n < HD / 8; ++n) {
+          const float2 x = *reinterpret_cast<const float2*>(rec + 2 + n * 8 + 2 * t4);
+          pv[n][2 * i] += x.x;
+          pv[n][2 * i + 1] += x.y;
+        }
+      }
+    }
+    __syncthreads();
+  }
 }
 
 // two fp32 values rounded to bf16 (to nearest even), lo in the low half

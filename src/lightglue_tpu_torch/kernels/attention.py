@@ -16,9 +16,9 @@ Counterpart of ``lightglue_tpu/kernels/attention.py``:
   the same kernel.
 - ``bidirectional_cross_attention`` (:925, pallas_call :985): both
   directions of the cross block from one S per head, row softmax for
-  0 -> 1 and column softmax for 1 -> 0, on ``csrc/bidir_cross.cu``: bf16
-  operands on the tensor cores at the launch plan of ``bidir_plan``, fp32
-  operands on the FMA units.
+  0 -> 1 and column softmax for 1 -> 0, on ``csrc/bidir_cross.cu``, on the
+  tensor cores at the launch plan of ``bidir_plan``: bf16 operands in
+  bf16, fp32 operands in 3xTF32.
 - ``reference_attention`` (:1012): the naive fp32 oracle, for tests.
 
 Each wrapper launches its kernel on a CUDA tensor and runs its plain
@@ -44,18 +44,16 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from lightglue_tpu_torch.kernels import _build
-from lightglue_tpu_torch.kernels.layer_stack import (_KC, _RS, _WARPS, _check_same, _quant,
-                                                     _stream, apply_rotary, attention_mode,
-                                                     fill_row_groups, mma_smem)
+from lightglue_tpu_torch.kernels.layer_stack import (_KC, _STREAM_STAGES, _WARPS, _check_same,
+                                                     _quant, _stream, apply_rotary,
+                                                     attention_mode, fill_row_groups, mma_smem,
+                                                     tf32_smem)
 
 DEFAULT_BLOCK_Q = 1024
 DEFAULT_BLOCK_K = 1024
 HEAD_DIM = 64  # the kernels' head width
 _NEG_INF = -1e30
 _SMS = 132            # streaming multiprocessors of the H100
-_STREAM_STAGES = 2    # chunk buffers of a streamed tile (csrc: one copy in flight;
-                      # mma.cuh:TF32_STAGES, every fp32 tile)
-_FP = HEAD_DIM + 4    # csrc/mma.cuh:FP, the fp32 row pitch in shared memory
 _BIDIR_FILL_BLOCKS = 128  # csrc/bidir_cross.cu: the blocks its row-group rule aims for
 
 
@@ -67,16 +65,6 @@ class FlashPlan(NamedTuple):
     stages: int      # K and V chunk buffers: the tile's chunks (resident) or 2 (streamed)
     blocks: int      # blocks of the launch
     smem: int        # dynamic shared memory per block, bytes
-
-
-def tf32_smem(row_groups: int, stages: int) -> int:
-    """Dynamic shared memory of an fp32 (3xTF32) flash block: fp32 Q,
-    ``stages`` K and V chunks at the fp32 pitch, and (columns split) the
-    warps' partial row max, sum p and P.V (csrc/mma.cuh:tf32_smem)."""
-    smem = 4 * (16 * row_groups + 2 * _KC * stages) * _FP
-    if row_groups < _WARPS:
-        smem += 4 * _WARPS * 16 * _RS
-    return smem
 
 
 def flash_plan(batch: int, heads: int, nq: int, block_k: int,
@@ -216,32 +204,24 @@ def _card_checks(name, dtype, out_dtype, stat_dtype, head_dim, tensors) -> int:
 class BidirPlan(NamedTuple):
     """Launch of ``csrc/bidir_cross.cu`` for one shape."""
 
-    row_groups: int  # 16-row groups per block (bf16: 4, 2 or 1; fp32: 1)
+    row_groups: int  # 16-row groups per block: 4, 2 or 1
     col_split: int   # warps of a row group that split each chunk's keys
     blocks: int      # blocks of the launch: both directions' row blocks
     smem: int        # dynamic shared memory per block, bytes
 
 
 def bidir_plan(batch: int, heads: int, n0: int, n1: int, dtype=torch.bfloat16) -> BidirPlan:
-    """The bidirectional kernel's launch for one shape: bf16 operands at
-    ``fill_row_groups`` counted over both directions' rows and aiming for
-    128 blocks (at 960 x 960 two row groups ran 1.6x faster than the stack
-    attention's one), with two K/V chunk buffers (any N fits); fp32
-    operands a 16-row block of either direction with a 16 x max(N0, N1)
-    slab of S. Raises where the block would not fit in shared memory
-    (csrc/bidir_cross.cu)."""
-    if dtype == torch.bfloat16:
-        groups = fill_row_groups(batch, heads, n0, n1, _BIDIR_FILL_BLOCKS)
-        rows = 16 * groups
-        plan = BidirPlan(groups, _WARPS // groups,
-                         batch * heads * (-(-n0 // rows) - (-n1 // rows)), mma_smem(groups, 2))
-    else:
-        plan = BidirPlan(1, 1, batch * heads * (-(-n0 // 16) - (-n1 // 16)),
-                         4 * (16 * HEAD_DIM + _KC * (HEAD_DIM + 1) + 16 * max(n0, n1) + 16))
-    if plan.smem > _build.MAX_DYNAMIC_SMEM:
-        raise ValueError(f"bidirectional_cross_attention: a {max(n0, n1)}-column S slab "
-                         "exceeds shared memory")
-    return plan
+    """The bidirectional kernel's launch for one shape, in either operand
+    type: ``fill_row_groups`` counted over both directions' rows and aiming
+    for 128 blocks (at 960 x 960 two row groups ran 1.6x faster than the
+    stack attention's one in bf16, 1.5x in fp32), with two K/V chunk
+    buffers (the rows stream through them, so any N fits), bf16 chunks at
+    ``mma_smem``, fp32 ones at ``tf32_smem``
+    (csrc/bidir_cross.cu:lg_bidir_row_groups)."""
+    groups = fill_row_groups(batch, heads, n0, n1, _BIDIR_FILL_BLOCKS)
+    rows = 16 * groups
+    return BidirPlan(groups, _WARPS // groups, batch * heads * (-(-n0 // rows) - (-n1 // rows)),
+                     (tf32_smem if dtype == torch.float32 else mma_smem)(groups, _STREAM_STAGES))
 
 
 def _lengths_arg(lengths, bsz: int, dev):
@@ -565,10 +545,10 @@ def bidirectional_cross_attention(qk0, qk1, v0, v1, lengths=None, *, num_heads: 
     The projection is shared, so scores(1 -> 0) == scores(0 -> 1)^T: one S
     per head, softmax along its rows for image 0's messages and along its
     columns for image 1's. No online rescaling: one softmax over the whole
-    row. On bf16 operands the kernel takes it in two passes on the tensor
-    cores (pass 2 recomputes S), both directions in one grid at
-    ``bidir_plan``'s launch, so any N fits; on fp32 operands it keeps a
-    16 x N slab of S in shared memory (N <= ~3300). The model calls it up to
+    row. The kernel takes it in two passes on the tensor cores (pass 2
+    recomputes S; bf16 operands in bf16, fp32 ones in 3xTF32), both
+    directions in one grid at ``bidir_plan``'s launch; the rows stream
+    through shared memory, so any N fits. The model calls it up to
     N = 1024.
 
     Args:
@@ -585,7 +565,6 @@ def bidirectional_cross_attention(qk0, qk1, v0, v1, lengths=None, *, num_heads: 
     batch, n0, n1, head_dim = _bidir_shapes(qk0, qk1, v0, v1, num_heads)
     mode = _card_checks("bidirectional_cross_attention", qk0.dtype, out_dtype, stat_dtype,
                         head_dim, (qk0, qk1, v0, v1))
-    bidir_plan(batch, num_heads, n0, n1, qk0.dtype)
     lengths = _lengths_arg(lengths, batch, qk0.device)
     o0 = torch.empty(qk0.shape, dtype=out_dtype or qk0.dtype, device=qk0.device)
     o1 = torch.empty(qk1.shape, dtype=out_dtype or qk0.dtype, device=qk0.device)

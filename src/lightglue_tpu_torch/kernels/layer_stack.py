@@ -24,23 +24,25 @@ loop over the layers launches, per layer and image, the kernels of
 - ``attention`` (``csrc/attention.cu``): masked self-attention with RoPE and
   both cross-attention directions (one launch each), one softmax over the
   whole row (N <= 1024). Bound by the tensor cores (1.07 GFLOP per call at
-  B = 1, H = 4, N = 1024). bf16 operands run ``flash_attn.cu``'s machinery
-  (``csrc/mma.cuh``) at one tile of Nk keys: two passes (row max, then p,
-  sum p and P.V), at the row groups ``attention_plan`` gives; RoPE first,
-  once, into a scratch. It keeps the stack's contract where the flash
-  kernel's differs: acc is never rounded (P.V / l in fp32, one cast to T),
-  the row max is clamped at -5e29 when masked, dead columns are -1e30 in
-  every chunk under keep masks, keep and liveness operands stay.
+  B = 1, H = 4, N = 1024). Both operand types run ``flash_attn.cu``'s
+  machinery (``csrc/mma.cuh``) at one tile of Nk keys: two passes (row
+  max, then p, sum p and P.V), at the row groups ``attention_plan`` gives;
+  RoPE first, once, into a scratch. It keeps the stack's contract where
+  the flash kernel's differs: acc is never rounded (P.V / l in fp32, one
+  cast to T), the row max is clamped at -5e29 when masked, dead columns
+  are -1e30 in every chunk under keep masks, keep and liveness operands
+  stay.
 - ``ln_gelu`` (``csrc/ln_gelu.cu``): the FFN's LayerNorm + GELU;
 - ``adaptive_decide`` (``csrc/adaptive.cu``, adaptive stack only): after
   each layer, the early-exit and pruning decision of every live pair, one
   launch whose blocks each take a slice of one pair's rows
   (``decide_plan``) and meet in a per-device scratch.
 
-fp32 operands (the FP32 rung): ``linear.cu`` runs the same GEMM on the
-tensor cores in 3xTF32 (each operand split into two TF32 parts, three
-``mma.sync`` m16n8k8 products; one TF32 product would miss the rung's 1e-4
-gate) at ``linear_plan``'s fp32 ring; ``attention.cu`` runs an FMA kernel.
+fp32 operands (the FP32 rung): ``linear.cu`` and ``attention.cu`` run the
+same designs on the tensor cores in 3xTF32 (each operand split into two
+TF32 parts, three ``mma.sync`` m16n8k8 products; one TF32 product would
+miss the rung's 1e-4 gate), ``linear`` at ``linear_plan``'s fp32 ring,
+``attention`` with fp32 chunks at ``tf32_smem``.
 
 Every rung of the precision ladder runs on the card (``_LINEAR_MODES`` and
 ``_ATTENTION_MODES`` list the operand types each kernel takes):
@@ -84,9 +86,11 @@ HEAD_DIM = 64   # the attention kernel's head width
 _NEG_INF = -1e30
 _DEAD = _NEG_INF * 0.5  # all-masked-row clamp (layer_stack.py:276-292)
 
-# csrc/mma.cuh: keys per staged chunk, warps of an attention block, bf16 row
-# pitch in shared memory, fp32 record per warp row, blocks a launch aims for
-_KC, _WARPS, _LD, _RS, _FILL_BLOCKS = 64, 4, HEAD_DIM + 8, 2 + HEAD_DIM + 8, 256
+# csrc/mma.cuh: keys per staged chunk, warps of an attention block, bf16 and
+# fp32 row pitches in shared memory, fp32 record per warp row, blocks a
+# launch aims for, K and V chunk buffers of a streamed tile (every fp32 tile)
+_KC, _WARPS, _LD, _FP, _RS = 64, 4, HEAD_DIM + 8, HEAD_DIM + 4, 2 + HEAD_DIM + 8
+_FILL_BLOCKS, _STREAM_STAGES = 256, 2
 # csrc/linear.cu: the bf16 GEMM's K chunk, ring buffers, candidate tiles in
 # order of preference and the blocks a tile plan aims for (two per SM); the
 # fp32 (3xTF32) GEMM's K chunk
@@ -117,10 +121,23 @@ def mma_smem(row_groups: int, stages: int) -> int:
     return smem
 
 
+def tf32_smem(row_groups: int, stages: int, col_split: Optional[int] = None) -> int:
+    """Dynamic shared memory of an fp32 (3xTF32) attention block of
+    ``row_groups`` 16-row groups of ``col_split`` warps (default: four warps
+    in all): fp32 Q, ``stages`` K and V chunks at the fp32 pitch, and
+    (columns split) the warps' partial row max, sum p and P.V
+    (csrc/mma.cuh:tf32_smem)."""
+    col_split = col_split or _WARPS // row_groups
+    smem = 4 * (16 * row_groups + 2 * _KC * stages) * _FP
+    if col_split > 1:
+        smem += 4 * row_groups * col_split * 16 * _RS
+    return smem
+
+
 class AttentionPlan(NamedTuple):
     """Launch of ``csrc/attention.cu`` for one shape."""
 
-    row_groups: int  # 16-row groups per block (bf16: 4, 2 or 1; fp32: 1)
+    row_groups: int  # 16-row groups per block: 4, 2 or 1
     col_split: int   # warps of a row group that split each chunk's keys
     blocks: int      # blocks of the launch
     smem: int        # dynamic shared memory per block, bytes
@@ -128,23 +145,26 @@ class AttentionPlan(NamedTuple):
 
 def attention_plan(batch: int, heads: int, nq: int, nk: int,
                    dtype=torch.bfloat16) -> AttentionPlan:
-    """The stack attention's launch: bf16 operands at ``fill_row_groups``
-    with two K/V chunk buffers (the whole row streams through them, so any
-    Nk fits), fp32 operands one 16-row block with a 16 x Nk slab of S.
-    Raises past the contract's N <= 1024 or the card's shared memory."""
+    """The stack attention's launch, in either operand type: 16-row groups
+    per block at ``fill_row_groups`` (four warps in all), two K/V chunk
+    buffers (the whole row streams through them, so shared memory does not
+    grow with Nk), bf16 chunks at ``mma_smem``, fp32 ones at ``tf32_smem``.
+    fp32 operands take two one-group rows (four warps splitting each chunk)
+    into one block of eight warps where that still gives 128 blocks: half
+    the K and V reads a query row at the same warps an SM
+    (csrc/attention.cu:tf32_plan, lg_attention_plan). Raises past the
+    contract's N <= 1024."""
     if nk > MAX_SEQ:
         raise ValueError(f"attention: {nk} keys exceed the layer stack's {MAX_SEQ}")
-    if dtype == torch.bfloat16:
-        groups = fill_row_groups(batch, heads, nq)
-        smem = mma_smem(groups, 2)
-        plan = AttentionPlan(groups, _WARPS // groups,
-                             batch * heads * -(-nq // (16 * groups)), smem)
+    groups = fill_row_groups(batch, heads, nq)
+    split = _WARPS // groups
+    if dtype != torch.float32:
+        smem = mma_smem(groups, _STREAM_STAGES)
     else:
-        plan = AttentionPlan(1, 1, batch * heads * -(-nq // 16),
-                             4 * (16 * HEAD_DIM + _KC * (HEAD_DIM + 1) + 16 * nk + 16))
-    if plan.smem > _build.MAX_DYNAMIC_SMEM:
-        raise ValueError(f"attention: {plan.smem} B of shared memory for {nk} keys")
-    return plan
+        if groups == 1 and batch * heads * -(-nq // 32) >= _FILL_BLOCKS // 2:
+            groups = 2
+        smem = tf32_smem(groups, _STREAM_STAGES, split)
+    return AttentionPlan(groups, split, batch * heads * -(-nq // (16 * groups)), smem)
 
 
 class LinearPlan(NamedTuple):
@@ -213,9 +233,8 @@ def _check_same(name: str, dtype, *tensors) -> None:
 _F32, _BF16, _I8 = torch.float32, torch.bfloat16, torch.int8
 
 # (operand, output) types -> the mode of lg_attention, lg_fused_mha,
-# lg_flash_attention and lg_bidirectional_cross: fp32 (3xTF32 in
-# flash_attn.cu, FMA kernels in attention.cu and bidir_cross.cu),
-# bf16, and bf16 operands with an fp32 output (MIXED)
+# lg_flash_attention and lg_bidirectional_cross: fp32 (3xTF32), bf16, and
+# bf16 operands with an fp32 output (MIXED)
 _ATTENTION_MODES = {(_F32, _F32): 0, (_BF16, _BF16): 1, (_BF16, _F32): 2}
 
 
@@ -483,9 +502,9 @@ def attention(q, k, v, freqs, len_q, len_kv, num_heads, stat_dtype,
     its cast to the operand dtype (the same at bf16 stats; at MIXED the
     reference's rule). Returns (B, Nq, H*64) in ``out_dtype``: on the card
     the operand dtype, or fp32 beside bf16 operands (MIXED). On the card
-    Nk <= 1024 (``attention_plan``); with bf16 operands and RoPE, q and k
-    are rotated once into a scratch first, and the pair of launches counts
-    as one."""
+    Nk <= 1024 (``attention_plan``); with RoPE, q and k are rotated once
+    into a scratch of their type first, and the pair of launches counts as
+    one."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, freqs, len_q, len_kv, num_heads,
                                stat_dtype, out_dtype, keep_q, keep_kv, live, dir1)
@@ -524,20 +543,19 @@ def attention(q, k, v, freqs, len_q, len_kv, num_heads, stat_dtype,
     if live is not None and live.exit.shape != (bsz,):
         raise ValueError(f"attention: exit register {tuple(live.exit.shape)} for B={bsz}")
     out = torch.empty((bsz, nq, e), dtype=out_dtype or q.dtype, device=q.device)
-    if freqs is not None and q.dtype == torch.bfloat16:
+    if freqs is not None:
         # RoPE once per row into a scratch (2, B, N, E), which the kernel reads
         rot = torch.empty((2, bsz, nq, e), dtype=q.dtype, device=q.device)
         err = _build.lib().lg_rope_qk(q.data_ptr(), q.stride(0), q.stride(1),
                                       k.data_ptr(), k.stride(0), k.stride(1),
                                       freqs.data_ptr(), rot.data_ptr(), bsz, nq, num_heads,
-                                      _stream(q))
+                                      mode, _stream(q))
         _build.check(err, "attention (RoPE)")
-        q, k, freqs = rot[0], rot[1], None
+        q, k = rot[0], rot[1]
     err = _build.lib().lg_attention(
         q.data_ptr(), q.stride(0), q.stride(1),
         k.data_ptr(), k.stride(0), k.stride(1),
         v.data_ptr(), v.stride(0), v.stride(1),
-        None if freqs is None else freqs.data_ptr(),
         None if len_q is None else len_q.data_ptr(),
         None if len_kv is None else len_kv.data_ptr(),
         None if keep_q is None else keep_q.data_ptr(),

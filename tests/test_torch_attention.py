@@ -198,15 +198,15 @@ def _meta(*shape, dtype=torch.bfloat16):
         (lambda: attention.flash_attention(*(_meta(1, 4, 128, 64, dtype=torch.float32),) * 3,
                                            out_dtype=torch.bfloat16),
          NotImplementedError),
-        (lambda: attention.bidirectional_cross_attention(  # the fp32 kernel's S slab
+        (lambda: attention.bidirectional_cross_attention(
             *(_meta(1, n, 256, dtype=torch.float32) for n in (4096, 64, 4096, 64)),
-            num_heads=4), ValueError),
+            num_heads=4, out_dtype=torch.bfloat16), NotImplementedError),
         (lambda: attention.bidirectional_cross_attention(
             _meta(1, 64, 256), _meta(1, 64, 256), _meta(1, 64, 256), _meta(1, 64, 256),
             _meta(1, 3, dtype=torch.int32), num_heads=4), ValueError),
     ],
     ids=["fused_mha head dim", "fused_mha dtypes", "fused_mha rope rows",
-         "flash_attention out dtype", "bidirectional shared memory",
+         "flash_attention out dtype", "bidirectional fp32 operands, bf16 out",
          "bidirectional lengths shape"],
 )
 def test_wrappers_reject_malformed_operands_before_launch(call, exc):

@@ -1,7 +1,7 @@
 """The bf16 tensor-core kernels of csrc/bidir_cross.cu and csrc/conv3x3.cu on
-the CPU: the launch plan of the bidirectional kernel at the shapes the paths
-and chip_smoke.py give it, and the premises of chip_smoke.py's rounding
-witnesses for both kernels."""
+the CPU: the launch plan of the bidirectional kernel (its fp32 kernel's
+too) at the shapes the paths and chip_smoke.py give it, and the premises of
+chip_smoke.py's rounding witnesses for both kernels."""
 
 import importlib.util
 from pathlib import Path
@@ -31,7 +31,7 @@ def _share(a, b):
 
 # (batch, n0, n1) -> (row groups, blocks) of the bf16 kernel, H = 4: the
 # pad-to-64 path's 960 cap, its mixed buckets, two pairs, and a size past
-# the fp32 kernel's shared memory
+# what the old fp32 kernel's S slab held in shared memory
 BIDIR_PLANS = {
     "960x960": ((1, 960, 960), (2, 240)),
     "960x704": ((1, 960, 704), (2, 208)),
@@ -54,16 +54,25 @@ def test_bidir_plan_fits(shape):
     assert plan.blocks == b * 4 * (-(-n0 // rows) - (-n1 // rows))
     assert groups == 1 or plan.blocks >= 128  # larger blocks only while a wave stays full
     assert plan.smem == layer_stack.mma_smem(groups, 2) <= _build.MAX_DYNAMIC_SMEM
-    if n0 > 1024:
-        return
-    fp32 = attention.bidir_plan(b, 4, n0, n1, torch.float32)  # the FMA kernel's S slab
-    assert (fp32.row_groups, fp32.blocks) == (1, b * 4 * (-(-n0 // 16) - (-n1 // 16)))
-    assert 4 * 16 * max(n0, n1) < fp32.smem <= _build.MAX_DYNAMIC_SMEM
+    # the fp32 (3xTF32) kernel: the same blocks, fp32 chunks streamed
+    # through two buffers, two blocks an SM
+    fp32 = attention.bidir_plan(b, 4, n0, n1, torch.float32)
+    assert fp32[:3] == plan[:3]
+    assert fp32.smem == layer_stack.tf32_smem(groups, 2)
+    assert 2 * fp32.smem <= _build.MAX_DYNAMIC_SMEM
 
 
 def test_bidir_plan_refuses_the_fp32_slab_past_shared_memory():
-    with pytest.raises(ValueError):
-        attention.bidir_plan(1, 4, 4096, 64, torch.float32)
+    """The fp32 plan keeps no S slab any more: at 4096 x 64, where the FMA
+    kernel's 16 x 4096 slab exceeded shared memory and the plan raised, the
+    rows stream through the two chunk buffers, and the block's shared memory
+    is tf32_smem at its row groups, whatever N (two blocks an SM)."""
+    plan = attention.bidir_plan(1, 4, 4096, 64, torch.float32)
+    assert (plan.row_groups, plan.blocks) == (4, 4 * (64 + 1))
+    assert plan.smem == layer_stack.tf32_smem(4, 2) <= _build.MAX_DYNAMIC_SMEM // 2
+    for n0 in (64, 1024, 16384):
+        at_n = attention.bidir_plan(1, 4, n0, 64, torch.float32)
+        assert at_n.smem == layer_stack.tf32_smem(at_n.row_groups, 2) <= _build.MAX_DYNAMIC_SMEM // 2
 
 
 # (n0, n1, (n0_len, n1_len) or None)

@@ -1,7 +1,7 @@
 """The layer stack's bf16 kernels on the CPU: the launch plans of
-csrc/linear.cu and csrc/attention.cu at the shapes the paths and
-chip_smoke.py give them, and the premise of chip_smoke.py's rounding witness
-for the stack attention."""
+csrc/linear.cu and csrc/attention.cu (its fp32 kernel's too) at the shapes
+the paths and chip_smoke.py give them, and the premise of chip_smoke.py's
+rounding witness for the stack attention."""
 
 import importlib.util
 from pathlib import Path
@@ -70,8 +70,17 @@ def test_attention_plan_fits(shape):
     assert (plan.row_groups, plan.blocks) == (groups, blocks)
     assert plan.row_groups * plan.col_split == 4
     assert plan.smem == layer_stack.mma_smem(groups, 2) <= _build.MAX_DYNAMIC_SMEM
-    fp32 = layer_stack.attention_plan(b, 4, nq, nk, torch.float32)  # the FMA kernel's slab
-    assert fp32.blocks == b * 4 * -(-nq // 16) and fp32.smem <= _build.MAX_DYNAMIC_SMEM
+    # the fp32 (3xTF32) kernel: the same blocks, fp32 chunks streamed through
+    # two buffers, two blocks an SM; at the 1024 bucket of one pair two
+    # one-group rows share a block of eight warps (128 blocks, one an SM)
+    fp32 = layer_stack.attention_plan(b, 4, nq, nk, torch.float32)
+    if (b, nq) == (1, 1024):
+        assert fp32[:3] == (2, 4, 128)
+        assert fp32.smem == layer_stack.tf32_smem(2, 2, 4) <= _build.MAX_DYNAMIC_SMEM
+    else:
+        assert fp32[:3] == plan[:3]
+        assert fp32.smem == layer_stack.tf32_smem(groups, 2)
+        assert 2 * fp32.smem <= _build.MAX_DYNAMIC_SMEM
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
