@@ -100,7 +100,10 @@ plain version and, where one exists, a PyTorch call for the same function:
 6. The MIXED and INT8 rungs (INT8's W8A8 mode with ``LGTPU_W8A8=1``):
    ``linear`` at MIXED (fp32 activations, bf16 products; 1e-4), INT8
    weight-only (bit for bit against ``linear`` on the dequantized weight)
-   and W8A8 with ``row_quant`` (exact); ``attention`` at MIXED in both
+   and W8A8 with ``row_quant`` (q, sa and y exact; also at 999 rows with
+   crafted rows: .5 ties, all-zero, one-hot, ffn1's amax in either operand;
+   and with a retired pair, with and without a residual: ``w8a8_edge_checks``;
+   the s8 GEMM on the K-major ``w_t``); ``attention`` at MIXED in both
    cross directions, masked, keep-masked and under liveness, with the
    magnitude witness (``magnitude_witness``, ``mixed_wrong_designs``);
    ``ln_gelu`` with fp32 gamma/beta; ``adaptive_decide`` with fp32 x and
@@ -112,7 +115,8 @@ plain version and, where one exists, a PyTorch call for the same function:
    (``plain_lightglue``); ``forward_ring`` at INT8. The FP32 rung's
    ``match_pair`` on every route, against the same session on the plain
    versions, gives the launch counts of its rows.
-   The SASS check above also requires IMMA in every W8A8 GEMM.
+   The SASS check above also requires IMMA in every W8A8 GEMM, and no
+   local-memory load or store in it (no spill).
 
 It ends with a ``{"kernels": [...]}`` line (all ten Pallas functions, a
 row per FP32 / MIXED / INT8 / W8A8 instantiation (the fp32 step's launches
@@ -279,7 +283,8 @@ def tensor_core_check(build):
     one) and conv_chain.cu compute their products on the tensor cores
     (HMMA in the SASS of every one), the FMA kernels of conv3x3.cu and
     conv_chain.cu on the FMA units (no HMMA), and linear.cu's W8A8 GEMM on
-    the integer tensor cores (IMMA in every instantiation, no HMMA), the
+    the integer tensor cores (IMMA in every instantiation, no HMMA, no
+    local-memory load or store: nothing spilled), the
     fp32 model conv and the fp32 kernels of flash_attn.cu, attention.cu,
     bidir_cross.cu and linear.cu on the tensor cores in 3xTF32 (every HMMA
     of each ``TF32_TENSOR_CORE_KERNELS`` kernel takes TF32 operands, in
@@ -295,9 +300,9 @@ def tensor_core_check(build):
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            counts[name] = {"HMMA": 0, "IMMA": 0, "FFMA": 0, "TF32": 0}
+            counts[name] = {"HMMA": 0, "IMMA": 0, "FFMA": 0, "TF32": 0, "LDL": 0, "STL": 0}
         elif name:
-            for op in ("HMMA", "IMMA", "FFMA"):
+            for op in ("HMMA", "IMMA", "FFMA", "LDL", "STL"):
                 if op in line:
                     counts[name][op] += 1
             if "HMMA" in line and "TF32" in line:
@@ -315,10 +320,14 @@ def tensor_core_check(build):
         if not fma or max(fma) != 0:
             raise AssertionError(f"{src}: an fp32 kernel with HMMA")
     for src, kernel in INT8_TENSOR_CORE_KERNELS.items():
-        imma = [(c["IMMA"], c["HMMA"]) for k, c in counts.items() if kernel in k]
-        log(f"  {src} SASS: (IMMA, HMMA) per W8A8 instantiation ({len(imma)}) {sorted(imma)}")
-        if not imma or min(i for i, _ in imma) == 0 or max(h for _, h in imma) != 0:
+        imma = [(c["IMMA"], c["HMMA"], c["LDL"] + c["STL"]) for k, c in counts.items()
+                if kernel in k]
+        log(f"  {src} SASS: (IMMA, HMMA, local loads and stores) per W8A8 instantiation "
+            f"({len(imma)}) {sorted(imma)}")
+        if not imma or min(i for i, _, _ in imma) == 0 or max(h for _, h, _ in imma) != 0:
             raise AssertionError(f"{src}: a W8A8 GEMM without IMMA, or with HMMA")
+        if max(s for _, _, s in imma) != 0:
+            raise AssertionError(f"{src}: a W8A8 GEMM spills to local memory")
     for src, kernel in TF32_TENSOR_CORE_KERNELS.items():
         tf32 = [(c["TF32"], c["HMMA"]) for k, c in counts.items() if kernel in k]
         log(f"  {src} SASS: (TF32 HMMA, HMMA) per {kernel} instantiation ({len(tf32)}) {tf32}")
@@ -598,6 +607,16 @@ def plan_checks(ls, at, nms_k, conv_k, lib):
                     raise AssertionError(f"linear {m}x{n} {dt}: the card's "
                                          f"{lib.lg_linear_smem(m, n, mode)} B of shared memory, "
                                          f"linear_plan's {smem}")
+    s8 = (ctypes.c_int * 3)()
+    for m in (1, 99, 128, 256, 512, 768, 999, 1024, 2048):
+        for n in (64, 256, 512, 768):
+            for k in (48, 256, 512):
+                lib.lg_s8_plan(m, n, k, s8)
+                plan = ls.s8_plan(m, n, k)
+                if tuple(s8) != (plan.bm, plan.bn, plan.smem):
+                    raise AssertionError(f"linear_s8 {m}x{n}x{k}: the card's (rows, columns, "
+                                         f"smem) {tuple(s8)}, s8_plan's "
+                                         f"{(plan.bm, plan.bn, plan.smem)}")
     # flash_attn.cu at the per-block, generic and ring shapes (block_k 1024,
     # 1000, 64, the ring's 512, 384 and 120-row stripes), both kernels
     for b, nq, block_k in ((2, 2048, 1024), (1, 2048, 1024), (2, 960, 960), (1, 960, 960),
@@ -648,7 +667,7 @@ def plan_checks(ls, at, nms_k, conv_k, lib):
         if tuple(out) != tuple(conv_k.conv_plan(*shape)):
             raise AssertionError(f"conv3x3 {shape}: the card's tile {tuple(out)}, conv_plan's "
                                  f"{tuple(conv_k.conv_plan(*shape))}")
-    log("  launch plans: linear_plan (tile and both rings), flash_plan, attention_plan and "
+    log("  launch plans: linear_plan (tile and both rings), s8_plan, flash_plan, attention_plan and "
         "bidir_plan (both kernels each), decide_plan, nms_smem_bytes and conv_plan match the "
         "card's at every path shape")
 
@@ -2397,17 +2416,19 @@ def rung_linear_checks(ls, rand, dev, fp32_scope, ents):
         nbytes = 2 * m * k + k * n + 8 * n + (2 * m * n if res else 0) + 2 * m * n
         ents["linear int8"].add(f"{label} int8 weight-only", weight, ms, plain, lib_ms, nbytes,
                                 2 * m * k * n, BF16_FLOP_PER_MS)
-        # W8A8: row_quant, then the s8 GEMM
+        # W8A8: row_quant, then the s8 GEMM on the K-major weight
+        wt = wq.t().contiguous()
         with fp32_scope():
             q, sa = ls.row_quant(a, a2)
             qp, sap = ls.row_quant_plain(a, a2)
             compare(f"{label} row_quant q", q, qp, 0, 0, exact=True)
             compare(f"{label} row_quant sa", sa, sap, 0, 0, exact=True)
-            got = ls.linear(a, wq, b32, a2=a2, residual=r, scale=sc, w8a8=True)
+            got = ls.linear(a, wq, b32, a2=a2, residual=r, scale=sc, w8a8=True, w_t=wt)
             compare(f"{label} w8a8", got, ls.linear_plain(a, wq, b32, a2, r, scale=sc, w8a8=True),
                     0, 0, exact=True)
+            w8a8_edge_checks(ls, label, k1, k2, n, res, wq, wt, sc, b32, gen, dev)
         y = torch.empty_like(got)
-        ms = cuda_ms(lambda: ls.linear_s8(q, sa, wq, sc, b32, r, y, None, m))
+        ms = cuda_ms(lambda: ls.linear_s8(q, sa, wt, sc, b32, r, y, None, m))
         with fp32_scope():
             plain = cuda_ms(lambda: ls.linear_plain(a, wq, b32, a2, r, scale=sc, w8a8=True))
         try:  # the library's int8 x int8 -> int32 product (no scales, bias or residual)
@@ -2418,11 +2439,85 @@ def rung_linear_checks(ls, rand, dev, fp32_scope, ents):
         nbytes = m * k + 4 * m + k * n + 8 * n + (2 * m * n if res else 0) + 2 * m * n
         ents["linear w8a8"].add(f"{label} w8a8 s8 GEMM", weight, ms, plain, lib_ms, nbytes,
                                 2 * m * k * n, INT8_OP_PER_MS)
+        log(f"  {label} yardsticks per call: bf16 addmm of the same shape "
+            f"{cuda_ms(lambda: torch.addmm(bb, ab[0], wb)):.4f} ms, s8 plan "
+            f"{ls.s8_plan(m, n, k)}")
         ms = cuda_ms(lambda: ls.row_quant(a, a2))
         plain = cuda_ms(lambda: ls.row_quant_plain(a, a2))
         # library: none, no single PyTorch call quantizes rows
         ents["row_quant"].add(f"{label} row_quant {m}x{k}", weight, ms, plain, None,
                               2 * m * k + m * k + 4 * m, 5 * m * k, FP32_OP_PER_MS)
+
+
+def tie_row(k):
+    """A bf16 row of width k whose amax gives sa with v / sa an exact .5 for
+    some v of each parity (round-half-even decides them), on the CPU."""
+    import torch
+
+    f32 = torch.float32
+    for amax2 in range(192, 320):
+        amax = torch.tensor(amax2 / 2, dtype=torch.bfloat16).float()
+        sa = torch.clamp(amax, min=1e-6) * (1.0 / 127.0)
+        halves = torch.arange(0.5, 120.0, 1.0, dtype=f32)
+        v = (halves * sa).to(torch.bfloat16).float()
+        tied = v[v / sa == halves]
+        parity = (tied / sa).floor().remainder(2)
+        evens, odds = tied[parity == 0][:3], tied[parity == 1][:3]
+        if len(evens) and len(odds):
+            row = torch.zeros(k, dtype=f32)
+            row[0] = amax
+            picks = torch.cat([evens, odds])[: k // 2 - 1]
+            row[2:2 + 2 * len(picks):2] = picks * torch.tensor([1.0, -1.0]).repeat(3)[:len(picks)]
+            return row
+    raise AssertionError("no bf16 amax gives exact .5 ties")
+
+
+def w8a8_edge_checks(ls, label, k1, k2, n, res, wq, wt, sc, b32, gen, dev):
+    """W8A8 exactly against its plain version (q, sa and y) at 999 rows (off
+    the s8 GEMM's 32 / 64-row tiles and row_quant's 2 / 4-row blocks) with
+    crafted rows in front: exact .5 ties of v / sa, an all-zero row (the
+    1e-6 clamp), a one-hot row, ffn1's amax in the message and in x; then
+    two 128-row pairs, the first retired at this layer: with a residual its
+    rows are the residual, without one they stay unwritten."""
+    import torch
+
+    bf16 = torch.bfloat16
+    k = k1 + k2
+    x = (torch.randn(999, k, generator=gen, device=dev)
+         * torch.rand(999, 1, generator=gen, device=dev) * 4).to(bf16)
+    x[0] = tie_row(k).to(dev, bf16)
+    x[1] = 0.0
+    x[2] = 0.0
+    x[2, k // 3] = -3.0
+    if k2:
+        x[3, k1 + 5] = 50.0
+        x[4, 7] = -50.0
+    a, a2 = x[:, :k1].contiguous(), (x[:, k1:].contiguous() if k2 else None)
+    r = torch.randn(999, n, generator=gen, device=dev).to(bf16) if res else None
+    q, sa = ls.row_quant(a, a2)
+    qp, sap = ls.row_quant_plain(a, a2)
+    compare(f"{label} 999 rows, crafted: row_quant q", q, qp, 0, 0, exact=True)
+    compare(f"{label} 999 rows, crafted: row_quant sa", sa, sap, 0, 0, exact=True)
+    got = ls.linear(a, wq, b32, a2=a2, residual=r, scale=sc, w8a8=True, w_t=wt)
+    compare(f"{label} 999 rows, crafted: w8a8", got,
+            ls.linear_plain(a, wq, b32, a2, r, scale=sc, w8a8=True), 0, 0, exact=True)
+    # liveness: pair 0 retired (exit 3 <= layer 3), pair 1 live
+    x2 = torch.randn(2, 128, k, generator=gen, device=dev).to(bf16)
+    a, a2 = x2[..., :k1].contiguous(), (x2[..., k1:].contiguous() if k2 else None)
+    r = torch.randn(2, 128, n, generator=gen, device=dev).to(bf16) if res else None
+    live = ls.Live(torch.tensor([3.0, 9.0], device=dev), 3)
+    q, sa = ls.row_quant(a, a2)
+    y = torch.full((2, 128, n), float("nan"), dtype=bf16, device=dev)
+    ls.linear_s8(q, sa, wt, sc, b32, r, y, live, 128)
+    want = ls.linear_plain(a, wq, b32, a2, r, live, scale=sc, w8a8=True)
+    compare(f"{label} retired pair 0, live pair 1: w8a8 live rows", y[1], want[1], 0, 0,
+            exact=True)
+    if res:
+        compare(f"{label} retired pair 0 with a residual: its rows", y[0], r[0], 0, 0, exact=True)
+    elif not bool(torch.isnan(y[0]).all()):
+        raise AssertionError(f"{label}: the retired pair's rows were written")
+    else:
+        log(f"  {label} retired pair 0 without a residual: its rows left unwritten")
 
 
 def rung_stack_kernel_checks(ls, at, rand, freqs_for, dev, fp32_scope, ents):
@@ -2524,7 +2619,7 @@ def rung_stack_kernel_checks(ls, at, rand, freqs_for, dev, fp32_scope, ents):
                 ("int8", rand(2, n, 2 * e, dtype=bf16), rand(2, n, e, dtype=bf16),
                  dict(w=wq, scale=sc)),
                 ("w8a8", rand(2, n, 2 * e, dtype=bf16), rand(2, n, e, dtype=bf16),
-                 dict(w=wq, scale=sc, w8a8=True))):
+                 dict(w=wq, scale=sc, w8a8=True, w_t=wq.t().contiguous()))):
             w = wkw.pop("w")
             got = ls.linear(a, w, b32, residual=r, live=live, **wkw)
             compare(f"ffn2 +res, retired pair = residual, {tag}", got[1], r[1], 0, 0, exact=True)

@@ -57,19 +57,49 @@
 //   epilogue. The product is linear(a, dequantize(w)) bit for bit: the same
 //   B values in the same k order.
 //
-// The W8A8 kernel (linear_s8_kernel; LGTPU_W8A8=1 on the INT8 rung, JAX
-// _aquant :339-346, _doti8 :348-355, _linear's q8 branch :368-372, the qkv
-// path :418-428) multiplies int8 activations by int8 weights on the tensor
-// cores: mma.sync m16n8k32, s8 in, s32 sums. row_quant_kernel first
-// quantizes each row of [A | A2] once (its own launch): amax over the whole
-// row (ffn1: over x and the message together), sa = max(amax, 1e-6) / 127
-// as the reference writes it (* (1/127)), q = clip(rint(v / sa), -127, 127)
-// with a true division and round-half-even. The GEMM stages A chunks as
-// they are and W chunks transposed to [n][k] bytes, so every fragment is one
-// 32-bit shared load. K <= 512, so |acc| <= 512 * 127^2 < 2^24: the s32 sum
-// and its conversion to fp32 are exact, whatever the order. The epilogue is
-// the reference's: y = (float(acc) * sa) * scale, rounded to bf16, + the
-// bias rounded to bf16, + the residual in bf16.
+// The W8A8 kernels (LGTPU_W8A8=1 on the INT8 rung, JAX _aquant :339-346,
+// _doti8 :348-355, _linear's q8 branch :368-372, the qkv path :418-428)
+// multiply int8 activations by int8 weights on the tensor cores: mma.sync
+// m16n8k32, s8 in, s32 sums. At M = 1024, K <= 512, N <= 768 a product is
+// at most 0.54 GOP (0.27 us at 1,979 TOP/s) on at most 2.3 MB (0.69 us at
+// 3.35 TB/s): the bytes bound it, and a launch is short enough that its
+// latency (every load's trip from L2) sets the pace.
+// - row_quant_kernel quantizes each row of [A | A2] once (its own launch):
+//   amax over the whole row (ffn1: over x and the message together), sa =
+//   max(amax, 1e-6) / 127 as the reference writes it (* (1/127)), q =
+//   clip(rint(v / sa), -127, 127) with a true division and round-half-even.
+//   16 B loads of 8 bf16 values, 16 values a lane, 16 lanes a row where K
+//   <= 256 (two rows a warp), one 16 B store of q a lane; two-warp blocks,
+//   256 of them at M = 1024, K = 256.
+// - linear_s8_kernel takes the weight K-major, W^T (N, K): the INT8 tree's
+//   w_t, laid out once where the tree is placed (runtime/weights.py), so
+//   both operands' fragments load by ldmatrix from rows of K bytes, with no
+//   byte transposes (the s8 fragment is four consecutive k bytes of one row
+//   or column). A block stages its A and W^T rows whole, K <= 512 (64 x 512
+//   + 64 x 512 bytes at most), issuing every 128-byte cp.async group up
+//   front and multiplying each as it lands; rows at a pitch of K + 16 bytes
+//   (an odd count of 16 B units: an ldmatrix's eight rows in different
+//   banks). A block is 8 warps over a tile of 2 x 2, 1 x 2 or 1 x 1 warp
+//   tiles of 32 x 32 outputs (2 m16 x 4 n8: 4 ldmatrix for 8 mma per k32
+//   step), the warps left over splitting the k32 steps 2, 4 or 8 ways: so
+//   a 1-block-per-SM grid still has 8 warps to issue its copies and its
+//   products. s8_plan takes the first tile that gives 128 blocks
+//   (kernels/layer_stack.py:s8_plan mirrors it): at M = 1024 qkv, ffn1 and
+//   qk_v take 64 x 64, out and ffn2 (N = 256) 32 x 64. The warps' sums
+//   meet in an int32 tile in shared memory (atomic adds: integers, exact in
+//   any order), and the epilogue reads it eight outputs a thread, so the
+//   residual loads and the stores of y are 16 B and coalesced.
+// - Both launch as programmatic dependents of the stream's previous kernel
+//   (Hopper's PDL, S8_PDL): each is set up while its predecessor runs and
+//   waits for it in the kernel (griddepcontrol.wait), row_quant before its
+//   loads, the GEMM after staging its weights, scale, bias and residual
+//   (written before row_quant ran). row_quant sets no early trigger: the
+//   GEMM starting while row_quant ran made the pair slower.
+//   scripts/tune_torch_w8a8.py times each choice (PERF.md).
+// - K <= 512, so |acc| <= 512 * 127^2 < 2^24: the s32 sum and its
+//   conversion to fp32 are exact, whatever the order. The epilogue is the
+//   reference's: y = (float(acc) * sa) * scale, rounded to bf16, + the bias
+//   rounded to bf16, + the residual in bf16.
 //
 // The FP32 kernel (linear_tf32_kernel, the fp32 rung) is the same pipelined
 // GEMM on the tensor cores in 3xTF32: one TF32 product keeps about three
@@ -434,127 +464,267 @@ linear_tf32_kernel(const float* __restrict__ a, const float* __restrict__ a2, in
 // W8A8: row quantization and the s8 GEMM
 // ---------------------------------------------------------------------------
 
-constexpr int QUANT_WARPS = 8;     // rows per row_quant block, a warp each
-constexpr int QUANT_PER_LANE = 16; // rows up to 512 wide
-constexpr int S8_BK = 64;          // K bytes per staged chunk: two k32 steps
-constexpr int S8_P = S8_BK + 16;   // shared row pitch in bytes (80: conflict-free fragments)
+constexpr int QUANT_WARPS = 2;      // warps of a row_quant block
+constexpr int S8_MAX_K = 512;       // the widest row the W8A8 kernels take
+constexpr int S8_KC = 512;          // K bytes of A in one cp.async group of the s8 GEMM
+constexpr int S8_MIN_BLOCKS = 128;  // blocks s8_plan aims for: about one per SM
+constexpr int S8_WARPS = 8;         // warps of an s8 GEMM block
+constexpr int S8_PDL = 1;           // both W8A8 kernels launched as programmatic dependents
+
+// Programmatic dependent launch (Hopper): a kernel launched with the
+// attribute is set up while the stream's previous kernel runs and may start
+// as that kernel's blocks exit; this waits until the previous kernel has
+// finished and its writes are visible (at once without the attribute)
+__device__ __forceinline__ void wait_prerequisites() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+bool on16(const void* p) { return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 // q = clip(rint(v / sa), -127, 127) over each row of [a | a2], sa =
-// max(amax, 1e-6) * (1/127), both in fp32 as the reference computes them
+// max(amax, 1e-6) * (1/127), both in fp32 as the reference computes them.
+// A lane takes 16 consecutive values of a row (two 16 B loads, one 16 B
+// store of q); a row takes 16 lanes where K <= 256 (two rows a warp), else
+// 32. aligned: every 8-value segment of a and a2 starts on 16 B.
 __global__ void __launch_bounds__(QUANT_WARPS * 32)
 row_quant_kernel(const bf16_t* __restrict__ a, const bf16_t* __restrict__ a2, int k1, int K,
-                 int M, int8_t* __restrict__ q, float* __restrict__ sa) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row = blockIdx.x * QUANT_WARPS + warp;
-  if (row >= M) return;
+                 int M, int8_t* __restrict__ q, float* __restrict__ sa, int aligned) {
+  wait_prerequisites();  // a and a2
+  const int G = K > 256 ? 32 : 16;  // lanes of a row
+  const int lane = threadIdx.x % 32, c0 = 16 * (lane % G);
+  const int row = (blockIdx.x * QUANT_WARPS + threadIdx.x / 32) * (32 / G) + lane / G;
   const int k2 = K - k1;
-  float v[QUANT_PER_LANE], amax = 0.f;
+  float v[2][8], amax = 0.f;
 #pragma unroll
-  for (int i = 0; i < QUANT_PER_LANE; ++i) {
-    const int c = lane + 32 * i;
-    v[i] = c >= K ? 0.f : to_f(c < k1 ? a[(size_t)row * k1 + c] : a2[(size_t)row * k2 + c - k1]);
-    amax = fmaxf(amax, fabsf(v[i]));
-  }
-  const float s = __fmul_rn(fmaxf(warp_max(amax), 1e-6f), static_cast<float>(1.0 / 127.0));
+  for (int h = 0; h < 2; ++h) {
+    const int c = c0 + 8 * h;
+    if (row < M && c < K && aligned) {
+      load8(c < k1 ? a + (size_t)row * k1 + c : a2 + (size_t)row * k2 + c - k1, v[h], true);
+    } else {
 #pragma unroll
-  for (int i = 0; i < QUANT_PER_LANE; ++i) {
-    const int c = lane + 32 * i;
-    if (c < K)
-      q[(size_t)row * K + c] =
-          static_cast<int8_t>(fminf(fmaxf(rintf(__fdiv_rn(v[i], s)), -127.f), 127.f));
+      for (int e = 0; e < 8; ++e) {
+        const int col = c + e;
+        v[h][e] = row >= M || col >= K ? 0.f
+                  : to_f(col < k1 ? a[(size_t)row * k1 + col] : a2[(size_t)row * k2 + col - k1]);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(v[h][e]));
   }
-  if (lane == 0) sa[row] = s;
+  for (int o = G / 2; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  const float s = __fmul_rn(fmaxf(amax, 1e-6f), static_cast<float>(1.0 / 127.0));
+  if (row >= M || c0 >= K) return;
+  unsigned w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int e = 0; e < 16; ++e) {
+    const float x = v[e / 8][e % 8];
+    const int qi = static_cast<int>(fminf(fmaxf(rintf(__fdiv_rn(x, s)), -127.f), 127.f));
+    w[e / 4] |= (static_cast<unsigned>(qi) & 0xffu) << (8 * (e % 4));
+  }
+  *reinterpret_cast<uint4*>(q + (size_t)row * K + c0) = make_uint4(w[0], w[1], w[2], w[3]);
+  if (c0 == 0) sa[row] = s;
+}
+
+// K rounded up to the k32 step, and the shared row pitch of the s8 GEMM:
+// an odd number of 16 B units, so an ldmatrix's eight rows fall in
+// different banks
+__host__ __device__ constexpr int s8_k32(int K) { return (K + 31) / 32 * 32; }
+__host__ __device__ constexpr int s8_pitch(int K) { return s8_k32(K) + 16; }
+// the int32 sum tile's row pitch: 16 B aligned rows, its atomic adds
+// (lanes at rows g, columns 2 t4) at most two to a bank
+__host__ __device__ constexpr int s8_sum_pitch(int TN) { return TN + 4; }
+
+// the s8 GEMM block's shared memory: the TM x TN int32 sums, TM rows of A
+// and TN rows of W^T (whole K), the residual tile (bf16), the scale and bias
+// of the tile's columns
+constexpr size_t s8_smem(int TM, int TN, int K) {
+  return sizeof(int) * TM * s8_sum_pitch(TN) + (size_t)(TM + TN) * s8_pitch(K) +
+         sizeof(bf16_t) * TM * TN + 2 * sizeof(float) * TN;
+}
+
+// 16 B segments [s0, s1) of `rows` rows of src (row pitch sp bytes) into
+// dst (row pitch dp bytes) by cp.async, s1 - s0 <= SEGS (a power of two:
+// a thread's row and segment by shifts); rows from `valid` on, and segments
+// past the row's `bytes`, are zero
+template <int THREADS, int SEGS>
+__device__ __forceinline__ void s8_copy(void* dst, int dp, const void* src, size_t sp, int rows,
+                                        int valid, int bytes, int s0, int s1, int tid) {
+  for (int i = tid; i < rows * SEGS; i += THREADS) {
+    const int r = i / SEGS, s = s0 + i % SEGS;
+    if (s >= s1) continue;
+    int8_t* d = static_cast<int8_t*>(dst) + r * dp + 16 * s;
+    if (r >= valid || 16 * s >= bytes)
+      *reinterpret_cast<int4*>(d) = make_int4(0, 0, 0, 0);
+    else
+      cp_async16(d, static_cast<const int8_t*>(src) + r * sp + 16 * s);
+  }
+}
+
+// s8_copy of A or W^T rows: segments [s0, s1) of K (s1 - s0 <= 32)
+template <int THREADS>
+__device__ __forceinline__ void s8_copy_k(int8_t* dst, const int8_t* src, int rows, int valid,
+                                          int K, int s0, int s1, int tid) {
+  if (s1 - s0 <= 16)
+    s8_copy<THREADS, 16>(dst, s8_pitch(K), src, K, rows, valid, K, s0, s1, tid);
+  else
+    s8_copy<THREADS, 32>(dst, s8_pitch(K), src, K, rows, valid, K, s0, s1, tid);
+}
+
+// The s8 GEMM's shared memory, carved: sums [TM][TN + 4] int32, A [TM][pitch]
+// and W^T [TN][pitch] int8, the residual [TM][TN] bf16, scale and bias [TN]
+template <int TM, int TN>
+struct S8Smem {
+  int* sums;
+  int8_t *a, *w;
+  bf16_t* res;
+  float *scale, *bias;
+  __device__ S8Smem(unsigned char* raw, int K)
+      : sums(reinterpret_cast<int*>(raw)),
+        a(reinterpret_cast<int8_t*>(sums + TM * s8_sum_pitch(TN))),
+        w(a + TM * s8_pitch(K)),
+        res(reinterpret_cast<bf16_t*>(w + TN * s8_pitch(K))),
+        scale(reinterpret_cast<float*>(res + TM * TN)),
+        bias(scale + TN) {}
+};
+
+// one cp.async group of the block's W^T rows (whole K, zero to K32), the
+// scale and bias of its columns and its residual rows; and the int32 sums
+// zeroed
+template <int TM, int TN, int THREADS>
+__device__ __forceinline__ void s8_stage_weights(const S8Smem<TM, TN>& sm,
+                                                 const int8_t* __restrict__ wt,
+                                                 const float* __restrict__ wscale,
+                                                 const float* __restrict__ bias,
+                                                 const bf16_t* __restrict__ res, int m0, int n0,
+                                                 int M, int N, int K, int tid) {
+  s8_copy_k<THREADS>(sm.w, wt + (size_t)n0 * K, TN, TN, K, 0, s8_k32(K) / 16, tid);
+  s8_copy<THREADS, TN / 4>(sm.scale, 0, wscale + n0, 0, 1, 1, 4 * TN, 0, TN / 4, tid);
+  s8_copy<THREADS, TN / 4>(sm.bias, 0, bias + n0, 0, 1, 1, 4 * TN, 0, TN / 4, tid);
+  if (res)
+    s8_copy<THREADS, TN / 8>(sm.res, 2 * TN, res + (size_t)m0 * N + n0, 2 * (size_t)N, TM,
+                             M - m0, 2 * TN, 0, TN / 8, tid);
+  cp_async_commit();
+  for (int i = tid; i < TM * s8_sum_pitch(TN) / 4; i += THREADS)
+    reinterpret_cast<int4*>(sm.sums)[i] = make_int4(0, 0, 0, 0);
+}
+
+// The product of a block's staged rows, A's cp.async group by group as each
+// lands (the W^T group was committed first), into the zeroed int32 sums: warp w owns the 32 x 32 outputs (w % (WM WN)) of
+// the tile (2 m16 x 4 n8 tiles of mma.sync m16n8k32) and the k32 steps s
+// with s % WK == w / (WM WN) (the block's S8_WARPS warps split K WK ways);
+// A and W^T fragments by ldmatrix (an 8 x 16-byte matrix is four k bytes a
+// lane, the s8 fragment layout of mma.cuh:mma_s8). Each warp adds its
+// sums into the tile with shared-memory atomics: integer adds, exact in
+// any order.
+template <int WM, int WN>
+__device__ __forceinline__ void s8_product(const int8_t* as, const int8_t* ws, int* sums, int K) {
+  constexpr int WK = S8_WARPS / (WM * WN), SP = s8_sum_pitch(32 * WN);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int wk = warp / (WM * WN), wm = warp % (WM * WN) / WN, wn = warp % WN;
+  const int mi = lane / 8, mr = lane % 8;  // ldmatrix matrix and row of this lane
+  const int P = s8_pitch(K), nc = (s8_k32(K) + S8_KC - 1) / S8_KC;
+  const int8_t* at = as + wm * 32 * P;
+  const int8_t* bt = ws + wn * 32 * P;
+  int acc[2][4][4] = {};
+  for (int c = 0; c < nc; ++c) {
+    cp_async_wait_n(nc - 1 - c);  // A's group c (and every older one) has landed
+    __syncthreads();              // ... for every thread (and the sums are zero)
+    const int s0 = c * (S8_KC / 32), send = min(s8_k32(K), (c + 1) * S8_KC) / 32;
+    for (int s = s0 + (wk - s0 % WK + WK) % WK; s < send; s += WK) {
+      const int kb = 32 * s;
+      unsigned af[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)  // a0..a3: rows +0 / +8, k bytes +0 / +16
+        ldsm_x4(af[mt], reinterpret_cast<const bf16_t*>(
+                            at + (mt * 16 + mr + (mi & 1) * 8) * P + kb + (mi >> 1) * 16));
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {  // b0, b1 of n8 tiles 2 np and 2 np + 1
+        unsigned r[4];
+        ldsm_x4(r, reinterpret_cast<const bf16_t*>(
+                       bt + (np * 16 + mr + (mi >> 1) * 8) * P + kb + (mi & 1) * 16));
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma_s8(acc[mt][2 * np], af[mt], r[0], r[1]);
+          mma_s8(acc[mt][2 * np + 1], af[mt], r[2], r[3]);
+        }
+      }
+    }
+  }
+  const int g = lane / 4, t4 = lane % 4;  // accumulator row and column pair
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        atomicAdd(sums + (wm * 32 + mt * 16 + g + 8 * (e / 2)) * SP + wn * 32 + nt * 8 + 2 * t4 +
+                      e % 2,
+                  acc[mt][nt][e]);
+}
+
+// y = round((float(acc) * sa) * scale) + round(b) (+ R), bf16, from the
+// block's int32 sums and its staged scale, bias and residual: a thread takes
+// eight adjacent outputs of a row, one 16 B store; sa: the scales of the
+// block's rows (sa[0] is row m0's)
+template <int TM, int TN, int THREADS>
+__device__ __forceinline__ void s8_epilogue(const S8Smem<TM, TN>& sm, const float* sa, bool res,
+                                            bf16_t* __restrict__ y, int m0, int n0, int M,
+                                            int N) {
+  constexpr int SP = s8_sum_pitch(TN);
+  for (int i = threadIdx.x; i < TM * TN / 8; i += THREADS) {
+    const int lm = i / (TN / 8), ln = i % (TN / 8) * 8, gm = m0 + lm;
+    if (gm >= M) continue;
+    const int4 s0 = *reinterpret_cast<const int4*>(sm.sums + lm * SP + ln);
+    const int4 s1 = *reinterpret_cast<const int4*>(sm.sums + lm * SP + ln + 4);
+    const int acc[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+    float r[8] = {};
+    if (res) load8(sm.res + lm * TN + ln, r, true);
+    const float s = sa[lm];
+    float v[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      v[e] = round_to<bf16_t>(__fmul_rn(__fmul_rn(static_cast<float>(acc[e]), s), sm.scale[ln + e]));
+      v[e] = round_to<bf16_t>(v[e] + round_to<bf16_t>(sm.bias[ln + e]));
+      if (res) v[e] = round_to<bf16_t>(v[e] + r[e]);
+    }
+    store8(y + (size_t)gm * N + n0 + ln, v);
+  }
 }
 
 // Y = round((float(Aq . Wq) * sa) * scale) + round(b) (+ R), bf16. Aq (M, K)
-// and Wq (K, N) int8 row-major, 16 B aligned rows (K % 16 == 0, N % 64 == 0).
-template <int TM, int TN>
-__global__ void __launch_bounds__(MMA_THREADS)
+// int8 row-major, Wq as W^T (N, K) int8 (K-major: each output channel's K
+// bytes in a row), both 16 B aligned, K % 16 == 0, K <= 512. A block of
+// S8_WARPS warps owns a (32 WM) x (32 WN) tile: it stages its W^T rows whole
+// with the epilogue's operands, waits for row_quant (its programmatic
+// prerequisite), stages its A rows whole and multiplies, its warps
+// splitting K.
+template <int WM, int WN>
+__global__ void __launch_bounds__(S8_WARPS * 32)
 linear_s8_kernel(const int8_t* __restrict__ aq, const float* __restrict__ asc,
-                 const int8_t* __restrict__ w, const float* __restrict__ wscale,
+                 const int8_t* __restrict__ wt, const float* __restrict__ wscale,
                  const float* __restrict__ bias, const bf16_t* __restrict__ res,
                  bf16_t* __restrict__ y, int M, int N, int K, const float* __restrict__ exit_reg,
                  int layer, int rows_per_pair) {
-  constexpr int MT = TM / 32;  // m16 tiles per warp
-  constexpr int NT = TN / 16;  // n8 tiles per warp
-  __shared__ __align__(16) int8_t as[TM * S8_P];  // [m][k]
-  __shared__ __align__(16) int8_t ws[TN * S8_P];  // [n][k]: W transposed
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int wm = warp / 2, wn = warp % 2;
-  const int g = lane / 4, t4 = lane % 4;
+  constexpr int TM = 32 * WM, TN = 32 * WN, THREADS = S8_WARPS * 32;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const S8Smem<TM, TN> sm(smem_raw, K);
+  const int tid = threadIdx.x;
   const int m0 = blockIdx.y * TM, n0 = blockIdx.x * TN;
-  if (retired(exit_reg, layer, rows_per_pair, m0, n0, TM, TN, M, N, res, y, tid, MMA_THREADS))
+  if (retired(exit_reg, layer, rows_per_pair, m0, n0, TM, TN, M, N, res, y, tid, THREADS))
     return;
-
-  int acc[MT][NT][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-      acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0;
-
-  for (int kc = 0; kc < K; kc += S8_BK) {
-    for (int s = tid; s < TM * (S8_BK / 16); s += MMA_THREADS) {
-      const int r = s / (S8_BK / 16), c = s % (S8_BK / 16) * 16, gm = m0 + r;
-      int4 val = make_int4(0, 0, 0, 0);
-      if (gm < M && kc + c < K) val = *reinterpret_cast<const int4*>(aq + (size_t)gm * K + kc + c);
-      *reinterpret_cast<int4*>(as + r * S8_P + c) = val;
-    }
-    for (int s = tid; s < S8_BK * (TN / 16); s += MMA_THREADS) {
-      const int r = s / (TN / 16), c = s % (TN / 16) * 16, gk = kc + r;
-      int4 val = make_int4(0, 0, 0, 0);
-      if (gk < K) val = *reinterpret_cast<const int4*>(w + (size_t)gk * N + n0 + c);
-      const int8_t* e = reinterpret_cast<const int8_t*>(&val);
-#pragma unroll
-      for (int j = 0; j < 16; ++j) ws[(c + j) * S8_P + r] = e[j];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < S8_BK / 32; ++ks) {
-      const int kb = ks * 32 + 4 * t4;
-      unsigned af[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const int8_t* ar = as + (wm * (TM / 2) + mt * 16 + g) * S8_P + kb;
-        af[mt][0] = *reinterpret_cast<const unsigned*>(ar);
-        af[mt][1] = *reinterpret_cast<const unsigned*>(ar + 8 * S8_P);
-        af[mt][2] = *reinterpret_cast<const unsigned*>(ar + 16);
-        af[mt][3] = *reinterpret_cast<const unsigned*>(ar + 8 * S8_P + 16);
-      }
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int8_t* br = ws + (wn * (TN / 2) + nt * 8 + g) * S8_P + kb;
-        const unsigned b0 = *reinterpret_cast<const unsigned*>(br);
-        const unsigned b1 = *reinterpret_cast<const unsigned*>(br + 16);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) mma_s8(acc[mt][nt], af[mt], b0, b1);
-      }
-    }
-    __syncthreads();
+  // the exit register, weights and residual were written before row_quant
+  // ran: row_quant's blocks all passed their own wait before this block began
+  s8_stage_weights<TM, TN, THREADS>(sm, wt, wscale, bias, res, m0, n0, M, N, K, tid);
+  wait_prerequisites();  // q and sa
+  const int k32 = s8_k32(K);
+  for (int c = 0; c * S8_KC < k32; ++c) {
+    s8_copy_k<THREADS>(sm.a, aq + (size_t)m0 * K, TM, M - m0, K, c * (S8_KC / 16),
+                       min(k32, (c + 1) * S8_KC) / 16, tid);
+    cp_async_commit();
   }
-
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int gm = m0 + wm * (TM / 2) + mt * 16 + g + 8 * i;
-      if (gm >= M) continue;
-      const float s = asc[gm];
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int gn = n0 + wn * (TN / 2) + nt * 8 + 2 * t4;
-        float v[2];
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          v[j] = round_to<bf16_t>(
-              __fmul_rn(__fmul_rn(static_cast<float>(acc[mt][nt][2 * i + j]), s), wscale[gn + j]));
-          v[j] = round_to<bf16_t>(v[j] + round_to<bf16_t>(bias[gn + j]));
-          if (res) v[j] = round_to<bf16_t>(v[j] + to_f(res[(size_t)gm * N + gn + j]));
-        }
-        store2(y + (size_t)gm * N + gn, v[0], v[1]);
-      }
-    }
-  }
+  s8_product<WM, WN>(sm.a, sm.w, sm.sums, K);
+  __syncthreads();  // every warp's sums are in
+  s8_epilogue<TM, TN, THREADS>(sm, asc + m0, res != nullptr, y, m0, n0, M, N);
 }
 
 // ---------------------------------------------------------------------------
@@ -650,20 +820,57 @@ int run_mma(const void* a, const void* a2, int k1, const void* w, const void* ws
              aligned, s);
 }
 
-template <int TM, int TN>
-int launch_s8(const void* aq, const void* asc, const void* w, const void* wscale,
-              const void* bias, const void* res, void* y, int M, int N, int K,
-              const void* exit_reg, int layer, int rows_per_pair, cudaStream_t stream) {
-  dim3 grid(N / TN, (M + TM - 1) / TM);
-  linear_s8_kernel<TM, TN><<<grid, MMA_THREADS, 0, stream>>>(
-      static_cast<const int8_t*>(aq), static_cast<const float*>(asc),
-      static_cast<const int8_t*>(w), static_cast<const float*>(wscale),
-      static_cast<const float*>(bias), static_cast<const bf16_t*>(res), static_cast<bf16_t*>(y),
-      M, N, K, static_cast<const float*>(exit_reg), layer, rows_per_pair);
-  return static_cast<int>(cudaGetLastError());
+// The s8 GEMM's warp tiles (along M, along N; 32 x 32 outputs each) for an
+// M x N product: 2 x 2 (64 x 64 outputs a block) where that gives
+// S8_MIN_BLOCKS blocks, else 1 x 2 (32 x 64), else 1 x 1; the block's other
+// warps split K (kernels/layer_stack.py:s8_plan mirrors it)
+void s8_plan(int M, int N, int* wm, int* wn) {
+  const int tiles[3][2] = {{2, 2}, {1, 2}, {1, 1}};
+  for (const auto& t : tiles) {
+    *wm = t[0], *wn = t[1];
+    if ((long long)((M + 32 * t[0] - 1) / (32 * t[0])) * (N / (32 * t[1])) >= S8_MIN_BLOCKS)
+      return;
+  }
 }
 
-bool on16(const void* p) { return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+// a launch as a programmatic dependent of the stream's previous kernel
+// (S8_PDL; the kernel waits for it with wait_prerequisites)
+template <typename... Params, typename... Args>
+cudaError_t launch_dependent(void (*kernel)(Params...), dim3 grid, int threads, size_t smem,
+                             cudaStream_t stream, Args... args) {
+  cudaLaunchAttribute pdl[1];
+  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl[0].val.programmaticStreamSerializationAllowed = S8_PDL;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = pdl;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+template <int WM, int WN>
+int launch_s8(const void* aq, const void* asc, const void* wt, const void* wscale,
+              const void* bias, const void* res, void* y, int M, int N, int K,
+              const void* exit_reg, int layer, int rows_per_pair, cudaStream_t stream) {
+  constexpr int TM = 32 * WM, TN = 32 * WN;
+  auto kernel = linear_s8_kernel<WM, WN>;
+  static bool opted_in = false;  // raised once to the widest K, not per launch
+  if (!opted_in) {
+    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(s8_smem(TM, TN, S8_MAX_K)));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted_in = true;
+  }
+  return static_cast<int>(launch_dependent(
+      kernel, dim3(N / TN, (M + TM - 1) / TM), S8_WARPS * 32, s8_smem(TM, TN, K), stream,
+      static_cast<const int8_t*>(aq), static_cast<const float*>(asc),
+      static_cast<const int8_t*>(wt), static_cast<const float*>(wscale),
+      static_cast<const float*>(bias), static_cast<const bf16_t*>(res), static_cast<bf16_t*>(y),
+      M, N, K, static_cast<const float*>(exit_reg), layer, rows_per_pair));
+}
 
 // operand modes of lg_linear (kernels/layer_stack.py:_LINEAR_MODES mirrors them)
 enum Mode { FP32 = 0, BF16 = 1, MIXED = 2, MIXED_BF16_OUT = 3, INT8_WEIGHTS = 4 };
@@ -697,30 +904,47 @@ extern "C" int lg_linear(const void* a, const void* a2, int k1, const void* w,
 }
 
 // W8A8, step 1: a (M, k1) and a2 (M, K - k1) bf16 (a2 null with k1 == K),
-// K <= 512, quantized per row of [a | a2] into q (M, K) int8 and sa (M,) fp32.
+// K % 16 == 0, K <= 512, quantized per row of [a | a2] into q (M, K) int8
+// (16 B aligned) and sa (M,) fp32.
 extern "C" int lg_row_quant(const void* a, const void* a2, int k1, int K, int M, void* q,
                             void* sa, void* stream) {
-  if (K > 32 * QUANT_PER_LANE) return static_cast<int>(cudaErrorInvalidValue);
-  row_quant_kernel<<<(M + QUANT_WARPS - 1) / QUANT_WARPS, QUANT_WARPS * 32, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16_t*>(a), static_cast<const bf16_t*>(a2), k1, K, M,
-      static_cast<int8_t*>(q), static_cast<float*>(sa));
-  return static_cast<int>(cudaGetLastError());
+  if (K % 16 || K > S8_MAX_K || !on16(q)) return static_cast<int>(cudaErrorInvalidValue);
+  const int aligned = on16(a) && on16(a2) && k1 % 8 == 0;
+  const int rows = QUANT_WARPS * (K > 256 ? 1 : 2);  // rows of a block
+  return static_cast<int>(launch_dependent(
+      row_quant_kernel, dim3((M + rows - 1) / rows), QUANT_WARPS * 32, 0,
+      static_cast<cudaStream_t>(stream), static_cast<const bf16_t*>(a),
+      static_cast<const bf16_t*>(a2), k1, K, M, static_cast<int8_t*>(q), static_cast<float*>(sa),
+      aligned));
 }
 
-// W8A8, step 2: y (M, N) bf16 = the s8 product of q (M, K) and w (K, N)
-// int8, dequantized by sa (M,) and wscale (N,) fp32, + bias (N,) fp32 (+ res
-// (M, N) bf16). K % 16 == 0, K <= 512, N % 64 == 0, q and w 16 B aligned.
-// Liveness as lg_linear; the tile is linear_tile's.
-extern "C" int lg_linear_s8(const void* q, const void* sa, const void* w, const void* wscale,
+// W8A8, step 2: y (M, N) bf16 = the s8 product of q (M, K) and the weight
+// given K-major, wt (N, K) int8 (row n: output channel n's K weights),
+// dequantized by sa (M,) and wscale (N,) fp32, + bias (N,) fp32 (+ res (M,
+// N) bf16). K % 16 == 0, K <= 512, N % 64 == 0, every pointer 16 B
+// aligned. Liveness as lg_linear; the block is s8_plan's.
+extern "C" int lg_linear_s8(const void* q, const void* sa, const void* wt, const void* wscale,
                             const void* bias, const void* res, void* y, int M, int N, int K,
                             const void* exit_reg, int layer, int rows_per_pair, void* stream) {
-  if (K % 16 || K > 512 || !on16(q) || !on16(w)) return static_cast<int>(cudaErrorInvalidValue);
-  int tm, tn;
-  linear_tile(M, N, &tm, &tn);
-  auto run = tm == 64 ? (tn == 64 ? launch_s8<64, 64> : launch_s8<64, 32>) : launch_s8<32, 32>;
-  return run(q, sa, w, wscale, bias, res, y, M, N, K, exit_reg, layer, rows_per_pair,
+  if (K % 16 || K > S8_MAX_K || N % 64 || !on16(q) || !on16(wt) || !on16(wscale) ||
+      !on16(bias) || !on16(res) || !on16(y))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int wm, wn;
+  s8_plan(M, N, &wm, &wn);
+  auto run = wm == 2 ? launch_s8<2, 2> : wn == 2 ? launch_s8<1, 2> : launch_s8<1, 1>;
+  return run(q, sa, wt, wscale, bias, res, y, M, N, K, exit_reg, layer, rows_per_pair,
              static_cast<cudaStream_t>(stream));
+}
+
+// The s8 GEMM's plan at this shape: (rows, columns) of a block's tile and
+// its dynamic shared memory in bytes into plan[0..2] (the wrapper's
+// s8_plan is held against it).
+extern "C" int lg_s8_plan(int M, int N, int K, int* plan) {
+  int wm, wn;
+  s8_plan(M, N, &wm, &wn);
+  plan[0] = 32 * wm, plan[1] = 32 * wn;
+  plan[2] = static_cast<int>(s8_smem(plan[0], plan[1], K));
+  return 0;
 }
 
 // The tensor-core kernels' tile at this shape, (rows, columns) into

@@ -45,6 +45,7 @@ _SIGNATURES = {
     "lg_row_quant": [_P, _P, _I, _I, _I, _P, _P, _P],
     "lg_linear_s8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _P],
     "lg_linear_tile": [_I, _I, ctypes.POINTER(_I)],
+    "lg_s8_plan": [_I, _I, _I, ctypes.POINTER(_I)],
     "lg_linear_smem": [_I, _I, _I],
     "lg_attention": [
         _P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _P, _P, _P, _P, _I, _P,

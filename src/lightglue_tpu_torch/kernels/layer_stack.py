@@ -20,7 +20,8 @@ loop over the layers launches, per layer and image, the kernels of
   (MIXED, rounded to bf16 as they are staged) and int8 weights with a
   per-channel scale (INT8, dequantized as they are staged); W8A8
   (``LGTPU_W8A8=1`` on the INT8 rung) quantizes each activation row first
-  (``row_quant``) and multiplies int8 by int8 on the tensor cores.
+  (``row_quant``) and multiplies int8 by int8 on the tensor cores, on the
+  weight's K-major copy ``w_t``, at ``s8_plan``'s block.
 - ``attention`` (``csrc/attention.cu``): masked self-attention with RoPE and
   both cross-attention directions (one launch each), one softmax over the
   whole row (N <= 1024). Bound by the tensor cores (1.07 GFLOP per call at
@@ -96,6 +97,10 @@ _FILL_BLOCKS, _STREAM_STAGES = 256, 2
 # fp32 (3xTF32) GEMM's K chunk
 _LIN_BK, _LIN_STAGES, _LIN_TILES, _LIN_MIN_BLOCKS = 64, 3, ((64, 64), (64, 32), (32, 32)), 256
 _LIN_TF32_BK = 64
+# csrc/linear.cu, W8A8: the s8 GEMM's warp tiles of a block (along M, along
+# N; 32 x 32 outputs each) in order of preference, the blocks its plan aims
+# for (about one per SM), the widest K it takes, the warps of a block
+_S8_TILES, _S8_MIN_BLOCKS, _S8_MAX_K, _S8_WARPS = ((2, 2), (1, 2), (1, 1)), 128, 512, 8
 
 
 def fill_row_groups(batch: int, heads: int, nq: int, nq2: int = 0,
@@ -199,6 +204,34 @@ def linear_plan(m: int, n: int, k: int, dtype=torch.bfloat16) -> LinearPlan:
     return LinearPlan(bm, bn, bk, -(-k // bk), _LIN_STAGES, blocks, smem)
 
 
+class S8Plan(NamedTuple):
+    """Launch of ``csrc/linear.cu``'s W8A8 GEMM (``linear_s8_kernel``) for
+    one shape."""
+
+    bm: int       # tile rows: 32 per warp tile along M (a divisor of 64)
+    bn: int       # tile columns: 32 per warp tile along N
+    k_split: int  # ways the block's 8 warps split the k32 steps
+    blocks: int   # blocks of the launch
+    smem: int     # dynamic shared memory per block, bytes
+
+
+def s8_plan(m: int, n: int, k: int) -> S8Plan:
+    """The s8 GEMM's block for an (m, k) x (k, n) product: 8 warps over 2 x 2
+    warp tiles (64 x 64 outputs) where that gives 128 blocks, else 1 x 2 (32
+    x 64), else 1 x 1, the other warps splitting K (csrc/linear.cu:s8_plan);
+    its shared memory the int32 sums at a row pitch of bn + 4, A and W^T rows
+    staged whole at a pitch of K rounded up to 32, plus 16 bytes, the bf16
+    residual tile, the fp32 scale and bias of the tile's columns
+    (csrc/linear.cu:s8_smem)."""
+    for wm, wn in _S8_TILES:
+        blocks = -(-m // (32 * wm)) * (n // (32 * wn))
+        if blocks >= _S8_MIN_BLOCKS:
+            break
+    bm, bn, pitch = 32 * wm, 32 * wn, -(-k // 32) * 32 + 16
+    smem = 4 * bm * (bn + 4) + (bm + bn) * pitch + 2 * bm * bn + 8 * bn
+    return S8Plan(bm, bn, _S8_WARPS // (wm * wn), blocks, smem)
+
+
 class Live(NamedTuple):
     """Liveness operand of the layer kernels: pair b runs global layer
     ``layer`` iff ``exit[b] > layer`` (the Pallas kernel's pl.when(live))."""
@@ -282,8 +315,8 @@ def row_quant_plain(a, a2=None):
 
 def row_quant(a, a2=None):
     """W8A8's activation quantization of each row of [a | a2] (bf16, K <= 512
-    in all): sa = max(amax, 1e-6) * (1/127), q = clip(rint(v / sa), -127,
-    127). Returns (q (..., K) int8, sa (...,) fp32)."""
+    in all, K % 16 == 0): sa = max(amax, 1e-6) * (1/127), q = clip(rint(v /
+    sa), -127, 127). Returns (q (..., K) int8, sa (...,) fp32)."""
     if a.device.type == "cpu":
         return row_quant_plain(a, a2)
     k1 = a.shape[-1]
@@ -291,8 +324,9 @@ def row_quant(a, a2=None):
     for t in (a, a2):
         if t is not None and (t.dtype != _BF16 or not t.is_contiguous()):
             raise NotImplementedError("row_quant: contiguous bf16 rows")
-    if k > 512 or (a2 is not None and a2.shape[:-1] != a.shape[:-1]):
-        raise ValueError(f"row_quant: rows of {k} (<= 512), operands {a.shape} {a2.shape}")
+    if k > _S8_MAX_K or k % 16 or (a2 is not None and a2.shape[:-1] != a.shape[:-1]):
+        raise ValueError(f"row_quant: rows of {k} (<= 512, x16), operands {a.shape} "
+                         f"{None if a2 is None else a2.shape}")
     q = torch.empty((*a.shape[:-1], k), dtype=_I8, device=a.device)
     sa = torch.empty(a.shape[:-1], dtype=_F32, device=a.device)
     err = _build.lib().lg_row_quant(a.data_ptr(), None if a2 is None else a2.data_ptr(), k1, k,
@@ -306,7 +340,7 @@ row_quant.launches = 0
 
 
 def linear_plain(a, w, b, a2=None, residual=None, live: Optional[Live] = None, *,
-                 scale=None, out_dtype=None, w8a8: bool = False):
+                 scale=None, out_dtype=None, w8a8: bool = False, w_t=None):
     """[a | a2] @ w + b (+ residual): fp32 accumulation of w-dtype operands,
     cast to a's dtype, bias added in a's dtype, residual added in a's dtype,
     one cast to ``out_dtype``. int8 ``w`` with ``scale``: the product takes
@@ -314,7 +348,8 @@ def linear_plain(a, w, b, a2=None, residual=None, live: Optional[Live] = None, *
     INT8 GEMM stages), or with ``w8a8`` the int8 rows of
     ``row_quant_plain`` (JAX ``_linear``'s q8 branch :368-372: the exact
     integer sum times sa times scale, rounded to bf16). With ``live`` and a
-    residual, a retired pair's rows are the residual."""
+    residual, a retired pair's rows are the residual. ``w_t``, the kernel's
+    K-major copy of ``w``, is not read."""
     x = a if a2 is None else torch.cat([a, a2], dim=-1)
     if w8a8:  # every partial sum is an integer below 2^24: exact in fp32
         q, sa = row_quant_plain(a, a2)
@@ -332,7 +367,7 @@ def linear_plain(a, w, b, a2=None, residual=None, live: Optional[Live] = None, *
 
 
 def linear(a, w, b, a2=None, residual=None, live: Optional[Live] = None, *,
-           scale=None, out_dtype=None, w8a8: bool = False):
+           scale=None, out_dtype=None, w8a8: bool = False, w_t=None):
     """Y = [a | a2] @ w + b (+ residual) over the last dim.
 
     Args:
@@ -342,7 +377,9 @@ def linear(a, w, b, a2=None, residual=None, live: Optional[Live] = None, *,
         one row of ``_LINEAR_MODES``.
       scale: (N,) fp32 per-channel scale of an int8 ``w`` (INT8); with
         ``w8a8`` the activation rows are quantized by ``row_quant`` (its own
-        launch) and multiplied as int8 (bf16 activations, fp32 bias).
+        launch) and multiplied as int8 (bf16 activations, fp32 bias) by the
+        s8 GEMM, which reads ``w_t``: ``w`` K-major, (N, K) int8 contiguous
+        (the INT8 tree's ``w_t``, runtime/weights.py:params_from_numpy).
       out_dtype: Y's type (default a's); MIXED's bf16 output takes no
         residual.
       live: optional liveness operand; then ``a`` is (B, N, K1) and a
@@ -351,7 +388,7 @@ def linear(a, w, b, a2=None, residual=None, live: Optional[Live] = None, *,
     """
     if a.device.type == "cpu":
         return linear_plain(a, w, b, a2, residual, live, scale=scale, out_dtype=out_dtype,
-                            w8a8=w8a8)
+                            w8a8=w8a8, w_t=w_t)
     out_dtype = out_dtype or a.dtype
     k, n = w.shape
     k1 = a.shape[-1]
@@ -375,9 +412,12 @@ def linear(a, w, b, a2=None, residual=None, live: Optional[Live] = None, *,
     types = (a.dtype, w.dtype, b.dtype, out_dtype)
     mode = _LINEAR_MODES.get(types)
     if w8a8:
-        if types != (_BF16, _I8, _F32, _BF16) or k > 512:
+        if types != (_BF16, _I8, _F32, _BF16) or k > _S8_MAX_K:
             raise NotImplementedError(f"linear: W8A8 takes bf16 rows of K <= 512, int8 weights "
                                       f"and an fp32 bias; got {types}, K={k}")
+        if (w_t is None or w_t.dtype != _I8 or w_t.shape != (n, k) or not w_t.is_contiguous()
+                or w_t.device != w.device):
+            raise ValueError(f"linear: W8A8 takes w_t, w K-major ({n}, {k}) int8 contiguous")
     elif mode is None or (mode == 3 and residual is not None):
         raise NotImplementedError(f"linear: operand types {types} (the card takes "
                                   f"{list(_LINEAR_MODES)})")
@@ -386,7 +426,7 @@ def linear(a, w, b, a2=None, residual=None, live: Optional[Live] = None, *,
     y = torch.empty((*lead, n), dtype=out_dtype, device=a.device)
     if w8a8:
         q, sa = row_quant(a, a2)
-        linear_s8(q, sa, w, scale, b, residual, y, live, rows)
+        linear_s8(q, sa, w_t, scale, b, residual, y, live, rows)
     else:
         err = _build.lib().lg_linear(
             a.data_ptr(), None if a2 is None else a2.data_ptr(), k1, w.data_ptr(),
@@ -399,15 +439,16 @@ def linear(a, w, b, a2=None, residual=None, live: Optional[Live] = None, *,
     return y
 
 
-def linear_s8(q, sa, w, scale, b, residual, y, live: Optional[Live], rows: int) -> None:
+def linear_s8(q, sa, w_t, scale, b, residual, y, live: Optional[Live], rows: int) -> None:
     """W8A8's GEMM, the launch ``linear`` makes after ``row_quant``: y =
-    round((float(q . w) * sa) * scale) + round(b) (+ residual) into ``y``;
+    round((float(q . w) * sa) * scale) + round(b) (+ residual) into ``y``,
+    with the weight given K-major (``w_t`` (N, K)) at ``s8_plan``'s block;
     ``linear`` counts it."""
     m, k = q.numel() // q.shape[-1], q.shape[-1]
-    err = _build.lib().lg_linear_s8(q.data_ptr(), sa.data_ptr(), w.data_ptr(), scale.data_ptr(),
-                                    b.data_ptr(),
+    err = _build.lib().lg_linear_s8(q.data_ptr(), sa.data_ptr(), w_t.data_ptr(),
+                                    scale.data_ptr(), b.data_ptr(),
                                     None if residual is None else residual.data_ptr(),
-                                    y.data_ptr(), m, w.shape[1], k, *_live_args(live, rows),
+                                    y.data_ptr(), m, w_t.shape[0], k, *_live_args(live, rows),
                                     _stream(q))
     _build.check(err, "linear")
 
@@ -897,19 +938,20 @@ def _run_stack(layers, d0, d1, freqs0, freqs1, lengths0, lengths1, *,
     quantized = "w_q" in layers["self_attn"]["qkv"]
     w8a8 = quantized and _w8a8_default()
 
-    def operands(block):  # name -> (weights, scales or None, biases), cast once per call
-        return {name: (p["w_q"], p["scale"], p["b"]) if quantized
-                else (p["w"].to(attn_dtype), None, p["b"])
+    def operands(block):  # name -> (weights, scales, biases, K-major int8 weights), cast once
+        return {name: (p["w_q"], p["scale"], p["b"], p.get("w_t") if w8a8 else None)
+                if quantized
+                else (p["w"].to(attn_dtype), None, p["b"], None)
                 for name, p in block.items() if isinstance(p, dict)}
 
     sp, cp = layers["self_attn"], layers["cross_attn"]
     sw, cw = operands(sp), operands(cp)
 
     def lin(ws, name, l, x, a2=None, residual=None, out_dtype=None):
-        w, scale, b = ws[name]
+        w, scale, b, w_t = ws[name]
         return ops.linear(x, w[l], b[l], a2=a2, residual=residual, live=live,
                           scale=None if scale is None else scale[l], out_dtype=out_dtype,
-                          w8a8=w8a8)
+                          w8a8=w8a8, w_t=None if w_t is None else w_t[l])
 
     def ffn(p, ws, l, x, message):
         h = lin(ws, "ffn1", l, x, a2=message)

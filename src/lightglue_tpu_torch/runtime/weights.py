@@ -178,6 +178,11 @@ def params_from_numpy(tree, device="cpu", dtype=None) -> Dict:
       (L, 1, E) each -> (L, 2E);
     - every other int8 linear's scale takes its bias's shape ((L, 1, N) ->
       (L, N)): one fp32 scale per output channel;
+    - every int8 linear of ``layers`` also takes ``w_t``, its ``w_q`` K-major
+      ((L, K, N) -> (L, N, K), contiguous): the operand of the W8A8 GEMM
+      (``csrc/linear.cu:linear_s8_kernel``), laid out once here; ``w_q``
+      stays the (K, N) weight of every other reader. It adds the int8
+      weights' bytes again: 1,245,184 a layer at E = 256;
     - SuperPoint convs run by ``F.conv2d`` (conv3a..convDb): HWIO -> OIHW.
       conv1a and conv1b..conv2b keep HWIO (the tap stem and conv3x3 kernel).
     """
@@ -213,6 +218,10 @@ def params_from_numpy(tree, device="cpu", dtype=None) -> Dict:
         out["layers"]["self_attn"]["qkv"] = qkv
         out["layers"]["cross_attn"]["qk_v"] = qk_v
         del out["layers"]["cross_attn"]["qk"], out["layers"]["cross_attn"]["v"]
+        for block in out["layers"].values():
+            for node in block.values():
+                if isinstance(node, dict) and "w_q" in node:
+                    node["w_t"] = node["w_q"].transpose(-1, -2).contiguous()
     for name in _OIHW_CONVS:
         if name in tree:
             out[name]["w"] = _to_tensor(
