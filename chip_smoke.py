@@ -9,10 +9,11 @@ It prints the card's name and power limit, builds the CUDA kernels of
 ``src/lightglue_tpu_torch/csrc`` (one nvcc per source, sm_90a, in
 parallel) and checks in their SASS that the bf16 kernels of flash_attn.cu,
 attention.cu, linear.cu, bidir_cross.cu, conv3x3.cu (the model conv and the
-generic one) and conv_chain.cu run on the tensor cores and the FMA kernels
-of conv3x3.cu and conv_chain.cu do not, that the fp32 model conv and the
-fp32 kernels of flash_attn.cu, attention.cu, bidir_cross.cu and linear.cu
-run in 3xTF32 on the tensor cores (TF32 HMMA only), and that
+generic one) and conv_chain.cu run on the tensor cores and the FMA kernel
+of conv_chain.cu does not, that the fp32 model conv, the generic fp32 conv
+and the fp32 kernels of flash_attn.cu, attention.cu, bidir_cross.cu and
+linear.cu run in 3xTF32 on the tensor cores (TF32 HMMA only), that no
+conv3x3.cu kernel is left without HMMA, and that
 stem.cu's kernel has no contracted multiply-add. Then, in
 order; every kernel check is in bf16 and fp32 against
 the kernel's plain PyTorch version at the shapes its path gives it, every
@@ -25,8 +26,9 @@ plain version and, where one exists, a PyTorch call for the same function:
    for the MIXED and FP32 rungs, and conv1b+pool and conv2a at 360x488 for
    the edge tiles; each bf16 case also against the rounding witness and two
    wrong designs, ``conv_wrong_designs``; each fp32 case, the 3xTF32
-   kernel, also against a float64 conv beside the FMA kernel's error and
-   an emulated one-TF32 conv as its wrong design, ``tf32_witness``),
+   kernel, also against a float64 conv beside the generic 3xTF32 conv's
+   error and an emulated one-TF32 conv as its wrong design,
+   ``tf32_witness``),
    ``nms_candidates`` (exact; also at 360x488 and 480x600, radius 2, caps
    1 and 8, below the border value, ties across band edges: ``nms_checks``),
    ``relu_conv1a_shift`` (conv1a's stem, bit for bit in bf16 and fp32, also
@@ -35,7 +37,10 @@ plain version and, where one exists, a PyTorch call for the same function:
    fp32 ffn2 ``linear`` and the fp32 self-RoPE and cross ``attention``
    at 1024, 3xTF32, also against float64 beside an emulated one-TF32
    version, ``tf32_witness``; ``attention`` also at fp32 operands with
-   bf16 stats) against
+   bf16 stats; ``ln_gelu`` also in its three modes at ragged widths, with
+   a retired pair's rows unwritten and on rows where E[x^2] - mean^2 and
+   Welford differ, ``ln_gelu_checks``, and timed between ffn1 and ffn2,
+   ``ffn_triple_ms``) against
    their plain versions (``linear_plan`` / ``attention_plan`` /
    ``bidir_plan`` / ``decide_plan`` against the card's launch rules; each bf16 ``attention``
    case also against the rounding witness and its two wrong designs,
@@ -94,9 +99,11 @@ plain version and, where one exists, a PyTorch call for the same function:
    plain version and the two-launch ``conv3x3`` chain; every bf16-operand
    case against the rounding witness (by magnitude where the output is
    fp32) and its two wrong designs (``conv_wrong_designs``,
-   ``chain_wrong_designs``); both timed in bf16 and fp32 (cuDNN with TF32
-   off), the chain beside the two-launch chain. ``conv_plan`` is held to
-   the card's ``conv_rows`` in phase 1.
+   ``chain_wrong_designs``); every fp32 -> fp32 generic case (3xTF32)
+   against float64 beside an emulated one-TF32 conv; both timed in bf16
+   and fp32 (cuDNN with TF32 off), the chain beside the two-launch chain.
+   ``conv_plan`` (both operand dtypes) is held to the card's
+   ``lg_conv_tile`` in phase 1.
 6. The MIXED and INT8 rungs (INT8's W8A8 mode with ``LGTPU_W8A8=1``):
    ``linear`` at MIXED (fp32 activations, bf16 products; 1e-4), INT8
    weight-only (bit for bit against ``linear`` on the dequantized weight)
@@ -254,24 +261,29 @@ def compare(label, got, want, atol, rtol, exact=False):
 
 # source: (its bf16-operand kernels, each on the tensor cores in every
 # instantiation, the fp32-output ones included; its fp32 kernel on the FMA
-# units, or None where the fp32 kernel is a TF32_TENSOR_CORE_KERNELS one)
+# units, or None where its fp32 kernels are TF32_TENSOR_CORE_KERNELS ones)
 TENSOR_CORE_KERNELS = {
     "flash_attn.cu": (("flash_mma_kernel",), None),
     "attention.cu": (("attention_mma_kernel",), None),
     "linear.cu": (("linear_mma_kernel",), None),
     "bidir_cross.cu": (("bidir_mma_kernel",), None),
     # the model's 64 -> 64 convs, and every other bf16-operand conv
-    "conv3x3.cu": (("conv3x3_mma_kernel", "conv3x3_igemm_kernel"), "conv3x3_kernel"),
+    "conv3x3.cu": (("conv3x3_mma_kernel", "conv3x3_igemm_kernel"), None),
     "conv_chain.cu": (("chain_mma_kernel",), "chain_kernel"),
 }
 # source: its int8 x int8 kernel (W8A8), on the integer tensor cores (IMMA)
 INT8_TENSOR_CORE_KERNELS = {"linear.cu": "linear_s8_kernel"}
-# source: its fp32 kernel on the tensor cores in 3xTF32 (TF32 HMMA only)
-TF32_TENSOR_CORE_KERNELS = {"conv3x3.cu": "conv3x3_tf32x3_kernel",
-                            "flash_attn.cu": "flash_tf32_kernel",
-                            "attention.cu": "attention_tf32_kernel",
-                            "bidir_cross.cu": "bidir_tf32_kernel",
-                            "linear.cu": "linear_tf32_kernel"}
+# source: its fp32 kernels on the tensor cores in 3xTF32 (TF32 HMMA only):
+# the fp32 model conv and the generic fp32 conv; one kernel elsewhere
+TF32_TENSOR_CORE_KERNELS = {"conv3x3.cu": ("conv3x3_tf32x3_kernel",
+                                           "conv3x3_tf32x3_generic_kernel"),
+                            "flash_attn.cu": ("flash_tf32_kernel",),
+                            "attention.cu": ("attention_tf32_kernel",),
+                            "bidir_cross.cu": ("bidir_tf32_kernel",),
+                            "linear.cu": ("linear_tf32_kernel",)}
+# names of kernels none of which may run on the FMA units alone: HMMA in
+# every kernel whose name holds one (conv3x3.cu's, the only ones so named)
+ALL_TENSOR_CORE_NAMES = ("conv3x3_",)
 # source: a kernel whose rounding contract rounds every product and every add
 NO_FMA_KERNELS = {"stem.cu": "stem_kernel"}
 
@@ -281,14 +293,16 @@ def tensor_core_check(build):
     linear.cu (MIXED's fp32 activations and INT8's int8 weights are staged
     as bf16), bidir_cross.cu, conv3x3.cu (the model conv and the generic
     one) and conv_chain.cu compute their products on the tensor cores
-    (HMMA in the SASS of every one), the FMA kernels of conv3x3.cu and
-    conv_chain.cu on the FMA units (no HMMA), and linear.cu's W8A8 GEMM on
+    (HMMA in the SASS of every one), the FMA kernel of conv_chain.cu on the
+    FMA units (no HMMA), and linear.cu's W8A8 GEMM on
     the integer tensor cores (IMMA in every instantiation, no HMMA, no
     local-memory load or store: nothing spilled), the
-    fp32 model conv and the fp32 kernels of flash_attn.cu, attention.cu,
+    fp32 model conv, the generic fp32 conv and the fp32 kernels of
+    flash_attn.cu, attention.cu,
     bidir_cross.cu and linear.cu on the tensor cores in 3xTF32 (every HMMA
     of each ``TF32_TENSOR_CORE_KERNELS`` kernel takes TF32 operands, in
-    every instantiation), and the
+    every instantiation), every conv3x3.cu kernel on the tensor cores (no
+    FMA conv left: ``ALL_TENSOR_CORE_NAMES``), and the
     stem rounds each product and each add (no FFMA in stem.cu's kernel):
     ``cuobjdump -sass`` of the built library."""
     from lightglue_tpu_torch.kernels import _build
@@ -328,11 +342,18 @@ def tensor_core_check(build):
             raise AssertionError(f"{src}: a W8A8 GEMM without IMMA, or with HMMA")
         if max(s for _, _, s in imma) != 0:
             raise AssertionError(f"{src}: a W8A8 GEMM spills to local memory")
-    for src, kernel in TF32_TENSOR_CORE_KERNELS.items():
-        tf32 = [(c["TF32"], c["HMMA"]) for k, c in counts.items() if kernel in k]
-        log(f"  {src} SASS: (TF32 HMMA, HMMA) per {kernel} instantiation ({len(tf32)}) {tf32}")
-        if not tf32 or min(t for t, _ in tf32) == 0 or any(t != h for t, h in tf32):
-            raise AssertionError(f"{src}: {kernel} without TF32 HMMA, or with another HMMA")
+    for src, kernels in TF32_TENSOR_CORE_KERNELS.items():
+        for kernel in kernels:
+            tf32 = [(c["TF32"], c["HMMA"]) for k, c in counts.items() if kernel in k]
+            log(f"  {src} SASS: (TF32 HMMA, HMMA) per {kernel} instantiation ({len(tf32)}) "
+                f"{tf32}")
+            if not tf32 or min(t for t, _ in tf32) == 0 or any(t != h for t, h in tf32):
+                raise AssertionError(f"{src}: {kernel} without TF32 HMMA, or with another HMMA")
+    for name in ALL_TENSOR_CORE_NAMES:
+        hmma = [c["HMMA"] for k, c in counts.items() if name in k]
+        log(f"  {name}* kernels ({len(hmma)}): HMMA per kernel {sorted(hmma)}")
+        if not hmma or min(hmma) == 0:
+            raise AssertionError(f"a {name}* kernel without HMMA: an FMA kernel is left")
     for src, kernel in NO_FMA_KERNELS.items():
         ffma = [c["FFMA"] for k, c in counts.items() if kernel in k]
         log(f"  {src} SASS: FFMA per instantiation ({len(ffma)}) {ffma}")
@@ -492,13 +513,16 @@ def tf32_round(t):
     return ((t.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
-def conv_f64(x, w, b, pool):
-    """superpoint.py:_relu_conv in float64 on NHWC x and HWIO w: the
-    reference the fp32 model conv's error is measured against."""
+def conv_f64(x, w, b, pool, relu=True):
+    """superpoint.py:_relu_conv (conv.py:conv3x3's with ``relu``) in
+    float64 on NHWC x and HWIO w: the reference the fp32 convs' error is
+    measured against."""
     import torch.nn.functional as F
 
     out = F.conv2d(x.double().permute(0, 3, 1, 2), w.double().permute(3, 2, 0, 1), padding=1)
-    out = F.relu(out + b.double()[None, :, None, None])
+    out = out + b.double()[None, :, None, None]
+    if relu:
+        out = F.relu(out)
     if pool:
         out = F.max_pool2d(out, 2)
     return out.permute(0, 2, 3, 1)
@@ -522,16 +546,17 @@ def tf32_witness(label, got, f64, one, others=()):
 
 def conv_tf32_witness(conv_k, label, got, x, w, b, pool):
     """``tf32_witness`` of the fp32 model conv against ``conv_f64``, beside
-    the FMA kernel's error on the same inputs (the generic fp32 conv, which
-    runs on the FMA units, without the ReLU and pool that the epilogue then
+    the generic fp32 conv's error on the same inputs (its 3xTF32 kernel,
+    split by truncation, without the ReLU and pool that the epilogue then
     adds in fp32), the wrong design an emulated one-TF32 conv."""
     import torch.nn.functional as F
 
-    fma = F.relu(conv_k.conv3x3(x, w, b, relu=False))
+    generic = F.relu(conv_k.conv3x3(x, w, b, relu=False))
     if pool:
-        fma = F.max_pool2d(fma.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
+        generic = F.max_pool2d(generic.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
     one = conv_k.conv3x3_plain(tf32_round(x), tf32_round(w), b, pool)
-    return tf32_witness(label, got, conv_f64(x, w, b, pool), one, (("FMA kernel", fma),))
+    return tf32_witness(label, got, conv_f64(x, w, b, pool), one,
+                        (("generic 3xTF32 kernel", generic),))
 
 
 def attention_f64(q, k, v, lengths=None, scale=None):
@@ -575,14 +600,16 @@ def stack_tf32_witness(ls, label, got, q, k, v, f, heads):
 def plan_checks(ls, at, nms_k, conv_k, lib):
     """The launch plans the CPU tests hold (``layer_stack.linear_plan``,
     ``attention_plan``, ``decide_plan``, ``attention.flash_plan``,
-    ``bidir_plan``, ``nms.nms_smem_bytes``, ``conv.conv_plan``) are the ones
+    ``bidir_plan``, ``nms.nms_smem_bytes``, ``conv.conv_plan``,
+    ``layer_stack.ln_gelu_plan``) are the ones
     the card runs (csrc/linear.cu:linear_tile and the shared memory of its
     bf16 and fp32 rings, lg_linear_smem; csrc/flash_attn.cu:lg_flash_smem,
     the bf16 and fp32 blocks' shared memory; csrc/mma.cuh:fill_row_groups
     in both operand types; csrc/attention.cu:lg_attention_plan, the fp32
     stack's eight-warp blocks too; csrc/adaptive.cu:decide_rows,
     csrc/nms.cu:Band,
-    csrc/conv3x3.cu:conv_rows), at every shape of the paths through the
+    csrc/conv3x3.cu:conv_rows and both generic kernels' shared memory,
+    csrc/ln_gelu.cu's lane map), at every shape of the paths through the
     stack (128-1024 buckets) and through the bidirectional kernel (960x960,
     960x704, 960x64), one pair or two, the decision at B = 1..8 over the
     stack's buckets in both row types, at every NMS radius the kernel is
@@ -663,13 +690,19 @@ def plan_checks(ls, at, nms_k, conv_k, lib):
                                                                    (240, 320), (480, 640))
                     for cout in (8, 40, 64, 128, 256)}
     for shape in sorted(conv_shapes):
-        lib.lg_conv_tile(*shape, out)
-        if tuple(out) != tuple(conv_k.conv_plan(*shape)):
-            raise AssertionError(f"conv3x3 {shape}: the card's tile {tuple(out)}, conv_plan's "
-                                 f"{tuple(conv_k.conv_plan(*shape))}")
+        for fp32, dt in ((0, torch.bfloat16), (1, torch.float32)):
+            lib.lg_conv_tile(*shape, fp32, out)
+            if tuple(out) != tuple(conv_k.conv_plan(*shape, dt)):
+                raise AssertionError(f"conv3x3 {shape} {dt}: the card's tile {tuple(out)}, "
+                                     f"conv_plan's {tuple(conv_k.conv_plan(*shape, dt))}")
+    for mode, dt in ((0, torch.float32), (1, torch.bfloat16), (2, torch.bfloat16)):
+        lib.lg_ln_gelu_plan(mode, out)
+        if tuple(out) != tuple(ls.ln_gelu_plan(dt)):
+            raise AssertionError(f"ln_gelu mode {mode}: the card's lane map {tuple(out)}, "
+                                 f"ln_gelu_plan's {tuple(ls.ln_gelu_plan(dt))}")
     log("  launch plans: linear_plan (tile and both rings), s8_plan, flash_plan, attention_plan and "
-        "bidir_plan (both kernels each), decide_plan, nms_smem_bytes and conv_plan match the "
-        "card's at every path shape")
+        "bidir_plan (both kernels each), decide_plan, nms_smem_bytes, conv_plan (both generic "
+        "kernels) and ln_gelu_plan match the card's at every path shape")
 
 
 def nms_map(gen, dev, b, h, w):
@@ -749,6 +782,97 @@ def stem_checks(stem_k, gen, dev, fp32_scope, stem_e, stem_fp32_e):
             nbytes = x.element_size() * (2 * h * w + 2 * h * w * 64) + 4 * (9 * 64 + 64)
             # 9 products and 9 adds per output, the bias and the ReLU
             ent.add(label, 1, ms, plain, lib_ms, nbytes, 2 * h * w * 64 * 20, FP32_OP_PER_MS)
+
+
+# ln_gelu's checks: (rows, C) beside the path's 1024 x 512 (200: whole
+# 16-byte vectors in both row types; 100: element by element in bf16)
+LN_SHAPES = ((1024, 512), (1024, 200), (999, 100), (999, 512))
+LN_SENTINEL = 7.0  # what a retired pair's rows must keep
+LN_SEED = 15  # ln_gelu_checks' and ffn_triple_ms' own generator: later phases keep their inputs
+
+
+def seeded_rand(dev, seed):
+    """``rand(*shape, dtype=, uniform=)`` drawing from a generator of its own."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*shape, dtype=torch.float32, uniform=False):
+        f = torch.rand if uniform else torch.randn
+        return f(*shape, generator=gen, device=dev).to(dtype)
+
+    return rand
+
+
+def ln_gelu_checks(ls, build, dev, fp32_scope):
+    """``ln_gelu`` (csrc/ln_gelu.cu) against its plain version in its three
+    modes (FP32; BF16; INT8's bf16 rows with fp32 gamma and beta) at
+    ``LN_SHAPES``; under liveness (two pairs of 512 rows, the second retired)
+    through the C entry into a buffer of ``LN_SENTINEL``, which the retired
+    pair's rows must keep; and at fp32 rows with a large mean and a small
+    spread (8 + m / 16, sixteen m = 1 a row, the rest 0: every sum exact,
+    mean * mean rounded), where the contract's var = E[x^2] - mean^2 and
+    Welford's (``F.layer_norm``) differ by more than the fp32 gate."""
+    import torch
+    import torch.nn.functional as F
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    rand = seeded_rand(dev, LN_SEED)
+    log("ln_gelu: three modes, ragged widths, liveness, the statistics contract")
+    for tag, (dt, gt) in {"fp32": (f32, f32), "bf16": (bf16, bf16),
+                          "int8 (bf16 rows, fp32 gamma/beta)": (bf16, f32)}.items():
+        tol = TOL["fp32" if dt == f32 else "bf16"]
+        for rows, c in LN_SHAPES:
+            g, b = (1 + 0.3 * rand(c)).to(gt), (0.3 * rand(c)).to(gt)
+            h = rand(1, rows, c, dtype=dt)
+            with fp32_scope():
+                compare(f"ln_gelu {tag} {rows}x{c}", ls.ln_gelu(h, g, b),
+                        ls.ln_gelu_plain(h, g, b), **tol)
+        n, c = 512, 512
+        g, b = (1 + 0.3 * rand(c)).to(gt), (0.3 * rand(c)).to(gt)
+        exit_reg = torch.tensor([N_LAYERS + 1.0, 3.0], device=dev)  # pair 1 retired at 3
+        h = rand(2, n, c, dtype=dt)
+        y = torch.full_like(h, LN_SENTINEL)
+        build.check(build.lib().lg_ln_gelu(
+            h.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr(), 2 * n, c, exit_reg.data_ptr(),
+            5, n, ls._LN_MODES[(dt, gt)], torch.cuda.current_stream().cuda_stream), "ln_gelu")
+        with fp32_scope():
+            compare(f"ln_gelu {tag}, live pair at layer 5", y[:1], ls.ln_gelu_plain(h, g, b)[:1],
+                    **tol)
+        kept = int((y[1] == LN_SENTINEL).sum())
+        log(f"  ln_gelu {tag}, retired pair: {kept} of {y[1].numel()} elements keep the sentinel")
+        if kept != y[1].numel():
+            raise AssertionError(f"ln_gelu {tag}: a retired pair's row was written")
+    g, b = torch.ones(512, device=dev), torch.zeros(512, device=dev)
+    m = torch.zeros(64, 512, device=dev)
+    m.scatter_(1, rand(64, 512, uniform=True).argsort(dim=1)[:, :16], 1.0)
+    h = 8 + m / 16
+    with fp32_scope():
+        want = ls.ln_gelu_plain(h, g, b)
+        compare("ln_gelu fp32, mean 8, spread 1/64", ls.ln_gelu(h, g, b), want, **TOL["fp32"])
+        welford = (F.gelu(F.layer_norm(h, (512,), g, b)) - want).abs().max()
+    log(f"  Welford's statistics (F.layer_norm) differ from the contract's by {float(welford):.3e}")
+    if not welford > 1e-2:
+        raise AssertionError("ln_gelu: these rows do not tell E[x^2] - mean^2 from Welford")
+
+
+def ffn_triple_ms(ls, dev, dt):
+    """ms of ffn1 -> ln_gelu -> ffn2 of one block as the stack runs them
+    (ffn1 over [x | message], ffn2 with x's residual; 1024 rows, E = 256),
+    as a graph: ln_gelu's dependent launch after one GEMM and before
+    another, where ``cuda_ms`` of ln_gelu alone has another ln_gelu before
+    it."""
+    e, rand = 256, seeded_rand(dev, LN_SEED)
+    g, bb = (1 + 0.1 * rand(2 * e)).to(dt), (0.1 * rand(2 * e)).to(dt)
+    w1, b1 = (rand(2 * e, 2 * e) / math.sqrt(2 * e)).to(dt), (rand(2 * e) / 32).to(dt)
+    w2, b2 = (rand(2 * e, e) / math.sqrt(2 * e)).to(dt), (rand(e) / 32).to(dt)
+    x, msg = rand(1, BUCKET, e, dtype=dt), rand(1, BUCKET, e, dtype=dt)
+
+    def triple():
+        h = ls.linear(x, w1, b1, a2=msg)
+        return ls.linear(ls.ln_gelu(h, g, bb), w2, b2, residual=x)
+
+    return cuda_ms(triple)
 
 
 class Entry:
@@ -2108,8 +2232,10 @@ def generic_conv_checks(conv_k, rand, dev, dtypes, fp32_scope, gen_e, gen_fp32_e
     SuperPoint's C >= 128 layer shapes for a 2x480x640 batch and at the
     edge shapes, in bf16 and fp32 and with the other output dtype; every
     bf16-operand case also against the rounding witness and the conv's two
-    wrong designs. The four SuperPoint shapes are timed in both operand
-    dtypes, cuDNN beside them (fp32 with TF32 off)."""
+    wrong designs, every fp32 -> fp32 case (3xTF32) against a float64 conv
+    beside an emulated one-TF32 conv (``tf32_witness``). The four
+    SuperPoint shapes are timed in both operand dtypes, cuDNN beside them
+    (fp32 with TF32 off)."""
     import torch
 
     log("conv3x3, generic C_in/C_out (not on a path; the entry point's own calls)")
@@ -2129,6 +2255,9 @@ def generic_conv_checks(conv_k, rand, dev, dtypes, fp32_scope, gen_e, gen_fp32_e
                     if tag == "bf16":
                         bf16_witness(case, got, want,
                                      conv_wrong_designs(x, wt, b, pool, relu, out_dt))
+                    elif out_dt == dt:  # 3xTF32 against float64, one TF32 product wrong
+                        one = conv_k.conv3x3_plain(tf32_round(x), tf32_round(wt), b, pool, **kw)
+                        tf32_witness(case, got, conv_f64(x, wt, b, pool, relu), one)
                 if out_dt == dt:
                     (gen_e if tag == "bf16" else gen_fp32_e).err(err)
     # the entry point's own path: one call per shape, counted from 0
@@ -2210,7 +2339,8 @@ def conv_chain_checks(conv_k, cc, rand, dev, dtypes, fp32_scope, chain_e, chain_
             two_ms = cuda_ms(lambda: conv_k.conv3x3(conv_k.conv3x3(x, wa, ba), wb, bb, True))
             lib_ms = cuda_ms(lambda: conv2b(conv2a(xc)))
         ent.d["two_launch_ms"] = two_ms
-        log(f"  the port's two-launch conv3x3 chain {tag}: {two_ms:.4f} ms (fused: {ms:.4f})")
+        log(f"  the port's two-launch conv3x3 chain {tag} (the model conv's kernel twice; fp32: "
+            f"3xTF32): {two_ms:.4f} ms (fused: {ms:.4f})")
         size = x.element_size()
         nbytes = size * (2 * h * w * 64 + 2 * 9 * 64 * 64 + 2 * (h // 2) * (w // 2) * 64) + 8 * 64
         flops = 2 * (2 * 2 * h * w * 64 * 64 * 9)
@@ -3312,6 +3442,11 @@ def main() -> int:
         nbytes = h.element_size() * (2 * h.numel() + 4 * e)
         ent.add(f"1024x512 {tag}", 4 * N_LAYERS, ms, plain, lib_ms, nbytes, 20 * h.numel(),
                 FP32_OP_PER_MS)
+        ent.d["ffn_triple_ms"] = 4 * N_LAYERS * ffn_triple_ms(ls, dev, dt)
+        log(f"  ffn1 -> ln_gelu -> ffn2 {tag} as the stack runs them: "
+            f"{ent.d['ffn_triple_ms'] / (4 * N_LAYERS):.4f} ms a triple, "
+            f"{ent.d['ffn_triple_ms']:.4f} ms per match_pair")
+    ln_gelu_checks(ls, _build, dev, fp32_scope)
 
     # ---- the whole stack against its plain version, 9 layers -------------
     log(f"transformer_stack vs plain, L={N_LAYERS}")

@@ -164,10 +164,10 @@ extern "C" int lg_linear_s8_fold(const void* a, const void* a2, int k1, const vo
 # the GEMM's blocks stage its weights, scale, bias and residual while
 # row_quant runs, then wait for it
 EARLY_TRIGGER = [
-    ("__device__ __forceinline__ void wait_prerequisites() {\n",
+    ("bool on16(const void* p) {",
      "__device__ __forceinline__ void launch_dependents() {\n"
      "  asm volatile(\"griddepcontrol.launch_dependents;\\n\" ::: \"memory\");\n}\n"
-     "__device__ __forceinline__ void wait_prerequisites() {\n"),
+     "bool on16(const void* p) {"),
     ("  wait_prerequisites();  // a and a2\n",
      "  wait_prerequisites();  // a and a2\n  launch_dependents();\n")]
 # the staging loop indexed by a division by the row's segment count (the

@@ -74,4 +74,32 @@ __device__ __forceinline__ void rope_pair(float& x1, float& x2, int d, int pos,
   x1 = y1;
 }
 
+// Programmatic dependent launch (Hopper): a kernel launched with the
+// attribute is set up while the stream's previous kernel runs and may start
+// as that kernel's blocks exit; this waits until the previous kernel has
+// finished and its writes are visible (at once without the attribute).
+// Such a kernel reads what the previous kernel may have written, and writes
+// anything, only after the wait.
+__device__ __forceinline__ void wait_prerequisites() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// a launch, as a programmatic dependent of the stream's previous kernel
+// where `dependent` is set (the kernel waits for it with wait_prerequisites)
+template <typename... Params, typename... Args>
+cudaError_t launch_dependent(void (*kernel)(Params...), dim3 grid, int threads, size_t smem,
+                             cudaStream_t stream, bool dependent, Args... args) {
+  cudaLaunchAttribute pdl[1];
+  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl[0].val.programmaticStreamSerializationAllowed = dependent;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = pdl;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
 }  // namespace lg

@@ -98,155 +98,46 @@
 //   GFLOP per pair at 495 TFLOP/s: 0.41 ms), below the fp32 FMA units'
 //   1.01 ms for the same sums.
 //
-// conv3x3_kernel, every other fp32-operand call (the generic fp32 conv, any
-// C_in and C_out multiples of 8), on the fp32 FMA units: one block per 8x16
-// output tile and 64 output channels, the haloed input tile and the taps'
-// weights staged in shared memory 16 input channels at a time (under the
-// 48 KB static limit; a chunk past C_in is zero-filled), 8 pixels x 4 output
-// channels of fp32 accumulators per thread, and the bias/ReLU/pool epilogue
-// in registers; C_out tiles over 64-channel blocks.
+// conv3x3_tf32x3_generic_kernel, every other fp32-operand call (any C_in
+// and C_out multiples of 8, ReLU on or off, pool on or off, fp32 or bf16
+// out): the model's 3xTF32 design over conv3x3_igemm_kernel's generic tiles.
+// - A block owns TF32_ROWS = 12 x 16 output pixels x 64 output channels
+//   (six warps of two tile rows each; kernels/conv.py:conv_plan with the
+//   fp32 dtype mirrors it): conv3a/conv3b run 400 blocks, convDa/convDb
+//   200, two an SM. On an H100 (scripts/tune_torch_ln_gelu_conv.py, ms
+//   over the four shapes) 12 rows took 0.76, 10 rows the same, 14 and 16
+//   rows 0.88-0.91 (held to 128 registers a thread, they spill: 19 local
+//   loads), and the bf16 kernel's rule (16 rows, 8 at convD) 1.07: 16-row blocks
+//   leave a second wave a fifth full at conv3a and one block on most SMs at
+//   convD, and a block splits the same weights per chunk whatever its
+//   rows, which 8-row tiles repeat twice as often.
+// - K streams in C_in / 8 chunks of 8 input channels (C_in = 24 runs three)
+//   through the same two-stage cp.async ring of raw fp32 chunks; weight
+//   columns past C_out are zero-filled in the stage and never stored
+//   (C_out = 40 runs one 64-channel tile with 24 dead columns).
+// - Every operand split by truncation (mma.cuh:split_tf32_rz, 1.15-1.4x
+//   faster than the rounding split in the fp32 attention and linear
+//   kernels; 0.84 ms over the four shapes with the rounding split): the
+//   weights once per chunk into (hi, lo) pairs at the 68-pair pitch, the
+//   activations as each A fragment loads.
+// - Epilogue in registers: fp32 acc + fp32 bias, ReLU when asked, the pool
+//   max across the thread's two rows and the lane 4 apart, one cast, 2-value
+//   stores masked per pixel and per 8-channel column.
+// - 100 KB of shared memory and at most 170 registers a thread (it takes
+//   168): two blocks an SM. Unbounded (190 registers, one block an SM) it
+//   ran 0.95 ms over the four shapes.
+// - What bounds it: the tensor cores at three TF32 products per MAC (34
+//   GFLOP over SuperPoint's four C >= 128 shapes: 0.206 ms). The FMA kernel
+//   it replaces (an 8x16 tile per block, 16 input channels staged at a
+//   time, 32 fp32 accumulators a thread) took 1.44 ms over those four shapes
+//   on an NVIDIA H100 80GB HBM3 at 700 W, above the fp32 FMA units' 0.51
+//   ms; this kernel 0.76 ms there, 27 % of its bound (PERF.md).
 
 #include "mma.cuh"
 
 namespace {
 
-constexpr int C = 64;        // output channels per block (and the fixed C_in)
-constexpr int TH = 8;        // output tile rows (pre-pool)
-constexpr int TW = 16;       // output tile cols (pre-pool)
-constexpr int CI = 16;       // input channels staged per step
-constexpr int HR = TH + 2;   // haloed tile rows
-constexpr int HC = TW + 2;   // haloed tile cols
-constexpr int THREADS = 256;
-
-template <typename O, bool RELU>
-__global__ void __launch_bounds__(THREADS)
-conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
-               const float* __restrict__ bias, O* __restrict__ y,
-               int H, int W, int cin, int cout, int pool) {
-  __shared__ float xs[HR * HC * CI];               // [row][col][ci] 11.5 KB
-  __shared__ __align__(16) float ws[9 * CI * C];   // [tap][ci][co]  36.9 KB
-
-  const int tiles = (cout + C - 1) / C;  // 64-channel output tiles
-  const int tid = threadIdx.x;
-  const int cg = tid % 16;             // output channels co0 + 4cg .. co0 + 4cg+3
-  const int pg = tid / 16;             // pixel group: 2 rows x 4 cols
-  const int pr = 2 * (pg / 4);         // tile row of the group
-  const int pc = 4 * (pg % 4);         // tile col of the group
-  const int b = blockIdx.z / tiles;
-  const int co0 = blockIdx.z % tiles * C;
-  const int y0 = blockIdx.y * TH;
-  const int x0 = blockIdx.x * TW;
-  const float* xb = x + (size_t)b * H * W * cin;
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-#pragma unroll
-      for (int o = 0; o < 4; ++o) acc[r][c][o] = 0.f;
-
-  for (int c0 = 0; c0 < cin; c0 += CI) {
-    __syncthreads();  // the previous step's tiles are no longer read
-    for (int i = tid; i < HR * HC * CI; i += THREADS) {
-      const int ci = i % CI;
-      const int pix = i / CI;
-      const int gy = y0 - 1 + pix / HC;
-      const int gx = x0 - 1 + pix % HC;
-      float v = 0.f;  // SAME zero padding, and channels past C_in
-      if (gy >= 0 && gy < H && gx >= 0 && gx < W && c0 + ci < cin)
-        v = xb[((size_t)gy * W + gx) * cin + c0 + ci];
-      xs[i] = v;
-    }
-    for (int i = tid; i < 9 * CI * C; i += THREADS) {
-      const int co = i % C;
-      const int ci = (i / C) % CI;
-      const int tap = i / (C * CI);
-      float v = 0.f;
-      if (c0 + ci < cin && co0 + co < cout)
-        v = w[((size_t)tap * cin + c0 + ci) * cout + co0 + co];
-      ws[i] = v;
-    }
-    __syncthreads();
-#pragma unroll 1
-    for (int tap = 0; tap < 9; ++tap) {
-      const int dy = tap / 3;
-      const int dx = tap % 3;
-#pragma unroll 4
-      for (int ci = 0; ci < CI; ++ci) {
-        const float4 wv =
-            *reinterpret_cast<const float4*>(&ws[(tap * CI + ci) * C + 4 * cg]);
-#pragma unroll
-        for (int r = 0; r < 2; ++r)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const float xv = xs[((pr + r + dy) * HC + pc + c + dx) * CI + ci];
-            acc[r][c][0] = fmaf(xv, wv.x, acc[r][c][0]);
-            acc[r][c][1] = fmaf(xv, wv.y, acc[r][c][1]);
-            acc[r][c][2] = fmaf(xv, wv.z, acc[r][c][2]);
-            acc[r][c][3] = fmaf(xv, wv.w, acc[r][c][3]);
-          }
-      }
-    }
-  }
-
-  const int co = co0 + 4 * cg;  // C_out % 8 == 0: all four channels or none
-  if (co >= cout) return;
-  float bv[4];
-#pragma unroll
-  for (int o = 0; o < 4; ++o) bv[o] = bias[co + o];
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-#pragma unroll
-      for (int o = 0; o < 4; ++o) {
-        const float v = acc[r][c][o] + bv[o];
-        acc[r][c][o] = RELU ? fmaxf(v, 0.f) : v;
-      }
-
-  if (pool) {
-    // the group's 2 rows x 4 cols hold two whole 2x2 windows
-    const int Ho = H / 2, Wo = W / 2;
-    const int oy = (y0 + pr) / 2;
-#pragma unroll
-    for (int k = 0; k < 2; ++k) {
-      const int ox = (x0 + pc) / 2 + k;
-      if (oy >= Ho || ox >= Wo) continue;
-      O* dst = y + (((size_t)b * Ho + oy) * Wo + ox) * cout + co;
-#pragma unroll
-      for (int o = 0; o < 4; ++o) {
-        const float m = fmaxf(fmaxf(acc[0][2 * k][o], acc[0][2 * k + 1][o]),
-                              fmaxf(acc[1][2 * k][o], acc[1][2 * k + 1][o]));
-        dst[o] = lg::from_f<O>(m);
-      }
-    }
-  } else {
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int gy = y0 + pr + r;
-        const int gx = x0 + pc + c;
-        if (gy >= H || gx >= W) continue;
-        O* dst = y + (((size_t)b * H + gy) * W + gx) * cout + co;
-#pragma unroll
-        for (int o = 0; o < 4; ++o) dst[o] = lg::from_f<O>(acc[r][c][o]);
-      }
-  }
-}
-
-template <typename O>
-int generic_fp32(const void* x, const void* w, const void* bias, void* y, int B, int H, int W,
-                 int Cin, int Cout, int pool, int relu, cudaStream_t stream) {
-  const int tiles = (Cout + C - 1) / C;
-  dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B * tiles);
-  auto kernel = relu ? conv3x3_kernel<O, true> : conv3x3_kernel<O, false>;
-  kernel<<<grid, THREADS, 0, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w),
-      static_cast<const float*>(bias), static_cast<O*>(y), H, W, Cin, Cout, pool);
-  return static_cast<int>(cudaGetLastError());
-}
+constexpr int C = 64;  // the model convs' C_in and C_out
 
 // ---------------------------------------------------------------------------
 // The model's bf16 64 -> 64 ReLU conv on the tensor cores
@@ -788,6 +679,185 @@ int launch_tf32x3(const void* x, const void* w, const void* bias, void* y, int B
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// Every other fp32-operand conv in 3xTF32: C_in, C_out multiples of 8
+// ---------------------------------------------------------------------------
+
+constexpr int TF32_ROWS = 12;  // output rows of a generic 3xTF32 tile: 6 warps
+constexpr int TF32_THREADS = TF32_ROWS / 2 * 32;
+// floats of one raw ring stage of the generic 3xTF32 conv: the haloed
+// (TF32_ROWS + 2) x 18 tile's 8 channels, their taps' weights
+constexpr int TF32_STAGE = (TF32_ROWS + 2) * (GW + 2) * XPA + 9 * XK * GN;
+constexpr size_t TF32_GENERIC_SMEM =
+    sizeof(float) * 2 * TF32_STAGE + sizeof(float2) * 9 * XK * XPN;  // 100,224 B
+
+// two blocks an SM: 170 registers a thread at most
+template <typename O>
+__global__ void __launch_bounds__(TF32_THREADS, 2)
+conv3x3_tf32x3_generic_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                              const float* __restrict__ bias, O* __restrict__ y, int B, int H,
+                              int W, int Cin, int Cout, int pool, int relu) {
+  constexpr int ROWS = TF32_ROWS, THREADS = TF32_THREADS, STAGE = TF32_STAGE;
+  constexpr int HW = GW + 2;             // haloed tile width
+  constexpr int APIX = (ROWS + 2) * HW;  // haloed tile pixels
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // [2] x {[APIX][XPA] input chunk, [9 * XK][GN] its taps' weights}, as copied
+  float* raw = reinterpret_cast<float*>(smem_raw);
+  // [9 * XK][XPN] (hi, lo) of the chunk's weights, split once for all warps
+  float2* ws = reinterpret_cast<float2*>(raw + 2 * STAGE);
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;  // tile rows 2 warp + {0, 1}
+  const int g = lane / 4, t4 = lane % 4;  // mma fragment row and column
+  const int x0 = blockIdx.x * GW, y0 = blockIdx.y * ROWS;
+  const int b = blockIdx.z % B, n0 = blockIdx.z / B * GN;
+  const int chunks = Cin / XK;
+
+  // chunk c's raw stage: channels c * XK.. of the haloed tile (zeros outside
+  // the image) and their nine taps' weights for the block's channels (zeros
+  // past C_out)
+  auto stage = [&](int c) {
+    float* xs = raw + c % 2 * STAGE;
+    float* wr = xs + APIX * XPA;
+    const int c0 = c * XK;
+    for (int s = tid; s < APIX * (XK / 4); s += THREADS) {
+      const int p = s / (XK / 4), k4 = s % (XK / 4) * 4;
+      const int gy = y0 - 1 + p / HW, gx = x0 - 1 + p % HW;
+      float* d = xs + p * XPA + k4;
+      if (gy >= 0 && gy < H && gx >= 0 && gx < W)
+        lg::cp_async16(d, x + (((size_t)b * H + gy) * W + gx) * Cin + c0 + k4);
+      else
+        *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    for (int s = tid; s < 9 * XK * (GN / 4); s += THREADS) {
+      const int r = s / (GN / 4), n4 = s % (GN / 4) * 4;  // r = tap * XK + channel in chunk
+      float* d = wr + r * GN + n4;
+      if (n0 + n4 < Cout)
+        lg::cp_async16(d, w + ((size_t)(r / XK) * Cin + c0 + r % XK) * Cout + n0 + n4);
+      else
+        *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+
+  // acc[m][n]: tile row 2 * warp + m, channels n0 + n * 8.., fp32 over 9 x C_in
+  float acc[2][GN / 8][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int n = 0; n < GN / 8; ++n) acc[m][n][0] = acc[m][n][1] = acc[m][n][2] = acc[m][n][3] = 0.f;
+
+  stage(0);
+  lg::cp_async_commit();
+  for (int c = 0; c < chunks; ++c) {
+    lg::cp_async_wait<0>();  // this thread's copies of chunk c have landed
+    __syncthreads();         // everyone's, and chunk c - 1 is no longer read
+    if (c + 1 < chunks) stage(c + 1);
+    lg::cp_async_commit();
+    const float* xs = raw + c % 2 * STAGE;
+    {  // split the chunk's weights into (hi, lo) pairs
+      const float4* wr = reinterpret_cast<const float4*>(xs + APIX * XPA);
+      for (int s = tid; s < 9 * XK * (GN / 4); s += THREADS) {
+        const float4 v = wr[s];
+        unsigned h[4], l[4];
+        lg::split_tf32_rz(v.x, h[0], l[0]);
+        lg::split_tf32_rz(v.y, h[1], l[1]);
+        lg::split_tf32_rz(v.z, h[2], l[2]);
+        lg::split_tf32_rz(v.w, h[3], l[3]);
+        uint4* d = reinterpret_cast<uint4*>(ws + s / (GN / 4) * XPN + s % (GN / 4) * 4);
+        d[0] = make_uint4(h[0], l[0], h[1], l[1]);
+        d[1] = make_uint4(h[2], l[2], h[3], l[3]);
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const int dy = tap / 3, dx = tap % 3;
+      unsigned ah[2][4], al[2][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {  // 16 pixels of a row, shifted by the tap
+        const float* px = xs + ((2 * warp + m + dy) * HW + dx + g) * XPA + t4;
+        lg::split_tf32_rz(px[0], ah[m][0], al[m][0]);            // pixel g, k t4
+        lg::split_tf32_rz(px[8 * XPA], ah[m][1], al[m][1]);      // pixel g + 8
+        lg::split_tf32_rz(px[4], ah[m][2], al[m][2]);            // k t4 + 4
+        lg::split_tf32_rz(px[8 * XPA + 4], ah[m][3], al[m][3]);
+      }
+      const float2* wk = ws + (tap * XK + t4) * XPN + g;  // k t4, column g
+#pragma unroll
+      for (int n = 0; n < GN / 8; ++n) {
+        const float2 w0 = wk[n * 8], w1 = wk[4 * XPN + n * 8];  // k t4 and t4 + 4
+        const unsigned bh0 = __float_as_uint(w0.x), bl0 = __float_as_uint(w0.y);
+        const unsigned bh1 = __float_as_uint(w1.x), bl1 = __float_as_uint(w1.y);
+#pragma unroll
+        for (int m = 0; m < 2; ++m) lg::mma_3xtf32(acc[m][n], ah[m], al[m], bh0, bl0, bh1, bl1);
+      }
+    }
+  }
+
+  // fp32 bias, [ReLU,] [the pool max,] one cast. C_out % 8 == 0: an n8
+  // fragment column is all inside C_out or all past it (then never stored)
+  float bv[GN / 8][2];
+#pragma unroll
+  for (int n = 0; n < GN / 8; ++n) {
+    const int co = n0 + n * 8 + 2 * t4;
+    bv[n][0] = co < Cout ? __ldg(bias + co) : 0.f;
+    bv[n][1] = co < Cout ? __ldg(bias + co + 1) : 0.f;
+  }
+  auto act = [&](float v) { return relu ? fmaxf(v, 0.f) : v; };
+  if (pool) {
+    const int Ho = H / 2, Wo = W / 2, oy = y0 / 2 + warp;
+#pragma unroll
+    for (int n = 0; n < GN / 8; ++n) {
+      if (n0 + n * 8 >= Cout) break;  // the same for the whole warp
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {  // fragment rows g and g + 8
+        float v[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          v[j] = fmaxf(act(acc[0][n][2 * i + j] + bv[n][j]), act(acc[1][n][2 * i + j] + bv[n][j]));
+          v[j] = fmaxf(v[j], __shfl_xor_sync(0xffffffffu, v[j], 4));  // the column pair
+        }
+        const int ox = x0 / 2 + (g + 8 * i) / 2;
+        if (!(g & 1) && oy < Ho && ox < Wo)
+          lg::store2(y + (((size_t)b * Ho + oy) * Wo + ox) * Cout + n0 + n * 8 + 2 * t4, v[0],
+                     v[1]);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const int gy = y0 + 2 * warp + m;
+#pragma unroll
+      for (int n = 0; n < GN / 8; ++n) {
+        if (n0 + n * 8 >= Cout) break;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int gx = x0 + g + 8 * i;
+          if (gy < H && gx < W)
+            lg::store2(y + (((size_t)b * H + gy) * W + gx) * Cout + n0 + n * 8 + 2 * t4,
+                       act(acc[m][n][2 * i] + bv[n][0]), act(acc[m][n][2 * i + 1] + bv[n][1]));
+        }
+      }
+    }
+  }
+}
+
+template <typename O>
+int launch_tf32x3_generic(const void* x, const void* w, const void* bias, void* y, int B, int H,
+                          int W, int Cin, int Cout, int pool, int relu, cudaStream_t stream) {
+  // x and w are read 16 B at a time
+  if (reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(w) % 16)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  // above 48 KB: opt in once per instantiation
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      conv3x3_tf32x3_generic_kernel<O>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(TF32_GENERIC_SMEM));
+  if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
+  dim3 grid((W + GW - 1) / GW, (H + TF32_ROWS - 1) / TF32_ROWS, B * ((Cout + GN - 1) / GN));
+  conv3x3_tf32x3_generic_kernel<O><<<grid, TF32_THREADS, TF32_GENERIC_SMEM, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<const float*>(bias), static_cast<O*>(y), B, H, W, Cin, Cout, pool, relu);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // x: (B, H, W, Cin) input type; w: (3, 3, Cin, Cout) HWIO input type; bias:
@@ -806,17 +876,19 @@ extern "C" int lg_conv3x3(const void* x, const void* w, const void* bias,
                                                                    Cout, pool, relu, s);
   }
   if (model) return launch_tf32x3(x, w, bias, y, B, H, W, pool, s);
-  return (bf16_out ? generic_fp32<bf16_t> : generic_fp32<float>)(x, w, bias, y, B, H, W, Cin,
-                                                                 Cout, pool, relu, s);
+  return (bf16_out ? launch_tf32x3_generic<bf16_t> : launch_tf32x3_generic<float>)(
+      x, w, bias, y, B, H, W, Cin, Cout, pool, relu, s);
 }
 
-// The generic bf16 launch's tile at (B, H, W, Cout) (conv_rows): out =
-// {rows, threads, blocks, dynamic shared memory in bytes}.
-extern "C" int lg_conv_tile(int B, int H, int W, int Cout, int* out) {
-  const int rows = conv_rows(B, H, W, Cout);
+// A generic launch's tile at (B, H, W, Cout): bf16 operands
+// (conv3x3_igemm_kernel at conv_rows' rows) or fp32
+// (conv3x3_tf32x3_generic_kernel at TF32_ROWS): out = {rows, threads,
+// blocks, dynamic shared memory in bytes}.
+extern "C" int lg_conv_tile(int B, int H, int W, int Cout, int fp32, int* out) {
+  const int rows = fp32 ? TF32_ROWS : conv_rows(B, H, W, Cout);
   out[0] = rows;
   out[1] = rows / 2 * 32;
   out[2] = B * ((W + GW - 1) / GW) * ((H + rows - 1) / rows) * ((Cout + GN - 1) / GN);
-  out[3] = static_cast<int>(igemm_smem(rows));
+  out[3] = static_cast<int>(fp32 ? TF32_GENERIC_SMEM : igemm_smem(rows));
   return 0;
 }

@@ -471,14 +471,6 @@ constexpr int S8_MIN_BLOCKS = 128;  // blocks s8_plan aims for: about one per SM
 constexpr int S8_WARPS = 8;         // warps of an s8 GEMM block
 constexpr int S8_PDL = 1;           // both W8A8 kernels launched as programmatic dependents
 
-// Programmatic dependent launch (Hopper): a kernel launched with the
-// attribute is set up while the stream's previous kernel runs and may start
-// as that kernel's blocks exit; this waits until the previous kernel has
-// finished and its writes are visible (at once without the attribute)
-__device__ __forceinline__ void wait_prerequisites() {
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-}
-
 bool on16(const void* p) { return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 // q = clip(rint(v / sa), -127, 127) over each row of [a | a2], sa =
@@ -833,24 +825,6 @@ void s8_plan(int M, int N, int* wm, int* wn) {
   }
 }
 
-// a launch as a programmatic dependent of the stream's previous kernel
-// (S8_PDL; the kernel waits for it with wait_prerequisites)
-template <typename... Params, typename... Args>
-cudaError_t launch_dependent(void (*kernel)(Params...), dim3 grid, int threads, size_t smem,
-                             cudaStream_t stream, Args... args) {
-  cudaLaunchAttribute pdl[1];
-  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  pdl[0].val.programmaticStreamSerializationAllowed = S8_PDL;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = pdl;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kernel, args...);
-}
-
 template <int WM, int WN>
 int launch_s8(const void* aq, const void* asc, const void* wt, const void* wscale,
               const void* bias, const void* res, void* y, int M, int N, int K,
@@ -865,7 +839,7 @@ int launch_s8(const void* aq, const void* asc, const void* wt, const void* wscal
     opted_in = true;
   }
   return static_cast<int>(launch_dependent(
-      kernel, dim3(N / TN, (M + TM - 1) / TM), S8_WARPS * 32, s8_smem(TM, TN, K), stream,
+      kernel, dim3(N / TN, (M + TM - 1) / TM), S8_WARPS * 32, s8_smem(TM, TN, K), stream, S8_PDL,
       static_cast<const int8_t*>(aq), static_cast<const float*>(asc),
       static_cast<const int8_t*>(wt), static_cast<const float*>(wscale),
       static_cast<const float*>(bias), static_cast<const bf16_t*>(res), static_cast<bf16_t*>(y),
@@ -913,7 +887,7 @@ extern "C" int lg_row_quant(const void* a, const void* a2, int k1, int K, int M,
   const int rows = QUANT_WARPS * (K > 256 ? 1 : 2);  // rows of a block
   return static_cast<int>(launch_dependent(
       row_quant_kernel, dim3((M + rows - 1) / rows), QUANT_WARPS * 32, 0,
-      static_cast<cudaStream_t>(stream), static_cast<const bf16_t*>(a),
+      static_cast<cudaStream_t>(stream), S8_PDL, static_cast<const bf16_t*>(a),
       static_cast<const bf16_t*>(a2), k1, K, M, static_cast<int8_t*>(q), static_cast<float*>(sa),
       aligned));
 }

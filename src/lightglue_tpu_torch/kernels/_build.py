@@ -36,7 +36,7 @@ _F = ctypes.c_float
 # name -> argtypes; every function returns its launch's cudaError_t
 _SIGNATURES = {
     "lg_conv3x3": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "lg_conv_tile": [_I, _I, _I, _I, ctypes.POINTER(_I)],
+    "lg_conv_tile": [_I, _I, _I, _I, _I, ctypes.POINTER(_I)],
     "lg_conv2_chain": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "lg_nms_candidates": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "lg_nms_smem_bytes": [_I],
@@ -55,6 +55,7 @@ _SIGNATURES = {
     "lg_attention_row_groups": [_I, _I, _I],
     "lg_attention_plan": [_I, _I, _I, _I, ctypes.POINTER(_I)],
     "lg_ln_gelu": [_P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _P],
+    "lg_ln_gelu_plan": [_I, ctypes.POINTER(_I)],
     "lg_adaptive_decide": [
         _P, _P, _I, _I, _I, _I, _P, _P, _F, _P, _P, _F, _P, _P, _P, _P, _P,
         _I, _I, _F, _I, _P, _P, _P,

@@ -16,16 +16,16 @@ both ``conv3x3`` here:
   is a tested variant.
 
 On a CUDA tensor ``conv3x3`` launches ``csrc/conv3x3.cu`` (see its header for
-the designs and what bounds them). Every bf16-operand call runs an implicit
-GEMM on the tensor cores (``mma.sync``, fp32 sums, the bias/ReLU/pool
-epilogue in fp32 and one cast): the model's 64 -> 64 ReLU calls with the
+the designs and what bounds them). Every call runs an implicit GEMM on the
+tensor cores (``mma.sync``, fp32 sums, the bias/ReLU/pool epilogue in fp32
+and one cast). With bf16 operands: the model's 64 -> 64 ReLU calls with the
 input tile and all nine taps' weights resident in shared memory, every other
 shape and option with K streamed in 16-channel chunks over a tile that
-``conv_plan`` sizes. The model's fp32 64 -> 64 ReLU calls (the MIXED and
-FP32 rungs) run the same implicit GEMM in 3xTF32 (each operand split into
+``conv_plan`` sizes. With fp32 operands, in 3xTF32 (each operand split into
 two TF32 values, three ``mma.sync`` products per step, about fp32's
-precision); every other fp32-operand call runs on the FMA units. On a CPU
-tensor it runs ``conv3x3_plain``.
+precision): the model's 64 -> 64 ReLU calls (the MIXED and FP32 rungs) on
+16x16 tiles, every other call with K streamed in 8-channel chunks over
+12x16 tiles (``conv_plan``). On a CPU tensor it runs ``conv3x3_plain``.
 """
 
 from __future__ import annotations
@@ -37,14 +37,20 @@ import torch.nn.functional as F
 
 from lightglue_tpu_torch.kernels import _build
 
-# csrc/conv3x3.cu's generic bf16 launch: output tile width and channels,
-# input channels per K chunk, ring stages, and the blocks a launch aims for
-# (two per SM)
+# csrc/conv3x3.cu's generic launches: output tile width and channels,
+# input channels per K chunk (bf16 and fp32 operands), ring stages, the
+# blocks the bf16 launch aims for (two per SM), and the fp32 kernel's tile
+# rows and pitches: a chunk's input pixel (floats) and its split weights'
+# row ((hi, lo) pairs)
 CONV_TILE_W = 16
 CONV_TILE_N = 64
 CONV_K_CHUNK = 16
+CONV_K_CHUNK_FP32 = 8
 CONV_STAGES = 2
 CONV_FILL = 264
+CONV_ROWS_FP32 = 12
+CONV_PITCH_FP32 = CONV_K_CHUNK_FP32 + 4
+CONV_PAIR_PITCH = CONV_TILE_N + 4
 
 
 class ConvPlan(NamedTuple):
@@ -54,17 +60,27 @@ class ConvPlan(NamedTuple):
     smem: int     # dynamic shared memory, bytes
 
 
-def conv_plan(b: int, h: int, w: int, cout: int) -> ConvPlan:
-    """The generic bf16 conv's launch (csrc/conv3x3.cu:conv_rows, which
-    ``lg_conv_tile`` reports): rows the largest of 16, 8 and 4 whose grid
-    has CONV_FILL blocks, else 4. Each ring stage holds the haloed
-    (rows + 2) x 18 tile's 16 channels at a 24-element pitch and their nine
-    taps' weights at a 72-element pitch."""
+def conv_plan(b: int, h: int, w: int, cout: int, dtype=torch.bfloat16) -> ConvPlan:
+    """A generic conv's launch with ``dtype`` operands, as ``lg_conv_tile``
+    reports it. bf16 (csrc/conv3x3.cu:conv_rows): rows the largest of 16, 8
+    and 4 whose grid has CONV_FILL blocks, else 4; each ring stage holds the
+    haloed (rows + 2) x 18 tile's 16 channels at a 24-element pitch and
+    their nine taps' weights at a 72-element pitch. fp32 (3xTF32):
+    CONV_ROWS_FP32 rows; each raw stage holds the tile's 8 channels at a
+    12-float pitch and their nine taps' weights for 64 channels, beside one
+    buffer of the chunk's weights split into (hi, lo) pairs at a 68-pair
+    pitch."""
     per_row = b * -(-w // CONV_TILE_W) * -(-cout // CONV_TILE_N)
-    rows = next((r for r in (16, 8) if per_row * -(-h // r) >= CONV_FILL), 4)
-    stage = ((rows + 2) * (CONV_TILE_W + 2) * (CONV_K_CHUNK + 8)
-             + 9 * CONV_K_CHUNK * (CONV_TILE_N + 8))
-    return ConvPlan(rows, rows // 2 * 32, per_row * -(-h // rows), 2 * CONV_STAGES * stage)
+    halo = lambda rows: (rows + 2) * (CONV_TILE_W + 2)  # noqa: E731
+    if dtype == torch.float32:
+        rows = CONV_ROWS_FP32
+        stage = halo(rows) * CONV_PITCH_FP32 + 9 * CONV_K_CHUNK_FP32 * CONV_TILE_N
+        smem = 4 * CONV_STAGES * stage + 8 * 9 * CONV_K_CHUNK_FP32 * CONV_PAIR_PITCH
+    else:
+        rows = next((r for r in (16, 8) if per_row * -(-h // r) >= CONV_FILL), 4)
+        stage = halo(rows) * (CONV_K_CHUNK + 8) + 9 * CONV_K_CHUNK * (CONV_TILE_N + 8)
+        smem = 2 * CONV_STAGES * stage
+    return ConvPlan(rows, rows // 2 * 32, per_row * -(-h // rows), smem)
 
 
 def _pick_rows(h: int) -> int:

@@ -33,7 +33,9 @@ loop over the layers launches, per layer and image, the kernels of
   cast to T), the row max is clamped at -5e29 when masked, dead columns
   are -1e30 in every chunk under keep masks, keep and liveness operands
   stay.
-- ``ln_gelu`` (``csrc/ln_gelu.cu``): the FFN's LayerNorm + GELU;
+- ``ln_gelu`` (``csrc/ln_gelu.cu``): the FFN's LayerNorm + GELU, 32 lanes
+  a row reading 16-byte vectors (``ln_gelu_plan``), launched as a
+  programmatic dependent of ffn1;
 - ``adaptive_decide`` (``csrc/adaptive.cu``, adaptive stack only): after
   each layer, the early-exit and pruning decision of every live pair, one
   launch whose blocks each take a slice of one pair's rows
@@ -631,6 +633,26 @@ def ln_gelu_plain(h, g, b, live: Optional[Live] = None):
 # (rows, gamma and beta) types -> csrc/ln_gelu.cu:lg_ln_gelu's mode; INT8
 # keeps LayerNorm in fp32 beside bf16 rows
 _LN_MODES = {(_F32, _F32): 0, (_BF16, _BF16): 1, (_BF16, _F32): 2}
+LN_MAX_C = 512    # the widest row
+LN_ROW_LANES = 32  # lanes of a row
+LN_THREADS = 128   # threads of a block
+
+
+class LnPlan(NamedTuple):
+    row_lanes: int  # lanes of a warp per row
+    vectors: int    # 16-byte vectors of the row per lane
+    columns: int    # columns of a vector
+    threads: int    # threads of a block
+
+
+def ln_gelu_plan(dtype) -> LnPlan:
+    """``ln_gelu``'s lane map for ``dtype`` rows (csrc/ln_gelu.cu, which
+    ``lg_ln_gelu_plan`` reports): lane l of a row takes the vectors l,
+    l + row_lanes, ..., vector j holding columns j * columns .. + columns - 1
+    (those below C; a row whose C is not a multiple of ``columns`` is read
+    by element on the same map)."""
+    columns = 16 // torch.empty((), dtype=dtype).element_size()
+    return LnPlan(LN_ROW_LANES, LN_MAX_C // (columns * LN_ROW_LANES), columns, LN_THREADS)
 
 
 def ln_gelu(h, g, b, live: Optional[Live] = None):
@@ -644,7 +666,7 @@ def ln_gelu(h, g, b, live: Optional[Live] = None):
     if mode is None or h.device != g.device:
         raise NotImplementedError(f"ln_gelu: {h.dtype} rows with {g.dtype} gamma and beta")
     c = h.shape[-1]
-    if c > 512 or g.shape != (c,) or b.shape != (c,):
+    if c > LN_MAX_C or g.shape != (c,) or b.shape != (c,):
         raise ValueError(f"ln_gelu: width {c} (<= 512), gamma/beta {g.shape}")
     if not (h.is_contiguous() and g.is_contiguous() and b.is_contiguous()):
         raise ValueError("ln_gelu: operands must be contiguous")
