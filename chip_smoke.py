@@ -9,17 +9,24 @@ It prints the card's name and power limit, builds the CUDA kernels of
 ``src/lightglue_tpu_torch/csrc`` (one nvcc per source, sm_90a, in
 parallel) and checks in their SASS that the bf16 kernels of flash_attn.cu,
 attention.cu, linear.cu, bidir_cross.cu, conv3x3.cu (the model conv and the
-generic one) and conv_chain.cu run on the tensor cores and the FMA kernel
-of conv_chain.cu does not, that the fp32 model conv, the generic fp32 conv
-and the fp32 kernels of flash_attn.cu, attention.cu, bidir_cross.cu and
-linear.cu run in 3xTF32 on the tensor cores (TF32 HMMA only), that no
-conv3x3.cu kernel is left without HMMA, and that
+generic one) and conv_chain.cu run on the tensor cores, that the fp32 model
+conv, the generic fp32 conv, the fp32 chain and the fp32 kernels of
+flash_attn.cu, attention.cu, bidir_cross.cu and linear.cu run in 3xTF32 on
+the tensor cores (TF32 HMMA only; their spills logged), that no conv3x3.cu
+or conv_chain.cu kernel is left without HMMA, and that
 stem.cu's kernel has no contracted multiply-add. Then, in
 order; every kernel check is in bf16 and fp32 against
 the kernel's plain PyTorch version at the shapes its path gives it, every
 path is driven with the launch counts set to 0 just before it and read just
 after, and every kernel the JSON line lists is timed beside its bound, its
-plain version and, where one exists, a PyTorch call for the same function:
+plain version and, where one exists, a PyTorch call for the same function.
+A session path is driven through its first call, which captures the
+session's CUDA graphs: the wrappers count each launch there twice (the
+eager warm-up and the capture; ``first_call``), and a later call replays
+the graphs without them, so a replay's launches are counted from
+profiler traces by kernel name (``trace_launches``; the most of ``TRACES``
+traces or more, since a trace can drop a call's events) and held to the
+wrappers' counts per call:
 
 1. The main path (default config: BF16, 9 layers, seed-0 random weights,
    480x640 pair): ``conv3x3`` (its 64->64 calls, timed in bf16 and in fp32
@@ -99,11 +106,12 @@ plain version and, where one exists, a PyTorch call for the same function:
    plain version and the two-launch ``conv3x3`` chain; every bf16-operand
    case against the rounding witness (by magnitude where the output is
    fp32) and its two wrong designs (``conv_wrong_designs``,
-   ``chain_wrong_designs``); every fp32 -> fp32 generic case (3xTF32)
-   against float64 beside an emulated one-TF32 conv; both timed in bf16
-   and fp32 (cuDNN with TF32 off), the chain beside the two-launch chain.
-   ``conv_plan`` (both operand dtypes) is held to the card's
-   ``lg_conv_tile`` in phase 1.
+   ``chain_wrong_designs``); every fp32 -> fp32 generic conv and chain
+   case (3xTF32) against float64 beside an emulated one-TF32 conv or
+   chain; both timed in bf16 and fp32 (cuDNN with TF32 off), the chain
+   beside the two-launch chain. ``conv_plan`` and ``chain_plan`` (both
+   operand dtypes) are held to the card's ``lg_conv_tile`` and
+   ``lg_chain_plan`` in phase 1.
 6. The MIXED and INT8 rungs (INT8's W8A8 mode with ``LGTPU_W8A8=1``):
    ``linear`` at MIXED (fp32 activations, bf16 products; 1e-4), INT8
    weight-only (bit for bit against ``linear`` on the dequantized weight)
@@ -124,15 +132,29 @@ plain version and, where one exists, a PyTorch call for the same function:
    versions, gives the launch counts of its rows.
    The SASS check above also requires IMMA in every W8A8 GEMM, and no
    local-memory load or store in it (no spill).
+7. The session's per-bucket CUDA graphs (``session_graph_checks``): on
+   every configuration of PERF.md's table (each route and rung above but
+   the ring), ``match_pair`` and a two-pair ``match_batch`` replayed from
+   the session's graphs against the same session's eager bodies
+   (``eager_session``): every returned array equal bit for bit, the traced
+   replay's launches per wrapper equal to the eager call's counts, a later
+   call leaving the first call's arrays as they were; ms per pair as graphs
+   and eager and the graph call's device busy share; ``warmup``'s keys on
+   the default config; the device memory a session holds after
+   ``warmup(pairs="all")`` at the default and 2048-keypoint buckets. Every earlier
+   phase's ``match_pair`` replays graphs too; where it swaps the kernels
+   for their plain versions or spies on a call, it runs the eager bodies.
 
 It ends with a ``{"kernels": [...]}`` line (all ten Pallas functions, a
 row per FP32 / MIXED / INT8 / W8A8 instantiation (the fp32 step's launches
 from the FP32 ``forward_ring``) and per fp32-operand conv, and
 conv1a's stem in bf16 and fp32; the chain's rows also carry the two-launch
 chain's ``two_launch_ms``, the bidirectional rows the two SDPA calls'
-``two_sdpa_ms``) and the ``{"ok": true, ...}``
-line. Any failure raises and exits non-zero; so does a missing card or a
-directory without the package.
+``two_sdpa_ms``; ``launches``, the wrappers' counts over the driven call,
+which for a session path is its first call: twice the launches of each
+later call) and the ``{"ok": true, ...}`` line; before them a ``{"sessions": [...]}`` line (phase 7's ms per pair
+graph and eager, kernel ms, busy share). Any failure raises and exits
+non-zero; so does a missing card or a directory without the package.
 """
 
 from __future__ import annotations
@@ -160,6 +182,27 @@ N_LAYERS = 9
 BUCKET = 1024
 # launches of one SuperPoint forward and its extraction, on every route and rung
 SP_LAUNCHES = dict(relu_conv1a_shift=1, conv3x3=3, nms_candidates=1)
+# the port's kernels by the wrapper that launches them, as a profiler trace
+# names them: a traced call's kernel events counted per wrapper
+# (``trace_launches``). rope_kernel is left out: attention and fused_mha
+# launch it before their products in some modes. A flash kernel's first
+# template argument is STEP: true in flash_attention_step; false in
+# fused_mha and flash_attention, which no session call launches (the
+# wrappers' own counts over a session's first call show it)
+KERNEL_WRAPPERS = {
+    "stem_kernel": "relu_conv1a_shift",
+    "conv3x3_mma_kernel": "conv3x3", "conv3x3_tf32x3_kernel": "conv3x3",
+    "conv3x3_igemm_kernel": "conv3x3", "conv3x3_tf32x3_generic_kernel": "conv3x3",
+    "chain_mma_kernel": "conv2_chain", "chain_tf32x3_kernel": "conv2_chain",
+    "nms_candidates_kernel": "nms_candidates",
+    "linear_mma_kernel": "linear", "linear_tf32_kernel": "linear",
+    "linear_s8_kernel": "linear", "row_quant_kernel": "row_quant",
+    "attention_mma_kernel": "attention", "attention_tf32_kernel": "attention",
+    "ln_gelu_kernel": "ln_gelu", "adaptive_decide_kernel": "adaptive_decide",
+    "flash_mma_kernel": "fused_mha", "flash_tf32_kernel": "fused_mha",
+    "bidir_mma_kernel": "bidirectional_cross_attention",
+    "bidir_tf32_kernel": "bidirectional_cross_attention",
+}
 
 # stated tolerances, |kernel - plain| <= atol + rtol * |plain|
 TOL = {
@@ -269,21 +312,24 @@ TENSOR_CORE_KERNELS = {
     "bidir_cross.cu": (("bidir_mma_kernel",), None),
     # the model's 64 -> 64 convs, and every other bf16-operand conv
     "conv3x3.cu": (("conv3x3_mma_kernel", "conv3x3_igemm_kernel"), None),
-    "conv_chain.cu": (("chain_mma_kernel",), "chain_kernel"),
+    "conv_chain.cu": (("chain_mma_kernel",), None),
 }
 # source: its int8 x int8 kernel (W8A8), on the integer tensor cores (IMMA)
 INT8_TENSOR_CORE_KERNELS = {"linear.cu": "linear_s8_kernel"}
 # source: its fp32 kernels on the tensor cores in 3xTF32 (TF32 HMMA only):
-# the fp32 model conv and the generic fp32 conv; one kernel elsewhere
+# the fp32 model conv and the generic fp32 conv; one kernel elsewhere. Each
+# one's local-memory loads and stores (spills) are reported beside
 TF32_TENSOR_CORE_KERNELS = {"conv3x3.cu": ("conv3x3_tf32x3_kernel",
                                            "conv3x3_tf32x3_generic_kernel"),
+                            "conv_chain.cu": ("chain_tf32x3_kernel",),
                             "flash_attn.cu": ("flash_tf32_kernel",),
                             "attention.cu": ("attention_tf32_kernel",),
                             "bidir_cross.cu": ("bidir_tf32_kernel",),
                             "linear.cu": ("linear_tf32_kernel",)}
 # names of kernels none of which may run on the FMA units alone: HMMA in
-# every kernel whose name holds one (conv3x3.cu's, the only ones so named)
-ALL_TENSOR_CORE_NAMES = ("conv3x3_",)
+# every kernel whose name holds one (conv3x3.cu's and conv_chain.cu's, the
+# only ones so named)
+ALL_TENSOR_CORE_NAMES = ("conv3x3_", "chain_")
 # source: a kernel whose rounding contract rounds every product and every add
 NO_FMA_KERNELS = {"stem.cu": "stem_kernel"}
 
@@ -293,15 +339,15 @@ def tensor_core_check(build):
     linear.cu (MIXED's fp32 activations and INT8's int8 weights are staged
     as bf16), bidir_cross.cu, conv3x3.cu (the model conv and the generic
     one) and conv_chain.cu compute their products on the tensor cores
-    (HMMA in the SASS of every one), the FMA kernel of conv_chain.cu on the
-    FMA units (no HMMA), and linear.cu's W8A8 GEMM on
+    (HMMA in the SASS of every one), and linear.cu's W8A8 GEMM on
     the integer tensor cores (IMMA in every instantiation, no HMMA, no
     local-memory load or store: nothing spilled), the
-    fp32 model conv, the generic fp32 conv and the fp32 kernels of
-    flash_attn.cu, attention.cu,
+    fp32 model conv, the generic fp32 conv, the fp32 chain and the fp32
+    kernels of flash_attn.cu, attention.cu,
     bidir_cross.cu and linear.cu on the tensor cores in 3xTF32 (every HMMA
     of each ``TF32_TENSOR_CORE_KERNELS`` kernel takes TF32 operands, in
-    every instantiation), every conv3x3.cu kernel on the tensor cores (no
+    every instantiation; their local loads and stores logged), every
+    conv3x3.cu and conv_chain.cu kernel on the tensor cores (no
     FMA conv left: ``ALL_TENSOR_CORE_NAMES``), and the
     stem rounds each product and each add (no FFMA in stem.cu's kernel):
     ``cuobjdump -sass`` of the built library."""
@@ -344,10 +390,11 @@ def tensor_core_check(build):
             raise AssertionError(f"{src}: a W8A8 GEMM spills to local memory")
     for src, kernels in TF32_TENSOR_CORE_KERNELS.items():
         for kernel in kernels:
-            tf32 = [(c["TF32"], c["HMMA"]) for k, c in counts.items() if kernel in k]
-            log(f"  {src} SASS: (TF32 HMMA, HMMA) per {kernel} instantiation ({len(tf32)}) "
-                f"{tf32}")
-            if not tf32 or min(t for t, _ in tf32) == 0 or any(t != h for t, h in tf32):
+            tf32 = [(c["TF32"], c["HMMA"], c["LDL"] + c["STL"]) for k, c in counts.items()
+                    if kernel in k]
+            log(f"  {src} SASS: (TF32 HMMA, HMMA, local loads and stores) per {kernel} "
+                f"instantiation ({len(tf32)}) {tf32}")
+            if not tf32 or min(t for t, _, _ in tf32) == 0 or any(t != h for t, h, _ in tf32):
                 raise AssertionError(f"{src}: {kernel} without TF32 HMMA, or with another HMMA")
     for name in ALL_TENSOR_CORE_NAMES:
         hmma = [c["HMMA"] for k, c in counts.items() if name in k]
@@ -597,11 +644,11 @@ def stack_tf32_witness(ls, label, got, q, k, v, f, heads):
     return tf32_witness(label, heads_of(got, heads), f64, heads_of(one, heads))
 
 
-def plan_checks(ls, at, nms_k, conv_k, lib):
+def plan_checks(ls, at, nms_k, conv_k, cc, lib):
     """The launch plans the CPU tests hold (``layer_stack.linear_plan``,
     ``attention_plan``, ``decide_plan``, ``attention.flash_plan``,
     ``bidir_plan``, ``nms.nms_smem_bytes``, ``conv.conv_plan``,
-    ``layer_stack.ln_gelu_plan``) are the ones
+    ``layer_stack.ln_gelu_plan``, ``conv_chain.chain_plan``) are the ones
     the card runs (csrc/linear.cu:linear_tile and the shared memory of its
     bf16 and fp32 rings, lg_linear_smem; csrc/flash_attn.cu:lg_flash_smem,
     the bf16 and fp32 blocks' shared memory; csrc/mma.cuh:fill_row_groups
@@ -609,7 +656,8 @@ def plan_checks(ls, at, nms_k, conv_k, lib):
     stack's eight-warp blocks too; csrc/adaptive.cu:decide_rows,
     csrc/nms.cu:Band,
     csrc/conv3x3.cu:conv_rows and both generic kernels' shared memory,
-    csrc/ln_gelu.cu's lane map), at every shape of the paths through the
+    csrc/ln_gelu.cu's lane map, csrc/conv_chain.cu:lg_chain_plan), at every
+    shape of the paths through the
     stack (128-1024 buckets) and through the bidirectional kernel (960x960,
     960x704, 960x64), one pair or two, the decision at B = 1..8 over the
     stack's buckets in both row types, at every NMS radius the kernel is
@@ -700,9 +748,17 @@ def plan_checks(ls, at, nms_k, conv_k, lib):
         if tuple(out) != tuple(ls.ln_gelu_plan(dt)):
             raise AssertionError(f"ln_gelu mode {mode}: the card's lane map {tuple(out)}, "
                                  f"ln_gelu_plan's {tuple(ls.ln_gelu_plan(dt))}")
+    for b, h, w in ((2, 240, 320), (2, 180, 244), (1, 240, 320)):
+        for fp32, dt in ((0, torch.bfloat16), (1, torch.float32)):
+            lib.lg_chain_plan(b, h, w, fp32, out)
+            plan = cc.chain_plan(b, h, w, dt)
+            if tuple(out) != tuple(plan) or plan.smem > 227 * 1024:
+                raise AssertionError(f"conv2_chain {b}x{h}x{w} {dt}: the card's plan {tuple(out)}, "
+                                     f"chain_plan's {tuple(plan)} (227 KB a block at most)")
     log("  launch plans: linear_plan (tile and both rings), s8_plan, flash_plan, attention_plan and "
         "bidir_plan (both kernels each), decide_plan, nms_smem_bytes, conv_plan (both generic "
-        "kernels) and ln_gelu_plan match the card's at every path shape")
+        "kernels), ln_gelu_plan and chain_plan (both kernels) match the card's at every path "
+        "shape")
 
 
 def nms_map(gen, dev, b, h, w):
@@ -958,30 +1014,150 @@ def prune_weights(tree):
     return tree
 
 
-def profile_breakdown(call, pair_ms, top=12, what="match_pair", attribute=False):
-    """Device time by kernel over one profiled call (a match_pair), the
-    second of two under the profiler: the first is its warm-up step, not
-    recorded (a profile's first events can be lost: a MIXED extraction once
-    showed two of its three conv launches and no stem). The busy
-    share is that device time (kernels and copies, overlap ignored) over
-    ``pair_ms``, the unprofiled ms per call: the profiler's own overhead
-    stretches the profiled call's wall time by a varying amount. With
-    ``attribute``, also the host ops that launched the most device time, by
-    input shapes, each with its innermost caller in the port."""
+# the profiler keeps the device events whose times it places inside the
+# recorded step, and its device clock can sit milliseconds off the host's:
+# a call that starts at once drops its first kernels (it once dropped a
+# replay's stem and three convs, about 1.3 ms of device work; once the
+# whole extraction of every trace), so each call runs this long inside the
+# step, and this long after the warm-up step's events
+PAD_S = 0.05
+
+
+def profiled(call, **config):
+    """A profile of ``call``'s second of two runs: the first is its warm-up
+    step, not recorded. Each run is ``PAD_S`` inside its step."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
-    # stacks reach the op events only with the verbose experimental config
-    config = dict(experimental_config=torch._C._profiler._ExperimentalConfig(verbose=True),
-                  record_shapes=True, with_stack=True) if attribute else {}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=1), **config) as prof:
         for _ in range(2):
+            time.sleep(PAD_S)
             call()
             torch.cuda.synchronize()
+            time.sleep(PAD_S)
             prof.step()
+    return prof
+
+
+# traces behind each replay's launch counts: the profiler can drop kernel
+# events of a recorded call, never add one (see PAD_S), so a count is the
+# most any of these traces saw; a count still short of the wrappers' after
+# TRACES traces takes more, up to MAX_TRACES
+TRACES = 3
+MAX_TRACES = 8
+
+
+def device_ms(prof):
+    """A profile's device time, ms (kernels and copies; the schedule's step
+    annotation spans the call and is not device work)."""
+    from torch.autograd import DeviceType
+
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not e.key.startswith("ProfilerStep")) / 1e3
+
+
+def traced(call, traces=1, want=None, **config):
+    """``traces`` profiles of ``call`` (``profiled``): the fullest (the most
+    device time) and the launches per wrapper, each the most any of them
+    saw (``trace_launches``). With ``want`` (launches per wrapper), more
+    traces, up to ``MAX_TRACES``, while a count is short of it; each short
+    trace is logged."""
+    profs, launches = [], {}
+
+    def short(counts):
+        return {k: counts.get(k, 0) for k, v in (want or {}).items() if counts.get(k, 0) < v}
+
+    while len(profs) < traces or (short(launches) and len(profs) < MAX_TRACES):
+        prof = profiled(call, **config)
+        profs.append(prof)
+        counts = trace_launches(prof)
+        if short(counts):
+            log(f"  trace {len(profs)} is short of the wrappers' counts: {short(counts)}")
+        for k, v in counts.items():
+            launches[k] = max(launches.get(k, 0), v)
+    return max(profs, key=device_ms), launches
+
+
+def trace_launches(prof):
+    """Kernel launches per wrapper in a profile's recorded call, counted from
+    its device events by kernel name (``KERNEL_WRAPPERS``)."""
+    import re
+
+    from torch.autograd import DeviceType
+
+    counts = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for name, wrapper in KERNEL_WRAPPERS.items():
+            m = re.search(rf"(?:^|[\s:]){name}(<[^(]*>)?\(", e.key)
+            if m:
+                if name.startswith("flash_") and (m.group(1) or "").startswith("<true"):
+                    wrapper = "flash_attention_step"
+                counts[wrapper] = counts.get(wrapper, 0) + e.count
+    return counts
+
+
+def first_call(counters, call):
+    """``call`` as the first call of its session's keys, with every wrapper's
+    launch count set to 0 just before it and read just after: (its result,
+    the counts read, launches per call). That call captures its graphs:
+    each body runs through the wrappers twice, eagerly (the warm-up that
+    does every first-launch setup) and under capture, and the card runs
+    each kernel twice (the warm-up and the graph's first replay), so every
+    count is twice one call's launches."""
+    for fn in counters:
+        fn.launches = 0
+    out = call()
+    counts = {fn.__name__: fn.launches for fn in counters}
+    odd = {k: v for k, v in counts.items() if v % 2}
+    if odd:
+        raise AssertionError(f"launch counts over a capturing call are odd: {odd}")
+    return out, counts, {k: v // 2 for k, v in counts.items()}
+
+
+def hold_launches(label, traced, per_call):
+    """A traced replay's launches per wrapper (``trace_launches``) against
+    ``per_call``, the wrappers' own counts of one call."""
+    got = {k: traced.get(k, 0) for k in per_call}
+    extra = {k: v for k, v in traced.items() if k not in per_call}
+    log(f"  launches per wrapper in the traced replay: {got}")
+    if got != per_call or extra:
+        raise AssertionError(f"{label}: traced replay launches {got} (and {extra}), want "
+                             f"{per_call}")
+
+
+def profile_replay(label, call, pair_ms, per_call, **kw):
+    """``profile_breakdown`` of a replayed call over ``TRACES`` traces or more
+    (``traced``), its launches per wrapper held to ``per_call``."""
+    prof = profile_breakdown(call, pair_ms, traces=TRACES, want=per_call, **kw)
+    if prof is None:
+        raise AssertionError(f"{label}: the trace recorded no device time, so the replay's "
+                             "launches cannot be counted")
+    hold_launches(label, prof[2], per_call)
+    return prof
+
+
+def profile_breakdown(call, pair_ms, top=12, what="match_pair", attribute=False, traces=1,
+                      want=None):
+    """Device time by kernel over one profiled call (a match_pair, see
+    ``profiled``; the fullest of ``traces``, see ``traced``). The busy share is that device time (kernels and copies,
+    overlap ignored) over ``pair_ms``, the unprofiled ms per call: the
+    profiler's own overhead stretches the profiled call's wall time by a
+    varying amount. With ``attribute``, also the host ops that launched the
+    most device time, by input shapes, each with its innermost caller in the
+    port. Returns (device busy ms, kernel ms, launches per wrapper as
+    ``traced`` counts them), or None where no device time was recorded."""
+    import torch
+    from torch.autograd import DeviceType
+
+    # stacks reach the op events only with the verbose experimental config
+    config = dict(experimental_config=torch._C._profiler._ExperimentalConfig(verbose=True),
+                  record_shapes=True, with_stack=True) if attribute else {}
+    prof, launches = traced(call, traces, want, **config)
     # the schedule's step annotation spans the call: not device work
     rows = sorted(
         ((e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
@@ -991,7 +1167,7 @@ def profile_breakdown(call, pair_ms, top=12, what="match_pair", attribute=False)
     )
     if not rows:
         log("  profile: no device time recorded (device breakdown not measured)")
-        return
+        return None
     busy = sum(r[0] for r in rows)
     # pageable copies wait on the host, so their device time varies from call to call
     copies = sum(r[0] for r in rows if r[2].startswith(("Memcpy", "Memset")))
@@ -1000,7 +1176,7 @@ def profile_breakdown(call, pair_ms, top=12, what="match_pair", attribute=False)
     for ms, count, key in rows[:top]:
         log(f"    {ms:8.3f} ms x{count:<4d} {key[:100]}")
     if not attribute:
-        return
+        return busy, busy - copies, launches
     ops = sorted(
         ((e.self_device_time_total / 1e3, e.count, e.key, e.input_shapes, e.stack)
          for e in prof.key_averages(group_by_input_shape=True, group_by_stack_n=8)
@@ -1014,18 +1190,16 @@ def profile_breakdown(call, pair_ms, top=12, what="match_pair", attribute=False)
         caller = next((f for f in stack if "lightglue_tpu_torch" in f),
                       stack[0] if stack else "no stack recorded")
         log(f"    {ms:8.3f} ms x{count:<4d} {key} {shapes} <- {caller.split('src/')[-1]}")
+    return busy, busy - copies, launches
 
 
 def counted_extract(session, counters, img0, img1, label):
-    """session.extract of the pair with every launch count read from 0
-    around it: one SuperPoint forward's kernels (SP_LAUNCHES), nothing else."""
+    """A fresh session's first session.extract of the pair (``first_call``):
+    one SuperPoint forward's kernels a call (SP_LAUNCHES), nothing else."""
     import numpy as np
 
-    for fn in counters:
-        fn.launches = 0
-    ext = session.extract(np.stack([img0, img1]))
-    launches = {fn.__name__: fn.launches for fn in counters}
-    log(f"  launches in the {label} extraction: {launches}")
+    ext, counts, launches = first_call(counters, lambda: session.extract(np.stack([img0, img1])))
+    log(f"  launches in the {label} extraction's first call {counts}, per call {launches}")
     want = {k: SP_LAUNCHES.get(k, 0) for k in launches}
     if launches != want:
         raise AssertionError(f"{label} extraction: launches {launches}, want {want}")
@@ -1452,12 +1626,8 @@ def adaptive_end_to_end(ls, counters, weights, img0, img1, dec_e):
                                                        width_confidence=0.99, downshift_layer=ds))
         log(f"MatcherSession(device='cuda').match_pair, adaptive, {label}, 480x640 BF16")
         session = MatcherSession(lg_params=tree, config=cfg, device="cuda")
-        session.match_pair(img0, img1)  # warm
-        for fn in counters:
-            fn.launches = 0
-        result = session.match_pair(img0, img1)
-        launches = {fn.__name__: fn.launches for fn in counters}
-        log(f"  launches in one match_pair: {launches}")
+        result, counts, launches = first_call(counters, lambda: session.match_pair(img0, img1))
+        log(f"  launches in the first match_pair {counts}, per call {launches}")
         for name, count in launches.items():
             if count < 1:
                 raise AssertionError(f"{label}: kernel {name} did not launch")
@@ -1465,7 +1635,7 @@ def adaptive_end_to_end(ls, counters, weights, img0, img1, dec_e):
         if bad:
             raise AssertionError(f"{label}: SuperPoint launches (got, want) {bad}")
         if label == "random weights":
-            dec_e.d["launches"] = launches["adaptive_decide"]
+            dec_e.d["launches"] = counts["adaptive_decide"]
         for key in ("scores", "match_scores", "keypoints0", "keypoints1"):
             if not np.isfinite(result[key]).all():
                 raise AssertionError(f"{label}: match_pair output {key} is not finite")
@@ -1477,7 +1647,8 @@ def adaptive_end_to_end(ls, counters, weights, img0, img1, dec_e):
         widths.clear()
         ls.transformer_stack_adaptive = spy
         try:
-            out, _ = session.match_from_extractions(ext.slice(0, 1), ext.slice(1, 2))
+            with eager_session(session):  # a graph's replay calls no Python
+                out, _ = session.match_from_extractions(ext.slice(0, 1), ext.slice(1, 2))
         finally:
             ls.transformer_stack_adaptive = real
         times = []
@@ -1499,7 +1670,7 @@ def adaptive_end_to_end(ls, counters, weights, img0, img1, dec_e):
         if (ds > 0 and bk[0] == bk[1] and (bk[0] // 2) % 128 == 0
                 and (len(widths) != 2 or widths[1] not in (bk[0], bk[0] // 2))):
             raise AssertionError(f"{label}: stack buckets {widths}, want two phases")
-        profile_breakdown(lambda: session.match_pair(img0, img1), pair_ms, top=8)
+        profile_replay(label, lambda: session.match_pair(img0, img1), pair_ms, launches, top=8)
 
 
 PB_BUCKET = 2048  # the 2048-keypoint config's cap bucket
@@ -1792,12 +1963,6 @@ def per_block_end_to_end(at, counters, img0, img1, fused_e, bidir_e):
             return dict(fused_mha=self_calls * N_LAYERS, bidirectional_cross_attention=N_LAYERS)
         return dict(fused_mha=(self_calls + 2) * N_LAYERS, bidirectional_cross_attention=0)
 
-    def counted(fn):
-        for c in counters:
-            c.launches = 0
-        out = fn()
-        return out, {c.__name__: c.launches for c in counters}
-
     def check_launches(label, launches, b0, b1, extract):
         want = expected(b0, b1)
         want.update(linear=0, attention=0, ln_gelu=0, adaptive_decide=0, flash_attention=0)
@@ -1813,17 +1978,16 @@ def per_block_end_to_end(at, counters, img0, img1, fused_e, bidir_e):
     for label, cfg in pb_configs().items():
         log(f"MatcherSession(device='cuda').match_pair, per-block, {label}, 480x640 BF16")
         session = MatcherSession(config=cfg, device="cuda")
-        session.match_pair(img0, img1)  # warm
-        result, launches = counted(lambda: session.match_pair(img0, img1))
+        result, counts, launches = first_call(counters, lambda: session.match_pair(img0, img1))
         n0, n1 = result["num_keypoints0"], result["num_keypoints1"]
         bk = tuple(result["scores"].shape)
         log(f"  keypoints {n0}/{n1} buckets {bk[0]}x{bk[1]} matches {len(result['matches'])}")
-        log(f"  launches in one match_pair: {launches}")
+        log(f"  launches in the first match_pair {counts}, per call {launches}")
         check_launches(label, launches, *bk, True)
         if label == "2048-keypoint":
-            fused_e.d["launches"] = launches["fused_mha"]
+            fused_e.d["launches"] = counts["fused_mha"]
         else:
-            bidir_e.d["launches"] = launches["bidirectional_cross_attention"]
+            bidir_e.d["launches"] = counts["bidirectional_cross_attention"]
         for key in ("scores", "match_scores", "keypoints0", "keypoints1"):
             if not np.isfinite(result[key]).all():
                 raise AssertionError(f"{label}: match_pair output {key} is not finite")
@@ -1837,16 +2001,19 @@ def per_block_end_to_end(at, counters, img0, img1, fused_e, bidir_e):
             times.append((time.perf_counter() - t) * 1e3)
         pair_ms = statistics.median(times)
         log(f"  ms_per_pair median {pair_ms:.3f} (10 repeats, min {min(times):.3f})")
-        profile_breakdown(lambda: session.match_pair(img0, img1), pair_ms, top=8)
+        profile_replay(label, lambda: session.match_pair(img0, img1), pair_ms, launches, top=8)
 
-        # mixed buckets: image 1 cut to a smaller bucket's count
+        # mixed buckets: image 1 cut to a smaller bucket's count (a key not
+        # captured yet)
         ext = session.extract(np.stack([img0, img1]))
         ext0, ext1 = ext.slice(0, 1), ext.slice(1, 2)
         cut = 1000 if label == "2048-keypoint" else 60
         ext1 = ext1._replace(count=torch.clamp(ext1.count, max=cut))
-        (out, matches), launches = counted(lambda: session.match_from_extractions(ext0, ext1))
+        (out, matches), counts, launches = first_call(
+            counters, lambda: session.match_from_extractions(ext0, ext1))
         b0, b1 = out.scores.shape[1:]
-        log(f"  mixed buckets {b0}x{b1}: launches {launches}, matches {int(matches.count[0])}")
+        log(f"  mixed buckets {b0}x{b1}: launches in the first call {counts}, per call "
+            f"{launches}, matches {int(matches.count[0])}")
         check_launches(f"{label} mixed", launches, b0, b1, False)
         if not torch.isfinite(out.scores).all():
             raise AssertionError(f"{label} mixed: scores not finite")
@@ -2289,14 +2456,30 @@ def generic_conv_checks(conv_k, rand, dev, dtypes, fp32_scope, gen_e, gen_fp32_e
                     per="call of the four")
 
 
+def chain_f64(x, wa, ba, wb, bb, relu=True):
+    """conv2_chain's function in float64 (conv2a with ReLU, conv2b [+ReLU],
+    the pool): the reference the fp32 chain's error is measured against."""
+    return conv_f64(conv_f64(x, wa, ba, False), wb, bb, True, relu)
+
+
+def chain_one_tf32(conv_k, x, wa, ba, wb, bb, relu=True):
+    """The fp32 chain's wrong design: one TF32 product per MAC, emulated
+    (every operand of both convs, conv2a's output included, rounded to TF32;
+    products and sums in fp32 with TF32 off)."""
+    mid = conv_k.conv3x3_plain(tf32_round(x), tf32_round(wa), ba)
+    return conv_k.conv3x3_plain(tf32_round(mid), tf32_round(wb), bb, True, relu=relu)
+
+
 def conv_chain_checks(conv_k, cc, rand, dev, dtypes, fp32_scope, chain_e, chain_fp32_e):
     """conv2_chain (JAX conv_chain.py:140) against its plain version and
     against the port's two-launch conv3x3 chain at the main path's conv2
     shape, 2x240x320x64, and at the 360x488 edge's 2x180x244, in bf16 and
     fp32, with and without conv2b's ReLU, into either output dtype; every
     bf16-operand case also against the rounding witness and the chain's two
-    wrong designs (``chain_wrong_designs``). One call in each operand dtype
-    is timed beside the two-launch chain and cuDNN (fp32 with TF32 off)."""
+    wrong designs (``chain_wrong_designs``); every fp32 -> fp32 case (the
+    3xTF32 kernel) against float64 beside an emulated one-TF32 chain
+    (``tf32_witness``). One call in each operand dtype is timed beside the
+    two-launch chain and cuDNN (fp32 with TF32 off)."""
     import torch
 
     log("conv2_chain (not on a path: the model runs conv3x3 twice; 2x240x320x64, 2x180x244x64)")
@@ -2320,6 +2503,10 @@ def conv_chain_checks(conv_k, cc, rand, dev, dtypes, fp32_scope, chain_e, chain_
                         if tag == "bf16":
                             bf16_witness(case, got, want,
                                          chain_wrong_designs(x, wa, ba, wb, bb, relu, out_dt))
+                        elif out_dt == dt:  # 3xTF32 against float64, one TF32 product wrong
+                            tf32_witness(case, got, chain_f64(x, wa, ba, wb, bb, relu),
+                                         chain_one_tf32(conv_k, x, wa, ba, wb, bb, relu),
+                                         (("two-launch 3xTF32", two),))
                     if out_dt == dt:
                         (chain_e if tag == "bf16" else chain_fp32_e).err(err)
         h, w = 240, 320
@@ -2340,7 +2527,8 @@ def conv_chain_checks(conv_k, cc, rand, dev, dtypes, fp32_scope, chain_e, chain_
             lib_ms = cuda_ms(lambda: conv2b(conv2a(xc)))
         ent.d["two_launch_ms"] = two_ms
         log(f"  the port's two-launch conv3x3 chain {tag} (the model conv's kernel twice; fp32: "
-            f"3xTF32): {two_ms:.4f} ms (fused: {ms:.4f})")
+            f"3xTF32): {two_ms:.4f} ms (fused: {ms:.4f}, {ms / two_ms:.3f}x; cuDNN x2 "
+            f"{lib_ms:.4f}, {ms / lib_ms:.3f}x)")
         size = x.element_size()
         nbytes = size * (2 * h * w * 64 + 2 * 9 * 64 * 64 + 2 * (h // 2) * (w // 2) * 64) + 8 * 64
         flops = 2 * (2 * 2 * h * w * 64 * 64 * 9)
@@ -2422,6 +2610,20 @@ def plain_lightglue(ls, at):
         yield
     finally:
         ls.KERNEL_OPS, lg_mod.transformer_layers = saved
+
+
+@contextlib.contextmanager
+def eager_session(session):
+    """The session's runners as the eager bodies its CUDA graphs capture
+    (``_extract_eager``, ``_match_eager``), on caches of their own, for the
+    calls inside: what a context that swaps the kernels (``plain_lightglue``)
+    or spies on a call reaches, and what a replay is compared with."""
+    saved = session._graphs, session._extract_cache, session._match_cache
+    session._graphs, session._extract_cache, session._match_cache = False, {}, {}
+    try:
+        yield session
+    finally:
+        session._graphs, session._extract_cache, session._match_cache = saved
 
 
 def magnitude_witness(label, got, want, wrong):
@@ -3041,12 +3243,9 @@ def rung_end_to_end(ls, at, counters, img0, img1, ents):
             f"{N_LAYERS} layers")
         with w8a8_env(w8):
             session = MatcherSession(config=cfg, device="cuda")
-            session.match_pair(img0, img1)  # warm
-            for fn in counters:
-                fn.launches = 0
-            result = session.match_pair(img0, img1)
-            launches = {fn.__name__: fn.launches for fn in counters}
-            log(f"  launches in one match_pair: {launches}")
+            result, counts, launches = first_call(counters,
+                                                  lambda: session.match_pair(img0, img1))
+            log(f"  launches in the first match_pair {counts}, per call {launches}")
             stack = route in ("fixed depth", "adaptive")
             want = dict(SP_LAUNCHES, row_quant=16 * N_LAYERS if rung == "w8a8" else 0)
             if stack:
@@ -3072,7 +3271,7 @@ def rung_end_to_end(ls, at, counters, img0, img1, ents):
                 if not np.isfinite(result[key]).all():
                     raise AssertionError(f"{rung} {route}: match_pair output {key} is not finite")
             for ent, counter in main_of.get((rung, route), {}).items():
-                ents[ent].d["launches"] = launches[counter]
+                ents[ent].d["launches"] = counts[counter]
             times = []
             for _ in range(10):
                 t = time.perf_counter()
@@ -3083,7 +3282,8 @@ def rung_end_to_end(ls, at, counters, img0, img1, ents):
             log(f"  keypoints {n0}/{n1} scores {tuple(result['scores'].shape)} matches "
                 f"{len(result['matches'])} ms_per_pair median {pair_ms:.3f} (10 repeats, min "
                 f"{min(times):.3f})")
-            profile_breakdown(lambda: session.match_pair(img0, img1), pair_ms, top=6)
+            profile_replay(f"{rung} {route}", lambda: session.match_pair(img0, img1), pair_ms,
+                           launches, top=6)
             if (rung, route) == ("mixed", "fixed depth"):
                 extract_profile(session, img0, img1, "MIXED")
             batch = session.match_batch(np.stack([img0, img1]), np.stack([img1, img0]))
@@ -3094,7 +3294,7 @@ def rung_end_to_end(ls, at, counters, img0, img1, ents):
             ext = session.extract(np.stack([img0, img1]))
             e0, e1 = ext.slice(0, 1), ext.slice(1, 2)
             out_k, _ = session.match_from_extractions(e0, e1)
-            with plain_lightglue(ls, at):
+            with plain_lightglue(ls, at), eager_session(session):
                 out_p, _ = session.match_from_extractions(e0, e1)
         c0, c1 = int(e0.count[0]), int(e1.count[0])
         if hasattr(out_k, "desc0"):
@@ -3118,6 +3318,194 @@ def rung_end_to_end(ls, at, counters, img0, img1, ents):
         summary.append(dict(rung=rung, route=route, ms_per_pair=round(pair_ms, 3),
                             kernels=used, iou_vs_plain=round(iou, 4)))
     log(json.dumps({"rungs": summary}))
+
+
+def same_result(label, got, want):
+    """Two match_pair / match_batch results equal bit for bit: the same
+    keys, every array of the same dtype and shape with equal bits."""
+    import numpy as np
+
+    if got.keys() != want.keys():
+        raise AssertionError(f"{label}: keys {sorted(got)} != {sorted(want)}")
+    for key, g in got.items():
+        w = want[key]
+        if isinstance(g, np.ndarray):
+            same = (isinstance(w, np.ndarray) and g.dtype == w.dtype and g.shape == w.shape
+                    and g.tobytes() == w.tobytes())
+        else:
+            same = type(g) is type(w) and g == w
+        if not same:
+            raise AssertionError(f"{label}: {key} differs between graph replay and eager call")
+
+
+def graph_configs(weights):
+    """PERF.md's configurations of a session (every route and rung; the ring
+    runs outside the session): (label, PipelineConfig, LightGlue weights or
+    None for the seed's, LGTPU_W8A8)."""
+    import dataclasses
+
+    from lightglue_tpu_torch.config import LightGlueConfig, PipelineConfig
+    from lightglue_tpu_torch.precision import Precision
+
+    base = weights.init_lightglue(0, LightGlueConfig())
+    adaptive = PipelineConfig(lightglue=LightGlueConfig(depth_confidence=0.95,
+                                                        width_confidence=0.99))
+    downshift = PipelineConfig(lightglue=LightGlueConfig(depth_confidence=0.95,
+                                                         width_confidence=0.99, downshift_layer=4))
+    routes = {"fixed depth": PipelineConfig(), "adaptive": adaptive, **pb_configs()}
+    out = [("BF16 fixed depth", routes["fixed depth"], None, False),
+           ("BF16 adaptive exit 9", adaptive, None, False),
+           ("BF16 adaptive exit 3", adaptive, pinned_exit_weights(base, 3), False),
+           ("BF16 adaptive pruning, downshift 4", downshift, prune_weights(base), False),
+           ("BF16 2048-keypoint", routes["2048-keypoint"], None, False),
+           ("BF16 pad-to-64", routes["pad-to-64"], None, False)]
+    for rung, w8 in (("MIXED", False), ("INT8", False), ("W8A8", True), ("FP32", False)):
+        precision = Precision("int8" if rung == "W8A8" else rung.lower())
+        for route, cfg in routes.items():
+            if rung == "W8A8" and route != "fixed depth":
+                continue
+            out.append((f"{rung} {route}", dataclasses.replace(cfg, precision=precision), None,
+                        w8))
+    return out
+
+
+def session_graph_checks(weights, img0, img1):
+    """MatcherSession on a card replays per-bucket CUDA graphs: on every
+    configuration of ``graph_configs``, match_pair and a two-pair
+    match_batch from the graphs against the same session's eager bodies
+    (``eager_session``): every returned array equal bit for bit, the
+    replay's launches per wrapper, counted from a profiler trace by kernel
+    name (``trace_launches``), equal to the wrappers' own counts over the
+    eager call; a second call (the pair swapped) leaves the first call's
+    returned arrays as they were. Then ms per pair as graphs and eager
+    (median of 10 each) and the profiled graph call's device busy share.
+    ``warmup`` fills the default config's keys first (diagonal buckets and
+    the cap's full variant at batch 1) and the match keys are held to it.
+    Last, the device memory a session holds after ``warmup(pairs="all")``
+    at the default buckets and at the 2048-keypoint config's."""
+    import copy
+    import gc
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from lightglue_tpu_torch.config import PipelineConfig
+    from lightglue_tpu_torch.kernels import attention as at
+    from lightglue_tpu_torch.kernels import conv, conv_chain, layer_stack as ls, nms, stem
+    from lightglue_tpu_torch.runtime.session import MatcherSession, _Graph, _SplitGraph
+
+    counters = (stem.relu_conv1a_shift, conv.conv3x3, conv_chain.conv2_chain,
+                nms.nms_candidates, ls.linear, ls.row_quant, ls.attention, ls.ln_gelu,
+                ls.adaptive_decide, at.fused_mha, at.bidirectional_cross_attention,
+                at.flash_attention, at.flash_attention_step)
+    rows = []
+
+    def counted(fn):
+        for c in counters:
+            c.launches = 0
+        out = fn()
+        return out, {c.__name__: c.launches for c in counters if c.launches}
+
+    def timed(fn):
+        times = []
+        for _ in range(10):
+            t = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(times), min(times)
+
+    pair, swapped = (img0, img1), (img1, img0)
+    batch = (np.stack([img0, img1]), np.stack([img1, img0]))
+    for label, cfg, tree, w8 in graph_configs(weights):
+        log(f"MatcherSession(device='cuda') from CUDA graphs against eager, {label}, 480x640")
+        with w8a8_env(w8):
+            session = MatcherSession(lg_params=tree, config=cfg, device="cuda")
+            t = time.perf_counter()
+            if label == "BF16 fixed depth":
+                session.warmup(img0.shape[:2])
+                buckets = cfg.buckets
+                want = {(b, b, False, 1) for b in buckets} | {(max(buckets),) * 2 + (True, 1)}
+                if set(session._match_cache) != want or set(session._extract_cache) != {
+                        (1, *img0.shape[:2])}:
+                    raise AssertionError(f"warmup keys {set(session._match_cache)} "
+                                         f"{set(session._extract_cache)}")
+            session.match_pair(*pair)  # captures this pair's keys
+            capture_s = time.perf_counter() - t
+            with eager_session(session):
+                session.match_pair(*pair)
+            graph_r = session.match_pair(*pair)
+            with eager_session(session):
+                eager_r, eager_l = counted(lambda: session.match_pair(*pair))
+            same_result(f"{label} match_pair", graph_r, eager_r)
+            kept = copy.deepcopy(graph_r)
+            session.match_pair(*swapped)
+            same_result(f"{label} match_pair after a second call", graph_r, kept)
+            graph_b = session.match_batch(*batch)
+            with eager_session(session):
+                eager_b, eager_bl = counted(lambda: session.match_batch(*batch))
+            for i, (g, e) in enumerate(zip(graph_b, eager_b, strict=True)):
+                same_result(f"{label} match_batch pair {i}", g, e)
+            # the pair's match graph again, after the batch's was captured in
+            # and replayed from the pool they share
+            same_result(f"{label} match_pair after match_batch", session.match_pair(*pair),
+                        eager_r)
+            hold_launches(f"{label} match_batch",
+                          traced(lambda: session.match_batch(*batch), TRACES, eager_bl)[1],
+                          eager_bl)
+            graph_ms, graph_min = timed(lambda: session.match_pair(*pair))
+            with eager_session(session):
+                session.match_pair(*pair)
+                eager_ms, eager_min = timed(lambda: session.match_pair(*pair))
+            graphs = sum(isinstance(r, (_Graph, _SplitGraph))
+                         or isinstance(getattr(r, "graph", None), _Graph)
+                         for r in (*session._extract_cache.values(),
+                                   *session._match_cache.values()))
+            if graphs != len(session._extract_cache) + len(session._match_cache):
+                raise AssertionError(f"{label}: {graphs} of the session's runners are graphs")
+            log(f"  keys: extract {sorted(session._extract_cache)} match "
+                f"{sorted(session._match_cache)} ({graphs} of them graphs; first calls "
+                f"{capture_s:.2f} s); eager launches per call {eager_l}; match_pair and "
+                "match_batch bit for bit equal to eager, the first call's arrays kept")
+            log(f"  ms_per_pair graph median {graph_ms:.3f} (min {graph_min:.3f}), eager median "
+                f"{eager_ms:.3f} (min {eager_min:.3f})")
+            prof = profile_replay(label, lambda: session.match_pair(*pair), graph_ms, eager_l,
+                                  top=5)
+        rows.append(dict(config=label, graph_ms=round(graph_ms, 3), eager_ms=round(eager_ms, 3),
+                         kernel_ms=round(prof[1], 3), busy_share=round(prof[0] / graph_ms, 3)))
+        del session
+    log(json.dumps({"sessions": rows}))
+
+    # the session's shared match pool against one pool per match graph
+    # (``_match_pool`` None: each graph captures into its own)
+    for (label, cfg), shared in itertools.product(
+            (("default buckets", PipelineConfig()),
+             ("2048-keypoint", pb_configs()["2048-keypoint"])), (True, False)):
+        gc.collect()  # a session's runners hold it in a reference cycle
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_reserved(), torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        session = MatcherSession(config=cfg, device="cuda")
+        if not shared:
+            session._match_pool = None
+        session.warmup(img0.shape[:2], pairs="all")
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_reserved() - base[0], torch.cuda.memory_allocated() - base[1]
+        log(f"warmup(pairs='all'), {label} (buckets {cfg.buckets}), "
+            f"{'one shared match pool' if shared else 'one pool per match graph'}: "
+            f"{len(session._match_cache)} match graphs, {len(session._extract_cache)} "
+            f"extraction graph in {warm_s:.2f} s; the session holds "
+            f"{held[0] / 2**20:.1f} MiB reserved ({held[1] / 2**20:.1f} MiB allocated), "
+            "weights included")
+        if shared:  # every graph of the pool captured: a replay still equals eager
+            got = session.match_pair(*pair)
+            with eager_session(session):
+                same_result(f"{label} match_pair after warmup(pairs='all')", got,
+                            session.match_pair(*pair))
+        del session
 
 
 def ring_int8(at, counters, img0, img1):
@@ -3319,7 +3707,7 @@ def main() -> int:
     stem_checks(stem_k, gen, dev, fp32_scope, stem_e, stem_fp32_e)
 
     # ---- linear: every projection of one layer of a 1024x1024 pair -------
-    plan_checks(ls, at, nms_k, conv_k, _build.lib())
+    plan_checks(ls, at, nms_k, conv_k, cc, _build.lib())
     log(f"linear (per match_pair: 16 launches per layer x {N_LAYERS} layers, N={BUCKET})")
     e = 256
     m = BUCKET
@@ -3482,20 +3870,16 @@ def main() -> int:
     log("MatcherSession(device='cuda').match_pair, default config, 480x640")
     img0, img1 = smooth_pair(0)
     session = MatcherSession(device="cuda")
-    session.match_pair(img0, img1)  # warm: first launches, allocator
     counters = [stem_k.relu_conv1a_shift, conv_k.conv3x3, nms_k.nms_candidates, ls.linear,
                 ls.attention, ls.ln_gelu]
-    for fn in counters:
-        fn.launches = 0
-    result = session.match_pair(img0, img1)
-    launches = {fn.__name__: fn.launches for fn in counters}
-    log(f"  launches in one match_pair: {launches}")
+    result, counts, launches = first_call(counters, lambda: session.match_pair(img0, img1))
+    log(f"  launches in the first match_pair {counts}, per call {launches}")
     want = dict(SP_LAUNCHES, linear=16 * N_LAYERS, attention=4 * N_LAYERS,
                 ln_gelu=4 * N_LAYERS)
     if launches != want:
-        raise AssertionError(f"main path launches {launches}, want {want}")
+        raise AssertionError(f"main path launches per call {launches}, want {want}")
     for entry in (stem_e, conv_e, nms_e, lin_e, att_e, ln_e):
-        entry.d["launches"] = launches[entry.d["name"]]
+        entry.d["launches"] = counts[entry.d["name"]]
     n0, n1 = result["num_keypoints0"], result["num_keypoints1"]
     bucket = (session.config.bucket_for(max(n0, 1)), session.config.bucket_for(max(n1, 1)))
     for key in ("scores", "match_scores", "keypoints0", "keypoints1"):
@@ -3511,7 +3895,8 @@ def main() -> int:
     pair_ms = statistics.median(times)
     log(f"  keypoints {n0}/{n1} bucket {bucket[0]}x{bucket[1]} matches {len(result['matches'])} "
         f"ms_per_pair median {pair_ms:.3f} (10 repeats, min {min(times):.3f})")
-    profile_breakdown(lambda: session.match_pair(img0, img1), pair_ms, attribute=True)
+    profile_replay("main path", lambda: session.match_pair(img0, img1), pair_ms, launches,
+                   attribute=True)
     extract_profile(session, img0, img1, "BF16")
 
     # ---- end to end against the port on the CPU, small FP32 pair ----------
@@ -3622,6 +4007,9 @@ def main() -> int:
     rung_stack_checks(ls, weights, rand, freqs_for, dev, fp32_scope)
     rung_end_to_end(ls, at, counters, img0, img1, rung_ents)
     ring_int8(at, counters, img0, img1)
+
+    # ---- the session's per-bucket CUDA graphs on every configuration ---------
+    session_graph_checks(weights, img0, img1)
 
     log("the FP32 rows' products at three TF32 products each (495 TFLOP/s dense; their "
         "bound) and on the fp32 FMA units (67 TFLOP/s), per match_pair (flash_attention: per "

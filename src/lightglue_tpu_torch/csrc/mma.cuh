@@ -2,9 +2,9 @@
 // kernel and, in 3xTF32, an fp32 one: flash_attn.cu (fused_mha,
 // flash_attention, the ring step), attention.cu (the layer stack's
 // attention), linear.cu (the stack's projections), bidir_cross.cu (both
-// cross directions) and conv3x3.cu (SuperPoint's 64 -> 64 convs and the
-// generic conv). No attention kernel and no conv3x3.cu kernel is left on
-// the FMA units.
+// cross directions), conv3x3.cu (SuperPoint's 64 -> 64 convs and the
+// generic conv) and conv_chain.cu (the conv2 pair in one launch). No
+// kernel of theirs is left on the FMA units.
 //
 // - 16-byte cp.async staging into shared memory (stage_rows for the
 //   attention operands: rows of one head addressed by batch, head and row
@@ -15,8 +15,8 @@
 //   m16n8k32 with s8 operands and s32 sums (linear.cu's W8A8 GEMM);
 //   mma.sync m16n8k8 with tf32 operands and the 3xTF32 split of an fp32
 //   value, rounded (the fp32 model conv) or truncated (the generic fp32
-//   conv and the fp32 kernels of flash_attn.cu, attention.cu,
-//   bidir_cross.cu and linear.cu);
+//   conv, the fp32 chain and the fp32 kernels of flash_attn.cu,
+//   attention.cu, bidir_cross.cu and linear.cu);
 // - the 3xTF32 attention block of those three attention kernels: Q split
 //   once into fragments (tf32_q_frags), S over a chunk (tf32_scores), P.V
 //   from the S accumulator (tf32_pv), the split warps' meeting in shared

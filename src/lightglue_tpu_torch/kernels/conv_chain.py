@@ -9,15 +9,20 @@ neither does the port's SuperPoint, which runs ``conv.conv3x3`` twice. It
 is a tested variant.
 
 On a CUDA tensor ``conv2_chain`` launches ``csrc/conv_chain.cu`` once (see
-its header for the designs and what bounds them): bf16 operands on the
-tensor cores, persistent blocks with both layers' weights resident and one
-buffer that holds a 16x16 output tile's input and then its bf16 conv2a
-tile; fp32 operands on the FMA units. On a CPU tensor it runs
-``conv2_chain_plain``: two ``conv3x3_plain`` calls with the intermediate
-cast to x's dtype.
+its header for the designs and what bounds them), both operand dtypes on the
+tensor cores over 16x16 output tiles whose 18x18 conv2a tile stays in
+shared memory: bf16 operands with persistent blocks, both layers' weights
+resident and one buffer that holds a tile's input and then its bf16 conv2a
+tile; fp32 operands in 3xTF32 (each operand split into two TF32 values,
+three ``mma.sync`` products per step), K streamed in 8-channel chunks of
+conv2a's then conv2b's weights, the conv2a tile in fp32. ``chain_plan``
+mirrors the launch. On a CPU tensor it runs ``conv2_chain_plain``: two
+``conv3x3_plain`` calls with the intermediate cast to x's dtype.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -25,6 +30,47 @@ from lightglue_tpu_torch.kernels import _build
 from lightglue_tpu_torch.kernels.conv import conv3x3_plain
 
 CHANNELS = 64
+# csrc/conv_chain.cu: the conv2b output tile side (pre-pool), the threads of
+# a block (8 warps), and the fp32 kernel's pitches: a K chunk's input
+# channels and the pixel pitch of its input tile (floats), the split
+# weights' row ((hi, lo) pairs) and conv2a's tile pixel (floats)
+CHAIN_TILE = 16
+CHAIN_THREADS = 256
+CHAIN_K_CHUNK = 8
+CHAIN_PITCH_IN = CHAIN_K_CHUNK + 4
+CHAIN_PAIR_PITCH = CHANNELS + 4
+CHAIN_PITCH_MID = CHANNELS + 4
+# bf16: mma.cuh's LD pitch (64 channels + 8)
+CHAIN_LD = CHANNELS + 8
+
+
+class ChainPlan(NamedTuple):
+    tile: int     # conv2b output tile side, pre-pool
+    threads: int
+    tiles: int    # output tiles (the bf16 kernel's persistent blocks walk them)
+    smem: int     # dynamic shared memory, bytes
+
+
+def chain_plan(b: int, h: int, w: int, dtype=torch.bfloat16) -> ChainPlan:
+    """A ``conv2_chain`` launch with ``dtype`` operands, as ``lg_chain_plan``
+    reports it. Both kernels tile conv2b's output 16x16, so conv2a runs
+    over an 18x18 tile from a 20x20 input tile. bf16 (``chain_mma_kernel``):
+    both layers' nine taps of weights and one 20x20 activation buffer at the
+    LD pitch. fp32 (``chain_tf32x3_kernel``): conv2a's 18x18 tile in fp32 at a
+    68-float pitch, a two-stage ring of raw chunks (the input tile's 8
+    channels at a 12-float pitch and their nine taps of weights), and one
+    buffer of a chunk's weights split into (hi, lo) pairs at a 68-pair
+    pitch."""
+    t = CHAIN_TILE
+    tiles = b * -(-h // t) * -(-w // t)
+    side_a, side_x = t + 2, t + 4
+    if dtype == torch.float32:
+        stage = side_x * side_x * CHAIN_PITCH_IN + 9 * CHAIN_K_CHUNK * CHANNELS
+        smem = (4 * (side_a * side_a * CHAIN_PITCH_MID + 2 * stage)
+                + 8 * 9 * CHAIN_K_CHUNK * CHAIN_PAIR_PITCH)
+    else:
+        smem = 2 * (2 * 9 * CHANNELS + side_x * side_x) * CHAIN_LD
+    return ChainPlan(t, CHAIN_THREADS, tiles, smem)
 
 
 def conv2_chain_plain(x, wa, ba, wb, bb, *, relu: bool = True, out_dtype=None):

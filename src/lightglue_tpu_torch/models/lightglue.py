@@ -454,7 +454,8 @@ def forward_adaptive(
 
     The main path runs ``transformer_stack_adaptive`` (exit register and
     keep masks on the device, one compaction at the end; with
-    ``downshift_layer`` the two-phase ``_adaptive_downshift``).
+    ``downshift_layer`` the two phases ``_downshift_phase1`` and
+    ``_downshift_phase2`` around one host read).
     ``force_loop=True``, and buckets that fail the stack's gate, run the
     per-layer loop instead: the JAX while-loop of ``_forward_adaptive_impl``
     (:904-1045) with a compaction after every layer, on
@@ -469,6 +470,28 @@ def forward_adaptive(
       full: every pair fills its bucket; depth-only then runs the unmasked
         variant of the stack.
     """
+    head = adaptive_head(params, kpts0, kpts1, desc0, desc1, lengths0, lengths1,
+                         config=config, policy=policy, force_loop=force_loop, full=full)
+    # the downshift's one host read: do every pair's survivors fit N/2?
+    fits = bool(head["fits"]) if "fits" in head else None
+    return adaptive_rest(params, head, fits, config=config, policy=policy)
+
+
+def reads_host(params, m: int, n: int, config: LightGlueConfig, act_dtype) -> bool:
+    """Whether ``forward_adaptive`` at buckets (m, n) takes the downshift,
+    whose phase-2 width one host read picks (``adaptive_head`` then returns
+    ``fits``)."""
+    do_width = config.width_confidence > 0
+    return (do_width and layer_stack.supports(params["layers"], m, n, act_dtype)
+            and _use_downshift(params, m, n, config, act_dtype))
+
+
+def adaptive_head(params, kpts0, kpts1, desc0, desc1, lengths0, lengths1, *,
+                  config: LightGlueConfig, policy: DTypePolicy, force_loop: bool = False,
+                  full: bool = False) -> dict:
+    """``forward_adaptive`` up to the downshift's host read, on the device:
+    the final state (``final``), or with the downshift phase 1's compacted
+    state and the device flag ``fits``; ``m`` and ``n``, the buckets."""
     with precision_scope(policy):
         d0, d1, freqs0, freqs1 = _embed(params, kpts0, kpts1, desc0, desc1, config, policy)
         b, m, n = d0.shape[0], d0.shape[1], d1.shape[1]
@@ -482,11 +505,22 @@ def forward_adaptive(
         use_stack = layer_stack.supports(params["layers"], m, n, d0.dtype)
         if force_loop or not (do_depth or do_width) or not use_stack:
             final = _adaptive_loop(*args, config=config, policy=policy, use_stack=use_stack)
-        elif do_width and _use_downshift(params, m, n, config, d0.dtype):
-            final = _adaptive_downshift(*args, config=config, policy=policy)
+        elif reads_host(params, m, n, config, d0.dtype):
+            return dict(_downshift_phase1(*args, config=config, policy=policy), m=m, n=n)
         else:
             final = _adaptive_single(*args, config=config, policy=policy, full=full)
-        return _adaptive_tail(params, final, m, n, config)
+        return dict(final=final, m=m, n=n)
+
+
+def adaptive_rest(params, head: dict, fits: Optional[bool], *, config: LightGlueConfig,
+                  policy: DTypePolicy) -> AdaptiveOutput:
+    """``forward_adaptive`` from ``adaptive_head``'s state: the downshift's
+    phase 2 at the width ``fits`` picks (None without the downshift), the
+    per-pair head of the exit layer and the output."""
+    with precision_scope(policy):
+        final = head["final"] if fits is None else _downshift_phase2(
+            params, head, fits, config=config, policy=policy)
+        return _adaptive_tail(params, final, head["m"], head["n"], config)
 
 
 def _stack_kw(config, policy, **extra):
@@ -526,16 +560,17 @@ def _adaptive_single(params, d0, d1, freqs0, freqs1, lengths0, lengths1, idx0, i
                 exit_layer=exit_layer)
 
 
-def _adaptive_downshift(params, d0, d1, freqs0, freqs1, lengths0, lengths1, idx0, idx1, *,
-                        config, policy):
-    """Two-phase adaptive forward with the bucket-ladder downshift
-    (``lightglue_tpu/models/lightglue.py:_adaptive_downshift``).
+def _downshift_phase1(params, d0, d1, freqs0, freqs1, lengths0, lengths1, idx0, idx1, *,
+                      config, policy):
+    """Phase 1 of the two-phase adaptive forward with the bucket-ladder
+    downshift (``lightglue_tpu/models/lightglue.py:_adaptive_downshift``):
+    layers [0, ds) at full width, the survivors compacted, and ``fits``, a
+    device flag: every pair's survivors fit N/2.
 
-    Phase 1 runs layers [0, ds) at full width; the survivors are compacted;
-    phase 2 runs layers [ds, L) at half width when every pair's survivors
-    fit N/2, else at full width. Choosing the arm is the one host read of
-    the adaptive path (the JAX package's ``lax.cond`` on ``fits``), once
-    per call; nothing is read back per layer.
+    ``_downshift_phase2`` runs layers [ds, L) at half width when ``fits``,
+    else at full width. Reading ``fits`` between the two is the one host
+    read of the adaptive path (the JAX package's ``lax.cond``), once per
+    call; nothing is read back per layer.
 
     Phase 2 takes phase 1's exit values as they are: a pair that exited in
     phase 1 is dead at every global layer of phase 2. The JAX kernel passes
@@ -544,28 +579,43 @@ def _adaptive_downshift(params, d0, d1, freqs0, freqs1, lengths0, lengths1, idx0
     overwritten by the forced last-layer exit; this port follows the
     ``force_loop`` oracle (ROADMAP queue 3).
     """
-    ds, n_layers, m = int(config.downshift_layer), config.n_layers, d0.shape[1]
+    ds, m = int(config.downshift_layer), d0.shape[1]
     half = m // 2
-    tok, match = params["token"], params["assign"]["match"]
-    kw = _stack_kw(config, policy, depth_confidence=_depth_arg(config),
-                   width_confidence=float(config.width_confidence), total_layers=n_layers)
-
     fd0, fd1, exit1, kf0, kf1 = layer_stack.transformer_stack_adaptive(
-        _slice(params["layers"], 0, ds), _slice(tok, 0, ds), d0, d1, freqs0, freqs1,
-        lengths0, lengths1, _slice(match, 0, ds), **kw)
+        _slice(params["layers"], 0, ds), _slice(params["token"], 0, ds), d0, d1, freqs0,
+        freqs1, lengths0, lengths1, _slice(params["assign"]["match"], 0, ds),
+        **_downshift_kw(config, policy))
     nl0, (cd0, cf0, cidx0) = _compact(kf0 > 0.5, fd0, freqs0, idx0)
     nl1, (cd1, cf1, cidx1) = _compact(kf1 > 0.5, fd1, freqs1, idx1)
-    fits = bool(((nl0 <= half) & (nl1 <= half)).all())  # the one host read
+    return dict(cd0=cd0, cd1=cd1, cf0=cf0, cf1=cf1, nl0=nl0, nl1=nl1, cidx0=cidx0,
+                cidx1=cidx1, exit1=exit1, fits=((nl0 <= half) & (nl1 <= half)).all())
+
+
+def _downshift_kw(config, policy):
+    return _stack_kw(config, policy, depth_confidence=_depth_arg(config),
+                     width_confidence=float(config.width_confidence),
+                     total_layers=config.n_layers)
+
+
+def _downshift_phase2(params, p1, fits: bool, *, config, policy):
+    """Phase 2 of the downshift: layers [ds, L) on phase 1's compacted state
+    ``p1`` at half width where ``fits``, else at full width, back to the
+    bucket, and the final compaction."""
+    ds, n_layers, m = int(config.downshift_layer), config.n_layers, p1["cd0"].shape[1]
+    half = m // 2
+    tok, match = params["token"], params["assign"]["match"]
     w = half if fits else m
+    cd0, cd1, cf0, cf1 = p1["cd0"], p1["cd1"], p1["cf0"], p1["cf1"]
     o0, o1, exit_layer, k0, k1 = layer_stack.transformer_stack_adaptive(
         _slice(params["layers"], ds, n_layers), _slice(tok, ds, n_layers - 1),
         cd0[:, :w].contiguous(), cd1[:, :w].contiguous(), cf0[:, :, :w], cf1[:, :, :w],
-        nl0, nl1, _slice(match, ds, n_layers), exit1, layer_offset=ds, **kw)
+        p1["nl0"], p1["nl1"], _slice(match, ds, n_layers), p1["exit1"], layer_offset=ds,
+        **_downshift_kw(config, policy))
     if fits:  # back to the bucket: padded slots are never kept
         o0, o1 = (F.pad(t, (0, 0, 0, m - half)) for t in (o0, o1))
         k0, k1 = (F.pad(t, (0, m - half)) for t in (k0, k1))
-    fl0, (gd0, gidx0) = _compact(k0 > 0.5, o0, cidx0)
-    fl1, (gd1, gidx1) = _compact(k1 > 0.5, o1, cidx1)
+    fl0, (gd0, gidx0) = _compact(k0 > 0.5, o0, p1["cidx0"])
+    fl1, (gd1, gidx1) = _compact(k1 > 0.5, o1, p1["cidx1"])
     return dict(d0=gd0, d1=gd1, len0=fl0, len1=fl1, idx0=gidx0, idx1=gidx1,
                 exit_layer=exit_layer)
 
@@ -598,7 +648,8 @@ def _adaptive_loop(params, d0, d1, freqs0, freqs1, lengths0, lengths1, idx0, idx
         is_last = i == n_layers - 1
         if do_depth or do_width:
             c0, c1 = token_confidence(_layer(params["token"], min(i, n_layers - 2)), nd0, nd1)
-            th = confidence_threshold(i, n_layers).to(dev)
+            # a 0-dim CPU tensor meets the device tensors as a scalar: no copy
+            th = confidence_threshold(i, n_layers)
         if do_depth:
             conf = ((c0 >= th) & mask0).float().sum(-1) + ((c1 >= th) & mask1).float().sum(-1)
             ratio = conf / (len0 + len1).float().clamp_min(1.0)

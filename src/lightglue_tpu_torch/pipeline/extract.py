@@ -95,9 +95,16 @@ def _topk_nms_tiled(
 
 
 def normalize_keypoints(keypoints: torch.Tensor, height: int, width: int) -> torch.Tensor:
-    """(x, y) pixels -> [-1, 1] by max(h, w)/2 around the image center."""
-    size = torch.tensor([width, height], dtype=torch.float32, device=keypoints.device)
-    return (keypoints - size / 2.0) / (size.max() / 2.0)
+    """(x, y) pixels -> [-1, 1] by max(h, w)/2 around the image center.
+
+    The center and the scale are filled on the device (no host-to-device
+    copy, so a CUDA graph can capture it); both are exact in fp32, and the
+    division is by a tensor, as the JAX package divides."""
+    dev = keypoints.device
+    center = torch.full((2,), width / 2.0, dtype=torch.float32, device=dev)
+    center[1:].fill_(height / 2.0)
+    scale = torch.full((), max(width, height) / 2.0, dtype=torch.float32, device=dev)
+    return (keypoints - center) / scale
 
 
 def extract_keypoints(
