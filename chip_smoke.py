@@ -144,6 +144,16 @@ wrappers' counts per call:
    ``warmup(pairs="all")`` at the default and 2048-keypoint buckets. Every earlier
    phase's ``match_pair`` replays graphs too; where it swaps the kernels
    for their plain versions or spies on a call, it runs the eager bodies.
+8. The entry points a user runs (``entry_point_checks``): the native host
+   library built with g++ and ``preprocess_image`` against its plain
+   version; the demo's per-pair function (``cli.demo_mono.match_frames``)
+   at BF16, 480x640, 1024 keypoints, 9 layers on six frames under
+   ``--proxy_whiten`` weights, each pair's matches against ``match_pair``
+   of the same session on the same images; the bench CLI (``--all`` at
+   1x1024 and at ``--batch 8``) in subprocesses; ``ContinuousBatcher`` on
+   24 pairs across the ladder at batch 4, each result against the pair's
+   own ``match_from_extractions``. Frame files and a render only where cv2
+   or PIL imports (a line says which).
 
 It ends with a ``{"kernels": [...]}`` line (all ten Pallas functions, a
 row per FP32 / MIXED / INT8 / W8A8 instantiation (the fp32 step's launches
@@ -153,8 +163,9 @@ chain's ``two_launch_ms``, the bidirectional rows the two SDPA calls'
 ``two_sdpa_ms``; ``launches``, the wrappers' counts over the driven call,
 which for a session path is its first call: twice the launches of each
 later call) and the ``{"ok": true, ...}`` line; before them a ``{"sessions": [...]}`` line (phase 7's ms per pair
-graph and eager, kernel ms, busy share). Any failure raises and exits
-non-zero; so does a missing card or a directory without the package.
+graph and eager, kernel ms, busy share) and an ``{"entry_points": ...}``
+line (phase 8's readings). Any failure raises and exits non-zero; so does
+a missing card or a directory without the package.
 """
 
 from __future__ import annotations
@@ -3508,6 +3519,321 @@ def session_graph_checks(weights, img0, img1):
         del session
 
 
+# ---- phase 8: the entry points users run ----------------------------------
+
+DEMO_FRAMES = 6
+DEMO_PAIRS = 10
+DEMO_SRC_HW = (600, 800)  # frames are resized to 480x640 by the native preprocess
+BATCHER_PAIRS = 24
+BATCHER_SIZE = 4
+
+
+def demo_frames(seed=0):
+    """``DEMO_FRAMES`` (600, 800, 3) uint8 frames: shifted crops of one
+    ``smooth_pair`` field (a camera panning over a textured scene)."""
+    import numpy as np
+
+    h, w = DEMO_SRC_HW
+    dy, dx = 12, 18
+    field = smooth_pair(seed, h + DEMO_FRAMES * dy, w + DEMO_FRAMES * dx, 0, 0)[0][..., 0]
+    frames = []
+    for k in range(DEMO_FRAMES):
+        crop = field[k * dy:k * dy + h, k * dx:k * dx + w]
+        frames.append(np.ascontiguousarray(np.repeat((crop * 255).astype(np.uint8)[..., None],
+                                                     3, axis=-1)))
+    return frames
+
+
+def frame_files(frames, pair):
+    """The frames through files and a render, where cv2 or PIL imports here
+    (the card's machine need not have either): each frame written as PNG and
+    read back by ``utils.image.read_image`` must equal it; with cv2, the
+    demo's ``_render`` of one pair. Returns what ran, for the log."""
+    import tempfile
+
+    import numpy as np
+
+    from lightglue_tpu_torch.cli import demo_mono
+    from lightglue_tpu_torch.utils import image
+
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    if cv2 is None:
+        try:
+            from PIL import Image
+        except ImportError:
+            return "cv2 and PIL absent: no frame files, no render (the demo ran on in-memory frames)"
+    with tempfile.TemporaryDirectory() as d:
+        for k, rgb in enumerate(frames):
+            path = f"{d}/frame_{k:02d}.png"
+            if cv2 is not None:
+                cv2.imwrite(path, rgb[..., ::-1])
+            else:
+                Image.fromarray(rgb).save(path)
+            if not np.array_equal(image.read_image(path), rgb):
+                raise AssertionError(f"frame {k}: read_image of its PNG differs")
+        if cv2 is None:
+            return "PIL: frames written and read back equal; no render (the demo renders with cv2)"
+        out = Path(d) / "match_000.jpg"
+        demo_mono._render(out, frames[pair["i0"]], frames[pair["i1"]], pair["matched_kpts0"],
+                          pair["matched_kpts1"], pair["inlier_mask"], (480, 640))
+        if not out.is_file() or out.stat().st_size == 0:
+            raise AssertionError("demo render wrote no file")
+        return f"cv2: frames written and read back equal; one render of {out.stat().st_size} B"
+
+
+def match_set(kpts0, kpts1):
+    """A result's matches as a set of ((x0, y0), (x1, y1)) keypoint pairs."""
+    return set(zip(map(tuple, kpts0.tolist()), map(tuple, kpts1.tolist())))
+
+
+def hold_path_launches(label, counters, want_names):
+    """Every kernel of a path launched at least once since the counts were
+    zeroed: the wrappers' counts over the path's calls."""
+    counts = {fn.__name__: fn.launches for fn in counters if fn.launches}
+    missing = [n for n in want_names if not counts.get(n)]
+    log(f"  {label}: launches {counts}")
+    if missing:
+        raise AssertionError(f"{label}: no launch of {missing}")
+    return counts
+
+
+def entry_point_checks(counters):
+    """The one-card entry points a user runs, at full width on the card:
+    the native host library (built with g++ into build/torch_native/),
+    ``preprocess_image`` against its plain version; the demo's per-pair
+    function (``cli.demo_mono.match_frames``) at BF16, 480x640, 1024
+    keypoints, 9 layers, default ladder, on ``DEMO_FRAMES`` frames under
+    ``--proxy_whiten`` weights (threshold 0: every mutual match), each
+    pair's match indices against ``match_pair`` of the same session on the
+    same preprocessed images (equal, or IoU > 0.95 given >= 10 matches);
+    the bench CLI (``cli.bench --all`` at 1x1024 and at --batch 8) in
+    subprocesses, every p50 finite and > 0, and SuperPoint's images/s on
+    the other rungs in process; ``ContinuousBatcher`` on ``BATCHER_PAIRS``
+    pairs across the ladder at batch ``BATCHER_SIZE``, each result against
+    ``match_from_extractions`` of the pair (bit for bit, else the match set
+    at IoU > 0.95 given >= 10 matches and common scores at the bf16
+    tolerance). The launch counts are zeroed before the demo and the
+    batcher and read after them. Prints an {"entry_points": ...} line."""
+    import random
+
+    import numpy as np
+    import torch
+
+    from lightglue_tpu_torch.cli import bench, demo_mono
+    from lightglue_tpu_torch.config import PipelineConfig, SuperPointConfig
+    from lightglue_tpu_torch.parallel.batcher import ContinuousBatcher, session_match_fn
+    from lightglue_tpu_torch.pipeline.extract import Extraction
+    from lightglue_tpu_torch.runtime import host, weights
+    from lightglue_tpu_torch.runtime.session import MatcherSession
+
+    summary = {}
+    path_kernels = ("relu_conv1a_shift", "conv3x3", "nms_candidates", "linear", "attention",
+                    "ln_gelu")
+
+    # ---- native host library ---------------------------------------------
+    t = time.perf_counter()
+    lib_path = host.build()
+    build_s = time.perf_counter() - t
+    frames = demo_frames()
+    hw = (480, 640)
+    err = max(float(np.abs(host.preprocess_image(f, hw) - host.preprocess_image_plain(f, hw)).max())
+              for f in frames)
+    log(f"native host library {lib_path.relative_to(ROOT)} (g++ -O3) in {build_s:.2f} s; "
+        f"preprocess_image {DEMO_SRC_HW[0]}x{DEMO_SRC_HW[1]} -> 480x640 vs its plain version "
+        f"on {len(frames)} frames: max_abs_err {err:.3e} (atol 1e-6)")
+    if err > 1e-6:
+        raise AssertionError(f"preprocess_image vs plain: {err}")
+    summary["preprocess_max_abs_err"] = err
+
+    # ---- the demo: proxy-whitened SuperPoint, BF16, 480x640 ---------------
+    log("demo (cli.demo_mono.match_frames): BF16, 480x640, 1024 keypoints, 9 layers, "
+        f"--proxy_whiten, threshold 0, {DEMO_PAIRS} pairs of {DEMO_FRAMES} frames")
+    for fn in counters:
+        fn.launches = 0
+    config = PipelineConfig(superpoint=SuperPointConfig(max_num_keypoints=1024),
+                            match_threshold=0.0, max_matches=1024)
+    t = time.perf_counter()
+    sp = weights.whiten_superpoint_descriptors(
+        weights.init_superpoint(0, config.superpoint), host.preprocess_image(frames[0], hw)[None],
+        config=config.superpoint, device="cuda")
+    session = MatcherSession(sp, None, config, device="cuda")
+    session.warmup(hw)
+    log(f"  whitening and warmup (graphs of {sorted(session._match_cache)}): "
+        f"{time.perf_counter() - t:.2f} s")
+    rng = random.Random(888)
+    rows = []
+    for i in range(DEMO_PAIRS):
+        i0, i1 = rng.sample(range(len(frames)), 2)
+        r = demo_mono.match_frames(session, frames[i0], frames[i1], hw, 888)
+        r.update(i0=i0, i1=i1)
+        rows.append(r)
+        log(f"  pair {i:3d} [{i0:2d},{i1:2d}]: kpts {r['num_keypoints0']}/{r['num_keypoints1']}  "
+            f"matches {len(r['matches']):4d}  ransac inliers {r['inliers']:4d}  "
+            f"sp {r['sp_ms']:6.2f} ms  lg {r['lg_ms']:6.2f} ms")
+    demo_launches = hold_path_launches("demo (whitening, warmup, pairs)", counters, path_kernels)
+    for i, r in enumerate(rows):
+        ref = session.match_pair(host.preprocess_image(frames[r["i0"]], hw),
+                                 host.preprocess_image(frames[r["i1"]], hw))
+        for key in ("num_keypoints0", "num_keypoints1", "matches", "matched_kpts0",
+                    "matched_kpts1", "match_scores"):
+            if not np.isfinite(np.asarray(r[key], np.float64)).all():
+                raise AssertionError(f"demo pair {i}: {key} not finite")
+        if (r["num_keypoints0"], r["num_keypoints1"]) != (ref["num_keypoints0"],
+                                                           ref["num_keypoints1"]):
+            raise AssertionError(f"demo pair {i}: keypoints {r['num_keypoints0']}/"
+                                 f"{r['num_keypoints1']} vs match_pair {ref['num_keypoints0']}/"
+                                 f"{ref['num_keypoints1']}")
+        if np.array_equal(r["matches"], ref["matches"]):
+            how = "equal"
+        else:
+            got = match_set(r["matched_kpts0"], r["matched_kpts1"])
+            want = match_set(ref["matched_kpts0"], ref["matched_kpts1"])
+            iou = len(got & want) / max(1, len(got | want))
+            how = f"IoU {iou:.4f} of {len(got)} / {len(want)}"
+            if len(want) < 10 or iou <= 0.95:
+                raise AssertionError(f"demo pair {i} vs match_pair: {how} (needs > 0.95 of >= 10)")
+        log(f"  pair {i} vs match_pair of the same images: match indices {how}")
+    warm = max(1, min(5, len(rows) - 1))
+    sp_warm = float(np.mean([r["sp_ms"] for r in rows[warm:]]))
+    lg_warm = float(np.mean([r["lg_ms"] for r in rows[warm:]]))
+    log(f"  warm avg (excl. first {warm} pairs): superpoint {sp_warm:.2f} ms, lightglue "
+        f"{lg_warm:.2f} ms (host wall-clock, each ending in a count fetch); matches "
+        f"{np.mean([len(r['matches']) for r in rows]):.1f}, inliers "
+        f"{np.mean([r['inliers'] for r in rows]):.1f}")
+    files = frame_files(frames, rows[0])
+    log(f"  frame files: {files}")
+    summary["demo"] = dict(
+        pairs=len(rows), matches=[len(r["matches"]) for r in rows],
+        inliers=[r["inliers"] for r in rows], sp_ms=[round(r["sp_ms"], 3) for r in rows],
+        lg_ms=[round(r["lg_ms"], 3) for r in rows], warm_sp_ms=round(sp_warm, 3),
+        warm_lg_ms=round(lg_warm, 3), launches=demo_launches, files=files.split(":")[0])
+    del session
+
+    # ---- the bench CLI, in subprocesses -------------------------------------
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    summary["bench"] = {}
+    for batch in (1, 8):
+        cmd = [sys.executable, "-m", "lightglue_tpu_torch.cli.bench", "--all", "--batch",
+               str(batch)]
+        log(f"bench: {' '.join(cmd[1:])}")
+        t = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                              timeout=600)
+        lines = proc.stdout.strip().splitlines()
+        for line in lines[:-1]:
+            log(f"  {line}")
+        if proc.returncode:
+            raise AssertionError(f"bench --batch {batch} failed ({proc.returncode}):\n"
+                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        result = json.loads(lines[-1])
+        want = {f"lightglue_{p}_{batch}x1024_ms" for p in ("fp32", "mixed", "bf16", "int8")}
+        if set(result) != want | {"superpoint_bf16_ms"}:
+            raise AssertionError(f"bench keys {sorted(result)}")
+        for key, st in result.items():
+            if not (math.isfinite(st["p50"]) and st["p50"] > 0):
+                raise AssertionError(f"bench {key}: p50 {st['p50']}")
+        log(f"  {len(result)} rows, every p50 finite and > 0, in {time.perf_counter() - t:.1f} s")
+        summary["bench"].update(result if batch == 1 else
+                                {k: v for k, v in result.items() if k.startswith("lightglue")})
+    for p in ("fp32", "mixed", "int8"):  # bf16 ran in the CLI
+        for fn in counters:
+            fn.launches = 0
+        st = bench.bench_superpoint(p, 480, 640, "cuda")
+        log(f"  superpoint {p} 480x640 (bench.bench_superpoint in process): {st['p50']:.3f} ms "
+            f"+-{st['spread_pct']:.1f}% ({1e3 / st['p50']:.1f} images/s)")
+        hold_path_launches(f"superpoint {p} bench (its graph's capture)", counters,
+                           ("relu_conv1a_shift", "conv3x3", "nms_candidates"))
+        summary["bench"][f"superpoint_{p}_ms"] = st
+
+    # ---- the continuous batcher across the ladder --------------------------
+    config = PipelineConfig()
+    session = MatcherSession(config=config, device="cuda")
+    ladder = config.buckets
+    gen = np.random.default_rng(17)
+    pairs = []
+    for k in range(BATCHER_PAIRS):
+        # both sides strictly inside one bucket of the ladder, so the pair's
+        # own match_from_extractions runs the batcher's bucket, masked
+        lo, hi = (ladder[k % len(ladder) - 1] if k % len(ladder) else 0) + 1, ladder[k % len(ladder)] - 1
+        n0, n1 = (int(x) for x in gen.integers(lo, hi + 1, 2))
+        d0, d1 = (gen.standard_normal((n, 256)).astype(np.float32) for n in (n0, n1))
+        pairs.append((gen.uniform(-1, 1, (n0, 2)).astype(np.float32),
+                      gen.uniform(-1, 1, (n1, 2)).astype(np.float32),
+                      d0 / np.linalg.norm(d0, axis=1, keepdims=True),
+                      d1 / np.linalg.norm(d1, axis=1, keepdims=True)))
+    log(f"ContinuousBatcher: {BATCHER_PAIRS} pairs across the ladder {ladder} at batch "
+        f"{BATCHER_SIZE}, BF16, 9 layers (first pass captures each bucket's graph, second timed)")
+
+    def stream():
+        batcher = ContinuousBatcher(session_match_fn(session), session.lg_params,
+                                    buckets=ladder, batch_size=BATCHER_SIZE, device="cuda")
+        t = time.perf_counter()
+        for i, p in enumerate(pairs):
+            batcher.submit(i, *p)
+        results = {r.pair_id: r for r in batcher.flush()}
+        return results, batcher.dispatches, (time.perf_counter() - t) * 1e3
+
+    for fn in counters:
+        fn.launches = 0
+    results, dispatches, _ = stream()
+    batcher_launches = hold_path_launches("batcher (first pass)", counters,
+                                          ("linear", "attention", "ln_gelu"))
+    timed_runs = [stream() for _ in range(3)]
+    for again, _, _ in timed_runs:
+        for i in results:
+            if not (np.array_equal(again[i].indices, results[i].indices)
+                    and np.array_equal(again[i].scores, results[i].scores)):
+                raise AssertionError(f"batcher pair {i}: a replayed stream differs from the first")
+    stream_ms = statistics.median(ms for _, _, ms in timed_runs)
+    want_dispatches = sum(-(-sum(1 for k0, k1, _, _ in pairs if config.bucket_for(
+        max(len(k0), len(k1))) == b) // BATCHER_SIZE) for b in ladder)
+    if len(results) != BATCHER_PAIRS or dispatches != want_dispatches:
+        raise AssertionError(f"batcher: {len(results)} results, {dispatches} dispatches "
+                             f"(want {want_dispatches})")
+    def padded(k, d, bucket):  # one side of a pair as an Extraction of `bucket` slots
+        kp = torch.zeros((1, bucket, 2), device="cuda")
+        de = torch.zeros((1, bucket, 256), device="cuda")
+        kp[0, :len(k)], de[0, :len(d)] = torch.from_numpy(k), torch.from_numpy(d)
+        mask = torch.arange(bucket, device="cuda")[None] < len(k)
+        return Extraction(kp, kp, de, mask.float(), mask,
+                          torch.full((1,), len(k), dtype=torch.int32, device="cuda"))
+
+    exact = 0
+    for i, (k0, k1, d0, d1) in enumerate(pairs):
+        bucket = config.bucket_for(max(len(k0), len(k1)))
+        _, m = session.match_from_extractions(padded(k0, d0, bucket), padded(k1, d1, bucket))
+        c = int(m.count[0])
+        idx, sc = m.indices[0, :c].cpu().numpy(), m.scores[0, :c].cpu().numpy()
+        got = results[i]
+        if np.array_equal(got.indices, idx) and np.array_equal(got.scores, sc):
+            exact += 1
+            continue
+        mine = {tuple(p): s for p, s in zip(got.indices.tolist(), got.scores)}
+        ref = {tuple(p): s for p, s in zip(idx.tolist(), sc)}
+        iou = len(mine.keys() & ref.keys()) / max(1, len(mine.keys() | ref.keys()))
+        serr = max((abs(mine[k] - ref[k]) - TOL["bf16"]["rtol"] * abs(ref[k])
+                    for k in mine.keys() & ref.keys()), default=0.0)
+        log(f"  pair {i} ({len(k0)}/{len(k1)}, bucket {bucket}): not bit for bit; IoU "
+            f"{iou:.4f} of {len(mine)} / {len(ref)}, scores beyond rtol {serr:.3e}")
+        if len(ref) < 10 or iou <= 0.95 or serr > TOL["bf16"]["atol"]:
+            raise AssertionError(f"batcher pair {i} vs match_from_extractions: IoU {iou:.4f}, "
+                                 f"{len(ref)} matches, score error {serr}")
+    log(f"  {BATCHER_PAIRS} pairs in {dispatches} dispatches; {exact} of {BATCHER_PAIRS} bit "
+        f"for bit equal to the pair's own match_from_extractions; replayed stream "
+        f"{stream_ms:.3f} ms (median of 3): {stream_ms / BATCHER_PAIRS:.3f} ms a pair, "
+        f"{BATCHER_PAIRS / stream_ms * 1e3:.1f} pairs/s (host clock, staging and fetches "
+        "included)")
+    summary["batcher"] = dict(pairs=BATCHER_PAIRS, batch_size=BATCHER_SIZE, dispatches=dispatches,
+                              bit_for_bit=exact, ms_per_pair=round(stream_ms / BATCHER_PAIRS, 3),
+                              pairs_per_s=round(BATCHER_PAIRS / stream_ms * 1e3, 1),
+                              launches=batcher_launches)
+    del session
+    log(json.dumps({"entry_points": summary}))
+
+
 def ring_int8(at, counters, img0, img1):
     """forward_ring at INT8 (weight-only, whatever LGTPU_W8A8 says) on
     [cuda:0] x 4 at full width on the 2048-keypoint extractions, once
@@ -3908,10 +4234,8 @@ def main() -> int:
     rg = MatcherSession(config=cfg, seed=3, device="cuda").match_pair(s0, s1)
     rc = MatcherSession(config=cfg, seed=3, device="cpu").match_pair(s0, s1)
 
-    def match_set(r):
-        return {(tuple(a), tuple(b)) for a, b in zip(r["matched_kpts0"], r["matched_kpts1"])}
-
-    mg, mc = match_set(rg), match_set(rc)
+    mg = match_set(rg["matched_kpts0"], rg["matched_kpts1"])
+    mc = match_set(rc["matched_kpts0"], rc["matched_kpts1"])
     iou = len(mg & mc) / max(1, len(mg | mc))
     perm = []  # cuda keypoint index of each cpu keypoint (order may differ at ties)
     for i in (0, 1):
@@ -4010,6 +4334,9 @@ def main() -> int:
 
     # ---- the session's per-bucket CUDA graphs on every configuration ---------
     session_graph_checks(weights, img0, img1)
+
+    # ---- the entry points: demo, bench CLI, continuous batcher ---------------
+    entry_point_checks(counters)
 
     log("the FP32 rows' products at three TF32 products each (495 TFLOP/s dense; their "
         "bound) and on the fp32 FMA units (67 TFLOP/s), per match_pair (flash_attention: per "

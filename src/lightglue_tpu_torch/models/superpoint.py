@@ -33,9 +33,18 @@ def _conv(p, x: torch.Tensor) -> torch.Tensor:
     Weights round to x's dtype as in the reference; the product runs on fp32
     copies so it accumulates in fp32 and rounds once, after the bias. A
     bf16 value is exact in TF32, so the BF16 rung loses nothing to cuDNN's
-    TF32 default; the FP32 rung runs with TF32 off (precision_scope)."""
+    TF32 default; the FP32 rung runs with TF32 off (precision_scope).
+
+    Each image is convolved alone, so its result does not depend on the
+    batch it came in: cuDNN picks its algorithm by the whole shape, and at
+    batch 2 it picks one that sums in another order (one bf16 ulp apart in
+    13 of convDa's 1.2M outputs at 480x640 on an H100), which moved the
+    keypoints and matches of an image between ``extract`` of it alone and
+    ``match_pair``."""
     w = p["w"].to(x.dtype).float()
-    out = F.conv2d(x.permute(0, 3, 1, 2).float(), w, padding=w.shape[-1] // 2)
+    outs = [F.conv2d(xi.permute(0, 3, 1, 2).float(), w, padding=w.shape[-1] // 2)
+            for xi in x.split(1)]
+    out = outs[0] if len(outs) == 1 else torch.cat(outs)
     return (out.permute(0, 2, 3, 1) + p["b"]).to(x.dtype)
 
 
@@ -50,6 +59,18 @@ def _max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
 def _kernel_conv(p, x: torch.Tensor, pool: bool) -> torch.Tensor:
     return conv_kernel.conv3x3(x.contiguous(), p["w"].to(x.dtype).contiguous(),
                                p["b"].float(), pool=pool)
+
+
+def _encoder(params, x: torch.Tensor) -> torch.Tensor:
+    """The shared VGG encoder, stride 8, in x's dtype."""
+    x = stem.relu_conv1a_shift(x, params["conv1a"]["w"], params["conv1a"]["b"])
+    x = _kernel_conv(params["conv1b"], x, pool=True)
+    x = _kernel_conv(params["conv2a"], x, pool=False)
+    x = _kernel_conv(params["conv2b"], x, pool=True)
+    x = _relu_conv(params["conv3a"], x)
+    x = _max_pool_2x2(_relu_conv(params["conv3b"], x))
+    x = _relu_conv(params["conv4a"], x)
+    return _relu_conv(params["conv4b"], x)
 
 
 def forward(
@@ -73,15 +94,7 @@ def forward(
       descriptors: (B, H/8, W/8, 256) fp32 L2-normalised dense descriptors.
     """
     with precision_scope(policy):
-        x = image.to(policy.act_dtype)
-        x = stem.relu_conv1a_shift(x, params["conv1a"]["w"], params["conv1a"]["b"])
-        x = _kernel_conv(params["conv1b"], x, pool=True)
-        x = _kernel_conv(params["conv2a"], x, pool=False)
-        x = _kernel_conv(params["conv2b"], x, pool=True)
-        x = _relu_conv(params["conv3a"], x)
-        x = _max_pool_2x2(_relu_conv(params["conv3b"], x))
-        x = _relu_conv(params["conv4a"], x)
-        x = _relu_conv(params["conv4b"], x)
+        x = _encoder(params, image.to(policy.act_dtype))
 
         # detector head: 65-ch softmax, drop the dustbin, 8x8 pixel shuffle
         cpa = _relu_conv(params["convPa"], x)
@@ -97,3 +110,20 @@ def forward(
         desc = _conv(params["convDb"], cda).float()  # (B, h, w, 256)
         desc = desc * torch.rsqrt((desc * desc).sum(dim=-1, keepdim=True) + 1e-12)
     return scores, desc
+
+
+def forward_raw_descriptors(
+    params,
+    image: torch.Tensor,
+    *,
+    config: SuperPointConfig = SuperPointConfig(),
+    policy: DTypePolicy,
+) -> torch.Tensor:
+    """Dense descriptor map BEFORE L2 normalisation, (B, H/8, W/8, 256) fp32
+    (JAX ``superpoint.py:118-149``): ``forward``'s encoder and convDa/convDb
+    on the same kernels. ``runtime.weights.whiten_superpoint_descriptors``
+    calibrates a ZCA whitening of the descriptor head on it for random-init
+    (proxy) weights."""
+    with precision_scope(policy):
+        x = _encoder(params, image.to(policy.act_dtype))
+        return _conv(params["convDb"], _relu_conv(params["convDa"], x)).float()

@@ -4,13 +4,17 @@
 ``np.random.default_rng(seed)`` stream as ``lightglue_tpu/runtime/weights.py``
 (:71-127, :321-336), so one seed gives equal numpy trees in both packages;
 ``save_npz`` / ``load_npz`` read and write the JAX package's archives.
+``load_torch_checkpoint`` with ``lightglue_from_state_dict`` /
+``superpoint_from_state_dict`` turn the upstream ``.pth`` checkpoints into
+the same numpy trees (JAX :139-438), and ``whiten_superpoint_descriptors``
+adapts random SuperPoint weights on calibration images.
 ``params_from_numpy`` turns such a numpy tree into the port's tensors and is
 the one place where the port's layouts differ from the JAX package's.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -127,6 +131,195 @@ def init_superpoint(
             "b": rng.uniform(-bound, bound, (cout,)).astype(np.float32),
         }
     return params
+
+
+# ---------------------------------------------------------------------------
+# upstream .pth checkpoints (torch layouts) -> numpy trees, JAX layout
+# ---------------------------------------------------------------------------
+
+
+def _t(sd: Mapping[str, np.ndarray], key: str) -> np.ndarray:
+    """torch Linear weight (out, in) -> (in, out)."""
+    return np.ascontiguousarray(np.asarray(sd[key]).T.astype(np.float32))
+
+
+def _b(sd: Mapping[str, np.ndarray], key: str) -> np.ndarray:
+    return np.asarray(sd[key]).astype(np.float32)
+
+
+def rope_permutation(head_dim: int) -> np.ndarray:
+    """De-interleave permutation turning interleaved-pair RoPE into
+    half-split RoPE: perm[j] = 2j for j < d/2, else 2(j - d/2) + 1.
+
+    The reference rotates interleaved pairs (2i, 2i+1) with frequency i
+    (lightglue.py:154-165); permuting q's and k's head dims alike makes the
+    same rotation act on halves (j, j + d/2) and leaves Q K^T, so every
+    model output, unchanged."""
+    half = head_dim // 2
+    perm = np.empty(head_dim, np.int64)
+    perm[:half] = 2 * np.arange(half)
+    perm[half:] = 2 * np.arange(half) + 1
+    return perm
+
+
+def _repack_qkv(w_torch: np.ndarray, b_torch: np.ndarray, heads: int, head_dim: int):
+    """torch Wqkv (3E, E), rows interleaved as (head, dim, component) ->
+    (3, E, E) component-major with head-major output columns, q and k
+    RoPE-permuted (``rope_permutation``).
+
+    Row o of the torch weight is head o // (3 d), dim (o % 3d) // 3,
+    component o % 3: qkv.reshape(B, N, heads, head_dim, 3) in the reference
+    (lightglue.py:140)."""
+    e = heads * head_dim
+    perm = rope_permutation(head_dim)
+    wt = w_torch.T.astype(np.float32).reshape(e, heads, head_dim, 3)  # (in, out) split
+    bt = b_torch.astype(np.float32).reshape(heads, head_dim, 3)
+    ws, bs = [], []
+    for c in range(3):
+        wc, bc = wt[..., c], bt[..., c]
+        if c < 2:  # q and k feel the rotary embedding; v does not
+            wc, bc = wc[..., perm], bc[..., perm]
+        ws.append(wc.reshape(e, e))
+        bs.append(bc.reshape(e))
+    return {"w": np.ascontiguousarray(np.stack(ws)), "b": np.stack(bs)}
+
+
+def _pair(sd, key: str) -> Dict:
+    return {"w": _t(sd, key + ".weight"), "b": _b(sd, key + ".bias")}
+
+
+def lightglue_from_state_dict(
+    sd: Mapping[str, np.ndarray], config: Optional[LightGlueConfig] = None
+) -> Dict:
+    """A numpy-valued LightGlue state dict -> the numpy tree (JAX layout).
+
+    Takes the current key scheme (``transformers.{i}.self_attn...``) and the
+    older one (``self_attn.{i}...``) that the reference renames
+    (lightglue.py:347-354). Without a config the layer count is read from
+    the keys."""
+    sd = dict(sd)
+    if config is None:
+        n_layers = 1 + max(
+            int(k.split(".")[1])
+            for k in sd
+            if k.startswith(("transformers.", "log_assignment."))
+        )
+        config = LightGlueConfig(n_layers=n_layers)
+    for i in range(config.n_layers):
+        for old, new in ((f"self_attn.{i}.", f"transformers.{i}.self_attn."),
+                         (f"cross_attn.{i}.", f"transformers.{i}.cross_attn.")):
+            for k in [k for k in sd if k.startswith(old)]:
+                sd[new + k[len(old):]] = sd.pop(k)
+
+    def ffn_part(p):
+        return {"ffn1": _pair(sd, p + "ffn.0"), "ln_g": _b(sd, p + "ffn.1.weight"),
+                "ln_b": _b(sd, p + "ffn.1.bias"), "ffn2": _pair(sd, p + "ffn.3")}
+
+    def layer(i: int):
+        sa, ca = f"transformers.{i}.self_attn.", f"transformers.{i}.cross_attn."
+        return {
+            "self_attn": {
+                "qkv": _repack_qkv(np.asarray(sd[sa + "Wqkv.weight"]),
+                                   np.asarray(sd[sa + "Wqkv.bias"]),
+                                   config.num_heads, config.head_dim),
+                "out": _pair(sd, sa + "out_proj"),
+                **ffn_part(sa),
+            },
+            "cross_attn": {
+                "qk": _pair(sd, ca + "to_qk"),
+                "v": _pair(sd, ca + "to_v"),
+                "out": _pair(sd, ca + "to_out"),
+                **ffn_part(ca),
+            },
+        }
+
+    params = {
+        "posenc": {"wr": _t(sd, "posenc.Wr.weight")},
+        "layers": _stack([layer(i) for i in range(config.n_layers)]),
+        "assign": _stack([
+            {"proj": _pair(sd, f"log_assignment.{i}.final_proj"),
+             "match": _pair(sd, f"log_assignment.{i}.matchability")}
+            for i in range(config.n_layers)
+        ]),
+    }
+    if "token_confidence.0.token.0.weight" in sd:
+        params["token"] = _stack([_pair(sd, f"token_confidence.{i}.token.0")
+                                  for i in range(config.n_layers - 1)])
+    if "input_proj.weight" in sd:
+        params["input_proj"] = _pair(sd, "input_proj")
+    return params
+
+
+def superpoint_from_state_dict(sd: Mapping[str, np.ndarray]) -> Dict:
+    """A numpy-valued SuperPoint state dict -> the numpy tree: OIHW conv
+    weights -> HWIO."""
+    params = {}
+    for name, _, _, _ in _SP_CONVS:
+        w = np.asarray(sd[f"{name}.weight"]).astype(np.float32)
+        params[name] = {
+            "w": np.ascontiguousarray(w.transpose(2, 3, 1, 0)),
+            "b": np.asarray(sd[f"{name}.bias"]).astype(np.float32),
+        }
+    return params
+
+
+def load_torch_checkpoint(path: str) -> Dict[str, np.ndarray]:
+    """A ``.pth`` state dict as numpy arrays, read on the CPU and with
+    ``weights_only`` (no code in the file runs)."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if hasattr(sd, "state_dict"):
+        sd = sd.state_dict()
+    return {k: v.numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+            for k, v in sd.items()}
+
+
+def whiten_superpoint_descriptors(
+    sp_params, images: np.ndarray, *, config: Optional[SuperPointConfig] = None,
+    policy=None, device: Optional[str] = None,
+) -> Dict:
+    """Fold a ZCA whitening of the dense descriptor map into convDb (1x1)
+    (JAX ``runtime/weights.py:338-384``).
+
+    For random-init (proxy) weights only: a deep random ReLU CNN puts every
+    position's raw descriptor on one dominant direction, so after L2
+    normalisation all keypoints are ~0.9999 cosine-similar and matching
+    degenerates. Whitening the raw convDb output over calibration images
+    restores the spread trained weights have, so match counts mean
+    something. The raw map comes from ``superpoint.forward_raw_descriptors``
+    at the FP32 policy on ``device`` (None: the card, as the session).
+
+    Args:
+      sp_params: SuperPoint numpy tree (fp32, HWIO convs).
+      images: (B, H, W, 1) float32 calibration batch.
+    Returns a new tree with convDb rewritten."""
+    from lightglue_tpu_torch.models import superpoint
+    from lightglue_tpu_torch.precision import Precision, policy_for
+    from lightglue_tpu_torch.runtime.session import resolve_device
+
+    dev = resolve_device(device)
+    with torch.inference_mode():
+        raw = superpoint.forward_raw_descriptors(
+            params_from_numpy(sp_params, dev), torch.from_numpy(np.asarray(images)).to(dev),
+            config=config or SuperPointConfig(), policy=policy or policy_for(Precision.FP32),
+        ).cpu().numpy()
+    flat = raw.astype(np.float64).reshape(-1, raw.shape[-1])
+    mu = flat.mean(0)
+    cov = np.cov(flat.T)
+    evals, evecs = np.linalg.eigh(cov)
+    # relative floor: random-init raw descriptors are tiny (top eigenvalue
+    # ~1e-5), so an absolute clip would flatten real directions; near-null
+    # directions stay suppressed instead of being blown up
+    floor = max(float(evals.max()), 1e-30) * 1e-6
+    white = evecs @ np.diag(1.0 / np.sqrt(np.clip(evals, floor, None))) @ evecs.T
+
+    out = {k: dict(v) for k, v in sp_params.items()}
+    w = np.asarray(sp_params["convDb"]["w"], np.float64)  # (1, 1, 256, 256)
+    b = np.asarray(sp_params["convDb"]["b"], np.float64)
+    out["convDb"] = {
+        "w": np.einsum("ik,ck->ic", w[0, 0], white)[None, None].astype(np.float32),
+        "b": (white @ (b - mu)).astype(np.float32),
+    }
+    return out
 
 
 def save_npz(params, path: str) -> None:

@@ -25,6 +25,7 @@ from test_torch_superpoint import smooth_images
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "lightglue_tpu_torch"
+FORBIDDEN_ROOTS = ("jax", "jaxlib", "lightglue_tpu", "bench")
 
 
 def _configs(precision="fp32"):
@@ -114,7 +115,8 @@ def test_port_source_imports_no_jax(path):
             names = [node.module]
         for name in names:
             root = name.split(".")[0]
-            assert root not in ("jax", "jaxlib", "lightglue_tpu"), f"{path}: imports {name}"
+            # the repo-root bench.py is the JAX package's harness
+            assert root not in FORBIDDEN_ROOTS, f"{path}: imports {name}"
 
 
 def test_importing_the_port_loads_no_jax():
@@ -125,7 +127,7 @@ def test_importing_the_port_loads_no_jax():
         "import lightglue_tpu_torch, chip_smoke\n"
         "for m in pkgutil.walk_packages(lightglue_tpu_torch.__path__, 'lightglue_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'lightglue_tpu')]\n"
+        f"bad = [k for k in sys.modules if k.split('.')[0] in {FORBIDDEN_ROOTS!r}]\n"
         "print(len([k for k in sys.modules if k.startswith('lightglue_tpu_torch')]), bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -133,3 +135,20 @@ def test_importing_the_port_loads_no_jax():
                          timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     assert int(out.stdout.split()[0]) >= 13
+
+
+@pytest.mark.parametrize("module", ["convert", "demo_mono", "bench"])
+def test_importing_a_cli_loads_no_jax(module):
+    """The entry points alone, each in a fresh interpreter started from the
+    repo root (where the JAX package's bench.py would import as ``bench``)."""
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {str(ROOT / 'src')!r})\n"
+        f"import lightglue_tpu_torch.cli.{module}\n"
+        f"bad = [k for k in sys.modules if k.split('.')[0] in {FORBIDDEN_ROOTS!r}]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120, cwd=ROOT)
+    assert out.returncode == 0, out.stdout + out.stderr

@@ -1,6 +1,8 @@
 """Port SuperPoint forward(nms=False) + extract_keypoints(raw_scores=True)
 (plain versions on the CPU) against the JAX package at FP32."""
 
+import sys
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -66,3 +68,25 @@ def test_superpoint_extract_matches_jax(h, w, k):
                                        np.asarray(want.descriptors[i, b]), atol=1e-4)
             np.testing.assert_allclose(got.keypoints_norm[i, a].numpy(),
                                        np.asarray(want.keypoints_norm[i, b]), atol=1e-6)
+
+
+def test_cudnn_convs_run_one_image_at_a_time(monkeypatch):
+    """forward's F.conv2d convs (conv3a..convDb) take one image each: cuDNN
+    picks its algorithm by the whole shape, so on a card a batched call
+    made an image's descriptors depend on the batch it came in."""
+    seen = []
+    conv2d = torch.nn.functional.conv2d
+
+    def spy(x, *args, **kwargs):
+        if sys._getframe(1).f_code is superpoint._conv.__code__:  # not the kernels' plain versions
+            seen.append(x.shape[0])
+        return conv2d(x, *args, **kwargs)
+
+    monkeypatch.setattr(torch.nn.functional, "conv2d", spy)
+    params = weights.params_from_numpy(jax_weights.init_superpoint(0))
+    images = torch.from_numpy(smooth_images(1, 3, 32, 48))
+    scores, desc = superpoint.forward(params, images, policy=policy_for(Precision.FP32), nms=False)
+    assert seen == [1] * (8 * 3)
+    want_scores, want_desc = superpoint.forward(params, images[1:2], policy=policy_for(Precision.FP32),
+                                                nms=False)
+    assert torch.equal(scores[1:2], want_scores) and torch.equal(desc[1:2], want_desc)
