@@ -154,6 +154,27 @@ wrappers' counts per call:
    24 pairs across the ladder at batch 4, each result against the pair's
    own ``match_from_extractions``. Frame files and a render only where cv2
    or PIL imports (a line says which).
+9. The parallel path (``parallel_checks``, mirroring
+   ``__graft_entry__.py:dryrun_multichip`` on ``[cuda:0] * 4`` at 1024
+   keypoints and 480x640): ``fused_mha`` and
+   ``bidirectional_cross_attention`` at the tensor-parallel shards' local
+   heads (H = 2 and 1) in bf16, MIXED and fp32 against their plain versions,
+   timed beside SDPA; ``make_parallel_extract_fn`` over 2 x 2 against one
+   unsharded extraction, bit for bit (proxy-whitened SuperPoint, four
+   images); ``make_parallel_match_fn`` over 2 x 2, 4 x 1 and 1 x 4 at BF16,
+   FP32 and INT8 on image1 = image0 against the single-device ``forward``
+   (scores under 0.51 / 1e-3 / 0.51, mutual-NN sets equal with near-ties of
+   the reference left out), launches per wrapper (the TP route's also from
+   traces), whether the DP rows are the single device's bit for bit, ms per
+   pair of each eager step; ``make_parallel_adaptive_fn`` over 2 x 2 (exit 3
+   with depth and width, depth-only ``full``, both downshift arms): equal to
+   each data row's pairs alone on one device, and against the batch of four
+   exits equal, at most 4 keep flips a side (``adaptive_flips``), scores
+   under 0.3 where none flipped; two ranks spawned on the
+   card in a gloo group (barrier, the match step at 2 x 1 and across the
+   processes at 1 x 2, a sharded ``ContinuousBatcher`` in lockstep against
+   a single-device one); NCCL at world size 1. It prints a
+   {"parallel": ...} line before the kernels line.
 
 It ends with a ``{"kernels": [...]}`` line (all ten Pallas functions, a
 row per FP32 / MIXED / INT8 / W8A8 instantiation (the fp32 step's launches
@@ -3584,6 +3605,45 @@ def frame_files(frames, pair):
         return f"cv2: frames written and read back equal; one render of {out.stat().st_size} B"
 
 
+def batcher_pairs(ladder):
+    """``BATCHER_PAIRS`` random pairs (numpy seed 17) across the ladder: both
+    sides strictly inside one bucket, so a pair's own
+    match_from_extractions runs the batcher's bucket, masked."""
+    import numpy as np
+
+    gen = np.random.default_rng(17)
+    pairs = []
+    for k in range(BATCHER_PAIRS):
+        lo, hi = (ladder[k % len(ladder) - 1] if k % len(ladder) else 0) + 1, ladder[k % len(ladder)] - 1
+        n0, n1 = (int(x) for x in gen.integers(lo, hi + 1, 2))
+        d0, d1 = (gen.standard_normal((n, 256)).astype(np.float32) for n in (n0, n1))
+        pairs.append((gen.uniform(-1, 1, (n0, 2)).astype(np.float32),
+                      gen.uniform(-1, 1, (n1, 2)).astype(np.float32),
+                      d0 / np.linalg.norm(d0, axis=1, keepdims=True),
+                      d1 / np.linalg.norm(d1, axis=1, keepdims=True)))
+    return pairs
+
+
+def hold_matches(label, got, idx, sc):
+    """A batcher's ``MatchResult`` against a reference's match indices and
+    scores: True where bit for bit; else the match set at IoU > 0.95 given
+    >= 10 matches and the common scores at the bf16 tolerance, or raise."""
+    import numpy as np
+
+    if np.array_equal(got.indices, idx) and np.array_equal(got.scores, sc):
+        return True
+    mine = {tuple(p): s for p, s in zip(got.indices.tolist(), got.scores)}
+    ref = {tuple(p): s for p, s in zip(idx.tolist(), sc)}
+    iou = len(mine.keys() & ref.keys()) / max(1, len(mine.keys() | ref.keys()))
+    serr = max((abs(mine[k] - ref[k]) - TOL["bf16"]["rtol"] * abs(ref[k])
+                for k in mine.keys() & ref.keys()), default=0.0)
+    log(f"  {label}: not bit for bit; IoU {iou:.4f} of {len(mine)} / {len(ref)}, scores beyond "
+        f"rtol {serr:.3e}")
+    if len(ref) < 10 or iou <= 0.95 or serr > TOL["bf16"]["atol"]:
+        raise AssertionError(f"{label}: IoU {iou:.4f}, {len(ref)} matches, score error {serr}")
+    return False
+
+
 def match_set(kpts0, kpts1):
     """A result's matches as a set of ((x0, y0), (x1, y1)) keypoint pairs."""
     return set(zip(map(tuple, kpts0.tolist()), map(tuple, kpts1.tolist())))
@@ -3752,18 +3812,7 @@ def entry_point_checks(counters):
     config = PipelineConfig()
     session = MatcherSession(config=config, device="cuda")
     ladder = config.buckets
-    gen = np.random.default_rng(17)
-    pairs = []
-    for k in range(BATCHER_PAIRS):
-        # both sides strictly inside one bucket of the ladder, so the pair's
-        # own match_from_extractions runs the batcher's bucket, masked
-        lo, hi = (ladder[k % len(ladder) - 1] if k % len(ladder) else 0) + 1, ladder[k % len(ladder)] - 1
-        n0, n1 = (int(x) for x in gen.integers(lo, hi + 1, 2))
-        d0, d1 = (gen.standard_normal((n, 256)).astype(np.float32) for n in (n0, n1))
-        pairs.append((gen.uniform(-1, 1, (n0, 2)).astype(np.float32),
-                      gen.uniform(-1, 1, (n1, 2)).astype(np.float32),
-                      d0 / np.linalg.norm(d0, axis=1, keepdims=True),
-                      d1 / np.linalg.norm(d1, axis=1, keepdims=True)))
+    pairs = batcher_pairs(ladder)
     log(f"ContinuousBatcher: {BATCHER_PAIRS} pairs across the ladder {ladder} at batch "
         f"{BATCHER_SIZE}, BF16, 9 layers (first pass captures each bucket's graph, second timed)")
 
@@ -3806,21 +3855,9 @@ def entry_point_checks(counters):
         bucket = config.bucket_for(max(len(k0), len(k1)))
         _, m = session.match_from_extractions(padded(k0, d0, bucket), padded(k1, d1, bucket))
         c = int(m.count[0])
-        idx, sc = m.indices[0, :c].cpu().numpy(), m.scores[0, :c].cpu().numpy()
-        got = results[i]
-        if np.array_equal(got.indices, idx) and np.array_equal(got.scores, sc):
-            exact += 1
-            continue
-        mine = {tuple(p): s for p, s in zip(got.indices.tolist(), got.scores)}
-        ref = {tuple(p): s for p, s in zip(idx.tolist(), sc)}
-        iou = len(mine.keys() & ref.keys()) / max(1, len(mine.keys() | ref.keys()))
-        serr = max((abs(mine[k] - ref[k]) - TOL["bf16"]["rtol"] * abs(ref[k])
-                    for k in mine.keys() & ref.keys()), default=0.0)
-        log(f"  pair {i} ({len(k0)}/{len(k1)}, bucket {bucket}): not bit for bit; IoU "
-            f"{iou:.4f} of {len(mine)} / {len(ref)}, scores beyond rtol {serr:.3e}")
-        if len(ref) < 10 or iou <= 0.95 or serr > TOL["bf16"]["atol"]:
-            raise AssertionError(f"batcher pair {i} vs match_from_extractions: IoU {iou:.4f}, "
-                                 f"{len(ref)} matches, score error {serr}")
+        exact += hold_matches(f"batcher pair {i} ({len(k0)}/{len(k1)}, bucket {bucket}) vs "
+                              "match_from_extractions", results[i],
+                              m.indices[0, :c].cpu().numpy(), m.scores[0, :c].cpu().numpy())
     log(f"  {BATCHER_PAIRS} pairs in {dispatches} dispatches; {exact} of {BATCHER_PAIRS} bit "
         f"for bit equal to the pair's own match_from_extractions; replayed stream "
         f"{stream_ms:.3f} ms (median of 3): {stream_ms / BATCHER_PAIRS:.3f} ms a pair, "
@@ -3832,6 +3869,561 @@ def entry_point_checks(counters):
                               launches=batcher_launches)
     del session
     log(json.dumps({"entry_points": summary}))
+
+
+# ---- phase 9: the parallel path ----------------------------------------------
+
+PAR_MESHES = ((2, 2), (4, 1), (1, 4))  # (data, model), each on [cuda:0] x 4
+PAR_BATCH = 4
+PAR_SEED = 21  # the phase's own generator: earlier phases keep their inputs
+# __graft_entry__.py:184-191: twice the 9-layer envelope of the per-block
+# (tensor-parallel) lowering against the single-device stack
+# (golden/bf16_layer_err_r05.txt: 0.2501), rounded up; INT8 shares it
+BF16_GATE = 0.51
+FP32_GATE = 1e-3  # __graft_entry__.py:250
+ADAPTIVE_GATE = 0.3  # __graft_entry__.py:354
+PAR_RUNGS = (("bf16", BF16_GATE, 2 * BF16_GATE), ("fp32", FP32_GATE, FP32_GATE),
+             ("int8", BF16_GATE, 2 * BF16_GATE))  # rung, score gate, tie margin of the sets
+# the tensor-parallel shards' attention calls at B = 4: local heads ->
+# (fused_mha batch: both images stacked, bidirectional batch) of a shard
+TP_SHAPES = {2: (4, 2), 1: (8, 4)}  # H = 2 on the 2 x 2 mesh, H = 1 on 1 x 4
+
+
+def mutual_nn_sets(scores, margin, ref):
+    """__graft_entry__.py:142-171: per pair, the mutual nearest neighbours of
+    ``scores`` whose row and column argmax margins IN ``ref`` are at least
+    ``margin`` (near-ties of the reference are left out, from one side)."""
+    import torch
+
+    sets = []
+    for s, r in zip(scores.float(), ref.float()):
+        top_r, top_c = r.topk(2, dim=1).values, r.topk(2, dim=0).values
+        solid_r = (top_r[:, 0] - top_r[:, 1]) >= margin
+        solid_c = (top_c[0] - top_c[1]) >= margin
+        row_arg, col_arg = s.argmax(1), s.argmax(0)
+        rows = torch.arange(s.shape[0], device=s.device)
+        ok = (col_arg[row_arg] == rows) & solid_r & solid_c[row_arg]
+        sets.append(set(zip(rows[ok].tolist(), row_arg[ok].tolist())))
+    return sets
+
+
+def adaptive_flips(label, got, ref, max_flips=4):
+    """Tokens kept on one side only, per pair and image, between two adaptive
+    outputs of the same pairs (a keep decision sits on a threshold, and a
+    batch of another size sums in another order: ``tests/test_adaptive.py:
+    _prune_parity``): lengths within 2 and at most ``max_flips`` tokens in the
+    index sets' symmetric difference. Returns the total."""
+    total = 0
+    for b in range(got.exit_layer.shape[0]):
+        for side in (0, 1):
+            lg, lr = (int(getattr(x, f"lengths{side}")[b]) for x in (got, ref))
+            kept = [set(getattr(x, f"index{side}")[b, :n].tolist()) for x, n in ((got, lg), (ref, lr))]
+            diff = len(kept[0] ^ kept[1])
+            if abs(lg - lr) > 2 or diff > max_flips:
+                raise AssertionError(f"adaptive {label} pair {b} image {side}: lengths {lg} / "
+                                     f"{lr}, {diff} tokens kept on one side only")
+            total += diff
+    return total
+
+
+def tp_attention_checks(at, dev, fp32_scope, ents):
+    """fused_mha (self, RoPE) and bidirectional_cross_attention at the
+    tensor-parallel shards' local head counts (H = 2 and 1), N = 1024, in
+    bf16, MIXED and fp32, masked, against their plain versions at
+    attention_kernel_checks' tolerances; each timed beside SDPA (two SDPA
+    calls for both cross directions). Returns the readings."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(PAR_SEED)
+    hd, n = 64, BUCKET
+    modes = {  # operands, stats, out, tolerance
+        "bf16": (torch.bfloat16, torch.bfloat16, torch.bfloat16, TOL["bf16"]),
+        "mixed": (torch.bfloat16, torch.float32, torch.float32, MIXED_TOL["attention"]),
+        "fp32": (torch.float32, torch.float32, torch.float32, TOL["fp32"]),
+    }
+    readings = {}
+    log(f"fused_mha and bidirectional_cross_attention at the TP shards' local heads, N={n}")
+    for heads, (bf, bb) in TP_SHAPES.items():
+        e = heads * hd
+        lens_f = torch.randint(n * 2 // 3, n + 1, (bf, 1), generator=gen, device=dev).expand(bf, 2)
+        lens_b = torch.randint(n * 2 // 3, n + 1, (bb, 2), generator=gen, device=dev)
+        ang = torch.rand(bf, n, hd // 2, generator=gen, device=dev) * 4.0
+        emb = torch.stack([torch.cos(ang), torch.sin(ang)], dim=1)
+        freqs = torch.cat([emb, emb], dim=-1).contiguous()
+        for tag, (dt, sdt, odt, tol) in modes.items():
+            qkv = torch.randn(bf, n, 3 * e, generator=gen, device=dev).to(dt)
+            q, k, v = qkv[..., :e], qkv[..., e:2 * e], qkv[..., 2 * e:]
+            a0, a1 = (torch.randn(bb, n, 2 * e, generator=gen, device=dev).to(dt) for _ in "01")
+            bargs = (a0[..., :e], a1[..., :e], a0[..., e:], a1[..., e:])
+            kw = dict(num_heads=heads, stat_dtype=sdt, out_dtype=odt)
+
+            def split(t):
+                return t.reshape(t.shape[0], n, heads, hd).transpose(1, 2)
+
+            with fp32_scope():
+                err_f = compare(f"fused_mha self rope H={heads} {bf}x{n} masked {tag}",
+                                at.fused_mha(q, k, v, freqs, lens_f, **kw),
+                                at.fused_mha_plain(q, k, v, freqs, lens_f, **kw), **tol)
+                got = at.bidirectional_cross_attention(*bargs, lens_b, **kw)
+                want = at.bidirectional_cross_attention_plain(*bargs, lens_b, **kw)
+                err_b = max(compare(f"bidirectional H={heads} {bb}x{n}x{n} masked {tag} o{i}",
+                                    g, w, **tol) for i, (g, w) in enumerate(zip(got, want)))
+                qh, kh, vh = split(q), split(k), split(v)
+                q0, q1, w0, w1 = (split(t) for t in bargs)
+                f_ms = cuda_ms(lambda: at.fused_mha(q, k, v, freqs, lens_f, **kw))
+                f_plain = cuda_ms(lambda: at.fused_mha_plain(q, k, v, freqs, lens_f, **kw))
+                f_lib = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
+                b_ms = cuda_ms(lambda: at.bidirectional_cross_attention(*bargs, lens_b, **kw))
+                b_plain = cuda_ms(lambda: at.bidirectional_cross_attention_plain(*bargs, lens_b,
+                                                                                 **kw))
+                b_two = cuda_ms(lambda: (F.scaled_dot_product_attention(q0, q1, w1),
+                                         F.scaled_dot_product_attention(q1, q0, w0)))
+            readings[f"fused_mha H={heads} {tag}"] = dict(
+                batch=bf, ms=f_ms, plain_ms=f_plain, sdpa_ms=f_lib, max_abs_err=err_f)
+            readings[f"bidirectional H={heads} {tag}"] = dict(
+                batch=bb, ms=b_ms, plain_ms=b_plain, two_sdpa_ms=b_two, max_abs_err=err_b)
+            log(f"  H={heads} {tag}: fused_mha {f_ms:.4f} ms (plain {f_plain:.4f}, SDPA {f_lib:.4f}),"
+                f" bidirectional {b_ms:.4f} ms (plain {b_plain:.4f}, two SDPA {b_two:.4f})")
+            if tag != "bf16":
+                continue
+            # a mesh of PAR_BATCH shards runs each per layer on every shard:
+            # N_LAYERS launches per pair, each the call timed here
+            ent_f, ent_b = ents[("fused_mha", heads)], ents[("bidirectional_cross_attention", heads)]
+            ent_f.err(err_f)
+            ent_f.add(f"self rope H={heads} {bf}x{n} bf16", N_LAYERS, f_ms, f_plain, f_lib,
+                      q.element_size() * 4 * bf * n * e + 4 * bf * 2 * n * hd,
+                      4 * bf * heads * n * n * hd, BF16_FLOP_PER_MS)
+            ent_b.err(err_b)
+            ent_b.d["two_sdpa_ms"] = N_LAYERS * b_two
+            # library: none, no single PyTorch call computes both directions
+            ent_b.add(f"H={heads} {bb}x{n}x{n} bf16", N_LAYERS, b_ms, b_plain, None,
+                      a0.element_size() * 6 * bb * n * e, 6 * bb * heads * n * n * hd,
+                      BF16_FLOP_PER_MS)
+    return readings
+
+
+def par_step_ms(step, params, args):
+    """Median host-clock ms of one eager mesh step over 10 calls, each ending
+    in a synchronise (after one warm call)."""
+    import torch
+
+    times = []
+    for _ in range(11):
+        t = time.perf_counter()
+        step(params, *args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times[1:])
+
+
+def parallel_rank(rank, port, inputs, queue):
+    """One of two ranks spawned on cuda:0 (``parallel_checks``), in a gloo
+    group (NCCL refuses two ranks on one card): ``initialize``, the barrier
+    at data=2, model=1, the match step there (each rank feeds its own pair
+    through ``global_batch_from_local``) and at data=1, model=2 (the model
+    axis across the two processes), each against this rank's own
+    single-device forward of both pairs at the BF16 gates, then a sharded
+    ContinuousBatcher on ``batcher_pairs`` in lockstep against a
+    single-device batcher. Puts (rank, traceback or None, readings)."""
+    import traceback
+
+    try:
+        import numpy as np
+        import torch
+
+        from lightglue_tpu_torch.config import PipelineConfig
+        from lightglue_tpu_torch.models import lightglue
+        from lightglue_tpu_torch.parallel import mesh as mesh_lib
+        from lightglue_tpu_torch.parallel import multihost
+        from lightglue_tpu_torch.parallel.batcher import (ContinuousBatcher, mesh_match_fn,
+                                                           session_match_fn)
+        from lightglue_tpu_torch.runtime.session import MatcherSession
+
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        multihost.initialize(f"localhost:{port}", 2, rank, backend="gloo")
+        out = {}
+        mesh = mesh_lib.make_mesh(2, 1, devices=[dev])
+        out["barrier"] = multihost.barrier(mesh)
+        if out["barrier"] != 2:
+            raise AssertionError(f"rank {rank}: barrier counted {out['barrier']}")
+        config = PipelineConfig(buckets=(BUCKET,), max_matches=BUCKET)  # BF16, 9 layers
+        session = MatcherSession(config=config, device="cuda")
+        params = session.lg_params
+        batch = [torch.from_numpy(a).to(dev) for a in inputs]
+        with torch.inference_mode():
+            ref = lightglue.forward(params, *batch, config=config.lightglue,
+                                    policy=session.policy).scores.float()
+        ref_sets = mutual_nn_sets(ref, 2 * BF16_GATE, ref)
+        for d, m in ((2, 1), (1, 2)):
+            mp = mesh if (d, m) == (2, 1) else mesh_lib.make_mesh(d, m, devices=[dev])
+            step = mesh_lib.make_parallel_match_fn(mp, config, BUCKET, BUCKET)
+            if d == 2:  # this rank's own pair, placed by global_batch_from_local
+                args = multihost.global_batch_from_local([a[rank:rank + 1] for a in inputs], mp)
+            else:  # one data row across both ranks: each holds the whole batch
+                args = batch
+            res, _ = step(mesh_lib.shard_lightglue_params(params, mp), *args)
+            err, sets = 0.0, 0
+            for shard in res.scores.shards:
+                rows = slice(shard.start, shard.start + shard.data.shape[0])
+                err = max(err, float((shard.data.float() - ref[rows]).abs().max()))
+                got = mutual_nn_sets(shard.data, 2 * BF16_GATE, ref[rows])
+                if got != ref_sets[rows]:
+                    raise AssertionError(f"rank {rank} mesh {d}x{m}: mutual-NN sets differ")
+                sets += sum(len(x) for x in got)
+            if err >= BF16_GATE:
+                raise AssertionError(f"rank {rank} mesh {d}x{m}: max abs err {err} vs forward")
+            out[f"{d}x{m}"] = dict(rows=[s.start for s in res.scores.shards], max_abs_err=err,
+                                   matches=sets)
+        ladder = PipelineConfig().buckets
+        pairs = batcher_pairs(ladder)
+        results = {}
+        for name, batcher in (
+                ("sharded", ContinuousBatcher(mesh_match_fn(mesh, config),
+                                              mesh_lib.shard_lightglue_params(params, mesh),
+                                              buckets=ladder, batch_size=BATCHER_SIZE,
+                                              sharding=mesh)),
+                ("single", ContinuousBatcher(session_match_fn(session), params, buckets=ladder,
+                                             batch_size=BATCHER_SIZE, device="cuda"))):
+            for i, p in enumerate(pairs):
+                batcher.submit(i, *p)
+            results[name] = {r.pair_id: r for r in batcher.flush()}
+        mine = results["sharded"]
+        # lockstep: this rank keeps row k % 2 of each dispatch's batch of 4
+        want_ids, seen = [], {b: 0 for b in ladder}
+        for i, (k0, k1, _, _) in enumerate(pairs):
+            b = PipelineConfig().bucket_for(max(len(k0), len(k1)))
+            if (seen[b] % BATCHER_SIZE) // (BATCHER_SIZE // 2) == rank:
+                want_ids.append(i)
+            seen[b] += 1
+        if sorted(mine) != want_ids:
+            raise AssertionError(f"rank {rank}: batcher rows {sorted(mine)}, want {want_ids}")
+        exact = sum(hold_matches(f"rank {rank} batcher pair {i}", r, results["single"][i].indices,
+                                 results["single"][i].scores) for i, r in mine.items())
+        out["batcher"] = dict(pairs=len(mine), bit_for_bit=exact)
+        queue.put((rank, None, out))
+    except Exception:
+        queue.put((rank, traceback.format_exc(), None))
+
+
+def two_process_checks(inputs):
+    """Two ranks spawned on cuda:0 (``parallel_rank``), each held to its own
+    single-device results; the kernel library is built already, so neither
+    builds it. Every process started is joined or killed."""
+    import multiprocessing
+    import queue as queue_mod
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")  # CUDA in the parent
+    q = ctx.Queue()
+    procs = [ctx.Process(target=parallel_rank, args=(r, port, inputs, q)) for r in (0, 1)]
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        while len(got) < 2:
+            rank, tb, out = q.get(timeout=300)  # drained before the joins
+            if tb is not None:
+                raise AssertionError(f"rank {rank} failed:\n{tb}")
+            got[rank] = out
+        for p in procs:
+            p.join(timeout=60)
+            if p.exitcode != 0:
+                raise AssertionError(f"rank exited with {p.exitcode}")
+    except queue_mod.Empty:
+        raise AssertionError("two-process phase: a rank sent nothing in 300 s") from None
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return got
+
+
+def nccl_world_one(dev):
+    """The NCCL backend at world size 1 (env:// rendezvous on localhost):
+    ``initialize`` brings the group up and ``barrier`` counts 1."""
+    import socket
+
+    import torch.distributed as dist
+
+    from lightglue_tpu_torch.parallel import mesh as mesh_lib
+    from lightglue_tpu_torch.parallel import multihost
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(MASTER_ADDR="localhost", MASTER_PORT=str(port), WORLD_SIZE="1", RANK="0")
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        multihost.initialize(backend="nccl")
+        try:
+            if dist.get_backend() != "nccl":
+                raise AssertionError(f"backend {dist.get_backend()}")
+            count = multihost.barrier(mesh_lib.make_mesh(devices=[dev]))
+        finally:
+            dist.destroy_process_group()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    if count != 1:
+        raise AssertionError(f"nccl barrier at world size 1 counted {count}")
+    log("  nccl, world size 1 (env:// on localhost): initialize, barrier == 1")
+    return count
+
+
+def parallel_checks(at, counters, fp32_scope, tp_ents):
+    """The parallel path on ``[cuda:0] x 4`` (``__graft_entry__.py:
+    dryrun_multichip``, :59-470, at BUCKET keypoints and 480x640): the
+    attention kernels at the TP shards' local heads (``tp_attention_checks``);
+    DP extraction of four images (a proxy-whitened SuperPoint) over a 2 x 2
+    mesh against the unsharded one, bit for bit; the match step of each mesh
+    of ``PAR_MESHES`` at BF16, FP32 and INT8 (image1 = image0, so the match
+    sets are not vacuous) against the single-device ``forward``: scores under
+    the rung's gate, mutual-NN sets equal with near-ties of the reference left
+    out, launches per wrapper (and, for the TP route, from a trace), whether
+    the DP rows are the single-device rows bit for bit; ms per pair of each
+    mesh's eager step beside a 1 x 1 mesh's and the session's eager
+    ``match_pair``; ``make_parallel_adaptive_fn`` over 2 x 2 with the pinned
+    exit-3 weights (depth+width; depth-only ``full``) and through the
+    downshift at layer 4 (both arms): every field equal to
+    ``forward_adaptive`` of each data row's pairs alone, and against the
+    batch of four the exits equal, keep flips within ``adaptive_flips``'
+    bound, scores under 0.3 where no token flipped; two processes on the
+    card (``two_process_checks``); NCCL at world size 1. Prints a
+    {"parallel": ...} line."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from lightglue_tpu_torch.config import LightGlueConfig, PipelineConfig, SuperPointConfig
+    from lightglue_tpu_torch.models import lightglue, superpoint
+    from lightglue_tpu_torch.parallel import mesh as mesh_lib
+    from lightglue_tpu_torch.pipeline.extract import extract_keypoints
+    from lightglue_tpu_torch.precision import Precision, policy_for
+    from lightglue_tpu_torch.quant import quantize_lightglue
+    from lightglue_tpu_torch.runtime import weights
+    from lightglue_tpu_torch.runtime.session import MatcherSession
+
+    dev = torch.device("cuda", 0)
+    summary = {"tp_attention": tp_attention_checks(at, dev, fp32_scope, tp_ents)}
+
+    def grid(d, m):
+        return mesh_lib.make_mesh(d, m, devices=[dev] * (d * m))
+
+    # ---- DP extraction: four 480x640 images over a 2 x 2 mesh ---------------
+    sp_cfg = SuperPointConfig(max_num_keypoints=BUCKET)
+    config = PipelineConfig(superpoint=sp_cfg, buckets=(BUCKET,), max_matches=BUCKET)  # BF16
+    images = np.stack([smooth_pair(seed)[k] for seed in (0, 1) for k in (0, 1)])
+    sp_tree = weights.whiten_superpoint_descriptors(weights.init_superpoint(0, sp_cfg), images[:1],
+                                                    config=sp_cfg)
+    sp = weights.params_from_numpy(sp_tree, dev)
+    log(f"make_parallel_extract_fn over 2 x 2, {PAR_BATCH}x480x640, proxy-whitened SuperPoint, "
+        "BF16, against one unsharded extraction")
+    ext = mesh_lib.make_parallel_extract_fn(grid(2, 2), config)(sp, torch.from_numpy(images))
+    with torch.inference_mode():
+        scores, desc = superpoint.forward(sp, torch.from_numpy(images).to(dev), config=sp_cfg,
+                                          policy=policy_for(Precision.BF16), nms=False)
+        whole = extract_keypoints(scores, desc, config=sp_cfg, raw_scores=True)
+    for name, g, w in zip(ext._fields, ext, whole):
+        compare(f"DP extraction {name}", g, w, 0, 0, exact=True)
+    summary["dp_extraction_bit_for_bit"] = True
+    counts = torch.clamp(ext.count, max=BUCKET)
+    args = (ext.keypoints_norm, ext.keypoints_norm, ext.descriptors, ext.descriptors,
+            counts, counts)  # image1 = image0: strongly diagonal assignments
+    log(f"  keypoints per image {ext.count.tolist()}")
+
+    # ---- the match step on each mesh, per rung --------------------------------
+    lg_tree = weights.init_lightglue(0, config.lightglue)
+    by_name = {fn.__name__: fn for fn in counters}
+    summary["meshes"] = {}
+    for rung, gate, margin in PAR_RUNGS:
+        cfg = dataclasses.replace(config, precision=Precision(rung))
+        pol = policy_for(cfg.precision)
+        params = (weights.params_from_numpy(quantize_lightglue(lg_tree), dev) if pol.int8_weights
+                  else weights.params_from_numpy(lg_tree, dev, pol.param_dtype))
+        with torch.inference_mode():
+            ref = lightglue.forward(params, *args, config=cfg.lightglue, policy=pol).scores.float()
+        ref_sets = mutual_nn_sets(ref, margin, ref)
+        log(f"match step, {rung}, {PAR_BATCH}x{BUCKET}, {N_LAYERS} layers: gate {gate}, tie margin "
+            f"{margin}; single-device mutual-NN sets {[len(x) for x in ref_sets]}")
+        if not all(ref_sets):
+            raise AssertionError(f"{rung}: a pair without a solid mutual match; the set check "
+                                 "would be vacuous")
+        for d, m in PAR_MESHES:
+            mesh = grid(d, m)
+            step = mesh_lib.make_parallel_match_fn(mesh, cfg, BUCKET, BUCKET)
+            mp = mesh_lib.shard_lightglue_params(params, mesh)
+            for fn in counters:
+                fn.launches = 0
+            out, matches = step(mp, *args)
+            torch.cuda.synchronize()
+            launches = {fn.__name__: fn.launches for fn in counters}
+            label = f"  mesh {d}x{m} {rung}"
+            if out.scores.shape != (PAR_BATCH, BUCKET, BUCKET) or matches.indices.shape != (
+                    PAR_BATCH, BUCKET, 2):
+                raise AssertionError(f"{label}: scores {tuple(out.scores.shape)}, indices "
+                                     f"{tuple(matches.indices.shape)}")
+            err = float((out.scores.float() - ref).abs().max())
+            if not err < gate:
+                raise AssertionError(f"{label}: scores vs single-device max abs err {err}")
+            sets = mutual_nn_sets(out.scores, margin, ref)
+            for b, (g, r) in enumerate(zip(sets, ref_sets)):
+                if g != r:
+                    raise AssertionError(f"{label} pair {b}: mutual-NN sets differ: mesh only "
+                                         f"{sorted(g - r)[:5]}, single only {sorted(r - g)[:5]}")
+            shards = d * m
+            if m == 1:  # the stack on every shard: the main path's launches per pair
+                want = dict(linear=16 * N_LAYERS * d, attention=4 * N_LAYERS * d,
+                            ln_gelu=4 * N_LAYERS * d, fused_mha=0,
+                            bidirectional_cross_attention=0)
+            else:  # the per-block route at H / m heads on every shard
+                want = dict(linear=0, attention=0, ln_gelu=0, fused_mha=N_LAYERS * shards,
+                            bidirectional_cross_attention=N_LAYERS * shards)
+            bad = {k: (launches[k], v) for k, v in want.items() if launches[k] != v}
+            if bad:
+                raise AssertionError(f"{label}: launches (got, want) {bad}")
+            bitwise = bool(torch.equal(out.scores.float(), ref))
+            row = dict(max_abs_err=err, matches=[len(x) for x in sets], bit_for_bit=bitwise,
+                       launches_per_pair={k: v / PAR_BATCH for k, v in launches.items() if v})
+            if rung == "bf16":
+                if m > 1:  # the TP route's launches per pair from a trace
+                    _, traced_counts = traced(lambda: step(mp, *args), traces=TRACES, want={
+                        "fused_mha": want["fused_mha"],
+                        "bidirectional_cross_attention": want["fused_mha"]})
+                    if {k: v for k, v in traced_counts.items() if v} != {
+                            "fused_mha": want["fused_mha"],
+                            "bidirectional_cross_attention": want["fused_mha"]}:
+                        raise AssertionError(f"{label}: traced launches {traced_counts}")
+                    row["traced_launches_per_pair"] = {k: v / PAR_BATCH
+                                                       for k, v in traced_counts.items() if v}
+                    heads = cfg.lightglue.num_heads // m
+                    tp_ents[("fused_mha", heads)].d["launches"] = launches["fused_mha"]
+                    tp_ents[("bidirectional_cross_attention", heads)].d["launches"] = (
+                        launches["bidirectional_cross_attention"])
+                row["ms_per_pair"] = par_step_ms(step, mp, args) / PAR_BATCH
+            summary["meshes"][f"{d}x{m} {rung}"] = row
+            log(f"{label}: max_abs_err {err:.3e} (gate {gate}); mutual-NN sets equal "
+                f"({row['matches']} a pair); DP rows bit for bit the single device's: {bitwise}; "
+                f"launches {row['launches_per_pair']} a pair"
+                + (f"; eager step {row['ms_per_pair']:.3f} ms a pair" if "ms_per_pair" in row
+                   else ""))
+
+    # ---- one card without a mesh, for the timings' sake ----------------------
+    bf16 = weights.params_from_numpy(lg_tree, dev, torch.bfloat16)
+    one = grid(1, 1)
+    summary["one_device_step_ms_per_pair"] = par_step_ms(
+        mesh_lib.make_parallel_match_fn(one, config, BUCKET, BUCKET),
+        mesh_lib.shard_lightglue_params(bf16, one), args) / PAR_BATCH
+    session = MatcherSession(device="cuda")
+    img0, img1 = smooth_pair(0)
+    with eager_session(session):
+        session.match_pair(img0, img1)
+        times = []
+        for _ in range(10):
+            t = time.perf_counter()
+            session.match_pair(img0, img1)
+            times.append((time.perf_counter() - t) * 1e3)
+    summary["session_eager_match_pair_ms"] = statistics.median(times)
+    log(f"  1 x 1 mesh eager step {summary['one_device_step_ms_per_pair']:.3f} ms a pair; the "
+        f"session's eager BF16 match_pair (extraction included) "
+        f"{summary['session_eager_match_pair_ms']:.3f} ms (host clock, median of 10)")
+
+    # ---- adaptive over 2 x 2 --------------------------------------------------
+    m22 = grid(2, 2)
+    summary["adaptive"] = {}
+    full_lens = torch.full((PAR_BATCH,), BUCKET, dtype=torch.int32, device=dev)
+    rngd = np.random.default_rng(3)  # __graft_entry__.py:381-391, at the 1024 bucket
+    ds_args = tuple(torch.from_numpy(a).to(dev) for a in (
+        rngd.uniform(-1, 1, (PAR_BATCH, BUCKET, 2)).astype(np.float32),
+        rngd.uniform(-1, 1, (PAR_BATCH, BUCKET, 2)).astype(np.float32),
+        rngd.standard_normal((PAR_BATCH, BUCKET, 256), dtype=np.float32),
+        rngd.standard_normal((PAR_BATCH, BUCKET, 256), dtype=np.float32),
+        np.full((PAR_BATCH,), BUCKET - 5, np.int32), np.full((PAR_BATCH,), BUCKET - 9, np.int32)))
+    no_prune = prune_weights(lg_tree)
+    match = no_prune["assign"]["match"]
+    no_prune["assign"] = dict(no_prune["assign"], match=dict(match, b=np.full_like(match["b"], 50.0)))
+    # label, tree, LightGlueConfig knobs, full, inputs, the exit every pair
+    # takes (None: unpinned. The JAX dry run wants 9 from the downshift
+    # cases, which its kernel forces: phase 2 tests liveness against the
+    # local layer (ROADMAP queue 3); the port follows the oracle, where a
+    # pair can meet the depth criterion in phase 2)
+    cases = [
+        ("depth+width exit 3", pinned_exit_weights(lg_tree, 3),
+         dict(depth_confidence=0.95, width_confidence=0.99), False, args, 3),
+        ("depth-only exit 3 full", pinned_exit_weights(lg_tree, 3),
+         dict(depth_confidence=0.95, width_confidence=-1.0), True, args[:4] + (full_lens,) * 2, 3),
+        ("downshift half-width arm", prune_weights(lg_tree),
+         dict(depth_confidence=0.95, width_confidence=0.99, downshift_layer=4), False, ds_args,
+         None),
+        ("downshift full-width arm", no_prune,
+         dict(depth_confidence=0.95, width_confidence=0.99, downshift_layer=4), False, ds_args,
+         None),
+    ]
+    per = PAR_BATCH // 2
+    for label, tree, knobs, full, case_args, want_exit in cases:
+        cfg = dataclasses.replace(config, lightglue=LightGlueConfig(**knobs))
+        params = weights.params_from_numpy(tree, dev, torch.bfloat16)
+        got = mesh_lib.make_parallel_adaptive_fn(m22, cfg, full=full)(params, *case_args)
+        with torch.inference_mode():
+            def single(rows):
+                return lightglue.forward_adaptive(
+                    params, *(a[rows] for a in case_args), config=cfg.lightglue,
+                    policy=policy_for(Precision.BF16), full=full)
+
+            ref = single(slice(0, PAR_BATCH))
+            # each data row's pairs alone on one device: the shard's own batch
+            rows = [single(slice(i * per, (i + 1) * per)) for i in range(2)]
+        if want_exit is not None and ref.exit_layer.tolist() != [want_exit] * PAR_BATCH:
+            raise AssertionError(f"adaptive {label}: single-device exits {ref.exit_layer.tolist()}"
+                                 f", the pinned setup wants {want_exit}")
+        lens = torch.cat([ref.lengths0, ref.lengths1])
+        half = BUCKET // 2
+        if "half-width" in label and int(lens.max()) > half // 2:
+            raise AssertionError(f"adaptive {label}: survivors {lens.tolist()} not deep inside "
+                                 "the half bucket")
+        if "full-width" in label and int(lens.min()) <= half:
+            raise AssertionError(f"adaptive {label}: survivors {lens.tolist()} pruned below half")
+        for k, name in enumerate(got._fields):  # against the shards' own batches: exact
+            compare(f"adaptive {label} {name} vs each data row alone", got[k],
+                    torch.cat([r[k] for r in rows]), 0, 0, exact=True)
+        compare(f"adaptive {label} exit_layer vs the batch of {PAR_BATCH}", got.exit_layer,
+                ref.exit_layer, 0, 0, exact=True)
+        flips = adaptive_flips(label, got, ref)
+        err = None
+        if not flips:  # the same survivors: the compacted scores line up
+            err = float((got.scores.float() - ref.scores.float()).abs().max())
+            if not err < ADAPTIVE_GATE:
+                raise AssertionError(f"adaptive {label}: scores max abs err {err}")
+        summary["adaptive"][label] = dict(exits=ref.exit_layer.tolist(),
+                                          lengths0=ref.lengths0.tolist(), keep_flips=flips,
+                                          max_abs_err=err)
+        log(f"  adaptive {label} over 2 x 2: exits {got.exit_layer.tolist()}, lengths0 "
+            f"{got.lengths0.tolist()}; every field equal to each data row's pairs alone; against "
+            f"the batch of {PAR_BATCH}: {flips} keep flips"
+            + ("" if err is None else f", scores max_abs_err {err:.3e} (gate {ADAPTIVE_GATE})"))
+
+    # ---- two processes on the card, then NCCL at world size 1 -----------------
+    log("two ranks spawned on cuda:0 (gloo): barrier, match step at 2 x 1 and 1 x 2 (the model "
+        f"axis across the processes), a sharded ContinuousBatcher on {BATCHER_PAIRS} pairs")
+    inputs = [a[:2].cpu().numpy() for a in args]
+    t = time.perf_counter()
+    ranks = two_process_checks(inputs)
+    for rank, out in sorted(ranks.items()):
+        log(f"  rank {rank}: {json.dumps(out)}")
+    log(f"  both ranks done in {time.perf_counter() - t:.1f} s")
+    summary["two_processes"] = ranks
+    summary["nccl_world_one_barrier"] = nccl_world_one(dev)
+    log(json.dumps({"parallel": summary}))
 
 
 def ring_int8(at, counters, img0, img1):
@@ -4338,6 +4930,18 @@ def main() -> int:
     # ---- the entry points: demo, bench CLI, continuous batcher ---------------
     entry_point_checks(counters)
 
+    # ---- the parallel path: data x model meshes, two processes, NCCL ----------
+    tp_ents = {}
+    for heads, mesh_txt in ((2, "2 x 2"), (1, "1 x 4")):
+        tp_ents[("fused_mha", heads)] = Entry(
+            f"fused_mha (TP shard, H={heads} local heads: the {mesh_txt} mesh)",
+            src + "flash_attn.cu", ref + "attention.py:687")
+        tp_ents[("bidirectional_cross_attention", heads)] = Entry(
+            f"bidirectional_cross_attention (TP shard, H={heads} local heads: the {mesh_txt} mesh)",
+            src + "bidir_cross.cu", ref + "attention.py:925")
+    parallel_checks(at, counters + [at.fused_mha, at.bidirectional_cross_attention], fp32_scope,
+                    tp_ents)
+
     log("the FP32 rows' products at three TF32 products each (495 TFLOP/s dense; their "
         "bound) and on the fp32 FMA units (67 TFLOP/s), per match_pair (flash_attention: per "
         "call; the step: per forward_ring)")
@@ -4348,7 +4952,8 @@ def main() -> int:
             f"floor {ent.ops / FP32_OP_PER_MS:.4f} ms, kernel {ent.d['ms']:.4f} ms")
 
     entries = (stem_e, conv_e, nms_e, lin_e, att_e, ln_e, dec_e, fused_e, bidir_e, flash_e,
-               step_e, gen_e, gen_fp32_e, chain_e, chain_fp32_e, *rung_ents.values())
+               step_e, gen_e, gen_fp32_e, chain_e, chain_fp32_e, *rung_ents.values(),
+               *tp_ents.values())
     log(json.dumps({"kernels": [x.out() for x in entries]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -19,6 +19,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -86,6 +87,7 @@ _SIGNATURES = {
 MAX_DYNAMIC_SMEM = 232_448
 
 _lib = None
+_lib_lock = threading.Lock()  # a tensor-parallel step's shard threads may load it at once
 
 
 def _nvcc() -> str:
@@ -153,12 +155,14 @@ def lib() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
     global _lib
     if _lib is None:
-        handle = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(handle, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = handle
+        with _lib_lock:
+            if _lib is None:
+                handle = ctypes.CDLL(str(build()))
+                for name, argtypes in _SIGNATURES.items():
+                    fn = getattr(handle, name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                _lib = handle
     return _lib
 
 

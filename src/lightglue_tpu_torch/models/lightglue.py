@@ -16,7 +16,14 @@ bucket, a pad-to-64 ladder) they take the per-block route: ``self_block``,
 ``cross_block`` and ``transformer_layer`` layer by layer, with projections,
 LayerNorm and GELU in plain torch and attention on
 ``kernels.attention.fused_mha`` and ``bidirectional_cross_attention``.
-Tensor parallelism is not ported (``tp_axis`` is always None here).
+
+Tensor parallelism (JAX ``tp_axis``) rides the per-block route only: with a
+``TensorParallel`` context the weights are one shard's whole heads and FFN
+columns (``parallel/mesh.py:shard_lightglue_params``), the head count is
+the local one (read from the qkv weight), ``out`` and ``ffn2`` sum their
+partial products over the model axis before their bias, and the LayerNorm
+between ffn1 and ffn2 sums its statistics over it. The layer stack is never
+taken under it (``layer_stack.supports``).
 
 ``forward_ring`` (:590-695) is the sequence-split forward: every attention
 through ``parallel/ring.py:ring_attention`` on the
@@ -26,7 +33,7 @@ through ``parallel/ring.py:ring_attention`` on the
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -51,6 +58,26 @@ def _weight(p, dtype) -> torch.Tensor:
 
 def _linear(p, x: torch.Tensor) -> torch.Tensor:
     return x @ _weight(p, x.dtype) + p["b"].to(x.dtype)
+
+
+class TensorParallel(NamedTuple):
+    """One shard's view of the ``model`` mesh axis (JAX ``tp_axis``):
+    ``size`` shards split the heads and FFN columns, and ``all_reduce(x)``
+    returns the sum of every shard's ``x`` in x's dtype, on x's device (JAX
+    ``lax.psum``)."""
+
+    size: int
+    all_reduce: Callable[[torch.Tensor], torch.Tensor]
+
+
+def _linear_rowshard(p, x: torch.Tensor, tp: Optional[TensorParallel]) -> torch.Tensor:
+    """Row-sharded linear (JAX :88-94): x holds the local feature slice, w the
+    matching rows; the partial products are summed over the model axis and
+    the bias is added once, after the sum."""
+    partial = x @ _weight(p, x.dtype)
+    if tp is not None:
+        partial = tp.all_reduce(partial)
+    return partial + p["b"].to(x.dtype)
 
 
 def _linear_maybe_batched(p, x: torch.Tensor) -> torch.Tensor:
@@ -140,11 +167,21 @@ def _masks_from_lengths(lengths0, lengths1, m: int, n: int):
 _BIDIR_MAX_N = 1024
 
 
-def _layer_norm(g, b, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm over the last dim in fp32, var = E[x^2] - mean^2 (:97-111)."""
+def _layer_norm(g, b, x: torch.Tensor, eps: float = 1e-5,
+                tp: Optional[TensorParallel] = None) -> torch.Tensor:
+    """LayerNorm over the last dim in fp32, var = E[x^2] - mean^2 (:97-111).
+    Under ``tp`` x is a feature slice: the sums of x and x^2 are summed over
+    the model axis (one all-reduce of both) and divided by the global width."""
     xf = x.float()
-    mean = xf.mean(dim=-1, keepdim=True)
-    var = (xf * xf).mean(dim=-1, keepdim=True) - mean * mean
+    if tp is None:
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = (xf * xf).mean(dim=-1, keepdim=True) - mean * mean
+    else:
+        n = xf.shape[-1] * tp.size
+        sums = tp.all_reduce(torch.cat([xf.sum(dim=-1, keepdim=True),
+                                        (xf * xf).sum(dim=-1, keepdim=True)], dim=-1))
+        mean = sums[..., :1] / n
+        var = sums[..., 1:] / n - mean * mean
     return ((xf - mean) * torch.rsqrt(var + eps) * g + b).to(x.dtype)
 
 
@@ -171,23 +208,26 @@ def _attend(q, k, v, lengths, policy: DTypePolicy, num_heads: int, freqs=None,
     return out.to(q.dtype)
 
 
-def _ffn(p, x: torch.Tensor, message: torch.Tensor) -> torch.Tensor:
-    """Residual FFN over cat(x, message) (:188-202)."""
+def _ffn(p, x: torch.Tensor, message: torch.Tensor,
+         tp: Optional[TensorParallel] = None) -> torch.Tensor:
+    """Residual FFN over cat(x, message) (:188-202). Under ``tp`` ffn1 is
+    column-sharded and ffn2 row-sharded around the reduced LayerNorm."""
     h = _linear(p["ffn1"], torch.cat([x, message], dim=-1))
-    h = _gelu(_layer_norm(p["ln_g"], p["ln_b"], h))
-    return x + _linear(p["ffn2"], h)
+    h = _gelu(_layer_norm(p["ln_g"], p["ln_b"], h, tp=tp))
+    return x + _linear_rowshard(p["ffn2"], h, tp)
 
 
 def self_block(p, x, freqs, lengths, num_heads: int, policy: DTypePolicy,
-               ops=attention.KERNEL_OPS) -> torch.Tensor:
+               ops=attention.KERNEL_OPS, tp: Optional[TensorParallel] = None) -> torch.Tensor:
     """Self-attention block (:205-233): one [q | k | v] projection, RoPE
-    inside ``fused_mha`` on column slices of it."""
-    e = x.shape[-1]
+    inside ``fused_mha`` on column slices of it. ``num_heads`` is the local
+    head count under ``tp`` (the shard's q, k and v columns are its heads')."""
     qkv = _linear(p["qkv"], x)
+    e = qkv.shape[-1] // 3
     lens2 = None if lengths is None else torch.stack([lengths, lengths], dim=-1)
     ctx = _attend(qkv[..., :e], qkv[..., e:2 * e], qkv[..., 2 * e:], lens2, policy,
                   num_heads, freqs, ops)
-    return _ffn(p, x, _linear(p["out"], ctx))
+    return _ffn(p, x, _linear_rowshard(p["out"], ctx, tp), tp)
 
 
 def _cross_attend(qk0, qk1, v0, v1, lengths0, lengths1, policy: DTypePolicy, num_heads: int,
@@ -210,32 +250,34 @@ def _cross_attend(qk0, qk1, v0, v1, lengths0, lengths1, policy: DTypePolicy, num
 
 
 def cross_block(p, x0, x1, lengths0, lengths1, num_heads: int, policy: DTypePolicy,
-                ops=attention.KERNEL_OPS):
+                ops=attention.KERNEL_OPS, tp: Optional[TensorParallel] = None):
     """Bidirectional symmetric cross-attention (:236-260); the shared qk and
     v projections are one [qk | v] product per image."""
-    e = x0.shape[-1]
     a0, a1 = _linear(p["qk_v"], x0), _linear(p["qk_v"], x1)
+    e = a0.shape[-1] // 2
     m0, m1 = _cross_attend(a0[..., :e], a1[..., :e], a0[..., e:], a1[..., e:],
                            lengths0, lengths1, policy, num_heads, ops)
-    return (_ffn(p, x0, _linear(p["out"], m0)), _ffn(p, x1, _linear(p["out"], m1)))
+    return (_ffn(p, x0, _linear_rowshard(p["out"], m0, tp), tp),
+            _ffn(p, x1, _linear_rowshard(p["out"], m1, tp), tp))
 
 
 def cross_block_fused(p, x, b: int, lens, num_heads: int, policy: DTypePolicy,
-                      ops=attention.KERNEL_OPS):
+                      ops=attention.KERNEL_OPS, tp: Optional[TensorParallel] = None):
     """Both cross directions of a stacked [image0; image1] batch (:347-378):
     projections and FFN run once over the 2B stack."""
-    e = x.shape[-1]
     a = _linear(p["qk_v"], x)
+    e = a.shape[-1] // 2
     qk, v = a[..., :e], a[..., e:]
     m0, m1 = _cross_attend(qk[:b], qk[b:], v[:b], v[b:],
                            None if lens is None else lens[:b],
                            None if lens is None else lens[b:], policy, num_heads, ops)
-    out = _ffn(p, x, _linear(p["out"], torch.cat([m0, m1], dim=0)))
+    out = _ffn(p, x, _linear_rowshard(p["out"], torch.cat([m0, m1], dim=0), tp), tp)
     return out[:b], out[b:]
 
 
 def transformer_layer(p, d0, d1, freqs0, freqs1, lengths0, lengths1, num_heads: int,
-                      policy: DTypePolicy, ops=attention.KERNEL_OPS):
+                      policy: DTypePolicy, ops=attention.KERNEL_OPS,
+                      tp: Optional[TensorParallel] = None):
     """self(d0) -> self(d1) -> cross (:298-344). When both images share a
     bucket they are stacked on the batch axis: one self call and one cross
     call over 2B, with (2B, 2) lengths built from both images' lengths."""
@@ -243,23 +285,31 @@ def transformer_layer(p, d0, d1, freqs0, freqs1, lengths0, lengths1, num_heads: 
         b = d0.shape[0]
         lens = None if lengths0 is None else torch.cat([lengths0, lengths1], dim=0)
         x = self_block(p["self_attn"], torch.cat([d0, d1], dim=0),
-                       torch.cat([freqs0, freqs1], dim=0), lens, num_heads, policy, ops)
-        return cross_block_fused(p["cross_attn"], x, b, lens, num_heads, policy, ops)
-    d0 = self_block(p["self_attn"], d0, freqs0, lengths0, num_heads, policy, ops)
-    d1 = self_block(p["self_attn"], d1, freqs1, lengths1, num_heads, policy, ops)
-    return cross_block(p["cross_attn"], d0, d1, lengths0, lengths1, num_heads, policy, ops)
+                       torch.cat([freqs0, freqs1], dim=0), lens, num_heads, policy, ops, tp)
+        return cross_block_fused(p["cross_attn"], x, b, lens, num_heads, policy, ops, tp)
+    d0 = self_block(p["self_attn"], d0, freqs0, lengths0, num_heads, policy, ops, tp)
+    d1 = self_block(p["self_attn"], d1, freqs1, lengths1, num_heads, policy, ops, tp)
+    return cross_block(p["cross_attn"], d0, d1, lengths0, lengths1, num_heads, policy, ops, tp)
 
 
 def transformer_layers(layers, d0, d1, freqs0, freqs1, lengths0=None, lengths1=None, *,
-                       num_heads: int, policy: DTypePolicy, ops=attention.KERNEL_OPS):
+                       num_heads: int, policy: DTypePolicy, ops=attention.KERNEL_OPS,
+                       tp: Optional[TensorParallel] = None):
     """Every stacked layer on the per-block route (the ``lax.scan`` of
     :548-567). ``ops=attention.PLAIN_OPS`` runs the same loop on the
     attention kernels' plain versions. An int8 tree runs weight-only
     (``_weight``), whatever ``LGTPU_W8A8`` says, as in the JAX package."""
     for i in range(layers["self_attn"]["ln_g"].shape[0]):
         d0, d1 = transformer_layer(_layer(layers, i), d0, d1, freqs0, freqs1,
-                                   lengths0, lengths1, num_heads, policy, ops)
+                                   lengths0, lengths1, num_heads, policy, ops, tp)
     return d0, d1
+
+
+def local_heads(params, head_dim: int) -> int:
+    """The head count of a (possibly model-sharded) tree: qkv's output
+    columns over 3 x head_dim (JAX :514-516)."""
+    qkv = params["layers"]["self_attn"]["qkv"]
+    return (qkv["w_q"] if "w_q" in qkv else qkv["w"]).shape[-1] // (3 * head_dim)
 
 
 def _embed(params, kpts0, kpts1, desc0, desc1, config, policy):
@@ -284,20 +334,24 @@ def forward(
     *,
     config: LightGlueConfig,
     policy: DTypePolicy,
+    tp: Optional[TensorParallel] = None,
 ) -> LightGlueOutput:
     """Fixed-depth forward: all layers, last-layer assignment only. The
     depth/width knobs of ``config`` are not read (``forward_adaptive`` is
     the adaptive entry point, as in the JAX package).
 
     Args:
-      params: the port's LightGlue tree (runtime/weights.py:params_from_numpy).
+      params: the port's LightGlue tree (runtime/weights.py:params_from_numpy);
+        under ``tp`` one shard's slices of it (heads read from its shapes).
       kpts0/kpts1: (B, M, 2) / (B, N, 2) keypoints normalised to [-1, 1].
       desc0/desc1: (B, M, E) / (B, N, E) descriptors.
       lengths0/lengths1: optional (B,) true keypoint counts (bucketed pads).
+      tp: the model axis this shard is part of (``parallel/mesh.py``), or
+        None.
     """
     with precision_scope(policy):
         d0, d1, freqs0, freqs1 = _embed(params, kpts0, kpts1, desc0, desc1, config, policy)
-        if layer_stack.supports(params["layers"], d0.shape[1], d1.shape[1], d0.dtype):
+        if layer_stack.supports(params["layers"], d0.shape[1], d1.shape[1], d0.dtype, tp):
             d0, d1 = layer_stack.transformer_stack(
                 params["layers"], d0, d1, freqs0, freqs1, lengths0, lengths1,
                 num_heads=config.num_heads,
@@ -307,8 +361,9 @@ def forward(
             )
         else:
             d0, d1 = transformer_layers(params["layers"], d0, d1, freqs0, freqs1,
-                                        lengths0, lengths1, num_heads=config.num_heads,
-                                        policy=policy)
+                                        lengths0, lengths1,
+                                        num_heads=local_heads(params, config.head_dim),
+                                        policy=policy, tp=tp)
         scores = _last_assignment(params, d0, d1, lengths0, lengths1, kpts0.shape[1],
                                   kpts1.shape[1], config.descriptor_dim)
     return LightGlueOutput(d0, d1, scores, torch.tensor(config.n_layers))

@@ -1,4 +1,4 @@
-"""Continuous batching of image pairs with keypoint-count buckets, on one card.
+"""Continuous batching of image pairs with keypoint-count buckets.
 
 Counterpart of ``lightglue_tpu/parallel/batcher.py:ContinuousBatcher``
 (:58-188). The reference processes pairs strictly serially
@@ -13,8 +13,15 @@ Each dispatch stages its inputs in pinned host buffers (one set per bucket)
 and copies them to the card asynchronously; the graph's outputs are static
 buffers that its next replay overwrites, so the dispatch copies counts,
 indices and scores to pinned host memory and synchronises once before it
-returns. The data-parallel path over a mesh (``sharding``) waits for the
-port's ``parallel/mesh.py``.
+returns.
+
+With ``sharding=mesh`` (JAX :136-188) a dispatch runs a mesh step
+(``parallel/mesh.py``; ``mesh_match_fn`` picks one per bucket): each mesh
+entry copies its rows of the staged batch to its own device. In one process
+the results come back whole. Across processes the batchers run in lockstep,
+as in the JAX package: every process submits the same pair stream (so the
+dispatch order is the same everywhere), holds the full global batch, and
+post-processes only the rows its mesh entries own.
 """
 
 from __future__ import annotations
@@ -25,6 +32,9 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from lightglue_tpu_torch.config import PipelineConfig
+from lightglue_tpu_torch.parallel import mesh as mesh_lib
+from lightglue_tpu_torch.parallel import multihost
 from lightglue_tpu_torch.runtime.session import resolve_device
 
 
@@ -63,6 +73,22 @@ def session_match_fn(session) -> Callable:
     return match_fn
 
 
+def mesh_match_fn(mesh, config: PipelineConfig) -> Callable:
+    """``match_fn(params, kpts0, kpts1, desc0, desc1, len0, len1)`` over a
+    mesh: ``make_parallel_match_fn(mesh, config, bucket0, bucket1)`` of the
+    arrays' buckets, built at a bucket pair's first dispatch. ``params``:
+    ``shard_lightglue_params(tree, mesh)``."""
+    steps: Dict[Tuple[int, int], Callable] = {}
+
+    def match_fn(params, kpts0, kpts1, desc0, desc1, len0, len1):
+        key = (kpts0.shape[1], kpts1.shape[1])
+        if key not in steps:
+            steps[key] = mesh_lib.make_parallel_match_fn(mesh, config, *key)
+        return steps[key](params, kpts0, kpts1, desc0, desc1, len0, len1)
+
+    return match_fn
+
+
 class ContinuousBatcher:
     """Groups pairs into per-bucket batches and dispatches fixed shapes.
 
@@ -75,9 +101,13 @@ class ContinuousBatcher:
         bucket >= max(n0, n1) (one bucket for both sides keeps the number of
         runners linear, not quadratic, in the bucket count).
       batch_size: pairs per dispatch; a partial batch is padded with its
-        last pair, whose extra results are dropped.
-      sharding: a data-parallel mesh: not ported yet (``parallel/mesh.py``).
-      device: where ``match_fn`` runs (None: the card; "cpu" only when asked).
+        last pair, whose extra results are dropped. With ``sharding`` the
+        mesh's data axis must divide it.
+      sharding: a ``parallel.mesh.Mesh`` that ``match_fn`` runs on
+        (typically ``mesh_match_fn(mesh, config)``); it places the work, so
+        ``device`` is then not given.
+      device: where ``match_fn`` runs without a mesh (None: the card; "cpu"
+        only when asked).
     """
 
     def __init__(
@@ -90,14 +120,22 @@ class ContinuousBatcher:
         device: Optional[str] = None,
     ):
         if sharding is not None:
-            raise NotImplementedError(
-                "ContinuousBatcher(sharding=...): the data-parallel path needs the port's "
-                "parallel/mesh.py, which is not ported yet; the batcher runs on one card")
+            if device is not None:
+                raise ValueError("ContinuousBatcher: the mesh places a sharded batcher's work; "
+                                 "pass sharding or device, not both")
+            data = sharding.shape[mesh_lib.AXIS_DATA]
+            if batch_size % data:
+                raise ValueError(f"batch_size {batch_size} does not split over a data axis "
+                                 f"of {data}")
+            # single-process results land on the mesh's first device
+            self.device = sharding.devices[0][0]
+        else:
+            self.device = resolve_device(device)
         self.match_fn = match_fn
         self.params = params
         self.buckets = tuple(sorted(buckets))
         self.batch_size = batch_size
-        self.device = resolve_device(device)
+        self.sharding = sharding
         self.queues: Dict[int, List[_PairItem]] = {b: [] for b in self.buckets}
         self.results: List[MatchResult] = []
         self.dispatches = 0
@@ -133,7 +171,10 @@ class ContinuousBatcher:
         them finished at its synchronisation."""
         key = (bucket, dim)
         if key not in self._staging:
-            b, pin = self.batch_size, self.device.type == "cuda"
+            b = self.batch_size
+            devices = ([d for row in self.sharding.devices for d in row]
+                       if self.sharding is not None else [self.device])
+            pin = any(d.type == "cuda" for d in devices)
             shapes = [((b, bucket, 2), torch.float32)] * 2 + [((b, bucket, dim), torch.float32)] * 2
             shapes += [((b,), torch.int32)] * 2
             self._staging[key] = [torch.empty(s, dtype=dt, pin_memory=pin) for s, dt in shapes]
@@ -158,11 +199,24 @@ class ContinuousBatcher:
             desc0[i, : it.n0] = it.desc0
             desc1[i, : it.n1] = it.desc1
             len0[i], len1[i] = it.n0, it.n1
-        arrays = [t.to(self.device, non_blocking=True) for t in host]
+        if self.sharding is None:
+            arrays = [t.to(self.device, non_blocking=True) for t in host]
+        else:  # each mesh entry copies its own rows to its device
+            arrays = host
         with torch.inference_mode():
             _, matches = self.match_fn(self.params, *arrays)
         self.dispatches += 1
 
+        if self.sharding is not None and multihost.is_multiprocess():
+            # lockstep: each process post-processes the rows its entries own
+            counts, indices, scores = (x.rows() for x in
+                                       (matches.count, matches.indices, matches.scores))
+            for i in range(real):
+                if i in counts:
+                    c = int(counts[i])
+                    self.results.append(
+                        MatchResult(items[i].pair_id, indices[i][:c], scores[i][:c]))
+            return
         counts, indices, scores = self._fetch(matches.count, matches.indices, matches.scores)
         for i in range(real):
             c = int(counts[i])

@@ -1,6 +1,7 @@
 """Port parallel/batcher.py:ContinuousBatcher (one device) against the JAX
 ContinuousBatcher on the JAX session, and against the port's own per-pair
-match_from_extractions."""
+match_from_extractions; the sharded batcher over a ``[cpu] * 2`` mesh
+against the single-device one."""
 
 import numpy as np
 import pytest
@@ -14,7 +15,8 @@ from lightglue_tpu.precision import Precision as JPrecision
 from lightglue_tpu.runtime import weights as jax_weights
 from lightglue_tpu.runtime.session import MatcherSession as JaxSession
 from lightglue_tpu_torch.config import LightGlueConfig, PipelineConfig, SuperPointConfig
-from lightglue_tpu_torch.parallel.batcher import ContinuousBatcher, session_match_fn
+from lightglue_tpu_torch.parallel import mesh
+from lightglue_tpu_torch.parallel.batcher import ContinuousBatcher, mesh_match_fn, session_match_fn
 from lightglue_tpu_torch.pipeline.extract import Extraction
 from lightglue_tpu_torch.precision import Precision
 from lightglue_tpu_torch.runtime.session import MatcherSession
@@ -123,10 +125,38 @@ def test_results_equal_per_pair_match(sessions, pairs, results):
         np.testing.assert_array_equal(got[i].scores, m.scores[0, :c].numpy())
 
 
+@pytest.mark.parametrize("data,model", [(2, 1), (1, 2)])
+def test_sharded_batcher_equals_single_device(sessions, pairs, results, data, model):
+    """ContinuousBatcher(sharding=mesh) over [cpu] * 2 on the session's
+    weights: the same dispatches as the single-device batcher, and each
+    pair's matches equal (data parallel: the same rows bit for bit; tensor
+    parallel: scores at fp32 1e-5, the order of the partial sums)."""
+    _, session = sessions
+    _, (want, log, single) = results
+    m = mesh.make_mesh(data, model, devices=[torch.device("cpu")] * 2)
+    sharded_log = []
+    batcher = ContinuousBatcher(_logged(mesh_match_fn(m, session.config), sharded_log),
+                                mesh.shard_lightglue_params(session.lg_params, m),
+                                buckets=BUCKETS, batch_size=BATCH, sharding=m)
+    got = _run(batcher, pairs)
+    assert sharded_log == log and batcher.dispatches == single.dispatches
+    assert batcher.device == torch.device("cpu")
+    for i in range(len(COUNTS)):
+        assert np.array_equal(got[i].indices, want[i].indices), i
+        if model == 1:
+            assert np.array_equal(got[i].scores, want[i].scores), i
+        else:
+            np.testing.assert_allclose(got[i].scores, want[i].scores, atol=1e-5, rtol=1e-5)
+
+
 def test_batcher_rules(sessions, monkeypatch):
     _, session = sessions
-    with pytest.raises(NotImplementedError, match="parallel/mesh.py"):
-        ContinuousBatcher(session_match_fn(session), session.lg_params, sharding=object(),
+    m = mesh.make_mesh(2, 1, devices=[torch.device("cpu")] * 2)
+    with pytest.raises(ValueError, match="does not split"):
+        ContinuousBatcher(mesh_match_fn(m, session.config), session.lg_params, batch_size=3,
+                          sharding=m)
+    with pytest.raises(ValueError, match="not both"):
+        ContinuousBatcher(mesh_match_fn(m, session.config), session.lg_params, sharding=m,
                           device="cpu")
     with pytest.raises(ValueError, match="session.lg_params"):
         session_match_fn(session)({}, *(np.zeros((1, 128, 2)),) * 6)
