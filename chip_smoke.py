@@ -175,6 +175,21 @@ wrappers' counts per call:
    processes at 1 x 2, a sharded ``ContinuousBatcher`` in lockstep against
    a single-device one); NCCL at world size 1. It prints a
    {"parallel": ...} line before the kernels line.
+10. Exported programs (``aot_checks``, ``runtime/aot.py``): on ``cuda:0``
+   the extraction at 480x640 and the match step at the 1024 diagonal (BF16,
+   W8A8, FP32, adaptive exit 3, the pruning downshift as its split
+   directory) and at the 2048 bucket are exported with ``torch.export`` (no
+   wrapper count moves); a fresh process with an empty kernel cache loads
+   the BF16 program and calls it once (cold start: one build), and another
+   on this process's kernel directory (no build) loads every program and
+   runs it on the inputs saved here (``chip_smoke.py --aot-load``,
+   ``aot_worker``: it imports nothing of the package but ``runtime.aot``):
+   every output bit for bit the session's eager body on the same inputs,
+   the launches per wrapper, by the wrappers' counts and from profiler
+   traces by kernel name, equal to the eager call's. It prints an
+   {"aot": ...} line (export s, cold and warm start, the loaded BF16 match
+   step's ms a pair beside the session's graph and eager) before the
+   kernels line.
 
 It ends with a ``{"kernels": [...]}`` line (all ten Pallas functions, a
 row per FP32 / MIXED / INT8 / W8A8 instantiation (the fp32 step's launches
@@ -286,6 +301,22 @@ def cuda_ms(fn, reps=10, inner=10):
     ms = statistics.median(s.elapsed_time(e) for s, e in events) / inner
     del graph
     return ms
+
+
+def host_ms(fn, reps=10):
+    """Median host-clock ms of ``fn()`` ending in a synchronise, after one
+    warm call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
 
 
 def eager_ms(fn, reps=10):
@@ -4006,15 +4037,7 @@ def tp_attention_checks(at, dev, fp32_scope, ents):
 def par_step_ms(step, params, args):
     """Median host-clock ms of one eager mesh step over 10 calls, each ending
     in a synchronise (after one warm call)."""
-    import torch
-
-    times = []
-    for _ in range(11):
-        t = time.perf_counter()
-        step(params, *args)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t) * 1e3)
-    return statistics.median(times[1:])
+    return host_ms(lambda: step(params, *args))
 
 
 def parallel_rank(rank, port, inputs, queue):
@@ -4482,6 +4505,237 @@ def ring_int8(at, counters, img0, img1):
         f"{len(mk & mp) / max(1, len(mk | mp)):.4f}")
 
 
+# ---- phase 10: exported programs reloaded in a fresh process ---------------
+
+AOT_DIR = ROOT / "build" / "aot_smoke"  # under build/, which git ignores
+
+
+def aot_configs(weights):
+    """Phase 10's match programs: (label, PipelineConfig, LightGlue weights
+    or None for the seed's, LGTPU_W8A8, bucket); each is exported at the
+    bucket's diagonal, batch 1."""
+    import dataclasses
+
+    from lightglue_tpu_torch.config import LightGlueConfig, PipelineConfig
+    from lightglue_tpu_torch.precision import Precision
+
+    base = weights.init_lightglue(0, LightGlueConfig())
+    adaptive = PipelineConfig(lightglue=LightGlueConfig(depth_confidence=0.95,
+                                                        width_confidence=0.99))
+    downshift = PipelineConfig(lightglue=LightGlueConfig(depth_confidence=0.95,
+                                                         width_confidence=0.99, downshift_layer=4))
+    default = PipelineConfig()
+    return [("BF16 fixed depth", default, None, False, BUCKET),
+            ("W8A8 fixed depth", dataclasses.replace(default, precision=Precision.INT8), None,
+             True, BUCKET),
+            ("FP32 fixed depth", dataclasses.replace(default, precision=Precision.FP32), None,
+             False, BUCKET),
+            ("BF16 adaptive exit 3", adaptive, pinned_exit_weights(base, 3), False, BUCKET),
+            ("BF16 adaptive pruning, downshift 4", downshift, prune_weights(base), False, BUCKET),
+            ("BF16 2048-keypoint", pb_configs()["2048-keypoint"], None, False, PB_BUCKET)]
+
+
+def same_tree(label, got, want):
+    """Two outputs equal bit for bit: the same structure and types (the
+    namedtuples by name), every tensor of the same dtype and shape with
+    equal bytes."""
+    import torch
+    import torch.utils._pytree as pytree
+
+    gl, gs = pytree.tree_flatten(got)
+    wl, ws = pytree.tree_flatten(want)
+    names = [type(t).__name__ for t in (got if isinstance(got, tuple) else (got,))]
+    want_names = [type(t).__name__ for t in (want if isinstance(want, tuple) else (want,))]
+    if str(gs) != str(ws) or names != want_names:
+        raise AssertionError(f"{label}: output structure {names} {gs} != {want_names} {ws}")
+    for i, (g, w) in enumerate(zip(gl, wl)):
+        if g.dtype != w.dtype or g.shape != w.shape or not g.reshape(-1).view(
+                torch.uint8).equal(w.reshape(-1).view(torch.uint8)):
+            raise AssertionError(f"{label}: output leaf {i} ({g.dtype} {tuple(g.shape)}) differs "
+                                 "from the eager body's")
+
+
+def aot_checks(weights, img0, img1, counters):
+    """Phase 10, ``runtime/aot.py`` on the card: on ``cuda:0`` the extraction
+    at 480x640 and the match at the diagonal of each ``aot_configs`` row are
+    exported into ``AOT_DIR`` (no wrapper count moves during an export: it
+    traces the fake implementations); then a fresh process with an empty
+    kernel cache loads the BF16 program and calls it once (cold start: build,
+    load, first call), and another, on the kernel directory this process
+    loaded from, loads every program and runs it on the inputs saved here
+    (``aot_worker``, which imports nothing of the package but
+    ``runtime.aot``). Every output equals the session's eager body on the
+    same inputs bit for bit; the loaded program's launches, counted by the
+    wrappers and from profiler traces by kernel name, equal the eager call's
+    wrapper counts; the warm process builds nothing. Prints an {"aot": ...}
+    line: export seconds per program, cold and warm start, and ms a pair of
+    the loaded BF16 program beside the session's graph and eager bodies."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.utils._pytree as pytree
+
+    from lightglue_tpu_torch.kernels import _build
+    from lightglue_tpu_torch.runtime import aot
+    from lightglue_tpu_torch.runtime.session import MatcherSession
+
+    shutil.rmtree(AOT_DIR, ignore_errors=True)
+    AOT_DIR.mkdir(parents=True)
+    summary = {"export_s": {}, "eager_launches": {}}
+    specs = []
+
+    def counted(label, fn):
+        for c in counters:
+            c.launches = 0
+        with torch.inference_mode():
+            out = fn()
+        torch.cuda.synchronize()
+        summary["eager_launches"][label] = {c.__name__: c.launches for c in counters
+                                            if c.launches}
+        return pytree.tree_map_only(torch.Tensor, lambda t: t.cpu(), out)
+
+    def exported(label, export):
+        before = [c.launches for c in counters]
+        t = time.perf_counter()
+        path = export()
+        summary["export_s"][label] = round(time.perf_counter() - t, 3)
+        if [c.launches for c in counters] != before:
+            raise AssertionError(f"{label}: the export moved a wrapper's launch count")
+        return path
+
+    wants = {}
+    ext_label = "BF16 extraction {}x{}".format(*img0.shape[:2])
+    for label, cfg, tree, w8, bucket in aot_configs(weights):
+        slug = label.lower().replace(" ", "_").replace(",", "")
+        log(f"export the match step, {label}, {bucket}x{bucket}, batch 1")
+        with w8a8_env(w8):
+            session = MatcherSession(lg_params=tree, config=cfg, device="cuda")
+            ext = session.extract(np.stack([img0, img1]))
+            inputs = tuple(t.contiguous() for t in (
+                ext.keypoints_norm[:1, :bucket], ext.keypoints_norm[1:, :bucket],
+                ext.descriptors[:1, :bucket], ext.descriptors[1:, :bucket], ext.count[:1],
+                ext.count[1:]))
+            path = exported(label, lambda: aot.export_matcher(
+                session, str(AOT_DIR / slug), pairs=[(bucket, bucket)])[(bucket, bucket)])
+            wants[label] = counted(label, lambda: session._match_eager(False, *inputs))
+            specs.append(dict(label=label, path=path, inputs=str(AOT_DIR / f"{slug}.in.pt")))
+            torch.save((session.lg_params, *inputs), specs[-1]["inputs"])
+            if label == "BF16 fixed depth":  # the session's runner of this key and its body
+                with torch.inference_mode():
+                    run = session._match_fn(bucket, bucket, False, 1)
+                    summary["session_graph_ms"] = host_ms(lambda: run(*inputs))
+                    summary["session_eager_ms"] = host_ms(
+                        lambda: session._match_eager(False, *inputs))
+                ext_path = exported(ext_label, lambda: aot.export_extractor(
+                    session, str(AOT_DIR / slug), img0.shape[:2]))
+                image = torch.from_numpy(img0[None]).cuda()
+                wants[ext_label] = counted(ext_label, lambda: session._extract_eager(image))
+                specs.append(dict(label=ext_label, path=ext_path,
+                                  inputs=str(AOT_DIR / "extract.in.pt")))
+                torch.save((session.sp_params, image), specs[-1]["inputs"])
+        log(f"  {summary['export_s'][label]:.2f} s; eager launches "
+            f"{summary['eager_launches'][label]}")
+        del session
+    for spec in specs:
+        spec["want"] = summary["eager_launches"][spec["label"]]
+        spec["out"] = str(AOT_DIR / (Path(spec["inputs"]).stem + ".out.pt"))
+
+    def worker(mode, kernel_dir):
+        spec_path = AOT_DIR / f"{mode}.json"
+        spec_path.write_text(json.dumps(dict(kernel_dir=str(kernel_dir), programs=specs)))
+        t = time.perf_counter()
+        out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--aot-load",
+                              str(spec_path), mode], capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t
+        if out.returncode:
+            raise AssertionError(f"aot worker ({mode}) failed:\n{out.stdout[-4000:]}\n"
+                                 f"{out.stderr[-4000:]}")
+        report = json.loads(out.stdout.strip().splitlines()[-1])
+        report["process_s"] = round(wall, 3)
+        return report
+
+    log("a fresh process, empty kernel cache: import runtime.aot, load the BF16 program, "
+        "one call (cold start)")
+    cold = worker("cold", AOT_DIR / "kernels_cold")
+    if cold["builds"] != 1:
+        raise AssertionError(f"cold start ran {cold['builds']} builds, want 1")
+    log(f"  {cold}")
+    log(f"a fresh process on this process's kernel directory ({_build.BUILD_DIR}): every "
+        "program loaded and run on the saved inputs (warm start)")
+    warm = worker("warm", _build.BUILD_DIR)
+    if warm["builds"] != 0:
+        raise AssertionError(f"the warm process ran {warm['builds']} builds")
+    for spec in specs:
+        label = spec["label"]
+        got = torch.load(spec["out"], weights_only=False)
+        same_tree(f"loaded {label}", got, wants[label])
+        counts, traced_counts = warm["programs"][label]
+        if counts != spec["want"]:
+            raise AssertionError(f"loaded {label}: wrapper launches {counts}, eager {spec['want']}")
+        hold_launches(f"loaded {label}", traced_counts, spec["want"])
+        log(f"  loaded {label}: bit for bit the eager body; launches {counts} (traced equal)")
+    summary.update(cold_start={k: v for k, v in cold.items() if k != "programs"},
+                   warm_start={k: v for k, v in warm.items() if k != "programs"})
+    log(f"  BF16 match step at {BUCKET}x{BUCKET}, ms a pair: loaded program "
+        f"{warm['loaded_ms']:.3f}, session graph {summary['session_graph_ms']:.3f}, session "
+        f"eager {summary['session_eager_ms']:.3f}")
+    log(json.dumps({"aot": summary}))
+
+
+def aot_worker(spec_path: str, mode: str) -> int:
+    """``aot_checks``' fresh process: imports nothing of the package but
+    ``runtime.aot``, points its kernel cache at the spec's directory, loads
+    the programs and runs each on its saved inputs. ``cold``: the first
+    program only, one call. ``warm``: every program, its outputs saved, its
+    launches counted by the wrappers and from profiler traces, the BF16
+    program's ms a pair. Prints one JSON line."""
+    t0 = time.perf_counter()
+    import torch
+    import torch.utils._pytree as pytree
+
+    if any(m.startswith("lightglue_tpu") for m in sys.modules):
+        raise AssertionError("the worker found the package imported before runtime.aot")
+    from lightglue_tpu_torch.runtime import aot
+
+    report = dict(import_s=round(time.perf_counter() - t0, 3))
+    spec = json.loads(Path(spec_path).read_text())
+    counters = (aot.stem.relu_conv1a_shift, aot.conv.conv3x3, aot.conv_chain.conv2_chain,
+                aot.nms.nms_candidates, aot.layer_stack.linear, aot.layer_stack.row_quant,
+                aot.layer_stack.attention, aot.layer_stack.ln_gelu,
+                aot.layer_stack.adaptive_decide, aot.attention.fused_mha,
+                aot.attention.bidirectional_cross_attention, aot.attention.flash_attention,
+                aot.attention.flash_attention_step)
+    aot.enable_compile_cache(spec["kernel_dir"])
+    programs = spec["programs"] if mode == "warm" else [
+        p for p in spec["programs"] if p["label"] == "BF16 fixed depth"]
+    report["programs"] = {}
+    for i, program in enumerate(programs):
+        t = time.perf_counter()
+        call = aot.load_exported(program["path"])
+        args = torch.load(program["inputs"], weights_only=False)
+        load_s = time.perf_counter() - t
+        for c in counters:
+            c.launches = 0
+        t = time.perf_counter()
+        out = call(*args)
+        torch.cuda.synchronize()
+        if i == 0:  # this process's start: import, load, first call (a build where cold)
+            report.update(load_s=round(load_s, 3), first_call_s=round(time.perf_counter() - t, 3),
+                          start_s=round(time.perf_counter() - t0, 3))
+        counts = {c.__name__: c.launches for c in counters if c.launches}
+        if mode == "cold":
+            break
+        torch.save(pytree.tree_map_only(torch.Tensor, lambda x: x.cpu(), out), program["out"])
+        _, traced_counts = traced(lambda: call(*args), TRACES, program["want"])
+        report["programs"][program["label"]] = (counts, traced_counts)
+        if program["label"] == "BF16 fixed depth":
+            report["loaded_ms"] = host_ms(lambda: call(*args))
+    report["builds"] = aot._build.builds
+    print(json.dumps(report), flush=True)
+    return 0
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4942,6 +5196,10 @@ def main() -> int:
     parallel_checks(at, counters + [at.fused_mha, at.bidirectional_cross_attention], fp32_scope,
                     tp_ents)
 
+    # ---- exported programs reloaded in a fresh process -------------------------
+    aot_checks(weights, img0, img1, counters + [ls.row_quant, ls.adaptive_decide, at.fused_mha,
+                                                at.bidirectional_cross_attention])
+
     log("the FP32 rows' products at three TF32 products each (495 TFLOP/s dense; their "
         "bound) and on the fp32 FMA units (67 TFLOP/s), per match_pair (flash_attention: per "
         "call; the step: per forward_ring)")
@@ -4962,4 +5220,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--aot-load"]:  # phase 10's fresh process
+        sys.exit(aot_worker(*sys.argv[2:4]))
     sys.exit(main())

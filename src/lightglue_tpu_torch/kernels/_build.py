@@ -6,9 +6,20 @@ Each source compiles in its own ``nvcc`` process, all started together, and
 the objects link once. The library is cached in ``build/torch_kernels/`` at
 the root of the checkout under a hash of the sources, so a checkout builds
 at its first kernel launch and an unchanged checkout reuses the library.
+``runtime/aot.py:enable_compile_cache`` points the cache elsewhere, so a
+process that finds the library there loads it without running ``nvcc``;
+``builds`` counts the builds this process ran.
 
-Nothing here runs at import: the CPU tests import every module, and this
-machine class has no ``nvcc``.
+Every kernel wrapper is also an operator of the ``lightglue_tpu_torch``
+namespace (``define_op``): a CUDA implementation (its launch), a CPU one
+(its plain PyTorch version) and a fake one (output shapes, dtypes and
+devices; it launches nothing), so that ``torch.export`` traces the port and
+an exported program names the hand-written kernels. A wrapper called on
+real tensors outside a trace runs the same two implementations without the
+dispatcher; inside a trace it calls the operator (``run``).
+
+Nothing here compiles or loads at import: the CPU tests import every
+module, and this machine class has no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -21,6 +32,9 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
+from typing import Callable
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # the package runs from a checkout's src/ tree: <root>/src/lightglue_tpu_torch
@@ -87,7 +101,9 @@ _SIGNATURES = {
 MAX_DYNAMIC_SMEM = 232_448
 
 _lib = None
+_lib_dir = None  # the directory the loaded library came from
 _lib_lock = threading.Lock()  # a tensor-parallel step's shard threads may load it at once
+builds = 0  # nvcc builds this process ran (a warm cache runs none)
 
 
 def _nvcc() -> str:
@@ -116,10 +132,12 @@ def source_digest() -> str:
 
 def build() -> Path:
     """Compile csrc/ into the cached library (if missing) and return its path."""
+    global builds
     target = BUILD_DIR / f"liblg_torch_{source_digest()}.so"
     if target.exists():
         return target
     nvcc = _nvcc()
+    builds += 1
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
@@ -153,16 +171,17 @@ def build() -> Path:
 
 def lib() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
-    global _lib
+    global _lib, _lib_dir
     if _lib is None:
         with _lib_lock:
             if _lib is None:
-                handle = ctypes.CDLL(str(build()))
+                path = build()
+                handle = ctypes.CDLL(str(path))
                 for name, argtypes in _SIGNATURES.items():
                     fn = getattr(handle, name)
                     fn.argtypes = argtypes
                     fn.restype = ctypes.c_int
-                _lib = handle
+                _lib, _lib_dir = handle, path.parent.resolve()
     return _lib
 
 
@@ -170,3 +189,49 @@ def check(err: int, name: str) -> None:
     """Raise if a launch returned a CUDA error (refused launches never run)."""
     if err:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
+
+
+# ---------------------------------------------------------------------------
+# the operators: one library of the namespace, every kernel module defines
+# its wrappers' operators in it
+# ---------------------------------------------------------------------------
+
+NAMESPACE = "lightglue_tpu_torch"
+OPS = torch.library.Library(NAMESPACE, "DEF")
+
+
+def define_op(schema: str, *, cpu: Callable, cuda: Callable, fake: Callable):
+    """Define ``lightglue_tpu_torch::<schema>`` with its CPU (plain), CUDA
+    (launch) and fake implementations; returns the operator's overload."""
+    name = schema.split("(", 1)[0]
+    OPS.define(schema)
+    OPS.impl(name, cpu, "CPU")
+    OPS.impl(name, cuda, "CUDA")
+    torch.library.register_fake(f"{NAMESPACE}::{name}", fake, lib=OPS)
+    return getattr(getattr(torch.ops, NAMESPACE), name).default
+
+
+def run(op, cpu: Callable, cuda: Callable, *args):
+    """``op(*args)`` as a wrapper calls it. Given a plain tensor first,
+    outside any trace (no dispatch mode, no compile), it runs the
+    implementation itself, without the dispatcher: the plain version on a
+    CPU tensor, the launch on any other (a meta tensor reaches its checks).
+    Inside a trace (``torch.export``'s fake and functional tensors,
+    ``make_fx``, ``torch.compile``) it calls the operator, so the trace
+    records it. A CUDA graph capture takes the direct path, which records
+    the launch. The first argument is a plain tensor while a trace runs
+    under ``torch.jit.trace`` and functorch's transforms (``vmap``, ``grad``:
+    their wrapped tensors are plain to Python); neither traces the port.
+
+    Why not always the operator: on an H100's host the dispatcher adds about
+    10 us to a ``linear`` call, 18 to an ``attention`` call and 6 to an
+    ``ln_gelu`` call (medians of 10), which is 4.1 ms a BF16 pair eager
+    (25.4 against 21.4 ms) and 2.4 ms a pair on the 4 x 1 mesh step (17.4
+    against 15.0), each outside the spread of the tree without operators;
+    a graph replay runs no Python either way (``scripts/
+    tune_torch_dispatch.py``, PERF.md section 6)."""
+    t = args[0]
+    if (type(t) is torch.Tensor and not torch._C._len_torch_dispatch_stack()
+            and not torch.compiler.is_compiling()):
+        return (cpu if t.is_cpu else cuda)(*args)
+    return op(*args)

@@ -22,8 +22,10 @@ Counterpart of ``lightglue_tpu/kernels/attention.py``:
 - ``reference_attention`` (:1012): the naive fp32 oracle, for tests.
 
 Each wrapper launches its kernel on a CUDA tensor and runs its plain
-PyTorch version (``*_plain``) on a CPU tensor; an unsupported shape raises
-the JAX package's ``ValueError`` on either. Rounding follows the Pallas
+PyTorch version (``*_plain``) on a CPU tensor; both are the implementations
+of the wrapper's operator in the ``lightglue_tpu_torch`` namespace
+(``_build.define_op``), which ``torch.export`` records. An unsupported
+shape raises the JAX package's ``ValueError`` on either. Rounding follows the Pallas
 kernels' points; with ``stat_dtype`` bf16 every ``_quant`` of the reference
 is a round trip through bf16. On the card the output takes the operands'
 type, or fp32 beside bf16 operands (the MIXED rung: bf16 operands, fp32
@@ -283,10 +285,29 @@ def fused_mha(q, k, v, freqs=None, lengths=None, *, num_heads: int,
     Returns:
       (B, Nq, H*D) in ``out_dtype`` (default q's).
     """
-    if q.device.type == "cpu":
-        return fused_mha_plain(q, k, v, freqs, lengths, num_heads=num_heads, scale=scale,
-                               stat_dtype=stat_dtype, out_dtype=out_dtype,
-                               block_q=block_q, block_k=block_k)
+    return _build.run(_FUSED_MHA, _fused_mha_cpu, _fused_mha_cuda, q, k, v, freqs, lengths,
+                      num_heads, _scale_arg(scale), stat_dtype, out_dtype, block_q, block_k)
+
+
+def _scale_arg(scale) -> Optional[float]:
+    return None if scale is None else float(scale)
+
+
+def _fused_mha_cpu(q, k, v, freqs, lengths, num_heads, scale, stat_dtype, out_dtype, block_q,
+                   block_k):
+    return fused_mha_plain(q, k, v, freqs, lengths, num_heads=num_heads, scale=scale,
+                           stat_dtype=stat_dtype, out_dtype=out_dtype, block_q=block_q,
+                           block_k=block_k)
+
+
+def _fused_mha_fake(q, k, v, freqs, lengths, num_heads, scale, stat_dtype, out_dtype, block_q,
+                    block_k):
+    return q.new_empty(q.shape, dtype=out_dtype or q.dtype)
+
+
+def _fused_mha_cuda(q, k, v, freqs, lengths, num_heads, scale, stat_dtype, out_dtype, block_q,
+                    block_k):
+    """``fused_mha``'s CUDA implementation: checks, then one launch."""
     batch, nq, nk, head_dim, block_k = _fused_mha_shapes(q, k, v, freqs, num_heads,
                                                          block_q, block_k)
     mode = _card_checks("fused_mha", q.dtype, out_dtype, stat_dtype, head_dim, (q, k, v))
@@ -315,6 +336,11 @@ def fused_mha(q, k, v, freqs=None, lengths=None, *, num_heads: int,
     return out
 
 
+_FUSED_MHA = _build.define_op(
+    "fused_mha(Tensor q, Tensor k, Tensor v, Tensor? freqs, Tensor? lengths, int num_heads, "
+    "float? scale, ScalarType stat_dtype, ScalarType? out_dtype, int block_q, int block_k) "
+    "-> Tensor",
+    cpu=_fused_mha_cpu, cuda=_fused_mha_cuda, fake=_fused_mha_fake)
 fused_mha.launches = 0
 
 
@@ -359,9 +385,21 @@ def flash_attention(q, k, v, lengths=None, *, scale: Optional[float] = None,
     Returns:
       (B, H, Nq, D) in ``out_dtype`` (default q's).
     """
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, lengths, scale=scale, stat_dtype=stat_dtype,
-                                     out_dtype=out_dtype, block_q=block_q, block_k=block_k)
+    return _build.run(_FLASH, _flash_attention_cpu, _flash_attention_cuda, q, k, v, lengths,
+                      _scale_arg(scale), stat_dtype, out_dtype, block_q, block_k)
+
+
+def _flash_attention_cpu(q, k, v, lengths, scale, stat_dtype, out_dtype, block_q, block_k):
+    return flash_attention_plain(q, k, v, lengths, scale=scale, stat_dtype=stat_dtype,
+                                 out_dtype=out_dtype, block_q=block_q, block_k=block_k)
+
+
+def _flash_attention_fake(q, k, v, lengths, scale, stat_dtype, out_dtype, block_q, block_k):
+    return q.new_empty(q.shape, dtype=out_dtype or q.dtype)
+
+
+def _flash_attention_cuda(q, k, v, lengths, scale, stat_dtype, out_dtype, block_q, block_k):
+    """``flash_attention``'s CUDA implementation: checks, then one launch."""
     batch, heads, nq, nk, head_dim, block_k = _flash_shapes(q, k, v, block_q, block_k)
     mode = _card_checks("flash_attention", q.dtype, out_dtype, stat_dtype, head_dim, (q, k, v))
     plan = _flash_launch("flash_attention", q.dtype, batch, heads, nq, block_k)
@@ -381,6 +419,10 @@ def flash_attention(q, k, v, lengths=None, *, scale: Optional[float] = None,
     return out
 
 
+_FLASH = _build.define_op(
+    "flash_attention(Tensor q, Tensor k, Tensor v, Tensor? lengths, float? scale, "
+    "ScalarType stat_dtype, ScalarType? out_dtype, int block_q, int block_k) -> Tensor",
+    cpu=_flash_attention_cpu, cuda=_flash_attention_cuda, fake=_flash_attention_fake)
 flash_attention.launches = 0
 
 
@@ -456,10 +498,23 @@ def flash_attention_step(q, k, v, m, l, acc, lengths=None, row0: Optional[int] =
       (m', l', acc') fp32. Finalise with acc / where(l == 0, 1, l) and the
       row mask (``parallel/ring.py``).
     """
-    if q.device.type == "cpu":
-        return flash_attention_step_plain(q, k, v, m, l, acc, lengths, row0, col0, scale=scale,
-                                          stat_dtype=stat_dtype, block_q=block_q,
-                                          block_k=block_k)
+    return _build.run(_STEP, _step_cpu, _step_cuda, q, k, v, m, l, acc, lengths,
+                      None if row0 is None else int(row0), None if col0 is None else int(col0),
+                      _scale_arg(scale), stat_dtype, block_q, block_k)
+
+
+def _step_cpu(q, k, v, m, l, acc, lengths, row0, col0, scale, stat_dtype, block_q, block_k):
+    return flash_attention_step_plain(q, k, v, m, l, acc, lengths, row0, col0, scale=scale,
+                                      stat_dtype=stat_dtype, block_q=block_q, block_k=block_k)
+
+
+def _step_fake(q, k, v, m, l, acc, lengths, row0, col0, scale, stat_dtype, block_q, block_k):
+    return tuple(t.new_empty(t.shape, dtype=torch.float32) for t in (m, l, acc))
+
+
+def _step_cuda(q, k, v, m, l, acc, lengths, row0, col0, scale, stat_dtype, block_q, block_k):
+    """``flash_attention_step``'s CUDA implementation: checks, then one
+    launch."""
     batch, heads, n, nk, head_dim, block_q, block_k = _step_shapes(q, k, v, m, l, acc,
                                                                    block_q, block_k)
     mode = _card_checks("flash_attention_step", q.dtype, None, stat_dtype, head_dim, (q, k, v))
@@ -484,6 +539,11 @@ def flash_attention_step(q, k, v, m, l, acc, lengths=None, row0: Optional[int] =
     return outs
 
 
+_STEP = _build.define_op(
+    "flash_attention_step(Tensor q, Tensor k, Tensor v, Tensor m, Tensor l, Tensor acc, "
+    "Tensor? lengths, int? row0, int? col0, float? scale, ScalarType stat_dtype, int block_q, "
+    "int block_k) -> (Tensor, Tensor, Tensor)",
+    cpu=_step_cpu, cuda=_step_cuda, fake=_step_fake)
 flash_attention_step.launches = 0
 
 
@@ -558,10 +618,24 @@ def bidirectional_cross_attention(qk0, qk1, v0, v1, lengths=None, *, num_heads: 
     Returns:
       (O0 (B, N0, H*D), O1 (B, N1, H*D)) in ``out_dtype`` (default qk0's).
     """
-    if qk0.device.type == "cpu":
-        return bidirectional_cross_attention_plain(
-            qk0, qk1, v0, v1, lengths, num_heads=num_heads, scale=scale,
-            stat_dtype=stat_dtype, out_dtype=out_dtype)
+    return _build.run(_BIDIR, _bidir_cpu, _bidir_cuda, qk0, qk1, v0, v1, lengths, num_heads,
+                      _scale_arg(scale), stat_dtype, out_dtype)
+
+
+def _bidir_cpu(qk0, qk1, v0, v1, lengths, num_heads, scale, stat_dtype, out_dtype):
+    return bidirectional_cross_attention_plain(qk0, qk1, v0, v1, lengths, num_heads=num_heads,
+                                               scale=scale, stat_dtype=stat_dtype,
+                                               out_dtype=out_dtype)
+
+
+def _bidir_fake(qk0, qk1, v0, v1, lengths, num_heads, scale, stat_dtype, out_dtype):
+    dt = out_dtype or qk0.dtype
+    return qk0.new_empty(qk0.shape, dtype=dt), qk0.new_empty(qk1.shape, dtype=dt)
+
+
+def _bidir_cuda(qk0, qk1, v0, v1, lengths, num_heads, scale, stat_dtype, out_dtype):
+    """``bidirectional_cross_attention``'s CUDA implementation: checks, then
+    one launch."""
     batch, n0, n1, head_dim = _bidir_shapes(qk0, qk1, v0, v1, num_heads)
     mode = _card_checks("bidirectional_cross_attention", qk0.dtype, out_dtype, stat_dtype,
                         head_dim, (qk0, qk1, v0, v1))
@@ -583,6 +657,11 @@ def bidirectional_cross_attention(qk0, qk1, v0, v1, lengths=None, *, num_heads: 
     return o0, o1
 
 
+_BIDIR = _build.define_op(
+    "bidirectional_cross_attention(Tensor qk0, Tensor qk1, Tensor v0, Tensor v1, "
+    "Tensor? lengths, int num_heads, float? scale, ScalarType stat_dtype, "
+    "ScalarType? out_dtype) -> (Tensor, Tensor)",
+    cpu=_bidir_cpu, cuda=_bidir_cuda, fake=_bidir_fake)
 bidirectional_cross_attention.launches = 0
 
 

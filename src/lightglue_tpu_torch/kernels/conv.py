@@ -26,6 +26,8 @@ two TF32 values, three ``mma.sync`` products per step, about fp32's
 precision): the model's 64 -> 64 ReLU calls (the MIXED and FP32 rungs) on
 16x16 tiles, every other call with K streamed in 8-channel chunks over
 12x16 tiles (``conv_plan``). On a CPU tensor it runs ``conv3x3_plain``.
+Both are the implementations of the operator ``lightglue_tpu_torch::conv3x3``
+(``_build.define_op``).
 """
 
 from __future__ import annotations
@@ -121,19 +123,9 @@ def conv3x3_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, pool: bool 
     return out.permute(0, 2, 3, 1).to(out_dtype or x.dtype).contiguous()
 
 
-def conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, pool: bool = False, *,
-            relu: bool = True, out_dtype=None) -> torch.Tensor:
-    """SAME 3x3 conv + bias [+ ReLU] [+ 2x2 max-pool] on NHWC activations.
-
-    Args:
-      x: (B, H, W, C_in) fp32 or bf16, contiguous; H and W even when ``pool``.
-      w: (3, 3, C_in, C_out) HWIO in x's dtype; C_in, C_out multiples of 8.
-      b: (C_out,), applied in fp32.
-      out_dtype: fp32 or bf16 (default x's dtype).
-    Returns (B, H, W, C_out), or (B, H/2, W/2, C_out) with ``pool``.
-    """
-    if x.device.type == "cpu":
-        return conv3x3_plain(x, w, b, pool, relu=relu, out_dtype=out_dtype)
+def _conv3x3_cuda(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, pool: bool, relu: bool,
+                  out_dtype) -> torch.Tensor:
+    """The operator's CUDA implementation: checks, then one launch."""
     bsz, h, wd, cin = x.shape
     cout = w.shape[-1]
     out_dtype = out_dtype or x.dtype
@@ -161,6 +153,36 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, pool: bool = Fals
     _build.check(err, "conv3x3")
     conv3x3.launches += 1
     return y
+
+
+def _conv3x3_cpu(x, w, b, pool, relu, out_dtype):
+    return conv3x3_plain(x, w, b, pool, relu=relu, out_dtype=out_dtype)
+
+
+def _conv3x3_fake(x, w, b, pool, relu, out_dtype):
+    bsz, h, wd, _ = x.shape
+    oh, ow = (h // 2, wd // 2) if pool else (h, wd)
+    return x.new_empty((bsz, oh, ow, w.shape[-1]), dtype=out_dtype or x.dtype)
+
+
+_OP = _build.define_op(
+    "conv3x3(Tensor x, Tensor w, Tensor b, bool pool, bool relu, ScalarType? out_dtype) -> Tensor",
+    cpu=_conv3x3_cpu, cuda=_conv3x3_cuda, fake=_conv3x3_fake)
+
+
+def conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, pool: bool = False, *,
+            relu: bool = True, out_dtype=None) -> torch.Tensor:
+    """SAME 3x3 conv + bias [+ ReLU] [+ 2x2 max-pool] on NHWC activations.
+
+    Args:
+      x: (B, H, W, C_in) fp32 or bf16, contiguous; H and W even when ``pool``.
+      w: (3, 3, C_in, C_out) HWIO in x's dtype; C_in, C_out multiples of 8.
+      b: (C_out,), applied in fp32.
+      out_dtype: fp32 or bf16 (default x's dtype).
+    Returns (B, H, W, C_out), or (B, H/2, W/2, C_out) with ``pool``.
+    """
+    return _build.run(_OP, _conv3x3_cpu, _conv3x3_cuda, x, w, b, bool(pool), bool(relu),
+                      out_dtype)
 
 
 conv3x3.launches = 0

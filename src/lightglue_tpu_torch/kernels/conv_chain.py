@@ -17,7 +17,9 @@ tile; fp32 operands in 3xTF32 (each operand split into two TF32 values,
 three ``mma.sync`` products per step), K streamed in 8-channel chunks of
 conv2a's then conv2b's weights, the conv2a tile in fp32. ``chain_plan``
 mirrors the launch. On a CPU tensor it runs ``conv2_chain_plain``: two
-``conv3x3_plain`` calls with the intermediate cast to x's dtype.
+``conv3x3_plain`` calls with the intermediate cast to x's dtype. Both are
+the implementations of the operator ``lightglue_tpu_torch::conv2_chain``
+(``_build.define_op``).
 """
 
 from __future__ import annotations
@@ -80,18 +82,9 @@ def conv2_chain_plain(x, wa, ba, wb, bb, *, relu: bool = True, out_dtype=None):
     return conv3x3_plain(mid, wb, bb, True, relu=relu, out_dtype=out_dtype)
 
 
-def conv2_chain(x: torch.Tensor, wa: torch.Tensor, ba: torch.Tensor, wb: torch.Tensor,
-                bb: torch.Tensor, *, relu: bool = True, out_dtype=None) -> torch.Tensor:
-    """conv2a (ReLU) -> conv2b [ReLU] -> 2x2 max-pool, NHWC, one launch.
-
-    Args:
-      x: (B, H, W, 64) fp32 or bf16, contiguous; H and W even.
-      wa/wb: (3, 3, 64, 64) HWIO in x's dtype; ba/bb: (64,), applied in fp32.
-      out_dtype: fp32 or bf16 (default x's dtype).
-    Returns (B, H/2, W/2, 64).
-    """
-    if x.device.type == "cpu":
-        return conv2_chain_plain(x, wa, ba, wb, bb, relu=relu, out_dtype=out_dtype)
+def _conv2_chain_cuda(x: torch.Tensor, wa: torch.Tensor, ba: torch.Tensor, wb: torch.Tensor,
+                      bb: torch.Tensor, relu: bool, out_dtype) -> torch.Tensor:
+    """The operator's CUDA implementation: checks, then one launch."""
     bsz, h, wd, c = x.shape
     out_dtype = out_dtype or x.dtype
     if c != CHANNELS or any(tuple(w.shape) != (3, 3, c, c) for w in (wa, wb)):
@@ -119,6 +112,35 @@ def conv2_chain(x: torch.Tensor, wa: torch.Tensor, ba: torch.Tensor, wb: torch.T
     _build.check(err, "conv2_chain")
     conv2_chain.launches += 1
     return y
+
+
+def _conv2_chain_cpu(x, wa, ba, wb, bb, relu, out_dtype):
+    return conv2_chain_plain(x, wa, ba, wb, bb, relu=relu, out_dtype=out_dtype)
+
+
+def _conv2_chain_fake(x, wa, ba, wb, bb, relu, out_dtype):
+    bsz, h, wd, c = x.shape
+    return x.new_empty((bsz, h // 2, wd // 2, c), dtype=out_dtype or x.dtype)
+
+
+_OP = _build.define_op(
+    "conv2_chain(Tensor x, Tensor wa, Tensor ba, Tensor wb, Tensor bb, bool relu, "
+    "ScalarType? out_dtype) -> Tensor",
+    cpu=_conv2_chain_cpu, cuda=_conv2_chain_cuda, fake=_conv2_chain_fake)
+
+
+def conv2_chain(x: torch.Tensor, wa: torch.Tensor, ba: torch.Tensor, wb: torch.Tensor,
+                bb: torch.Tensor, *, relu: bool = True, out_dtype=None) -> torch.Tensor:
+    """conv2a (ReLU) -> conv2b [ReLU] -> 2x2 max-pool, NHWC, one launch.
+
+    Args:
+      x: (B, H, W, 64) fp32 or bf16, contiguous; H and W even.
+      wa/wb: (3, 3, 64, 64) HWIO in x's dtype; ba/bb: (64,), applied in fp32.
+      out_dtype: fp32 or bf16 (default x's dtype).
+    Returns (B, H/2, W/2, 64).
+    """
+    return _build.run(_OP, _conv2_chain_cpu, _conv2_chain_cuda, x, wa, ba, wb, bb, bool(relu),
+                      out_dtype)
 
 
 conv2_chain.launches = 0

@@ -67,7 +67,10 @@ retired pairs; attention takes the keep masks in place of the lengths. The
 layer loop reads nothing back to the host.
 
 Each wrapper launches its kernel on a CUDA tensor and runs its plain PyTorch
-version (``*_plain``) on a CPU tensor; ``transformer_stack_plain`` and
+version (``*_plain``) on a CPU tensor; both are the implementations of the
+wrapper's operator in the ``lightglue_tpu_torch`` namespace
+(``_build.define_op``; ``Live`` goes in flattened, as the exit register and
+the layer index), which ``torch.export`` records. ``transformer_stack_plain`` and
 ``transformer_stack_adaptive_plain`` run the same loops on the plain
 versions on any device. Rounding follows the JAX kernel's points exactly
 (see each kernel's header).
@@ -242,6 +245,16 @@ class Live(NamedTuple):
     layer: int          # global layer index
 
 
+def _live(exit: Optional[torch.Tensor], layer: int) -> Optional[Live]:
+    """The liveness operand from an operator's flattened arguments."""
+    return None if exit is None else Live(exit, layer)
+
+
+def _flat_live(live: Optional[Live]):
+    """``Live`` as an operator takes it: (exit register or None, layer)."""
+    return (None, 0) if live is None else (live.exit, live.layer)
+
+
 def _live_args(live: Optional[Live], rows_per_pair: int):
     if live is None:
         return None, 0, 1
@@ -315,12 +328,8 @@ def row_quant_plain(a, a2=None):
     return q, sa[..., 0]
 
 
-def row_quant(a, a2=None):
-    """W8A8's activation quantization of each row of [a | a2] (bf16, K <= 512
-    in all, K % 16 == 0): sa = max(amax, 1e-6) * (1/127), q = clip(rint(v /
-    sa), -127, 127). Returns (q (..., K) int8, sa (...,) fp32)."""
-    if a.device.type == "cpu":
-        return row_quant_plain(a, a2)
+def _row_quant_cuda(a, a2):
+    """``row_quant``'s CUDA implementation: checks, then one launch."""
     k1 = a.shape[-1]
     k = k1 + (0 if a2 is None else a2.shape[-1])
     for t in (a, a2):
@@ -336,6 +345,23 @@ def row_quant(a, a2=None):
     _build.check(err, "row_quant")
     row_quant.launches += 1
     return q, sa
+
+
+def _row_quant_fake(a, a2):
+    k = a.shape[-1] + (0 if a2 is None else a2.shape[-1])
+    return (a.new_empty((*a.shape[:-1], k), dtype=_I8),
+            a.new_empty(a.shape[:-1], dtype=_F32))
+
+
+_ROW_QUANT = _build.define_op("row_quant(Tensor a, Tensor? a2) -> (Tensor, Tensor)",
+                              cpu=row_quant_plain, cuda=_row_quant_cuda, fake=_row_quant_fake)
+
+
+def row_quant(a, a2=None):
+    """W8A8's activation quantization of each row of [a | a2] (bf16, K <= 512
+    in all, K % 16 == 0): sa = max(amax, 1e-6) * (1/127), q = clip(rint(v /
+    sa), -127, 127). Returns (q (..., K) int8, sa (...,) fp32)."""
+    return _build.run(_ROW_QUANT, row_quant_plain, _row_quant_cuda, a, a2)
 
 
 row_quant.launches = 0
@@ -388,9 +414,23 @@ def linear(a, w, b, a2=None, residual=None, live: Optional[Live] = None, *,
         retired pair's rows are skipped (unwritten) or, with a residual,
         copied from it.
     """
-    if a.device.type == "cpu":
-        return linear_plain(a, w, b, a2, residual, live, scale=scale, out_dtype=out_dtype,
-                            w8a8=w8a8, w_t=w_t)
+    return _build.run(_LINEAR, _linear_cpu, _linear_cuda, a, w, b, a2, residual,
+                      *_flat_live(live), scale, out_dtype, bool(w8a8), w_t)
+
+
+def _linear_cpu(a, w, b, a2, residual, live_exit, live_layer, scale, out_dtype, w8a8, w_t):
+    return linear_plain(a, w, b, a2, residual, _live(live_exit, live_layer), scale=scale,
+                        out_dtype=out_dtype, w8a8=w8a8, w_t=w_t)
+
+
+def _linear_fake(a, w, b, a2, residual, live_exit, live_layer, scale, out_dtype, w8a8, w_t):
+    return a.new_empty((*a.shape[:-1], w.shape[1]), dtype=out_dtype or a.dtype)
+
+
+def _linear_cuda(a, w, b, a2, residual, live_exit, live_layer, scale, out_dtype, w8a8, w_t):
+    """``linear``'s CUDA implementation: checks, then one GEMM launch (W8A8:
+    ``row_quant``'s launch, then the s8 GEMM's), counted once."""
+    live = _live(live_exit, live_layer)
     out_dtype = out_dtype or a.dtype
     k, n = w.shape
     k1 = a.shape[-1]
@@ -455,6 +495,10 @@ def linear_s8(q, sa, w_t, scale, b, residual, y, live: Optional[Live], rows: int
     _build.check(err, "linear")
 
 
+_LINEAR = _build.define_op(
+    "linear(Tensor a, Tensor w, Tensor b, Tensor? a2, Tensor? residual, Tensor? live_exit, "
+    "int live_layer, Tensor? scale, ScalarType? out_dtype, bool w8a8, Tensor? w_t) -> Tensor",
+    cpu=_linear_cpu, cuda=_linear_cuda, fake=_linear_fake)
 linear.launches = 0
 
 
@@ -548,9 +592,27 @@ def attention(q, k, v, freqs, len_q, len_kv, num_heads, stat_dtype,
     Nk <= 1024 (``attention_plan``); with RoPE, q and k are rotated once
     into a scratch of their type first, and the pair of launches counts as
     one."""
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, freqs, len_q, len_kv, num_heads,
-                               stat_dtype, out_dtype, keep_q, keep_kv, live, dir1)
+    return _build.run(_ATTENTION, _attention_cpu, _attention_cuda, q, k, v, freqs, len_q,
+                      len_kv, num_heads, stat_dtype, out_dtype, keep_q, keep_kv,
+                      *_flat_live(live), bool(dir1))
+
+
+def _attention_cpu(q, k, v, freqs, len_q, len_kv, num_heads, stat_dtype, out_dtype, keep_q,
+                   keep_kv, live_exit, live_layer, dir1):
+    return attention_plain(q, k, v, freqs, len_q, len_kv, num_heads, stat_dtype, out_dtype,
+                           keep_q, keep_kv, _live(live_exit, live_layer), dir1)
+
+
+def _attention_fake(q, k, v, freqs, len_q, len_kv, num_heads, stat_dtype, out_dtype, keep_q,
+                    keep_kv, live_exit, live_layer, dir1):
+    return q.new_empty(q.shape, dtype=out_dtype or q.dtype)
+
+
+def _attention_cuda(q, k, v, freqs, len_q, len_kv, num_heads, stat_dtype, out_dtype, keep_q,
+                    keep_kv, live_exit, live_layer, dir1):
+    """``attention``'s CUDA implementation: checks, then (with RoPE, after
+    ``lg_rope_qk``'s launch) one launch, counted once."""
+    live = _live(live_exit, live_layer)
     _check_same("attention", q.dtype, q, k, v)
     mode = attention_mode("attention", q.dtype, out_dtype)
     bsz, nq, e = q.shape
@@ -612,6 +674,11 @@ def attention(q, k, v, freqs, len_q, len_kv, num_heads, stat_dtype,
     return out
 
 
+_ATTENTION = _build.define_op(
+    "attention(Tensor q, Tensor k, Tensor v, Tensor? freqs, Tensor? len_q, Tensor? len_kv, "
+    "int num_heads, ScalarType stat_dtype, ScalarType? out_dtype, Tensor? keep_q, "
+    "Tensor? keep_kv, Tensor? live_exit, int live_layer, bool dir1) -> Tensor",
+    cpu=_attention_cpu, cuda=_attention_cuda, fake=_attention_fake)
 attention.launches = 0
 
 
@@ -659,8 +726,20 @@ def ln_gelu(h, g, b, live: Optional[Live] = None):
     """GELU(LayerNorm(h) * g + b) over the last dim (<= 512), fp32 math,
     result in h's dtype; g and b in h's dtype or fp32 (``_LN_MODES``). With
     ``live``, h is (B, N, C) and a retired pair's rows stay unwritten."""
-    if h.device.type == "cpu":
-        return ln_gelu_plain(h, g, b, live)
+    return _build.run(_LN_GELU, _ln_gelu_cpu, _ln_gelu_cuda, h, g, b, *_flat_live(live))
+
+
+def _ln_gelu_cpu(h, g, b, live_exit, live_layer):
+    return ln_gelu_plain(h, g, b, _live(live_exit, live_layer))
+
+
+def _ln_gelu_fake(h, g, b, live_exit, live_layer):
+    return h.new_empty(h.shape)
+
+
+def _ln_gelu_cuda(h, g, b, live_exit, live_layer):
+    """``ln_gelu``'s CUDA implementation: checks, then one launch."""
+    live = _live(live_exit, live_layer)
     _check_same("ln_gelu", g.dtype, g, b)
     mode = _LN_MODES.get((h.dtype, g.dtype))
     if mode is None or h.device != g.device:
@@ -683,6 +762,9 @@ def ln_gelu(h, g, b, live: Optional[Live] = None):
     return y
 
 
+_LN_GELU = _build.define_op(
+    "ln_gelu(Tensor h, Tensor g, Tensor b, Tensor? live_exit, int live_layer) -> Tensor",
+    cpu=_ln_gelu_cpu, cuda=_ln_gelu_cuda, fake=_ln_gelu_fake)
 ln_gelu.launches = 0
 
 
@@ -840,12 +922,28 @@ def adaptive_decide(x0, x1, w_tok, b_tok, exit, *, layer: int, n_layers: int,
         a live pair that did not stop retires tokens that are confident and
         not matchable at ``width_confidence``.
     """
-    if x0.device.type == "cpu":
-        return adaptive_decide_plain(
-            x0, x1, w_tok, b_tok, exit, layer=layer, n_layers=n_layers,
-            depth_confidence=depth_confidence, lengths0=lengths0, lengths1=lengths1,
-            w_match=w_match, b_match=b_match, width_confidence=width_confidence,
-            keep0=keep0, keep1=keep1)
+    _build.run(_DECIDE, _adaptive_decide_cpu, _adaptive_decide_cuda, x0, x1, w_tok, b_tok, exit,
+               int(layer), int(n_layers), float(depth_confidence), lengths0, lengths1, w_match,
+               b_match, float(width_confidence), keep0, keep1)
+
+
+def _adaptive_decide_cpu(x0, x1, w_tok, b_tok, exit, layer, n_layers, depth_confidence,
+                         lengths0, lengths1, w_match, b_match, width_confidence, keep0, keep1):
+    adaptive_decide_plain(x0, x1, w_tok, b_tok, exit, layer=layer, n_layers=n_layers,
+                          depth_confidence=depth_confidence, lengths0=lengths0,
+                          lengths1=lengths1, w_match=w_match, b_match=b_match,
+                          width_confidence=width_confidence, keep0=keep0, keep1=keep1)
+
+
+def _adaptive_decide_fake(x0, x1, w_tok, b_tok, exit, layer, n_layers, depth_confidence,
+                          lengths0, lengths1, w_match, b_match, width_confidence, keep0, keep1):
+    return None
+
+
+def _adaptive_decide_cuda(x0, x1, w_tok, b_tok, exit, layer, n_layers, depth_confidence,
+                          lengths0, lengths1, w_match, b_match, width_confidence, keep0, keep1):
+    """``adaptive_decide``'s CUDA implementation: checks, then one launch
+    that updates ``exit`` and the keep masks in place."""
     _check_same("adaptive_decide", x0.dtype, x0, x1)
     _check_same("adaptive_decide", w_tok.dtype, w_tok, w_match)
     mode = _DECIDE_MODES.get((x0.dtype, w_tok.dtype))
@@ -880,6 +978,13 @@ def adaptive_decide(x0, x1, w_tok, b_tok, exit, *, layer: int, n_layers: int,
     adaptive_decide.launches += 1
 
 
+# exit and the keep masks are the stack's device state, updated in place
+_DECIDE = _build.define_op(
+    "adaptive_decide(Tensor x0, Tensor x1, Tensor w_tok, Tensor b_tok, Tensor(a!) exit, "
+    "int layer, int n_layers, float depth_confidence, Tensor? lengths0, Tensor? lengths1, "
+    "Tensor? w_match, Tensor? b_match, float width_confidence, Tensor(b!)? keep0, "
+    "Tensor(c!)? keep1) -> ()",
+    cpu=_adaptive_decide_cpu, cuda=_adaptive_decide_cuda, fake=_adaptive_decide_fake)
 adaptive_decide.launches = 0
 
 

@@ -6,7 +6,9 @@
   nms_candidates`` (wrapper :199, pallas_call :227): NMS + border mask +
   per-8x8-tile top-``cap`` candidates in one pass. On a CUDA tensor it
   launches ``csrc/nms.cu`` (see its header for the design and what bounds
-  it); on a CPU tensor it runs ``nms_candidates_plain``.
+  it); on a CPU tensor it runs ``nms_candidates_plain``. Both are the
+  implementations of the operator ``lightglue_tpu_torch::nms_candidates``
+  (``_build.define_op``).
 """
 
 from __future__ import annotations
@@ -96,19 +98,9 @@ def tile_candidates(
     return cand_v.reshape(b, -1), cand_i.reshape(b, -1)
 
 
-def nms_candidates(
-    scores: torch.Tensor, nms_radius: int = 4, border: int = 4, cap: int = 4
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fused simple_nms + border mask + per-8x8-tile top-``cap``.
-
-    Args:
-      scores: (B, H, W) raw (pre-NMS) scores; H % 8 == 0, W % 8 == 0.
-    Returns:
-      cand_v: (B, TH*TW*cap) fp32 candidate scores, tile-major / round-minor.
-      cand_i: (B, TH*TW*cap) int32 flat indices y*W + x.
-    """
-    if scores.device.type == "cpu":
-        return nms_candidates_plain(scores, nms_radius, border, cap)
+def _nms_candidates_cuda(scores: torch.Tensor, nms_radius: int, border: int,
+                         cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The operator's CUDA implementation: checks, then one launch."""
     b, h, w = scores.shape
     if h % TILE or w % TILE:
         raise ValueError(f"nms_candidates needs H, W multiples of 8, got {h}x{w}")
@@ -127,6 +119,33 @@ def nms_candidates(
     _build.check(err, "nms_candidates")
     nms_candidates.launches += 1
     return cand_v, cand_i
+
+
+def _nms_candidates_fake(scores, nms_radius, border, cap):
+    b, h, w = scores.shape
+    n = (h // TILE) * (w // TILE) * cap
+    return (scores.new_empty((b, n), dtype=torch.float32),
+            scores.new_empty((b, n), dtype=torch.int32))
+
+
+_OP = _build.define_op(
+    "nms_candidates(Tensor scores, int nms_radius, int border, int cap) -> (Tensor, Tensor)",
+    cpu=nms_candidates_plain, cuda=_nms_candidates_cuda, fake=_nms_candidates_fake)
+
+
+def nms_candidates(
+    scores: torch.Tensor, nms_radius: int = 4, border: int = 4, cap: int = 4
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused simple_nms + border mask + per-8x8-tile top-``cap``.
+
+    Args:
+      scores: (B, H, W) raw (pre-NMS) scores; H % 8 == 0, W % 8 == 0.
+    Returns:
+      cand_v: (B, TH*TW*cap) fp32 candidate scores, tile-major / round-minor.
+      cand_i: (B, TH*TW*cap) int32 flat indices y*W + x.
+    """
+    return _build.run(_OP, nms_candidates_plain, _nms_candidates_cuda, scores, nms_radius,
+                      border, cap)
 
 
 nms_candidates.launches = 0

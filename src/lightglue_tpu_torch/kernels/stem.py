@@ -6,7 +6,9 @@ Counterpart of ``lightglue_tpu/models/superpoint.py:_relu_conv1a_shift``
 which fuses its nine shifted broadcast products into one loop. On a CUDA
 tensor ``relu_conv1a_shift`` launches ``csrc/stem.cu``, that one loop (see
 its header for the design and what bounds it); on a CPU tensor it runs
-``relu_conv1a_shift_plain``, with which the kernel agrees bit for bit.
+``relu_conv1a_shift_plain``, with which the kernel agrees bit for bit. Both
+are the implementations of the operator
+``lightglue_tpu_torch::relu_conv1a_shift`` (``_build.define_op``).
 """
 
 from __future__ import annotations
@@ -33,17 +35,8 @@ def relu_conv1a_shift_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -
     return F.relu(acc + b).to(x.dtype)
 
 
-def relu_conv1a_shift(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """conv1a + ReLU on a grayscale image.
-
-    Args:
-      x: (B, H, W, 1) bf16 or fp32; H, W multiples of 8.
-      w: (3, 3, 1, 64) HWIO, any float dtype (widened to fp32).
-      b: (64,), applied in fp32.
-    Returns (B, H, W, 64) in x's dtype.
-    """
-    if x.device.type == "cpu":
-        return relu_conv1a_shift_plain(x, w, b)
+def _relu_conv1a_shift_cuda(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The operator's CUDA implementation: checks, then one launch."""
     if x.dim() != 4 or x.shape[-1] != 1:
         raise ValueError(f"relu_conv1a_shift takes a (B, H, W, 1) image, got {tuple(x.shape)}")
     bsz, h, wd, _ = x.shape
@@ -66,6 +59,27 @@ def relu_conv1a_shift(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torc
     _build.check(err, "relu_conv1a_shift")
     relu_conv1a_shift.launches += 1
     return y
+
+
+def _relu_conv1a_shift_fake(x, w, b):
+    return x.new_empty((*x.shape[:3], C_OUT))
+
+
+_OP = _build.define_op("relu_conv1a_shift(Tensor x, Tensor w, Tensor b) -> Tensor",
+                       cpu=relu_conv1a_shift_plain, cuda=_relu_conv1a_shift_cuda,
+                       fake=_relu_conv1a_shift_fake)
+
+
+def relu_conv1a_shift(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """conv1a + ReLU on a grayscale image.
+
+    Args:
+      x: (B, H, W, 1) bf16 or fp32; H, W multiples of 8.
+      w: (3, 3, 1, 64) HWIO, any float dtype (widened to fp32).
+      b: (64,), applied in fp32.
+    Returns (B, H, W, 64) in x's dtype.
+    """
+    return _build.run(_OP, relu_conv1a_shift_plain, _relu_conv1a_shift_cuda, x, w, b)
 
 
 relu_conv1a_shift.launches = 0

@@ -185,11 +185,17 @@ def _layer_norm(g, b, x: torch.Tensor, eps: float = 1e-5,
     return ((xf - mean) * torch.rsqrt(var + eps) * g + b).to(x.dtype)
 
 
+# sqrt(1/2) rounded to each float dtype, as a Python float: rounded once
+# here, so the model reads no tensor's value while it runs (a fake tensor
+# under torch.export has none)
+_SQRT_HALF = {dt: torch.tensor(math.sqrt(0.5), dtype=dt).item()
+              for dt in (torch.float64, torch.float32, torch.bfloat16, torch.float16)}
+
+
 def _gelu(x: torch.Tensor) -> torch.Tensor:
     """Exact GELU as ``jax.nn.gelu(approximate=False)`` writes it, in x's
     dtype: 0.5 * x * erfc(-x * sqrt(1/2)), the constant rounded to x's dtype."""
-    sqrt_half = torch.tensor(math.sqrt(0.5), dtype=x.dtype).item()
-    return 0.5 * x * torch.erfc(-x * sqrt_half)
+    return 0.5 * x * torch.erfc(-x * _SQRT_HALF[x.dtype])
 
 
 # RoPE under the JAX module's names (:131-149): the model applies it inside

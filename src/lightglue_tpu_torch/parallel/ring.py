@@ -18,8 +18,8 @@ copy at all when the ring repeats one card (``[cuda:0] * P``, the serial
 ring that measures the path on one H100, as
 ``scripts/bench_ring_local.py`` did on one TPU). ``torch.distributed``
 over several cards, overlapping a block's transfer with the step before
-it, and sharding the per-token ops belong to the parallel slice (ROADMAP
-queue 1 item 11).
+it, and sharding the per-token ops are the ring across processes (ROADMAP
+queue 1 item 4).
 
 Masking follows the repo contract: ``lengths`` (B, 2) GLOBAL [q_len,
 kv_len]; padded KV columns are -1e30 before the softmax and padded Q rows

@@ -37,6 +37,11 @@ phase-2 graph of the value read (one per value, each captured at its first
 use). On the CPU (``device="cpu"``, which only tests ask for) every runner
 is the eager body, and the caches and ``warmup`` record the same keys.
 
+The bodies are module functions that take the weights as an argument
+(``extract_body``, ``match_head``, ``match_rest``): the session binds its
+own, and ``runtime/aot.py`` exports the same functions with the weights as
+the programs' first input.
+
 An adaptive config (``depth_confidence`` / ``width_confidence`` > 0) runs
 ``lightglue.forward_adaptive`` and maps match rows and columns, which index
 compacted (pruned) slots, back to the original keypoint indices on the
@@ -63,7 +68,7 @@ from lightglue_tpu_torch.config import PipelineConfig
 from lightglue_tpu_torch.models import lightglue, superpoint
 from lightglue_tpu_torch.pipeline.extract import Extraction, extract_keypoints
 from lightglue_tpu_torch.pipeline.match import Matches, filter_matches
-from lightglue_tpu_torch.precision import policy_for
+from lightglue_tpu_torch.precision import DTypePolicy, policy_for
 from lightglue_tpu_torch.quant import quantize_lightglue
 from lightglue_tpu_torch.runtime import weights as weights_lib
 from lightglue_tpu_torch.utils.logging import ErrorRecorder
@@ -77,6 +82,69 @@ def _remap(matches: Matches, index0: torch.Tensor, index1: torch.Tensor) -> Matc
     orig = torch.stack([torch.gather(index0, 1, rows), torch.gather(index1, 1, cols)], -1)
     indices = torch.where(matches.mask[..., None], orig.to(matches.indices.dtype), -1)
     return Matches(indices, matches.scores, matches.mask, matches.count)
+
+
+def extract_body(sp_params, images: torch.Tensor, *, config: PipelineConfig,
+                 policy: DTypePolicy) -> Extraction:
+    """SuperPoint and keypoint selection on (B, H, W, 1) fp32 images: the
+    body of each extraction runner and of ``aot.export_extractor``."""
+    scores, desc = superpoint.forward(sp_params, images, config=config.superpoint, policy=policy,
+                                      nms=False)
+    return extract_keypoints(scores, desc, config=config.superpoint, raw_scores=True)
+
+
+def is_adaptive(config: PipelineConfig) -> bool:
+    lgc = config.lightglue
+    return lgc.depth_confidence > 0 or lgc.width_confidence > 0
+
+
+def match_head(lg_params, kpts0, kpts1, desc0, desc1, count0, count1, *, config: PipelineConfig,
+               policy: DTypePolicy, full: bool) -> dict:
+    """The match body up to the downshift's host read (all of LightGlue
+    elsewhere): kpts/desc are the extractions cut to the buckets,
+    count0/count1 their (B,) keypoint counts; ``full`` as
+    ``MatcherSession._match_fn`` normalized it."""
+    lgc = config.lightglue
+    lengths0 = torch.clamp(count0, max=kpts0.shape[1])
+    lengths1 = torch.clamp(count1, max=kpts1.shape[1])
+    inputs = (kpts0, kpts1, desc0, desc1)
+    if is_adaptive(config):
+        # adaptive always passes lengths; full runs the unmasked variant
+        return lightglue.adaptive_head(lg_params, *inputs, lengths0, lengths1, config=lgc,
+                                       policy=policy, full=full)
+    return dict(out=lightglue.forward(
+        lg_params, *inputs, None if full else lengths0, None if full else lengths1,
+        config=lgc, policy=policy))
+
+
+def match_rest(lg_params, head: dict, fits: Optional[bool], *, config: PipelineConfig,
+               policy: DTypePolicy):
+    """The match body from the host read on: the downshift's phase 2 at the
+    width ``fits`` picks (None where ``head`` has no flag), the exit layer's
+    head, the match filter. Returns (LightGlueOutput or AdaptiveOutput,
+    Matches)."""
+    adaptive = is_adaptive(config)
+    if adaptive:
+        out = lightglue.adaptive_rest(lg_params, head, fits, config=config.lightglue,
+                                      policy=policy)
+    else:
+        out = head["out"]
+    matches = filter_matches(
+        out.scores,
+        threshold=config.match_threshold,
+        max_matches=min(config.max_matches, out.scores.shape[1]),
+    )
+    if adaptive:
+        matches = _remap(matches, out.index0, out.index1)
+    return out, matches
+
+
+def reads_host(lg_params, bucket0: int, bucket1: int, config: PipelineConfig,
+               policy: DTypePolicy) -> bool:
+    """Whether the match body of (bucket0, bucket1) makes the downshift's
+    host read (``match_head`` then returns the flag ``fits``)."""
+    return is_adaptive(config) and lightglue.reads_host(lg_params, bucket0, bucket1,
+                                                        config.lightglue, policy.act_dtype)
 
 
 def resolve_device(device: Optional[str]) -> torch.device:
@@ -164,8 +232,19 @@ class MatcherSession:
         config: PipelineConfig = PipelineConfig(),
         seed: int = 0,
         device: Optional[str] = None,
+        compile_cache_dir: Optional[str] = None,
     ):
+        """``compile_cache_dir``: where the kernel library is cached (JAX's
+        argument of that name; here the built library is the artifact that
+        a warm start reuses): None keeps the checkout's
+        ``build/torch_kernels/``. A directory that cannot be used raises.
+        The setting is the process's, not the session's
+        (``aot.enable_compile_cache``)."""
         self.device = resolve_device(device)
+        if compile_cache_dir is not None:
+            from lightglue_tpu_torch.runtime import aot  # aot imports this module
+
+            aot.enable_compile_cache(compile_cache_dir)
         self.config = config
         self.policy = policy_for(config.precision)
         sp_params = (
@@ -201,13 +280,9 @@ class MatcherSession:
     # -- extraction ---------------------------------------------------------
 
     def _extract_eager(self, images: torch.Tensor) -> Extraction:
-        """SuperPoint and keypoint selection on (B, H, W, 1) fp32 images on
-        the session's device: the body each extraction runner runs."""
-        scores, desc = superpoint.forward(
-            self.sp_params, images, config=self.config.superpoint,
-            policy=self.policy, nms=False,
-        )
-        return extract_keypoints(scores, desc, config=self.config.superpoint, raw_scores=True)
+        """``extract_body`` on the session's weights: the body each
+        extraction runner runs."""
+        return extract_body(self.sp_params, images, config=self.config, policy=self.policy)
 
     def _extract_fn(self, batch: int, h: int, w: int) -> Callable[[np.ndarray], Extraction]:
         """The runner of (batch, h, w): host images in, the Extraction on the
@@ -264,56 +339,23 @@ class MatcherSession:
 
     # -- matching -----------------------------------------------------------
 
-    @property
-    def _adaptive(self) -> bool:
-        lgc = self.config.lightglue
-        return lgc.depth_confidence > 0 or lgc.width_confidence > 0
-
     def _match_eager(self, full: bool, kpts0, kpts1, desc0, desc1, count0, count1):
         """LightGlue and the match filter on one bucket pair: the body each
-        match runner runs. kpts/desc are the extractions cut to the buckets,
-        count0/count1 their (B,) keypoint counts; ``full`` as ``_match_fn``
-        normalized it."""
+        match runner runs (``match_head``, the host read, ``match_rest`` on
+        the session's weights)."""
         head = self._match_head(full, kpts0, kpts1, desc0, desc1, count0, count1)
         return self._match_rest(head, self._read(head))
 
     def _match_head(self, full: bool, kpts0, kpts1, desc0, desc1, count0, count1) -> dict:
-        """The match body up to the downshift's host read (all of LightGlue
-        elsewhere)."""
-        lgc = self.config.lightglue
-        lengths0 = torch.clamp(count0, max=kpts0.shape[1])
-        lengths1 = torch.clamp(count1, max=kpts1.shape[1])
-        inputs = (kpts0, kpts1, desc0, desc1)
-        if self._adaptive:
-            # adaptive always passes lengths; full runs the unmasked variant
-            return lightglue.adaptive_head(
-                self.lg_params, *inputs, lengths0, lengths1,
-                config=lgc, policy=self.policy, full=full)
-        return dict(out=lightglue.forward(
-            self.lg_params, *inputs,
-            None if full else lengths0, None if full else lengths1,
-            config=lgc, policy=self.policy))
+        return match_head(self.lg_params, kpts0, kpts1, desc0, desc1, count0, count1,
+                          config=self.config, policy=self.policy, full=full)
 
     def _read(self, head: dict) -> Optional[bool]:
         """The downshift's host read (None where the head has no flag)."""
         return bool(self._fetch(head["fits"])[0]) if "fits" in head else None
 
     def _match_rest(self, head: dict, fits: Optional[bool]):
-        """The match body from the host read on: the downshift's phase 2 at
-        the width ``fits`` picks, the exit layer's head, the match filter."""
-        if self._adaptive:
-            out = lightglue.adaptive_rest(self.lg_params, head, fits,
-                                          config=self.config.lightglue, policy=self.policy)
-        else:
-            out = head["out"]
-        matches = filter_matches(
-            out.scores,
-            threshold=self.config.match_threshold,
-            max_matches=min(self.config.max_matches, out.scores.shape[1]),
-        )
-        if self._adaptive:
-            matches = _remap(matches, out.index0, out.index1)
-        return out, matches
+        return match_rest(self.lg_params, head, fits, config=self.config, policy=self.policy)
 
     def _match_fn(self, bucket0: int, bucket1: int, full: bool = False, batch: int = 1):
         """The match runner of (bucket0, bucket1, full, batch).
@@ -326,13 +368,12 @@ class MatcherSession:
         lgc = self.config.lightglue
         width = lgc.width_confidence > 0
         cap_full = bucket0 == bucket1 == max(self.config.buckets)
-        full = full and not width and (cap_full if self._adaptive else True)
+        full = full and not width and (cap_full if is_adaptive(self.config) else True)
         key = (bucket0, bucket1, full, batch)
         if key not in self._match_cache:
             if not self._graphs:
                 run = functools.partial(self._match_eager, full)
-            elif self._adaptive and lightglue.reads_host(self.lg_params, bucket0, bucket1, lgc,
-                                                         self.policy.act_dtype):
+            elif reads_host(self.lg_params, bucket0, bucket1, self.config, self.policy):
                 run = _SplitGraph(functools.partial(self._match_head, full), self._match_rest,
                                   self._read, self.device, self._match_pool)
             else:
