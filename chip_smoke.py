@@ -2300,7 +2300,9 @@ def ring_end_to_end(at, counters, img0, img1, step_e, step_fp32_e):
     480x640 pair, devices [cuda:0] * 4 (stripes of 512), 9 layers, then
     filter_matches. BF16: launch counts read from 0 around one call,
     against the same loop on the plain step, graph and eager times. FP32:
-    against forward (the per-block route) and its match set at threshold 0."""
+    against forward (the per-block route) and its match set at threshold 0.
+    Returns each rung's inputs to the ring as host arrays with their dtype
+    names, for ``ring_process_checks``."""
     import dataclasses
 
     import numpy as np
@@ -2333,6 +2335,7 @@ def ring_end_to_end(at, counters, img0, img1, step_e, step_fp32_e):
         return (f"row argmax agreement {float((ra == rb).float().mean()):.4f} (on "
                 f"{ra.unique().numel()} / {rb.unique().numel()} distinct columns)")
 
+    model_inputs = {}  # per rung: the forward_ring inputs as (host array, dtype name)
     for precision in ("bf16", "fp32"):
         session = MatcherSession(config=dataclasses.replace(cfg, precision=Precision(precision)),
                                  device="cuda")
@@ -2345,6 +2348,9 @@ def ring_end_to_end(at, counters, img0, img1, step_e, step_fp32_e):
                   ext0.descriptors[:, :RING_N], ext1.descriptors[:, :RING_N],
                   torch.clamp(ext0.count, max=RING_N), torch.clamp(ext1.count, max=RING_N))
         kw = dict(config=lgc, policy=session.policy)
+        model_inputs[precision] = [(t.float().cpu().numpy() if t.is_floating_point()
+                                    else t.cpu().numpy(), str(t.dtype).split(".")[1])
+                                   for t in inputs]
 
         def ring_call(step=at.flash_attention_step):
             with torch.inference_mode():
@@ -2403,6 +2409,274 @@ def ring_end_to_end(at, counters, img0, img1, step_e, step_fp32_e):
                 f"{argmax_agreement(out.scores, ref.scores)}")
             if not mr or iou <= 0.95:
                 raise AssertionError(f"forward_ring fp32: match-set IoU {iou:.4f}")
+    return model_inputs
+
+
+# ---- the ring across processes: ranks sharing cuda:0 in a gloo group ------
+
+RING_PROC_SIZES = (2, RING)  # ring_attention at both; forward_ring at RING
+RING_PROC_SEED = 23  # the ranks' own generator: the cases' inputs, alike on every rank
+RING_PROC_TIMEOUT_S = 120  # a rank waiting longer for a block or a collective raises
+RING_PROC_REPS = 10
+RING_PROC_CASES = (  # label, GLOBAL lengths at RING_N or None
+    ("unmasked", None),
+    ("masked, kv boundary inside a stripe", [[2000, 1500], [1900, 1100]]),
+    ("stripes wholly past q_len", [[700, RING_N], [300, 1700]]),
+    ("zero-length kv", [[RING_N, 0], [100, 50]]),
+)
+
+
+def ring_rank(rank, port, size, model_inputs, queue):
+    """One of ``size`` ranks spawned on cuda:0 by ``ring_process_checks``, in
+    a gloo group (NCCL refuses two ranks on one card; the blocks cross in
+    pinned host memory): ``ring_process_attention``, then, where
+    ``model_inputs`` are given, ``ring_process_forward``. Puts (rank,
+    traceback or None, readings)."""
+    import traceback
+
+    try:
+        import datetime
+
+        import torch
+        import torch.distributed as dist
+
+        from lightglue_tpu_torch.parallel import multihost
+
+        # one host thread for torch's CPU ops, as torchrun gives each of
+        # several ranks on a node: the ranks' default thread pools would
+        # share the host's cores and stall each other (scripts/tune_torch_ring.py)
+        torch.set_num_threads(1)
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        multihost.initialize(f"localhost:{port}", size, rank, backend="gloo",
+                             timeout=datetime.timedelta(seconds=RING_PROC_TIMEOUT_S))
+        out = {"ring_attention": ring_process_attention(rank, size, dev)}
+        if model_inputs is not None:
+            out["forward_ring"] = ring_process_forward(rank, size, dev, model_inputs)
+        dist.barrier()
+        dist.destroy_process_group()
+        queue.put((rank, None, out))
+    except Exception:
+        queue.put((rank, traceback.format_exc(), None))
+
+
+def ring_process_attention(rank, size, dev):
+    """``ring_attention(..., group=)`` on this rank's stripe at (2, 4, RING_N,
+    64), bf16 and fp32, every case of ``RING_PROC_CASES``: bit for bit the
+    same rows of the one-process ring on [cuda:0] * size, within ``TOL`` of
+    the same process ring on the plain step, padded rows 0, one step launch
+    per position. Returns the largest error against the plain step per
+    dtype."""
+    import torch
+
+    from lightglue_tpu_torch.kernels import attention as at
+    from lightglue_tpu_torch.parallel import ring
+    from lightglue_tpu_torch.precision import Precision, policy_for, precision_scope
+
+    group = torch.distributed.group.WORLD
+    gen = torch.Generator(device=dev).manual_seed(RING_PROC_SEED)
+    n = RING_N // size
+    rows = slice(rank * n, (rank + 1) * n)
+    errs = {}
+    for label, lens in RING_PROC_CASES:
+        for tag, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+            q, k, v = (torch.randn(2, 4, RING_N, 64, generator=gen, device=dev).to(dt)
+                       for _ in range(3))
+            ln = None if lens is None else torch.tensor(lens, dtype=torch.int32, device=dev)
+            mine = [t[:, :, rows] for t in (q, k, v)]
+            with precision_scope(policy_for(Precision.FP32)):  # the plain fp32 step in fp32
+                before = at.flash_attention_step.launches
+                got = ring.ring_attention(*mine, ln, group=group)
+                launched = at.flash_attention_step.launches - before
+                one = ring.ring_attention(q, k, v, ln, devices=[dev] * size)[:, :, rows]
+                plain = ring.ring_attention(*mine, ln, group=group,
+                                            step=at.flash_attention_step_plain)
+            where = f"rank {rank} of {size}, {label} {tag}"
+            if launched != size:
+                raise AssertionError(f"{where}: {launched} step launches, want {size}")
+            if not torch.equal(got, one):
+                diff = int((got != one).sum())
+                raise AssertionError(f"{where}: {diff} elements differ from the one-process ring")
+            g, w = got.float(), plain.float()
+            err = (g - w).abs()
+            if not torch.isfinite(g).all() or bool((err > TOL[tag]["atol"]
+                                                     + TOL[tag]["rtol"] * w.abs()).any()):
+                raise AssertionError(f"{where}: max abs err {float(err.max()):.3e} vs the plain "
+                                     f"step, beyond {TOL[tag]}")
+            errs[tag] = max(errs.get(tag, 0.0), float(err.max()))
+            for i, (ql, kl) in enumerate(lens or []):
+                pad = got[i] if kl == 0 else got[i, :, max(ql - rank * n, 0):]
+                if pad.numel() and float(pad.float().abs().max()) != 0.0:
+                    raise AssertionError(f"{where}: padded rows are not 0")
+    return dict(cases=2 * len(RING_PROC_CASES), bit_for_bit=2 * len(RING_PROC_CASES),
+                max_abs_err_vs_plain=errs)
+
+
+def ring_process_forward(rank, size, dev, model_inputs):
+    """``forward_ring(..., group=)`` at full width (the 2048-keypoint config,
+    9 layers) on ``ring_end_to_end``'s extractions, BF16 and FP32: this
+    rank's launches in one call read from 0 (RING_N / size-row stripes:
+    ``STEP_LAUNCHES / size`` steps, no other stack kernel), the whole output
+    against the one-process ``forward_ring`` on [cuda:0] * size at
+    ``ring_end_to_end``'s gates (descriptors at STACK_TOL, FP32 scores at
+    1e-3) with the mutual-NN sets at threshold 0 equal and not empty
+    (``mutual_matches``); then ms per call on each rank's host clock, each
+    call between two barriers (median of ``RING_PROC_REPS`` after the warm
+    call), the host ms inside the transport per call (staging the caller's
+    block, the rest of the posts, the waits), on rank 0 the one-process
+    eager ring's ms with the other ranks waiting, and the host P2P alone
+    (``ring_process_p2p``)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from lightglue_tpu_torch.kernels import attention as at
+    from lightglue_tpu_torch.kernels import conv as conv_k
+    from lightglue_tpu_torch.kernels import layer_stack as ls
+    from lightglue_tpu_torch.kernels import nms as nms_k
+    from lightglue_tpu_torch.kernels import stem as stem_k
+    from lightglue_tpu_torch.models.lightglue import forward_ring
+    from lightglue_tpu_torch.parallel import ring
+    from lightglue_tpu_torch.precision import Precision
+    from lightglue_tpu_torch.runtime.session import MatcherSession
+
+    group = dist.group.WORLD
+    counters = [stem_k.relu_conv1a_shift, conv_k.conv3x3, nms_k.nms_candidates, ls.linear,
+                ls.attention, ls.ln_gelu, ls.row_quant, ls.adaptive_decide, at.fused_mha,
+                at.bidirectional_cross_attention, at.flash_attention, at.flash_attention_step]
+    cfg = pb_configs()["2048-keypoint"]
+    readings = {}
+    for precision in ("bf16", "fp32"):
+        gate = STACK_TOL[precision]
+        session = MatcherSession(config=dataclasses.replace(cfg, precision=Precision(precision)),
+                                 device="cuda")
+        inputs = [torch.from_numpy(a).to(dev, getattr(torch, name))
+                  for a, name in model_inputs[precision]]
+        kw = dict(config=cfg.lightglue, policy=session.policy)
+
+        def call():
+            with torch.inference_mode():
+                return forward_ring(session.lg_params, *inputs, group=group, **kw)
+
+        def one_process():
+            with torch.inference_mode():
+                return forward_ring(session.lg_params, *inputs, devices=[dev] * size, **kw)
+
+        where = f"rank {rank} of {size}, forward_ring {precision}"
+        call()  # warm
+        for fn in counters:
+            fn.launches = 0
+        out = call()
+        launches = {fn.__name__: fn.launches for fn in counters}
+        want = STEP_LAUNCHES // size
+        bad = {k: v for k, v in launches.items()
+               if v != (want if k == "flash_attention_step" else 0)}
+        if bad:
+            raise AssertionError(f"{where}: launches {bad} (want flash_attention_step {want}, "
+                                 "every other kernel 0)")
+        ref = one_process()
+        errs = {}
+        for name in ("desc0", "desc1", "scores"):
+            g, w = getattr(out, name), getattr(ref, name)
+            if g.shape != w.shape or g.dtype != w.dtype or not torch.isfinite(g.float()).all():
+                raise AssertionError(f"{where}: {name} {tuple(g.shape)} {g.dtype}, want "
+                                     f"{tuple(w.shape)} {w.dtype}, finite")
+            err = (g.float() - w.float()).abs()
+            errs[name] = float(err.max())
+            if (name != "scores" or precision == "fp32") and bool(
+                    (err > gate["atol"] + gate["rtol"] * w.float().abs()).any()):
+                raise AssertionError(f"{where}: {name} max abs err {errs[name]:.3e} vs the "
+                                     f"one-process ring, beyond {gate}")
+        got_set, ref_set = (mutual_matches(x.scores, RING_N, RING_N) for x in (out, ref))
+        if got_set != ref_set or not ref_set:
+            raise AssertionError(f"{where}: mutual-NN set {sorted(got_set)}, the one-process "
+                                 f"ring's {sorted(ref_set)}")
+        times = []
+        for key in ring.transport_time:
+            ring.transport_time[key] = 0
+        for _ in range(RING_PROC_REPS):
+            dist.barrier()
+            t = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            dist.barrier()
+            times.append((time.perf_counter() - t) * 1e3)
+        clock = dict(ring.transport_time)
+        one_ms = None
+        if rank == 0:  # the others wait at the barrier
+            one_ms = host_ms(one_process, reps=RING_PROC_REPS)
+        dist.barrier()
+        per_call = {k: v * 1e3 / RING_PROC_REPS for k, v in clock.items() if k != "posts"}
+        readings[precision] = dict(
+            ms=statistics.median(times), ms_min=min(times), one_process_eager_ms=one_ms,
+            transport_ms_per_call=per_call["post_s"] + per_call["wait_s"],
+            stage_ms_per_call=per_call["stage_s"],
+            post_ms_per_call=per_call["post_s"] - per_call["stage_s"],
+            wait_ms_per_call=per_call["wait_s"], posts_per_call=clock["posts"] / RING_PROC_REPS,
+            step_launches=want, max_abs_err=errs, mutual_nn=len(got_set))
+    readings["host_p2p_ms_per_call"] = ring_process_p2p(size)
+    return readings
+
+
+def ring_process_p2p(size):
+    """The host P2P alone, no card: one forward_ring's rotations (N_LAYERS x
+    4 ring calls of ``size - 1``, a new transport each) of a bf16 (1, 4,
+    RING_N / size, 64) K/V block between CPU tensors through the direct
+    gloo transport, between two barriers; median ms of ``RING_PROC_REPS``."""
+    import torch
+    import torch.distributed as dist
+
+    from lightglue_tpu_torch.parallel import ring
+
+    pr = ring.ProcessRing(dist.group.WORLD, torch.device("cpu"))
+    k = torch.zeros(1, 4, RING_N // size, 64, dtype=torch.bfloat16)
+    times = []
+    for _ in range(RING_PROC_REPS):
+        dist.barrier()
+        t = time.perf_counter()
+        for _ in range(N_LAYERS * 4):
+            transport, block = pr.transport(k, k), (k, k)
+            for _ in range(size - 1):
+                block = transport.wait(transport.post(*block, 0))
+        dist.barrier()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def ring_process_checks(model_inputs):
+    """The ring across processes on one card: ``ring_rank`` at each size of
+    ``RING_PROC_SIZES``, one position per spawned process on cuda:0 in a
+    gloo group; ``forward_ring`` at ``RING`` ranks on ``model_inputs``
+    (``ring_end_to_end``'s). Prints a {"ring_processes": ...} line: four
+    processes sharing one card, blocks staged through host memory, not a
+    time across cards."""
+    summary = {}
+    for size in RING_PROC_SIZES:
+        log(f"ring across {size} processes on cuda:0 (gloo, blocks staged through pinned host "
+            f"memory): ring_attention at (2, 4, {RING_N}, 64)"
+            + (f"; forward_ring at {RING_N}x{RING_N}, {N_LAYERS} layers, BF16 and FP32"
+               if size == RING else ""))
+        t = time.perf_counter()
+        ranks = spawn_ranks(ring_rank, size, (size, model_inputs if size == RING else None))
+        for rank, out in sorted(ranks.items()):
+            log(f"  rank {rank}: {json.dumps(out)}")
+        log(f"  {size} ranks done in {time.perf_counter() - t:.1f} s")
+        summary[size] = ranks
+    fwd = {r: out["forward_ring"] for r, out in summary[RING].items()}
+    for precision in ("bf16", "fp32"):
+        r0 = fwd[0][precision]
+        by_rank = {key: [round(fwd[r][precision][key], 3) for r in sorted(fwd)]
+                   for key in ("transport_ms_per_call", "stage_ms_per_call", "post_ms_per_call",
+                               "wait_ms_per_call")}
+        log(f"  forward_ring {precision} across {RING} processes: {r0['ms']:.3f} ms a call "
+            f"(rank 0, median of {RING_PROC_REPS}), one-process eager ring "
+            f"{r0['one_process_eager_ms']:.3f} ms; host ms per call by rank {by_rank}; step "
+            f"launches {RING} x {r0['step_launches']}; mutual NN {r0['mutual_nn']}")
+    log(f"  the host P2P alone, one call's rotations between CPU tensors: "
+        f"{[round(fwd[r]['host_p2p_ms_per_call'], 3) for r in sorted(fwd)]} ms by rank")
+    log(json.dumps({"ring_processes": summary}))
+    return summary
 
 
 GENERIC_CONVS = [
@@ -4130,10 +4404,12 @@ def parallel_rank(rank, port, inputs, queue):
         queue.put((rank, traceback.format_exc(), None))
 
 
-def two_process_checks(inputs):
-    """Two ranks spawned on cuda:0 (``parallel_rank``), each held to its own
-    single-device results; the kernel library is built already, so neither
-    builds it. Every process started is joined or killed."""
+def spawn_ranks(target, size, args, wait_s=300):
+    """``size`` ranks of ``target(rank, port, *args, queue)`` spawned on
+    cuda:0 (``parallel_rank``, ``ring_rank``); each puts (rank, traceback or
+    None, readings). Returns {rank: readings}; a traceback, a silent rank or
+    a non-zero exit fails the run. The kernel library is built already, so
+    no rank builds it. Every process started is joined or killed."""
     import multiprocessing
     import queue as queue_mod
     import socket
@@ -4143,13 +4419,13 @@ def two_process_checks(inputs):
         port = sock.getsockname()[1]
     ctx = multiprocessing.get_context("spawn")  # CUDA in the parent
     q = ctx.Queue()
-    procs = [ctx.Process(target=parallel_rank, args=(r, port, inputs, q)) for r in (0, 1)]
+    procs = [ctx.Process(target=target, args=(r, port, *args, q)) for r in range(size)]
     for p in procs:
         p.start()
     got = {}
     try:
-        while len(got) < 2:
-            rank, tb, out = q.get(timeout=300)  # drained before the joins
+        while len(got) < size:
+            rank, tb, out = q.get(timeout=wait_s)  # drained before the joins
             if tb is not None:
                 raise AssertionError(f"rank {rank} failed:\n{tb}")
             got[rank] = out
@@ -4158,13 +4434,19 @@ def two_process_checks(inputs):
             if p.exitcode != 0:
                 raise AssertionError(f"rank exited with {p.exitcode}")
     except queue_mod.Empty:
-        raise AssertionError("two-process phase: a rank sent nothing in 300 s") from None
+        raise AssertionError(f"{size} ranks: a rank sent nothing in {wait_s} s") from None
     finally:
         for p in procs:
             if p.is_alive():
                 p.kill()
                 p.join()
     return got
+
+
+def two_process_checks(inputs):
+    """Two ranks spawned on cuda:0 (``parallel_rank``), each held to its own
+    single-device results."""
+    return spawn_ranks(parallel_rank, 2, (inputs,))
 
 
 def nccl_world_one(dev):
@@ -5130,7 +5412,9 @@ def main() -> int:
                    "src/lightglue_tpu/kernels/attention.py:422")
     step_kernel_checks(at, dev, fp32_scope, step_e, fp32_ents["flash_attention_step"])
     ring_checks(at, ring, rand, dev, dtypes, fp32_scope)
-    ring_end_to_end(at, counters, img0, img1, step_e, fp32_ents["flash_attention_step"])
+    ring_inputs = ring_end_to_end(at, counters, img0, img1, step_e,
+                                  fp32_ents["flash_attention_step"])
+    ring_process_checks(ring_inputs)
 
     # ---- the conv variants that no path runs --------------------------------
     gen_e = Entry("conv3x3 (generic)", "src/lightglue_tpu_torch/csrc/conv3x3.cu",

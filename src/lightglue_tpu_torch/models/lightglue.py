@@ -26,8 +26,10 @@ between ffn1 and ffn2 sums its statistics over it. The layer stack is never
 taken under it (``layer_stack.supports``).
 
 ``forward_ring`` (:590-695) is the sequence-split forward: every attention
-through ``parallel/ring.py:ring_attention`` on the
-``kernels.attention.flash_attention_step`` kernel.
+through ``parallel/ring.py`` on the ``kernels.attention.flash_attention_step``
+kernel, the ring's positions in this process (``devices=``) or one per
+process of a ``torch.distributed`` group (``group=``, the per-token ops on
+each rank's stripe).
 """
 
 from __future__ import annotations
@@ -392,56 +394,125 @@ def forward_ring(
     *,
     config: LightGlueConfig,
     policy: DTypePolicy,
-    devices,
+    devices=None,
+    group=None,
     step=attention.flash_attention_step,
 ) -> LightGlueOutput:
     """Sequence-split fixed-depth forward (JAX :590-695): every self and
-    cross attention rides ``parallel/ring.py:ring_attention`` over
-    ``devices``, at fp32 stats (the JAX function passes no stat dtype).
+    cross attention rides ``parallel/ring.py`` at fp32 stats (the JAX
+    function passes no stat dtype), over ``devices`` in this process or over
+    the processes of ``group``.
 
     Semantically ``forward``: self-attention per image, RoPE applied to the
     heads before the ring in ``policy.attn_in_dtype``, the cross directions
-    (qk0, qk1, v1) and (qk1, qk0, v0), the last layer's assignment. The
-    projections, LayerNorm, GELU and the assignment run on the whole tensors
-    on ``devices[0]`` (the params must be there); only attention is split.
+    (qk0, qk1, v1) and (qk1, qk0, v0), the last layer's assignment.
+
+    - ``devices``: only attention is split; the projections, LayerNorm, GELU
+      and the assignment run on the whole tensors on ``devices[0]`` (the
+      params must be there).
+    - ``group``: JAX's ``shard_seq`` (:622-627). Every rank passes the whole
+      inputs on its own device (the params there too), keeps its stripe of
+      both images' tokens (rank r the r-th of ``ring`` equal stripes), and
+      runs the input projection, posenc, every projection, the FFN with its
+      LayerNorm and GELU, and RoPE on that stripe only; each attention is
+      the process ring; at the end the descriptors are gathered over the
+      group and the assignment runs on every rank, which returns the whole
+      output, as JAX's global arrays read. Both buckets must divide the ring
+      size, checked on every rank before the first transfer.
+
     ``step=attention.flash_attention_step_plain`` runs the same loop on the
     plain step. An int8 tree runs weight-only (``_weight``), whatever
     ``LGTPU_W8A8`` says, as in the JAX package.
     """
+    if (devices is None) == (group is None):
+        raise ValueError("forward_ring: pass devices= (one process) or group= (one ring "
+                         "position per process)")
+    if group is not None:
+        return _forward_ring_group(params, kpts0, kpts1, desc0, desc1, lengths0, lengths1,
+                                   config, policy, group, step)
     home = torch.device(devices[0])
     kpts0, kpts1, desc0, desc1 = (t.to(home) for t in (kpts0, kpts1, desc0, desc1))
     if lengths0 is not None:
         lengths0, lengths1 = lengths0.to(home), lengths1.to(home)
-    num_heads, dt = config.num_heads, policy.attn_in_dtype
 
     def attend(q, k, v, freqs, lq, lkv):
-        qh, kh, vh = (_split_heads(t.to(dt), num_heads) for t in (q, k, v))
-        if freqs is not None:
-            qh, kh = apply_rotary(freqs, qh), apply_rotary(freqs, kh)
-        lens = None if lq is None else torch.stack([lq, lkv], dim=-1).to(torch.int32)
-        out = ring.ring_attention(qh, kh, vh, lens, devices=devices, step=step)
+        out = ring.ring_attention(*_ring_heads(q, k, v, freqs, config, policy),
+                                  _ring_lengths(lq, lkv), devices=devices, step=step)
         return _merge_heads(out).to(q.dtype)
 
     with precision_scope(policy):
         d0, d1, freqs0, freqs1 = _embed(params, kpts0, kpts1, desc0, desc1, config, policy)
-        layers = params["layers"]
-        e = d0.shape[-1]
-        for i in range(layers["self_attn"]["ln_g"].shape[0]):
-            sp, cp = _layer(layers["self_attn"], i), _layer(layers["cross_attn"], i)
-            new = []
-            for x, freqs, lens in ((d0, freqs0, lengths0), (d1, freqs1, lengths1)):
-                qkv = _linear(sp["qkv"], x)
-                ctx = attend(qkv[..., :e], qkv[..., e:2 * e], qkv[..., 2 * e:], freqs, lens, lens)
-                new.append(_ffn(sp, x, _linear(sp["out"], ctx)))
-            d0, d1 = new
-            a0, a1 = _linear(cp["qk_v"], d0), _linear(cp["qk_v"], d1)
-            m0 = attend(a0[..., :e], a1[..., :e], a1[..., e:], None, lengths0, lengths1)
-            m1 = attend(a1[..., :e], a0[..., :e], a0[..., e:], None, lengths1, lengths0)
-            d0 = _ffn(cp, d0, _linear(cp["out"], m0))
-            d1 = _ffn(cp, d1, _linear(cp["out"], m1))
+        d0, d1 = _ring_layers(params["layers"], d0, d1, freqs0, freqs1, lengths0, lengths1,
+                              attend)
         scores = _last_assignment(params, d0, d1, lengths0, lengths1, kpts0.shape[1],
                                   kpts1.shape[1], config.descriptor_dim)
     return LightGlueOutput(d0, d1, scores, torch.tensor(config.n_layers))
+
+
+def _forward_ring_group(params, kpts0, kpts1, desc0, desc1, lengths0, lengths1, config,
+                        policy, group, step) -> LightGlueOutput:
+    """``forward_ring`` over the processes of ``group``: the per-token ops on
+    this rank's stripes, each attention through the process ring."""
+    pr = ring.ProcessRing(group, desc0.device)
+    shapes = tuple(tuple(t.shape) for t in (kpts0, kpts1, desc0, desc1))
+    sigs = ring.agree(group, shapes, pr.size)
+    if len(set(sigs)) > 1:
+        raise ValueError(f"forward_ring: the ranks' input shapes differ: {sigs}")
+    m, n = kpts0.shape[1], kpts1.shape[1]
+    if m % pr.size or n % pr.size:
+        raise ring.divide_error(m, n, pr.size)
+    s0 = slice(pr.idx * m // pr.size, (pr.idx + 1) * m // pr.size)
+    s1 = slice(pr.idx * n // pr.size, (pr.idx + 1) * n // pr.size)
+
+    def attend(q, k, v, freqs, lq, lkv):
+        qh, kh, vh = _ring_heads(q, k, v, freqs, config, policy)
+        out = ring.ring_attention_local(qh, kh, vh, _ring_lengths(lq, lkv), idx=pr.idx,
+                                        ring=pr.size, transport=pr.transport(kh, vh), step=step)
+        return _merge_heads(out).to(q.dtype)
+
+    with precision_scope(policy):
+        d0, d1, freqs0, freqs1 = _embed(params, kpts0[:, s0], kpts1[:, s1], desc0[:, s0],
+                                        desc1[:, s1], config, policy)
+        d0, d1 = _ring_layers(params["layers"], d0, d1, freqs0, freqs1, lengths0, lengths1,
+                              attend)
+        d0, d1 = pr.gather(d0, dim=1), pr.gather(d1, dim=1)
+        scores = _last_assignment(params, d0, d1, lengths0, lengths1, m, n,
+                                  config.descriptor_dim)
+    return LightGlueOutput(d0, d1, scores, torch.tensor(config.n_layers))
+
+
+def _ring_heads(q, k, v, freqs, config, policy):
+    """(B, N, H*D) q/k/v -> ring heads in ``policy.attn_in_dtype``, RoPE on
+    q and k where ``freqs`` is given."""
+    qh, kh, vh = (_split_heads(t.to(policy.attn_in_dtype), config.num_heads) for t in (q, k, v))
+    if freqs is not None:
+        qh, kh = apply_rotary(freqs, qh), apply_rotary(freqs, kh)
+    return qh, kh, vh
+
+
+def _ring_lengths(lq, lkv):
+    return None if lq is None else torch.stack([lq, lkv], dim=-1).to(torch.int32)
+
+
+def _ring_layers(layers, d0, d1, freqs0, freqs1, lengths0, lengths1, attend):
+    """``forward_ring``'s layers over whichever rows ``d0``/``d1`` hold (the
+    whole images, or a rank's stripes with ``freqs`` of the same rows);
+    ``attend(q, k, v, freqs, len_q, len_kv)`` is the ring."""
+    e = d0.shape[-1]
+    for i in range(layers["self_attn"]["ln_g"].shape[0]):
+        sp, cp = _layer(layers["self_attn"], i), _layer(layers["cross_attn"], i)
+        new = []
+        for x, freqs, lens in ((d0, freqs0, lengths0), (d1, freqs1, lengths1)):
+            qkv = _linear(sp["qkv"], x)
+            ctx = attend(qkv[..., :e], qkv[..., e:2 * e], qkv[..., 2 * e:], freqs, lens, lens)
+            new.append(_ffn(sp, x, _linear(sp["out"], ctx)))
+        d0, d1 = new
+        a0, a1 = _linear(cp["qk_v"], d0), _linear(cp["qk_v"], d1)
+        m0 = attend(a0[..., :e], a1[..., :e], a1[..., e:], None, lengths0, lengths1)
+        m1 = attend(a1[..., :e], a0[..., :e], a0[..., e:], None, lengths1, lengths0)
+        d0 = _ffn(cp, d0, _linear(cp["out"], m0))
+        d1 = _ffn(cp, d1, _linear(cp["out"], m1))
+    return d0, d1
 
 
 # ---------------------------------------------------------------------------

@@ -25,6 +25,7 @@ program text serves both.
 
 from __future__ import annotations
 
+import datetime
 from dataclasses import dataclass
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
@@ -39,6 +40,7 @@ def initialize(
     process_id: Optional[int] = None,
     *,
     backend: str,
+    timeout: Optional[datetime.timedelta] = None,
 ) -> None:
     """Bring up the default process group (no-op when single-process).
 
@@ -47,6 +49,9 @@ def initialize(
         rendezvous; None reads it from the environment (``env://``).
       num_processes/process_id: world size and this process's rank.
       backend: ``"nccl"`` or ``"gloo"``; nothing is chosen for the caller.
+      timeout: how long a collective or a ring transfer may wait for the
+        other ranks before it raises (``init_process_group``'s own default,
+        30 minutes on gloo, when None), so a rank that died fails the rest.
     """
     if num_processes is not None and num_processes <= 1:
         return
@@ -56,7 +61,7 @@ def initialize(
         init_method = coordinator_address
     else:
         init_method = f"tcp://{coordinator_address}"
-    kwargs = {}
+    kwargs = {} if timeout is None else {"timeout": timeout}
     if num_processes is not None:
         kwargs.update(world_size=num_processes, rank=process_id)
     dist.init_process_group(backend, init_method=init_method, **kwargs)

@@ -200,7 +200,8 @@ def test_ring_size_validation_raises_as_jax(rng):
 
 def test_ring_attention_local_merges_blocks_in_ring_order(rng):
     """Position idx merges the block of origin (idx - s) mod ring at step s,
-    at col0 = origin * nk and row0 = idx * n, and rotate hands it the next."""
+    at col0 = origin * nk and row0 = idx * n, and the one-process transport
+    hands it the next."""
     q, k, v = (torch.from_numpy(x) for x in _qkv(rng, 1, 1, 64, 64))
     ks, vs = k.chunk(4, dim=2), v.chunk(4, dim=2)
     seen = []
@@ -211,7 +212,8 @@ def test_ring_attention_local_merges_blocks_in_ring_order(rng):
                                                     scale=scale)
 
     ring.ring_attention_local(q[:, :, 16:32], ks[1], vs[1], None, idx=1, ring=4,
-                              rotate=lambda _k, _v, src: (ks[src - 1], vs[src - 1]), step=step)
+                              transport=ring._LocalTransport(ks, vs, torch.device("cpu")),
+                              step=step)
     assert seen == [(16, 16, 1), (16, 0, 1), (16, 48, 1), (16, 32, 1)]
 
 
