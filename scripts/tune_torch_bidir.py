@@ -12,6 +12,7 @@ machine with nvcc:
     python3 scripts/tune_torch_bidir.py
 """
 
+import ctypes
 import sys
 from pathlib import Path
 
@@ -35,7 +36,7 @@ def main():
     for name, (_, proc) in builds.items():
         if proc.wait():
             raise RuntimeError(f"nvcc failed for {name}")
-    libs = {name: tune.load(d, ["lg_bidirectional_cross", "lg_bidir_row_groups"])
+    libs = {name: tune.load(d, ["lg_bidirectional_cross", "lg_bidir_plan"])
             for name, (d, _) in builds.items()}
 
     dev, bf16, e, n = torch.device("cuda"), torch.bfloat16, 256, cs.PAD64
@@ -53,7 +54,9 @@ def main():
             for i in (0, 1):
                 cs.compare(f"{name} o{i}", got[i], want[i], **cs.TOL["bf16"])
             ms = cs.cuda_ms(lambda: at.bidirectional_cross_attention(*args, **kw))
-            groups = libs[name].lg_bidir_row_groups(1, 4, n, n)
+            plan = (ctypes.c_int * 2)()
+            libs[name].lg_bidir_plan(1, 4, n, n, plan)  # one pair
+            groups = plan[0]
             print(f"bidirectional {name}: {groups} row groups, {ms:.4f} ms per call, "
                   f"{cs.N_LAYERS * ms:.3f} per pad-to-64 pair (differs in {share:.5f})", flush=True)
 

@@ -74,11 +74,17 @@
 //   (:464, :509). With dir1 the row sum takes round_to<bf16>(p), as
 //   bidir_cross.cu's direction 1 does. At bf16 stats p is already bf16 and
 //   the two rules agree.
-// - A block has 4 warps and 16 * 4 / C rows; the launch picks C so that a
-//   short grid still fills the card (mma.cuh:fill_row_groups: at B = 1,
-//   H = 4, N = 1024 one 16-row group, its four warps splitting each chunk's
-//   keys, 256 blocks); the split warps' row max, sum p and P.V meet in
-//   shared memory, which changes only the order of fp32 sums.
+// - A block has G 16-row groups of C warps each. One pair's shape picks C
+//   so that one pair's grid of four-warp blocks still fills the card
+//   (mma.cuh:fill_row_groups: at H = 4, N = 1024 one 16-row group, its
+//   four warps splitting each chunk's keys, 256 blocks a pair); the split
+//   warps' row max, sum p and P.V meet in shared memory, which changes only
+//   the order of fp32 sums. The batch never changes C, so a pair's rows
+//   come out the same in a batch of any size. It may change G: where the
+//   batch's launch still gives FILL_BLOCKS blocks, two or four groups share
+//   a block of eight or sixteen warps and each staged K and V chunk
+//   (mma_plan; at B = 4, N = 1024: (4, 4), 256 blocks), which changes no
+//   row's arithmetic.
 //
 // The FP32 kernel (attention_tf32_kernel: fp32 operands and out, with fp32
 // or bf16 stats) runs the same two passes and the same contract on the
@@ -98,10 +104,12 @@
 // layout, whose element e of n-tile n is row g + 8 (e / 2), key
 // 2 t4 + (e & 1) as in m16n8k16: so the clamp, the dead-column selects and
 // the keep multiply are the bf16 kernel's lines. A block holds G 16-row
-// groups of C warps each: the bf16 kernel's row groups (fill_row_groups,
-// G * C = 4), except where that is one group whose four warps split each
-// chunk and two groups still give FILL_BLOCKS / 2 blocks: then two groups
-// share a block of eight warps (tf32_plan), which halves the K and V reads
+// groups of C warps each: the bf16 kernel's pair split C, and one pair's
+// groups (fill_row_groups, G * C = 4), except where the whole launch still
+// gives FILL_BLOCKS / 2 blocks with two or four times the groups: then they
+// share a block of eight or sixteen warps (tf32_plan, mma.cuh:batch_plan;
+// each group keeps its pair's split, so a row's sums keep their order),
+// which halves (or quarters) the K and V reads
 // through L2 a query row at the same warps an SM (at B = 1, H = 4,
 // N = 1024: 1.96 against 2.45-2.50 ms per pair,
 // scripts/tune_torch_fp32_stack_bidir.py on an H100 at 700 W). Its shared
@@ -285,20 +293,20 @@ attention_tf32_kernel(Operand q, Operand k, Operand v, const int* __restrict__ l
 // The BF16 kernel: both products on the tensor cores (mma.sync m16n8k16)
 // ---------------------------------------------------------------------------
 
-template <bool KEEP, int C, typename TO>
-__global__ void __launch_bounds__(WARPS * 32)
+template <bool KEEP, int G, int C, typename TO>
+__global__ void __launch_bounds__(G * C * 32)
 attention_mma_kernel(Operand q, Operand k, Operand v, const int* __restrict__ len_q,
                      const int* __restrict__ len_kv, const float* __restrict__ keep_q,
                      const float* __restrict__ keep_kv, const float* __restrict__ exit_reg,
                      int layer, TO* __restrict__ out, int Nq, int Nk, int H, float scale,
                      int quant, int dir1, int aligned) {
-  constexpr int BR = 16 * (WARPS / C);  // rows per block
-  constexpr int KW = KC / C;            // keys of each chunk per warp
-  constexpr int NT = KW / 8;            // S n-tiles per warp and chunk
+  constexpr int BR = 16 * G;   // rows per block
+  constexpr int KW = KC / C;   // keys of each chunk per warp
+  constexpr int NT = KW / 8;   // S n-tiles per warp and chunk
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16_t* qs = reinterpret_cast<bf16_t*>(smem_raw);                 // [BR][LD]
   bf16_t* kv = qs + BR * LD;                                        // [2][K, V][KC][LD]
-  float* red = reinterpret_cast<float*>(kv + 2 * 2 * KC * LD);      // C > 1: [WARPS][16][RS]
+  float* red = reinterpret_cast<float*>(kv + 2 * 2 * KC * LD);      // C > 1: [G * C][16][RS]
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int rg = warp / C, part = warp % C;  // 16-row group, share of each chunk's keys
@@ -533,13 +541,19 @@ int launch_tf32(Operand q, Operand k, Operand v, const void* len_q, const void* 
   return static_cast<int>(cudaGetLastError());
 }
 
-// The FP32 kernel's block at this shape: G 16-row groups of C warps. The
-// bf16 kernel's groups with WARPS warps, but two one-group rows (C = 4) in
-// one block of eight warps where that still gives FILL_BLOCKS / 2 blocks.
+// The stack's block (mma.cuh:batch_plan, one pair's split at FILL_BLOCKS):
+// the FP32 kernel grows its blocks while FILL_BLOCKS / 2 blocks
+// remain (an fp32 block holds twice the bytes), so one pair of 1024 takes
+// 128 eight-warp blocks; the bf16 kernel while FILL_BLOCKS remain, so one
+// pair's launch is the four-warp one. At 8 pairs of 1024 the FP32 step took
+// 22.5 ms with sixteen-warp blocks against 26.8 at eight, the BF16 step
+// 10.9 with sixteen against 11.5 at eight (bench LightGlue 8x1024, an H100
+// at 700 W, PERF.md section 6, PR 21).
 inline void tf32_plan(int B, int H, int Nq, int& G, int& C) {
-  G = fill_row_groups(B, H, Nq);
-  C = WARPS / G;
-  if (G == 1 && (long long)B * H * ((Nq + 31) / 32) >= FILL_BLOCKS / 2) G = 2;
+  batch_plan(B, H, Nq, 0, FILL_BLOCKS, FILL_BLOCKS / 2, G, C);
+}
+inline void mma_plan(int B, int H, int Nq, int& G, int& C) {
+  batch_plan(B, H, Nq, 0, FILL_BLOCKS, FILL_BLOCKS, G, C);
 }
 
 template <bool KEEP>
@@ -549,32 +563,32 @@ int launch_fp32(Operand q, Operand k, Operand v, const void* len_q, const void* 
                 cudaStream_t s) {
   int G, C;
   tf32_plan(B, H, Nq, G, C);
-  auto run = G == 4   ? launch_tf32<KEEP, 4, 1>
-             : G == 1 ? launch_tf32<KEEP, 1, 4>
-             : C == 2 ? launch_tf32<KEEP, 2, 2>
-                      : launch_tf32<KEEP, 2, 4>;
+  auto run = C == 1   ? launch_tf32<KEEP, 4, 1>
+             : C == 2 ? (G == 2 ? launch_tf32<KEEP, 2, 2> : launch_tf32<KEEP, 4, 2>)
+             : (G == 1   ? launch_tf32<KEEP, 1, 4>
+                : G == 2 ? launch_tf32<KEEP, 2, 4>
+                         : launch_tf32<KEEP, 4, 4>);
   return run(q, k, v, len_q, len_kv, keep_q, keep_kv, exit_reg, layer, out, B, Nq, Nk, H, scale,
              quant, dir1, s);
 }
 
-template <bool KEEP, int C, typename TO>
+template <bool KEEP, int G, int C, typename TO>
 int launch_mma(Operand q, Operand k, Operand v, const void* len_q, const void* len_kv,
                const void* keep_q, const void* keep_kv, const void* exit_reg, int layer,
                void* out, int B, int Nq, int Nk, int H, float scale, int quant, int dir1,
                cudaStream_t stream) {
-  const size_t smem = mma_smem(C, 2);
-  static size_t opted_in = 48 * 1024;  // raised once, not per launch
-  if (smem > opted_in) {
-    cudaError_t err = cudaFuncSetAttribute(attention_mma_kernel<KEEP, C, TO>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    opted_in = smem;
-  }
-  constexpr int BR = 16 * (WARPS / C);
+  constexpr size_t smem = mma_smem(C, 2, G);
+  static const cudaError_t opt_in =  // above 48 KB: opt in once
+      smem > 48 * 1024
+          ? cudaFuncSetAttribute(attention_mma_kernel<KEEP, G, C, TO>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem))
+          : cudaSuccess;
+  if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
+  constexpr int BR = 16 * G;
   const int aligned = aligned16(q) && aligned16(k) && aligned16(v);
   dim3 grid((Nq + BR - 1) / BR, H, B);
-  attention_mma_kernel<KEEP, C, TO><<<grid, WARPS * 32, smem, stream>>>(
+  attention_mma_kernel<KEEP, G, C, TO><<<grid, G * C * 32, smem, stream>>>(
       q, k, v, static_cast<const int*>(len_q), static_cast<const int*>(len_kv),
       static_cast<const float*>(keep_q), static_cast<const float*>(keep_kv),
       static_cast<const float*>(exit_reg), layer, static_cast<TO*>(out), Nq, Nk, H, scale,
@@ -587,17 +601,15 @@ int launch_bf16(Operand q, Operand k, Operand v, const void* len_q, const void* 
                 const void* keep_q, const void* keep_kv, const void* exit_reg, int layer,
                 void* out, int B, int Nq, int Nk, int H, float scale, int quant, int dir1,
                 cudaStream_t s) {
-  switch (fill_row_groups(B, H, Nq)) {
-    case 4:
-      return launch_mma<KEEP, 1, TO>(q, k, v, len_q, len_kv, keep_q, keep_kv, exit_reg, layer,
-                                     out, B, Nq, Nk, H, scale, quant, dir1, s);
-    case 2:
-      return launch_mma<KEEP, 2, TO>(q, k, v, len_q, len_kv, keep_q, keep_kv, exit_reg, layer,
-                                     out, B, Nq, Nk, H, scale, quant, dir1, s);
-    default:
-      return launch_mma<KEEP, 4, TO>(q, k, v, len_q, len_kv, keep_q, keep_kv, exit_reg, layer,
-                                     out, B, Nq, Nk, H, scale, quant, dir1, s);
-  }
+  int G, C;
+  mma_plan(B, H, Nq, G, C);
+  auto run = C == 1   ? launch_mma<KEEP, 4, 1, TO>
+             : C == 2 ? (G == 2 ? launch_mma<KEEP, 2, 2, TO> : launch_mma<KEEP, 4, 2, TO>)
+             : (G == 1   ? launch_mma<KEEP, 1, 4, TO>
+                : G == 2 ? launch_mma<KEEP, 2, 4, TO>
+                         : launch_mma<KEEP, 4, 4, TO>);
+  return run(q, k, v, len_q, len_kv, keep_q, keep_kv, exit_reg, layer, out, B, Nq, Nk, H, scale,
+             quant, dir1, s);
 }
 
 // operand modes of lg_attention (kernels/layer_stack.py:attention mirrors them)
@@ -615,6 +627,7 @@ enum Mode { FP32 = 0, BF16 = 1, BF16_F32_OUT = 2 };
 // attention_tf32_kernel at tf32_plan's blocks), BF16 (bf16 operands and out)
 // or BF16_F32_OUT (bf16 operands, fp32 out), the last two
 // attention_mma_kernel at mma.cuh:fill_row_groups' 16-row groups per block
+// (one pair's shape)
 // (kernels/layer_stack.py:attention_plan mirrors both). dir1: the row sum
 // takes p rounded to the operand type (the cross block's direction 1).
 extern "C" int lg_attention(const void* q, long long q_bs, long long q_rs,
@@ -653,18 +666,19 @@ extern "C" int lg_rope_qk(const void* q, long long q_bs, long long q_rs, const v
                                        : rope_qk(oq, ok, f, static_cast<bf16_t*>(rot), B, N, H, s));
 }
 
-// The 16-row groups per block of lg_attention's bf16 kernel at this shape
-// (the wrapper's plan and flash_plan are held against it).
-extern "C" int lg_attention_row_groups(int B, int H, int Nq) { return fill_row_groups(B, H, Nq); }
+// The 16-row groups per block of lg_attention's bf16 kernel at one pair's
+// shape, whatever the batch (the wrapper's plan and flash_plan are held
+// against it).
+extern "C" int lg_attention_row_groups(int H, int Nq) { return fill_row_groups(H, Nq); }
 
 // lg_attention's block at this shape in this mode: out = {16-row groups,
 // warps of a group splitting each chunk's keys, dynamic shared memory in
 // bytes} (the wrapper's attention_plan is held against it).
 extern "C" int lg_attention_plan(int B, int H, int Nq, int mode, int* out) {
-  int G = fill_row_groups(B, H, Nq), C = WARPS / G;
-  if (mode == FP32) tf32_plan(B, H, Nq, G, C);
+  int G, C;
+  (mode == FP32 ? tf32_plan : mma_plan)(B, H, Nq, G, C);
   out[0] = G;
   out[1] = C;
-  out[2] = static_cast<int>(mode == FP32 ? tf32_smem(C, TF32_STAGES, G) : mma_smem(C, 2));
+  out[2] = static_cast<int>(mode == FP32 ? tf32_smem(C, TF32_STAGES, G) : mma_smem(C, 2, G));
   return 0;
 }

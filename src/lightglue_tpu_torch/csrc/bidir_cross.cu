@@ -48,11 +48,16 @@
 // - The output type TO is bf16 (the BF16 rung) or fp32 (MIXED: bf16
 //   operands, fp32 stats, an fp32 out): the same instructions up to the
 //   final store, which rounds to TO or does not.
-// - mma.cuh:fill_row_groups counted over both directions' rows, aiming for
-//   BIDIR_FILL_BLOCKS blocks, picks 4, 2 or 1 16-row groups per block
-//   (kernels/attention.py:bidir_plan mirrors it); the C = 4 / groups warps
-//   of a group split each chunk's keys and meet in shared memory, which
-//   changes only the order of fp32 sums. At 960 x 960 (B = 1, H = 4) 128
+// - mma.cuh:fill_row_groups counted over both directions' rows of one pair,
+//   aiming for BIDIR_FILL_BLOCKS blocks, picks 4, 2 or 1 16-row groups per
+//   block (kernels/attention.py:bidir_plan mirrors it); the C = 4 / groups
+//   warps of a group split each chunk's keys and meet in shared memory,
+//   which changes only the order of fp32 sums, and the pair's shape alone
+//   sets it. Where a batch's launch still gives BIDIR_FILL_BLOCKS blocks,
+//   a block takes two or four of those groups in one block of eight or
+//   sixteen warps (mma.cuh:batch_plan; the fp32 kernel likewise), which
+//   share each staged K and V chunk and change no row's arithmetic. At 960
+//   x 960 (B = 1, H = 4) 128
 //   blocks give 2 groups, 240 blocks, 0.049 ms; the stack attention's 256
 //   give 1 group, 480 blocks, 0.081 ms; 64 give 4 groups, 0.064 ms
 //   (scripts/tune_torch_bidir.py on an H100 at 700 W).
@@ -89,18 +94,18 @@ constexpr int BIDIR_FILL_BLOCKS = 128;  // blocks the row-group rule aims for (b
 // The FP32 kernel: both products on the tensor cores in 3xTF32 (m16n8k8)
 // ---------------------------------------------------------------------------
 
-template <int C>
-__global__ void __launch_bounds__(WARPS * 32, 2)
+template <int G, int C>
+__global__ void __launch_bounds__(G * C * 32, G * C > WARPS ? 1 : 2)
 bidir_tf32_kernel(Operand qk0, Operand qk1, Operand v0, Operand v1, const int* __restrict__ lens,
                   float* __restrict__ o0, float* __restrict__ o1, int N0, int N1, int H,
                   float scale, int quant, int blocks0, int aligned) {
-  constexpr int BR = 16 * (WARPS / C);  // rows per block
-  constexpr int KW = KC / C;            // keys of each chunk per warp
-  constexpr int NT = KW / 8;            // S n-tiles per warp and chunk (= P.V k steps)
+  constexpr int BR = 16 * G;   // rows per block
+  constexpr int KW = KC / C;   // keys of each chunk per warp
+  constexpr int NT = KW / 8;   // S n-tiles per warp and chunk (= P.V k steps)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* qs = reinterpret_cast<float*>(smem_raw);  // [BR][FP]
   float* kv = qs + BR * FP;                         // [TF32_STAGES][K, V][KC][FP]
-  float* red = kv + TF32_STAGES * 2 * KC * FP;      // C > 1: [WARPS][16][RS]
+  float* red = kv + TF32_STAGES * 2 * KC * FP;      // C > 1: [G * C][16][RS]
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int rg = warp / C, part = warp % C;  // 16-row group, share of each chunk's keys
@@ -237,18 +242,18 @@ bidir_tf32_kernel(Operand qk0, Operand qk1, Operand v0, Operand v1, const int* _
 // The BF16 kernel: both products on the tensor cores (mma.sync m16n8k16)
 // ---------------------------------------------------------------------------
 
-template <int C, typename TO>
-__global__ void __launch_bounds__(WARPS * 32)
+template <int G, int C, typename TO>
+__global__ void __launch_bounds__(G * C * 32)
 bidir_mma_kernel(Operand qk0, Operand qk1, Operand v0, Operand v1, const int* __restrict__ lens,
                  TO* __restrict__ o0, TO* __restrict__ o1, int N0, int N1, int H,
                  float scale, int quant, int blocks0, int aligned) {
-  constexpr int BR = 16 * (WARPS / C);  // rows per block
-  constexpr int KW = KC / C;            // keys of each chunk per warp
-  constexpr int NT = KW / 8;            // S n-tiles per warp and chunk
+  constexpr int BR = 16 * G;   // rows per block
+  constexpr int KW = KC / C;   // keys of each chunk per warp
+  constexpr int NT = KW / 8;   // S n-tiles per warp and chunk
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16_t* qs = reinterpret_cast<bf16_t*>(smem_raw);             // [BR][LD]
   bf16_t* kv = qs + BR * LD;                                    // [2][K, V][KC][LD]
-  float* red = reinterpret_cast<float*>(kv + 2 * 2 * KC * LD);  // C > 1: [WARPS][16][RS]
+  float* red = reinterpret_cast<float*>(kv + 2 * 2 * KC * LD);  // C > 1: [G * C][16][RS]
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int rg = warp / C, part = warp % C;  // 16-row group, share of each chunk's keys
@@ -453,71 +458,76 @@ bidir_mma_kernel(Operand qk0, Operand qk1, Operand v0, Operand v1, const int* __
 // launches
 // ---------------------------------------------------------------------------
 
-template <int C>
+template <int G, int C>
 int launch_tf32(Operand qk0, Operand qk1, Operand v0, Operand v1, const void* lens, void* o0,
                 void* o1, int B, int N0, int N1, int H, float scale, int quant,
                 cudaStream_t stream) {
-  constexpr size_t smem = tf32_smem(C, TF32_STAGES);
+  constexpr size_t smem = tf32_smem(C, TF32_STAGES, G);
   static const cudaError_t opt_in =  // above 48 KB: opt in once
-      cudaFuncSetAttribute(bidir_tf32_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      cudaFuncSetAttribute(bidir_tf32_kernel<G, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(smem));
   if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
-  constexpr int BR = 16 * (WARPS / C);
+  constexpr int BR = 16 * G;
   const int aligned = aligned16(qk0) && aligned16(qk1) && aligned16(v0) && aligned16(v1);
   const int blocks0 = (N0 + BR - 1) / BR, blocks1 = (N1 + BR - 1) / BR;
   dim3 grid(blocks0 + blocks1, H, B);
-  bidir_tf32_kernel<C><<<grid, WARPS * 32, smem, stream>>>(
+  bidir_tf32_kernel<G, C><<<grid, G * C * 32, smem, stream>>>(
       qk0, qk1, v0, v1, static_cast<const int*>(lens), static_cast<float*>(o0),
       static_cast<float*>(o1), N0, N1, H, scale, quant, blocks0, aligned);
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_fp32(Operand qk0, Operand qk1, Operand v0, Operand v1, const void* lens, void* o0,
-                void* o1, int B, int N0, int N1, int H, float scale, int quant, cudaStream_t s) {
-  switch (fill_row_groups(B, H, N0, N1, BIDIR_FILL_BLOCKS)) {
-    case 4:
-      return launch_tf32<1>(qk0, qk1, v0, v1, lens, o0, o1, B, N0, N1, H, scale, quant, s);
-    case 2:
-      return launch_tf32<2>(qk0, qk1, v0, v1, lens, o0, o1, B, N0, N1, H, scale, quant, s);
-    default:
-      return launch_tf32<4>(qk0, qk1, v0, v1, lens, o0, o1, B, N0, N1, H, scale, quant, s);
-  }
-}
-
-template <int C, typename TO>
+template <int G, int C, typename TO>
 int launch_mma(Operand qk0, Operand qk1, Operand v0, Operand v1, const void* lens, void* o0,
                void* o1, int B, int N0, int N1, int H, float scale, int quant,
                cudaStream_t stream) {
-  const size_t smem = mma_smem(C, 2);
-  static size_t opted_in = 48 * 1024;  // raised once, not per launch
-  if (smem > opted_in) {
-    cudaError_t err = cudaFuncSetAttribute(bidir_mma_kernel<C, TO>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    opted_in = smem;
-  }
-  constexpr int BR = 16 * (WARPS / C);
+  constexpr size_t smem = mma_smem(C, 2, G);
+  static const cudaError_t opt_in =  // above 48 KB: opt in once
+      smem > 48 * 1024
+          ? cudaFuncSetAttribute(bidir_mma_kernel<G, C, TO>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem))
+          : cudaSuccess;
+  if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
+  constexpr int BR = 16 * G;
   const int aligned = aligned16(qk0) && aligned16(qk1) && aligned16(v0) && aligned16(v1);
   const int blocks0 = (N0 + BR - 1) / BR, blocks1 = (N1 + BR - 1) / BR;
   dim3 grid(blocks0 + blocks1, H, B);
-  bidir_mma_kernel<C, TO><<<grid, WARPS * 32, smem, stream>>>(
+  bidir_mma_kernel<G, C, TO><<<grid, G * C * 32, smem, stream>>>(
       qk0, qk1, v0, v1, static_cast<const int*>(lens), static_cast<TO*>(o0),
       static_cast<TO*>(o1), N0, N1, H, scale, quant, blocks0, aligned);
   return static_cast<int>(cudaGetLastError());
 }
 
+// either kernel's block (mma.cuh:batch_plan): one pair's split, and up to
+// sixteen warps while BIDIR_FILL_BLOCKS blocks remain
+inline void bidir_plan(int B, int H, int N0, int N1, int& G, int& C) {
+  batch_plan(B, H, N0, N1, BIDIR_FILL_BLOCKS, BIDIR_FILL_BLOCKS, G, C);
+}
+
+int launch_fp32(Operand qk0, Operand qk1, Operand v0, Operand v1, const void* lens, void* o0,
+                void* o1, int B, int N0, int N1, int H, float scale, int quant, cudaStream_t s) {
+  int G, C;
+  bidir_plan(B, H, N0, N1, G, C);
+  auto run = C == 1   ? launch_tf32<4, 1>
+             : C == 2 ? (G == 2 ? launch_tf32<2, 2> : launch_tf32<4, 2>)
+             : (G == 1   ? launch_tf32<1, 4>
+                : G == 2 ? launch_tf32<2, 4>
+                         : launch_tf32<4, 4>);
+  return run(qk0, qk1, v0, v1, lens, o0, o1, B, N0, N1, H, scale, quant, s);
+}
+
 template <typename TO>
 int launch_bf16(Operand qk0, Operand qk1, Operand v0, Operand v1, const void* lens, void* o0,
                 void* o1, int B, int N0, int N1, int H, float scale, int quant, cudaStream_t s) {
-  switch (fill_row_groups(B, H, N0, N1, BIDIR_FILL_BLOCKS)) {
-    case 4:
-      return launch_mma<1, TO>(qk0, qk1, v0, v1, lens, o0, o1, B, N0, N1, H, scale, quant, s);
-    case 2:
-      return launch_mma<2, TO>(qk0, qk1, v0, v1, lens, o0, o1, B, N0, N1, H, scale, quant, s);
-    default:
-      return launch_mma<4, TO>(qk0, qk1, v0, v1, lens, o0, o1, B, N0, N1, H, scale, quant, s);
-  }
+  int G, C;
+  bidir_plan(B, H, N0, N1, G, C);
+  auto run = C == 1   ? launch_mma<4, 1, TO>
+             : C == 2 ? (G == 2 ? launch_mma<2, 2, TO> : launch_mma<4, 2, TO>)
+             : (G == 1   ? launch_mma<1, 4, TO>
+                : G == 2 ? launch_mma<2, 4, TO>
+                         : launch_mma<4, 4, TO>);
+  return run(qk0, qk1, v0, v1, lens, o0, o1, B, N0, N1, H, scale, quant, s);
 }
 
 // operand modes (kernels/attention.py mirrors them)
@@ -530,8 +540,8 @@ enum Mode { FP32 = 0, BF16 = 1, BF16_F32_OUT = 2 };
 // (B, 2) int32 [n0, n1] or null (unmasked). o0: (B, N0, H*64) and o1:
 // (B, N1, H*64), contiguous, in the mode's output type. mode: FP32 (fp32
 // operands and out, bidir_tf32_kernel), BF16 (bf16 operands and out) or
-// BF16_F32_OUT (bf16 operands, fp32 out; both bidir_mma_kernel), each with
-// lg_bidir_row_groups' 16-row groups per block.
+// BF16_F32_OUT (bf16 operands, fp32 out; both bidir_mma_kernel), each at
+// lg_bidir_plan's block.
 extern "C" int lg_bidirectional_cross(
     const void* qk0, long long qk0_bs, long long qk0_rs, const void* qk1,
     long long qk1_bs, long long qk1_rs, const void* v0, long long v0_bs,
@@ -552,8 +562,10 @@ extern "C" int lg_bidirectional_cross(
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The 16-row groups per block of lg_bidirectional_cross at this shape, in
-// every mode (the wrapper's bidir_plan is held against it).
-extern "C" int lg_bidir_row_groups(int B, int H, int N0, int N1) {
-  return fill_row_groups(B, H, N0, N1, BIDIR_FILL_BLOCKS);
+// lg_bidirectional_cross's block at this shape, in every mode: out = {16-row
+// groups, warps of a group splitting each chunk's keys} (the wrapper's
+// bidir_plan is held against it). The split is one pair's at every batch.
+extern "C" int lg_bidir_plan(int B, int H, int N0, int N1, int* out) {
+  bidir_plan(B, H, N0, N1, out[0], out[1]);
+  return 0;
 }

@@ -64,13 +64,18 @@
 //   into a bf16 scratch the wrapper allocates; the attention kernel then
 //   reads rotated rows. Rotating K in every block that reads it cost more
 //   than the attention itself at N = 2048.
-// - A block has 4 warps and 16 * 4 / C rows: with C = 1 each warp takes 16
+// - A block has G 16-row groups of C warps: with C = 1 each warp takes 16
 //   rows and every key; with C = 2 or 4 (short stripes: the ring step at
 //   512 rows would otherwise give 32 blocks for 132 SMs) the warps of a
 //   16-row group split each chunk's columns, and the row max, sum p and pv
 //   meet in shared memory. That changes only the order of fp32 sums. The
-//   wrapper picks C and the buffers per shape (kernels/attention.py:
-//   flash_plan).
+//   wrapper picks C from one batch entry's shape, whatever the batch (so a
+//   row sums in one order in a batch of any size), with one entry's G
+//   (G * C = 4); where the batch's launch still gives 256 blocks the bf16
+//   kernel takes two or four times those groups in a block of eight or
+//   sixteen warps, which share each staged K and V chunk and change no
+//   row's arithmetic (the fp32 kernel likewise); and the buffers per launch
+//   (kernels/attention.py:flash_plan).
 //
 // The FP32 kernel (flash_tf32_kernel, the fp32 rung and fp32 operands with
 // bf16 stats) runs the same two-pass design on the tensor cores in 3xTF32:
@@ -101,8 +106,8 @@
 // - Its block pieces are mma.cuh's tf32_q_frags, tf32_scores, tf32_pv,
 //   meet_max and meet_sums, shared with attention.cu's and bidir_cross.cu's
 //   fp32 kernels.
-// - Row groups and the column split are the bf16 kernel's (fill_row_groups),
-//   so the 512-row ring stripes still fill the card; tf32_smem (mma.cuh) is
+// - The column split and the blocks are the bf16 kernel's (fill_row_groups,
+//   flash_plan), so the 512-row ring stripes still fill the card; tf32_smem (mma.cuh) is
 //   its shared memory, which kernels/attention.py:flash_plan mirrors.
 // - RoPE (fused_mha self-attention) runs once, in rope_kernel<float>, into
 //   an fp32 scratch, every product and sum rounded in fp32.
@@ -150,18 +155,18 @@ struct Carries {
 // The FP32 kernel: both products on the tensor cores in 3xTF32 (m16n8k8)
 // ---------------------------------------------------------------------------
 
-template <bool STEP, int C>
-__global__ void __launch_bounds__(WARPS * 32, 2)
+template <bool STEP, int G, int C>
+__global__ void __launch_bounds__(G * C * 32, G * C > WARPS ? 1 : 2)
 flash_tf32_kernel(Operand q, Operand k, Operand v, Out o, Carries cy,
                   const int* __restrict__ lens, int Nq, int Nk, float scale, int block_k,
                   int quant, int aligned) {
-  constexpr int BR = 16 * (WARPS / C);  // rows per block
-  constexpr int KW = KC / C;            // keys of each chunk per warp
-  constexpr int NT = KW / 8;            // S n-tiles per warp and chunk (= P.V k steps)
+  constexpr int BR = 16 * G;   // rows per block
+  constexpr int KW = KC / C;   // keys of each chunk per warp
+  constexpr int NT = KW / 8;   // S n-tiles per warp and chunk (= P.V k steps)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* qs = reinterpret_cast<float*>(smem_raw);  // [BR][FP]
   float* kv = qs + BR * FP;                         // [TF32_STAGES][K, V][KC][FP]
-  float* red = kv + TF32_STAGES * 2 * KC * FP;      // C > 1: [WARPS][16][RS]
+  float* red = kv + TF32_STAGES * 2 * KC * FP;      // C > 1: [G * C][16][RS]
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int rg = warp / C, part = warp % C;  // 16-row group, share of each chunk's keys
@@ -361,18 +366,18 @@ flash_tf32_kernel(Operand q, Operand k, Operand v, Out o, Carries cy,
 // The BF16 kernel: both products on the tensor cores (mma.sync m16n8k16)
 // ---------------------------------------------------------------------------
 
-template <bool STEP, int C, typename TO>
-__global__ void __launch_bounds__(WARPS * 32)
+template <bool STEP, int G, int C, typename TO>
+__global__ void __launch_bounds__(G * C * 32)
 flash_mma_kernel(Operand q, Operand k, Operand v, Out o, Carries cy, const int* __restrict__ lens,
                  int Nq, int Nk, float scale, int block_k, int quant, int stages,
                  int aligned) {
-  constexpr int BR = 16 * (WARPS / C);  // rows per block
-  constexpr int KW = KC / C;            // keys of each chunk per warp
-  constexpr int NT = KW / 8;            // S n-tiles per warp and chunk
+  constexpr int BR = 16 * G;   // rows per block
+  constexpr int KW = KC / C;   // keys of each chunk per warp
+  constexpr int NT = KW / 8;   // S n-tiles per warp and chunk
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16_t* qs = reinterpret_cast<bf16_t*>(smem_raw);              // [BR][LD]
   bf16_t* kv = qs + BR * LD;  // [stages][K, V][KC][LD]
-  float* red = reinterpret_cast<float*>(kv + stages * 2 * KC * LD);  // C > 1: [WARPS][16][RS]
+  float* red = reinterpret_cast<float*>(kv + stages * 2 * KC * LD);  // C > 1: [G * C][16][RS]
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int rg = warp / C, part = warp % C;  // 16-row group, share of each chunk's keys
@@ -653,75 +658,78 @@ flash_mma_kernel(Operand q, Operand k, Operand v, Out o, Carries cy, const int* 
 // launches
 // ---------------------------------------------------------------------------
 
-template <bool STEP, int C>
+template <bool STEP, int G, int C>
 int launch_tf32(Operand q, Operand k, Operand v, Out o, Carries cy, const void* lens, int B,
                 int H, int Nq, int Nk, float scale, int block_k, int quant, cudaStream_t stream) {
-  constexpr size_t smem = tf32_smem(C, TF32_STAGES);
+  constexpr size_t smem = tf32_smem(C, TF32_STAGES, G);
   static const cudaError_t opt_in =  // above 48 KB: opt in once
-      cudaFuncSetAttribute(flash_tf32_kernel<STEP, C>,
+      cudaFuncSetAttribute(flash_tf32_kernel<STEP, G, C>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
-  constexpr int BR = 16 * (WARPS / C);
+  constexpr int BR = 16 * G;
   const int aligned = aligned16(q) && aligned16(k) && aligned16(v);
   dim3 grid((Nq + BR - 1) / BR, H, B);
-  flash_tf32_kernel<STEP, C><<<grid, WARPS * 32, smem, stream>>>(
+  flash_tf32_kernel<STEP, G, C><<<grid, G * C * 32, smem, stream>>>(
       q, k, v, o, cy, static_cast<const int*>(lens), Nq, Nk, scale, block_k, quant, aligned);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool STEP, int C, typename TO>
+template <bool STEP, int G, int C, typename TO>
 int launch_mma(Operand q, Operand k, Operand v, Out o, Carries cy, const void* lens, int B,
                int H, int Nq, int Nk, float scale, int block_k, int quant, int stages,
                cudaStream_t stream) {
-  const size_t smem = mma_smem(C, stages);
+  const size_t smem = mma_smem(C, stages, G);
   static size_t opted_in = 48 * 1024;  // raised once per size, not per launch
   if (smem > opted_in) {
-    cudaError_t err = cudaFuncSetAttribute(flash_mma_kernel<STEP, C, TO>,
+    cudaError_t err = cudaFuncSetAttribute(flash_mma_kernel<STEP, G, C, TO>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     opted_in = smem;
   }
-  constexpr int BR = 16 * (WARPS / C);
+  constexpr int BR = 16 * G;
   const int aligned = aligned16(q) && aligned16(k) && aligned16(v);
   dim3 grid((Nq + BR - 1) / BR, H, B);
-  flash_mma_kernel<STEP, C, TO><<<grid, WARPS * 32, smem, stream>>>(
+  flash_mma_kernel<STEP, G, C, TO><<<grid, G * C * 32, smem, stream>>>(
       q, k, v, o, cy, static_cast<const int*>(lens), Nq, Nk, scale, block_k, quant, stages,
       aligned);
   return static_cast<int>(cudaGetLastError());
 }
 
+// the blocks of either kernel: one pair's four-warp block (G * C = 4), or
+// two or four of its row groups in one block of eight or sixteen warps
 template <bool STEP>
 int launch_fp32(Operand q, Operand k, Operand v, Out o, Carries cy, const void* lens, int B,
                 int H, int Nq, int Nk, float scale, int block_k, int quant, int row_groups,
-                cudaStream_t s) {
-  switch (row_groups) {
-    case 4:
-      return launch_tf32<STEP, 1>(q, k, v, o, cy, lens, B, H, Nq, Nk, scale, block_k, quant, s);
-    case 2:
-      return launch_tf32<STEP, 2>(q, k, v, o, cy, lens, B, H, Nq, Nk, scale, block_k, quant, s);
-    case 1:
-      return launch_tf32<STEP, 4>(q, k, v, o, cy, lens, B, H, Nq, Nk, scale, block_k, quant, s);
+                int col_split, cudaStream_t s) {
+  decltype(&launch_tf32<STEP, 4, 1>) run = nullptr;
+  switch (row_groups * 8 + col_split) {
+    case 4 * 8 + 1: run = launch_tf32<STEP, 4, 1>; break;
+    case 2 * 8 + 2: run = launch_tf32<STEP, 2, 2>; break;
+    case 4 * 8 + 2: run = launch_tf32<STEP, 4, 2>; break;
+    case 1 * 8 + 4: run = launch_tf32<STEP, 1, 4>; break;
+    case 2 * 8 + 4: run = launch_tf32<STEP, 2, 4>; break;
+    case 4 * 8 + 4: run = launch_tf32<STEP, 4, 4>; break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return run(q, k, v, o, cy, lens, B, H, Nq, Nk, scale, block_k, quant, s);
 }
 
 template <bool STEP, typename TO>
 int launch_bf16(Operand q, Operand k, Operand v, Out o, Carries cy, const void* lens, int B,
                 int H, int Nq, int Nk, float scale, int block_k, int quant, int row_groups,
-                int stages, cudaStream_t s) {
-  switch (row_groups) {
-    case 4:
-      return launch_mma<STEP, 1, TO>(q, k, v, o, cy, lens, B, H, Nq, Nk, scale, block_k, quant,
-                                     stages, s);
-    case 2:
-      return launch_mma<STEP, 2, TO>(q, k, v, o, cy, lens, B, H, Nq, Nk, scale, block_k, quant,
-                                     stages, s);
-    case 1:
-      return launch_mma<STEP, 4, TO>(q, k, v, o, cy, lens, B, H, Nq, Nk, scale, block_k, quant,
-                                     stages, s);
+                int col_split, int stages, cudaStream_t s) {
+  decltype(&launch_mma<STEP, 4, 1, TO>) run = nullptr;
+  switch (row_groups * 8 + col_split) {
+    case 4 * 8 + 1: run = launch_mma<STEP, 4, 1, TO>; break;
+    case 2 * 8 + 2: run = launch_mma<STEP, 2, 2, TO>; break;
+    case 4 * 8 + 2: run = launch_mma<STEP, 4, 2, TO>; break;
+    case 1 * 8 + 4: run = launch_mma<STEP, 1, 4, TO>; break;
+    case 2 * 8 + 4: run = launch_mma<STEP, 2, 4, TO>; break;
+    case 4 * 8 + 4: run = launch_mma<STEP, 4, 4, TO>; break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return run(q, k, v, o, cy, lens, B, H, Nq, Nk, scale, block_k, quant, stages, s);
 }
 
 // operand modes (kernels/attention.py mirrors them): FP32 (fp32 operands and
@@ -730,26 +738,27 @@ int launch_bf16(Operand q, Operand k, Operand v, Out o, Carries cy, const void* 
 enum Mode { FP32 = 0, BF16 = 1, BF16_F32_OUT = 2 };
 
 // Both kernels at the plan of kernels/attention.py:flash_plan (row_groups
-// 4, 2 or 1 16-row groups per block, `stages` chunk buffers): bf16 operands
-// on the tensor cores in bf16, fp32 operands in 3xTF32 (TF32_STAGES
-// buffers). A caller with RoPE has rotated q and k first.
+// 4, 2 or 1 16-row groups per block of col_split warps each, `stages` chunk
+// buffers): bf16 operands on the tensor cores in bf16, fp32 operands in
+// 3xTF32 (TF32_STAGES buffers). A caller with RoPE has rotated q and k
+// first.
 template <bool STEP>
 int launch(Operand q, Operand k, Operand v, Out o, Carries cy, const void* lens, int B, int H,
-           int Nq, int Nk, float scale, int block_k, int quant, int row_groups, int stages,
-           int mode, cudaStream_t s) {
+           int Nq, int Nk, float scale, int block_k, int quant, int row_groups, int col_split,
+           int stages, int mode, cudaStream_t s) {
   if (mode == FP32) {
     if (stages != TF32_STAGES) return static_cast<int>(cudaErrorInvalidValue);
     return launch_fp32<STEP>(q, k, v, o, cy, lens, B, H, Nq, Nk, scale, block_k, quant,
-                             row_groups, s);
+                             row_groups, col_split, s);
   }
   if (stages < min(2, (block_k + KC - 1) / KC)) return static_cast<int>(cudaErrorInvalidValue);
   if (mode == BF16)
     return launch_bf16<STEP, bf16_t>(q, k, v, o, cy, lens, B, H, Nq, Nk, scale, block_k, quant,
-                                     row_groups, stages, s);
+                                     row_groups, col_split, stages, s);
   if constexpr (!STEP) {
     if (mode == BF16_F32_OUT)
       return launch_bf16<false, float>(q, k, v, o, cy, lens, B, H, Nq, Nk, scale, block_k,
-                                       quant, row_groups, stages, s);
+                                       quant, row_groups, col_split, stages, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -760,7 +769,7 @@ int launch(Operand q, Operand k, Operand v, Out o, Carries cy, const void* lens,
 // row) strides in elements, head h at columns [h*64, h*64 + 64). freqs:
 // (B, 2, Nk, 64) fp32 [cos; sin] (Nq == Nk) or null for no RoPE. lens:
 // (B, 2) int32 [q_len, kv_len] or null (unmasked). out: (B, Nq, H*64) in
-// the mode's output type. row_groups, stages: the plan
+// the mode's output type. row_groups, col_split, stages: the plan
 // (kernels/attention.py:flash_plan). rot: with RoPE, (2, B, Nq, H*64)
 // scratch of the operands' type for the rotated q and k.
 extern "C" int lg_fused_mha(const void* q, long long q_bs, long long q_rs,
@@ -768,8 +777,8 @@ extern "C" int lg_fused_mha(const void* q, long long q_bs, long long q_rs,
                             const void* v, long long v_bs, long long v_rs,
                             const void* freqs, const void* lens, void* out, void* rot,
                             int B, int Nq, int Nk, int H, float scale,
-                            int block_k, int quant, int row_groups, int stages, int mode,
-                            void* stream) {
+                            int block_k, int quant, int row_groups, int col_split, int stages,
+                            int mode, void* stream) {
   Operand oq{q, q_bs, D, q_rs}, ok{k, k_bs, D, k_rs};
   const Operand ov{v, v_bs, D, v_rs};
   const Out oo{out, (long long)Nq * H * D, D, (long long)H * D};
@@ -789,7 +798,7 @@ extern "C" int lg_fused_mha(const void* q, long long q_bs, long long q_rs,
     oq = Operand{rot, bs, D, (long long)H * D};
   }
   return launch<false>(oq, ok, ov, oo, Carries{}, lens, B, H, Nq, Nk, scale, block_k, quant,
-                       row_groups, stages, mode, s);
+                       row_groups, col_split, stages, mode, s);
 }
 
 // flash_attention: q (B, H, Nq, 64), k/v (B, H, Nk, 64) addressed by (batch,
@@ -800,12 +809,13 @@ extern "C" int lg_flash_attention(
     const void* k, long long k_bs, long long k_hs, long long k_rs,
     const void* v, long long v_bs, long long v_hs, long long v_rs,
     const void* lens, void* out, int B, int H, int Nq, int Nk, float scale,
-    int block_k, int quant, int row_groups, int stages, int mode, void* stream) {
+    int block_k, int quant, int row_groups, int col_split, int stages, int mode,
+    void* stream) {
   const Operand oq{q, q_bs, q_hs, q_rs}, ok{k, k_bs, k_hs, k_rs},
       ov{v, v_bs, v_hs, v_rs};
   const Out oo{out, (long long)H * Nq * D, (long long)Nq * D, D};
   return launch<false>(oq, ok, ov, oo, Carries{}, lens, B, H, Nq, Nk, scale, block_k, quant,
-                       row_groups, stages, mode, static_cast<cudaStream_t>(stream));
+                       row_groups, col_split, stages, mode, static_cast<cudaStream_t>(stream));
 }
 
 // flash_attention_step: q (B, H, Nq, 64), k/v (B, H, Nk, 64) addressed by
@@ -820,7 +830,7 @@ extern "C" int lg_flash_attention_step(
     const void* m_in, const void* l_in, const void* acc_in, void* m_out,
     void* l_out, void* acc_out, const void* lens, int B, int H, int Nq, int Nk,
     int row0, int col0, float scale, int block_q, int block_k, int quant,
-    int row_groups, int stages, int mode, void* stream) {
+    int row_groups, int col_split, int stages, int mode, void* stream) {
   const Operand oq{q, q_bs, q_hs, q_rs}, ok{k, k_bs, k_hs, k_rs},
       ov{v, v_bs, v_hs, v_rs};
   const Out none{nullptr, 0, 0, 0};
@@ -829,12 +839,12 @@ extern "C" int lg_flash_attention_step(
                    static_cast<float*>(l_out), static_cast<float*>(acc_out),
                    row0, col0, block_q};
   return launch<true>(oq, ok, ov, none, cy, lens, B, H, Nq, Nk, scale, block_k, quant,
-                      row_groups, stages, mode, static_cast<cudaStream_t>(stream));
+                      row_groups, col_split, stages, mode, static_cast<cudaStream_t>(stream));
 }
 
 // The dynamic shared memory of a block at this plan, bytes, in this mode
 // (the wrapper's plan is held against it).
-extern "C" int lg_flash_smem(int row_groups, int stages, int mode) {
-  const int C = WARPS / row_groups;
-  return static_cast<int>(mode == FP32 ? tf32_smem(C, stages) : mma_smem(C, stages));
+extern "C" int lg_flash_smem(int row_groups, int col_split, int stages, int mode) {
+  return static_cast<int>(mode == FP32 ? tf32_smem(col_split, stages, row_groups)
+                                       : mma_smem(col_split, stages, row_groups));
 }

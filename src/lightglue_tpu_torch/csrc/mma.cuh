@@ -24,8 +24,8 @@
 // - the attention block layout: WARPS warps, 16-row groups, C warps of a
 //   group splitting each 64-key chunk, rows padded to LD elements so the
 //   eight row addresses of an ldmatrix fall in different banks; the launch
-//   rule that picks the groups per block (kernels/layer_stack.py:
-//   fill_row_groups mirrors it);
+//   rule that picks the groups per block from one pair's shape
+//   (kernels/layer_stack.py:fill_row_groups mirrors it);
 // - rope_kernel: half-split RoPE on q and k into a scratch of their type,
 //   once per row instead of once in every block that reads a row.
 #pragma once
@@ -46,7 +46,7 @@ constexpr int RS = 2 + HD + 8;  // fp32 record per warp row: max, sum p, pv[HD] 
 // (key g, dim t4: 4 g + t4) and a V fragment's (key 2 t4, dim g: 8 t4 + g)
 constexpr int FP = HD + 4;
 constexpr int TF32_STAGES = 2;  // K and V chunk buffers of an fp32 attention block
-constexpr int FILL_BLOCKS = 256;  // blocks a launch aims for: about two per SM
+constexpr int FILL_BLOCKS = 256;  // blocks one pair's launch aims for: about two per SM
 
 // Rows of (B, H, N, HD) heads, or of a (B, N, H*HD) activation with hs = HD,
 // addressed by strides in elements.
@@ -66,12 +66,14 @@ inline bool aligned16(const Operand& o) {
          o.rs % 8 == 0;
 }
 
-// dynamic shared memory of an attention block at column split C with
-// `stages` K and V chunk buffers: Q, the chunks and, with C > 1, the
-// warps' partial row max, sum p and P.V
-constexpr size_t mma_smem(int C, int stages) {
-  return sizeof(bf16_t) * (size_t)(16 * (WARPS / C) + 2 * KC * stages) * LD +
-         (C > 1 ? sizeof(float) * WARPS * 16 * RS : 0);
+// dynamic shared memory of an attention block of G 16-row groups (G * C
+// warps; 0: WARPS / C) at column split C with `stages` K and V chunk
+// buffers: Q, the chunks and, with C > 1, the warps' partial row max, sum p
+// and P.V
+constexpr size_t mma_smem(int C, int stages, int G = 0) {
+  const int groups = G ? G : WARPS / C;
+  return sizeof(bf16_t) * (size_t)(16 * groups + 2 * KC * stages) * LD +
+         (C > 1 ? sizeof(float) * groups * C * 16 * RS : 0);
 }
 
 // the same for the fp32 (3xTF32) attention block of G 16-row groups (G * C
@@ -84,17 +86,42 @@ constexpr size_t tf32_smem(int C, int stages, int G = 0) {
          (C > 1 ? sizeof(float) * groups * C * 16 * RS : 0);
 }
 
-// 16-row groups per block (4, 2 or 1): the most that still give
-// FILL_BLOCKS blocks, else 1 (the block's warps then split each chunk's keys
-// 4 / groups ways). Nq2: the rows of a second direction in the same grid
-// (bidir_cross.cu), 0 for one; target: the blocks to aim for.
-inline int fill_row_groups(int B, int H, int Nq, int Nq2 = 0, int target = FILL_BLOCKS) {
+// 16-row groups per block (4, 2 or 1) of a WARPS-warp block: the most that
+// still give one pair (H heads, Nq rows) `target` blocks, else 1; the
+// block's warps split each chunk's keys 4 / groups ways. Nq2: the rows of a
+// second direction in the same grid (bidir_cross.cu), 0 for one. The split
+// warps' row max, sum p and P.V meet in shared memory, which orders a row's
+// fp32 sums: the rule reads the pair's shape and never the batch, so a row
+// sums in one order whatever batch its pair runs in (the batch only adds
+// blocks), and a pair's result is its own.
+inline int fill_row_groups(int H, int Nq, int Nq2 = 0, int target = FILL_BLOCKS) {
   for (int groups = 4; groups > 1; groups /= 2) {
     const int rows = 16 * groups;
-    if ((long long)B * H * ((Nq + rows - 1) / rows + (Nq2 + rows - 1) / rows) >= target)
+    if ((long long)H * ((Nq + rows - 1) / rows + (Nq2 + rows - 1) / rows) >= target)
       return groups;
   }
   return 1;
+}
+
+// A block of the attention kernels at batch B: G 16-row groups of C warps.
+// C is one pair's split (fill_row_groups at `target`, whose groups make one
+// pair's block of WARPS warps); where the batch's launch still gives `grow`
+// blocks, a block takes two or four times those groups (at most 16 warps):
+// more rows share each staged K and V chunk, and no row's arithmetic
+// changes (a group's C warps meet among themselves). With grow == target
+// one pair's launch keeps its four-warp blocks
+// (kernels/layer_stack.py:batch_row_groups mirrors it).
+inline void batch_plan(int B, int H, int Nq, int Nq2, int target, int grow, int& G, int& C) {
+  const int G0 = fill_row_groups(H, Nq, Nq2, target);
+  C = WARPS / G0;
+  G = G0;
+  for (int g = 4; g > G0; g /= 2) {
+    const int rows = 16 * g;
+    if ((long long)B * H * ((Nq + rows - 1) / rows + (Nq2 + rows - 1) / rows) >= grow) {
+      G = g;
+      return;
+    }
+  }
 }
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {

@@ -46,10 +46,9 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from lightglue_tpu_torch.kernels import _build
-from lightglue_tpu_torch.kernels.layer_stack import (_KC, _STREAM_STAGES, _WARPS, _check_same,
-                                                     _quant, _stream, apply_rotary,
-                                                     attention_mode, fill_row_groups, mma_smem,
-                                                     tf32_smem)
+from lightglue_tpu_torch.kernels.layer_stack import (_KC, _STREAM_STAGES, _check_same, _quant,
+                                                     _stream, apply_rotary, attention_mode,
+                                                     batch_row_groups, mma_smem, tf32_smem)
 
 DEFAULT_BLOCK_Q = 1024
 DEFAULT_BLOCK_K = 1024
@@ -73,9 +72,13 @@ def flash_plan(batch: int, heads: int, nq: int, block_k: int,
                dtype=torch.bfloat16) -> FlashPlan:
     """The kernel's launch for one shape, ``dtype`` operands.
 
-    Rows: ``layer_stack.fill_row_groups``, the most 16-row groups per block
-    (4, 2, 1) that still give 256 blocks, else 1; the block's four warps
-    split each 64-key chunk's columns ``4 / row_groups`` ways. Large blocks
+    Rows: ``layer_stack.fill_row_groups``, the most 16-row groups per
+    four-warp block (4, 2, 1) that still give one batch entry 256 blocks,
+    else 1, whose warps split each 64-key chunk's columns ``4 / row_groups``
+    ways; that split reads ``heads`` and ``nq`` only, so a row's sums meet
+    in one order at every ``batch`` (a pair's result is its own). Where the
+    batch's launch still gives 256 blocks, a block takes two or four times
+    those groups, up to sixteen warps (``batch_row_groups``): large blocks
     read K and V fewer times through L2; short stripes (the ring step's 512
     rows) need small ones to fill the card. Buffers: bf16 operands keep the
     whole ``block_k`` tile resident (K and V copied once, read by both
@@ -83,25 +86,25 @@ def flash_plan(batch: int, heads: int, nq: int, block_k: int,
     fits, else chunks stream through ``_STREAM_STAGES`` buffers; fp32
     chunks always stream (a 64-key fp32 chunk of K and V is 34 KB), so the
     fp32 block's shared memory does not grow with ``block_k``."""
-    groups = fill_row_groups(batch, heads, nq)
+    groups, split = batch_row_groups(batch, heads, nq)
     blocks = batch * heads * -(-nq // (16 * groups))
     if dtype == torch.float32:
-        return FlashPlan(groups, _WARPS // groups, _STREAM_STAGES, blocks,
-                         tf32_smem(groups, _STREAM_STAGES))
+        return FlashPlan(groups, split, _STREAM_STAGES, blocks,
+                         tf32_smem(groups, _STREAM_STAGES, split))
     chunks = -(-block_k // _KC)
     stages = min(chunks, _STREAM_STAGES)
-    if blocks <= _SMS and mma_smem(groups, chunks) <= _build.MAX_DYNAMIC_SMEM:
+    if blocks <= _SMS and mma_smem(groups, chunks, split) <= _build.MAX_DYNAMIC_SMEM:
         stages = chunks
-    return FlashPlan(groups, _WARPS // groups, stages, blocks, mma_smem(groups, stages))
+    return FlashPlan(groups, split, stages, blocks, mma_smem(groups, stages, split))
 
 
 def _flash_launch(name: str, dtype, batch: int, heads: int, nq: int, block_k: int):
-    """(row_groups, stages) to pass to ``flash_attn.cu``; raises where the
-    block would not fit in shared memory."""
+    """(row_groups, col_split, stages) to pass to ``flash_attn.cu``; raises
+    where the block would not fit in shared memory."""
     plan = flash_plan(batch, heads, nq, block_k, dtype)
     if plan.smem > _build.MAX_DYNAMIC_SMEM:
         raise ValueError(f"{name}: a {plan.row_groups * 16}-row block exceeds shared memory")
-    return plan.row_groups, plan.stages
+    return plan.row_groups, plan.col_split, plan.stages
 
 
 def _blocks(nq: int, nk: int, block_q: int, block_k: int):
@@ -214,16 +217,20 @@ class BidirPlan(NamedTuple):
 
 def bidir_plan(batch: int, heads: int, n0: int, n1: int, dtype=torch.bfloat16) -> BidirPlan:
     """The bidirectional kernel's launch for one shape, in either operand
-    type: ``fill_row_groups`` counted over both directions' rows and aiming
-    for 128 blocks (at 960 x 960 two row groups ran 1.6x faster than the
-    stack attention's one in bf16, 1.5x in fp32), with two K/V chunk
-    buffers (the rows stream through them, so any N fits), bf16 chunks at
-    ``mma_smem``, fp32 ones at ``tf32_smem``
-    (csrc/bidir_cross.cu:lg_bidir_row_groups)."""
-    groups = fill_row_groups(batch, heads, n0, n1, _BIDIR_FILL_BLOCKS)
+    type: the split of ``fill_row_groups`` counted over both directions'
+    rows of one pair and aiming for 128 blocks, at every ``batch`` (at 960 x
+    960 two row groups ran 1.6x faster than the stack attention's one in
+    bf16, 1.5x in fp32); one pair's four-warp block, or, where the batch's
+    launch still gives 128 blocks, two or four times its groups in one block
+    (``batch_row_groups``); two K/V chunk buffers (the rows stream through
+    them, so any N fits), bf16 chunks at ``mma_smem``, fp32 ones at
+    ``tf32_smem`` (csrc/bidir_cross.cu:lg_bidir_plan)."""
+    groups, split = batch_row_groups(batch, heads, n0, n1, target=_BIDIR_FILL_BLOCKS,
+                                     grow=_BIDIR_FILL_BLOCKS)
     rows = 16 * groups
-    return BidirPlan(groups, _WARPS // groups, batch * heads * (-(-n0 // rows) - (-n1 // rows)),
-                     (tf32_smem if dtype == torch.float32 else mma_smem)(groups, _STREAM_STAGES))
+    smem = tf32_smem if dtype == torch.float32 else mma_smem
+    return BidirPlan(groups, split, batch * heads * (-(-n0 // rows) - (-n1 // rows)),
+                     smem(groups, _STREAM_STAGES, split))
 
 
 def _lengths_arg(lengths, bsz: int, dev):

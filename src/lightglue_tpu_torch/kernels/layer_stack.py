@@ -108,26 +108,47 @@ _LIN_TF32_BK = 64
 _S8_TILES, _S8_MIN_BLOCKS, _S8_MAX_K, _S8_WARPS = ((2, 2), (1, 2), (1, 1)), 128, 512, 8
 
 
-def fill_row_groups(batch: int, heads: int, nq: int, nq2: int = 0,
-                    target: int = _FILL_BLOCKS) -> int:
-    """16-row groups per block of the bf16 attention kernels (4, 2 or 1):
-    the most that still give ``target`` blocks, else 1, whose four warps
-    then split each 64-key chunk (csrc/mma.cuh:fill_row_groups). ``nq2``:
-    the rows of a second direction in the same grid (the bidirectional
-    kernel)."""
+def fill_row_groups(heads: int, nq: int, nq2: int = 0, target: int = _FILL_BLOCKS) -> int:
+    """16-row groups per block of the four-warp attention kernels (4, 2 or
+    1): the most that still give one pair (``heads`` heads, ``nq`` rows)
+    ``target`` blocks, else 1; the block's four warps split each 64-key
+    chunk ``4 / groups`` ways (csrc/mma.cuh:fill_row_groups). ``nq2``: the
+    rows of a second direction in the same grid (the bidirectional kernel).
+    The split warps' partial sums meet in shared memory, so the split sets
+    the order of a row's fp32 sums: the rule reads one pair's shape and
+    never the batch, which only adds blocks, and a pair's result is the same
+    in a batch of any size."""
     for groups in (4, 2):
-        if batch * heads * (-(-nq // (16 * groups)) - (-nq2 // (16 * groups))) >= target:
+        if heads * (-(-nq // (16 * groups)) - (-nq2 // (16 * groups))) >= target:
             return groups
     return 1
 
 
-def mma_smem(row_groups: int, stages: int) -> int:
-    """Dynamic shared memory of a bf16 attention block: Q, ``stages`` K and
-    V chunks, and (columns split) the warps' partial row max, sum p and P.V
-    (csrc/mma.cuh:mma_smem)."""
+def batch_row_groups(batch: int, heads: int, nq: int, nq2: int = 0, *,
+                     target: int = _FILL_BLOCKS, grow: int = _FILL_BLOCKS) -> Tuple[int, int]:
+    """(16-row groups per block, warps of a group splitting each chunk) of
+    an attention kernel at ``batch``: one pair's split (``fill_row_groups``
+    at ``target``), and one pair's groups, or, where the batch's launch
+    still gives ``grow`` blocks, two or four times as many groups in one
+    block (at most sixteen warps); more rows share each staged K and V
+    chunk, and no row's arithmetic changes (csrc/mma.cuh:batch_plan)."""
+    groups = fill_row_groups(heads, nq, nq2, target)
+    split = _WARPS // groups
+    for g in (4, 2):
+        if g > groups and batch * heads * (-(-nq // (16 * g)) - (-nq2 // (16 * g))) >= grow:
+            return g, split
+    return groups, split
+
+
+def mma_smem(row_groups: int, stages: int, col_split: Optional[int] = None) -> int:
+    """Dynamic shared memory of a bf16 attention block of ``row_groups``
+    16-row groups of ``col_split`` warps (default: four warps in all): Q,
+    ``stages`` K and V chunks, and (columns split) the warps' partial row
+    max, sum p and P.V (csrc/mma.cuh:mma_smem)."""
+    col_split = col_split or _WARPS // row_groups
     smem = 2 * (16 * row_groups + 2 * _KC * stages) * _LD
-    if row_groups < _WARPS:
-        smem += 4 * _WARPS * 16 * _RS
+    if col_split > 1:
+        smem += 4 * row_groups * col_split * 16 * _RS
     return smem
 
 
@@ -155,25 +176,25 @@ class AttentionPlan(NamedTuple):
 
 def attention_plan(batch: int, heads: int, nq: int, nk: int,
                    dtype=torch.bfloat16) -> AttentionPlan:
-    """The stack attention's launch, in either operand type: 16-row groups
-    per block at ``fill_row_groups`` (four warps in all), two K/V chunk
-    buffers (the whole row streams through them, so shared memory does not
-    grow with Nk), bf16 chunks at ``mma_smem``, fp32 ones at ``tf32_smem``.
-    fp32 operands take two one-group rows (four warps splitting each chunk)
-    into one block of eight warps where that still gives 128 blocks: half
-    the K and V reads a query row at the same warps an SM
-    (csrc/attention.cu:tf32_plan, lg_attention_plan). Raises past the
-    contract's N <= 1024."""
+    """The stack attention's launch, in either operand type: each chunk's
+    keys split ``4 / fill_row_groups`` ways, one pair's split at every batch;
+    one pair's 16-row groups per block (four warps in all), or, where the
+    batch's launch still gives enough blocks, two or four times as many
+    groups of that split in one block of up to sixteen warps (more rows
+    share each staged K and V chunk; no row's arithmetic changes): bf16
+    while 256 blocks remain, fp32, twice the bytes, while 128 remain
+    (csrc/attention.cu:mma_plan, tf32_plan, lg_attention_plan; at one pair
+    of 1024 the bf16 launch is 256 four-warp blocks, the fp32 one 128
+    eight-warp blocks). Two K/V chunk buffers (the whole row streams
+    through them, so shared memory does not grow with Nk), bf16 chunks at
+    ``mma_smem``, fp32 ones at ``tf32_smem``. Raises past the contract's
+    N <= 1024."""
     if nk > MAX_SEQ:
         raise ValueError(f"attention: {nk} keys exceed the layer stack's {MAX_SEQ}")
-    groups = fill_row_groups(batch, heads, nq)
-    split = _WARPS // groups
-    if dtype != torch.float32:
-        smem = mma_smem(groups, _STREAM_STAGES)
-    else:
-        if groups == 1 and batch * heads * -(-nq // 32) >= _FILL_BLOCKS // 2:
-            groups = 2
-        smem = tf32_smem(groups, _STREAM_STAGES, split)
+    fp32 = dtype == torch.float32
+    groups, split = batch_row_groups(batch, heads, nq,
+                                     grow=_FILL_BLOCKS // 2 if fp32 else _FILL_BLOCKS)
+    smem = (tf32_smem if fp32 else mma_smem)(groups, _STREAM_STAGES, split)
     return AttentionPlan(groups, split, batch * heads * -(-nq // (16 * groups)), smem)
 
 

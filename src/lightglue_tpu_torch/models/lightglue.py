@@ -58,8 +58,34 @@ def _weight(p, dtype) -> torch.Tensor:
     return p["w"].to(dtype)
 
 
+def _per_entry(fn, *xs: torch.Tensor) -> torch.Tensor:
+    """``fn(*xs)`` one batch entry at a time, each kept as a batch of one,
+    concatenated: every call has the shape it has for one pair alone, as
+    ``superpoint._conv`` convolves one image at a time. cuBLAS picks a
+    product's algorithm by the whole shape, batch included, and so its sum
+    order (``scripts/tune_torch_batch_invariance.py``, PERF.md section 6)."""
+    if xs[0].shape[0] == 1:
+        return fn(*xs)
+    return torch.cat([fn(*(x[i:i + 1] for x in xs)) for i in range(xs[0].shape[0])])
+
+
+def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` of a linear: ``w`` (in, out), or (B, in, out) with a weight
+    per pair. An fp32 ``x`` with a batch axis runs one batch entry at a time
+    (``_per_entry``): at MIXED and FP32 the match head's and the per-block
+    route's projections gave a pair other bits in a batch of 4 than alone;
+    bf16 products did not move."""
+    if w.dim() == x.dim():
+        if x.dtype == torch.float32:
+            return _per_entry(torch.bmm, x, w)
+        return torch.bmm(x, w)
+    if x.dim() > 2 and x.dtype == torch.float32:
+        return _per_entry(lambda xi: xi @ w, x)
+    return x @ w
+
+
 def _linear(p, x: torch.Tensor) -> torch.Tensor:
-    return x @ _weight(p, x.dtype) + p["b"].to(x.dtype)
+    return _matmul(x, _weight(p, x.dtype)) + p["b"].to(x.dtype)
 
 
 class TensorParallel(NamedTuple):
@@ -76,7 +102,7 @@ def _linear_rowshard(p, x: torch.Tensor, tp: Optional[TensorParallel]) -> torch.
     """Row-sharded linear (JAX :88-94): x holds the local feature slice, w the
     matching rows; the partial products are summed over the model axis and
     the bias is added once, after the sum."""
-    partial = x @ _weight(p, x.dtype)
+    partial = _matmul(x, _weight(p, x.dtype))
     if tp is not None:
         partial = tp.all_reduce(partial)
     return partial + p["b"].to(x.dtype)
@@ -87,7 +113,7 @@ def _linear_maybe_batched(p, x: torch.Tensor) -> torch.Tensor:
     each pair of an adaptive batch uses the head of the layer it exited at."""
     w = _weight(p, x.dtype)
     if w.dim() == x.dim():
-        return torch.bmm(x, w) + p["b"].to(x.dtype)[:, None, :]
+        return _matmul(x, w) + p["b"].to(x.dtype)[:, None, :]
     return _linear(p, x)
 
 
@@ -115,7 +141,9 @@ def match_assignment(
     scale = float(dim) ** 0.25
     md0 = _linear_maybe_batched(p["proj"], d0) / torch.tensor(scale, dtype=d0.dtype)
     md1 = _linear_maybe_batched(p["proj"], d1) / torch.tensor(scale, dtype=d1.dtype)
-    sim = md0.float() @ md1.float().transpose(-1, -2)
+    # one pair at a time: at 200 keypoints the batched fp32 product gave a
+    # pair other bits in a batch of 4 than alone
+    sim = _per_entry(lambda a, b: a @ b.transpose(-1, -2), md0.float(), md1.float())
     z0 = _linear_maybe_batched(p["match"], d0).float()  # (B, M, 1)
     z1 = _linear_maybe_batched(p["match"], d1).float()  # (B, N, 1)
     certainties = F.logsigmoid(z0) + F.logsigmoid(z1).transpose(-1, -2)

@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from lightglue_tpu.kernels import attention as jax_attn
-from lightglue_tpu_torch.kernels import attention
+from lightglue_tpu_torch.kernels import attention, layer_stack
 
 DTYPES = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 # FP32: true fp32 on both sides, sums in another order. BF16: the same
@@ -237,8 +237,10 @@ def test_rounding_witness_premise_against_jax(stats):
 
 
 # (batch, heads, nq, block_k, row groups): every flash_attn.cu shape of the
-# paths and chip_smoke.py; the row groups are the plan's choice (the most
-# that still give 256 blocks, else 1)
+# paths and chip_smoke.py; the row groups are the plan's choice: the most
+# that still give one batch entry 256 four-warp blocks, else 1, whose split
+# holds at any batch; where the batch still gives 256 blocks, two or four
+# times those groups in a larger block
 PLAN_SHAPES = {
     "2048 self, block_k 1024": (2, 4, 2048, 1024, 4),
     "2048 cross, block_k 1024": (1, 4, 2048, 1024, 2),
@@ -256,12 +258,14 @@ PLAN_SHAPES = {
 def test_flash_launch_plan_fits(shape):
     batch, heads, nq, block_k, groups = PLAN_SHAPES[shape]
     plan = attention.flash_plan(batch, heads, nq, block_k)
-    assert plan.row_groups == groups and plan.row_groups * plan.col_split == 4
+    assert plan.row_groups == groups
+    assert plan.col_split == 4 // layer_stack.fill_row_groups(heads, nq)  # one entry's split
+    assert plan.row_groups * plan.col_split in (4, 8, 16)
     assert plan.blocks == batch * heads * -(-nq // (16 * groups))
     assert plan.smem <= attention._build.MAX_DYNAMIC_SMEM
     assert 1 <= plan.stages <= -(-block_k // 64)
     if shape == "ring stripe 512":  # the ring step fills the card, its tile resident
         assert plan.blocks >= 128 and plan.stages == 8
     for dtype in (torch.bfloat16, torch.float32):  # neither kernel raises here
-        groups_arg, stages = attention._flash_launch("f", dtype, batch, heads, nq, block_k)
-        assert groups_arg in (1, 2, 4) and stages >= 1
+        groups_arg, split, stages = attention._flash_launch("f", dtype, batch, heads, nq, block_k)
+        assert groups_arg in (1, 2, 4) and split == plan.col_split and stages >= 1

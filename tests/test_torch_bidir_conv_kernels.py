@@ -30,8 +30,9 @@ def _share(a, b):
 
 
 # (batch, n0, n1) -> (row groups, blocks) of the bf16 kernel, H = 4: the
-# pad-to-64 path's 960 cap, its mixed buckets, two pairs, and a size past
-# what the old fp32 kernel's S slab held in shared memory
+# pad-to-64 path's 960 cap, its mixed buckets, two pairs (two of one pair's
+# row groups in an eight-warp block, each with the pair's split), and a size
+# past what the old fp32 kernel's S slab held in shared memory
 BIDIR_PLANS = {
     "960x960": ((1, 960, 960), (2, 240)),
     "960x704": ((1, 960, 704), (2, 208)),
@@ -49,17 +50,18 @@ def test_bidir_plan_fits(shape):
     (b, n0, n1), (groups, blocks) = BIDIR_PLANS[shape]
     plan = attention.bidir_plan(b, 4, n0, n1)
     assert (plan.row_groups, plan.blocks) == (groups, blocks)
-    assert plan.row_groups * plan.col_split == 4
+    assert plan.col_split == attention.bidir_plan(1, 4, n0, n1).col_split  # the pair's split
+    assert plan.row_groups * plan.col_split in (4, 8, 16)
     rows = 16 * groups  # both directions' row blocks
     assert plan.blocks == b * 4 * (-(-n0 // rows) - (-n1 // rows))
     assert groups == 1 or plan.blocks >= 128  # larger blocks only while a wave stays full
-    assert plan.smem == layer_stack.mma_smem(groups, 2) <= _build.MAX_DYNAMIC_SMEM
+    assert plan.smem == layer_stack.mma_smem(groups, 2, plan.col_split) <= _build.MAX_DYNAMIC_SMEM
     # the fp32 (3xTF32) kernel: the same blocks, fp32 chunks streamed
-    # through two buffers, two blocks an SM
+    # through two buffers, two four-warp blocks an SM (one larger one)
     fp32 = attention.bidir_plan(b, 4, n0, n1, torch.float32)
     assert fp32[:3] == plan[:3]
-    assert fp32.smem == layer_stack.tf32_smem(groups, 2)
-    assert 2 * fp32.smem <= _build.MAX_DYNAMIC_SMEM
+    assert fp32.smem == layer_stack.tf32_smem(groups, 2, plan.col_split)
+    assert (1 if groups * plan.col_split > 4 else 2) * fp32.smem <= _build.MAX_DYNAMIC_SMEM
 
 
 def test_bidir_plan_refuses_the_fp32_slab_past_shared_memory():

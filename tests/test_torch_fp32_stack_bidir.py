@@ -265,16 +265,17 @@ STACK_BUCKETS = [(b, n) for b in (1, 2) for n in range(128, 1025, 128)]
 def test_fp32_attention_plan_mirrors_the_row_group_rule(shape):
     """attention_plan's fp32 launch is lg_attention's FP32 launch
     (csrc/attention.cu:tf32_plan, lg_attention_plan), computed here: the
-    row groups of mma.cuh:fill_row_groups (256 blocks of four warps), the
-    keys of each chunk split 4 / groups ways; where that is one group and
-    32-row blocks still number 128, two groups in one block of eight warps.
+    row groups of mma.cuh:fill_row_groups (256 blocks of four warps for one
+    pair, at any batch), the keys of each chunk split 4 / groups ways; where
+    that is one group and the batch's 64- or 32-row blocks still number 128,
+    four or two groups in one block of sixteen or eight warps.
     Shared memory mma.cuh:tf32_smem, whatever Nk: two four-warp blocks an
     SM, or one eight-warp block."""
     b, n = shape
-    groups = next((g for g in (4, 2) if b * 4 * -(-n // (16 * g)) >= 256), 1)
+    groups = next((g for g in (4, 2) if 4 * -(-n // (16 * g)) >= 256), 1)
     split = 4 // groups
-    if groups == 1 and b * 4 * -(-n // 32) >= 128:
-        groups = 2
+    if groups == 1:
+        groups = next((g for g in (4, 2) if b * 4 * -(-n // (16 * g)) >= 128), 1)
     for nk in (n, 1024):
         plan = layer_stack.attention_plan(b, 4, n, nk, torch.float32)
         assert (plan.row_groups, plan.col_split) == (groups, split)
@@ -284,7 +285,8 @@ def test_fp32_attention_plan_mirrors_the_row_group_rule(shape):
         assert (1 if groups * split > 4 else 2) * plan.smem <= _build.MAX_DYNAMIC_SMEM
 
 
-# (B, N0, N1) -> fp32 row groups: the pad-to-64 cap, its mixed buckets, two pairs
+# (B, N0, N1) -> fp32 row groups: the pad-to-64 cap, its mixed buckets, two
+# pairs (two of one pair's groups in an eight-warp block)
 PAD64_PLANS = {(1, 960, 960): 2, (1, 960, 704): 2, (1, 960, 64): 2, (2, 960, 960): 4,
                (2, 960, 64): 4, (1, 128, 64): 1}
 
@@ -299,7 +301,9 @@ def test_fp32_bidir_plan_at_pad64_shapes(shape):
     groups = PAD64_PLANS[shape]
     plan = attention.bidir_plan(b, 4, n0, n1, torch.float32)
     rows = 16 * groups
-    assert (plan.row_groups, plan.col_split) == (groups, 4 // groups)
+    split = attention.bidir_plan(1, 4, n0, n1, torch.float32).col_split  # the pair's
+    assert (plan.row_groups, plan.col_split) == (groups, split)
     assert plan.blocks == b * 4 * (-(-n0 // rows) - (-n1 // rows))
     assert groups == 1 or plan.blocks >= 128
-    assert plan.smem == layer_stack.tf32_smem(groups, 2) and 2 * plan.smem <= _build.MAX_DYNAMIC_SMEM
+    assert plan.smem == layer_stack.tf32_smem(groups, 2, split)
+    assert (1 if groups * split > 4 else 2) * plan.smem <= _build.MAX_DYNAMIC_SMEM

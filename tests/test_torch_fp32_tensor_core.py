@@ -329,17 +329,20 @@ FP32_FLASH_PLANS = {
 @pytest.mark.parametrize("shape", list(FP32_FLASH_PLANS))
 def test_fp32_flash_plan_fits(shape):
     """The fp32 plan streams two chunk buffers at every block_k (its shared
-    memory is mma.cuh:tf32_smem, not a function of block_k), two blocks an
-    SM, at the bf16 kernel's row groups."""
+    memory is mma.cuh:tf32_smem, not a function of block_k), two four-warp
+    blocks an SM or one larger one, at the bf16 kernel's split and blocks."""
     batch, heads, nq, block_k, groups = FP32_FLASH_PLANS[shape]
     plan = attention.flash_plan(batch, heads, nq, block_k, torch.float32)
-    assert plan.row_groups == groups == attention.flash_plan(batch, heads, nq, block_k).row_groups
-    assert plan.col_split * groups == 4 and plan.stages == 2
+    bf16 = attention.flash_plan(batch, heads, nq, block_k)
+    split = plan.col_split
+    assert (plan.row_groups, split) == (groups, bf16.col_split) == bf16[:2]
+    assert split == 4 // layer_stack.fill_row_groups(heads, nq) and plan.stages == 2
     assert plan.blocks == batch * heads * -(-nq // (16 * groups))
     q_rows, chunks = 16 * groups * FP, 2 * 64 * 2 * FP
-    assert plan.smem == 4 * (q_rows + chunks) + (0 if groups == 4 else 4 * 4 * 16 * 74)
-    assert 2 * plan.smem <= _build.MAX_DYNAMIC_SMEM
-    assert attention._flash_launch("f", torch.float32, batch, heads, nq, block_k) == (groups, 2)
+    assert plan.smem == 4 * (q_rows + chunks) + (0 if split == 1 else 4 * groups * split * 16 * 74)
+    assert (1 if groups * split > 4 else 2) * plan.smem <= _build.MAX_DYNAMIC_SMEM
+    assert attention._flash_launch("f", torch.float32, batch, heads, nq, block_k) == (
+        groups, split, 2)
 
 
 def test_flash_launch_raises_where_the_block_does_not_fit(monkeypatch):

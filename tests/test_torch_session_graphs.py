@@ -88,6 +88,34 @@ def test_match_keys_normalize_as_jax(mode, full):
     assert {k[:3] for k in port._match_cache} == set(jax_s._match_cache)
 
 
+@pytest.mark.parametrize("mode", list(MODES))
+def test_full_bucket_unmasked_runner_equals_masked(mode):
+    """JAX tests/test_e2e.py:179 on the port: where every pair fills its
+    bucket the session runs the unmasked runner (fixed depth; adaptive
+    depth-only at the cap bucket; width pruning always masks, so both keys
+    are one runner), and its outputs equal the masked runner's at the same
+    lengths: log assignments at JAX's 1e-5, match indices and counts
+    equal."""
+    cfg = _pair(mode, match_threshold=0.0)[1]
+    session = MatcherSession(jax_weights.init_superpoint(21),
+                             jax_weights.init_lightglue(22, JLGC(n_layers=2, **MODES[mode])),
+                             config=cfg, device="cpu")
+    b = max(cfg.buckets)
+    rng = np.random.default_rng(3)
+    k0, k1 = (torch.from_numpy(rng.uniform(-1, 1, (1, b, 2)).astype(np.float32))
+              for _ in range(2))
+    d0, d1 = (torch.from_numpy(rng.standard_normal((1, b, 256)).astype(np.float32))
+              for _ in range(2))
+    lens = torch.full((1,), b, dtype=torch.int32)
+    masked, full = (session._match_fn(b, b, full=f) for f in (False, True))
+    assert (masked is full) == (mode == "width")
+    out_m, mat_m = masked(k0, k1, d0, d1, lens, lens)
+    out_f, mat_f = full(k0, k1, d0, d1, lens, lens)
+    np.testing.assert_allclose(out_f.scores.numpy(), out_m.scores.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(mat_f.indices.numpy(), mat_m.indices.numpy())
+    assert int(mat_f.count[0]) == int(mat_m.count[0]) > 0
+
+
 @pytest.mark.parametrize("pairs", [None, "all", [(64, 128), (128, 128)]],
                          ids=["diagonal", "all", "listed"])
 @pytest.mark.parametrize("config", [

@@ -51,7 +51,8 @@ def test_linear_plan_of_the_smallest_bucket_is_the_smallest_tile():
 
 
 # (batch, nq, nk) -> (row groups, blocks): the bf16 calls of the stack and
-# of chip_smoke.py's attention cases, H = 4
+# of chip_smoke.py's attention cases, H = 4 (two pairs: two of one pair's
+# four-warp groups in one eight-warp block, each keeping the pair's split)
 ATTENTION_SHAPES = {
     "1024x1024 self or cross": ((1, 1024, 1024), (1, 256)),
     "768 self, masked": ((1, 768, 768), (1, 192)),
@@ -68,15 +69,18 @@ def test_attention_plan_fits(shape):
     (b, nq, nk), (groups, blocks) = ATTENTION_SHAPES[shape]
     plan = layer_stack.attention_plan(b, 4, nq, nk)
     assert (plan.row_groups, plan.blocks) == (groups, blocks)
-    assert plan.row_groups * plan.col_split == 4
-    assert plan.smem == layer_stack.mma_smem(groups, 2) <= _build.MAX_DYNAMIC_SMEM
+    assert plan.col_split == 4 // layer_stack.fill_row_groups(4, nq)  # one pair's split
+    assert plan.row_groups * plan.col_split in (4, 8, 16)
+    assert plan.smem == layer_stack.mma_smem(groups, 2, plan.col_split) <= _build.MAX_DYNAMIC_SMEM
     # the fp32 (3xTF32) kernel: the same blocks, fp32 chunks streamed through
-    # two buffers, two blocks an SM; at the 1024 bucket of one pair two
-    # one-group rows share a block of eight warps (128 blocks, one an SM)
+    # two buffers, two blocks an SM; at the 1024 bucket two one-group rows
+    # share a block of eight warps (128 blocks a pair, one an SM), four in
+    # sixteen warps for two pairs (128 blocks)
     fp32 = layer_stack.attention_plan(b, 4, nq, nk, torch.float32)
-    if (b, nq) == (1, 1024):
-        assert fp32[:3] == (2, 4, 128)
-        assert fp32.smem == layer_stack.tf32_smem(2, 2, 4) <= _build.MAX_DYNAMIC_SMEM
+    if nq == 1024:
+        g = 2 * b
+        assert fp32[:3] == (g, 4, 128)
+        assert fp32.smem == layer_stack.tf32_smem(g, 2, 4) <= _build.MAX_DYNAMIC_SMEM
     else:
         assert fp32[:3] == plan[:3]
         assert fp32.smem == layer_stack.tf32_smem(groups, 2)
