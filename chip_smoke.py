@@ -8,8 +8,11 @@ Run from the root of a checkout on a machine with a CUDA card:
 It prints the card's name and power limit, builds the CUDA kernels of
 ``src/lightglue_tpu_torch/csrc`` (one nvcc per source, sm_90a, in
 parallel) and checks in their SASS that the bf16 kernels of flash_attn.cu,
-attention.cu, linear.cu, bidir_cross.cu, conv3x3.cu (the model conv and the
-generic one) and conv_chain.cu run on the tensor cores, that the fp32 model
+bidir_cross.cu, conv3x3.cu (the model conv and the generic one) and
+conv_chain.cu run on the tensor cores, that attention.cu's bf16 kernel and
+linear.cu's bf16-product GEMM (BF16, MIXED, INT8) run on Hopper's
+warpgroup MMA (HGMMA in every instantiation, no HMMA, no
+local-memory load or store: ``WGMMA_KERNELS``), that the fp32 model
 conv, the generic fp32 conv, the fp32 chain and the fp32 kernels of
 flash_attn.cu, attention.cu, bidir_cross.cu and linear.cu run in 3xTF32 on
 the tensor cores (TF32 HMMA only; their spills logged), that no conv3x3.cu
@@ -253,9 +256,8 @@ KERNEL_WRAPPERS = {
     "conv3x3_igemm_kernel": "conv3x3", "conv3x3_tf32x3_generic_kernel": "conv3x3",
     "chain_mma_kernel": "conv2_chain", "chain_tf32x3_kernel": "conv2_chain",
     "nms_candidates_kernel": "nms_candidates",
-    "linear_mma_kernel": "linear", "linear_tf32_kernel": "linear",
-    "linear_s8_kernel": "linear", "row_quant_kernel": "row_quant",
-    "attention_mma_kernel": "attention", "attention_tf32_kernel": "attention",
+    "linear_wgmma_kernel": "linear", "linear_tf32_kernel": "linear", "linear_s8_kernel": "linear", "row_quant_kernel": "row_quant",
+    "attention_wgmma_kernel": "attention", "attention_tf32_kernel": "attention",
     "ln_gelu_kernel": "ln_gelu", "adaptive_decide_kernel": "adaptive_decide",
     "flash_mma_kernel": "fused_mha", "flash_tf32_kernel": "fused_mha",
     "bidir_mma_kernel": "bidirectional_cross_attention",
@@ -381,13 +383,18 @@ def compare(label, got, want, atol, rtol, exact=False):
 # units, or None where its fp32 kernels are TF32_TENSOR_CORE_KERNELS ones)
 TENSOR_CORE_KERNELS = {
     "flash_attn.cu": (("flash_mma_kernel",), None),
-    "attention.cu": (("attention_mma_kernel",), None),
-    "linear.cu": (("linear_mma_kernel",), None),
     "bidir_cross.cu": (("bidir_mma_kernel",), None),
     # the model's 64 -> 64 convs, and every other bf16-operand conv
     "conv3x3.cu": (("conv3x3_mma_kernel", "conv3x3_igemm_kernel"), None),
     "conv_chain.cu": (("chain_mma_kernel",), None),
 }
+# source: its kernels in Hopper's shape, on the warpgroup tensor-core path
+# (HGMMA in every instantiation, no HMMA, and no local-memory load or store:
+# nothing spilled): the stack attention's bf16 kernel (BF16 and MIXED
+# outputs, keep masks) and the stack projections' bf16-product GEMM (BF16,
+# MIXED's fp32 activations and INT8's int8 weights, both converted to bf16
+# in shared memory)
+WGMMA_KERNELS = {"attention.cu": "attention_wgmma_kernel", "linear.cu": "linear_wgmma_kernel"}
 # source: its int8 x int8 kernel (W8A8), on the integer tensor cores (IMMA)
 INT8_TENSOR_CORE_KERNELS = {"linear.cu": "linear_s8_kernel"}
 # source: its fp32 kernels on the tensor cores in 3xTF32 (TF32 HMMA only):
@@ -409,11 +416,13 @@ NO_FMA_KERNELS = {"stem.cu": "stem_kernel"}
 
 
 def tensor_core_check(build):
-    """The bf16-operand instantiations of csrc/flash_attn.cu, attention.cu,
-    linear.cu (MIXED's fp32 activations and INT8's int8 weights are staged
-    as bf16), bidir_cross.cu, conv3x3.cu (the model conv and the generic
-    one) and conv_chain.cu compute their products on the tensor cores
-    (HMMA in the SASS of every one), and linear.cu's W8A8 GEMM on
+    """The bf16-operand instantiations of csrc/flash_attn.cu,
+    bidir_cross.cu, conv3x3.cu (the model conv and the generic one) and
+    conv_chain.cu compute their products on the tensor cores (HMMA in the
+    SASS of every one); attention.cu's bf16 kernel and linear.cu's
+    bf16-product GEMM (MIXED's fp32 activations and INT8's int8 weights
+    converted to bf16 in shared memory) on wgmma (HGMMA in every instantiation, no HMMA,
+    no local-memory load or store: ``WGMMA_KERNELS``); linear.cu's W8A8 GEMM on
     the integer tensor cores (IMMA in every instantiation, no HMMA, no
     local-memory load or store: nothing spilled), the
     fp32 model conv, the generic fp32 conv, the fp32 chain and the fp32
@@ -434,9 +443,10 @@ def tensor_core_check(build):
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            counts[name] = {"HMMA": 0, "IMMA": 0, "FFMA": 0, "TF32": 0, "LDL": 0, "STL": 0}
+            counts[name] = {"HMMA": 0, "HGMMA": 0, "IMMA": 0, "FFMA": 0, "TF32": 0, "LDL": 0,
+                            "STL": 0}
         elif name:
-            for op in ("HMMA", "IMMA", "FFMA", "LDL", "STL"):
+            for op in ("HMMA", "HGMMA", "IMMA", "FFMA", "LDL", "STL"):
                 if op in line:
                     counts[name][op] += 1
             if "HMMA" in line and "TF32" in line:
@@ -453,6 +463,16 @@ def tensor_core_check(build):
         log(f"  {src} SASS: HMMA per {fp32_kernel} instantiation ({len(fma)}) {sorted(fma)}")
         if not fma or max(fma) != 0:
             raise AssertionError(f"{src}: an fp32 kernel with HMMA")
+    for src, kernel in WGMMA_KERNELS.items():
+        wg = [(c["HGMMA"], c["HMMA"], c["LDL"] + c["STL"]) for k, c in counts.items()
+              if kernel in k]
+        log(f"  {src} SASS: (HGMMA, HMMA, local loads and stores) per {kernel} instantiation "
+            f"({len(wg)}) {sorted(wg)}")
+        if not wg or min(h for h, _, _ in wg) == 0 or max(m for _, m, _ in wg) != 0:
+            raise AssertionError(f"{src}: a {kernel} instantiation without HGMMA, or with HMMA: "
+                                 "it did not reach wgmma")
+        if max(spill for _, _, spill in wg) != 0:
+            raise AssertionError(f"{src}: {kernel} spills to local memory")
     for src, kernel in INT8_TENSOR_CORE_KERNELS.items():
         imma = [(c["IMMA"], c["HMMA"], c["LDL"] + c["STL"]) for k, c in counts.items()
                 if kernel in k]
@@ -728,11 +748,13 @@ def plan_checks(ls, at, nms_k, conv_k, cc, lib):
     ``attention_plan``, ``decide_plan``, ``attention.flash_plan``,
     ``bidir_plan``, ``nms.nms_smem_bytes``, ``conv.conv_plan``,
     ``layer_stack.ln_gelu_plan``, ``conv_chain.chain_plan``) are the ones
-    the card runs (csrc/linear.cu:linear_tile and the shared memory of its
-    bf16 and fp32 rings, lg_linear_smem; csrc/flash_attn.cu:lg_flash_smem,
+    the card runs (csrc/linear.cu:lg_linear_plan in the FP32, BF16, MIXED
+    and INT8 modes: the tile, ring and kernel, the BF16 tile one pair's at
+    every batch; csrc/flash_attn.cu:lg_flash_smem,
     the bf16 and fp32 blocks' shared memory; csrc/mma.cuh:fill_row_groups
     in both operand types; csrc/attention.cu:lg_attention_plan, the fp32
-    stack's eight-warp blocks too; csrc/adaptive.cu:decide_rows,
+    stack's eight-warp blocks too, and the bf16 kernel's warpgroups;
+    csrc/adaptive.cu:decide_rows,
     csrc/nms.cu:Band,
     csrc/conv3x3.cu:conv_rows and both generic kernels' shared memory,
     csrc/ln_gelu.cu's lane map, csrc/conv_chain.cu:lg_chain_plan), at every
@@ -747,23 +769,24 @@ def plan_checks(ls, at, nms_k, conv_k, cc, lib):
     phase 5 and a grid of SuperPoint-like maps and widths."""
     import ctypes
 
-    tile = (ctypes.c_int * 2)()
     out = (ctypes.c_int * 4)()
     import torch
 
-    for m in (128, 256, 512, 768, 1024, 2048):
-        for n in (256, 512, 768):
-            lib.lg_linear_tile(m, n, tile)
-            plan = ls.linear_plan(m, n, 256)
-            if (tile[0], tile[1]) != (plan.bm, plan.bn):
-                raise AssertionError(f"linear {m}x{n}: the card's tile {tile[0]}x{tile[1]}, "
-                                     f"linear_plan's {plan.bm}x{plan.bn}")
-            for mode, dt in ((0, torch.float32), (1, torch.bfloat16)):
-                smem = ls.linear_plan(m, n, 256, dt).smem
-                if lib.lg_linear_smem(m, n, mode) != smem:
-                    raise AssertionError(f"linear {m}x{n} {dt}: the card's "
-                                         f"{lib.lg_linear_smem(m, n, mode)} B of shared memory, "
-                                         f"linear_plan's {smem}")
+    lin = (ctypes.c_int * 5)()
+    lin_modes = ((0, torch.float32, torch.float32), (1, torch.bfloat16, torch.bfloat16),
+                 (2, torch.float32, torch.bfloat16), (4, torch.bfloat16, torch.int8))
+    for rows in range(128, 1025, 128):
+        for b in INVARIANCE_BATCHES:
+            for n in (256, 512, 768):
+                for mode, dt, wdt in lin_modes:
+                    lib.lg_linear_plan(b * rows, n, rows, mode, lin)
+                    plan = ls.linear_plan(b * rows, n, 256, dt, wdt, rows=rows)
+                    want = (plan.bm, plan.bn, plan.stages, plan.smem,
+                            int(plan.kernel == "linear_wgmma_kernel"))
+                    if tuple(lin) != want:
+                        raise AssertionError(f"linear {b}x{rows}x{n} mode {mode}: the card's (rows, "
+                                             f"columns, slots, smem, wgmma) {tuple(lin)}, "
+                                             f"linear_plan's {want}")
     s8 = (ctypes.c_int * 3)()
     for m in (1, 99, 128, 256, 512, 768, 999, 1024, 2048):
         for n in (64, 256, 512, 768):
@@ -791,16 +814,18 @@ def plan_checks(ls, at, nms_k, conv_k, cc, lib):
                     raise AssertionError(f"flash B={b} Nq={nq} block_k {block_k} {dt}: the "
                                          f"card's split {split} and {smem} B, flash_plan's "
                                          f"{plan.col_split}, {plan.smem} B, {warps} warps")
-    attn = (ctypes.c_int * 3)()
+    attn = (ctypes.c_int * 4)()
     for b in INVARIANCE_BATCHES:
         for mode, dt in ((0, torch.float32), (1, torch.bfloat16)):
             for nq in (128, 256, 512, 768, 896, 960, 1024):
-                plan = ls.attention_plan(b, 4, nq, 1024, dt)
-                lib.lg_attention_plan(b, 4, nq, mode, attn)
-                if tuple(attn) != (plan.row_groups, plan.col_split, plan.smem):
-                    raise AssertionError(f"attention B={b} Nq={nq} {dt}: the card's (row groups, "
-                                         f"split, smem) {tuple(attn)}, attention_plan's "
-                                         f"{(plan.row_groups, plan.col_split, plan.smem)}")
+                for sdt in {dt, torch.float32}:  # bf16 operands: bf16 stats keep s
+                    plan = ls.attention_plan(b, 4, nq, 1024, dt, sdt)
+                    lib.lg_attention_plan(b, 4, nq, mode, int(sdt == torch.bfloat16), attn)
+                    want = (plan.row_groups, plan.col_split, plan.smem, plan.blocks)
+                    if tuple(attn) != want:
+                        raise AssertionError(f"attention B={b} Nq={nq} {dt} {sdt} stats: the "
+                                             f"card's (row groups, split, smem, blocks) "
+                                             f"{tuple(attn)}, attention_plan's {want}")
                 if plan.col_split != ls.attention_plan(1, 4, nq, 1024, dt).col_split:
                     raise AssertionError(f"attention B={b} Nq={nq} {dt}: the split follows the "
                                          "batch")
@@ -848,7 +873,7 @@ def plan_checks(ls, at, nms_k, conv_k, cc, lib):
             if tuple(out) != tuple(plan) or plan.smem > 227 * 1024:
                 raise AssertionError(f"conv2_chain {b}x{h}x{w} {dt}: the card's plan {tuple(out)}, "
                                      f"chain_plan's {tuple(plan)} (227 KB a block at most)")
-    log("  launch plans: linear_plan (tile and both rings), s8_plan, flash_plan, attention_plan and "
+    log("  launch plans: linear_plan (every mode), s8_plan, flash_plan, attention_plan and "
         "bidir_plan (both kernels each), decide_plan, nms_smem_bytes, conv_plan (both generic "
         "kernels), ln_gelu_plan and chain_plan (both kernels) match the card's at every path "
         "shape")

@@ -36,8 +36,10 @@ A/B: parent, change, change, parent).
 3. Timings (``--parts timing``), per root and round, on seed-0 weights:
    ``match_pair`` (graphs, host clock, median of 30) and a 4-pair
    ``match_batch`` (median of 10) at fixed depth, 2048-keypoint and
-   pad-to-64, BF16 and FP32; ``cli/bench.py``'s LightGlue 8x1024
-   step per rung (device ms, p50 of 5 reps of 20 graph replays); the
+   pad-to-64, BF16 and FP32, with the kernel ms and the busy share of one
+   profiled BF16 fixed-depth ``match_pair`` (``chip_smoke.profile_breakdown``);
+   ``cli/bench.py``'s LightGlue 1x1024 and 8x1024 steps per rung (device
+   ms, p50 of 5 reps of 20 graph replays); the
    ``ContinuousBatcher`` on chip_smoke.py's 24 ladder pairs at batch 4 (ms
    a pair, host clock, median of 3 streams after a capturing one); and a
    digest of each ``match_pair`` result's arrays, which tells whether two
@@ -390,12 +392,18 @@ def timing_setup(cs):
         out = {}
         for label, s in sessions.items():
             out[f"{label} match_pair digest"] = digest(s.match_pair(*pairs[0]))
-            out[f"{label} match_pair ms"] = host_ms(lambda: s.match_pair(*pairs[0]), 30)
+            out[f"{label} match_pair ms"] = ms = host_ms(lambda: s.match_pair(*pairs[0]), 30)
+            if label == "BF16 fixed depth":  # the main path's kernel ms and busy share
+                prof = cs.profile_breakdown(lambda: s.match_pair(*pairs[0]), ms, top=0)
+                if prof:
+                    out[f"{label} match_pair kernel ms"] = prof[1]
+                    out[f"{label} match_pair busy share"] = prof[0] / ms
             out[f"{label} match_batch (4 pairs) ms"] = host_ms(
                 lambda: s.match_batch(images0, images1), 10)
         for p in ("fp32", "mixed", "bf16", "int8"):
-            out[f"bench lightglue {p} 8x1024 ms"] = bench.bench_lightglue(p, 1024, 8,
-                                                                          "cuda")["p50"]
+            for b in (1, 8):
+                out[f"bench lightglue {p} {b}x1024 ms"] = bench.bench_lightglue(p, 1024, b,
+                                                                                "cuda")["p50"]
             # the bench session's graphs, freed before the next capture: a
             # capture that must return memory to the card is invalidated
             gc.collect()

@@ -34,17 +34,36 @@
 // so at N = 1024 the tensor cores bound it (~1.1 us per call at the bf16
 // peak, B = 1, H = 4; ~6.5 us in fp32 at three TF32 products a product).
 //
-// The BF16 kernel (attention_mma_kernel) is flash_attn.cu's machinery
-// (mma.cuh) at one tile of block_k = Nk:
-// - mma.sync m16n8k16, bf16 in, fp32 sums; Q and K by ldmatrix, V by
-//   ldmatrix.trans. Each warp keeps its 16 rows' Q fragments in registers
-//   and S in registers; P goes from the S accumulator layout into the A
-//   operand of the P.V mma, cast to bf16 there (p.astype(v.dtype)).
-// - Two passes over the row: pass 1 computes S chunk by chunk and reduces
-//   the row max; pass 2 recomputes S with the same instructions (bit for
-//   bit the same), forms p, sums it and accumulates P.V. K (pass 1) and K
-//   and V (pass 2) stage in 64-key chunks with 16 B cp.async, double
-//   buffered, rows padded to 72 elements.
+// The BF16 kernel (attention_wgmma_kernel) is built in Hopper's shape from
+// hopper.cuh's pieces:
+// - SPLIT = 8 consumers split each 64-row tile's 64-key chunks, chunk j to
+//   consumer j % 8. A consumer is a warpgroup: S = Q.K^T is four wgmma
+//   m64n64k16 with Q and K both K-major from shared memory; P.V takes P
+//   from registers, the S accumulator rounded to bf16 pairs (wgmma's
+//   register-A form, as FlashAttention-3), and V as the MN-major B
+//   operand: bf16 in, fp32 sums. Each block has four consumer warpgroups
+//   and a producer warpgroup, whose warp r's lane 0 feeds warpgroup r's
+//   ring of two slots by TMA (Q once; K in pass 1, V or K and V in pass
+//   2; 64 x 64 boxes in 128 B swizzle) behind full / empty mbarriers;
+//   setmaxnreg moves the producer's registers to the consumers.
+// - Two forms of the same split (Split): a cluster of two blocks a tile,
+//   one consumer a warpgroup, meeting through distributed shared memory,
+//   while the launch's blocks fit the card's SMs (one pair at N <= 1024: a
+//   tile's eight consumers on two SMs); else one block a tile whose
+//   warpgroups run two consumers each, one after the other. Both add the
+//   same values in one order (a consumer's chunks in order; partials of
+//   consumers c and c + 4, then the four in order), so a pair's rows are
+//   the same at any batch, which only picks the form and adds blocks.
+// - Two passes over the row: pass 1 reduces the row max, pass 2 forms p,
+//   sums it and accumulates P.V. At bf16 stats (quant) pass 1 keeps each
+//   chunk's rounded s in shared memory (STORE), and pass 2 reads it back
+//   and streams V alone: s is rounded by the contract there, so that is
+//   exact and saves pass 2's Q.K^T and K; at fp32 stats (MIXED) pass 2
+//   recomputes S with the same instructions (bit for bit the same).
+// - The 64-row tile: one K and V chunk read serves 64 query rows.
+// - At bf16 stats s and p round to bf16 in pairs, one packed conversion
+//   (cvt.rn.bf16x2) for two values, and p's packed word is P.V's operand:
+//   the same bits as one conversion a value, which ran on a slow pipe.
 // - Where it differs from flash_attn.cu, because the stack's contract does:
 //   1. acc is never rounded: pv / l in fp32, then the keep multiply or the
 //      row zeroing, then one cast to T (the flash kernel rounds acc once
@@ -56,11 +75,13 @@
 //   3. s is rounded and dead columns are set to exactly -1e30; under KEEP
 //      the column mask applies in every chunk; with lengths only the
 //      chunk that holds kv_len does, and chunks wholly past kv_len are not
-//      computed (their p is exactly 0 at the clamped m, so that is exact);
+//      loaded or computed (their p is exactly 0 at the clamped m, so that
+//      is exact); rows and keys past Nq and Nk arrive from TMA as zeros;
 //   4. keep masks and liveness as above;
 //   5. Q, K and V are column slices of one (B, N, H*64) projection (row
-//      stride 3E for self qkv, 2E for cross [qk | v]); rows not on 16 B
-//      are staged by element loads (mma.cuh:stage_rows).
+//      stride 3E for self qkv, 2E for cross [qk | v]): their tensor maps
+//      address them at those strides, which TMA needs on 16 B (the
+//      wrapper raises on an operand it cannot address).
 // - RoPE runs once, in mma.cuh's rope_kernel, over q and k into a scratch
 //   of their type (lg_rope_qk, which the wrapper launches first); the
 //   kernel then reads rotated rows. Rotating K in every block that reads it
@@ -74,17 +95,6 @@
 //   (:464, :509). With dir1 the row sum takes round_to<bf16>(p), as
 //   bidir_cross.cu's direction 1 does. At bf16 stats p is already bf16 and
 //   the two rules agree.
-// - A block has G 16-row groups of C warps each. One pair's shape picks C
-//   so that one pair's grid of four-warp blocks still fills the card
-//   (mma.cuh:fill_row_groups: at H = 4, N = 1024 one 16-row group, its
-//   four warps splitting each chunk's keys, 256 blocks a pair); the split
-//   warps' row max, sum p and P.V meet in shared memory, which changes only
-//   the order of fp32 sums. The batch never changes C, so a pair's rows
-//   come out the same in a batch of any size. It may change G: where the
-//   batch's launch still gives FILL_BLOCKS blocks, two or four groups share
-//   a block of eight or sixteen warps and each staged K and V chunk
-//   (mma_plan; at B = 4, N = 1024: (4, 4), 256 blocks), which changes no
-//   row's arithmetic.
 //
 // The FP32 kernel (attention_tf32_kernel: fp32 operands and out, with fp32
 // or bf16 stats) runs the same two passes and the same contract on the
@@ -104,8 +114,8 @@
 // layout, whose element e of n-tile n is row g + 8 (e / 2), key
 // 2 t4 + (e & 1) as in m16n8k16: so the clamp, the dead-column selects and
 // the keep multiply are the bf16 kernel's lines. A block holds G 16-row
-// groups of C warps each: the bf16 kernel's pair split C, and one pair's
-// groups (fill_row_groups, G * C = 4), except where the whole launch still
+// groups of C warps each: one pair's split C and one pair's groups
+// (fill_row_groups, G * C = 4), except where the whole launch still
 // gives FILL_BLOCKS / 2 blocks with two or four times the groups: then they
 // share a block of eight or sixteen warps (tf32_plan, mma.cuh:batch_plan;
 // each group keeps its pair's split, so a row's sums keep their order),
@@ -119,7 +129,7 @@
 
 #include <math.h>
 
-#include "mma.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -290,30 +300,125 @@ attention_tf32_kernel(Operand q, Operand k, Operand v, const int* __restrict__ l
 }
 
 // ---------------------------------------------------------------------------
-// The BF16 kernel: both products on the tensor cores (mma.sync m16n8k16)
+// The BF16 kernel: warpgroups on wgmma, fed by TMA rings
 // ---------------------------------------------------------------------------
 
-template <bool KEEP, int G, int C, typename TO>
-__global__ void __launch_bounds__(G * C * 32)
-attention_mma_kernel(Operand q, Operand k, Operand v, const int* __restrict__ len_q,
-                     const int* __restrict__ len_kv, const float* __restrict__ keep_q,
-                     const float* __restrict__ keep_kv, const float* __restrict__ exit_reg,
-                     int layer, TO* __restrict__ out, int Nq, int Nk, int H, float scale,
-                     int quant, int dir1, int aligned) {
-  constexpr int BR = 16 * G;   // rows per block
-  constexpr int KW = KC / C;   // keys of each chunk per warp
-  constexpr int NT = KW / 8;   // S n-tiles per warp and chunk
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16_t* qs = reinterpret_cast<bf16_t*>(smem_raw);                 // [BR][LD]
-  bf16_t* kv = qs + BR * LD;                                        // [2][K, V][KC][LD]
-  float* red = reinterpret_cast<float*>(kv + 2 * 2 * KC * LD);      // C > 1: [G * C][16][RS]
+constexpr int SPLIT = 8;        // consumers splitting a row's chunks: chunk j to j % SPLIT
+constexpr int WGS = 4;          // consumer warpgroups of a block
+constexpr int STAGES = 2;       // chunk slots of each warpgroup's ring
+constexpr int TILE = 64 * D;    // elements of a 64-row tile of one head (8 KB in bf16)
+constexpr int TILE_BYTES = 2 * TILE;
+constexpr int PART_BYTES = 4 * 64 * D;  // a consumer's fp32 P.V partial, 64 x 64
+constexpr int CLUSTER_SMS = 132;  // a launch takes clusters of two while their blocks fit the SMs
+// registers: a block of WGS + 1 warpgroups, one an SM, launches at 96 a
+// thread; setmaxnreg gives the producer's to the consumers
+constexpr int LAUNCH_REGS = 65536 / ((WGS + 1) * 128) / 8 * 8;
+constexpr int PRODUCER_REGS = 32;
+constexpr int CONSUMER_REGS = (LAUNCH_REGS * (WGS + 1) - PRODUCER_REGS) / WGS / 8 * 8;
+static_assert(PRODUCER_REGS + WGS * CONSUMER_REGS <= (WGS + 1) * LAUNCH_REGS, "register budget");
 
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int rg = warp / C, part = warp % C;  // 16-row group, share of each chunk's keys
-  const int g = lane / 4, t4 = lane % 4;     // mma fragment row and column pair
-  const int mi = lane / 8, mr = lane % 8;    // ldmatrix matrix and row of this lane
-  const int b = blockIdx.z, h = blockIdx.y, i0 = blockIdx.x * BR;
-  if (exit_reg && !(exit_reg[b] > static_cast<float>(layer))) return;
+// The SPLIT consumers of a 64-row tile run either as a cluster of two
+// blocks of WGS warpgroups (CLUSTER = 2: consumer c of block k is k * WGS +
+// c) or in one block whose warpgroup c runs consumers c and c + WGS one
+// after the other (CLUSTER = 1, VIRT = 2). Both add the same values in the
+// same order: a consumer's chunks in order; then for each c the partials of
+// consumers c and c + WGS (q_c = p_c + p_{c + WGS}), then q_0 .. q_3 in
+// order; so a tile's outputs are bit for bit the same in either form, and a
+// launch may take the form that fits its batch.
+template <int CLUSTER>
+struct Split {
+  static constexpr int VIRT = SPLIT / (WGS * CLUSTER);  // consumers of a warpgroup
+  static constexpr int KEPT = 1024 / 64 / SPLIT * VIRT;  // its chunks of stored S at Nk <= 1024
+};
+
+// Shared memory of a block, bytes: Q; each warpgroup's region, its ring of
+// STAGES slots, then its chunks' rounded s (STORE, bf16 pairs) or room for
+// its first consumer's partial (VIRT = 2); the warpgroups' partial row max
+// and sum p; the block's row max; the barriers (Q, then each ring's full
+// and empty slots); 1 KB to align the tiles to 1024 B (the swizzle atom). A
+// slot holds K, or K and V where pass 2 recomputes S, V alone where it
+// reads stored S. A partial P.V (64 x 64 fp32 in the accumulator's order,
+// part_at) goes where nothing is read any more: with VIRT = 2 the first
+// consumer's where its s was (or its room), the sum q_c there too; else at
+// the start of the region.
+template <bool STORE, int CLUSTER>
+struct Smem {
+  using P = Split<CLUSTER>;
+  static constexpr size_t SLOT = STORE ? TILE_BYTES : 2 * TILE_BYTES;
+  static constexpr size_t EXTRA_AT = SLOT * STAGES;  // in a region: [KEPT][16][128] u32
+  static constexpr size_t EXTRA =
+      STORE ? (size_t)P::KEPT * TILE_BYTES : (P::VIRT > 1 ? PART_BYTES : 0);
+  static constexpr size_t REGION = EXTRA_AT + EXTRA;
+  static constexpr size_t PART_AT = P::VIRT > 1 ? EXTRA_AT : 0;
+  static constexpr size_t Q = 0;
+  static constexpr size_t REGIONS = Q + TILE_BYTES;
+  static constexpr size_t MAX = REGIONS + REGION * WGS;
+  static constexpr size_t SUM = MAX + sizeof(float) * WGS * 64;
+  static constexpr size_t CMAX = SUM + sizeof(float) * WGS * 64;
+  static constexpr size_t BARS = CMAX + sizeof(float) * 64;
+  static constexpr size_t BYTES = BARS + sizeof(uint64_t) * (1 + 2 * WGS * STAGES) + 1024;
+  static_assert(PART_AT + PART_BYTES <= REGION, "a P.V partial fits its region");
+  static_assert(P::VIRT == 1 || !STORE || PART_BYTES <= P::KEPT / P::VIRT * TILE_BYTES,
+                "the first consumer's stored s makes room for its partial");
+};
+constexpr bool use_cluster(int B, int H, int Nq) {
+  return 2ll * B * H * ((Nq + 63) / 64) <= CLUSTER_SMS;
+}
+constexpr size_t wgmma_smem(bool store, bool cluster) {
+  return store ? (cluster ? Smem<true, 2>::BYTES : Smem<true, 1>::BYTES)
+               : (cluster ? Smem<false, 2>::BYTES : Smem<false, 1>::BYTES);
+}
+
+// A 64 x 64 fp32 partial in the accumulator's own order: thread tid's
+// float2 pair e / 2 (accumulator elements e, e + 1) at [e / 2][tid], so a
+// warpgroup stores it at fixed offsets without bank conflicts, and columns
+// c8 .. c8 + 7 of a row (n-tile c8 / 8, the quad of its row's lanes) lie
+// together: their float index is part_at(row, c8)
+__device__ __forceinline__ int part_at(int row, int c8) {
+  return 2 * ((2 * (c8 / 8) + row % 16 / 8) * 128 + row / 16 * 32 + row % 8 * 4);
+}
+
+// A 64-row tile of one head: SPLIT consumers (see Split) in one block or a
+// cluster of two. Each block has a producer warpgroup (lane 0 of warp r
+// feeds warpgroup r's ring by TMA) and WGS consumer warpgroups; consumer gc
+// takes the chunks j with j % SPLIT == gc, the 64 rows' S and P.V over
+// them. The consumers meet after each pass: in shared memory within a
+// block, across a cluster through distributed shared memory (the row max;
+// then each block adds the partial sums p and P.V of its share of the rows
+// in Split's order). STORE (bf16 stats): pass 1 keeps each chunk's rounded
+// s in shared memory, and pass 2 reads it back in place of recomputing
+// Q.K^T: s is rounded to bf16 by the contract there, so that is exact, and
+// pass 2 streams V alone.
+template <bool KEEP, typename TO, bool STORE, int CLUSTER>
+__global__ void __launch_bounds__((WGS + 1) * 128, 1)
+attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap, const int* __restrict__ len_q,
+                       const int* __restrict__ len_kv, const float* __restrict__ keep_q,
+                       const float* __restrict__ keep_kv, const float* __restrict__ exit_reg,
+                       int layer, TO* __restrict__ out, int Nq, int Nk, int H, float scale,
+                       int quant, int dir1) {
+  using L = Smem<STORE, CLUSTER>;
+  constexpr int VIRT = Split<CLUSTER>::VIRT;
+  extern __shared__ __align__(1024) unsigned char wg_raw[];
+  unsigned char* const smem_raw = align1024(wg_raw);
+  bf16_t* const qs = reinterpret_cast<bf16_t*>(smem_raw + L::Q);
+  float* const red_max = reinterpret_cast<float*>(smem_raw + L::MAX);  // [WGS][64]
+  float* const red_sum = reinterpret_cast<float*>(smem_raw + L::SUM);  // [WGS][64]
+  float* const cmax = reinterpret_cast<float*>(smem_raw + L::CMAX);    // [64]
+  uint64_t* const bars = reinterpret_cast<uint64_t*>(smem_raw + L::BARS);
+  uint64_t* const qbar = bars;
+  auto region = [&](int r) { return smem_raw + L::REGIONS + L::REGION * r; };
+  auto slot = [&](int r, int s) {  // warpgroup r's slot s
+    return reinterpret_cast<bf16_t*>(region(r) + L::SLOT * s);
+  };
+  auto part = [&](int r) { return reinterpret_cast<float*>(region(r) + L::PART_AT); };
+  auto full = [&](int r, int s) { return bars + 1 + r * STAGES + s; };
+  auto empty = [&](int r, int s) { return bars + 1 + WGS * STAGES + r * STAGES + s; };
+
+  const int rank = CLUSTER > 1 ? cluster_rank() : 0;
+  const int b = blockIdx.z, h = blockIdx.y, i0 = blockIdx.x / CLUSTER * 64;
+  if (exit_reg && !(exit_reg[b] > static_cast<float>(layer))) return;  // the whole cluster
   const bool masked = KEEP || len_q != nullptr;
   const int lq = (!KEEP && len_q) ? len_q[b] : Nq;
   // keys that can be live: every key under KEEP, the valid prefix with lengths
@@ -321,199 +426,319 @@ attention_mma_kernel(Operand q, Operand k, Operand v, const int* __restrict__ le
   const float* kq = KEEP ? keep_q + (size_t)b * Nq : nullptr;
   const float* kk = KEEP ? keep_kv + (size_t)b * Nk : nullptr;
   TO* ob = out + (size_t)b * Nq * H * D + h * D;  // row gi at ob + gi * H * D
+  constexpr int half = 64 / CLUSTER;  // the rows a block writes: rows0 ..
+  const int rows0 = rank * half;
 
-  if (!KEEP && i0 >= lq) {  // a block wholly past q_len: zeros
-    for (int i = tid; i < BR * D; i += blockDim.x)
-      if (i0 + i / D < Nq) ob[(size_t)(i0 + i / D) * H * D + i % D] = lg::from_f<TO>(0.f);
+  if (!KEEP && i0 >= lq) {  // a tile wholly past q_len (the whole cluster): zeros
+    for (int i = threadIdx.x; i < half * D; i += blockDim.x) {
+      const int gi = i0 + rows0 + i / D;
+      if (gi < Nq) ob[(size_t)gi * H * D + i % D] = lg::from_f<TO>(0.f);
+    }
     return;
   }
-
-  // Q into registers: this warp's 16 rows as 4 A fragments
-  stage_rows(qs, q, b, h, i0, BR, min(BR, Nq - i0), aligned);
-  cp_async_commit();
-  cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int r = 0; r < WGS; ++r)
+      for (int s = 0; s < STAGES; ++s) {
+        mbar_init(full(r, s), 1);
+        mbar_init(empty(r, s), 4);  // one arrival per consumer warp
+      }
+    mbar_init_fence();
+  }
   __syncthreads();
-  unsigned qf[D / 16][4];
-#pragma unroll
-  for (int kk16 = 0; kk16 < D / 16; ++kk16)
-    ldsm_x4(qf[kk16], qs + (rg * 16 + mr + (mi & 1) * 8) * LD + kk16 * 16 + (mi >> 1) * 8);
 
-  // chunks over the keys that can be live, two buffers: chunk c + 1 copies
-  // while chunk c is in use
-  const int nc = (live_k + KC - 1) / KC;
-  auto kbuf = [&](int c) { return kv + (c & 1) * 2 * KC * LD; };
-  auto fetch = [&](int c, bool with_v) {
-    const int jn = min(KC, Nk - c * KC);
-    stage_rows(kbuf(c), k, b, h, c * KC, KC, jn, aligned);
-    if (with_v) stage_rows(kbuf(c) + KC * LD, v, b, h, c * KC, KC, jn, aligned);
-    cp_async_commit();
-  };
-  auto land = [&](int c) {  // chunk c has landed (chunk c + 1 may be in flight)
-    if (c + 1 < nc)
-      cp_async_wait<1>();
-    else
-      cp_async_wait<0>();
-    __syncthreads();
-  };
-  // s = quant(Q.K^T * scale) over this warp's KW keys of chunk c. Pad
-  // columns past Nk are -inf (no part in max, p or sum p); dead columns
-  // (keep < 0.5, or at or past kv_len) are -1e30, as the reference sets
-  // them. Without keep masks only the chunk that holds kv_len or Nk has
-  // any; one select per element (no branches) in those.
-  auto scores = [&](float (&s)[NT][4], int c) {
-    const bf16_t* kb = kbuf(c) + part * KW * LD;
-#pragma unroll
-    for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk16 = 0; kk16 < D / 16; ++kk16) {
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        unsigned r[4];
-        ldsm_x4(r, kb + (np * 16 + mr + (mi >> 1) * 8) * LD + kk16 * 16 + (mi & 1) * 8);
-        mma_bf16(s[2 * np], qf[kk16], r[0], r[1]);
-        mma_bf16(s[2 * np + 1], qf[kk16], r[2], r[3]);
+  const int nc = (live_k + 63) / 64;  // chunks over the keys that can be live
+  const int wg = threadIdx.x / 128;
+  // warpgroup wg's v-th consumer and its first chunk
+  auto first = [&](int v) { return v * WGS * CLUSTER + rank * WGS + wg; };
+  if (wg == WGS) {  // the producer
+    setmaxnreg_dec<PRODUCER_REGS>();
+    // lane 0 of producer warp r feeds warpgroup r's ring, so no ring waits
+    // behind another; warp 0's also loads Q. The other lanes exit; in a
+    // cluster these take part in its three barriers (the first at once).
+    const int r = threadIdx.x % 128 / 32;
+    if (threadIdx.x % 32 == 0) {
+      if (CLUSTER > 1) cluster_arrive();
+      if (r == 0) {
+        tma_prefetch(&qmap);
+        tma_prefetch(&kmap);
+        tma_prefetch(&vmap);
+        mbar_expect_tx(qbar, TILE_BYTES);
+        tma_load(qs, &qmap, qbar, h * D, i0, b);
       }
-    }
-    const int c0 = c * KC;
-    const bool ragged = KEEP || c0 + KC > live_k;
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = c0 + part * KW + n * 8 + 2 * t4 + (e & 1);
-        float x = lg::quant_stat(s[n][e] * scale, quant);
-        if (ragged) {
-          const bool pad = col >= Nk;
-          const bool dead = KEEP ? !pad && __ldg(kk + col) < 0.5f : col >= live_k;
-          x = pad ? -INFINITY : (dead ? NEG : x);
+      // pass 1 streams K, pass 2 K and V (V alone with stored S): the
+      // chunks of warpgroup r's consumers, one consumer's after the other,
+      // as its ring's fills i = 0, 1, ... (pass 2 continues the count)
+      int i = 0;
+      for (int pass = 0; pass < 2; ++pass) {
+        for (int v = 0; v < VIRT; ++v) {
+          for (int j = v * WGS * CLUSTER + rank * WGS + r; j < nc; j += SPLIT, ++i) {
+            const int s = i % STAGES;
+            mbar_wait(empty(r, s), ((i / STAGES) & 1) ^ 1);
+            mbar_expect_tx(full(r, s), TILE_BYTES * (pass && !STORE ? 2 : 1));
+            if (!pass || !STORE) tma_load(slot(r, s), &kmap, full(r, s), h * D, j * 64, b);
+            if (pass)
+              tma_load(slot(r, s) + (STORE ? 0 : TILE), &vmap, full(r, s), h * D, j * 64, b);
+          }
         }
-        s[n][e] = x;
+      }
+      if (CLUSTER > 1) {
+        cluster_wait();
+        cluster_arrive();
+        cluster_wait();
+        cluster_arrive();
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<CONSUMER_REGS>();
+
+  const int tid = threadIdx.x % 128, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t4 = lane % 4;  // accumulator row and column pair
+  const int row0 = 16 * warp + g;         // this thread's rows: row0 and row0 + 8
+
+  // s = quant(Q.K^T * scale) over chunk j's 64 keys in slot s of this ring:
+  // pad columns past Nk are -inf, dead columns (keep < 0.5, or at or past
+  // kv_len) -1e30; without keep masks only the chunk that holds kv_len or
+  // Nk has any. This thread's 16 columns (bit 2 n + h: column 8 n + 2 t4 +
+  // h) are classified while the product runs.
+  auto scores = [&](float (&sc)[32], int s, int j) {
+    const bf16_t* ks = slot(wg, s);
+    fence_operand(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int k16 = 0; k16 < D / 16; ++k16)
+      wgmma_m64n64<0>(sc, kmajor_desc(qs, k16), kmajor_desc(ks, k16), k16);
+    wgmma_commit();
+    const int c0 = j * 64;
+    const bool ragged = KEEP || c0 + 64 > live_k;
+    unsigned pad = 0u, dead = 0u;
+    if (ragged) {
+#pragma unroll
+      for (int bit = 0; bit < 16; ++bit) {
+        const int col = c0 + 8 * (bit / 2) + 2 * t4 + (bit & 1);
+        if (col >= Nk)
+          pad |= 1u << bit;
+        else if (KEEP ? __ldg(kk + col) < 0.5f : col >= live_k)
+          dead |= 1u << bit;
+      }
+    }
+    wgmma_wait<0>();
+    fence_operand(sc);
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {  // a pair of a row's columns at a time
+      float x[2] = {sc[2 * k] * scale, sc[2 * k + 1] * scale};
+      if (STORE) {  // bf16 stats (quant): both rounded in one packed conversion
+        const unsigned w = pack_bf16(x[0], x[1]);
+        x[0] = __uint_as_float(w << 16), x[1] = __uint_as_float(w & 0xffff0000u);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int bit = 2 * (k / 2) + h;  // column 8 (k / 2) + 2 t4 + h
+        sc[2 * k + h] = (pad >> bit) & 1u ? -INFINITY : ((dead >> bit) & 1u ? NEG : x[h]);
       }
     }
   };
+  auto release = [&](int s) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(wg, s));
+  };
 
-  // pass 1: the row max
+  mbar_wait(qbar, 0);
+
+  // pass 1: the row max over this warpgroup's chunks (and with STORE each
+  // chunk's s, packed in bf16 pairs: word k of this thread holds s[2 k],
+  // s[2 k + 1], at [chunk][k][tid]; consumer v's chunks from chunk v * OWN)
+  constexpr int OWN = Split<CLUSTER>::KEPT / VIRT;  // stored chunks of one consumer
   float mx[2] = {-INFINITY, -INFINITY};
-  if (nc) fetch(0, false);
-  for (int c = 0; c < nc; ++c) {
-    if (c + 1 < nc) fetch(c + 1, false);  // the buffer of chunk c - 1
-    land(c);
-    float s[NT][4];
-    scores(s, c);
+  unsigned* const store = reinterpret_cast<unsigned*>(region(wg) + L::EXTRA_AT);
+  int i = 0;  // fills of this ring consumed
+  // a warpgroup's consumers one after the other, in the same registers
+#pragma unroll 1
+  for (int v = 0; v < VIRT; ++v) {
+    int c = v * OWN;  // this chunk's place in the store
+    for (int j = first(v); j < nc; j += SPLIT, ++i, ++c) {
+      const int s = i % STAGES;
+      mbar_wait(full(wg, s), (i / STAGES) & 1);
+      float sc[32];
+      scores(sc, s, j);
+      release(s);
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
+      for (int e = 0; e < 32; ++e) mx[(e / 2) & 1] = fmaxf(mx[(e / 2) & 1], sc[e]);
+      if (STORE) {
+#pragma unroll
+        for (int k = 0; k < 16; ++k)
+          store[(c * 16 + k) * 128 + tid] = pack_bf16(sc[2 * k], sc[2 * k + 1]);
+      }
     }
-    __syncthreads();  // this buffer is free for the next fetch
   }
   mx[0] = quad_max(mx[0]);
   mx[1] = quad_max(mx[1]);
-  if (C > 1) {
-    if (t4 == 0) {
-      red[(warp * 16 + g) * RS] = mx[0];
-      red[(warp * 16 + g + 8) * RS] = mx[1];
-    }
-    __syncthreads();
+  if (t4 == 0) {
+    red_max[wg * 64 + row0] = mx[0];
+    red_max[wg * 64 + row0 + 8] = mx[1];
+  }
+  bar_sync(1, WGS * 128);
 #pragma unroll
-    for (int w = 0; w < C; ++w) {
-      mx[0] = fmaxf(mx[0], red[((rg * C + w) * 16 + g) * RS]);
-      mx[1] = fmaxf(mx[1], red[((rg * C + w) * 16 + g + 8) * RS]);
-    }
-    __syncthreads();
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int w = 0; w < WGS; ++w) mx[r] = fmaxf(mx[r], red_max[w * 64 + row0 + 8 * r]);
+    if (CLUSTER > 1 && wg == 0 && t4 == 0) cmax[row0 + 8 * r] = mx[r];  // this block's row max
+  }
+  if (CLUSTER > 1) {
+    cluster_arrive();
+    cluster_wait();
   }
   float m[2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    m[i] = lg::quant_stat(mx[i], quant);
-    if (masked) m[i] = fmaxf(m[i], DEAD);
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int k = 0; k < CLUSTER; ++k)
+      if (k != rank) mx[r] = fmaxf(mx[r], ld_dsmem(dsmem(cmax + row0 + 8 * r, k)));
+    m[r] = lg::quant_stat(mx[r], quant);
+    if (masked) m[r] = fmaxf(m[r], DEAD);
   }
 
-  // pass 2: the same S again, p, sum p and P.V with P cast to bf16
-  float ps[2] = {0.f, 0.f};
-  float pv[D / 8][4];
+  // pass 2, consumer by consumer: p against the row max, sum p and P.V with
+  // P cast to bf16 from the S accumulator (wgmma's register-A form); with
+  // VIRT = 2 the first consumer's partial waits in shared memory and the
+  // second's is added to it (q_c = p_c + p_{c + WGS})
+  float* const mine = part(wg);  // [16][128] float2, part_at
+  float ps[2];
+#pragma unroll 1
+  for (int v = 0; v < VIRT; ++v) {
+    ps[0] = ps[1] = 0.f;
+    float pv[32];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) pv[n][0] = pv[n][1] = pv[n][2] = pv[n][3] = 0.f;
-  if (nc) fetch(0, true);
-  for (int c = 0; c < nc; ++c) {
-    if (c + 1 < nc) fetch(c + 1, true);
-    land(c);
-    float s[NT][4];
-    scores(s, c);
+    for (int e = 0; e < 32; ++e) pv[e] = 0.f;
+    int c = v * OWN;
+    for (int j = first(v); j < nc; j += SPLIT, ++i, ++c) {
+      const int s = i % STAGES;
+      mbar_wait(full(wg, s), (i / STAGES) & 1);
+      float sc[32];
+      if (STORE) {  // the rounded s of pass 1 (dead columns' -1e30 as bf16: p is 0 either way)
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = lg::quant_stat(expf(s[n][e] - m[e / 2]), quant);
-        s[n][e] = p;
-        ps[e / 2] += dir1 ? lg::round_to<bf16_t>(p) : p;  // direction 1 sums P in the V type
+        for (int k = 0; k < 16; ++k) {
+          const unsigned w = store[(c * 16 + k) * 128 + tid];
+          sc[2 * k] = __uint_as_float(w << 16);
+          sc[2 * k + 1] = __uint_as_float(w & 0xffff0000u);
+        }
+      } else {
+        scores(sc, s, j);
       }
-    }
-    const bf16_t* vb = kbuf(c) + KC * LD + part * KW * LD;
+      unsigned pa[D / 16][4];  // keys 16 kk.. of the chunk: n-tiles 2 kk and 2 kk + 1
+      if constexpr (STORE) {
+        // bf16 stats: p in pairs (one row, columns 2 t4, 2 t4 + 1) rounded
+        // in one packed conversion, which is also P.V's A operand
 #pragma unroll
-    for (int kk16 = 0; kk16 < NT / 2; ++kk16) {  // 16 keys per k step
-      const unsigned a[4] = {pack_bf16(s[2 * kk16][0], s[2 * kk16][1]),
-                             pack_bf16(s[2 * kk16][2], s[2 * kk16][3]),
-                             pack_bf16(s[2 * kk16 + 1][0], s[2 * kk16 + 1][1]),
-                             pack_bf16(s[2 * kk16 + 1][2], s[2 * kk16 + 1][3])};
+        for (int k = 0; k < 16; ++k) {
+          const int r = k & 1;  // row0 or row0 + 8
+          const unsigned w = pack_bf16(expf(sc[2 * k] - m[r]), expf(sc[2 * k + 1] - m[r]));
+          ps[r] += __uint_as_float(w << 16);
+          ps[r] += __uint_as_float(w & 0xffff0000u);
+          pa[k / 4][k % 4] = w;
+        }
+      } else {  // fp32 stats: p as it is, cast to bf16 for P.V
 #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        unsigned r[4];
-        ldsm_x4_trans(r, vb + (kk16 * 16 + mr + (mi & 1) * 8) * LD + dp * 16 + (mi >> 1) * 8);
-        mma_bf16(pv[2 * dp], a, r[0], r[1]);
-        mma_bf16(pv[2 * dp + 1], a, r[2], r[3]);
+        for (int e = 0; e < 32; ++e) {
+          const float p = expf(sc[e] - m[(e / 2) & 1]);
+          sc[e] = p;
+          ps[(e / 2) & 1] += dir1 ? lg::round_to<bf16_t>(p) : p;  // direction 1 sums P in the V type
+        }
+#pragma unroll
+        for (int k = 0; k < 16; ++k) pa[k / 4][k % 4] = pack_bf16(sc[2 * k], sc[2 * k + 1]);
       }
+      const bf16_t* vs = slot(wg, s) + (STORE ? 0 : TILE);
+      fence_operand(pv);
+      wgmma_fence();
+#pragma unroll
+      for (int k16 = 0; k16 < 4; ++k16)
+        wgmma_m64n64_rs(pv, pa[k16], mnmajor_desc(vs, 128, k16), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operand(pv);
+#pragma unroll
+      for (int k16 = 0; k16 < 4; ++k16) fence_operand(pa[k16]);
+      release(s);
     }
-    __syncthreads();  // this buffer is free for the next fetch
+    ps[0] = quad_sum(ps[0]);
+    ps[1] = quad_sum(ps[1]);
+    // this consumer's partial into shared memory (the second one's added to
+    // the first's, which this thread wrote there itself)
+    if (v == 0) bar_sync(2 + wg, 128);  // every warp of this group has read the s and V there
+    float2* const pairs = reinterpret_cast<float2*>(mine) + tid;
+#pragma unroll
+    for (int e = 0; e < 32; e += 2) {
+      float2 x = make_float2(pv[e], pv[e + 1]);
+      if (v > 0) x = make_float2(pairs[e / 2 * 128].x + x.x, pairs[e / 2 * 128].y + x.y);
+      pairs[e / 2 * 128] = x;
+    }
+    if (t4 == 0) {
+      float* at = red_sum + wg * 64 + row0;
+      at[0] = v > 0 ? at[0] + ps[0] : ps[0];
+      at[8] = v > 0 ? at[8] + ps[1] : ps[1];
+    }
   }
-  ps[0] = quad_sum(ps[0]);
-  ps[1] = quad_sum(ps[1]);
-  if (C > 1) {  // the C warps of a row group add their parts in one order
+
+  // each block's consumer threads add the partials of its share of the rows
+  // in Split's order, eight outputs each
+  if (CLUSTER > 1) {
+    cluster_arrive();
+    cluster_wait();
+  } else {
+    bar_sync(1, WGS * 128);
+  }
+  for (int it = threadIdx.x; it < half * (D / 8); it += WGS * 128) {
+    const int row = rows0 + it / (D / 8), c8 = it % (D / 8) * 8, gi = i0 + row;
+    if (gi >= Nq) continue;
+    float ls[WGS * CLUSTER];  // every block's partial sums p and P.V of these outputs
+    float4 lo[WGS * CLUSTER], hi[WGS * CLUSTER];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      float* rec = red + (warp * 16 + g + 8 * i) * RS;
-      if (t4 == 0) rec[1] = ps[i];
+    for (int k = 0; k < CLUSTER; ++k) {
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n)
-        *reinterpret_cast<float2*>(rec + 2 + n * 8 + 2 * t4) =
-            make_float2(pv[n][2 * i], pv[n][2 * i + 1]);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      ps[i] = 0.f;
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) pv[n][2 * i] = pv[n][2 * i + 1] = 0.f;
-#pragma unroll
-      for (int w = 0; w < C; ++w) {
-        const float* rec = red + ((rg * C + w) * 16 + g + 8 * i) * RS;
-        ps[i] += rec[1];
-#pragma unroll
-        for (int n = 0; n < D / 8; ++n) {
-          const float2 x = *reinterpret_cast<const float2*>(rec + 2 + n * 8 + 2 * t4);
-          pv[n][2 * i] += x.x;
-          pv[n][2 * i + 1] += x.y;
+      for (int w = 0; w < WGS; ++w) {
+        const float* src = part(w) + part_at(row, c8);
+        if constexpr (CLUSTER > 1) {  // all loads first
+          ls[k * WGS + w] = ld_dsmem(dsmem(red_sum + w * 64 + row, k));
+          lo[k * WGS + w] = ld_dsmem4(dsmem(src, k));
+          hi[k * WGS + w] = ld_dsmem4(dsmem(src + 4, k));
+        } else {
+          ls[w] = red_sum[w * 64 + row];
+          lo[w] = *reinterpret_cast<const float4*>(src);
+          hi[w] = *reinterpret_cast<const float4*>(src + 4);
         }
       }
     }
-  }
-
-  if (part != 0) return;  // the C warps of a row group hold the same rows
+    float sum = 0.f, x[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int gi = i0 + rg * 16 + g + 8 * i;
-    if (gi >= Nq) continue;
-    const float l = lg::quant_stat(ps[i], quant);
+    for (int c = 0; c < WGS; ++c) {  // q_c = p_c + p_{c + WGS} (in a cluster: block 1's c)
+      float q = ls[c], y[8] = {lo[c].x, lo[c].y, lo[c].z, lo[c].w,
+                               hi[c].x, hi[c].y, hi[c].z, hi[c].w};
+      if constexpr (CLUSTER > 1) {
+        const int d = WGS + c;
+        q += ls[d];
+        y[0] += lo[d].x, y[1] += lo[d].y, y[2] += lo[d].z, y[3] += lo[d].w;
+        y[4] += hi[d].x, y[5] += hi[d].y, y[6] += hi[d].z, y[7] += hi[d].w;
+      }
+      sum += q;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) x[e] += y[e];
+    }
+    const float l = lg::quant_stat(sum, quant);
     const float den = l == 0.f ? 1.f : l;
     const bool zero = !KEEP && masked && gi >= lq;
     const float keep = KEEP ? kq[gi] : 1.f;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      float x0 = pv[n][2 * i] / den, x1 = pv[n][2 * i + 1] / den;
-      if (KEEP) x0 *= keep, x1 *= keep;
-      if (zero) x0 = x1 = 0.f;
-      store2(ob + (size_t)gi * H * D + n * 8 + 2 * t4, x0, x1);
+    for (int e = 0; e < 8; ++e) {
+      x[e] = x[e] / den;
+      if (KEEP) x[e] *= keep;
+      if (zero) x[e] = 0.f;
     }
+    store8(ob + (size_t)gi * H * D + c8, x);
+  }
+  if (CLUSTER > 1) {
+    cluster_arrive();  // no block leaves while another reads its shared memory
+    cluster_wait();
   }
 }
 
@@ -541,19 +766,14 @@ int launch_tf32(Operand q, Operand k, Operand v, const void* len_q, const void* 
   return static_cast<int>(cudaGetLastError());
 }
 
-// The stack's block (mma.cuh:batch_plan, one pair's split at FILL_BLOCKS):
-// the FP32 kernel grows its blocks while FILL_BLOCKS / 2 blocks
-// remain (an fp32 block holds twice the bytes), so one pair of 1024 takes
-// 128 eight-warp blocks; the bf16 kernel while FILL_BLOCKS remain, so one
-// pair's launch is the four-warp one. At 8 pairs of 1024 the FP32 step took
-// 22.5 ms with sixteen-warp blocks against 26.8 at eight, the BF16 step
-// 10.9 with sixteen against 11.5 at eight (bench LightGlue 8x1024, an H100
-// at 700 W, PERF.md section 6, PR 21).
+// The FP32 kernel's block (mma.cuh:batch_plan, one pair's split at
+// FILL_BLOCKS): it grows its blocks while FILL_BLOCKS / 2 blocks remain (an
+// fp32 block holds twice the bytes), so one pair of 1024 takes 128
+// eight-warp blocks. At 8 pairs of 1024 the FP32 step took 22.5 ms with
+// sixteen-warp blocks against 26.8 at eight (bench LightGlue 8x1024, an
+// H100 at 700 W, PERF.md section 6).
 inline void tf32_plan(int B, int H, int Nq, int& G, int& C) {
   batch_plan(B, H, Nq, 0, FILL_BLOCKS, FILL_BLOCKS / 2, G, C);
-}
-inline void mma_plan(int B, int H, int Nq, int& G, int& C) {
-  batch_plan(B, H, Nq, 0, FILL_BLOCKS, FILL_BLOCKS, G, C);
 }
 
 template <bool KEEP>
@@ -572,44 +792,66 @@ int launch_fp32(Operand q, Operand k, Operand v, const void* len_q, const void* 
              quant, dir1, s);
 }
 
-template <bool KEEP, int G, int C, typename TO>
-int launch_mma(Operand q, Operand k, Operand v, const void* len_q, const void* len_kv,
-               const void* keep_q, const void* keep_kv, const void* exit_reg, int layer,
-               void* out, int B, int Nq, int Nk, int H, float scale, int quant, int dir1,
-               cudaStream_t stream) {
-  constexpr size_t smem = mma_smem(C, 2, G);
-  static const cudaError_t opt_in =  // above 48 KB: opt in once
-      smem > 48 * 1024
-          ? cudaFuncSetAttribute(attention_mma_kernel<KEEP, G, C, TO>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(smem))
-          : cudaSuccess;
-  if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
-  constexpr int BR = 16 * G;
-  const int aligned = aligned16(q) && aligned16(k) && aligned16(v);
-  dim3 grid((Nq + BR - 1) / BR, H, B);
-  attention_mma_kernel<KEEP, G, C, TO><<<grid, G * C * 32, smem, stream>>>(
-      q, k, v, static_cast<const int*>(len_q), static_cast<const int*>(len_kv),
-      static_cast<const float*>(keep_q), static_cast<const float*>(keep_kv),
-      static_cast<const float*>(exit_reg), layer, static_cast<TO*>(out), Nq, Nk, H, scale,
-      quant, dir1, aligned);
-  return static_cast<int>(cudaGetLastError());
+// one head's columns of a (B, rows, H*64) bf16 operand addressed by (batch,
+// row) strides in elements, read in 64 x 64 boxes in 128 B swizzle
+int head_map(CUtensorMap* map, const Operand& o, int B, int rows, int H) {
+  const long long bs = B > 1 ? o.bs : (long long)rows * o.rs;  // one batch entry: any stride
+  if (!tma_aligned(o.ptr, 2 * o.rs, 2 * bs)) return static_cast<int>(cudaErrorInvalidValue);
+  const cuuint64_t dims[3] = {(cuuint64_t)H * D, (cuuint64_t)rows, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)(2 * o.rs), (cuuint64_t)(2 * bs)};
+  const cuuint32_t box[3] = {D, 64, 1};
+  return tma_map(map, o.ptr, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, dims, strides, box, 128);
 }
 
+template <bool KEEP, typename TO, bool STORE, int CLUSTER>
+int launch_wgmma(Operand q, Operand k, Operand v, const void* len_q, const void* len_kv,
+                 const void* keep_q, const void* keep_kv, const void* exit_reg, int layer,
+                 void* out, int B, int Nq, int Nk, int H, float scale, int quant, int dir1,
+                 cudaStream_t stream) {
+  constexpr size_t smem = Smem<STORE, CLUSTER>::BYTES;
+  auto kernel = attention_wgmma_kernel<KEEP, TO, STORE, CLUSTER>;
+  static const cudaError_t opt_in =  // above 48 KB: opt in once
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+  if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
+  if (STORE && Nk > 64 * SPLIT * Split<CLUSTER>::KEPT / Split<CLUSTER>::VIRT)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap qm, km, vm;
+  const int errs[3] = {head_map(&qm, q, B, Nq, H), head_map(&km, k, B, Nk, H),
+                       head_map(&vm, v, B, Nk, H)};
+  for (const int err : errs)
+    if (err) return err;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = CLUSTER;
+  cluster[0].val.clusterDim.y = cluster[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CLUSTER * ((Nq + 63) / 64), H, B);
+  cfg.blockDim = dim3((WGS + 1) * 128);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = cluster;
+  cfg.numAttrs = CLUSTER > 1 ? 1 : 0;
+  return static_cast<int>(cudaLaunchKernelEx(
+      &cfg, kernel, qm, km, vm, static_cast<const int*>(len_q), static_cast<const int*>(len_kv),
+      static_cast<const float*>(keep_q), static_cast<const float*>(keep_kv),
+      static_cast<const float*>(exit_reg), layer, static_cast<TO*>(out), Nq, Nk, H, scale, quant,
+      dir1));
+}
+
+// bf16 stats (quant) keep pass 1's s, fp32 stats recompute it; clusters of
+// two blocks while their blocks fit the SMs (use_cluster), else one block a
+// tile: the same sums either way
 template <bool KEEP, typename TO>
 int launch_bf16(Operand q, Operand k, Operand v, const void* len_q, const void* len_kv,
                 const void* keep_q, const void* keep_kv, const void* exit_reg, int layer,
                 void* out, int B, int Nq, int Nk, int H, float scale, int quant, int dir1,
-                cudaStream_t s) {
-  int G, C;
-  mma_plan(B, H, Nq, G, C);
-  auto run = C == 1   ? launch_mma<KEEP, 4, 1, TO>
-             : C == 2 ? (G == 2 ? launch_mma<KEEP, 2, 2, TO> : launch_mma<KEEP, 4, 2, TO>)
-             : (G == 1   ? launch_mma<KEEP, 1, 4, TO>
-                : G == 2 ? launch_mma<KEEP, 2, 4, TO>
-                         : launch_mma<KEEP, 4, 4, TO>);
+                cudaStream_t stream) {
+  const bool cl = use_cluster(B, H, Nq);
+  auto run = quant ? (cl ? launch_wgmma<KEEP, TO, true, 2> : launch_wgmma<KEEP, TO, true, 1>)
+                   : (cl ? launch_wgmma<KEEP, TO, false, 2> : launch_wgmma<KEEP, TO, false, 1>);
   return run(q, k, v, len_q, len_kv, keep_q, keep_kv, exit_reg, layer, out, B, Nq, Nk, H, scale,
-             quant, dir1, s);
+             quant, dir1, stream);
 }
 
 // operand modes of lg_attention (kernels/layer_stack.py:attention mirrors them)
@@ -626,8 +868,8 @@ enum Mode { FP32 = 0, BF16 = 1, BF16_F32_OUT = 2 };
 // global layer index. out: (B, Nq, H*64). mode: FP32 (fp32 operands and out,
 // attention_tf32_kernel at tf32_plan's blocks), BF16 (bf16 operands and out)
 // or BF16_F32_OUT (bf16 operands, fp32 out), the last two
-// attention_mma_kernel at mma.cuh:fill_row_groups' 16-row groups per block
-// (one pair's shape)
+// attention_wgmma_kernel, one block per 64 rows of a head (its operands on
+// 16 B: base, row and batch strides; else cudaErrorInvalidValue)
 // (kernels/layer_stack.py:attention_plan mirrors both). dir1: the row sum
 // takes p rounded to the operand type (the cross block's direction 1).
 extern "C" int lg_attention(const void* q, long long q_bs, long long q_rs,
@@ -666,19 +908,26 @@ extern "C" int lg_rope_qk(const void* q, long long q_bs, long long q_rs, const v
                                        : rope_qk(oq, ok, f, static_cast<bf16_t*>(rot), B, N, H, s));
 }
 
-// The 16-row groups per block of lg_attention's bf16 kernel at one pair's
-// shape, whatever the batch (the wrapper's plan and flash_plan are held
-// against it).
+// mma.cuh:fill_row_groups, the 16-row groups per block of the four-warp
+// attention kernels at one pair's shape, whatever the batch (flash_plan is
+// held against it).
 extern "C" int lg_attention_row_groups(int H, int Nq) { return fill_row_groups(H, Nq); }
 
 // lg_attention's block at this shape in this mode: out = {16-row groups,
-// warps of a group splitting each chunk's keys, dynamic shared memory in
-// bytes} (the wrapper's attention_plan is held against it).
-extern "C" int lg_attention_plan(int B, int H, int Nq, int mode, int* out) {
-  int G, C;
-  (mode == FP32 ? tf32_plan : mma_plan)(B, H, Nq, G, C);
+// warps (FP32) or warpgroups (the bf16 modes) splitting each row's keys,
+// dynamic shared memory in bytes} (the wrapper's attention_plan is held
+// against it), and the blocks of the launch. The bf16 kernel's block is
+// four 16-row groups (one warpgroup's 64 rows) split SPLIT ways at every
+// shape and batch, a cluster of two blocks a tile where use_cluster says
+// so; its shared memory holds pass 1's s at bf16 stats (quant).
+extern "C" int lg_attention_plan(int B, int H, int Nq, int mode, int quant, int* out) {
+  int G = 4, C = SPLIT;
+  if (mode == FP32) tf32_plan(B, H, Nq, G, C);
   out[0] = G;
   out[1] = C;
-  out[2] = static_cast<int>(mode == FP32 ? tf32_smem(C, TF32_STAGES, G) : mma_smem(C, 2, G));
+  out[2] = static_cast<int>(mode == FP32 ? tf32_smem(C, TF32_STAGES, G)
+                                         : wgmma_smem(quant, use_cluster(B, H, Nq)));
+  out[3] = mode == FP32 ? (Nq + 16 * G - 1) / (16 * G) * H * B
+                        : (use_cluster(B, H, Nq) ? 2 : 1) * ((Nq + 63) / 64) * H * B;
   return 0;
 }

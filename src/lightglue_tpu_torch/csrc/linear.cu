@@ -15,47 +15,53 @@
 // bytes bound it (0.35-0.78 us at 3.35 TB/s) and the bf16 tensor-core peak
 // nearly so (0.14-0.54 us).
 //
-// The bf16-operand kernel (linear_mma_kernel) is a pipelined mma.sync GEMM:
-// - mma.sync m16n8k16, bf16 in, fp32 accumulators in registers; 4 warps
-//   in a 2 x 2 layout over a BM x BN tile, each warp (BM / 2) x (BN / 2).
-// - K runs in chunks of 64 staged with 16 B cp.async into a ring of 3
-//   buffers, so two chunks' copies are in flight while one is multiplied.
-//   A is read with ldmatrix, W (stored K x N, row-major) with
-//   ldmatrix.trans, the way flash_attn.cu reads V (mma.cuh). Rows are
-//   padded by 8 elements so an ldmatrix's eight rows fall in different banks.
-// - ffn1's second operand: a 16 B segment at column c reads A at c < k1
-//   and A2 at c - k1 past it (k1 % 8 == 0), so the concat is never
-//   materialised; with K1 = 256 every chunk comes from one source.
-// - The tile per shape (linear_tile below; kernels/layer_stack.py:
-//   linear_plan mirrors it): 64 x 64 where that gives 256 blocks (two per
-//   SM, so one block's loads overlap another's products), else 64 x 32,
-//   else 32 x 32. At M = 1024 qkv, ffn1 and qk_v take 64 x 32 and the out
-//   and ffn2 projections (N = 256) 32 x 32, 256-384 blocks where one 64 x
-//   64 tile per block gave 64-192. BM divides 64, so a tile never straddles
-//   two pairs. The chunk depth, ring and block target are the fastest of
-//   eight variants timed at the main path's shapes (PERF.md, PR 6).
+// The bf16-product kernel (linear_wgmma_kernel) is built in Hopper's shape
+// from hopper.cuh's pieces:
+// - A 64 x BN tile a block: one consumer warpgroup runs wgmma m64nBNk16
+//   (bf16 in, fp32 sums in registers) with A K-major and W (stored K x N,
+//   row-major) MN-major from shared memory; a producer warpgroup's one
+//   thread streams K in 64-deep chunks by TMA (a bf16 A's 64 x 64 box in
+//   128 B swizzle, a bf16 W's 64 x BN box in 128 B swizzle at BN = 64, 64 B
+//   at 32) through a ring of WG_STAGES = 4 slots guarded by full / empty
+//   mbarriers, so a K of 256 is in flight at once; setmaxnreg moves the
+//   producer's registers to the consumer.
+// - ffn1's second operand is its own tensor map: the chunks of A come
+//   first, then those of A2 with W's rows from k1 on, so the concat is
+//   never materialised. A chunk's columns past its operand's width arrive
+//   from TMA as zeros and meet real W rows: their products are exact zeros.
+// - The tile (wg_tile_n; kernels/layer_stack.py:linear_plan mirrors it):
+//   BM = 64, so a tile never straddles two pairs; BN = 64 where one pair's
+//   rows still give WG_FILL = 128 blocks, else 32: at 1024 rows qkv, ffn1
+//   and qk_v take 64 (192, 128, 128 blocks), out and ffn2 (N = 256) 32
+//   (128). The rule reads one pair's rows and never the batch, and there is
+//   no split-K: an output's sum runs in one order in every run and batch.
+// - Launched as a programmatic dependent of the stream's previous kernel
+//   (WG_PDL): the barriers are initialised and the tensor maps prefetched
+//   while that kernel drains, then every thread waits for it
+//   (griddepcontrol.wait) before a load, the liveness test or a store.
 // - The epilogue is the reference's: round acc to T, add the bias (rounded
-//   to T) in T and round, add the residual in T and round.
-// - Operands whose rows do not start on 16 B (any pointer or width off a
-//   multiple of 8 elements) are staged by element loads.
-// No split-K: every output's sum runs in one order, the same in every run.
-//
+//   to T) in T and round, add the residual in T and round; a pair rounds in
+//   one packed conversion and the last rounding is the store's own.
+// - TMA needs a, a2 and w on 16 B with rows of a multiple of 16 B (k1, K -
+//   k1 and N multiples of 8): the wrapper raises on an operand it cannot
+//   address.
 // The same kernel takes the operand modes of the other rungs (template
-// arguments: A/activation type, weight type, bias type, output type):
+// arguments: A/activation type, weight type, bias type, output type); what
+// TMA cannot hand to wgmma as it lies, the consumer converts into a bf16
+// copy in the slot, in the layout TMA's swizzle would have given, and
+// fences the async proxy before wgmma reads it:
 // - BF16: bf16 A, W, bias, residual and Y.
 // - MIXED (fp32 activations, bf16 products; JAX _linear :373-375 with
-//   dt = fp32, attn_dtype = bf16): fp32 A, A2 and residual, rounded to bf16
-//   as they are staged (cp.async cannot convert, so 8 values at a time go
-//   through registers); bf16 W; fp32 bias; the epilogue in fp32 with no
+//   dt = fp32, attn_dtype = bf16): fp32 A, A2 and residual; A arrives raw
+//   and is rounded to bf16; bf16 W; fp32 bias; the epilogue in fp32 with no
 //   rounding. Y is fp32, or bf16 for the qkv and qk_v projections, whose
 //   only reader is the attention (the reference's .astype(attn_dtype) of
 //   the fp32 result, one rounding).
 // - INT8 weight-only (JAX _take_linear :245-249): int8 W with an fp32
-//   scale per output channel, dequantized while it is staged,
-//   bf16(float(w_q) * scale) into the same shared-memory tile the bf16 W
-//   takes; bf16 activations; the fp32 bias rounded to bf16 in the
-//   epilogue. The product is linear(a, dequantize(w)) bit for bit: the same
-//   B values in the same k order.
+//   scale per output channel; W arrives raw and is dequantized,
+//   bf16(float(w_q) * scale); bf16 activations; the fp32 bias rounded to
+//   bf16 in the epilogue. The product is linear(a, dequantize(w)) bit for
+//   bit: the same B values in the same k order.
 //
 // The W8A8 kernels (LGTPU_W8A8=1 on the INT8 rung, JAX _aquant :339-346,
 // _doti8 :348-355, _linear's q8 branch :368-372, the qkv path :418-428)
@@ -101,8 +107,8 @@
 //   reference's: y = (float(acc) * sa) * scale, rounded to bf16, + the bias
 //   rounded to bf16, + the residual in bf16.
 //
-// The FP32 kernel (linear_tf32_kernel, the fp32 rung) is the same pipelined
-// GEMM on the tensor cores in 3xTF32: one TF32 product keeps about three
+// The FP32 kernel (linear_tf32_kernel, the fp32 rung) is a pipelined
+// mma.sync GEMM on the tensor cores in 3xTF32: one TF32 product keeps about three
 // decimal digits and misses the fp32 gate of 1e-4, so each operand x is
 // split into hi and lo = x - hi and every product is hi*lo + lo*hi + hi*hi
 // on mma.sync m16n8k8 with fp32 sums (the small terms first, lo*lo
@@ -133,7 +139,7 @@
 
 #include <type_traits>
 
-#include "mma.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -154,168 +160,215 @@ __device__ __forceinline__ bool retired(const float* exit_reg, int layer, int ro
   return true;
 }
 
-// ---------------------------------------------------------------------------
-// The bf16-operand kernel: a pipelined mma.sync GEMM
-// ---------------------------------------------------------------------------
-
+// the fp32 GEMM's chunk depth, ring, threads and tile rule's block target
 constexpr int MMA_BK = 64;       // K depth of a staged chunk
 constexpr int MMA_STAGES = 3;    // chunk buffers in the ring
 constexpr int MMA_THREADS = 128; // 4 warps, 2 x 2 over the tile
 constexpr int MIN_BLOCKS = 256;  // blocks a tile plan aims for: about two per SM
 
-// eight fp32 values rounded to bf16 into one 16 B shared-memory segment
-__device__ __forceinline__ void put8(bf16_t* d, const float (&v)[8]) {
-  *reinterpret_cast<uint4*>(d) = make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
-                                            pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+// ---------------------------------------------------------------------------
+// The bf16-product kernel: a warpgroup on wgmma, fed by a TMA ring
+// ---------------------------------------------------------------------------
+
+constexpr int WG_BK = 64;       // K depth of a chunk (one 128 B row of bf16 A)
+constexpr int WG_STAGES = 4;    // chunk slots of the ring: K = 256 is in flight at once
+constexpr int WG_FILL = 128;    // blocks one pair's tile rule aims for: about one per SM
+constexpr int WG_PDL = 1;       // launched as a programmatic dependent
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 216;  // setmaxnreg: (40 + 216) * 128 = 256 * 128
+
+// A ring slot, bytes: A's chunk as TMA writes it (64 x 64 of TA: bf16 in
+// 128 B swizzle, or raw fp32), its bf16 copy (fp32 A only), W's chunk as TMA
+// writes it (64 x BN of TW: bf16 one swizzle atom wide, or raw int8) and its
+// dequantized bf16 copy (int8 W only); each part on 1024 B
+template <typename TA, typename TW>
+struct WgSlot {
+  static constexpr bool A_BF16 = std::is_same<TA, bf16_t>::value;
+  static constexpr bool W_BF16 = std::is_same<TW, bf16_t>::value;
+  static constexpr int A_RAW = 64 * WG_BK * (int)sizeof(TA);
+  static constexpr int A_BF = A_BF16 ? 0 : 64 * WG_BK * 2;
+  __host__ __device__ static constexpr int w_raw(int BN) { return WG_BK * BN * (int)sizeof(TW); }
+  __host__ __device__ static constexpr int w_bf(int BN) { return W_BF16 ? 0 : WG_BK * BN * 2; }
+  __host__ __device__ static constexpr int bytes(int BN) {
+    return A_RAW + A_BF + w_raw(BN) + w_bf(BN);
+  }
+  __host__ __device__ static constexpr int tx(int BN) { return A_RAW + w_raw(BN); }  // TMA bytes
+};
+// the ring, its barriers, and 1 KB to align the ring to 1024 B (the swizzle atom)
+template <typename TA, typename TW>
+constexpr size_t wg_smem(int BN) {
+  return WG_STAGES * (WgSlot<TA, TW>::bytes(BN) + 2 * sizeof(uint64_t)) + 1024;
 }
 
-// TA: the activation type of A, A2 and the residual, and the epilogue's
-// rounding (bf16, or fp32 for MIXED, staged as bf16); TW: bf16, or int8
-// with wscale (one fp32 per output channel); TB: the bias type; TO: Y's type
-template <int TM, int TN, typename TA, typename TW, typename TB, typename TO>
-__global__ void __launch_bounds__(MMA_THREADS)
-linear_mma_kernel(const TA* __restrict__ a, const TA* __restrict__ a2, int k1,
-                  const TW* __restrict__ w, const float* __restrict__ wscale,
-                  const TB* __restrict__ bias, const TA* __restrict__ res, TO* __restrict__ y,
-                  int M, int N, int K, const float* __restrict__ exit_reg, int layer,
-                  int rows_per_pair, int aligned) {
-  constexpr bool A_BF16 = std::is_same<TA, bf16_t>::value;
-  constexpr bool W_BF16 = std::is_same<TW, bf16_t>::value;
-  constexpr int AP = MMA_BK + 8;  // A row pitch in shared memory (144 B)
-  constexpr int WP = TN + 8;      // W row pitch
-  constexpr int MT = TM / 32;     // m16 tiles per warp
-  constexpr int NT = TN / 16;     // n8 tiles per warp
-  constexpr int SA = MMA_BK / 8;  // 16 B segments of an A chunk row
-  constexpr int SW = TN / 8;      // 16 B segments of a W chunk row
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16_t* const as = reinterpret_cast<bf16_t*>(smem_raw);  // slot s: as + s * TM * AP
-  bf16_t* const ws = as + MMA_STAGES * TM * AP;             // slot s: ws + s * MMA_BK * WP
+// a pair rounded through T: bf16 in one packed conversion (to nearest
+// even, as round_to), fp32 as it is
+template <typename T>
+__device__ __forceinline__ void round_pair(float& a, float& b) {
+  if constexpr (std::is_same<T, bf16_t>::value) {
+    const unsigned p = pack_bf16(a, b);
+    a = __uint_as_float(p << 16);
+    b = __uint_as_float(p & 0xffff0000u);
+  }
+}
 
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int wm = warp / 2, wn = warp % 2;   // this warp's quarter of the tile
-  const int g = lane / 4, t4 = lane % 4;    // mma fragment row and column pair
-  const int mi = lane / 8, mr = lane % 8;   // ldmatrix matrix and row of this lane
-  const int m0 = blockIdx.y * TM, n0 = blockIdx.x * TN;
-  const int k2 = K - k1;  // width of the second A operand (0 without one)
-  if (retired(exit_reg, layer, rows_per_pair, m0, n0, TM, TN, M, N, res, y, tid, MMA_THREADS))
+// Y = [A | A2] . W + b (+ R) for a 64 x BN tile: a consumer warpgroup runs
+// the product (wgmma m64nBNk16, A K-major and W MN-major from the ring), a
+// producer warpgroup's one thread streams the chunks of A (na of them), then
+// of A2 (na2), each with W's rows at its K offset (A2's from k1), so the
+// concat is never materialised. A chunk's columns past its operand's width
+// arrive as zeros, which meet W's next rows: their products are exact zeros.
+// MIXED's fp32 A and INT8's int8 W arrive raw; the consumer rounds A to bf16
+// (or dequantizes W, bf16(float(w_q) * scale)) into the slot's bf16 copy in
+// the layout TMA's swizzle would give, then fences the async proxy before
+// wgmma reads it.
+template <int BN, typename TA, typename TW, typename TB, typename TO>
+__global__ void __launch_bounds__(256, 2)
+linear_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
+                    const __grid_constant__ CUtensorMap a2map,
+                    const __grid_constant__ CUtensorMap wmap, int na, int na2, int k1,
+                    const float* __restrict__ wscale, const TB* __restrict__ bias,
+                    const TA* __restrict__ res, TO* __restrict__ y, int M, int N,
+                    const float* __restrict__ exit_reg, int layer, int rows_per_pair) {
+  using S = WgSlot<TA, TW>;
+  constexpr int ROW = BN >= 64 ? 128 : 2 * BN;  // bytes of a bf16 W row in the slot
+  extern __shared__ __align__(1024) unsigned char wg_raw[];
+  unsigned char* const ring = align1024(wg_raw);
+  uint64_t* const full = reinterpret_cast<uint64_t*>(ring + WG_STAGES * S::bytes(BN));
+  uint64_t* const empty = full + WG_STAGES;
+  auto slot = [&](int s) { return ring + s * S::bytes(BN); };
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.y * 64, n0 = blockIdx.x * BN;
+  if (tid == 0) {
+    for (int s = 0; s < WG_STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 4);  // one arrival per consumer warp
+    }
+    mbar_init_fence();
+  } else if (tid == 128) {
+    tma_prefetch(&amap);
+    if (na2) tma_prefetch(&a2map);
+    tma_prefetch(&wmap);
+  }
+  __syncthreads();
+  wait_prerequisites();  // every operand, the exit register, and y's readers
+  if (retired(exit_reg, layer, rows_per_pair, m0, n0, 64, BN, M, N, res, y, tid, 256)) return;
+
+  const int nk = na + na2;
+  if (tid >= 128) {  // the producer
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (tid == 128) {
+      for (int t = 0; t < nk; ++t) {
+        const int s = t % WG_STAGES;
+        mbar_wait(empty + s, ((t / WG_STAGES) & 1) ^ 1);
+        mbar_expect_tx(full + s, S::tx(BN));
+        const bool first = t < na;
+        const int kc = first ? t * WG_BK : (t - na) * WG_BK;  // column in its operand
+        tma_load(slot(s), first ? &amap : &a2map, full + s, kc, m0);
+        unsigned char* wt = slot(s) + S::A_RAW + S::A_BF;
+        constexpr int BOX = S::W_BF16 ? ROW / 2 : BN;  // columns of a W box
+#pragma unroll
+        for (int x = 0; x < BN / BOX; ++x)  // bf16: one box per swizzle atom of columns
+          tma_load(wt + x * WG_BK * BOX * (int)sizeof(TW), &wmap, full + s, n0 + x * BOX,
+                   first ? kc : k1 + kc);
+      }
+    }
     return;
+  }
+  setmaxnreg_inc<CONSUMER_REGS>();
 
-  // chunk kt of A (TM x 64, from a or a2) and W (64 x TN) into slot kt % 3;
-  // rows past M and columns past K are zero. bf16 sources copy by cp.async;
-  // fp32 A and int8 W go through registers, rounded to bf16 on the way.
-  auto fetch = [&](int kt) {
-    const int kc = kt * MMA_BK, slot = kt % MMA_STAGES;
-    for (int s = tid; s < TM * SA; s += MMA_THREADS) {
-      const int r = s / SA, c = kc + s % SA * 8, gm = m0 + r;
-      bf16_t* d = as + slot * TM * AP + r * AP + s % SA * 8;
-      if (gm >= M || c >= K) {
-        *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
-      } else if (A_BF16 && aligned) {
-        cp_async16(d, c < k1 ? a + (size_t)gm * k1 + c : a2 + (size_t)gm * k2 + c - k1);
-      } else if (!A_BF16 && aligned) {
-        const TA* src = c < k1 ? a + (size_t)gm * k1 + c : a2 + (size_t)gm * k2 + c - k1;
-        const float4 lo = *reinterpret_cast<const float4*>(src);
-        const float4 hi = *reinterpret_cast<const float4*>(src + 4);
-        put8(d, {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w});
-      } else {
+  const int lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t4 = lane % 4;  // accumulator row and column pair
+  // int8 W: this thread dequantizes columns 8 c .. 8 c + 7 of the tile
+  // (the same in every chunk), their scales read once
+  constexpr int WG8 = BN / 8;  // 8-column groups of a W row
+  float sc[8];
+  if constexpr (!S::W_BF16) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) sc[e] = wscale[n0 + (tid % WG8) * 8 + e];
+  }
+  float acc[BN / 2];
+#pragma unroll
+  for (int e = 0; e < BN / 2; ++e) acc[e] = 0.f;
+  // one chunk's products in flight while the next chunk's start: the
+  // slot of chunk t - 1 is released once chunk t's are committed and chunk
+  // t - 1's have completed
+  for (int t = 0; t < nk; ++t) {
+    const int s = t % WG_STAGES;
+    mbar_wait(full + s, (t / WG_STAGES) & 1);
+    unsigned char* const at = slot(s);
+    unsigned char* const abf = at + S::A_RAW;          // fp32 A's bf16 copy
+    unsigned char* const wt = abf + S::A_BF;           // W as TMA wrote it
+    unsigned char* const wbf = wt + S::w_raw(BN);      // int8 W's bf16 copy
+    if constexpr (!S::A_BF16) {  // fp32 A rows -> bf16, 128 B swizzle (16 B unit c of row r at c ^ r % 8)
+      const float* src = reinterpret_cast<const float*>(at);
+#pragma unroll
+      for (int q = 0; q < 64 * 8 / 128; ++q) {
+        const int it = tid + 128 * q, r = it / 8, c = it % 8;
+        const float4 lo = *reinterpret_cast<const float4*>(src + r * WG_BK + 8 * c);
+        const float4 hi = *reinterpret_cast<const float4*>(src + r * WG_BK + 8 * c + 4);
+        *reinterpret_cast<uint4*>(abf + r * 128 + ((c ^ (r & 7)) * 16)) =
+            make_uint4(pack_bf16(lo.x, lo.y), pack_bf16(lo.z, lo.w), pack_bf16(hi.x, hi.y),
+                       pack_bf16(hi.z, hi.w));
+      }
+    }
+    if constexpr (!S::W_BF16) {  // int8 W rows -> bf16(float(w_q) * scale), ROW-byte swizzle
+      const int c = tid % WG8;
+#pragma unroll
+      for (int q = 0; q < WG_BK * WG8 / 128; ++q) {
+        const int k = (tid + 128 * q) / WG8;
+        const int2 raw = *reinterpret_cast<const int2*>(wt + k * BN + 8 * c);
+        const int8_t* w8 = reinterpret_cast<const int8_t*>(&raw);
         float v[8];
 #pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const int col = c + e;
-          v[e] = col < k1 ? to_f(a[(size_t)gm * k1 + col])
-                          : col < K ? to_f(a2[(size_t)gm * k2 + col - k1]) : 0.f;
-        }
-        put8(d, v);
+        for (int e = 0; e < 8; ++e) v[e] = __fmul_rn(static_cast<float>(w8[e]), sc[e]);
+        const int unit = BN >= 64 ? c ^ (k & 7) : c ^ ((k >> 1) & 3);
+        *reinterpret_cast<uint4*>(wbf + k * ROW + unit * 16) =
+            make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]), pack_bf16(v[4], v[5]),
+                       pack_bf16(v[6], v[7]));
       }
     }
-    for (int s = tid; s < MMA_BK * SW; s += MMA_THREADS) {
-      const int r = s / SW, c = s % SW * 8, gk = kc + r;
-      bf16_t* d = ws + slot * MMA_BK * WP + r * WP + c;
-      if (gk >= K) {
-        *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
-      } else if constexpr (W_BF16) {
-        if (aligned) {
-          cp_async16(d, w + (size_t)gk * N + n0 + c);
-        } else {
-#pragma unroll
-          for (int e = 0; e < 8; ++e) d[e] = w[(size_t)gk * N + n0 + c + e];
-        }
-      } else {  // int8 weight: (float(w_q) * scale) rounded to bf16
-        const TW* src = w + (size_t)gk * N + n0 + c;
-        const float* sc = wscale + n0 + c;
-        float v[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) v[e] = __fmul_rn(static_cast<float>(src[e]), sc[e]);
-        put8(d, v);
-      }
+    if constexpr (!S::A_BF16 || !S::W_BF16) {
+      fence_proxy_async();  // the copies, written by threads, visible to wgmma
+      bar_sync(1, 128);
     }
-    cp_async_commit();
-  };
-
-  float acc[MT][NT][4];
+    const unsigned char* ma = S::A_BF16 ? at : abf;
+    const unsigned char* mw = S::W_BF16 ? wt : wbf;
+    fence_operand(acc);
+    wgmma_fence();
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-      acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
-
-  const int nk = (K + MMA_BK - 1) / MMA_BK;
-#pragma unroll
-  for (int kt = 0; kt < MMA_STAGES - 1; ++kt) {
-    if (kt < nk)
-      fetch(kt);
-    else
-      cp_async_commit();  // an empty group keeps the wait count uniform
+    for (int k16 = 0; k16 < WG_BK / 16; ++k16) {
+      if constexpr (BN == 64)
+        wgmma_m64n64<1>(acc, kmajor_desc(ma, k16), mnmajor_desc(mw, ROW, k16), 1);
+      else
+        wgmma_m64n32<1>(acc, kmajor_desc(ma, k16), mnmajor_desc(mw, ROW, k16), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_operand(acc);
+    __syncwarp();
+    if (t > 0 && lane == 0) mbar_arrive(empty + (t - 1) % WG_STAGES);
   }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<MMA_STAGES - 2>();  // chunk kt has landed
-    __syncthreads();                  // ... for every thread, and chunk kt - 1 is done
-    if (kt + MMA_STAGES - 1 < nk)
-      fetch(kt + MMA_STAGES - 1);  // into the slot of chunk kt - 1
-    else
-      cp_async_commit();
-    const bf16_t* at = as + (kt % MMA_STAGES) * TM * AP + wm * (TM / 2) * AP;
-    const bf16_t* wt = ws + (kt % MMA_STAGES) * MMA_BK * WP + wn * (TN / 2);
-#pragma unroll
-    for (int ks = 0; ks < MMA_BK / 16; ++ks) {
-      unsigned af[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-        ldsm_x4(af[mt], at + (mt * 16 + mr + (mi & 1) * 8) * AP + ks * 16 + (mi >> 1) * 8);
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        unsigned r[4];
-        ldsm_x4_trans(r, wt + (ks * 16 + mr + (mi & 1) * 8) * WP + np * 16 + (mi >> 1) * 8);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          mma_bf16(acc[mt][2 * np], af[mt], r[0], r[1]);
-          mma_bf16(acc[mt][2 * np + 1], af[mt], r[2], r[3]);
-        }
-      }
-    }
-  }
+  wgmma_wait<0>();
+  fence_operand(acc);
 
-  // epilogue: round acc to TA, + bias rounded to TA, + residual in TA
+  // epilogue: round acc to TA, + bias rounded to TA, + residual in TA (TA =
+  // fp32: no rounding), one cast to TO. A pair rounds in one packed
+  // conversion, and the last rounding to TA is the store's own (TA is TO,
+  // or fp32)
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int gm = m0 + wm * (TM / 2) + mt * 16 + g + 8 * i;
-      if (gm >= M) continue;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int gn = n0 + wn * (TN / 2) + nt * 8 + 2 * t4;
-        float v0 = round_to<TA>(acc[mt][nt][2 * i]);
-        float v1 = round_to<TA>(acc[mt][nt][2 * i + 1]);
-        v0 = round_to<TA>(v0 + round_to<TA>(to_f(bias[gn])));
-        v1 = round_to<TA>(v1 + round_to<TA>(to_f(bias[gn + 1])));
-        if (res) {
-          v0 = round_to<TA>(v0 + to_f(res[(size_t)gm * N + gn]));
-          v1 = round_to<TA>(v1 + to_f(res[(size_t)gm * N + gn + 1]));
-        }
-        store2(y + (size_t)gm * N + gn, v0, v1);
-      }
+  for (int e = 0; e < BN / 2; e += 2) {
+    const int gm = m0 + 16 * warp + g + 8 * ((e / 2) & 1);
+    const int gn = n0 + 8 * (e / 4) + 2 * t4;
+    if (gm >= M) continue;
+    float v0 = acc[e], v1 = acc[e + 1];
+    round_pair<TA>(v0, v1);
+    float b0 = to_f(bias[gn]), b1 = to_f(bias[gn + 1]);
+    if constexpr (!std::is_same<TB, TA>::value) round_pair<TA>(b0, b1);
+    v0 += b0, v1 += b1;
+    if (res) {
+      round_pair<TA>(v0, v1);
+      v0 += to_f(res[(size_t)gm * N + gn]), v1 += to_f(res[(size_t)gm * N + gn + 1]);
     }
+    store2(y + (size_t)gm * N + gn, v0, v1);
   }
 }
 
@@ -327,8 +380,9 @@ constexpr int TF32_BK = 64;           // K depth of a staged fp32 chunk: eight k
 constexpr int TF32_AP = TF32_BK + 4;  // A row pitch (68 floats): a warp's A fragment
                                       // loads (row g, k t4) fall in 32 banks
 
-// Y = [A | A2] . W + b (+ R), all fp32: linear_mma_kernel's tile, warps and
-// ring, with raw fp32 chunks and each product in 3xTF32 on m16n8k8
+// Y = [A | A2] . W + b (+ R), all fp32: linear_tile's tile, four warps 2 x 2
+// over it and a three-chunk cp.async ring, with raw fp32 chunks and each
+// product in 3xTF32 on m16n8k8
 template <int TM, int TN>
 __global__ void __launch_bounds__(MMA_THREADS)
 linear_tf32_kernel(const float* __restrict__ a, const float* __restrict__ a2, int k1,
@@ -734,34 +788,6 @@ void linear_tile(int M, int N, int* tm, int* tn) {
   }
 }
 
-// the ring of one block: MMA_STAGES chunks of A and W
-constexpr size_t ring_smem(int TM, int TN) {
-  return sizeof(bf16_t) * MMA_STAGES * (TM * (MMA_BK + 8) + MMA_BK * (TN + 8));
-}
-
-template <int TM, int TN, typename TA, typename TW, typename TB, typename TO>
-int launch_mma(const void* a, const void* a2, int k1, const void* w, const void* wscale,
-               const void* bias, const void* res, void* y, int M, int N, int K,
-               const void* exit_reg, int layer, int rows_per_pair, int aligned,
-               cudaStream_t stream) {
-  constexpr size_t smem = ring_smem(TM, TN);
-  auto kernel = linear_mma_kernel<TM, TN, TA, TW, TB, TO>;
-  static bool opted_in = smem <= 48 * 1024;  // raised once, not per launch
-  if (!opted_in) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    opted_in = true;
-  }
-  dim3 grid(N / TN, (M + TM - 1) / TM);
-  kernel<<<grid, MMA_THREADS, smem, stream>>>(
-      static_cast<const TA*>(a), static_cast<const TA*>(a2), k1, static_cast<const TW*>(w),
-      static_cast<const float*>(wscale), static_cast<const TB*>(bias),
-      static_cast<const TA*>(res), static_cast<TO*>(y), M, N, K,
-      static_cast<const float*>(exit_reg), layer, rows_per_pair, aligned);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // the ring of one fp32 block: MMA_STAGES raw chunks of A and W
 constexpr size_t tf32_ring_smem(int TM, int TN) {
   return sizeof(float) * MMA_STAGES * (TM * TF32_AP + TF32_BK * (TN + 8));
@@ -799,17 +825,61 @@ int run_tf32(const void* a, const void* a2, int k1, const void* w, const void* w
   return run(a, a2, k1, w, bias, res, y, M, N, K, exit_reg, layer, rows_per_pair, aligned, s);
 }
 
+// The wgmma GEMM's tile columns for one pair's rows (the batch never
+// changes a tile, so a pair's outputs sum in one order at any batch): 64
+// where one pair's launch still gives WG_FILL blocks, else 32
+// (kernels/layer_stack.py:linear_plan mirrors it). At 1024 rows qkv, ffn1
+// and qk_v take 64 (128-192 blocks), out and ffn2 (N = 256) 32 (128).
+int wg_tile_n(int rows_per_pair, int N) {
+  return (long long)((rows_per_pair + 63) / 64) * (N / 64) >= WG_FILL ? 64 : 32;
+}
+
+// a (rows, cols) row-major operand of T in boxes of (box_cols, 64 rows): bf16
+// one swizzle atom wide (box_cols * 2 bytes of swizzle), other types as
+// they lie
+template <typename T>
+int matrix_map(CUtensorMap* map, const void* base, int rows, int cols, int box_cols) {
+  const long long pitch = (long long)sizeof(T) * cols;
+  if (!tma_aligned(base, pitch)) return static_cast<int>(cudaErrorInvalidValue);
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)pitch};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, 64};
+  return tma_map(map, base, tma_type<T>(), 2, dims, strides, box,
+                 sizeof(T) == 2 ? 2 * box_cols : 0);
+}
+
+template <int BN, typename TA, typename TW, typename TB, typename TO>
+int launch_wgmma(const void* a, const void* a2, int k1, const void* w, const void* wscale,
+                 const void* bias, const void* res, void* y, int M, int N, int K,
+                 const void* exit_reg, int layer, int rows_per_pair, cudaStream_t stream) {
+  constexpr size_t smem = wg_smem<TA, TW>(BN);
+  auto kernel = linear_wgmma_kernel<BN, TA, TW, TB, TO>;
+  static const cudaError_t opt_in = cudaFuncSetAttribute(  // above 48 KB: opt in once
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
+  const int k2 = K - k1;
+  constexpr int WBOX = std::is_same<TW, bf16_t>::value && BN > 64 ? 64 : BN;
+  CUtensorMap am, a2m, wm;
+  const int errs[3] = {matrix_map<TA>(&am, a, M, k1, WG_BK),
+                       k2 ? matrix_map<TA>(&a2m, a2, M, k2, WG_BK) : 0,
+                       matrix_map<TW>(&wm, w, K, N, WBOX)};
+  for (const int err : errs)
+    if (err) return err;
+  if (!k2) a2m = am;  // never read
+  return static_cast<int>(launch_dependent(
+      kernel, dim3(N / BN, (M + 63) / 64), 256, smem, stream, WG_PDL, am, a2m, wm,
+      (k1 + WG_BK - 1) / WG_BK, (k2 + WG_BK - 1) / WG_BK, k1, static_cast<const float*>(wscale),
+      static_cast<const TB*>(bias), static_cast<const TA*>(res), static_cast<TO*>(y), M, N,
+      static_cast<const float*>(exit_reg), layer, rows_per_pair));
+}
+
 template <typename TA, typename TW, typename TB, typename TO>
-int run_mma(const void* a, const void* a2, int k1, const void* w, const void* wscale,
-            const void* bias, const void* res, void* y, int M, int N, int K,
-            const void* exit_reg, int layer, int rows_per_pair, int aligned, cudaStream_t s) {
-  int tm, tn;
-  linear_tile(M, N, &tm, &tn);
-  auto run = tm == 64 ? (tn == 64 ? launch_mma<64, 64, TA, TW, TB, TO>
-                                  : launch_mma<64, 32, TA, TW, TB, TO>)
-                      : launch_mma<32, 32, TA, TW, TB, TO>;
-  return run(a, a2, k1, w, wscale, bias, res, y, M, N, K, exit_reg, layer, rows_per_pair,
-             aligned, s);
+int run_wgmma(const void* a, const void* a2, int k1, const void* w, const void* wscale,
+              const void* bias, const void* res, void* y, int M, int N, int K,
+              const void* exit_reg, int layer, int rows_per_pair, int, cudaStream_t s) {
+  auto run = wg_tile_n(rows_per_pair, N) == 64 ? launch_wgmma<64, TA, TW, TB, TO>
+                                               : launch_wgmma<32, TA, TW, TB, TO>;
+  return run(a, a2, k1, w, wscale, bias, res, y, M, N, K, exit_reg, layer, rows_per_pair, s);
 }
 
 // The s8 GEMM's warp tiles (along M, along N; 32 x 32 outputs each) for an
@@ -858,18 +928,21 @@ enum Mode { FP32 = 0, BF16 = 1, MIXED = 2, MIXED_BF16_OUT = 3, INT8_WEIGHTS = 4 
 // MIXED_BF16_OUT (as MIXED with a bf16 y, no residual), INT8_WEIGHTS (bf16
 // a, a2, res and y, int8 w with wscale, fp32 bias). exit_reg: (B,) fp32 or
 // null; layer: the global layer index; the rows of pair b are
-// [b * rows_per_pair, (b + 1) * rows_per_pair). The tensor-core modes run
-// linear_mma_kernel at linear_tile's tile.
+// [b * rows_per_pair, (b + 1) * rows_per_pair) (M itself for a product of
+// no pairs). BF16, MIXED and INT8 run linear_wgmma_kernel at wg_tile_n's
+// tile (a, a2 and w on 16 B, their rows of a multiple of 16 B: TMA
+// addresses them; else cudaErrorInvalidValue), FP32 linear_tf32_kernel at
+// linear_tile's tile.
 extern "C" int lg_linear(const void* a, const void* a2, int k1, const void* w,
                          const void* wscale, const void* bias, const void* res, void* y, int M,
                          int N, int K, const void* exit_reg, int layer, int rows_per_pair,
                          int mode, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto run = mode == FP32 && !wscale ? run_tf32
-             : mode == BF16 ? run_mma<bf16_t, bf16_t, bf16_t, bf16_t>
-             : mode == MIXED ? run_mma<float, bf16_t, float, float>
-             : mode == MIXED_BF16_OUT && !res ? run_mma<float, bf16_t, float, bf16_t>
-             : mode == INT8_WEIGHTS && wscale ? run_mma<bf16_t, int8_t, float, bf16_t>
+             : mode == BF16 ? run_wgmma<bf16_t, bf16_t, bf16_t, bf16_t>
+             : mode == MIXED ? run_wgmma<float, bf16_t, float, float>
+             : mode == MIXED_BF16_OUT && !res ? run_wgmma<float, bf16_t, float, bf16_t>
+             : mode == INT8_WEIGHTS && wscale ? run_wgmma<bf16_t, int8_t, float, bf16_t>
                                               : nullptr;
   if (!run) return static_cast<int>(cudaErrorInvalidValue);
   const int aligned = on16(a) && on16(a2) && on16(w) && k1 % 8 == 0 && (K - k1) % 8 == 0;
@@ -921,17 +994,24 @@ extern "C" int lg_s8_plan(int M, int N, int K, int* plan) {
   return 0;
 }
 
-// The tensor-core kernels' tile at this shape, (rows, columns) into
-// tile[0..1] (the wrapper's plan is held against it).
-extern "C" int lg_linear_tile(int M, int N, int* tile) {
-  linear_tile(M, N, &tile[0], &tile[1]);
-  return 0;
-}
-
-// The dynamic shared memory of a block of lg_linear's GEMM at this shape,
-// bytes: the fp32 ring in FP32 mode, the bf16 ring in the others
-extern "C" int lg_linear_smem(int M, int N, int mode) {
+// lg_linear's launch at this shape in this mode into plan[0..4]: the tile's
+// rows and columns, the ring's chunk slots, the block's dynamic shared memory
+// in bytes, and 1 where the kernel is linear_wgmma_kernel (BF16), 0 for the
+// mma.sync kernels (the wrapper's linear_plan is held against it)
+extern "C" int lg_linear_plan(int M, int N, int rows_per_pair, int mode, int* plan) {
+  if (mode != FP32) {
+    const int tn = wg_tile_n(rows_per_pair, N);
+    const size_t smem = mode == BF16 ? wg_smem<bf16_t, bf16_t>(tn)
+                        : mode == INT8_WEIGHTS ? wg_smem<bf16_t, int8_t>(tn)
+                                               : wg_smem<float, bf16_t>(tn);
+    plan[0] = 64, plan[1] = tn, plan[2] = WG_STAGES;
+    plan[3] = static_cast<int>(smem), plan[4] = 1;
+    return 0;
+  }
   int tm, tn;
   linear_tile(M, N, &tm, &tn);
-  return static_cast<int>(mode == FP32 ? tf32_ring_smem(tm, tn) : ring_smem(tm, tn));
+  plan[0] = tm, plan[1] = tn, plan[2] = MMA_STAGES;
+  plan[3] = static_cast<int>(tf32_ring_smem(tm, tn));
+  plan[4] = 0;
+  return 0;
 }

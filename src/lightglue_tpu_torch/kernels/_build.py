@@ -60,16 +60,15 @@ _SIGNATURES = {
     "lg_linear": [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _P],
     "lg_row_quant": [_P, _P, _I, _I, _I, _P, _P, _P],
     "lg_linear_s8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _P],
-    "lg_linear_tile": [_I, _I, ctypes.POINTER(_I)],
+    "lg_linear_plan": [_I, _I, _I, _I, ctypes.POINTER(_I)],
     "lg_s8_plan": [_I, _I, _I, ctypes.POINTER(_I)],
-    "lg_linear_smem": [_I, _I, _I],
     "lg_attention": [
         _P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _P, _P, _P, _P, _I, _P,
         _I, _I, _I, _I, _F, _I, _I, _I, _P,
     ],
     "lg_rope_qk": [_P, _L, _L, _P, _L, _L, _P, _P, _I, _I, _I, _I, _P],
     "lg_attention_row_groups": [_I, _I],
-    "lg_attention_plan": [_I, _I, _I, _I, ctypes.POINTER(_I)],
+    "lg_attention_plan": [_I, _I, _I, _I, _I, ctypes.POINTER(_I)],
     "lg_ln_gelu": [_P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _P],
     "lg_ln_gelu_plan": [_I, ctypes.POINTER(_I)],
     "lg_adaptive_decide": [

@@ -97,11 +97,18 @@ _DEAD = _NEG_INF * 0.5  # all-masked-row clamp (layer_stack.py:276-292)
 # launch aims for, K and V chunk buffers of a streamed tile (every fp32 tile)
 _KC, _WARPS, _LD, _FP, _RS = 64, 4, HEAD_DIM + 8, HEAD_DIM + 4, 2 + HEAD_DIM + 8
 _FILL_BLOCKS, _STREAM_STAGES = 256, 2
-# csrc/linear.cu: the bf16 GEMM's K chunk, ring buffers, candidate tiles in
-# order of preference and the blocks a tile plan aims for (two per SM); the
-# fp32 (3xTF32) GEMM's K chunk
-_LIN_BK, _LIN_STAGES, _LIN_TILES, _LIN_MIN_BLOCKS = 64, 3, ((64, 64), (64, 32), (32, 32)), 256
+# csrc/linear.cu: the fp32 (3xTF32) GEMM's K chunk, ring buffers, candidate
+# tiles in order of preference and the blocks its tile plan aims for (two
+# per SM); the wgmma GEMM's (BF16, MIXED, INT8) K chunk, ring slots, tile
+# columns in order of preference and the blocks one pair's tile rule aims
+# for (one per SM)
+_LIN_STAGES, _LIN_TILES, _LIN_MIN_BLOCKS = 3, ((64, 64), (64, 32), (32, 32)), 256
 _LIN_TF32_BK = 64
+_WG_BK, _WG_STAGES, _WG_TILE_N, _WG_FILL = 64, 4, (64, 32), 128
+# csrc/attention.cu: the bf16 kernel's consumers splitting each row's
+# chunks, consumer warpgroups a block, ring slots per warpgroup, the SMs
+# that clusters of two blocks a tile must fit (else one block a tile)
+_ATT_SPLIT, _ATT_WGS, _ATT_STAGES, _ATT_CLUSTER_SMS = 8, 4, 2, 132
 # csrc/linear.cu, W8A8: the s8 GEMM's warp tiles of a block (along M, along
 # N; 32 x 32 outputs each) in order of preference, the blocks its plan aims
 # for (about one per SM), the widest K it takes, the warps of a block
@@ -165,37 +172,66 @@ def tf32_smem(row_groups: int, stages: int, col_split: Optional[int] = None) -> 
     return smem
 
 
+def wgmma_attention_smem(store: bool = True, cluster: bool = True) -> int:
+    """Dynamic shared memory of a block of the bf16 attention kernel
+    (csrc/attention.cu:Smem): Q (64 x 64 bf16); each warpgroup's region,
+    its ring of two slots (K, then V, with ``store``: bf16 stats, pass 2
+    reading pass 1's s; K and V in one slot without) and its chunks' s
+    (``store``), or room for a 64 x 64 fp32 partial (one block a tile,
+    without ``store``); the warpgroups' partial row max and sum p; the
+    block's row max; the barriers; 1 KB to align the tiles to 1024 B. A
+    warpgroup runs one consumer in a ``cluster`` of two blocks, two without."""
+    tile = 2 * 64 * HEAD_DIM
+    virt = _ATT_SPLIT // (_ATT_WGS * (2 if cluster else 1))
+    kept = MAX_SEQ // 64 // _ATT_SPLIT * virt  # stored chunks of a warpgroup
+    extra = kept * tile if store else (4 * 64 * HEAD_DIM if virt > 1 else 0)
+    region = _ATT_STAGES * (tile if store else 2 * tile) + extra
+    return (tile + region * _ATT_WGS + 2 * 4 * _ATT_WGS * 64 + 4 * 64
+            + 8 * (1 + 2 * _ATT_WGS * _ATT_STAGES) + 1024)
+
+
 class AttentionPlan(NamedTuple):
     """Launch of ``csrc/attention.cu`` for one shape."""
 
-    row_groups: int  # 16-row groups per block: 4, 2 or 1
-    col_split: int   # warps of a row group that split each chunk's keys
+    row_groups: int  # 16-row groups per block: 4, 2 or 1 (bf16: 4, a warpgroup's 64 rows)
+    col_split: int   # warps (fp32) or warpgroups (bf16, of a cluster) that split each row's keys
     blocks: int      # blocks of the launch
     smem: int        # dynamic shared memory per block, bytes
+    kernel: str      # the kernel the launch runs
 
 
-def attention_plan(batch: int, heads: int, nq: int, nk: int,
-                   dtype=torch.bfloat16) -> AttentionPlan:
-    """The stack attention's launch, in either operand type: each chunk's
-    keys split ``4 / fill_row_groups`` ways, one pair's split at every batch;
-    one pair's 16-row groups per block (four warps in all), or, where the
-    batch's launch still gives enough blocks, two or four times as many
-    groups of that split in one block of up to sixteen warps (more rows
-    share each staged K and V chunk; no row's arithmetic changes): bf16
-    while 256 blocks remain, fp32, twice the bytes, while 128 remain
-    (csrc/attention.cu:mma_plan, tf32_plan, lg_attention_plan; at one pair
-    of 1024 the bf16 launch is 256 four-warp blocks, the fp32 one 128
-    eight-warp blocks). Two K/V chunk buffers (the whole row streams
-    through them, so shared memory does not grow with Nk), bf16 chunks at
-    ``mma_smem``, fp32 ones at ``tf32_smem``. Raises past the contract's
-    N <= 1024."""
+def attention_plan(batch: int, heads: int, nq: int, nk: int, dtype=torch.bfloat16,
+                   stat_dtype=None) -> AttentionPlan:
+    """The stack attention's launch in either operand type
+    (csrc/attention.cu:lg_attention_plan). bf16 operands (the BF16, MIXED
+    and INT8 rungs): ``attention_wgmma_kernel``, eight consumers splitting
+    each row's 64-key chunks (chunk j to consumer j % 8) at every shape and
+    batch, fed by TMA rings of two slots (``wgmma_attention_smem``; at bf16
+    ``stat_dtype``, the default, pass 2 reads pass 1's s from shared
+    memory): a cluster of two blocks of four consumer warpgroups per 64
+    query rows of a head while the launch's blocks fit the card's 132 SMs
+    (one pair of 1024: 128 blocks), else one block whose warpgroups run two
+    consumers each; both add the same values in the same order, so a pair's
+    rows are the same in either. fp32 operands:
+    ``attention_tf32_kernel``, each chunk's keys split ``4 /
+    fill_row_groups`` ways, one pair's split at every batch; one pair's
+    16-row groups per block (four warps in all), or, while the batch's
+    launch still gives 128 blocks, two or four times as many groups of that
+    split in one block of up to sixteen warps (more rows share each staged K
+    and V chunk; no row's arithmetic changes; at one pair of 1024, 128
+    eight-warp blocks), two fp32 K/V chunk buffers at ``tf32_smem``. Shared
+    memory does not grow with Nk. Raises past the contract's N <= 1024."""
     if nk > MAX_SEQ:
         raise ValueError(f"attention: {nk} keys exceed the layer stack's {MAX_SEQ}")
-    fp32 = dtype == torch.float32
-    groups, split = batch_row_groups(batch, heads, nq,
-                                     grow=_FILL_BLOCKS // 2 if fp32 else _FILL_BLOCKS)
-    smem = (tf32_smem if fp32 else mma_smem)(groups, _STREAM_STAGES, split)
-    return AttentionPlan(groups, split, batch * heads * -(-nq // (16 * groups)), smem)
+    if dtype != torch.float32:
+        store = (stat_dtype or dtype) == torch.bfloat16
+        tiles = batch * heads * -(-nq // 64)
+        cluster = 2 * tiles <= _ATT_CLUSTER_SMS
+        return AttentionPlan(4, _ATT_SPLIT, tiles * (2 if cluster else 1),
+                             wgmma_attention_smem(store, cluster), "attention_wgmma_kernel")
+    groups, split = batch_row_groups(batch, heads, nq, grow=_FILL_BLOCKS // 2)
+    return AttentionPlan(groups, split, batch * heads * -(-nq // (16 * groups)),
+                         tf32_smem(groups, _STREAM_STAGES, split), "attention_tf32_kernel")
 
 
 class LinearPlan(NamedTuple):
@@ -205,29 +241,46 @@ class LinearPlan(NamedTuple):
     bn: int      # tile columns
     bk: int      # K depth of a staged chunk
     chunks: int  # K chunks a block runs through
-    stages: int  # chunk buffers in the cp.async ring
+    stages: int  # chunk slots in the ring (TMA's, or cp.async's)
     blocks: int  # blocks of the launch
     smem: int    # dynamic shared memory per block, bytes
+    kernel: str  # the kernel the launch runs
 
 
-def linear_plan(m: int, n: int, k: int, dtype=torch.bfloat16) -> LinearPlan:
-    """The GEMM's tile for an (m, k) x (k, n) product: 64 x 64 where that
-    gives 256 blocks, else 64 x 32, else 32 x 32
-    (csrc/linear.cu:linear_tile), in every mode; the ring of ``dtype``
-    products (the tensor-core modes' bf16 chunks 64 deep, rows padded by 8;
-    fp32's raw chunks 64 deep, A rows padded by 4 and W rows by 8:
-    csrc/linear.cu:ring_smem, tf32_ring_smem)."""
+def linear_plan(m: int, n: int, k: int, dtype=torch.bfloat16, weight_dtype=None, *,
+                rows: Optional[int] = None) -> LinearPlan:
+    """The GEMM's launch for an (m, k) x (k, n) product of ``dtype``
+    activations and ``weight_dtype`` weights (default: ``dtype``): the
+    modes of ``_LINEAR_MODES`` (csrc/linear.cu:lg_linear_plan).
+
+    BF16 (bf16 by bf16), MIXED (fp32 by bf16) and INT8 (bf16 by int8):
+    ``linear_wgmma_kernel``, 64-row tiles of 64 columns where one pair's
+    ``rows`` (default ``m``) still give 128 blocks, else 32 (wg_tile_n: the
+    batch never changes a tile), K in 64-deep TMA chunks through a ring of
+    four slots (an A chunk and a W chunk each, with the bf16 copy of MIXED's
+    fp32 A or of INT8's dequantized W: csrc/linear.cu:WgSlot). FP32:
+    ``linear_tf32_kernel`` at 64 x 64 where that gives 256 blocks, else
+    64 x 32, else 32 x 32 (linear_tile), with a ring of three raw fp32
+    chunks 64 deep, A rows padded by 4 and W rows by 8 (tf32_ring_smem)."""
+    weight_dtype = weight_dtype or dtype
+    if (dtype, weight_dtype) != (torch.float32, torch.float32):
+        pair = -(-(rows or m) // 64)
+        bn = next((t for t in _WG_TILE_N if pair * (n // t) >= _WG_FILL), _WG_TILE_N[-1])
+        # a slot: A as TMA writes it (and fp32 A's bf16 copy), W as TMA writes
+        # it (and int8 W's dequantized bf16 copy)
+        a_bytes = 64 * _WG_BK * (4 + 2 if dtype == torch.float32 else 2)
+        w_bytes = _WG_BK * bn * (1 + 2 if weight_dtype == torch.int8 else 2)
+        smem = _WG_STAGES * (a_bytes + w_bytes + 16) + 1024
+        return LinearPlan(64, bn, _WG_BK, -(-k // _WG_BK), _WG_STAGES, -(-m // 64) * (n // bn),
+                          smem, "linear_wgmma_kernel")
     for bm, bn in _LIN_TILES:
         blocks = -(-m // bm) * (n // bn)
         if blocks >= _LIN_MIN_BLOCKS:
             break
-    if dtype == torch.float32:
-        bk = _LIN_TF32_BK
-        smem = 4 * _LIN_STAGES * (bm * (bk + 4) + bk * (bn + 8))
-    else:
-        bk = _LIN_BK
-        smem = 2 * _LIN_STAGES * (bm * (bk + 8) + bk * (bn + 8))
-    return LinearPlan(bm, bn, bk, -(-k // bk), _LIN_STAGES, blocks, smem)
+    bk = _LIN_TF32_BK
+    smem = 4 * _LIN_STAGES * (bm * (bk + 4) + bk * (bn + 8))
+    kernel = "linear_tf32_kernel"
+    return LinearPlan(bm, bn, bk, -(-k // bk), _LIN_STAGES, blocks, smem, kernel)
 
 
 class S8Plan(NamedTuple):
@@ -286,6 +339,16 @@ def _live_args(live: Optional[Live], rows_per_pair: int):
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check_tma(name: str, *operands) -> None:
+    """Raise where TMA cannot address an operand: each (tensor or None, row
+    width in elements) must start on 16 B with rows of a multiple of 16 B
+    (bf16: a multiple of 8 elements)."""
+    for t, width in operands:
+        if t is not None and (t.data_ptr() % 16 or (width * t.element_size()) % 16):
+            raise ValueError(f"{name}: an operand TMA cannot address (base {t.data_ptr():#x}, "
+                             f"rows of {width} {t.dtype}): 16 B bases and rows")
 
 
 def _check_same(name: str, dtype, *tensors) -> None:
@@ -486,16 +549,19 @@ def _linear_cuda(a, w, b, a2, residual, live_exit, live_layer, scale, out_dtype,
                                   f"{list(_LINEAR_MODES)})")
     if any(t is not None and (t.dtype != a.dtype or t.device != a.device) for t in (a2, residual)):
         raise NotImplementedError("linear: a2 and the residual share a's dtype and device")
+    if not w8a8 and mode != 0:  # the wgmma GEMM reads a, a2 and w through TMA
+        _check_tma("linear", (a, k1), (a2, k - k1), (w, n))
     y = torch.empty((*lead, n), dtype=out_dtype, device=a.device)
     if w8a8:
         q, sa = row_quant(a, a2)
         linear_s8(q, sa, w_t, scale, b, residual, y, live, rows)
     else:
+        exit_ptr, layer, _ = _live_args(live, rows)
         err = _build.lib().lg_linear(
             a.data_ptr(), None if a2 is None else a2.data_ptr(), k1, w.data_ptr(),
             None if scale is None else scale.data_ptr(), b.data_ptr(),
             None if residual is None else residual.data_ptr(), y.data_ptr(),
-            m, n, k, *_live_args(live, rows), mode, _stream(a),
+            m, n, k, exit_ptr, layer, rows, mode, _stream(a),
         )
         _build.check(err, "linear")
     linear.launches += 1
@@ -644,7 +710,7 @@ def _attention_cuda(q, k, v, freqs, len_q, len_kv, num_heads, stat_dtype, out_dt
         raise ValueError(f"attention: shapes {q.shape} {k.shape} {v.shape}")
     if min(t.stride(-1) for t in (q, k, v)) != 1 or max(t.stride(-1) for t in (q, k, v)) != 1:
         raise ValueError("attention: q/k/v need unit column stride")
-    attention_plan(bsz, num_heads, nq, nk, q.dtype)  # raises where the launch cannot run
+    attention_plan(bsz, num_heads, nq, nk, q.dtype, stat_dtype)  # raises where it cannot run
     if stat_dtype not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(f"attention: stat dtype {stat_dtype}")
     if freqs is not None:
@@ -668,6 +734,12 @@ def _attention_cuda(q, k, v, freqs, len_q, len_kv, num_heads, stat_dtype, out_dt
         keep_q, keep_kv = keep_q.contiguous(), keep_kv.contiguous()
     if live is not None and live.exit.shape != (bsz,):
         raise ValueError(f"attention: exit register {tuple(live.exit.shape)} for B={bsz}")
+    if mode != 0:  # the bf16 kernel reads q, k and v through TMA
+        for t in (q, k, v):
+            if t.data_ptr() % 16 or t.stride(1) % 8 or (bsz > 1 and t.stride(0) % 8):
+                raise ValueError(f"attention: an operand TMA cannot address (base "
+                                 f"{t.data_ptr():#x}, strides {t.stride()}): 16 B bases "
+                                 "and row and batch strides")
     out = torch.empty((bsz, nq, e), dtype=out_dtype or q.dtype, device=q.device)
     if freqs is not None:
         # RoPE once per row into a scratch (2, B, N, E), which the kernel reads

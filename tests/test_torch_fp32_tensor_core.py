@@ -357,13 +357,16 @@ def test_flash_launch_raises_where_the_block_does_not_fit(monkeypatch):
 @pytest.mark.parametrize("shape", [(1024, 768, 256), (1024, 256, 256), (1024, 512, 512),
                                    (1024, 256, 512), (128, 256, 512), (2048, 768, 256)])
 def test_fp32_linear_plan_fits(shape):
-    """The fp32 GEMM takes the bf16 GEMM's tile with a ring of three raw
+    """The fp32 GEMM takes 64 x 64 tiles where they give 256 blocks, else
+    64 x 32, else 32 x 32 (linear.cu:linear_tile), with a ring of three raw
     fp32 chunks 64 deep (A rows padded by 4, W rows by 8:
     csrc/linear.cu:tf32_ring_smem), at most 105 KB a block: two an SM."""
     m, n, k = shape
     plan = layer_stack.linear_plan(m, n, k, torch.float32)
-    bf16 = layer_stack.linear_plan(m, n, k)
-    assert (plan.bm, plan.bn, plan.blocks) == (bf16.bm, bf16.bn, bf16.blocks)
+    tile = next((t for t in ((64, 64), (64, 32)) if -(-m // t[0]) * (n // t[1]) >= 256),
+                (32, 32))
+    assert plan.kernel == "linear_tf32_kernel" and (plan.bm, plan.bn) == tile
+    assert plan.blocks == -(-m // plan.bm) * (n // plan.bn)
     assert plan.bk == 64 and plan.chunks == k // 64 and plan.stages == 3
     assert plan.smem == 4 * 3 * (plan.bm * 68 + 64 * (plan.bn + 8)) <= 107_520
     assert 2 * plan.smem <= _build.MAX_DYNAMIC_SMEM
