@@ -7,12 +7,12 @@ Run from the root of a checkout on a machine with a CUDA card:
 
 It prints the card's name and power limit, builds the CUDA kernels of
 ``src/lightglue_tpu_torch/csrc`` (one nvcc per source, sm_90a, in
-parallel) and checks in their SASS that the bf16 kernels of flash_attn.cu,
+parallel) and checks in their SASS that the bf16 kernels of
 bidir_cross.cu, conv3x3.cu (the model conv and the generic one) and
-conv_chain.cu run on the tensor cores, that attention.cu's bf16 kernel and
-linear.cu's bf16-product GEMM (BF16, MIXED, INT8) run on Hopper's
-warpgroup MMA (HGMMA in every instantiation, no HMMA, no
-local-memory load or store: ``WGMMA_KERNELS``), that the fp32 model
+conv_chain.cu run on the tensor cores, that attention.cu's and
+flash_attn.cu's bf16 kernels and linear.cu's bf16-product GEMM (BF16,
+MIXED, INT8) run on Hopper's warpgroup MMA (HGMMA in every instantiation,
+no HMMA, no local-memory load or store: ``WGMMA_KERNELS``), that the fp32 model
 conv, the generic fp32 conv, the fp32 chain and the fp32 kernels of
 flash_attn.cu, attention.cu, bidir_cross.cu and linear.cu run in 3xTF32 on
 the tensor cores (TF32 HMMA only; their spills logged), that no conv3x3.cu
@@ -259,7 +259,7 @@ KERNEL_WRAPPERS = {
     "linear_wgmma_kernel": "linear", "linear_tf32_kernel": "linear", "linear_s8_kernel": "linear", "row_quant_kernel": "row_quant",
     "attention_wgmma_kernel": "attention", "attention_tf32_kernel": "attention",
     "ln_gelu_kernel": "ln_gelu", "adaptive_decide_kernel": "adaptive_decide",
-    "flash_mma_kernel": "fused_mha", "flash_tf32_kernel": "fused_mha",
+    "flash_wgmma_kernel": "fused_mha", "flash_tf32_kernel": "fused_mha",
     "bidir_mma_kernel": "bidirectional_cross_attention",
     "bidir_tf32_kernel": "bidirectional_cross_attention",
 }
@@ -382,7 +382,6 @@ def compare(label, got, want, atol, rtol, exact=False):
 # instantiation, the fp32-output ones included; its fp32 kernel on the FMA
 # units, or None where its fp32 kernels are TF32_TENSOR_CORE_KERNELS ones)
 TENSOR_CORE_KERNELS = {
-    "flash_attn.cu": (("flash_mma_kernel",), None),
     "bidir_cross.cu": (("bidir_mma_kernel",), None),
     # the model's 64 -> 64 convs, and every other bf16-operand conv
     "conv3x3.cu": (("conv3x3_mma_kernel", "conv3x3_igemm_kernel"), None),
@@ -391,10 +390,13 @@ TENSOR_CORE_KERNELS = {
 # source: its kernels in Hopper's shape, on the warpgroup tensor-core path
 # (HGMMA in every instantiation, no HMMA, and no local-memory load or store:
 # nothing spilled): the stack attention's bf16 kernel (BF16 and MIXED
-# outputs, keep masks) and the stack projections' bf16-product GEMM (BF16,
+# outputs, keep masks), the stack projections' bf16-product GEMM (BF16,
 # MIXED's fp32 activations and INT8's int8 weights, both converted to bf16
-# in shared memory)
-WGMMA_KERNELS = {"attention.cu": "attention_wgmma_kernel", "linear.cu": "linear_wgmma_kernel"}
+# in shared memory) and the flash kernel behind fused_mha, flash_attention
+# and the ring step (BF16 and MIXED outputs, the step's carries; stored or
+# recomputed s, clusters or one block a tile)
+WGMMA_KERNELS = {"attention.cu": "attention_wgmma_kernel", "linear.cu": "linear_wgmma_kernel",
+                 "flash_attn.cu": "flash_wgmma_kernel"}
 # source: its int8 x int8 kernel (W8A8), on the integer tensor cores (IMMA)
 INT8_TENSOR_CORE_KERNELS = {"linear.cu": "linear_s8_kernel"}
 # source: its fp32 kernels on the tensor cores in 3xTF32 (TF32 HMMA only):
@@ -416,10 +418,10 @@ NO_FMA_KERNELS = {"stem.cu": "stem_kernel"}
 
 
 def tensor_core_check(build):
-    """The bf16-operand instantiations of csrc/flash_attn.cu,
-    bidir_cross.cu, conv3x3.cu (the model conv and the generic one) and
-    conv_chain.cu compute their products on the tensor cores (HMMA in the
-    SASS of every one); attention.cu's bf16 kernel and linear.cu's
+    """The bf16-operand instantiations of csrc/bidir_cross.cu, conv3x3.cu
+    (the model conv and the generic one) and conv_chain.cu compute their
+    products on the tensor cores (HMMA in the SASS of every one);
+    attention.cu's and flash_attn.cu's bf16 kernels and linear.cu's
     bf16-product GEMM (MIXED's fp32 activations and INT8's int8 weights
     converted to bf16 in shared memory) on wgmma (HGMMA in every instantiation, no HMMA,
     no local-memory load or store: ``WGMMA_KERNELS``); linear.cu's W8A8 GEMM on
@@ -750,9 +752,9 @@ def plan_checks(ls, at, nms_k, conv_k, cc, lib):
     ``layer_stack.ln_gelu_plan``, ``conv_chain.chain_plan``) are the ones
     the card runs (csrc/linear.cu:lg_linear_plan in the FP32, BF16, MIXED
     and INT8 modes: the tile, ring and kernel, the BF16 tile one pair's at
-    every batch; csrc/flash_attn.cu:lg_flash_smem,
-    the bf16 and fp32 blocks' shared memory; csrc/mma.cuh:fill_row_groups
-    in both operand types; csrc/attention.cu:lg_attention_plan, the fp32
+    every batch; csrc/flash_attn.cu:lg_flash_plan, both kernels' blocks,
+    the bf16 one's split, form, kept s and shared memory, its split one
+    pair's at every batch; csrc/mma.cuh:fill_row_groups; csrc/attention.cu:lg_attention_plan, the fp32
     stack's eight-warp blocks too, and the bf16 kernel's warpgroups;
     csrc/adaptive.cu:decide_rows,
     csrc/nms.cu:Band,
@@ -798,22 +800,30 @@ def plan_checks(ls, at, nms_k, conv_k, cc, lib):
                                          f"smem) {tuple(s8)}, s8_plan's "
                                          f"{(plan.bm, plan.bn, plan.smem)}")
     # flash_attn.cu at the per-block, generic and ring shapes (block_k 1024,
-    # 1000, 64, the ring's 512, 384 and 120-row stripes), both kernels, at
-    # batches 1, 2, 4 and 8: each chunk's split is one batch entry's at
-    # every batch (the card's row groups of one entry), the block one the
-    # kernel is built for
+    # 1000, 64, 2048, the ring's 512, 384 and 120-row stripes, the TP
+    # shards' heads), both kernels and both stat types, at batches 1, 2, 4
+    # and 8: the launch is the card's, and each chunk's split one batch
+    # entry's at every batch (the fp32 kernel's the card's row groups of one
+    # entry)
+    fl = (ctypes.c_int * 7)()
     for b in INVARIANCE_BATCHES:
-        for nq, block_k in ((2048, 1024), (960, 960), (1000, 1000), (512, 512), (384, 192),
-                            (120, 120), (256, 64)):
+        for heads, nq, block_k in ((4, 2048, 1024), (4, 960, 960), (4, 1000, 1000),
+                                   (4, 512, 512), (4, 384, 192), (4, 120, 120), (4, 256, 64),
+                                   (4, 2048, 2048), (2, 2048, 1024), (1, 2048, 1024)):
             for mode, dt in ((0, torch.float32), (1, torch.bfloat16)):
-                plan = at.flash_plan(b, 4, nq, block_k, dt)
-                smem = lib.lg_flash_smem(plan.row_groups, plan.col_split, plan.stages, mode)
-                split = 4 // lib.lg_attention_row_groups(4, nq)
-                warps = plan.row_groups * plan.col_split
-                if split != plan.col_split or smem != plan.smem or warps not in (4, 8, 16):
-                    raise AssertionError(f"flash B={b} Nq={nq} block_k {block_k} {dt}: the "
-                                         f"card's split {split} and {smem} B, flash_plan's "
-                                         f"{plan.col_split}, {plan.smem} B, {warps} warps")
+                for sdt in (torch.bfloat16, torch.float32):
+                    plan = at.flash_plan(b, heads, nq, block_k, dt, sdt)
+                    lib.lg_flash_plan(b, heads, nq, block_k, mode, int(sdt == torch.bfloat16), fl)
+                    want = (plan.row_groups, plan.col_split, plan.stages, plan.blocks, plan.smem,
+                            int(plan.cluster), int(plan.store))
+                    one = at.flash_plan(1, heads, nq, block_k, dt, sdt).col_split
+                    if mode == 0:
+                        one = 4 // lib.lg_attention_row_groups(heads, nq)
+                    if tuple(fl) != want or plan.col_split != one:
+                        raise AssertionError(
+                            f"flash B={b} H={heads} Nq={nq} block_k {block_k} {dt} {sdt} stats: "
+                            f"the card's (row groups, split, stages, blocks, smem, cluster, "
+                            f"store) {tuple(fl)}, flash_plan's {want}, one pair's split {one}")
     attn = (ctypes.c_int * 4)()
     for b in INVARIANCE_BATCHES:
         for mode, dt in ((0, torch.float32), (1, torch.bfloat16)):
@@ -5632,11 +5642,12 @@ def main() -> int:
     adaptive_end_to_end(ls, counters, weights, img0, img1, dec_e)
 
     # ---- the per-block path: 2048-keypoint and pad-to-64 configurations ----
-    fused_e = Entry("fused_mha", "src/lightglue_tpu_torch/csrc/flash_attn.cu",
+    fused_e = Entry("fused_mha (flash_wgmma_kernel)", "src/lightglue_tpu_torch/csrc/flash_attn.cu",
                     "src/lightglue_tpu/kernels/attention.py:687")
     bidir_e = Entry("bidirectional_cross_attention", "src/lightglue_tpu_torch/csrc/bidir_cross.cu",
                     "src/lightglue_tpu/kernels/attention.py:925")
-    flash_e = Entry("flash_attention", "src/lightglue_tpu_torch/csrc/flash_attn.cu",
+    flash_e = Entry("flash_attention (flash_wgmma_kernel)",
+                    "src/lightglue_tpu_torch/csrc/flash_attn.cu",
                     "src/lightglue_tpu/kernels/attention.py:197")
     attention_kernel_checks(at, rand, freqs_for, dev, dtypes, fp32_scope, fused_e, bidir_e, flash_e,
                             fp32_ents)
@@ -5644,7 +5655,8 @@ def main() -> int:
     per_block_end_to_end(at, counters, img0, img1, fused_e, bidir_e)
 
     # ---- the sequence split: forward_ring on a ring of one card -------------
-    step_e = Entry("flash_attention_step", "src/lightglue_tpu_torch/csrc/flash_attn.cu",
+    step_e = Entry("flash_attention_step (flash_wgmma_kernel)",
+                   "src/lightglue_tpu_torch/csrc/flash_attn.cu",
                    "src/lightglue_tpu/kernels/attention.py:422")
     step_kernel_checks(at, dev, fp32_scope, step_e, fp32_ents["flash_attention_step"])
     ring_checks(at, ring, rand, dev, dtypes, fp32_scope)
@@ -5682,12 +5694,13 @@ def main() -> int:
         "adaptive_decide mixed": dec_mixed_e,
         "relu_conv1a_shift mixed": stem_fp32_e,
         "conv3x3 mixed": conv_fp32_e,
-        "fused_mha mixed": Entry("fused_mha (MIXED: fp32 out)", stack_src + "flash_attn.cu",
+        "fused_mha mixed": Entry("fused_mha (MIXED: fp32 out, flash_wgmma_kernel)",
+                                 stack_src + "flash_attn.cu",
                                  stack_ref + "attention.py:687"),
         "bidirectional_cross_attention mixed": Entry(
             "bidirectional_cross_attention (MIXED: fp32 out)", stack_src + "bidir_cross.cu",
             stack_ref + "attention.py:925"),
-        "flash_attention mixed": Entry("flash_attention (MIXED: fp32 out)",
+        "flash_attention mixed": Entry("flash_attention (MIXED: fp32 out, flash_wgmma_kernel)",
                                        stack_src + "flash_attn.cu", stack_ref + "attention.py:197"),
         **{f"{name} fp32": ent for name, ent in fp32_ents.items()},
     }
@@ -5708,7 +5721,7 @@ def main() -> int:
     tp_ents = {}
     for heads, mesh_txt in ((2, "2 x 2"), (1, "1 x 4")):
         tp_ents[("fused_mha", heads)] = Entry(
-            f"fused_mha (TP shard, H={heads} local heads: the {mesh_txt} mesh)",
+            f"fused_mha (TP shard, H={heads} local heads: the {mesh_txt} mesh; flash_wgmma_kernel)",
             src + "flash_attn.cu", ref + "attention.py:687")
         tp_ents[("bidirectional_cross_attention", heads)] = Entry(
             f"bidirectional_cross_attention (TP shard, H={heads} local heads: the {mesh_txt} mesh)",

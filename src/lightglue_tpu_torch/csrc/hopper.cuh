@@ -1,5 +1,6 @@
 // Hopper's asynchronous machinery, shared by the warp-specialised kernels
-// (attention.cu:attention_wgmma_kernel, linear.cu:linear_wgmma_kernel):
+// (attention.cu:attention_wgmma_kernel, linear.cu:linear_wgmma_kernel,
+// flash_attn.cu:flash_wgmma_kernel):
 //
 // - TMA: a tensor map (CUtensorMap) encoded on the host per launch by
 //   libcuda's cuTensorMapEncodeTiled, looked up through the runtime
@@ -79,7 +80,7 @@ inline bool tma_aligned(const void* base, long long row_stride_bytes,
          batch_stride_bytes % 16 == 0;
 }
 
-// A tensor of rank 2 or 3 of `type` (dims innermost first, strides in bytes
+// A tensor of rank 2, 3 or 4 of `type` (dims innermost first, strides in bytes
 // of dims 1..), read in boxes of box[] elements written to shared memory in
 // `swizzle_bytes` swizzle (128 or 64; 0: as they lie, row after row).
 // Returns a cudaError_t value.
@@ -88,7 +89,7 @@ inline int tma_map(CUtensorMap* map, const void* base, CUtensorMapDataType type,
                    int swizzle_bytes) {
   const EncodeTiled encode = encode_tiled();
   if (!encode) return static_cast<int>(cudaErrorNotSupported);
-  const cuuint32_t unit[3] = {1, 1, 1};
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
   const CUtensorMapSwizzle swizzle = swizzle_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
                                      : swizzle_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                                            : CU_TENSOR_MAP_SWIZZLE_NONE;
@@ -188,6 +189,16 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x), "r"(y), "r"(z)
+      : "memory");
+}
+
+// the box at (x, y, z, w) of a rank-4 map
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int x,
+                                         int y, int z, int w) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x), "r"(y), "r"(z), "r"(w)
       : "memory");
 }
 

@@ -88,7 +88,7 @@ _SIGNATURES = {
         _P, _L, _L, _L, _P, _L, _L, _L, _P, _L, _L, _L, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I, _I, _P,
     ],
-    "lg_flash_smem": [_I, _I, _I, _I],
+    "lg_flash_plan": [_I, _I, _I, _I, _I, _I, ctypes.POINTER(_I)],
     "lg_bidirectional_cross": [
         _P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _P, _P, _I, _I, _I,
         _I, _F, _I, _I, _P,

@@ -236,36 +236,42 @@ def test_rounding_witness_premise_against_jax(stats):
     assert share(16) > 0.20
 
 
-# (batch, heads, nq, block_k, row groups): every flash_attn.cu shape of the
-# paths and chip_smoke.py; the row groups are the plan's choice: the most
-# that still give one batch entry 256 four-warp blocks, else 1, whose split
-# holds at any batch; where the batch still gives 256 blocks, two or four
-# times those groups in a larger block
+# (batch, heads, nq, block_k, split, cluster): every flash_attn.cu shape of
+# the paths and chip_smoke.py. The bf16 kernel takes a 64-row tile of a head
+# per block or cluster; its consumer warpgroups split each tile's chunks 8
+# ways where one batch entry's tiles, two blocks each, fit the 132 SMs, else
+# 4 (a split that holds at any batch); a split of 8 runs as clusters of two
+# blocks while the whole launch's blocks fit the SMs, else as one block a
+# tile
 PLAN_SHAPES = {
-    "2048 self, block_k 1024": (2, 4, 2048, 1024, 4),
-    "2048 cross, block_k 1024": (1, 4, 2048, 1024, 2),
-    "960 pad-to-64 self": (2, 4, 960, 960, 1),
-    "960 pad-to-64 cross": (1, 4, 960, 960, 1),
-    "1000 / 1000": (2, 4, 1000, 1000, 2),
-    "ring stripe 512": (1, 4, 512, 512, 1),
-    "ring stripe 384": (1, 4, 384, 384, 1),
-    "ring stripe 120": (1, 4, 120, 120, 1),
-    "block_k 64": (2, 4, 1024, 64, 2),
+    "2048 self, block_k 1024": (2, 4, 2048, 1024, 4, False),
+    "2048 cross, block_k 1024": (1, 4, 2048, 1024, 4, False),
+    "960 pad-to-64 self": (2, 4, 960, 960, 8, False),
+    "960 pad-to-64 cross": (1, 4, 960, 960, 8, True),
+    "1000 / 1000": (2, 4, 1000, 1000, 8, False),
+    "ring stripe 512": (1, 4, 512, 512, 8, True),
+    "ring stripe 384": (1, 4, 384, 384, 8, True),
+    "ring stripe 120": (1, 4, 120, 120, 8, True),
+    "block_k 64": (2, 4, 1024, 64, 8, False),
 }
 
 
 @pytest.mark.parametrize("shape", list(PLAN_SHAPES))
 def test_flash_launch_plan_fits(shape):
-    batch, heads, nq, block_k, groups = PLAN_SHAPES[shape]
+    batch, heads, nq, block_k, split, cluster = PLAN_SHAPES[shape]
     plan = attention.flash_plan(batch, heads, nq, block_k)
-    assert plan.row_groups == groups
-    assert plan.col_split == 4 // layer_stack.fill_row_groups(heads, nq)  # one entry's split
-    assert plan.row_groups * plan.col_split in (4, 8, 16)
-    assert plan.blocks == batch * heads * -(-nq // (16 * groups))
+    assert plan.kernel == "flash_wgmma_kernel" and plan.row_groups == 4  # a 64-row tile
+    assert plan.col_split == split == attention.flash_split(heads, nq)  # one entry's split
+    assert plan.cluster == cluster and plan.stages == 2 and plan.store  # bf16 stats, <= 1024
+    tiles = batch * heads * -(-nq // 64)
+    assert plan.blocks == tiles * (2 if cluster else 1)
+    assert plan.blocks <= 132 or not cluster  # clusters only while their blocks fit the SMs
     assert plan.smem <= attention._build.MAX_DYNAMIC_SMEM
-    assert 1 <= plan.stages <= -(-block_k // 64)
-    if shape == "ring stripe 512":  # the ring step fills the card, its tile resident
-        assert plan.blocks >= 128 and plan.stages == 8
+    if shape == "ring stripe 512":  # the ring step: eight consumers a tile, one chunk each
+        assert plan.cluster and plan.col_split * 64 == 512
     for dtype in (torch.bfloat16, torch.float32):  # neither kernel raises here
-        groups_arg, split, stages = attention._flash_launch("f", dtype, batch, heads, nq, block_k)
-        assert groups_arg in (1, 2, 4) and split == plan.col_split and stages >= 1
+        groups_arg, split_arg, stages = attention._flash_launch("f", dtype, batch, heads, nq,
+                                                                block_k)
+        fp32 = attention.flash_plan(batch, heads, nq, block_k, dtype)
+        assert (groups_arg, split_arg, stages) == fp32[:3]
+        assert groups_arg in (1, 2, 4) and stages == 2

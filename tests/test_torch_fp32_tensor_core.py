@@ -330,13 +330,16 @@ FP32_FLASH_PLANS = {
 def test_fp32_flash_plan_fits(shape):
     """The fp32 plan streams two chunk buffers at every block_k (its shared
     memory is mma.cuh:tf32_smem, not a function of block_k), two four-warp
-    blocks an SM or one larger one, at the bf16 kernel's split and blocks."""
+    blocks an SM or one larger one: one pair's split (fill_row_groups) and
+    the batch's 16-row groups (batch_row_groups), its own rule whatever the
+    bf16 kernel's launch."""
     batch, heads, nq, block_k, groups = FP32_FLASH_PLANS[shape]
     plan = attention.flash_plan(batch, heads, nq, block_k, torch.float32)
-    bf16 = attention.flash_plan(batch, heads, nq, block_k)
     split = plan.col_split
-    assert (plan.row_groups, split) == (groups, bf16.col_split) == bf16[:2]
-    assert split == 4 // layer_stack.fill_row_groups(heads, nq) and plan.stages == 2
+    assert (plan.row_groups, split) == (groups, 4 // layer_stack.fill_row_groups(heads, nq))
+    assert layer_stack.batch_row_groups(batch, heads, nq) == (groups, split)
+    assert plan.kernel == "flash_tf32_kernel" and plan.stages == 2
+    assert not plan.cluster and not plan.store
     assert plan.blocks == batch * heads * -(-nq // (16 * groups))
     q_rows, chunks = 16 * groups * FP, 2 * 64 * 2 * FP
     assert plan.smem == 4 * (q_rows + chunks) + (0 if split == 1 else 4 * groups * split * 16 * 74)
