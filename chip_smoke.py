@@ -12,10 +12,13 @@ bidir_cross.cu, conv3x3.cu (the model conv and the generic one) and
 conv_chain.cu run on the tensor cores, that attention.cu's and
 flash_attn.cu's bf16 kernels and linear.cu's bf16-product GEMM (BF16,
 MIXED, INT8) run on Hopper's warpgroup MMA (HGMMA in every instantiation,
-no HMMA, no local-memory load or store: ``WGMMA_KERNELS``), that the fp32 model
+no HMMA, no local-memory load or store: ``WGMMA_KERNELS``), that the fp32
+kernels of flash_attn.cu and linear.cu run in 3xTF32 on it (HGMMA with
+TF32 operands on every HGMMA line, in every instantiation, no HMMA, no
+local-memory load or store: ``TF32_WGMMA_KERNELS``), that the fp32 model
 conv, the generic fp32 conv, the fp32 chain and the fp32 kernels of
-flash_attn.cu, attention.cu, bidir_cross.cu and linear.cu run in 3xTF32 on
-the tensor cores (TF32 HMMA only; their spills logged), that no conv3x3.cu
+attention.cu and bidir_cross.cu run in 3xTF32 on the tensor cores (TF32
+HMMA only; their spills logged), that no conv3x3.cu
 or conv_chain.cu kernel is left without HMMA, and that
 stem.cu's kernel has no contracted multiply-add. Then, in
 order; every kernel check is in bf16 and fp32 against
@@ -256,10 +259,11 @@ KERNEL_WRAPPERS = {
     "conv3x3_igemm_kernel": "conv3x3", "conv3x3_tf32x3_generic_kernel": "conv3x3",
     "chain_mma_kernel": "conv2_chain", "chain_tf32x3_kernel": "conv2_chain",
     "nms_candidates_kernel": "nms_candidates",
-    "linear_wgmma_kernel": "linear", "linear_tf32_kernel": "linear", "linear_s8_kernel": "linear", "row_quant_kernel": "row_quant",
+    "linear_wgmma_kernel": "linear", "linear_tf32_wgmma_kernel": "linear",
+    "linear_s8_kernel": "linear", "row_quant_kernel": "row_quant",
     "attention_wgmma_kernel": "attention", "attention_tf32_kernel": "attention",
     "ln_gelu_kernel": "ln_gelu", "adaptive_decide_kernel": "adaptive_decide",
-    "flash_wgmma_kernel": "fused_mha", "flash_tf32_kernel": "fused_mha",
+    "flash_wgmma_kernel": "fused_mha", "flash_tf32_wgmma_kernel": "fused_mha",
     "bidir_mma_kernel": "bidirectional_cross_attention",
     "bidir_tf32_kernel": "bidirectional_cross_attention",
 }
@@ -397,18 +401,24 @@ TENSOR_CORE_KERNELS = {
 # recomputed s, clusters or one block a tile)
 WGMMA_KERNELS = {"attention.cu": "attention_wgmma_kernel", "linear.cu": "linear_wgmma_kernel",
                  "flash_attn.cu": "flash_wgmma_kernel"}
+# source: its fp32 kernel in 3xTF32 on Hopper's warpgroup MMA, held to what
+# WGMMA_KERNELS holds the bf16 kernels to, with TF32 operands on every
+# HGMMA line: the stack projections' fp32 GEMM (the transposed product) and
+# the flash kernel's fp32 instantiations (fused_mha, flash_attention, the
+# ring step at fp32 operands; clusters or one block a tile)
+TF32_WGMMA_KERNELS = {"linear.cu": "linear_tf32_wgmma_kernel",
+                      "flash_attn.cu": "flash_tf32_wgmma_kernel"}
 # source: its int8 x int8 kernel (W8A8), on the integer tensor cores (IMMA)
 INT8_TENSOR_CORE_KERNELS = {"linear.cu": "linear_s8_kernel"}
-# source: its fp32 kernels on the tensor cores in 3xTF32 (TF32 HMMA only):
-# the fp32 model conv and the generic fp32 conv; one kernel elsewhere. Each
-# one's local-memory loads and stores (spills) are reported beside
+# source: its fp32 kernels on the tensor cores in 3xTF32 on mma.sync (TF32
+# HMMA only): the fp32 model conv and the generic fp32 conv; one kernel
+# elsewhere. Each one's local-memory loads and stores (spills) are reported
+# beside
 TF32_TENSOR_CORE_KERNELS = {"conv3x3.cu": ("conv3x3_tf32x3_kernel",
                                            "conv3x3_tf32x3_generic_kernel"),
                             "conv_chain.cu": ("chain_tf32x3_kernel",),
-                            "flash_attn.cu": ("flash_tf32_kernel",),
                             "attention.cu": ("attention_tf32_kernel",),
-                            "bidir_cross.cu": ("bidir_tf32_kernel",),
-                            "linear.cu": ("linear_tf32_kernel",)}
+                            "bidir_cross.cu": ("bidir_tf32_kernel",)}
 # names of kernels none of which may run on the FMA units alone: HMMA in
 # every kernel whose name holds one (conv3x3.cu's and conv_chain.cu's, the
 # only ones so named)
@@ -424,13 +434,14 @@ def tensor_core_check(build):
     attention.cu's and flash_attn.cu's bf16 kernels and linear.cu's
     bf16-product GEMM (MIXED's fp32 activations and INT8's int8 weights
     converted to bf16 in shared memory) on wgmma (HGMMA in every instantiation, no HMMA,
-    no local-memory load or store: ``WGMMA_KERNELS``); linear.cu's W8A8 GEMM on
-    the integer tensor cores (IMMA in every instantiation, no HMMA, no
-    local-memory load or store: nothing spilled), the
-    fp32 model conv, the generic fp32 conv, the fp32 chain and the fp32
-    kernels of flash_attn.cu, attention.cu,
-    bidir_cross.cu and linear.cu on the tensor cores in 3xTF32 (every HMMA
-    of each ``TF32_TENSOR_CORE_KERNELS`` kernel takes TF32 operands, in
+    no local-memory load or store: ``WGMMA_KERNELS``); the fp32 kernels of
+    flash_attn.cu and linear.cu in 3xTF32 on wgmma (the same, with TF32
+    operands on every HGMMA line: ``TF32_WGMMA_KERNELS``); linear.cu's W8A8
+    GEMM on the integer tensor cores (IMMA in every instantiation, no HMMA,
+    no local-memory load or store: nothing spilled), the fp32 model conv,
+    the generic fp32 conv, the fp32 chain and the fp32 kernels of
+    attention.cu and bidir_cross.cu on the tensor cores in 3xTF32 (every
+    HMMA of each ``TF32_TENSOR_CORE_KERNELS`` kernel takes TF32 operands, in
     every instantiation; their local loads and stores logged), every
     conv3x3.cu and conv_chain.cu kernel on the tensor cores (no
     FMA conv left: ``ALL_TENSOR_CORE_NAMES``), and the
@@ -445,14 +456,16 @@ def tensor_core_check(build):
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            counts[name] = {"HMMA": 0, "HGMMA": 0, "IMMA": 0, "FFMA": 0, "TF32": 0, "LDL": 0,
-                            "STL": 0}
+            counts[name] = {"HMMA": 0, "HGMMA": 0, "IMMA": 0, "FFMA": 0, "TF32": 0,
+                            "HGMMA_TF32": 0, "LDL": 0, "STL": 0}
         elif name:
             for op in ("HMMA", "HGMMA", "IMMA", "FFMA", "LDL", "STL"):
                 if op in line:
                     counts[name][op] += 1
             if "HMMA" in line and "TF32" in line:
                 counts[name]["TF32"] += 1
+            if "HGMMA" in line and "TF32" in line:
+                counts[name]["HGMMA_TF32"] += 1
     for src, (bf16_kernels, fp32_kernel) in TENSOR_CORE_KERNELS.items():
         for bf16_kernel in bf16_kernels:
             mma = [c["HMMA"] for k, c in counts.items() if bf16_kernel in k]
@@ -474,6 +487,17 @@ def tensor_core_check(build):
             raise AssertionError(f"{src}: a {kernel} instantiation without HGMMA, or with HMMA: "
                                  "it did not reach wgmma")
         if max(spill for _, _, spill in wg) != 0:
+            raise AssertionError(f"{src}: {kernel} spills to local memory")
+    for src, kernel in TF32_WGMMA_KERNELS.items():
+        wg = [(c["HGMMA"], c["HGMMA_TF32"], c["HMMA"], c["LDL"] + c["STL"])
+              for k, c in counts.items() if kernel in k]
+        log(f"  {src} SASS: (HGMMA, TF32 HGMMA, HMMA, local loads and stores) per {kernel} "
+            f"instantiation ({len(wg)}) {sorted(wg)}")
+        if not wg or min(h for h, _, _, _ in wg) == 0 or any(t != h for h, t, _, _ in wg) or max(
+                m for _, _, m, _ in wg) != 0:
+            raise AssertionError(f"{src}: a {kernel} instantiation without HGMMA, with an HGMMA "
+                                 "of other operands than TF32, or with HMMA")
+        if max(spill for _, _, _, spill in wg) != 0:
             raise AssertionError(f"{src}: {kernel} spills to local memory")
     for src, kernel in INT8_TENSOR_CORE_KERNELS.items():
         imma = [(c["IMMA"], c["HMMA"], c["LDL"] + c["STL"]) for k, c in counts.items()
@@ -673,7 +697,7 @@ def conv_f64(x, w, b, pool, relu=True):
 
 def tf32_witness(label, got, f64, one, others=()):
     """A 3xTF32 kernel (the fp32 model conv, the fp32 attention kernels,
-    ``linear_tf32_kernel``) against a float64 computation of its function,
+    ``linear_tf32_wgmma_kernel``) against a float64 computation of its function,
     beside an emulated one-TF32 version (operands rounded to TF32, products
     in fp32 with TF32 off) as the wrong design: the kernel's mean |kernel -
     f64| is at most a quarter of the one-TF32 version's
@@ -751,10 +775,10 @@ def plan_checks(ls, at, nms_k, conv_k, cc, lib):
     ``bidir_plan``, ``nms.nms_smem_bytes``, ``conv.conv_plan``,
     ``layer_stack.ln_gelu_plan``, ``conv_chain.chain_plan``) are the ones
     the card runs (csrc/linear.cu:lg_linear_plan in the FP32, BF16, MIXED
-    and INT8 modes: the tile, ring and kernel, the BF16 tile one pair's at
-    every batch; csrc/flash_attn.cu:lg_flash_plan, both kernels' blocks,
-    the bf16 one's split, form, kept s and shared memory, its split one
-    pair's at every batch; csrc/mma.cuh:fill_row_groups; csrc/attention.cu:lg_attention_plan, the fp32
+    and INT8 modes: the tile, ring and kernel, the BF16 and FP32 tiles one
+    pair's at every batch; csrc/flash_attn.cu:lg_flash_plan, both kernels' split,
+    form, ring slots, kept s and shared memory, the split one pair's at
+    every batch; csrc/mma.cuh:fill_row_groups; csrc/attention.cu:lg_attention_plan, the fp32
     stack's eight-warp blocks too, and the bf16 kernel's warpgroups;
     csrc/adaptive.cu:decide_rows,
     csrc/nms.cu:Band,
@@ -803,8 +827,7 @@ def plan_checks(ls, at, nms_k, conv_k, cc, lib):
     # 1000, 64, 2048, the ring's 512, 384 and 120-row stripes, the TP
     # shards' heads), both kernels and both stat types, at batches 1, 2, 4
     # and 8: the launch is the card's, and each chunk's split one batch
-    # entry's at every batch (the fp32 kernel's the card's row groups of one
-    # entry)
+    # entry's at every batch (both kernels' flash_split)
     fl = (ctypes.c_int * 7)()
     for b in INVARIANCE_BATCHES:
         for heads, nq, block_k in ((4, 2048, 1024), (4, 960, 960), (4, 1000, 1000),
@@ -817,8 +840,6 @@ def plan_checks(ls, at, nms_k, conv_k, cc, lib):
                     want = (plan.row_groups, plan.col_split, plan.stages, plan.blocks, plan.smem,
                             int(plan.cluster), int(plan.store))
                     one = at.flash_plan(1, heads, nq, block_k, dt, sdt).col_split
-                    if mode == 0:
-                        one = 4 // lib.lg_attention_row_groups(heads, nq)
                     if tuple(fl) != want or plan.col_split != one:
                         raise AssertionError(
                             f"flash B={b} H={heads} Nq={nq} block_k {block_k} {dt} {sdt} stats: "

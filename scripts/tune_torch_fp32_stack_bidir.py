@@ -101,7 +101,7 @@ def main():
         bidir["parent"] = flash_tune.build_tree("fp32bidir_parent", csrc, "bidir_cross.cu")
     for group, kernels in ((stack, ("attention_tf32_kernel",)),
                            (bidir, ("bidir_tf32_kernel", "bidir_kernel")),
-                           (flash, ("flash_tf32_kernel",))):
+                           (flash, ("flash_tf32_wgmma_kernel", "flash_tf32_kernel"))):
         for name, (d, proc) in group.items():
             if proc.wait():
                 raise RuntimeError(f"nvcc failed for {name}")

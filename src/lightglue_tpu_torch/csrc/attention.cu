@@ -101,9 +101,9 @@
 // tensor cores in 3xTF32: one TF32 product keeps about three decimal
 // digits and misses the fp32 rung's 1e-4 gate, so every product is
 // hi*lo + lo*hi + hi*hi of operands split by truncation
-// (mma.cuh:split_tf32_rz) on mma.sync m16n8k8. It is flash_attn.cu's
-// flash_tf32_kernel at one whole-row tile (block_k = Nk <= 1024), built from
-// the same mma.cuh pieces: Q split once into register fragments
+// (mma.cuh:split_tf32_rz) on mma.sync m16n8k8: a two-pass flash block at
+// one whole-row tile (block_k = Nk <= 1024), built from mma.cuh's 3xTF32
+// attention pieces: Q split once into register fragments
 // (tf32_q_frags); S per chunk (tf32_scores), recomputed bit for bit in pass
 // 2; P from the S accumulator into P.V's A operand unshuffled, V read at
 // keys 2 t4 and 2 t4 + 1 (tf32_pv); K and V staged as raw fp32 at pitch FP

@@ -66,7 +66,7 @@
 // stats) is the same grid and the same contract on the tensor cores in
 // 3xTF32 (one TF32 product misses the fp32 rung's 1e-4 gate): every product
 // hi*lo + lo*hi + hi*hi of operands split by truncation on mma.sync
-// m16n8k8, from mma.cuh's pieces of flash_attn.cu's flash_tf32_kernel (Q
+// m16n8k8, from mma.cuh's 3xTF32 attention pieces (Q
 // split once into register fragments, tf32_q_frags; S per chunk,
 // tf32_scores, recomputed bit for bit in pass 2; P from the S accumulator
 // into P.V unshuffled, tf32_pv; K and V raw fp32 at pitch FP through the

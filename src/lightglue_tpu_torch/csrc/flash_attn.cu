@@ -90,38 +90,37 @@
 //   operands, fp32 stats, an fp32 out, attention.py's out_dtype): the same
 //   instructions up to the final store, which rounds to TO or does not.
 //
-// The FP32 kernel (flash_tf32_kernel, the fp32 rung and fp32 operands with
-// bf16 stats) runs the same two-pass design on the tensor cores in 3xTF32:
-// one TF32 product keeps about three decimal digits and misses the fp32
-// gate of 1e-4, so each operand x is split into hi and lo = x - hi and
-// every product is hi*lo + lo*hi + hi*hi on mma.sync m16n8k8, fp32 sums
-// (the small terms first, lo*lo dropped), as conv3x3.cu's fp32 model conv
-// does, but split by truncation (mma.cuh:split_tf32_rz: hi = x with its low
-// 13 bits cleared, lo passed as it is, two instructions where rounding with
-// cvt.rna takes several; 1.1-1.4x faster by shape,
-// scripts/tune_torch_fp32_flash.py).
-// - Q is split once into (hi, lo) A fragments kept in registers for the
-//   whole KV loop (64 registers); S stays in registers, and the same two
-//   passes per block_k tile keep the rounding points.
-// - K and V stage as raw fp32 in 64-key chunks through a two-buffer
-//   cp.async ring (pass 1 K only), rows at a 68-float pitch (mma.cuh:FP)
-//   so that a warp's 32-bit fragment loads fall in 32 banks (there is no
-//   ldmatrix for 32-bit elements); each element is split as its B fragment
-//   loads. ~85-106 KB a block, two blocks an SM.
-// - P goes from the S accumulator into the A operand of P.V without a
-//   shuffle: for tf32 m16n8k8 the accumulator holds columns 2 t4, 2 t4 + 1
-//   where A wants k = t4, t4 + 4, but the order of keys within a k step
-//   does not change the sum, so slot t4 takes key 2 t4 and slot t4 + 4 key
-//   2 t4 + 1, and V's B fragment is read at those two keys. P is split in
-//   registers (its cast to the fp32 V type is the identity).
-// - Its block pieces are mma.cuh's tf32_q_frags, tf32_scores, tf32_pv,
-//   meet_max and meet_sums, shared with attention.cu's and bidir_cross.cu's
-//   fp32 kernels.
-// - A block holds G 16-row groups of C warps: one pair's split
-//   (fill_row_groups, G * C = 4), or two or four times its groups where the
-//   batch's launch still gives 256 blocks (mma.cuh:batch_plan), so the
-//   512-row ring stripes still fill the card; tf32_smem (mma.cuh) is its
-//   shared memory; kernels/attention.py:flash_plan mirrors both.
+// The FP32 kernel (flash_tf32_wgmma_kernel: the fp32 rung, and fp32
+// operands with bf16 stats in the ring step) is the same design, the same
+// body (flash_tile) at T = float, with every product in 3xTF32 on wgmma
+// m64nNk8: one TF32 product keeps about three decimal digits and misses the
+// fp32 gate of 1e-4, so each operand x is split into hi (x with its low 13
+// bits cleared, mma.cuh:split_tf32_rz) and lo = x - hi, and a product is
+// hi.lo + lo.hi + hi.hi, fp32 sums, the small terms first and lo.lo dropped
+// (hopper.cuh). wgmma reads a tf32 operand in shared memory K-major only,
+// which sets the layouts:
+// - S = Q.K^T: Q and K are both K-major as TMA writes them (32-float boxes
+//   in 128 B swizzle: two halves along the head dim). The raw tiles serve
+//   as hi (hopper.cuh); the consumers write Q's lo copy once and each K
+//   piece's as it lands, so S is three m64n32k8 products a k step, both
+//   operands from shared memory (Q in registers as hi and lo would take 64
+//   registers of the 112 a consumer has).
+// - P.V: P comes from the S accumulator as the register-A operand, split
+//   in registers. The accumulator holds keys 2 t4 and 2 t4 + 1 of an 8-key
+//   step where the tf32 A fragment wants t4 and t4 + 4, and the order of
+//   keys within a step does not change the sum: slot t4 takes key 2 t4,
+//   slot t4 + 4 key 2 t4 + 1. V, stored keys x dims (MN-major), arrives as
+//   it lies and the consumer writes it transposed, dims x keys, keys in that
+//   slot order, as hi and lo copies in 128 B swizzle: the K-major B operand
+//   of m64n64k8.
+// - fp32 tiles are twice bf16's bytes and each needs a lo copy, so a ring
+//   slot holds a 32-key piece of K and of V (one fill; a chunk is two
+//   pieces, S in 32-key halves as the bf16 recompute path takes it) and a
+//   warpgroup has one slot, beside its K lo and V^T hi / lo buffers, over
+//   which its P.V partial goes once pass 2 is done (~208 KB a block). With
+//   no room for a second consumer's partial, a split of 8 is always a
+//   cluster of two blocks; pass 2 always recomputes S (a stored fp32 s would
+//   not fit either).
 // - RoPE (fused_mha self-attention) runs once, in rope_kernel<float>, into
 //   an fp32 scratch, every product and sum rounded in fp32.
 //
@@ -168,221 +167,12 @@ struct Carries {
 };
 
 // ---------------------------------------------------------------------------
-// The FP32 kernel: both products on the tensor cores in 3xTF32 (m16n8k8)
-// ---------------------------------------------------------------------------
-
-template <bool STEP, int G, int C>
-__global__ void __launch_bounds__(G * C * 32, G * C > WARPS ? 1 : 2)
-flash_tf32_kernel(Operand q, Operand k, Operand v, Out o, Carries cy,
-                  const int* __restrict__ lens, int Nq, int Nk, float scale, int block_k,
-                  int quant, int aligned) {
-  constexpr int BR = 16 * G;   // rows per block
-  constexpr int KW = KC / C;   // keys of each chunk per warp
-  constexpr int NT = KW / 8;   // S n-tiles per warp and chunk (= P.V k steps)
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* qs = reinterpret_cast<float*>(smem_raw);  // [BR][FP]
-  float* kv = qs + BR * FP;                         // [TF32_STAGES][K, V][KC][FP]
-  float* red = kv + TF32_STAGES * 2 * KC * FP;      // C > 1: [G * C][16][RS]
-
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int rg = warp / C, part = warp % C;  // 16-row group, share of each chunk's keys
-  const int g = lane / 4, t4 = lane % 4;     // mma fragment row and column
-  const int b = blockIdx.z, h = blockIdx.y, i0 = blockIdx.x * BR;
-  const int lq = lens ? lens[2 * b] : Nq;
-  const int lk = lens ? lens[2 * b + 1] : Nk;
-  const int col0 = STEP ? cy.col0 : 0;
-  int num_kv = Nk / block_k;
-  if (lens) num_kv = min(num_kv, ((STEP ? max(lk - col0, 0) : lk) + block_k - 1) / block_k);
-  const size_t cbase = ((size_t)b * gridDim.y + h) * Nq + i0;  // STEP: carry row of i0
-
-  auto runs = [&](int r) {  // STEP: does row r's stripe of block_q rows run?
-    return lens == nullptr ||
-           (cy.row0 + (i0 + r) / cy.block_q * cy.block_q < lq && num_kv > 0);
-  };
-  if (STEP) {
-    bool any = false;
-    for (int r = 0; r < BR && i0 + r < Nq; ++r) any = any || runs(r);
-    if (!any) {  // no row of this block runs: the carries pass through
-      for (int i = tid; i < BR * D; i += blockDim.x)
-        if (i0 + i / D < Nq) cy.acc_out[cbase * D + i] = cy.acc_in[cbase * D + i];
-      if (tid < BR && i0 + tid < Nq) {
-        cy.m_out[cbase + tid] = cy.m_in[cbase + tid];
-        cy.l_out[cbase + tid] = cy.l_in[cbase + tid];
-      }
-      return;
-    }
-  }
-  float* out = STEP ? nullptr : static_cast<float*>(o.ptr) + b * o.bs + h * o.hs;
-  if (!STEP && i0 >= lq) {  // a stripe wholly past q_len: zeros
-    for (int i = tid; i < BR * D; i += blockDim.x)
-      if (i0 + i / D < Nq) out[(long long)(i0 + i / D) * o.rs + i % D] = 0.f;
-    return;
-  }
-
-  // Q into registers, split once: this warp's 16 rows as D / 8 (hi, lo) A
-  // fragments
-  stage_rows(qs, q, b, h, i0, BR, min(BR, Nq - i0), aligned);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  unsigned qh[D / 8][4], ql[D / 8][4];
-  tf32_q_frags(qs + rg * 16 * FP, g, t4, qh, ql);
-
-  // this thread's rows: rg * 16 + g (fragment elements 0, 1) and + 8 (2, 3)
-  const int row[2] = {rg * 16 + g, rg * 16 + g + 8};
-  float m[2], l[2], acc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const bool carried = STEP && i0 + row[i] < Nq;
-    m[i] = carried ? cy.m_in[cbase + row[i]] : NEG;
-    l[i] = carried ? cy.l_in[cbase + row[i]] : 0.f;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      float2 a = make_float2(0.f, 0.f);
-      if (carried)
-        a = *reinterpret_cast<const float2*>(cy.acc_in + (cbase + row[i]) * D + n * 8 + 2 * t4);
-      acc[n][2 * i] = a.x;
-      acc[n][2 * i + 1] = a.y;
-    }
-  }
-
-  // Two chunk buffers: each pass copies chunk c + 1 while chunk c is in use
-  // (pass 1 K only, pass 2 K and V).
-  const int nc = (block_k + KC - 1) / KC;  // chunks per tile
-  auto kbuf = [&](int c) { return kv + (c & 1) * 2 * KC * FP; };
-  auto fetch = [&](int base, int c, bool with_v) {
-    const int jn = min(KC, block_k - c * KC);
-    stage_rows(kbuf(c), k, b, h, base + c * KC, KC, jn, aligned);
-    if (with_v) stage_rows(kbuf(c) + KC * FP, v, b, h, base + c * KC, KC, jn, aligned);
-    cp_async_commit();
-  };
-  auto land = [&](int c) {  // chunk c has landed (chunk c + 1 may still be in flight)
-    if (c + 1 < nc)
-      cp_async_wait<1>();
-    else
-      cp_async_wait<0>();
-    __syncthreads();
-  };
-  // s = quant(Q.K^T * scale) over this warp's KW keys of chunk c
-  // (mma.cuh:tf32_scores); masking as the bf16 kernel's
-  auto scores = [&](float (&s)[NT][4], int base, int c) {
-    tf32_scores<NT>(s, qh, ql, kbuf(c) + part * KW * FP, g, t4);
-    const int jn = block_k - c * KC;      // keys of this chunk in the tile (may exceed KC)
-    const int gc = col0 + base + c * KC;  // global column of the chunk's first key
-    const bool ragged = jn < KC || (lens != nullptr && gc + KC > lk);
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = part * KW + n * 8 + 2 * t4 + (e & 1);
-        s[n][e] = ragged && (j >= jn || (lens != nullptr && gc + j >= lk))
-                      ? (j >= jn ? -INFINITY : NEG)
-                      : lg::quant_stat(s[n][e] * scale, quant);
-      }
-    }
-  };
-
-  for (int t = 0; t < num_kv; ++t) {
-    const int base = t * block_k;
-
-    // pass 1: the row max of the whole tile
-    float mx[2] = {-INFINITY, -INFINITY};
-    fetch(base, 0, false);
-    for (int c = 0; c < nc; ++c) {
-      if (c + 1 < nc) fetch(base, c + 1, false);  // the buffer of chunk c - 1
-      land(c);
-      float s[NT][4];
-      scores(s, base, c);
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
-        mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
-      }
-      __syncthreads();  // this buffer is free for the next fetch
-    }
-    mx[0] = quad_max(mx[0]);
-    mx[1] = quad_max(mx[1]);
-    meet_max<C>(mx, red, warp, g, t4);
-    float mn[2], cf[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mn[i] = lg::quant_stat(fmaxf(m[i], mx[i]), quant);
-      cf[i] = lg::quant_stat(expf(m[i] - mn[i]), quant);
-    }
-
-    // pass 2: the same S again, p, sum p and P.V (mma.cuh:tf32_pv)
-    float ps[2] = {0.f, 0.f};
-    float pv[D / 8][4];
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) pv[n][0] = pv[n][1] = pv[n][2] = pv[n][3] = 0.f;
-    fetch(base, 0, true);
-    for (int c = 0; c < nc; ++c) {
-      if (c + 1 < nc) fetch(base, c + 1, true);
-      land(c);
-      float s[NT][4];
-      scores(s, base, c);
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[n][e] = lg::quant_stat(expf(s[n][e] - mn[e / 2]), quant);
-          ps[e / 2] += s[n][e];
-        }
-      }
-      tf32_pv<NT>(pv, s, kbuf(c) + KC * FP + part * KW * FP, g, t4);
-      __syncthreads();  // this buffer is free for the next fetch
-    }
-    ps[0] = quad_sum(ps[0]);
-    ps[1] = quad_sum(ps[1]);
-    meet_sums<C>(ps, pv, red, warp, g, t4);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      l[i] = lg::quant_stat(__fadd_rn(__fmul_rn(l[i], cf[i]), ps[i]), quant);
-      m[i] = mn[i];
-    }
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        acc[n][e] = lg::quant_stat(__fadd_rn(__fmul_rn(acc[n][e], cf[e / 2]), pv[n][e]), quant);
-  }
-
-  if (part != 0) return;  // the C warps of a row group hold the same rows
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int gi = i0 + row[i];
-    if (gi >= Nq) continue;
-    if (STEP) {  // the carries out; a row whose stripe does not run passes through
-      const size_t at = cbase + row[i];
-      const bool live = runs(row[i]);
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        const size_t ai = at * D + n * 8 + 2 * t4;
-        *reinterpret_cast<float2*>(cy.acc_out + ai) =
-            live ? make_float2(acc[n][2 * i], acc[n][2 * i + 1])
-                 : *reinterpret_cast<const float2*>(cy.acc_in + ai);
-      }
-      if (t4 == 0) {
-        cy.m_out[at] = live ? m[i] : cy.m_in[at];
-        cy.l_out[at] = live ? l[i] : cy.l_in[at];
-      }
-      continue;
-    }
-    const float den = l[i] == 0.f ? 1.f : l[i];
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      float x0 = acc[n][2 * i] / den, x1 = acc[n][2 * i + 1] / den;
-      if (gi >= lq) x0 = x1 = 0.f;
-      store2(out + (long long)gi * o.rs + n * 8 + 2 * t4, x0, x1);
-    }
-  }
-}
-// ---------------------------------------------------------------------------
-// The BF16 kernel: warpgroups on wgmma, fed by TMA rings
+// The kernels: warpgroups on wgmma, fed by TMA rings
 // ---------------------------------------------------------------------------
 
 constexpr int WGS = 4;             // consumer warpgroups of a block
-constexpr int STAGES = 2;          // chunk slots of each warpgroup's ring
+constexpr int STAGES = 2;          // chunk slots of each warpgroup's ring (bf16)
+constexpr int PIECE_KEYS = 32;     // keys of an fp32 ring slot: half a chunk
 constexpr int TILE = 64 * D;       // elements of a 64 x 64 box (8 KB in bf16)
 constexpr int TILE_BYTES = 2 * TILE;
 constexpr int PART_BYTES = 4 * 64 * D;  // a consumer's fp32 P.V partial, 64 x 64
@@ -398,39 +188,55 @@ static_assert(PRODUCER_REGS + WGS * CONSUMER_REGS <= (WGS + 1) * LAUNCH_REGS, "r
 // The launch of one shape (kernels/attention.py:flash_plan mirrors it):
 // `split` consumers take a 64-row tile's chunks, 8 where one batch entry's
 // tiles, two blocks each, fit the card's SMs, else 4 (never the batch: it
-// orders a row's sums); a split of 8 runs as clusters of two blocks while
-// the whole launch's blocks fit the SMs, else as one block a tile; bf16
-// stats keep pass 1's s where the tile fits (block_k <= MAX_STORED_K).
+// orders a row's sums); in bf16 a split of 8 runs as clusters of two blocks
+// while the whole launch's blocks fit the SMs, else as one block a tile,
+// and bf16 stats keep pass 1's s where the tile fits (block_k <=
+// MAX_STORED_K); in fp32 a split of 8 is always a cluster (a block has no
+// room for a second consumer's P.V partial) and pass 2 always recomputes S.
 struct WgPlan {
   int split, cluster, store;
 };
 inline int flash_split(int H, int Nq) {
   return 2ll * H * ((Nq + 63) / 64) <= CLUSTER_SMS ? 8 : 4;
 }
-inline WgPlan wgmma_plan(int B, int H, int Nq, int block_k, int quant) {
+inline WgPlan wgmma_plan(int B, int H, int Nq, int block_k, int quant, bool f32) {
   const int split = flash_split(H, Nq);
+  if (f32) return {split, split == 8, 0};
   return {split, split == 8 && 2ll * B * H * ((Nq + 63) / 64) <= CLUSTER_SMS,
           quant && block_k <= MAX_STORED_K};
 }
 
-// Shared memory of a block, bytes: Q; each warpgroup's region, its ring of
-// STAGES slots (K, or K and V where pass 2 recomputes S, V alone where it
-// reads stored S), then its chunks' rounded s (STORE, bf16 pairs: a
-// warpgroup's chunks of a tile at block_k <= MAX_STORED_K), where the
-// first consumer's P.V partial goes once pass 2 has read them, or room for
-// that partial; the block's rows of acc and l (fp32); the warpgroups'
-// partial row max and sum p; the block's row max; each row's correction and
-// max; the barriers (Q, then each ring's full and empty slots); 1 KB to
-// align the tiles to 1024 B (the swizzle atom).
-template <bool STORE, int CLUSTER>
+// Shared memory of a block, bytes (T: the operand type): Q, as TMA writes
+// it (fp32: two [64][32] halves in 128 B swizzle), and in fp32 its lo copy;
+// each warpgroup's region; the block's rows of acc and l (fp32); the
+// warpgroups' partial row max and sum p; the block's row max; each row's
+// correction and max; the barriers (Q, then each ring's full and empty
+// slots); 1 KB to align the tiles to 1024 B (the swizzle atom). A bf16
+// region is its ring of STAGES slots (K, or K and V where pass 2 recomputes
+// S, V alone where it reads stored S), then its chunks' rounded s (STORE,
+// bf16 pairs: a warpgroup's chunks of a tile at block_k <= MAX_STORED_K),
+// where the first consumer's P.V partial goes once pass 2 has read them, or
+// room for that partial. An fp32 region is one slot of a 32-key piece of K
+// (two [32][32] halves in 128 B swizzle) and of V ([32][64] as it lies),
+// then K's lo copy and V's piece transposed and split, hi and lo ([64][32]
+// each, keys in P's order, 128 B swizzle), over which the warpgroup's P.V
+// partial goes once pass 2 is done.
+template <typename T, bool STORE, int CLUSTER>
 struct Smem {
+  static constexpr bool F32 = sizeof(T) == 4;
+  static constexpr int SLOTS = F32 ? 1 : STAGES;  // ring slots of a warpgroup
   static constexpr int KEPT = MAX_STORED_K / 64 / (WGS * CLUSTER);  // stored chunks of a warpgroup
-  static constexpr size_t SLOT = STORE ? TILE_BYTES : 2 * TILE_BYTES;
-  // in a region: the kept s ([KEPT][16][128] u32) or the partial
-  static constexpr size_t PART_AT = SLOT * STAGES;
-  static constexpr size_t REGION = PART_AT + (STORE ? (size_t)KEPT * TILE_BYTES : PART_BYTES);
+  static constexpr size_t PIECE = F32 ? sizeof(float) * PIECE_KEYS * D : TILE_BYTES;
+  static constexpr size_t SLOT = STORE && !F32 ? PIECE : 2 * PIECE;
+  // in a region: the kept s ([KEPT][16][128] u32) or the partial; fp32: K's
+  // lo copy, V^T hi and V^T lo, and then the partial
+  static constexpr size_t PART_AT = SLOT * SLOTS;
+  static constexpr size_t KLO = PART_AT, VTH = KLO + PIECE, VTL = VTH + PIECE;
+  static constexpr size_t REGION =
+      PART_AT + (F32 ? 3 * PIECE : STORE ? (size_t)KEPT * TILE_BYTES : PART_BYTES);
   static constexpr size_t Q = 0;
-  static constexpr size_t REGIONS = Q + TILE_BYTES;
+  static constexpr size_t QLO = Q + (F32 ? 2 * TILE_BYTES : TILE_BYTES);
+  static constexpr size_t REGIONS = F32 ? 2 * QLO : QLO;
   static constexpr size_t ACC = REGIONS + REGION * WGS;  // [64 / CLUSTER][64] fp32
   static constexpr size_t LS = ACC + sizeof(float) * 64 / CLUSTER * D;  // [64 / CLUSTER]
   static constexpr size_t MAX = LS + sizeof(float) * 64 / CLUSTER;
@@ -439,13 +245,14 @@ struct Smem {
   static constexpr size_t CF = CMAX + sizeof(float) * 64;
   static constexpr size_t MS = CF + sizeof(float) * 64;
   static constexpr size_t BARS = MS + sizeof(float) * 64;
-  static constexpr size_t BYTES = BARS + sizeof(uint64_t) * (1 + 2 * WGS * STAGES) + 1024;
+  static constexpr size_t BYTES = BARS + sizeof(uint64_t) * (1 + 2 * WGS * SLOTS) + 1024;
   static_assert(PART_BYTES <= REGION - PART_AT, "a P.V partial fits its region");
   static_assert(BYTES <= 232448, "a block fits the SM's shared memory");
 };
-constexpr size_t wgmma_smem(bool store, bool cluster) {
-  return store ? (cluster ? Smem<true, 2>::BYTES : Smem<true, 1>::BYTES)
-               : (cluster ? Smem<false, 2>::BYTES : Smem<false, 1>::BYTES);
+constexpr size_t wgmma_smem(bool f32, bool store, bool cluster) {
+  return f32 ? (cluster ? Smem<float, false, 2>::BYTES : Smem<float, false, 1>::BYTES)
+         : store ? (cluster ? Smem<bf16_t, true, 2>::BYTES : Smem<bf16_t, true, 1>::BYTES)
+                 : (cluster ? Smem<bf16_t, false, 2>::BYTES : Smem<bf16_t, false, 1>::BYTES);
 }
 
 // A 64 x 64 fp32 partial in the accumulator's own order: thread tid's
@@ -472,19 +279,29 @@ __device__ __forceinline__ int part_at(int row, int c8) {
 // meetings are cluster barriers, at which the producer's lanes take their
 // turn as they go (before each fill, every barrier the consumers pass before
 // they read it).
-template <bool STEP, typename TO, bool STORE, int CLUSTER, int VIRT>
-__global__ void __launch_bounds__((WGS + 1) * 128, 1)
-flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
-                   const __grid_constant__ CUtensorMap kmap,
-                   const __grid_constant__ CUtensorMap vmap, int hrows, Out o, Carries cy,
-                   const int* __restrict__ lens, int Nq, int Nk, float scale, int block_k,
-                   int quant) {
-  using L = Smem<STORE, CLUSTER>;
+//
+// T = float (flash_tf32_wgmma_kernel) runs every product in 3xTF32 on
+// m64nNk8 (hopper.cuh): Q's lo copy is written once; each 64-key chunk
+// arrives as two 32-key pieces, one ring fill each, and the consumer writes
+// the piece's K lo copy (and in pass 2 V transposed and split, keys in P's
+// order) before its products: S = Q_hi.K_lo + Q_lo.K_hi + Q_hi.K_hi (Q and
+// K both K-major in shared memory), P.V = P_hi.V_lo + P_lo.V_hi + P_hi.V_hi
+// (P split in registers from the S accumulator).
+template <typename T, bool STEP, typename TO, bool STORE, int CLUSTER, int VIRT>
+__device__ __forceinline__ void flash_tile(const CUtensorMap* qmap, const CUtensorMap* kmap,
+                                           const CUtensorMap* vmap, int hrows, const Out& o,
+                                           const Carries& cy, const int* __restrict__ lens,
+                                           int Nq, int Nk, float scale, int block_k, int quant) {
+  constexpr bool F32 = std::is_same<T, float>::value;
+  using L = Smem<T, STORE, CLUSTER>;
+  constexpr int NS = L::SLOTS;                 // ring slots of a warpgroup
   constexpr int SPLIT = WGS * CLUSTER * VIRT;  // consumers of a tile
   constexpr int OWN = L::KEPT / VIRT;          // stored chunks of one consumer
+  static_assert(!F32 || (!STORE && VIRT == 1), "fp32: S recomputed, one consumer a warpgroup");
   extern __shared__ __align__(1024) unsigned char wg_raw[];
   unsigned char* const smem_raw = align1024(wg_raw);
-  bf16_t* const qs = reinterpret_cast<bf16_t*>(smem_raw + L::Q);
+  unsigned char* const qs = smem_raw + L::Q;      // Q as TMA writes it (fp32: hi)
+  unsigned char* const qlo = smem_raw + L::QLO;   // fp32: Q's lo copy
   float* const acc_s = reinterpret_cast<float*>(smem_raw + L::ACC);    // [64 / CLUSTER][64]
   float* const l_s = reinterpret_cast<float*>(smem_raw + L::LS);       // [64 / CLUSTER]
   float* const red_max = reinterpret_cast<float*>(smem_raw + L::MAX);  // [WGS][64]
@@ -499,8 +316,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     return reinterpret_cast<bf16_t*>(region(r) + L::SLOT * s);
   };
   auto part = [&](int r) { return reinterpret_cast<float*>(region(r) + L::PART_AT); };
-  auto full = [&](int r, int s) { return bars + 1 + r * STAGES + s; };
-  auto empty = [&](int r, int s) { return bars + 1 + WGS * STAGES + r * STAGES + s; };
+  auto full = [&](int r, int s) { return bars + 1 + r * NS + s; };
+  auto empty = [&](int r, int s) { return bars + 1 + WGS * NS + r * NS + s; };
 
   const int rank = CLUSTER > 1 ? cluster_rank() : 0;
   const int b = blockIdx.z, h = blockIdx.y, i0 = blockIdx.x / CLUSTER * 64;
@@ -513,7 +330,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   // the chunks of tile t that hold a live key (chunks past them are neither
   // loaded nor computed: their p is 0 and the tile's max a live key's)
   auto chunks = [&](int t) { return min(nc, (max(live - t * block_k, 0) + 63) / 64); };
-  const size_t cbase = ((size_t)b * gridDim.y + h) * Nq + i0;  // STEP: carry row of i0
+  // STEP: the carry row of i0; the rows of this head of out. Formed where
+  // they are used, so they hold no registers through the tile loop
+  auto cbase = [&]() { return ((size_t)opaque(b) * gridDim.y + opaque(h)) * Nq + i0; };
+  auto out_rows = [&]() { return static_cast<TO*>(o.ptr) + b * o.bs + h * o.hs; };
   constexpr int half = 64 / CLUSTER;  // the rows a block writes: rows0 ..
   const int rows0 = rank * half;
 
@@ -526,19 +346,19 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     for (int r = 0; r < 64 && i0 + r < Nq; ++r) any = any || runs(r);
     if (!any) {  // no row of this tile runs (the whole cluster): the carries pass through
       for (int i = threadIdx.x; i < half * D; i += blockDim.x) {
-        const size_t at = cbase + rows0 + i / D;
+        const size_t at = cbase() + rows0 + i / D;
         if (i0 + rows0 + i / D < Nq) cy.acc_out[at * D + i % D] = cy.acc_in[at * D + i % D];
       }
       if (threadIdx.x < half && i0 + rows0 + threadIdx.x < Nq) {
-        const size_t at = cbase + rows0 + threadIdx.x;
+        const size_t at = cbase() + rows0 + threadIdx.x;
         cy.m_out[at] = cy.m_in[at];
         cy.l_out[at] = cy.l_in[at];
       }
       return;
     }
   }
-  TO* const out = STEP ? nullptr : static_cast<TO*>(o.ptr) + b * o.bs + h * o.hs;
   if (!STEP && i0 >= lq) {  // a tile wholly past q_len (the whole cluster): zeros
+    TO* const out = out_rows();
     for (int i = threadIdx.x; i < half * D; i += blockDim.x) {
       const int gi = i0 + rows0 + i / D;
       if (gi < Nq) out[(long long)gi * o.rs + i % D] = lg::from_f<TO>(0.f);
@@ -548,7 +368,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   if (threadIdx.x == 0) {
     mbar_init(qbar, 1);
     for (int r = 0; r < WGS; ++r)
-      for (int s = 0; s < STAGES; ++s) {
+      for (int s = 0; s < NS; ++s) {
         mbar_init(full(r, s), 1);
         mbar_init(empty(r, s), 4);  // one arrival per consumer warp
       }
@@ -565,13 +385,14 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     // behind another; warp 0's also loads Q. The other lanes exit.
     const int r = threadIdx.x % 128 / 32;
     if (threadIdx.x % 32 == 0) {
-      // a box of rows [row, row + 64) of head h of map m (bit m of hrows:
-      // its rank-4 map runs (64, H, N, B), else (64, N, H, B))
-      auto load = [&](void* dst, const CUtensorMap* map, int m, uint64_t* bar, int row) {
+      // a box of rows from `row` of head h of map m, from column x (bit m
+      // of hrows: its rank-4 map runs (64, H, N, B), else (64, N, H, B))
+      auto load = [&](void* dst, const CUtensorMap* map, int m, uint64_t* bar, int row,
+                      int x = 0) {
         if ((hrows >> m) & 1)
-          tma_load(dst, map, bar, 0, h, row, b);
+          tma_load(dst, map, bar, x, h, row, b);
         else
-          tma_load(dst, map, bar, 0, row, h, b);
+          tma_load(dst, map, bar, x, row, h, b);
       };
       int arrived = 0;  // cluster barriers this lane has arrived at
       auto reach = [&](int n) {  // arrive at every cluster barrier before the n-th
@@ -583,11 +404,17 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         }
       };
       if (r == 0) {
-        tma_prefetch(&qmap);
-        tma_prefetch(&kmap);
-        tma_prefetch(&vmap);
-        mbar_expect_tx(qbar, TILE_BYTES);
-        load(qs, &qmap, 0, qbar, i0);
+        tma_prefetch(qmap);
+        tma_prefetch(kmap);
+        tma_prefetch(vmap);
+        if constexpr (F32) {  // two 32-float halves
+          mbar_expect_tx(qbar, 2 * TILE_BYTES);
+          load(qs, qmap, 0, qbar, i0);
+          load(qs + TILE_BYTES, qmap, 0, qbar, i0, 32);
+        } else {
+          mbar_expect_tx(qbar, TILE_BYTES);
+          load(qs, qmap, 0, qbar, i0);
+        }
       }
       // per tile, pass 1 streams K, pass 2 K and V (V alone with stored S):
       // the chunks of warpgroup r's consumers, one consumer's after the
@@ -598,13 +425,29 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         const int base = t * block_k, nct = chunks(t);
         for (int pass = 0; pass < 2; ++pass) {
           reach(3 * t + pass);
-          for (int v = 0; v < VIRT; ++v) {
-            for (int j = first(v, r); j < nct; j += SPLIT, ++i) {
-              const int s = i % STAGES;
-              mbar_wait(empty(r, s), ((i / STAGES) & 1) ^ 1);
-              mbar_expect_tx(full(r, s), TILE_BYTES * (pass && !STORE ? 2 : 1));
-              if (!pass || !STORE) load(slot(r, s), &kmap, 1, full(r, s), base + j * 64);
-              if (pass) load(slot(r, s) + (STORE ? 0 : TILE), &vmap, 2, full(r, s), base + j * 64);
+          if constexpr (F32) {  // a chunk's two 32-key pieces, a fill each: K's
+                                // two 32-float halves, and V's piece in pass 2
+            for (int j = first(0, r); j < nct; j += SPLIT) {
+              for (int hp = 0; hp < 2; ++hp, ++i) {
+                const int s = i % NS, row = base + j * 64 + PIECE_KEYS * hp;
+                unsigned char* const dst = region(r) + L::SLOT * s;
+                mbar_wait(empty(r, s), ((i / NS) & 1) ^ 1);
+                mbar_expect_tx(full(r, s), static_cast<int>(L::PIECE) * (pass ? 2 : 1));
+                load(dst, kmap, 1, full(r, s), row);
+                load(dst + L::PIECE / 2, kmap, 1, full(r, s), row, 32);
+                if (pass) load(dst + L::PIECE, vmap, 2, full(r, s), row);
+              }
+            }
+          } else {
+            for (int v = 0; v < VIRT; ++v) {
+              for (int j = first(v, r); j < nct; j += SPLIT, ++i) {
+                const int s = i % NS;
+                mbar_wait(empty(r, s), ((i / NS) & 1) ^ 1);
+                mbar_expect_tx(full(r, s), TILE_BYTES * (pass && !STORE ? 2 : 1));
+                if (!pass || !STORE) load(slot(r, s), kmap, 1, full(r, s), base + j * 64);
+                if (pass)
+                  load(slot(r, s) + (STORE ? 0 : TILE), vmap, 2, full(r, s), base + j * 64);
+              }
             }
           }
         }
@@ -630,14 +473,14 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   float m[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r)
-    m[r] = STEP && i0 + row0 + 8 * r < Nq ? cy.m_in[cbase + row0 + 8 * r] : NEG;
+    m[r] = STEP && i0 + row0 + 8 * r < Nq ? cy.m_in[cbase() + row0 + 8 * r] : NEG;
   if (owner) {
     const int row = own_row(), c8 = own_col();
     const bool carried = STEP && i0 + rows0 + row < Nq;
     float a[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (carried) load8(cy.acc_in + (cbase + rows0 + row) * D + c8, a, true);
+    if (carried) load8(cy.acc_in + (cbase() + rows0 + row) * D + c8, a, true);
     store8(acc_s + row * D + c8, a);
-    if (c8 == 0) l_s[row] = carried ? cy.l_in[cbase + rows0 + row] : 0.f;
+    if (c8 == 0) l_s[row] = carried ? cy.l_in[cbase() + rows0 + row] : 0.f;
   }
 
   // s = quant(Q.K^T * scale) over keys k0 .. k0 + 2 E - 1 of the chunk in
@@ -650,17 +493,34 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   // are -inf, keys at or past kv_len -1e30; only a chunk that holds the
   // tile's end or kv_len has any. This thread's E / 2 columns (bit 2 n + h:
   // column k0 + 8 n + 2 t4 + h) are classified while the product runs.
+  // fp32: E = 16, the piece k0 / 32 in slot s, 24 m64n32k8 products in
+  // 3xTF32 with K's lo copy already written.
   auto scores = [&](auto& sc, int s, int base, int j, int k0) {
     constexpr int E = std::extent_v<std::remove_reference_t<decltype(sc)>>;
-    const bf16_t* ks = slot(wg, s) + k0 * D;
     fence_operand(sc);
     wgmma_fence();
+    if constexpr (F32) {  // Q_hi.K_lo, Q_lo.K_hi, Q_hi.K_hi (K_hi: the piece as TMA wrote it)
+      const uint64_t qh = opaque(kmajor_desc(qs, 0)), ql = qh + (L::QLO - L::Q) / 16;
+      const uint64_t kh = opaque(kmajor_desc(region(wg) + L::SLOT * s, 0));
+      const uint64_t kl = kh + (L::KLO - L::SLOT * s) / 16;
 #pragma unroll
-    for (int k16 = 0; k16 < D / 16; ++k16) {
-      if constexpr (E == 32)
-        wgmma_m64n64<0>(sc, kmajor_desc(qs, k16), kmajor_desc(ks, k16), k16);
-      else
-        wgmma_m64n32<0>(sc, kmajor_desc(qs, k16), kmajor_desc(ks, k16), k16);
+      for (int kk = 0; kk < D / 8; ++kk)
+        wgmma_tf32_m64n32(sc, desc_step_f32(qh, 64, kk), desc_step_f32(kl, PIECE_KEYS, kk), kk);
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk)
+        wgmma_tf32_m64n32(sc, desc_step_f32(ql, 64, kk), desc_step_f32(kh, PIECE_KEYS, kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk)
+        wgmma_tf32_m64n32(sc, desc_step_f32(qh, 64, kk), desc_step_f32(kh, PIECE_KEYS, kk), 1);
+    } else {
+      const bf16_t* ks = slot(wg, s) + k0 * D;
+#pragma unroll
+      for (int k16 = 0; k16 < D / 16; ++k16) {
+        if constexpr (E == 32)
+          wgmma_m64n64<0>(sc, kmajor_desc(qs, k16), kmajor_desc(ks, k16), k16);
+        else
+          wgmma_m64n32<0>(sc, kmajor_desc(qs, k16), kmajor_desc(ks, k16), k16);
+      }
     }
     wgmma_commit();
     const int c0 = j * 64 + k0;  // base + key: the key in this KV block
@@ -696,6 +556,40 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     __syncwarp();
     if (lane == 0) mbar_arrive(empty(wg, s));
   };
+  // fp32: the ring's fill-th piece landed in its slot (returned), its K lo
+  // copy written (and with_v V's piece transposed and split: V^T[d][8 j + q]
+  // holds key 8 j + 2 q (q < 4) or 8 j + 2 (q - 4) + 1 of the piece, P's
+  // order, as 16 B unit u = (8 j + q) / 4 of row d at u ^ d % 8), then the
+  // warpgroup synced
+  auto land = [&](int fill, bool with_v) {
+    const int s = fill % NS;
+    if constexpr (F32) {
+      mbar_wait(full(wg, s), (fill / NS) & 1);
+      unsigned char* const kr = region(wg) + L::SLOT * s;
+      unsigned char* const kl = region(wg) + L::KLO;
+      tf32_lo_copy(reinterpret_cast<float*>(kr), reinterpret_cast<float*>(kl), PIECE_KEYS * D,
+                   tid, 128);
+      if (with_v) {
+        const float* vr = reinterpret_cast<const float*>(kr + L::PIECE);  // [32 keys][64]
+        unsigned char* const vth = region(wg) + L::VTH;
+        unsigned char* const vtl = region(wg) + L::VTL;
+#pragma unroll 1
+        for (int it = 0; it < PIECE_KEYS * D / 4 / 128; ++it) {  // beside P.V's acc: one at a time
+          const int item = tid + 128 * it, d = item % D, u = item / D;
+          const int key0 = 8 * (u / 2) + (u & 1);  // keys key0, + 2, + 4, + 6
+          unsigned hi[4], lo[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) split_tf32_rz(vr[(key0 + 2 * e) * D + d], hi[e], lo[e]);
+          const int at = d * 128 + ((u ^ (d % 8)) * 16);
+          *reinterpret_cast<uint4*>(vth + at) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+          *reinterpret_cast<uint4*>(vtl + at) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+        }
+      }
+      fence_proxy_async();  // the copies, written by threads, visible to wgmma
+      bar_sync(2 + wg, 128);
+    }
+    return s;
+  };
   auto meet = [&]() {  // every consumer thread of the block, or of the cluster
     if constexpr (CLUSTER > 1) {
       cluster_arrive();
@@ -706,6 +600,12 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   };
 
   mbar_wait(qbar, 0);
+  if constexpr (F32) {  // Q's lo copy, once, by every consumer thread
+    tf32_lo_copy(reinterpret_cast<float*>(qs), reinterpret_cast<float*>(qlo), 64 * D,
+                 threadIdx.x, WGS * 128);
+    fence_proxy_async();
+    bar_sync(1, WGS * 128);
+  }
 
   unsigned* const store = reinterpret_cast<unsigned*>(region(wg) + L::PART_AT);
   float* const mine = part(wg);  // [16][128] float2, part_at
@@ -718,30 +618,44 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     // holds s[2 k], s[2 k + 1], at [chunk][k][tid]; consumer v's chunks from
     // chunk v * OWN); a warpgroup's consumers one after the other
     float mx[2] = {-INFINITY, -INFINITY};
+    if constexpr (F32) {  // a chunk's two pieces, a fill each
+      for (int j = first(0, wg); j < nct; j += SPLIT) {
 #pragma unroll 1
-    for (int v = 0; v < VIRT; ++v) {
-      int c = v * OWN;  // this chunk's place in the store
-      for (int j = first(v, wg); j < nct; j += SPLIT, ++i, ++c) {
-        const int s = i % STAGES;
-        mbar_wait(full(wg, s), (i / STAGES) & 1);
-        if constexpr (STORE) {
-          float sc[32];
-          scores(sc, s, base, j, 0);
+        for (int hp = 0; hp < 2; ++hp, ++i) {
+          const int s = land(i, false);
+          float sc[16];
+          scores(sc, s, base, j, PIECE_KEYS * hp);
           release(s);
 #pragma unroll
-          for (int e = 0; e < 32; ++e) mx[(e / 2) & 1] = fmaxf(mx[(e / 2) & 1], sc[e]);
+          for (int e = 0; e < 16; ++e) mx[(e / 2) & 1] = fmaxf(mx[(e / 2) & 1], sc[e]);
+        }
+      }
+    } else {
+#pragma unroll 1
+      for (int v = 0; v < VIRT; ++v) {
+        int c = v * OWN;  // this chunk's place in the store
+        for (int j = first(v, wg); j < nct; j += SPLIT, ++i, ++c) {
+          const int s = i % NS;
+          mbar_wait(full(wg, s), (i / NS) & 1);
+          if constexpr (STORE) {
+            float sc[32];
+            scores(sc, s, base, j, 0);
+            release(s);
 #pragma unroll
-          for (int k = 0; k < 16; ++k)
-            store[(c * 16 + k) * 128 + tid] = pack_bf16(sc[2 * k], sc[2 * k + 1]);
-        } else {  // in halves, as pass 2 recomputes them
+            for (int e = 0; e < 32; ++e) mx[(e / 2) & 1] = fmaxf(mx[(e / 2) & 1], sc[e]);
 #pragma unroll
-          for (int hf = 0; hf < 2; ++hf) {
-            float sc[16];
-            scores(sc, s, base, j, 32 * hf);
+            for (int k = 0; k < 16; ++k)
+              store[(c * 16 + k) * 128 + tid] = pack_bf16(sc[2 * k], sc[2 * k + 1]);
+          } else {  // in halves, as pass 2 recomputes them
 #pragma unroll
-            for (int e = 0; e < 16; ++e) mx[(e / 2) & 1] = fmaxf(mx[(e / 2) & 1], sc[e]);
+            for (int hf = 0; hf < 2; ++hf) {
+              float sc[16];
+              scores(sc, s, base, j, 32 * hf);
+#pragma unroll
+              for (int e = 0; e < 16; ++e) mx[(e / 2) & 1] = fmaxf(mx[(e / 2) & 1], sc[e]);
+            }
+            release(s);
           }
-          release(s);
         }
       }
     }
@@ -788,79 +702,138 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
       for (int e = 0; e < 32; ++e) pv[e] = 0.f;
       int c = v * OWN;
-      for (int j = first(v, wg); j < nct; j += SPLIT, ++i, ++c) {
-        const int s = i % STAGES;
-        mbar_wait(full(wg, s), (i / STAGES) & 1);
-        if constexpr (STORE) {
-          float sc[32];  // the rounded s of pass 1
-#pragma unroll
-          for (int k = 0; k < 16; ++k) {
-            const unsigned w = store[(c * 16 + k) * 128 + tid];
-            sc[2 * k] = __uint_as_float(w << 16);
-            sc[2 * k + 1] = __uint_as_float(w & 0xffff0000u);
-          }
-          // bf16 stats: p in pairs (one row, columns 2 t4, 2 t4 + 1) rounded
-          // in one packed conversion, which is also P.V's A operand (keys
-          // 16 kk.. of the chunk: n-tiles 2 kk and 2 kk + 1)
-          unsigned pa[D / 16][4];
-#pragma unroll
-          for (int k = 0; k < 16; ++k) {
-            const int r = k & 1;  // row0 or row0 + 8
-            const unsigned w = pack_bf16(expf(sc[2 * k] - m[r]), expf(sc[2 * k + 1] - m[r]));
-            ps[r] += __uint_as_float(w << 16);
-            ps[r] += __uint_as_float(w & 0xffff0000u);
-            pa[k / 4][k % 4] = w;
-          }
-          const bf16_t* vs = slot(wg, s);
-          fence_operand(pv);
-          wgmma_fence();
-#pragma unroll
-          for (int k16 = 0; k16 < 4; ++k16)
-            wgmma_m64n64_rs(pv, pa[k16], mnmajor_desc(vs, 128, k16), 1);
-          wgmma_commit();
-          wgmma_wait<0>();
-          fence_operand(pv);
-#pragma unroll
-          for (int k16 = 0; k16 < 4; ++k16) fence_operand(pa[k16]);
-        } else {  // S again, in halves of 32 keys, and their P.V
-#pragma unroll
-          for (int hf = 0; hf < 2; ++hf) {
+      if constexpr (F32) {  // a chunk's two pieces: S again, p, and their P.V in 3xTF32
+        for (int j = first(v, wg); j < nct; j += SPLIT) {
+#pragma unroll 1
+          for (int hp = 0; hp < 2; ++hp, ++i) {
+            const int s = land(i, true);
             float sc[16];
-            scores(sc, s, base, j, 32 * hf);
-            unsigned pa[2][4];  // keys 32 hf + 16 kk..: this half's two k16 steps
-            if (quant) {  // bf16 stats: p rounded in pairs, as above
+            scores(sc, s, base, j, PIECE_KEYS * hp);
+            release(s);  // V is in its copies and S is done: the next piece may land
 #pragma unroll
-              for (int k = 0; k < 8; ++k) {
-                const int r = k & 1;
-                const unsigned w =
-                    pack_bf16(expf(sc[2 * k] - m[r]), expf(sc[2 * k + 1] - m[r]));
-                ps[r] += __uint_as_float(w << 16);
-                ps[r] += __uint_as_float(w & 0xffff0000u);
-                pa[k / 4][k % 4] = w;
+            for (int k = 0; k < 8; ++k) {  // p in pairs of a row; bf16 stats: rounded together
+              const int r = k & 1;
+              float p0 = expf(sc[2 * k] - m[r]), p1 = expf(sc[2 * k + 1] - m[r]);
+              if (quant) {
+                const unsigned w = pack_bf16(p0, p1);
+                p0 = __uint_as_float(w << 16), p1 = __uint_as_float(w & 0xffff0000u);
               }
-            } else {  // fp32 stats: p as it is, cast to bf16 for P.V
-#pragma unroll
-              for (int e = 0; e < 16; ++e) {
-                sc[e] = expf(sc[e] - m[(e / 2) & 1]);
-                ps[(e / 2) & 1] += sc[e];
-              }
-#pragma unroll
-              for (int k = 0; k < 8; ++k) pa[k / 4][k % 4] = pack_bf16(sc[2 * k], sc[2 * k + 1]);
+              ps[r] += p0;
+              ps[r] += p1;
+              sc[2 * k] = p0, sc[2 * k + 1] = p1;
             }
-            const bf16_t* vs = slot(wg, s) + TILE;
+            // P.V in 16-key halves (P's registers of one half live beside
+            // P.V's accumulator): P's A fragment of k step kk (keys 8 kk..)
+            // takes key 2 t4 in slot t4 (accumulator 4 kk, row g; 4 kk + 2,
+            // row g + 8) and key 2 t4 + 1 in slot t4 + 4 (4 kk + 1, 4 kk +
+            // 3), split into (hi, lo); V^T's k step kk is 32 B along its rows
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              unsigned ph[2][4], pl[2][4];
+#pragma unroll
+              for (int q = 0; q < 2; ++q) {
+                const float* pk = sc + 8 * hh + 4 * q;
+                split_tf32_rz(pk[0], ph[q][0], pl[q][0]);
+                split_tf32_rz(pk[2], ph[q][1], pl[q][1]);
+                split_tf32_rz(pk[1], ph[q][2], pl[q][2]);
+                split_tf32_rz(pk[3], ph[q][3], pl[q][3]);
+              }
+              const uint64_t vh = opaque(kmajor_desc(region(wg) + L::VTH, 2 * hh));
+              const uint64_t vl = opaque(kmajor_desc(region(wg) + L::VTL, 2 * hh));
+              fence_operand(pv);
+              wgmma_fence();
+#pragma unroll
+              for (int q = 0; q < 2; ++q) wgmma_tf32_m64n64_rs(pv, ph[q], vl + 2 * q, 1);
+#pragma unroll
+              for (int q = 0; q < 2; ++q) wgmma_tf32_m64n64_rs(pv, pl[q], vh + 2 * q, 1);
+#pragma unroll
+              for (int q = 0; q < 2; ++q) wgmma_tf32_m64n64_rs(pv, ph[q], vh + 2 * q, 1);
+              wgmma_commit();
+              wgmma_wait<0>();
+              fence_operand(pv);
+#pragma unroll
+              for (int q = 0; q < 2; ++q) {
+                fence_operand(ph[q]);
+                fence_operand(pl[q]);
+              }
+            }
+          }
+        }
+      } else {
+        for (int j = first(v, wg); j < nct; j += SPLIT, ++i, ++c) {
+          const int s = i % NS;
+          mbar_wait(full(wg, s), (i / NS) & 1);
+          if constexpr (STORE) {
+            float sc[32];  // the rounded s of pass 1
+#pragma unroll
+            for (int k = 0; k < 16; ++k) {
+              const unsigned w = store[(c * 16 + k) * 128 + tid];
+              sc[2 * k] = __uint_as_float(w << 16);
+              sc[2 * k + 1] = __uint_as_float(w & 0xffff0000u);
+            }
+            // bf16 stats: p in pairs (one row, columns 2 t4, 2 t4 + 1) rounded
+            // in one packed conversion, which is also P.V's A operand (keys
+            // 16 kk.. of the chunk: n-tiles 2 kk and 2 kk + 1)
+            unsigned pa[D / 16][4];
+#pragma unroll
+            for (int k = 0; k < 16; ++k) {
+              const int r = k & 1;  // row0 or row0 + 8
+              const unsigned w = pack_bf16(expf(sc[2 * k] - m[r]), expf(sc[2 * k + 1] - m[r]));
+              ps[r] += __uint_as_float(w << 16);
+              ps[r] += __uint_as_float(w & 0xffff0000u);
+              pa[k / 4][k % 4] = w;
+            }
+            const bf16_t* vs = slot(wg, s);
             fence_operand(pv);
             wgmma_fence();
 #pragma unroll
-            for (int k16 = 0; k16 < 2; ++k16)
-              wgmma_m64n64_rs(pv, pa[k16], mnmajor_desc(vs, 128, 2 * hf + k16), 1);
+            for (int k16 = 0; k16 < 4; ++k16)
+              wgmma_m64n64_rs(pv, pa[k16], mnmajor_desc(vs, 128, k16), 1);
             wgmma_commit();
             wgmma_wait<0>();
             fence_operand(pv);
 #pragma unroll
-            for (int k16 = 0; k16 < 2; ++k16) fence_operand(pa[k16]);
+            for (int k16 = 0; k16 < 4; ++k16) fence_operand(pa[k16]);
+          } else {  // S again, in halves of 32 keys, and their P.V
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+              float sc[16];
+              scores(sc, s, base, j, 32 * hf);
+              unsigned pa[2][4];  // keys 32 hf + 16 kk..: this half's two k16 steps
+              if (quant) {  // bf16 stats: p rounded in pairs, as above
+#pragma unroll
+                for (int k = 0; k < 8; ++k) {
+                  const int r = k & 1;
+                  const unsigned w =
+                      pack_bf16(expf(sc[2 * k] - m[r]), expf(sc[2 * k + 1] - m[r]));
+                  ps[r] += __uint_as_float(w << 16);
+                  ps[r] += __uint_as_float(w & 0xffff0000u);
+                  pa[k / 4][k % 4] = w;
+                }
+              } else {  // fp32 stats: p as it is, cast to bf16 for P.V
+#pragma unroll
+                for (int e = 0; e < 16; ++e) {
+                  sc[e] = expf(sc[e] - m[(e / 2) & 1]);
+                  ps[(e / 2) & 1] += sc[e];
+                }
+#pragma unroll
+                for (int k = 0; k < 8; ++k) pa[k / 4][k % 4] = pack_bf16(sc[2 * k], sc[2 * k + 1]);
+              }
+              const bf16_t* vs = slot(wg, s) + TILE;
+              fence_operand(pv);
+              wgmma_fence();
+#pragma unroll
+              for (int k16 = 0; k16 < 2; ++k16)
+                wgmma_m64n64_rs(pv, pa[k16], mnmajor_desc(vs, 128, 2 * hf + k16), 1);
+              wgmma_commit();
+              wgmma_wait<0>();
+              fence_operand(pv);
+#pragma unroll
+              for (int k16 = 0; k16 < 2; ++k16) fence_operand(pa[k16]);
+            }
           }
+          release(s);
         }
-        release(s);
       }
       ps[0] = quad_sum(ps[0]);
       ps[1] = quad_sum(ps[1]);
@@ -887,38 +860,56 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     meet();
     if (owner) {
       const int row = own_row(), c8 = own_col(), irow = rows0 + row;
-      float ls[WGS * CLUSTER];  // every block's partial sums p and P.V of these outputs
-      float4 lo[WGS * CLUSTER], hi[WGS * CLUSTER];
+      float sum = 0.f, x[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      // fp32: one consumer's pair of partials at a time (all loads first
+      // would hold 72 registers beside the carries and spill); the same sums
+      if constexpr (F32 && CLUSTER > 1) {
+#pragma unroll 1
+        for (int c = 0; c < WGS; ++c) {  // q_c = p_c + p_{c + WGS}: block 0's c, block 1's c
+          const float* src = part(c) + part_at(irow, c8);
+          const float q = ld_dsmem(dsmem(red_sum + c * 64 + irow, 0)) +
+                          ld_dsmem(dsmem(red_sum + c * 64 + irow, 1));
+          const float4 l0 = ld_dsmem4(dsmem(src, 0)), l1 = ld_dsmem4(dsmem(src, 1));
+          const float4 h0 = ld_dsmem4(dsmem(src + 4, 0)), h1 = ld_dsmem4(dsmem(src + 4, 1));
+          const float y[8] = {l0.x + l1.x, l0.y + l1.y, l0.z + l1.z, l0.w + l1.w,
+                              h0.x + h1.x, h0.y + h1.y, h0.z + h1.z, h0.w + h1.w};
+          sum += q;
 #pragma unroll
-      for (int k = 0; k < CLUSTER; ++k) {
+          for (int e = 0; e < 8; ++e) x[e] += y[e];
+        }
+      } else {
+        float ls[WGS * CLUSTER];  // every block's partial sums p and P.V of these outputs
+        float4 lo[WGS * CLUSTER], hi[WGS * CLUSTER];
 #pragma unroll
-        for (int w = 0; w < WGS; ++w) {
-          const float* src = part(w) + part_at(irow, c8);
-          if constexpr (CLUSTER > 1) {  // all loads first
-            ls[k * WGS + w] = ld_dsmem(dsmem(red_sum + w * 64 + irow, k));
-            lo[k * WGS + w] = ld_dsmem4(dsmem(src, k));
-            hi[k * WGS + w] = ld_dsmem4(dsmem(src + 4, k));
-          } else {
-            ls[w] = red_sum[w * 64 + irow];
-            lo[w] = *reinterpret_cast<const float4*>(src);
-            hi[w] = *reinterpret_cast<const float4*>(src + 4);
+        for (int k = 0; k < CLUSTER; ++k) {
+#pragma unroll
+          for (int w = 0; w < WGS; ++w) {
+            const float* src = part(w) + part_at(irow, c8);
+            if constexpr (CLUSTER > 1) {  // all loads first
+              ls[k * WGS + w] = ld_dsmem(dsmem(red_sum + w * 64 + irow, k));
+              lo[k * WGS + w] = ld_dsmem4(dsmem(src, k));
+              hi[k * WGS + w] = ld_dsmem4(dsmem(src + 4, k));
+            } else {
+              ls[w] = red_sum[w * 64 + irow];
+              lo[w] = *reinterpret_cast<const float4*>(src);
+              hi[w] = *reinterpret_cast<const float4*>(src + 4);
+            }
           }
         }
-      }
-      float sum = 0.f, x[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-      for (int c = 0; c < WGS; ++c) {  // q_c = p_c + p_{c + WGS} (in a cluster: block 1's c)
-        float q = ls[c], y[8] = {lo[c].x, lo[c].y, lo[c].z, lo[c].w,
-                                 hi[c].x, hi[c].y, hi[c].z, hi[c].w};
-        if constexpr (CLUSTER > 1) {
-          const int d = WGS + c;
-          q += ls[d];
-          y[0] += lo[d].x, y[1] += lo[d].y, y[2] += lo[d].z, y[3] += lo[d].w;
-          y[4] += hi[d].x, y[5] += hi[d].y, y[6] += hi[d].z, y[7] += hi[d].w;
+        for (int c = 0; c < WGS; ++c) {  // q_c = p_c + p_{c + WGS} (in a cluster: block 1's c)
+          float q = ls[c], y[8] = {lo[c].x, lo[c].y, lo[c].z, lo[c].w,
+                                   hi[c].x, hi[c].y, hi[c].z, hi[c].w};
+          if constexpr (CLUSTER > 1) {
+            const int d = WGS + c;
+            q += ls[d];
+            y[0] += lo[d].x, y[1] += lo[d].y, y[2] += lo[d].z, y[3] += lo[d].w;
+            y[4] += hi[d].x, y[5] += hi[d].y, y[6] += hi[d].z, y[7] += hi[d].w;
+          }
+          sum += q;
+#pragma unroll
+          for (int e = 0; e < 8; ++e) x[e] += y[e];
         }
-        sum += q;
-#pragma unroll
-        for (int e = 0; e < 8; ++e) x[e] += y[e];
       }
       const float c = cf_s[irow];
       if (c8 == 0) l_s[row] = lg::quant_stat(__fadd_rn(__fmul_rn(l_s[row], c), sum), quant);
@@ -939,7 +930,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   load8(acc_s + row * D + c8, a, true);
   const float l = l_s[row];
   if (STEP) {  // the carries out; a row whose stripe does not run passes through
-    const size_t at = cbase + irow;
+    const size_t at = cbase() + irow;
     const bool live = runs(irow);
     if (!live) load8(cy.acc_in + at * D + c8, a, true);
     store8(cy.acc_out + at * D + c8, a);
@@ -952,73 +943,73 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   const float den = l == 0.f ? 1.f : l;
 #pragma unroll
   for (int e = 0; e < 8; ++e) a[e] = gi < lq ? a[e] / den : 0.f;
-  store8(out + (long long)gi * o.rs + c8, a);
+  store8(out_rows() + (long long)gi * o.rs + c8, a);
+}
+
+// bf16 operands (BF16, MIXED's fp32 output TO, the ring step at bf16)
+template <bool STEP, typename TO, bool STORE, int CLUSTER, int VIRT>
+__global__ void __launch_bounds__((WGS + 1) * 128, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap, int hrows, Out o, Carries cy,
+                   const int* __restrict__ lens, int Nq, int Nk, float scale, int block_k,
+                   int quant) {
+  flash_tile<bf16_t, STEP, TO, STORE, CLUSTER, VIRT>(&qmap, &kmap, &vmap, hrows, o, cy, lens, Nq,
+                                                     Nk, scale, block_k, quant);
+}
+
+// fp32 operands in 3xTF32 (the FP32 rung, fp32 operands at bf16 stats in
+// the ring step): an fp32 output, S recomputed in pass 2, one consumer a
+// warpgroup (a split of 8 as a cluster of two blocks)
+template <bool STEP, int CLUSTER>
+__global__ void __launch_bounds__((WGS + 1) * 128, 1)
+flash_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                        const __grid_constant__ CUtensorMap kmap,
+                        const __grid_constant__ CUtensorMap vmap, int hrows, Out o, Carries cy,
+                        const int* __restrict__ lens, int Nq, int Nk, float scale, int block_k,
+                        int quant) {
+  flash_tile<float, STEP, float, false, CLUSTER, 1>(&qmap, &kmap, &vmap, hrows, o, cy, lens, Nq,
+                                                    Nk, scale, block_k, quant);
 }
 
 // ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
-template <bool STEP, int G, int C>
-int launch_tf32(Operand q, Operand k, Operand v, Out o, Carries cy, const void* lens, int B,
-                int H, int Nq, int Nk, float scale, int block_k, int quant, cudaStream_t stream) {
-  constexpr size_t smem = tf32_smem(C, TF32_STAGES, G);
-  static const cudaError_t opt_in =  // above 48 KB: opt in once
-      cudaFuncSetAttribute(flash_tf32_kernel<STEP, G, C>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
-  constexpr int BR = 16 * G;
-  const int aligned = aligned16(q) && aligned16(k) && aligned16(v);
-  dim3 grid((Nq + BR - 1) / BR, H, B);
-  flash_tf32_kernel<STEP, G, C><<<grid, G * C * 32, smem, stream>>>(
-      q, k, v, o, cy, static_cast<const int*>(lens), Nq, Nk, scale, block_k, quant, aligned);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// the fp32 kernel's blocks: one pair's four-warp block (G * C = 4), or two
-// or four of its row groups in one block of eight or sixteen warps
-template <bool STEP>
-int launch_fp32(Operand q, Operand k, Operand v, Out o, Carries cy, const void* lens, int B,
-                int H, int Nq, int Nk, float scale, int block_k, int quant, int row_groups,
-                int col_split, cudaStream_t s) {
-  decltype(&launch_tf32<STEP, 4, 1>) run = nullptr;
-  switch (row_groups * 8 + col_split) {
-    case 4 * 8 + 1: run = launch_tf32<STEP, 4, 1>; break;
-    case 2 * 8 + 2: run = launch_tf32<STEP, 2, 2>; break;
-    case 4 * 8 + 2: run = launch_tf32<STEP, 4, 2>; break;
-    case 1 * 8 + 4: run = launch_tf32<STEP, 1, 4>; break;
-    case 2 * 8 + 4: run = launch_tf32<STEP, 2, 4>; break;
-    case 4 * 8 + 4: run = launch_tf32<STEP, 4, 4>; break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return run(q, k, v, o, cy, lens, B, H, Nq, Nk, scale, block_k, quant, s);
-}
-
-// One head's rows of a bf16 operand, (B, H, N, 64) by (batch, head, row)
-// strides in elements (an activation (B, N, H*64) has head stride 64), as a
-// rank-4 tensor map read in 64 x 64 boxes in 128 B swizzle: (64, H, N, B)
+// One head's rows of an operand of `type` (2 or 4 bytes an element),
+// (B, H, N, 64) by (batch, head, row) strides in elements (an activation
+// (B, N, H*64) has head stride 64), as a rank-4 tensor map read in boxes of
+// box_cols x box_rows written in `swizzle` bytes of swizzle: (64, H, N, B)
 // where heads lie inside a row (hrows = 1), else (64, N, H, B), so the
 // strides grow outward. A dimension of one takes a stride past the others.
-int head_map(CUtensorMap* map, const Operand& o, int B, int H, int rows, int& hrows) {
+int head_map(CUtensorMap* map, const Operand& o, int B, int H, int rows, int& hrows,
+             CUtensorMapDataType type, int box_cols, int box_rows, int swizzle) {
+  const int es = type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2;
   hrows = H > 1 && o.hs < o.rs;
   const long long hs = H > 1 ? o.hs : (long long)rows * o.rs;
   const long long bs = B > 1 ? o.bs : (hrows ? (long long)rows * o.rs : (long long)H * hs);
-  if (!tma_aligned(o.ptr, 2 * o.rs, 2 * hs) || (2 * bs) % 16)
+  if (!tma_aligned(o.ptr, es * o.rs, es * hs) || (es * bs) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   const cuuint64_t dims[4] = {D, (cuuint64_t)(hrows ? H : rows), (cuuint64_t)(hrows ? rows : H),
                               (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)(2 * (hrows ? hs : o.rs)),
-                                 (cuuint64_t)(2 * (hrows ? o.rs : hs)), (cuuint64_t)(2 * bs)};
-  const cuuint32_t box[4] = {D, hrows ? 1u : 64u, hrows ? 64u : 1u, 1};
-  return tma_map(map, o.ptr, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, dims, strides, box, 128);
+  const cuuint64_t strides[3] = {(cuuint64_t)(es * (hrows ? hs : o.rs)),
+                                 (cuuint64_t)(es * (hrows ? o.rs : hs)), (cuuint64_t)(es * bs)};
+  const cuuint32_t box[4] = {(cuuint32_t)box_cols, hrows ? 1u : (cuuint32_t)box_rows,
+                             hrows ? (cuuint32_t)box_rows : 1u, 1};
+  return tma_map(map, o.ptr, type, 4, dims, strides, box, swizzle);
 }
 
-template <bool STEP, typename TO, bool STORE, int CLUSTER, int VIRT>
+template <typename T, bool STEP, typename TO, bool STORE, int CLUSTER, int VIRT>
 int launch_wgmma(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm, int hrows,
                  Out o, Carries cy, const void* lens, int B, int H, int Nq, int Nk, float scale,
                  int block_k, int quant, cudaStream_t stream) {
-  constexpr size_t smem = Smem<STORE, CLUSTER>::BYTES;
-  auto kernel = flash_wgmma_kernel<STEP, TO, STORE, CLUSTER, VIRT>;
+  constexpr size_t smem = Smem<T, STORE, CLUSTER>::BYTES;
+  auto kernel = [] {
+    if constexpr (std::is_same<T, float>::value)
+      return flash_tf32_wgmma_kernel<STEP, CLUSTER>;
+    else
+      return flash_wgmma_kernel<STEP, TO, STORE, CLUSTER, VIRT>;
+  }();
   static const cudaError_t opt_in =  // above 48 KB: opt in once
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(smem));
@@ -1039,30 +1030,40 @@ int launch_wgmma(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap
                                              block_k, quant));
 }
 
-// The bf16 kernel at wgmma_plan's launch, which the caller's plan
-// (row_groups, col_split, stages: kernels/attention.py:flash_plan) must be:
-// four 16-row groups (a 64-row tile), the split, the ring's slots
-template <bool STEP, typename TO>
-int launch_bf16(Operand q, Operand k, Operand v, Out o, Carries cy, const void* lens, int B,
-                int H, int Nq, int Nk, float scale, int block_k, int quant, int row_groups,
-                int col_split, int stages, cudaStream_t s) {
-  const WgPlan p = wgmma_plan(B, H, Nq, block_k, quant);
-  if (row_groups != 4 || col_split != p.split || stages != STAGES)
+// Either kernel at wgmma_plan's launch, which the caller's plan (row_groups,
+// col_split, stages: kernels/attention.py:flash_plan) must be: four 16-row
+// groups (a 64-row tile), the split, the ring's slots. T: the operand type
+// (bf16: 64 x 64 boxes in 128 B swizzle; fp32: Q and K in 32-float boxes of
+// 64 and 32 rows in 128 B swizzle, V in 64 x 32 boxes as they lie)
+template <typename T, bool STEP, typename TO>
+int launch_wg(Operand q, Operand k, Operand v, Out o, Carries cy, const void* lens, int B, int H,
+              int Nq, int Nk, float scale, int block_k, int quant, int row_groups, int col_split,
+              int stages, cudaStream_t s) {
+  constexpr bool F32 = std::is_same<T, float>::value;
+  const WgPlan p = wgmma_plan(B, H, Nq, block_k, quant, F32);
+  if (row_groups != 4 || col_split != p.split || stages != (F32 ? 1 : STAGES))
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap qm, km, vm;
   int hq, hk, hv;
-  const int errs[3] = {head_map(&qm, q, B, H, Nq, hq), head_map(&km, k, B, H, Nk, hk),
-                       head_map(&vm, v, B, H, Nk, hv)};
+  constexpr CUtensorMapDataType type = tma_type<T>();
+  const int errs[3] = {
+      head_map(&qm, q, B, H, Nq, hq, type, F32 ? 32 : D, 64, 128),
+      head_map(&km, k, B, H, Nk, hk, type, F32 ? 32 : D, F32 ? PIECE_KEYS : 64, 128),
+      head_map(&vm, v, B, H, Nk, hv, type, D, F32 ? PIECE_KEYS : 64, F32 ? 0 : 128)};
   for (const int err : errs)
     if (err) return err;
   // the forms: a cluster of two blocks, one consumer a warpgroup (split 8);
-  // one block, two consumers a warpgroup (split 8) or one (split 4)
-  auto run = p.store ? (p.cluster          ? launch_wgmma<STEP, TO, true, 2, 1>
-                        : p.split == 8     ? launch_wgmma<STEP, TO, true, 1, 2>
-                                           : launch_wgmma<STEP, TO, true, 1, 1>)
-                     : (p.cluster          ? launch_wgmma<STEP, TO, false, 2, 1>
-                        : p.split == 8     ? launch_wgmma<STEP, TO, false, 1, 2>
-                                           : launch_wgmma<STEP, TO, false, 1, 1>);
+  // one block, two consumers a warpgroup (split 8, bf16) or one (split 4)
+  decltype(&launch_wgmma<T, STEP, TO, false, 1, 1>) run;
+  if constexpr (F32)
+    run = p.cluster ? launch_wgmma<T, STEP, TO, false, 2, 1> : launch_wgmma<T, STEP, TO, false, 1, 1>;
+  else
+    run = p.store ? (p.cluster          ? launch_wgmma<T, STEP, TO, true, 2, 1>
+                     : p.split == 8     ? launch_wgmma<T, STEP, TO, true, 1, 2>
+                                        : launch_wgmma<T, STEP, TO, true, 1, 1>)
+                  : (p.cluster          ? launch_wgmma<T, STEP, TO, false, 2, 1>
+                     : p.split == 8     ? launch_wgmma<T, STEP, TO, false, 1, 2>
+                                        : launch_wgmma<T, STEP, TO, false, 1, 1>);
   return run(qm, km, vm, hq | hk << 1 | hv << 2, o, cy, lens, B, H, Nq, Nk, scale, block_k, quant,
              s);
 }
@@ -1072,27 +1073,23 @@ int launch_bf16(Operand q, Operand k, Operand v, Out o, Carries cy, const void* 
 // not the ring step, which writes fp32 carries in every mode)
 enum Mode { FP32 = 0, BF16 = 1, BF16_F32_OUT = 2 };
 
-// Both kernels at the plan of kernels/attention.py:flash_plan: bf16
-// operands on wgmma (flash_wgmma_kernel; the plan is (4, split, STAGES)),
-// fp32 operands in 3xTF32 (row_groups 4, 2 or 1 16-row groups per block of
-// col_split warps each, TF32_STAGES buffers). A caller with RoPE has rotated
-// q and k first.
+// Both kernels at the plan of kernels/attention.py:flash_plan, (4, split,
+// ring slots): bf16 operands on flash_wgmma_kernel, fp32 operands on
+// flash_tf32_wgmma_kernel. A caller with RoPE has rotated q and k first.
 template <bool STEP>
 int launch(Operand q, Operand k, Operand v, Out o, Carries cy, const void* lens, int B, int H,
            int Nq, int Nk, float scale, int block_k, int quant, int row_groups, int col_split,
            int stages, int mode, cudaStream_t s) {
-  if (mode == FP32) {
-    if (stages != TF32_STAGES) return static_cast<int>(cudaErrorInvalidValue);
-    return launch_fp32<STEP>(q, k, v, o, cy, lens, B, H, Nq, Nk, scale, block_k, quant,
-                             row_groups, col_split, s);
-  }
+  if (mode == FP32)
+    return launch_wg<float, STEP, float>(q, k, v, o, cy, lens, B, H, Nq, Nk, scale, block_k,
+                                         quant, row_groups, col_split, stages, s);
   if (mode == BF16)  // the ring step writes fp32 carries: its TO is never stored
-    return launch_bf16<STEP, std::conditional_t<STEP, float, bf16_t>>(
+    return launch_wg<bf16_t, STEP, std::conditional_t<STEP, float, bf16_t>>(
         q, k, v, o, cy, lens, B, H, Nq, Nk, scale, block_k, quant, row_groups, col_split, stages,
         s);
   if constexpr (!STEP) {
     if (mode == BF16_F32_OUT)
-      return launch_bf16<false, float>(q, k, v, o, cy, lens, B, H, Nq, Nk, scale, block_k,
+      return launch_wg<bf16_t, false, float>(q, k, v, o, cy, lens, B, H, Nq, Nk, scale, block_k,
                                        quant, row_groups, col_split, stages, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
@@ -1178,23 +1175,16 @@ extern "C" int lg_flash_attention_step(
 }
 // flash_attn.cu's launch at this shape in this mode (the wrapper's
 // kernels/attention.py:flash_plan is held against it): out = {16-row groups
-// a block (a tile), warps (FP32) or consumers (the bf16 modes) splitting each
-// chunk's keys, K and V chunk buffers (FP32) or ring slots (bf16), blocks of
-// the launch, dynamic shared memory in bytes, clusters of two blocks a tile,
-// pass 1's s kept}. FP32: flash_tf32_kernel at mma.cuh:batch_plan's blocks;
-// bf16: flash_wgmma_kernel at wgmma_plan's.
+// a block (a 64-row tile), consumers splitting each tile's chunks, ring slots
+// of a consumer warpgroup, blocks of the launch, dynamic shared memory in
+// bytes, clusters of two blocks a tile, pass 1's s kept}: FP32
+// flash_tf32_wgmma_kernel's, bf16 flash_wgmma_kernel's, at wgmma_plan's.
 extern "C" int lg_flash_plan(int B, int H, int Nq, int block_k, int mode, int quant, int* out) {
-  if (mode == FP32) {
-    int G, C;
-    batch_plan(B, H, Nq, 0, FILL_BLOCKS, FILL_BLOCKS, G, C);
-    const int plan[7] = {G, C, TF32_STAGES, (Nq + 16 * G - 1) / (16 * G) * H * B,
-                         static_cast<int>(tf32_smem(C, TF32_STAGES, G)), 0, 0};
-    for (int i = 0; i < 7; ++i) out[i] = plan[i];
-    return 0;
-  }
-  const WgPlan p = wgmma_plan(B, H, Nq, block_k, quant);
-  const int plan[7] = {4, p.split, STAGES, (p.cluster ? 2 : 1) * ((Nq + 63) / 64) * H * B,
-                       static_cast<int>(wgmma_smem(p.store, p.cluster)), p.cluster, p.store};
+  const bool f32 = mode == FP32;
+  const WgPlan p = wgmma_plan(B, H, Nq, block_k, quant, f32);
+  const int plan[7] = {4, p.split, f32 ? 1 : STAGES,
+                       (p.cluster ? 2 : 1) * ((Nq + 63) / 64) * H * B,
+                       static_cast<int>(wgmma_smem(f32, p.store, p.cluster)), p.cluster, p.store};
   for (int i = 0; i < 7; ++i) out[i] = plan[i];
   return 0;
 }

@@ -1,15 +1,18 @@
 // Hopper's asynchronous machinery, shared by the warp-specialised kernels
-// (attention.cu:attention_wgmma_kernel, linear.cu:linear_wgmma_kernel,
-// flash_attn.cu:flash_wgmma_kernel):
+// (attention.cu:attention_wgmma_kernel, linear.cu:linear_wgmma_kernel and
+// linear_tf32_wgmma_kernel, flash_attn.cu:flash_wgmma_kernel and
+// flash_tf32_wgmma_kernel):
 //
 // - TMA: a tensor map (CUtensorMap) encoded on the host per launch by
 //   libcuda's cuTensorMapEncodeTiled, looked up through the runtime
 //   so the library links against the runtime alone; passed to the kernel
 //   as a __grid_constant__ parameter, so a CUDA graph captures it by value.
-//   One thread asks for a whole box (up to 64 x 64 bf16 here) to be copied
-//   into shared memory, swizzled as wgmma reads it, and the copy completes
-//   on an mbarrier. Rows and columns past the tensor's extent arrive as
-//   zeros, and count toward the barrier's bytes like the rest of the box.
+//   One thread asks for a whole box (up to 64 x 64 elements here) to be
+//   copied into shared memory, swizzled as wgmma reads it (or as it lies,
+//   for a tile the consumer reads itself), and the copy completes on an
+//   mbarrier. Rows and columns past the
+//   tensor's extent arrive as zeros, and count toward the barrier's bytes
+//   like the rest of the box.
 // - mbarrier: a ring's "full" barriers (the producer's expect_tx, completed
 //   by the TMA bytes) and "empty" ones (one arrival per consumer warp once
 //   its products have read the slot). Waits poll try_wait.parity; a wait
@@ -24,15 +27,34 @@
 //   along K moves the address by 32 B inside the swizzle atom; for an
 //   MN-major one (V, a linear's weight: the output dimension contiguous) in
 //   128 B or 64 B swizzle, SBO (and LBO, which only a second atom along MN
-//   would read: the tiles here are one atom wide) is the stride of eight K
-//   rows, and a step of 16 along K moves the address by 16 rows. Every tile
-//   starts on 1024 B.
+//   would read: the bf16 tiles here are one atom wide) is the stride of
+//   eight K rows, and a step of 16 along K moves the address by 16 rows.
+//   Every tile starts on 1024 B.
 // - The accumulator of m64nNk16 is, per warp, the m16n8k16 C fragment of
 //   its 16 rows repeated over N / 8: d[4 j + e] at row 16 w + g + 8 (e / 2),
 //   column 8 j + 2 t4 + (e & 1) (w: warp of the warpgroup, g = lane / 4,
 //   t4 = lane % 4). A from registers is the m16n8k16 A fragment of the same
 //   rows, so an S accumulator packed to bf16 pairs is P.V's A operand as it
 //   stands (FlashAttention-3's register-A form).
+// - 3xTF32 on wgmma (the fp32 kernels): m64nNk8 with tf32 operands and fp32
+//   sums, whose accumulator is laid out as above. A tf32 operand in shared
+//   memory is read K-major only (only 16-bit types may be transposed), so
+//   an fp32 operand with its output dimension contiguous (V, a linear's
+//   weight) is either copied transposed by the consumer or taken as the
+//   register-A operand. An fp32 K-major tile 64 deep is two 128 B atoms
+//   along K (32 floats each: four k8 steps), laid out as two [rows][32]
+//   halves, each a TMA box of 32 columns in 128 B swizzle; a k8 step moves
+//   32 B inside its half (desc_step_f32). Register A is, per warp, the
+//   m16n8k8 tf32 A fragment of its 16 rows: a0 (row g, k t4), a1 (g + 8,
+//   t4), a2 (g, t4 + 4), a3 (g + 8, t4 + 4). Each operand x is split into
+//   hi (x with its low 13 bits cleared, mma.cuh:split_tf32_rz) and lo = x -
+//   hi, and a product is hi.lo + lo.hi + hi.hi, the small terms first and
+//   lo.lo dropped. In shared memory the raw fp32 tile as TMA wrote it
+//   serves as hi, since the tensor core reads an fp32 word of a tf32
+//   operand as its truncation (a build that clears the low bits first gives
+//   the same bits: scripts/tune_torch_fp32_wgmma.py --variant explicit_hi),
+//   and the consumer writes the lo copy beside it in the same layout
+//   (tf32_lo_copy), then fences the async proxy before wgmma reads it.
 // - setmaxnreg moves registers from the producer warpgroup to the
 //   consumers; the kernels split their roles in one if / else that never
 //   reconverges, as ptxas needs to honour it.
@@ -375,6 +397,99 @@ __device__ __forceinline__ void wgmma_m64n64_rs(float (&d)[32], const unsigned (
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
       "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// x (a descriptor, an index) kept opaque to the compiler where it is used,
+// so what is formed from it there is formed there: not hoisted out of the
+// loop around its use, nor shared with an earlier use and kept live (in a
+// register, or spilled) through the loops between them. The 48 descriptors
+// of an fp32 S piece, hoisted out of the piece loop, spilled.
+template <typename T>
+__device__ __forceinline__ T opaque(T x) {
+  if constexpr (sizeof(T) == 8)
+    asm volatile("" : "+l"(x));
+  else
+    asm volatile("" : "+r"(x));
+  return x;
+}
+
+// The descriptor of k8 step kk (0..7) of an fp32 K-major tile of `rows`
+// rows, 64 deep, in 128 B swizzle as two [rows][32] halves (the second rows *
+// 128 B on), from the tile's own (kmajor_desc at step 0): the half of kk /
+// 4, 32 B further along its rows per step. The start address field moves
+// by the step's bytes (every shared-memory address is below 2^18, so the
+// 14-bit field does not carry).
+__device__ __forceinline__ uint64_t desc_step_f32(uint64_t tile_desc, int rows, int kk) {
+  return tile_desc + static_cast<uint64_t>(((kk / 4) * rows * 128 + 32 * (kk % 4)) >> 4);
+}
+
+// the lo copy of `n` raw fp32 values (a multiple of 4, 16 B aligned) into
+// lo at the same offsets, so it keeps the tile's swizzle: lo = x - hi, hi =
+// x with its low 13 bits cleared (exact), by `threads` threads from `tid`.
+// The caller fences the async proxy and syncs the readers before wgmma
+// reads it.
+__device__ __forceinline__ void tf32_lo_copy(const float* raw, float* lo, int n, int tid,
+                                             int threads) {
+  for (int i = 4 * tid; i < n; i += 4 * threads) {
+    const float4 x = *reinterpret_cast<const float4*>(raw + i);
+    unsigned h[4], l[4];
+    split_tf32_rz(x.x, h[0], l[0]);
+    split_tf32_rz(x.y, h[1], l[1]);
+    split_tf32_rz(x.z, h[2], l[2]);
+    split_tf32_rz(x.w, h[3], l[3]);
+    *reinterpret_cast<uint4*>(lo + i) = make_uint4(l[0], l[1], l[2], l[3]);
+  }
+}
+
+// d (+)= A (64 x 8 tf32, K-major, smem) . B (8 x 32, K-major, smem), fp32 sums
+__device__ __forceinline__ void wgmma_tf32_m64n32(float (&d)[16], uint64_t da, uint64_t db,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (+)= A (64 x 8 tf32, registers: the m16n8k8 A fragment of each warp's 16
+// rows) . B (8 x 32, K-major in smem), fp32 sums
+__device__ __forceinline__ void wgmma_tf32_m64n32_rs(float (&d)[16], const unsigned (&a)[4],
+                                                     uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// d (+)= A (64 x 8 tf32, registers) . B (8 x 64, K-major in smem), fp32 sums
+__device__ __forceinline__ void wgmma_tf32_m64n64_rs(float (&d)[32], const unsigned (&a)[4],
+                                                     uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),

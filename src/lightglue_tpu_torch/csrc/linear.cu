@@ -107,27 +107,46 @@
 //   reference's: y = (float(acc) * sa) * scale, rounded to bf16, + the bias
 //   rounded to bf16, + the residual in bf16.
 //
-// The FP32 kernel (linear_tf32_kernel, the fp32 rung) is a pipelined
-// mma.sync GEMM on the tensor cores in 3xTF32: one TF32 product keeps about three
-// decimal digits and misses the fp32 gate of 1e-4, so each operand x is
-// split into hi and lo = x - hi and every product is hi*lo + lo*hi + hi*hi
-// on mma.sync m16n8k8 with fp32 sums (the small terms first, lo*lo
-// dropped), the fp32 model conv's design (conv3x3.cu) with flash_attn.cu's
-// split by truncation (mma.cuh:split_tf32_rz; 1.15x faster whole than the
-// rounding split, scripts/tune_torch_fp32_flash.py).
-// - linear_tile's tile, 4 warps 2 x 2, a 3-buffer cp.async ring; the chunks
-//   are raw fp32, 64 deep in K (eight k8 steps), A rows at a 68-float pitch
-//   and W rows at TN + 8 so that a warp's 32-bit fragment loads (there is
-//   no ldmatrix for 32-bit elements) fall in 32 banks: 56-105 KB a block.
-//   64-deep chunks ran 7 % faster per stack pair than 32-deep ones, and a
-//   tile rule aiming for 128 blocks (larger tiles) no faster
-//   (scripts/tune_torch_fp32_flash.py, PERF.md PR 12).
-// - Each element is split as its fragment loads: per k8 step a warp splits
-//   4 MT A and 2 NT B values against 3 MT NT products.
+// The FP32 kernel (linear_tf32_wgmma_kernel, the fp32 rung) runs the
+// products on wgmma in 3xTF32: one TF32 product keeps about three decimal
+// digits and misses the fp32 gate of 1e-4, so each operand x is split into
+// hi (x with its low 13 bits cleared, mma.cuh:split_tf32_rz) and lo = x -
+// hi, and every product is hi.lo + lo.hi + hi.hi on m64nNk8 with fp32 sums
+// (the small terms first, lo.lo dropped; hopper.cuh).
+// - wgmma reads a tf32 operand in shared memory K-major only, and W is
+//   stored (K, N), its output dimension contiguous. Of the two ways out (a
+//   K-major fp32 copy of every fp32 weight laid out at placement, which
+//   then has to reach the converter, the .pth path, the TP shards and the
+//   exported programs; or the product taken as its transpose), the kernel
+//   takes the second, which leaves every weight as it is: Y^T = W^T . X^T,
+//   W^T as the register-A operand, read from W's TMA tile (two [64 k][32 n]
+//   halves in 128 B swizzle, so a warp's fragment loads meet at most two to
+//   a bank) and split in registers; X, K-major as it lies, is the B operand
+//   as TMA writes it (two [BR][32] halves in 128 B swizzle), with its lo
+//   copy written beside it by the consumer (hopper.cuh:tf32_lo_copy), then
+//   fence.proxy.async.
+// - A tile is 64 output columns (wgmma's M) x BR rows, BR = 64 where one
+//   pair's rows still give WG_FILL blocks, else 32 (tf_tile_rows, the bf16
+//   rule with the roles swapped); one consumer warpgroup (setmaxnreg) and a
+//   producer warpgroup whose one thread streams the 64-deep chunks of A,
+//   then A2, with W's rows by TMA through a ring of slots (48 KB each at
+//   BR = 64, 32 KB at 32): four, a K of 256 in flight at once and one block
+//   an SM, while the launch's blocks fit the SMs, else two at two blocks an
+//   SM (tf_stages: one pair's qkv, 192 blocks, ran 11.4 us a call at two
+//   slots against 17.1 at four, in two waves; the other projections 4-15 %
+//   faster at four, scripts/tune_torch_fp32_wgmma.py); no split-K, so every
+//   output sums in one order at any batch. One chunk's products stay in flight while the
+//   next chunk's W fragments load into a second register set.
+// - The epilogue stores the transpose: accumulator row r is output column
+//   n0 + r, column c output row m0 + c; + bias, + residual in fp32 (the
+//   reference's rounding to T is the identity). A warp's stores cover four
+//   rows of 32 B each.
 // - Bound at 3xTF32: 3 x 0.13-0.54 GFLOP a call at 495 TFLOP/s, 0.8-3.3 us,
 //   above the 0.7-1.6 us of its fp32 bytes.
-// - The epilogue in fp32 (the reference's rounding to T is the identity):
-//   + bias, + residual; ffn1's concat, the residual and liveness as above.
+// - TMA needs a, a2 and w on 16 B with rows of a multiple of 16 B (k1, K -
+//   k1 and N multiples of 4): the wrapper raises on an operand it cannot
+//   address. Liveness, ffn1's two operands and the launch as a
+//   programmatic dependent are linear_wgmma_kernel's.
 //
 // Liveness (transformer_stack_adaptive, wrapper :974, pallas_call :1229):
 // with an exit register (B,) fp32 and the global layer g, a tile whose pair
@@ -159,12 +178,6 @@ __device__ __forceinline__ bool retired(const float* exit_reg, int layer, int ro
   }
   return true;
 }
-
-// the fp32 GEMM's chunk depth, ring, threads and tile rule's block target
-constexpr int MMA_BK = 64;       // K depth of a staged chunk
-constexpr int MMA_STAGES = 3;    // chunk buffers in the ring
-constexpr int MMA_THREADS = 128; // 4 warps, 2 x 2 over the tile
-constexpr int MIN_BLOCKS = 256;  // blocks a tile plan aims for: about two per SM
 
 // ---------------------------------------------------------------------------
 // The bf16-product kernel: a warpgroup on wgmma, fed by a TMA ring
@@ -373,144 +386,189 @@ linear_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
 }
 
 // ---------------------------------------------------------------------------
-// The FP32 kernel: a pipelined mma.sync GEMM in 3xTF32
+// The FP32 kernel: 3xTF32 on wgmma, Y^T = W^T . X^T
 // ---------------------------------------------------------------------------
 
-constexpr int TF32_BK = 64;           // K depth of a staged fp32 chunk: eight k8 steps
-constexpr int TF32_AP = TF32_BK + 4;  // A row pitch (68 floats): a warp's A fragment
-                                      // loads (row g, k t4) fall in 32 banks
+constexpr int TF_BK = 64;      // K depth of a chunk: eight k8 steps, two 128 B atoms of fp32
+// chunk slots of the ring: 4 (a K of 256 in flight at once, one block an
+// SM) while the launch's blocks fit the SMs, else 2 (two blocks an SM)
+constexpr int TF_DEEP = 4, TF_SHALLOW = 2, TF_SMS = 132;
 
-// Y = [A | A2] . W + b (+ R), all fp32: linear_tile's tile, four warps 2 x 2
-// over it and a three-chunk cp.async ring, with raw fp32 chunks and each
-// product in 3xTF32 on m16n8k8
-template <int TM, int TN>
-__global__ void __launch_bounds__(MMA_THREADS)
-linear_tf32_kernel(const float* __restrict__ a, const float* __restrict__ a2, int k1,
-                   const float* __restrict__ w, const float* __restrict__ bias,
-                   const float* __restrict__ res, float* __restrict__ y, int M, int N, int K,
-                   const float* __restrict__ exit_reg, int layer, int rows_per_pair,
-                   int aligned) {
-  constexpr int WP = TN + 8;         // W row pitch: a warp's B loads (k t4, column g) in 32 banks
-  constexpr int MT = TM / 32;        // m16 tiles per warp
-  constexpr int NT = TN / 16;        // n8 tiles per warp
-  constexpr int SA = TF32_BK / 4;    // 16 B segments of an A chunk row
-  constexpr int SW = TN / 4;         // 16 B segments of a W chunk row
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* const as = reinterpret_cast<float*>(smem_raw);  // slot s: as + s * TM * TF32_AP
-  float* const ws = as + MMA_STAGES * TM * TF32_AP;      // slot s: ws + s * TF32_BK * WP
+// A ring slot, bytes: X's chunk as TMA writes it (BR rows of 64 fp32 as two
+// [BR][32] halves in 128 B swizzle), its lo copy in the same layout, and W's
+// chunk (64 k rows of the tile's 64 columns as two [64][32] halves in 128 B
+// swizzle); each part on 1024 B
+template <int BR>
+struct TfSlot {
+  static constexpr int X = BR * TF_BK * 4;
+  static constexpr int W = TF_BK * 64 * 4;
+  static constexpr int BYTES = 2 * X + W;
+  static constexpr int TX = X + W;  // TMA bytes
+};
+// the ring, its barriers, and 1 KB to align the ring to 1024 B
+template <int BR, int STAGES>
+constexpr size_t tf_smem() {
+  return STAGES * (TfSlot<BR>::BYTES + 2 * sizeof(uint64_t)) + 1024;
+}
 
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int wm = warp / 2, wn = warp % 2;  // this warp's quarter of the tile
-  const int g = lane / 4, t4 = lane % 4;   // mma fragment row and column
-  const int m0 = blockIdx.y * TM, n0 = blockIdx.x * TN;
-  const int k2 = K - k1;  // width of the second A operand (0 without one)
-  if (retired(exit_reg, layer, rows_per_pair, m0, n0, TM, TN, M, N, res, y, tid, MMA_THREADS))
+// W^T's A fragments of one 64-deep chunk, split: this thread's rows (output
+// columns) 16 w + g and + 8, k = 8 kk + t4 and + 4, read from W's chunk
+// ([k][n] in two 128 B-swizzled halves: float n % 4 of 16 B unit (n % 32) /
+// 4 ^ k % 8 of row k of half n / 32)
+__device__ __forceinline__ void w_frags(const unsigned char* wt, int warp, int g, int t4,
+                                        unsigned (&wh)[TF_BK / 8][4],
+                                        unsigned (&wl)[TF_BK / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < TF_BK / 8; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int n = 16 * warp + g + 8 * (i & 1), k = 8 * kk + t4 + 4 * (i >> 1);
+      const float x = *reinterpret_cast<const float*>(
+          wt + (n / 32) * TF_BK * 128 + k * 128 + ((((n % 32) / 4) ^ (k % 8)) * 16) + (n % 4) * 4);
+      split_tf32_rz(x, wh[kk][i], wl[kk][i]);
+    }
+  }
+}
+
+// Y = [A | A2] . W + b (+ R), all fp32, for 64 output columns x BR rows,
+// computed as its transpose Y^T = W^T . X^T: W^T is wgmma's register-A
+// operand (a tf32 operand in shared memory is read K-major only, and W is
+// stored (K, N)), loaded from its TMA tile and split in registers; X (the
+// activations, K contiguous) is the K-major B operand as TMA writes it, with
+// its lo copy written by the consumer. Each k8 step is three m64nBRk8
+// products, the small terms first (W_hi.X_lo, W_lo.X_hi, then W_hi.X_hi).
+// A producer warpgroup's one thread streams the chunks of A (na of them),
+// then of A2 (na2), each with W's rows at its K offset, as
+// linear_wgmma_kernel's does; one chunk's products stay in flight while the
+// next chunk's fragments load (two register sets).
+template <int BR, int STAGES>
+__global__ void __launch_bounds__(256, STAGES == TF_SHALLOW ? 2 : 1)
+linear_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
+                         const __grid_constant__ CUtensorMap a2map,
+                         const __grid_constant__ CUtensorMap wmap, int na, int na2, int k1,
+                         const float* __restrict__ bias, const float* __restrict__ res,
+                         float* __restrict__ y, int M, int N, const float* __restrict__ exit_reg,
+                         int layer, int rows_per_pair) {
+  using S = TfSlot<BR>;
+  extern __shared__ __align__(1024) unsigned char wg_raw[];
+  unsigned char* const ring = align1024(wg_raw);
+  uint64_t* const full = reinterpret_cast<uint64_t*>(ring + STAGES * S::BYTES);
+  uint64_t* const empty = full + STAGES;
+  auto slot = [&](int s) { return ring + s * S::BYTES; };
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.y * BR, n0 = blockIdx.x * 64;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 4);  // one arrival per consumer warp
+    }
+    mbar_init_fence();
+  } else if (tid == 128) {
+    tma_prefetch(&amap);
+    if (na2) tma_prefetch(&a2map);
+    tma_prefetch(&wmap);
+  }
+  __syncthreads();
+  wait_prerequisites();  // every operand, the exit register, and y's readers
+  if (retired(exit_reg, layer, rows_per_pair, m0, n0, BR, 64, M, N, res, y, tid, 256)) return;
+
+  const int nk = na + na2;
+  if (tid >= 128) {  // the producer
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (tid == 128) {
+      for (int t = 0; t < nk; ++t) {
+        const int s = t % STAGES;
+        mbar_wait(empty + s, ((t / STAGES) & 1) ^ 1);
+        mbar_expect_tx(full + s, S::TX);
+        const bool first = t < na;
+        const int kc = first ? t * TF_BK : (t - na) * TF_BK;  // column in its operand
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {  // the two 32-float halves of X's and W's chunks
+          tma_load(slot(s) + h * BR * 128, first ? &amap : &a2map, full + s, kc + 32 * h, m0);
+          tma_load(slot(s) + 2 * S::X + h * TF_BK * 128, &wmap, full + s, n0 + 32 * h,
+                   first ? kc : k1 + kc);
+        }
+      }
+    }
     return;
+  }
+  setmaxnreg_inc<CONSUMER_REGS>();
 
-  // chunk kt of A (TM x 64, from a or a2) and W (64 x TN) into slot kt % 3;
-  // rows past M and columns past K are zero
-  auto fetch = [&](int kt) {
-    const int kc = kt * TF32_BK, slot = kt % MMA_STAGES;
-    for (int s = tid; s < TM * SA; s += MMA_THREADS) {
-      const int r = s / SA, c = kc + s % SA * 4, gm = m0 + r;
-      float* d = as + slot * TM * TF32_AP + r * TF32_AP + s % SA * 4;
-      if (gm >= M || c >= K) {
-        *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
-      } else if (aligned) {
-        cp_async16(d, c < k1 ? a + (size_t)gm * k1 + c : a2 + (size_t)gm * k2 + c - k1);
-      } else {
+  const int lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t4 = lane % 4;  // accumulator row and column pair
+  float acc[BR / 2];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = c + e;
-          d[e] = col < k1 ? a[(size_t)gm * k1 + col]
-                          : col < K ? a2[(size_t)gm * k2 + col - k1] : 0.f;
-        }
+  for (int e = 0; e < BR / 2; ++e) acc[e] = 0.f;
+  // chunk t: X's lo copy, W^T's fragments into (wh, wl), its 24 products
+  // committed; then chunk t - 1's are waited for (their fragments, the
+  // previous set, are free again) and its slot released
+  auto chunk = [&](int t, unsigned (&wh)[TF_BK / 8][4], unsigned (&wl)[TF_BK / 8][4],
+                   unsigned (&ph)[TF_BK / 8][4], unsigned (&pl)[TF_BK / 8][4]) {
+    const int s = t % STAGES;
+    mbar_wait(full + s, (t / STAGES) & 1);
+    unsigned char* const xt = slot(s);
+    unsigned char* const xlo = xt + S::X;
+    tf32_lo_copy(reinterpret_cast<float*>(xt), reinterpret_cast<float*>(xlo), BR * TF_BK, tid,
+                 128);
+    fence_proxy_async();  // the copy, written by threads, visible to wgmma
+    bar_sync(1, 128);
+    w_frags(xt + 2 * S::X, warp, g, t4, wh, wl);
+    fence_operand(acc);
+    wgmma_fence();
+    const uint64_t xh = kmajor_desc(xt, 0), xl = kmajor_desc(xlo, 0);
+#pragma unroll
+    for (int kk = 0; kk < TF_BK / 8; ++kk) {
+      if constexpr (BR == 64) {
+        wgmma_tf32_m64n64_rs(acc, wh[kk], desc_step_f32(xl, BR, kk), 1);
+        wgmma_tf32_m64n64_rs(acc, wl[kk], desc_step_f32(xh, BR, kk), 1);
+      } else {
+        wgmma_tf32_m64n32_rs(acc, wh[kk], desc_step_f32(xl, BR, kk), 1);
+        wgmma_tf32_m64n32_rs(acc, wl[kk], desc_step_f32(xh, BR, kk), 1);
       }
     }
-    for (int s = tid; s < TF32_BK * SW; s += MMA_THREADS) {
-      const int r = s / SW, c = s % SW * 4, gk = kc + r;
-      float* d = ws + slot * TF32_BK * WP + r * WP + c;
-      if (gk >= K) {
-        *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
-      } else if (aligned) {
-        cp_async16(d, w + (size_t)gk * N + n0 + c);
-      } else {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) d[e] = w[(size_t)gk * N + n0 + c + e];
-      }
+    for (int kk = 0; kk < TF_BK / 8; ++kk) {
+      if constexpr (BR == 64)
+        wgmma_tf32_m64n64_rs(acc, wh[kk], desc_step_f32(xh, BR, kk), 1);
+      else
+        wgmma_tf32_m64n32_rs(acc, wh[kk], desc_step_f32(xh, BR, kk), 1);
     }
-    cp_async_commit();
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_operand(acc);
+#pragma unroll
+    for (int kk = 0; kk < TF_BK / 8; ++kk) {  // chunk t - 1's A registers are read
+      fence_operand(ph[kk]);
+      fence_operand(pl[kk]);
+    }
+    __syncwarp();
+    if (t > 0 && lane == 0) mbar_arrive(empty + (t - 1) % STAGES);
   };
-
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-      acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
-
-  const int nk = (K + TF32_BK - 1) / TF32_BK;
-#pragma unroll
-  for (int kt = 0; kt < MMA_STAGES - 1; ++kt) {
-    if (kt < nk)
-      fetch(kt);
-    else
-      cp_async_commit();  // an empty group keeps the wait count uniform
+  unsigned wh0[TF_BK / 8][4], wl0[TF_BK / 8][4], wh1[TF_BK / 8][4], wl1[TF_BK / 8][4];
+  for (int t = 0; t < nk; t += 2) {
+    chunk(t, wh0, wl0, wh1, wl1);
+    if (t + 1 < nk) chunk(t + 1, wh1, wl1, wh0, wl0);
   }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<MMA_STAGES - 2>();  // chunk kt has landed
-    __syncthreads();                  // ... for every thread, and chunk kt - 1 is done
-    if (kt + MMA_STAGES - 1 < nk)
-      fetch(kt + MMA_STAGES - 1);  // into the slot of chunk kt - 1
-    else
-      cp_async_commit();
-    const float* at = as + (kt % MMA_STAGES) * TM * TF32_AP + (wm * (TM / 2) + g) * TF32_AP + t4;
-    const float* wt = ws + (kt % MMA_STAGES) * TF32_BK * WP + t4 * WP + wn * (TN / 2) + g;
+  wgmma_wait<0>();
+  fence_operand(acc);
 #pragma unroll
-    for (int ks = 0; ks < TF32_BK / 8; ++ks) {
-      // A: a0 (row g, k t4), a1 (g + 8, t4), a2 (g, t4 + 4), a3 (g + 8, t4 + 4),
-      // each split into (hi, lo) as it loads
-      unsigned ah[MT][4], al[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const float* ar = at + mt * 16 * TF32_AP + ks * 8;
-        split_tf32_rz(ar[0], ah[mt][0], al[mt][0]);
-        split_tf32_rz(ar[8 * TF32_AP], ah[mt][1], al[mt][1]);
-        split_tf32_rz(ar[4], ah[mt][2], al[mt][2]);
-        split_tf32_rz(ar[8 * TF32_AP + 4], ah[mt][3], al[mt][3]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {  // B: b0 (k t4, column g), b1 (k t4 + 4, g)
-        const float* br = wt + ks * 8 * WP + nt * 8;
-        unsigned bh0, bl0, bh1, bl1;
-        split_tf32_rz(br[0], bh0, bl0);
-        split_tf32_rz(br[4 * WP], bh1, bl1);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-          mma_3xtf32(acc[mt][nt], ah[mt], al[mt], bh0, bl0, bh1, bl1);
-      }
-    }
+  for (int kk = 0; kk < TF_BK / 8; ++kk) {
+    fence_operand(wh0[kk]), fence_operand(wl0[kk]);
+    fence_operand(wh1[kk]), fence_operand(wl1[kk]);
   }
 
-  // epilogue in fp32: + bias, + residual
+  // epilogue in fp32 (the reference's rounding to T is the identity): acc
+  // holds Y^T, element e at output column n0 + 16 w + g + 8 ((e / 2) & 1)
+  // and row m0 + 8 (e / 4) + 2 t4 + (e & 1); + bias, + residual
+  const int nc = n0 + 16 * warp + g;
+  const float b[2] = {bias[nc], bias[nc + 8]};
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int gm = m0 + wm * (TM / 2) + mt * 16 + g + 8 * i;
-      if (gm >= M) continue;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int gn = n0 + wn * (TN / 2) + nt * 8 + 2 * t4;
-        float v0 = acc[mt][nt][2 * i] + bias[gn];
-        float v1 = acc[mt][nt][2 * i + 1] + bias[gn + 1];
-        if (res) {
-          v0 += res[(size_t)gm * N + gn];
-          v1 += res[(size_t)gm * N + gn + 1];
-        }
-        store2(y + (size_t)gm * N + gn, v0, v1);
-      }
-    }
+  for (int e = 0; e < BR / 2; ++e) {
+    const int gm = m0 + 8 * (e / 4) + 2 * t4 + (e & 1), gn = nc + 8 * ((e / 2) & 1);
+    if (gm >= M) continue;
+    float v = acc[e] + b[(e / 2) & 1];
+    if (res) v += res[(size_t)gm * N + gn];
+    y[(size_t)gm * N + gn] = v;
   }
 }
 
@@ -777,54 +835,6 @@ linear_s8_kernel(const int8_t* __restrict__ aq, const float* __restrict__ asc,
 // launches
 // ---------------------------------------------------------------------------
 
-// The tensor-core kernels' tile (rows, columns) for an M x N product: 64 x
-// 64 where that gives MIN_BLOCKS blocks, else 64 x 32, else 32 x 32
-// (kernels/layer_stack.py:linear_plan mirrors it)
-void linear_tile(int M, int N, int* tm, int* tn) {
-  const int tiles[3][2] = {{64, 64}, {64, 32}, {32, 32}};
-  for (const auto& t : tiles) {
-    *tm = t[0], *tn = t[1];
-    if ((long long)((M + t[0] - 1) / t[0]) * (N / t[1]) >= MIN_BLOCKS) return;
-  }
-}
-
-// the ring of one fp32 block: MMA_STAGES raw chunks of A and W
-constexpr size_t tf32_ring_smem(int TM, int TN) {
-  return sizeof(float) * MMA_STAGES * (TM * TF32_AP + TF32_BK * (TN + 8));
-}
-
-template <int TM, int TN>
-int launch_tf32(const void* a, const void* a2, int k1, const void* w, const void* bias,
-                const void* res, void* y, int M, int N, int K, const void* exit_reg, int layer,
-                int rows_per_pair, int aligned, cudaStream_t stream) {
-  constexpr size_t smem = tf32_ring_smem(TM, TN);
-  auto kernel = linear_tf32_kernel<TM, TN>;
-  static bool opted_in = smem <= 48 * 1024;  // raised once, not per launch
-  if (!opted_in) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    opted_in = true;
-  }
-  dim3 grid(N / TN, (M + TM - 1) / TM);
-  kernel<<<grid, MMA_THREADS, smem, stream>>>(
-      static_cast<const float*>(a), static_cast<const float*>(a2), k1,
-      static_cast<const float*>(w), static_cast<const float*>(bias),
-      static_cast<const float*>(res), static_cast<float*>(y), M, N, K,
-      static_cast<const float*>(exit_reg), layer, rows_per_pair, aligned);
-  return static_cast<int>(cudaGetLastError());
-}
-
-int run_tf32(const void* a, const void* a2, int k1, const void* w, const void* wscale,
-             const void* bias, const void* res, void* y, int M, int N, int K,
-             const void* exit_reg, int layer, int rows_per_pair, int aligned, cudaStream_t s) {
-  int tm, tn;
-  linear_tile(M, N, &tm, &tn);
-  auto run = tm == 64 ? (tn == 64 ? launch_tf32<64, 64> : launch_tf32<64, 32>)
-                      : launch_tf32<32, 32>;
-  return run(a, a2, k1, w, bias, res, y, M, N, K, exit_reg, layer, rows_per_pair, aligned, s);
-}
-
 // The wgmma GEMM's tile columns for one pair's rows (the batch never
 // changes a tile, so a pair's outputs sum in one order at any batch): 64
 // where one pair's launch still gives WG_FILL blocks, else 32
@@ -834,18 +844,23 @@ int wg_tile_n(int rows_per_pair, int N) {
   return (long long)((rows_per_pair + 63) / 64) * (N / 64) >= WG_FILL ? 64 : 32;
 }
 
-// a (rows, cols) row-major operand of T in boxes of (box_cols, 64 rows): bf16
-// one swizzle atom wide (box_cols * 2 bytes of swizzle), other types as
-// they lie
+// a (rows, cols) row-major operand of T in boxes of (box_cols, box_rows),
+// written to shared memory in `swizzle` bytes of swizzle (0: as they lie)
 template <typename T>
-int matrix_map(CUtensorMap* map, const void* base, int rows, int cols, int box_cols) {
+int matrix_map(CUtensorMap* map, const void* base, int rows, int cols, int box_cols,
+               int box_rows, int swizzle) {
   const long long pitch = (long long)sizeof(T) * cols;
   if (!tma_aligned(base, pitch)) return static_cast<int>(cudaErrorInvalidValue);
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)pitch};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, 64};
-  return tma_map(map, base, tma_type<T>(), 2, dims, strides, box,
-                 sizeof(T) == 2 ? 2 * box_cols : 0);
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  return tma_map(map, base, tma_type<T>(), 2, dims, strides, box, swizzle);
+}
+// ... in boxes of (box_cols, 64 rows): bf16 one swizzle atom wide (box_cols
+// * 2 bytes of swizzle), other types as they lie
+template <typename T>
+int matrix_map(CUtensorMap* map, const void* base, int rows, int cols, int box_cols) {
+  return matrix_map<T>(map, base, rows, cols, box_cols, 64, sizeof(T) == 2 ? 2 * box_cols : 0);
 }
 
 template <int BN, typename TA, typename TW, typename TB, typename TO>
@@ -880,6 +895,52 @@ int run_wgmma(const void* a, const void* a2, int k1, const void* w, const void* 
   auto run = wg_tile_n(rows_per_pair, N) == 64 ? launch_wgmma<64, TA, TW, TB, TO>
                                                : launch_wgmma<32, TA, TW, TB, TO>;
   return run(a, a2, k1, w, wscale, bias, res, y, M, N, K, exit_reg, layer, rows_per_pair, s);
+}
+
+// The fp32 GEMM's tile rows for one pair's rows (its 64 output columns are
+// wgmma's M): 64 where one pair's launch still gives WG_FILL blocks, else
+// 32, wg_tile_n's rule with the roles swapped (kernels/layer_stack.py:
+// linear_plan mirrors it). At 1024 rows qkv, ffn1 and qk_v take 64 (128-192
+// blocks), out and ffn2 (N = 256) 32 (128).
+int tf_tile_rows(int rows_per_pair, int N) { return wg_tile_n(rows_per_pair, N); }
+// its ring's slots: TF_DEEP while the launch's blocks fit the SMs, else
+// TF_SHALLOW at two blocks an SM (the slots never change a sum's order)
+int tf_stages(int M, int N, int BR) {
+  return (long long)((M + BR - 1) / BR) * (N / 64) <= TF_SMS ? TF_DEEP : TF_SHALLOW;
+}
+
+template <int BR, int STAGES>
+int launch_tf32(const void* a, const void* a2, int k1, const void* w, const void* bias,
+                const void* res, void* y, int M, int N, int K, const void* exit_reg, int layer,
+                int rows_per_pair, cudaStream_t stream) {
+  constexpr size_t smem = tf_smem<BR, STAGES>();
+  auto kernel = linear_tf32_wgmma_kernel<BR, STAGES>;
+  static const cudaError_t opt_in = cudaFuncSetAttribute(  // above 48 KB: opt in once
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
+  const int k2 = K - k1;
+  CUtensorMap am, a2m, wm;  // 32-float boxes (one 128 B atom) in 128 B swizzle
+  const int errs[3] = {matrix_map<float>(&am, a, M, k1, 32, BR, 128),
+                       k2 ? matrix_map<float>(&a2m, a2, M, k2, 32, BR, 128) : 0,
+                       matrix_map<float>(&wm, w, K, N, 32, TF_BK, 128)};
+  for (const int err : errs)
+    if (err) return err;
+  if (!k2) a2m = am;  // never read
+  return static_cast<int>(launch_dependent(
+      kernel, dim3(N / 64, (M + BR - 1) / BR), 256, smem, stream, WG_PDL, am, a2m, wm,
+      (k1 + TF_BK - 1) / TF_BK, (k2 + TF_BK - 1) / TF_BK, k1, static_cast<const float*>(bias),
+      static_cast<const float*>(res), static_cast<float*>(y), M, N,
+      static_cast<const float*>(exit_reg), layer, rows_per_pair));
+}
+
+int run_tf32(const void* a, const void* a2, int k1, const void* w, const void*,
+             const void* bias, const void* res, void* y, int M, int N, int K,
+             const void* exit_reg, int layer, int rows_per_pair, int, cudaStream_t s) {
+  const int br = tf_tile_rows(rows_per_pair, N);
+  auto run = tf_stages(M, N, br) == TF_DEEP
+                 ? (br == 64 ? launch_tf32<64, TF_DEEP> : launch_tf32<32, TF_DEEP>)
+                 : (br == 64 ? launch_tf32<64, TF_SHALLOW> : launch_tf32<32, TF_SHALLOW>);
+  return run(a, a2, k1, w, bias, res, y, M, N, K, exit_reg, layer, rows_per_pair, s);
 }
 
 // The s8 GEMM's warp tiles (along M, along N; 32 x 32 outputs each) for an
@@ -923,16 +984,16 @@ enum Mode { FP32 = 0, BF16 = 1, MIXED = 2, MIXED_BF16_OUT = 3, INT8_WEIGHTS = 4 
 
 // a: (M, k1); a2: (M, K - k1) or null with k1 == K; w: (K, N); wscale:
 // (N,) fp32 for int8 weights, else null; bias: (N,); res: (M, N) or null;
-// y: (M, N). N % 64 == 0, K % 16 == 0. mode: FP32 (all fp32, the FMA
-// kernel), BF16 (all bf16), MIXED (fp32 a, a2, bias, res and y, bf16 w),
-// MIXED_BF16_OUT (as MIXED with a bf16 y, no residual), INT8_WEIGHTS (bf16
-// a, a2, res and y, int8 w with wscale, fp32 bias). exit_reg: (B,) fp32 or
-// null; layer: the global layer index; the rows of pair b are
-// [b * rows_per_pair, (b + 1) * rows_per_pair) (M itself for a product of
-// no pairs). BF16, MIXED and INT8 run linear_wgmma_kernel at wg_tile_n's
-// tile (a, a2 and w on 16 B, their rows of a multiple of 16 B: TMA
-// addresses them; else cudaErrorInvalidValue), FP32 linear_tf32_kernel at
-// linear_tile's tile.
+// y: (M, N). N % 64 == 0, K % 16 == 0. mode: FP32 (all fp32, 3xTF32), BF16
+// (all bf16), MIXED (fp32 a, a2, bias, res and y, bf16 w), MIXED_BF16_OUT
+// (as MIXED with a bf16 y, no residual), INT8_WEIGHTS (bf16 a, a2, res and
+// y, int8 w with wscale, fp32 bias). exit_reg: (B,) fp32 or null; layer:
+// the global layer index; the rows of pair b are [b * rows_per_pair, (b +
+// 1) * rows_per_pair) (M itself for a product of no pairs). BF16, MIXED and
+// INT8 run linear_wgmma_kernel at wg_tile_n's tile, FP32
+// linear_tf32_wgmma_kernel at tf_tile_rows' (a, a2 and w on 16 B, their
+// rows of a multiple of 16 B: TMA addresses them; else
+// cudaErrorInvalidValue).
 extern "C" int lg_linear(const void* a, const void* a2, int k1, const void* w,
                          const void* wscale, const void* bias, const void* res, void* y, int M,
                          int N, int K, const void* exit_reg, int layer, int rows_per_pair,
@@ -945,9 +1006,7 @@ extern "C" int lg_linear(const void* a, const void* a2, int k1, const void* w,
              : mode == INT8_WEIGHTS && wscale ? run_wgmma<bf16_t, int8_t, float, bf16_t>
                                               : nullptr;
   if (!run) return static_cast<int>(cudaErrorInvalidValue);
-  const int aligned = on16(a) && on16(a2) && on16(w) && k1 % 8 == 0 && (K - k1) % 8 == 0;
-  return run(a, a2, k1, w, wscale, bias, res, y, M, N, K, exit_reg, layer, rows_per_pair,
-             aligned, s);
+  return run(a, a2, k1, w, wscale, bias, res, y, M, N, K, exit_reg, layer, rows_per_pair, 0, s);
 }
 
 // W8A8, step 1: a (M, k1) and a2 (M, K - k1) bf16 (a2 null with k1 == K),
@@ -996,8 +1055,9 @@ extern "C" int lg_s8_plan(int M, int N, int K, int* plan) {
 
 // lg_linear's launch at this shape in this mode into plan[0..4]: the tile's
 // rows and columns, the ring's chunk slots, the block's dynamic shared memory
-// in bytes, and 1 where the kernel is linear_wgmma_kernel (BF16), 0 for the
-// mma.sync kernels (the wrapper's linear_plan is held against it)
+// in bytes, and 1 where the kernel is linear_wgmma_kernel (BF16, MIXED,
+// INT8), 0 for linear_tf32_wgmma_kernel (FP32) (the wrapper's linear_plan is
+// held against it)
 extern "C" int lg_linear_plan(int M, int N, int rows_per_pair, int mode, int* plan) {
   if (mode != FP32) {
     const int tn = wg_tile_n(rows_per_pair, N);
@@ -1008,10 +1068,12 @@ extern "C" int lg_linear_plan(int M, int N, int rows_per_pair, int mode, int* pl
     plan[3] = static_cast<int>(smem), plan[4] = 1;
     return 0;
   }
-  int tm, tn;
-  linear_tile(M, N, &tm, &tn);
-  plan[0] = tm, plan[1] = tn, plan[2] = MMA_STAGES;
-  plan[3] = static_cast<int>(tf32_ring_smem(tm, tn));
+  const int br = tf_tile_rows(rows_per_pair, N), stages = tf_stages(M, N, br);
+  plan[0] = br, plan[1] = 64, plan[2] = stages;
+  plan[3] = static_cast<int>(stages == TF_DEEP ? (br == 64 ? tf_smem<64, TF_DEEP>()
+                                                          : tf_smem<32, TF_DEEP>())
+                                               : (br == 64 ? tf_smem<64, TF_SHALLOW>()
+                                                           : tf_smem<32, TF_SHALLOW>()));
   plan[4] = 0;
   return 0;
 }

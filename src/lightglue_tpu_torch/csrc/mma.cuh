@@ -15,9 +15,10 @@
 //   m16n8k32 with s8 operands and s32 sums (linear.cu's W8A8 GEMM);
 //   mma.sync m16n8k8 with tf32 operands and the 3xTF32 split of an fp32
 //   value, rounded (the fp32 model conv) or truncated (the generic fp32
-//   conv, the fp32 chain and the fp32 kernels of flash_attn.cu,
-//   attention.cu, bidir_cross.cu and linear.cu);
-// - the 3xTF32 attention block of those three attention kernels: Q split
+//   conv, the fp32 chain, the fp32 kernels of attention.cu and
+//   bidir_cross.cu; the split also feeds the wgmma fp32 kernels of
+//   flash_attn.cu and linear.cu, hopper.cuh);
+// - the 3xTF32 attention block of those two attention kernels: Q split
 //   once into fragments (tf32_q_frags), S over a chunk (tf32_scores), P.V
 //   from the S accumulator (tf32_pv), the split warps' meeting in shared
 //   memory (meet_max, meet_sums);
@@ -215,7 +216,8 @@ __device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) 
 // mma.sync reads the top 19 bits of a .tf32 operand, so lo loses at most
 // its low bits in the product, ~2^-21 of x (the rounding split's ~2^-23),
 // for two integer/float instructions where each cvt.rna takes several
-// (flash_attn.cu's and linear.cu's fp32 kernels: 1.1-1.4x faster by shape)
+// (1.1-1.4x faster by shape in the mma.sync fp32 flash and linear kernels
+// that flash_attn.cu's and linear.cu's wgmma kernels replaced)
 __device__ __forceinline__ void split_tf32_rz(float x, unsigned& hi, unsigned& lo) {
   hi = __float_as_uint(x) & 0xffffe000u;
   lo = __float_as_uint(x - __uint_as_float(hi));
@@ -245,8 +247,8 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4], const unsigned (&ah)[4
 }
 
 // ---------------------------------------------------------------------------
-// The 3xTF32 attention block (flash_attn.cu:flash_tf32_kernel,
-// attention.cu:attention_tf32_kernel, bidir_cross.cu:bidir_tf32_kernel): a
+// The 3xTF32 attention block (attention.cu:attention_tf32_kernel,
+// bidir_cross.cu:bidir_tf32_kernel): a
 // warp owns 16 query rows; g = lane / 4, t4 = lane % 4 as in mma_tf32
 // ---------------------------------------------------------------------------
 

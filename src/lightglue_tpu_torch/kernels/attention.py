@@ -7,11 +7,11 @@ Counterpart of ``lightglue_tpu/kernels/attention.py``:
   (B, N, H*D) activation layout with optional half-split RoPE and in the
   (B, H, N, D) layout without. Both run ``csrc/flash_attn.cu``, one
   design addressed by strides, at the launch plan of ``flash_plan`` (with
-  RoPE, q and k rotated once into a scratch first): bf16 operands on
+  RoPE, q and k rotated once into a scratch first): both operand types on
   Hopper's warpgroup MMA (``wgmma``) fed by TMA rings, which need 16 B
-  bases and strides (the wrappers raise on others); fp32 operands on the
-  tensor cores in 3xTF32 (each operand split into two TF32 parts, three
-  ``mma.sync`` m16n8k8 products a product).
+  bases and strides (the wrappers raise on others), fp32 operands in
+  3xTF32 (each operand split into two TF32 parts, three products a
+  product).
 - ``flash_attention_step`` (:422, pallas_call :507): the same tile loop
   from running (m, l, acc) carries over one KV block at global offsets,
   carries out, the local step of ring attention; the STEP instantiation of
@@ -58,81 +58,86 @@ HEAD_DIM = 64  # the kernels' head width
 _NEG_INF = -1e30
 _SMS = 132            # streaming multiprocessors of the H100
 _BIDIR_FILL_BLOCKS = 128  # csrc/bidir_cross.cu: the blocks its row-group rule aims for
-# csrc/flash_attn.cu, the bf16 kernel: consumer warpgroups a block, ring
-# slots a warpgroup, the longest block_k whose s pass 1 keeps
+# csrc/flash_attn.cu: consumer warpgroups a block, ring slots a warpgroup
+# (bf16, fp32), the longest block_k whose s pass 1 keeps (bf16), keys of an
+# fp32 ring slot
 _FLASH_WGS, _FLASH_STAGES, _FLASH_MAX_STORED_K = 4, 2, 1024
+_FLASH_F32_STAGES, _FLASH_PIECE = 1, 32
 
 
 class FlashPlan(NamedTuple):
     """Launch of a ``flash_attn.cu`` kernel for one shape."""
 
-    row_groups: int  # 16-row groups per block: 4, 2 or 1 (bf16: 4, one 64-row tile)
-    col_split: int   # warps (fp32) or consumer warpgroups (bf16) splitting each tile's chunks
-    stages: int      # K and V chunk buffers (fp32) or ring slots of a warpgroup (bf16)
+    row_groups: int  # 16-row groups per block: 4, one 64-row tile
+    col_split: int   # consumer warpgroups splitting each tile's chunks
+    stages: int      # ring slots of a consumer warpgroup
     blocks: int      # blocks of the launch
     smem: int        # dynamic shared memory per block, bytes
-    cluster: bool    # bf16: a cluster of two blocks a tile (else one block)
+    cluster: bool    # a cluster of two blocks a tile (else one block)
     store: bool      # bf16: pass 1 keeps its rounded s for pass 2 (else pass 2 recomputes S)
     kernel: str      # the kernel the launch runs
 
 
 def flash_split(heads: int, nq: int) -> int:
-    """Consumer warpgroups that split a 64-row tile's chunks in the bf16
-    kernel: 8 where one batch entry's tiles, two blocks each, fit the card's
+    """Consumer warpgroups that split a 64-row tile's chunks: 8 where one batch entry's tiles, two blocks each, fit the card's
     SMs, else 4 (2048 rows at four heads already give 128 tiles). It reads
     one entry's shape, never the batch: the split orders a row's fp32 sums
     (csrc/flash_attn.cu:flash_split)."""
     return 8 if 2 * heads * -(-nq // 64) <= _SMS else 4
 
 
-def flash_wgmma_smem(store: bool, cluster: bool) -> int:
-    """Dynamic shared memory of a block of the bf16 kernel
-    (csrc/flash_attn.cu:Smem): Q (64 x 64 bf16); each consumer warpgroup's
-    region, its ring of two slots (K, then V with ``store``; K and V in one
-    slot without) and its chunks' s of a tile of up to 1024 keys (``store``),
-    where its P.V partial goes after pass 2, or room for that partial (64 x
-    64 fp32); the block's rows of acc and l (fp32); the warpgroups' partial
-    row max and sum p; the block's row max, each row's correction and max;
-    the barriers; 1 KB to align the tiles to 1024 B. A ``cluster`` of two
-    blocks holds half the stored chunks and half the rows a block."""
-    tile, ways = 2 * 64 * HEAD_DIM, 2 if cluster else 1
-    kept = _FLASH_MAX_STORED_K // 64 // (_FLASH_WGS * ways)  # stored chunks of a warpgroup
-    region = (_FLASH_STAGES * (tile if store else 2 * tile)
-              + (kept * tile if store else 4 * 64 * HEAD_DIM))
-    return (tile + region * _FLASH_WGS + 4 * 64 // ways * (HEAD_DIM + 1)
-            + 2 * 4 * _FLASH_WGS * 64 + 3 * 4 * 64 + 8 * (1 + 2 * _FLASH_WGS * _FLASH_STAGES)
-            + 1024)
+def flash_wgmma_smem(store: bool, cluster: bool, dtype=torch.bfloat16) -> int:
+    """Dynamic shared memory of a block of either kernel
+    (csrc/flash_attn.cu:Smem). bf16: Q (64 x 64 bf16); each consumer
+    warpgroup's region, its ring of two slots (K, then V with ``store``; K
+    and V in one slot without) and its chunks' s of a tile of up to 1024
+    keys (``store``), where its P.V partial goes after pass 2, or room for
+    that partial (64 x 64 fp32). fp32: Q and its lo copy (64 x 64 fp32
+    each); each region one slot of a 32-key piece of K and of V, then K's
+    lo copy and V's piece transposed, hi and lo (32 x 64 fp32 each), where
+    the P.V partial goes. Then the block's rows of acc and l (fp32); the
+    warpgroups' partial row max and sum p; the block's row max, each row's
+    correction and max; the barriers; 1 KB to align the tiles to 1024 B. A
+    ``cluster`` of two blocks holds half the stored chunks and half the
+    rows a block."""
+    ways = 2 if cluster else 1
+    if dtype == torch.float32:
+        piece, stages = 4 * _FLASH_PIECE * HEAD_DIM, _FLASH_F32_STAGES
+        q, region = 2 * 4 * 64 * HEAD_DIM, stages * 2 * piece + 3 * piece
+    else:
+        tile, stages = 2 * 64 * HEAD_DIM, _FLASH_STAGES
+        kept = _FLASH_MAX_STORED_K // 64 // (_FLASH_WGS * ways)  # stored chunks of a warpgroup
+        q, region = tile, (stages * (tile if store else 2 * tile)
+                           + (kept * tile if store else 4 * 64 * HEAD_DIM))
+    return (q + region * _FLASH_WGS + 4 * 64 // ways * (HEAD_DIM + 1)
+            + 2 * 4 * _FLASH_WGS * 64 + 3 * 4 * 64 + 8 * (1 + 2 * _FLASH_WGS * stages) + 1024)
 
 
 def flash_plan(batch: int, heads: int, nq: int, block_k: int, dtype=torch.bfloat16,
                stat_dtype=None) -> FlashPlan:
     """The kernel's launch for one shape, ``dtype`` operands at
     ``stat_dtype`` statistics (default: ``dtype``)
-    (csrc/flash_attn.cu:lg_flash_plan).
-
-    bf16 operands: ``flash_wgmma_kernel``, a 64-row tile of a head per block
+    (csrc/flash_attn.cu:lg_flash_plan): a 64-row tile of a head per block
     or cluster, ``flash_split`` consumer warpgroups taking each ``block_k``
-    tile's 64-key chunks in turn, fed by TMA rings of two slots. A split of
-    8 runs as a cluster of two blocks (four consumers each) while the
+    tile's 64-key chunks in turn, fed by TMA rings.
+
+    bf16 operands: ``flash_wgmma_kernel``, rings of two slots. A split of 8
+    runs as a cluster of two blocks (four consumers each) while the
     launch's blocks fit the card's SMs, else as one block whose warpgroups
     run two consumers each: the same sums either way, so the batch picks
     only the form. At bf16 statistics and ``block_k`` <= 1024 pass 1 keeps
     its rounded s in shared memory and pass 2 reads it back instead of
-    recomputing S. fp32 operands: ``flash_tf32_kernel``, its blocks
-    ``layer_stack.batch_row_groups``' (the most 16-row groups per four-warp
-    block, 4, 2, 1, that still give one batch entry 256 blocks, whose warps
-    split each 64-key chunk ``4 / row_groups`` ways; two or four times those
-    groups a block where the batch's launch still gives 256 blocks), fp32
-    chunks streamed through ``_STREAM_STAGES`` buffers (``tf32_smem``, which
-    does not grow with ``block_k``)."""
-    if dtype == torch.float32:
-        groups, split = batch_row_groups(batch, heads, nq)
-        return FlashPlan(groups, split, _STREAM_STAGES,
-                         batch * heads * -(-nq // (16 * groups)),
-                         tf32_smem(groups, _STREAM_STAGES, split), False, False,
-                         "flash_tf32_kernel")
+    recomputing S. fp32 operands: ``flash_tf32_wgmma_kernel`` (3xTF32),
+    rings of one slot of a 32-key piece; a split of 8 is always a cluster
+    of two blocks, and pass 2 always recomputes S (its shared memory does
+    not grow with ``block_k``)."""
     split = flash_split(heads, nq)
     tiles = batch * heads * -(-nq // 64)
+    if dtype == torch.float32:
+        cluster = split == 8
+        return FlashPlan(4, split, _FLASH_F32_STAGES, tiles * (2 if cluster else 1),
+                         flash_wgmma_smem(False, cluster, dtype), cluster, False,
+                         "flash_tf32_wgmma_kernel")
     cluster = split == 8 and 2 * tiles <= _SMS
     store = (stat_dtype or dtype) == torch.bfloat16 and block_k <= _FLASH_MAX_STORED_K
     return FlashPlan(4, split, _FLASH_STAGES, tiles * (2 if cluster else 1),
@@ -150,7 +155,7 @@ def _flash_launch(name: str, dtype, batch: int, heads: int, nq: int, block_k: in
 
 
 def _check_tma_rows(name: str, *tensors) -> None:
-    """Raise where TMA cannot address a bf16 operand of the bf16 kernel: a
+    """Raise where TMA cannot address an operand of the flash kernels: a
     16 B base, a row stride (the next-to-last) of a multiple of 16 B, and
     so every other stride but the last, where its dimension is not 1."""
     for t in tensors:
@@ -373,8 +378,7 @@ def _fused_mha_cuda(q, k, v, freqs, lengths, num_heads, scale, stat_dtype, out_d
     batch, nq, nk, head_dim, block_k = _fused_mha_shapes(q, k, v, freqs, num_heads,
                                                          block_q, block_k)
     mode = _card_checks("fused_mha", q.dtype, out_dtype, stat_dtype, head_dim, (q, k, v))
-    if mode != 0:  # the bf16 kernel reads q, k and v (or the rotated q and k) through TMA
-        _check_tma_rows("fused_mha", q, k, v)
+    _check_tma_rows("fused_mha", q, k, v)  # both kernels read them through TMA
     plan = _flash_launch("fused_mha", q.dtype, batch, num_heads, nq, block_k, stat_dtype)
     if freqs is not None:
         if freqs.shape != (batch, 2, nk, HEAD_DIM):
@@ -466,8 +470,7 @@ def _flash_attention_cuda(q, k, v, lengths, scale, stat_dtype, out_dtype, block_
     """``flash_attention``'s CUDA implementation: checks, then one launch."""
     batch, heads, nq, nk, head_dim, block_k = _flash_shapes(q, k, v, block_q, block_k)
     mode = _card_checks("flash_attention", q.dtype, out_dtype, stat_dtype, head_dim, (q, k, v))
-    if mode != 0:  # the bf16 kernel reads q, k and v through TMA
-        _check_tma_rows("flash_attention", q, k, v)
+    _check_tma_rows("flash_attention", q, k, v)  # both kernels read them through TMA
     plan = _flash_launch("flash_attention", q.dtype, batch, heads, nq, block_k, stat_dtype)
     lengths = _lengths_arg(lengths, batch, q.device)
     out = torch.empty((batch, heads, nq, head_dim), dtype=out_dtype or q.dtype, device=q.device)
@@ -584,8 +587,7 @@ def _step_cuda(q, k, v, m, l, acc, lengths, row0, col0, scale, stat_dtype, block
     batch, heads, n, nk, head_dim, block_q, block_k = _step_shapes(q, k, v, m, l, acc,
                                                                    block_q, block_k)
     mode = _card_checks("flash_attention_step", q.dtype, None, stat_dtype, head_dim, (q, k, v))
-    if mode != 0:  # the bf16 kernel reads q, k and v through TMA
-        _check_tma_rows("flash_attention_step", q, k, v)
+    _check_tma_rows("flash_attention_step", q, k, v)  # both kernels read them through TMA
     plan = _flash_launch("flash_attention_step", q.dtype, batch, heads, n, block_k, stat_dtype)
     for t in (m, l, acc):
         if t.dtype != torch.float32 or t.device != q.device or not t.is_contiguous():

@@ -41,11 +41,13 @@ loop over the layers launches, per layer and image, the kernels of
   launch whose blocks each take a slice of one pair's rows
   (``decide_plan``) and meet in a per-device scratch.
 
-fp32 operands (the FP32 rung): ``linear.cu`` and ``attention.cu`` run the
-same designs on the tensor cores in 3xTF32 (each operand split into two
-TF32 parts, three ``mma.sync`` m16n8k8 products; one TF32 product would
-miss the rung's 1e-4 gate), ``linear`` at ``linear_plan``'s fp32 ring,
-``attention`` with fp32 chunks at ``tf32_smem``.
+fp32 operands (the FP32 rung) run on the tensor cores in 3xTF32 (each
+operand split into two TF32 parts, three products a product; one TF32
+product would miss the rung's 1e-4 gate): ``linear`` on Hopper's warpgroup
+MMA as the transposed product Y^T = W^T . X^T (a tf32 operand in shared
+memory is read K-major only, and the weights are stored (K, N)) at
+``linear_plan``'s fp32 tile, ``attention`` on ``mma.sync`` m16n8k8 with
+fp32 chunks at ``tf32_smem``.
 
 Every rung of the precision ladder runs on the card (``_LINEAR_MODES`` and
 ``_ATTENTION_MODES`` list the operand types each kernel takes):
@@ -97,14 +99,14 @@ _DEAD = _NEG_INF * 0.5  # all-masked-row clamp (layer_stack.py:276-292)
 # launch aims for, K and V chunk buffers of a streamed tile (every fp32 tile)
 _KC, _WARPS, _LD, _FP, _RS = 64, 4, HEAD_DIM + 8, HEAD_DIM + 4, 2 + HEAD_DIM + 8
 _FILL_BLOCKS, _STREAM_STAGES = 256, 2
-# csrc/linear.cu: the fp32 (3xTF32) GEMM's K chunk, ring buffers, candidate
-# tiles in order of preference and the blocks its tile plan aims for (two
-# per SM); the wgmma GEMM's (BF16, MIXED, INT8) K chunk, ring slots, tile
-# columns in order of preference and the blocks one pair's tile rule aims
-# for (one per SM)
-_LIN_STAGES, _LIN_TILES, _LIN_MIN_BLOCKS = 3, ((64, 64), (64, 32), (32, 32)), 256
-_LIN_TF32_BK = 64
+# csrc/linear.cu: the wgmma GEMM's (BF16, MIXED, INT8) K chunk, ring slots,
+# tile columns in order of preference and the blocks one pair's tile rule
+# aims for (one per SM); the fp32 (3xTF32) wgmma GEMM's ring slots (its
+# chunk is as deep, its tile rows follow the same rule)
 _WG_BK, _WG_STAGES, _WG_TILE_N, _WG_FILL = 64, 4, (64, 32), 128
+# csrc/linear.cu: the fp32 GEMM's ring slots while its launch fits the SMs
+# (one block an SM), else (two an SM)
+_TF_DEEP, _TF_SHALLOW, _TF_SMS = 4, 2, 132
 # csrc/attention.cu: the bf16 kernel's consumers splitting each row's
 # chunks, consumer warpgroups a block, ring slots per warpgroup, the SMs
 # that clusters of two blocks a tile must fit (else one block a tile)
@@ -241,7 +243,7 @@ class LinearPlan(NamedTuple):
     bn: int      # tile columns
     bk: int      # K depth of a staged chunk
     chunks: int  # K chunks a block runs through
-    stages: int  # chunk slots in the ring (TMA's, or cp.async's)
+    stages: int  # chunk slots of the TMA ring
     blocks: int  # blocks of the launch
     smem: int    # dynamic shared memory per block, bytes
     kernel: str  # the kernel the launch runs
@@ -259,13 +261,16 @@ def linear_plan(m: int, n: int, k: int, dtype=torch.bfloat16, weight_dtype=None,
     batch never changes a tile), K in 64-deep TMA chunks through a ring of
     four slots (an A chunk and a W chunk each, with the bf16 copy of MIXED's
     fp32 A or of INT8's dequantized W: csrc/linear.cu:WgSlot). FP32:
-    ``linear_tf32_kernel`` at 64 x 64 where that gives 256 blocks, else
-    64 x 32, else 32 x 32 (linear_tile), with a ring of three raw fp32
-    chunks 64 deep, A rows padded by 4 and W rows by 8 (tf32_ring_smem)."""
+    ``linear_tf32_wgmma_kernel``, the transposed product on wgmma in
+    3xTF32: tiles of 64 output columns by 64 rows where one pair's rows
+    still give 128 blocks, else 32 rows (tf_tile_rows), K in 64-deep TMA
+    chunks through a ring of four slots while the launch's blocks fit the
+    card's 132 SMs, else two (tf_stages; a slot: X's chunk, its lo copy and
+    W's chunk, all fp32: csrc/linear.cu:TfSlot)."""
     weight_dtype = weight_dtype or dtype
+    pair = -(-(rows or m) // 64)
+    bn = next((t for t in _WG_TILE_N if pair * (n // t) >= _WG_FILL), _WG_TILE_N[-1])
     if (dtype, weight_dtype) != (torch.float32, torch.float32):
-        pair = -(-(rows or m) // 64)
-        bn = next((t for t in _WG_TILE_N if pair * (n // t) >= _WG_FILL), _WG_TILE_N[-1])
         # a slot: A as TMA writes it (and fp32 A's bf16 copy), W as TMA writes
         # it (and int8 W's dequantized bf16 copy)
         a_bytes = 64 * _WG_BK * (4 + 2 if dtype == torch.float32 else 2)
@@ -273,14 +278,12 @@ def linear_plan(m: int, n: int, k: int, dtype=torch.bfloat16, weight_dtype=None,
         smem = _WG_STAGES * (a_bytes + w_bytes + 16) + 1024
         return LinearPlan(64, bn, _WG_BK, -(-k // _WG_BK), _WG_STAGES, -(-m // 64) * (n // bn),
                           smem, "linear_wgmma_kernel")
-    for bm, bn in _LIN_TILES:
-        blocks = -(-m // bm) * (n // bn)
-        if blocks >= _LIN_MIN_BLOCKS:
-            break
-    bk = _LIN_TF32_BK
-    smem = 4 * _LIN_STAGES * (bm * (bk + 4) + bk * (bn + 8))
-    kernel = "linear_tf32_kernel"
-    return LinearPlan(bm, bn, bk, -(-k // bk), _LIN_STAGES, blocks, smem, kernel)
+    bm = bn  # the rows of an fp32 tile (64 output columns): the bf16 rule, roles swapped
+    blocks = -(-m // bm) * (n // 64)
+    stages = _TF_DEEP if blocks <= _TF_SMS else _TF_SHALLOW
+    smem = stages * (2 * 4 * bm * _WG_BK + 4 * _WG_BK * 64 + 16) + 1024
+    return LinearPlan(bm, 64, _WG_BK, -(-k // _WG_BK), stages, blocks, smem,
+                      "linear_tf32_wgmma_kernel")
 
 
 class S8Plan(NamedTuple):
@@ -549,7 +552,7 @@ def _linear_cuda(a, w, b, a2, residual, live_exit, live_layer, scale, out_dtype,
                                   f"{list(_LINEAR_MODES)})")
     if any(t is not None and (t.dtype != a.dtype or t.device != a.device) for t in (a2, residual)):
         raise NotImplementedError("linear: a2 and the residual share a's dtype and device")
-    if not w8a8 and mode != 0:  # the wgmma GEMM reads a, a2 and w through TMA
+    if not w8a8:  # both wgmma GEMMs read a, a2 and w through TMA
         _check_tma("linear", (a, k1), (a2, k - k1), (w, n))
     y = torch.empty((*lead, n), dtype=out_dtype, device=a.device)
     if w8a8:

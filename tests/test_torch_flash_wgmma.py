@@ -1,6 +1,7 @@
 """The launch of csrc/flash_attn.cu's bf16 kernel (flash_wgmma_kernel) as
 kernels/attention.py:flash_plan mirrors it, and the wrappers' refusal of
-operands that TMA cannot address. No card needed: the plan is arithmetic,
+bf16 operands that TMA cannot address (tests/test_torch_fp32_wgmma.py holds
+the fp32 kernel's). No card needed: the plan is arithmetic,
 and meta tensors carry the offsets to the wrappers' checks."""
 
 import pytest
@@ -77,9 +78,10 @@ def test_stored_s_or_recompute(block_k, stats):
     plan = attention.flash_plan(1, 4, nk, block_k, BF16, STATS[stats])
     assert plan.store == (stats == "bf16 stats" and block_k <= 1024)
     assert plan.smem == _smem(plan.store, plan.cluster) <= _build.MAX_DYNAMIC_SMEM
-    # the fp32 kernel never stores, and its block does not grow with block_k
+    # the fp32 kernel never stores (a split of 8 is its cluster form), and
+    # its block does not grow with block_k
     fp32 = attention.flash_plan(1, 4, nk, block_k, torch.float32, STATS[stats])
-    assert not fp32.store and not fp32.cluster
+    assert not fp32.store and fp32.cluster == (fp32.col_split == 8)
     assert fp32.smem == attention.flash_plan(1, 4, nk, 64, torch.float32).smem
 
 

@@ -1,10 +1,13 @@
 """The FP32 rung's 3xTF32 kernels on the CPU: csrc/flash_attn.cu's
-flash_tf32_kernel (fused_mha, flash_attention, flash_attention_step at fp32
-operands) and csrc/linear.cu's linear_tf32_kernel. The premise of 3xTF32 at
-the attention and linear shapes, emulated; the fragment addressing of both
-kernels against the PTX tables of mma.sync m16n8k8, with P taken from the S
-accumulator into P.V's A operand without a shuffle, and a step of each
-computed through it; the fp32 launch plans; and the wrappers' CPU path
+flash_tf32_wgmma_kernel (fused_mha, flash_attention, flash_attention_step at
+fp32 operands), csrc/linear.cu's linear_tf32_wgmma_kernel and mma.cuh's
+3xTF32 attention block on mma.sync (attention.cu's attention_tf32_kernel,
+bidir_cross.cu's bidir_tf32_kernel). The premise of 3xTF32 at the attention
+and linear shapes, emulated; the mma.sync block's fragment addressing
+against the PTX tables of m16n8k8, with P taken from the S accumulator into
+P.V's A operand without a shuffle, and a step computed through it; the fp32
+GEMM's tile through its wgmma layouts (tests/test_torch_fp32_wgmma.py holds
+the flash kernel's); the fp32 launch plans; and the wrappers' CPU path
 against JAX at fp32 where tests/test_torch_attention.py, test_torch_ring.py
 and test_torch_quant.py do not reach (tiles that end in a short chunk, fp32
 operands with bf16 stats, the fp32 projections)."""
@@ -19,15 +22,15 @@ import torch
 from lightglue_tpu.kernels import attention as jax_attn
 from lightglue_tpu.kernels.layer_stack import _dot
 from lightglue_tpu_torch.kernels import _build, attention, layer_stack
-from tf32_emulation import mma_tf32_maps, split_rz, tf32, tf32_rz
+from tf32_emulation import (a_fragment_matrix, acc_at, b_operand, mma_tf32_maps, split_rz, tf32,
+                            tf32_rz, tma_halves)
 
-FP = 68        # csrc/mma.cuh:FP, the fp32 row pitch of flash_tf32_kernel's tiles
-LIN_AP = 68    # csrc/linear.cu:TF32_AP, linear_tf32_kernel's A row pitch
+FP = 68        # csrc/mma.cuh:FP, the fp32 row pitch of the mma.sync block's tiles
 GATE = 1e-4    # the fp32 rung's gate (chip_smoke.py TOL["fp32"])
 
 
 def _mm3(a, b):
-    """a @ b in 3xTF32 as both kernels take it: each operand split by
+    """a @ b in 3xTF32 as the kernels take it: each operand split by
     truncation (split_tf32_rz), hi*lo + lo*hi + hi*hi in fp32, lo*lo
     dropped."""
     (ah, al), (bh, bl) = split_rz(a), split_rz(b)
@@ -112,7 +115,7 @@ def test_3xtf32_linear_premise(kn):
 
 
 def _flash_maps():
-    """flash_tf32_kernel's fragments as it addresses them, per (lane,
+    """mma.cuh's 3xTF32 attention block's fragments as it addresses them, per (lane,
     register): Q's A register i at qr[{0, 8 FP, 4, 8 FP + 4}[i]] past qr =
     qs + (row g) FP + t4, so (row, dim) = (g + off // FP, t4 + off % FP);
     K's B register i at kr[{0, 4}[i]] past kr = kbuf + (key g) FP + t4, so
@@ -170,7 +173,7 @@ def _through_fragments(a_frag, b_frag):
 
 def test_flash_step_by_fragments_matches_attention():
     """One 16-row group against one 64-key chunk as a warp of
-    flash_tf32_kernel computes it: S = Q.K^T through Q's and K's fragments
+    mma.cuh's 3xTF32 attention block computes it: S = Q.K^T through Q's and K's fragments
     at the kernel's offsets (8 k steps x 8 n tiles), then P = S (any values
     stand for p here) from the accumulator into the A operand by the
     kernel's register order, times V read at the kernel's offsets (8 k
@@ -224,7 +227,7 @@ def test_flash_step_by_fragments_matches_attention():
 
 
 def test_pv_step_in_3xtf32_through_the_key_order():
-    """The 16 x 8 . 8 x 64 P.V step of flash_tf32_kernel in 3xTF32: P
+    """The 16 x 8 . 8 x 64 P.V step of mma.cuh:tf32_pv in 3xTF32: P
     (softmax-like values in [0, 1]) from the S accumulator layout, split into
     (hi, lo) in registers by truncation (lo read truncated by mma.sync), V
     split as its fragments load, the three TF32 products summed per
@@ -264,88 +267,80 @@ def test_pv_step_in_3xtf32_through_the_key_order():
     assert np.abs(out1 - want).max() > GATE
 
 
-@pytest.mark.parametrize("tn", [64, 32])
-def test_linear_tile_by_fragments_matches_gemm(tn):
-    """One 64 x TN tile of linear_tf32_kernel over a 64-deep chunk as its
-    four warps (2 x 2) address it: A register i at ar[{0, 8 AP, 4, 8 AP +
-    4}[i]] past ar = as + (wm TM/2 + mt 16 + g) AP + ks 8 + t4, W register
-    i at br[{0, 4 WP}[i]] past br = ws + (ks 8 + t4) WP + wn TN/2 + nt 8 +
-    g, each result stored at row g + 8 i, column nt 8 + 2 t4 + j of the
-    warp's quarter. It is the GEMM of the chunk; a warp's A loads and W
-    loads each fall in 32 different banks (pitches 68 and TN + 8)."""
-    tm, wp = 64, tn + 8
-    mt_n, nt_n = tm // 32, tn // 16
+def _w_fragment_at(warp, lane, i, kk):
+    """The float index in W's chunk of register i of W^T's A fragment of k8
+    step kk, as linear.cu:w_frags reads it: row (output column) n = 16 w +
+    g + 8 (i & 1), k = 8 kk + t4 + 4 (i >> 1), at float n % 4 of 16 B unit
+    (n % 32) / 4 ^ k % 8 of row k of half n / 32 ([64 k][32 n] each)."""
+    g, t4 = divmod(lane, 4)
+    n, k = 16 * warp + g + 8 * (i & 1), 8 * kk + t4 + 4 * (i >> 1)
+    return ((n // 32) * 64 * 128 + k * 128 + (((n % 32) // 4) ^ (k % 8)) * 16 + (n % 4) * 4) // 4
+
+
+@pytest.mark.parametrize("br", [64, 32])
+def test_linear_tile_by_fragments_matches_gemm(br):
+    """One tile of linear_tf32_wgmma_kernel over a 64-deep chunk, 64 output
+    columns by BR rows, as it computes the transposed product Y^T = W^T .
+    X^T: W's chunk as TMA writes it (two 128 B-swizzled [64 k][32 n]
+    halves) read into W^T's register-A fragments at w_frags' offsets, X's
+    chunk (two [BR][32] halves) read as the K-major B operand through its
+    descriptors, eight k8 steps of m64nBRk8, and each accumulator register
+    stored where the epilogue puts it (row m0 + its column, column n0 +
+    its row). It is the GEMM of the chunk; a warp's fragment loads meet at
+    most two to a bank."""
     rng = np.random.default_rng(59)
-    a = rng.standard_normal((tm, 64))
-    w = rng.standard_normal((64, tn))
-    as_, ws = np.zeros(tm * LIN_AP), np.zeros(64 * wp)
-    for r in range(tm):
-        as_[r * LIN_AP:r * LIN_AP + 64] = a[r]
-    for r in range(64):
-        ws[r * wp:r * wp + tn] = w[r]
-    y = np.zeros((tm, tn))
+    x = rng.standard_normal((br, 64))
+    w = rng.standard_normal((64, 64))
+    wf, xf = tma_halves(w), tma_halves(x)
+    acc = sum(a_fragment_matrix(lambda warp, lane, i: wf[_w_fragment_at(warp, lane, i, kk)])
+              @ b_operand(xf, br, kk) for kk in range(8))
+    y = np.zeros((br, 64))
     for warp in range(4):
-        wm, wn = divmod(warp, 2)
-        for ks in range(8):
-            for mt in range(mt_n):
-                af = {}
-                for lane in range(32):
-                    g, t4 = divmod(lane, 4)
-                    ar = (wm * tm // 2 + mt * 16 + g) * LIN_AP + ks * 8 + t4
-                    for i, off in enumerate((0, 8 * LIN_AP, 4, 8 * LIN_AP + 4)):
-                        af[lane, i] = as_[ar + off]
-                for nt in range(nt_n):
-                    bf = {}
-                    for lane in range(32):
-                        g, t4 = divmod(lane, 4)
-                        br = (ks * 8 + t4) * wp + wn * tn // 2 + nt * 8 + g
-                        bf[lane, 0], bf[lane, 1] = ws[br], ws[br + 4 * wp]
-                    for (lane, e), x in _through_fragments(af, bf).items():
-                        g, t4 = divmod(lane, 4)
-                        y[wm * tm // 2 + mt * 16 + g + 8 * (e // 2),
-                          wn * tn // 2 + nt * 8 + 2 * t4 + e % 2] += x
-    np.testing.assert_allclose(y, a @ w, rtol=1e-12, atol=1e-12)
-    assert len({(g * LIN_AP + t4) % 32 for g in range(8) for t4 in range(4)}) == 32
-    assert len({(t4 * wp + g) % 32 for g in range(8) for t4 in range(4)}) == 32
+        for lane in range(32):
+            for e in range(br // 2):
+                r, c = acc_at(warp, lane, e)
+                y[c, r] = acc[r, c]
+    np.testing.assert_allclose(y, x @ w, rtol=1e-12, atol=1e-12)
+    for warp in range(4):
+        for kk in range(8):
+            for i in range(4):
+                banks = [_w_fragment_at(warp, lane, i, kk) % 32 for lane in range(32)]
+                assert max(banks.count(bk) for bk in banks) <= 2
 
 
 # ---------------------------------------------------------------------------
 # launch plans
 # ---------------------------------------------------------------------------
 
-# (B, H, Nq, block_k, row groups): every route's fp32 flash shape, block_k
-# 1000 and 4096 (past the FMA kernel's 16 x block_k slab of S)
+# (B, H, Nq, block_k): every route's fp32 flash shape, block_k 1000 and 4096
 FP32_FLASH_PLANS = {
-    "2048 self": (2, 4, 2048, 1024, 4),
-    "2048 cross": (1, 4, 2048, 1024, 2),
-    "960 pad-to-64": (2, 4, 960, 960, 1),
-    "block_k 1000": (2, 4, 1000, 1000, 2),
-    "ring stripe 512": (1, 4, 512, 512, 1),
-    "ring stripe 120": (1, 4, 120, 120, 1),
-    "block_k 4096": (1, 4, 4096, 4096, 4),
+    "2048 self": (2, 4, 2048, 1024),
+    "2048 cross": (1, 4, 2048, 1024),
+    "960 pad-to-64": (2, 4, 960, 960),
+    "block_k 1000": (2, 4, 1000, 1000),
+    "ring stripe 512": (1, 4, 512, 512),
+    "ring stripe 120": (1, 4, 120, 120),
+    "block_k 4096": (1, 4, 4096, 4096),
 }
 
 
 @pytest.mark.parametrize("shape", list(FP32_FLASH_PLANS))
 def test_fp32_flash_plan_fits(shape):
-    """The fp32 plan streams two chunk buffers at every block_k (its shared
-    memory is mma.cuh:tf32_smem, not a function of block_k), two four-warp
-    blocks an SM or one larger one: one pair's split (fill_row_groups) and
-    the batch's 16-row groups (batch_row_groups), its own rule whatever the
-    bf16 kernel's launch."""
-    batch, heads, nq, block_k, groups = FP32_FLASH_PLANS[shape]
+    """The fp32 plan is flash_tf32_wgmma_kernel's: 64-row tiles, the split
+    of one pair's shape (flash_split, as the bf16 kernel's), a split of 8
+    as clusters of two blocks, one 32-key ring slot a consumer warpgroup;
+    one block an SM, whose shared memory does not grow with block_k (the
+    pieces stream)."""
+    batch, heads, nq, block_k = FP32_FLASH_PLANS[shape]
     plan = attention.flash_plan(batch, heads, nq, block_k, torch.float32)
-    split = plan.col_split
-    assert (plan.row_groups, split) == (groups, 4 // layer_stack.fill_row_groups(heads, nq))
-    assert layer_stack.batch_row_groups(batch, heads, nq) == (groups, split)
-    assert plan.kernel == "flash_tf32_kernel" and plan.stages == 2
-    assert not plan.cluster and not plan.store
-    assert plan.blocks == batch * heads * -(-nq // (16 * groups))
-    q_rows, chunks = 16 * groups * FP, 2 * 64 * 2 * FP
-    assert plan.smem == 4 * (q_rows + chunks) + (0 if split == 1 else 4 * groups * split * 16 * 74)
-    assert (1 if groups * split > 4 else 2) * plan.smem <= _build.MAX_DYNAMIC_SMEM
-    assert attention._flash_launch("f", torch.float32, batch, heads, nq, block_k) == (
-        groups, split, 2)
+    split = attention.flash_split(heads, nq)
+    assert plan.kernel == "flash_tf32_wgmma_kernel" and plan.stages == 1
+    assert (plan.row_groups, plan.col_split) == (4, split)
+    assert plan.cluster == (split == 8) and not plan.store
+    assert plan.blocks == batch * heads * -(-nq // 64) * (2 if plan.cluster else 1)
+    assert plan.smem == attention.flash_plan(batch, heads, nq, 64, torch.float32).smem
+    assert plan.smem <= _build.MAX_DYNAMIC_SMEM < 2 * plan.smem
+    assert attention._flash_launch("f", torch.float32, batch, heads, nq, block_k) == (4, split, 1)
 
 
 def test_flash_launch_raises_where_the_block_does_not_fit(monkeypatch):
@@ -360,19 +355,21 @@ def test_flash_launch_raises_where_the_block_does_not_fit(monkeypatch):
 @pytest.mark.parametrize("shape", [(1024, 768, 256), (1024, 256, 256), (1024, 512, 512),
                                    (1024, 256, 512), (128, 256, 512), (2048, 768, 256)])
 def test_fp32_linear_plan_fits(shape):
-    """The fp32 GEMM takes 64 x 64 tiles where they give 256 blocks, else
-    64 x 32, else 32 x 32 (linear.cu:linear_tile), with a ring of three raw
-    fp32 chunks 64 deep (A rows padded by 4, W rows by 8:
-    csrc/linear.cu:tf32_ring_smem), at most 105 KB a block: two an SM."""
+    """The fp32 GEMM takes tiles of 64 output columns by 64 rows where one
+    pair's rows give 128 blocks, else 32 rows (linear.cu:tf_tile_rows, the
+    bf16 rule with the roles swapped), with a ring of slots of X's chunk,
+    its lo copy and W's chunk, all fp32 64 deep (csrc/linear.cu:tf_smem):
+    four while the launch's blocks fit the 132 SMs (one block an SM), else
+    two (two blocks an SM)."""
     m, n, k = shape
     plan = layer_stack.linear_plan(m, n, k, torch.float32)
-    tile = next((t for t in ((64, 64), (64, 32)) if -(-m // t[0]) * (n // t[1]) >= 256),
-                (32, 32))
-    assert plan.kernel == "linear_tf32_kernel" and (plan.bm, plan.bn) == tile
-    assert plan.blocks == -(-m // plan.bm) * (n // plan.bn)
-    assert plan.bk == 64 and plan.chunks == k // 64 and plan.stages == 3
-    assert plan.smem == 4 * 3 * (plan.bm * 68 + 64 * (plan.bn + 8)) <= 107_520
-    assert 2 * plan.smem <= _build.MAX_DYNAMIC_SMEM
+    bm = 64 if -(-m // 64) * (n // 64) >= 128 else 32
+    assert plan.kernel == "linear_tf32_wgmma_kernel" and (plan.bm, plan.bn) == (bm, 64)
+    assert plan.blocks == -(-m // plan.bm) * (n // 64)
+    assert plan.bk == 64 and plan.chunks == k // 64
+    assert plan.stages == (4 if plan.blocks <= 132 else 2)
+    assert plan.smem == plan.stages * (2 * 4 * bm * 64 + 4 * 64 * 64 + 16) + 1024
+    assert (1 if plan.stages == 4 else 2) * plan.smem <= _build.MAX_DYNAMIC_SMEM
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,13 @@
 """TF32 on the CPU, for the tests of the port's 3xTF32 kernels
-(csrc/conv3x3.cu's fp32 model conv, csrc/flash_attn.cu's and
-csrc/linear.cu's fp32 kernels): the rounding of cvt.rna.tf32.f32, the
-truncating split of the latter two, and the fragment layout of mma.sync
-m16n8k8 with tf32 operands."""
+(csrc/conv3x3.cu's fp32 model conv, the fp32 attention kernels,
+csrc/flash_attn.cu's and csrc/linear.cu's fp32 kernels on wgmma): the
+rounding of cvt.rna.tf32.f32, the truncating split, the fragment layout of
+mma.sync m16n8k8 with tf32 operands, and the layouts the wgmma kernels hand
+m64nNk8: fp32 K-major tiles as TMA writes them in 128 B swizzle, read back
+through the kernels' descriptors, the register-A fragment and the
+accumulator."""
 
+import numpy as np
 import torch
 
 
@@ -40,3 +44,59 @@ def mma_tf32_maps():
         for i in range(2):
             b[lane, i] = (t4 + 4 * i, g)
     return a, b, c
+
+
+def tma_halves(tile):
+    """A K-major fp32 tile [rows][64] as the kernels' TMA boxes write it:
+    two [rows][32] halves (32-float boxes), each row's 16 B unit c at c ^
+    row % 8 (128 B swizzle); a flat float array, half 1 rows * 32 floats
+    on."""
+    rows = tile.shape[0]
+    flat = np.zeros(rows * 64, tile.dtype)
+    for half in range(2):
+        for r in range(rows):
+            for c in range(32):
+                at = half * rows * 128 + r * 128 + ((c // 4) ^ (r % 8)) * 16 + (c % 4) * 4
+                flat[at // 4] = tile[r, 32 * half + c]
+    return flat
+
+
+def kmajor_read(flat, start, r, k):
+    """Element (row r, k) of the k8 step whose descriptor starts at byte
+    `start` of a K-major 128 B-swizzled tile, as wgmma reads it: rows in
+    groups of eight at SBO = 1024 B, 128 B a row, the swizzle XORing
+    address bits 4-6 with bits 7-9."""
+    logical = start + (r // 8) * 1024 + (r % 8) * 128 + 4 * k
+    return flat[(logical ^ (((logical >> 7) & 7) << 4)) // 4]
+
+
+def desc_read(flat, rows, kk, r, k):
+    """... through hopper.cuh:desc_step_f32's descriptor of k8 step kk
+    (0..7) of a tile of `rows` rows: half kk / 4, 32 B per step inside it."""
+    return kmajor_read(flat, (kk // 4) * rows * 128 + 32 * (kk % 4), r, k)
+
+
+def b_operand(flat, rows, kk):
+    """B (8 x rows) of k8 step kk read through the descriptor: B[k][n] is
+    row n's k-th value of the step."""
+    return np.array([[desc_read(flat, rows, kk, n, k) for n in range(rows)] for k in range(8)])
+
+
+def a_fragment_matrix(reg):
+    """The 64 x 8 A operand of m64nNk8 from registers: reg(warp, lane, i)
+    is register i of lane (g, t4) of warp w, the m16n8k8 tf32 A fragment of
+    rows 16 w..: a0 (g, t4), a1 (g + 8, t4), a2 (g, t4 + 4), a3 (g + 8, t4 +
+    4)."""
+    a = np.zeros((64, 8))
+    for w in range(4):
+        for lane in range(32):
+            g, t4 = divmod(lane, 4)
+            for i in range(4):
+                a[16 * w + g + 8 * (i % 2), t4 + 4 * (i // 2)] = reg(w, lane, i)
+    return a
+
+
+def acc_at(w, lane, e):
+    """(row, column) of accumulator register e of lane (g, t4) of warp w."""
+    g, t4 = divmod(lane, 4)
+    return 16 * w + g + 8 * ((e // 2) % 2), 8 * (e // 4) + 2 * t4 + e % 2
