@@ -13,13 +13,13 @@ conv_chain.cu run on the tensor cores, that attention.cu's and
 flash_attn.cu's bf16 kernels and linear.cu's bf16-product GEMM (BF16,
 MIXED, INT8) run on Hopper's warpgroup MMA (HGMMA in every instantiation,
 no HMMA, no local-memory load or store: ``WGMMA_KERNELS``), that the fp32
-kernels of flash_attn.cu and linear.cu run in 3xTF32 on it (HGMMA with
-TF32 operands on every HGMMA line, in every instantiation, no HMMA, no
-local-memory load or store: ``TF32_WGMMA_KERNELS``), that the fp32 model
-conv, the generic fp32 conv, the fp32 chain and the fp32 kernels of
-attention.cu and bidir_cross.cu run in 3xTF32 on the tensor cores (TF32
+kernels of flash_attn.cu, linear.cu and attention.cu and the fp32 model
+conv run in 3xTF32 on it (HGMMA with TF32 operands on every HGMMA line, in
+every instantiation, no HMMA, no local-memory load or store:
+``TF32_WGMMA_KERNELS``), that the generic fp32 conv, the fp32 chain and
+bidir_cross.cu's fp32 kernel run in 3xTF32 on the tensor cores (TF32
 HMMA only; their spills logged), that no conv3x3.cu
-or conv_chain.cu kernel is left without HMMA, and that
+or conv_chain.cu kernel is left off the tensor cores (HMMA or HGMMA), and that
 stem.cu's kernel has no contracted multiply-add. Then, in
 order; every kernel check is in bf16 and fp32 against
 the kernel's plain PyTorch version at the shapes its path gives it, every
@@ -255,13 +255,13 @@ SP_LAUNCHES = dict(relu_conv1a_shift=1, conv3x3=3, nms_candidates=1)
 # wrappers' own counts over a session's first call show it)
 KERNEL_WRAPPERS = {
     "stem_kernel": "relu_conv1a_shift",
-    "conv3x3_mma_kernel": "conv3x3", "conv3x3_tf32x3_kernel": "conv3x3",
+    "conv3x3_mma_kernel": "conv3x3", "conv3x3_tf32_wgmma_kernel": "conv3x3",
     "conv3x3_igemm_kernel": "conv3x3", "conv3x3_tf32x3_generic_kernel": "conv3x3",
     "chain_mma_kernel": "conv2_chain", "chain_tf32x3_kernel": "conv2_chain",
     "nms_candidates_kernel": "nms_candidates",
     "linear_wgmma_kernel": "linear", "linear_tf32_wgmma_kernel": "linear",
     "linear_s8_kernel": "linear", "row_quant_kernel": "row_quant",
-    "attention_wgmma_kernel": "attention", "attention_tf32_kernel": "attention",
+    "attention_wgmma_kernel": "attention", "attention_tf32_wgmma_kernel": "attention",
     "ln_gelu_kernel": "ln_gelu", "adaptive_decide_kernel": "adaptive_decide",
     "flash_wgmma_kernel": "fused_mha", "flash_tf32_wgmma_kernel": "fused_mha",
     "bidir_mma_kernel": "bidirectional_cross_attention",
@@ -403,25 +403,27 @@ WGMMA_KERNELS = {"attention.cu": "attention_wgmma_kernel", "linear.cu": "linear_
                  "flash_attn.cu": "flash_wgmma_kernel"}
 # source: its fp32 kernel in 3xTF32 on Hopper's warpgroup MMA, held to what
 # WGMMA_KERNELS holds the bf16 kernels to, with TF32 operands on every
-# HGMMA line: the stack projections' fp32 GEMM (the transposed product) and
+# HGMMA line: the stack projections' fp32 GEMM (the transposed product),
 # the flash kernel's fp32 instantiations (fused_mha, flash_attention, the
-# ring step at fp32 operands; clusters or one block a tile)
+# ring step at fp32 operands; clusters or one block a tile), the stack
+# attention's fp32 kernel (keep masks or not, a cluster of two blocks or
+# one) and the model's fp32 64 -> 64 conv
 TF32_WGMMA_KERNELS = {"linear.cu": "linear_tf32_wgmma_kernel",
-                      "flash_attn.cu": "flash_tf32_wgmma_kernel"}
+                      "flash_attn.cu": "flash_tf32_wgmma_kernel",
+                      "attention.cu": "attention_tf32_wgmma_kernel",
+                      "conv3x3.cu": "conv3x3_tf32_wgmma_kernel"}
 # source: its int8 x int8 kernel (W8A8), on the integer tensor cores (IMMA)
 INT8_TENSOR_CORE_KERNELS = {"linear.cu": "linear_s8_kernel"}
 # source: its fp32 kernels on the tensor cores in 3xTF32 on mma.sync (TF32
-# HMMA only): the fp32 model conv and the generic fp32 conv; one kernel
-# elsewhere. Each one's local-memory loads and stores (spills) are reported
-# beside
-TF32_TENSOR_CORE_KERNELS = {"conv3x3.cu": ("conv3x3_tf32x3_kernel",
-                                           "conv3x3_tf32x3_generic_kernel"),
+# HMMA only): the generic fp32 conv, the fp32 chain, the bidirectional
+# kernel's fp32 kernel. Each one's local-memory loads and stores (spills)
+# are reported beside
+TF32_TENSOR_CORE_KERNELS = {"conv3x3.cu": ("conv3x3_tf32x3_generic_kernel",),
                             "conv_chain.cu": ("chain_tf32x3_kernel",),
-                            "attention.cu": ("attention_tf32_kernel",),
                             "bidir_cross.cu": ("bidir_tf32_kernel",)}
-# names of kernels none of which may run on the FMA units alone: HMMA in
-# every kernel whose name holds one (conv3x3.cu's and conv_chain.cu's, the
-# only ones so named)
+# names of kernels none of which may run on the FMA units alone: tensor-core
+# products (HMMA, or HGMMA on wgmma) in every kernel whose name holds one
+# (conv3x3.cu's and conv_chain.cu's, the only ones so named)
 ALL_TENSOR_CORE_NAMES = ("conv3x3_", "chain_")
 # source: a kernel whose rounding contract rounds every product and every add
 NO_FMA_KERNELS = {"stem.cu": "stem_kernel"}
@@ -517,10 +519,10 @@ def tensor_core_check(build):
             if not tf32 or min(t for t, _, _ in tf32) == 0 or any(t != h for t, h, _ in tf32):
                 raise AssertionError(f"{src}: {kernel} without TF32 HMMA, or with another HMMA")
     for name in ALL_TENSOR_CORE_NAMES:
-        hmma = [c["HMMA"] for k, c in counts.items() if name in k]
-        log(f"  {name}* kernels ({len(hmma)}): HMMA per kernel {sorted(hmma)}")
-        if not hmma or min(hmma) == 0:
-            raise AssertionError(f"a {name}* kernel without HMMA: an FMA kernel is left")
+        mma = [c["HMMA"] + c["HGMMA"] for k, c in counts.items() if name in k]
+        log(f"  {name}* kernels ({len(mma)}): HMMA + HGMMA per kernel {sorted(mma)}")
+        if not mma or min(mma) == 0:
+            raise AssertionError(f"a {name}* kernel without HMMA or HGMMA: an FMA kernel is left")
     for src, kernel in NO_FMA_KERNELS.items():
         ffma = [c["FFMA"] for k, c in counts.items() if kernel in k]
         log(f"  {src} SASS: FFMA per instantiation ({len(ffma)}) {ffma}")
@@ -778,8 +780,8 @@ def plan_checks(ls, at, nms_k, conv_k, cc, lib):
     and INT8 modes: the tile, ring and kernel, the BF16 and FP32 tiles one
     pair's at every batch; csrc/flash_attn.cu:lg_flash_plan, both kernels' split,
     form, ring slots, kept s and shared memory, the split one pair's at
-    every batch; csrc/mma.cuh:fill_row_groups; csrc/attention.cu:lg_attention_plan, the fp32
-    stack's eight-warp blocks too, and the bf16 kernel's warpgroups;
+    every batch; csrc/mma.cuh:fill_row_groups; csrc/attention.cu:lg_attention_plan, both
+    kernels' split, form and shared memory;
     csrc/adaptive.cu:decide_rows,
     csrc/nms.cu:Band,
     csrc/conv3x3.cu:conv_rows and both generic kernels' shared memory,
@@ -788,11 +790,12 @@ def plan_checks(ls, at, nms_k, conv_k, cc, lib):
     stack (128-1024 buckets) and through the bidirectional kernel (960x960,
     960x704, 960x64), at 1, 2, 4 and 8 pairs (``INVARIANCE_BATCHES``: each
     attention kernel's split of a chunk's keys is one pair's at every
-    batch; a block may take more of one pair's row groups as the batch
-    grows), the decision at B = 1..8 over the
+    batch; a block may take more of one pair's row groups, or a cluster
+    form, as the batch grows), the decision at B = 1..8 over the
     stack's buckets in both row types, at every NMS radius the kernel is
     built for (and one past it), and at the generic conv's shapes in
-    phase 5 and a grid of SuperPoint-like maps and widths."""
+    phase 5 and a grid of SuperPoint-like maps and widths (the model's fp32
+    conv, csrc/conv3x3.cu:lg_conv_model_tile, at those maps and 360x488)."""
     import ctypes
 
     out = (ctypes.c_int * 4)()
@@ -892,6 +895,11 @@ def plan_checks(ls, at, nms_k, conv_k, cc, lib):
             if tuple(out) != tuple(conv_k.conv_plan(*shape, dt)):
                 raise AssertionError(f"conv3x3 {shape} {dt}: the card's tile {tuple(out)}, "
                                      f"conv_plan's {tuple(conv_k.conv_plan(*shape, dt))}")
+    for b, h, w in sorted({(b, h, w) for b, h, w, _ in conv_shapes} | {(2, 360, 488)}):
+        lib.lg_conv_model_tile(b, h, w, out)  # the model's fp32 64 -> 64 conv
+        if tuple(out) != tuple(conv_k.model_conv_plan(b, h, w)):
+            raise AssertionError(f"model fp32 conv {b}x{h}x{w}: the card's launch {tuple(out)}, "
+                                 f"model_conv_plan's {tuple(conv_k.model_conv_plan(b, h, w))}")
     for mode, dt in ((0, torch.float32), (1, torch.bfloat16), (2, torch.bfloat16)):
         lib.lg_ln_gelu_plan(mode, out)
         if tuple(out) != tuple(ls.ln_gelu_plan(dt)):
@@ -5329,7 +5337,8 @@ def main() -> int:
 
     conv_e = Entry("conv3x3", "src/lightglue_tpu_torch/csrc/conv3x3.cu",
                    "src/lightglue_tpu/kernels/conv.py:356")
-    conv_fp32_e = Entry("conv3x3 (MIXED, FP32: fp32 operands)",
+    conv_fp32_e = Entry("conv3x3 (MIXED, FP32: fp32 operands, 3xTF32 on wgmma, "
+                        "conv3x3_tf32_wgmma_kernel)",
                         "src/lightglue_tpu_torch/csrc/conv3x3.cu",
                         "src/lightglue_tpu/kernels/conv.py:356")
     nms_e = Entry("nms_candidates", "src/lightglue_tpu_torch/csrc/nms.cu",
@@ -5352,7 +5361,8 @@ def main() -> int:
     fp32_ents = {
         "linear": Entry("linear (FP32: fp32 operands, 3xTF32)", src + "linear.cu",
                         ref + "layer_stack.py:801"),
-        "attention": Entry("attention (FP32: fp32 operands, 3xTF32)", src + "attention.cu",
+        "attention": Entry("attention (FP32: fp32 operands, 3xTF32 on wgmma, "
+                           "attention_tf32_wgmma_kernel)", src + "attention.cu",
                            ref + "layer_stack.py:801"),
         "ln_gelu": Entry("ln_gelu (FP32)", src + "ln_gelu.cu", ref + "layer_stack.py:801"),
         "adaptive_decide": Entry("adaptive_decide (FP32)", src + "adaptive.cu",

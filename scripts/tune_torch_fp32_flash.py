@@ -1,10 +1,9 @@
 """Helpers of the tune scripts that time a kernel's variants on one card
-(``tune_torch_fp32_stack_bidir.py``, ``tune_torch_w8a8.py``,
-``tune_torch_ln_gelu_conv.py``): a variant's text edits (``replaced``),
-another checkout's source built with its own headers (``build_tree``), a
-kernel's registers and shared memory (``resource_usage``) and its most
-frequent SASS opcodes (``sass_mix``), and cases checked and timed under
-each variant's library (``timed``).
+(``tune_torch_w8a8.py``, ``tune_torch_ln_gelu_conv.py``): a variant's text
+edits (``replaced``), another checkout's source built with its own headers
+(``build_tree``), a kernel's registers and shared memory
+(``resource_usage``) and its most frequent SASS opcodes (``sass_mix``), and
+cases checked and timed under each variant's library (``timed``).
 
 The script once timed variants of the FP32 rung's mma.sync kernels,
 ``flash_attn.cu:flash_tf32_kernel`` and ``linear.cu:linear_tf32_kernel``;

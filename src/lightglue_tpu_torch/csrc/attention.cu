@@ -96,36 +96,52 @@
 //   bidir_cross.cu's direction 1 does. At bf16 stats p is already bf16 and
 //   the two rules agree.
 //
-// The FP32 kernel (attention_tf32_kernel: fp32 operands and out, with fp32
-// or bf16 stats) runs the same two passes and the same contract on the
-// tensor cores in 3xTF32: one TF32 product keeps about three decimal
-// digits and misses the fp32 rung's 1e-4 gate, so every product is
-// hi*lo + lo*hi + hi*hi of operands split by truncation
-// (mma.cuh:split_tf32_rz) on mma.sync m16n8k8: a two-pass flash block at
-// one whole-row tile (block_k = Nk <= 1024), built from mma.cuh's 3xTF32
-// attention pieces: Q split once into register fragments
-// (tf32_q_frags); S per chunk (tf32_scores), recomputed bit for bit in pass
-// 2; P from the S accumulator into P.V's A operand unshuffled, V read at
-// keys 2 t4 and 2 t4 + 1 (tf32_pv); K and V staged as raw fp32 at pitch FP
-// in 64-key chunks through a two-stage cp.async ring and split as their
-// fragments load; the split warps meet in shared memory (meet_max,
-// meet_sums). Where the stack's contract differs from the flash kernel's,
-// it keeps the bf16 kernel's items 1-5 above on the tf32 accumulator
-// layout, whose element e of n-tile n is row g + 8 (e / 2), key
-// 2 t4 + (e & 1) as in m16n8k16: so the clamp, the dead-column selects and
-// the keep multiply are the bf16 kernel's lines. A block holds G 16-row
-// groups of C warps each: one pair's split C and one pair's groups
-// (fill_row_groups, G * C = 4), except where the whole launch still
-// gives FILL_BLOCKS / 2 blocks with two or four times the groups: then they
-// share a block of eight or sixteen warps (tf32_plan, mma.cuh:batch_plan;
-// each group keeps its pair's split, so a row's sums keep their order),
-// which halves (or quarters) the K and V reads
-// through L2 a query row at the same warps an SM (at B = 1, H = 4,
-// N = 1024: 1.96 against 2.45-2.50 ms per pair,
-// scripts/tune_torch_fp32_stack_bidir.py on an H100 at 700 W). Its shared
-// memory is mma.cuh:tf32_smem (kernels/layer_stack.py:attention_plan
-// mirrors both, lg_attention_plan). RoPE runs first, in rope_kernel<float>,
-// into an fp32 scratch.
+// The FP32 kernel (attention_tf32_wgmma_kernel: fp32 operands and out, with
+// fp32 or bf16 stats) runs the same two passes and the same contract on
+// Hopper's warpgroup MMA in 3xTF32: one TF32 product keeps about three
+// decimal digits and misses the fp32 rung's 1e-4 gate, so every product is
+// hi.lo + lo.hi + hi.hi of operands split by truncation (hi: x with its low
+// 13 bits cleared, lo = x - hi; lo.lo dropped, the small terms first) on
+// wgmma m64nNk8, from hopper.cuh's 3xTF32 pieces, as flash_attn.cu's
+// flash_tf32_wgmma_kernel runs them. wgmma reads a tf32 operand in shared
+// memory K-major only, which sets the layouts:
+// - S = Q.K^T: Q (64 rows) and K (a 32-key piece) both K-major as TMA
+//   writes them (32-float boxes in 128 B swizzle: two halves along the head
+//   dim; the raw tiles serve as hi, since the tensor core reads a raw fp32
+//   word as its truncation), beside their lo copies, which the consumers
+//   write (Q's once, each K piece's as it lands): 24 m64n32k8 products a
+//   piece, the 48 descriptors kept opaque so the compiler does not hoist
+//   them out of the piece loop and spill.
+// - P.V: P comes from the S accumulator as the register-A operand, split in
+//   registers; the accumulator holds keys 2 t4 and 2 t4 + 1 of an 8-key step
+//   where the tf32 A fragment takes t4 and t4 + 4, and the order of keys
+//   within a step does not change the sum: slot t4 takes key 2 t4, slot
+//   t4 + 4 key 2 t4 + 1. V, stored keys x dims, arrives as it lies and the
+//   consumer writes it transposed, dims x keys in that slot order, as hi and
+//   lo copies in 128 B swizzle: the K-major B operand of m64n64k8.
+// - fp32 tiles are twice bf16's bytes and each needs a lo copy, so a ring
+//   slot holds a 32-key piece of K (and of V in pass 2), one slot a
+//   warpgroup beside its K lo and V^T hi / lo buffers, over which its P.V
+//   partial goes once pass 2 is done (TfSmem, ~195 KB a block). Pass 2
+//   always recomputes S, bit for bit pass 1's (a stored fp32 s would not
+//   fit), so with bf16 stats (quant) s, m, p and l round as the bf16
+//   kernel's do.
+// - The split: chunk j of a row to consumer j % split, split 8 where one
+//   pair's 64-row tiles, two blocks each, fit the card's SMs (tf32_split:
+//   one pair of 1024 at H = 4 gives 128 blocks), else 4. A block has no room
+//   for a second consumer's partial, so a split of 8 is always a cluster of
+//   two blocks, one consumer a warpgroup, and a split of 4 one block: the
+//   form follows one pair's shape, never the batch, which only adds blocks,
+//   and a row's sums run in one order at any batch (q_c = p_c + p_{c + 4},
+//   then q_0 .. q_3 in order, as the bf16 kernel's).
+// - The bf16 kernel's items 1-5 above hold on the accumulator layout (the
+//   clamp, -1e30 dead columns and -inf pad columns, chunks past kv_len
+//   skipped, keep masks and liveness, TMA maps at the strides of qkv and
+//   [qk | v]); dir1 needs nothing: p's cast to the fp32 V type is the
+//   identity.
+// RoPE runs first, in rope_kernel<float>, into an fp32 scratch. Its shared
+// memory is TfSmem (kernels/layer_stack.py:attention_plan mirrors it and
+// the split, lg_attention_plan).
 
 #include <math.h>
 
@@ -138,166 +154,6 @@ using namespace lg;  // Operand, row_ptr and the tensor-core helpers (mma.cuh)
 constexpr int D = HD;  // head dim
 constexpr float NEG = -1e30f;
 constexpr float DEAD = -5e29f;
-
-// ---------------------------------------------------------------------------
-// The FP32 kernel: both products on the tensor cores in 3xTF32 (m16n8k8)
-// ---------------------------------------------------------------------------
-
-template <bool KEEP, int G, int C>
-__global__ void __launch_bounds__(G * C * 32, G * C > WARPS ? 1 : 2)
-attention_tf32_kernel(Operand q, Operand k, Operand v, const int* __restrict__ len_q,
-                      const int* __restrict__ len_kv, const float* __restrict__ keep_q,
-                      const float* __restrict__ keep_kv, const float* __restrict__ exit_reg,
-                      int layer, float* __restrict__ out, int Nq, int Nk, int H, float scale,
-                      int quant, int dir1, int aligned) {
-  constexpr int BR = 16 * G;   // rows per block
-  constexpr int KW = KC / C;   // keys of each chunk per warp
-  constexpr int NT = KW / 8;   // S n-tiles per warp and chunk (= P.V k steps)
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* qs = reinterpret_cast<float*>(smem_raw);  // [BR][FP]
-  float* kv = qs + BR * FP;                         // [TF32_STAGES][K, V][KC][FP]
-  float* red = kv + TF32_STAGES * 2 * KC * FP;      // C > 1: [G * C][16][RS]
-
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int rg = warp / C, part = warp % C;  // 16-row group, share of each chunk's keys
-  const int g = lane / 4, t4 = lane % 4;     // mma fragment row and column
-  const int b = blockIdx.z, h = blockIdx.y, i0 = blockIdx.x * BR;
-  if (exit_reg && !(exit_reg[b] > static_cast<float>(layer))) return;
-  const bool masked = KEEP || len_q != nullptr;
-  const int lq = (!KEEP && len_q) ? len_q[b] : Nq;
-  // keys that can be live: every key under KEEP, the valid prefix with lengths
-  const int live_k = (!KEEP && len_kv) ? max(min(len_kv[b], Nk), 0) : Nk;
-  const float* kq = KEEP ? keep_q + (size_t)b * Nq : nullptr;
-  const float* kk = KEEP ? keep_kv + (size_t)b * Nk : nullptr;
-  float* ob = out + (size_t)b * Nq * H * D + h * D;  // row gi at ob + gi * H * D
-
-  if (!KEEP && i0 >= lq) {  // a block wholly past q_len: zeros
-    for (int i = tid; i < BR * D; i += blockDim.x)
-      if (i0 + i / D < Nq) ob[(size_t)(i0 + i / D) * H * D + i % D] = 0.f;
-    return;
-  }
-
-  // Q into registers, split once: this warp's 16 rows as D / 8 (hi, lo) A
-  // fragments
-  stage_rows(qs, q, b, h, i0, BR, min(BR, Nq - i0), aligned);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  unsigned qh[D / 8][4], ql[D / 8][4];
-  tf32_q_frags(qs + rg * 16 * FP, g, t4, qh, ql);
-
-  // chunks over the keys that can be live, two buffers: chunk c + 1 copies
-  // while chunk c is in use (pass 1 K only, pass 2 K and V)
-  const int nc = (live_k + KC - 1) / KC;
-  auto kbuf = [&](int c) { return kv + (c & 1) * 2 * KC * FP; };
-  auto fetch = [&](int c, bool with_v) {
-    const int jn = min(KC, Nk - c * KC);
-    stage_rows(kbuf(c), k, b, h, c * KC, KC, jn, aligned);
-    if (with_v) stage_rows(kbuf(c) + KC * FP, v, b, h, c * KC, KC, jn, aligned);
-    cp_async_commit();
-  };
-  auto land = [&](int c) {  // chunk c has landed (chunk c + 1 may be in flight)
-    if (c + 1 < nc)
-      cp_async_wait<1>();
-    else
-      cp_async_wait<0>();
-    __syncthreads();
-  };
-  // s = quant(Q.K^T * scale) over this warp's KW keys of chunk c
-  // (mma.cuh:tf32_scores), masked as the bf16 kernel's: pad columns past
-  // Nk are -inf, dead columns (keep < 0.5, or at or past kv_len) -1e30;
-  // without keep masks only the chunk that holds kv_len or Nk has any
-  auto scores = [&](float (&s)[NT][4], int c) {
-    tf32_scores<NT>(s, qh, ql, kbuf(c) + part * KW * FP, g, t4);
-    const int c0 = c * KC;
-    const bool ragged = KEEP || c0 + KC > live_k;
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = c0 + part * KW + n * 8 + 2 * t4 + (e & 1);
-        float x = lg::quant_stat(s[n][e] * scale, quant);
-        if (ragged) {
-          const bool pad = col >= Nk;
-          const bool dead = KEEP ? !pad && __ldg(kk + col) < 0.5f : col >= live_k;
-          x = pad ? -INFINITY : (dead ? NEG : x);
-        }
-        s[n][e] = x;
-      }
-    }
-  };
-
-  // pass 1: the row max
-  float mx[2] = {-INFINITY, -INFINITY};
-  if (nc) fetch(0, false);
-  for (int c = 0; c < nc; ++c) {
-    if (c + 1 < nc) fetch(c + 1, false);  // the buffer of chunk c - 1
-    land(c);
-    float s[NT][4];
-    scores(s, c);
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
-    }
-    __syncthreads();  // this buffer is free for the next fetch
-  }
-  mx[0] = quad_max(mx[0]);
-  mx[1] = quad_max(mx[1]);
-  meet_max<C>(mx, red, warp, g, t4);
-  float m[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    m[i] = lg::quant_stat(mx[i], quant);
-    if (masked) m[i] = fmaxf(m[i], DEAD);
-  }
-
-  // pass 2: the same S again, p, sum p and P.V (mma.cuh:tf32_pv; P is fp32,
-  // its cast to the fp32 V type the identity)
-  float ps[2] = {0.f, 0.f};
-  float pv[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) pv[n][0] = pv[n][1] = pv[n][2] = pv[n][3] = 0.f;
-  if (nc) fetch(0, true);
-  for (int c = 0; c < nc; ++c) {
-    if (c + 1 < nc) fetch(c + 1, true);
-    land(c);
-    float s[NT][4];
-    scores(s, c);
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = lg::quant_stat(expf(s[n][e] - m[e / 2]), quant);
-        s[n][e] = p;
-        ps[e / 2] += dir1 ? lg::round_to<float>(p) : p;  // direction 1 sums P in the V type
-      }
-    }
-    tf32_pv<NT>(pv, s, kbuf(c) + KC * FP + part * KW * FP, g, t4);
-    __syncthreads();  // this buffer is free for the next fetch
-  }
-  ps[0] = quad_sum(ps[0]);
-  ps[1] = quad_sum(ps[1]);
-  meet_sums<C>(ps, pv, red, warp, g, t4);
-
-  if (part != 0) return;  // the C warps of a row group hold the same rows
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int gi = i0 + rg * 16 + g + 8 * i;
-    if (gi >= Nq) continue;
-    const float l = lg::quant_stat(ps[i], quant);
-    const float den = l == 0.f ? 1.f : l;
-    const bool zero = !KEEP && masked && gi >= lq;
-    const float keep = KEEP ? kq[gi] : 1.f;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      float x0 = pv[n][2 * i] / den, x1 = pv[n][2 * i + 1] / den;
-      if (KEEP) x0 *= keep, x1 *= keep;
-      if (zero) x0 = x1 = 0.f;
-      store2(ob + (size_t)gi * H * D + n * 8 + 2 * t4, x0, x1);
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // The BF16 kernel: warpgroups on wgmma, fed by TMA rings
@@ -743,64 +599,492 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 }
 
 // ---------------------------------------------------------------------------
+// The FP32 kernel: the same warpgroups in 3xTF32 on wgmma m64nNk8
+// ---------------------------------------------------------------------------
+
+constexpr int PIECE_KEYS = 32;             // keys of an fp32 ring slot: half a chunk
+constexpr int PIECE = 4 * PIECE_KEYS * D;  // bytes of an fp32 piece of K or V (8 KB)
+constexpr int F32_TILE = 4 * TILE;         // bytes of a 64-row fp32 tile of one head
+
+// consumers splitting a 64-row tile's chunks at fp32 operands: 8 where one
+// pair's tiles, two blocks each, fit the card's SMs, else 4 (the pair's
+// shape, never the batch; kernels/layer_stack.py:tf32_split mirrors it)
+constexpr int tf32_split(int H, int Nq) {
+  return 2ll * H * ((Nq + 63) / 64) <= CLUSTER_SMS ? 8 : 4;
+}
+
+// Shared memory of an fp32 block, bytes: Q as TMA writes it (two [64][32]
+// halves in 128 B swizzle) and its lo copy; each warpgroup's region, its
+// one ring slot (a 32-key piece of K, two [32][32] halves in 128 B swizzle,
+// and in pass 2 of V, [32][64] as it lies), then K's lo copy and V's piece
+// transposed and split, hi and lo ([64][32] each, keys in P's order, 128 B
+// swizzle), over which the warpgroup's P.V partial goes once pass 2 is
+// done; the warpgroups' partial row max and sum p; the block's row max; the
+// barriers (Q, then each ring's full and empty slot); 1 KB to align the
+// tiles to 1024 B. The same in either form (a cluster's block or one block).
+struct TfSmem {
+  static constexpr size_t SLOT = 2 * PIECE;
+  static constexpr size_t KLO = SLOT, VTH = KLO + PIECE, VTL = VTH + PIECE;
+  static constexpr size_t REGION = VTL + PIECE;
+  static constexpr size_t PART_AT = KLO;
+  static constexpr size_t Q = 0, QLO = F32_TILE;
+  static constexpr size_t REGIONS = QLO + F32_TILE;
+  static constexpr size_t MAX = REGIONS + REGION * WGS;
+  static constexpr size_t SUM = MAX + sizeof(float) * WGS * 64;
+  static constexpr size_t CMAX = SUM + sizeof(float) * WGS * 64;
+  static constexpr size_t BARS = CMAX + sizeof(float) * 64;
+  static constexpr size_t BYTES = BARS + sizeof(uint64_t) * (1 + 2 * WGS) + 1024;
+  static_assert(PART_AT + PART_BYTES <= REGION, "a P.V partial fits over the copies");
+  static_assert(BYTES <= 232448, "a block fits the SM's shared memory");
+};
+
+// A 64-row tile of one head in 3xTF32: WGS * CLUSTER consumers (a cluster
+// of two blocks at a split of 8, one block at 4), consumer rank * WGS + wg
+// taking the chunks j with j % (WGS * CLUSTER) == rank * WGS + wg, each as
+// two 32-key pieces, a ring fill each; otherwise the bf16 kernel's
+// structure: producer warp r feeds warpgroup r's ring, the consumers meet
+// after each pass, each block's consumer threads add the partials of its
+// share of the rows.
+template <bool KEEP, int CLUSTER>
+__global__ void __launch_bounds__((WGS + 1) * 128, 1)
+attention_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                            const __grid_constant__ CUtensorMap kmap,
+                            const __grid_constant__ CUtensorMap vmap,
+                            const int* __restrict__ len_q, const int* __restrict__ len_kv,
+                            const float* __restrict__ keep_q, const float* __restrict__ keep_kv,
+                            const float* __restrict__ exit_reg, int layer,
+                            float* __restrict__ out, int Nq, int Nk, int H, float scale,
+                            int quant) {
+  using L = TfSmem;
+  constexpr int SPLIT_F = WGS * CLUSTER;  // consumers of a tile
+  extern __shared__ __align__(1024) unsigned char wg_raw[];
+  unsigned char* const smem_raw = align1024(wg_raw);
+  unsigned char* const qs = smem_raw + L::Q;     // Q as TMA writes it: its hi
+  unsigned char* const qlo = smem_raw + L::QLO;  // Q's lo copy
+  float* const red_max = reinterpret_cast<float*>(smem_raw + L::MAX);  // [WGS][64]
+  float* const red_sum = reinterpret_cast<float*>(smem_raw + L::SUM);  // [WGS][64]
+  float* const cmax = reinterpret_cast<float*>(smem_raw + L::CMAX);    // [64]
+  uint64_t* const bars = reinterpret_cast<uint64_t*>(smem_raw + L::BARS);
+  uint64_t* const qbar = bars;
+  auto region = [&](int r) { return smem_raw + L::REGIONS + L::REGION * r; };
+  auto part = [&](int r) { return reinterpret_cast<float*>(region(r) + L::PART_AT); };
+  auto full = [&](int r) { return bars + 1 + r; };
+  auto empty = [&](int r) { return bars + 1 + WGS + r; };
+
+  const int rank = CLUSTER > 1 ? cluster_rank() : 0;
+  const int b = blockIdx.z, h = blockIdx.y, i0 = blockIdx.x / CLUSTER * 64;
+  if (exit_reg && !(exit_reg[b] > static_cast<float>(layer))) return;  // the whole cluster
+  const bool masked = KEEP || len_q != nullptr;
+  const int lq = (!KEEP && len_q) ? len_q[b] : Nq;
+  // keys that can be live: every key under KEEP, the valid prefix with lengths
+  const int live_k = (!KEEP && len_kv) ? max(min(len_kv[b], Nk), 0) : Nk;
+  const float* kq = KEEP ? keep_q + (size_t)b * Nq : nullptr;
+  const float* kk = KEEP ? keep_kv + (size_t)b * Nk : nullptr;
+  float* ob = out + (size_t)b * Nq * H * D + h * D;  // row gi at ob + gi * H * D
+  constexpr int half = 64 / CLUSTER;  // the rows a block writes: rows0 ..
+  const int rows0 = rank * half;
+
+  if (!KEEP && i0 >= lq) {  // a tile wholly past q_len (the whole cluster): zeros
+    for (int i = threadIdx.x; i < half * D; i += blockDim.x) {
+      const int gi = i0 + rows0 + i / D;
+      if (gi < Nq) ob[(size_t)gi * H * D + i % D] = 0.f;
+    }
+    return;
+  }
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int r = 0; r < WGS; ++r) {
+      mbar_init(full(r), 1);
+      mbar_init(empty(r), 4);  // one arrival per consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int nc = (live_k + 63) / 64;  // chunks over the keys that can be live
+  const int wg = threadIdx.x / 128;
+  if (wg == WGS) {  // the producer
+    setmaxnreg_dec<PRODUCER_REGS>();
+    // lane 0 of producer warp r feeds warpgroup r's ring; warp 0's also
+    // loads Q (two 32-float halves). The other lanes exit; in a cluster
+    // these take part in its three barriers (the first at once).
+    const int r = threadIdx.x % 128 / 32;
+    if (threadIdx.x % 32 == 0) {
+      if (CLUSTER > 1) cluster_arrive();
+      if (r == 0) {
+        tma_prefetch(&qmap);
+        tma_prefetch(&kmap);
+        tma_prefetch(&vmap);
+        mbar_expect_tx(qbar, F32_TILE);
+        tma_load(qs, &qmap, qbar, h * D, i0, b);
+        tma_load(qs + F32_TILE / 2, &qmap, qbar, h * D + 32, i0, b);
+      }
+      // pass 1 streams K's pieces, pass 2 K's and V's: the chunks of
+      // consumer rank * WGS + r, two pieces each, as its ring's fills i
+      int i = 0;
+      for (int pass = 0; pass < 2; ++pass) {
+        for (int j = rank * WGS + r; j < nc; j += SPLIT_F) {
+          for (int hp = 0; hp < 2; ++hp, ++i) {
+            const int row = j * 64 + PIECE_KEYS * hp;
+            unsigned char* const dst = region(r);
+            mbar_wait(empty(r), (i & 1) ^ 1);
+            mbar_expect_tx(full(r), PIECE * (pass ? 2 : 1));
+            tma_load(dst, &kmap, full(r), h * D, row, b);
+            tma_load(dst + PIECE / 2, &kmap, full(r), h * D + 32, row, b);
+            if (pass) tma_load(dst + PIECE, &vmap, full(r), h * D, row, b);
+          }
+        }
+      }
+      if (CLUSTER > 1) {
+        cluster_wait();
+        cluster_arrive();
+        cluster_wait();
+        cluster_arrive();
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<CONSUMER_REGS>();
+
+  const int tid = threadIdx.x % 128, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t4 = lane % 4;  // accumulator row and column pair
+  const int row0 = 16 * warp + g;         // this thread's rows: row0 and row0 + 8
+  const int first = rank * WGS + wg;      // this consumer's first chunk
+
+  // s = quant(Q.K^T * scale) over keys k0 .. k0 + 31 of chunk j, the piece
+  // in this warpgroup's slot with its lo copy written: Q_hi.K_lo, Q_lo.K_hi,
+  // Q_hi.K_hi (24 m64n32k8; the raw tiles serve as hi). Pad columns past Nk
+  // are -inf, dead columns (keep < 0.5, or at or past kv_len) -1e30;
+  // without keep masks only the chunk that holds kv_len or Nk has any. This
+  // thread's 8 columns (bit 2 n + e: column k0 + 8 n + 2 t4 + e) are
+  // classified while the product runs.
+  auto scores = [&](float (&sc)[16], int j, int k0) {
+    fence_operand(sc);
+    wgmma_fence();
+    const uint64_t qh = opaque(kmajor_desc(qs, 0)), ql = qh + (L::QLO - L::Q) / 16;
+    const uint64_t kh = opaque(kmajor_desc(region(wg), 0)), kl = kh + L::KLO / 16;
+#pragma unroll
+    for (int k8 = 0; k8 < D / 8; ++k8)
+      wgmma_tf32_m64n32(sc, desc_step_f32(qh, 64, k8), desc_step_f32(kl, PIECE_KEYS, k8), k8);
+#pragma unroll
+    for (int k8 = 0; k8 < D / 8; ++k8)
+      wgmma_tf32_m64n32(sc, desc_step_f32(ql, 64, k8), desc_step_f32(kh, PIECE_KEYS, k8), 1);
+#pragma unroll
+    for (int k8 = 0; k8 < D / 8; ++k8)
+      wgmma_tf32_m64n32(sc, desc_step_f32(qh, 64, k8), desc_step_f32(kh, PIECE_KEYS, k8), 1);
+    wgmma_commit();
+    const int c0 = j * 64 + k0;
+    const bool ragged = KEEP || c0 + PIECE_KEYS > live_k;
+    unsigned pad = 0u, dead = 0u;
+    if (ragged) {
+#pragma unroll
+      for (int bit = 0; bit < 8; ++bit) {
+        const int col = c0 + 8 * (bit / 2) + 2 * t4 + (bit & 1);
+        if (col >= Nk)
+          pad |= 1u << bit;
+        else if (KEEP ? __ldg(kk + col) < 0.5f : col >= live_k)
+          dead |= 1u << bit;
+      }
+    }
+    wgmma_wait<0>();
+    fence_operand(sc);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {  // a pair of a row's columns at a time
+      float x[2] = {sc[2 * k] * scale, sc[2 * k + 1] * scale};
+      if (quant) {  // bf16 stats: both rounded in one packed conversion
+        const unsigned w = pack_bf16(x[0], x[1]);
+        x[0] = __uint_as_float(w << 16), x[1] = __uint_as_float(w & 0xffff0000u);
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int bit = 2 * (k / 2) + e;  // column k0 + 8 (k / 2) + 2 t4 + e
+        sc[2 * k + e] = (pad >> bit) & 1u ? -INFINITY : ((dead >> bit) & 1u ? NEG : x[e]);
+      }
+    }
+  };
+  auto release = [&]() {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(wg));
+  };
+  // the ring's fill-th piece has landed, its K lo copy written (and with_v
+  // V's piece transposed and split: V^T[d][8 j + q] holds key 8 j + 2 q (q <
+  // 4) or 8 j + 2 (q - 4) + 1 of the piece, P's order, as 16 B unit u = (8 j
+  // + q) / 4 of row d at u ^ d % 8), then the warpgroup synced
+  auto land = [&](int fill, bool with_v) {
+    mbar_wait(full(wg), fill & 1);
+    unsigned char* const kr = region(wg);
+    tf32_lo_copy(reinterpret_cast<float*>(kr), reinterpret_cast<float*>(kr + L::KLO),
+                 PIECE_KEYS * D, tid, 128);
+    if (with_v) {
+      const float* vr = reinterpret_cast<const float*>(kr + PIECE);  // [32 keys][64]
+      unsigned char* const vth = kr + L::VTH;
+      unsigned char* const vtl = kr + L::VTL;
+#pragma unroll 1
+      for (int it = 0; it < PIECE_KEYS * D / 4 / 128; ++it) {  // beside P.V's acc: one at a time
+        const int item = tid + 128 * it, d = item % D, u = item / D;
+        const int key0 = 8 * (u / 2) + (u & 1);  // keys key0, + 2, + 4, + 6
+        unsigned hi[4], lo[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split_tf32_rz(vr[(key0 + 2 * e) * D + d], hi[e], lo[e]);
+        const int at = d * 128 + ((u ^ (d % 8)) * 16);
+        *reinterpret_cast<uint4*>(vth + at) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+        *reinterpret_cast<uint4*>(vtl + at) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+      }
+    }
+    fence_proxy_async();  // the copies, written by threads, visible to wgmma
+    bar_sync(2 + wg, 128);
+  };
+
+  mbar_wait(qbar, 0);  // Q's lo copy, once, by every consumer thread of the block
+  tf32_lo_copy(reinterpret_cast<float*>(qs), reinterpret_cast<float*>(qlo), 64 * D, threadIdx.x,
+               WGS * 128);
+  fence_proxy_async();
+  bar_sync(1, WGS * 128);
+
+  // pass 1: the row max over this consumer's chunks, a piece at a time
+  float mx[2] = {-INFINITY, -INFINITY};
+  int i = 0;  // fills of this ring consumed
+  for (int j = first; j < nc; j += SPLIT_F) {
+#pragma unroll 1
+    for (int hp = 0; hp < 2; ++hp, ++i) {
+      land(i, false);
+      float sc[16];
+      scores(sc, j, PIECE_KEYS * hp);
+      release();
+#pragma unroll
+      for (int e = 0; e < 16; ++e) mx[(e / 2) & 1] = fmaxf(mx[(e / 2) & 1], sc[e]);
+    }
+  }
+  mx[0] = quad_max(mx[0]);
+  mx[1] = quad_max(mx[1]);
+  if (t4 == 0) {
+    red_max[wg * 64 + row0] = mx[0];
+    red_max[wg * 64 + row0 + 8] = mx[1];
+  }
+  bar_sync(1, WGS * 128);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int w = 0; w < WGS; ++w) mx[r] = fmaxf(mx[r], red_max[w * 64 + row0 + 8 * r]);
+    if (CLUSTER > 1 && wg == 0 && t4 == 0) cmax[row0 + 8 * r] = mx[r];  // this block's row max
+  }
+  if (CLUSTER > 1) {
+    cluster_arrive();
+    cluster_wait();
+  }
+  float m[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int k = 0; k < CLUSTER; ++k)
+      if (k != rank) mx[r] = fmaxf(mx[r], ld_dsmem(dsmem(cmax + row0 + 8 * r, k)));
+    m[r] = lg::quant_stat(mx[r], quant);
+    if (masked) m[r] = fmaxf(m[r], DEAD);
+  }
+
+  // pass 2: S again, p against the row max, sum p and P.V in 3xTF32 (P
+  // split in registers from the S accumulator; its cast to the fp32 V type
+  // is the identity, so direction 1 sums p as the others do)
+  float ps[2] = {0.f, 0.f};
+  float pv[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) pv[e] = 0.f;
+  for (int j = first; j < nc; j += SPLIT_F) {
+#pragma unroll 1
+    for (int hp = 0; hp < 2; ++hp, ++i) {
+      land(i, true);
+      float sc[16];
+      scores(sc, j, PIECE_KEYS * hp);
+      release();  // V is in its copies and S is done: the next piece may land
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {  // p in pairs of a row; bf16 stats: rounded together
+        const int r = k & 1;
+        float p0 = expf(sc[2 * k] - m[r]), p1 = expf(sc[2 * k + 1] - m[r]);
+        if (quant) {
+          const unsigned w = pack_bf16(p0, p1);
+          p0 = __uint_as_float(w << 16), p1 = __uint_as_float(w & 0xffff0000u);
+        }
+        ps[r] += p0;
+        ps[r] += p1;
+        sc[2 * k] = p0, sc[2 * k + 1] = p1;
+      }
+      // P.V in 16-key halves: P's A fragment of k step kk (keys 8 kk..)
+      // takes key 2 t4 in slot t4 (accumulator 4 kk, row g; 4 kk + 2, row
+      // g + 8) and key 2 t4 + 1 in slot t4 + 4 (4 kk + 1, 4 kk + 3), split
+      // into (hi, lo); V^T's k step kk is 32 B along its rows
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        unsigned ph[2][4], pl[2][4];
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const float* pk = sc + 8 * hh + 4 * q;
+          split_tf32_rz(pk[0], ph[q][0], pl[q][0]);
+          split_tf32_rz(pk[2], ph[q][1], pl[q][1]);
+          split_tf32_rz(pk[1], ph[q][2], pl[q][2]);
+          split_tf32_rz(pk[3], ph[q][3], pl[q][3]);
+        }
+        const uint64_t vh = opaque(kmajor_desc(region(wg) + L::VTH, 2 * hh));
+        const uint64_t vl = opaque(kmajor_desc(region(wg) + L::VTL, 2 * hh));
+        fence_operand(pv);
+        wgmma_fence();
+#pragma unroll
+        for (int q = 0; q < 2; ++q) wgmma_tf32_m64n64_rs(pv, ph[q], vl + 2 * q, 1);
+#pragma unroll
+        for (int q = 0; q < 2; ++q) wgmma_tf32_m64n64_rs(pv, pl[q], vh + 2 * q, 1);
+#pragma unroll
+        for (int q = 0; q < 2; ++q) wgmma_tf32_m64n64_rs(pv, ph[q], vh + 2 * q, 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_operand(pv);
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          fence_operand(ph[q]);
+          fence_operand(pl[q]);
+        }
+      }
+    }
+  }
+  ps[0] = quad_sum(ps[0]);
+  ps[1] = quad_sum(ps[1]);
+  // this consumer's partial into its region, over the copies, once every
+  // warp of the group is past its last product
+  bar_sync(2 + wg, 128);
+  float2* const pairs = reinterpret_cast<float2*>(part(wg)) + tid;
+#pragma unroll
+  for (int e = 0; e < 32; e += 2) pairs[e / 2 * 128] = make_float2(pv[e], pv[e + 1]);
+  if (t4 == 0) {
+    red_sum[wg * 64 + row0] = ps[0];
+    red_sum[wg * 64 + row0 + 8] = ps[1];
+  }
+
+  // each block's consumer threads add the partials of its share of the rows
+  // in the split's order (q_c = p_c + p_{c + WGS} in a cluster, then q_0 ..
+  // q_3), eight outputs each; in a cluster one consumer's pair of partials
+  // at a time (all loads first would hold 72 registers and spill)
+  if (CLUSTER > 1) {
+    cluster_arrive();
+    cluster_wait();
+  } else {
+    bar_sync(1, WGS * 128);
+  }
+  for (int it = threadIdx.x; it < half * (D / 8); it += WGS * 128) {
+    const int row = rows0 + it / (D / 8), c8 = it % (D / 8) * 8, gi = i0 + row;
+    if (gi >= Nq) continue;
+    float sum = 0.f, x[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll 1
+    for (int c = 0; c < WGS; ++c) {
+      const float* src = part(c) + part_at(row, c8);
+      float q, y[8];
+      if constexpr (CLUSTER > 1) {  // block 0's consumer c, then block 1's
+        q = ld_dsmem(dsmem(red_sum + c * 64 + row, 0)) +
+            ld_dsmem(dsmem(red_sum + c * 64 + row, 1));
+        const float4 l0 = ld_dsmem4(dsmem(src, 0)), l1 = ld_dsmem4(dsmem(src, 1));
+        const float4 h0 = ld_dsmem4(dsmem(src + 4, 0)), h1 = ld_dsmem4(dsmem(src + 4, 1));
+        y[0] = l0.x + l1.x, y[1] = l0.y + l1.y, y[2] = l0.z + l1.z, y[3] = l0.w + l1.w;
+        y[4] = h0.x + h1.x, y[5] = h0.y + h1.y, y[6] = h0.z + h1.z, y[7] = h0.w + h1.w;
+      } else {
+        q = red_sum[c * 64 + row];
+        const float4 l0 = *reinterpret_cast<const float4*>(src);
+        const float4 h0 = *reinterpret_cast<const float4*>(src + 4);
+        y[0] = l0.x, y[1] = l0.y, y[2] = l0.z, y[3] = l0.w;
+        y[4] = h0.x, y[5] = h0.y, y[6] = h0.z, y[7] = h0.w;
+      }
+      sum += q;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) x[e] += y[e];
+    }
+    const float l = lg::quant_stat(sum, quant);
+    const float den = l == 0.f ? 1.f : l;
+    const bool zero = !KEEP && masked && gi >= lq;
+    const float keep = KEEP ? kq[gi] : 1.f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      x[e] = x[e] / den;
+      if (KEEP) x[e] *= keep;
+      if (zero) x[e] = 0.f;
+    }
+    store8(ob + (size_t)gi * H * D + c8, x);
+  }
+  if (CLUSTER > 1) {
+    cluster_arrive();  // no block leaves while another reads its shared memory
+    cluster_wait();
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
-template <bool KEEP, int G, int C>
+// One head's columns of a (B, rows, H*64) operand of `type` (bf16 or fp32)
+// addressed by (batch, row) strides in elements, read in boxes of box_cols x
+// box_rows written in `swizzle` bytes of swizzle (0: as they lie)
+int head_map(CUtensorMap* map, const Operand& o, int B, int rows, int H, CUtensorMapDataType type,
+             int box_cols, int box_rows, int swizzle) {
+  const int es = type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2;
+  const long long bs = B > 1 ? o.bs : (long long)rows * o.rs;  // one batch entry: any stride
+  if (!tma_aligned(o.ptr, es * o.rs, es * bs)) return static_cast<int>(cudaErrorInvalidValue);
+  const cuuint64_t dims[3] = {(cuuint64_t)H * D, (cuuint64_t)rows, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)(es * o.rs), (cuuint64_t)(es * bs)};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
+  return tma_map(map, o.ptr, type, 3, dims, strides, box, swizzle);
+}
+
+// A kernel of a 64-row tile of a head per block, or per cluster of
+// cluster_blocks blocks
+template <typename Kernel, typename... Args>
+int launch_tiles(Kernel kernel, int cluster_blocks, size_t smem, int B, int Nq, int H,
+                 cudaStream_t stream, Args... args) {
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = cluster_blocks;
+  cluster[0].val.clusterDim.y = cluster[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster_blocks * ((Nq + 63) / 64), H, B);
+  cfg.blockDim = dim3((WGS + 1) * 128);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = cluster;
+  cfg.numAttrs = cluster_blocks > 1 ? 1 : 0;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, args...));
+}
+
+// The FP32 kernel in one form: Q in 32-float boxes of 64 rows and K in
+// 32-float boxes of 32 keys (128 B swizzle), V in 64-float boxes of 32 keys
+// as they lie
+template <bool KEEP, int CLUSTER>
 int launch_tf32(Operand q, Operand k, Operand v, const void* len_q, const void* len_kv,
                 const void* keep_q, const void* keep_kv, const void* exit_reg, int layer,
-                void* out, int B, int Nq, int Nk, int H, float scale, int quant, int dir1,
+                void* out, int B, int Nq, int Nk, int H, float scale, int quant,
                 cudaStream_t stream) {
-  constexpr size_t smem = tf32_smem(C, TF32_STAGES, G);
+  constexpr size_t smem = TfSmem::BYTES;
+  auto kernel = attention_tf32_wgmma_kernel<KEEP, CLUSTER>;
   static const cudaError_t opt_in =  // above 48 KB: opt in once
-      cudaFuncSetAttribute(attention_tf32_kernel<KEEP, G, C>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
   if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
-  const int aligned = aligned16(q) && aligned16(k) && aligned16(v);
-  dim3 grid((Nq + 16 * G - 1) / (16 * G), H, B);
-  attention_tf32_kernel<KEEP, G, C><<<grid, G * C * 32, smem, stream>>>(
-      q, k, v, static_cast<const int*>(len_q), static_cast<const int*>(len_kv),
-      static_cast<const float*>(keep_q), static_cast<const float*>(keep_kv),
-      static_cast<const float*>(exit_reg), layer, static_cast<float*>(out), Nq, Nk, H, scale,
-      quant, dir1, aligned);
-  return static_cast<int>(cudaGetLastError());
+  constexpr CUtensorMapDataType F32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  CUtensorMap qm, km, vm;
+  const int errs[3] = {head_map(&qm, q, B, Nq, H, F32, 32, 64, 128),
+                       head_map(&km, k, B, Nk, H, F32, 32, PIECE_KEYS, 128),
+                       head_map(&vm, v, B, Nk, H, F32, D, PIECE_KEYS, 0)};
+  for (const int err : errs)
+    if (err) return err;
+  return launch_tiles(kernel, CLUSTER, smem, B, Nq, H, stream, qm, km, vm,
+                      static_cast<const int*>(len_q), static_cast<const int*>(len_kv),
+                      static_cast<const float*>(keep_q), static_cast<const float*>(keep_kv),
+                      static_cast<const float*>(exit_reg), layer, static_cast<float*>(out), Nq, Nk,
+                      H, scale, quant);
 }
 
-// The FP32 kernel's block (mma.cuh:batch_plan, one pair's split at
-// FILL_BLOCKS): it grows its blocks while FILL_BLOCKS / 2 blocks remain (an
-// fp32 block holds twice the bytes), so one pair of 1024 takes 128
-// eight-warp blocks. At 8 pairs of 1024 the FP32 step took 22.5 ms with
-// sixteen-warp blocks against 26.8 at eight (bench LightGlue 8x1024, an
-// H100 at 700 W, PERF.md section 6).
-inline void tf32_plan(int B, int H, int Nq, int& G, int& C) {
-  batch_plan(B, H, Nq, 0, FILL_BLOCKS, FILL_BLOCKS / 2, G, C);
-}
-
+// tf32_split's form: a cluster of two blocks a tile at a split of 8, one
+// block at 4
 template <bool KEEP>
 int launch_fp32(Operand q, Operand k, Operand v, const void* len_q, const void* len_kv,
                 const void* keep_q, const void* keep_kv, const void* exit_reg, int layer,
-                void* out, int B, int Nq, int Nk, int H, float scale, int quant, int dir1,
-                cudaStream_t s) {
-  int G, C;
-  tf32_plan(B, H, Nq, G, C);
-  auto run = C == 1   ? launch_tf32<KEEP, 4, 1>
-             : C == 2 ? (G == 2 ? launch_tf32<KEEP, 2, 2> : launch_tf32<KEEP, 4, 2>)
-             : (G == 1   ? launch_tf32<KEEP, 1, 4>
-                : G == 2 ? launch_tf32<KEEP, 2, 4>
-                         : launch_tf32<KEEP, 4, 4>);
+                void* out, int B, int Nq, int Nk, int H, float scale, int quant, cudaStream_t s) {
+  auto run = tf32_split(H, Nq) == 8 ? launch_tf32<KEEP, 2> : launch_tf32<KEEP, 1>;
   return run(q, k, v, len_q, len_kv, keep_q, keep_kv, exit_reg, layer, out, B, Nq, Nk, H, scale,
-             quant, dir1, s);
-}
-
-// one head's columns of a (B, rows, H*64) bf16 operand addressed by (batch,
-// row) strides in elements, read in 64 x 64 boxes in 128 B swizzle
-int head_map(CUtensorMap* map, const Operand& o, int B, int rows, int H) {
-  const long long bs = B > 1 ? o.bs : (long long)rows * o.rs;  // one batch entry: any stride
-  if (!tma_aligned(o.ptr, 2 * o.rs, 2 * bs)) return static_cast<int>(cudaErrorInvalidValue);
-  const cuuint64_t dims[3] = {(cuuint64_t)H * D, (cuuint64_t)rows, (cuuint64_t)B};
-  const cuuint64_t strides[2] = {(cuuint64_t)(2 * o.rs), (cuuint64_t)(2 * bs)};
-  const cuuint32_t box[3] = {D, 64, 1};
-  return tma_map(map, o.ptr, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, dims, strides, box, 128);
+             quant, s);
 }
 
 template <bool KEEP, typename TO, bool STORE, int CLUSTER>
@@ -816,27 +1100,18 @@ int launch_wgmma(Operand q, Operand k, Operand v, const void* len_q, const void*
   if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
   if (STORE && Nk > 64 * SPLIT * Split<CLUSTER>::KEPT / Split<CLUSTER>::VIRT)
     return static_cast<int>(cudaErrorInvalidValue);
+  constexpr CUtensorMapDataType BF = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap qm, km, vm;
-  const int errs[3] = {head_map(&qm, q, B, Nq, H), head_map(&km, k, B, Nk, H),
-                       head_map(&vm, v, B, Nk, H)};
+  const int errs[3] = {head_map(&qm, q, B, Nq, H, BF, D, 64, 128),
+                       head_map(&km, k, B, Nk, H, BF, D, 64, 128),
+                       head_map(&vm, v, B, Nk, H, BF, D, 64, 128)};
   for (const int err : errs)
     if (err) return err;
-  cudaLaunchAttribute cluster[1];
-  cluster[0].id = cudaLaunchAttributeClusterDimension;
-  cluster[0].val.clusterDim.x = CLUSTER;
-  cluster[0].val.clusterDim.y = cluster[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(CLUSTER * ((Nq + 63) / 64), H, B);
-  cfg.blockDim = dim3((WGS + 1) * 128);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = cluster;
-  cfg.numAttrs = CLUSTER > 1 ? 1 : 0;
-  return static_cast<int>(cudaLaunchKernelEx(
-      &cfg, kernel, qm, km, vm, static_cast<const int*>(len_q), static_cast<const int*>(len_kv),
-      static_cast<const float*>(keep_q), static_cast<const float*>(keep_kv),
-      static_cast<const float*>(exit_reg), layer, static_cast<TO*>(out), Nq, Nk, H, scale, quant,
-      dir1));
+  return launch_tiles(kernel, CLUSTER, smem, B, Nq, H, stream, qm, km, vm,
+                      static_cast<const int*>(len_q), static_cast<const int*>(len_kv),
+                      static_cast<const float*>(keep_q), static_cast<const float*>(keep_kv),
+                      static_cast<const float*>(exit_reg), layer, static_cast<TO*>(out), Nq, Nk,
+                      H, scale, quant, dir1);
 }
 
 // bf16 stats (quant) keep pass 1's s, fp32 stats recompute it; clusters of
@@ -866,11 +1141,12 @@ enum Mode { FP32 = 0, BF16 = 1, BF16_F32_OUT = 2 };
 // keep_q/keep_kv: (B, Nq)/(B, Nk) fp32 0/1 keep masks, both null or both set
 // (then the lengths are ignored). exit_reg: (B,) fp32 or null; layer: the
 // global layer index. out: (B, Nq, H*64). mode: FP32 (fp32 operands and out,
-// attention_tf32_kernel at tf32_plan's blocks), BF16 (bf16 operands and out)
-// or BF16_F32_OUT (bf16 operands, fp32 out), the last two
-// attention_wgmma_kernel, one block per 64 rows of a head (its operands on
-// 16 B: base, row and batch strides; else cudaErrorInvalidValue)
-// (kernels/layer_stack.py:attention_plan mirrors both). dir1: the row sum
+// attention_tf32_wgmma_kernel in tf32_split's form), BF16 (bf16 operands and
+// out) or BF16_F32_OUT (bf16 operands, fp32 out), the last two
+// attention_wgmma_kernel; each a block or a cluster of two per 64 rows of a
+// head, its operands read by TMA (on 16 B: base, row and batch strides;
+// else cudaErrorInvalidValue) (kernels/layer_stack.py:attention_plan mirrors
+// both). dir1: the row sum
 // takes p rounded to the operand type (the cross block's direction 1).
 extern "C" int lg_attention(const void* q, long long q_bs, long long q_rs,
                             const void* k, long long k_bs, long long k_rs,
@@ -886,7 +1162,7 @@ extern "C" int lg_attention(const void* q, long long q_bs, long long q_rs,
   if (mode == FP32)
     return (keep ? launch_fp32<true> : launch_fp32<false>)(
         oq, ok, ov, len_q, len_kv, keep_q, keep_kv, exit_reg, layer, out, B, Nq, Nk, H, scale,
-        quant, dir1, s);
+        quant, s);
   if (mode != BF16 && mode != BF16_F32_OUT) return static_cast<int>(cudaErrorInvalidValue);
   auto run = mode == BF16 ? (keep ? launch_bf16<true, bf16_t> : launch_bf16<false, bf16_t>)
                           : (keep ? launch_bf16<true, float> : launch_bf16<false, float>);
@@ -913,21 +1189,21 @@ extern "C" int lg_rope_qk(const void* q, long long q_bs, long long q_rs, const v
 // held against it).
 extern "C" int lg_attention_row_groups(int H, int Nq) { return fill_row_groups(H, Nq); }
 
-// lg_attention's block at this shape in this mode: out = {16-row groups,
-// warps (FP32) or warpgroups (the bf16 modes) splitting each row's keys,
-// dynamic shared memory in bytes} (the wrapper's attention_plan is held
-// against it), and the blocks of the launch. The bf16 kernel's block is
-// four 16-row groups (one warpgroup's 64 rows) split SPLIT ways at every
-// shape and batch, a cluster of two blocks a tile where use_cluster says
-// so; its shared memory holds pass 1's s at bf16 stats (quant).
+// lg_attention's block at this shape in this mode: out = {16-row groups (4:
+// a 64-row tile), consumer warpgroups splitting each row's chunks, dynamic
+// shared memory in bytes} (the wrapper's attention_plan is held against
+// it), and the blocks of the launch. The bf16 kernel splits SPLIT ways at
+// every shape and batch, a cluster of two blocks a tile where use_cluster
+// says so; its shared memory holds pass 1's s at bf16 stats (quant). The
+// fp32 kernel splits tf32_split ways, a cluster of two blocks a tile at a
+// split of 8.
 extern "C" int lg_attention_plan(int B, int H, int Nq, int mode, int quant, int* out) {
-  int G = 4, C = SPLIT;
-  if (mode == FP32) tf32_plan(B, H, Nq, G, C);
-  out[0] = G;
-  out[1] = C;
-  out[2] = static_cast<int>(mode == FP32 ? tf32_smem(C, TF32_STAGES, G)
-                                         : wgmma_smem(quant, use_cluster(B, H, Nq)));
-  out[3] = mode == FP32 ? (Nq + 16 * G - 1) / (16 * G) * H * B
-                        : (use_cluster(B, H, Nq) ? 2 : 1) * ((Nq + 63) / 64) * H * B;
+  const bool f32 = mode == FP32;
+  const int split = f32 ? tf32_split(H, Nq) : SPLIT;
+  const bool cluster = f32 ? split == 8 : use_cluster(B, H, Nq);
+  out[0] = 4;
+  out[1] = split;
+  out[2] = static_cast<int>(f32 ? TfSmem::BYTES : wgmma_smem(quant, cluster));
+  out[3] = (cluster ? 2 : 1) * ((Nq + 63) / 64) * H * B;
   return 0;
 }

@@ -71,29 +71,41 @@
 //   max across the thread's two rows and the lane 4 apart, one cast, 2-value
 //   stores masked per pixel and per 8-channel column.
 //
-// conv3x3_tf32x3_kernel, the model's fp32 calls (the MIXED and FP32 rungs:
-// C_in = C_out = 64, ReLU, fp32 out): the same implicit GEMM on the tensor
-// cores in 3xTF32. One TF32 product rounds each operand to 10 mantissa bits
-// and misses the fp32 gate of 1e-4 (tests/test_torch_conv_kernels.py
-// measures it); split each operand into hi = tf32(x) and lo = tf32(x - hi)
-// and hi*lo + lo*hi + hi*hi in fp32 keeps about fp32's precision at three
-// mma.sync m16n8k8 products (lo*lo dropped, the small terms first).
-// - One block per 16x16 output tile and all 64 channels, eight warps of two
-//   tile rows each (the m-tiles share every B fragment). fp32 operands
-//   double the bf16 kernel's bytes: all nine taps' weights (147 KB) and an
-//   18x18 haloed tile (83 KB) cannot both stay, so K streams in chunks of 8
-//   input channels (one k8 step per tap): a two-stage cp.async ring of raw
-//   fp32 chunks (the tile's 8 channels at a 12-float pitch, their 9 x 8 x 64
-//   weights) copies chunk c + 1 while chunk c computes.
-// - The weights are split once per chunk, for all warps, into (hi, lo)
-//   pairs at a 68-pair pitch, read as one 8 B load per B element; the
-//   activations are split as each A fragment is loaded (8 values a warp
-//   per k8 step against 48 mma).
-// - 107 KB of shared memory and at most 128 registers a thread: two blocks
-//   an SM.
+// conv3x3_tf32_wgmma_kernel, the model's fp32 calls (the MIXED and FP32
+// rungs: C_in = C_out = 64, ReLU, fp32 out): the same implicit GEMM on
+// Hopper's warpgroup MMA in 3xTF32. One TF32 product keeps 10 mantissa bits
+// of each operand and misses the fp32 gate of 1e-4
+// (tests/test_torch_conv_kernels.py measures it); each operand is split by
+// truncation into hi (x with its low 13 bits cleared) and lo = x - hi, and
+// hi.lo + lo.hi + hi.hi in fp32 keeps about fp32's precision at three
+// wgmma m64n64k8 products (lo.lo dropped, the small terms first).
+// - One block per 16x16 output tile of one image (a tile never spans two,
+//   so an image's result does not depend on its batch) and all 64
+//   channels: two warpgroups, each warp two tile rows of 16 pixels, one m64
+//   product each (a warpgroup's product is four tile rows: warp w's 16
+//   rows of the accumulator are the 16 pixels of its row).
+// - A from registers: a warp's m16n8k8 tf32 A fragment of tap (dy, dx) is
+//   read from the haloed tile at that offset and split as it loads, so no
+//   im2col copy exists. B, the weights, from shared memory, K-major: wgmma
+//   reads a tf32 operand in shared memory K-major only, and HWIO is
+//   [tap][ci][co], N-major; so the block splits each chunk's raw weights
+//   into hi and lo planes, each [co][k] in 128 B swizzle (three [64][32]
+//   halves, four taps' 8 channels a half, a tap's k8 step 32 B along it:
+//   hopper.cuh:desc_step_f32). No K-major copy exists in device memory, and
+//   the converter, the .pth path and exported programs keep HWIO.
+// - fp32 operands: all nine taps' weights (147 KB, and as much again for
+//   their lo) and a haloed tile do not stay, so K streams in chunks of 8
+//   input channels (one k8 step per tap) through a two-stage cp.async ring
+//   of raw fp32 (the tile's 8 channels, a pixel's two 16 B units swapped on
+//   every other run of four pixels so an A fragment's loads fall in 32
+//   banks, and their 9 x 8 x 64 weights), zeros for the SAME padding and
+//   past the image.
+// - 107,776 B of shared memory and at most 128 registers a thread: two
+//   blocks an SM, one splitting its weights while the other multiplies.
 // - Epilogue in registers: fp32 acc + fp32 bias, ReLU, the pool max across
-//   the thread's two rows and the lane 4 apart, 2-value fp32 stores masked
-//   per pixel (any H and W: 360x488 gives a 488-wide conv1b).
+//   the thread's two rows (its two products) and the lane 4 apart, 2-value
+//   fp32 stores masked per pixel (any H and W: 360x488 gives a 488-wide
+//   conv1b).
 // - What bounds it: the tensor cores at three TF32 products per MAC (3 x 68
 //   GFLOP per pair at 495 TFLOP/s: 0.41 ms), below the fp32 FMA units'
 //   1.01 ms for the same sums.
@@ -133,7 +145,7 @@
 //   on an NVIDIA H100 80GB HBM3 at 700 W, above the fp32 FMA units' 0.51
 //   ms; this kernel 0.76 ms there, 27 % of its bound (PERF.md).
 
-#include "mma.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -506,116 +518,143 @@ int launch_igemm(const void* x, const void* w, const void* bias, void* y, int B,
 }
 
 // ---------------------------------------------------------------------------
-// The model's fp32 64 -> 64 ReLU conv on the tensor cores: 3xTF32
+// The model's fp32 64 -> 64 ReLU conv on Hopper's warpgroup MMA: 3xTF32
 // ---------------------------------------------------------------------------
 
 constexpr int XK = 8;          // input channels per K chunk: one k8 step per tap
-constexpr int XPA = XK + 4;    // fp32 pixel pitch of a chunk's input tile (48 B): the
-                               // eight pixels of an A fragment column fall in different banks
-constexpr int XPN = C + 4;     // (hi, lo) pair pitch of the split weights (68 pairs): a
-                               // half-warp's B pairs fall in different bank pairs
-constexpr int XT = 16;         // output tile side (pre-pool)
-constexpr int XH = XT + 2;     // haloed input tile side
-constexpr int XWARPS = XT / 2;  // warps of a block: two tile rows each
-constexpr int XTHREADS = XWARPS * 32;
-constexpr int XPIX = XH * XH;
-constexpr int XSTAGE = XPIX * XPA + 9 * XK * C;  // floats of a raw ring stage
-constexpr size_t TF32X3_SMEM =
-    sizeof(float) * 2 * XSTAGE + sizeof(float2) * 9 * XK * XPN;  // 107,136 B
+constexpr int XPA = XK + 4;    // the generic kernel's fp32 pixel pitch (48 B): the eight
+                               // pixels of an A fragment column fall in different banks
+constexpr int XPN = C + 4;     // the generic kernel's (hi, lo) pair pitch of the split
+                               // weights (68 pairs): a half-warp's B pairs in different banks
+constexpr int WT = 16;         // the wgmma conv's output tile side (pre-pool)
+constexpr int WH = WT + 2;     // its haloed input tile side
+constexpr int WTHREADS = 256;  // two warpgroups: tile rows 8 wg .. 8 wg + 7
+constexpr int WPIX = WH * WH;
+// floats of a raw ring stage: the haloed tile's 8 channels at 8 floats a
+// pixel, then their nine taps' weights as copied ([9][8][64])
+constexpr int WX = WPIX * XK;
+constexpr int WSTAGE = WX + 9 * XK * C;
+// floats of a split weight plane (hi or lo): three K-major [64 co][32] halves
+// in 128 B swizzle, tap t's 8 channels at floats 8 (t % 4).. of half t / 4
+constexpr int WPLANE = 3 * C * 32;
+constexpr size_t WGMMA_CONV_SMEM = sizeof(float) * (2 * WPLANE + 2 * WSTAGE) + 1024;  // 107,776 B
 
-// One block per 16x16 output tile and all 64 channels; 128 registers a
-// thread at most, so that two blocks (and their 107 KB of shared memory)
-// share an SM.
-__global__ void __launch_bounds__(XTHREADS, 2)
-conv3x3_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                      const float* __restrict__ bias, float* __restrict__ y, int H, int W,
-                      int pool) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  // [2] x {[XPIX][XPA] input chunk, [9 * XK][C] its taps' weights}, as copied
-  float* raw = reinterpret_cast<float*>(smem_raw);
-  // [9 * XK][XPN] (hi, lo) of the chunk's weights, split once for all warps
-  float2* ws = reinterpret_cast<float2*>(raw + 2 * XSTAGE);
+// a pixel's two 16 B units (channels 0..3, 4..7) of a chunk's input tile,
+// swapped on pixels p with p / 4 odd, so the eight pixels an A fragment
+// column reads fall in 32 different banks: the float offset of channel ch
+__device__ __forceinline__ int conv_px(int p, int ch) {
+  return p * XK + ((ch / 4) ^ ((p >> 2) & 1)) * 4 + ch % 4;
+}
+
+// One block per 16x16 output tile and all 64 channels: two warpgroups, each
+// warp two tile rows of 16 pixels (one m64 product each, rows 2 warp and 2
+// warp + 1: a pool window's rows in one thread, its columns in lanes 4
+// apart). K streams in chunks of 8 input channels through a two-stage
+// cp.async ring of raw fp32 (the chunk's haloed tile and its nine taps'
+// weights); the block splits each chunk's weights once into K-major hi and
+// lo planes in wgmma's 128 B-swizzled layout (the B operand: B[ci][co] at
+// row co), and each warp splits its A fragments in registers as they load
+// from the haloed tile at the tap's offset (the register-A operand: rows
+// are pixels, k the chunk's channels): per tap A_hi.B_lo, A_lo.B_hi,
+// A_hi.B_hi on wgmma m64n64k8, fp32 sums. 128 registers a thread at most,
+// so that two blocks (and their 107 KB of shared memory) share an SM.
+__global__ void __launch_bounds__(WTHREADS, 2)
+conv3x3_tf32_wgmma_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                          const float* __restrict__ bias, float* __restrict__ y, int H, int W,
+                          int pool) {
+  extern __shared__ __align__(1024) unsigned char conv_raw[];
+  float* const wh = reinterpret_cast<float*>(lg::align1024(conv_raw));  // hi plane
+  float* const wl = wh + WPLANE;                                         // lo plane
+  float* const raw = wl + WPLANE;                                        // [2][WSTAGE]
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;  // tile rows 2 warp + {0, 1}
-  const int g = lane / 4, t4 = lane % 4;  // mma fragment row and column
-  const int x0 = blockIdx.x * XT, y0 = blockIdx.y * XT, b = blockIdx.z;
+  const int g = lane / 4, t4 = lane % 4;  // fragment row and column
+  const int x0 = blockIdx.x * WT, y0 = blockIdx.y * WT, b = blockIdx.z;
   constexpr int chunks = C / XK;
 
   // chunk c's raw stage: channels c * XK.. of the haloed tile (zeros outside
   // the image) and their nine taps' weights
   auto stage = [&](int c) {
-    float* xs = raw + c % 2 * XSTAGE;
-    float* wr = xs + XPIX * XPA;
+    float* xs = raw + c % 2 * WSTAGE;
+    float* wr = xs + WX;
     const int c0 = c * XK;
-    for (int s = tid; s < XPIX * (XK / 4); s += XTHREADS) {
-      const int p = s / (XK / 4), k4 = s % (XK / 4) * 4;
-      const int gy = y0 - 1 + p / XH, gx = x0 - 1 + p % XH;
-      float* d = xs + p * XPA + k4;
+    for (int s = tid; s < WPIX * 2; s += WTHREADS) {
+      const int p = s / 2, u = s % 2;
+      const int gy = y0 - 1 + p / WH, gx = x0 - 1 + p % WH;
+      float* d = xs + conv_px(p, 4 * u);
       if (gy >= 0 && gy < H && gx >= 0 && gx < W)
-        lg::cp_async16(d, x + (((size_t)b * H + gy) * W + gx) * C + c0 + k4);
+        lg::cp_async16(d, x + (((size_t)b * H + gy) * W + gx) * C + c0 + 4 * u);
       else
         *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
     }
-    for (int s = tid; s < 9 * XK * (C / 4); s += XTHREADS) {
+    for (int s = tid; s < 9 * XK * (C / 4); s += WTHREADS) {
       const int r = s / (C / 4), n4 = s % (C / 4) * 4;  // r = tap * XK + channel in chunk
       lg::cp_async16(wr + r * C + n4, w + ((size_t)(r / XK) * C + c0 + r % XK) * C + n4);
     }
   };
 
-  // acc[m][n]: tile row 2 * warp + m, channels n * 8.., fp32 over 9 x 64
-  float acc[2][C / 8][4];
+  // acc[m]: tile row 2 * warp + m, the m64n64 accumulator (pixel g + 8 (e /
+  // 2) % 2, channel 8 (e / 4) + 2 t4 + e % 2), fp32 over 9 x 64
+  float acc[2][32];
 #pragma unroll
   for (int m = 0; m < 2; ++m)
 #pragma unroll
-    for (int n = 0; n < C / 8; ++n) acc[m][n][0] = acc[m][n][1] = acc[m][n][2] = acc[m][n][3] = 0.f;
+    for (int e = 0; e < 32; ++e) acc[m][e] = 0.f;
 
   stage(0);
   lg::cp_async_commit();
   for (int c = 0; c < chunks; ++c) {
     lg::cp_async_wait<0>();  // this thread's copies of chunk c have landed
-    __syncthreads();         // everyone's, and chunk c - 1 is no longer read
+    __syncthreads();         // everyone's, and chunk c - 1's planes and stage are read
     if (c + 1 < chunks) stage(c + 1);
     lg::cp_async_commit();
-    const float* xs = raw + c % 2 * XSTAGE;
-    {  // split the chunk's weights into (hi, lo) pairs
-      const float4* wr = reinterpret_cast<const float4*>(xs + XPIX * XPA);
-      for (int s = tid; s < 9 * XK * (C / 4); s += XTHREADS) {
-        const float4 v = wr[s];
+    const float* xs = raw + c % 2 * WSTAGE;
+    {  // the chunk's weights split into the planes: item (tap, 4-channel group, co)
+      const float* wr = xs + WX;
+      for (int s = tid; s < 9 * 2 * C; s += WTHREADS) {
+        const int co = s % C, kg = s / C % 2, tap = s / (2 * C);
         unsigned h[4], l[4];
-        lg::split_tf32(v.x, h[0], l[0]);
-        lg::split_tf32(v.y, h[1], l[1]);
-        lg::split_tf32(v.z, h[2], l[2]);
-        lg::split_tf32(v.w, h[3], l[3]);
-        uint4* d = reinterpret_cast<uint4*>(ws + s / (C / 4) * XPN + s % (C / 4) * 4);
-        d[0] = make_uint4(h[0], l[0], h[1], l[1]);
-        d[1] = make_uint4(h[2], l[2], h[3], l[3]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) lg::split_tf32_rz(wr[(tap * XK + 4 * kg + e) * C + co], h[e], l[e]);
+        const int unit = 2 * (tap % 4) + kg;  // 16 B unit of row co in half tap / 4
+        const int at = tap / 4 * C * 32 + co * 32 + ((unit ^ (co % 8)) * 4);
+        *reinterpret_cast<uint4*>(wh + at) = make_uint4(h[0], h[1], h[2], h[3]);
+        *reinterpret_cast<uint4*>(wl + at) = make_uint4(l[0], l[1], l[2], l[3]);
       }
     }
+    lg::fence_proxy_async();  // the planes, written by threads, visible to wgmma
     __syncthreads();
-#pragma unroll
+    const uint64_t dh = lg::opaque(lg::kmajor_desc(wh, 0));
+    const uint64_t dl = lg::opaque(lg::kmajor_desc(wl, 0));
+#pragma unroll 1
     for (int tap = 0; tap < 9; ++tap) {
       const int dy = tap / 3, dx = tap % 3;
       unsigned ah[2][4], al[2][4];
 #pragma unroll
       for (int m = 0; m < 2; ++m) {  // 16 pixels of a row, shifted by the tap
-        const float* px = xs + ((2 * warp + m + dy) * XH + dx + g) * XPA + t4;
-        lg::split_tf32(px[0], ah[m][0], al[m][0]);                // pixel g, k t4
-        lg::split_tf32(px[8 * XPA], ah[m][1], al[m][1]);          // pixel g + 8
-        lg::split_tf32(px[4], ah[m][2], al[m][2]);                // k t4 + 4
-        lg::split_tf32(px[8 * XPA + 4], ah[m][3], al[m][3]);
+        const int p = (2 * warp + m + dy) * WH + dx + g;  // pixel g; pixel g + 8 is p + 8
+        lg::split_tf32_rz(xs[conv_px(p, t4)], ah[m][0], al[m][0]);
+        lg::split_tf32_rz(xs[conv_px(p + 8, t4)], ah[m][1], al[m][1]);
+        lg::split_tf32_rz(xs[conv_px(p, t4 + 4)], ah[m][2], al[m][2]);
+        lg::split_tf32_rz(xs[conv_px(p + 8, t4 + 4)], ah[m][3], al[m][3]);
       }
-      const float2* wk = ws + (tap * XK + t4) * XPN + g;  // k t4, column g
+      const uint64_t bh = lg::desc_step_f32(dh, C, tap), bl = lg::desc_step_f32(dl, C, tap);
 #pragma unroll
-      for (int n = 0; n < C / 8; ++n) {
-        const float2 w0 = wk[n * 8], w1 = wk[4 * XPN + n * 8];  // k t4 and t4 + 4
-        const unsigned bh0 = __float_as_uint(w0.x), bl0 = __float_as_uint(w0.y);
-        const unsigned bh1 = __float_as_uint(w1.x), bl1 = __float_as_uint(w1.y);
+      for (int m = 0; m < 2; ++m) lg::fence_operand(acc[m]);
+      lg::wgmma_fence();
 #pragma unroll
-        for (int m = 0; m < 2; ++m) {  // the small terms first, lo * lo dropped
-          lg::mma_tf32(acc[m][n], ah[m], bl0, bl1);
-          lg::mma_tf32(acc[m][n], al[m], bh0, bh1);
-          lg::mma_tf32(acc[m][n], ah[m], bh0, bh1);
-        }
+      for (int m = 0; m < 2; ++m) lg::wgmma_tf32_m64n64_rs(acc[m], ah[m], bl, 1);
+#pragma unroll
+      for (int m = 0; m < 2; ++m) lg::wgmma_tf32_m64n64_rs(acc[m], al[m], bh, 1);
+#pragma unroll
+      for (int m = 0; m < 2; ++m) lg::wgmma_tf32_m64n64_rs(acc[m], ah[m], bh, 1);
+      lg::wgmma_commit();
+      lg::wgmma_wait<0>();
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        lg::fence_operand(acc[m]);
+        lg::fence_operand(ah[m]);
+        lg::fence_operand(al[m]);
       }
     }
   }
@@ -632,12 +671,12 @@ conv3x3_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
     for (int n = 0; n < C / 8; ++n)
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {  // fragment rows g and g + 8
+      for (int i = 0; i < 2; ++i) {  // pixels g and g + 8
         float v[2];
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
-          v[j] = fmaxf(fmaxf(acc[0][n][2 * i + j] + bv[n][j], 0.f),
-                       fmaxf(acc[1][n][2 * i + j] + bv[n][j], 0.f));
+          v[j] = fmaxf(fmaxf(acc[0][4 * n + 2 * i + j] + bv[n][j], 0.f),
+                       fmaxf(acc[1][4 * n + 2 * i + j] + bv[n][j], 0.f));
           v[j] = fmaxf(v[j], __shfl_xor_sync(0xffffffffu, v[j], 4));  // the column pair
         }
         const int ox = x0 / 2 + (g + 8 * i) / 2;
@@ -655,25 +694,25 @@ conv3x3_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
           const int gx = x0 + g + 8 * i;
           if (gy < H && gx < W)
             lg::store2(y + (((size_t)b * H + gy) * W + gx) * C + n * 8 + 2 * t4,
-                       fmaxf(acc[m][n][2 * i] + bv[n][0], 0.f),
-                       fmaxf(acc[m][n][2 * i + 1] + bv[n][1], 0.f));
+                       fmaxf(acc[m][4 * n + 2 * i] + bv[n][0], 0.f),
+                       fmaxf(acc[m][4 * n + 2 * i + 1] + bv[n][1], 0.f));
         }
     }
   }
 }
 
-int launch_tf32x3(const void* x, const void* w, const void* bias, void* y, int B, int H, int W,
-                  int pool, cudaStream_t stream) {
+int launch_tf32_wgmma(const void* x, const void* w, const void* bias, void* y, int B, int H,
+                      int W, int pool, cudaStream_t stream) {
   // x and w are read 16 B at a time
   if (reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(w) % 16)
     return static_cast<int>(cudaErrorMisalignedAddress);
   // above 48 KB: opt in once
   static const cudaError_t opt_in = cudaFuncSetAttribute(
-      conv3x3_tf32x3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(TF32X3_SMEM));
+      conv3x3_tf32_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(WGMMA_CONV_SMEM));
   if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
-  dim3 grid((W + XT - 1) / XT, (H + XT - 1) / XT, B);
-  conv3x3_tf32x3_kernel<<<grid, XTHREADS, TF32X3_SMEM, stream>>>(
+  dim3 grid((W + WT - 1) / WT, (H + WT - 1) / WT, B);
+  conv3x3_tf32_wgmma_kernel<<<grid, WTHREADS, WGMMA_CONV_SMEM, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(w),
       static_cast<const float*>(bias), static_cast<float*>(y), H, W, pool);
   return static_cast<int>(cudaGetLastError());
@@ -875,9 +914,20 @@ extern "C" int lg_conv3x3(const void* x, const void* w, const void* bias,
     return (bf16_out ? launch_igemm<bf16_t> : launch_igemm<float>)(x, w, bias, y, B, H, W, Cin,
                                                                    Cout, pool, relu, s);
   }
-  if (model) return launch_tf32x3(x, w, bias, y, B, H, W, pool, s);
+  if (model) return launch_tf32_wgmma(x, w, bias, y, B, H, W, pool, s);
   return (bf16_out ? launch_tf32x3_generic<bf16_t> : launch_tf32x3_generic<float>)(
       x, w, bias, y, B, H, W, Cin, Cout, pool, relu, s);
+}
+
+// The model's fp32 conv's launch at (B, H, W): out = {tile rows, threads,
+// blocks, dynamic shared memory in bytes} (kernels/conv.py:model_conv_plan
+// mirrors it)
+extern "C" int lg_conv_model_tile(int B, int H, int W, int* out) {
+  out[0] = WT;
+  out[1] = WTHREADS;
+  out[2] = B * ((W + WT - 1) / WT) * ((H + WT - 1) / WT);
+  out[3] = static_cast<int>(WGMMA_CONV_SMEM);
+  return 0;
 }
 
 // A generic launch's tile at (B, H, W, Cout): bf16 operands

@@ -1,7 +1,8 @@
 // Hopper's asynchronous machinery, shared by the warp-specialised kernels
-// (attention.cu:attention_wgmma_kernel, linear.cu:linear_wgmma_kernel and
-// linear_tf32_wgmma_kernel, flash_attn.cu:flash_wgmma_kernel and
-// flash_tf32_wgmma_kernel):
+// (attention.cu:attention_wgmma_kernel and attention_tf32_wgmma_kernel,
+// linear.cu:linear_wgmma_kernel and linear_tf32_wgmma_kernel,
+// flash_attn.cu:flash_wgmma_kernel and flash_tf32_wgmma_kernel) and, for
+// its wgmma pieces alone, conv3x3.cu:conv3x3_tf32_wgmma_kernel:
 //
 // - TMA: a tensor map (CUtensorMap) encoded on the host per launch by
 //   libcuda's cuTensorMapEncodeTiled, looked up through the runtime

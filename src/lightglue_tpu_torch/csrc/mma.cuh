@@ -14,11 +14,11 @@
 //   and mma.sync m16n8k16 with bf16 operands and fp32 sums; mma.sync
 //   m16n8k32 with s8 operands and s32 sums (linear.cu's W8A8 GEMM);
 //   mma.sync m16n8k8 with tf32 operands and the 3xTF32 split of an fp32
-//   value, rounded (the fp32 model conv) or truncated (the generic fp32
-//   conv, the fp32 chain, the fp32 kernels of attention.cu and
-//   bidir_cross.cu; the split also feeds the wgmma fp32 kernels of
-//   flash_attn.cu and linear.cu, hopper.cuh);
-// - the 3xTF32 attention block of those two attention kernels: Q split
+//   value by truncation (split_tf32_rz: the generic fp32 conv, the fp32
+//   chain, bidir_cross.cu's fp32 kernel; the split also feeds the wgmma
+//   fp32 kernels of flash_attn.cu, linear.cu, attention.cu and conv3x3.cu's
+//   model conv, hopper.cuh);
+// - the 3xTF32 attention block of bidir_cross.cu's fp32 kernel: Q split
 //   once into fragments (tf32_q_frags), S over a chunk (tf32_scores), P.V
 //   from the S accumulator (tf32_pv), the split warps' meeting in shared
 //   memory (meet_max, meet_sums);
@@ -79,8 +79,7 @@ constexpr size_t mma_smem(int C, int stages, int G = 0) {
 
 // the same for the fp32 (3xTF32) attention block of G 16-row groups (G * C
 // warps; 0: WARPS / C): fp32 Q and chunks at pitch FP
-// (kernels/layer_stack.py:tf32_smem mirrors it for the three fp32 attention
-// kernels' plans)
+// (kernels/layer_stack.py:tf32_smem mirrors it for bidir_cross.cu's fp32 plan)
 constexpr size_t tf32_smem(int C, int stages, int G = 0) {
   const int groups = G ? G : WARPS / C;
   return sizeof(float) * (size_t)(16 * groups + 2 * KC * stages) * FP +
@@ -196,23 +195,9 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4], unsi
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// x rounded to TF32 (10 mantissa bits, to nearest, ties away from zero):
-// the bits an mma.sync .tf32 operand reads
-__device__ __forceinline__ unsigned tf32(float x) {
-  unsigned r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// the 3xTF32 split of x: hi = tf32(x), lo = tf32(x - hi) (x - hi is exact);
-// hi * hi + hi * lo + lo * hi keeps about fp32's precision
-__device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) {
-  hi = tf32(x);
-  lo = tf32(x - __uint_as_float(hi));
-}
-
-// The same split by truncation (CUTLASS's round-toward-zero "fast fp32"):
-// hi = x with its low 13 bits cleared, lo = x - hi (exact), passed as it is;
+// The 3xTF32 split of x by truncation (CUTLASS's round-toward-zero "fast
+// fp32"): hi = x with its low 13 bits cleared, lo = x - hi (exact), passed
+// as it is, and hi * hi + hi * lo + lo * hi keeps about fp32's precision;
 // mma.sync reads the top 19 bits of a .tf32 operand, so lo loses at most
 // its low bits in the product, ~2^-21 of x (the rounding split's ~2^-23),
 // for two integer/float instructions where each cvt.rna takes several
@@ -247,8 +232,7 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4], const unsigned (&ah)[4
 }
 
 // ---------------------------------------------------------------------------
-// The 3xTF32 attention block (attention.cu:attention_tf32_kernel,
-// bidir_cross.cu:bidir_tf32_kernel): a
+// The 3xTF32 attention block (bidir_cross.cu:bidir_tf32_kernel): a
 // warp owns 16 query rows; g = lane / 4, t4 = lane % 4 as in mma_tf32
 // ---------------------------------------------------------------------------
 

@@ -52,6 +52,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "lg_conv3x3": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "lg_conv_tile": [_I, _I, _I, _I, _I, ctypes.POINTER(_I)],
+    "lg_conv_model_tile": [_I, _I, _I, ctypes.POINTER(_I)],
     "lg_conv2_chain": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "lg_chain_plan": [_I, _I, _I, _I, ctypes.POINTER(_I)],
     "lg_nms_candidates": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],

@@ -22,9 +22,11 @@ and one cast). With bf16 operands: the model's 64 -> 64 ReLU calls with the
 input tile and all nine taps' weights resident in shared memory, every other
 shape and option with K streamed in 16-channel chunks over a tile that
 ``conv_plan`` sizes. With fp32 operands, in 3xTF32 (each operand split into
-two TF32 values, three ``mma.sync`` products per step, about fp32's
-precision): the model's 64 -> 64 ReLU calls (the MIXED and FP32 rungs) on
-16x16 tiles, every other call with K streamed in 8-channel chunks over
+two TF32 values, three products per step, about fp32's precision): the
+model's 64 -> 64 ReLU calls (the MIXED and FP32 rungs) on Hopper's
+warpgroup MMA, 16x16 tiles with the weights split per K chunk into K-major
+planes and the activations taken as register A (``model_conv_plan``),
+every other call on ``mma.sync`` with K streamed in 8-channel chunks over
 12x16 tiles (``conv_plan``). On a CPU tensor it runs ``conv3x3_plain``.
 Both are the implementations of the operator ``lightglue_tpu_torch::conv3x3``
 (``_build.define_op``).
@@ -83,6 +85,28 @@ def conv_plan(b: int, h: int, w: int, cout: int, dtype=torch.bfloat16) -> ConvPl
         stage = halo(rows) * (CONV_K_CHUNK + 8) + 9 * CONV_K_CHUNK * (CONV_TILE_N + 8)
         smem = 2 * CONV_STAGES * stage
     return ConvPlan(rows, rows // 2 * 32, per_row * -(-h // rows), smem)
+
+
+# csrc/conv3x3.cu's model fp32 conv (conv3x3_tf32_wgmma_kernel): the output
+# tile side and its threads (two warpgroups)
+CONV_MODEL_TILE = 16
+CONV_MODEL_THREADS = 256
+
+
+def model_conv_plan(b: int, h: int, w: int) -> ConvPlan:
+    """The launch of the model's fp32 64 -> 64 ReLU conv
+    (``conv3x3_tf32_wgmma_kernel``), as ``lg_conv_model_tile`` reports it:
+    one block of two warpgroups per 16x16 output tile of one image (a tile
+    never spans two images, so an image's result does not depend on its
+    batch); its shared memory two raw stages of a K chunk (the haloed 18x18
+    tile's 8 channels at 8 floats a pixel, their 9 x 8 x 64 weights) and the
+    chunk's weights split into hi and lo planes (three 64 x 32 halves each),
+    1 KB to align the planes to 1024 B: two blocks an SM."""
+    side = CONV_MODEL_TILE
+    stage = (side + 2) ** 2 * CONV_K_CHUNK_FP32 + 9 * CONV_K_CHUNK_FP32 * CONV_TILE_N
+    plane = 3 * CONV_TILE_N * 32
+    smem = 4 * (2 * plane + CONV_STAGES * stage) + 1024
+    return ConvPlan(side, CONV_MODEL_THREADS, b * -(-h // side) * -(-w // side), smem)
 
 
 def _pick_rows(h: int) -> int:

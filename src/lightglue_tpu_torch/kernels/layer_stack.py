@@ -26,9 +26,10 @@ loop over the layers launches, per layer and image, the kernels of
   both cross-attention directions (one launch each), one softmax over the
   whole row (N <= 1024). Bound by the tensor cores (1.07 GFLOP per call at
   B = 1, H = 4, N = 1024). Both operand types run ``flash_attn.cu``'s
-  machinery (``csrc/mma.cuh``) at one tile of Nk keys: two passes (row
-  max, then p, sum p and P.V), at the row groups ``attention_plan`` gives;
-  RoPE first, once, into a scratch. It keeps the stack's contract where
+  design on Hopper's warpgroup MMA (``csrc/hopper.cuh``) at one tile of Nk
+  keys: two passes (row max, then p, sum p and P.V), consumers splitting
+  each 64-row tile's chunks as ``attention_plan`` gives; RoPE first, once,
+  into a scratch. It keeps the stack's contract where
   the flash kernel's differs: acc is never rounded (P.V / l in fp32, one
   cast to T), the row max is clamped at -5e29 when masked, dead columns
   are -1e30 in every chunk under keep masks, keep and liveness operands
@@ -43,11 +44,13 @@ loop over the layers launches, per layer and image, the kernels of
 
 fp32 operands (the FP32 rung) run on the tensor cores in 3xTF32 (each
 operand split into two TF32 parts, three products a product; one TF32
-product would miss the rung's 1e-4 gate): ``linear`` on Hopper's warpgroup
-MMA as the transposed product Y^T = W^T . X^T (a tf32 operand in shared
-memory is read K-major only, and the weights are stored (K, N)) at
-``linear_plan``'s fp32 tile, ``attention`` on ``mma.sync`` m16n8k8 with
-fp32 chunks at ``tf32_smem``.
+product would miss the rung's 1e-4 gate), both on Hopper's warpgroup MMA:
+``linear`` as the transposed product Y^T = W^T . X^T (a tf32 operand in
+shared memory is read K-major only, and the weights are stored (K, N)) at
+``linear_plan``'s fp32 tile, ``attention`` in the bf16 kernel's shape with
+fp32 pieces of 32 keys, Q and K K-major as TMA writes them, P from the S
+accumulator as register A and V transposed by the consumers
+(``attention_plan``, ``tf32_split``, ``wgmma_tf32_attention_smem``).
 
 Every rung of the precision ladder runs on the card (``_LINEAR_MODES`` and
 ``_ATTENTION_MODES`` list the operand types each kernel takes):
@@ -109,8 +112,10 @@ _WG_BK, _WG_STAGES, _WG_TILE_N, _WG_FILL = 64, 4, (64, 32), 128
 _TF_DEEP, _TF_SHALLOW, _TF_SMS = 4, 2, 132
 # csrc/attention.cu: the bf16 kernel's consumers splitting each row's
 # chunks, consumer warpgroups a block, ring slots per warpgroup, the SMs
-# that clusters of two blocks a tile must fit (else one block a tile)
+# that clusters of two blocks a tile must fit (else one block a tile); the
+# fp32 kernel's keys a ring slot holds
 _ATT_SPLIT, _ATT_WGS, _ATT_STAGES, _ATT_CLUSTER_SMS = 8, 4, 2, 132
+_ATT_PIECE_KEYS = 32
 # csrc/linear.cu, W8A8: the s8 GEMM's warp tiles of a block (along M, along
 # N; 32 x 32 outputs each) in order of preference, the blocks its plan aims
 # for (about one per SM), the widest K it takes, the warps of a block
@@ -192,11 +197,35 @@ def wgmma_attention_smem(store: bool = True, cluster: bool = True) -> int:
             + 8 * (1 + 2 * _ATT_WGS * _ATT_STAGES) + 1024)
 
 
+def tf32_split(heads: int, nq: int) -> int:
+    """Consumers splitting each 64-row tile's chunks in the fp32 stack
+    attention (csrc/attention.cu:tf32_split): 8 where one pair's tiles, two
+    blocks each, fit the card's SMs (then always a cluster of two blocks a
+    tile), else 4 (one block a tile). One pair's shape sets it, never the
+    batch, which only adds blocks: a row's fp32 sums run in one order at any
+    batch."""
+    return 8 if 2 * heads * -(-nq // 64) <= _ATT_CLUSTER_SMS else 4
+
+
+def wgmma_tf32_attention_smem() -> int:
+    """Dynamic shared memory of a block of the fp32 stack attention
+    (csrc/attention.cu:TfSmem), the same in either form: Q (64 x 64 fp32)
+    and its lo copy; each warpgroup's region, its one ring slot (a 32-key
+    piece of K and of V), K's lo copy, V's piece transposed as hi and lo
+    (32 x 64 fp32 each; the P.V partial goes over these three); the
+    warpgroups' partial row max and sum p; the block's row max; the
+    barriers; 1 KB to align the tiles to 1024 B."""
+    tile, piece = 4 * 64 * HEAD_DIM, 4 * _ATT_PIECE_KEYS * HEAD_DIM
+    region = 2 * piece + 3 * piece
+    return (2 * tile + region * _ATT_WGS + 2 * 4 * _ATT_WGS * 64 + 4 * 64
+            + 8 * (1 + 2 * _ATT_WGS) + 1024)
+
+
 class AttentionPlan(NamedTuple):
     """Launch of ``csrc/attention.cu`` for one shape."""
 
-    row_groups: int  # 16-row groups per block: 4, 2 or 1 (bf16: 4, a warpgroup's 64 rows)
-    col_split: int   # warps (fp32) or warpgroups (bf16, of a cluster) that split each row's keys
+    row_groups: int  # 16-row groups of a tile: 4, a warpgroup's 64 rows
+    col_split: int   # consumer warpgroups (of a cluster) that split each row's keys
     blocks: int      # blocks of the launch
     smem: int        # dynamic shared memory per block, bytes
     kernel: str      # the kernel the launch runs
@@ -215,13 +244,10 @@ def attention_plan(batch: int, heads: int, nq: int, nk: int, dtype=torch.bfloat1
     (one pair of 1024: 128 blocks), else one block whose warpgroups run two
     consumers each; both add the same values in the same order, so a pair's
     rows are the same in either. fp32 operands:
-    ``attention_tf32_kernel``, each chunk's keys split ``4 /
-    fill_row_groups`` ways, one pair's split at every batch; one pair's
-    16-row groups per block (four warps in all), or, while the batch's
-    launch still gives 128 blocks, two or four times as many groups of that
-    split in one block of up to sixteen warps (more rows share each staged K
-    and V chunk; no row's arithmetic changes; at one pair of 1024, 128
-    eight-warp blocks), two fp32 K/V chunk buffers at ``tf32_smem``. Shared
+    ``attention_tf32_wgmma_kernel``, the same shape in 3xTF32, each tile's
+    chunks split ``tf32_split`` ways from one pair's shape, a split of 8 as
+    a cluster of two blocks, 4 as one block, at every batch, fed by 32-key
+    pieces (``wgmma_tf32_attention_smem``). Shared
     memory does not grow with Nk. Raises past the contract's N <= 1024."""
     if nk > MAX_SEQ:
         raise ValueError(f"attention: {nk} keys exceed the layer stack's {MAX_SEQ}")
@@ -231,9 +257,9 @@ def attention_plan(batch: int, heads: int, nq: int, nk: int, dtype=torch.bfloat1
         cluster = 2 * tiles <= _ATT_CLUSTER_SMS
         return AttentionPlan(4, _ATT_SPLIT, tiles * (2 if cluster else 1),
                              wgmma_attention_smem(store, cluster), "attention_wgmma_kernel")
-    groups, split = batch_row_groups(batch, heads, nq, grow=_FILL_BLOCKS // 2)
-    return AttentionPlan(groups, split, batch * heads * -(-nq // (16 * groups)),
-                         tf32_smem(groups, _STREAM_STAGES, split), "attention_tf32_kernel")
+    split = tf32_split(heads, nq)
+    return AttentionPlan(4, split, batch * heads * -(-nq // 64) * (2 if split == 8 else 1),
+                         wgmma_tf32_attention_smem(), "attention_tf32_wgmma_kernel")
 
 
 class LinearPlan(NamedTuple):
@@ -737,12 +763,12 @@ def _attention_cuda(q, k, v, freqs, len_q, len_kv, num_heads, stat_dtype, out_dt
         keep_q, keep_kv = keep_q.contiguous(), keep_kv.contiguous()
     if live is not None and live.exit.shape != (bsz,):
         raise ValueError(f"attention: exit register {tuple(live.exit.shape)} for B={bsz}")
-    if mode != 0:  # the bf16 kernel reads q, k and v through TMA
-        for t in (q, k, v):
-            if t.data_ptr() % 16 or t.stride(1) % 8 or (bsz > 1 and t.stride(0) % 8):
-                raise ValueError(f"attention: an operand TMA cannot address (base "
-                                 f"{t.data_ptr():#x}, strides {t.stride()}): 16 B bases "
-                                 "and row and batch strides")
+    unit = 16 // q.element_size()  # both kernels read q, k and v through TMA
+    for t in (q, k, v):
+        if t.data_ptr() % 16 or t.stride(1) % unit or (bsz > 1 and t.stride(0) % unit):
+            raise ValueError(f"attention: an operand TMA cannot address (base "
+                             f"{t.data_ptr():#x}, strides {t.stride()}): 16 B bases "
+                             "and row and batch strides")
     out = torch.empty((bsz, nq, e), dtype=out_dtype or q.dtype, device=q.device)
     if freqs is not None:
         # RoPE once per row into a scratch (2, B, N, E), which the kernel reads

@@ -59,16 +59,16 @@ def test_flash_split_is_the_pairs(n, block_k, dtype):
 
 
 def test_stack_blocks_keep_the_pairs_split():
-    """The fp32 stack attention may put two or four 16-row groups in one
-    block of eight or sixteen warps where the batch's launch has blocks to
-    spare, each group with its pair's four-way split; the bf16 one keeps
-    its split (64 rows, eight consumers splitting each row's keys, in a
-    cluster of two blocks or in one block: the same sums) at every batch,
-    and the bf16 projection keeps its tile (one pair's rows)."""
-    for dtype, (one, two, four) in ((torch.float32, ((1, 4), (2, 4), (4, 4))),
-                                    (torch.bfloat16, ((4, 8), (4, 8), (4, 8)))):
+    """Both stack attention kernels keep one pair's split at every batch:
+    64 rows, eight consumers splitting each row's keys, the bf16 one in a
+    cluster of two blocks or in one block (the same sums), the fp32 one
+    always in a cluster (its form, like its split, from one pair's shape);
+    the batch only adds blocks. The bf16 projection keeps its tile (one
+    pair's rows)."""
+    for dtype, form in ((torch.float32, (2, 2, 2)), (torch.bfloat16, (2, 2, 1))):
         plans = [layer_stack.attention_plan(b, HEADS, 512, 512, dtype) for b in (1, 2, 4)]
-        assert [p[:2] for p in plans] == [one, two, four]
+        assert [p[:2] for p in plans] == [(4, 8)] * 3
+        assert [p.blocks // (b * HEADS * 8) for b, p in zip((1, 2, 4), plans)] == list(form)
     tiles = [layer_stack.linear_plan(b * 512, 256, 256, rows=512)[:2] for b in BATCHES]
     assert tiles == [layer_stack.linear_plan(512, 256, 256)[:2]] * len(BATCHES)
 

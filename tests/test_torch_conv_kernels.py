@@ -2,10 +2,12 @@
 csrc/conv_chain.cu on the CPU: the generic conv's launch plan at the shapes
 chip_smoke.py gives it, the premises of chip_smoke.py's rounding witnesses
 for both kernels, and the plain versions against JAX at the edge shapes
-(tests/test_torch_conv.py covers the others); and the fp32 model conv's
-3xTF32 design: the premise against JAX with the one-TF32 wrong design, the
-mma.sync m16n8k8 tf32 fragment maps as the kernel addresses them, and one
-tile computed through them."""
+(tests/test_torch_conv.py covers the others); the fp32 convs' 3xTF32
+design: the premise against JAX with the one-TF32 wrong design, the
+mma.sync m16n8k8 tf32 fragment maps as the generic fp32 conv addresses them;
+and the model's fp32 conv on wgmma: its input tile's bank spread, its launch
+plan, and one tile computed through its register-A fragments and K-major
+weight planes."""
 
 import importlib.util
 from pathlib import Path
@@ -18,7 +20,7 @@ import torch
 from lightglue_tpu.kernels import conv as jax_conv
 from lightglue_tpu.kernels import conv_chain as jax_chain
 from lightglue_tpu_torch.kernels import _build, conv, conv_chain
-from tf32_emulation import mma_tf32_maps, tf32
+from tf32_emulation import a_fragment_matrix, acc_at, b_operand, mma_tf32_maps, split_rz, tf32
 
 ROOT = Path(__file__).resolve().parents[1]
 BF16 = torch.bfloat16
@@ -275,7 +277,7 @@ def test_3xtf32_conv_premise(case):
     assert 2e-4 < err1 < 1e-3 and err3 < err1 / 50
 
 
-# csrc/conv3x3.cu's 3xTF32 kernel: a chunk's input tile pitch (floats a
+# csrc/conv3x3.cu's generic 3xTF32 kernel: a chunk's input tile pitch (floats a
 # pixel), the split weights' pitch ((hi, lo) pairs a row), the haloed side
 XPA, XPN, XH = 12, 68, 18
 
@@ -318,53 +320,126 @@ def test_tf32_fragment_maps_cover_each_element_once():
         assert len({p % 16 for p in pairs}) == 16
 
 
+# csrc/conv3x3.cu's model fp32 conv on wgmma (conv3x3_tf32_wgmma_kernel): the
+# haloed tile's side, a chunk's input channels
+WH, WK = 18, 8
+
+
+def _conv_px(p, ch):
+    """conv3x3.cu:conv_px, a chunk's input tile: pixel p's channel ch at
+    float p * 8 + ((ch / 4) ^ (p / 4 % 2)) * 4 + ch % 4."""
+    return p * WK + ((ch // 4) ^ ((p >> 2) & 1)) * 4 + ch % 4
+
+
+def _weight_planes(wc):
+    """The kernel's split of a chunk's weights wc [tap][8][64] into its hi
+    and lo planes: item (tap, 4-channel group kg, co) writes the 16 B unit
+    2 (tap % 4) + kg of row co of half tap / 4, at unit ^ co % 8 (128 B
+    swizzle); three [64][32] halves each, flat."""
+    hi, lo = np.zeros(3 * 64 * 32, np.float32), np.zeros(3 * 64 * 32, np.float32)
+    h, l = (t.numpy() for t in split_rz(torch.from_numpy(np.ascontiguousarray(wc))))
+    for tap in range(9):
+        for kg in range(2):
+            unit = 2 * (tap % 4) + kg
+            for co in range(64):
+                at = tap // 4 * 64 * 32 + co * 32 + (unit ^ (co % 8)) * 4
+                hi[at:at + 4] = h[tap, 4 * kg:4 * kg + 4, co]
+                lo[at:at + 4] = l[tap, 4 * kg:4 * kg + 4, co]
+    return hi, lo
+
+
+def test_conv_px_spreads_an_a_column_over_the_banks():
+    """The input tile's unit swap puts the 32 loads of a warp's A register
+    (pixels g of any 8 consecutive ones, channels t4, or t4 + 4) in 32
+    different banks, at any tap offset; each pixel's 8 channels stay its own
+    32 bytes."""
+    for p0 in range(WH * WH - 8):
+        for off in (0, 4):
+            words = [_conv_px(p0 + g, t4 + off) for g in range(8) for t4 in range(4)]
+            assert len({w % 32 for w in words}) == 32
+    for p in range(WH * WH):
+        assert sorted(_conv_px(p, ch) for ch in range(8)) == list(range(8 * p, 8 * p + 8))
+
+
 def test_tf32_kernel_tile_by_fragments_matches_conv():
-    """One 16 x 16 output tile computed as the kernel's warps do, each
-    register read at the kernel's shared-memory address and placed where
-    the PTX layout puts it, each result stored where the kernel's epilogue
-    stores it: K in chunks of 8 input
-    channels, each tap's A fragments read from the haloed tile at the tap's
-    offset, the B fragments from the chunk's split weights, the three TF32
-    products per step accumulated in float64. It agrees with the conv of
-    that tile (no bias, before the epilogue) within 1e-5."""
+    """One 16 x 16 output tile computed as conv3x3_tf32_wgmma_kernel's two
+    warpgroups do: K in chunks of 8 input channels; each tap's register-A
+    fragments read from the chunk's haloed tile (conv_px) at the tap's
+    offset, warp w's 16 rows the pixels of tile rows 2 w and 2 w + 1 (its
+    two m64 products) and split by truncation as they load; B the chunk's
+    K-major hi and lo weight planes read through the tap's descriptor
+    (hopper.cuh:desc_step_f32, 64 rows); per tap A_hi.B_lo + A_lo.B_hi +
+    A_hi.B_hi, each operand read truncated; each accumulator element put
+    where the epilogue stores it. It agrees with the conv of that tile (no
+    bias, before the epilogue) within 1e-5."""
     rng = np.random.default_rng(37)
     x = rng.uniform(0, 1, (1, 16, 16, 64)).astype(np.float32)
     w = rng.uniform(-1 / 24, 1 / 24, (3, 3, 64, 64)).astype(np.float32)
     xp = np.pad(x[0], ((1, 1), (1, 1), (0, 0)))  # the haloed tile, zeros outside
-    amap, bmap, cmap = mma_tf32_maps()  # where mma.sync takes each register
-    tf = lambda v: tf32(torch.tensor(v, dtype=torch.float32)).numpy().astype(np.float64)  # noqa: E731
+    # the epilogue stores accumulator element e of lane (g, t4) of warp w at
+    # pixel g + 8 (e / 2 % 2), channel 8 (e / 4) + 2 t4 + e % 2: row 16 w +
+    # pixel of the m64 product, as wgmma lays the accumulator out
+    for w4 in range(4):
+        for lane in range(32):
+            g, t4 = divmod(lane, 4)
+            for e in range(32):
+                assert acc_at(w4, lane, e) == (16 * w4 + g + 8 * (e // 2 % 2),
+                                               8 * (e // 4) + 2 * t4 + e % 2)
+
+    def a_index(tap, wg, m):  # register A of warpgroup wg's product m at the tap
+        dy, dx = divmod(tap, 3)
+
+        def at(w4, lane, i):
+            g, t4 = divmod(lane, 4)
+            p = (2 * (4 * wg + w4) + m + dy) * WH + dx + g + 8 * (i % 2)
+            return _conv_px(p, t4 + 4 * (i // 2))
+        return a_fragment_matrix(at).astype(np.int64)
+
+    a_idx = {(tap, wg, m): a_index(tap, wg, m) for tap in range(9) for wg in (0, 1)
+             for m in (0, 1)}
     acc = np.zeros((16, 16, 64))
-    for c0 in range(0, 64, 8):
-        xs = np.zeros(XH * XH * XPA, np.float32)  # the chunk's raw input tile
-        for p in range(XH * XH):
-            xs[p * XPA:p * XPA + 8] = xp[p // XH, p % XH, c0:c0 + 8]
-        ws = np.zeros((9 * 8 * XPN, 2))  # (hi, lo) of the chunk's weights
+    for c0 in range(0, 64, WK):
+        xs = np.zeros(WH * WH * WK, np.float32)  # the chunk's raw input tile
+        for p in range(WH * WH):
+            for ch in range(WK):
+                xs[_conv_px(p, ch)] = xp[p // WH, p % WH, c0 + ch]
+        xh, xl = (t.numpy().astype(np.float64) for t in split_rz(torch.from_numpy(xs)))
+        wh, wl = _weight_planes(w.reshape(9, 64, 64)[:, c0:c0 + WK])
         for tap in range(9):
-            for k in range(8):
-                v = w[tap // 3, tap % 3, c0 + k]
-                hi = tf(v)
-                ws[(tap * 8 + k) * XPN:(tap * 8 + k) * XPN + 64] = np.stack(
-                    [hi, tf(v - hi.astype(np.float32))], -1)
-        for warp in range(8):
-            for tap in range(9):
-                dy, dx = divmod(tap, 3)
-                for m in range(2):
-                    a = np.zeros((16, 8, 2))
-                    for (lane, i), (row, col) in amap.items():
-                        g, t4 = divmod(lane, 4)
-                        px = ((2 * warp + m + dy) * XH + dx + g) * XPA + t4
-                        off = (0, 8 * XPA, 4, 8 * XPA + 4)[i]
-                        v = xs[px + off]
-                        a[row, col] = (tf(v), tf(v - tf(v).astype(np.float32)))
-                    for n in range(8):
-                        bm = np.zeros((8, 8, 2))
-                        for (lane, i), (k, col) in bmap.items():
-                            g, t4 = divmod(lane, 4)
-                            bm[k, col] = ws[(tap * 8 + t4) * XPN + g + n * 8 + (0, 4 * XPN)[i]]
-                        d = (a[..., 0] @ bm[..., 1] + a[..., 1] @ bm[..., 0]
-                             + a[..., 0] @ bm[..., 0])
-                        for (lane, r), (row, col) in cmap.items():
-                            g, t4 = divmod(lane, 4)  # the kernel's store of acc[m][n][r]
-                            acc[2 * warp + m, g + 8 * (r // 2), n * 8 + 2 * t4 + r % 2] += d[row, col]
+            bh, bl = b_operand(wh, 64, tap), b_operand(wl, 64, tap)  # B[ci][co]
+            for (t, wg, m), idx in a_idx.items():
+                if t != tap:
+                    continue
+                ah, al = xh[idx], xl[idx]
+                d = ah @ bl + al @ bh + ah @ bh  # 64 x 64: row 16 w4 + pixel, column co
+                rows = [2 * (4 * wg + w4) + m for w4 in range(4)]
+                acc[rows] += d.reshape(4, 16, 64)
     want = _conv_sum(torch.from_numpy(x), torch.from_numpy(w))[0].double().numpy()
     assert np.abs(acc - want).max() < 1e-5
+
+
+# (B, H, W) -> blocks of the model fp32 conv's launch: the three convs at
+# 480x640 and the 360x488 edge tiles, one image and two
+MODEL_CONV_PLANS = {
+    "conv1b+pool 2x480x640": ((2, 480, 640), 2400),
+    "conv2a / conv2b 2x240x320": ((2, 240, 320), 600),
+    "conv1b edge 2x360x488": ((2, 360, 488), 1426),
+    "conv2a edge 2x180x244": ((2, 180, 244), 384),
+    "one image 480x640": ((1, 480, 640), 1200),
+}
+
+
+@pytest.mark.parametrize("case", list(MODEL_CONV_PLANS))
+def test_model_fp32_conv_plan_fits(case):
+    """model_conv_plan is conv3x3_tf32_wgmma_kernel's launch
+    (lg_conv_model_tile): one 256-thread block per 16 x 16 tile of one image
+    (the batch only adds blocks: an image's tiles are the same alone), shared
+    memory as the kernel lays it out (two raw stages of a chunk's 18 x 18 x 8
+    tile and 9 x 8 x 64 weights, the hi and lo planes of three 64 x 32
+    halves, 1 KB of alignment), two blocks an SM."""
+    (b, h, w), blocks = MODEL_CONV_PLANS[case]
+    plan = conv.model_conv_plan(b, h, w)
+    stage = 4 * (18 * 18 * 8 + 9 * 8 * 64)
+    assert plan == (16, 256, blocks, 2 * stage + 2 * 4 * 3 * 64 * 32 + 1024)
+    assert plan.blocks == b * conv.model_conv_plan(1, h, w).blocks
+    assert 2 * (plan.smem + 1024) <= 233_472  # two blocks and their reserves an SM

@@ -16,8 +16,8 @@ import pytest
 import torch
 
 from lightglue_tpu_torch.kernels import _build, attention, layer_stack
-from tf32_emulation import (a_fragment_matrix, acc_at, b_operand, kmajor_read, split_rz,
-                            tf32_rz, tma_halves)
+from tf32_emulation import (a_fragment_matrix, b_operand, p_register, split_rz, tf32_rz,
+                            tma_halves, vt_copy, vt_operand)
 
 F32 = torch.float32
 GATE = 1e-4  # the fp32 rung's gate (chip_smoke.py TOL["fp32"])
@@ -101,13 +101,15 @@ CASES = ["base 8 B off", "row stride off 16 B", "batch or head stride off 16 B"]
 
 
 @pytest.mark.parametrize("case", CASES)
-@pytest.mark.parametrize("kernel", ["fused_mha", "flash_attention", "flash_attention_step"])
+@pytest.mark.parametrize("kernel", ["fused_mha", "flash_attention", "flash_attention_step",
+                                    "attention"])
 def test_tma_refuses_fp32_operands_off_16_bytes(kernel, case):
-    """The fp32 flash kernel reads q, k and v through TMA, which needs 16 B
-    bases and strides (4 floats): each wrapper raises a ValueError on any
-    other fp32 operand before a launch, as on bf16 ones."""
+    """The fp32 flash kernel and the stack's fp32 attention read q, k and v
+    through TMA, which needs 16 B bases and strides (4 floats): each wrapper
+    raises a ValueError on any other fp32 operand before a launch, as on
+    bf16 ones."""
     with pytest.raises(ValueError, match="TMA"):
-        if kernel == "fused_mha":
+        if kernel in ("fused_mha", "attention"):
             flat = _meta(2 * 128 * 776 + 8)
             if case == "base 8 B off":
                 qkv = flat[2:2 + 2 * 128 * 768].view(2, 128, 768)
@@ -115,8 +117,11 @@ def test_tma_refuses_fp32_operands_off_16_bytes(kernel, case):
                 qkv = flat[:2 * 128 * 770].view(2, 128, 770)
             else:
                 qkv = flat[:2 * 128 * 768 + 2].as_strided((2, 128, 768), (128 * 768 + 2, 768, 1))
-            attention.fused_mha(qkv[..., :256], qkv[..., 256:512], qkv[..., 512:768],
-                                num_heads=4, stat_dtype=F32)
+            q, k, v = qkv[..., :256], qkv[..., 256:512], qkv[..., 512:768]
+            if kernel == "attention":
+                layer_stack.attention(q, k, v, None, None, None, 4, F32)
+            else:
+                attention.fused_mha(q, k, v, num_heads=4, stat_dtype=F32)
             return
         flat = _meta(2 * 4 * 128 * 72 + 8)
         good = flat[:2 * 4 * 128 * 64].view(2, 4, 128, 64)
@@ -175,38 +180,6 @@ def test_swizzled_halves_read_back_through_the_descriptor(rows):
     flat = tma_halves(tile)
     for kk in range(8):
         np.testing.assert_array_equal(b_operand(flat, rows, kk).T, tile[:, 8 * kk:8 * kk + 8])
-
-
-def vt_copy(v):
-    """flash_attn.cu's V^T writer for one 32-key piece v [32][64] (land):
-    item = tid + 128 it, d = item % 64, 16 B unit u = item / 64 of row d,
-    at u ^ d % 8, holding keys key0, +2, +4, +6 with key0 = 8 (u / 2) + u %
-    2: position 8 j + q of row d is key 8 j + 2 q (q < 4) or 8 j + 2 (q -
-    4) + 1. A flat [64][32] array."""
-    flat = np.zeros(64 * 32, v.dtype)
-    for tid in range(128):
-        for it in range(4):
-            item = tid + 128 * it
-            d, u = item % 64, item // 64
-            key0 = 8 * (u // 2) + u % 2
-            at = d * 128 + ((u ^ (d % 8)) * 16)
-            for e in range(4):
-                flat[at // 4 + e] = v[key0 + 2 * e, d]
-    return flat
-
-
-def p_register(p, w, lane, i, kk):
-    """P's A register i of k step kk, taken from the S accumulator of the
-    piece as flash_attn.cu takes it: registers 4 kk, 4 kk + 2, 4 kk + 1,
-    4 kk + 3 (keys 8 kk + 2 t4 and + 1 of rows g and g + 8)."""
-    r, c = acc_at(w, lane, 4 * kk + (0, 2, 1, 3)[i])
-    return p[r, c]
-
-
-def vt_operand(vt, kk):
-    """B (8 x 64) of P.V's k8 step kk read from a V^T copy through its
-    descriptor (one half, 32 B a step)."""
-    return np.array([[kmajor_read(vt, 32 * kk, d, kq) for d in range(64)] for kq in range(8)])
 
 
 def test_scores_and_pv_of_a_piece_through_the_layouts():

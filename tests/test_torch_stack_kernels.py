@@ -83,27 +83,26 @@ def test_wgmma_plans_on_the_ladder(proj, rows):
             assert attn.smem <= _build.MAX_DYNAMIC_SMEM
 
 
-# (batch, nq, nk) -> (bf16 blocks, fp32 row groups, fp32 blocks): the calls
-# of the stack and of chip_smoke.py's attention cases, H = 4. bf16: eight
+# (batch, nq, nk) -> (bf16 blocks, fp32 split, fp32 blocks): the calls of
+# the stack and of chip_smoke.py's attention cases, H = 4. bf16: eight
 # consumers splitting each row's keys, a cluster of two blocks per 64 rows
 # of a head while the launch fits 132 SMs, else one block (two pairs).
-# fp32: 16-row groups of four warps; at the 1024 bucket two one-group rows
-# share a block of eight warps (128 blocks a pair, one an SM), four in
-# sixteen warps for two pairs (128 blocks)
+# fp32: the split from one pair's shape (eight at every bucket of H = 4:
+# 128 tiles' blocks at most), a split of eight always a cluster of two
 ATTENTION_SHAPES = {
-    "1024x1024 self or cross": ((1, 1024, 1024), (128, 2, 128)),
-    "768 self, masked": ((1, 768, 768), (96, 1, 192)),
-    "768x1024 cross, masked": ((1, 768, 1024), (96, 1, 192)),
-    "256x512 cross, length 0": ((1, 256, 512), (32, 1, 64)),
-    "128 bucket": ((1, 128, 128), (16, 1, 32)),
-    "512 half width": ((1, 512, 512), (64, 1, 128)),
-    "two pairs 1024": ((2, 1024, 1024), (128, 4, 128)),
+    "1024x1024 self or cross": ((1, 1024, 1024), (128, 8, 128)),
+    "768 self, masked": ((1, 768, 768), (96, 8, 96)),
+    "768x1024 cross, masked": ((1, 768, 1024), (96, 8, 96)),
+    "256x512 cross, length 0": ((1, 256, 512), (32, 8, 32)),
+    "128 bucket": ((1, 128, 128), (16, 8, 16)),
+    "512 half width": ((1, 512, 512), (64, 8, 64)),
+    "two pairs 1024": ((2, 1024, 1024), (128, 8, 256)),
 }
 
 
 @pytest.mark.parametrize("shape", list(ATTENTION_SHAPES))
 def test_attention_plan_fits(shape):
-    (b, nq, nk), (blocks, groups, fp32_blocks) = ATTENTION_SHAPES[shape]
+    (b, nq, nk), (blocks, split, fp32_blocks) = ATTENTION_SHAPES[shape]
     plan = layer_stack.attention_plan(b, 4, nq, nk)
     cluster = b == 1
     assert plan == (4, 8, blocks, layer_stack.wgmma_attention_smem(True, cluster),
@@ -113,14 +112,12 @@ def test_attention_plan_fits(shape):
     assert mixed[:3] == plan[:3]
     assert mixed.smem == layer_stack.wgmma_attention_smem(False, cluster)
     assert max(mixed.smem, plan.smem) <= _build.MAX_DYNAMIC_SMEM
-    # the fp32 (3xTF32) kernel: fp32 chunks streamed through two buffers,
-    # each chunk's keys split four ways (one pair's split), two blocks an SM
-    # or one of eight or sixteen warps
+    # the fp32 (3xTF32) kernel on wgmma: 32-key pieces through one ring slot
+    # a warpgroup, one pair's split at every batch, one block an SM
     fp32 = layer_stack.attention_plan(b, 4, nq, nk, torch.float32)
-    assert fp32[:3] == (groups, 4, fp32_blocks) and fp32.kernel == "attention_tf32_kernel"
-    assert fp32.col_split == 4 // layer_stack.fill_row_groups(4, nq)
-    assert fp32.smem == layer_stack.tf32_smem(groups, 2, 4) <= _build.MAX_DYNAMIC_SMEM
-    assert (1 if groups > 1 else 2) * fp32.smem <= _build.MAX_DYNAMIC_SMEM
+    assert fp32[:3] == (4, split, fp32_blocks) and fp32.kernel == "attention_tf32_wgmma_kernel"
+    assert fp32.col_split == layer_stack.tf32_split(4, nq)
+    assert fp32.smem == layer_stack.wgmma_tf32_attention_smem() <= _build.MAX_DYNAMIC_SMEM
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

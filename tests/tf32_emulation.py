@@ -5,7 +5,7 @@ rounding of cvt.rna.tf32.f32, the truncating split, the fragment layout of
 mma.sync m16n8k8 with tf32 operands, and the layouts the wgmma kernels hand
 m64nNk8: fp32 K-major tiles as TMA writes them in 128 B swizzle, read back
 through the kernels' descriptors, the register-A fragment and the
-accumulator."""
+accumulator, V's transposed copy and P taken from the S accumulator."""
 
 import numpy as np
 import torch
@@ -100,3 +100,42 @@ def acc_at(w, lane, e):
     """(row, column) of accumulator register e of lane (g, t4) of warp w."""
     g, t4 = divmod(lane, 4)
     return 16 * w + g + 8 * ((e // 2) % 2), 8 * (e // 4) + 2 * t4 + e % 2
+
+
+def vt_copy(v):
+    """The fp32 attention kernels' V^T writer (flash_attn.cu, attention.cu) for one 32-key piece v [32][64] (land):
+    item = tid + 128 it, d = item % 64, 16 B unit u = item / 64 of row d,
+    at u ^ d % 8, holding keys key0, +2, +4, +6 with key0 = 8 (u / 2) + u %
+    2: position 8 j + q of row d is key 8 j + 2 q (q < 4) or 8 j + 2 (q -
+    4) + 1. A flat [64][32] array."""
+    flat = np.zeros(64 * 32, v.dtype)
+    for tid in range(128):
+        for it in range(4):
+            item = tid + 128 * it
+            d, u = item % 64, item // 64
+            key0 = 8 * (u // 2) + u % 2
+            at = d * 128 + ((u ^ (d % 8)) * 16)
+            for e in range(4):
+                flat[at // 4 + e] = v[key0 + 2 * e, d]
+    return flat
+
+
+def p_register(p, w, lane, i, kk):
+    """P's A register i of k step kk, taken from the S accumulator of the
+    piece as the fp32 attention kernels take it: registers 4 kk, 4 kk + 2, 4 kk + 1,
+    4 kk + 3 (keys 8 kk + 2 t4 and + 1 of rows g and g + 8)."""
+    r, c = acc_at(w, lane, 4 * kk + (0, 2, 1, 3)[i])
+    return p[r, c]
+
+
+def vt_operand(vt, kk):
+    """B (8 x 64) of P.V's k8 step kk read from a V^T copy through its
+    descriptor (one half, 32 B a step)."""
+    return np.array([[kmajor_read(vt, 32 * kk, d, kq) for d in range(64)] for kq in range(8)])
+
+
+def index_map(read, size):
+    """What a layout function reads, as flat indices: ``read`` applied to
+    np.arange(size) (a flat array, or its reshape where the function takes a
+    matrix), so the layout is computed once and applied by fancy indexing."""
+    return np.asarray(read(np.arange(size)), np.int64)
