@@ -8,17 +8,17 @@ Run from the root of a checkout on a machine with a CUDA card:
 It prints the card's name and power limit, builds the CUDA kernels of
 ``src/lightglue_tpu_torch/csrc`` (one nvcc per source, sm_90a, in
 parallel) and checks in their SASS that the bf16 kernels of
-bidir_cross.cu, conv3x3.cu (the model conv and the generic one) and
-conv_chain.cu run on the tensor cores, that attention.cu's and
+conv3x3.cu (the model conv and the generic one) and conv_chain.cu run on
+the tensor cores, that attention.cu's, bidir_cross.cu's and
 flash_attn.cu's bf16 kernels and linear.cu's bf16-product GEMM (BF16,
 MIXED, INT8) run on Hopper's warpgroup MMA (HGMMA in every instantiation,
 no HMMA, no local-memory load or store: ``WGMMA_KERNELS``), that the fp32
-kernels of flash_attn.cu, linear.cu and attention.cu and the fp32 model
-conv run in 3xTF32 on it (HGMMA with TF32 operands on every HGMMA line, in
-every instantiation, no HMMA, no local-memory load or store:
-``TF32_WGMMA_KERNELS``), that the generic fp32 conv, the fp32 chain and
-bidir_cross.cu's fp32 kernel run in 3xTF32 on the tensor cores (TF32
-HMMA only; their spills logged), that no conv3x3.cu
+kernels of flash_attn.cu, linear.cu, attention.cu and bidir_cross.cu and
+the fp32 model conv run in 3xTF32 on it (HGMMA with TF32 operands on every
+HGMMA line, in every instantiation, no HMMA, no local-memory load or store:
+``TF32_WGMMA_KERNELS``), that the generic fp32 conv and the fp32 chain run
+in 3xTF32 on the tensor cores (TF32 HMMA only; their spills logged), that
+no conv3x3.cu
 or conv_chain.cu kernel is left off the tensor cores (HMMA or HGMMA), and that
 stem.cu's kernel has no contracted multiply-add. Then, in
 order; every kernel check is in bf16 and fp32 against
@@ -83,8 +83,10 @@ wrappers' counts per call:
    3xTF32, against float64 (``tf32_witness``); each bf16
    bidirectional case with both
    sides non-empty per direction against ``stack_wrong_designs``; the
-   bidirectional kernel also at fp32 operands with bf16 stats, and timed
-   beside two SDPA calls, ``two_sdpa_ms``), the
+   bidirectional kernel (``BIDIR_CASES``, also at 80 keys, pad keys past
+   Nk, and at 1280x1088, s recomputed at bf16 stats) also at fp32 operands
+   with bf16 stats, and timed beside two SDPA calls, ``two_sdpa_ms``, and
+   two launches of the stack attention, ``two_attention_ms``), the
    per-block ``transformer_layers`` at 9 layers, and ``match_pair`` in the
    2048-keypoint config (``SuperPointConfig(max_num_keypoints=2048)``, a
    2048 bucket) and the pad-to-64 config (``buckets=range(64, 1025, 64)``,
@@ -213,7 +215,7 @@ row per FP32 / MIXED / INT8 / W8A8 instantiation (the fp32 step's launches
 from the FP32 ``forward_ring``) and per fp32-operand conv, and
 conv1a's stem in bf16 and fp32; the chain's rows also carry the two-launch
 chain's ``two_launch_ms``, the bidirectional rows the two SDPA calls'
-``two_sdpa_ms``; ``launches``, the wrappers' counts over the driven call,
+``two_sdpa_ms`` and two stack-attention launches' ``two_attention_ms``; ``launches``, the wrappers' counts over the driven call,
 which for a session path is its first call: twice the launches of each
 later call) and the ``{"ok": true, ...}`` line; before them a ``{"sessions": [...]}`` line (phase 7's ms per pair
 graph and eager, kernel ms, busy share) and an ``{"entry_points": ...}``
@@ -224,6 +226,7 @@ a missing card or a directory without the package.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import math
 import os
@@ -264,8 +267,8 @@ KERNEL_WRAPPERS = {
     "attention_wgmma_kernel": "attention", "attention_tf32_wgmma_kernel": "attention",
     "ln_gelu_kernel": "ln_gelu", "adaptive_decide_kernel": "adaptive_decide",
     "flash_wgmma_kernel": "fused_mha", "flash_tf32_wgmma_kernel": "fused_mha",
-    "bidir_mma_kernel": "bidirectional_cross_attention",
-    "bidir_tf32_kernel": "bidirectional_cross_attention",
+    "bidir_wgmma_kernel": "bidirectional_cross_attention",
+    "bidir_tf32_wgmma_kernel": "bidirectional_cross_attention",
 }
 
 # stated tolerances, |kernel - plain| <= atol + rtol * |plain|
@@ -386,7 +389,6 @@ def compare(label, got, want, atol, rtol, exact=False):
 # instantiation, the fp32-output ones included; its fp32 kernel on the FMA
 # units, or None where its fp32 kernels are TF32_TENSOR_CORE_KERNELS ones)
 TENSOR_CORE_KERNELS = {
-    "bidir_cross.cu": (("bidir_mma_kernel",), None),
     # the model's 64 -> 64 convs, and every other bf16-operand conv
     "conv3x3.cu": (("conv3x3_mma_kernel", "conv3x3_igemm_kernel"), None),
     "conv_chain.cu": (("chain_mma_kernel",), None),
@@ -394,33 +396,36 @@ TENSOR_CORE_KERNELS = {
 # source: its kernels in Hopper's shape, on the warpgroup tensor-core path
 # (HGMMA in every instantiation, no HMMA, and no local-memory load or store:
 # nothing spilled): the stack attention's bf16 kernel (BF16 and MIXED
-# outputs, keep masks), the stack projections' bf16-product GEMM (BF16,
-# MIXED's fp32 activations and INT8's int8 weights, both converted to bf16
-# in shared memory) and the flash kernel behind fused_mha, flash_attention
-# and the ring step (BF16 and MIXED outputs, the step's carries; stored or
-# recomputed s, clusters or one block a tile)
+# outputs, keep masks), the bidirectional kernel on the same tile (both
+# directions in one grid; BF16 and MIXED outputs, stored or recomputed s
+# at bf16 stats, fp32 stats; clusters or one block a tile), the stack
+# projections' bf16-product GEMM (BF16, MIXED's fp32 activations and INT8's
+# int8 weights, both converted to bf16 in shared memory) and the flash
+# kernel behind fused_mha, flash_attention and the ring step (BF16 and
+# MIXED outputs, the step's carries; stored or recomputed s, clusters or
+# one block a tile)
 WGMMA_KERNELS = {"attention.cu": "attention_wgmma_kernel", "linear.cu": "linear_wgmma_kernel",
-                 "flash_attn.cu": "flash_wgmma_kernel"}
+                 "flash_attn.cu": "flash_wgmma_kernel", "bidir_cross.cu": "bidir_wgmma_kernel"}
 # source: its fp32 kernel in 3xTF32 on Hopper's warpgroup MMA, held to what
 # WGMMA_KERNELS holds the bf16 kernels to, with TF32 operands on every
 # HGMMA line: the stack projections' fp32 GEMM (the transposed product),
 # the flash kernel's fp32 instantiations (fused_mha, flash_attention, the
 # ring step at fp32 operands; clusters or one block a tile), the stack
 # attention's fp32 kernel (keep masks or not, a cluster of two blocks or
-# one) and the model's fp32 64 -> 64 conv
+# one), the bidirectional kernel's fp32 kernel on the same tile (a cluster
+# or one block) and the model's fp32 64 -> 64 conv
 TF32_WGMMA_KERNELS = {"linear.cu": "linear_tf32_wgmma_kernel",
                       "flash_attn.cu": "flash_tf32_wgmma_kernel",
                       "attention.cu": "attention_tf32_wgmma_kernel",
+                      "bidir_cross.cu": "bidir_tf32_wgmma_kernel",
                       "conv3x3.cu": "conv3x3_tf32_wgmma_kernel"}
 # source: its int8 x int8 kernel (W8A8), on the integer tensor cores (IMMA)
 INT8_TENSOR_CORE_KERNELS = {"linear.cu": "linear_s8_kernel"}
 # source: its fp32 kernels on the tensor cores in 3xTF32 on mma.sync (TF32
-# HMMA only): the generic fp32 conv, the fp32 chain, the bidirectional
-# kernel's fp32 kernel. Each one's local-memory loads and stores (spills)
-# are reported beside
+# HMMA only): the generic fp32 conv, the fp32 chain. Each one's local-memory
+# loads and stores (spills) are reported beside
 TF32_TENSOR_CORE_KERNELS = {"conv3x3.cu": ("conv3x3_tf32x3_generic_kernel",),
-                            "conv_chain.cu": ("chain_tf32x3_kernel",),
-                            "bidir_cross.cu": ("bidir_tf32_kernel",)}
+                            "conv_chain.cu": ("chain_tf32x3_kernel",)}
 # names of kernels none of which may run on the FMA units alone: tensor-core
 # products (HMMA, or HGMMA on wgmma) in every kernel whose name holds one
 # (conv3x3.cu's and conv_chain.cu's, the only ones so named)
@@ -430,21 +435,21 @@ NO_FMA_KERNELS = {"stem.cu": "stem_kernel"}
 
 
 def tensor_core_check(build):
-    """The bf16-operand instantiations of csrc/bidir_cross.cu, conv3x3.cu
-    (the model conv and the generic one) and conv_chain.cu compute their
-    products on the tensor cores (HMMA in the SASS of every one);
-    attention.cu's and flash_attn.cu's bf16 kernels and linear.cu's
+    """The bf16-operand instantiations of csrc/conv3x3.cu (the model conv
+    and the generic one) and conv_chain.cu compute their products on the
+    tensor cores (HMMA in the SASS of every one); attention.cu's,
+    bidir_cross.cu's and flash_attn.cu's bf16 kernels and linear.cu's
     bf16-product GEMM (MIXED's fp32 activations and INT8's int8 weights
     converted to bf16 in shared memory) on wgmma (HGMMA in every instantiation, no HMMA,
     no local-memory load or store: ``WGMMA_KERNELS``); the fp32 kernels of
-    flash_attn.cu and linear.cu in 3xTF32 on wgmma (the same, with TF32
-    operands on every HGMMA line: ``TF32_WGMMA_KERNELS``); linear.cu's W8A8
-    GEMM on the integer tensor cores (IMMA in every instantiation, no HMMA,
-    no local-memory load or store: nothing spilled), the fp32 model conv,
-    the generic fp32 conv, the fp32 chain and the fp32 kernels of
-    attention.cu and bidir_cross.cu on the tensor cores in 3xTF32 (every
-    HMMA of each ``TF32_TENSOR_CORE_KERNELS`` kernel takes TF32 operands, in
-    every instantiation; their local loads and stores logged), every
+    flash_attn.cu, linear.cu, attention.cu and bidir_cross.cu and the fp32
+    model conv in 3xTF32 on wgmma (the same, with TF32 operands on every
+    HGMMA line: ``TF32_WGMMA_KERNELS``); linear.cu's W8A8 GEMM on the
+    integer tensor cores (IMMA in every instantiation, no HMMA, no
+    local-memory load or store: nothing spilled), the generic fp32 conv and
+    the fp32 chain on the tensor cores in 3xTF32 on mma.sync (every HMMA of
+    each ``TF32_TENSOR_CORE_KERNELS`` kernel takes TF32 operands, in every
+    instantiation; their local loads and stores logged), every
     conv3x3.cu and conv_chain.cu kernel on the tensor cores (no
     FMA conv left: ``ALL_TENSOR_CORE_NAMES``), and the
     stem rounds each product and each add (no FFMA in stem.cu's kernel):
@@ -780,8 +785,11 @@ def plan_checks(ls, at, nms_k, conv_k, cc, lib):
     and INT8 modes: the tile, ring and kernel, the BF16 and FP32 tiles one
     pair's at every batch; csrc/flash_attn.cu:lg_flash_plan, both kernels' split,
     form, ring slots, kept s and shared memory, the split one pair's at
-    every batch; csrc/mma.cuh:fill_row_groups; csrc/attention.cu:lg_attention_plan, both
-    kernels' split, form and shared memory;
+    every batch; csrc/attention.cu:lg_attention_plan, both
+    kernels' split, form and shared memory; csrc/bidir_cross.cu:lg_bidir_plan,
+    both kernels' split, form, kept s, blocks and shared memory, also at the
+    TP shards' H = 2 and 1 and past 1024 rows, the split one pair's at every
+    batch and the fp32 form too;
     csrc/adaptive.cu:decide_rows,
     csrc/nms.cu:Band,
     csrc/conv3x3.cu:conv_rows and both generic kernels' shared memory,
@@ -863,14 +871,21 @@ def plan_checks(ls, at, nms_k, conv_k, cc, lib):
                 if plan.col_split != ls.attention_plan(1, 4, nq, 1024, dt).col_split:
                     raise AssertionError(f"attention B={b} Nq={nq} {dt}: the split follows the "
                                          "batch")
-            for n0, n1 in ((960, 960), (960, 704), (960, 64)):
-                lib.lg_bidir_plan(b, 4, n0, n1, attn)
-                plan = at.bidir_plan(b, 4, n0, n1, dt)
-                if (tuple(attn[:2]) != plan[:2]
-                        or plan.col_split != at.bidir_plan(1, 4, n0, n1, dt).col_split):
-                    raise AssertionError(f"bidirectional B={b} {n0}x{n1} {dt}: the card's "
-                                         f"(row groups, split) {tuple(attn[:2])}, bidir_plan's "
-                                         f"{plan[:2]}")
+            bi = (ctypes.c_int * 6)()
+            for (n0, n1), heads in itertools.product(
+                    ((960, 960), (960, 704), (960, 64), (1280, 1088)), (4, 2, 1)):
+                for sdt in {dt, torch.float32}:
+                    lib.lg_bidir_plan(b, heads, n0, n1, mode, int(sdt == torch.bfloat16), bi)
+                    plan = at.bidir_plan(b, heads, n0, n1, dt, sdt)
+                    one = at.bidir_plan(1, heads, n0, n1, dt, sdt)
+                    want = (int(plan.kernel == "bidir_tf32_wgmma_kernel"), plan.col_split,
+                            int(plan.cluster), int(plan.store), plan.blocks, plan.smem)
+                    if (tuple(bi) != want or plan.col_split != one.col_split
+                            or (dt == torch.float32 and plan.cluster != one.cluster)):
+                        raise AssertionError(
+                            f"bidirectional B={b} H={heads} {n0}x{n1} {dt} {sdt} stats: the "
+                            f"card's (fp32 kernel, split, cluster, store, blocks, smem) "
+                            f"{tuple(bi)}, bidir_plan's {want}, one pair's {one}")
     for b in range(1, 9):
         for n0 in (128, 256, 512, 768, 1024):
             for n1 in (128, 512, 1024):
@@ -1832,6 +1847,43 @@ def adaptive_end_to_end(ls, counters, weights, img0, img1, dec_e):
 
 PB_BUCKET = 2048  # the 2048-keypoint config's cap bucket
 PAD64 = 960       # the pad-to-64 config's cap bucket
+# bidirectional_cross_attention's cases, in bf16 and fp32 (phase 3) and at
+# MIXED (phase 6): label, B, N0, N1, lengths [n0, n1], per-pair launches,
+# stats ("bf16": fp32 operands at bf16 stats only; None: the operands')
+BIDIR_CASES = [
+    ("960x960 unmasked", 1, PAD64, PAD64, None, N_LAYERS, None),
+    ("960x960 ragged, n1 0", 2, PAD64, PAD64, [[900, 700], [960, 0]], 0, None),
+    ("960x704 masked, n0 0", 2, PAD64, 704, [[950, 700], [0, 500]], 0, None),
+    ("960x704 unmasked", 1, PAD64, 704, None, 0, None),
+    ("960x64 masked (mixed buckets)", 1, PAD64, 64, [[955, 60]], 0, None),
+    ("128x64 masked", 1, 128, 64, [[100, 50]], 0, None),
+    ("200x80 unmasked (pad keys past Nk, 80 not on 64)", 1, 200, 80, None, 0, None),
+    ("1280x1088 masked (past 1024 keys: s recomputed at bf16 stats)", 1, 1280, 1088,
+     [[1250, 1000]], 0, None),
+    ("960x704 masked, bf16 stats", 1, PAD64, 704, [[950, 650]], 0, "bf16"),
+]
+
+
+def bidir_yardsticks(ls, args, heads, stat_dtype, out_dtype=None, hd=64):
+    """Two callables on the bidirectional kernel's operands (qk0, qk1, v0,
+    v1: (B, N, H*64) column slices), each running both directions: two
+    ``scaled_dot_product_attention`` calls (no one PyTorch call computes
+    both; no masks), and two launches of the stack attention
+    (``layer_stack.attention``, attention.cu's kernels on the same tile,
+    direction 1 with ``dir1``)."""
+    import torch.nn.functional as F
+
+    def split(t):
+        return t.reshape(t.shape[0], t.shape[1], heads, hd).transpose(1, 2)
+
+    q0, q1, w0, w1 = (split(t) for t in args)
+    sdpa = lambda: (F.scaled_dot_product_attention(q0, q1, w1),  # noqa: E731
+                    F.scaled_dot_product_attention(q1, q0, w0))
+    stack = lambda: (  # noqa: E731
+        ls.attention(args[0], args[1], args[3], None, None, None, heads, stat_dtype, out_dtype),
+        ls.attention(args[1], args[0], args[2], None, None, None, heads, stat_dtype, out_dtype,
+                     dir1=True))
+    return sdpa, stack
 
 
 def pb_configs():
@@ -1855,9 +1907,12 @@ def attention_kernel_checks(at, rand, freqs_for, dev, dtypes, fp32_scope, fused_
     their plain versions at the per-block path's shapes, masked, ragged,
     with zero lengths and with several KV tiles; the calls of the main
     per-block runs are timed in bf16 and, for the FP32 rung, in fp32 (SDPA
-    in fp32 with TF32 off beside them)."""
+    in fp32 with TF32 off beside them; the bidirectional kernel also beside
+    two launches of the stack attention on the same operands)."""
     import torch
     import torch.nn.functional as F
+
+    from lightglue_tpu_torch.kernels import layer_stack as ls
 
     e, heads, hd = 256, 4, 64
     i32 = dict(dtype=torch.int32, device=dev)
@@ -1941,18 +1996,7 @@ def attention_kernel_checks(at, rand, freqs_for, dev, dtypes, fp32_scope, fused_
 
     log(f"bidirectional_cross_attention (per pad-to-64 match_pair: 1 launch per layer "
         f"x {N_LAYERS} layers)")
-    bidir_cases = [
-        # label, B, N0, N1, lengths [n0, n1], per-pair launches, stats (as
-        # att_cases')
-        ("960x960 unmasked", 1, PAD64, PAD64, None, N_LAYERS, None),
-        ("960x960 ragged, n1 0", 2, PAD64, PAD64, [[900, 700], [960, 0]], 0, None),
-        ("960x704 masked, n0 0", 2, PAD64, 704, [[950, 700], [0, 500]], 0, None),
-        ("960x704 unmasked", 1, PAD64, 704, None, 0, None),
-        ("960x64 masked (mixed buckets)", 1, PAD64, 64, [[955, 60]], 0, None),
-        ("128x64 masked (one row group a block)", 1, 128, 64, [[100, 50]], 0, None),
-        ("960x704 masked, bf16 stats", 1, PAD64, 704, [[950, 650]], 0, "bf16"),
-    ]
-    for label, b, n0, n1, lens, weight, stats in bidir_cases:
+    for label, b, n0, n1, lens, weight, stats in BIDIR_CASES:
         for tag, dt in dtypes.items():
             if stats and tag != "fp32":
                 continue
@@ -1989,15 +2033,18 @@ def attention_kernel_checks(at, rand, freqs_for, dev, dtypes, fp32_scope, fused_
             ent.err(max(errs))
             if not weight:
                 continue
-            two = (sdpa(args[0], args[1], args[3]), sdpa(args[1], args[0], args[2]))
+            two, stack = bidir_yardsticks(ls, args, heads, kw["stat_dtype"])
             with fp32_scope():  # fp32 SDPA with TF32 off
                 ms = cuda_ms(lambda: at.bidirectional_cross_attention(*args, ln, **kw))
                 plain = cuda_ms(lambda: at.bidirectional_cross_attention_plain(*args, ln, **kw))
-                sdpa2 = cuda_ms(lambda: (two[0](), two[1]()))
+                sdpa2 = cuda_ms(two)
+                stack2 = cuda_ms(stack)
             log(f"  {label} {tag}: two scaled_dot_product_attention calls (one per direction, "
-                f"not one call): {sdpa2:.4f} ms")
+                f"not one call): {sdpa2:.4f} ms; two lg_attention launches (the stack's kernel, "
+                f"one per direction): {stack2:.4f} ms; the bidirectional kernel {ms:.4f} ms")
             # per pad-to-64 match_pair, beside library_ms (null: no one call)
             ent.d["two_sdpa_ms"] = weight * sdpa2
+            ent.d["two_attention_ms"] = weight * stack2
             nbytes = a0.element_size() * (2 * b * (n0 + n1) * e + b * (n0 + n1) * e)
             flops = 6 * b * heads * n0 * n1 * hd  # one S and two P.V products
             # library: none, no single PyTorch call computes both directions
@@ -3499,11 +3546,9 @@ def rung_attention_checks(at, ls, rand, freqs_for, dev, fp32_scope, ents):
 
     log(f"bidirectional_cross_attention MIXED (per pad-to-64 match_pair: 1 launch per layer "
         f"x {N_LAYERS} layers)")
-    for label, b, n0, n1, lens, weight in (
-            ("960x960 unmasked", 1, PAD64, PAD64, None, N_LAYERS),
-            ("960x960 ragged, n1 0", 2, PAD64, PAD64, [[900, 700], [960, 0]], 0),
-            ("960x704 masked", 1, PAD64, 704, [[950, 700]], 0),
-            ("960x64 masked (mixed buckets)", 1, PAD64, 64, [[955, 60]], 0)):
+    for label, b, n0, n1, lens, weight, stats in BIDIR_CASES:
+        if stats:  # fp32 operands at bf16 stats: not a MIXED case
+            continue
         a0, a1 = rand(b, n0, 2 * e, dtype=bf16), rand(b, n1, 2 * e, dtype=bf16)
         args = (a0[..., :e], a1[..., :e], a0[..., e:], a1[..., e:])
         ln = None if lens is None else torch.tensor(lens, **i32)
@@ -3529,6 +3574,13 @@ def rung_attention_checks(at, ls, rand, freqs_for, dev, fp32_scope, ents):
             continue
         ms = cuda_ms(lambda: at.bidirectional_cross_attention(*args, ln, **kw))
         plain = cuda_ms(lambda: at.bidirectional_cross_attention_plain(*args, ln, **kw))
+        two, stack = bidir_yardsticks(ls, args, heads, f32, f32)
+        sdpa2, stack2 = cuda_ms(two), cuda_ms(stack)
+        log(f"  {label} mixed: two scaled_dot_product_attention calls (one per direction, not "
+            f"one call): {sdpa2:.4f} ms; two lg_attention launches (one per direction): "
+            f"{stack2:.4f} ms; the bidirectional kernel {ms:.4f} ms")
+        ents["bidirectional_cross_attention mixed"].d["two_sdpa_ms"] = weight * sdpa2
+        ents["bidirectional_cross_attention mixed"].d["two_attention_ms"] = weight * stack2
         nbytes = 2 * 2 * b * (n0 + n1) * e + 4 * b * (n0 + n1) * e
         # library: none, no single PyTorch call computes both directions
         ents["bidirectional_cross_attention mixed"].add(
@@ -5370,7 +5422,8 @@ def main() -> int:
         "fused_mha": Entry("fused_mha (FP32: fp32 operands, 3xTF32)", src + "flash_attn.cu",
                            ref + "attention.py:687"),
         "bidirectional_cross_attention": Entry(
-            "bidirectional_cross_attention (FP32: fp32 operands, 3xTF32)", src + "bidir_cross.cu",
+            "bidirectional_cross_attention (FP32: fp32 operands, 3xTF32 on wgmma, "
+            "bidir_tf32_wgmma_kernel)", src + "bidir_cross.cu",
             ref + "attention.py:925"),
         "flash_attention": Entry("flash_attention (FP32: fp32 operands, 3xTF32)",
                                  src + "flash_attn.cu", ref + "attention.py:197"),
@@ -5675,7 +5728,8 @@ def main() -> int:
     # ---- the per-block path: 2048-keypoint and pad-to-64 configurations ----
     fused_e = Entry("fused_mha (flash_wgmma_kernel)", "src/lightglue_tpu_torch/csrc/flash_attn.cu",
                     "src/lightglue_tpu/kernels/attention.py:687")
-    bidir_e = Entry("bidirectional_cross_attention", "src/lightglue_tpu_torch/csrc/bidir_cross.cu",
+    bidir_e = Entry("bidirectional_cross_attention (bidir_wgmma_kernel)",
+                    "src/lightglue_tpu_torch/csrc/bidir_cross.cu",
                     "src/lightglue_tpu/kernels/attention.py:925")
     flash_e = Entry("flash_attention (flash_wgmma_kernel)",
                     "src/lightglue_tpu_torch/csrc/flash_attn.cu",
@@ -5729,7 +5783,8 @@ def main() -> int:
                                  stack_src + "flash_attn.cu",
                                  stack_ref + "attention.py:687"),
         "bidirectional_cross_attention mixed": Entry(
-            "bidirectional_cross_attention (MIXED: fp32 out)", stack_src + "bidir_cross.cu",
+            "bidirectional_cross_attention (MIXED: fp32 out, bidir_wgmma_kernel)",
+            stack_src + "bidir_cross.cu",
             stack_ref + "attention.py:925"),
         "flash_attention mixed": Entry("flash_attention (MIXED: fp32 out, flash_wgmma_kernel)",
                                        stack_src + "flash_attn.cu", stack_ref + "attention.py:197"),
@@ -5755,7 +5810,8 @@ def main() -> int:
             f"fused_mha (TP shard, H={heads} local heads: the {mesh_txt} mesh; flash_wgmma_kernel)",
             src + "flash_attn.cu", ref + "attention.py:687")
         tp_ents[("bidirectional_cross_attention", heads)] = Entry(
-            f"bidirectional_cross_attention (TP shard, H={heads} local heads: the {mesh_txt} mesh)",
+            f"bidirectional_cross_attention (TP shard, H={heads} local heads: the {mesh_txt} mesh; "
+            "bidir_wgmma_kernel)",
             src + "bidir_cross.cu", ref + "attention.py:925")
     parallel_checks(at, counters + [at.fused_mha, at.bidirectional_cross_attention], fp32_scope,
                     tp_ents)

@@ -1,5 +1,7 @@
 // Hopper's asynchronous machinery, shared by the warp-specialised kernels
-// (attention.cu:attention_wgmma_kernel and attention_tf32_wgmma_kernel,
+// (attention_tile.cuh's tile bodies, which attention.cu's
+// attention_wgmma_kernel and attention_tf32_wgmma_kernel and bidir_cross.cu's
+// bidir_wgmma_kernel and bidir_tf32_wgmma_kernel run;
 // linear.cu:linear_wgmma_kernel and linear_tf32_wgmma_kernel,
 // flash_attn.cu:flash_wgmma_kernel and flash_tf32_wgmma_kernel) and, for
 // its wgmma pieces alone, conv3x3.cu:conv3x3_tf32_wgmma_kernel:

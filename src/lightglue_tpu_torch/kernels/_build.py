@@ -68,7 +68,6 @@ _SIGNATURES = {
         _I, _I, _I, _I, _F, _I, _I, _I, _P,
     ],
     "lg_rope_qk": [_P, _L, _L, _P, _L, _L, _P, _P, _I, _I, _I, _I, _P],
-    "lg_attention_row_groups": [_I, _I],
     "lg_attention_plan": [_I, _I, _I, _I, _I, ctypes.POINTER(_I)],
     "lg_ln_gelu": [_P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _P],
     "lg_ln_gelu_plan": [_I, ctypes.POINTER(_I)],
@@ -94,7 +93,7 @@ _SIGNATURES = {
         _P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _P, _P, _I, _I, _I,
         _I, _F, _I, _I, _P,
     ],
-    "lg_bidir_plan": [_I, _I, _I, _I, ctypes.POINTER(_I)],
+    "lg_bidir_plan": [_I, _I, _I, _I, _I, _I, ctypes.POINTER(_I)],
 }
 
 # dynamic shared memory one Hopper block may opt into (cudaFuncSetAttribute)

@@ -18,9 +18,11 @@ Counterpart of ``lightglue_tpu/kernels/attention.py``:
   the same kernel.
 - ``bidirectional_cross_attention`` (:925, pallas_call :985): both
   directions of the cross block from one S per head, row softmax for
-  0 -> 1 and column softmax for 1 -> 0, on ``csrc/bidir_cross.cu``, on the
-  tensor cores at the launch plan of ``bidir_plan``: bf16 operands in
-  bf16, fp32 operands in 3xTF32.
+  0 -> 1 and column softmax for 1 -> 0, in one launch of
+  ``csrc/bidir_cross.cu`` at the plan of ``bidir_plan``: the layer stack's
+  attention tile on ``wgmma`` fed by TMA (``csrc/attention_tile.cuh``),
+  bf16 operands in bf16, fp32 operands in 3xTF32; 16 B bases and strides
+  (the wrapper raises on others).
 - ``reference_attention`` (:1012): the naive fp32 oracle, for tests.
 
 Each wrapper launches its kernel on a CUDA tensor and runs its plain
@@ -48,16 +50,17 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from lightglue_tpu_torch.kernels import _build
-from lightglue_tpu_torch.kernels.layer_stack import (_STREAM_STAGES, _check_same, _quant,
-                                                     _stream, apply_rotary, attention_mode,
-                                                     batch_row_groups, mma_smem, tf32_smem)
+from lightglue_tpu_torch.kernels.layer_stack import (_ATT_CLUSTER_SMS, _ATT_SPLIT, MAX_SEQ,
+                                                     _check_same, _quant, _stream, apply_rotary,
+                                                     attention_mode, tf32_split,
+                                                     wgmma_attention_smem,
+                                                     wgmma_tf32_attention_smem)
 
 DEFAULT_BLOCK_Q = 1024
 DEFAULT_BLOCK_K = 1024
 HEAD_DIM = 64  # the kernels' head width
 _NEG_INF = -1e30
 _SMS = 132            # streaming multiprocessors of the H100
-_BIDIR_FILL_BLOCKS = 128  # csrc/bidir_cross.cu: the blocks its row-group rule aims for
 # csrc/flash_attn.cu: consumer warpgroups a block, ring slots a warpgroup
 # (bf16, fp32), the longest block_k whose s pass 1 keeps (bf16), keys of an
 # fp32 ring slot
@@ -269,28 +272,42 @@ def _card_checks(name, dtype, out_dtype, stat_dtype, head_dim, tensors) -> int:
 class BidirPlan(NamedTuple):
     """Launch of ``csrc/bidir_cross.cu`` for one shape."""
 
-    row_groups: int  # 16-row groups per block: 4, 2 or 1
-    col_split: int   # warps of a row group that split each chunk's keys
-    blocks: int      # blocks of the launch: both directions' row blocks
+    row_groups: int  # 16-row groups of a tile: 4, a warpgroup's 64 rows
+    col_split: int   # consumers (of a cluster) that split each row's chunks
+    blocks: int      # blocks of the launch: both directions' tiles
     smem: int        # dynamic shared memory per block, bytes
+    cluster: bool    # a cluster of two blocks a tile (else one block)
+    store: bool      # bf16: pass 1 keeps its rounded s for pass 2 (else pass 2 recomputes S)
+    kernel: str      # the kernel the launch runs
 
 
-def bidir_plan(batch: int, heads: int, n0: int, n1: int, dtype=torch.bfloat16) -> BidirPlan:
-    """The bidirectional kernel's launch for one shape, in either operand
-    type: the split of ``fill_row_groups`` counted over both directions'
-    rows of one pair and aiming for 128 blocks, at every ``batch`` (at 960 x
-    960 two row groups ran 1.6x faster than the stack attention's one in
-    bf16, 1.5x in fp32); one pair's four-warp block, or, where the batch's
-    launch still gives 128 blocks, two or four times its groups in one block
-    (``batch_row_groups``); two K/V chunk buffers (the rows stream through
-    them, so any N fits), bf16 chunks at ``mma_smem``, fp32 ones at
-    ``tf32_smem`` (csrc/bidir_cross.cu:lg_bidir_plan)."""
-    groups, split = batch_row_groups(batch, heads, n0, n1, target=_BIDIR_FILL_BLOCKS,
-                                     grow=_BIDIR_FILL_BLOCKS)
-    rows = 16 * groups
-    smem = tf32_smem if dtype == torch.float32 else mma_smem
-    return BidirPlan(groups, split, batch * heads * (-(-n0 // rows) - (-n1 // rows)),
-                     smem(groups, _STREAM_STAGES, split))
+def bidir_plan(batch: int, heads: int, n0: int, n1: int, dtype=torch.bfloat16,
+               stat_dtype=None) -> BidirPlan:
+    """The bidirectional kernel's launch for one shape, ``dtype`` operands
+    at ``stat_dtype`` statistics (default: ``dtype``)
+    (csrc/bidir_cross.cu:lg_bidir_plan): one grid of both directions'
+    64-row tiles, the layer stack's attention tile on each.
+
+    bf16 operands: ``bidir_wgmma_kernel``, eight consumers splitting each
+    row's 64-key chunks, a cluster of two blocks a tile while the launch's
+    blocks fit the card's 132 SMs, else one block whose warpgroups run two
+    consumers each (the same sums: the batch picks only the form); at bf16
+    statistics pass 1 keeps its rounded s while both sides have at most
+    1024 rows, else pass 2 recomputes S (``wgmma_attention_smem``: shared
+    memory does not grow with N, so any N fits). fp32 operands:
+    ``bidir_tf32_wgmma_kernel`` (3xTF32), ``tf32_split`` over both
+    directions' tiles of one pair, a split of 8 as a cluster of two blocks,
+    4 as one block, at every batch (``wgmma_tf32_attention_smem``)."""
+    tiles = -(-n0 // 64) - (-n1 // 64)  # a head's tiles of both directions
+    if dtype == torch.float32:
+        split = tf32_split(heads, n0, n1)
+        cluster = split == 8
+        return BidirPlan(4, split, batch * heads * tiles * (2 if cluster else 1),
+                         wgmma_tf32_attention_smem(), cluster, False, "bidir_tf32_wgmma_kernel")
+    cluster = 2 * batch * heads * tiles <= _ATT_CLUSTER_SMS
+    store = (stat_dtype or dtype) == torch.bfloat16 and max(n0, n1) <= MAX_SEQ
+    return BidirPlan(4, _ATT_SPLIT, batch * heads * tiles * (2 if cluster else 1),
+                     wgmma_attention_smem(store, cluster), cluster, store, "bidir_wgmma_kernel")
 
 
 def _lengths_arg(lengths, bsz: int, dev):
@@ -675,14 +692,16 @@ def bidirectional_cross_attention(qk0, qk1, v0, v1, lengths=None, *, num_heads: 
     The projection is shared, so scores(1 -> 0) == scores(0 -> 1)^T: one S
     per head, softmax along its rows for image 0's messages and along its
     columns for image 1's. No online rescaling: one softmax over the whole
-    row. The kernel takes it in two passes on the tensor cores (pass 2
-    recomputes S; bf16 operands in bf16, fp32 ones in 3xTF32), both
-    directions in one grid at ``bidir_plan``'s launch; the rows stream
-    through shared memory, so any N fits. The model calls it up to
-    N = 1024.
+    row. The kernel takes it in two passes on Hopper's warpgroup MMA (bf16
+    operands in bf16, fp32 ones in 3xTF32), both directions in one grid at
+    ``bidir_plan``'s launch; the keys stream through shared memory, so any N
+    fits. The model calls it up to N = 1024.
 
     Args:
-      qk0/v0: (B, N0, H*D); qk1/v1: (B, N1, H*D), unit column stride.
+      qk0/v0: (B, N0, H*D); qk1/v1: (B, N1, H*D), unit column stride (column
+        slices of the [qk | v] projection). On the card TMA reads them: 16 B
+        bases and batch and row strides, else a ``ValueError`` (the element
+        loads of the mma.sync kernels for other rows are gone).
       lengths: optional (B, 2) int [n0, n1].
 
     Returns:
@@ -709,6 +728,7 @@ def _bidir_cuda(qk0, qk1, v0, v1, lengths, num_heads, scale, stat_dtype, out_dty
     batch, n0, n1, head_dim = _bidir_shapes(qk0, qk1, v0, v1, num_heads)
     mode = _card_checks("bidirectional_cross_attention", qk0.dtype, out_dtype, stat_dtype,
                         head_dim, (qk0, qk1, v0, v1))
+    _check_tma_rows("bidirectional_cross_attention", qk0, qk1, v0, v1)  # both kernels: TMA
     lengths = _lengths_arg(lengths, batch, qk0.device)
     o0 = torch.empty(qk0.shape, dtype=out_dtype or qk0.dtype, device=qk0.device)
     o1 = torch.empty(qk1.shape, dtype=out_dtype or qk0.dtype, device=qk0.device)

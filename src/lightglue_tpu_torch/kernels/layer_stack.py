@@ -97,11 +97,6 @@ HEAD_DIM = 64   # the attention kernel's head width
 _NEG_INF = -1e30
 _DEAD = _NEG_INF * 0.5  # all-masked-row clamp (layer_stack.py:276-292)
 
-# csrc/mma.cuh: keys per staged chunk, warps of an attention block, bf16 and
-# fp32 row pitches in shared memory, fp32 record per warp row, blocks a
-# launch aims for, K and V chunk buffers of a streamed tile (every fp32 tile)
-_KC, _WARPS, _LD, _FP, _RS = 64, 4, HEAD_DIM + 8, HEAD_DIM + 4, 2 + HEAD_DIM + 8
-_FILL_BLOCKS, _STREAM_STAGES = 256, 2
 # csrc/linear.cu: the wgmma GEMM's (BF16, MIXED, INT8) K chunk, ring slots,
 # tile columns in order of preference and the blocks one pair's tile rule
 # aims for (one per SM); the fp32 (3xTF32) wgmma GEMM's ring slots (its
@@ -110,10 +105,11 @@ _WG_BK, _WG_STAGES, _WG_TILE_N, _WG_FILL = 64, 4, (64, 32), 128
 # csrc/linear.cu: the fp32 GEMM's ring slots while its launch fits the SMs
 # (one block an SM), else (two an SM)
 _TF_DEEP, _TF_SHALLOW, _TF_SMS = 4, 2, 132
-# csrc/attention.cu: the bf16 kernel's consumers splitting each row's
-# chunks, consumer warpgroups a block, ring slots per warpgroup, the SMs
-# that clusters of two blocks a tile must fit (else one block a tile); the
-# fp32 kernel's keys a ring slot holds
+# csrc/attention_tile.cuh (attention.cu's and bidir_cross.cu's kernels): the
+# bf16 tile's consumers splitting each row's chunks, consumer warpgroups a
+# block, ring slots per warpgroup, the SMs that clusters of two blocks a
+# tile must fit (else one block a tile); the fp32 tile's keys a ring slot
+# holds
 _ATT_SPLIT, _ATT_WGS, _ATT_STAGES, _ATT_CLUSTER_SMS = 8, 4, 2, 132
 _ATT_PIECE_KEYS = 32
 # csrc/linear.cu, W8A8: the s8 GEMM's warp tiles of a block (along M, along
@@ -122,66 +118,10 @@ _ATT_PIECE_KEYS = 32
 _S8_TILES, _S8_MIN_BLOCKS, _S8_MAX_K, _S8_WARPS = ((2, 2), (1, 2), (1, 1)), 128, 512, 8
 
 
-def fill_row_groups(heads: int, nq: int, nq2: int = 0, target: int = _FILL_BLOCKS) -> int:
-    """16-row groups per block of the four-warp attention kernels (4, 2 or
-    1): the most that still give one pair (``heads`` heads, ``nq`` rows)
-    ``target`` blocks, else 1; the block's four warps split each 64-key
-    chunk ``4 / groups`` ways (csrc/mma.cuh:fill_row_groups). ``nq2``: the
-    rows of a second direction in the same grid (the bidirectional kernel).
-    The split warps' partial sums meet in shared memory, so the split sets
-    the order of a row's fp32 sums: the rule reads one pair's shape and
-    never the batch, which only adds blocks, and a pair's result is the same
-    in a batch of any size."""
-    for groups in (4, 2):
-        if heads * (-(-nq // (16 * groups)) - (-nq2 // (16 * groups))) >= target:
-            return groups
-    return 1
-
-
-def batch_row_groups(batch: int, heads: int, nq: int, nq2: int = 0, *,
-                     target: int = _FILL_BLOCKS, grow: int = _FILL_BLOCKS) -> Tuple[int, int]:
-    """(16-row groups per block, warps of a group splitting each chunk) of
-    an attention kernel at ``batch``: one pair's split (``fill_row_groups``
-    at ``target``), and one pair's groups, or, where the batch's launch
-    still gives ``grow`` blocks, two or four times as many groups in one
-    block (at most sixteen warps); more rows share each staged K and V
-    chunk, and no row's arithmetic changes (csrc/mma.cuh:batch_plan)."""
-    groups = fill_row_groups(heads, nq, nq2, target)
-    split = _WARPS // groups
-    for g in (4, 2):
-        if g > groups and batch * heads * (-(-nq // (16 * g)) - (-nq2 // (16 * g))) >= grow:
-            return g, split
-    return groups, split
-
-
-def mma_smem(row_groups: int, stages: int, col_split: Optional[int] = None) -> int:
-    """Dynamic shared memory of a bf16 attention block of ``row_groups``
-    16-row groups of ``col_split`` warps (default: four warps in all): Q,
-    ``stages`` K and V chunks, and (columns split) the warps' partial row
-    max, sum p and P.V (csrc/mma.cuh:mma_smem)."""
-    col_split = col_split or _WARPS // row_groups
-    smem = 2 * (16 * row_groups + 2 * _KC * stages) * _LD
-    if col_split > 1:
-        smem += 4 * row_groups * col_split * 16 * _RS
-    return smem
-
-
-def tf32_smem(row_groups: int, stages: int, col_split: Optional[int] = None) -> int:
-    """Dynamic shared memory of an fp32 (3xTF32) attention block of
-    ``row_groups`` 16-row groups of ``col_split`` warps (default: four warps
-    in all): fp32 Q, ``stages`` K and V chunks at the fp32 pitch, and
-    (columns split) the warps' partial row max, sum p and P.V
-    (csrc/mma.cuh:tf32_smem)."""
-    col_split = col_split or _WARPS // row_groups
-    smem = 4 * (16 * row_groups + 2 * _KC * stages) * _FP
-    if col_split > 1:
-        smem += 4 * row_groups * col_split * 16 * _RS
-    return smem
-
-
 def wgmma_attention_smem(store: bool = True, cluster: bool = True) -> int:
-    """Dynamic shared memory of a block of the bf16 attention kernel
-    (csrc/attention.cu:Smem): Q (64 x 64 bf16); each warpgroup's region,
+    """Dynamic shared memory of a block of the bf16 attention tile
+    (csrc/attention_tile.cuh:Smem; attention.cu's and bidir_cross.cu's bf16
+    kernels): Q (64 x 64 bf16); each warpgroup's region,
     its ring of two slots (K, then V, with ``store``: bf16 stats, pass 2
     reading pass 1's s; K and V in one slot without) and its chunks' s
     (``store``), or room for a 64 x 64 fp32 partial (one block a tile,
@@ -197,19 +137,21 @@ def wgmma_attention_smem(store: bool = True, cluster: bool = True) -> int:
             + 8 * (1 + 2 * _ATT_WGS * _ATT_STAGES) + 1024)
 
 
-def tf32_split(heads: int, nq: int) -> int:
-    """Consumers splitting each 64-row tile's chunks in the fp32 stack
-    attention (csrc/attention.cu:tf32_split): 8 where one pair's tiles, two
+def tf32_split(heads: int, nq: int, nq2: int = 0) -> int:
+    """Consumers splitting each 64-row tile's chunks in the fp32 attention
+    tile (csrc/attention_tile.cuh:tf32_split): 8 where one pair's tiles, two
     blocks each, fit the card's SMs (then always a cluster of two blocks a
-    tile), else 4 (one block a tile). One pair's shape sets it, never the
-    batch, which only adds blocks: a row's fp32 sums run in one order at any
-    batch."""
-    return 8 if 2 * heads * -(-nq // 64) <= _ATT_CLUSTER_SMS else 4
+    tile), else 4 (one block a tile). ``nq2``: the rows of a second
+    direction in the same grid (the bidirectional kernel). One pair's shape
+    sets it, never the batch, which only adds blocks: a row's fp32 sums run
+    in one order at any batch."""
+    return 8 if 2 * heads * (-(-nq // 64) - (-nq2 // 64)) <= _ATT_CLUSTER_SMS else 4
 
 
 def wgmma_tf32_attention_smem() -> int:
-    """Dynamic shared memory of a block of the fp32 stack attention
-    (csrc/attention.cu:TfSmem), the same in either form: Q (64 x 64 fp32)
+    """Dynamic shared memory of a block of the fp32 attention tile
+    (csrc/attention_tile.cuh:TfSmem; attention.cu's and bidir_cross.cu's
+    fp32 kernels), the same in either form: Q (64 x 64 fp32)
     and its lo copy; each warpgroup's region, its one ring slot (a 32-key
     piece of K and of V), K's lo copy, V's piece transposed as hi and lo
     (32 x 64 fp32 each; the P.V partial goes over these three); the

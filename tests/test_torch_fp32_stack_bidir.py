@@ -1,24 +1,28 @@
-"""The FP32 rung's 3xTF32 stack attention (csrc/attention.cu:
-attention_tf32_wgmma_kernel, on Hopper's warpgroup MMA) and bidirectional
-kernel (csrc/bidir_cross.cu:bidir_tf32_kernel, on mma.sync) on the CPU.
+"""The FP32 rung's 3xTF32 attention tile on Hopper's warpgroup MMA
+(csrc/attention_tile.cuh:attention_tf32_tile) on the CPU, as both its
+kernels run it: the layer stack's attention (csrc/attention.cu:
+attention_tf32_wgmma_kernel) and both cross directions in one grid
+(csrc/bidir_cross.cu:bidir_tf32_wgmma_kernel).
 
-A 64-row tile of the stack's kernel is emulated as its consumer warpgroups
-compute it: Q and 32-key pieces of K as TMA writes them (128 B swizzle) and
-their lo copies, read through the kernel's K-major descriptors; P from the S
-accumulator as the register-A operand, split; V written transposed in P's
-key order as hi and lo copies; every product hi*lo + lo*hi + hi*hi of
-operands split by truncation; the consumers' chunks in either split, pass
-1's row max, the -5e29 clamp, pass 2's p, sum p and P.V and the meeting in
-the kernel's order (tests/tf32_emulation.py). It is held against
-``layer_stack.attention_plain`` at the fp32 gate (keep masks, a fully pruned
-keep row, lengths of 0 and a kv length inside a chunk). A 16-row group of
-the bidirectional kernel is emulated as its C warps compute it: staged rows
-at the kernel's pitch, fragments placed by the PTX maps of mma.sync m16n8k8,
-held against JAX's ``bidirectional_cross_attention`` at fp32 (Pallas
-interpret mode), an empty side exactly 0 where JAX gives the mean of the
-padded values (ROADMAP queue 3). Also both fp32 launch plans: the stack's
-at its buckets and one to eight pairs, the bidirectional one at the
-pad-to-64 shapes."""
+A 64-row tile is emulated as its consumer warpgroups compute it: Q and
+32-key pieces of K as TMA writes them (128 B swizzle) and their lo copies,
+read through the kernel's K-major descriptors; P from the S accumulator as
+the register-A operand, split; V written transposed in P's key order as hi
+and lo copies; every product hi*lo + lo*hi + hi*hi of operands split by
+truncation; the consumers' chunks in either split, pass 1's row max, the
+-5e29 clamp where the stack masks, pass 2's p, sum p and P.V and the
+meeting in the kernel's order (tests/tf32_emulation.py). The stack's tiles
+are held against ``layer_stack.attention_plain`` at the fp32 gate (keep
+masks, a fully pruned keep row, lengths of 0 and a kv length inside a
+chunk); the bidirectional kernel's tiles of both directions (no clamp, pad
+keys past Nk at -inf, an empty kv side's rows written as zeros first)
+against JAX's ``bidirectional_cross_attention`` at fp32 (Pallas interpret
+mode), an empty side exactly 0 where JAX gives the mean of the padded
+values (ROADMAP queue 3); the same tiles without the pad keys' -inf miss
+the gate, which is what the emulation guards. Also the bidirectional grid
+(each tile of each direction, head and pair once, a cluster's blocks
+together) and both fp32 launch plans: the stack's at its buckets and one to
+eight pairs, the bidirectional one at the pad-to-64 shapes."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -27,145 +31,12 @@ import torch
 
 from lightglue_tpu.kernels import attention as jax_attn
 from lightglue_tpu_torch.kernels import _build, attention, layer_stack
-from tf32_emulation import (a_fragment_matrix, b_operand, index_map, mma_tf32_maps,
-                            p_register, split_rz, tf32_rz, tma_halves, vt_copy, vt_operand)
+from tf32_emulation import (a_fragment_matrix, b_operand, index_map, p_register, tf32_rz,
+                            tma_halves, vt_copy, vt_operand)
 
-FP = 68       # csrc/mma.cuh:FP, the fp32 row pitch of the staged rows
-KC = 64       # csrc/mma.cuh:KC, keys per staged chunk
 NEG, DEAD = -1e30, -5e29
 GATE = dict(atol=1e-4, rtol=1e-4)  # the fp32 rung's gate (chip_smoke.py TOL["fp32"])
-
-_LANES = np.arange(32)
-_G, _T4 = _LANES // 4, _LANES % 4
-_AMAP, _BMAP, _CMAP = (np.array([[m[lane, i] for i in range(n)] for lane in range(32)])
-                       for m, n in zip(mma_tf32_maps(), (4, 2, 4)))  # (32, regs, 2)
-
-
-def _split(x):
-    """(hi, lo) of fp32 registers as mma.sync reads them (split_tf32_rz)."""
-    hi, lo = split_rz(torch.from_numpy(np.ascontiguousarray(x, np.float32)))
-    return hi.numpy(), lo.numpy()
-
-
-def _mma(d, a, b):
-    """d (32, 4) + one m16n8k8 product of per-lane registers a (32, 4) and
-    b (32, 2), placed by the PTX maps; exact products, one fp32 rounding."""
-    am, bm = np.zeros((16, 8)), np.zeros((8, 8))
-    am[_AMAP[..., 0], _AMAP[..., 1]] = a
-    bm[_BMAP[..., 0], _BMAP[..., 1]] = b
-    return (d + (am @ bm)[_CMAP[..., 0], _CMAP[..., 1]]).astype(np.float32)
-
-
-def _mma3(d, ah, al, b):
-    """mma.cuh:mma_3xtf32 with b split as it loads: hi*lo, lo*hi, hi*hi."""
-    bh, bl = _split(b)
-    return _mma(_mma(_mma(d, ah, bl), al, bh), ah, bh)
-
-
-def _quad(x, op):
-    """mma.cuh:quad_max / quad_sum: lanes xor 1, then xor 2."""
-    x = op(x, x[_LANES ^ 1])
-    return op(x, x[_LANES ^ 2])
-
-
-def _group(q, k, v, *, C, live_k, keep_kv=None, clamp):
-    """One 16-row group of the 3xTF32 block (rows past the valid ones zero in
-    q): the kernel's l and P.V of rows 0..15 before its epilogue, (16,) and
-    (16, 64). live_k: the keys that can be live (chunks past them are not
-    computed); keep_kv: (Nk,) keep mask (the stack's KEEP) or None; clamp:
-    the stack's -5e29 clamp of the row max."""
-    nk, kw = k.shape[0], KC // C
-    nt, nc = kw // 8, -(-live_k // KC)
-    scale = np.float32(1 / 8)
-    qs = np.zeros(16 * FP, np.float32)
-    for r in range(16):
-        qs[r * FP:r * FP + 64] = q[r]
-    qh, ql = zip(*(_split(np.stack([qs[_G * FP + kk * 8 + _T4 + off]
-                                    for off in (0, 8 * FP, 4, 8 * FP + 4)], 1))
-                   for kk in range(8)))
-
-    def chunk(x, c):  # a staged chunk, rows past Nk zero
-        buf = np.zeros(KC * FP, np.float32)
-        for j in range(min(KC, nk - c * KC)):
-            buf[j * FP:j * FP + 64] = x[c * KC + j]
-        return buf
-
-    def scores(kbuf, c, part):  # mma.cuh:tf32_scores, then the kernel's masks
-        s = np.zeros((nt, 32, 4), np.float32)
-        for kk in range(8):
-            for n in range(nt):
-                kr = (part * kw + n * 8 + _G) * FP + kk * 8 + _T4
-                s[n] = _mma3(s[n], qh[kk], ql[kk], np.stack([kbuf[kr], kbuf[kr + 4]], 1))
-        col = (c * KC + part * kw + np.arange(nt)[:, None, None] * 8 + 2 * _T4[:, None]
-               + np.arange(4) % 2)
-        x = s * scale
-        if keep_kv is not None or c * KC + KC > live_k:
-            pad = col >= nk
-            dead = (keep_kv[np.minimum(col, nk - 1)] < 0.5) if keep_kv is not None else col >= live_k
-            x = np.where(pad, -np.inf, np.where(dead, NEG, x)).astype(np.float32)
-        return x
-
-    kbufs = [chunk(k, c) for c in range(nc)]
-    vbufs = [chunk(v, c) for c in range(nc)]
-    mx = np.full((C, 32, 2), -np.inf, np.float32)  # pass 1: the row max
-    for part in range(C):
-        for c in range(nc):
-            s = scores(kbufs[c], c, part)
-            mx[part] = np.maximum(mx[part], np.stack([s[..., :2].max((0, 2)),
-                                                      s[..., 2:].max((0, 2))], 1))
-        mx[part] = _quad(mx[part], np.maximum)
-    m = mx.max(0)  # meet_max: the same rows in every warp of the group
-    if clamp:
-        m = np.maximum(m, np.float32(DEAD))
-    ps = np.zeros((C, 32, 2), np.float32)  # pass 2: p, sum p and P.V
-    pv = np.zeros((C, 8, 32, 4), np.float32)
-    for part in range(C):
-        for c in range(nc):
-            p = np.exp(scores(kbufs[c], c, part) - np.repeat(m, 2, 1)).astype(np.float32)
-            for n in range(nt):
-                for e in range(4):
-                    ps[part, :, e // 2] += p[n, :, e]
-            for kk in range(nt):  # mma.cuh:tf32_pv, P unshuffled from the accumulator
-                ah, al = _split(p[kk][:, [0, 2, 1, 3]])
-                for dn in range(8):
-                    vr = (part * kw + kk * 8 + 2 * _T4) * FP + dn * 8 + _G
-                    pv[part, dn] = _mma3(pv[part, dn], ah, al,
-                                         np.stack([vbufs[c][vr], vbufs[c][vr + FP]], 1))
-        ps[part] = _quad(ps[part], np.add)
-    l_sum, pv_sum = np.zeros((32, 2), np.float32), np.zeros((8, 32, 4), np.float32)
-    for part in range(C):  # meet_sums, in warp order
-        l_sum += ps[part]
-        pv_sum += pv[part]
-    l_rows, pv_rows = np.zeros(16, np.float32), np.zeros((16, 64), np.float32)
-    for lane in range(32):
-        g, t4 = divmod(lane, 4)
-        for i in range(2):
-            l_rows[g + 8 * i] = l_sum[lane, i]
-            for dn in range(8):
-                pv_rows[g + 8 * i, dn * 8 + 2 * t4:dn * 8 + 2 * t4 + 2] = pv_sum[dn, lane,
-                                                                                 2 * i:2 * i + 2]
-    return l_rows, pv_rows
-
-
-def _rows(q, k, v, *, C, lq, live_k, keep_q=None, keep_kv=None, clamp):
-    """The kernel's output rows of one head (Nq, 64) over its 16-row
-    groups: a group wholly past q_len writes zeros; o = P.V / (l == 0 ? 1 :
-    l), then the keep multiply (KEEP) or rows past q_len 0."""
-    nq = q.shape[0]
-    out = np.zeros((nq, 64), np.float32)
-    for i0 in range(0, nq, 16):
-        if keep_q is None and i0 >= lq:
-            continue
-        qg = np.zeros((16, 64), np.float32)
-        qg[:min(16, nq - i0)] = q[i0:i0 + 16]
-        l, pv = _group(qg, k, v, C=C, live_k=live_k, keep_kv=keep_kv, clamp=clamp)
-        o = pv / np.where(l == 0, np.float32(1), l)[:, None]
-        rows = i0 + np.arange(16)
-        o = o * keep_q[np.minimum(rows, nq - 1)][:, None] if keep_q is not None else np.where(
-            (rows < lq)[:, None], o, 0)
-        n = min(16, nq - i0)
-        out[i0:i0 + n] = o[:n]
-    return out
+SMS = 132  # the card's SMs, which a split of 8's clusters of two blocks a tile must fit
 
 
 def _freqs(rng, n):
@@ -180,7 +51,7 @@ def _rotate(f, x):
 
 
 # ---------------------------------------------------------------------------
-# the stack's fp32 kernel on wgmma (csrc/attention.cu:attention_tf32_wgmma_kernel)
+# the fp32 tile on wgmma (csrc/attention_tile.cuh:attention_tf32_tile)
 # ---------------------------------------------------------------------------
 
 # the flat indices each layout reads, computed once: a k8 step of a K-major
@@ -209,8 +80,8 @@ def _kmajor(flat, rows, kk):
     return flat[_KMAJOR[rows][kk]].T.astype(np.float64)
 
 
-def _wgmma_tile(q, k, v, *, split, live_k, keep_kv=None, clamp):
-    """One 64-row tile of attention_tf32_wgmma_kernel in numpy (rows past
+def _wgmma_tile(q, k, v, *, split, live_k, keep_kv=None, clamp, pad=True):
+    """One 64-row tile of attention_tf32_tile in numpy (rows past
     Nq zero in q): Q as TMA writes it (two 32-float halves, 128 B swizzle)
     and its lo copy; consumer gc takes chunks j = gc, gc + split, .. below
     live_k, each as two 32-key pieces: S = Q_hi.K_lo + Q_lo.K_hi + Q_hi.K_hi
@@ -220,7 +91,8 @@ def _wgmma_tile(q, k, v, *, split, live_k, keep_kv=None, clamp):
     as register A against V^T's hi and lo copies (keys in P's slot order)
     through their descriptors; the consumers' partials met in the kernel's
     order (a split of 8: q_c = p_c + p_{c + 4}, then q_0 .. q_3). Returns
-    the tile's l (64,) and P.V (64, 64) before the epilogue."""
+    the tile's l (64,) and P.V (64, 64) before the epilogue. ``pad=False``
+    is a wrong design: keys past Nk keep the score of TMA's zero rows."""
     nk = k.shape[0]
     nc = -(-live_k // 64)
     scale = np.float32(1 / 8)
@@ -243,7 +115,8 @@ def _wgmma_tile(q, k, v, *, split, live_k, keep_kv=None, clamp):
         if keep_kv is not None or row + 32 > live_k:
             dead = (keep_kv[np.minimum(col, nk - 1)] < 0.5) if keep_kv is not None else (
                 col >= live_k)
-            x = np.where(col >= nk, -np.inf, np.where(dead, NEG, x)).astype(np.float32)
+            x = np.where(dead & (col < nk), NEG, x)
+            x = np.where((col >= nk) & pad, -np.inf, x).astype(np.float32)
         return x
 
     rows_of = [[j * 64 + 32 * hp for j in range(gc, nc, split) for hp in (0, 1)]
@@ -276,7 +149,7 @@ def _wgmma_tile(q, k, v, *, split, live_k, keep_kv=None, clamp):
     return l_sum, pv_sum
 
 
-def _wgmma_rows(q, k, v, *, split, lq, live_k, keep_q=None, keep_kv=None, clamp):
+def _wgmma_rows(q, k, v, *, split, lq, live_k, keep_q=None, keep_kv=None, clamp, pad=True):
     """The kernel's output rows of one head (Nq, 64) over its 64-row tiles:
     a tile wholly past q_len writes zeros; o = P.V / (l == 0 ? 1 : l), then
     the keep multiply (KEEP) or rows past q_len 0."""
@@ -287,7 +160,8 @@ def _wgmma_rows(q, k, v, *, split, lq, live_k, keep_q=None, keep_kv=None, clamp)
             continue
         qt = np.zeros((64, 64), np.float32)
         qt[:min(64, nq - i0)] = q[i0:i0 + 64]
-        l, pv = _wgmma_tile(qt, k, v, split=split, live_k=live_k, keep_kv=keep_kv, clamp=clamp)
+        l, pv = _wgmma_tile(qt, k, v, split=split, live_k=live_k, keep_kv=keep_kv, clamp=clamp,
+                            pad=pad)
         o = pv / np.where(l == 0, np.float32(1), l)[:, None]
         rows = i0 + np.arange(64)
         o = o * keep_q[np.minimum(rows, nq - 1)][:, None] if keep_q is not None else np.where(
@@ -342,44 +216,111 @@ def test_stack_tf32_block_by_fragments_matches_plain(case):
     assert not got[zero].any()
 
 
-# (B, N0, N1, lengths [n0, n1] per pair or None, C)
+def _bidir_rows(qk0, qk1, v0, v1, lens, split, pad=True):
+    """Both outputs of one head (H = 1) as bidir_tf32_wgmma_kernel computes
+    them, a direction's tiles through _wgmma_rows: direction 0 (Q, K, V) =
+    (qk0, qk1, v1) with lengths (n0, n1), direction 1 (qk1, qk0, v0) with
+    (n1, n0); no clamp; an empty kv side as a q length of 0 (its tiles write
+    their zeros first)."""
+    outs = ([], [])
+    for i, (len0, len1) in enumerate(lens):
+        for o, (q, k, v, lq, lk) in enumerate(((qk0[i], qk1[i], v1[i], len0, len1),
+                                                (qk1[i], qk0[i], v0[i], len1, len0))):
+            live_k = max(min(lk, k.shape[0]), 0)
+            outs[o].append(_wgmma_rows(q, k, v, split=split, lq=lq if live_k else 0,
+                                       live_k=live_k, clamp=False, pad=pad))
+    return tuple(np.stack(x) for x in outs)
+
+
+def _bidir_inputs(b, n0, n1, lens, seed=83):
+    rng = np.random.default_rng(seed)
+    ops = tuple(rng.standard_normal((b, n, 64), dtype=np.float32) for n in (n0, n1, n0, n1))
+    ln = np.asarray(lens or [[n0, n1]] * b, np.int32)
+    want = jax_attn.bidirectional_cross_attention(
+        *map(jnp.asarray, ops), None if lens is None else jnp.asarray(ln), num_heads=1)
+    return ops, ln, tuple(np.asarray(w) for w in want)
+
+
+# (B, N0, N1, lengths [n0, n1] per pair or None, split)
 BIDIR_CASES = {
-    "unmasked 32x80, C 4": (1, 32, 80, None, 4),
-    "ragged 48x192, kv lengths inside chunks, C 2": (2, 48, 192, [[40, 150], [48, 70]], 2),
-    "n1 0 and n0 0, C 1": (3, 32, 128, [[30, 0], [0, 100], [20, 128]], 1),
+    "unmasked 32x80, split 8": (1, 32, 80, None, 8),
+    "ragged 48x192, kv lengths inside chunks, split 4": (2, 48, 192, [[40, 150], [48, 70]], 4),
+    "n1 0 and n0 0, split 8": (3, 32, 128, [[30, 0], [0, 100], [20, 128]], 8),
+    "masked 80x320, a consumer's second chunk, split 4": (1, 80, 320, [[70, 300]], 4),
+    "unmasked 72x600, keys past Nk inside a piece, split 8": (1, 72, 600, None, 8),
 }
 
 
 @pytest.mark.parametrize("case", list(BIDIR_CASES))
 def test_bidir_tf32_block_by_fragments_matches_jax(case):
-    """bidir_tf32_kernel's blocks of both directions, emulated through the
-    PTX maps in 3xTF32 ((Q, K, V) = (qk0, qk1, v1) with lengths (n0, n1),
-    then (qk1, qk0, v0) with (n1, n0); no clamp), agree with JAX's
-    bidirectional_cross_attention at fp32 (H = 1, Pallas interpret mode)
-    within the fp32 gate 1e-4; padded rows are exactly 0, and so is every
-    row of a direction whose kv side is empty, where JAX gives the mean of
-    the padded values (the port's documented departure, ROADMAP queue 3)."""
-    b, n0, n1, lens, c = BIDIR_CASES[case]
-    rng = np.random.default_rng(83)
-    qk0, qk1, v0, v1 = (rng.standard_normal((b, n, 64), dtype=np.float32)
-                        for n in (n0, n1, n0, n1))
-    ln = np.asarray(lens or [[n0, n1]] * b, np.int32)
-    want = jax_attn.bidirectional_cross_attention(
-        *map(jnp.asarray, (qk0, qk1, v0, v1)), None if lens is None else jnp.asarray(ln),
-        num_heads=1)
-    for i in range(b):
-        len0, len1 = ln[i]
-        for o, (q, k, v, lq, lk) in enumerate(((qk0[i], qk1[i], v1[i], len0, len1),
-                                                (qk1[i], qk0[i], v0[i], len1, len0))):
-            got = np.zeros((q.shape[0], 64), np.float32)
-            if lk:  # an empty kv side: the block writes its zero rows first
-                got = _rows(q, k, v, C=c, lq=lq, live_k=lk, clamp=False)
-            rows = np.arange(q.shape[0]) >= lq
-            assert not got[rows].any()
+    """bidir_tf32_wgmma_kernel's 64-row tiles of both directions, emulated
+    through the wgmma layouts in 3xTF32 ((Q, K, V) = (qk0, qk1, v1) with
+    lengths (n0, n1), then (qk1, qk0, v0) with (n1, n0); no clamp; pad keys
+    past Nk at -inf, where Nk is no multiple of 64 or 32; chunks past the
+    live keys skipped), agree with JAX's bidirectional_cross_attention at
+    fp32 (H = 1, Pallas interpret mode) within the fp32 gate 1e-4 at either
+    split; padded rows are exactly 0, and so is every row of a direction
+    whose kv side is empty, where JAX gives the mean of the padded values
+    (the port's documented departure, ROADMAP queue 3)."""
+    b, n0, n1, lens, split = BIDIR_CASES[case]
+    (qk0, qk1, v0, v1), ln, want = _bidir_inputs(b, n0, n1, lens)
+    got = _bidir_rows(qk0, qk1, v0, v1, ln, split)
+    for o in (0, 1):
+        for i in range(b):
+            lq, lk = ln[i, o], ln[i, 1 - o]
+            assert not got[o][i, lq:].any()
             if lk == 0:
-                assert not got.any()
+                assert not got[o][i].any()
                 continue
-            np.testing.assert_allclose(got, np.asarray(want[o][i]), **GATE)
+            np.testing.assert_allclose(got[o][i], want[o][i], **GATE)
+
+
+@pytest.mark.parametrize("shape", [(40, 80), (72, 600)], ids=["32x80", "72x600"])
+def test_bidir_pad_keys_past_nk_are_masked(shape):
+    """The premise of the pad keys' -inf: without it (TMA brings rows past
+    Nk as zeros, whose score is 0), the emulated tiles miss the fp32 gate
+    against JAX, unmasked, in the direction whose Nk is no multiple of 64;
+    so the emulation above holds the kernel to it."""
+    n0, n1 = shape
+    (qk0, qk1, v0, v1), ln, want = _bidir_inputs(1, n0, n1, None)
+    wrong = _bidir_rows(qk0, qk1, v0, v1, ln, 8, pad=False)
+    assert np.abs(wrong[0] - want[0]).max() > 10 * GATE["atol"]
+
+
+def _grid(batch, heads, n0, n1, split):
+    """(pair, head, direction, first row, cluster rank) of each block of
+    bidir_tf32_wgmma_kernel's grid as the kernel reads blockIdx: x over
+    direction 0's tiles, CLUSTER blocks each, then direction 1's."""
+    cluster = 2 if split == 8 else 1
+    t0, t1 = -(-n0 // 64), -(-n1 // 64)
+    for bz in range(batch):
+        for by in range(heads):
+            for bx in range(cluster * (t0 + t1)):
+                tile = bx // cluster
+                dir1 = tile >= t0
+                yield bz, by, int(dir1), (tile - t0 if dir1 else tile) * 64, bx % cluster
+
+
+@pytest.mark.parametrize("shape", [(1, 4, 960, 960), (2, 4, 960, 704), (1, 1, 960, 960),
+                                   (1, 2, 960, 64)],
+                         ids=lambda s: "B{} H{} {}x{}".format(*s))
+def test_bidir_grid_covers_each_tile_once(shape):
+    """The plan's grid covers every 64-row tile of both directions, every
+    head and pair, once per block of its form (a split of 8's two blocks a
+    cluster, consecutive in x, ranks 0 and 1), and no block reaches past its
+    direction's rows; the launch's blocks are the plan's."""
+    b, h, n0, n1 = shape
+    plan = attention.bidir_plan(b, h, n0, n1, torch.float32)
+    blocks = list(_grid(b, h, n0, n1, plan.col_split))
+    assert len(blocks) == plan.blocks
+    cluster = 2 if plan.cluster else 1
+    seen = {}
+    for bz, by, d, i0, rank in blocks:
+        assert i0 < (n0, n1)[d]
+        seen.setdefault((bz, by, d, i0), []).append(rank)
+    assert all(ranks == list(range(cluster)) for ranks in seen.values())
+    assert sorted(seen) == sorted((bz, by, d, i0) for bz in range(b) for by in range(h)
+                                  for d, n in enumerate((n0, n1)) for i0 in range(0, n, 64))
 
 
 # the stack's buckets at one to eight pairs
@@ -423,25 +364,35 @@ def test_fp32_attention_plan_mirrors_the_split_rule(shape):
     assert layer_stack.tf32_split(8, 1024) == 4  # 128 tiles of a pair: one block a tile
 
 
-# (B, N0, N1) -> fp32 row groups: the pad-to-64 cap, its mixed buckets, two
-# pairs (two of one pair's groups in an eight-warp block)
-PAD64_PLANS = {(1, 960, 960): 2, (1, 960, 704): 2, (1, 960, 64): 2, (2, 960, 960): 4,
-               (2, 960, 64): 4, (1, 128, 64): 1}
+# (B, N0, N1, H): the pad-to-64 cap, its mixed buckets, two pairs, the TP
+# shards' heads
+PAD64_PLANS = [(1, 960, 960, 4), (1, 960, 704, 4), (1, 960, 64, 4), (2, 960, 960, 4),
+               (1, 960, 960, 2), (1, 960, 960, 1)]
 
 
-@pytest.mark.parametrize("shape", list(PAD64_PLANS), ids=[f"B{b} {n0}x{n1}"
-                                                         for b, n0, n1 in PAD64_PLANS])
+@pytest.mark.parametrize("shape", PAD64_PLANS, ids=[f"B{b} {n0}x{n1} H{h}"
+                                                    for b, n0, n1, h in PAD64_PLANS])
 def test_fp32_bidir_plan_at_pad64_shapes(shape):
-    """bidir_plan's fp32 launch at the pad-to-64 route's shapes: both
-    directions' 16-row groups aiming for 128 blocks (csrc/bidir_cross.cu:
-    BIDIR_FILL_BLOCKS), tf32_smem, two blocks an SM."""
-    b, n0, n1 = shape
-    groups = PAD64_PLANS[shape]
-    plan = attention.bidir_plan(b, 4, n0, n1, torch.float32)
-    rows = 16 * groups
-    split = attention.bidir_plan(1, 4, n0, n1, torch.float32).col_split  # the pair's
-    assert (plan.row_groups, plan.col_split) == (groups, split)
-    assert plan.blocks == b * 4 * (-(-n0 // rows) - (-n1 // rows))
-    assert groups == 1 or plan.blocks >= 128
-    assert plan.smem == layer_stack.tf32_smem(groups, 2, split)
-    assert (1 if groups * split > 4 else 2) * plan.smem <= _build.MAX_DYNAMIC_SMEM
+    """bidir_plan's fp32 launch at the pad-to-64 route's shapes is the rule
+    of csrc/bidir_cross.cu:bidir_plan, computed here: both directions' 64-row
+    tiles a head, split 8 as a cluster of two blocks where one pair's tiles,
+    two blocks each, fit the card's 132 SMs, else 4 in one block; the split
+    and the form one pair's at B = 1, 2, 4 and 8, the batch only adding
+    blocks; the fp32 tile's shared memory (the stack's), whatever N; one
+    block an SM."""
+    b, n0, n1, h = shape
+    tiles = -(-n0 // 64) + -(-n1 // 64)
+    split = 8 if 2 * h * tiles <= SMS else 4
+    plan = attention.bidir_plan(b, h, n0, n1, torch.float32)
+    assert plan.kernel == "bidir_tf32_wgmma_kernel"
+    assert (plan.row_groups, plan.col_split, plan.cluster, plan.store) == (4, split, split == 8,
+                                                                            False)
+    assert plan.blocks == b * h * tiles * (2 if split == 8 else 1)
+    assert plan.smem == _tf32_smem() == layer_stack.wgmma_tf32_attention_smem()
+    assert plan.smem <= _build.MAX_DYNAMIC_SMEM
+    for batch in (1, 2, 4, 8):
+        other = attention.bidir_plan(batch, h, n0, n1, torch.float32)
+        assert other[:2] == plan[:2] and other.cluster == plan.cluster
+        assert other.blocks == batch * plan.blocks // b
+    for sdt in (torch.float32, torch.bfloat16):  # bf16 stats take the same launch
+        assert attention.bidir_plan(b, h, n0, n1, torch.float32, sdt) == plan

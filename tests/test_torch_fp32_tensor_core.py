@@ -1,13 +1,12 @@
 """The FP32 rung's 3xTF32 kernels on the CPU: csrc/flash_attn.cu's
 flash_tf32_wgmma_kernel (fused_mha, flash_attention, flash_attention_step at
-fp32 operands), csrc/linear.cu's linear_tf32_wgmma_kernel and mma.cuh's
-3xTF32 attention block on mma.sync (attention.cu's attention_tf32_kernel,
-bidir_cross.cu's bidir_tf32_kernel). The premise of 3xTF32 at the attention
-and linear shapes, emulated; the mma.sync block's fragment addressing
-against the PTX tables of m16n8k8, with P taken from the S accumulator into
-P.V's A operand without a shuffle, and a step computed through it; the fp32
-GEMM's tile through its wgmma layouts (tests/test_torch_fp32_wgmma.py holds
-the flash kernel's); the fp32 launch plans; and the wrappers' CPU path
+fp32 operands), csrc/linear.cu's linear_tf32_wgmma_kernel and the fp32
+attention tile (csrc/attention_tile.cuh, which attention.cu's and
+bidir_cross.cu's fp32 kernels run; its tiles are emulated in
+tests/test_torch_fp32_stack_bidir.py). The premise of 3xTF32 at the
+attention and linear shapes, emulated; the fp32 GEMM's tile through its
+wgmma layouts (tests/test_torch_fp32_wgmma.py holds the flash kernel's);
+the fp32 launch plans; and the wrappers' CPU path
 against JAX at fp32 where tests/test_torch_attention.py, test_torch_ring.py
 and test_torch_quant.py do not reach (tiles that end in a short chunk, fp32
 operands with bf16 stats, the fp32 projections)."""
@@ -22,10 +21,8 @@ import torch
 from lightglue_tpu.kernels import attention as jax_attn
 from lightglue_tpu.kernels.layer_stack import _dot
 from lightglue_tpu_torch.kernels import _build, attention, layer_stack
-from tf32_emulation import (a_fragment_matrix, acc_at, b_operand, mma_tf32_maps, split_rz, tf32,
-                            tf32_rz, tma_halves)
+from tf32_emulation import a_fragment_matrix, acc_at, b_operand, split_rz, tf32, tma_halves
 
-FP = 68        # csrc/mma.cuh:FP, the fp32 row pitch of the mma.sync block's tiles
 GATE = 1e-4    # the fp32 rung's gate (chip_smoke.py TOL["fp32"])
 
 
@@ -47,8 +44,8 @@ def _mm1(a, b):
 # ---------------------------------------------------------------------------
 
 # (B, H, Nq, Nk, lengths): a self and a masked cross call at head dim 64;
-# the layer stack's masked 1024 bucket (attention_tf32_kernel) and the
-# pad-to-64 route's 960 x 960 (bidir_tf32_kernel, one direction)
+# the layer stack's masked 1024 bucket and the pad-to-64 route's 960 x 960
+# (the bidirectional kernel, one direction): both on the fp32 attention tile
 ATTENTION_PREMISE = {"self 1x4x256": (1, 256, 256, None),
                      "cross 2x4x128x384, masked": (2, 128, 384, [[128, 300], [100, 384]]),
                      "stack 1x4x1024, masked": (1, 1024, 1024, [[1000, 900]]),
@@ -110,161 +107,8 @@ def test_3xtf32_linear_premise(kn):
 
 
 # ---------------------------------------------------------------------------
-# fragment addressing (the kernels' shared-memory offsets against PTX)
+# the fp32 GEMM's tile through its wgmma layouts
 # ---------------------------------------------------------------------------
-
-
-def _flash_maps():
-    """mma.cuh's 3xTF32 attention block's fragments as it addresses them, per (lane,
-    register): Q's A register i at qr[{0, 8 FP, 4, 8 FP + 4}[i]] past qr =
-    qs + (row g) FP + t4, so (row, dim) = (g + off // FP, t4 + off % FP);
-    K's B register i at kr[{0, 4}[i]] past kr = kbuf + (key g) FP + t4, so
-    (k = dim, n = key) = (t4 + off, g); V's B register i at vr[{0, FP}[i]]
-    past vr = vbuf + (key 2 t4) FP + dim g, so (key, dim) = (2 t4 + i, g);
-    P's A register i is S accumulator register (0, 2, 1, 3)[i]."""
-    qa, kb, vb = {}, {}, {}
-    for lane in range(32):
-        g, t4 = divmod(lane, 4)
-        for i, off in enumerate((0, 8 * FP, 4, 8 * FP + 4)):
-            qa[lane, i] = (g + off // FP, t4 + off % FP)
-        for i, off in enumerate((0, 4)):
-            kb[lane, i] = (t4 + off, g)
-        for i, off in enumerate((0, FP)):
-            vb[lane, i] = (2 * t4 + off // FP, g)
-    return qa, kb, vb, (0, 2, 1, 3)
-
-
-def test_flash_fragment_maps_are_ptx_and_spread_over_the_banks():
-    """Q's A fragment and K's B fragment are the PTX layout; P's A register
-    i holds the S accumulator's element (row, key) = (row of A register i,
-    2 t4 + i // 2): k slot t4 is key 2 t4 and slot t4 + 4 key 2 t4 + 1 of
-    the 8-key step, and V's B register i is read at the key of slot t4 +
-    4 i. A warp's K loads (key g, dim t4) and V loads (key 2 t4, dim g) fall
-    in 32 different banks at the 68-float pitch."""
-    amap, bmap, cmap = mma_tf32_maps()
-    qa, kb, vb, perm = _flash_maps()
-    assert qa == amap and kb == bmap
-    for lane in range(32):
-        g, t4 = divmod(lane, 4)
-        for i in range(4):
-            row, slot = amap[lane, i]
-            assert cmap[lane, perm[i]] == (row, 2 * t4 + i // 2)  # P register i's element
-            assert slot == t4 + 4 * (i // 2)
-        for i in range(2):
-            slot, col = bmap[lane, i]
-            assert vb[lane, i] == (2 * (slot % 4) + slot // 4, col)  # the key of its slot
-    assert len({(g * FP + t4) % 32 for g in range(8) for t4 in range(4)}) == 32
-    assert len({(2 * t4 * FP + g) % 32 for g in range(8) for t4 in range(4)}) == 32
-
-
-def _through_fragments(a_frag, b_frag):
-    """D (rows x cols, float64) of one mma.sync m16n8k8 from per-lane
-    registers: a_frag[lane, i] and b_frag[lane, i] are values, placed where
-    the PTX layout takes them; D is read back per lane through the C map."""
-    amap, bmap, cmap = mma_tf32_maps()
-    a, b = np.zeros((16, 8)), np.zeros((8, 8))
-    for (lane, i), (r, c) in amap.items():
-        a[r, c] = a_frag[lane, i]
-    for (lane, i), (r, c) in bmap.items():
-        b[r, c] = b_frag[lane, i]
-    d = a @ b
-    return {(lane, i): d[r, c] for (lane, i), (r, c) in cmap.items()}
-
-
-def test_flash_step_by_fragments_matches_attention():
-    """One 16-row group against one 64-key chunk as a warp of
-    mma.cuh's 3xTF32 attention block computes it: S = Q.K^T through Q's and K's fragments
-    at the kernel's offsets (8 k steps x 8 n tiles), then P = S (any values
-    stand for p here) from the accumulator into the A operand by the
-    kernel's register order, times V read at the kernel's offsets (8 k
-    steps x 8 dim tiles), each result placed where the kernel stores
-    pv[dn][2 i + j] (row g + 8 i, dim dn 8 + 2 t4 + j). Both products agree
-    with Q.K^T and S.V in float64, exactly up to the sum order."""
-    rng = np.random.default_rng(47)
-    q = rng.standard_normal((16, 64))
-    kv = rng.standard_normal((2, 64, 64))  # K and V of a 64-key chunk, [key][dim]
-    qs = np.zeros(16 * FP)
-    for r in range(16):
-        qs[r * FP:r * FP + 64] = q[r]
-    kbuf, vbuf = np.zeros(64 * FP), np.zeros(64 * FP)
-    for j in range(64):
-        kbuf[j * FP:j * FP + 64], vbuf[j * FP:j * FP + 64] = kv[0, j], kv[1, j]
-    s = np.zeros((8, 32, 4))  # s[n][lane][e]
-    for kk in range(8):
-        qf, kf = {}, {}
-        for lane in range(32):
-            g, t4 = divmod(lane, 4)
-            qr = g * FP + kk * 8 + t4
-            for i, off in enumerate((0, 8 * FP, 4, 8 * FP + 4)):
-                qf[lane, i] = qs[qr + off]
-        for n in range(8):
-            for lane in range(32):
-                g, t4 = divmod(lane, 4)
-                kr = (n * 8 + g) * FP + kk * 8 + t4
-                kf[lane, 0], kf[lane, 1] = kbuf[kr], kbuf[kr + 4]
-            for (lane, e), x in _through_fragments(qf, kf).items():
-                s[n, lane, e] += x
-    got_s = np.zeros((16, 64))
-    for n in range(8):
-        for lane in range(32):
-            g, t4 = divmod(lane, 4)
-            for e in range(4):
-                got_s[g + 8 * (e // 2), n * 8 + 2 * t4 + e % 2] = s[n, lane, e]
-    np.testing.assert_allclose(got_s, q @ kv[0].T, rtol=1e-12, atol=1e-12)
-    pv = np.zeros((16, 64))
-    for kk in range(8):  # P.V: 8 keys a step, P straight from the accumulator
-        pf = {(lane, i): s[kk, lane, (0, 2, 1, 3)[i]] for lane in range(32) for i in range(4)}
-        for dn in range(8):
-            vf = {}
-            for lane in range(32):
-                g, t4 = divmod(lane, 4)
-                vr = (kk * 8 + 2 * t4) * FP + dn * 8 + g
-                vf[lane, 0], vf[lane, 1] = vbuf[vr], vbuf[vr + FP]
-            for (lane, e), x in _through_fragments(pf, vf).items():
-                g, t4 = divmod(lane, 4)
-                pv[g + 8 * (e // 2), dn * 8 + 2 * t4 + e % 2] += x
-    np.testing.assert_allclose(pv, got_s @ kv[1], rtol=1e-12, atol=1e-12)
-
-
-def test_pv_step_in_3xtf32_through_the_key_order():
-    """The 16 x 8 . 8 x 64 P.V step of mma.cuh:tf32_pv in 3xTF32: P
-    (softmax-like values in [0, 1]) from the S accumulator layout, split into
-    (hi, lo) in registers by truncation (lo read truncated by mma.sync), V
-    split as its fragments load, the three TF32 products summed per
-    register; within 2^-20 of |P|.|V| of P.V in float64 (2.1e-6 here),
-    where one TF32 product (hi alone) is off by over 1e-4."""
-    rng = np.random.default_rng(53)
-    p = rng.uniform(0, 1, (16, 8)).astype(np.float32)
-    v = rng.standard_normal((8, 64)).astype(np.float32)
-    _, _, cmap = mma_tf32_maps()
-    acc = {(lane, i): p[cmap[lane, i]] for lane in range(32) for i in range(4)}  # S layout
-    t = lambda x: tf32_rz(torch.tensor(x, dtype=torch.float32)).item()  # noqa: E731
-    out3, out1 = np.zeros((16, 64)), np.zeros((16, 64))
-    for dn in range(8):
-        ph, pl, vh, vl, pw, vw = {}, {}, {}, {}, {}, {}
-        for lane in range(32):
-            g, t4 = divmod(lane, 4)
-            for i in range(4):
-                x = acc[lane, (0, 2, 1, 3)[i]]
-                ph[lane, i] = t(x)
-                pl[lane, i] = t(np.float32(x - np.float32(ph[lane, i])))
-            for i in range(2):
-                x = v[2 * t4 + i, dn * 8 + g]
-                vh[lane, i] = t(x)
-                vl[lane, i] = t(np.float32(x - np.float32(vh[lane, i])))
-        parts = [_through_fragments(a, b) for a, b in ((ph, vl), (pl, vh), (ph, vh))]
-        for lane in range(32):
-            g, t4 = divmod(lane, 4)
-            for e in range(4):
-                at = (g + 8 * (e // 2), dn * 8 + 2 * t4 + e % 2)
-                out3[at] = sum(part[lane, e] for part in parts)
-                out1[at] = parts[2][lane, e]
-    want = p.astype(np.float64) @ v.astype(np.float64)
-    # each operand within 2^-21 of its value (truncated hi, lo read
-    # truncated), lo * lo dropped: every product within 2^-20 of its value
-    mag = np.abs(p).astype(np.float64) @ np.abs(v).astype(np.float64)
-    assert (np.abs(out3 - want) <= 2.0 ** -20 * mag).all()
-    assert np.abs(out1 - want).max() > GATE
 
 
 def _w_fragment_at(warp, lane, i, kk):
